@@ -1,0 +1,93 @@
+"""Decoder configuration + the llama/mistral HF config translators.
+
+Counterpart of mistralrs_tpu/models/config.py, holding the fields the
+ported serving path reads. Other architectures' translators are later work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch: str
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    max_position_embeddings: int = 4096
+    norm_eps: float = 1e-5
+    act: str = "silu"
+    rope_theta: float = 10000.0
+    rope_scaling: dict[str, Any] | None = None
+    # sliding-window attention: "none" | "all" (mistral-style, every layer)
+    sliding_window: int | None = None
+    sliding_window_pattern: str = "none"
+    query_scale: float | None = None  # overrides 1/sqrt(head_dim)
+    tie_word_embeddings: bool = False
+
+    def __post_init__(self):
+        if self.num_heads % self.num_kv_heads:
+            raise ValueError(f"{self.num_heads} heads over {self.num_kv_heads} kv heads")
+
+    def layer_uses_sliding_window(self, layer_idx: int) -> bool:
+        return self.sliding_window is not None and self.sliding_window_pattern == "all"
+
+
+def _base(hf: dict[str, Any], arch: str, **over: Any) -> ModelConfig:
+    num_heads = hf["num_attention_heads"]
+    hidden = hf["hidden_size"]
+    fields = dict(
+        arch=arch,
+        vocab_size=hf["vocab_size"],
+        hidden_size=hidden,
+        intermediate_size=hf["intermediate_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=num_heads,
+        num_kv_heads=hf.get("num_key_value_heads", num_heads),
+        head_dim=hf.get("head_dim") or hidden // num_heads,
+        max_position_embeddings=hf.get("max_position_embeddings", 4096),
+        norm_eps=hf.get("rms_norm_eps", 1e-5),
+        rope_theta=hf.get("rope_theta", 10000.0),
+        rope_scaling=hf.get("rope_scaling"),
+        tie_word_embeddings=hf.get("tie_word_embeddings", False),
+        act=hf.get("hidden_act") or "silu",
+    )
+    fields.update(over)
+    return ModelConfig(**fields)
+
+
+def _llama(hf):
+    return _base(hf, "llama")
+
+
+def _mistral(hf):
+    return _base(
+        hf, "mistral",
+        sliding_window=hf.get("sliding_window"),
+        sliding_window_pattern="all" if hf.get("sliding_window") else "none",
+    )
+
+
+_TRANSLATORS = {
+    "LlamaForCausalLM": _llama,
+    "MistralForCausalLM": _mistral,
+    "llama": _llama,
+    "mistral": _mistral,
+}
+
+
+def config_from_hf(hf: dict[str, Any]) -> ModelConfig:
+    """Translate an HF `config.json` dict. Tries `architectures`, then `model_type`."""
+    for a in hf.get("architectures") or []:
+        if a in _TRANSLATORS:
+            return _TRANSLATORS[a](hf)
+    mt = hf.get("model_type")
+    if mt in _TRANSLATORS:
+        return _TRANSLATORS[mt](hf)
+    raise ValueError(f"unsupported architecture: {hf.get('architectures') or mt}")

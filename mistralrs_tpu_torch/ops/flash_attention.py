@@ -1,0 +1,77 @@
+"""Causal flash attention for first prefill chunks (kernel K6).
+
+Counterpart of the library Pallas kernel
+`jax.experimental.pallas.ops.tpu.flash_attention` that
+mistralrs_tpu/models/decoder.py::_attention calls on a first prompt chunk:
+the chunk's own K/V is its whole context, so no paged gather is needed and
+the [B, Hq, T, T] score matrix is never written to memory.
+
+Layouts are the decoder's: q [B, T, Hq, D], k/v [B, T, Hkv, D]; query head
+h reads kv head h // (Hq/Hkv) directly, without repeating K/V. The kernel
+(csrc/flash_prefill.cu) takes bf16 with D = 128 and any T; the softmax runs
+in f32. `flash_prefill` takes the plain version below when (and only when)
+its tensors lie on the CPU; on a CUDA tensor it launches the kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mistralrs_tpu_torch.ops import kernels
+from mistralrs_tpu_torch.ops.attention import NEG_INF
+
+# launches of the kernel (one per wrapper call that launched it)
+flash_prefill_launches = 0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """Plain PyTorch version: masked f32 einsum/softmax, any device."""
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.to(torch.float32).reshape(B, T, Hkv, G, D)
+    s = torch.einsum("bthgd,bshd->bhgts", qg, k.to(torch.float32)) * scale
+    keep = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgts,bshd->bthgd", p, v.to(torch.float32))
+    return o.reshape(B, T, Hq, D).to(q.dtype)
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """Causal attention of a first prefill chunk -> [B, T, Hq, D] in q's dtype."""
+    global flash_prefill_launches
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    if not (k.shape == v.shape == (B, T, Hkv, D) and Hkv >= 1 and Hq % Hkv == 0):
+        raise ValueError(f"flash_prefill: q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} are not [B,T,Hq,D] / [B,T,Hkv,D] with Hq % Hkv == 0")
+    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+        return flash_prefill_plain(q, k, v, scale)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"flash_prefill: {name} on {t.device}, expected one cuda device")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"flash_prefill: {name} is {t.dtype}; the kernel takes bfloat16")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_prefill: {name} must be contiguous and 16-byte aligned")
+    if D != 128:
+        raise ValueError(f"flash_prefill: head dim {D}; the kernel takes 128")
+    out = torch.empty_like(q)
+    if T == 0 or B == 0:
+        return out
+    fn = kernels.function("flash_prefill", "flash_prefill",
+                          [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P])
+    err = fn(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(out), B, T, Hq, Hkv,
+             float(scale), _P(kernels.stream_ptr(q.device)))
+    kernels.check(err, "flash_prefill")
+    flash_prefill_launches += 1
+    return out

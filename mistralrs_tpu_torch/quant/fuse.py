@@ -1,0 +1,140 @@
+"""Projection fusion (q|k|v, gate|up), lm_head out-padding and the Q6_K requant.
+
+Counterpart of mistralrs_tpu/quant/fuse.py. Fusion is a pure layout
+transform: every packed layout here keeps `out` on the last axis of each
+data tensor, so fused projections are concatenations along it, and each
+output column's bytes stay independent. Fewer, wider GEMV calls also mean
+fewer kernel launches per decode step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from mistralrs_tpu_torch.quant.qlinear import Linear
+
+# data keys concatenated on the out axis, per kind
+_CAT_AXIS1 = {
+    "dense": ("w",),
+    "gguf_q4k": ("qs", "scale", "minv"),
+    "gguf_q8_0": ("q", "scale"),
+    "gguf_q6k": ("ql", "qh", "scale"),
+}
+# K-side constants shared by same-in linears (q6k permutation tables)
+_SHARED_K = ("perm", "inv_perm")
+
+
+def fuse_linears(lins: list[Linear]) -> Linear | None:
+    """Concatenate same-kind, same-in-features linears along out-features.
+    Returns None when they cannot fuse (mixed kinds, metas or biases)."""
+    kind = lins[0].kind
+    if kind not in _CAT_AXIS1 or any(l.kind != kind for l in lins):
+        return None
+    if len({l.shape[0] for l in lins}) != 1 or len({l.meta for l in lins}) != 1:
+        return None
+    has_bias = [l.data.get("b") is not None for l in lins]
+    if any(has_bias) and not all(has_bias):
+        return None
+    data = {key: torch.cat([l.data[key] for l in lins], dim=-1) for key in _CAT_AXIS1[kind]}
+    if all(has_bias):
+        data["b"] = torch.cat([l.data["b"] for l in lins], dim=-1)
+    for key in _SHARED_K:
+        if key in lins[0].data:
+            data[key] = lins[0].data[key]
+    out = sum(l.shape[1] for l in lins)
+    return Linear(kind=kind, shape=(lins[0].shape[0], out), data=data, meta=lins[0].meta)
+
+
+def split_linear(lin: Linear, sizes: list[int]) -> list[Linear] | None:
+    """Inverse of fuse_linears: slice a Linear into out-feature spans (views)."""
+    if lin.kind not in _CAT_AXIS1:
+        return None
+    if sum(sizes) != lin.shape[1]:
+        raise ValueError(f"split sizes {sizes} do not add up to {lin.shape[1]}")
+    outs = []
+    off = 0
+    for size in sizes:
+        data = {key: lin.data[key][..., off : off + size] for key in _CAT_AXIS1[lin.kind]}
+        if lin.data.get("b") is not None:
+            data["b"] = lin.data["b"][..., off : off + size]
+        for key in _SHARED_K:
+            if key in lin.data:
+                data[key] = lin.data[key]
+        outs.append(Linear(kind=lin.kind, shape=(lin.shape[0], size), data=data, meta=lin.meta))
+        off += size
+    return outs
+
+
+def pad_linear_out(lin: Linear, mult: int = 2048) -> Linear | None:
+    """Zero-pad a packed Linear's out-features to a multiple of `mult` (the
+    Q4_K_M lm_head: 32000 -> 32768). Zero bytes and zero scales decode to
+    w == 0 in every format here; compute_logits slices the padding off.
+    Returns None for dense weights or when padding would add more than 1/8."""
+    kind = lin.kind
+    if kind not in _CAT_AXIS1 or kind == "dense":
+        return None
+    out = lin.shape[1]
+    pad = (-out) % mult
+    if pad == 0:
+        return lin
+    if pad > out // 8:
+        return None
+    data = {key: torch.nn.functional.pad(lin.data[key], (0, pad)) for key in _CAT_AXIS1[kind]}
+    if lin.data.get("b") is not None:
+        data["b"] = torch.nn.functional.pad(lin.data["b"], (0, pad))
+    for key in _SHARED_K:
+        if key in lin.data:
+            data[key] = lin.data[key]
+    return Linear(kind=kind, shape=(lin.shape[0], out + pad), data=data, meta=lin.meta)
+
+
+def fuse_decoder_params(params):
+    """Fuse q/k/v -> qkv (or q/k -> qk when v's kind differs, as in the
+    Q4_K_M mix), gate/up -> gateup in every layer, and pad the lm_head's
+    vocab to the 2048 multiple. Returns new DecoderParams; the input is not
+    changed."""
+    layers = []
+    for lp in params.layers:
+        lp = dict(lp)
+        attn = dict(lp["attn"])
+        if all(k in attn for k in ("q", "k", "v")):
+            fused = fuse_linears([attn["q"], attn["k"], attn["v"]])
+            if fused is not None:
+                attn = {k: v for k, v in attn.items() if k not in ("q", "k", "v")}
+                attn["qkv"] = fused
+            else:
+                fused_qk = fuse_linears([attn["q"], attn["k"]])
+                if fused_qk is not None:
+                    attn = {k: v for k, v in attn.items() if k not in ("q", "k")}
+                    attn["qk"] = fused_qk
+        lp["attn"] = attn
+        mlp = dict(lp["mlp"])
+        if "gate" in mlp and "up" in mlp:
+            fused = fuse_linears([mlp["gate"], mlp["up"]])
+            if fused is not None:
+                mlp = {k: v for k, v in mlp.items() if k not in ("gate", "up")}
+                mlp["gateup"] = fused
+        lp["mlp"] = mlp
+        layers.append(lp)
+    lm_head = params.lm_head
+    if lm_head is not None:
+        lm_head = pad_linear_out(lm_head) or lm_head
+    return dataclasses.replace(params, layers=layers, lm_head=lm_head)
+
+
+def requant_q6k_params(params, gs: int = 64):
+    """Requantize every Q6_K Linear (layers and lm_head) to the int8 per-gs
+    layout served by the K2 kernel (gguf_linear.requant_q6k_to_q8)."""
+    from mistralrs_tpu_torch.quant.gguf_linear import requant_q6k_to_q8
+
+    def conv(node):
+        if isinstance(node, Linear):
+            return requant_q6k_to_q8(node, gs) if node.kind == "gguf_q6k" else node
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return node
+
+    return dataclasses.replace(params, layers=[conv(lp) for lp in params.layers],
+                               lm_head=conv(params.lm_head))

@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Where a prefill and a decode step of the PyTorch port spend their time,
+on one NVIDIA card.
+
+    python3 scripts/torch_decode_profile.py [--layers 32] [--batch 16]
+
+Builds the Mistral-7B Q4_K_M random-weight model of chip_smoke.py. After a
+warm-up that runs each step once untraced (a first use of a kernel or a
+GEMM shape costs up to ~0.2 s of host time), traces one batched
+first-chunk prefill engine step each of FEW 40-token prompts (a 64-token
+bucket), FEW 200-token prompts (fewer than the `--batch` decode slots, as
+when a few requests arrive) and `--batch` 200-token prompts, then times greedy multistep decode calls (8
+forwards each, median of 5) with the host clock and traces one with
+torch.profiler. Prints JSON lines: a summary per phase (wall time, the
+device's busy share = sum of kernel times over the traced wall time,
+kernel launches), then the top device kernels and host ops by time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+FEW = 4  # prompts in the traced prefill steps that fill a few of the slots
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=16)
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    from chip_smoke import Sizes, model_config, random_q4km_params
+    from mistralrs_tpu_torch.engine.engine import Engine, GenerationRequest
+    from mistralrs_tpu_torch.engine.sampler import SamplingParams
+    from mistralrs_tpu_torch.models.loader import make_rope
+    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    sz = Sizes()
+    cfg = model_config(sz, args.layers)
+    params = random_q4km_params(sz, args.layers, dev, torch.Generator(device=dev).manual_seed(0),
+                                torch.bfloat16)
+    pc = PipelineConfig(page_size=16, num_pages=1024, max_seqs=args.batch, max_model_len=2048,
+                        prefill_buckets=(64, 256), decode_steps=8, device="cuda")
+    pipe = TextPipeline(cfg, params, make_rope(cfg, 2048, device=dev), pc)
+    del params
+    eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
+    rng = np.random.default_rng(1)
+    name = torch.cuda.get_device_name(0)
+
+    def add(n, max_len, plen=200):
+        return [eng.add_request(GenerationRequest(
+            [int(t) for t in rng.integers(1, sz.vocab, plen)], SamplingParams(max_len=max_len)))
+            for _ in range(n)]
+
+    def traced_prefill(n, max_len, plen=200):
+        groups = add(n, max_len, plen)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()  # one batched first-chunk prefill (ends in a device->host fetch)
+            wall = time.perf_counter() - t0
+        if any(s.state.value in ("waiting", "running_prefill") for g in groups for s in g.seqs):
+            raise RuntimeError("the prefill took more than one engine step")
+        report(f"prefill_{n}x{plen}", name, args, prof, wall, {
+            "prefill_ms": wall * 1e3, "prompts": n, "prompt_tokens": plen * n})
+        return groups
+
+    for n, plen in ((args.batch, 200), (FEW, 40), (FEW, 200)):
+        warm = add(n, 1, plen)
+        while not all(g.all_done() for g in warm):
+            eng.step()
+    traced_prefill(FEW, 1, 40)  # max_len 1: done after its prefill step
+    traced_prefill(FEW, 1)
+    groups = traced_prefill(args.batch, 1000)
+    seqs = [g.seqs[0] for g in groups]
+    for s in seqs:  # reserve pages for the timed calls' KV writes
+        eng.block_manager.append_slot(s, pc.decode_steps)
+
+    def call():
+        pipe.run_decode_multi(seqs)  # ends in a device->host copy (synchronizes)
+        for s in seqs:
+            s.kv_len -= pc.decode_steps  # rewind: replay the same positions
+
+    call()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        call()
+        times.append(time.perf_counter() - t0)
+    step_ms = 1e3 * statistics.median(times) / pc.decode_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        wall = time.perf_counter() - t0
+    report("decode", name, args, prof, wall, {
+        "forward_ms": step_ms, "forward_ms_all": [1e3 * t / pc.decode_steps for t in times],
+        "tok_s": args.batch * 1e3 / step_ms, "forwards_traced": pc.decode_steps})
+    return 0
+
+
+def report(phase, name, args, prof, wall, extra) -> None:
+    ka = prof.key_averages()
+    kernels = [e for e in ka if e.self_device_time_total > 0
+               and getattr(e.device_type, "name", "") == "CUDA"]  # device-side events only
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+    print(json.dumps({"phase": phase, "device": name, "layers": args.layers, "batch": args.batch,
+                      **extra, "traced_wall_ms": wall * 1e3, "device_busy_ms": dev_us / 1e3,
+                      "device_busy_share": dev_us / 1e6 / wall, "launches": launches}))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(json.dumps({"phase": phase, "kernel": e.key[:90], "count": e.count,
+                          "device_ms": e.self_device_time_total / 1e3}))
+    for e in sorted(ka, key=lambda e: -e.self_cpu_time_total)[:8]:
+        print(json.dumps({"phase": phase, "host_op": e.key[:90], "count": e.count,
+                          "host_ms": e.self_cpu_time_total / 1e3}))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,69 @@
+"""chip_smoke.py's model builders at a tiny size on the CPU, and its refusal
+to run without a CUDA card.
+
+The card run builds the same Q4_K_M-mix model at full Mistral-7B width; here
+the builders run at hidden 512 so a fault in them shows before a card is
+asked for. The served model must reach the pipeline as the mix it claims to
+be: Q4_K everywhere but attn_v, the use_more_bits ffn_down layers and the
+lm_head, which the pipeline requantizes from Q6_K to int8 per 32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from mistralrs_tpu_torch.engine.engine import Engine, GenerationRequest
+from mistralrs_tpu_torch.engine.sampler import SamplingParams
+from mistralrs_tpu_torch.models.loader import make_rope
+from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
+
+TINY = chip_smoke.Sizes(vocab=1920, hidden=512, inter=1024, heads=4, kv_heads=2, layers=8)
+
+
+def _params(n_layers):
+    gen = torch.Generator().manual_seed(0)
+    return chip_smoke.random_q4km_params(TINY, n_layers, torch.device("cpu"), gen, torch.float32)
+
+
+@pytest.mark.parametrize("i", range(8))
+def test_builder_puts_the_q4km_mix_in_each_layer(i):
+    layer = _params(8).layers[i]
+    kinds = {k: lin.kind for part in ("attn", "mlp") for k, lin in layer[part].items()}
+    down = "gguf_q6k" if chip_smoke.use_more_bits(i, 8) else "gguf_q4k"
+    assert kinds == {"q": "gguf_q4k", "k": "gguf_q4k", "v": "gguf_q6k", "o": "gguf_q4k",
+                     "gate": "gguf_q4k", "up": "gguf_q4k", "down": down}
+    q = layer["attn"]["q"]
+    assert q.shape == (512, 4 * 128) and q.data["qs"].shape == (256, 512)
+    assert float(q.data["scale"].min()) >= 0.001 and float(q.data["scale"].max()) < 0.005
+
+
+def test_builder_model_serves_through_the_engine():
+    """Two layers of the tiny model, fused and requantized by the pipeline,
+    serve a long and a short prompt with the plain versions."""
+    cfg = chip_smoke.model_config(TINY, 2)
+    pc = PipelineConfig(page_size=16, num_pages=64, max_seqs=4, max_model_len=512,
+                        prefill_buckets=(64, 256), decode_steps=4, dtype=torch.float32,
+                        device="cpu")
+    pipe = TextPipeline(cfg, _params(2), make_rope(cfg, 512, device="cpu"), pc)
+    layer = pipe.params.layers[0]
+    assert set(layer["attn"]) == {"qk", "v", "o"} and set(layer["mlp"]) == {"gateup", "down"}
+    assert layer["attn"]["v"].kind == "gguf_q8_0" and pipe.params.lm_head.kind == "gguf_q8_0"
+    eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
+    rng = np.random.default_rng(1)
+    groups = [eng.add_request(GenerationRequest([int(t) for t in rng.integers(1, TINY.vocab, n)],
+                                                SamplingParams(max_len=6)))
+              for n in (150, 40)]
+    while not all(g.all_done() for g in groups):
+        eng.step()
+    for g in groups:
+        (seq,) = g.seqs
+        assert seq.num_generated == 6
+        assert all(0 <= t < TINY.vocab for t in seq.generated_tokens)
+    assert np.isfinite(pipe.last_greedy_pack).all()
+
+
+def test_main_refuses_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() != 0
+    assert '"ok"' not in capsys.readouterr().out

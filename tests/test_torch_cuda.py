@@ -1,0 +1,133 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA Hopper card and nvcc; without a card they
+skip. This file imports neither jax nor the JAX package, so it also runs on
+a machine that has only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+from mistralrs_tpu_torch.ops import flash_attention as fa
+from mistralrs_tpu_torch.ops import quant_matmul as qm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _acts(B, K, dev, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn(B, K, generator=g) * 2.0).to(dev)
+
+
+@pytest.mark.parametrize("B", [1, 3, 16, 40])
+@pytest.mark.parametrize("K,O", [(512, 256), (4096, 1024), (1024, 272)])
+def test_q4k_q8_gemv_matches_plain(dev, B, K, O):
+    g = torch.Generator(device="cpu").manual_seed(B * 7 + K)
+    qs = torch.randint(0, 256, (K // 2, O), generator=g, dtype=torch.uint8).to(dev)
+    scale = (torch.rand(K // 32, O, generator=g) * 0.004 + 0.001).to(dev, torch.bfloat16)
+    minv = (torch.rand(K // 32, O, generator=g) * 0.002).to(dev, torch.bfloat16)
+    for xdt in (torch.float32, torch.bfloat16):
+        x = _acts(B, K, dev, B).to(xdt)
+        got = qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.float32)
+        want = qm.q4k_q8_gemv_plain(x, qs, scale, minv, torch.float32)
+        torch.cuda.synchronize()
+        # the same int8 codes and exact int32 dots on both sides; only the
+        # f32 order of the per-block scaled sums (and of xsum) differs
+        tol = 1e-5 * float(want.abs().max()) + 1e-5
+        assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("gs,sdt", [(32, torch.float32), (64, torch.float32),
+                                    (32, torch.bfloat16), (64, torch.bfloat16)])
+@pytest.mark.parametrize("B", [1, 16, 20])
+@pytest.mark.parametrize("O", [512, 144])
+def test_q8_0_q8_gemv_matches_plain(dev, gs, sdt, B, O):
+    K = 1024
+    g = torch.Generator(device="cpu").manual_seed(gs + B)
+    q = torch.randint(-128, 128, (K, O), generator=g, dtype=torch.int8).to(dev)
+    s = (torch.rand(K // gs, O, generator=g) * 0.01).to(dev, sdt)
+    x = _acts(B, K, dev, 3).to(torch.bfloat16)
+    got = qm.q8_0_q8_gemv(x, q, s, gs, out_dtype=torch.float32)
+    want = qm.q8_0_q8_gemv_plain(x, q, s, gs, torch.float32)
+    torch.cuda.synchronize()
+    tol = 1e-5 * float(want.abs().max()) + 1e-5
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("B,T,Hq,Hkv", [(1, 128, 4, 2), (2, 200, 8, 2), (1, 64, 4, 4),
+                                        (1, 1, 2, 1), (4, 512, 32, 8)])
+def test_flash_prefill_matches_plain(dev, B, T, Hq, Hkv):
+    g = torch.Generator(device="cpu").manual_seed(T + Hq)
+    q = torch.randn(B, T, Hq, 128, generator=g).to(dev, torch.bfloat16)
+    k = torch.randn(B, T, Hkv, 128, generator=g).to(dev, torch.bfloat16)
+    v = torch.randn(B, T, Hkv, 128, generator=g).to(dev, torch.bfloat16)
+    got = fa.flash_prefill(q, k, v, 128 ** -0.5).float()
+    want = fa.flash_prefill_plain(q, k, v, 128 ** -0.5).float()
+    torch.cuda.synchronize()
+    # both round the f32 result to bf16 once (2^-8 relative); the kernel also
+    # rounds P to bf16 before P.V (2^-8 relative per weight, averaging out
+    # over the keys), and its f32 sums run in another order
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(2, 96, dtype=torch.bfloat16, device=dev)  # K % 64 != 0
+    with pytest.raises(ValueError):
+        qm.q4k_q8_gemv(x, torch.zeros(48, 8, dtype=torch.uint8, device=dev),
+                       torch.zeros(3, 8, dtype=torch.bfloat16, device=dev),
+                       torch.zeros(3, 8, dtype=torch.bfloat16, device=dev))
+    x = torch.zeros(2, 128, dtype=torch.bfloat16, device=dev)[:, ::2]  # not contiguous
+    with pytest.raises(ValueError):
+        qm.q8_0_q8_gemv(x, torch.zeros(64, 8, dtype=torch.int8, device=dev),
+                        torch.zeros(2, 8, device=dev), 32)
+    q = torch.zeros(1, 4, 2, 128, dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError):
+        fa.flash_prefill(q, q[:, :, :1].contiguous(), q[:, :, :1].contiguous(), 1.0)
+
+
+@pytest.mark.parametrize("K,O", [(512, 256), (1024, 272)])
+def test_dequant_kernels_match_plain_exactly(dev, K, O):
+    """The prefill route's dequantization rounds as the plain bf16 ops do."""
+    g = torch.Generator(device="cpu").manual_seed(K + O)
+    qs = torch.randint(0, 256, (K // 2, O), generator=g, dtype=torch.uint8).to(dev)
+    scale = (torch.rand(K // 32, O, generator=g) * 0.004 + 0.001).to(dev, torch.bfloat16)
+    minv = (torch.rand(K // 32, O, generator=g) * 0.002).to(dev, torch.bfloat16)
+    got = qm.q4k_dequant(qs, scale, minv, torch.bfloat16)
+    assert torch.equal(got, qm.q4k_dequant_plain(qs, scale, minv, torch.bfloat16))
+    q = torch.randint(-128, 128, (K, O), generator=g, dtype=torch.int8).to(dev)
+    for gs, sdt in ((32, torch.float32), (64, torch.float32), (32, torch.bfloat16)):
+        s = (torch.rand(K // gs, O, generator=g) * 0.01).to(dev, sdt)
+        got = qm.q8_0_dequant(q, s, gs, torch.bfloat16)
+        assert torch.equal(got, qm.q8_0_dequant_plain(q, s, gs, torch.bfloat16))
+
+
+def test_q6k_forward_raises_below_the_prefill_route(dev):
+    """gguf_q6k has no GEMV kernel yet: at decode row counts the card raises
+    instead of running cuBLAS in its place; more than 256 rows take the
+    prefill route (dequantize + matmul)."""
+    from mistralrs_tpu_torch.quant.gguf_linear import q6k_chunk_size, q6k_perm
+    from mistralrs_tpu_torch.quant.qlinear import Linear, linear
+
+    K, O = 512, 256
+    g = torch.Generator(device="cpu").manual_seed(6)
+    perm = torch.from_numpy(q6k_perm(K, q6k_chunk_size(K)))
+    lin = Linear("gguf_q6k", (K, O), {
+        "ql": torch.randint(0, 256, (K // 2, O), generator=g, dtype=torch.uint8).to(dev),
+        "qh": torch.randint(0, 256, (K // 4, O), generator=g, dtype=torch.uint8).to(dev),
+        "scale": (torch.rand(K // 16, O, generator=g) * 0.004).to(dev, torch.bfloat16),
+        "perm": perm.to(dev), "inv_perm": torch.argsort(perm).to(dev)}, meta=q6k_chunk_size(K))
+    with pytest.raises(NotImplementedError):
+        linear(lin, torch.zeros(2, 128, K, dtype=torch.bfloat16, device=dev))
+    y = linear(lin, _acts(257, K, dev, 4).to(torch.bfloat16))
+    assert y.shape == (257, O) and bool(torch.isfinite(y).all())

@@ -1,0 +1,62 @@
+"""The PyTorch port imports neither jax nor the JAX package.
+
+One subprocess imports mistralrs_tpu_torch and then each of its submodules in
+turn, recording after each import whether `jax` or `mistralrs_tpu` has entered
+sys.modules; every module is one case.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "mistralrs_tpu_torch"
+
+
+def _module_names() -> list[str]:
+    names = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        names.append(".".join(parts))
+    return names
+
+
+MODULES = _module_names()
+
+_PROBE = """
+import importlib, json, sys
+out = {}
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+    out[name] = sorted(m for m in sys.modules
+                       if m == "jax" or m.startswith("jax.")
+                       or m == "mistralrs_tpu" or m.startswith("mistralrs_tpu."))
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def imported():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", _PROBE, *MODULES], capture_output=True,
+                       text=True, timeout=120, cwd=ROOT, env=env)
+    assert r.returncode == 0, r.stderr
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def test_every_module_is_listed():
+    assert "mistralrs_tpu_torch" in MODULES
+    assert "mistralrs_tpu_torch.ops.quant_matmul" in MODULES
+    assert len(MODULES) >= 25
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_module_imports_without_jax(imported, module):
+    assert imported[module] == [], f"{module} pulled in {imported[module]}"

@@ -1,0 +1,102 @@
+"""Shared inputs for the tests of the PyTorch port (tests/test_torch_*.py).
+
+A tiny model in the Q4_K_M type mix, built in the JAX package from seeded
+numpy weights through its own quantizer (kquants.quantize) and packers, and
+carried into the port with params_from_reference, so that both packages
+compute on the same packed bytes. Everything is float32 on the CPU.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from mistralrs_tpu.gguf.reader import GGMLType
+from mistralrs_tpu.models.config import ModelConfig as JModelConfig
+from mistralrs_tpu.models.decoder import DecoderParams as JDecoderParams
+from mistralrs_tpu.models.loader import group_layers
+from mistralrs_tpu.quant import kquants
+from mistralrs_tpu.quant.gguf_linear import linear_from_gguf
+from mistralrs_tpu_torch.models.config import ModelConfig
+from mistralrs_tpu_torch.models.loader import params_from_reference
+
+# int8 activation rounding allowance for whole-model logits, relative to a
+# step's largest |logit| (measured at most 1.03% on this model; see
+# tests/test_torch_slice.py), and the KV page size of the tests
+SLICE_RTOL = 0.03
+PAGE = 16
+
+# hidden 512, 4 heads of 128 over 2 kv heads, intermediate 1024; a vocab of
+# 1920 makes pad_linear_out pad the lm_head to 2048
+TINY = dict(arch="mistral", vocab_size=1920, hidden_size=512, intermediate_size=1024,
+            num_layers=3, num_heads=4, num_kv_heads=2, head_dim=128,
+            max_position_embeddings=1024, rope_theta=1e6)
+
+
+def use_more_bits(i: int, n: int) -> bool:
+    """llama.cpp use_more_bits() (bench.py:173): ffn_down layers in Q6_K."""
+    return i < n // 8 or i >= 7 * n // 8 or (i - n // 8) % 3 == 2
+
+
+def quantized(rng, gtype, out_f: int, in_f: int, std: float):
+    """(raw GGUF bytes, JAX Linear) of a seeded normal weight [out, in]."""
+    w = (rng.standard_normal((out_f, in_f)) * std).astype(np.float32)
+    raw = kquants.quantize(w, gtype)
+    return raw, linear_from_gguf(raw, gtype, (out_f, in_f), dtype=jnp.float32)
+
+
+def jax_q4km_params(seed: int = 0, **over):
+    """(JAX ModelConfig, JAX DecoderParams) of a tiny Q4_K_M-mix model: q, k,
+    o, gate, up in Q4_K; v, lm_head and the use_more_bits ffn_down in Q6_K."""
+    kw = dict(TINY, **over)
+    cfg = JModelConfig(**kw)
+    rng = np.random.default_rng(seed)
+    H, I, D, L = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim, cfg.num_layers
+    Q4, Q6 = GGMLType.Q4_K, GGMLType.Q6_K
+
+    def lin(gtype, out_f, in_f, std=0.05):
+        return quantized(rng, gtype, out_f, in_f, std)[1]
+
+    layers = []
+    for i in range(L):
+        layers.append({
+            "attn": {"q": lin(Q4, cfg.num_heads * D, H), "k": lin(Q4, cfg.num_kv_heads * D, H),
+                     "v": lin(Q6, cfg.num_kv_heads * D, H), "o": lin(Q4, H, cfg.num_heads * D)},
+            "mlp": {"gate": lin(Q4, I, H), "up": lin(Q4, I, H),
+                    "down": lin(Q6 if use_more_bits(i, L) else Q4, H, I, 0.03)},
+            "input_norm": {"w": jnp.asarray(1.0 + 0.1 * rng.standard_normal(H), jnp.float32)},
+            "post_attn_norm": {"w": jnp.asarray(1.0 + 0.1 * rng.standard_normal(H), jnp.float32)},
+        })
+    groups, sizes = group_layers(layers)
+    embed = rng.standard_normal((cfg.vocab_size, H)).astype(np.float32)
+    # "bigram" lm_head: row (7i + 3) mod V is 0.05 * embed[i], so the token
+    # after i is decided with a wide top-2 margin while the layers still move
+    # every logit's value; plus noise, quantized to Q6_K like a real output.weight
+    nxt = (7 * np.arange(cfg.vocab_size) + 3) % cfg.vocab_size
+    head = (rng.standard_normal((cfg.vocab_size, H)) * 0.01).astype(np.float32)
+    head[nxt] += 0.05 * embed
+    raw = kquants.quantize(head, Q6)
+    params = JDecoderParams(
+        embed=jnp.asarray(embed),
+        layer_groups=groups,
+        final_norm={"w": jnp.ones((H,), jnp.float32)},
+        lm_head=linear_from_gguf(raw, Q6, (cfg.vocab_size, H), dtype=jnp.float32),
+        group_sizes=sizes,
+    )
+    return cfg, params
+
+
+def port_params(jparams):
+    """The same weights as the port's DecoderParams (f32, CPU)."""
+    return params_from_reference(jax.tree.map(np.asarray, jparams), device="cpu",
+                                 dtype=torch.float32)
+
+
+def port_config(jcfg) -> ModelConfig:
+    return ModelConfig(**{k: getattr(jcfg, k) for k in (
+        "arch", "vocab_size", "hidden_size", "intermediate_size", "num_layers", "num_heads",
+        "num_kv_heads", "head_dim", "max_position_embeddings", "norm_eps", "act", "rope_theta",
+        "rope_scaling", "sliding_window", "sliding_window_pattern", "query_scale",
+        "tie_word_embeddings")})

@@ -12,7 +12,8 @@ non-zero and never prints the final line):
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    shapes of a Mistral-7B Q4_K_M decode step (batch 16 and 1) and of a
    prefill chunk of 256 rows (the most the GEMVs take), of first
-   prefill chunks and of the prefill route's dequantization, with the
+   prefill chunks, of continuation chunks and decode steps over a paged
+   context of up to 4096 tokens, and of the prefill route's dequantization, with the
    tolerance stated; then kernel, plain-version and library-call times (CUDA
    events, median of 25 runs, L2 flushed before each) beside the least time
    the card could take (bound).
@@ -23,9 +24,19 @@ non-zero and never prints the final line):
    sdpa). The launch counts are set to 0 just before and read just after.
    tests/test_torch_chip_smoke.py runs the model builders at a tiny size on
    the CPU.
-5. card_vs_cpu: a 2-layer full-width model with identical weights on the card
+5. long_context: the same 32-layer model on head-major pools
+   (max_model_len 4096, 512-token chunks, ~2,048 pages of KV) serves two
+   waves through Engine/TextPipeline: 4 greedy requests of ~3,400-token
+   prompts (7 chunks: K6 once, the paged continuation kernel K6' six
+   times; decode at span 4096 on the block-table decode kernel K7), then 4
+   of ~1,200 tokens (3 chunks; decode at span 2048 on gather +
+   sdpa_head_major). The launch counts are set to 0 just before the first
+   wave and read after each.
+6. card_vs_cpu: a 2-layer full-width model with identical weights on the card
    (kernels, bf16) and on the CPU (plain versions, f32): one 256-token
-   prefill and 4 decode steps, logits compared.
+   prefill and 4 decode steps, logits compared; then on head-major pools a
+   512-token first chunk, a 512-token continuation chunk and 4 decode steps
+   at a table width of 256 pages (K6, K6', K7 on the card).
 Then the kernels line and, last, {"ok": true, "device": {...}}.
 """
 
@@ -52,6 +63,10 @@ KERNEL_INFO = {
                      "mistralrs_tpu/ops/quant_matmul.py:1245"),
     "flash_prefill": ("mistralrs_tpu_torch/csrc/flash_prefill.cu",
                       "mistralrs_tpu/models/decoder.py:416"),
+    "flash_prefill_paged": ("mistralrs_tpu_torch/csrc/flash_prefill_paged.cu",
+                            "mistralrs_tpu/ops/paged_attention.py:431"),
+    "paged_decode": ("mistralrs_tpu_torch/csrc/paged_decode.cu",
+                     "mistralrs_tpu/ops/paged_attention.py:351"),
     # not TPU kernels: the dequantization XLA fuses on the JAX prefill route
     "q4k_dequant": ("mistralrs_tpu_torch/csrc/q4k_q8_gemv.cu",
                     "mistralrs_tpu/quant/gguf_linear.py:454"),
@@ -60,12 +75,42 @@ KERNEL_INFO = {
 }
 # the shape whose numbers stand in the kernels line
 HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
-            "flash_prefill": "B=4 T=512", "q4k_dequant": "gate|up",
+            "flash_prefill": "B=4 T=512", "flash_prefill_paged": "B=4 T=512 kv=4096 head_major",
+            "paged_decode": "B=16 kv=4096 head_major", "q4k_dequant": "gate|up",
             "q8_0_dequant": "down rq8"}
+# the kernels the long-context path adds; the rest belong to the slice path
+LONG_CONTEXT_KERNELS = ("flash_prefill_paged", "paged_decode")
+# each kernel's launch counter: (module under mistralrs_tpu_torch.ops, name)
+COUNTERS = {
+    "q4k_q8_gemv": ("quant_matmul", "q4k_q8_gemv_launches"),
+    "q8_0_q8_gemv": ("quant_matmul", "q8_0_q8_gemv_launches"),
+    "flash_prefill": ("flash_attention", "flash_prefill_launches"),
+    "flash_prefill_paged": ("paged_attention", "flash_prefill_paged_launches"),
+    "paged_decode": ("paged_attention", "paged_decode_launches"),
+    "q4k_dequant": ("quant_matmul", "q4k_dequant_launches"),
+    "q8_0_dequant": ("quant_matmul", "q8_0_dequant_launches"),
+}
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def _counter(name):
+    import importlib
+
+    mod, attr = COUNTERS[name]
+    return importlib.import_module(f"mistralrs_tpu_torch.ops.{mod}"), attr
+
+
+def reset_counts() -> None:
+    for name in COUNTERS:
+        mod, attr = _counter(name)
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(*_counter(name)) for name in COUNTERS}
 
 
 @dataclasses.dataclass
@@ -85,6 +130,19 @@ class Sizes:
     # K6 parity/timing cases (B, T, Hq, Hkv): the kernel table's 4 x 512, a
     # ragged 200, the slice's batched first chunk of 4 x 256, and 16 x 256
     flash_cases: tuple = ((4, 512, 32, 8), (1, 200, 32, 8), (4, 256, 32, 8), (16, 256, 32, 8))
+    # K6' cases (B, T, kv_len, head_major): a prompt's last 512-token chunk
+    # at 4096 (the headline), a ragged 256-row chunk, the same token-major
+    paged_prefill_cases: tuple = ((4, 512, 4096, True), (1, 256, 1000, True),
+                                  (1, 256, 1000, False))
+    # K7 cases (B, kv_len): the headline, a ragged batch, one row, and batch
+    # 16 at the spans the gather route serves (1k, 2k) beside it
+    paged_decode_cases: tuple = ((16, 4096), (4, 3456), (1, 4096), (16, 1024), (16, 2048))
+    # long_context phase: prompt sizes of the two waves, tokens per request,
+    # KV pages (~4.3 GB at full depth)
+    long_prompt_ctx: int = 3400
+    short_prompt_ctx: int = 1200
+    max_len_ctx: int = 64
+    pages_ctx: int = 2048
 
 
 # ------------------------------------------------------------- model
@@ -187,7 +245,8 @@ def bound(bytes_moved: float, ops: float, peak_ops: float) -> tuple[float, str]:
 
 
 def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
-    """Parity and timing of K1, K2, K6 at the main path's shapes."""
+    """Parity and timing of K1, K2, K6, the dequant kernels, K6' and K7 at
+    the main paths' shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -204,10 +263,10 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
     def rand(*shape, lo=0.0, hi=1.0, dtype=torch.float32):
         return (torch.rand(shape, device=device, generator=gen) * (hi - lo) + lo).to(dtype)
 
-    def record(name, shape_name, err, rel, tol, ms, plain_ms, lib_ms, bnd):
+    def record(name, shape_name, err, rel, tol, ms, plain_ms, lib_ms, bnd, **extra):
         row = {"phase": "kernel", "name": name, "shape": shape_name, "max_abs_err": err,
                "max_rel_err": rel, "tol_rel": tol, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+               "library_ms": lib_ms, "bound_ms": bnd[0], "bound_by": bnd[1], **extra}
         emit(row)
         if rel > tol:
             raise AssertionError(f"{name} {shape_name}: relative error {rel} > {tol}")
@@ -307,20 +366,183 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
         # each); the kernel also rounds P to bf16 for its P.V product
         record("flash_prefill", f"B={B} T={T}", err, rel, 1e-2, ms, plain, lib,
                bound(nbytes, flops, PEAK_BF16))
+
+    paged_kernels(sz, device, clock, gen, record)
     return results
 
 
-# ------------------------------------------------------------- phase 4
+def paged_inputs(sz: Sizes, device, gen, B: int, T: int, kv_len: int, head_major: bool):
+    """q [B, T, Hq, D] and one layer's K/V pools of random bf16, every row's
+    context kv_len long on shuffled pages (page 0 unused), the block table
+    as wide as the pipeline makes it (a power of two of pages), and the
+    step's meta."""
+    import torch
+
+    from mistralrs_tpu_torch.ops.paged_attention import PagedAttnMeta
+
+    page, fdt = 16, torch.bfloat16
+    MP = 4
+    while MP * page < kv_len:
+        MP *= 2
+    P = 1 + B * MP
+    H, D = sz.kv_heads, sz.head_dim
+    shape = (H, P, page, D) if head_major else (P, page, H, D)
+    k = torch.randn(shape, device=device, generator=gen).to(fdt)
+    v = torch.randn(shape, device=device, generator=gen).to(fdt)
+    perm = torch.randperm(P - 1, device=device, generator=gen)
+    tables = (1 + perm).reshape(B, MP)
+    q = torch.randn(B, T, sz.heads, D, device=device, generator=gen).to(fdt)
+    zeros = torch.zeros(B, T, dtype=torch.int64, device=device)
+    meta = PagedAttnMeta(positions=zeros, slot_mapping=zeros, block_tables=tables,
+                         kv_lens=torch.full((B,), kv_len, dtype=torch.int64, device=device),
+                         active=torch.ones(B, device=device), head_major=head_major)
+    return q, k, v, meta
+
+
+def paged_kernels(sz: Sizes, device, clock: Clock, gen, record) -> None:
+    """Parity and timing of K6' and K7 at the long-context path's shapes.
+    library = F.scaled_dot_product_attention with a boolean mask on the
+    gathered context, repeated per query head; for K7 also the decoder's
+    own gather route (gather_paged_kv + sdpa_head_major), which serves
+    spans below 4096."""
+    import torch
+    import torch.nn.functional as F
+
+    from mistralrs_tpu_torch.ops import paged_attention as pa
+    from mistralrs_tpu_torch.ops.attention import NEG_INF, sdpa_head_major
+
+    Hq, H, D = sz.heads, sz.kv_heads, sz.head_dim
+    rep = Hq // H
+    scale = D ** -0.5
+
+    def library_inputs(q, k, v, meta):
+        """[B, Hq, T|S, D] query and repeated context, and the [B, 1, T, S]
+        boolean mask (causal and length) of the same function."""
+        B, T = q.shape[:2]
+        kc, vc = pa.gather_paged_kv(k, v, meta.block_tables, head_major=meta.head_major)
+        if meta.head_major:  # [H, B, S, D]
+            kc, vc = kc.transpose(0, 1), vc.transpose(0, 1)
+        else:  # [B, S, H, D]
+            kc, vc = kc.transpose(1, 2), vc.transpose(1, 2)
+        S = kc.shape[2]
+        kr = kc.repeat_interleave(rep, dim=1).contiguous()
+        vr = vc.repeat_interleave(rep, dim=1).contiguous()
+        q_ids = torch.arange(T, device=device)[None, :] + (meta.kv_lens - T)[:, None]
+        kv_ids = torch.arange(S, device=device)
+        keep = (kv_ids[None, None, :] <= q_ids[:, :, None]) & \
+            (kv_ids[None, None, :] < meta.kv_lens[:, None, None])
+        return q.transpose(1, 2).contiguous(), kr, vr, keep[:, None]
+
+    def compare(got, want):
+        err = float((got.float() - want.float()).abs().max())
+        return err, err / max(float(want.float().abs().max()), 1e-30)
+
+    for B, T, kv_len, hm in sz.paged_prefill_cases:
+        q, k, v, meta = paged_inputs(sz, device, gen, B, T, kv_len, hm)
+        err, rel = compare(pa.flash_prefill_continuation(q, k, v, meta, scale=scale),
+                           pa.flash_prefill_continuation_plain(q, k, v, meta, scale=scale))
+        ms = clock.ms(lambda: pa.flash_prefill_continuation(q, k, v, meta, scale=scale))
+        plain = clock.ms(lambda: pa.flash_prefill_continuation_plain(q, k, v, meta, scale=scale))
+        qt, kr, vr, keep = library_inputs(q, k, v, meta)
+        lib = clock.ms(lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=keep,
+                                                              scale=scale))
+        del qt, kr, vr, keep
+        # q and out once, each row's kv_len keys and values once; query i
+        # sees kv_len - T + i + 1 keys, q.k and p.v 2 * D flops each
+        nbytes = 2 * B * T * Hq * D * 2 + B * kv_len * H * D * 2 * 2
+        keys = T * (kv_len - T) + T * (T + 1) // 2
+        # bf16 in and out on both sides; the kernel rounds P to bf16 (as K6)
+        record("flash_prefill_paged", f"B={B} T={T} kv={kv_len} "
+               f"{'head_major' if hm else 'token_major'}", err, rel, 1e-2, ms, plain, lib,
+               bound(nbytes, B * 4 * Hq * D * keys, PEAK_BF16))
+        del q, k, v, meta
+
+    for B, kv_len in sz.paged_decode_cases:
+        q, k, v, meta = paged_inputs(sz, device, gen, B, 1, kv_len, True)
+        err, rel = compare(pa.paged_decode_attention(q, k, v, meta, scale=scale),
+                           pa.paged_decode_attention_plain(q, k, v, meta, scale=scale))
+        ms = clock.ms(lambda: pa.paged_decode_attention(q, k, v, meta, scale=scale))
+        plain = clock.ms(lambda: pa.paged_decode_attention_plain(q, k, v, meta, scale=scale))
+        S = meta.block_tables.shape[1] * 16
+        bias = torch.where(torch.arange(S, device=device)[None] < meta.kv_lens[:, None], 0.0,
+                           NEG_INF)[:, None, None, :]
+
+        def gather_route():
+            kc, vc = pa.gather_paged_kv(k, v, meta.block_tables, head_major=True)
+            return sdpa_head_major(q, kc, vc, scale=scale, mask=bias)
+
+        gather_ms = clock.ms(gather_route)
+        qt, kr, vr, keep = library_inputs(q, k, v, meta)
+        lib = clock.ms(lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=keep,
+                                                              scale=scale))
+        del qt, kr, vr, keep
+        nbytes = B * kv_len * H * D * 2 * 2 + 2 * B * Hq * D * 2
+        record("paged_decode", f"B={B} kv={kv_len} head_major", err, rel, 1e-2, ms, plain, lib,
+               bound(nbytes, B * 4 * Hq * D * kv_len, PEAK_BF16), gather_route_ms=gather_ms)
+        del q, k, v, meta
+
+
+# ------------------------------------------------------------- phases 4, 5
+
+
+def add_requests(eng, rng, vocab: int, n_req: int, plen: int, max_len: int) -> list:
+    """n_req greedy requests of random prompts of plen +- 8 tokens."""
+    from mistralrs_tpu_torch.engine.engine import GenerationRequest
+    from mistralrs_tpu_torch.engine.sampler import SamplingParams
+
+    out = []
+    for _ in range(n_req):
+        n = int(plen + rng.integers(-8, 9))
+        out.append(eng.add_request(GenerationRequest(
+            [int(t) for t in rng.integers(1, vocab, n)], SamplingParams(max_len=max_len))))
+    return out
+
+
+def step_until(eng, groups: list, done, decode: dict) -> None:
+    """Step the engine until done(); steps in which no request of `groups`
+    prefills add their generated tokens and seconds to `decode`."""
+    seqs = [s for g in groups for s in g.seqs]
+    while not done():
+        prefill = any(s.state.value in ("waiting", "running_prefill") for s in seqs)
+        before = sum(s.num_generated for s in seqs)
+        t = time.perf_counter()
+        eng.step()
+        dt = time.perf_counter() - t
+        if not prefill:
+            decode["tokens"] += sum(s.num_generated for s in seqs) - before
+            decode["seconds"] += dt
+
+
+def check_served(groups: list, vocab: int, max_len: int, pipe) -> int:
+    """Every request generated max_len valid token ids and the last step's
+    logits are finite; returns the number of generated tokens."""
+    seqs = [s for g in groups for s in g.seqs]
+    toks = [t for s in seqs for t in s.generated_tokens]
+    if not all(0 <= t < vocab for t in toks):
+        raise AssertionError("a generated token is outside the vocabulary")
+    if any(s.num_generated != max_len or s.stop_reason.value != "length" for s in seqs):
+        raise AssertionError("a request did not generate max_len tokens")
+    if not np.isfinite(pipe.last_greedy_pack).all():
+        raise AssertionError("non-finite logits")
+    return len(toks)
+
+
+def check_launched(counts: dict, names) -> None:
+    for name in names:
+        if counts[name] < 1:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+
+
+def ttft_ms(groups: list) -> float:
+    return 1e3 * statistics.median(s.prompt_timestamp - s.timestamp for g in groups
+                                   for s in g.seqs)
 
 
 def slice_phase(sz: Sizes, device) -> dict:
     import torch
 
-    from mistralrs_tpu_torch.engine.engine import Engine, GenerationRequest
-    from mistralrs_tpu_torch.engine.sampler import SamplingParams
+    from mistralrs_tpu_torch.engine.engine import Engine
     from mistralrs_tpu_torch.models.loader import make_rope
-    from mistralrs_tpu_torch.ops import flash_attention as fa
-    from mistralrs_tpu_torch.ops import quant_matmul as qm
     from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
 
     fdt = torch.bfloat16
@@ -339,34 +561,14 @@ def slice_phase(sz: Sizes, device) -> dict:
     rng = np.random.default_rng(1)
 
     def serve(max_len: int, decode: dict) -> list:
-        """4 long prompts, then 4 short ones once the long have prefilled;
-        decode-only steps add their tokens and seconds to `decode`."""
-        groups = []
-
-        def seqs():
-            return [s for g in groups for s in g.seqs]
-
-        def run_until(done):
-            while not done():
-                prefill = any(s.state.value in ("waiting", "running_prefill") for s in seqs())
-                before = sum(s.num_generated for s in seqs())
-                t = time.perf_counter()
-                eng.step()
-                dt = time.perf_counter() - t
-                if not prefill:
-                    decode["tokens"] += sum(s.num_generated for s in seqs()) - before
-                    decode["seconds"] += dt
-
-        def add(n_req, plen):
-            for _ in range(n_req):
-                n = int(plen + rng.integers(-8, 9))
-                groups.append(eng.add_request(GenerationRequest(
-                    [int(t) for t in rng.integers(1, sz.vocab, n)], SamplingParams(max_len=max_len))))
-
-        add(4, sz.long_prompt)  # first chunk of 4 x 256 rows -> flash prefill
-        run_until(lambda: all(s.state.value not in ("waiting", "running_prefill") for s in seqs()))
-        add(4, sz.short_prompt)  # chunk of 4 x 64 rows -> gather + sdpa
-        run_until(lambda: all(g.all_done() for g in groups))
+        """4 long prompts, then 4 short ones once the long have prefilled."""
+        groups = add_requests(eng, rng, sz.vocab, 4, sz.long_prompt, max_len)
+        # first chunk of 4 x 256 rows -> flash prefill
+        step_until(eng, groups, lambda: all(s.state.value not in ("waiting", "running_prefill")
+                                            for g in groups for s in g.seqs), decode)
+        # chunk of 4 x 64 rows -> gather + sdpa
+        groups += add_requests(eng, rng, sz.vocab, 4, sz.short_prompt, max_len)
+        step_until(eng, groups, lambda: all(g.all_done() for g in groups), decode)
         return groups
 
     # warm-up: the same pattern, so the run measures a warm server (first
@@ -375,33 +577,17 @@ def slice_phase(sz: Sizes, device) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    qm.q4k_q8_gemv_launches = qm.q8_0_q8_gemv_launches = fa.flash_prefill_launches = 0
-    qm.q4k_dequant_launches = qm.q8_0_dequant_launches = 0
+    reset_counts()
     decode = {"tokens": 0, "seconds": 0.0}
     t_run = time.perf_counter()
     groups = serve(sz.max_len, decode)
     run_s = time.perf_counter() - t_run
-    counts = {"q4k_q8_gemv": qm.q4k_q8_gemv_launches, "q8_0_q8_gemv": qm.q8_0_q8_gemv_launches,
-              "flash_prefill": fa.flash_prefill_launches,
-              "q4k_dequant": qm.q4k_dequant_launches, "q8_0_dequant": qm.q8_0_dequant_launches}
-
-    seqs = [s for g in groups for s in g.seqs]
-    toks = [t for s in seqs for t in s.generated_tokens]
-    if not all(0 <= t < sz.vocab for t in toks):
-        raise AssertionError("a generated token is outside the vocabulary")
-    if any(s.num_generated != sz.max_len or s.stop_reason.value != "length" for s in seqs):
-        raise AssertionError("a request did not generate max_len tokens")
-    if not np.isfinite(pipe.last_greedy_pack).all():
-        raise AssertionError("non-finite logits")
-    for name, n in counts.items():
-        if n < 1:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-
-    def ttft_ms(gs):
-        return 1e3 * statistics.median(s.prompt_timestamp - s.timestamp for g in gs for s in g.seqs)
+    counts = read_counts()
+    n_toks = check_served(groups, sz.vocab, sz.max_len, pipe)
+    check_launched(counts, [n for n in COUNTERS if n not in LONG_CONTEXT_KERNELS])
 
     out = {"phase": "slice", "layers": sz.layers, "kinds": kinds, "requests": len(groups),
-           "generated_tokens": len(toks), "decode_tok_s": decode["tokens"] / decode["seconds"],
+           "generated_tokens": n_toks, "decode_tok_s": decode["tokens"] / decode["seconds"],
            "decode_tokens": decode["tokens"], "decode_s": decode["seconds"],
            "p50_ttft_ms": ttft_ms(groups), "p50_ttft_ms_long": ttft_ms(groups[:4]),
            "p50_ttft_ms_short": ttft_ms(groups[4:]), "run_s": run_s, "setup_s": setup_s,
@@ -412,12 +598,83 @@ def slice_phase(sz: Sizes, device) -> dict:
     return out
 
 
-# ------------------------------------------------------------- phase 5
+def long_context_phase(sz: Sizes, device) -> dict:
+    """The 32-layer model on head-major pools at max_model_len 4096 serves
+    a wave of ~3,400-token prompts (decode at span 4096: K7), then a wave of
+    ~1,200-token prompts (decode at span 2048: gather + sdpa_head_major);
+    their continuation chunks run K6'."""
+    import torch
+
+    from mistralrs_tpu_torch.engine.engine import Engine
+    from mistralrs_tpu_torch.models.loader import make_rope
+    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
+
+    fdt = torch.bfloat16
+    cfg = model_config(sz, sz.layers)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = random_q4km_params(sz, sz.layers, device, gen, fdt)
+    pc = PipelineConfig(page_size=16, num_pages=sz.pages_ctx, max_seqs=16, max_model_len=4096,
+                        prefill_buckets=(16, 64, 256, 512), decode_steps=8, dtype=fdt,
+                        device=str(device))
+    pipe = TextPipeline(cfg, params, make_rope(cfg, 4096, device=device), pc)
+    del params
+    if not pipe.head_major:
+        raise AssertionError("max_model_len 4096 did not select head-major pools")
+    eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
+    rng = np.random.default_rng(2)
+
+    def wave(plen: int, max_len: int) -> tuple[list, dict]:
+        decode = {"tokens": 0, "seconds": 0.0}
+        groups = add_requests(eng, rng, sz.vocab, 4, plen, max_len)
+        step_until(eng, groups, lambda: all(g.all_done() for g in groups), decode)
+        return groups, decode
+
+    # warm-up: both waves, one multistep decode call each
+    for plen in (sz.long_prompt_ctx, sz.short_prompt_ctx):
+        wave(plen, 1 + pc.decode_steps)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_run = time.perf_counter()
+    long_groups, long_dec = wave(sz.long_prompt_ctx, sz.max_len_ctx)
+    counts_long = read_counts()
+    short_groups, short_dec = wave(sz.short_prompt_ctx, sz.max_len_ctx)
+    run_s = time.perf_counter() - t_run
+    counts = read_counts()
+    n_toks = check_served(long_groups + short_groups, sz.vocab, sz.max_len_ctx, pipe)
+    check_launched(counts, COUNTERS)
+    if counts["paged_decode"] != counts_long["paged_decode"]:
+        raise AssertionError("decode at span 2048 launched the block-table decode kernel")
+
+    out = {"phase": "long_context", "layers": sz.layers, "requests": 8, "generated_tokens": n_toks,
+           "decode_tok_s_long": long_dec["tokens"] / long_dec["seconds"],
+           "decode_tok_s_short": short_dec["tokens"] / short_dec["seconds"],
+           "decode_tokens_long": long_dec["tokens"], "decode_s_long": long_dec["seconds"],
+           "decode_tokens_short": short_dec["tokens"], "decode_s_short": short_dec["seconds"],
+           "p50_ttft_ms_long": ttft_ms(long_groups), "p50_ttft_ms_short": ttft_ms(short_groups),
+           "prompt_tokens_long": sum(len(s.prompt_tokens) for g in long_groups for s in g.seqs),
+           "prompt_tokens_short": sum(len(s.prompt_tokens) for g in short_groups for s in g.seqs),
+           "run_s": run_s, "setup_s": setup_s, "launches": counts,
+           "launches_long_wave": counts_long, "kv_pages": pc.num_pages,
+           "kv_gb": 2 * pipe.cache.k.numel() * pipe.cache.k.element_size() / 1e9,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(out)
+    del eng, pipe
+    return out
 
 
-def card_vs_cpu_phase(sz: Sizes, device) -> dict:
+# ------------------------------------------------------------- phase 6
+
+
+def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
     """Same port code and identical weights on the card (kernels, bf16) and
-    the CPU (plain versions, f32)."""
+    the CPU (plain versions, f32): a 256-token prefill and 4 decode steps on
+    token-major pools, then, on head-major pools, a 512-token first chunk
+    (K6), a 512-token continuation chunk (K6') and 4 decode steps (K7) with
+    tables 256 pages wide."""
     import dataclasses
 
     import torch
@@ -435,6 +692,7 @@ def card_vs_cpu_phase(sz: Sizes, device) -> dict:
     # weights made once on the CPU; float values rounded to bf16 so that
     # both sides hold the same numbers
     base = random_q4km_params(sz, n_layers, torch.device("cpu"), gen, torch.bfloat16)
+    sides = ((torch.device("cpu"), torch.float32), (device, torch.bfloat16))
 
     def moved(node, dev, dt):
         if isinstance(node, Linear):
@@ -445,18 +703,37 @@ def card_vs_cpu_phase(sz: Sizes, device) -> dict:
             return [moved(v, dev, dt) for v in node]
         return node.to(dev, dt) if node.is_floating_point() else node.to(dev)
 
-    prompt = [int(t) for t in np.random.default_rng(3).integers(1, sz.vocab, 256)]
-    runs = {}
-    forced = None
-    for dev, dt in ((torch.device("cpu"), torch.float32), (device, torch.bfloat16)):
+    def pipeline(dev, dt, **kw):
         params = dataclasses.replace(base, embed=moved(base.embed, dev, dt),
                                      layers=moved(base.layers, dev, dt),
                                      final_norm=moved(base.final_norm, dev, dt),
                                      lm_head=moved(base.lm_head, dev, dt))
-        pc = PipelineConfig(page_size=16, num_pages=32, max_seqs=1, max_model_len=512,
-                            prefill_buckets=(256,), dtype=dt, device=str(dev))
-        pipe = TextPipeline(cfg, params, make_rope(cfg, 512, device=dev), pc)
-        bm = BlockManager(pc.num_pages, pc.page_size)
+        pc = PipelineConfig(max_seqs=1, dtype=dt, device=str(dev), **kw)
+        return TextPipeline(cfg, params, make_rope(cfg, pc.max_model_len, device=dev), pc)
+
+    def compare(phase, runs, **extra):
+        ref, got = runs["cpu"], runs[device.type]
+        scale = np.abs(ref).max(axis=1, keepdims=True)
+        rel = float((np.abs(got - ref) / scale).max())
+        rms = float(np.sqrt(((got - ref) ** 2).mean()) / np.sqrt((ref ** 2).mean()))
+        # bf16 activations (2^-8 relative each) and the int8 requantization
+        # of activations that differ in their last bits, over 2 layers
+        tol = 5e-2
+        out = {"phase": phase, "layers": n_layers, "steps": len(ref), "max_rel_err": rel,
+               "rel_rms_err": rms, "tol_rel": tol, "finite": bool(np.isfinite(got).all()),
+               "argmax_agree": int((ref.argmax(1) == got.argmax(1)).sum()), **extra}
+        emit(out)
+        if not np.isfinite(got).all() or rel > tol:
+            raise AssertionError(f"card and CPU logits differ: {out}")
+        return out
+
+    prompt = [int(t) for t in np.random.default_rng(3).integers(1, sz.vocab, 256)]
+    runs = {}
+    forced = None
+    for dev, dt in sides:
+        pipe = pipeline(dev, dt, page_size=16, num_pages=32, max_model_len=512,
+                        prefill_buckets=(256,))
+        bm = BlockManager(pipe.pc.num_pages, pipe.pc.page_size)
         seq = Sequence(prompt, SamplingParams(max_len=8), max_model_len=512)
         bm.allocate(seq)
         logits = [pipe.run_prefill_chunk(seq, prompt)]
@@ -468,21 +745,44 @@ def card_vs_cpu_phase(sz: Sizes, device) -> dict:
         if forced is None:  # the CPU run picks the tokens both runs feed
             forced = [int(np.argmax(x)) for x in logits[:4]]
         runs[dev.type] = np.stack(logits).astype(np.float64)
-        del pipe, params
-    ref, got = runs["cpu"], runs[device.type]
-    scale = np.abs(ref).max(axis=1, keepdims=True)
-    rel = float((np.abs(got - ref) / scale).max())
-    rms = float(np.sqrt(((got - ref) ** 2).mean()) / np.sqrt((ref ** 2).mean()))
-    # bf16 activations (2^-8 relative each) and the int8 requantization of
-    # activations that differ in their last bits, over 2 layers
-    tol = 5e-2
-    out = {"phase": "card_vs_cpu", "layers": n_layers, "steps": len(ref), "max_rel_err": rel,
-           "rel_rms_err": rms, "tol_rel": tol, "finite": bool(np.isfinite(got).all()),
-           "argmax_agree": int((ref.argmax(1) == got.argmax(1)).sum())}
-    emit(out)
-    if not np.isfinite(got).all() or rel > tol:
-        raise AssertionError(f"card and CPU logits differ: {out}")
-    return out
+        del pipe
+    outs = [compare("card_vs_cpu", runs)]
+
+    # long context: host arrays straight into the pipeline's step, so the
+    # tables can be 256 pages wide at a 1,024-token context
+    page, MP = 16, 256
+    table = np.arange(1, MP + 1, dtype=np.int64)[None]
+    prompt = np.random.default_rng(4).integers(1, sz.vocab, 1024)
+    runs, forced, counts = {}, None, {}
+    for dev, dt in sides:
+        pipe = pipeline(dev, dt, page_size=page, num_pages=MP + 1, max_model_len=4096,
+                        prefill_buckets=(512,))
+        reset_counts()
+        logits = []
+        steps = [(0, 512), (512, 512)] + [(1024 + j, 1) for j in range(4)]
+        for i, (start, T) in enumerate(steps):
+            if T > 1:
+                ids = prompt[None, start:start + T]
+            else:  # the CPU run's argmax, fed to both runs
+                tok = int(np.argmax(logits[-1])) if forced is None else forced[i - 2]
+                ids = np.asarray([[tok]])
+            pos = np.arange(start, start + T)[None]
+            slots = table[0][pos // page] * page + pos % page
+            out = pipe._run(ids, pos, slots, table, np.asarray([start + T]),
+                            np.ones(1, np.float32), np.asarray([T - 1]), first_chunk=start == 0)
+            logits.append(out[0].float().cpu().numpy())
+        if forced is None:
+            forced = [int(np.argmax(x)) for x in logits[1:5]]
+        counts[dev.type] = read_counts()
+        runs[dev.type] = np.stack(logits).astype(np.float64)
+        del pipe
+    card = counts[device.type]
+    want = {"flash_prefill": n_layers, "flash_prefill_paged": n_layers,
+            "paged_decode": 4 * n_layers}
+    if any(card[n] != k for n, k in want.items()):
+        raise AssertionError(f"the long-context check took other routes on the card: {card}")
+    outs.append(compare("card_vs_cpu_long", runs, launches={n: card[n] for n in want}))
+    return outs
 
 
 # ------------------------------------------------------------- main
@@ -515,16 +815,25 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "max_registers": {n: max(r) if r else None for n, r in regs.items()}})
 
+    seconds = {}
+    t0 = time.perf_counter()
     results = kernel_phase(sz, device, Clock(device))
-    sl = slice_phase(sz, device)
-    card_vs_cpu_phase(sz, device)
+    seconds["kernels"] = time.perf_counter() - t0
+    for name, fn in (("slice", slice_phase), ("long_context", long_context_phase),
+                     ("card_vs_cpu", card_vs_cpu_phase)):
+        t0 = time.perf_counter()
+        results[name] = fn(sz, device)
+        seconds[name] = time.perf_counter() - t0
+    emit({"phase": "seconds", **seconds})
 
     line = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rows = results[name]
         head = next(r for r in rows if r["shape"] == HEADLINE[name])
+        # each kernel's launches in the run of the path it belongs to
+        path = "long_context" if name in LONG_CONTEXT_KERNELS else "slice"
         line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": sl["launches"][name],
+                     "launches": results[path]["launches"][name], "launches_path": path,
                      "max_abs_err": max(r["max_abs_err"] for r in rows),
                      "shape": head["shape"], "ms": head["ms"], "plain_ms": head["plain_ms"],
                      "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

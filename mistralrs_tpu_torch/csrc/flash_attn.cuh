@@ -1,0 +1,266 @@
+// Pieces shared by the attention kernels K6 (flash_prefill.cu), K6'
+// (flash_prefill_paged.cu) and K7 (paged_decode.cu): FlashAttention-2 on
+// bf16 mma.sync tensor cores, head dim 128.
+//
+// Tiles of 64 rows x 128 bf16 (256-byte rows) are staged in shared memory
+// by 16-byte cp.async copies; the 16-byte chunk c of row r sits at
+// r * 256 + ((c ^ (r & 7)) << 4), so the ldmatrix reads below are
+// conflict-free. A warp owns 16 query rows: it keeps their Q fragments in
+// registers, computes a 16 x NK score tile with mma.m16n8k16 (f32
+// accumulators), runs the online softmax in base 2 in f32, and feeds the
+// probabilities, rounded to bf16, straight from the accumulator registers as
+// the A operand of P.V (V read with ldmatrix.trans).
+//
+// Accumulator layout of mma.m16n8k16 (lane = 4g + t): n-tile j holds
+// columns 8j..8j+7; element e of it is row g + 8 * (e >> 1), column
+// 8j + 2t + (e & 1).
+#pragma once
+
+#include "common.cuh"
+
+namespace fa {
+
+constexpr int D = 128;                    // head dim
+constexpr int kRowBytes = D * 2;          // one bf16 row
+constexpr int kTileRows = 64;             // rows of a staged tile
+constexpr int kTileBytes = kTileRows * kRowBytes;
+constexpr int kThreads = 128;             // 4 warps
+
+// byte offset of the 16-byte chunk c of row r in a staged tile
+__device__ __forceinline__ uint32_t swz_off(int r, int c) {
+  return r * kRowBytes + ((c ^ (r & 7)) << 4);
+}
+
+// Stage ROWS rows of 128 bf16 into a tile: the first n from src + off(r)
+// (an element offset), the rest zero-filled (their source is not read).
+// Each thread copies one fixed 16-byte column of every 8th row.
+template <int ROWS, class RowOff>
+__device__ __forceinline__ void stage_rows(uint8_t* tile, int n, const __nv_bfloat16* src,
+                                           RowOff off) {
+  for (int i = threadIdx.x; i < ROWS * (D / 8); i += kThreads) {
+    const int r = i / (D / 8), c = i % (D / 8);
+    const bool ok = r < n;
+    mrt::cp_async16(tile + swz_off(r, c), src + (ok ? off(r) + 8 * c : 0), ok);
+  }
+}
+
+// The same for the K and V tiles of one key tile: row r of both sits at the
+// same offset of its pool, so it is looked up once.
+template <class RowOff>
+__device__ __forceinline__ void stage_kv(uint8_t* ktile, uint8_t* vtile, int n,
+                                         const __nv_bfloat16* k, const __nv_bfloat16* v,
+                                         RowOff off) {
+  for (int i = threadIdx.x; i < kTileRows * (D / 8); i += kThreads) {
+    const int r = i / (D / 8), c = i % (D / 8);
+    const bool ok = r < n;
+    const size_t o = ok ? off(r) + 8 * c : 0;
+    mrt::cp_async16(ktile + swz_off(r, c), k + o, ok);
+    mrt::cp_async16(vtile + swz_off(r, c), v + o, ok);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t r[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t r[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += A (16x16 bf16, row) * B (16x8 bf16, col), f32
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragments of the 16 query rows row0..row0+15 of a staged Q tile.
+// ldmatrix matrices 0..3: rows +0/+8 (lm & 1) x dims +0/+8 (lm >> 1).
+__device__ __forceinline__ void load_q(uint32_t qbase, int row0, uint32_t (&qf)[D / 16][4]) {
+  const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(qbase + swz_off(row0 + 8 * (lm & 1) + lr, 2 * kk + (lm >> 1)), qf[kk]);
+}
+
+// Running state of one warp's 16 query rows: rows g and g + 8 of this lane.
+struct RowState {
+  float o[D / 8][4];  // output accumulators: n-tile j holds dims 8j..8j+7
+  float m[2];         // running max (base 2, scaled); -inf before any key
+  float l[2];         // this lane's part of the running exp-sum
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+  }
+  // l summed over the 4 lanes (quad) that hold a row
+  __device__ __forceinline__ void reduce_l() {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+  }
+};
+
+// One warp attends its 16 query rows (fragments qf) to NK keys: rows
+// krow0..krow0+NK-1 of the staged K and V tiles at kbase / vbase. When
+// `masked`, keep(row, key) (row 0..15 of the warp, key 0..NK-1 of this
+// call) says whether a score counts; a row that has seen no key yet keeps
+// m = -inf, l = 0 and o = 0, so fully masked rows stay finite.
+template <int NK, class Keep>
+__device__ __forceinline__ void attend(uint32_t kbase, uint32_t vbase, int krow0,
+                                       uint32_t (&qf)[D / 16][4], RowState& st,
+                                       float scale_log2, bool masked, Keep keep) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, lr = lane & 7, lm = lane >> 3;
+
+  // S = Q K^T: n-tile j holds keys 8j..8j+7
+  float s[NK / 8][4];
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int jp = 0; jp < NK / 16; ++jp) {
+      // matrices: keys +0/+8 (lm >> 1) x dims +0/+8 (lm & 1) = b0, b1 of
+      // n-tiles 2jp and 2jp + 1
+      uint32_t bf[4];
+      ldsm_x4(kbase + swz_off(krow0 + 16 * jp + 8 * (lm >> 1) + lr, 2 * kk + (lm & 1)), bf);
+      mma_bf16(s[2 * jp], qf[kk], bf[0], bf[1]);
+      mma_bf16(s[2 * jp + 1], qf[kk], bf[2], bf[3]);
+    }
+  }
+
+  // online softmax, base 2
+  float mx[2] = {st.m[0], st.m[1]};
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * scale_log2;
+      if (masked && !keep(g + 8 * (e >> 1), 8 * j + 2 * t + (e & 1))) x = -INFINITY;
+      s[j][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float alpha[2], msub[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // the 4 lanes of a quad hold one row
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const bool none = mx[r] == -INFINITY;  // no key of this row so far
+    alpha[r] = none ? 1.f : exp2f(st.m[r] - mx[r]);
+    msub[r] = none ? 0.f : mx[r];
+    st.m[r] = mx[r];
+  }
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = exp2f(s[j][e] - msub[e >> 1]);
+      rs[e >> 1] += s[j][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) st.l[r] = st.l[r] * alpha[r] + rs[r];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st.o[j][e] *= alpha[e >> 1];
+
+  // O += P V: the S accumulators of n-tiles 2kk, 2kk + 1 are the A fragment
+  // of keys 16kk..16kk+15
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk) {
+    const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int jp = 0; jp < D / 16; ++jp) {
+      // matrices (transposed): keys +0/+8 (lm & 1) x dims +0/+8 (lm >> 1)
+      // = b0, b1 of n-tiles 2jp and 2jp + 1
+      uint32_t bf[4];
+      ldsm_x4_trans(vbase + swz_off(krow0 + 16 * kk + 8 * (lm & 1) + lr, 2 * jp + (lm >> 1)), bf);
+      mma_bf16(st.o[2 * jp], pa, bf[0], bf[1]);
+      mma_bf16(st.o[2 * jp + 1], pa, bf[2], bf[3]);
+    }
+  }
+}
+
+// Shared memory of the prefill kernels K6 and K6': Q, then K and V of two
+// stages (stage s at tiles 1 + 2s and 2 + 2s).
+constexpr size_t kPrefillSmemBytes = 5 * kTileBytes;
+
+// The block loop of K6 and K6': the block's 64 query rows (staged by the
+// caller at tile 0 and not yet committed) against key tiles 0..ntiles-1,
+// staged by stage_kv(it, k_tile, v_tile) and double-buffered. Tiles from
+// `first_masked` on ask keep(row, key) (row 0..63 of the block, key index
+// from 0) for each score.
+template <class StageKV, class Keep>
+__device__ __forceinline__ void prefill_rows(uint8_t* smem, int ntiles, int first_masked,
+                                             float scale_log2, StageKV stage_kv, Keep keep,
+                                             RowState& st) {
+  const uint32_t sbase = mrt::smem_u32(smem);
+  const int warp = threadIdx.x >> 5;
+  if (ntiles > 0) stage_kv(0, smem + kTileBytes, smem + 2 * kTileBytes);
+  mrt::cp_async_commit();
+  uint32_t qf[D / 16][4];
+  st.init();
+  for (int it = 0; it < ntiles; ++it) {
+    const int sg = it & 1;
+    if (it + 1 < ntiles) {
+      stage_kv(it + 1, smem + (3 - 2 * sg) * kTileBytes, smem + (4 - 2 * sg) * kTileBytes);
+      mrt::cp_async_commit();
+      mrt::cp_async_wait<1>();
+    } else {
+      mrt::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) load_q(sbase, warp * 16, qf);
+    const int k0 = it * kTileRows;
+    attend<kTileRows>(sbase + (1 + 2 * sg) * kTileBytes, sbase + (2 + 2 * sg) * kTileBytes, 0,
+                      qf, st, scale_log2, it >= first_masked,
+                      [&](int r, int kj) { return keep(warp * 16 + r, k0 + kj); });
+    __syncthreads();  // this stage's K/V are free for the tile after next
+  }
+  mrt::cp_async_wait<0>();  // nothing left in flight when no tile ran
+}
+
+// Normalize a warp's rows and write them as bf16: row r (0..15 of the
+// warp) goes to out_row(r), or nowhere when that is null. A row that saw no
+// key is written as zeros.
+template <class OutRow>
+__device__ __forceinline__ void store_rows(RowState& st, OutRow out_row) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  st.reduce_l();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    __nv_bfloat16* op = out_row(g + 8 * r);
+    if (op == nullptr) continue;
+    const float inv = st.l[r] > 0.f ? 1.f / st.l[r] : 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(op + 8 * j + 2 * t) =
+          pack_bf16(st.o[j][2 * r] * inv, st.o[j][2 * r + 1] * inv);
+  }
+}
+
+}  // namespace fa

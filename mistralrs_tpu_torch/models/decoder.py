@@ -6,13 +6,18 @@ dense llama/mistral model: `_norm`, `_mlp` (fused gate|up or separate),
 in prenorm form, `decoder_forward` as a plain loop over layers, and
 `compute_logits`.
 
-Attention on the paged cache:
+Attention on the paged cache, routed once per step by the JAX package's
+shape rules (without its backend checks and environment gates):
 - a first prompt chunk whose length is a multiple of 128 (and whose sliding
   window, if any, does not clip it) runs the flash prefill kernel K6 on the
   chunk's own K/V (ops/flash_attention.py);
-- decode and every other chunk gather their pages and run the f32 einsum
-  `sdpa` (ops/attention.py).
-The new K/V are written into the pool in place before either.
+- decode (T = 1) on a head-major pool at a span of 4096 or more runs the
+  block-table decode kernel K7 (ops/paged_attention.py);
+- a continuation chunk of 128-row blocks at a span of at most 4096 runs the
+  paged continuation kernel K6' over either pool layout;
+- everything else gathers its pages and runs the f32 einsum `sdpa`, or
+  `sdpa_head_major` on a head-major pool (ops/attention.py).
+The new K/V are written into the pool in place before any of them.
 """
 
 from __future__ import annotations
@@ -24,12 +29,14 @@ import torch
 
 from mistralrs_tpu_torch.models.config import ModelConfig
 from mistralrs_tpu_torch.ops import layers as L
-from mistralrs_tpu_torch.ops.attention import NEG_INF, causal_mask_bias, sdpa
+from mistralrs_tpu_torch.ops.attention import NEG_INF, causal_mask_bias, sdpa, sdpa_head_major
 from mistralrs_tpu_torch.ops.flash_attention import flash_prefill
 from mistralrs_tpu_torch.ops.paged_attention import (
     PagedAttnMeta,
     PagedKVCache,
+    flash_prefill_continuation,
     gather_paged_kv,
+    paged_decode_attention,
     write_paged_kv,
 )
 from mistralrs_tpu_torch.ops.rope import RopeTable, apply_rope
@@ -59,6 +66,42 @@ def _use_flash_prefill(cfg: ModelConfig, T: int, meta: PagedAttnMeta) -> bool:
     return not (cfg.sliding_window is not None and cfg.sliding_window < T)
 
 
+def _use_flash_continuation(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span: int) -> bool:
+    """Continuation-chunk kernel (K6') eligibility, the JAX package's shape
+    rule: a later chunk of 128-row blocks whose span (block-table width x
+    page) is a multiple of 128 and at most 4096, and no sliding window that
+    clips the span."""
+    if T < 128 or T % 128 or meta.first_chunk:
+        return False
+    if span % 128 or span > 4096:
+        return False
+    return not (cfg.sliding_window is not None and cfg.sliding_window < span)
+
+
+def _use_paged_decode_kernel(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span: int) -> bool:
+    """Block-table decode kernel (K7) eligibility, the JAX package's shape
+    rule: one query token, a head-major pool, a span of at least 4096, and
+    no sliding window that could clip the span (the kernel masks by length
+    only)."""
+    if T != 1 or not meta.head_major or span < 4096:
+        return False
+    if cfg.sliding_window is None or cfg.sliding_window_pattern == "none":
+        return True
+    return span <= cfg.sliding_window
+
+
+def _attention_route(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span: int) -> str:
+    """The step's attention route, the same for every layer: "flash" (K6),
+    "decode" (K7), "continuation" (K6') or "gather"."""
+    if _use_flash_prefill(cfg, T, meta):
+        return "flash"
+    if _use_paged_decode_kernel(cfg, T, meta, span):
+        return "decode"
+    if _use_flash_continuation(cfg, T, meta, span):
+        return "continuation"
+    return "gather"
+
+
 def _norm(cfg: ModelConfig, p: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return L.rms_norm(x, p["w"], cfg.norm_eps)
 
@@ -82,6 +125,7 @@ def _attention(
     cache_k: torch.Tensor,
     cache_v: torch.Tensor,
     meta: PagedAttnMeta,
+    route: str,
     bias: torch.Tensor | None,
 ) -> torch.Tensor:
     B, T, _ = x.shape
@@ -103,22 +147,30 @@ def _attention(
     q = apply_rope(q, cos, sin, rot_dim)
     k = apply_rope(k, cos, sin, rot_dim)
     scale = cfg.query_scale if cfg.query_scale is not None else D**-0.5
-    write_paged_kv(cache_k, cache_v, k, v, meta.slot_mapping)
-    if _use_flash_prefill(cfg, T, meta):
+    hm = meta.head_major
+    write_paged_kv(cache_k, cache_v, k, v, meta.slot_mapping, head_major=hm)
+    if route == "flash":
         # first prefill chunk: its own K/V is the whole context, so no paged
         # gather and no [B, Hq, T, T] scores in memory
         out = flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(), scale)
         # zero padding rows (they attended garbage) via the active mask
         out = out * meta.active[:, None, None, None].to(out.dtype)
+    elif route == "decode":
+        # streams only the pages each row's table names
+        out = paged_decode_attention(q.contiguous(), cache_k, cache_v, meta, scale=scale)
+    elif route == "continuation":
+        out = flash_prefill_continuation(q.contiguous(), cache_k, cache_v, meta, scale=scale)
+        out = out * meta.active[:, None, None, None].to(out.dtype)
     else:
-        ctx_k, ctx_v = gather_paged_kv(cache_k, cache_v, meta.block_tables)
-        out = sdpa(q, ctx_k.to(q.dtype), ctx_v.to(q.dtype), scale=scale, mask=bias)
+        ctx_k, ctx_v = gather_paged_kv(cache_k, cache_v, meta.block_tables, head_major=hm)
+        attn = sdpa_head_major if hm else sdpa
+        out = attn(q, ctx_k.to(q.dtype), ctx_v.to(q.dtype), scale=scale, mask=bias)
     return linear(p["o"], out.reshape(B, T, Hq * D))
 
 
-def _block(cfg, p, h, cos, sin, rot_dim, ck, cv, meta, bias):
+def _block(cfg, p, h, cos, sin, rot_dim, ck, cv, meta, route, bias):
     x = _norm(cfg, p["input_norm"], h)
-    h = h + _attention(cfg, p["attn"], x, cos, sin, rot_dim, ck, cv, meta, bias)
+    h = h + _attention(cfg, p["attn"], x, cos, sin, rot_dim, ck, cv, meta, route, bias)
     return h + _mlp(cfg, p["mlp"], _norm(cfg, p["post_attn_norm"], h))
 
 
@@ -135,10 +187,11 @@ def decoder_forward(
     B, T = input_ids.shape
     h = params.embed[input_ids.to(torch.int64)]
     cos, sin = rope.gather(meta.positions.to(torch.int64))  # [B, T, rot/2]
+    S = meta.block_tables.shape[1] * cache.page_size
+    route = _attention_route(cfg, T, meta, S)
     bias_full = bias_win = None
-    if not _use_flash_prefill(cfg, T, meta):
-        # masks built once per step, picked per layer
-        S = meta.block_tables.shape[1] * cache.page_size
+    if route == "gather":
+        # masks built once per step (only for the gather route), picked per layer
         kv_lens = meta.kv_lens.to(torch.int64)
         q_offsets = kv_lens - T
         pad = torch.where(torch.arange(S, device=h.device)[None] < kv_lens[:, None], 0.0, NEG_INF)
@@ -149,7 +202,7 @@ def decoder_forward(
                                         sliding_window=cfg.sliding_window) + pad[:, None, None, :]
     for i, lp in enumerate(params.layers):
         bias = bias_win if cfg.layer_uses_sliding_window(i) else bias_full
-        h = _block(cfg, lp, h, cos, sin, rope.rot_dim, cache.k[i], cache.v[i], meta, bias)
+        h = _block(cfg, lp, h, cos, sin, rope.rot_dim, cache.k[i], cache.v[i], meta, route, bias)
     return _norm(cfg, params.final_norm, h), cache
 
 

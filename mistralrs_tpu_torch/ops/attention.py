@@ -1,7 +1,7 @@
 """Scaled-dot-product attention, written as plain torch einsum/softmax in f32.
 
 Counterpart of mistralrs_tpu/ops/attention.py (`NEG_INF`,
-`causal_mask_bias`, `sdpa`). GQA folds the query-head group axis into the
+`causal_mask_bias`, `sdpa`, `sdpa_head_major`). GQA folds the query-head group axis into the
 einsum instead of repeating K/V. Masks are additive f32 biases (0 = keep,
 NEG_INF = drop).
 """
@@ -73,3 +73,34 @@ def sdpa(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgts,bshd->bthgd", probs.to(v.dtype), v)
     return out.reshape(B, T, Hq, D)
+
+
+def sdpa_head_major(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float,
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """GQA attention over a head-major gathered context: q [B,T,Hq,D],
+    k/v [Hkv,B,S,D] -> [B,T,Hq,D] in q's dtype.
+
+    The paged gather of a head-major pool yields [Hkv, B, S, D]; the einsums
+    read it in that order, with no transposed copy. mask: additive bias
+    [B, 1, T, S] (or [1, T, S]). Scores, softmax and the second product in
+    f32 (v rounded to q's dtype first), as the JAX function does."""
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[0]
+    if Hq % Hkv:
+        raise ValueError(f"sdpa_head_major: {Hq} query heads over {Hkv} kv heads")
+    G = Hq // Hkv
+    qg = q.reshape(B, T, Hkv, G, D)
+    scores = torch.einsum("bthgd,hbsd->bhgts", qg.to(torch.float32), k.to(torch.float32))
+    scores = scores * scale
+    if mask is not None:
+        m = mask if mask.dim() == 4 else mask[None]
+        scores = scores + m[:, :, None].to(torch.float32)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgts,hbsd->bthgd", probs, v.to(q.dtype).to(torch.float32))
+    return out.reshape(B, T, Hq, D).to(q.dtype)

@@ -1,50 +1,82 @@
-"""Paged (block-table) KV cache: token-major pools, scatter, gather, copies.
+"""Paged (block-table) KV cache: pools, scatter, gather, copies, and the
+paged attention kernels K6' and K7.
 
-Counterpart of mistralrs_tpu/ops/paged_attention.py for the token-major
-pools (`PagedKVCache`, `PagedAttnMeta`, `write_paged_kv`, `gather_paged_kv`,
-`paged_attention_reference`, `copy_pages`). Head-major, int8, combined and
-split pools are later work.
+Counterpart of mistralrs_tpu/ops/paged_attention.py: `PagedKVCache`,
+`PagedAttnMeta`, `write_paged_kv`, `gather_paged_kv`,
+`paged_attention_reference`, `copy_pages`, `flash_prefill_continuation`
+(K6') and `paged_decode_attention` (K7). Int8, combined and split pools are
+later work.
 
-Layout: k and v are [L, P, page, Hkv, D]; each layer's pool `k[l]` is a
-view, so the decoder passes per-layer views without copies. Page 0 of every
-layer is the garbage page: padding tokens' slot_mapping points into it, so
-writes need no masking, and the block manager never hands it out.
+Two pool layouts, as in the JAX package (`head_major`):
+- token-major k/v [L, P, page, Hkv, D]: one page row is one token's heads;
+- head-major k/v [L, Hkv, P, page, D]: each kv head's page is one
+  contiguous [page, D] block, the layout the decode kernel streams.
+Each layer's pool `k[l]` is a view, so the decoder passes per-layer views
+without copies. Page 0 of every layer is the garbage page: padding tokens'
+slot_mapping points into it, so writes need no masking, and the block
+manager never hands it out.
 
 Unlike the JAX functions, which return new arrays, `write_paged_kv` and
 `copy_pages` update the pools IN PLACE (index_copy_ / indexed assignment):
 a functional update would copy the whole pool every layer and step.
+
+The kernels (csrc/flash_prefill_paged.cu, csrc/paged_decode.cu) read the
+context through the block table, never a gathered copy. Their wrappers take
+the plain versions below when (and only when) the tensors lie on the CPU;
+on a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
-from mistralrs_tpu_torch.ops.attention import NEG_INF, sdpa
+from mistralrs_tpu_torch.ops import kernels
+from mistralrs_tpu_torch.ops.attention import NEG_INF, sdpa, sdpa_head_major
+
+# launches of each kernel (one per wrapper call that launched it)
+flash_prefill_paged_launches = 0
+paged_decode_launches = 0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 @dataclasses.dataclass
 class PagedKVCache:
-    """k/v pages, token-major [L, P, page, Hkv, D]. Page 0 is reserved."""
+    """k/v pages, token-major [L, P, page, Hkv, D] or head-major
+    [L, Hkv, P, page, D]. Page 0 is reserved."""
 
     k: torch.Tensor
     v: torch.Tensor
+    head_major: bool = False
 
     @classmethod
     def create(cls, num_layers: int, num_pages: int, page_size: int, kv_heads: int,
-               head_dim: int, dtype=torch.bfloat16, device="cuda") -> "PagedKVCache":
-        shape = (num_layers, num_pages, page_size, kv_heads, head_dim)
+               head_dim: int, dtype=torch.bfloat16, device="cuda",
+               head_major: bool = False) -> "PagedKVCache":
+        if head_major:
+            shape = (num_layers, kv_heads, num_pages, page_size, head_dim)
+        else:
+            shape = (num_layers, num_pages, page_size, kv_heads, head_dim)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+                   v=torch.zeros(shape, dtype=dtype, device=device), head_major=head_major)
 
     @property
     def page_size(self) -> int:
-        return self.k.shape[2]
+        return self.k.shape[3] if self.head_major else self.k.shape[2]
 
     @property
     def num_pages(self) -> int:
-        return self.k.shape[1]
+        return self.k.shape[2] if self.head_major else self.k.shape[1]
+
+    @property
+    def page_axis(self) -> int:
+        """Axis of the page index in the full [L, ...] pools (COW copies)."""
+        return 2 if self.head_major else 1
 
 
 @dataclasses.dataclass
@@ -59,6 +91,7 @@ class PagedAttnMeta:
     active:       [B] 1.0 live row / 0.0 padding slot
     first_chunk:  every row starts at position 0, so the chunk's own K/V is
                   its whole context (the flash prefill path)
+    head_major:   layout of the pools this step receives
     """
 
     positions: torch.Tensor
@@ -67,33 +100,49 @@ class PagedAttnMeta:
     kv_lens: torch.Tensor
     active: torch.Tensor
     first_chunk: bool = False
+    head_major: bool = False
 
 
 def write_paged_kv(
-    cache_k: torch.Tensor,  # one layer [P, page, Hkv, D]
+    cache_k: torch.Tensor,  # one layer; layout per `head_major`
     cache_v: torch.Tensor,
     new_k: torch.Tensor,  # [B, T, Hkv, D]
     new_v: torch.Tensor,
     slot_mapping: torch.Tensor,  # [B, T]
+    head_major: bool = False,
 ) -> None:
     """reshape_and_cache: scatter the new K/V rows into their slots, in place.
     Several padding tokens may share a garbage slot; which one lands there
     does not matter."""
-    P, page, H, D = cache_k.shape
     idx = slot_mapping.reshape(-1).to(torch.int64)
+    if head_major:
+        H, P, page, D = cache_k.shape
+        for pool, new in ((cache_k, new_k), (cache_v, new_v)):
+            rows = new.reshape(-1, H, D).transpose(0, 1).to(pool.dtype)  # [H, B*T, D]
+            pool.view(H, P * page, D).index_copy_(1, idx, rows)
+        return
+    P, page, H, D = cache_k.shape
     cache_k.view(P * page, H, D).index_copy_(0, idx, new_k.reshape(-1, H, D).to(cache_k.dtype))
     cache_v.view(P * page, H, D).index_copy_(0, idx, new_v.reshape(-1, H, D).to(cache_v.dtype))
 
 
 def gather_paged_kv(
-    cache_k: torch.Tensor,  # one layer [P, page, Hkv, D]
+    cache_k: torch.Tensor,  # one layer; layout per `head_major`
     cache_v: torch.Tensor,
     block_tables: torch.Tensor,  # [B, MAX_PAGES]
+    head_major: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Each row's context, [B, MAX_PAGES*page, Hkv, D], in position order."""
+    """Each row's context in position order, reshaped from the pool layout
+    without a transposed copy: head-major pools give [Hkv, B, S, D] (read
+    by sdpa_head_major), token-major pools [B, S, Hkv, D] (read by sdpa)."""
     B, MP = block_tables.shape
-    P, page, H, D = cache_k.shape
     flat = block_tables.reshape(-1).to(torch.int64)
+    if head_major:
+        H, P, page, D = cache_k.shape
+        k = torch.index_select(cache_k, 1, flat)
+        v = torch.index_select(cache_v, 1, flat)
+        return k.reshape(H, B, MP * page, D), v.reshape(H, B, MP * page, D)
+    P, page, H, D = cache_k.shape
     k = torch.index_select(cache_k, 0, flat)
     v = torch.index_select(cache_v, 0, flat)
     return k.reshape(B, MP * page, H, D), v.reshape(B, MP * page, H, D)
@@ -101,33 +150,201 @@ def gather_paged_kv(
 
 def paged_attention_reference(
     q: torch.Tensor,  # [B, T, Hq, D]
-    cache_k: torch.Tensor,  # one layer [P, page, Hkv, D]
+    cache_k: torch.Tensor,  # one layer; layout per meta.head_major
     cache_v: torch.Tensor,
     meta: PagedAttnMeta,
     *,
     scale: float,
+    sliding_window: int | None = None,
 ) -> torch.Tensor:
     """Attention of q against the paged context (gather + dense SDPA), for
     decode (T=1) and continuation chunks; the chunk's own K/V must already
-    be written with write_paged_kv."""
+    be written with write_paged_kv. Query i of a row sits at position
+    kv_len - T + i and sees positions up to its own that are < kv_len."""
     B, T = q.shape[0], q.shape[1]
-    k, v = gather_paged_kv(cache_k, cache_v, meta.block_tables)
-    S = k.shape[1]
-    q_off = meta.kv_lens.to(torch.int64) - T
-    q_ids = torch.arange(T, device=q.device)[None, :] + q_off[:, None]  # [B, T]
+    hm = meta.head_major
+    k, v = gather_paged_kv(cache_k, cache_v, meta.block_tables, head_major=hm)
+    S = k.shape[2] if hm else k.shape[1]
+    kv_lens = meta.kv_lens.to(torch.int64)
+    q_ids = torch.arange(T, device=q.device)[None, :] + (kv_lens - T)[:, None]  # [B, T]
     kv_ids = torch.arange(S, device=q.device)[None, :]
     keep = kv_ids[:, None, :] <= q_ids[:, :, None]  # [B, T, S] causal
-    keep &= (kv_ids < meta.kv_lens.to(torch.int64)[:, None])[:, None, :]
+    keep &= (kv_ids < kv_lens[:, None])[:, None, :]
+    if sliding_window is not None:
+        keep &= kv_ids[:, None, :] > q_ids[:, :, None] - sliding_window
     bias = torch.where(keep, 0.0, NEG_INF).to(torch.float32)[:, None]  # [B, 1, T, S]
-    return sdpa(q, k.to(q.dtype), v.to(q.dtype), scale=scale, mask=bias)
+    attn = sdpa_head_major if hm else sdpa
+    return attn(q, k.to(q.dtype), v.to(q.dtype), scale=scale, mask=bias)
 
 
 def copy_pages(cache: PagedKVCache, src, dst) -> PagedKVCache:
-    """COW page copies in every layer, in place (the right-hand side is
-    gathered before the write, so overlapping src/dst copy the old pages)."""
+    """COW page copies in every layer, on the page axis of either layout, in
+    place (the right-hand side is gathered before the write, so overlapping
+    src/dst copy the old pages)."""
     dev = cache.k.device
     src = torch.as_tensor(src, dtype=torch.int64, device=dev)
     dst = torch.as_tensor(dst, dtype=torch.int64, device=dev)
     for arr in (cache.k, cache.v):
-        arr[:, dst] = arr[:, src]
+        if cache.page_axis == 2:
+            arr[:, :, dst] = arr[:, :, src]
+        else:
+            arr[:, dst] = arr[:, src]
     return cache
+
+
+# ------------------------------------------------------------- kernels
+
+
+def _paged_plain(q, cache_k, cache_v, meta, scale):
+    """Masked f32 attention over the gathered context; rows with kv_len 0
+    give zeros, as the kernels do."""
+    out = paged_attention_reference(q.to(torch.float32), cache_k, cache_v, meta, scale=scale)
+    live = (meta.kv_lens > 0).to(out.dtype)[:, None, None, None]
+    return (out * live).to(q.dtype)
+
+
+# one plain function, under each kernel's name, so that a caller (or a test
+# counting routes) can tell the two kernels' plain versions apart
+def flash_prefill_continuation_plain(q, cache_k, cache_v, meta, *, scale: float):
+    """Plain PyTorch version of K6', any device."""
+    return _paged_plain(q, cache_k, cache_v, meta, scale)
+
+
+def paged_decode_attention_plain(q, cache_k, cache_v, meta, *, scale: float):
+    """Plain PyTorch version of K7 (the same function at T = 1), any device."""
+    return _paged_plain(q, cache_k, cache_v, meta, scale)
+
+
+def _pool_geometry(cache_k: torch.Tensor, head_major: bool):
+    """(Hkv, pages, page size, element strides of a page, a slot and a kv
+    head) of one layer's pool."""
+    if head_major:
+        H, P, page, D = cache_k.shape
+        return H, P, page, page * D, D, P * page * D
+    P, page, H, D = cache_k.shape
+    return H, P, page, page * H * D, H * D, D
+
+
+def _on_cpu(*ts) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _check_card(name: str, q, cache_k, cache_v, meta) -> tuple[torch.Tensor, torch.Tensor]:
+    """Raise on what the kernels do not take; returns the block tables and
+    kv_lens as contiguous int64 on q's device."""
+    for nm, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v),
+                  ("block_tables", meta.block_tables), ("kv_lens", meta.kv_lens)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name}: {nm} on {t.device}, expected one cuda device")
+    for nm, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: {nm} is {t.dtype}; the kernel takes bfloat16")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {nm} must be contiguous and 16-byte aligned")
+    if q.shape[-1] != 128:
+        raise ValueError(f"{name}: head dim {q.shape[-1]}; the kernel takes 128")
+    page = _pool_geometry(cache_k, meta.head_major)[2]
+    if page & (page - 1):
+        raise ValueError(f"{name}: page size {page}; the kernel takes a power of two")
+    for nm, t in (("block_tables", meta.block_tables), ("kv_lens", meta.kv_lens)):
+        if t.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"{name}: {nm} is {t.dtype}; expected an integer tensor")
+    return (meta.block_tables.to(torch.int64).contiguous(),
+            meta.kv_lens.to(torch.int64).contiguous())
+
+
+def _check_shapes(name: str, q, cache_k, cache_v, meta) -> None:
+    B, T, Hq, D = q.shape
+    if cache_k.dim() != 4 or cache_k.shape != cache_v.shape:
+        raise ValueError(f"{name}: pools {tuple(cache_k.shape)} / {tuple(cache_v.shape)} "
+                         "are not one layer's [Hkv,P,page,D] or [P,page,Hkv,D]")
+    H = _pool_geometry(cache_k, meta.head_major)[0]
+    if cache_k.shape[-1] != D or Hq % H:
+        raise ValueError(f"{name}: q {tuple(q.shape)} against pools {tuple(cache_k.shape)}")
+    if meta.block_tables.dim() != 2 or meta.block_tables.shape[0] != B \
+            or tuple(meta.kv_lens.shape) != (B,):
+        raise ValueError(f"{name}: block_tables {tuple(meta.block_tables.shape)} and kv_lens "
+                         f"{tuple(meta.kv_lens.shape)} do not match {B} rows")
+
+
+def flash_prefill_continuation(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                               meta: PagedAttnMeta, *, scale: float) -> torch.Tensor:
+    """K6': causal attention of a prefill chunk q [B, T, Hq, D] over its paged
+    context (the chunk's own K/V already written) -> [B, T, Hq, D] in q's
+    dtype. Query i of row b sits at position kv_lens[b] - T + i; rows may
+    start at 0. Pools of either layout."""
+    global flash_prefill_paged_launches
+    _check_shapes("flash_prefill_continuation", q, cache_k, cache_v, meta)
+    if _on_cpu(q, cache_k, cache_v, meta.block_tables, meta.kv_lens):
+        return flash_prefill_continuation_plain(q, cache_k, cache_v, meta, scale=scale)
+    tables, kv_lens = _check_card("flash_prefill_continuation", q, cache_k, cache_v, meta)
+    B, T, Hq, _ = q.shape
+    H, _, page, s_page, s_slot, s_head = _pool_geometry(cache_k, meta.head_major)
+    out = torch.empty_like(q)
+    if B == 0 or T == 0:
+        return out
+    fn = kernels.function("flash_prefill_paged", "flash_prefill_paged",
+                          [_P] * 6 + [_I] * 7 + [_L] * 3 + [ctypes.c_float, _P])
+    err = fn(kernels.ptr(q), kernels.ptr(cache_k), kernels.ptr(cache_v), kernels.ptr(tables),
+             kernels.ptr(kv_lens), kernels.ptr(out), B, T, Hq, H, tables.shape[1], page,
+             page.bit_length() - 1, s_page, s_slot, s_head, float(scale),
+             _P(kernels.stream_ptr(q.device)))
+    kernels.check(err, "flash_prefill_paged")
+    flash_prefill_paged_launches += 1
+    return out
+
+
+# keys of one staged tile of the decode kernel, and the CTAs it aims to keep
+# resident on each SM (68 KB of shared memory each)
+_DECODE_TILE = 64
+_DECODE_CTAS_PER_SM = 2
+_sm_counts: dict[int, int] = {}
+
+
+def _decode_splits(B: int, H: int, span: int, device) -> tuple[int, int]:
+    """(splits, 64-key tiles per split) of K7's grid: each (row, kv head)
+    pair's span is cut into splits so that B * H * splits fills the card's
+    SMs about twice; the splits' partials are combined in a second pass."""
+    idx = torch.device(device).index or 0
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    tiles = max(1, -(-span // _DECODE_TILE))
+    want = max(1, _DECODE_CTAS_PER_SM * _sm_counts[idx] // max(B * H, 1))
+    per = -(-tiles // min(want, tiles))
+    return -(-tiles // per), per
+
+
+def paged_decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                           meta: PagedAttnMeta, *, scale: float) -> torch.Tensor:
+    """K7: one query token per row q [B, 1, Hq, D] against the first
+    kv_lens[b] positions of its block table -> [B, 1, Hq, D] in q's dtype.
+    Streams only the named pages; a row with kv_len 0 gives zeros."""
+    global paged_decode_launches
+    _check_shapes("paged_decode_attention", q, cache_k, cache_v, meta)
+    if q.shape[1] != 1:
+        raise ValueError(f"paged_decode_attention: {q.shape[1]} query tokens per row, expected 1")
+    if _on_cpu(q, cache_k, cache_v, meta.block_tables, meta.kv_lens):
+        return paged_decode_attention_plain(q, cache_k, cache_v, meta, scale=scale)
+    tables, kv_lens = _check_card("paged_decode_attention", q, cache_k, cache_v, meta)
+    B, _, Hq, D = q.shape
+    H, _, page, s_page, s_slot, s_head = _pool_geometry(cache_k, meta.head_major)
+    if Hq // H > 16:
+        raise ValueError(f"paged_decode_attention: {Hq // H} query heads per kv head; "
+                         "the kernel takes at most 16")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    MP = tables.shape[1]
+    splits, per = _decode_splits(B, H, MP * page, q.device)
+    parts = splits * 4  # one partial per warp
+    part_o = torch.empty(B, Hq, parts, D, dtype=torch.float32, device=q.device)
+    part_ml = torch.empty(B, Hq, parts, 2, dtype=torch.float32, device=q.device)
+    fn = kernels.function("paged_decode", "paged_decode",
+                          [_P] * 8 + [_I] * 7 + [_L] * 3 + [_I, ctypes.c_float, _P])
+    err = fn(kernels.ptr(q), kernels.ptr(cache_k), kernels.ptr(cache_v), kernels.ptr(tables),
+             kernels.ptr(kv_lens), kernels.ptr(part_o), kernels.ptr(part_ml), kernels.ptr(out),
+             B, Hq, H, MP, page, page.bit_length() - 1, splits, s_page, s_slot, s_head, per,
+             float(scale), _P(kernels.stream_ptr(q.device)))
+    kernels.check(err, "paged_decode")
+    paged_decode_launches += 1
+    return out

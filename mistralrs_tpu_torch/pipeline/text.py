@@ -4,7 +4,8 @@ Counterpart of mistralrs_tpu/pipeline/text.py. Each step builds its host
 arrays as the JAX pipeline does (decode padded to `max_seqs` rows, prefill
 chunks padded to a bucket, page 0 as the garbage page for padding slots,
 page-bucketed block-table widths), moves them to the device and runs
-`decoder_forward` eagerly; the KV pools are updated in place. A batched
+`decoder_forward` eagerly; the KV pools are updated in place, head-major
+at `max_model_len >= 4096` unless `kv_head_major` says otherwise. A batched
 prefill has one row per sequence: eager PyTorch has no compiled shape to
 keep, so it does not pad the batch to `max_seqs` as the JAX package does.
 
@@ -61,6 +62,9 @@ class PipelineConfig:
     # Q6_K -> int8 per-group requant at load ("rq8", served by the K2
     # kernel): group 32 (the wire-Q8_0 layout), 64, or None to keep Q6_K
     rq8_group: int | None = 32
+    # KV pool layout: None = head-major at max_model_len >= 4096 (the
+    # layout the block-table decode kernel streams), token-major below
+    kv_head_major: bool | None = None
     device: str = "cuda"
 
 
@@ -96,9 +100,11 @@ class TextPipeline:
         if pc.rq8_group:
             params = requant_q6k_params(params, gs=pc.rq8_group)
         self.params = params
+        self.head_major = (pc.kv_head_major if pc.kv_head_major is not None
+                           else pc.max_model_len >= 4096)
         self.cache = PagedKVCache.create(cfg.num_layers, pc.num_pages, pc.page_size,
                                          cfg.num_kv_heads, cfg.head_dim, pc.dtype,
-                                         device=self.device)
+                                         device=self.device, head_major=self.head_major)
         self._last_greedy_pack: torch.Tensor | None = None
         self._last_logits: torch.Tensor | None = None
 
@@ -119,6 +125,7 @@ class TextPipeline:
             kv_lens=self._dev(kv_lens),
             active=self._dev(active),
             first_chunk=first_chunk,
+            head_major=self.head_major,
         )
         h, _ = decoder_forward(self.params, self.cfg, self.rope, self._dev(ids), self.cache, meta)
         B = ids.shape[0]
@@ -172,7 +179,8 @@ class TextPipeline:
             pos = kvl[:, None]
             page = torch.gather(tables, 1, pos // ps)
             meta = PagedAttnMeta(positions=pos + off[:, None], slot_mapping=page * ps + pos % ps,
-                                 block_tables=tables, kv_lens=kvl + 1, active=act)
+                                 block_tables=tables, kv_lens=kvl + 1, active=act,
+                                 head_major=self.head_major)
             h, _ = decoder_forward(self.params, self.cfg, self.rope, tok[:, None], self.cache, meta)
             logits = compute_logits(self.params, self.cfg, h[:, 0])
             tok = torch.argmax(logits, dim=-1)

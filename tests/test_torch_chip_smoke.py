@@ -67,3 +67,20 @@ def test_main_refuses_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("head_major", [True, False])
+def test_paged_inputs_give_each_row_its_own_pages(head_major):
+    """The K6'/K7 inputs of the kernel phase: tables as wide as the pipeline
+    makes them (a power of two of pages covering kv_len), distinct pages,
+    page 0 unused, pools of the layout asked for."""
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, meta = chip_smoke.paged_inputs(TINY, torch.device("cpu"), gen, 3, 2, 1000, head_major)
+    B, MP = meta.block_tables.shape
+    assert (B, MP) == (3, 64) and q.shape == (3, 2, TINY.heads, TINY.head_dim)
+    pages = meta.block_tables.flatten()
+    assert len(set(pages.tolist())) == B * MP and int(pages.min()) == 1
+    P = 1 + B * MP
+    want = (TINY.kv_heads, P, 16, 128) if head_major else (P, 16, TINY.kv_heads, 128)
+    assert tuple(k.shape) == tuple(v.shape) == want and meta.head_major == head_major
+    assert meta.kv_lens.tolist() == [1000] * 3

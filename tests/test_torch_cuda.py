@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from mistralrs_tpu_torch.ops import flash_attention as fa
+from mistralrs_tpu_torch.ops import paged_attention as pa
 from mistralrs_tpu_torch.ops import quant_matmul as qm
 
 pytestmark = pytest.mark.cuda
@@ -131,3 +132,84 @@ def test_q6k_forward_raises_below_the_prefill_route(dev):
         linear(lin, torch.zeros(2, 128, K, dtype=torch.bfloat16, device=dev))
     y = linear(lin, _acts(257, K, dev, 4).to(torch.bfloat16))
     assert y.shape == (257, O) and bool(torch.isfinite(y).all())
+
+
+def _paged_inputs(dev, B, T, kv_lens, Hq, Hkv, head_major, seed, page=16):
+    """q [B,T,Hq,128], one layer's pools and a meta whose block tables name
+    shuffled pages (page 0 unused), wide enough for every row."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    MP = max(1, max(-(-n // page) for n in kv_lens) + 1)
+    P = 1 + B * MP
+    shape = (Hkv, P, page, 128) if head_major else (P, page, Hkv, 128)
+    k = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+    v = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+    tables = (1 + torch.randperm(P - 1, generator=g)).reshape(B, MP)
+    q = torch.randn(B, T, Hq, 128, generator=g).to(dev, torch.bfloat16)
+    zeros = torch.zeros(B, T, dtype=torch.int64, device=dev)
+    meta = pa.PagedAttnMeta(positions=zeros, slot_mapping=zeros, block_tables=tables.to(dev),
+                            kv_lens=torch.tensor(kv_lens, device=dev),
+                            active=torch.ones(B, device=dev), head_major=head_major)
+    return q, k, v, meta
+
+
+@pytest.mark.parametrize("head_major", [True, False])
+@pytest.mark.parametrize("B,T,kv_lens,Hq,Hkv", [
+    (2, 128, (200, 128), 4, 2),     # row 1 starts at 0 (a mixed batch)
+    (1, 256, (1000,), 32, 8),       # ends mid-page
+    (3, 64, (70, 333, 64), 8, 2),   # T not a multiple of 128
+    (4, 512, (4096, 3584, 1024, 517), 32, 8),
+])
+def test_flash_prefill_paged_matches_plain(dev, head_major, B, T, kv_lens, Hq, Hkv):
+    q, k, v, meta = _paged_inputs(dev, B, T, kv_lens, Hq, Hkv, head_major, seed=T + B)
+    before = pa.flash_prefill_paged_launches
+    got = pa.flash_prefill_continuation(q, k, v, meta, scale=128 ** -0.5).float()
+    want = pa.flash_prefill_continuation_plain(q, k, v, meta, scale=128 ** -0.5).float()
+    torch.cuda.synchronize()
+    assert pa.flash_prefill_paged_launches == before + 1
+    # as K6: one bf16 rounding of the output on each side, P rounded to bf16
+    # before P.V in the kernel, f32 sums in another order
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("head_major", [True, False])
+@pytest.mark.parametrize("B,kv_lens,Hq,Hkv", [
+    (1, (4089,), 32, 8),
+    (4, (3456, 1, 17, 2048), 32, 8),
+    (16, tuple(range(256, 4097, 256)), 32, 8),
+    (3, (100, 0, 640), 8, 8),     # kv_len 0 gives zeros
+    (2, (300, 77), 16, 1),        # 16 query heads on one kv head
+])
+def test_paged_decode_matches_plain(dev, head_major, B, kv_lens, Hq, Hkv):
+    q, k, v, meta = _paged_inputs(dev, B, 1, kv_lens, Hq, Hkv, head_major, seed=B + Hq)
+    before = pa.paged_decode_launches
+    got = pa.paged_decode_attention(q, k, v, meta, scale=128 ** -0.5).float()
+    want = pa.paged_decode_attention_plain(q, k, v, meta, scale=128 ** -0.5).float()
+    torch.cuda.synchronize()
+    assert pa.paged_decode_launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    for b, n in enumerate(kv_lens):
+        if n == 0:
+            assert not bool(got[b].any())
+    # bf16 output on both sides, P rounded to bf16 before P.V in the kernel,
+    # the splits' partials combined in another f32 order
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def test_paged_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    q, k, v, meta = _paged_inputs(dev, 1, 1, (40,), 4, 2, True, seed=0)
+    with pytest.raises(ValueError):  # f32 query
+        pa.paged_decode_attention(q.float(), k, v, meta, scale=1.0)
+    with pytest.raises(ValueError):  # two query tokens
+        pa.paged_decode_attention(torch.cat([q, q], 1), k, v, meta, scale=1.0)
+    with pytest.raises(ValueError):  # pools that are not one layer's
+        pa.flash_prefill_continuation(q, k[None], v[None], meta, scale=1.0)
+    with pytest.raises(ValueError):  # head dim 64
+        pa.flash_prefill_continuation(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                                      v[..., :64].contiguous(), meta, scale=1.0)
+    with pytest.raises(ValueError):  # a non-contiguous pool
+        pa.paged_decode_attention(q, k.transpose(1, 2), v.transpose(1, 2), meta, scale=1.0)
+    cpu_meta = pa.PagedAttnMeta(**{f: getattr(meta, f).cpu() for f in (
+        "positions", "slot_mapping", "block_tables", "kv_lens", "active")}, head_major=True)
+    with pytest.raises(ValueError):  # tables on another device
+        pa.paged_decode_attention(q, k, v, cpu_meta, scale=1.0)

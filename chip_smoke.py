@@ -10,13 +10,14 @@ non-zero and never prints the final line):
 2. build: compiles every kernel of the path (csrc/*.cu, one nvcc each, in
    parallel) and reports the seconds.
 3. kernels: each kernel against its plain PyTorch version on the card, at the
-   shapes of a Mistral-7B Q4_K_M decode step (batch 16 and 1) and of a
-   prefill chunk of 256 rows (the most the GEMVs take), of first
+   shapes of a Mistral-7B Q4_K_M and Q5_K_M decode step (batch 16 and 1) and
+   of prefill chunks of 64 and 256 rows (the most the GEMVs take), of first
    prefill chunks, of continuation chunks and decode steps over a paged
    context of up to 4096 tokens, and of the prefill route's dequantization, with the
    tolerance stated; then kernel, plain-version and library-call times (CUDA
    events, median of 25 runs, L2 flushed before each) beside the least time
-   the card could take (bound).
+   the card could take (bound); for the Q6_K int8 GEMV (K3) also the time of
+   the int8 GEMV (K2) on the same weight requantized to int8 per 32 (rq8).
 4. slice: the 32-layer Mistral-7B Q4_K_M model with random packed weights
    (the value ranges of bench.py), fused and Q6_K->int8 requantized by the
    pipeline, serves 8 greedy requests through Engine/TextPipeline: ~200-token
@@ -32,11 +33,18 @@ non-zero and never prints the final line):
    of ~1,200 tokens (3 chunks; decode at span 2048 on gather +
    sdpa_head_major). The launch counts are set to 0 just before the first
    wave and read after each.
-6. card_vs_cpu: a 2-layer full-width model with identical weights on the card
+6. quant_mix: the 32-layer Mistral-7B in the Q5_K_M mix (Q5_K where Q4_K_M
+   has Q4_K) with Q6_K kept as Q6_K (rq8_group=None) serves the slice
+   phase's pattern through Engine/TextPipeline: 4 x 256-row first chunks
+   (q5k_dequant / q6k_dequant + torch.matmul, flash prefill), 4 x 64-row
+   chunks (K9 and K4), decode at batch 16 (K9 and K3). It raises unless
+   K3, K4, K9 and both dequant kernels launched and K1 and K2 did not.
+7. card_vs_cpu: a 2-layer full-width model with identical weights on the card
    (kernels, bf16) and on the CPU (plain versions, f32): one 256-token
-   prefill and 4 decode steps, logits compared; then on head-major pools a
-   512-token first chunk, a 512-token continuation chunk and 4 decode steps
-   at a table width of 256 pages (K6, K6', K7 on the card).
+   prefill and 4 decode steps, logits compared, in the Q4_K_M mix and in
+   the Q5_K_M mix with Q6_K kept; then on head-major pools a 512-token
+   first chunk, a 512-token continuation chunk and 4 decode steps at a
+   table width of 256 pages (K6, K6', K7 on the card).
 Then the kernels line and, last, {"ok": true, "device": {...}}.
 """
 
@@ -72,14 +80,32 @@ KERNEL_INFO = {
                     "mistralrs_tpu/quant/gguf_linear.py:454"),
     "q8_0_dequant": ("mistralrs_tpu_torch/csrc/q8_0_q8_gemv.cu",
                      "mistralrs_tpu/quant/gguf_linear.py:525"),
+    "q6k_q8_gemv": ("mistralrs_tpu_torch/csrc/q6k_gemv.cu",
+                    "mistralrs_tpu/ops/quant_matmul.py:954"),
+    "q6k_bf16_gemv": ("mistralrs_tpu_torch/csrc/q6k_gemv.cu",
+                      "mistralrs_tpu/ops/quant_matmul.py:896"),
+    "q5k_q8_gemv": ("mistralrs_tpu_torch/csrc/q5k_q8_gemv.cu",
+                    "mistralrs_tpu/ops/quant_matmul.py:757"),
+    "q6k_dequant": ("mistralrs_tpu_torch/csrc/q6k_gemv.cu",
+                    "mistralrs_tpu/quant/gguf_linear.py:469"),
+    "q5k_dequant": ("mistralrs_tpu_torch/csrc/q5k_q8_gemv.cu",
+                    "mistralrs_tpu/quant/gguf_linear.py:498"),
 }
 # the shape whose numbers stand in the kernels line
 HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
             "flash_prefill": "B=4 T=512", "flash_prefill_paged": "B=4 T=512 kv=4096 head_major",
             "paged_decode": "B=16 kv=4096 head_major", "q4k_dequant": "gate|up",
-            "q8_0_dequant": "down rq8"}
-# the kernels the long-context path adds; the rest belong to the slice path
-LONG_CONTEXT_KERNELS = ("flash_prefill_paged", "paged_decode")
+            "q8_0_dequant": "down rq8", "q6k_q8_gemv": "lm_head B=16",
+            "q6k_bf16_gemv": "down B=256", "q5k_q8_gemv": "gate|up B=16", "q6k_dequant": "down",
+            "q5k_dequant": "gate|up"}
+# the kernels each serving phase's path adds (long_context also runs the
+# slice path's, quant_mix also flash_prefill); the line's launches of each
+# kernel come from the phase of its path
+PATH_KERNELS = {
+    "slice": ("q4k_q8_gemv", "q8_0_q8_gemv", "flash_prefill", "q4k_dequant", "q8_0_dequant"),
+    "long_context": ("flash_prefill_paged", "paged_decode"),
+    "quant_mix": ("q6k_q8_gemv", "q6k_bf16_gemv", "q5k_q8_gemv", "q6k_dequant", "q5k_dequant"),
+}
 # each kernel's launch counter: (module under mistralrs_tpu_torch.ops, name)
 COUNTERS = {
     "q4k_q8_gemv": ("quant_matmul", "q4k_q8_gemv_launches"),
@@ -89,6 +115,11 @@ COUNTERS = {
     "paged_decode": ("paged_attention", "paged_decode_launches"),
     "q4k_dequant": ("quant_matmul", "q4k_dequant_launches"),
     "q8_0_dequant": ("quant_matmul", "q8_0_dequant_launches"),
+    "q6k_q8_gemv": ("quant_matmul", "q6k_q8_gemv_launches"),
+    "q6k_bf16_gemv": ("quant_matmul", "q6k_bf16_gemv_launches"),
+    "q5k_q8_gemv": ("quant_matmul", "q5k_q8_gemv_launches"),
+    "q6k_dequant": ("quant_matmul", "q6k_dequant_launches"),
+    "q5k_dequant": ("quant_matmul", "q5k_dequant_launches"),
 }
 
 
@@ -157,6 +188,16 @@ def random_q4km_params(sz: Sizes, n_layers: int, device, gen, fdt):
     """Random packed weights in the device layouts with the Q4_K_M type mix
     (attn_v, lm_head and the use_more_bits ffn_down in Q6_K, the rest Q4_K),
     value ranges as bench.py: scales U[0.001, 0.005), mins U[0, 0.002)."""
+    return _random_mix_params(sz, n_layers, device, gen, fdt, "gguf_q4k")
+
+
+def random_q5km_params(sz: Sizes, n_layers: int, device, gen, fdt):
+    """The same with the Q5_K_M type mix: Q5_K where Q4_K_M has Q4_K (llama.cpp
+    takes both mixes through the same branches of llama_tensor_get_type)."""
+    return _random_mix_params(sz, n_layers, device, gen, fdt, "gguf_q5k")
+
+
+def _random_mix_params(sz: Sizes, n_layers: int, device, gen, fdt, base: str):
     import torch
 
     from mistralrs_tpu_torch.models.decoder import DecoderParams
@@ -170,8 +211,11 @@ def random_q4km_params(sz: Sizes, n_layers: int, device, gen, fdt):
         return (torch.rand(shape, device=device, generator=gen) * (hi - lo) + lo).to(fdt)
 
     def q4k(i, o):
-        return Linear("gguf_q4k", (i, o), {"qs": u8(i // 2, o), "scale": unif(0.001, 0.005, i // 32, o),
-                                           "minv": unif(0.0, 0.002, i // 32, o)})
+        data = {"qs": u8(i // 2, o), "scale": unif(0.001, 0.005, i // 32, o),
+                "minv": unif(0.0, 0.002, i // 32, o)}
+        if base == "gguf_q5k":
+            data["qh"] = u8(i // 8, o)
+        return Linear(base, (i, o), data)
 
     def q6k(i, o):
         G = q6k_chunk_size(i)
@@ -342,6 +386,8 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
                 del want_w, got_w
             del w
 
+    q56k_kernels(sz, device, clock, gen, rand, record)
+
     # K6: first prefill chunks
     for B, T, Hq, Hkv in sz.flash_cases:
         qf = torch.randn(B, T, Hq, D, device=device, generator=gen).to(fdt)
@@ -369,6 +415,101 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
 
     paged_kernels(sz, device, clock, gen, record)
     return results
+
+
+def q56k_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
+    """Parity and timing of K3, K4, K9 and the Q5_K / Q6_K dequant kernels
+    at the shapes of the Q5_K_M path (random packed weights, bench.py's
+    value ranges). library = torch.matmul on the dequantized bf16 weight.
+    Each K3 row also times K2 on the same weight requantized to int8 per 32
+    (rq8, the layout the Q4_K_M path serves Q6_K in)."""
+    import torch
+
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+    from mistralrs_tpu_torch.quant.gguf_linear import q6k_chunk_size, requant_q6k_to_q8
+    from mistralrs_tpu_torch.quant.qlinear import Linear
+
+    H, I, D = sz.hidden, sz.inter, sz.head_dim
+    fdt = torch.bfloat16
+    vocab_pad = -(-sz.vocab // 2048) * 2048
+
+    def u8(*shape):
+        return rand(*shape, lo=0.0, hi=256.0).to(torch.uint8)
+
+    def compare(got, want):
+        err = float((got.float() - want.float()).abs().max())
+        return err, err / max(float(want.float().abs().max()), 1e-30)
+
+    # Q6_K: attn_v, the use_more_bits ffn_down, the lm_head
+    for nm, K, O in [("v", H, sz.kv_heads * D), ("down", I, H), ("lm_head", H, vocab_pad)]:
+        G = q6k_chunk_size(K)
+        ql, qh = u8(K // 2, O), u8(K // 4, O)
+        scale = rand(K // 16, O, lo=0.001, hi=0.005, dtype=fdt)
+        w_bytes = K // 2 * O + K // 4 * O + K // 16 * O * 2
+        w = qm.q6k_dequant(ql, qh, scale, G, fdt)
+        want_w = qm.q6k_dequant_plain(ql, qh, scale, G, fdt)
+        err, rel = compare(w, want_w)
+        del want_w
+        # bit-equal: one f32 multiply rounded to bf16 on both sides
+        record("q6k_dequant", nm, err, rel, 0.0, clock.ms(lambda: qm.q6k_dequant(ql, qh, scale, G, fdt)),
+               clock.ms(lambda: qm.q6k_dequant_plain(ql, qh, scale, G, fdt)), None,
+               bound(w_bytes + K * O * 2, K * O, PEAK_BF16))
+        rq8 = requant_q6k_to_q8(Linear("gguf_q6k", (K, O), {"ql": ql, "qh": qh, "scale": scale},
+                                       meta=G), gs=32)
+        for B in (16, 1):
+            x = torch.randn(B, K, device=device, generator=gen).to(fdt)
+            err, rel = compare(qm.q6k_q8_gemv(x, ql, qh, scale, G, out_dtype=torch.float32),
+                               qm.q6k_q8_gemv_plain(x, ql, qh, scale, G, torch.float32))
+            nbytes = B * K * 2 + w_bytes + B * O * 2
+            # the same int8 codes and exact per-16 int dots on both sides;
+            # only the f32 order of the scaled sums differs
+            record("q6k_q8_gemv", f"{nm} B={B}", err, rel, 1e-5,
+                   clock.ms(lambda: qm.q6k_q8_gemv(x, ql, qh, scale, G, out_dtype=fdt)),
+                   clock.ms(lambda: qm.q6k_q8_gemv_plain(x, ql, qh, scale, G, fdt)),
+                   clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_INT8),
+                   rq8_k2_ms=clock.ms(lambda: qm.q8_0_q8_gemv(x, rq8.data["q"], rq8.data["scale"],
+                                                              32, out_dtype=fdt)))
+        del rq8
+        for B in (64, 256):
+            x = torch.randn(B, K, device=device, generator=gen).to(fdt)
+            err, rel = compare(qm.q6k_bf16_gemv(x, ql, qh, scale, G, out_dtype=torch.float32),
+                               qm.q6k_bf16_gemv_plain(x, ql, qh, scale, G, torch.float32))
+            nbytes = B * K * 2 + w_bytes + B * O * 2
+            # the same bf16(q * s16) weights on both sides; f32 sums of bf16
+            # products in another order
+            record("q6k_bf16_gemv", f"{nm} B={B}", err, rel, 1e-4,
+                   clock.ms(lambda: qm.q6k_bf16_gemv(x, ql, qh, scale, G, out_dtype=fdt)),
+                   clock.ms(lambda: qm.q6k_bf16_gemv_plain(x, ql, qh, scale, G, fdt)),
+                   clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_BF16))
+        del w, ql, qh, scale
+
+    # Q5_K: fused q|k, o, fused gate|up, the other ffn_down
+    for nm, K, O in [("qk", H, (sz.heads + sz.kv_heads) * D), ("o", sz.heads * D, H),
+                     ("gate|up", H, 2 * I), ("down", I, H)]:
+        qs, qh = u8(K // 2, O), u8(K // 8, O)
+        scale = rand(K // 32, O, lo=0.001, hi=0.005, dtype=fdt)
+        minv = rand(K // 32, O, lo=0.0, hi=0.002, dtype=fdt)
+        w_bytes = K // 2 * O + K // 8 * O + 2 * (K // 32) * O * 2
+        w = qm.q5k_dequant(qs, qh, scale, minv, fdt)
+        want_w = qm.q5k_dequant_plain(qs, qh, scale, minv, fdt)
+        err, rel = compare(w, want_w)
+        del want_w
+        # bit-equal: the plain version's two bf16 roundings
+        record("q5k_dequant", nm, err, rel, 0.0,
+               clock.ms(lambda: qm.q5k_dequant(qs, qh, scale, minv, fdt)),
+               clock.ms(lambda: qm.q5k_dequant_plain(qs, qh, scale, minv, fdt)), None,
+               bound(w_bytes + K * O * 2, 2 * K * O, PEAK_BF16))
+        for B in (16, 1, 256):
+            x = torch.randn(B, K, device=device, generator=gen).to(fdt)
+            err, rel = compare(qm.q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=torch.float32),
+                               qm.q5k_q8_gemv_plain(x, qs, qh, scale, minv, torch.float32))
+            nbytes = B * K * 2 + w_bytes + B * O * 2
+            # exact int dots over the 5-bit codes on both sides
+            record("q5k_q8_gemv", f"{nm} B={B}", err, rel, 1e-5,
+                   clock.ms(lambda: qm.q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=fdt)),
+                   clock.ms(lambda: qm.q5k_q8_gemv_plain(x, qs, qh, scale, minv, fdt)),
+                   clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_INT8))
+        del w, qs, qh, scale, minv
 
 
 def paged_inputs(sz: Sizes, device, gen, B: int, T: int, kv_len: int, head_major: bool):
@@ -538,7 +679,13 @@ def ttft_ms(groups: list) -> float:
                                    for s in g.seqs)
 
 
-def slice_phase(sz: Sizes, device) -> dict:
+def short_context_phase(sz: Sizes, device, phase: str, params_fn, rq8_group) -> dict:
+    """The 32-layer model at max_model_len 2048 (token-major pools, buckets
+    64/256) serves 4 greedy requests of ~200-token prompts (one 4 x 256
+    first chunk), then 4 of ~40 tokens (4 x 64 rows), max_len tokens each,
+    after a warm-up with the same pattern. Returns the phase's line; the
+    launch counts are set to 0 just before the measured run and read just
+    after it."""
     import torch
 
     from mistralrs_tpu_torch.engine.engine import Engine
@@ -547,16 +694,20 @@ def slice_phase(sz: Sizes, device) -> dict:
 
     fdt = torch.bfloat16
     cfg = model_config(sz, sz.layers)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
-    params = random_q4km_params(sz, sz.layers, device, gen, fdt)
+    params = params_fn(sz, sz.layers, device, gen, fdt)
     pc = PipelineConfig(page_size=16, num_pages=512, max_seqs=16, max_model_len=2048,
                         prefill_buckets=(64, 256), decode_steps=8, dtype=fdt,
-                        device=str(device))
+                        device=str(device), rq8_group=rq8_group)
     pipe = TextPipeline(cfg, params, make_rope(cfg, 2048, device=device), pc)
-    del params  # the pipeline holds the fused, requantized copy
+    del params  # the pipeline holds the fused (and requantized) copy
     kinds = sorted({lin.kind for lp in pipe.params.layers for part in ("attn", "mlp")
                     for lin in lp[part].values()} | {pipe.params.lm_head.kind})
+    q6k_kinds = sorted({f"{part}.{name}" for lp in pipe.params.layers for part in ("attn", "mlp")
+                        for name, lin in lp[part].items() if lin.kind == "gguf_q6k"}
+                       | ({"lm_head"} if pipe.params.lm_head.kind == "gguf_q6k" else set()))
     eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
     rng = np.random.default_rng(1)
 
@@ -584,9 +735,9 @@ def slice_phase(sz: Sizes, device) -> dict:
     run_s = time.perf_counter() - t_run
     counts = read_counts()
     n_toks = check_served(groups, sz.vocab, sz.max_len, pipe)
-    check_launched(counts, [n for n in COUNTERS if n not in LONG_CONTEXT_KERNELS])
 
-    out = {"phase": "slice", "layers": sz.layers, "kinds": kinds, "requests": len(groups),
+    out = {"phase": phase, "layers": sz.layers, "kinds": kinds, "q6k_kinds": q6k_kinds,
+           "rq8_group": rq8_group, "requests": len(groups),
            "generated_tokens": n_toks, "decode_tok_s": decode["tokens"] / decode["seconds"],
            "decode_tokens": decode["tokens"], "decode_s": decode["seconds"],
            "p50_ttft_ms": ttft_ms(groups), "p50_ttft_ms_long": ttft_ms(groups[:4]),
@@ -595,6 +746,24 @@ def slice_phase(sz: Sizes, device) -> dict:
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
     del eng, pipe
+    return out
+
+
+def slice_phase(sz: Sizes, device) -> dict:
+    """Q4_K_M with Q6_K requantized to int8 per 32 (K1, K2, K6, the dequant
+    kernels)."""
+    out = short_context_phase(sz, device, "slice", random_q4km_params, 32)
+    check_launched(out["launches"], PATH_KERNELS["slice"])
+    return out
+
+
+def quant_mix_phase(sz: Sizes, device) -> dict:
+    """Q5_K_M with Q6_K kept as Q6_K: K9, K3, K4 and the Q5_K / Q6_K dequant
+    kernels, and neither K1 nor K2."""
+    out = short_context_phase(sz, device, "quant_mix", random_q5km_params, None)
+    check_launched(out["launches"], PATH_KERNELS["quant_mix"] + ("flash_prefill",))
+    if out["launches"]["q4k_q8_gemv"] or out["launches"]["q8_0_q8_gemv"]:
+        raise AssertionError(f"the Q5_K_M path launched K1 or K2: {out['launches']}")
     return out
 
 
@@ -645,7 +814,7 @@ def long_context_phase(sz: Sizes, device) -> dict:
     run_s = time.perf_counter() - t_run
     counts = read_counts()
     n_toks = check_served(long_groups + short_groups, sz.vocab, sz.max_len_ctx, pipe)
-    check_launched(counts, COUNTERS)
+    check_launched(counts, PATH_KERNELS["slice"] + PATH_KERNELS["long_context"])
     if counts["paged_decode"] != counts_long["paged_decode"]:
         raise AssertionError("decode at span 2048 launched the block-table decode kernel")
 
@@ -672,9 +841,10 @@ def long_context_phase(sz: Sizes, device) -> dict:
 def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
     """Same port code and identical weights on the card (kernels, bf16) and
     the CPU (plain versions, f32): a 256-token prefill and 4 decode steps on
-    token-major pools, then, on head-major pools, a 512-token first chunk
-    (K6), a 512-token continuation chunk (K6') and 4 decode steps (K7) with
-    tables 256 pages wide."""
+    token-major pools, in the Q4_K_M mix (rq8) and in the Q5_K_M mix with
+    Q6_K kept (on the card K9 and K4 at 256 rows, then K9 and K3); then, on
+    head-major pools, a 512-token first chunk (K6), a 512-token continuation
+    chunk (K6') and 4 decode steps (K7) with tables 256 pages wide."""
     import dataclasses
 
     import torch
@@ -692,6 +862,7 @@ def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
     # weights made once on the CPU; float values rounded to bf16 so that
     # both sides hold the same numbers
     base = random_q4km_params(sz, n_layers, torch.device("cpu"), gen, torch.bfloat16)
+    base_q5km = random_q5km_params(sz, n_layers, torch.device("cpu"), gen, torch.bfloat16)
     sides = ((torch.device("cpu"), torch.float32), (device, torch.bfloat16))
 
     def moved(node, dev, dt):
@@ -703,11 +874,11 @@ def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
             return [moved(v, dev, dt) for v in node]
         return node.to(dev, dt) if node.is_floating_point() else node.to(dev)
 
-    def pipeline(dev, dt, **kw):
-        params = dataclasses.replace(base, embed=moved(base.embed, dev, dt),
-                                     layers=moved(base.layers, dev, dt),
-                                     final_norm=moved(base.final_norm, dev, dt),
-                                     lm_head=moved(base.lm_head, dev, dt))
+    def pipeline(dev, dt, weights=base, **kw):
+        params = dataclasses.replace(weights, embed=moved(weights.embed, dev, dt),
+                                     layers=moved(weights.layers, dev, dt),
+                                     final_norm=moved(weights.final_norm, dev, dt),
+                                     lm_head=moved(weights.lm_head, dev, dt))
         pc = PipelineConfig(max_seqs=1, dtype=dt, device=str(dev), **kw)
         return TextPipeline(cfg, params, make_rope(cfg, pc.max_model_len, device=dev), pc)
 
@@ -728,25 +899,32 @@ def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
         return out
 
     prompt = [int(t) for t in np.random.default_rng(3).integers(1, sz.vocab, 256)]
-    runs = {}
-    forced = None
-    for dev, dt in sides:
-        pipe = pipeline(dev, dt, page_size=16, num_pages=32, max_model_len=512,
-                        prefill_buckets=(256,))
-        bm = BlockManager(pipe.pc.num_pages, pipe.pc.page_size)
-        seq = Sequence(prompt, SamplingParams(max_len=8), max_model_len=512)
-        bm.allocate(seq)
-        logits = [pipe.run_prefill_chunk(seq, prompt)]
-        for step in range(4):
-            tok = int(np.argmax(logits[-1])) if forced is None else forced[step]
-            seq.tokens.append(tok)
-            bm.append_slot(seq, 1)
-            logits.append(pipe.run_decode([seq])[0])
-        if forced is None:  # the CPU run picks the tokens both runs feed
-            forced = [int(np.argmax(x)) for x in logits[:4]]
-        runs[dev.type] = np.stack(logits).astype(np.float64)
-        del pipe
-    outs = [compare("card_vs_cpu", runs)]
+    outs = []
+    for phase, weights, rq8, names in (
+            ("card_vs_cpu", base, 32, ("q4k_q8_gemv", "q8_0_q8_gemv")),
+            ("card_vs_cpu_q5km", base_q5km, None, ("q6k_q8_gemv", "q6k_bf16_gemv", "q5k_q8_gemv"))):
+        runs, forced, counts = {}, None, {}
+        for dev, dt in sides:
+            pipe = pipeline(dev, dt, weights, page_size=16, num_pages=32, max_model_len=512,
+                            prefill_buckets=(256,), rq8_group=rq8)
+            bm = BlockManager(pipe.pc.num_pages, pipe.pc.page_size)
+            seq = Sequence(prompt, SamplingParams(max_len=8), max_model_len=512)
+            bm.allocate(seq)
+            reset_counts()
+            logits = [pipe.run_prefill_chunk(seq, prompt)]
+            for step in range(4):
+                tok = int(np.argmax(logits[-1])) if forced is None else forced[step]
+                seq.tokens.append(tok)
+                bm.append_slot(seq, 1)
+                logits.append(pipe.run_decode([seq])[0])
+            if forced is None:  # the CPU run picks the tokens both runs feed
+                forced = [int(np.argmax(x)) for x in logits[:4]]
+            counts[dev.type] = read_counts()
+            runs[dev.type] = np.stack(logits).astype(np.float64)
+            del pipe
+        card = counts[device.type]
+        check_launched(card, names)
+        outs.append(compare(phase, runs, launches={n: card[n] for n in names}))
 
     # long context: host arrays straight into the pipeline's step, so the
     # tables can be 256 pages wide at a 1,024-token context
@@ -820,7 +998,7 @@ def main() -> int:
     results = kernel_phase(sz, device, Clock(device))
     seconds["kernels"] = time.perf_counter() - t0
     for name, fn in (("slice", slice_phase), ("long_context", long_context_phase),
-                     ("card_vs_cpu", card_vs_cpu_phase)):
+                     ("quant_mix", quant_mix_phase), ("card_vs_cpu", card_vs_cpu_phase)):
         t0 = time.perf_counter()
         results[name] = fn(sz, device)
         seconds[name] = time.perf_counter() - t0
@@ -831,7 +1009,7 @@ def main() -> int:
         rows = results[name]
         head = next(r for r in rows if r["shape"] == HEADLINE[name])
         # each kernel's launches in the run of the path it belongs to
-        path = "long_context" if name in LONG_CONTEXT_KERNELS else "slice"
+        path = next(p for p, names in PATH_KERNELS.items() if name in names)
         line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": results[path]["launches"][name], "launches_path": path,
                      "max_abs_err": max(r["max_abs_err"] for r in rows),

@@ -1,6 +1,6 @@
 // Pieces shared by the hand-written Hopper kernels of mistralrs_tpu_torch:
-// bf16 helpers, the int8 tensor-core GEMV building blocks, the activation
-// quantize kernel, the GEMV workspace layout and the split-K pass.
+// bf16 helpers, the int8 and bf16 tensor-core GEMV building blocks, the
+// activation quantize kernel, the GEMV workspace layout and the split-K pass.
 //
 // Every kernel source is compiled on its own into a shared library with a
 // plain C interface (see mistralrs_tpu_torch/ops/kernels.py); the sources
@@ -32,7 +32,7 @@ __device__ __forceinline__ void transpose4(uint32_t& a0, uint32_t& a1, uint32_t&
   a3 = __byte_perm(t2, t3, 0x7632);
 }
 
-// ---- int8 tensor-core GEMV building blocks (K1, K2) ----
+// ---- tensor-core GEMV building blocks (K1, K2, K3, K4, K9) ----
 //
 // A block owns 128 output columns (4 warps x 32) and a 16-row tile of x. The
 // weight bytes of one K step (32 rows x 128 columns) are staged in shared
@@ -139,6 +139,28 @@ __device__ __forceinline__ void mma_s8(int d[4], const uint32_t a[4], uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += A (16x16 s8, row) * B (16x8 s8, col), int32 (exact): the per-16 dots
+// of K3. With a_frag's registers, {a[0], a[1]} is the A fragment of bytes
+// k0..k0+15 and {a[2], a[3]} that of k0+16..k0+31; b_frags' b0 and b1 are
+// the matching B fragments.
+__device__ __forceinline__ void mma_s8_k16(int d[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// d += A (16x16 bf16, row) * B (16x8 bf16, col), f32 accumulators (K4).
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Write a warp's [16 rows x 32 columns] f32 accumulators to part[B, O]: C
 // element e of n-tile j sits at row row0 + lane/4 + 8*(e/2), column
 // col0 + warp*32 + 8*(lane%4) + 4*(e%2) + j.
@@ -177,16 +199,18 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 // Activation quantization per GS-element block, one warp per block:
 //   xs = max(max|x_block|, 1e-10) * (1/127)   (f32 multiply, not a divide)
 //   xq = clip(rint(x / xs), -127, 127)        (IEEE divide, round half to even)
-// and, when xsum32 is given, the f32 sum of every 32 original values. The
-// plain PyTorch version (ops/quant_matmul._quantize_acts_q8_gs) does the same
-// f32 operations, so xq and xs agree bit for bit; only xsum's order differs.
-// xq is [B, K]; xs and xsum32 are written transposed, [K/GS][bpad] and
-// [K/32][bpad] (bpad = B rounded up to 16), so a GEMV block can stage the
-// values of its 16 rows as 16-byte chunks.
+// (skipped when xq is null: K4 only takes sums), and, when xsum32 / xsum16
+// are given, the f32 sums of every 32 / 16 original values. The plain
+// PyTorch version (ops/quant_matmul._quantize_acts_q8_gs) does the same f32
+// operations, so xq and xs agree bit for bit; only the sums' order differs.
+// xq is [B, K]; xs, xsum32 and xsum16 are written transposed, [K/GS][bpad],
+// [K/32][bpad] and [K/16][bpad] (bpad = B rounded up to 16), so a GEMV
+// block can stage the values of its 16 rows as 16-byte chunks.
 template <typename XT, int GS>
 __global__ void quantize_acts_kernel(const XT* __restrict__ x, int8_t* __restrict__ xq,
                                      float* __restrict__ xs, float* __restrict__ xsum32,
-                                     long long nblocks, int nblk_row, int bpad) {
+                                     float* __restrict__ xsum16, long long nblocks,
+                                     int nblk_row, int bpad) {
   constexpr int E = GS / 32;
   const long long g = (long long)blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   if (g >= nblocks) return;  // whole warps leave together
@@ -201,13 +225,15 @@ __global__ void quantize_acts_kernel(const XT* __restrict__ x, int8_t* __restric
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float s = fmaxf(amax, 1e-10f) * (1.0f / 127.0f);
+  if (xq != nullptr) {
+    const float s = fmaxf(amax, 1e-10f) * (1.0f / 127.0f);
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const float q = fminf(fmaxf(rintf(v[e] / s), -127.f), 127.f);
-    xq[g * GS + e * 32 + lane] = (int8_t)(int)q;
+    for (int e = 0; e < E; ++e) {
+      const float q = fminf(fmaxf(rintf(v[e] / s), -127.f), 127.f);
+      xq[g * GS + e * 32 + lane] = (int8_t)(int)q;
+    }
+    if (lane == 0) xs[(size_t)kb * bpad + b] = s;
   }
-  if (lane == 0) xs[(size_t)kb * bpad + b] = s;
   if (xsum32 != nullptr) {
 #pragma unroll
     for (int e = 0; e < E; ++e) {
@@ -217,20 +243,29 @@ __global__ void quantize_acts_kernel(const XT* __restrict__ x, int8_t* __restric
       if (lane == 0) xsum32[(size_t)(kb * E + e) * bpad + b] = t;
     }
   }
+  if (xsum16 != nullptr) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      float t = v[e];  // lanes 0..15 and 16..31 sum apart
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
+      if ((lane & 15) == 0) xsum16[(size_t)(2 * (kb * E + e) + (lane >> 4)) * bpad + b] = t;
+    }
+  }
 }
 
 template <int GS>
 inline void launch_quantize(const void* x, bool x_is_bf16, int8_t* xq, float* xs, float* xsum32,
-                            int B, int K, int bpad, cudaStream_t st) {
+                            float* xsum16, int B, int K, int bpad, cudaStream_t st) {
   const int warps = 8;
   const long long nblocks = (long long)B * (K / GS);
   const unsigned grid = (unsigned)((nblocks + warps - 1) / warps);
   if (x_is_bf16)
     quantize_acts_kernel<__nv_bfloat16, GS><<<grid, 32 * warps, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), xq, xs, xsum32, nblocks, K / GS, bpad);
+        static_cast<const __nv_bfloat16*>(x), xq, xs, xsum32, xsum16, nblocks, K / GS, bpad);
   else
     quantize_acts_kernel<float, GS><<<grid, 32 * warps, 0, st>>>(
-        static_cast<const float*>(x), xq, xs, xsum32, nblocks, K / GS, bpad);
+        static_cast<const float*>(x), xq, xs, xsum32, xsum16, nblocks, K / GS, bpad);
 }
 
 // Scratch of one GEMV call, carved from one workspace buffer in this order,
@@ -238,25 +273,29 @@ inline void launch_quantize(const void* x, bool x_is_bf16, int8_t* xq, float* xs
 inline size_t align256(size_t n) { return (n + 255) & ~size_t(255); }
 
 struct Workspace {
-  int8_t* xq;   // [B, K]
-  float* xs;    // [K/gs, bpad]
-  float* xsum;  // [K/32, bpad], nullptr when not asked for
+  int8_t* xq;   // [B, K], nullptr when gs is 0
+  float* xs;    // [K/gs, bpad], nullptr when gs is 0
+  float* xsum;  // [K/sum_gs, bpad], nullptr when sum_gs is 0
   float* part;  // [ksplit, B, O]
   int bpad;     // B rounded up to 16
   size_t bytes;
 };
 
-inline Workspace carve(void* ws, int B, int K, int O, int gs, bool with_xsum, int ksplit) {
+inline Workspace carve(void* ws, int B, int K, int O, int gs, int sum_gs, int ksplit) {
   char* p = static_cast<char*>(ws);
   Workspace w;
   w.bpad = (B + 15) / 16 * 16;
   size_t off = 0;
-  w.xq = reinterpret_cast<int8_t*>(p + off);
-  off += align256((size_t)B * K);
-  w.xs = reinterpret_cast<float*>(p + off);
-  off += align256((size_t)(K / gs) * w.bpad * 4);
-  w.xsum = with_xsum ? reinterpret_cast<float*>(p + off) : nullptr;
-  if (with_xsum) off += align256((size_t)(K / 32) * w.bpad * 4);
+  w.xq = nullptr;
+  w.xs = nullptr;
+  if (gs) {
+    w.xq = reinterpret_cast<int8_t*>(p + off);
+    off += align256((size_t)B * K);
+    w.xs = reinterpret_cast<float*>(p + off);
+    off += align256((size_t)(K / gs) * w.bpad * 4);
+  }
+  w.xsum = sum_gs ? reinterpret_cast<float*>(p + off) : nullptr;
+  if (sum_gs) off += align256((size_t)(K / sum_gs) * w.bpad * 4);
   w.part = reinterpret_cast<float*>(p + off);
   off += align256((size_t)ksplit * B * O * 4);
   w.bytes = off;
@@ -282,6 +321,25 @@ template <typename OutT>
 inline void launch_reduce(const float* part, void* out, int ksplit, int n, cudaStream_t st) {
   splitk_reduce_kernel<OutT><<<(n + 255) / 256, 256, 0, st>>>(part, static_cast<OutT*>(out),
                                                                ksplit, n);
+}
+
+// The tail of every GEMV's C entry point: check the GEMV's launch, then add
+// the split-K partials into out (bf16 or f32). Returns the CUDA error code.
+inline int finish_gemv(const Workspace& w, void* out, int out_is_bf16, int ksplit, int n,
+                       cudaStream_t st) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (out_is_bf16)
+    launch_reduce<__nv_bfloat16>(w.part, out, ksplit, n, st);
+  else
+    launch_reduce<float>(w.part, out, ksplit, n, st);
+  return (int)cudaGetLastError();
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory (above 48 KB it must ask).
+template <typename F>
+inline cudaError_t allow_smem(F* kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace mrt

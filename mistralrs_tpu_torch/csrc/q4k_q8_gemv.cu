@@ -151,22 +151,16 @@ extern "C" int q4k_q8_gemv(const void* x, int x_is_bf16, const void* qs, const v
                            const void* minv, void* ws, long long ws_bytes, void* out,
                            int out_is_bf16, int B, int K, int O, int ksplit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const mrt::Workspace w = mrt::carve(ws, B, K, O, 32, true, ksplit);
+  const mrt::Workspace w = mrt::carve(ws, B, K, O, 32, 32, ksplit);
   if (w.bytes > (size_t)ws_bytes) return (int)cudaErrorInvalidValue;
-  mrt::launch_quantize<32>(x, x_is_bf16 != 0, w.xq, w.xs, w.xsum, B, K, w.bpad, st);
+  mrt::launch_quantize<32>(x, x_is_bf16 != 0, w.xq, w.xs, w.xsum, nullptr, B, K, w.bpad, st);
   const int npairs = K / 64;
   const dim3 grid((O + mrt::kGemvCols - 1) / mrt::kGemvCols, ksplit, (B + 15) / 16);
   q4k_q8_mma_kernel<<<grid, mrt::kGemvThreads, 0, st>>>(
       w.xq, w.xs, w.xsum, static_cast<const uint8_t*>(qs),
       static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(minv), w.part,
       B, w.bpad, K, O, (npairs + ksplit - 1) / ksplit);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (out_is_bf16)
-    mrt::launch_reduce<__nv_bfloat16>(w.part, out, ksplit, B * O, st);
-  else
-    mrt::launch_reduce<float>(w.part, out, ksplit, B * O, st);
-  return (int)cudaGetLastError();
+  return mrt::finish_gemv(w, out, out_is_bf16, ksplit, B * O, st);
 }
 
 // ---- dequantization for prefill-sized calls ----

@@ -140,28 +140,22 @@ extern "C" int q8_0_q8_gemv(const void* x, int x_is_bf16, const void* q, const v
                             int out_is_bf16, int B, int K, int O, int ksplit, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (gs != 32 && gs != 64) return (int)cudaErrorInvalidValue;
-  const mrt::Workspace w = mrt::carve(ws, B, K, O, gs, false, ksplit);
+  const mrt::Workspace w = mrt::carve(ws, B, K, O, gs, 0, ksplit);
   if (w.bytes > (size_t)ws_bytes) return (int)cudaErrorInvalidValue;
   if (gs == 32) {
-    mrt::launch_quantize<32>(x, x_is_bf16 != 0, w.xq, w.xs, nullptr, B, K, w.bpad, st);
+    mrt::launch_quantize<32>(x, x_is_bf16 != 0, w.xq, w.xs, nullptr, nullptr, B, K, w.bpad, st);
     if (scale_is_bf16)
       launch_gs<32, __nv_bfloat16>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, ksplit, st);
     else
       launch_gs<32, float>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, ksplit, st);
   } else {
-    mrt::launch_quantize<64>(x, x_is_bf16 != 0, w.xq, w.xs, nullptr, B, K, w.bpad, st);
+    mrt::launch_quantize<64>(x, x_is_bf16 != 0, w.xq, w.xs, nullptr, nullptr, B, K, w.bpad, st);
     if (scale_is_bf16)
       launch_gs<64, __nv_bfloat16>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, ksplit, st);
     else
       launch_gs<64, float>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, ksplit, st);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (out_is_bf16)
-    mrt::launch_reduce<__nv_bfloat16>(w.part, out, ksplit, B * O, st);
-  else
-    mrt::launch_reduce<float>(w.part, out, ksplit, B * O, st);
-  return (int)cudaGetLastError();
+  return mrt::finish_gemv(w, out, out_is_bf16, ksplit, B * O, st);
 }
 
 // ---- dequantization for prefill-sized calls ----

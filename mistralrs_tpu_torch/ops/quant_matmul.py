@@ -1,9 +1,14 @@
-"""Packed-weight GEMVs for GGUF layouts: int8 activations x Q4_K / int8 weights.
+"""Packed-weight GEMVs for GGUF layouts: int8 or bf16 activations x Q4_K,
+Q5_K, Q6_K and int8 weights.
 
-Counterpart of mistralrs_tpu/ops/quant_matmul.py, for the two kernels the
-serving path of a Q4_K_M model runs: K1 `q4k_q8_gemv` (replaces
-`_q4k_q8_kernel`) and K2 `q8_0_q8_gemv` (replaces `_q8_0_q8_kernel`), both
-hand-written CUDA under csrc/.
+Counterpart of mistralrs_tpu/ops/quant_matmul.py, for the kernels the
+serving paths run, all hand-written CUDA under csrc/:
+- K1 `q4k_q8_gemv` (replaces `_q4k_q8_kernel`), K2 `q8_0_q8_gemv`
+  (`_q8_0_q8_kernel`): the Q4_K_M path;
+- K3 `q6k_q8_gemv` (`_q6k_q8_kernel`), K4 `q6k_bf16_gemv` (`_q6k_kernel`)
+  and K9 `q5k_q8_gemv` (`_q5k_hbit_q8_kernel` together with the K1 call
+  that `_q5k_q8_matmul_padded` makes before it): the Q5_K_M path with Q6_K
+  kept native.
 
 Activations are quantized per block to int8 (ggml's Q8 approach, as the JAX
 int8 path does): xs = max(max|x_block|, 1e-10)/127, xq = clip(round(x/xs),
@@ -14,18 +19,24 @@ of a dozen torch ops per projection). Their plain versions quantize with
 the same f32 operations in torch, so the int8 codes agree bit for bit; the
 scale is max|x|*(1/127) in both, where JAX divides by 127 (at most one f32
 ulp apart). The activation scales and block sums are [B, K/gs] here (JAX
-keeps them transposed for TPU sublane alignment).
+keeps them transposed for TPU sublane alignment). K4 keeps x in its dtype
+and only takes per-16 sums of it.
 
-Routing rule of this port (the dispatchers below):
+Routing rules of this port (the dispatchers below):
 - more than 256 rows (prefill chunks) -> dequantize + torch.matmul
   (gguf_linear._ref_forward), as the JAX package leaves prefill to XLA; on
   the card the dequantization is one kernel per format (`q4k_dequant`,
-  `q8_0_dequant`, the pass XLA fuses in the JAX package);
-- otherwise the kernel, when its shape rule holds (Q4_K: in % 64 == 0;
-  int8: gs in {32, 64}; both: out % 16 == 0, for 16-byte column chunks),
-  else the dequant route.
-The Mosaic-only rules of the JAX package (in % 512, block_k >= 512, row
-padding to 8) do not apply to the CUDA kernels and are gone.
+  `q5k_dequant`, `q6k_dequant`, `q8_0_dequant`, the pass XLA fuses in the
+  JAX package);
+- otherwise the kernel, when its shape rule holds (every kernel: out % 16
+  == 0, for 16-byte column chunks), else the dequant route. Q6_K keeps the
+  JAX package's choice between its two kernels (int8 activations at up to
+  16 rows with G >= 256, activations in x's dtype otherwise), since that
+  choice changes the numbers.
+The Mosaic-only rules of the JAX package (in % 512 or % 2048, block_k >=
+512, row padding to 8, x gathered by the Q6_K permutation at G = 128) do
+not apply to the CUDA kernels and are gone: every kernel reads x in
+element order.
 
 Each kernel wrapper takes its plain PyTorch version when (and only when) its
 tensors lie on the CPU; on a CUDA tensor it launches the kernel or raises.
@@ -49,6 +60,11 @@ q4k_q8_gemv_launches = 0
 q8_0_q8_gemv_launches = 0
 q4k_dequant_launches = 0
 q8_0_dequant_launches = 0
+q6k_q8_gemv_launches = 0
+q6k_bf16_gemv_launches = 0
+q5k_q8_gemv_launches = 0
+q6k_dequant_launches = 0
+q5k_dequant_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,10 +92,10 @@ def _quantize_acts_q8(x2d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return _quantize_acts_q8_gs(x2d, 32)
 
 
-def _xsum32(x2d: torch.Tensor) -> torch.Tensor:
-    """Per-32-block sums of the original x [B, K] -> [B, K/32] f32."""
+def _xsum(x2d: torch.Tensor, gs: int) -> torch.Tensor:
+    """Per-gs-block sums of the original x [B, K] -> [B, K/gs] f32."""
     B, K = x2d.shape
-    return x2d.to(torch.float32).reshape(B, K // 32, 32).sum(dim=2)
+    return x2d.to(torch.float32).reshape(B, K // gs, gs).sum(dim=2)
 
 
 # ------------------------------------------------------- shared checks
@@ -110,11 +126,12 @@ def _check_cuda(name: str, tensors: dict[str, torch.Tensor]) -> torch.device:
 _SMS: dict[int, int] = {}
 
 
-def _ksplit(O: int, B: int, k_units: int, device) -> int:
-    """Split of the K axis over blocks (a block owns 128 columns x 16 rows):
-    about 4 blocks per SM, each split keeping at least 4 K steps (K1: pairs
-    of sub-blocks, K2: scale groups) for its copy pipeline."""
-    tiles = -(-O // 128) * -(-B // 16)
+def _ksplit(O: int, B: int, k_units: int, device, rows: int = 16) -> int:
+    """Split of the K axis over blocks (a block owns 128 columns x `rows`
+    rows): about 4 blocks per SM, each split keeping at least 4 K steps (K1:
+    pairs of sub-blocks, K2: scale groups, K3/K4: 128-element steps, K9:
+    256-element steps) for its copy pipeline."""
+    tiles = -(-O // 128) * -(-B // rows)
     idx = device.index if device.index is not None else torch.cuda.current_device()
     sms = _SMS.get(idx)
     if sms is None:
@@ -126,13 +143,14 @@ def _align256(n: int) -> int:
     return (n + 255) & ~255
 
 
-def _workspace_bytes(B: int, K: int, O: int, gs: int, with_xsum: bool, ksplit: int) -> int:
-    """Scratch of one GEMV call: xq [B, K], xs [K/gs, Bpad], (xsum [K/32,
-    Bpad]), split-K partials [ksplit, B, O], each 256-byte aligned, in the
-    order csrc/common.cuh::carve lays them out (Bpad = B rounded up to 16)."""
+def _workspace_bytes(B: int, K: int, O: int, gs: int, sum_gs: int, ksplit: int) -> int:
+    """Scratch of one GEMV call: (xq [B, K], xs [K/gs, Bpad] unless gs is
+    0), (xsum [K/sum_gs, Bpad] unless sum_gs is 0), split-K partials
+    [ksplit, B, O], each 256-byte aligned, in the order
+    csrc/common.cuh::carve lays them out (Bpad = B rounded up to 16)."""
     bpad = -(-B // 16) * 16
-    return (_align256(B * K) + _align256((K // gs) * bpad * 4)
-            + (_align256((K // 32) * bpad * 4) if with_xsum else 0)
+    return ((_align256(B * K) + _align256((K // gs) * bpad * 4) if gs else 0)
+            + (_align256((K // sum_gs) * bpad * 4) if sum_gs else 0)
             + _align256(ksplit * B * O * 4))
 
 
@@ -145,17 +163,17 @@ def _check_x(name: str, x: torch.Tensor, K: int) -> int:
 # ------------------------------------------------------- K1: Q4_K x int8
 
 
-def q4k_q8_gemv_plain(x, qs, scale, minv, out_dtype=torch.float32):
-    """Plain PyTorch version of K1 on any device: the same activation
-    quantization, then per-sub-block dots that are integers below 2^24
-    (|sum| <= 32*127*15), so the f32 batched products hold them exactly, as
-    the kernel's int32 dots do."""
+def _affine_q8_plain(x, q, scale, minv, out_dtype):
+    """y = sum_sub xs*scale*(xq . q) - xsum32 @ minv for unsigned codes q
+    [K, O] in element order with per-32 scale/minv: the plain versions of
+    K1 (4-bit q) and K9 (5-bit q). The per-sub-block dots are integers below
+    2^24 (|sum| <= 32*127*31), so the f32 batched products hold them
+    exactly, as the kernels' int32 dots do."""
     B, K = x.shape
-    O = qs.shape[1]
+    O = q.shape[1]
     nsub = K // 32
     xq, xs = _quantize_acts_q8(x)
-    xsum = _xsum32(x)
-    q = torch.cat([qs & 0xF, qs >> 4], dim=0)  # [K, O] element order
+    xsum = _xsum(x, 32)
     acc = torch.zeros(B, O, dtype=torch.float32, device=x.device)
     step = max(1, min(2**26 // (B * O), 2**24 // (32 * O)))  # bounded temporaries
     for s0 in range(0, nsub, step):
@@ -168,6 +186,13 @@ def q4k_q8_gemv_plain(x, qs, scale, minv, out_dtype=torch.float32):
                 * scale[s0:s1].to(torch.float32)[:, None, :]).sum(dim=0)
     acc -= xsum @ minv.to(torch.float32)
     return acc.to(out_dtype)
+
+
+def q4k_q8_gemv_plain(x, qs, scale, minv, out_dtype=torch.float32):
+    """Plain PyTorch version of K1 on any device: the same activation
+    quantization, then exact per-sub-block integer dots."""
+    q = torch.cat([qs & 0xF, qs >> 4], dim=0)  # [K, O] element order
+    return _affine_q8_plain(x, q, scale, minv, out_dtype)
 
 
 def q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.bfloat16):
@@ -189,7 +214,7 @@ def q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.bfloat16):
     _check_tensor("minv", minv, torch.bfloat16, (K // 32, O))
     dev = _check_cuda("q4k_q8_gemv", dict(x=x, qs=qs, scale=scale, minv=minv))
     ksplit = _ksplit(O, B, K // 64, dev)
-    nbytes = _workspace_bytes(B, K, O, 32, True, ksplit)
+    nbytes = _workspace_bytes(B, K, O, 32, 32, ksplit)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
     fn = kernels.function("q4k_q8_gemv", "q4k_q8_gemv",
@@ -245,7 +270,7 @@ def q8_0_q8_gemv(x, q, s, gs: int, out_dtype=torch.bfloat16):
     _require(s.dtype in (torch.float32, torch.bfloat16), f"s: dtype {s.dtype}")
     dev = _check_cuda("q8_0_q8_gemv", dict(x=x, q=q, s=s))
     ksplit = _ksplit(O, B, K // gs, dev)
-    nbytes = _workspace_bytes(B, K, O, gs, False, ksplit)
+    nbytes = _workspace_bytes(B, K, O, gs, 0, ksplit)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
     fn = kernels.function("q8_0_q8_gemv", "q8_0_q8_gemv",
@@ -255,6 +280,185 @@ def q8_0_q8_gemv(x, q, s, gs: int, out_dtype=torch.bfloat16):
              int(out_dtype == torch.bfloat16), B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
     kernels.check(err, "q8_0_q8_gemv")
     q8_0_q8_gemv_launches += 1
+    return out
+
+
+# ------------------------------------------------------- Q6_K layout
+
+
+def _q6k_natural(ql, qh, scale, G: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked Q6_K layout read back in element order: (q uint8 [K, O],
+    0..63, and s16 [K/16, O]). Packed position (chunk c, span j, t) holds
+    element j*K/4 + c*G + t, so this is a reshape and a transpose, no gather."""
+    K, O = 2 * ql.shape[0], ql.shape[1]
+    C = K // (4 * G)
+    qlc = ql.reshape(C, 2, G, O)
+    h = qh.reshape(C, G, O)
+    q = torch.stack([(qlc[:, 0] & 0xF) | ((h & 3) << 4),
+                     (qlc[:, 1] & 0xF) | (((h >> 2) & 3) << 4),
+                     (qlc[:, 0] >> 4) | (((h >> 4) & 3) << 4),
+                     (qlc[:, 1] >> 4) | ((h >> 6) << 4)])  # [span, C, G, O]
+    s16 = scale.reshape(C, 4, G // 16, O).transpose(0, 1)
+    return q.reshape(K, O), s16.reshape(K // 16, O)
+
+
+def _check_q6k(name: str, x, ql, qh, G: int) -> tuple[int, int, int]:
+    K, O = 2 * ql.shape[0], ql.shape[1]
+    B = _check_x(name, x, K)
+    _require(G % 32 == 0 and K % (4 * G) == 0 and O % 16 == 0,
+             f"{name}: needs G % 32 == 0, K % 4G == 0, O % 16 == 0; got G={G} K={K} O={O}")
+    _check_tensor("ql", ql, torch.uint8, (K // 2, O))
+    _check_tensor("qh", qh, torch.uint8, (K // 4, O))
+    return B, K, O
+
+
+# ------------------------------------------------------- K3: Q6_K x int8
+
+
+def q6k_q8_gemv_plain(x, ql, qh, scale, G: int, out_dtype=torch.float32):
+    """Plain PyTorch version of K3 on any device: the activation
+    quantization of K1, per-16 integer dots (|sum| <= 16*127*63, exact in
+    f32), each 32-block's two dots scaled by their s16 and summed before
+    the xs multiply (JAX's order), then the -32 term over the per-16 sums
+    of the original x: -32 * xsum16 @ s16."""
+    B, K = x.shape
+    O = ql.shape[1]
+    q, s16 = _q6k_natural(ql, qh, scale, G)
+    s16 = s16.to(torch.float32)
+    nsub = K // 32
+    xq, xs = _quantize_acts_q8(x)
+    acc = torch.zeros(B, O, dtype=torch.float32, device=x.device)
+    step = max(1, min(2**25 // (B * O), 2**23 // (32 * O)))
+    for s0 in range(0, nsub, step):
+        s1 = min(nsub, s0 + step)
+        n = s1 - s0
+        xb = xq[:, 32 * s0 : 32 * s1].to(torch.float32).reshape(B, 2 * n, 16).transpose(0, 1)
+        wb = q[32 * s0 : 32 * s1].to(torch.float32).reshape(2 * n, 16, O)
+        dots = torch.bmm(xb, wb) * s16[2 * s0 : 2 * s1, None, :]  # [2n, B, O]
+        t = dots.reshape(n, 2, B, O).sum(dim=1)
+        acc += (t * xs[:, s0:s1].T[:, :, None]).sum(dim=0)
+    acc -= 32.0 * (_xsum(x, 16) @ s16)
+    return acc.to(out_dtype)
+
+
+def q6k_q8_gemv(x, ql, qh, scale, G: int, out_dtype=torch.bfloat16):
+    """K3: y [B, O] = x @ W for Q6_K W (chunk span G) with x quantized to
+    int8 per 32 (see csrc/q6k_gemv.cu). x [B, K] in element order (bf16 or
+    f32 on cuda), ql uint8 [K/2, O], qh uint8 [K/4, O], scale [K/16, O]
+    (bf16 on cuda), all in the chunked layout of gguf_linear.pack_q6k."""
+    global q6k_q8_gemv_launches
+    B, K, O = _check_q6k("q6k_q8_gemv", x, ql, qh, G)
+    _require(out_dtype in (torch.bfloat16, torch.float32), f"q6k_q8_gemv: out {out_dtype}")
+    if x.device.type == "cpu":
+        return q6k_q8_gemv_plain(x, ql, qh, scale, G, out_dtype)
+    _require(x.dtype in (torch.bfloat16, torch.float32), f"q6k_q8_gemv: x {x.dtype}")
+    _check_tensor("scale", scale, torch.bfloat16, (K // 16, O))
+    dev = _check_cuda("q6k_q8_gemv", dict(x=x, ql=ql, qh=qh, scale=scale))
+    ksplit = _ksplit(O, B, K // 128, dev)
+    nbytes = _workspace_bytes(B, K, O, 32, 16, ksplit)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    out = torch.empty(B, O, dtype=out_dtype, device=dev)
+    fn = kernels.function("q6k_gemv", "q6k_q8_gemv",
+                          [_P, _I, _P, _P, _P, _I, _P, ctypes.c_longlong, _P] + [_I] * 5 + [_P])
+    err = fn(kernels.ptr(x), int(x.dtype == torch.bfloat16), kernels.ptr(ql), kernels.ptr(qh),
+             kernels.ptr(scale), G, kernels.ptr(ws), nbytes, kernels.ptr(out),
+             int(out_dtype == torch.bfloat16), B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
+    kernels.check(err, "q6k_q8_gemv")
+    q6k_q8_gemv_launches += 1
+    return out
+
+
+# ------------------------------------------------------- K4: Q6_K x bf16
+
+# rows of x one K4 block serves (4 tiles of 16 share each staged weight tile)
+K4_ROWS = 64
+
+
+def q6k_bf16_gemv_plain(x, ql, qh, scale, G: int, out_dtype=torch.float32):
+    """Plain PyTorch version of K4 on any device, the ops of JAX's
+    `_q6k_kernel`: w = q * s16 rounded to x's dtype (q in 0..63), the
+    product with f32 accumulation (x.float() @ w.float(), as the kernel's
+    f32 accumulators), then -32 * xsum16 @ s16 in f32."""
+    q, s16 = _q6k_natural(ql, qh, scale, G)
+    w = q.to(x.dtype) * torch.repeat_interleave(s16.to(x.dtype), 16, dim=0)
+    y = x.to(torch.float32) @ w.to(torch.float32)
+    y -= 32.0 * (_xsum(x, 16) @ s16.to(torch.float32))
+    return y.to(out_dtype)
+
+
+def q6k_bf16_gemv(x, ql, qh, scale, G: int, out_dtype=torch.bfloat16):
+    """K4: y [B, O] = x @ W for Q6_K W with the weight dequantized to x's
+    dtype inside the kernel (see csrc/q6k_gemv.cu). x [B, K] in element
+    order (bf16 on cuda), the weight arrays as for K3."""
+    global q6k_bf16_gemv_launches
+    B, K, O = _check_q6k("q6k_bf16_gemv", x, ql, qh, G)
+    _require(out_dtype in (torch.bfloat16, torch.float32), f"q6k_bf16_gemv: out {out_dtype}")
+    if x.device.type == "cpu":
+        return q6k_bf16_gemv_plain(x, ql, qh, scale, G, out_dtype)
+    _require(x.dtype == torch.bfloat16, f"q6k_bf16_gemv: the kernel takes bf16 x, got {x.dtype}")
+    _check_tensor("scale", scale, torch.bfloat16, (K // 16, O))
+    dev = _check_cuda("q6k_bf16_gemv", dict(x=x, ql=ql, qh=qh, scale=scale))
+    ksplit = _ksplit(O, B, K // 128, dev, rows=K4_ROWS)
+    nbytes = _workspace_bytes(B, K, O, 0, 16, ksplit)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    out = torch.empty(B, O, dtype=out_dtype, device=dev)
+    fn = kernels.function("q6k_gemv", "q6k_bf16_gemv",
+                          [_P, _P, _P, _P, _I, _P, ctypes.c_longlong, _P] + [_I] * 5 + [_P])
+    err = fn(kernels.ptr(x), kernels.ptr(ql), kernels.ptr(qh), kernels.ptr(scale), G,
+             kernels.ptr(ws), nbytes, kernels.ptr(out), int(out_dtype == torch.bfloat16),
+             B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
+    kernels.check(err, "q6k_bf16_gemv")
+    q6k_bf16_gemv_launches += 1
+    return out
+
+
+# ------------------------------------------------------- K9: Q5_K x int8
+
+
+def _q5k_values(qs, qh) -> torch.Tensor:
+    """Q5_K codes nib | hbit << 4 (0..31), uint8 [K, O] in element order."""
+    planes = torch.cat([(qh >> j) & 1 for j in range(8)], dim=0)
+    return torch.cat([qs & 0xF, qs >> 4], dim=0) | (planes << 4)
+
+
+def q5k_q8_gemv_plain(x, qs, qh, scale, minv, out_dtype=torch.float32):
+    """Plain PyTorch version of K9 on any device: K1's per-32 integer dots
+    over the 5-bit codes. JAX's K1 dot plus 16 x its high-bit dot is the
+    same integer, so only the f32 order of the scaled sums differs."""
+    return _affine_q8_plain(x, _q5k_values(qs, qh), scale, minv, out_dtype)
+
+
+def q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=torch.bfloat16):
+    """K9: y [B, O] = x @ W for Q5_K W with x quantized to int8 per 32
+    (see csrc/q5k_q8_gemv.cu). x [B, K] (bf16 or f32 on cuda), qs uint8
+    [K/2, O] paired nibbles, qh uint8 [K/8, O] plane-major high bits,
+    scale/minv [K/32, O] (bf16 on cuda)."""
+    global q5k_q8_gemv_launches
+    O = qs.shape[1]
+    K = 2 * qs.shape[0]
+    B = _check_x("q5k_q8_gemv", x, K)
+    _require(K % 256 == 0 and O % 16 == 0,
+             f"q5k_q8_gemv: needs K % 256 == 0 and O % 16 == 0, got K={K} O={O}")
+    _check_tensor("qs", qs, torch.uint8, (K // 2, O))
+    _check_tensor("qh", qh, torch.uint8, (K // 8, O))
+    _require(out_dtype in (torch.bfloat16, torch.float32), f"q5k_q8_gemv: out {out_dtype}")
+    if x.device.type == "cpu":
+        return q5k_q8_gemv_plain(x, qs, qh, scale, minv, out_dtype)
+    _require(x.dtype in (torch.bfloat16, torch.float32), f"q5k_q8_gemv: x {x.dtype}")
+    _check_tensor("scale", scale, torch.bfloat16, (K // 32, O))
+    _check_tensor("minv", minv, torch.bfloat16, (K // 32, O))
+    dev = _check_cuda("q5k_q8_gemv", dict(x=x, qs=qs, qh=qh, scale=scale, minv=minv))
+    ksplit = _ksplit(O, B, K // 256, dev)
+    nbytes = _workspace_bytes(B, K, O, 32, 32, ksplit)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    out = torch.empty(B, O, dtype=out_dtype, device=dev)
+    fn = kernels.function("q5k_q8_gemv", "q5k_q8_gemv",
+                          [_P, _I, _P, _P, _P, _P, _P, ctypes.c_longlong, _P] + [_I] * 5 + [_P])
+    err = fn(kernels.ptr(x), int(x.dtype == torch.bfloat16), kernels.ptr(qs), kernels.ptr(qh),
+             kernels.ptr(scale), kernels.ptr(minv), kernels.ptr(ws), nbytes, kernels.ptr(out),
+             int(out_dtype == torch.bfloat16), B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
+    kernels.check(err, "q5k_q8_gemv")
+    q5k_q8_gemv_launches += 1
     return out
 
 
@@ -320,6 +524,71 @@ def q8_0_dequant(q, s, gs: int, dtype):
     return w
 
 
+def q6k_dequant_plain(ql, qh, scale, G: int, dtype):
+    """[K, O] = (q - 32) * s16 in `dtype`, element order (the ops of the JAX
+    package's dequant_q6k_weights, with its inverse-permutation gather
+    replaced by _q6k_natural's reshape)."""
+    q, s16 = _q6k_natural(ql, qh, scale, G)
+    return ((q.to(torch.int32) - 32).to(dtype)
+            * torch.repeat_interleave(s16.to(dtype), 16, dim=0))
+
+
+def q6k_dequant(ql, qh, scale, G: int, dtype):
+    """Chunked Q6_K layout -> dense [K, O] weight in element order
+    (csrc/q6k_gemv.cu q6k_dequant on the card, bf16 for the prefill route
+    or f32 for requant_q6k_to_q8; the plain version on the CPU)."""
+    global q6k_dequant_launches
+    K, O = 2 * ql.shape[0], ql.shape[1]
+    if ql.device.type == "cpu":
+        return q6k_dequant_plain(ql, qh, scale, G, dtype)
+    _require(dtype in (torch.bfloat16, torch.float32) and G % 16 == 0 and K % (4 * G) == 0
+             and O % 8 == 0, f"q6k_dequant: the kernel writes bf16 or f32 with G % 16 == 0, "
+                             f"K % 4G == 0, O % 8 == 0; got {dtype} G={G} K={K} O={O}")
+    _check_tensor("ql", ql, torch.uint8, (K // 2, O))
+    _check_tensor("qh", qh, torch.uint8, (K // 4, O))
+    _check_tensor("scale", scale, torch.bfloat16, (K // 16, O))
+    dev = _check_cuda("q6k_dequant", dict(ql=ql, qh=qh, scale=scale))
+    w = torch.empty(K, O, dtype=dtype, device=dev)
+    fn = kernels.function("q6k_gemv", "q6k_dequant", [_P] * 4 + [_I] * 4 + [_P])
+    err = fn(kernels.ptr(ql), kernels.ptr(qh), kernels.ptr(scale), kernels.ptr(w),
+             int(dtype == torch.bfloat16), G, K, O, _P(kernels.stream_ptr(dev)))
+    kernels.check(err, "q6k_dequant")
+    q6k_dequant_launches += 1
+    return w
+
+
+def q5k_dequant_plain(qs, qh, scale, minv, dtype):
+    """[K, O] = (nib + 16*hbit) * scale - minv in `dtype` (the ops of the
+    JAX package's dequant_q5k_weights, before its transpose)."""
+    v = _q5k_values(qs, qh).to(dtype)
+    return (v * torch.repeat_interleave(scale.to(dtype), 32, dim=0)
+            - torch.repeat_interleave(minv.to(dtype), 32, dim=0))
+
+
+def q5k_dequant(qs, qh, scale, minv, dtype):
+    """Q5_K layout -> dense [K, O] weight (csrc/q5k_q8_gemv.cu q5k_dequant
+    on the card, bf16 only; the plain version on the CPU)."""
+    global q5k_dequant_launches
+    K, O = 2 * qs.shape[0], qs.shape[1]
+    if qs.device.type == "cpu":
+        return q5k_dequant_plain(qs, qh, scale, minv, dtype)
+    _require(dtype == torch.bfloat16 and K % 256 == 0 and O % 8 == 0,
+             f"q5k_dequant: the kernel writes bf16 with K % 256 == 0, O % 8 == 0; "
+             f"got {dtype} K={K} O={O}")
+    _check_tensor("qs", qs, torch.uint8, (K // 2, O))
+    _check_tensor("qh", qh, torch.uint8, (K // 8, O))
+    _check_tensor("scale", scale, torch.bfloat16, (K // 32, O))
+    _check_tensor("minv", minv, torch.bfloat16, (K // 32, O))
+    dev = _check_cuda("q5k_dequant", dict(qs=qs, qh=qh, scale=scale, minv=minv))
+    w = torch.empty(K, O, dtype=torch.bfloat16, device=dev)
+    fn = kernels.function("q5k_q8_gemv", "q5k_dequant", [_P] * 5 + [_I] * 2 + [_P])
+    err = fn(kernels.ptr(qs), kernels.ptr(qh), kernels.ptr(scale), kernels.ptr(minv),
+             kernels.ptr(w), K, O, _P(kernels.stream_ptr(dev)))
+    kernels.check(err, "q5k_dequant")
+    q5k_dequant_launches += 1
+    return w
+
+
 # ------------------------------------------------------- dispatchers
 
 
@@ -355,4 +624,43 @@ def q8_0_matmul(lin: Linear, x: torch.Tensor) -> torch.Tensor:
         return _ref_forward(lin, x)
     y = q8_0_q8_gemv(x.reshape(n_rows, in_f).contiguous(), lin.data["q"], lin.data["scale"], gs,
                      out_dtype=x.dtype)
+    return _add_bias(lin, y.reshape(*lead, out_f))
+
+
+def q5k_matmul(lin: Linear, x: torch.Tensor) -> torch.Tensor:
+    """Forward for kind 'gguf_q5k' (Q5_K, and Q5_0/Q5_1 packed into its
+    layout). x [..., K] -> [..., O]. Up to 256 rows K9 (the whole product
+    in one kernel, where the JAX package runs K1 and its high-bit kernel)
+    when in % 256 == 0 and out % 16 == 0; else dequantize + matmul."""
+    from mistralrs_tpu_torch.quant.gguf_linear import _ref_forward
+
+    in_f, out_f = lin.shape
+    lead = x.shape[:-1]
+    n_rows = math.prod(lead)
+    if n_rows > MAX_KERNEL_ROWS or in_f % 256 or out_f % 16 or n_rows == 0:
+        return _ref_forward(lin, x)
+    y = q5k_q8_gemv(x.reshape(n_rows, in_f).contiguous(), lin.data["qs"], lin.data["qh"],
+                    lin.data["scale"], lin.data["minv"], out_dtype=x.dtype)
+    return _add_bias(lin, y.reshape(*lead, out_f))
+
+
+def q6k_matmul(lin: Linear, x: torch.Tensor) -> torch.Tensor:
+    """Forward for kind 'gguf_q6k' (Q6_K, and Q3_K packed into its layout).
+    x [..., K] -> [..., O]; meta = the layout's chunk span G. Routes, the
+    JAX package's q6k_matmul rules where they change the numbers:
+    - at most 16 rows and G >= 256: K3 (int8 activations);
+    - otherwise, up to 256 rows and G >= 128: K4 (activations in x's dtype);
+    - more than 256 rows, G < 128 or out % 16: dequantize + matmul.
+    Both kernels read x in element order at every G."""
+    from mistralrs_tpu_torch.quant.gguf_linear import _ref_forward
+
+    in_f, out_f = lin.shape
+    G = lin.meta
+    lead = x.shape[:-1]
+    n_rows = math.prod(lead)
+    if n_rows > MAX_KERNEL_ROWS or G is None or G < 128 or out_f % 16 or n_rows == 0:
+        return _ref_forward(lin, x)
+    x2 = x.reshape(n_rows, in_f).contiguous()
+    gemv = q6k_q8_gemv if n_rows <= 16 and G >= 256 else q6k_bf16_gemv
+    y = gemv(x2, lin.data["ql"], lin.data["qh"], lin.data["scale"], G, out_dtype=x.dtype)
     return _add_bias(lin, y.reshape(*lead, out_f))

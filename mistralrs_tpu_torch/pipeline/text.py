@@ -60,7 +60,10 @@ class PipelineConfig:
     kv_mem_bytes: int | None = None
     kv_ctxt_len: int | None = None
     # Q6_K -> int8 per-group requant at load ("rq8", served by the K2
-    # kernel): group 32 (the wire-Q8_0 layout), 64, or None to keep Q6_K
+    # kernel): group 32 (the wire-Q8_0 layout) or 64; None keeps Q6_K as
+    # Q6_K, served by K3 (int8 activations, decode rows), K4 (prefill rows
+    # up to 256, and every row count at chunk span 128) and q6k_dequant +
+    # torch.matmul above 256 rows
     rq8_group: int | None = 32
     # KV pool layout: None = head-major at max_model_len >= 4096 (the
     # layout the block-table decode kernel streams), token-major below

@@ -19,6 +19,7 @@ from mistralrs_tpu_torch.quant.qlinear import Linear
 _CAT_AXIS1 = {
     "dense": ("w",),
     "gguf_q4k": ("qs", "scale", "minv"),
+    "gguf_q5k": ("qs", "qh", "scale", "minv"),
     "gguf_q8_0": ("q", "scale"),
     "gguf_q6k": ("ql", "qh", "scale"),
 }
@@ -92,7 +93,7 @@ def pad_linear_out(lin: Linear, mult: int = 2048) -> Linear | None:
 
 def fuse_decoder_params(params):
     """Fuse q/k/v -> qkv (or q/k -> qk when v's kind differs, as in the
-    Q4_K_M mix), gate/up -> gateup in every layer, and pad the lm_head's
+    Q4_K_M and Q5_K_M mixes), gate/up -> gateup in every layer, and pad the lm_head's
     vocab to the 2048 multiple. Returns new DecoderParams; the input is not
     changed."""
     layers = []

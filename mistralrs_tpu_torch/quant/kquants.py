@@ -15,8 +15,14 @@ import numpy as np
 class GGMLType(enum.IntEnum):
     """The GGUF tensor types this port packs (values as in the GGUF spec)."""
 
+    Q4_0 = 2
+    Q4_1 = 3
+    Q5_0 = 6
+    Q5_1 = 7
     Q8_0 = 8
+    Q3_K = 11
     Q4_K = 12
+    Q5_K = 13
     Q6_K = 14
 
 

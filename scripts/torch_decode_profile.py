@@ -2,9 +2,11 @@
 """Where a prefill and a decode step of the PyTorch port spend their time,
 on one NVIDIA card.
 
-    python3 scripts/torch_decode_profile.py [--layers 32] [--batch 16]
+    python3 scripts/torch_decode_profile.py [--layers 32] [--batch 16] [--mix q4km|q5km]
 
-Builds the Mistral-7B Q4_K_M random-weight model of chip_smoke.py. After a
+Builds the Mistral-7B random-weight model of chip_smoke.py: `--mix q4km`
+(the default) in the Q4_K_M mix with Q6_K requantized to int8 per 32,
+`--mix q5km` in the Q5_K_M mix with Q6_K kept (rq8_group=None). After a
 warm-up that runs each step once untraced (a first use of a kernel or a
 GEMM shape costs up to ~0.2 s of host time), traces one batched
 first-chunk prefill engine step each of FEW 40-token prompts (a 64-token
@@ -36,6 +38,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--mix", choices=("q4km", "q5km"), default="q4km")
     args = ap.parse_args()
 
     import torch
@@ -44,7 +47,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
-    from chip_smoke import Sizes, model_config, random_q4km_params
+    from chip_smoke import Sizes, model_config, random_q4km_params, random_q5km_params
     from mistralrs_tpu_torch.engine.engine import Engine, GenerationRequest
     from mistralrs_tpu_torch.engine.sampler import SamplingParams
     from mistralrs_tpu_torch.models.loader import make_rope
@@ -54,10 +57,11 @@ def main() -> int:
     dev = torch.device("cuda")
     sz = Sizes()
     cfg = model_config(sz, args.layers)
-    params = random_q4km_params(sz, args.layers, dev, torch.Generator(device=dev).manual_seed(0),
-                                torch.bfloat16)
+    build = random_q4km_params if args.mix == "q4km" else random_q5km_params
+    params = build(sz, args.layers, dev, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
     pc = PipelineConfig(page_size=16, num_pages=1024, max_seqs=args.batch, max_model_len=2048,
-                        prefill_buckets=(64, 256), decode_steps=8, device="cuda")
+                        prefill_buckets=(64, 256), decode_steps=8, device="cuda",
+                        rq8_group=32 if args.mix == "q4km" else None)
     pipe = TextPipeline(cfg, params, make_rope(cfg, 2048, device=dev), pc)
     del params
     eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
@@ -121,7 +125,8 @@ def report(phase, name, args, prof, wall, extra) -> None:
                and getattr(e.device_type, "name", "") == "CUDA"]  # device-side events only
     dev_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
-    print(json.dumps({"phase": phase, "device": name, "layers": args.layers, "batch": args.batch,
+    print(json.dumps({"phase": phase, "device": name, "mix": args.mix, "layers": args.layers,
+                      "batch": args.batch,
                       **extra, "traced_wall_ms": wall * 1e3, "device_busy_ms": dev_us / 1e3,
                       "device_busy_share": dev_us / 1e6 / wall, "launches": launches}))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:

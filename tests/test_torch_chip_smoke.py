@@ -1,11 +1,12 @@
 """chip_smoke.py's model builders at a tiny size on the CPU, and its refusal
 to run without a CUDA card.
 
-The card run builds the same Q4_K_M-mix model at full Mistral-7B width; here
-the builders run at hidden 512 so a fault in them shows before a card is
-asked for. The served model must reach the pipeline as the mix it claims to
-be: Q4_K everywhere but attn_v, the use_more_bits ffn_down layers and the
-lm_head, which the pipeline requantizes from Q6_K to int8 per 32.
+The card run builds the same Q4_K_M- and Q5_K_M-mix models at full
+Mistral-7B width; here the builders run at hidden 512 so a fault in them
+shows before a card is asked for. The served model must reach the pipeline
+as the mix it claims to be: Q4_K (or Q5_K) everywhere but attn_v, the
+use_more_bits ffn_down layers and the lm_head, which are Q6_K: the Q4_K_M
+pipeline requantizes them to int8 per 32, the Q5_K_M one keeps them.
 """
 
 import numpy as np
@@ -84,3 +85,52 @@ def test_paged_inputs_give_each_row_its_own_pages(head_major):
     want = (TINY.kv_heads, P, 16, 128) if head_major else (P, 16, TINY.kv_heads, 128)
     assert tuple(k.shape) == tuple(v.shape) == want and meta.head_major == head_major
     assert meta.kv_lens.tolist() == [1000] * 3
+
+
+@pytest.mark.parametrize("i", range(8))
+def test_builder_puts_the_q5km_mix_in_each_layer(i):
+    gen = torch.Generator().manual_seed(0)
+    layer = chip_smoke.random_q5km_params(TINY, 8, torch.device("cpu"), gen,
+                                          torch.float32).layers[i]
+    kinds = {k: lin.kind for part in ("attn", "mlp") for k, lin in layer[part].items()}
+    down = "gguf_q6k" if chip_smoke.use_more_bits(i, 8) else "gguf_q5k"
+    assert kinds == {"q": "gguf_q5k", "k": "gguf_q5k", "v": "gguf_q6k", "o": "gguf_q5k",
+                     "gate": "gguf_q5k", "up": "gguf_q5k", "down": down}
+    q = layer["attn"]["q"]
+    assert q.data["qs"].shape == (256, 512) and q.data["qh"].shape == (64, 512)
+    assert q.data["qh"].dtype == torch.uint8
+
+
+def test_q5km_builder_model_serves_with_q6k_kept():
+    """The quant_mix phase's model at a tiny size: two layers, Q6_K kept
+    (rq8_group=None), a 150- and a 40-token prompt through the plain K3, K4
+    and K9."""
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+
+    cfg = chip_smoke.model_config(TINY, 2)
+    pc = PipelineConfig(page_size=16, num_pages=64, max_seqs=4, max_model_len=512,
+                        prefill_buckets=(64, 256), decode_steps=4, dtype=torch.float32,
+                        device="cpu", rq8_group=None)
+    gen = torch.Generator().manual_seed(0)
+    params = chip_smoke.random_q5km_params(TINY, 2, torch.device("cpu"), gen, torch.float32)
+    pipe = TextPipeline(cfg, params, make_rope(cfg, 512, device="cpu"), pc)
+    layer = pipe.params.layers[0]
+    assert layer["attn"]["qk"].kind == layer["mlp"]["gateup"].kind == "gguf_q5k"
+    assert layer["attn"]["v"].kind == pipe.params.lm_head.kind == "gguf_q6k"
+    eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
+    rng = np.random.default_rng(1)
+    groups = [eng.add_request(GenerationRequest([int(t) for t in rng.integers(1, TINY.vocab, n)],
+                                                SamplingParams(max_len=6)))
+              for n in (150, 40)]
+    while not all(g.all_done() for g in groups):
+        eng.step()
+    assert all(g.seqs[0].num_generated == 6 for g in groups)
+    assert np.isfinite(pipe.last_greedy_pack).all()
+    # the plain versions ran: no launch was counted on the CPU
+    assert qm.q5k_q8_gemv_launches == qm.q6k_q8_gemv_launches == 0
+
+
+def test_every_kernel_belongs_to_one_path():
+    names = [n for path in chip_smoke.PATH_KERNELS.values() for n in path]
+    assert sorted(names) == sorted(chip_smoke.KERNEL_INFO) == sorted(chip_smoke.COUNTERS)
+    assert set(chip_smoke.HEADLINE) == set(chip_smoke.KERNEL_INFO)

@@ -113,24 +113,106 @@ def test_dequant_kernels_match_plain_exactly(dev, K, O):
         assert torch.equal(got, qm.q8_0_dequant_plain(q, s, gs, torch.bfloat16))
 
 
-def test_q6k_forward_raises_below_the_prefill_route(dev):
-    """gguf_q6k has no GEMV kernel yet: at decode row counts the card raises
-    instead of running cuBLAS in its place; more than 256 rows take the
-    prefill route (dequantize + matmul)."""
-    from mistralrs_tpu_torch.quant.gguf_linear import q6k_chunk_size, q6k_perm
+def _q6k_arrays(dev, K, O, seed):
+    from mistralrs_tpu_torch.quant.gguf_linear import q6k_chunk_size
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ql = torch.randint(0, 256, (K // 2, O), generator=g, dtype=torch.uint8).to(dev)
+    qh = torch.randint(0, 256, (K // 4, O), generator=g, dtype=torch.uint8).to(dev)
+    scale = (torch.randn(K // 16, O, generator=g) * 0.003).to(dev, torch.bfloat16)
+    return ql, qh, scale, q6k_chunk_size(K)
+
+
+def _q5k_arrays(dev, K, O, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qs = torch.randint(0, 256, (K // 2, O), generator=g, dtype=torch.uint8).to(dev)
+    qh = torch.randint(0, 256, (K // 8, O), generator=g, dtype=torch.uint8).to(dev)
+    scale = (torch.rand(K // 32, O, generator=g) * 0.004 + 0.001).to(dev, torch.bfloat16)
+    minv = (torch.rand(K // 32, O, generator=g) * 0.002).to(dev, torch.bfloat16)
+    return qs, qh, scale, minv
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("B", [1, 5, 16, 17, 256])
+@pytest.mark.parametrize("K,O", [(512, 256), (4096, 272)])
+def test_q6k_q8_gemv_matches_plain(dev, B, K, O):
+    """K3 at chunk spans 128 and 512 (two chunks): the same int8 codes and
+    exact per-16 dots on both sides, f32 sums in another order."""
+    ql, qh, scale, G = _q6k_arrays(dev, K, O, B + K)
+    assert G == (128 if K == 512 else 512)
+    for xdt in (torch.float32, torch.bfloat16):
+        x = _acts(B, K, dev, B).to(xdt)
+        before = qm.q6k_q8_gemv_launches
+        got = qm.q6k_q8_gemv(x, ql, qh, scale, G, out_dtype=torch.float32)
+        want = qm.q6k_q8_gemv_plain(x, ql, qh, scale, G, torch.float32)
+        torch.cuda.synchronize()
+        assert qm.q6k_q8_gemv_launches == before + 1
+        assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("B", [1, 5, 16, 17, 256])
+@pytest.mark.parametrize("K,O", [(512, 256), (4096, 272)])
+def test_q6k_bf16_gemv_matches_plain(dev, B, K, O):
+    """K4: the same bf16(q * s16) weights on both sides; f32 sums of bf16
+    products in another order (1e-4 of max |y|)."""
+    ql, qh, scale, G = _q6k_arrays(dev, K, O, B + K + 1)
+    x = _acts(B, K, dev, B + 1).to(torch.bfloat16)
+    before = qm.q6k_bf16_gemv_launches
+    got = qm.q6k_bf16_gemv(x, ql, qh, scale, G, out_dtype=torch.float32)
+    want = qm.q6k_bf16_gemv_plain(x, ql, qh, scale, G, torch.float32)
+    torch.cuda.synchronize()
+    assert qm.q6k_bf16_gemv_launches == before + 1
+    assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("B", [1, 5, 16, 17, 256])
+@pytest.mark.parametrize("K,O", [(512, 256), (4096, 272), (14336, 128)])
+def test_q5k_q8_gemv_matches_plain(dev, B, K, O):
+    qs, qh, scale, minv = _q5k_arrays(dev, K, O, B + K)
+    for xdt in (torch.float32, torch.bfloat16):
+        x = _acts(B, K, dev, B).to(xdt)
+        got = qm.q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=torch.float32)
+        want = qm.q5k_q8_gemv_plain(x, qs, qh, scale, minv, torch.float32)
+        torch.cuda.synchronize()
+        assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("K,O", [(512, 256), (1024, 272), (4096, 128)])
+def test_q56k_dequant_kernels_match_plain_exactly(dev, K, O):
+    ql, qh, scale, G = _q6k_arrays(dev, K, O, K + O)
+    for dt in (torch.bfloat16, torch.float32):
+        got = qm.q6k_dequant(ql, qh, scale, G, dt)
+        assert got.dtype == dt
+        assert torch.equal(got, qm.q6k_dequant_plain(ql, qh, scale, G, dt))
+    qs, qh5, s5, m5 = _q5k_arrays(dev, K, O, K + O + 1)
+    got = qm.q5k_dequant(qs, qh5, s5, m5, torch.bfloat16)
+    assert torch.equal(got, qm.q5k_dequant_plain(qs, qh5, s5, m5, torch.bfloat16))
+
+
+def test_q6k_linear_at_prefill_rows_runs_k4(dev):
+    """A gguf_q6k Linear on 2 x 128 rows (G = 128) goes through K4 on the
+    card: no NotImplementedError, no torch.matmul; above 256 rows the
+    dequant route."""
+    from mistralrs_tpu_torch.quant.gguf_linear import q6k_perm
     from mistralrs_tpu_torch.quant.qlinear import Linear, linear
 
     K, O = 512, 256
-    g = torch.Generator(device="cpu").manual_seed(6)
-    perm = torch.from_numpy(q6k_perm(K, q6k_chunk_size(K)))
-    lin = Linear("gguf_q6k", (K, O), {
-        "ql": torch.randint(0, 256, (K // 2, O), generator=g, dtype=torch.uint8).to(dev),
-        "qh": torch.randint(0, 256, (K // 4, O), generator=g, dtype=torch.uint8).to(dev),
-        "scale": (torch.rand(K // 16, O, generator=g) * 0.004).to(dev, torch.bfloat16),
-        "perm": perm.to(dev), "inv_perm": torch.argsort(perm).to(dev)}, meta=q6k_chunk_size(K))
-    with pytest.raises(NotImplementedError):
-        linear(lin, torch.zeros(2, 128, K, dtype=torch.bfloat16, device=dev))
-    y = linear(lin, _acts(257, K, dev, 4).to(torch.bfloat16))
+    ql, qh, scale, G = _q6k_arrays(dev, K, O, 6)
+    perm = torch.from_numpy(q6k_perm(K, G))
+    lin = Linear("gguf_q6k", (K, O), {"ql": ql, "qh": qh, "scale": scale, "perm": perm.to(dev),
+                                      "inv_perm": torch.argsort(perm).to(dev)}, meta=G)
+    x = _acts(256, K, dev, 4).to(torch.bfloat16).reshape(2, 128, K)
+    k4, deq = qm.q6k_bf16_gemv_launches, qm.q6k_dequant_launches
+    y = linear(lin, x)
+    torch.cuda.synchronize()
+    assert qm.q6k_bf16_gemv_launches == k4 + 1 and qm.q6k_dequant_launches == deq
+    want = qm.q6k_bf16_gemv_plain(x.reshape(256, K), ql, qh, scale, G, torch.float32)
+    assert y.shape == (2, 128, O) and _rel_err(y.reshape(256, O).float(), want) <= 1e-2
+    y = linear(lin, _acts(257, K, dev, 5).to(torch.bfloat16))
+    assert qm.q6k_dequant_launches == deq + 1
     assert y.shape == (257, O) and bool(torch.isfinite(y).all())
 
 

@@ -1,6 +1,6 @@
 """Shared inputs for the tests of the PyTorch port (tests/test_torch_*.py).
 
-A tiny model in the Q4_K_M type mix, built in the JAX package from seeded
+A tiny model in the Q4_K_M or Q5_K_M type mix, built in the JAX package from seeded
 numpy weights through its own quantizer (kquants.quantize) and packers, and
 carried into the port with params_from_reference, so that both packages
 compute on the same packed bytes. Everything is float32 on the CPU.
@@ -50,11 +50,21 @@ def quantized(rng, gtype, out_f: int, in_f: int, std: float):
 def jax_q4km_params(seed: int = 0, **over):
     """(JAX ModelConfig, JAX DecoderParams) of a tiny Q4_K_M-mix model: q, k,
     o, gate, up in Q4_K; v, lm_head and the use_more_bits ffn_down in Q6_K."""
+    return _jax_mix_params(GGMLType.Q4_K, seed, **over)
+
+
+def jax_q5km_params(seed: int = 0, **over):
+    """The same model in the Q5_K_M mix: Q5_K where Q4_K_M has Q4_K (llama.cpp
+    takes both mixes through the same branches of llama_tensor_get_type)."""
+    return _jax_mix_params(GGMLType.Q5_K, seed, **over)
+
+
+def _jax_mix_params(base, seed: int, **over):
     kw = dict(TINY, **over)
     cfg = JModelConfig(**kw)
     rng = np.random.default_rng(seed)
     H, I, D, L = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim, cfg.num_layers
-    Q4, Q6 = GGMLType.Q4_K, GGMLType.Q6_K
+    Q4, Q6 = base, GGMLType.Q6_K
 
     def lin(gtype, out_f, in_f, std=0.05):
         return quantized(rng, gtype, out_f, in_f, std)[1]

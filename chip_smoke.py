@@ -10,7 +10,8 @@ non-zero and never prints the final line):
 2. build: compiles every kernel of the path (csrc/*.cu, one nvcc each, in
    parallel) and reports the seconds.
 3. kernels: each kernel against its plain PyTorch version on the card, at the
-   shapes of a Mistral-7B Q4_K_M and Q5_K_M decode step (batch 16 and 1) and
+   shapes of a Mistral-7B Q4_K_M, Q5_K_M and Q2_K decode step (batch 16 and
+   1; the plane-affine GEMV also in its GPTQ and HQQ layouts) and
    of prefill chunks of 64 and 256 rows (the most the GEMVs take), of first
    prefill chunks, of continuation chunks and decode steps over a paged
    context of up to 4096 tokens, and of the prefill route's dequantization, with the
@@ -39,12 +40,19 @@ non-zero and never prints the final line):
    (q5k_dequant / q6k_dequant + torch.matmul, flash prefill), 4 x 64-row
    chunks (K9 and K4), decode at batch 16 (K9 and K3). It raises unless
    K3, K4, K9 and both dequant kernels launched and K1 and K2 did not.
-7. card_vs_cpu: a 2-layer full-width model with identical weights on the card
+7. q2k: the 32-layer Mistral-7B in llama.cpp's Q2_K mix (Q2_K q, k, gate,
+   up; Q4_K v; Q3_K o and down packed into the Q6_K layout; Q6_K lm_head),
+   Q3_K and Q6_K requantized to int8 per 32 by the pipeline, serves the
+   slice phase's pattern: 4 x 256-row first chunks (affine_dequant /
+   q4k_dequant / q8_0_dequant + torch.matmul, flash prefill), 4 x 64-row
+   chunks and decode at batch 16 (the plane-affine GEMV K10, K1 and K2). It
+   raises unless those kernels launched and no Q5_K or Q6_K kernel did.
+8. card_vs_cpu: a 2-layer full-width model with identical weights on the card
    (kernels, bf16) and on the CPU (plain versions, f32): one 256-token
-   prefill and 4 decode steps, logits compared, in the Q4_K_M mix and in
-   the Q5_K_M mix with Q6_K kept; then on head-major pools a 512-token
-   first chunk, a 512-token continuation chunk and 4 decode steps at a
-   table width of 256 pages (K6, K6', K7 on the card).
+   prefill and 4 decode steps, logits compared, in the Q4_K_M mix, in
+   the Q5_K_M mix with Q6_K kept and in the Q2_K mix; then on head-major
+   pools a 512-token first chunk, a 512-token continuation chunk and 4
+   decode steps at a table width of 256 pages (K6, K6', K7 on the card).
 Then the kernels line and, last, {"ok": true, "device": {...}}.
 """
 
@@ -90,6 +98,10 @@ KERNEL_INFO = {
                     "mistralrs_tpu/quant/gguf_linear.py:469"),
     "q5k_dequant": ("mistralrs_tpu_torch/csrc/q5k_q8_gemv.cu",
                     "mistralrs_tpu/quant/gguf_linear.py:498"),
+    "affine_gemv": ("mistralrs_tpu_torch/csrc/affine_gemv.cu",
+                    "mistralrs_tpu/ops/quant_matmul.py:533"),
+    "affine_dequant": ("mistralrs_tpu_torch/csrc/affine_gemv.cu",
+                       "mistralrs_tpu/quant/gguf_linear.py:515"),
 }
 # the shape whose numbers stand in the kernels line
 HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
@@ -97,14 +109,16 @@ HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
             "paged_decode": "B=16 kv=4096 head_major", "q4k_dequant": "gate|up",
             "q8_0_dequant": "down rq8", "q6k_q8_gemv": "lm_head B=16",
             "q6k_bf16_gemv": "down B=256", "q5k_q8_gemv": "gate|up B=16", "q6k_dequant": "down",
-            "q5k_dequant": "gate|up"}
+            "q5k_dequant": "gate|up", "affine_gemv": "gate|up q2k B=16",
+            "affine_dequant": "gate|up q2k"}
 # the kernels each serving phase's path adds (long_context also runs the
-# slice path's, quant_mix also flash_prefill); the line's launches of each
-# kernel come from the phase of its path
+# slice path's, quant_mix also flash_prefill, q2k also the slice path's);
+# the line's launches of each kernel come from the phase of its path
 PATH_KERNELS = {
     "slice": ("q4k_q8_gemv", "q8_0_q8_gemv", "flash_prefill", "q4k_dequant", "q8_0_dequant"),
     "long_context": ("flash_prefill_paged", "paged_decode"),
     "quant_mix": ("q6k_q8_gemv", "q6k_bf16_gemv", "q5k_q8_gemv", "q6k_dequant", "q5k_dequant"),
+    "q2k": ("affine_gemv", "affine_dequant"),
 }
 # each kernel's launch counter: (module under mistralrs_tpu_torch.ops, name)
 COUNTERS = {
@@ -120,6 +134,8 @@ COUNTERS = {
     "q5k_q8_gemv": ("quant_matmul", "q5k_q8_gemv_launches"),
     "q6k_dequant": ("quant_matmul", "q6k_dequant_launches"),
     "q5k_dequant": ("quant_matmul", "q5k_dequant_launches"),
+    "affine_gemv": ("quant_matmul", "affine_gemv_launches"),
+    "affine_dequant": ("quant_matmul", "affine_dequant_launches"),
 }
 
 
@@ -197,6 +213,16 @@ def random_q5km_params(sz: Sizes, n_layers: int, device, gen, fdt):
     return _random_mix_params(sz, n_layers, device, gen, fdt, "gguf_q5k")
 
 
+def random_q2k_params(sz: Sizes, n_layers: int, device, gen, fdt):
+    """The same with llama.cpp's Q2_K mix for Mistral (llama_tensor_get_type,
+    LLAMA_FTYPE_MOSTLY_Q2_K, n_gqa = 4): q, k, gate, up in Q2_K (2-bit codes
+    uniform, scale U[0.001, 0.005), minv = 1.5 * scale, so each weight's
+    mean is near zero and 32 layers stay finite); v in Q4_K; o and down in
+    Q3_K, packed into the Q6_K layout as q3 + 28 (codes 28..35, as pack_q3k
+    writes them); the lm_head in Q6_K."""
+    return _random_mix_params(sz, n_layers, device, gen, fdt, "gguf_q2k")
+
+
 def _random_mix_params(sz: Sizes, n_layers: int, device, gen, fdt, base: str):
     import torch
 
@@ -210,31 +236,52 @@ def _random_mix_params(sz: Sizes, n_layers: int, device, gen, fdt, base: str):
     def unif(lo, hi, *shape):
         return (torch.rand(shape, device=device, generator=gen) * (hi - lo) + lo).to(fdt)
 
-    def q4k(i, o):
+    def q4k(i, o, kind=base):
         data = {"qs": u8(i // 2, o), "scale": unif(0.001, 0.005, i // 32, o),
                 "minv": unif(0.0, 0.002, i // 32, o)}
-        if base == "gguf_q5k":
+        if kind == "gguf_q5k":
             data["qh"] = u8(i // 8, o)
-        return Linear(base, (i, o), data)
+        return Linear(kind, (i, o), data)
 
-    def q6k(i, o):
+    def q6k(i, o, q3k=False):
         G = q6k_chunk_size(i)
         perm = torch.from_numpy(q6k_perm(i, G)).to(device)
-        return Linear("gguf_q6k", (i, o), {"ql": u8(i // 2, o), "qh": u8(i // 4, o),
+        if q3k:
+            # codes q3 + 28 of the four spans of each packed position (the
+            # layout of _q6k_natural: ql rows of spans 0|2 then 1|3 per chunk,
+            # high bits of span j at bits 2j of qh)
+            c = 28 + torch.randint(0, 8, (4, i // (4 * G), G, o), dtype=torch.uint8,
+                                   device=device, generator=gen)
+            lo, hi = c & 0xF, c >> 4
+            ql = torch.stack([lo[0] | (lo[2] << 4), lo[1] | (lo[3] << 4)], dim=1)
+            qh = hi[0] | (hi[1] << 2) | (hi[2] << 4) | (hi[3] << 6)
+            ql, qh = ql.reshape(i // 2, o), qh.reshape(i // 4, o)
+        else:
+            ql, qh = u8(i // 2, o), u8(i // 4, o)
+        return Linear("gguf_q6k", (i, o), {"ql": ql, "qh": qh,
                                            "scale": unif(0.001, 0.005, i // 16, o),
                                            "perm": perm, "inv_perm": torch.argsort(perm)}, meta=G)
+
+    def q2k(i, o):
+        scale = unif(0.001, 0.005, i // 16, o)
+        return Linear("gguf_q2k", (i, o), {"q": u8(i // 4, o), "scale": scale,
+                                           "minv": (1.5 * scale.float()).to(fdt)})
 
     H, I, D = sz.hidden, sz.inter, sz.head_dim
     ones = torch.ones(H, dtype=fdt, device=device)
     layers = []
     for i in range(n_layers):
-        layers.append({
-            "attn": {"q": q4k(H, sz.heads * D), "k": q4k(H, sz.kv_heads * D),
-                     "v": q6k(H, sz.kv_heads * D), "o": q4k(sz.heads * D, H)},
-            "mlp": {"gate": q4k(H, I), "up": q4k(H, I),
-                    "down": (q6k if use_more_bits(i, sz.layers) else q4k)(I, H)},
-            "input_norm": {"w": ones}, "post_attn_norm": {"w": ones},
-        })
+        if base == "gguf_q2k":
+            attn = {"q": q2k(H, sz.heads * D), "k": q2k(H, sz.kv_heads * D),
+                    "v": q4k(H, sz.kv_heads * D, "gguf_q4k"), "o": q6k(sz.heads * D, H, True)}
+            mlp = {"gate": q2k(H, I), "up": q2k(H, I), "down": q6k(I, H, True)}
+        else:
+            attn = {"q": q4k(H, sz.heads * D), "k": q4k(H, sz.kv_heads * D),
+                    "v": q6k(H, sz.kv_heads * D), "o": q4k(sz.heads * D, H)}
+            mlp = {"gate": q4k(H, I), "up": q4k(H, I),
+                   "down": (q6k if use_more_bits(i, sz.layers) else q4k)(I, H)}
+        layers.append({"attn": attn, "mlp": mlp, "input_norm": {"w": ones},
+                       "post_attn_norm": {"w": ones}})
     return DecoderParams(embed=unif(0.001, 0.005, sz.vocab, H), layers=layers,
                          final_norm={"w": ones}, lm_head=q6k(H, sz.vocab))
 
@@ -289,8 +336,8 @@ def bound(bytes_moved: float, ops: float, peak_ops: float) -> tuple[float, str]:
 
 
 def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
-    """Parity and timing of K1, K2, K6, the dequant kernels, K6' and K7 at
-    the main paths' shapes."""
+    """Parity and timing of K1, K2, K3, K4, K9, K10, K6, the dequant
+    kernels, K6' and K7 at the main paths' shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -387,6 +434,7 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
             del w
 
     q56k_kernels(sz, device, clock, gen, rand, record)
+    affine_kernels(sz, device, clock, gen, rand, record)
 
     # K6: first prefill chunks
     for B, T, Hq, Hkv in sz.flash_cases:
@@ -510,6 +558,60 @@ def q56k_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
                    clock.ms(lambda: qm.q5k_q8_gemv_plain(x, qs, qh, scale, minv, fdt)),
                    clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_INT8))
         del w, qs, qh, scale, minv
+
+
+def affine_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
+    """Parity and timing of K10 and its dequant kernel: GGUF Q2_K (bits 2,
+    group 16) at the Q2_K path's fused q|k and gate|up, at 1, 16, 64 and
+    256 rows; GPTQ-8 (group 128, the rows of an act-order checkpoint sorted
+    at load; x is gathered before the kernel) at down and gate|up; HQQ-1
+    and HQQ-2 (group 64) and GPTQ-4 at group 16 (which does not map onto
+    Q4_K) at gate|up. Random codes, scale U[0.001, 0.005), zs = 1.5 * scale
+    (Q2_K's minv) or 2^(bits-1) * scale (a mid-range zero point). library =
+    torch.matmul on the dequantized bf16 weight."""
+    import torch
+
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+
+    H, I, D = sz.hidden, sz.inter, sz.head_dim
+    fdt = torch.bfloat16
+
+    def compare(got, want):
+        err = float((got.float() - want.float()).abs().max())
+        return err, err / max(float(want.float().abs().max()), 1e-30)
+
+    cases = [("q2k", 2, 16, "qk", H, (sz.heads + sz.kv_heads) * D, (1, 16, 64, 256)),
+             ("q2k", 2, 16, "gate|up", H, 2 * I, (1, 16, 64, 256)),
+             ("gptq8", 8, 128, "down", I, H, (16,)), ("gptq8", 8, 128, "gate|up", H, 2 * I, (16,)),
+             ("hqq1", 1, 64, "gate|up", H, 2 * I, (16,)), ("hqq2", 2, 64, "gate|up", H, 2 * I, (16,)),
+             ("gptq4", 4, 16, "gate|up", H, 2 * I, (16,))]
+    for fmt, bits, group, nm, K, O, rows in cases:
+        q = rand(K * bits // 8, O, lo=0.0, hi=256.0).to(torch.uint8)
+        scale = rand(K // group, O, lo=0.001, hi=0.005, dtype=fdt)
+        zs = ((1.5 if fmt == "q2k" else 2 ** (bits - 1)) * scale.float()).to(fdt)
+        w_bytes = K * bits // 8 * O + 2 * (K // group) * O * 2
+        w = qm.affine_dequant(q, scale, zs, bits, group, fdt)
+        if fmt == "q2k" and nm == "gate|up" or fmt == "gptq8" and nm == "down":
+            want_w = qm.affine_dequant_plain(q, scale, zs, bits, group, fdt)
+            err, rel = compare(w, want_w)
+            del want_w
+            # bit-equal: the plain version's two bf16 roundings
+            record("affine_dequant", f"{nm} {fmt}", err, rel, 0.0,
+                   clock.ms(lambda: qm.affine_dequant(q, scale, zs, bits, group, fdt)),
+                   clock.ms(lambda: qm.affine_dequant_plain(q, scale, zs, bits, group, fdt)), None,
+                   bound(w_bytes + K * O * 2, 2 * K * O, PEAK_BF16))
+        for B in rows:
+            x = torch.randn(B, K, device=device, generator=gen).to(fdt)
+            err, rel = compare(qm.affine_gemv(x, q, scale, zs, bits, group, out_dtype=torch.float32),
+                               qm.affine_gemv_plain(x, q, scale, zs, bits, group, torch.float32))
+            nbytes = w_bytes + B * K * 2 + B * O * 2
+            # the same bf16(q * scale) weights on both sides; f32 sums of
+            # bf16 products in another order, the zs term over per-16 sums
+            record("affine_gemv", f"{nm} {fmt} B={B}", err, rel, 1e-4,
+                   clock.ms(lambda: qm.affine_gemv(x, q, scale, zs, bits, group, out_dtype=fdt)),
+                   clock.ms(lambda: qm.affine_gemv_plain(x, q, scale, zs, bits, group, fdt)),
+                   clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_BF16))
+        del w, q, scale, zs
 
 
 def paged_inputs(sz: Sizes, device, gen, B: int, T: int, kv_len: int, head_major: bool):
@@ -679,6 +781,12 @@ def ttft_ms(groups: list) -> float:
                                    for s in g.seqs)
 
 
+def served_kinds(pipe) -> list[str]:
+    """The Linear kinds of a pipeline's projections and lm_head, sorted."""
+    return sorted({lin.kind for lp in pipe.params.layers for part in ("attn", "mlp")
+                   for lin in lp[part].values()} | {pipe.params.lm_head.kind})
+
+
 def short_context_phase(sz: Sizes, device, phase: str, params_fn, rq8_group) -> dict:
     """The 32-layer model at max_model_len 2048 (token-major pools, buckets
     64/256) serves 4 greedy requests of ~200-token prompts (one 4 x 256
@@ -703,8 +811,7 @@ def short_context_phase(sz: Sizes, device, phase: str, params_fn, rq8_group) -> 
                         device=str(device), rq8_group=rq8_group)
     pipe = TextPipeline(cfg, params, make_rope(cfg, 2048, device=device), pc)
     del params  # the pipeline holds the fused (and requantized) copy
-    kinds = sorted({lin.kind for lp in pipe.params.layers for part in ("attn", "mlp")
-                    for lin in lp[part].values()} | {pipe.params.lm_head.kind})
+    kinds = served_kinds(pipe)
     q6k_kinds = sorted({f"{part}.{name}" for lp in pipe.params.layers for part in ("attn", "mlp")
                         for name, lin in lp[part].items() if lin.kind == "gguf_q6k"}
                        | ({"lm_head"} if pipe.params.lm_head.kind == "gguf_q6k" else set()))
@@ -764,6 +871,24 @@ def quant_mix_phase(sz: Sizes, device) -> dict:
     check_launched(out["launches"], PATH_KERNELS["quant_mix"] + ("flash_prefill",))
     if out["launches"]["q4k_q8_gemv"] or out["launches"]["q8_0_q8_gemv"]:
         raise AssertionError(f"the Q5_K_M path launched K1 or K2: {out['launches']}")
+    return out
+
+
+# what the Q2_K pipeline serves: Q2_K, Q4_K, and int8 per 32 for Q3_K/Q6_K
+Q2K_KINDS = ["gguf_q2k", "gguf_q4k", "gguf_q8_0"]
+
+
+def q2k_phase(sz: Sizes, device) -> dict:
+    """llama.cpp's Q2_K mix with Q3_K and Q6_K requantized to int8 per 32
+    (the default rq8): K10 for q|k and gate|up up to 256 rows and
+    affine_dequant above, K1 for v, K2 for o, down and the lm_head; no
+    Q5_K or Q6_K kernel."""
+    out = short_context_phase(sz, device, "q2k", random_q2k_params, 32)
+    if out["kinds"] != Q2K_KINDS:
+        raise AssertionError(f"the Q2_K pipeline serves other kinds: {out['kinds']}")
+    check_launched(out["launches"], PATH_KERNELS["q2k"] + PATH_KERNELS["slice"])
+    if any(out["launches"][n] for n in PATH_KERNELS["quant_mix"]):
+        raise AssertionError(f"the Q2_K path launched a Q5_K or Q6_K kernel: {out['launches']}")
     return out
 
 
@@ -841,8 +966,9 @@ def long_context_phase(sz: Sizes, device) -> dict:
 def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
     """Same port code and identical weights on the card (kernels, bf16) and
     the CPU (plain versions, f32): a 256-token prefill and 4 decode steps on
-    token-major pools, in the Q4_K_M mix (rq8) and in the Q5_K_M mix with
-    Q6_K kept (on the card K9 and K4 at 256 rows, then K9 and K3); then, on
+    token-major pools, in the Q4_K_M mix (rq8), in the Q5_K_M mix with
+    Q6_K kept (on the card K9 and K4 at 256 rows, then K9 and K3) and in
+    the Q2_K mix (rq8; K10, K1 and K2 at every step); then, on
     head-major pools, a 512-token first chunk (K6), a 512-token continuation
     chunk (K6') and 4 decode steps (K7) with tables 256 pages wide."""
     import dataclasses
@@ -863,6 +989,7 @@ def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
     # both sides hold the same numbers
     base = random_q4km_params(sz, n_layers, torch.device("cpu"), gen, torch.bfloat16)
     base_q5km = random_q5km_params(sz, n_layers, torch.device("cpu"), gen, torch.bfloat16)
+    base_q2k = random_q2k_params(sz, n_layers, torch.device("cpu"), gen, torch.bfloat16)
     sides = ((torch.device("cpu"), torch.float32), (device, torch.bfloat16))
 
     def moved(node, dev, dt):
@@ -902,7 +1029,8 @@ def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
     outs = []
     for phase, weights, rq8, names in (
             ("card_vs_cpu", base, 32, ("q4k_q8_gemv", "q8_0_q8_gemv")),
-            ("card_vs_cpu_q5km", base_q5km, None, ("q6k_q8_gemv", "q6k_bf16_gemv", "q5k_q8_gemv"))):
+            ("card_vs_cpu_q5km", base_q5km, None, ("q6k_q8_gemv", "q6k_bf16_gemv", "q5k_q8_gemv")),
+            ("card_vs_cpu_q2k", base_q2k, 32, ("affine_gemv", "q4k_q8_gemv", "q8_0_q8_gemv"))):
         runs, forced, counts = {}, None, {}
         for dev, dt in sides:
             pipe = pipeline(dev, dt, weights, page_size=16, num_pages=32, max_model_len=512,
@@ -998,7 +1126,8 @@ def main() -> int:
     results = kernel_phase(sz, device, Clock(device))
     seconds["kernels"] = time.perf_counter() - t0
     for name, fn in (("slice", slice_phase), ("long_context", long_context_phase),
-                     ("quant_mix", quant_mix_phase), ("card_vs_cpu", card_vs_cpu_phase)):
+                     ("quant_mix", quant_mix_phase), ("q2k", q2k_phase),
+                     ("card_vs_cpu", card_vs_cpu_phase)):
         t0 = time.perf_counter()
         results[name] = fn(sz, device)
         seconds[name] = time.perf_counter() - t0

@@ -1,5 +1,5 @@
-"""Packed-weight GEMVs for GGUF layouts: int8 or bf16 activations x Q4_K,
-Q5_K, Q6_K and int8 weights.
+"""Packed-weight GEMVs: int8 or bf16 activations x Q4_K, Q5_K, Q6_K, int8
+and plane-major affine (Q2_K, GPTQ, HQQ) weights.
 
 Counterpart of mistralrs_tpu/ops/quant_matmul.py, for the kernels the
 serving paths run, all hand-written CUDA under csrc/:
@@ -8,7 +8,11 @@ serving paths run, all hand-written CUDA under csrc/:
 - K3 `q6k_q8_gemv` (`_q6k_q8_kernel`), K4 `q6k_bf16_gemv` (`_q6k_kernel`)
   and K9 `q5k_q8_gemv` (`_q5k_hbit_q8_kernel` together with the K1 call
   that `_q5k_q8_matmul_padded` makes before it): the Q5_K_M path with Q6_K
-  kept native.
+  kept native;
+- K10 `affine_gemv` (`_affine_kernel`): w = q*scale - zs for plane-major
+  packed codes of 1, 2, 4 or 8 bits, the GEMV of GGUF Q2_K (the Q2_K
+  path), GPTQ and HQQ; bf16 activations, as the JAX kernel takes x's
+  dtype.
 
 Activations are quantized per block to int8 (ggml's Q8 approach, as the JAX
 int8 path does): xs = max(max|x_block|, 1e-10)/127, xq = clip(round(x/xs),
@@ -24,10 +28,10 @@ and only takes per-16 sums of it.
 
 Routing rules of this port (the dispatchers below):
 - more than 256 rows (prefill chunks) -> dequantize + torch.matmul
-  (gguf_linear._ref_forward), as the JAX package leaves prefill to XLA; on
-  the card the dequantization is one kernel per format (`q4k_dequant`,
-  `q5k_dequant`, `q6k_dequant`, `q8_0_dequant`, the pass XLA fuses in the
-  JAX package);
+  (gguf_linear._ref_forward, or affine_qmatmul's own), as the JAX package
+  leaves prefill to XLA; on the card the dequantization is one kernel per
+  format (`q4k_dequant`, `q5k_dequant`, `q6k_dequant`, `q8_0_dequant`,
+  `affine_dequant`, the pass XLA fuses in the JAX package);
 - otherwise the kernel, when its shape rule holds (every kernel: out % 16
   == 0, for 16-byte column chunks), else the dequant route. Q6_K keeps the
   JAX package's choice between its two kernels (int8 activations at up to
@@ -65,6 +69,8 @@ q6k_bf16_gemv_launches = 0
 q5k_q8_gemv_launches = 0
 q6k_dequant_launches = 0
 q5k_dequant_launches = 0
+affine_gemv_launches = 0
+affine_dequant_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -462,6 +468,73 @@ def q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=torch.bfloat16):
     return out
 
 
+# ------------------------------------------------------- K10: plane affine
+
+AFFINE_BITS = (1, 2, 4, 8)
+
+
+def _affine_values(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """Plane-major codes q [K*bits/8, O] -> uint8 [K, O] in element order
+    (plane j of byte row r is element j*K*bits/8 + r); at 8 bits q holds
+    one code a byte already."""
+    if bits == 8:
+        return q
+    mask = (1 << bits) - 1
+    return torch.cat([(q >> (bits * j)) & mask for j in range(8 // bits)], dim=0)
+
+
+def affine_gemv_plain(x, q, scale, zs, bits: int, group: int, out_dtype=torch.float32):
+    """Plain PyTorch version of K10 on any device, the ops of JAX's
+    `_affine_kernel`: w = q * scale rounded to x's dtype, the product with
+    f32 accumulation (x.float() @ w.float(), as the kernel's f32
+    accumulators), then minus the per-group sums of x @ zs in f32."""
+    w = _affine_values(q, bits).to(x.dtype) * torch.repeat_interleave(scale.to(x.dtype), group,
+                                                                      dim=0)
+    y = x.to(torch.float32) @ w.to(torch.float32)
+    y -= _xsum(x, group) @ zs.to(torch.float32)
+    return y.to(out_dtype)
+
+
+def affine_gemv(x, q, scale, zs, bits: int, group: int, out_dtype=torch.bfloat16):
+    """K10: y [B, O] = x @ W for W = q * scale[g] - zs[g] with plane-major
+    codes of `bits` bits, the weight rounded to bf16 inside the kernel (see
+    csrc/affine_gemv.cu). x [B, K] bf16 on cuda, q uint8 [K*bits/8, O],
+    scale/zs [K/group, O] (bf16 on cuda). The kernel takes group % 16 == 0
+    and (K*bits/8) % 32 == 0 (its 32-row steps of 16-element halves)."""
+    global affine_gemv_launches
+    _require(bits in AFFINE_BITS, f"affine_gemv: bits {bits} not in {AFFINE_BITS}")
+    Kp, O = q.shape
+    K = Kp * (8 // bits)
+    B = _check_x("affine_gemv", x, K)
+    _require(group % 16 == 0 and K % group == 0 and Kp % 32 == 0 and O % 16 == 0,
+             f"affine_gemv: needs group % 16 == 0, K % group == 0, K*bits/8 % 32 == 0, "
+             f"O % 16 == 0; got group={group} K={K} O={O} bits={bits}")
+    _require(q.dtype == torch.uint8, f"q: dtype {q.dtype}, expected torch.uint8")
+    _require(tuple(scale.shape) == tuple(zs.shape) == (K // group, O),
+             f"scale/zs: shapes {tuple(scale.shape)} {tuple(zs.shape)}, expected {(K // group, O)}")
+    _require(out_dtype in (torch.bfloat16, torch.float32), f"affine_gemv: out {out_dtype}")
+    if x.device.type == "cpu":
+        return affine_gemv_plain(x, q, scale, zs, bits, group, out_dtype)
+    _require(x.dtype == torch.bfloat16, f"affine_gemv: the kernel takes bf16 x, got {x.dtype}")
+    _check_tensor("scale", scale, torch.bfloat16, (K // group, O))
+    _check_tensor("zs", zs, torch.bfloat16, (K // group, O))
+    dev = _check_cuda("affine_gemv", dict(x=x, q=q, scale=scale, zs=zs))
+    # rows a block serves: one 16-row tile up to 16 rows, four above (the
+    # kernel picks the same by B)
+    ksplit = _ksplit(O, B, Kp // 32, dev, rows=16 if B <= 16 else K4_ROWS)
+    nbytes = _workspace_bytes(B, K, O, 0, 16, ksplit)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    out = torch.empty(B, O, dtype=out_dtype, device=dev)
+    fn = kernels.function("affine_gemv", "affine_gemv",
+                          [_P] * 4 + [_I, _I, _P, ctypes.c_longlong, _P] + [_I] * 5 + [_P])
+    err = fn(kernels.ptr(x), kernels.ptr(q), kernels.ptr(scale), kernels.ptr(zs), bits, group,
+             kernels.ptr(ws), nbytes, kernels.ptr(out), int(out_dtype == torch.bfloat16),
+             B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
+    kernels.check(err, "affine_gemv")
+    affine_gemv_launches += 1
+    return out
+
+
 # ------------------------------------------------------- prefill dequant
 
 
@@ -589,6 +662,38 @@ def q5k_dequant(qs, qh, scale, minv, dtype):
     return w
 
 
+def affine_dequant_plain(q, scale, zs, bits: int, group: int, dtype):
+    """[K, O] = q * scale - zs in `dtype`, element order (the ops of the JAX
+    package's dequant_q2k_weights, _gptq_weights and hqq_dequant_weights,
+    before their transposes)."""
+    return (_affine_values(q, bits).to(dtype) * torch.repeat_interleave(scale.to(dtype), group, dim=0)
+            - torch.repeat_interleave(zs.to(dtype), group, dim=0))
+
+
+def affine_dequant(q, scale, zs, bits: int, group: int, dtype):
+    """Plane-major affine layout -> dense [K, O] weight (csrc/affine_gemv.cu
+    affine_dequant on the card, bf16 only; the plain version on the CPU)."""
+    global affine_dequant_launches
+    Kp, O = q.shape
+    K = Kp * (8 // bits)
+    if q.device.type == "cpu":
+        return affine_dequant_plain(q, scale, zs, bits, group, dtype)
+    _require(dtype == torch.bfloat16 and bits in AFFINE_BITS and K % group == 0 and O % 8 == 0,
+             f"affine_dequant: the kernel writes bf16 with bits in {AFFINE_BITS}, K % group == 0, "
+             f"O % 8 == 0; got {dtype} bits={bits} group={group} K={K} O={O}")
+    _check_tensor("q", q, torch.uint8, (Kp, O))
+    _check_tensor("scale", scale, torch.bfloat16, (K // group, O))
+    _check_tensor("zs", zs, torch.bfloat16, (K // group, O))
+    dev = _check_cuda("affine_dequant", dict(q=q, scale=scale, zs=zs))
+    w = torch.empty(K, O, dtype=torch.bfloat16, device=dev)
+    fn = kernels.function("affine_gemv", "affine_dequant", [_P] * 4 + [_I] * 4 + [_P])
+    err = fn(kernels.ptr(q), kernels.ptr(scale), kernels.ptr(zs), kernels.ptr(w), bits, group,
+             K, O, _P(kernels.stream_ptr(dev)))
+    kernels.check(err, "affine_dequant")
+    affine_dequant_launches += 1
+    return w
+
+
 # ------------------------------------------------------- dispatchers
 
 
@@ -664,3 +769,31 @@ def q6k_matmul(lin: Linear, x: torch.Tensor) -> torch.Tensor:
     gemv = q6k_q8_gemv if n_rows <= 16 and G >= 256 else q6k_bf16_gemv
     y = gemv(x2, lin.data["ql"], lin.data["qh"], lin.data["scale"], G, out_dtype=x.dtype)
     return _add_bias(lin, y.reshape(*lead, out_f))
+
+
+def affine_qmatmul(lin: Linear, x: torch.Tensor, *, bits: int, group: int, q_key: str = "q",
+                   zs_key: str = "zs") -> torch.Tensor:
+    """Forward of the plane-major affine kinds (gguf_q2k: bits 2, group 16,
+    zs_key "minv"; gptq_2/4/8/b8 and hqq_1/2/3/4/8: bits 1, 2, 4 or 8 with
+    byte-per-value codes at 8, group = in / scale rows). x [..., K] ->
+    [..., O]. Routes:
+    - up to 256 rows (the JAX package's row rule), K10 when
+      in % (per*group) == 0 (per = 8 // bits: no group straddles two
+      planes), out % 16 == 0, and the kernel's own group % 16 == 0 and
+      (in / per) % 32 == 0 (every shape of the supported models has both);
+    - otherwise affine_dequant + torch.matmul.
+    The Mosaic-only rules of the JAX dispatcher (block_o >= 128, block_k %
+    (8*group), block_k % 128, row padding to 8) are gone. The two routes
+    differ in the last bits: K10 subtracts the zs term in f32, the dequant
+    route folds it into a weight rounded to x's dtype."""
+    in_f, out_f = lin.shape
+    per = 8 // bits
+    lead = x.shape[:-1]
+    n_rows = math.prod(lead)
+    q, scale, zs = lin.data[q_key], lin.data["scale"], lin.data[zs_key]
+    if (0 < n_rows <= MAX_KERNEL_ROWS and in_f % (per * group) == 0 and out_f % 16 == 0
+            and group % 16 == 0 and (in_f // per) % 32 == 0):
+        y = affine_gemv(x.reshape(n_rows, in_f).contiguous(), q, scale, zs, bits, group,
+                        out_dtype=x.dtype)
+        return _add_bias(lin, y.reshape(*lead, out_f))
+    return _add_bias(lin, torch.matmul(x, affine_dequant(q, scale, zs, bits, group, x.dtype)))

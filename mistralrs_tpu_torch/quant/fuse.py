@@ -22,18 +22,31 @@ _CAT_AXIS1 = {
     "gguf_q5k": ("qs", "qh", "scale", "minv"),
     "gguf_q8_0": ("q", "scale"),
     "gguf_q6k": ("ql", "qh", "scale"),
+    "gguf_q2k": ("q", "scale", "minv"),
+    **{f"gptq_{b}": ("q", "scale", "zs") for b in ("2", "4", "8", "b8")},
+    **{f"hqq_{b}": ("q", "scale", "zs") for b in (1, 2, 3, 4, 8)},
 }
-# K-side constants shared by same-in linears (q6k permutation tables)
-_SHARED_K = ("perm", "inv_perm")
+# K-side constants shared by same-in linears (q6k permutation tables, the
+# act-order input permutation of GPTQ)
+_SHARED_K = ("perm", "inv_perm", "in_perm")
 
 
 def fuse_linears(lins: list[Linear]) -> Linear | None:
     """Concatenate same-kind, same-in-features linears along out-features.
-    Returns None when they cannot fuse (mixed kinds, metas or biases)."""
+    Returns None when they cannot fuse (mixed kinds, metas or biases, a
+    ragged act-order g_idx gather, or act-order input permutations that
+    differ: each GPTQ desc_act linear sorts its rows by its own g_idx, so
+    only identical permutations hoist past the fused product)."""
     kind = lins[0].kind
     if kind not in _CAT_AXIS1 or any(l.kind != kind for l in lins):
         return None
     if len({l.shape[0] for l in lins}) != 1 or len({l.meta for l in lins}) != 1:
+        return None
+    if any("g_idx" in l.data for l in lins):
+        return None
+    perms = [l.data.get("in_perm") for l in lins]
+    if any(p is not None for p in perms) and not all(
+            p is not None and torch.equal(p, perms[0]) for p in perms):
         return None
     has_bias = [l.data.get("b") is not None for l in lins]
     if any(has_bias) and not all(has_bias):
@@ -49,8 +62,9 @@ def fuse_linears(lins: list[Linear]) -> Linear | None:
 
 
 def split_linear(lin: Linear, sizes: list[int]) -> list[Linear] | None:
-    """Inverse of fuse_linears: slice a Linear into out-feature spans (views)."""
-    if lin.kind not in _CAT_AXIS1:
+    """Inverse of fuse_linears: slice a Linear into out-feature spans
+    (views). Returns None for kinds it cannot slice (a g_idx gather)."""
+    if lin.kind not in _CAT_AXIS1 or "g_idx" in lin.data:
         return None
     if sum(sizes) != lin.shape[1]:
         raise ValueError(f"split sizes {sizes} do not add up to {lin.shape[1]}")
@@ -72,9 +86,10 @@ def pad_linear_out(lin: Linear, mult: int = 2048) -> Linear | None:
     """Zero-pad a packed Linear's out-features to a multiple of `mult` (the
     Q4_K_M lm_head: 32000 -> 32768). Zero bytes and zero scales decode to
     w == 0 in every format here; compute_logits slices the padding off.
-    Returns None for dense weights or when padding would add more than 1/8."""
+    Returns None for dense weights, a g_idx gather, or when padding would
+    add more than 1/8."""
     kind = lin.kind
-    if kind not in _CAT_AXIS1 or kind == "dense":
+    if kind not in _CAT_AXIS1 or kind == "dense" or "g_idx" in lin.data:
         return None
     out = lin.shape[1]
     pad = (-out) % mult

@@ -1,4 +1,5 @@
-"""Quantized `Linear` device formats for GGUF weights (Q4_K, Q5_K, Q6_K, Q8_0).
+"""Quantized `Linear` device formats for GGUF weights (Q2_K, Q4_K, Q5_K, Q6_K,
+Q8_0).
 
 Counterpart of mistralrs_tpu/quant/gguf_linear.py. The device layouts are
 byte-for-byte those of the JAX package, so one numpy pack feeds both:
@@ -12,7 +13,10 @@ byte-for-byte those of the JAX package, so one numpy pack feeds both:
   out] in the chunked permuted order of `q6k_perm`, with perm/inv_perm
   (kept for layout parity; the kernels read x in element order);
 - "gguf_q8_0": q int8 [in, out], scale [in/gs, out]; gs = meta or 32 (wire
-  Q8_0 has 32 and a bf16 scale, the Q6_K requant "rq8" an f32 scale).
+  Q8_0 has 32 and a bf16 scale, the Q6_K requant "rq8" an f32 scale);
+- "gguf_q2k":  q uint8 [in/4, out] quarter-plane-major 2-bit codes (row r,
+  bits 2j = element j*in/4 + r), scale and minv [in/16, out]
+  (w = scale*q - minv), served by the plane-affine kernel K10.
 The legacy formats ride these layouts with numpy packers alone: Q4_0/Q4_1
 as gguf_q4k, Q5_0/Q5_1 as gguf_q5k, Q3_K as gguf_q6k (q3 + 28).
 
@@ -323,6 +327,36 @@ def _pack_q6k_from_values(q: np.ndarray, s16: np.ndarray, out_features: int,
     )
 
 
+def pack_q2k(raw: np.ndarray, out_features: int, in_features: int,
+             dtype=torch.bfloat16, device="cuda") -> Linear:
+    """GGUF Q2_K wire blocks (84 B / 256 elements: 16 scale bytes, 64 code
+    bytes, f16 d, f16 dmin) -> the gguf_q2k layout: q uint8 [in/4, out]
+    quarter-plane-major (row r bits 2j hold element j*(in/4) + r), scale =
+    d*sc4 and minv = dmin*mn4 [in/16, out]."""
+    nblk = in_features // 256
+    b = kquants._blocks(raw, 84).reshape(out_features * nblk, 84)
+    N = b.shape[0]
+    scales = b[:, 0:16]
+    qs = b[:, 16:80].reshape(N, 2, 32)
+    d = kquants._f16(b[:, 80:82].copy())
+    dmin = kquants._f16(b[:, 82:84].copy())
+    shifts = np.arange(4, dtype=np.uint8)
+    q = ((qs[:, :, None, :] >> (2 * shifts)[None, None, :, None]) & 3).reshape(N, 256)
+    sc = d * (scales & 0xF).astype(np.float32)  # [N, 16]
+    mn = dmin * (scales >> 4).astype(np.float32)
+    planes = q.reshape(out_features, in_features).T.reshape(4, in_features // 4, out_features)
+    qp = planes[0] | (planes[1] << 2) | (planes[2] << 4) | (planes[3] << 6)
+    return Linear(
+        kind="gguf_q2k",
+        shape=(in_features, out_features),
+        data={
+            "q": _tensor(qp, device),
+            "scale": _tensor(sc.reshape(out_features, in_features // 16).T, device, dtype),
+            "minv": _tensor(mn.reshape(out_features, in_features // 16).T, device, dtype),
+        },
+    )
+
+
 def pack_q8_0(raw: np.ndarray, out_features: int, in_features: int,
               dtype=torch.bfloat16, device="cuda") -> Linear:
     nblk = in_features // 32
@@ -340,19 +374,20 @@ PACKERS = {
     GGMLType.Q4_K: pack_q4k, GGMLType.Q5_K: pack_q5k, GGMLType.Q6_K: pack_q6k,
     GGMLType.Q8_0: pack_q8_0, GGMLType.Q4_0: pack_q4_0, GGMLType.Q4_1: pack_q4_1,
     GGMLType.Q5_0: pack_q5_0, GGMLType.Q5_1: pack_q5_1, GGMLType.Q3_K: pack_q3k,
+    GGMLType.Q2_K: pack_q2k,
 }
 # `in` divisibility per packer (block structure + device pairing / planes)
 _PACK_IN_MULTIPLE = {
     GGMLType.Q4_K: 256, GGMLType.Q5_K: 256, GGMLType.Q6_K: 256, GGMLType.Q3_K: 256,
     GGMLType.Q8_0: 32, GGMLType.Q4_0: 64, GGMLType.Q4_1: 64,
-    GGMLType.Q5_0: 256, GGMLType.Q5_1: 256,
+    GGMLType.Q5_0: 256, GGMLType.Q5_1: 256, GGMLType.Q2_K: 256,
 }
 
 
 def linear_from_gguf(raw: np.ndarray, gtype, shape: tuple[int, ...],
                      dtype=torch.bfloat16, device="cuda") -> Linear:
     """Build a Linear from a GGUF weight tensor (shape = (out, in) numpy
-    order). Types without a packer here (Q2_K, Q8_K) raise."""
+    order). Types without a packer here (Q8_K) raise."""
     out_f, in_f = shape
     gtype = GGMLType(int(gtype))
     if in_f % _PACK_IN_MULTIPLE[gtype]:
@@ -397,6 +432,14 @@ def dequant_q8_0_gs_weights(lin: Linear, dtype) -> torch.Tensor:
     return q8_0_dequant(lin.data["q"], lin.data["scale"], lin.meta or 32, dtype).T
 
 
+def dequant_q2k_weights(lin: Linear, dtype) -> torch.Tensor:
+    """[out, in]: quarter-plane-major 2-bit codes, per-16 scale and min; one
+    kernel on the card (ops/quant_matmul.py)."""
+    from mistralrs_tpu_torch.ops.quant_matmul import affine_dequant
+
+    return affine_dequant(lin.data["q"], lin.data["scale"], lin.data["minv"], 2, 16, dtype).T
+
+
 def requant_q6k_to_q8(lin: Linear, gs: int = 64) -> Linear:
     """Load-time requant of a Q6_K Linear to the int8 per-gs layout served by
     the Q8_0 kernel ("rq8"): dequantize in element order, then round to int8
@@ -418,6 +461,7 @@ DEQUANT_WEIGHTS = {
     "gguf_q5k": dequant_q5k_weights,
     "gguf_q6k": dequant_q6k_weights,
     "gguf_q8_0": dequant_q8_0_gs_weights,
+    "gguf_q2k": dequant_q2k_weights,
 }
 
 
@@ -461,3 +505,10 @@ def _q8_0_forward(lin: Linear, x: torch.Tensor) -> torch.Tensor:
     from mistralrs_tpu_torch.ops.quant_matmul import q8_0_matmul
 
     return q8_0_matmul(lin, x)
+
+
+@register_kind("gguf_q2k")
+def _q2k_forward(lin: Linear, x: torch.Tensor) -> torch.Tensor:
+    from mistralrs_tpu_torch.ops.quant_matmul import affine_qmatmul
+
+    return affine_qmatmul(lin, x, bits=2, group=16, zs_key="minv")

@@ -20,6 +20,7 @@ class GGMLType(enum.IntEnum):
     Q5_0 = 6
     Q5_1 = 7
     Q8_0 = 8
+    Q2_K = 10
     Q3_K = 11
     Q4_K = 12
     Q5_K = 13

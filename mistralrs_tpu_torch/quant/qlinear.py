@@ -12,6 +12,7 @@ so the packed GGUF layouts keep `out` as their last (contiguous) axis.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Any, Callable
 
 import torch
@@ -45,11 +46,21 @@ def register_kind(kind: str):
     return deco
 
 
+# the module whose import registers each family of kinds ("gptq" for gptq_4)
+_KIND_MODULES = {"gguf": "mistralrs_tpu_torch.quant.gguf_linear",
+                 "gptq": "mistralrs_tpu_torch.quant.gptq",
+                 "hqq": "mistralrs_tpu_torch.quant.hqq"}
+
+
 def linear(lin: Linear, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W (+b). x: [..., in] -> [..., out]."""
-    if lin.kind not in _FORWARDS and lin.kind.startswith("gguf_"):
-        # kinds register when their module is imported
-        import mistralrs_tpu_torch.quant.gguf_linear  # noqa: F401
+    """y = x @ W (+b). x: [..., in] -> [..., out]. A Linear with an
+    `in_perm` (GPTQ act-order rows sorted at load) takes x gathered by it."""
+    family = lin.kind.split("_")[0]
+    if lin.kind not in _FORWARDS and family in _KIND_MODULES:
+        importlib.import_module(_KIND_MODULES[family])  # registers the family's kinds
+    in_perm = lin.data.get("in_perm")
+    if in_perm is not None:
+        x = torch.index_select(x, -1, in_perm)
     return _FORWARDS[lin.kind](lin, x)
 
 

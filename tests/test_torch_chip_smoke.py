@@ -1,12 +1,14 @@
 """chip_smoke.py's model builders at a tiny size on the CPU, and its refusal
 to run without a CUDA card.
 
-The card run builds the same Q4_K_M- and Q5_K_M-mix models at full
+The card run builds the same Q4_K_M-, Q5_K_M- and Q2_K-mix models at full
 Mistral-7B width; here the builders run at hidden 512 so a fault in them
 shows before a card is asked for. The served model must reach the pipeline
 as the mix it claims to be: Q4_K (or Q5_K) everywhere but attn_v, the
 use_more_bits ffn_down layers and the lm_head, which are Q6_K: the Q4_K_M
-pipeline requantizes them to int8 per 32, the Q5_K_M one keeps them.
+pipeline requantizes them to int8 per 32, the Q5_K_M one keeps them. The
+Q2_K mix has Q2_K q, k, gate and up, Q4_K v, Q3_K o and down (in the Q6_K
+layout) and a Q6_K lm_head, the last three requantized to int8 per 32.
 """
 
 import numpy as np
@@ -128,6 +130,80 @@ def test_q5km_builder_model_serves_with_q6k_kept():
     assert np.isfinite(pipe.last_greedy_pack).all()
     # the plain versions ran: no launch was counted on the CPU
     assert qm.q5k_q8_gemv_launches == qm.q6k_q8_gemv_launches == 0
+
+
+def _q2k_params(n_layers):
+    gen = torch.Generator().manual_seed(0)
+    return chip_smoke.random_q2k_params(TINY, n_layers, torch.device("cpu"), gen, torch.float32)
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_builder_puts_the_q2k_mix_in_each_layer(i):
+    layer = _q2k_params(4).layers[i]
+    kinds = {k: lin.kind for part in ("attn", "mlp") for k, lin in layer[part].items()}
+    assert kinds == {"q": "gguf_q2k", "k": "gguf_q2k", "v": "gguf_q4k", "o": "gguf_q6k",
+                     "gate": "gguf_q2k", "up": "gguf_q2k", "down": "gguf_q6k"}
+    q = layer["attn"]["q"]
+    assert q.data["q"].shape == (128, 512) and q.data["q"].dtype == torch.uint8
+    assert q.data["scale"].shape == q.data["minv"].shape == (32, 512)
+    assert float(q.data["scale"].min()) >= 0.001 and float(q.data["scale"].max()) < 0.005
+    torch.testing.assert_close(q.data["minv"], 1.5 * q.data["scale"])
+
+
+@pytest.mark.parametrize("name", ["o", "down"])
+def test_q2k_builder_writes_q3k_codes_into_the_q6k_layout(name):
+    """o and down hold Q3_K codes as pack_q3k writes them: q3 + 28, so every
+    6-bit code read back in element order lies in 28..35, and all 8 occur."""
+    from mistralrs_tpu_torch.ops.quant_matmul import _q6k_natural
+
+    layer = _q2k_params(1).layers[0]
+    lin = layer["attn" if name == "o" else "mlp"][name]
+    q, s16 = _q6k_natural(lin.data["ql"], lin.data["qh"], lin.data["scale"], lin.meta)
+    assert q.shape == (lin.shape[0], lin.shape[1]) and s16.shape == (lin.shape[0] // 16, lin.shape[1])
+    assert sorted(torch.unique(q).tolist()) == list(range(28, 36))
+
+
+def test_q2k_builder_model_serves_through_k10(monkeypatch):
+    """The q2k phase's model at a tiny size: two layers, fused and
+    requantized by the pipeline into the kinds the phase checks; a 150- and
+    a 40-token prompt through the plain versions: q|k and gate|up on the
+    dequant route for the batched 2 x 256-row first chunk, on K10 at decode
+    (2 sequences in 4 slots)."""
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+
+    cfg = chip_smoke.model_config(TINY, 2)
+    pc = PipelineConfig(page_size=16, num_pages=64, max_seqs=4, max_model_len=512,
+                        prefill_buckets=(64, 256), decode_steps=4, dtype=torch.float32,
+                        device="cpu")
+    pipe = TextPipeline(cfg, _q2k_params(2), make_rope(cfg, 512, device="cpu"), pc)
+    assert chip_smoke.served_kinds(pipe) == chip_smoke.Q2K_KINDS
+    layer = pipe.params.layers[0]
+    assert set(layer["attn"]) == {"qk", "v", "o"} and set(layer["mlp"]) == {"gateup", "down"}
+    assert layer["attn"]["qk"].kind == layer["mlp"]["gateup"].kind == "gguf_q2k"
+    assert layer["mlp"]["gateup"].data["q"].shape == (128, 2048)
+    seen = {"k10": set(), "dequant": 0}
+
+    def k10(x, *args, **kw):
+        seen["k10"].add(x.shape[0])
+        return plain_k10(x, *args, **kw)
+
+    def dequant(*args, **kw):
+        seen["dequant"] += 1
+        return plain_dequant(*args, **kw)
+
+    plain_k10, plain_dequant = qm.affine_gemv_plain, qm.affine_dequant_plain
+    monkeypatch.setattr(qm, "affine_gemv_plain", k10)
+    monkeypatch.setattr(qm, "affine_dequant_plain", dequant)
+    eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
+    rng = np.random.default_rng(1)
+    groups = [eng.add_request(GenerationRequest([int(t) for t in rng.integers(1, TINY.vocab, n)],
+                                                SamplingParams(max_len=6)))
+              for n in (150, 40)]
+    while not all(g.all_done() for g in groups):
+        eng.step()
+    assert all(g.seqs[0].num_generated == 6 for g in groups)
+    assert np.isfinite(pipe.last_greedy_pack).all()
+    assert seen == {"k10": {4}, "dequant": 2 * 2}  # q|k and gate|up of 2 layers
 
 
 def test_every_kernel_belongs_to_one_path():

@@ -216,6 +216,90 @@ def test_q6k_linear_at_prefill_rows_runs_k4(dev):
     assert y.shape == (257, O) and bool(torch.isfinite(y).all())
 
 
+def _affine_arrays(dev, bits, group, K, O, seed):
+    """Random plane-major codes (every byte is valid), bf16 scale and zs."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randint(0, 256, (K * bits // 8, O), generator=g, dtype=torch.uint8)
+    if bits == 8:  # byte-per-value kinds hold 3- or 8-bit codes
+        q = q & 0x7 if seed % 2 else q
+    scale = (torch.rand(K // group, O, generator=g) * 0.004 + 0.001).to(dev, torch.bfloat16)
+    zs = (torch.randn(K // group, O, generator=g) * 0.01).to(dev, torch.bfloat16)
+    return q.to(dev), scale, zs
+
+
+@pytest.mark.parametrize("B", [1, 5, 16, 17, 64, 65, 256])
+@pytest.mark.parametrize("bits,group,K,O", [
+    (2, 16, 512, 256), (2, 16, 4096, 272),      # GGUF Q2_K
+    (1, 64, 4096, 256), (1, 16, 512, 144),      # HQQ-1: 8 planes
+    (2, 64, 2048, 256),                         # GPTQ-2 / HQQ-2
+    (4, 16, 1024, 272), (4, 128, 2048, 256),    # GPTQ-4 off the Q4_K layout
+    (8, 128, 14336, 128), (8, 64, 1024, 256),   # GPTQ-8 / GPTQ-3 bytes / HQQ-3, HQQ-8
+])
+def test_affine_gemv_matches_plain(dev, B, bits, group, K, O):
+    """K10: the same bf16(q * scale) weights on both sides, the zs term in
+    f32 over per-16 sums on the card and per-group sums in the plain
+    version; f32 sums in another order (1e-4 of max |y|, as K4)."""
+    q, scale, zs = _affine_arrays(dev, bits, group, K, O, B + K + bits)
+    x = _acts(B, K, dev, B + bits).to(torch.bfloat16)
+    before = qm.affine_gemv_launches
+    got = qm.affine_gemv(x, q, scale, zs, bits, group, out_dtype=torch.float32)
+    want = qm.affine_gemv_plain(x, q, scale, zs, bits, group, torch.float32)
+    torch.cuda.synchronize()
+    assert qm.affine_gemv_launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) <= 1e-4
+    y16 = qm.affine_gemv(x, q, scale, zs, bits, group)
+    assert y16.dtype == torch.bfloat16
+    assert _rel_err(y16.float(), want) <= 1e-2
+
+
+@pytest.mark.parametrize("bits,group,K,O", [(2, 16, 512, 256), (2, 16, 4096, 272),
+                                            (1, 64, 4096, 256), (4, 128, 2048, 136),
+                                            (8, 128, 1024, 256)])
+def test_affine_dequant_matches_plain_exactly(dev, bits, group, K, O):
+    """bf16(bf16(q * scale) - zs) on both sides."""
+    q, scale, zs = _affine_arrays(dev, bits, group, K, O, K + bits)
+    before = qm.affine_dequant_launches
+    got = qm.affine_dequant(q, scale, zs, bits, group, torch.bfloat16)
+    assert qm.affine_dequant_launches == before + 1
+    assert torch.equal(got, qm.affine_dequant_plain(q, scale, zs, bits, group, torch.bfloat16))
+
+
+def test_q2k_linear_routes_on_the_card(dev):
+    """A gguf_q2k Linear takes K10 up to 256 rows and affine_dequant +
+    matmul above; a shape K10 does not take (out % 16) dequantizes too."""
+    from mistralrs_tpu_torch.quant.qlinear import Linear, linear
+
+    K, O = 1024, 256
+    q, scale, minv = _affine_arrays(dev, 2, 16, K, O, 3)
+    lin = Linear("gguf_q2k", (K, O), {"q": q, "scale": scale, "minv": minv})
+    for rows, k10, deq in ((1, 1, 0), (256, 1, 0), (257, 0, 1)):
+        a, d = qm.affine_gemv_launches, qm.affine_dequant_launches
+        x = _acts(rows, K, dev, rows).to(torch.bfloat16)
+        y = linear(lin, x)
+        torch.cuda.synchronize()
+        assert (qm.affine_gemv_launches - a, qm.affine_dequant_launches - d) == (k10, deq)
+        want = qm.affine_gemv_plain(x, q, scale, minv, 2, 16, torch.float32)
+        assert y.shape == (rows, O) and _rel_err(y.float(), want) <= 1e-2
+    lin8 = Linear("gguf_q2k", (K, 8), {k: v[:, :8].contiguous() for k, v in lin.data.items()})
+    a, d = qm.affine_gemv_launches, qm.affine_dequant_launches
+    linear(lin8, _acts(4, K, dev, 9).to(torch.bfloat16))
+    assert (qm.affine_gemv_launches - a, qm.affine_dequant_launches - d) == (0, 1)
+
+
+def test_affine_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    q, scale, zs = _affine_arrays(dev, 2, 16, 512, 256, 1)
+    x = _acts(4, 512, dev, 1)
+    with pytest.raises(ValueError):  # f32 x
+        qm.affine_gemv(x, q, scale, zs, 2, 16)
+    with pytest.raises(ValueError):  # bits 3 is stored a byte a code
+        qm.affine_gemv(x.to(torch.bfloat16), q, scale, zs, 3, 16)
+    with pytest.raises(ValueError):  # f32 scales
+        qm.affine_gemv(x.to(torch.bfloat16), q, scale.float(), zs, 2, 16)
+    with pytest.raises(ValueError):  # f32 weights out of the dequant kernel
+        qm.affine_dequant(q, scale, zs, 2, 16, torch.float32)
+
+
 def _paged_inputs(dev, B, T, kv_lens, Hq, Hkv, head_major, seed, page=16):
     """q [B,T,Hq,128], one layer's pools and a meta whose block tables name
     shuffled pages (page 0 unused), wide enough for every row."""

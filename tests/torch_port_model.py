@@ -1,6 +1,6 @@
 """Shared inputs for the tests of the PyTorch port (tests/test_torch_*.py).
 
-A tiny model in the Q4_K_M or Q5_K_M type mix, built in the JAX package from seeded
+A tiny model in the Q4_K_M, Q5_K_M or Q2_K type mix, built in the JAX package from seeded
 numpy weights through its own quantizer (kquants.quantize) and packers, and
 carried into the port with params_from_reference, so that both packages
 compute on the same packed bytes. Everything is float32 on the CPU.
@@ -59,23 +59,39 @@ def jax_q5km_params(seed: int = 0, **over):
     return _jax_mix_params(GGMLType.Q5_K, seed, **over)
 
 
+def jax_q2k_params(seed: int = 0, **over):
+    """The same model in llama.cpp's Q2_K mix as it stands for Mistral
+    (LLAMA_FTYPE_MOSTLY_Q2_K with n_gqa = 4; the tiny model's n_gqa is 2,
+    but the mix is taken as for the full model): q, k, gate, up in Q2_K; v
+    in Q4_K; o and down in Q3_K; the lm_head in Q6_K."""
+    return _jax_mix_params(GGMLType.Q2_K, seed, **over)
+
+
 def _jax_mix_params(base, seed: int, **over):
     kw = dict(TINY, **over)
     cfg = JModelConfig(**kw)
     rng = np.random.default_rng(seed)
     H, I, D, L = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim, cfg.num_layers
     Q4, Q6 = base, GGMLType.Q6_K
+    q2k = base == GGMLType.Q2_K
+    V = GGMLType.Q4_K if q2k else Q6
+    O = GGMLType.Q3_K if q2k else Q4
 
     def lin(gtype, out_f, in_f, std=0.05):
         return quantized(rng, gtype, out_f, in_f, std)[1]
+
+    def down_type(i):
+        if q2k:
+            return GGMLType.Q3_K
+        return Q6 if use_more_bits(i, L) else Q4
 
     layers = []
     for i in range(L):
         layers.append({
             "attn": {"q": lin(Q4, cfg.num_heads * D, H), "k": lin(Q4, cfg.num_kv_heads * D, H),
-                     "v": lin(Q6, cfg.num_kv_heads * D, H), "o": lin(Q4, H, cfg.num_heads * D)},
+                     "v": lin(V, cfg.num_kv_heads * D, H), "o": lin(O, H, cfg.num_heads * D)},
             "mlp": {"gate": lin(Q4, I, H), "up": lin(Q4, I, H),
-                    "down": lin(Q6 if use_more_bits(i, L) else Q4, H, I, 0.03)},
+                    "down": lin(down_type(i), H, I, 0.03)},
             "input_norm": {"w": jnp.asarray(1.0 + 0.1 * rng.standard_normal(H), jnp.float32)},
             "post_attn_norm": {"w": jnp.asarray(1.0 + 0.1 * rng.standard_normal(H), jnp.float32)},
         })

@@ -14,8 +14,12 @@ non-zero and never prints the final line):
    1; the plane-affine GEMV also in its GPTQ and HQQ layouts) and
    of prefill chunks of 64 and 256 rows (the most the GEMVs take), of first
    prefill chunks, of continuation chunks and decode steps over a paged
-   context of up to 4096 tokens, and of the prefill route's dequantization, with the
-   tolerance stated; then kernel, plain-version and library-call times (CUDA
+   context of up to 4096 tokens, and of the prefill route's dequantization; the
+   splash prefill kernel (K11) at Gemma-2-9B's and Gemma-2-2B's first chunks
+   (soft cap 50, with and without a window) and at a Mistral-width chunk
+   clipped by a window; the block-table decode kernel (K7) also at
+   Gemma-2-9B's head dim 256 with the soft cap; with the tolerance stated;
+   then kernel, plain-version and library-call times (CUDA
    events, median of 25 runs, L2 flushed before each) beside the least time
    the card could take (bound); for the Q6_K int8 GEMV (K3) also the time of
    the int8 GEMV (K2) on the same weight requantized to int8 per 32 (rq8).
@@ -47,12 +51,26 @@ non-zero and never prints the final line):
    q4k_dequant / q8_0_dequant + torch.matmul, flash prefill), 4 x 64-row
    chunks and decode at batch 16 (the plane-affine GEMV K10, K1 and K2). It
    raises unless those kernels launched and no Q5_K or Q6_K kernel did.
-8. card_vs_cpu: a 2-layer full-width model with identical weights on the card
+8. gemma2: Gemma-2-9B (config_from_hf on google/gemma-2-9b's config.json:
+   42 layers, 16 heads / 8 kv heads of 256, logit soft caps 50 and 30,
+   alternating windows of 4096, sandwich norms, gelu-tanh) with every
+   projection in Q4_K (as ISQ Q4K loads it) and the tied bf16 embedding as
+   the lm_head serves the slice phase's pattern: 4 x 256-row first chunks
+   (q4k_dequant + torch.matmul, K11), 4 x 64-row chunks and decode at batch
+   16 (K1, gather + the soft cap). It raises unless K11, K1 and q4k_dequant
+   launched and K6 did not.
+9. card_vs_cpu: a 2-layer full-width model with identical weights on the card
    (kernels, bf16) and on the CPU (plain versions, f32): one 256-token
    prefill and 4 decode steps, logits compared, in the Q4_K_M mix, in
    the Q5_K_M mix with Q6_K kept and in the Q2_K mix; then on head-major
    pools a 512-token first chunk, a 512-token continuation chunk and 4
    decode steps at a table width of 256 pages (K6, K6', K7 on the card).
+10. card_vs_cpu_gemma2: the same for a 2-layer Gemma-2-9B (one local and
+   one global layer, the full vocabulary): a 256-token first chunk (K11)
+   and 4 decode steps on token-major pools; on head-major pools a 512-token
+   first chunk (K11), a 512-token continuation chunk (gather + the soft
+   cap) and 4 decode steps at span 4096 (K7 with the soft cap at head dim
+   256).
 Then the kernels line and, last, {"ok": true, "device": {...}}.
 """
 
@@ -102,6 +120,8 @@ KERNEL_INFO = {
                     "mistralrs_tpu/ops/quant_matmul.py:533"),
     "affine_dequant": ("mistralrs_tpu_torch/csrc/affine_gemv.cu",
                        "mistralrs_tpu/quant/gguf_linear.py:515"),
+    "splash_prefill": ("mistralrs_tpu_torch/csrc/splash_prefill.cu",
+                       "mistralrs_tpu/ops/splash.py:59"),
 }
 # the shape whose numbers stand in the kernels line
 HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
@@ -110,15 +130,18 @@ HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
             "q8_0_dequant": "down rq8", "q6k_q8_gemv": "lm_head B=16",
             "q6k_bf16_gemv": "down B=256", "q5k_q8_gemv": "gate|up B=16", "q6k_dequant": "down",
             "q5k_dequant": "gate|up", "affine_gemv": "gate|up q2k B=16",
-            "affine_dequant": "gate|up q2k"}
+            "affine_dequant": "gate|up q2k", "splash_prefill": "gemma2-9b B=4 T=512"}
 # the kernels each serving phase's path adds (long_context also runs the
-# slice path's, quant_mix also flash_prefill, q2k also the slice path's);
-# the line's launches of each kernel come from the phase of its path
+# slice path's, quant_mix also flash_prefill, q2k also the slice path's,
+# gemma2 also q4k_q8_gemv and q4k_dequant, and paged_decode in
+# card_vs_cpu_gemma2); the line's launches of each kernel come from the
+# phase of its path
 PATH_KERNELS = {
     "slice": ("q4k_q8_gemv", "q8_0_q8_gemv", "flash_prefill", "q4k_dequant", "q8_0_dequant"),
     "long_context": ("flash_prefill_paged", "paged_decode"),
     "quant_mix": ("q6k_q8_gemv", "q6k_bf16_gemv", "q5k_q8_gemv", "q6k_dequant", "q5k_dequant"),
     "q2k": ("affine_gemv", "affine_dequant"),
+    "gemma2": ("splash_prefill",),
 }
 # each kernel's launch counter: (module under mistralrs_tpu_torch.ops, name)
 COUNTERS = {
@@ -136,6 +159,7 @@ COUNTERS = {
     "q5k_dequant": ("quant_matmul", "q5k_dequant_launches"),
     "affine_gemv": ("quant_matmul", "affine_gemv_launches"),
     "affine_dequant": ("quant_matmul", "affine_dequant_launches"),
+    "splash_prefill": ("splash", "splash_prefill_launches"),
 }
 
 
@@ -192,6 +216,24 @@ class Sizes:
     pages_ctx: int = 2048
 
 
+# Gemma-2-9B's widths and depth (google/gemma-2-9b config.json)
+GEMMA2 = Sizes(vocab=256000, hidden=3584, inter=14336, heads=16, kv_heads=8, head_dim=256,
+               layers=42)
+# K11 cases (shape, B, T, Hq, Hkv, D, window, soft cap): Gemma-2-9B's first
+# chunks (4 x 512, the headline; its local layers' window of 4096, which
+# does not clip; a window of 128, which does; the gemma2 phase's 4 x 256),
+# Gemma-2-2B's head widths, and a Mistral-width chunk clipped by a window
+# without a cap (the other case _use_splash_prefill takes)
+SPLASH_CASES = (("gemma2-9b B=4 T=512", 4, 512, 16, 8, 256, None, 50.0),
+                ("gemma2-9b B=4 T=512 w=4096", 4, 512, 16, 8, 256, 4096, 50.0),
+                ("gemma2-9b B=4 T=512 w=128", 4, 512, 16, 8, 256, 128, 50.0),
+                ("gemma2-9b B=4 T=256", 4, 256, 16, 8, 256, None, 50.0),
+                ("gemma2-2b B=4 T=512", 4, 512, 8, 4, 256, None, 50.0),
+                ("mistral B=1 T=512 w=128", 1, 512, 32, 8, 128, 128, None))
+# K7 at Gemma-2-9B's widths with the soft cap 50 (B, kv_len)
+GEMMA2_DECODE_CASES = ((16, 4096), (16, 1024), (1, 4096))
+
+
 # ------------------------------------------------------------- model
 
 
@@ -223,6 +265,31 @@ def random_q2k_params(sz: Sizes, n_layers: int, device, gen, fdt):
     return _random_mix_params(sz, n_layers, device, gen, fdt, "gguf_q2k")
 
 
+def _rand_u8(gen, device, *shape):
+    import torch
+
+    return torch.randint(0, 256, shape, dtype=torch.uint8, device=device, generator=gen)
+
+
+def _rand_unif(gen, device, fdt, lo, hi, *shape):
+    import torch
+
+    return (torch.rand(shape, device=device, generator=gen) * (hi - lo) + lo).to(fdt)
+
+
+def _rand_q4k(gen, device, fdt, i: int, o: int, kind: str = "gguf_q4k"):
+    """A random Q4_K (or, with its high bits, Q5_K) Linear [i -> o]: codes
+    uniform, scales U[0.001, 0.005), mins U[0, 0.002)."""
+    from mistralrs_tpu_torch.quant.qlinear import Linear
+
+    data = {"qs": _rand_u8(gen, device, i // 2, o),
+            "scale": _rand_unif(gen, device, fdt, 0.001, 0.005, i // 32, o),
+            "minv": _rand_unif(gen, device, fdt, 0.0, 0.002, i // 32, o)}
+    if kind == "gguf_q5k":
+        data["qh"] = _rand_u8(gen, device, i // 8, o)
+    return Linear(kind, (i, o), data)
+
+
 def _random_mix_params(sz: Sizes, n_layers: int, device, gen, fdt, base: str):
     import torch
 
@@ -231,17 +298,13 @@ def _random_mix_params(sz: Sizes, n_layers: int, device, gen, fdt, base: str):
     from mistralrs_tpu_torch.quant.qlinear import Linear
 
     def u8(*shape):
-        return torch.randint(0, 256, shape, dtype=torch.uint8, device=device, generator=gen)
+        return _rand_u8(gen, device, *shape)
 
     def unif(lo, hi, *shape):
-        return (torch.rand(shape, device=device, generator=gen) * (hi - lo) + lo).to(fdt)
+        return _rand_unif(gen, device, fdt, lo, hi, *shape)
 
     def q4k(i, o, kind=base):
-        data = {"qs": u8(i // 2, o), "scale": unif(0.001, 0.005, i // 32, o),
-                "minv": unif(0.0, 0.002, i // 32, o)}
-        if kind == "gguf_q5k":
-            data["qh"] = u8(i // 8, o)
-        return Linear(kind, (i, o), data)
+        return _rand_q4k(gen, device, fdt, i, o, kind)
 
     def q6k(i, o, q3k=False):
         G = q6k_chunk_size(i)
@@ -286,6 +349,30 @@ def _random_mix_params(sz: Sizes, n_layers: int, device, gen, fdt, base: str):
                          final_norm={"w": ones}, lm_head=q6k(H, sz.vocab))
 
 
+def random_gemma2_params(sz: Sizes, n_layers: int, device, gen, fdt):
+    """Random packed weights of Gemma-2 as the JAX package serves an HF
+    checkpoint loaded with ISQ Q4K (every projection in Q4_K, the lm_head
+    the tied embedding): Q4_K q, k, v, o, gate, up and down in bench.py's
+    value ranges; the bf16 embedding U[0.001, 0.005); norm weights 0, which
+    the (1 + w) form makes 1."""
+    import torch
+
+    from mistralrs_tpu_torch.models.decoder import DecoderParams
+
+    def q4k(i, o):
+        return _rand_q4k(gen, device, fdt, i, o)
+
+    H, I, D = sz.hidden, sz.inter, sz.head_dim
+    zeros = torch.zeros(H, dtype=fdt, device=device)
+    norms = ("input_norm", "post_attn_norm", "pre_mlp_norm", "post_mlp_norm")
+    layers = [{"attn": {"q": q4k(H, sz.heads * D), "k": q4k(H, sz.kv_heads * D),
+                        "v": q4k(H, sz.kv_heads * D), "o": q4k(sz.heads * D, H)},
+               "mlp": {"gate": q4k(H, I), "up": q4k(H, I), "down": q4k(I, H)},
+               **{n: {"w": zeros} for n in norms}} for _ in range(n_layers)]
+    return DecoderParams(embed=_rand_unif(gen, device, fdt, 0.001, 0.005, sz.vocab, H),
+                         layers=layers, final_norm={"w": zeros}, lm_head=None)
+
+
 def model_config(sz: Sizes, n_layers: int):
     from mistralrs_tpu_torch.models.config import ModelConfig
 
@@ -293,6 +380,22 @@ def model_config(sz: Sizes, n_layers: int):
                        intermediate_size=sz.inter, num_layers=n_layers, num_heads=sz.heads,
                        num_kv_heads=sz.kv_heads, head_dim=sz.head_dim,
                        max_position_embeddings=4096, rope_theta=1e6)
+
+
+def gemma2_config(sz: Sizes, n_layers: int):
+    """config_from_hf on google/gemma-2-9b's config.json, at the widths of
+    `sz` and n_layers layers."""
+    from mistralrs_tpu_torch.models.config import config_from_hf
+
+    return config_from_hf({
+        "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2",
+        "vocab_size": sz.vocab, "hidden_size": sz.hidden, "intermediate_size": sz.inter,
+        "num_hidden_layers": n_layers, "num_attention_heads": sz.heads,
+        "num_key_value_heads": sz.kv_heads, "head_dim": sz.head_dim,
+        "query_pre_attn_scalar": 256, "sliding_window": 4096,
+        "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+        "hidden_activation": "gelu_pytorch_tanh", "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+        "max_position_embeddings": 8192, "tie_word_embeddings": True})
 
 
 # ------------------------------------------------------------- timing
@@ -337,7 +440,7 @@ def bound(bytes_moved: float, ops: float, peak_ops: float) -> tuple[float, str]:
 
 def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
     """Parity and timing of K1, K2, K3, K4, K9, K10, K6, the dequant
-    kernels, K6' and K7 at the main paths' shapes."""
+    kernels, K6', K7 and K11 at the main paths' shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -462,6 +565,7 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
                bound(nbytes, flops, PEAK_BF16))
 
     paged_kernels(sz, device, clock, gen, record)
+    gemma2_kernels(device, clock, gen, record)
     return results
 
 
@@ -725,6 +829,92 @@ def paged_kernels(sz: Sizes, device, clock: Clock, gen, record) -> None:
         del q, k, v, meta
 
 
+def kept_pairs(T: int, window: int | None) -> int:
+    """(query, key) pairs a causal first chunk of T keeps, with a window w
+    keeping keys t - (w - 1) .. t."""
+    if window is None or window >= T:
+        return T * (T + 1) // 2
+    return window * (window + 1) // 2 + (T - window) * window
+
+
+def gemma2_kernels(device, clock: Clock, gen, record) -> None:
+    """Parity and timing of K11 at SPLASH_CASES and of K7 at Gemma-2-9B's
+    widths with the soft cap 50 (GEMMA2_DECODE_CASES). q is drawn 8 times
+    wider than k and v (4 times for K7), so that the scaled logits reach the
+    cap's bend. library = F.scaled_dot_product_attention with the same
+    boolean mask where there is no cap; with a cap no PyTorch call computes
+    the function (None). For K7 also the decoder's own gather route with
+    the cap (gather_paged_kv + sdpa_head_major), which serves spans below
+    4096."""
+    import torch
+    import torch.nn.functional as F
+
+    from mistralrs_tpu_torch.ops import paged_attention as pa
+    from mistralrs_tpu_torch.ops import splash as sp
+    from mistralrs_tpu_torch.ops.attention import NEG_INF, sdpa_head_major
+
+    fdt = torch.bfloat16
+
+    def compare(got, want):
+        err = float((got.float() - want.float()).abs().max())
+        return err, err / max(float(want.float().abs().max()), 1e-30)
+
+    for shape, B, T, Hq, Hkv, D, window, cap in SPLASH_CASES:
+        amp = 8.0 if cap else 1.0
+        q = (torch.randn(B, T, Hq, D, device=device, generator=gen) * amp).to(fdt)
+        k = torch.randn(B, T, Hkv, D, device=device, generator=gen).to(fdt)
+        v = torch.randn(B, T, Hkv, D, device=device, generator=gen).to(fdt)
+        scale = 256 ** -0.5 if D == 256 else D ** -0.5
+        kw = dict(scale=scale, sliding_window=window, logits_softcap=cap)
+        err, rel = compare(sp.splash_prefill(q, k, v, **kw), sp.splash_prefill_plain(q, k, v, **kw))
+        ms = clock.ms(lambda: sp.splash_prefill(q, k, v, **kw))
+        plain = clock.ms(lambda: sp.splash_prefill_plain(q, k, v, **kw))
+        lib = None
+        if cap is None:
+            rep = Hq // Hkv
+            t = torch.arange(T, device=device)
+            keep = (t[None, :] <= t[:, None]) & (t[None, :] > t[:, None] - (window or T + 1))
+            qt = q.transpose(1, 2).contiguous()
+            kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+            vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+            lib = clock.ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                                                  scale=scale))
+            del qt, kt, vt
+        nbytes = B * T * (2 * Hq + 2 * Hkv) * D * 2
+        # q.k and p.v, 2 * D flops each, per kept pair of every query head
+        flops = 4 * B * Hq * D * kept_pairs(T, window)
+        # as K6: bf16 in and out, P rounded to bf16 in the kernel; tanhf
+        # against torch.tanh
+        record("splash_prefill", shape, err, rel, 1e-2, ms, plain, lib,
+               bound(nbytes, flops, PEAK_BF16))
+        del q, k, v
+
+    sz = GEMMA2
+    Hq, H, D = sz.heads, sz.kv_heads, sz.head_dim
+    scale, cap = 256 ** -0.5, 50.0
+    for B, kv_len in GEMMA2_DECODE_CASES:
+        q, k, v, meta = paged_inputs(sz, device, gen, B, 1, kv_len, True)
+        q = (q.float() * 4).to(fdt)
+        kw = dict(scale=scale, logits_softcap=cap)
+        err, rel = compare(pa.paged_decode_attention(q, k, v, meta, **kw),
+                           pa.paged_decode_attention_plain(q, k, v, meta, **kw))
+        ms = clock.ms(lambda: pa.paged_decode_attention(q, k, v, meta, **kw))
+        plain = clock.ms(lambda: pa.paged_decode_attention_plain(q, k, v, meta, **kw))
+        S = meta.block_tables.shape[1] * 16
+        bias = torch.where(torch.arange(S, device=device)[None] < meta.kv_lens[:, None], 0.0,
+                           NEG_INF)[:, None, None, :]
+
+        def gather_route():
+            kc, vc = pa.gather_paged_kv(k, v, meta.block_tables, head_major=True)
+            return sdpa_head_major(q, kc, vc, mask=bias, **kw)
+
+        nbytes = B * kv_len * H * D * 2 * 2 + 2 * B * Hq * D * 2
+        record("paged_decode", f"gemma2-9b B={B} kv={kv_len} head_major", err, rel, 1e-2, ms,
+               plain, None, bound(nbytes, B * 4 * Hq * D * kv_len, PEAK_BF16),
+               gather_route_ms=clock.ms(gather_route))
+        del q, k, v, meta
+
+
 # ------------------------------------------------------------- phases 4, 5
 
 
@@ -782,18 +972,21 @@ def ttft_ms(groups: list) -> float:
 
 
 def served_kinds(pipe) -> list[str]:
-    """The Linear kinds of a pipeline's projections and lm_head, sorted."""
+    """The Linear kinds of a pipeline's projections and lm_head (if it is
+    not the tied embedding), sorted."""
+    head = pipe.params.lm_head
     return sorted({lin.kind for lp in pipe.params.layers for part in ("attn", "mlp")
-                   for lin in lp[part].values()} | {pipe.params.lm_head.kind})
+                   for lin in lp[part].values()} | ({head.kind} if head is not None else set()))
 
 
-def short_context_phase(sz: Sizes, device, phase: str, params_fn, rq8_group) -> dict:
-    """The 32-layer model at max_model_len 2048 (token-major pools, buckets
-    64/256) serves 4 greedy requests of ~200-token prompts (one 4 x 256
-    first chunk), then 4 of ~40 tokens (4 x 64 rows), max_len tokens each,
-    after a warm-up with the same pattern. Returns the phase's line; the
-    launch counts are set to 0 just before the measured run and read just
-    after it."""
+def short_context_phase(sz: Sizes, device, phase: str, params_fn, rq8_group,
+                        config_fn=model_config) -> dict:
+    """The full-depth model at max_model_len 2048 (token-major pools,
+    buckets 64/256) serves 4 greedy requests of ~200-token prompts (one 4 x
+    256 first chunk), then 4 of ~40 tokens (4 x 64 rows), max_len tokens
+    each, after a warm-up with the same pattern. Returns the phase's line;
+    the launch counts are set to 0 just before the measured run and read
+    just after it."""
     import torch
 
     from mistralrs_tpu_torch.engine.engine import Engine
@@ -801,7 +994,7 @@ def short_context_phase(sz: Sizes, device, phase: str, params_fn, rq8_group) -> 
     from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
 
     fdt = torch.bfloat16
-    cfg = model_config(sz, sz.layers)
+    cfg = config_fn(sz, sz.layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
@@ -814,7 +1007,8 @@ def short_context_phase(sz: Sizes, device, phase: str, params_fn, rq8_group) -> 
     kinds = served_kinds(pipe)
     q6k_kinds = sorted({f"{part}.{name}" for lp in pipe.params.layers for part in ("attn", "mlp")
                         for name, lin in lp[part].items() if lin.kind == "gguf_q6k"}
-                       | ({"lm_head"} if pipe.params.lm_head.kind == "gguf_q6k" else set()))
+                       | ({"lm_head"} if getattr(pipe.params.lm_head, "kind", None) == "gguf_q6k"
+                          else set()))
     eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
     rng = np.random.default_rng(1)
 
@@ -892,6 +1086,25 @@ def q2k_phase(sz: Sizes, device) -> dict:
     return out
 
 
+# what the Gemma-2 pipeline serves: Q4_K projections (the lm_head is the
+# tied bf16 embedding)
+GEMMA2_KINDS = ["gguf_q4k"]
+
+
+def gemma2_phase(sz: Sizes, device) -> dict:
+    """Gemma-2-9B at full width and depth, every projection Q4_K: K11 for
+    the 4 x 256-row first chunks (q4k_dequant + torch.matmul for their
+    projections), K1 for the 4 x 64-row chunks and decode (gather + the
+    soft cap for their attention); never K6."""
+    out = short_context_phase(GEMMA2, device, "gemma2", random_gemma2_params, 32, gemma2_config)
+    if out["kinds"] != GEMMA2_KINDS:
+        raise AssertionError(f"the Gemma-2 pipeline serves other kinds: {out['kinds']}")
+    check_launched(out["launches"], PATH_KERNELS["gemma2"] + ("q4k_q8_gemv", "q4k_dequant"))
+    if out["launches"]["flash_prefill"]:
+        raise AssertionError(f"the Gemma-2 path launched the flash kernel K6: {out['launches']}")
+    return out
+
+
 def long_context_phase(sz: Sizes, device) -> dict:
     """The 32-layer model on head-major pools at max_model_len 4096 serves
     a wave of ~3,400-token prompts (decode at span 4096: K7), then a wave of
@@ -963,106 +1176,100 @@ def long_context_phase(sz: Sizes, device) -> dict:
 # ------------------------------------------------------------- phase 6
 
 
-def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
-    """Same port code and identical weights on the card (kernels, bf16) and
-    the CPU (plain versions, f32): a 256-token prefill and 4 decode steps on
-    token-major pools, in the Q4_K_M mix (rq8), in the Q5_K_M mix with
-    Q6_K kept (on the card K9 and K4 at 256 rows, then K9 and K3) and in
-    the Q2_K mix (rq8; K10, K1 and K2 at every step); then, on
-    head-major pools, a 512-token first chunk (K6), a 512-token continuation
-    chunk (K6') and 4 decode steps (K7) with tables 256 pages wide."""
-    import dataclasses
+def _moved(node, dev, dt):
+    """A parameter tree on `dev`, its float tensors in `dt`."""
+    from mistralrs_tpu_torch.quant.qlinear import Linear
 
+    if node is None:
+        return None
+    if isinstance(node, Linear):
+        return dataclasses.replace(node, data=_moved(node.data, dev, dt))
+    if isinstance(node, dict):
+        return {k: _moved(v, dev, dt) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_moved(v, dev, dt) for v in node]
+    return node.to(dev, dt) if node.is_floating_point() else node.to(dev)
+
+
+def _side_pipeline(cfg, weights, dev, dt, **kw):
+    """A one-sequence pipeline over a copy of `weights` on one side."""
+    from mistralrs_tpu_torch.models.loader import make_rope
+    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
+
+    params = dataclasses.replace(weights, embed=_moved(weights.embed, dev, dt),
+                                 layers=_moved(weights.layers, dev, dt),
+                                 final_norm=_moved(weights.final_norm, dev, dt),
+                                 lm_head=_moved(weights.lm_head, dev, dt))
+    pc = PipelineConfig(max_seqs=1, dtype=dt, device=str(dev), **kw)
+    return TextPipeline(cfg, params, make_rope(cfg, pc.max_model_len, device=dev), pc)
+
+
+def _compare_sides(phase, runs, device, n_layers, **extra) -> dict:
+    """The card's logits against the CPU's, step by step, relative to each
+    step's largest |logit|."""
+    ref, got = runs["cpu"], runs[device.type]
+    scale = np.abs(ref).max(axis=1, keepdims=True)
+    rel = float((np.abs(got - ref) / scale).max())
+    rms = float(np.sqrt(((got - ref) ** 2).mean()) / np.sqrt((ref ** 2).mean()))
+    # bf16 activations (2^-8 relative each) and the int8 requantization
+    # of activations that differ in their last bits, over 2 layers
+    tol = 5e-2
+    out = {"phase": phase, "layers": n_layers, "steps": len(ref), "max_rel_err": rel,
+           "rel_rms_err": rms, "tol_rel": tol, "finite": bool(np.isfinite(got).all()),
+           "argmax_agree": int((ref.argmax(1) == got.argmax(1)).sum()), **extra}
+    emit(out)
+    if not np.isfinite(got).all() or rel > tol:
+        raise AssertionError(f"card and CPU logits differ: {out}")
+    return out
+
+
+def _sides(device):
+    """(device, working dtype) of the CPU side, then the card's."""
     import torch
 
+    return ((torch.device("cpu"), torch.float32), (device, torch.bfloat16))
+
+
+def _token_major_run(cfg, weights, device, prompt, rq8) -> tuple[dict, dict]:
+    """Logits and launch counts of each side for a 256-token prefill and 4
+    decode steps (token-major pools), both fed the CPU run's argmax."""
     from mistralrs_tpu_torch.engine.block_manager import BlockManager
     from mistralrs_tpu_torch.engine.sampler import SamplingParams
     from mistralrs_tpu_torch.engine.sequence import Sequence
-    from mistralrs_tpu_torch.models.loader import make_rope
-    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
-    from mistralrs_tpu_torch.quant.qlinear import Linear
 
-    n_layers = 2
-    cfg = model_config(sz, n_layers)
-    gen = torch.Generator().manual_seed(5)
-    # weights made once on the CPU; float values rounded to bf16 so that
-    # both sides hold the same numbers
-    base = random_q4km_params(sz, n_layers, torch.device("cpu"), gen, torch.bfloat16)
-    base_q5km = random_q5km_params(sz, n_layers, torch.device("cpu"), gen, torch.bfloat16)
-    base_q2k = random_q2k_params(sz, n_layers, torch.device("cpu"), gen, torch.bfloat16)
-    sides = ((torch.device("cpu"), torch.float32), (device, torch.bfloat16))
+    runs, forced, counts = {}, None, {}
+    for dev, dt in _sides(device):
+        pipe = _side_pipeline(cfg, weights, dev, dt, page_size=16, num_pages=32,
+                              max_model_len=512, prefill_buckets=(256,), rq8_group=rq8)
+        bm = BlockManager(pipe.pc.num_pages, pipe.pc.page_size)
+        seq = Sequence(prompt, SamplingParams(max_len=8), max_model_len=512)
+        bm.allocate(seq)
+        reset_counts()
+        logits = [pipe.run_prefill_chunk(seq, prompt)]
+        for step in range(4):
+            tok = int(np.argmax(logits[-1])) if forced is None else forced[step]
+            seq.tokens.append(tok)
+            bm.append_slot(seq, 1)
+            logits.append(pipe.run_decode([seq])[0])
+        if forced is None:  # the CPU run picks the tokens both runs feed
+            forced = [int(np.argmax(x)) for x in logits[:4]]
+        counts[dev.type] = read_counts()
+        runs[dev.type] = np.stack(logits).astype(np.float64)
+        del pipe
+    return runs, counts[device.type]
 
-    def moved(node, dev, dt):
-        if isinstance(node, Linear):
-            return dataclasses.replace(node, data=moved(node.data, dev, dt))
-        if isinstance(node, dict):
-            return {k: moved(v, dev, dt) for k, v in node.items()}
-        if isinstance(node, list):
-            return [moved(v, dev, dt) for v in node]
-        return node.to(dev, dt) if node.is_floating_point() else node.to(dev)
 
-    def pipeline(dev, dt, weights=base, **kw):
-        params = dataclasses.replace(weights, embed=moved(weights.embed, dev, dt),
-                                     layers=moved(weights.layers, dev, dt),
-                                     final_norm=moved(weights.final_norm, dev, dt),
-                                     lm_head=moved(weights.lm_head, dev, dt))
-        pc = PipelineConfig(max_seqs=1, dtype=dt, device=str(dev), **kw)
-        return TextPipeline(cfg, params, make_rope(cfg, pc.max_model_len, device=dev), pc)
-
-    def compare(phase, runs, **extra):
-        ref, got = runs["cpu"], runs[device.type]
-        scale = np.abs(ref).max(axis=1, keepdims=True)
-        rel = float((np.abs(got - ref) / scale).max())
-        rms = float(np.sqrt(((got - ref) ** 2).mean()) / np.sqrt((ref ** 2).mean()))
-        # bf16 activations (2^-8 relative each) and the int8 requantization
-        # of activations that differ in their last bits, over 2 layers
-        tol = 5e-2
-        out = {"phase": phase, "layers": n_layers, "steps": len(ref), "max_rel_err": rel,
-               "rel_rms_err": rms, "tol_rel": tol, "finite": bool(np.isfinite(got).all()),
-               "argmax_agree": int((ref.argmax(1) == got.argmax(1)).sum()), **extra}
-        emit(out)
-        if not np.isfinite(got).all() or rel > tol:
-            raise AssertionError(f"card and CPU logits differ: {out}")
-        return out
-
-    prompt = [int(t) for t in np.random.default_rng(3).integers(1, sz.vocab, 256)]
-    outs = []
-    for phase, weights, rq8, names in (
-            ("card_vs_cpu", base, 32, ("q4k_q8_gemv", "q8_0_q8_gemv")),
-            ("card_vs_cpu_q5km", base_q5km, None, ("q6k_q8_gemv", "q6k_bf16_gemv", "q5k_q8_gemv")),
-            ("card_vs_cpu_q2k", base_q2k, 32, ("affine_gemv", "q4k_q8_gemv", "q8_0_q8_gemv"))):
-        runs, forced, counts = {}, None, {}
-        for dev, dt in sides:
-            pipe = pipeline(dev, dt, weights, page_size=16, num_pages=32, max_model_len=512,
-                            prefill_buckets=(256,), rq8_group=rq8)
-            bm = BlockManager(pipe.pc.num_pages, pipe.pc.page_size)
-            seq = Sequence(prompt, SamplingParams(max_len=8), max_model_len=512)
-            bm.allocate(seq)
-            reset_counts()
-            logits = [pipe.run_prefill_chunk(seq, prompt)]
-            for step in range(4):
-                tok = int(np.argmax(logits[-1])) if forced is None else forced[step]
-                seq.tokens.append(tok)
-                bm.append_slot(seq, 1)
-                logits.append(pipe.run_decode([seq])[0])
-            if forced is None:  # the CPU run picks the tokens both runs feed
-                forced = [int(np.argmax(x)) for x in logits[:4]]
-            counts[dev.type] = read_counts()
-            runs[dev.type] = np.stack(logits).astype(np.float64)
-            del pipe
-        card = counts[device.type]
-        check_launched(card, names)
-        outs.append(compare(phase, runs, launches={n: card[n] for n in names}))
-
-    # long context: host arrays straight into the pipeline's step, so the
-    # tables can be 256 pages wide at a 1,024-token context
+def _head_major_run(cfg, weights, device, prompt) -> tuple[dict, dict]:
+    """Logits and launch counts of each side on head-major pools: a
+    512-token first chunk, a 512-token continuation chunk and 4 decode
+    steps, with host arrays straight into the pipeline's step, so the
+    tables can be 256 pages wide (span 4096) at a 1,024-token context."""
     page, MP = 16, 256
     table = np.arange(1, MP + 1, dtype=np.int64)[None]
-    prompt = np.random.default_rng(4).integers(1, sz.vocab, 1024)
     runs, forced, counts = {}, None, {}
-    for dev, dt in sides:
-        pipe = pipeline(dev, dt, page_size=page, num_pages=MP + 1, max_model_len=4096,
-                        prefill_buckets=(512,))
+    for dev, dt in _sides(device):
+        pipe = _side_pipeline(cfg, weights, dev, dt, page_size=page, num_pages=MP + 1,
+                              max_model_len=4096, prefill_buckets=(512,))
         reset_counts()
         logits = []
         steps = [(0, 512), (512, 512)] + [(1024 + j, 1) for j in range(4)]
@@ -1082,12 +1289,81 @@ def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
         counts[dev.type] = read_counts()
         runs[dev.type] = np.stack(logits).astype(np.float64)
         del pipe
-    card = counts[device.type]
+    return runs, counts[device.type]
+
+
+def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
+    """Same port code and identical weights on the card (kernels, bf16) and
+    the CPU (plain versions, f32): a 256-token prefill and 4 decode steps on
+    token-major pools, in the Q4_K_M mix (rq8), in the Q5_K_M mix with
+    Q6_K kept (on the card K9 and K4 at 256 rows, then K9 and K3) and in
+    the Q2_K mix (rq8; K10, K1 and K2 at every step); then, on
+    head-major pools, a 512-token first chunk (K6), a 512-token continuation
+    chunk (K6') and 4 decode steps (K7) with tables 256 pages wide."""
+    import torch
+
+    n_layers = 2
+    cfg = model_config(sz, n_layers)
+    gen = torch.Generator().manual_seed(5)
+    # weights made once on the CPU; float values rounded to bf16 so that
+    # both sides hold the same numbers
+    base = random_q4km_params(sz, n_layers, torch.device("cpu"), gen, torch.bfloat16)
+    base_q5km = random_q5km_params(sz, n_layers, torch.device("cpu"), gen, torch.bfloat16)
+    base_q2k = random_q2k_params(sz, n_layers, torch.device("cpu"), gen, torch.bfloat16)
+
+    prompt = [int(t) for t in np.random.default_rng(3).integers(1, sz.vocab, 256)]
+    outs = []
+    for phase, weights, rq8, names in (
+            ("card_vs_cpu", base, 32, ("q4k_q8_gemv", "q8_0_q8_gemv")),
+            ("card_vs_cpu_q5km", base_q5km, None, ("q6k_q8_gemv", "q6k_bf16_gemv", "q5k_q8_gemv")),
+            ("card_vs_cpu_q2k", base_q2k, 32, ("affine_gemv", "q4k_q8_gemv", "q8_0_q8_gemv"))):
+        runs, card = _token_major_run(cfg, weights, device, prompt, rq8)
+        check_launched(card, names)
+        outs.append(_compare_sides(phase, runs, device, n_layers,
+                                   launches={n: card[n] for n in names}))
+
+    # long context
+    prompt = np.random.default_rng(4).integers(1, sz.vocab, 1024)
+    runs, card = _head_major_run(cfg, base, device, prompt)
     want = {"flash_prefill": n_layers, "flash_prefill_paged": n_layers,
             "paged_decode": 4 * n_layers}
     if any(card[n] != k for n, k in want.items()):
         raise AssertionError(f"the long-context check took other routes on the card: {card}")
-    outs.append(compare("card_vs_cpu_long", runs, launches={n: card[n] for n in want}))
+    outs.append(_compare_sides("card_vs_cpu_long", runs, device, n_layers,
+                               launches={n: card[n] for n in want}))
+    return outs
+
+
+def card_vs_cpu_gemma2_phase(sz: Sizes, device) -> list[dict]:
+    """The same comparison for a 2-layer Gemma-2-9B at full width and the
+    full vocabulary (layer 0 local, layer 1 global; the f32 tied embedding
+    is 3.7 GB of host memory): on token-major pools a 256-token first chunk
+    (K11 on the card) and 4 decode steps (K1, gather + the soft cap); on
+    head-major pools a 512-token first chunk (K11), a 512-token continuation
+    chunk (gather + the soft cap: K6' rejects it) and 4 decode steps at span
+    4096 (K7 with the soft cap at head dim 256)."""
+    import torch
+
+    n_layers = 2
+    sz = GEMMA2
+    cfg = gemma2_config(sz, n_layers)
+    gen = torch.Generator().manual_seed(6)
+    base = random_gemma2_params(sz, n_layers, torch.device("cpu"), gen, torch.bfloat16)
+    prompt = [int(t) for t in np.random.default_rng(3).integers(1, sz.vocab, 256)]
+    runs, card = _token_major_run(cfg, base, device, prompt, 32)
+    want = {"splash_prefill": n_layers, "flash_prefill": 0}
+    if any(card[n] != k for n, k in want.items()) or not card["q4k_q8_gemv"]:
+        raise AssertionError(f"the Gemma-2 check took other routes on the card: {card}")
+    outs = [_compare_sides("card_vs_cpu_gemma2", runs, device, n_layers, vocab=sz.vocab,
+                           launches={n: card[n] for n in ("splash_prefill", "q4k_q8_gemv")})]
+    prompt = np.random.default_rng(4).integers(1, sz.vocab, 1024)
+    runs, card = _head_major_run(cfg, base, device, prompt)
+    want = {"splash_prefill": n_layers, "paged_decode": 4 * n_layers, "flash_prefill": 0,
+            "flash_prefill_paged": 0}
+    if any(card[n] != k for n, k in want.items()):
+        raise AssertionError(f"the Gemma-2 long-context check took other routes: {card}")
+    outs.append(_compare_sides("card_vs_cpu_gemma2_long", runs, device, n_layers,
+                               vocab=sz.vocab, launches={n: card[n] for n in want}))
     return outs
 
 
@@ -1127,7 +1403,8 @@ def main() -> int:
     seconds["kernels"] = time.perf_counter() - t0
     for name, fn in (("slice", slice_phase), ("long_context", long_context_phase),
                      ("quant_mix", quant_mix_phase), ("q2k", q2k_phase),
-                     ("card_vs_cpu", card_vs_cpu_phase)):
+                     ("gemma2", gemma2_phase), ("card_vs_cpu", card_vs_cpu_phase),
+                     ("card_vs_cpu_gemma2", card_vs_cpu_gemma2_phase)):
         t0 = time.perf_counter()
         results[name] = fn(sz, device)
         seconds[name] = time.perf_counter() - t0

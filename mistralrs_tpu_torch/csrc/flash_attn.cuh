@@ -1,13 +1,17 @@
 // Pieces shared by the attention kernels K6 (flash_prefill.cu), K6'
-// (flash_prefill_paged.cu) and K7 (paged_decode.cu): FlashAttention-2 on
-// bf16 mma.sync tensor cores, head dim 128.
+// (flash_prefill_paged.cu), K7 (paged_decode.cu) and K11
+// (splash_prefill.cu): FlashAttention-2 on bf16 mma.sync tensor cores, head
+// dim D = 128 or 256.
 //
-// Tiles of 64 rows x 128 bf16 (256-byte rows) are staged in shared memory
-// by 16-byte cp.async copies; the 16-byte chunk c of row r sits at
-// r * 256 + ((c ^ (r & 7)) << 4), so the ldmatrix reads below are
-// conflict-free. A warp owns 16 query rows: it keeps their Q fragments in
-// registers, computes a 16 x NK score tile with mma.m16n8k16 (f32
-// accumulators), runs the online softmax in base 2 in f32, and feeds the
+// Tiles of rows x D bf16 (2D-byte rows) are staged in shared memory by
+// 16-byte cp.async copies; the 16-byte chunk c of row r sits at r * 2D +
+// ((c ^ (r & 7)) << 4), so the ldmatrix reads below are conflict-free. A
+// warp owns 16 query rows: it takes their Q fragments from registers (D =
+// 128) or reads them again from the staged tile at each use (D = 256, where
+// the 128 f32 output accumulators a thread leave no room for them),
+// computes a 16 x NK score tile with mma.m16n8k16 (f32 accumulators), turns
+// the scores into base-2 logits (scale, and an optional tanh soft cap, in
+// f32), runs the online softmax in base 2 in f32, and feeds the
 // probabilities, rounded to bf16, straight from the accumulator registers as
 // the A operand of P.V (V read with ldmatrix.trans).
 //
@@ -20,42 +24,46 @@
 
 namespace fa {
 
-constexpr int D = 128;                    // head dim
-constexpr int kRowBytes = D * 2;          // one bf16 row
-constexpr int kTileRows = 64;             // rows of a staged tile
-constexpr int kTileBytes = kTileRows * kRowBytes;
-constexpr int kThreads = 128;             // 4 warps
+constexpr int kTileRows = 64;  // rows of a staged Q tile, and of a K/V tile at D = 128
+constexpr int kThreads = 128;  // 4 warps
+constexpr float kLog2e = 1.4426950408889634f;
 
-// byte offset of the 16-byte chunk c of row r in a staged tile
-__device__ __forceinline__ uint32_t swz_off(int r, int c) {
-  return r * kRowBytes + ((c ^ (r & 7)) << 4);
+template <int D>
+__host__ __device__ constexpr int row_bytes() {
+  return 2 * D;
 }
 
-// Stage ROWS rows of 128 bf16 into a tile: the first n from src + off(r)
-// (an element offset), the rest zero-filled (their source is not read).
-// Each thread copies one fixed 16-byte column of every 8th row.
-template <int ROWS, class RowOff>
+// byte offset of the 16-byte chunk c of row r in a staged tile
+template <int D>
+__device__ __forceinline__ uint32_t swz_off(int r, int c) {
+  return r * row_bytes<D>() + ((c ^ (r & 7)) << 4);
+}
+
+// Stage ROWS rows of D bf16 into a tile: the first n from src + off(r) (an
+// element offset), the rest zero-filled (their source is not read). Each
+// thread copies one fixed 16-byte column of every few rows.
+template <int D, int ROWS, class RowOff>
 __device__ __forceinline__ void stage_rows(uint8_t* tile, int n, const __nv_bfloat16* src,
                                            RowOff off) {
   for (int i = threadIdx.x; i < ROWS * (D / 8); i += kThreads) {
     const int r = i / (D / 8), c = i % (D / 8);
     const bool ok = r < n;
-    mrt::cp_async16(tile + swz_off(r, c), src + (ok ? off(r) + 8 * c : 0), ok);
+    mrt::cp_async16(tile + swz_off<D>(r, c), src + (ok ? off(r) + 8 * c : 0), ok);
   }
 }
 
 // The same for the K and V tiles of one key tile: row r of both sits at the
 // same offset of its pool, so it is looked up once.
-template <class RowOff>
+template <int D, int ROWS, class RowOff>
 __device__ __forceinline__ void stage_kv(uint8_t* ktile, uint8_t* vtile, int n,
                                          const __nv_bfloat16* k, const __nv_bfloat16* v,
                                          RowOff off) {
-  for (int i = threadIdx.x; i < kTileRows * (D / 8); i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * (D / 8); i += kThreads) {
     const int r = i / (D / 8), c = i % (D / 8);
     const bool ok = r < n;
     const size_t o = ok ? off(r) + 8 * c : 0;
-    mrt::cp_async16(ktile + swz_off(r, c), k + o, ok);
-    mrt::cp_async16(vtile + swz_off(r, c), v + o, ok);
+    mrt::cp_async16(ktile + swz_off<D>(r, c), k + o, ok);
+    mrt::cp_async16(vtile + swz_off<D>(r, c), v + o, ok);
   }
 }
 
@@ -86,19 +94,77 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The A fragments of the 16 query rows row0..row0+15 of a staged Q tile.
-// ldmatrix matrices 0..3: rows +0/+8 (lm & 1) x dims +0/+8 (lm >> 1).
-__device__ __forceinline__ void load_q(uint32_t qbase, int row0, uint32_t (&qf)[D / 16][4]) {
-  const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
+// The A fragments of a warp's 16 query rows row0..row0+15 of a staged Q
+// tile (ldmatrix matrices 0..3: rows +0/+8 (lm & 1) x dims +0/+8 (lm >> 1)),
+// held in registers ...
+template <int D>
+struct QInRegs {
+  uint32_t f[D / 16][4];
+  __device__ __forceinline__ void load(uint32_t qbase, int row0) {
+    const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(qbase + swz_off(row0 + 8 * (lm & 1) + lr, 2 * kk + (lm >> 1)), qf[kk]);
-}
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldsm_x4(qbase + swz_off<D>(row0 + 8 * (lm & 1) + lr, 2 * kk + (lm >> 1)), f[kk]);
+  }
+  __device__ __forceinline__ void frag(int kk, uint32_t (&a)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = f[kk][i];
+  }
+};
+
+// ... or read from the tile again at each use (the tile must stay in place)
+template <int D>
+struct QInSmem {
+  uint32_t base;  // this lane's row of the tile
+  int row, half;
+  __device__ __forceinline__ void load(uint32_t qbase, int row0) {
+    const int lane = threadIdx.x & 31;
+    row = row0 + 8 * ((lane >> 3) & 1) + (lane & 7);
+    half = lane >> 4;
+    base = qbase;
+  }
+  __device__ __forceinline__ void frag(int kk, uint32_t (&a)[4]) const {
+    ldsm_x4(base + swz_off<D>(row, 2 * kk + half), a);
+  }
+};
+
+// registers at D = 128, the staged tile at D = 256
+template <int D>
+struct QFragsOf {
+  using type = QInRegs<D>;
+};
+template <>
+struct QFragsOf<256> {
+  using type = QInSmem<256>;
+};
+template <int D>
+using QFrags = typename QFragsOf<D>::type;
+
+// A raw score s = q . k as a base-2 logit: s * scale * log2(e), or with a
+// soft cap, cap * log2(e) * tanh(s * scale / cap) (tanhf: the soft cap of
+// Gemma-2 is 50, so tanh's error is scaled 50-fold into the logit).
+template <bool CAP>
+struct Logit;
+template <>
+struct Logit<false> {
+  float mul;  // scale * log2(e)
+  __host__ __device__ static Logit make(float scale, float) { return {scale * kLog2e}; }
+  __device__ __forceinline__ float operator()(float s) const { return s * mul; }
+};
+template <>
+struct Logit<true> {
+  float mul, cap2;  // scale / cap, cap * log2(e)
+  __host__ __device__ static Logit make(float scale, float cap) {
+    return {scale / cap, cap * kLog2e};
+  }
+  __device__ __forceinline__ float operator()(float s) const { return cap2 * tanhf(s * mul); }
+};
 
 // Running state of one warp's 16 query rows: rows g and g + 8 of this lane.
+template <int D>
 struct RowState {
   float o[D / 8][4];  // output accumulators: n-tile j holds dims 8j..8j+7
-  float m[2];         // running max (base 2, scaled); -inf before any key
+  float m[2];         // running max (base-2 logits); -inf before any key
   float l[2];         // this lane's part of the running exp-sum
   __device__ __forceinline__ void init() {
 #pragma unroll
@@ -118,15 +184,15 @@ struct RowState {
   }
 };
 
-// One warp attends its 16 query rows (fragments qf) to NK keys: rows
-// krow0..krow0+NK-1 of the staged K and V tiles at kbase / vbase. When
-// `masked`, keep(row, key) (row 0..15 of the warp, key 0..NK-1 of this
-// call) says whether a score counts; a row that has seen no key yet keeps
-// m = -inf, l = 0 and o = 0, so fully masked rows stay finite.
-template <int NK, class Keep>
-__device__ __forceinline__ void attend(uint32_t kbase, uint32_t vbase, int krow0,
-                                       uint32_t (&qf)[D / 16][4], RowState& st,
-                                       float scale_log2, bool masked, Keep keep) {
+// One warp attends its 16 query rows (fragments q) to NK keys: rows
+// krow0..krow0+NK-1 of the staged K and V tiles at kbase / vbase. lg turns
+// each score into a logit. When `masked`, keep(row, key) (row 0..15 of the
+// warp, key 0..NK-1 of this call) says whether a score counts; a row that
+// has seen no key yet keeps m = -inf, l = 0 and o = 0, so fully masked rows
+// stay finite.
+template <int D, int NK, class QF, class Lg, class Keep>
+__device__ __forceinline__ void attend(uint32_t kbase, uint32_t vbase, int krow0, const QF& q,
+                                       RowState<D>& st, Lg lg, bool masked, Keep keep) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3, lr = lane & 7, lm = lane >> 3;
 
@@ -138,14 +204,16 @@ __device__ __forceinline__ void attend(uint32_t kbase, uint32_t vbase, int krow0
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t qa[4];
+    q.frag(kk, qa);
 #pragma unroll
     for (int jp = 0; jp < NK / 16; ++jp) {
       // matrices: keys +0/+8 (lm >> 1) x dims +0/+8 (lm & 1) = b0, b1 of
       // n-tiles 2jp and 2jp + 1
       uint32_t bf[4];
-      ldsm_x4(kbase + swz_off(krow0 + 16 * jp + 8 * (lm >> 1) + lr, 2 * kk + (lm & 1)), bf);
-      mma_bf16(s[2 * jp], qf[kk], bf[0], bf[1]);
-      mma_bf16(s[2 * jp + 1], qf[kk], bf[2], bf[3]);
+      ldsm_x4(kbase + swz_off<D>(krow0 + 16 * jp + 8 * (lm >> 1) + lr, 2 * kk + (lm & 1)), bf);
+      mma_bf16(s[2 * jp], qa, bf[0], bf[1]);
+      mma_bf16(s[2 * jp + 1], qa, bf[2], bf[3]);
     }
   }
 
@@ -155,7 +223,7 @@ __device__ __forceinline__ void attend(uint32_t kbase, uint32_t vbase, int krow0
   for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float x = s[j][e] * scale_log2;
+      float x = lg(s[j][e]);
       if (masked && !keep(g + 8 * (e >> 1), 8 * j + 2 * t + (e & 1))) x = -INFINITY;
       s[j][e] = x;
       mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -198,47 +266,59 @@ __device__ __forceinline__ void attend(uint32_t kbase, uint32_t vbase, int krow0
       // matrices (transposed): keys +0/+8 (lm & 1) x dims +0/+8 (lm >> 1)
       // = b0, b1 of n-tiles 2jp and 2jp + 1
       uint32_t bf[4];
-      ldsm_x4_trans(vbase + swz_off(krow0 + 16 * kk + 8 * (lm & 1) + lr, 2 * jp + (lm >> 1)), bf);
+      ldsm_x4_trans(vbase + swz_off<D>(krow0 + 16 * kk + 8 * (lm & 1) + lr, 2 * jp + (lm >> 1)),
+                    bf);
       mma_bf16(st.o[2 * jp], pa, bf[0], bf[1]);
       mma_bf16(st.o[2 * jp + 1], pa, bf[2], bf[3]);
     }
   }
 }
 
-// Shared memory of the prefill kernels K6 and K6': Q, then K and V of two
-// stages (stage s at tiles 1 + 2s and 2 + 2s).
-constexpr size_t kPrefillSmemBytes = 5 * kTileBytes;
+// Shared memory of the prefill kernels K6, K6' and K11: a 64-row Q tile,
+// then the K and V tiles (KT rows each) of two stages.
+template <int D, int KT>
+__host__ __device__ constexpr size_t prefill_smem_bytes() {
+  return (size_t)kTileRows * row_bytes<D>() + 4 * (size_t)KT * row_bytes<D>();
+}
 
-// The block loop of K6 and K6': the block's 64 query rows (staged by the
-// caller at tile 0 and not yet committed) against key tiles 0..ntiles-1,
-// staged by stage_kv(it, k_tile, v_tile) and double-buffered. Tiles from
-// `first_masked` on ask keep(row, key) (row 0..63 of the block, key index
-// from 0) for each score.
-template <class StageKV, class Keep>
-__device__ __forceinline__ void prefill_rows(uint8_t* smem, int ntiles, int first_masked,
-                                             float scale_log2, StageKV stage_kv, Keep keep,
-                                             RowState& st) {
+// The block loop of K6, K6' and K11: the block's 64 query rows (staged by
+// the caller at offset 0 and not yet committed) against key tiles
+// t_lo..t_hi-1 of KT rows, staged by stage_kv(it, k_tile, v_tile) and
+// double-buffered. on_q() runs once the Q tile has arrived, before its
+// fragments are read (it may rewrite the tile and then __syncthreads()).
+// Tile it asks keep(row, key) (row 0..63 of the block, key index from 0)
+// for each score when masked(it).
+template <int D, int KT, class QF, class Lg, class StageKV, class OnQ, class Masked, class Keep>
+__device__ __forceinline__ void prefill_rows(uint8_t* smem, int t_lo, int t_hi, Lg lg,
+                                             StageKV stage_kv, OnQ on_q, Masked masked, Keep keep,
+                                             RowState<D>& st) {
+  constexpr int kQBytes = kTileRows * row_bytes<D>();
+  constexpr int kKVBytes = KT * row_bytes<D>();
   const uint32_t sbase = mrt::smem_u32(smem);
   const int warp = threadIdx.x >> 5;
-  if (ntiles > 0) stage_kv(0, smem + kTileBytes, smem + 2 * kTileBytes);
+  if (t_lo < t_hi) stage_kv(t_lo, smem + kQBytes, smem + kQBytes + kKVBytes);
   mrt::cp_async_commit();
-  uint32_t qf[D / 16][4];
+  QF q;
   st.init();
-  for (int it = 0; it < ntiles; ++it) {
-    const int sg = it & 1;
-    if (it + 1 < ntiles) {
-      stage_kv(it + 1, smem + (3 - 2 * sg) * kTileBytes, smem + (4 - 2 * sg) * kTileBytes);
+  for (int it = t_lo; it < t_hi; ++it) {
+    const int sg = (it - t_lo) & 1;
+    if (it + 1 < t_hi) {
+      uint8_t* next = smem + kQBytes + 2 * (sg ^ 1) * kKVBytes;
+      stage_kv(it + 1, next, next + kKVBytes);
       mrt::cp_async_commit();
       mrt::cp_async_wait<1>();
     } else {
       mrt::cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) load_q(sbase, warp * 16, qf);
-    const int k0 = it * kTileRows;
-    attend<kTileRows>(sbase + (1 + 2 * sg) * kTileBytes, sbase + (2 + 2 * sg) * kTileBytes, 0,
-                      qf, st, scale_log2, it >= first_masked,
-                      [&](int r, int kj) { return keep(warp * 16 + r, k0 + kj); });
+    if (it == t_lo) {
+      on_q();
+      q.load(sbase, warp * 16);
+    }
+    const int k0 = it * KT;
+    const uint32_t kb = sbase + kQBytes + 2 * sg * kKVBytes;
+    attend<D, KT>(kb, kb + kKVBytes, 0, q, st, lg, masked(it),
+                  [&](int r, int kj) { return keep(warp * 16 + r, k0 + kj); });
     __syncthreads();  // this stage's K/V are free for the tile after next
   }
   mrt::cp_async_wait<0>();  // nothing left in flight when no tile ran
@@ -247,8 +327,8 @@ __device__ __forceinline__ void prefill_rows(uint8_t* smem, int ntiles, int firs
 // Normalize a warp's rows and write them as bf16: row r (0..15 of the
 // warp) goes to out_row(r), or nowhere when that is null. A row that saw no
 // key is written as zeros.
-template <class OutRow>
-__device__ __forceinline__ void store_rows(RowState& st, OutRow out_row) {
+template <int D, class OutRow>
+__device__ __forceinline__ void store_rows(RowState<D>& st, OutRow out_row) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   st.reduce_l();
 #pragma unroll

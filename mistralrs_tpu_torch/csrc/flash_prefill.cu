@@ -17,7 +17,7 @@
 // (q, k, v, out read and written once), so the kernel has to run on the
 // tensor cores.
 // Design (FlashAttention-2 on mma.sync, csrc/flash_attn.cuh, shared with
-// K6' and K7): a block of 4 warps owns 64 query rows of one head, 16 per
+// K6', K7 and K11): a block of 4 warps owns 64 query rows of one head, 16 per
 // warp, and walks the 64-key tiles up to the diagonal. Q, then K and V tiles
 // (double-buffered) are staged in shared memory by 16-byte cp.async copies,
 // XOR-swizzled so ldmatrix reads are conflict-free; each warp keeps its Q
@@ -29,15 +29,16 @@
 
 namespace {
 
-using fa::D;
+constexpr int D = 128;
 // query rows per block, 16 per warp; equal to the key tile, so the diagonal
 // tile is the last
 constexpr int BQ = 64;
+constexpr size_t kSmemBytes = fa::prefill_smem_bytes<D, fa::kTileRows>();
 
 __global__ void __launch_bounds__(fa::kThreads)
     flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                         int T, int Hq, int Hkv, float scale_log2) {
+                         int T, int Hq, int Hkv, fa::Logit<false> lg) {
   extern __shared__ __align__(128) uint8_t smem[];
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest rows first
   const int h = blockIdx.y;
@@ -48,14 +49,16 @@ __global__ void __launch_bounds__(fa::kThreads)
 
   // element offset of row t, head hh of a [B*T, H, D] tensor
   auto row = [&](int H, int hh, int t) -> size_t { return ((size_t)(b * T + t) * H + hh) * D; };
-  fa::stage_rows<fa::kTileRows>(smem, T - q0, q, [&](int r) { return row(Hq, h, q0 + r); });
-  fa::RowState st;
-  fa::prefill_rows(
-      smem, ntiles, ntiles - 1, scale_log2,
+  fa::stage_rows<D, fa::kTileRows>(smem, T - q0, q, [&](int r) { return row(Hq, h, q0 + r); });
+  fa::RowState<D> st;
+  fa::prefill_rows<D, fa::kTileRows, fa::QFrags<D>>(
+      smem, 0, ntiles, lg,
       [&](int it, uint8_t* kt, uint8_t* vt) {
         const int t0 = it * fa::kTileRows;
-        fa::stage_kv(kt, vt, T - t0, k, v, [&](int r) { return row(Hkv, kvh, t0 + r); });
+        fa::stage_kv<D, fa::kTileRows>(kt, vt, T - t0, k, v,
+                                       [&](int r) { return row(Hkv, kvh, t0 + r); });
       },
+      [] {}, [&](int it) { return it == ntiles - 1; },
       [&](int qr, int kj) { return kj <= q0 + qr && kj < T; }, st);
   fa::store_rows(st, [&](int r) -> __nv_bfloat16* {
     const int qi = q0 + warp * 16 + r;
@@ -72,13 +75,12 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v, void* 
                              int Hq, int Hkv, float scale, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)fa::kPrefillSmemBytes);
+                                         (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BQ - 1) / BQ, Hq, B);
-  flash_prefill_kernel<<<grid, fa::kThreads, fa::kPrefillSmemBytes,
-                         static_cast<cudaStream_t>(stream)>>>(
+  flash_prefill_kernel<<<grid, fa::kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), T, Hq, Hkv,
-      scale * 1.4426950408889634f);
+      fa::Logit<false>::make(scale, 0.f));
   return (int)cudaGetLastError();
 }

@@ -36,8 +36,9 @@
 
 namespace {
 
-using fa::D;
+constexpr int D = 128;
 constexpr int BQ = 64;  // query rows per block, 16 per warp
+constexpr size_t kSmemBytes = fa::prefill_smem_bytes<D, fa::kTileRows>();
 
 __global__ void __launch_bounds__(fa::kThreads)
     flash_prefill_paged_kernel(const __nv_bfloat16* __restrict__ q,
@@ -47,7 +48,7 @@ __global__ void __launch_bounds__(fa::kThreads)
                                const long long* __restrict__ kv_lens,
                                __nv_bfloat16* __restrict__ out, int T, int Hq, int Hkv, int MP,
                                int page, int page_shift, long long s_page, long long s_slot,
-                               long long s_head, float scale_log2) {
+                               long long s_head, fa::Logit<false> lg) {
   extern __shared__ __align__(128) uint8_t smem[];
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest rows first
   const int h = blockIdx.y;
@@ -74,16 +75,18 @@ __global__ void __launch_bounds__(fa::kThreads)
            head_off;
   };
   const int len = min(kv_len, span);
-  fa::stage_rows<fa::kTileRows>(smem, T - q0, q, [&](int r) -> size_t {
+  fa::stage_rows<D, fa::kTileRows>(smem, T - q0, q, [&](int r) -> size_t {
     return ((size_t)(b * T + q0 + r) * Hq + h) * D;
   });
-  fa::RowState st;
-  fa::prefill_rows(
-      smem, ntiles, first_masked, scale_log2,
+  fa::RowState<D> st;
+  fa::prefill_rows<D, fa::kTileRows, fa::QFrags<D>>(
+      smem, 0, ntiles, lg,
       [&](int it, uint8_t* kt, uint8_t* vt) {
         const int p0 = it * fa::kTileRows;
-        fa::stage_kv(kt, vt, len - p0, kpool, vpool, [&](int r) { return slot(p0 + r); });
+        fa::stage_kv<D, fa::kTileRows>(kt, vt, len - p0, kpool, vpool,
+                                       [&](int r) { return slot(p0 + r); });
       },
+      [] {}, [&](int it) { return it >= first_masked; },
       [&](int qr, int p) { return p <= qoff + q0 + qr && p < kv_len; }, st);
   fa::store_rows(st, [&](int r) -> __nv_bfloat16* {
     const int qi = q0 + warp * 16 + r;
@@ -105,14 +108,14 @@ extern "C" int flash_prefill_paged(const void* q, const void* kpool, const void*
                                    float scale, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_prefill_paged_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)fa::kPrefillSmemBytes);
+                                         (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BQ - 1) / BQ, Hq, B);
-  flash_prefill_paged_kernel<<<grid, fa::kThreads, fa::kPrefillSmemBytes,
+  flash_prefill_paged_kernel<<<grid, fa::kThreads, kSmemBytes,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kpool),
       static_cast<const __nv_bfloat16*>(vpool), static_cast<const long long*>(tables),
       static_cast<const long long*>(kv_lens), static_cast<__nv_bfloat16*>(out), T, Hq, Hkv, MP,
-      page, page_shift, s_page, s_slot, s_head, scale * 1.4426950408889634f);
+      page, page_shift, s_page, s_slot, s_head, fa::Logit<false>::make(scale, 0.f));
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""Decoder configuration + the llama/mistral HF config translators.
+"""Decoder configuration + the llama/mistral/gemma2 HF config translators.
 
 Counterpart of mistralrs_tpu/models/config.py, holding the fields the
 ported serving path reads. Other architectures' translators are later work.
@@ -22,21 +22,31 @@ class ModelConfig:
     head_dim: int
     max_position_embeddings: int = 4096
     norm_eps: float = 1e-5
+    norm_offset: float = 0.0  # 1.0 for gemma-family zero-centered weights
+    block_style: str = "prenorm"  # prenorm | sandwich (gemma2)
     act: str = "silu"
     rope_theta: float = 10000.0
     rope_scaling: dict[str, Any] | None = None
     # sliding-window attention: "none" | "all" (mistral-style, every layer)
+    # | "alternate" (gemma2: even layers local)
     sliding_window: int | None = None
     sliding_window_pattern: str = "none"
-    query_scale: float | None = None  # overrides 1/sqrt(head_dim)
+    attn_logit_softcap: float | None = None
+    final_logit_softcap: float | None = None
+    query_scale: float | None = None  # overrides 1/sqrt(head_dim) (gemma2 query_pre_attn_scalar)
     tie_word_embeddings: bool = False
+    embed_scale: float = 1.0  # gemma: sqrt(hidden_size)
 
     def __post_init__(self):
         if self.num_heads % self.num_kv_heads:
             raise ValueError(f"{self.num_heads} heads over {self.num_kv_heads} kv heads")
 
     def layer_uses_sliding_window(self, layer_idx: int) -> bool:
-        return self.sliding_window is not None and self.sliding_window_pattern == "all"
+        if self.sliding_window is None or self.sliding_window_pattern == "none":
+            return False
+        if self.sliding_window_pattern == "all":
+            return True
+        return layer_idx % 2 == 0  # gemma2 alternate: even layers local
 
 
 def _base(hf: dict[str, Any], arch: str, **over: Any) -> ModelConfig:
@@ -56,7 +66,7 @@ def _base(hf: dict[str, Any], arch: str, **over: Any) -> ModelConfig:
         rope_theta=hf.get("rope_theta", 10000.0),
         rope_scaling=hf.get("rope_scaling"),
         tie_word_embeddings=hf.get("tie_word_embeddings", False),
-        act=hf.get("hidden_act") or "silu",
+        act=hf.get("hidden_act") or hf.get("hidden_activation") or "silu",
     )
     fields.update(over)
     return ModelConfig(**fields)
@@ -74,11 +84,31 @@ def _mistral(hf):
     )
 
 
+def _gemma2(hf):
+    scalar = hf.get("query_pre_attn_scalar")
+    return _base(
+        hf, "gemma2",
+        norm_offset=1.0,
+        norm_eps=hf.get("rms_norm_eps", 1e-6),
+        embed_scale=hf["hidden_size"] ** 0.5,
+        tie_word_embeddings=True,
+        block_style="sandwich",
+        act=hf.get("hidden_activation") or "gelu_pytorch_tanh",
+        sliding_window=hf.get("sliding_window", 4096),
+        sliding_window_pattern="alternate",
+        attn_logit_softcap=hf.get("attn_logit_softcapping", 50.0),
+        final_logit_softcap=hf.get("final_logit_softcapping", 30.0),
+        query_scale=(scalar**-0.5) if scalar else None,
+    )
+
+
 _TRANSLATORS = {
     "LlamaForCausalLM": _llama,
     "MistralForCausalLM": _mistral,
+    "Gemma2ForCausalLM": _gemma2,
     "llama": _llama,
     "mistral": _mistral,
+    "gemma2": _gemma2,
 }
 
 

@@ -1,22 +1,31 @@
-"""The decoder: prenorm llama/mistral blocks over the paged KV cache.
+"""The decoder: llama/mistral (prenorm) and gemma2 (sandwich) blocks over
+the paged KV cache.
 
 Counterpart of mistralrs_tpu/models/decoder.py for the serving path of a
-dense llama/mistral model: `_norm`, `_mlp` (fused gate|up or separate),
-`_attention` (fused q|k + v, fused qkv, or separate projections), `_block`
-in prenorm form, `decoder_forward` as a plain loop over layers, and
-`compute_logits`.
+dense llama/mistral/gemma2 model: `_norm` (with gemma's (1 + w) offset),
+`_mlp` (fused gate|up or separate), `_attention` (fused q|k + v, fused qkv,
+or separate projections; logit soft cap), `_block` in prenorm or sandwich
+form, `decoder_forward` as a plain loop over layers (embedding scale,
+per-layer sliding windows), and `compute_logits` (final logit soft cap).
 
 Attention on the paged cache, routed once per step by the JAX package's
-shape rules (without its backend checks and environment gates):
-- a first prompt chunk whose length is a multiple of 128 (and whose sliding
-  window, if any, does not clip it) runs the flash prefill kernel K6 on the
-  chunk's own K/V (ops/flash_attention.py);
-- decode (T = 1) on a head-major pool at a span of 4096 or more runs the
-  block-table decode kernel K7 (ops/paged_attention.py);
-- a continuation chunk of 128-row blocks at a span of at most 4096 runs the
-  paged continuation kernel K6' over either pool layout;
+shape rules (without its backend checks and environment gates), in its
+order:
+- a first prompt chunk whose length is a multiple of 128, with no logit soft
+  cap and no sliding window that clips it, runs the flash prefill kernel K6
+  on the chunk's own K/V (ops/flash_attention.py);
+- such a first chunk that K6 rejects for a soft cap or a clipping window
+  (and a windowed pattern) runs the splash kernel K11 (ops/splash.py), with
+  the window on the layers that use one;
+- decode (T = 1) on a head-major pool at a span of 4096 or more, no longer
+  than the sliding window if there is one, runs the block-table decode
+  kernel K7 (ops/paged_attention.py), soft cap included;
+- a continuation chunk of 128-row blocks at a span of at most 4096, without
+  a soft cap, runs the paged continuation kernel K6' over either pool
+  layout;
 - everything else gathers its pages and runs the f32 einsum `sdpa`, or
-  `sdpa_head_major` on a head-major pool (ops/attention.py).
+  `sdpa_head_major` on a head-major pool (ops/attention.py), soft cap
+  included.
 The new K/V are written into the pool in place before any of them.
 """
 
@@ -40,13 +49,15 @@ from mistralrs_tpu_torch.ops.paged_attention import (
     write_paged_kv,
 )
 from mistralrs_tpu_torch.ops.rope import RopeTable, apply_rope
+from mistralrs_tpu_torch.ops.splash import splash_prefill
 from mistralrs_tpu_torch.quant.qlinear import Linear, linear
 
 
 @dataclasses.dataclass
 class DecoderParams:
     """Model parameters: one dict per layer ({"attn": {...Linear},
-    "mlp": {...Linear}, "input_norm": {"w"}, "post_attn_norm": {"w"}})."""
+    "mlp": {...Linear}, "input_norm": {"w"}, "post_attn_norm": {"w"}}, and
+    "pre_mlp_norm", "post_mlp_norm" in the sandwich form)."""
 
     embed: torch.Tensor  # [V, E]
     layers: list[dict[str, Any]]
@@ -60,20 +71,38 @@ class DecoderParams:
 
 def _use_flash_prefill(cfg: ModelConfig, T: int, meta: PagedAttnMeta) -> bool:
     """First-chunk flash eligibility, the JAX package's shape rule: a first
-    chunk of 128-row blocks whose sliding window does not clip it."""
+    chunk of 128-row blocks, no logit soft cap, and no sliding window that
+    clips it."""
     if T < 128 or T % 128 or not meta.first_chunk:
         return False
+    if cfg.attn_logit_softcap is not None:
+        return False
     return not (cfg.sliding_window is not None and cfg.sliding_window < T)
+
+
+def _use_splash_prefill(cfg: ModelConfig, T: int, meta: PagedAttnMeta) -> bool:
+    """Splash (K11) eligibility, the JAX package's shape rule without its
+    environment gate: a first chunk of 128-row blocks that K6 rejects for a
+    logit soft cap or for a sliding window (of a windowed pattern) that
+    clips inside the chunk."""
+    if T < 128 or T % 128 or not meta.first_chunk:
+        return False
+    window_clips = (cfg.sliding_window is not None and cfg.sliding_window_pattern != "none"
+                    and cfg.sliding_window < T)
+    # the simple case (no softcap, window >= chunk) belongs to plain flash
+    return cfg.attn_logit_softcap is not None or window_clips
 
 
 def _use_flash_continuation(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span: int) -> bool:
     """Continuation-chunk kernel (K6') eligibility, the JAX package's shape
     rule: a later chunk of 128-row blocks whose span (block-table width x
-    page) is a multiple of 128 and at most 4096, and no sliding window that
-    clips the span."""
+    page) is a multiple of 128 and at most 4096, no logit soft cap, and no
+    sliding window that clips the span."""
     if T < 128 or T % 128 or meta.first_chunk:
         return False
     if span % 128 or span > 4096:
+        return False
+    if cfg.attn_logit_softcap is not None:
         return False
     return not (cfg.sliding_window is not None and cfg.sliding_window < span)
 
@@ -92,9 +121,11 @@ def _use_paged_decode_kernel(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span
 
 def _attention_route(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span: int) -> str:
     """The step's attention route, the same for every layer: "flash" (K6),
-    "decode" (K7), "continuation" (K6') or "gather"."""
+    "splash" (K11), "decode" (K7), "continuation" (K6') or "gather"."""
     if _use_flash_prefill(cfg, T, meta):
         return "flash"
+    if _use_splash_prefill(cfg, T, meta):
+        return "splash"
     if _use_paged_decode_kernel(cfg, T, meta, span):
         return "decode"
     if _use_flash_continuation(cfg, T, meta, span):
@@ -103,7 +134,7 @@ def _attention_route(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span: int) -
 
 
 def _norm(cfg: ModelConfig, p: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    return L.rms_norm(x, p["w"], cfg.norm_eps)
+    return L.rms_norm(x, p["w"], cfg.norm_eps, offset=cfg.norm_offset)
 
 
 def _mlp(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
@@ -127,7 +158,11 @@ def _attention(
     meta: PagedAttnMeta,
     route: str,
     bias: torch.Tensor | None,
+    window: int | None,
 ) -> torch.Tensor:
+    """One layer's attention; `window` is the layer's sliding window (None
+    on a global layer), read by the splash route (the gather route's `bias`
+    already holds it)."""
     B, T, _ = x.shape
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "qkv" in p:  # fused projection (quant/fuse.py)
@@ -147,6 +182,7 @@ def _attention(
     q = apply_rope(q, cos, sin, rot_dim)
     k = apply_rope(k, cos, sin, rot_dim)
     scale = cfg.query_scale if cfg.query_scale is not None else D**-0.5
+    cap = cfg.attn_logit_softcap
     hm = meta.head_major
     write_paged_kv(cache_k, cache_v, k, v, meta.slot_mapping, head_major=hm)
     if route == "flash":
@@ -155,22 +191,33 @@ def _attention(
         out = flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(), scale)
         # zero padding rows (they attended garbage) via the active mask
         out = out * meta.active[:, None, None, None].to(out.dtype)
+    elif route == "splash":
+        out = splash_prefill(q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
+                             sliding_window=window, logits_softcap=cap)
+        out = out * meta.active[:, None, None, None].to(out.dtype)
     elif route == "decode":
         # streams only the pages each row's table names
-        out = paged_decode_attention(q.contiguous(), cache_k, cache_v, meta, scale=scale)
+        out = paged_decode_attention(q.contiguous(), cache_k, cache_v, meta, scale=scale,
+                                     logits_softcap=cap)
     elif route == "continuation":
         out = flash_prefill_continuation(q.contiguous(), cache_k, cache_v, meta, scale=scale)
         out = out * meta.active[:, None, None, None].to(out.dtype)
     else:
         ctx_k, ctx_v = gather_paged_kv(cache_k, cache_v, meta.block_tables, head_major=hm)
         attn = sdpa_head_major if hm else sdpa
-        out = attn(q, ctx_k.to(q.dtype), ctx_v.to(q.dtype), scale=scale, mask=bias)
+        out = attn(q, ctx_k.to(q.dtype), ctx_v.to(q.dtype), scale=scale, mask=bias,
+                   logits_softcap=cap)
     return linear(p["o"], out.reshape(B, T, Hq * D))
 
 
-def _block(cfg, p, h, cos, sin, rot_dim, ck, cv, meta, route, bias):
+def _block(cfg, p, h, cos, sin, rot_dim, ck, cv, meta, route, bias, window):
     x = _norm(cfg, p["input_norm"], h)
-    h = h + _attention(cfg, p["attn"], x, cos, sin, rot_dim, ck, cv, meta, route, bias)
+    attn = _attention(cfg, p["attn"], x, cos, sin, rot_dim, ck, cv, meta, route, bias, window)
+    if cfg.block_style == "sandwich":  # gemma2
+        h = h + _norm(cfg, p["post_attn_norm"], attn)
+        x = _norm(cfg, p["pre_mlp_norm"], h)
+        return h + _norm(cfg, p["post_mlp_norm"], _mlp(cfg, p["mlp"], x))
+    h = h + attn
     return h + _mlp(cfg, p["mlp"], _norm(cfg, p["post_attn_norm"], h))
 
 
@@ -186,6 +233,9 @@ def decoder_forward(
     pools are updated in place (the returned cache is the same object)."""
     B, T = input_ids.shape
     h = params.embed[input_ids.to(torch.int64)]
+    if cfg.embed_scale != 1.0:
+        # the scale rounded to the embedding's dtype first, as the JAX package does
+        h = h * torch.tensor(cfg.embed_scale, dtype=h.dtype)
     cos, sin = rope.gather(meta.positions.to(torch.int64))  # [B, T, rot/2]
     S = meta.block_tables.shape[1] * cache.page_size
     route = _attention_route(cfg, T, meta, S)
@@ -201,13 +251,15 @@ def decoder_forward(
             bias_win = causal_mask_bias(T, S, q_offsets=q_offsets,
                                         sliding_window=cfg.sliding_window) + pad[:, None, None, :]
     for i, lp in enumerate(params.layers):
-        bias = bias_win if cfg.layer_uses_sliding_window(i) else bias_full
-        h = _block(cfg, lp, h, cos, sin, rope.rot_dim, cache.k[i], cache.v[i], meta, route, bias)
+        local = cfg.layer_uses_sliding_window(i)
+        h = _block(cfg, lp, h, cos, sin, rope.rot_dim, cache.k[i], cache.v[i], meta, route,
+                   bias_win if local else bias_full, cfg.sliding_window if local else None)
     return _norm(cfg, params.final_norm, h), cache
 
 
 def compute_logits(params: DecoderParams, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """h [..., E] -> f32 logits [..., V]."""
+    """h [..., E] -> f32 logits [..., V], soft-capped in f32 when the model
+    has a final logit soft cap (gemma2)."""
     if params.lm_head is not None:
         logits = linear(params.lm_head, h)
         if logits.shape[-1] != cfg.vocab_size:
@@ -217,4 +269,7 @@ def compute_logits(params: DecoderParams, cfg: ModelConfig, h: torch.Tensor) -> 
             logits = logits[..., : cfg.vocab_size]
     else:
         logits = torch.matmul(h, params.embed.to(h.dtype).T)
-    return logits.to(torch.float32)
+    logits = logits.to(torch.float32)
+    if cfg.final_logit_softcap is not None:
+        logits = L.softcap(logits, cfg.final_logit_softcap)
+    return logits

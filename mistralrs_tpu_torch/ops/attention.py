@@ -49,12 +49,14 @@ def sdpa(
     *,
     scale: float,
     mask: torch.Tensor | None = None,
+    logits_softcap: float | None = None,
 ) -> torch.Tensor:
     """GQA attention. q [B,T,Hq,D], k/v [B,S,Hkv,D] -> [B,T,Hq,D].
 
-    mask: additive bias broadcastable to [B, 1|Hq, T, S]. Scores and softmax
-    in f32; the probabilities are cast to v's dtype for the second product,
-    as the JAX function does."""
+    mask: additive bias broadcastable to [B, 1|Hq, T, S]. logits_softcap:
+    Gemma-2's cap * tanh(s / cap) on the scaled scores, before the mask.
+    Scores and softmax in f32; the probabilities are cast to v's dtype for
+    the second product, as the JAX function does."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
     if Hq % Hkv:
@@ -63,6 +65,8 @@ def sdpa(
     qg = q.reshape(B, T, Hkv, G, D)
     scores = torch.einsum("bthgd,bshd->bhgts", qg.to(torch.float32), k.to(torch.float32))
     scores = scores * scale
+    if logits_softcap is not None:
+        scores = logits_softcap * torch.tanh(scores / logits_softcap)
     if mask is not None:
         m = mask.to(torch.float32)
         if m.shape[1] == 1:
@@ -82,14 +86,16 @@ def sdpa_head_major(
     *,
     scale: float,
     mask: torch.Tensor | None = None,
+    logits_softcap: float | None = None,
 ) -> torch.Tensor:
     """GQA attention over a head-major gathered context: q [B,T,Hq,D],
     k/v [Hkv,B,S,D] -> [B,T,Hq,D] in q's dtype.
 
     The paged gather of a head-major pool yields [Hkv, B, S, D]; the einsums
     read it in that order, with no transposed copy. mask: additive bias
-    [B, 1, T, S] (or [1, T, S]). Scores, softmax and the second product in
-    f32 (v rounded to q's dtype first), as the JAX function does."""
+    [B, 1, T, S] (or [1, T, S]); logits_softcap as in `sdpa`. Scores,
+    softmax and the second product in f32 (v rounded to q's dtype first),
+    as the JAX function does."""
     B, T, Hq, D = q.shape
     Hkv = k.shape[0]
     if Hq % Hkv:
@@ -98,6 +104,8 @@ def sdpa_head_major(
     qg = q.reshape(B, T, Hkv, G, D)
     scores = torch.einsum("bthgd,hbsd->bhgts", qg.to(torch.float32), k.to(torch.float32))
     scores = scores * scale
+    if logits_softcap is not None:
+        scores = logits_softcap * torch.tanh(scores / logits_softcap)
     if mask is not None:
         m = mask if mask.dim() == 4 else mask[None]
         scores = scores + m[:, :, None].to(torch.float32)

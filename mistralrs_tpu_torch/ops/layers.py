@@ -1,6 +1,7 @@
 """Normalization and activation ops.
 
-Counterpart of mistralrs_tpu/ops/layers.py (`rms_norm`, `silu`, `swiglu`).
+Counterpart of mistralrs_tpu/ops/layers.py (`rms_norm`, `silu`,
+`gelu_tanh`, `swiglu`, `softcap`).
 Norms accumulate in f32 whatever the input dtype.
 """
 
@@ -24,9 +25,20 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
-ACTIVATIONS = {"silu": silu, "swish": silu}
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of gelu (Gemma's gelu_pytorch_tanh)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"silu": silu, "swish": silu, "gelu_new": gelu_tanh, "gelu_tanh": gelu_tanh,
+               "gelu_pytorch_tanh": gelu_tanh}
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """SwiGLU combine: silu(gate) * up (llama/mistral MLPs)."""
     return silu(gate) * up
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: cap * tanh(x / cap)."""
+    return cap * torch.tanh(x / cap)

@@ -156,11 +156,13 @@ def paged_attention_reference(
     *,
     scale: float,
     sliding_window: int | None = None,
+    logits_softcap: float | None = None,
 ) -> torch.Tensor:
     """Attention of q against the paged context (gather + dense SDPA), for
     decode (T=1) and continuation chunks; the chunk's own K/V must already
     be written with write_paged_kv. Query i of a row sits at position
-    kv_len - T + i and sees positions up to its own that are < kv_len."""
+    kv_len - T + i and sees positions up to its own that are < kv_len.
+    logits_softcap caps the scaled logits before the mask, as sdpa does."""
     B, T = q.shape[0], q.shape[1]
     hm = meta.head_major
     k, v = gather_paged_kv(cache_k, cache_v, meta.block_tables, head_major=hm)
@@ -174,7 +176,8 @@ def paged_attention_reference(
         keep &= kv_ids[:, None, :] > q_ids[:, :, None] - sliding_window
     bias = torch.where(keep, 0.0, NEG_INF).to(torch.float32)[:, None]  # [B, 1, T, S]
     attn = sdpa_head_major if hm else sdpa
-    return attn(q, k.to(q.dtype), v.to(q.dtype), scale=scale, mask=bias)
+    return attn(q, k.to(q.dtype), v.to(q.dtype), scale=scale, mask=bias,
+                logits_softcap=logits_softcap)
 
 
 def copy_pages(cache: PagedKVCache, src, dst) -> PagedKVCache:
@@ -195,10 +198,11 @@ def copy_pages(cache: PagedKVCache, src, dst) -> PagedKVCache:
 # ------------------------------------------------------------- kernels
 
 
-def _paged_plain(q, cache_k, cache_v, meta, scale):
+def _paged_plain(q, cache_k, cache_v, meta, scale, logits_softcap=None):
     """Masked f32 attention over the gathered context; rows with kv_len 0
     give zeros, as the kernels do."""
-    out = paged_attention_reference(q.to(torch.float32), cache_k, cache_v, meta, scale=scale)
+    out = paged_attention_reference(q.to(torch.float32), cache_k, cache_v, meta, scale=scale,
+                                    logits_softcap=logits_softcap)
     live = (meta.kv_lens > 0).to(out.dtype)[:, None, None, None]
     return (out * live).to(q.dtype)
 
@@ -210,9 +214,10 @@ def flash_prefill_continuation_plain(q, cache_k, cache_v, meta, *, scale: float)
     return _paged_plain(q, cache_k, cache_v, meta, scale)
 
 
-def paged_decode_attention_plain(q, cache_k, cache_v, meta, *, scale: float):
+def paged_decode_attention_plain(q, cache_k, cache_v, meta, *, scale: float,
+                                 logits_softcap: float | None = None):
     """Plain PyTorch version of K7 (the same function at T = 1), any device."""
-    return _paged_plain(q, cache_k, cache_v, meta, scale)
+    return _paged_plain(q, cache_k, cache_v, meta, scale, logits_softcap)
 
 
 def _pool_geometry(cache_k: torch.Tensor, head_major: bool):
@@ -229,9 +234,11 @@ def _on_cpu(*ts) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-def _check_card(name: str, q, cache_k, cache_v, meta) -> tuple[torch.Tensor, torch.Tensor]:
-    """Raise on what the kernels do not take; returns the block tables and
-    kv_lens as contiguous int64 on q's device."""
+def _check_card(name: str, q, cache_k, cache_v, meta,
+                head_dims=(128,)) -> tuple[torch.Tensor, torch.Tensor]:
+    """Raise on what the kernels do not take (a head dim outside
+    `head_dims`, among others); returns the block tables and kv_lens as
+    contiguous int64 on q's device."""
     for nm, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v),
                   ("block_tables", meta.block_tables), ("kv_lens", meta.kv_lens)):
         if t.device.type != "cuda" or t.device != q.device:
@@ -241,8 +248,9 @@ def _check_card(name: str, q, cache_k, cache_v, meta) -> tuple[torch.Tensor, tor
             raise ValueError(f"{name}: {nm} is {t.dtype}; the kernel takes bfloat16")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {nm} must be contiguous and 16-byte aligned")
-    if q.shape[-1] != 128:
-        raise ValueError(f"{name}: head dim {q.shape[-1]}; the kernel takes 128")
+    if q.shape[-1] not in head_dims:
+        raise ValueError(f"{name}: head dim {q.shape[-1]}; the kernel takes "
+                         + " or ".join(map(str, head_dims)))
     page = _pool_geometry(cache_k, meta.head_major)[2]
     if page & (page - 1):
         raise ValueError(f"{name}: page size {page}; the kernel takes a power of two")
@@ -294,38 +302,47 @@ def flash_prefill_continuation(q: torch.Tensor, cache_k: torch.Tensor, cache_v: 
     return out
 
 
-# keys of one staged tile of the decode kernel, and the CTAs it aims to keep
-# resident on each SM (68 KB of shared memory each)
+# keys of one staged tile of the decode kernel, and the CTAs of each head
+# dim that fit on an SM at once (68 KB of shared memory each at D = 128,
+# 136 KB at D = 256)
 _DECODE_TILE = 64
-_DECODE_CTAS_PER_SM = 2
+_DECODE_CTAS_PER_SM = {128: 2, 256: 1}
 _sm_counts: dict[int, int] = {}
 
 
-def _decode_splits(B: int, H: int, span: int, device) -> tuple[int, int]:
+def _decode_splits(B: int, H: int, span: int, D: int, device) -> tuple[int, int]:
     """(splits, 64-key tiles per split) of K7's grid: each (row, kv head)
     pair's span is cut into splits so that B * H * splits fills the card's
-    SMs about twice; the splits' partials are combined in a second pass."""
+    SMs with as many CTAs as fit on each; the splits' partials are combined
+    in a second pass."""
     idx = torch.device(device).index or 0
     if idx not in _sm_counts:
         _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     tiles = max(1, -(-span // _DECODE_TILE))
-    want = max(1, _DECODE_CTAS_PER_SM * _sm_counts[idx] // max(B * H, 1))
+    want = max(1, _DECODE_CTAS_PER_SM[D] * _sm_counts[idx] // max(B * H, 1))
     per = -(-tiles // min(want, tiles))
     return -(-tiles // per), per
 
 
 def paged_decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                           meta: PagedAttnMeta, *, scale: float) -> torch.Tensor:
+                           meta: PagedAttnMeta, *, scale: float,
+                           logits_softcap: float | None = None) -> torch.Tensor:
     """K7: one query token per row q [B, 1, Hq, D] against the first
-    kv_lens[b] positions of its block table -> [B, 1, Hq, D] in q's dtype.
-    Streams only the named pages; a row with kv_len 0 gives zeros."""
+    kv_lens[b] positions of its block table -> [B, 1, Hq, D] in q's dtype,
+    the scaled logits soft-capped as cap * tanh(s / cap) when
+    logits_softcap is given. Streams only the named pages; a row with
+    kv_len 0 gives zeros. D = 128 or 256 on the card."""
     global paged_decode_launches
     _check_shapes("paged_decode_attention", q, cache_k, cache_v, meta)
     if q.shape[1] != 1:
         raise ValueError(f"paged_decode_attention: {q.shape[1]} query tokens per row, expected 1")
+    if logits_softcap is not None and not logits_softcap > 0:
+        raise ValueError(f"paged_decode_attention: soft cap {logits_softcap}; expected > 0")
     if _on_cpu(q, cache_k, cache_v, meta.block_tables, meta.kv_lens):
-        return paged_decode_attention_plain(q, cache_k, cache_v, meta, scale=scale)
-    tables, kv_lens = _check_card("paged_decode_attention", q, cache_k, cache_v, meta)
+        return paged_decode_attention_plain(q, cache_k, cache_v, meta, scale=scale,
+                                            logits_softcap=logits_softcap)
+    tables, kv_lens = _check_card("paged_decode_attention", q, cache_k, cache_v, meta,
+                                  head_dims=(128, 256))
     B, _, Hq, D = q.shape
     H, _, page, s_page, s_slot, s_head = _pool_geometry(cache_k, meta.head_major)
     if Hq // H > 16:
@@ -335,16 +352,17 @@ def paged_decode_attention(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torc
     if B == 0:
         return out
     MP = tables.shape[1]
-    splits, per = _decode_splits(B, H, MP * page, q.device)
+    splits, per = _decode_splits(B, H, MP * page, D, q.device)
     parts = splits * 4  # one partial per warp
     part_o = torch.empty(B, Hq, parts, D, dtype=torch.float32, device=q.device)
     part_ml = torch.empty(B, Hq, parts, 2, dtype=torch.float32, device=q.device)
     fn = kernels.function("paged_decode", "paged_decode",
-                          [_P] * 8 + [_I] * 7 + [_L] * 3 + [_I, ctypes.c_float, _P])
+                          [_P] * 8 + [_I] * 7 + [_L] * 3 + [_I, _I, ctypes.c_float,
+                                                              ctypes.c_float, _P])
     err = fn(kernels.ptr(q), kernels.ptr(cache_k), kernels.ptr(cache_v), kernels.ptr(tables),
              kernels.ptr(kv_lens), kernels.ptr(part_o), kernels.ptr(part_ml), kernels.ptr(out),
-             B, Hq, H, MP, page, page.bit_length() - 1, splits, s_page, s_slot, s_head, per,
-             float(scale), _P(kernels.stream_ptr(q.device)))
+             B, Hq, H, MP, page, page.bit_length() - 1, splits, s_page, s_slot, s_head, per, D,
+             float(scale), float(logits_softcap or 0.0), _P(kernels.stream_ptr(q.device)))
     kernels.check(err, "paged_decode")
     paged_decode_launches += 1
     return out

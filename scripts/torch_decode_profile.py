@@ -2,14 +2,16 @@
 """Where a prefill and a decode step of the PyTorch port spend their time,
 on one NVIDIA card.
 
-    python3 scripts/torch_decode_profile.py [--layers 32] [--batch 16] [--mix q4km|q5km|q2k]
+    python3 scripts/torch_decode_profile.py [--layers N] [--batch 16] [--mix q4km|q5km|q2k|gemma2]
 
-Builds the Mistral-7B random-weight model of chip_smoke.py: `--mix q4km`
+Builds a random-weight model of chip_smoke.py at its full depth unless
+`--layers` says otherwise: Mistral-7B with `--mix q4km`
 (the default) in the Q4_K_M mix with Q6_K requantized to int8 per 32,
 `--mix q5km` in the Q5_K_M mix with Q6_K kept (rq8_group=None), `--mix
 q2k` in llama.cpp's Q2_K mix (Q2_K q, k, gate, up on the plane-affine
 GEMV; Q4_K v; Q3_K o, down and the Q6_K lm_head requantized to int8 per
-32). After a
+32); Gemma-2-9B with `--mix gemma2` (every projection in Q4_K, the tied
+bf16 embedding as the lm_head, 42 layers). After a
 warm-up that runs each step once untraced (a first use of a kernel or a
 GEMM shape costs up to ~0.2 s of host time), traces one batched
 first-chunk prefill engine step each of FEW 40-token prompts (a 64-token
@@ -39,9 +41,9 @@ FEW = 4  # prompts in the traced prefill steps that fill a few of the slots
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--batch", type=int, default=16)
-    ap.add_argument("--mix", choices=("q4km", "q5km", "q2k"), default="q4km")
+    ap.add_argument("--mix", choices=("q4km", "q5km", "q2k", "gemma2"), default="q4km")
     args = ap.parse_args()
 
     import torch
@@ -50,8 +52,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
-    from chip_smoke import (Sizes, model_config, random_q2k_params, random_q4km_params,
-                            random_q5km_params)
+    from chip_smoke import (GEMMA2, Sizes, gemma2_config, model_config, random_gemma2_params,
+                            random_q2k_params, random_q4km_params, random_q5km_params)
     from mistralrs_tpu_torch.engine.engine import Engine, GenerationRequest
     from mistralrs_tpu_torch.engine.sampler import SamplingParams
     from mistralrs_tpu_torch.models.loader import make_rope
@@ -59,10 +61,11 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    sz = Sizes()
-    cfg = model_config(sz, args.layers)
+    sz = GEMMA2 if args.mix == "gemma2" else Sizes()
+    args.layers = args.layers or sz.layers
+    cfg = (gemma2_config if args.mix == "gemma2" else model_config)(sz, args.layers)
     build = {"q4km": random_q4km_params, "q5km": random_q5km_params,
-             "q2k": random_q2k_params}[args.mix]
+             "q2k": random_q2k_params, "gemma2": random_gemma2_params}[args.mix]
     params = build(sz, args.layers, dev, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
     pc = PipelineConfig(page_size=16, num_pages=1024, max_seqs=args.batch, max_model_len=2048,
                         prefill_buckets=(64, 256), decode_steps=8, device="cuda",

@@ -210,3 +210,90 @@ def test_every_kernel_belongs_to_one_path():
     names = [n for path in chip_smoke.PATH_KERNELS.values() for n in path]
     assert sorted(names) == sorted(chip_smoke.KERNEL_INFO) == sorted(chip_smoke.COUNTERS)
     assert set(chip_smoke.HEADLINE) == set(chip_smoke.KERNEL_INFO)
+
+
+TINY_GEMMA2 = chip_smoke.Sizes(vocab=512, hidden=256, inter=512, heads=4, kv_heads=2, head_dim=256,
+                               layers=4)
+
+
+def test_gemma2_config_has_the_published_widths():
+    cfg = chip_smoke.gemma2_config(chip_smoke.GEMMA2, 42)
+    assert (cfg.arch, cfg.vocab_size, cfg.hidden_size, cfg.intermediate_size, cfg.num_layers,
+            cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == (
+        "gemma2", 256000, 3584, 14336, 42, 16, 8, 256)
+    assert (cfg.attn_logit_softcap, cfg.final_logit_softcap, cfg.sliding_window) == (50.0, 30.0,
+                                                                                    4096)
+    assert cfg.query_scale == 1 / 16 and cfg.act == "gelu_pytorch_tanh"
+    assert cfg.block_style == "sandwich" and cfg.tie_word_embeddings
+
+
+def test_gemma2_builder_makes_q4k_projections_and_a_tied_head():
+    gen = torch.Generator().manual_seed(0)
+    p = chip_smoke.random_gemma2_params(TINY_GEMMA2, 2, torch.device("cpu"), gen, torch.float32)
+    assert p.lm_head is None and tuple(p.embed.shape) == (512, 256)
+    layer = p.layers[0]
+    assert {k: (lin.kind, lin.shape) for k, lin in layer["attn"].items()} == {
+        "q": ("gguf_q4k", (256, 1024)), "k": ("gguf_q4k", (256, 512)),
+        "v": ("gguf_q4k", (256, 512)), "o": ("gguf_q4k", (1024, 256))}
+    assert {lin.kind for lin in layer["mlp"].values()} == {"gguf_q4k"}
+    for n in ("input_norm", "post_attn_norm", "pre_mlp_norm", "post_mlp_norm"):
+        assert not bool(layer[n]["w"].any())  # 0: the (1 + w) form makes 1
+
+
+def test_gemma2_builder_model_serves_through_the_engine(monkeypatch):
+    """The gemma2 phase's model at a tiny size: 4 layers, a 150- and a
+    40-token prompt through the plain versions: the batched 2 x 256-row
+    first chunk on the dequant route and K11 (windowed on the local
+    layers), the rest on K1 and the gather route."""
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+    from mistralrs_tpu_torch.ops import splash as sp
+
+    cfg = chip_smoke.gemma2_config(TINY_GEMMA2, 4)
+    pc = PipelineConfig(page_size=16, num_pages=64, max_seqs=4, max_model_len=512,
+                        prefill_buckets=(64, 256), decode_steps=4, dtype=torch.float32,
+                        device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    params = chip_smoke.random_gemma2_params(TINY_GEMMA2, 4, torch.device("cpu"), gen,
+                                             torch.float32)
+    pipe = TextPipeline(cfg, params, make_rope(cfg, 512, device="cpu"), pc)
+    assert chip_smoke.served_kinds(pipe) == chip_smoke.GEMMA2_KINDS
+    assert set(pipe.params.layers[0]["attn"]) == {"qkv", "o"}
+    seen = {"windows": [], "k1": 0, "dequant": 0}
+
+    def splash(*args, **kw):
+        seen["windows"].append(kw["sliding_window"])
+        return plain_splash(*args, **kw)
+
+    def k1(*args, **kw):
+        seen["k1"] += 1
+        return plain_k1(*args, **kw)
+
+    def dequant(*args, **kw):
+        seen["dequant"] += 1
+        return plain_dequant(*args, **kw)
+
+    plain_splash, plain_k1, plain_dequant = (sp.splash_prefill_plain, qm.q4k_q8_gemv_plain,
+                                             qm.q4k_dequant_plain)
+    monkeypatch.setattr(sp, "splash_prefill_plain", splash)
+    monkeypatch.setattr(qm, "q4k_q8_gemv_plain", k1)
+    monkeypatch.setattr(qm, "q4k_dequant_plain", dequant)
+    eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
+    rng = np.random.default_rng(1)
+    groups = [eng.add_request(GenerationRequest([int(t) for t in rng.integers(1, 512, n)],
+                                                SamplingParams(max_len=6)))
+              for n in (150, 40)]
+    while not all(g.all_done() for g in groups):
+        eng.step()
+    assert all(g.seqs[0].num_generated == 6 for g in groups)
+    assert np.isfinite(pipe.last_greedy_pack).all()
+    assert seen["windows"] == [4096, None, 4096, None]
+    assert seen["dequant"] == 4 * 4 and seen["k1"] > 0  # qkv, o, gateup, down of 4 layers
+
+
+@pytest.mark.parametrize("T,window,pairs", [(4, None, 10), (4, 4, 10), (4, 2, 7),
+                                            (512, 128, 128 * 129 // 2 + 384 * 128)])
+def test_kept_pairs_counts_the_mask(T, window, pairs):
+    assert chip_smoke.kept_pairs(T, window) == pairs
+    t = torch.arange(T)
+    keep = (t[None, :] <= t[:, None]) & (t[None, :] > t[:, None] - (window or T + 1))
+    assert int(keep.sum()) == pairs

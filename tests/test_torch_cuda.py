@@ -13,6 +13,7 @@ import torch
 from mistralrs_tpu_torch.ops import flash_attention as fa
 from mistralrs_tpu_torch.ops import paged_attention as pa
 from mistralrs_tpu_torch.ops import quant_matmul as qm
+from mistralrs_tpu_torch.ops import splash as sp
 
 pytestmark = pytest.mark.cuda
 
@@ -300,17 +301,17 @@ def test_affine_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         qm.affine_dequant(q, scale, zs, 2, 16, torch.float32)
 
 
-def _paged_inputs(dev, B, T, kv_lens, Hq, Hkv, head_major, seed, page=16):
-    """q [B,T,Hq,128], one layer's pools and a meta whose block tables name
+def _paged_inputs(dev, B, T, kv_lens, Hq, Hkv, head_major, seed, page=16, D=128):
+    """q [B,T,Hq,D], one layer's pools and a meta whose block tables name
     shuffled pages (page 0 unused), wide enough for every row."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     MP = max(1, max(-(-n // page) for n in kv_lens) + 1)
     P = 1 + B * MP
-    shape = (Hkv, P, page, 128) if head_major else (P, page, Hkv, 128)
+    shape = (Hkv, P, page, D) if head_major else (P, page, Hkv, D)
     k = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
     v = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
     tables = (1 + torch.randperm(P - 1, generator=g)).reshape(B, MP)
-    q = torch.randn(B, T, Hq, 128, generator=g).to(dev, torch.bfloat16)
+    q = torch.randn(B, T, Hq, D, generator=g).to(dev, torch.bfloat16)
     zeros = torch.zeros(B, T, dtype=torch.int64, device=dev)
     meta = pa.PagedAttnMeta(positions=zeros, slot_mapping=zeros, block_tables=tables.to(dev),
                             kv_lens=torch.tensor(kv_lens, device=dev),
@@ -379,3 +380,78 @@ def test_paged_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         "positions", "slot_mapping", "block_tables", "kv_lens", "active")}, head_major=True)
     with pytest.raises(ValueError):  # tables on another device
         pa.paged_decode_attention(q, k, v, cpu_meta, scale=1.0)
+
+
+@pytest.mark.parametrize("head_major", [True, False])
+@pytest.mark.parametrize("B,kv_lens,Hq,Hkv,cap", [
+    (16, tuple(range(256, 4097, 256)), 16, 8, 50.0),  # Gemma-2-9B widths
+    (3, (100, 0, 4000), 8, 4, 50.0),                  # Gemma-2-2B widths; kv_len 0
+    (2, (300, 77), 16, 1, None),                      # D 256 without a cap
+    (2, (513, 1000), 32, 8, 30.0),                    # D 128 with a cap
+])
+def test_paged_decode_softcap_matches_plain(dev, head_major, B, kv_lens, Hq, Hkv, cap):
+    """K7 with a logit soft cap and at head dim 256."""
+    D = 128 if Hq == 32 else 256
+    q, k, v, meta = _paged_inputs(dev, B, 1, kv_lens, Hq, Hkv, head_major, seed=B + Hq, D=D)
+    # scores wide enough for the cap to bite
+    q = (q.float() * 4).to(torch.bfloat16)
+    scale = 256 ** -0.5 if D == 256 else 128 ** -0.5
+    before = pa.paged_decode_launches
+    got = pa.paged_decode_attention(q, k, v, meta, scale=scale, logits_softcap=cap).float()
+    want = pa.paged_decode_attention_plain(q, k, v, meta, scale=scale,
+                                           logits_softcap=cap).float()
+    torch.cuda.synchronize()
+    assert pa.paged_decode_launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    for b, n in enumerate(kv_lens):
+        if n == 0:
+            assert not bool(got[b].any())
+    # as K7 without a cap: bf16 output on both sides, P rounded to bf16
+    # before P.V, f32 sums in another order; tanhf against torch.tanh
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def _splash_inputs(dev, B, T, Hq, Hkv, D, seed, amp=1.0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = (torch.randn(B, T, Hq, D, generator=g) * amp).to(dev, torch.bfloat16)
+    k = torch.randn(B, T, Hkv, D, generator=g).to(dev, torch.bfloat16)
+    v = torch.randn(B, T, Hkv, D, generator=g).to(dev, torch.bfloat16)
+    return q, k, v
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("window", [None, 48, 128, 200, 5000])
+@pytest.mark.parametrize("cap", [None, 50.0])
+@pytest.mark.parametrize("B,T,Hq,Hkv", [(2, 256, 4, 2), (1, 200, 8, 8), (1, 512, 16, 8)])
+def test_splash_prefill_matches_plain(dev, D, window, cap, B, T, Hq, Hkv):
+    """K11: windows inside a tile (48), on a tile edge (128), off it (200)
+    and past the chunk (5000); T not a multiple of 64 (200); a scale that
+    is not exact in bf16 (144 ** -0.5, Gemma-2-27B's)."""
+    q, k, v = _splash_inputs(dev, B, T, Hq, Hkv, D, seed=T + Hq + D, amp=3.0)
+    scale = 144 ** -0.5
+    before = sp.splash_prefill_launches
+    got = sp.splash_prefill(q, k, v, scale=scale, sliding_window=window,
+                            logits_softcap=cap).float()
+    want = sp.splash_prefill_plain(q, k, v, scale=scale, sliding_window=window,
+                                   logits_softcap=cap).float()
+    torch.cuda.synchronize()
+    assert sp.splash_prefill_launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    # as K6: one bf16 rounding of the output on each side, P rounded to bf16
+    # before P.V in the kernel, f32 sums in another order, tanhf against
+    # torch.tanh
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def test_splash_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    q, k, v = _splash_inputs(dev, 1, 128, 4, 2, 64, seed=0)
+    with pytest.raises(ValueError):  # head dim 64
+        sp.splash_prefill(q, k, v, scale=0.1, logits_softcap=50.0)
+    q, k, v = _splash_inputs(dev, 1, 128, 4, 2, 256, seed=0)
+    with pytest.raises(ValueError):  # f32 query
+        sp.splash_prefill(q.float(), k, v, scale=0.1)
+    with pytest.raises(ValueError):  # k on the CPU
+        sp.splash_prefill(q, k.cpu(), v, scale=0.1)
+    with pytest.raises(ValueError):  # head dim 96 for the decode kernel
+        pa.paged_decode_attention(*_paged_inputs(dev, 1, 1, (40,), 4, 2, True, seed=0, D=96),
+                                  scale=1.0)

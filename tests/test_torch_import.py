@@ -54,8 +54,9 @@ def imported():
 def test_every_module_is_listed():
     assert "mistralrs_tpu_torch" in MODULES
     assert "mistralrs_tpu_torch.ops.quant_matmul" in MODULES
-    assert {"mistralrs_tpu_torch.quant.gptq", "mistralrs_tpu_torch.quant.hqq"} <= set(MODULES)
-    assert len(MODULES) >= 27
+    assert {"mistralrs_tpu_torch.quant.gptq", "mistralrs_tpu_torch.quant.hqq",
+            "mistralrs_tpu_torch.ops.splash"} <= set(MODULES)
+    assert len(MODULES) >= 28
 
 
 @pytest.mark.parametrize("module", MODULES)

@@ -3,7 +3,9 @@
 A tiny model in the Q4_K_M, Q5_K_M or Q2_K type mix, built in the JAX package from seeded
 numpy weights through its own quantizer (kquants.quantize) and packers, and
 carried into the port with params_from_reference, so that both packages
-compute on the same packed bytes. Everything is float32 on the CPU.
+compute on the same packed bytes; and a tiny seeded Gemma-2 from
+transformers, loaded by the JAX package's HF loader (dense, or ISQ Q4K).
+Everything is float32 on the CPU.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 from mistralrs_tpu.gguf.reader import GGMLType
 from mistralrs_tpu.models.config import ModelConfig as JModelConfig
 from mistralrs_tpu.models.decoder import DecoderParams as JDecoderParams
-from mistralrs_tpu.models.loader import group_layers
+from mistralrs_tpu.models.config import config_from_hf as jconfig_from_hf
+from mistralrs_tpu.models.loader import TensorSource, group_layers, params_from_source
 from mistralrs_tpu.quant import kquants
 from mistralrs_tpu.quant.gguf_linear import linear_from_gguf
 from mistralrs_tpu_torch.models.config import ModelConfig
@@ -121,8 +124,40 @@ def port_params(jparams):
 
 
 def port_config(jcfg) -> ModelConfig:
-    return ModelConfig(**{k: getattr(jcfg, k) for k in (
-        "arch", "vocab_size", "hidden_size", "intermediate_size", "num_layers", "num_heads",
-        "num_kv_heads", "head_dim", "max_position_embeddings", "norm_eps", "act", "rope_theta",
-        "rope_scaling", "sliding_window", "sliding_window_pattern", "query_scale",
-        "tie_word_embeddings")})
+    """The port's ModelConfig with the JAX config's value in every field."""
+    import dataclasses
+
+    return ModelConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(ModelConfig)})
+
+
+# hidden 256, 4 heads of 64 over 2 kv heads, intermediate 512, 4 layers (so
+# two local and two global), window 48, caps 50 / 30, scale 64 ** -0.5
+TINY_GEMMA2 = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=4,
+                   num_attention_heads=4, num_key_value_heads=2, head_dim=64,
+                   sliding_window=48, attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+                   query_pre_attn_scalar=64, max_position_embeddings=4096)
+
+
+def jax_gemma2_params(seed: int = 0, **over):
+    """(JAX ModelConfig, JAX DecoderParams with every projection ISQ'd to
+    Q4_K, the same params dense in f32) of a tiny seeded
+    transformers.Gemma2ForCausalLM, loaded as the JAX package loads an HF
+    checkpoint (config_from_hf, params_from_source). Weights are drawn with
+    std 0.1 (norm weights too, which HF starts at zero), so that attention
+    scores and logits reach the soft caps' bend."""
+    import json
+
+    import transformers as tf
+
+    torch.manual_seed(seed)
+    hf_cfg = tf.Gemma2Config(**dict(TINY_GEMMA2, **over), initializer_range=0.1)
+    model = tf.Gemma2ForCausalLM(hf_cfg).eval().float()
+    with torch.no_grad():
+        for name, w in model.named_parameters():
+            if name.endswith("norm.weight"):
+                w.normal_(0.0, 0.1)
+    cfg = jconfig_from_hf(json.loads(hf_cfg.to_json_string()))
+    sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    src = TensorSource.from_dict(sd)
+    return (cfg, params_from_source(cfg, src, dtype=jnp.float32, isq="Q4K"),
+            params_from_source(cfg, src, dtype=jnp.float32))

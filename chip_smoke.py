@@ -71,6 +71,22 @@ non-zero and never prints the final line):
    first chunk (K11), a 512-token continuation chunk (gather + the soft
    cap) and 4 decode steps at span 4096 (K7 with the soft cap at head dim
    256).
+11. gemma2_ragged: Gemma-2-9B as in phase 8 on the ragged attention backend
+   (one combined K/V pool, max_model_len 8192, 1,536 pages of 16 = 8.5 GB
+   of KV) serves two waves: 4 greedy requests of ~4,600-token prompts (9
+   chunks of 512: K11 on the first, the ragged paged attention kernel K12 on
+   the rest, the window clipping on the local layers past position 4096; 64
+   tokens each, decoded at span 8192 on K12), then 16 of ~200 tokens (K11,
+   then decode at batch 16 on K12), 32 tokens each. It raises unless K12
+   and K11 launched and K6, K6' and K7 did not.
+12. card_vs_cpu_ragged: the phase-9 comparison on the ragged backend, for
+   2-layer Mistral-7B Q4_K_M (rq8) and Gemma-2-9B: a ~1,200-token prompt in
+   a 512-token first chunk (K6 / K11), continuation chunks of 512 and 176
+   (padded to 256: a ragged q_len) on K12, then 4 decode steps on K12.
+The kernel phase also holds K12 against its plain version (decode at
+Mistral-7B's and Gemma-2-9B's widths, 4 x 512 continuation chunks, a mixed
+batch of a decode row, a first chunk and a continuation with fewer live
+sequences than slots).
 Then the kernels line and, last, {"ok": true, "device": {...}}.
 """
 
@@ -122,6 +138,8 @@ KERNEL_INFO = {
                        "mistralrs_tpu/quant/gguf_linear.py:515"),
     "splash_prefill": ("mistralrs_tpu_torch/csrc/splash_prefill.cu",
                        "mistralrs_tpu/ops/splash.py:59"),
+    "ragged_attention": ("mistralrs_tpu_torch/csrc/ragged_attention.cu",
+                         "mistralrs_tpu/ops/ragged_attention.py:162"),
 }
 # the shape whose numbers stand in the kernels line
 HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
@@ -130,18 +148,20 @@ HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
             "q8_0_dequant": "down rq8", "q6k_q8_gemv": "lm_head B=16",
             "q6k_bf16_gemv": "down B=256", "q5k_q8_gemv": "gate|up B=16", "q6k_dequant": "down",
             "q5k_dequant": "gate|up", "affine_gemv": "gate|up q2k B=16",
-            "affine_dequant": "gate|up q2k", "splash_prefill": "gemma2-9b B=4 T=512"}
+            "affine_dequant": "gate|up q2k", "splash_prefill": "gemma2-9b B=4 T=512",
+            "ragged_attention": "mistral B=16 kv=4096 decode"}
 # the kernels each serving phase's path adds (long_context also runs the
 # slice path's, quant_mix also flash_prefill, q2k also the slice path's,
 # gemma2 also q4k_q8_gemv and q4k_dequant, and paged_decode in
-# card_vs_cpu_gemma2); the line's launches of each kernel come from the
-# phase of its path
+# card_vs_cpu_gemma2; gemma2_ragged also splash_prefill); the line's
+# launches of each kernel come from the phase of its path
 PATH_KERNELS = {
     "slice": ("q4k_q8_gemv", "q8_0_q8_gemv", "flash_prefill", "q4k_dequant", "q8_0_dequant"),
     "long_context": ("flash_prefill_paged", "paged_decode"),
     "quant_mix": ("q6k_q8_gemv", "q6k_bf16_gemv", "q5k_q8_gemv", "q6k_dequant", "q5k_dequant"),
     "q2k": ("affine_gemv", "affine_dequant"),
     "gemma2": ("splash_prefill",),
+    "gemma2_ragged": ("ragged_attention",),
 }
 # each kernel's launch counter: (module under mistralrs_tpu_torch.ops, name)
 COUNTERS = {
@@ -160,6 +180,7 @@ COUNTERS = {
     "affine_gemv": ("quant_matmul", "affine_gemv_launches"),
     "affine_dequant": ("quant_matmul", "affine_dequant_launches"),
     "splash_prefill": ("splash", "splash_prefill_launches"),
+    "ragged_attention": ("ragged_attention", "ragged_attention_launches"),
 }
 
 
@@ -566,6 +587,7 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
 
     paged_kernels(sz, device, clock, gen, record)
     gemma2_kernels(device, clock, gen, record)
+    ragged_kernels(device, clock, gen, record)
     return results
 
 
@@ -915,6 +937,118 @@ def gemma2_kernels(device, clock: Clock, gen, record) -> None:
         del q, k, v, meta
 
 
+# K12 cases (shape, live (q_len, kv_len) of each sequence, slots B, Hq, Hkv,
+# D, window, soft cap): Mistral-7B decode at batch 16 and span 4096 (the
+# headline, K7's headline shape); Gemma-2-9B decode at batch 16 and span
+# 1024 (the gather route's shape in the gemma2 phase); the gemma2_ragged
+# phase's decode of 4 live rows in 16 slots at ~4,664 tokens on a global
+# layer and on a local one (window 4096); Mistral-7B's 4 x 512 continuation
+# at 4096 (K6''s headline shape); Gemma-2-9B's 4 x 512 continuation at 4608
+# with the window clipping; a mixed batch of a decode row, a first chunk and
+# a ragged continuation in 4 slots
+RAGGED_CASES = (
+    ("mistral B=16 kv=4096 decode", ((1, 4096),) * 16, 16, 32, 8, 128, None, None),
+    ("gemma2-9b B=16 kv=1024 decode", ((1, 1024),) * 16, 16, 16, 8, 256, None, 50.0),
+    ("gemma2-9b 4/16 kv=4664 decode", ((1, 4664),) * 4, 16, 16, 8, 256, None, 50.0),
+    ("gemma2-9b 4/16 kv=4664 decode w=4096", ((1, 4664),) * 4, 16, 16, 8, 256, 4096, 50.0),
+    ("mistral 4x512 kv=4096", ((512, 4096),) * 4, 4, 32, 8, 128, None, None),
+    ("gemma2-9b 4x512 kv=4608 w=4096", ((512, 4608),) * 4, 4, 16, 8, 256, 4096, 50.0),
+    ("gemma2-9b mixed 3/4", ((1, 3000), (256, 256), (176, 1200)), 4, 16, 8, 256, 4096, 50.0),
+)
+
+
+def ragged_inputs(device, gen, seqs, B: int, Hq: int, Hkv: int, D: int, page: int = 16):
+    """K12's arguments for live sequences `seqs` ((q_len, kv_len) each) in B
+    slots (the rest padding: no queries, kv_len 1): packed bf16 queries
+    [N, Hq, D], a combined pool of random bf16 with every sequence's context
+    on shuffled pages (page 0 unused), block tables as wide as the pipeline
+    makes them (a power of two of pages), and int32 kv_lens, cu_q_lens and
+    num_seqs."""
+    import torch
+
+    W = 4
+    while W * page < max(kv for _, kv in seqs):
+        W *= 2
+    P = 1 + B * W
+    pool = torch.randn(P, page, 2 * Hkv, D, device=device, generator=gen).to(torch.bfloat16)
+    tables = (1 + torch.randperm(P - 1, device=device, generator=gen)).reshape(B, W)
+    q_lens = [ql for ql, _ in seqs] + [0] * (B - len(seqs))
+    kv_lens = [kv for _, kv in seqs] + [1] * (B - len(seqs))
+    q = torch.randn(sum(q_lens), Hq, D, device=device, generator=gen).to(torch.bfloat16)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=device)
+
+    cu = np.concatenate([[0], np.cumsum(q_lens)]).tolist()
+    return (q, pool, i32(kv_lens), tables.to(torch.int32), i32(cu), i32([len(seqs)]))
+
+
+def ragged_work(seqs, window: int | None) -> tuple[int, int]:
+    """(keys each sequence must read, summed; (query, key) pairs kept,
+    summed) of K12 on sequences (q_len, kv_len): query j sits at kv_len -
+    q_len + j and keeps the keys up to its own inside the window."""
+    keys = pairs = 0
+    for q_len, kv_len in seqs:
+        first = kv_len - q_len
+        keys += kv_len - (max(0, first - window + 1) if window else 0)
+        pos = np.arange(first, kv_len)
+        pairs += int(np.minimum(pos + 1, window or kv_len + 1).sum())
+    return keys, pairs
+
+
+def ragged_kernels(device, clock: Clock, gen, record) -> None:
+    """Parity and timing of K12 at RAGGED_CASES against its plain version
+    (per sequence, f32 scores). q is drawn 4 times wider than the pool
+    where there is a cap, so that the scaled logits reach its bend. bound:
+    each sequence's keys inside its window read once (K and V), q and out
+    once, 4 * D flops per kept pair of every query head. library =
+    F.scaled_dot_product_attention with a boolean mask (causal and length)
+    on the gathered context, repeated per query head, where the rows are
+    uniform and there is no cap; else None."""
+    import torch
+    import torch.nn.functional as F
+
+    from mistralrs_tpu_torch.ops import paged_attention as pa
+    from mistralrs_tpu_torch.ops import ragged_attention as ra
+
+    for shape, seqs, B, Hq, Hkv, D, window, cap in RAGGED_CASES:
+        q, pool, kv_lens, tables, cu, num_seqs = ragged_inputs(device, gen, seqs, B, Hq, Hkv, D)
+        if cap:
+            q = (q.float() * 4).to(torch.bfloat16)
+        max_q = max(ql for ql, _ in seqs) if len({ql for ql, _ in seqs}) == 1 else None
+        scale = D ** -0.5
+        kw = dict(scale=scale, sliding_window=window, logits_softcap=cap)
+        args = (q, pool, kv_lens, tables, cu, num_seqs)
+        got = ra.ragged_attention(*args, **kw, max_q_len=max_q).float()
+        want = ra.ragged_attention_plain(*args, **kw).float()
+        err = float((got - want).abs().max())
+        rel = err / max(float(want.abs().max()), 1e-30)
+        ms = clock.ms(lambda: ra.ragged_attention(*args, **kw, max_q_len=max_q))
+        plain = clock.ms(lambda: ra.ragged_attention_plain(*args, **kw))
+        lib = None
+        if cap is None and window is None and max_q is not None and len(seqs) == B:
+            T, kv_len = seqs[0]
+            kc, vc = pa.gather_paged_kv(*ra.split_combined(pool), tables)  # [B, S, Hkv, D]
+            kr = kc.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1).contiguous()
+            vr = vc.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1).contiguous()
+            S = kr.shape[2]
+            q_ids = torch.arange(T, device=device)[:, None] + (kv_len - T)
+            kv_ids = torch.arange(S, device=device)[None, :]
+            keep = ((kv_ids <= q_ids) & (kv_ids < kv_len))[None, None]
+            qt = q.reshape(B, T, Hq, D).transpose(1, 2).contiguous()
+            lib = clock.ms(lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=keep,
+                                                                  scale=scale))
+            del kc, vc, kr, vr, qt
+        keys, pairs = ragged_work(seqs, window)
+        nbytes = keys * Hkv * D * 2 * 2 + 2 * q.shape[0] * Hq * D * 2
+        # as K6'/K7: bf16 in and out, P rounded to bf16 in the kernel, f32
+        # sums in another order (the decode splits combined); tanhf against
+        # torch.tanh
+        record("ragged_attention", shape, err, rel, 1e-2, ms, plain, lib,
+               bound(nbytes, 4 * Hq * D * pairs, PEAK_BF16))
+        del q, pool, got, want
+
+
 # ------------------------------------------------------------- phases 4, 5
 
 
@@ -1130,43 +1264,129 @@ def long_context_phase(sz: Sizes, device) -> dict:
         raise AssertionError("max_model_len 4096 did not select head-major pools")
     eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
     rng = np.random.default_rng(2)
-
-    def wave(plen: int, max_len: int) -> tuple[list, dict]:
-        decode = {"tokens": 0, "seconds": 0.0}
-        groups = add_requests(eng, rng, sz.vocab, 4, plen, max_len)
-        step_until(eng, groups, lambda: all(g.all_done() for g in groups), decode)
-        return groups, decode
-
+    waves = ((4, sz.long_prompt_ctx, sz.max_len_ctx), (4, sz.short_prompt_ctx, sz.max_len_ctx))
     # warm-up: both waves, one multistep decode call each
-    for plen in (sz.long_prompt_ctx, sz.short_prompt_ctx):
-        wave(plen, 1 + pc.decode_steps)
+    serve_waves(eng, rng, sz.vocab, [(n, plen, 1 + pc.decode_steps) for n, plen, _ in waves])
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    wave_counts = []
     t_run = time.perf_counter()
-    long_groups, long_dec = wave(sz.long_prompt_ctx, sz.max_len_ctx)
-    counts_long = read_counts()
-    short_groups, short_dec = wave(sz.short_prompt_ctx, sz.max_len_ctx)
+    served = serve_waves(eng, rng, sz.vocab, waves,
+                         after_wave=lambda i: wave_counts.append(read_counts()))
     run_s = time.perf_counter() - t_run
-    counts = read_counts()
-    n_toks = check_served(long_groups + short_groups, sz.vocab, sz.max_len_ctx, pipe)
+    counts, counts_long = read_counts(), wave_counts[0]
+    n_toks = check_served([g for groups, _ in served for g in groups], sz.vocab, sz.max_len_ctx,
+                          pipe)
     check_launched(counts, PATH_KERNELS["slice"] + PATH_KERNELS["long_context"])
     if counts["paged_decode"] != counts_long["paged_decode"]:
         raise AssertionError("decode at span 2048 launched the block-table decode kernel")
 
     out = {"phase": "long_context", "layers": sz.layers, "requests": 8, "generated_tokens": n_toks,
-           "decode_tok_s_long": long_dec["tokens"] / long_dec["seconds"],
-           "decode_tok_s_short": short_dec["tokens"] / short_dec["seconds"],
-           "decode_tokens_long": long_dec["tokens"], "decode_s_long": long_dec["seconds"],
-           "decode_tokens_short": short_dec["tokens"], "decode_s_short": short_dec["seconds"],
-           "p50_ttft_ms_long": ttft_ms(long_groups), "p50_ttft_ms_short": ttft_ms(short_groups),
-           "prompt_tokens_long": sum(len(s.prompt_tokens) for g in long_groups for s in g.seqs),
-           "prompt_tokens_short": sum(len(s.prompt_tokens) for g in short_groups for s in g.seqs),
-           "run_s": run_s, "setup_s": setup_s, "launches": counts,
+           **wave_metrics(served), "run_s": run_s, "setup_s": setup_s, "launches": counts,
            "launches_long_wave": counts_long, "kv_pages": pc.num_pages,
            "kv_gb": 2 * pipe.cache.k.numel() * pipe.cache.k.element_size() / 1e9,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(out)
+    del eng, pipe
+    return out
+
+
+# the gemma2_ragged phase: prompt sizes and tokens of its two waves, and the
+# pool (1,536 pages of 16 tokens at 344 KB a token: 8.5 GB)
+RAGGED_WAVES = ((4, 4600, 64), (16, 200, 32))
+RAGGED_PAGES = 1536
+
+
+def gemma2_ragged_pipeline(sz: Sizes, n_layers: int, device, pages: int = RAGGED_PAGES):
+    """Gemma-2-9B (gemma2_config, random_gemma2_params) at sz's widths and
+    n_layers layers on the ragged attention backend: one combined K/V pool,
+    max_model_len 8192, 16 slots, 512-token chunks."""
+    import torch
+
+    from mistralrs_tpu_torch.models.loader import make_rope
+    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
+
+    fdt = torch.bfloat16 if device.type == "cuda" else torch.float32
+    cfg = gemma2_config(sz, n_layers)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = random_gemma2_params(sz, n_layers, device, gen, fdt)
+    pc = PipelineConfig(attn_backend="ragged", max_model_len=8192, page_size=16, num_pages=pages,
+                        max_seqs=16, prefill_buckets=(16, 64, 256, 512), decode_steps=8,
+                        dtype=fdt, device=str(device))
+    return TextPipeline(cfg, params, make_rope(cfg, 8192, device=device), pc)
+
+
+def serve_waves(eng, rng, vocab: int, waves, after_wave=None) -> list:
+    """Each wave (requests, prompt tokens, tokens each) served to its end
+    before the next; returns (groups, decode tokens and seconds) per wave,
+    calling after_wave(i) after wave i."""
+    out = []
+    for i, (n, plen, max_len) in enumerate(waves):
+        decode = {"tokens": 0, "seconds": 0.0}
+        groups = add_requests(eng, rng, vocab, n, plen, max_len)
+        step_until(eng, groups, lambda: all(g.all_done() for g in groups), decode)
+        out.append((groups, decode))
+        if after_wave is not None:
+            after_wave(i)
+    return out
+
+
+def wave_metrics(served) -> dict:
+    """Decode tok/s, decode tokens and seconds, p50 TTFT and prompt tokens of
+    a long wave and a short one, as serve_waves returns them."""
+    out = {}
+    for tag, (groups, dec) in zip(("long", "short"), served):
+        out.update({f"decode_tok_s_{tag}": dec["tokens"] / dec["seconds"],
+                    f"decode_tokens_{tag}": dec["tokens"], f"decode_s_{tag}": dec["seconds"],
+                    f"p50_ttft_ms_{tag}": ttft_ms(groups),
+                    f"prompt_tokens_{tag}": sum(len(s.prompt_tokens)
+                                                for g in groups for s in g.seqs)})
+    return out
+
+
+def gemma2_ragged_phase(sz: Sizes, device) -> dict:
+    """Gemma-2-9B at full width and depth on the ragged backend: K11 on
+    first chunks, K12 on every continuation chunk and decode step; never
+    K6, K6' or K7."""
+    import torch
+
+    from mistralrs_tpu_torch.engine.engine import Engine
+
+    sz = GEMMA2
+    t0 = time.perf_counter()
+    pipe = gemma2_ragged_pipeline(sz, sz.layers, device)
+    if not pipe.kv_combined or pipe.head_major:
+        raise AssertionError("attn_backend='ragged' did not build one token-major combined pool")
+    eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
+    rng = np.random.default_rng(5)
+    # warm-up: both waves, one multistep decode call each
+    serve_waves(eng, rng, sz.vocab, [(n, plen, 1 + pipe.pc.decode_steps)
+                                     for n, plen, _ in RAGGED_WAVES])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    wave_counts = []
+    t_run = time.perf_counter()
+    waves = serve_waves(eng, rng, sz.vocab, RAGGED_WAVES,
+                        after_wave=lambda i: wave_counts.append(read_counts()))
+    run_s = time.perf_counter() - t_run
+    counts = read_counts()
+    n_toks = sum(check_served(g, sz.vocab, max_len, pipe)
+                 for (g, _), (_, _, max_len) in zip(waves, RAGGED_WAVES))
+    check_launched(counts, PATH_KERNELS["gemma2_ragged"] + ("splash_prefill", "q4k_q8_gemv"))
+    for name in ("flash_prefill", "flash_prefill_paged", "paged_decode"):
+        if counts[name]:
+            raise AssertionError(f"the ragged backend launched {name}: {counts}")
+    out = {"phase": "gemma2_ragged", "layers": sz.layers,
+           "requests": sum(n for n, _, _ in RAGGED_WAVES), "generated_tokens": n_toks,
+           **wave_metrics(waves), "run_s": run_s, "setup_s": setup_s, "launches": counts,
+           "launches_long_wave": wave_counts[0], "kv_pages": pipe.pc.num_pages,
+           "kv_gb": pipe.cache.k.numel() * pipe.cache.k.element_size() / 1e9,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
     del eng, pipe
@@ -1367,6 +1587,73 @@ def card_vs_cpu_gemma2_phase(sz: Sizes, device) -> list[dict]:
     return outs
 
 
+def _ragged_run(cfg, weights, device, prompt, rq8) -> tuple[dict, dict]:
+    """Logits and launch counts of each side on the ragged backend: a
+    ~1,200-token prompt in chunks of 512, 512 and the rest (padded to 256),
+    then 4 decode steps, both fed the CPU run's argmax."""
+    from mistralrs_tpu_torch.engine.block_manager import BlockManager
+    from mistralrs_tpu_torch.engine.sampler import SamplingParams
+    from mistralrs_tpu_torch.engine.sequence import Sequence
+
+    runs, forced, counts = {}, None, {}
+    for dev, dt in _sides(device):
+        pipe = _side_pipeline(cfg, weights, dev, dt, page_size=16, num_pages=96,
+                              max_model_len=2048, prefill_buckets=(256, 512), rq8_group=rq8,
+                              attn_backend="ragged")
+        bm = BlockManager(pipe.pc.num_pages, pipe.pc.page_size)
+        seq = Sequence(prompt, SamplingParams(max_len=8), max_model_len=2048)
+        bm.allocate(seq)
+        reset_counts()
+        logits, start = [], 0
+        for n in (512, 512, len(prompt) - 1024):
+            logits.append(pipe.run_prefill_chunk(seq, prompt[start:start + n]))
+            start += n
+        for step in range(4):
+            tok = int(np.argmax(logits[-1])) if forced is None else forced[step]
+            seq.tokens.append(tok)
+            bm.append_slot(seq, 1)
+            logits.append(pipe.run_decode([seq])[0])
+        if forced is None:
+            forced = [int(np.argmax(x)) for x in logits[2:6]]
+        counts[dev.type] = read_counts()
+        runs[dev.type] = np.stack(logits).astype(np.float64)
+        del pipe
+    return runs, counts[device.type]
+
+
+# the ragged card_vs_cpu prompt: a 512 first chunk, a 512 continuation and
+# a ragged 176 padded to 256
+RAGGED_PROMPT = 1200
+
+
+def card_vs_cpu_ragged_phase(sz: Sizes, device) -> list[dict]:
+    """The card against the CPU on the ragged backend, 2 layers at full
+    width: Mistral-7B Q4_K_M (rq8; K6 on the first chunk) and Gemma-2-9B
+    (the full vocabulary; K11 on the first chunk); K12 on both continuation
+    chunks and the 4 decode steps (its plain version on the CPU)."""
+    import torch
+
+    n_layers = 2
+    outs = []
+    for phase, size, build, cfg_fn, rq8, first in (
+            ("card_vs_cpu_ragged", sz, random_q4km_params, model_config, 32, "flash_prefill"),
+            ("card_vs_cpu_ragged_gemma2", GEMMA2, random_gemma2_params, gemma2_config, 32,
+             "splash_prefill")):
+        cfg = cfg_fn(size, n_layers)
+        weights = build(size, n_layers, torch.device("cpu"), torch.Generator().manual_seed(8),
+                        torch.bfloat16)
+        prompt = [int(t) for t in np.random.default_rng(9).integers(1, size.vocab, RAGGED_PROMPT)]
+        runs, card = _ragged_run(cfg, weights, device, prompt, rq8)
+        want = {first: n_layers, "ragged_attention": 6 * n_layers, "flash_prefill_paged": 0,
+                "paged_decode": 0}
+        if any(card[n] != k for n, k in want.items()):
+            raise AssertionError(f"the ragged check took other routes on the card: {card}")
+        outs.append(_compare_sides(phase, runs, device, n_layers, vocab=size.vocab,
+                                   launches={n: card[n] for n in want}))
+        del weights
+    return outs
+
+
 # ------------------------------------------------------------- main
 
 
@@ -1403,8 +1690,10 @@ def main() -> int:
     seconds["kernels"] = time.perf_counter() - t0
     for name, fn in (("slice", slice_phase), ("long_context", long_context_phase),
                      ("quant_mix", quant_mix_phase), ("q2k", q2k_phase),
-                     ("gemma2", gemma2_phase), ("card_vs_cpu", card_vs_cpu_phase),
-                     ("card_vs_cpu_gemma2", card_vs_cpu_gemma2_phase)):
+                     ("gemma2", gemma2_phase), ("gemma2_ragged", gemma2_ragged_phase),
+                     ("card_vs_cpu", card_vs_cpu_phase),
+                     ("card_vs_cpu_gemma2", card_vs_cpu_gemma2_phase),
+                     ("card_vs_cpu_ragged", card_vs_cpu_ragged_phase)):
         t0 = time.perf_counter()
         results[name] = fn(sz, device)
         seconds[name] = time.perf_counter() - t0

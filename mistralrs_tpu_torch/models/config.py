@@ -62,7 +62,7 @@ def _base(hf: dict[str, Any], arch: str, **over: Any) -> ModelConfig:
         num_kv_heads=hf.get("num_key_value_heads", num_heads),
         head_dim=hf.get("head_dim") or hidden // num_heads,
         max_position_embeddings=hf.get("max_position_embeddings", 4096),
-        norm_eps=hf.get("rms_norm_eps", 1e-5),
+        norm_eps=hf.get("rms_norm_eps", hf.get("norm_epsilon", hf.get("layer_norm_eps", 1e-5))),
         rope_theta=hf.get("rope_theta", 10000.0),
         rope_scaling=hf.get("rope_scaling"),
         tie_word_embeddings=hf.get("tie_word_embeddings", False),

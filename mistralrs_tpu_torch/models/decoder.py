@@ -27,6 +27,13 @@ order:
   `sdpa_head_major` on a head-major pool (ops/attention.py), soft cap
   included.
 The new K/V are written into the pool in place before any of them.
+
+On the ragged backend (a combined K/V pool, `cache.v` None) the same first
+chunks still take K6 or K11 on the chunk's own K/V; every other step, a
+continuation chunk or decode at any span, runs the ragged paged attention
+kernel K12 (ops/ragged_attention.py) with the layer's window, unless the
+span fits inside it, and the soft cap; K6', K7 and the gather route are
+never taken on a combined pool. The new K/V go in with `write_combined_kv`.
 """
 
 from __future__ import annotations
@@ -47,6 +54,12 @@ from mistralrs_tpu_torch.ops.paged_attention import (
     gather_paged_kv,
     paged_decode_attention,
     write_paged_kv,
+)
+from mistralrs_tpu_torch.ops.ragged_attention import (
+    RaggedPlan,
+    ragged_attention_padded,
+    ragged_plan,
+    write_combined_kv,
 )
 from mistralrs_tpu_torch.ops.rope import RopeTable, apply_rope
 from mistralrs_tpu_torch.ops.splash import splash_prefill
@@ -119,13 +132,17 @@ def _use_paged_decode_kernel(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span
     return span <= cfg.sliding_window
 
 
-def _attention_route(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span: int) -> str:
+def _attention_route(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span: int,
+                     combined: bool = False) -> str:
     """The step's attention route, the same for every layer: "flash" (K6),
-    "splash" (K11), "decode" (K7), "continuation" (K6') or "gather"."""
+    "splash" (K11), "decode" (K7), "continuation" (K6') or "gather"; on a
+    combined pool "flash", "splash" or "ragged" (K12)."""
     if _use_flash_prefill(cfg, T, meta):
         return "flash"
     if _use_splash_prefill(cfg, T, meta):
         return "splash"
+    if combined:
+        return "ragged"
     if _use_paged_decode_kernel(cfg, T, meta, span):
         return "decode"
     if _use_flash_continuation(cfg, T, meta, span):
@@ -154,15 +171,17 @@ def _attention(
     sin: torch.Tensor,
     rot_dim: int,
     cache_k: torch.Tensor,
-    cache_v: torch.Tensor,
+    cache_v: torch.Tensor | None,
     meta: PagedAttnMeta,
     route: str,
     bias: torch.Tensor | None,
     window: int | None,
+    plan: RaggedPlan | None,
 ) -> torch.Tensor:
     """One layer's attention; `window` is the layer's sliding window (None
-    on a global layer), read by the splash route (the gather route's `bias`
-    already holds it)."""
+    on a global layer), read by the splash and ragged routes (the gather
+    route's `bias` already holds it). cache_v is None on a combined pool,
+    whose step packing `plan` the ragged route reads."""
     B, T, _ = x.shape
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "qkv" in p:  # fused projection (quant/fuse.py)
@@ -184,7 +203,10 @@ def _attention(
     scale = cfg.query_scale if cfg.query_scale is not None else D**-0.5
     cap = cfg.attn_logit_softcap
     hm = meta.head_major
-    write_paged_kv(cache_k, cache_v, k, v, meta.slot_mapping, head_major=hm)
+    if cache_v is None:
+        write_combined_kv(cache_k, k, v, meta.slot_mapping)
+    else:
+        write_paged_kv(cache_k, cache_v, k, v, meta.slot_mapping, head_major=hm)
     if route == "flash":
         # first prefill chunk: its own K/V is the whole context, so no paged
         # gather and no [B, Hq, T, T] scores in memory
@@ -202,6 +224,14 @@ def _attention(
     elif route == "continuation":
         out = flash_prefill_continuation(q.contiguous(), cache_k, cache_v, meta, scale=scale)
         out = out * meta.active[:, None, None, None].to(out.dtype)
+    elif route == "ragged":
+        # one kernel for continuation chunks and decode; a span that fits
+        # inside the window needs no window mask (the JAX package's window_ok)
+        span = meta.block_tables.shape[1] * cache_k.shape[1]
+        win = window if window is not None and span > window else None
+        out = ragged_attention_padded(q.contiguous(), cache_k, meta, scale=scale,
+                                      sliding_window=win, logits_softcap=cap, plan=plan)
+        out = out * meta.active[:, None, None, None].to(out.dtype)
     else:
         ctx_k, ctx_v = gather_paged_kv(cache_k, cache_v, meta.block_tables, head_major=hm)
         attn = sdpa_head_major if hm else sdpa
@@ -210,9 +240,10 @@ def _attention(
     return linear(p["o"], out.reshape(B, T, Hq * D))
 
 
-def _block(cfg, p, h, cos, sin, rot_dim, ck, cv, meta, route, bias, window):
+def _block(cfg, p, h, cos, sin, rot_dim, ck, cv, meta, route, bias, window, plan):
     x = _norm(cfg, p["input_norm"], h)
-    attn = _attention(cfg, p["attn"], x, cos, sin, rot_dim, ck, cv, meta, route, bias, window)
+    attn = _attention(cfg, p["attn"], x, cos, sin, rot_dim, ck, cv, meta, route, bias, window,
+                      plan)
     if cfg.block_style == "sandwich":  # gemma2
         h = h + _norm(cfg, p["post_attn_norm"], attn)
         x = _norm(cfg, p["pre_mlp_norm"], h)
@@ -238,7 +269,9 @@ def decoder_forward(
         h = h * torch.tensor(cfg.embed_scale, dtype=h.dtype)
     cos, sin = rope.gather(meta.positions.to(torch.int64))  # [B, T, rot/2]
     S = meta.block_tables.shape[1] * cache.page_size
-    route = _attention_route(cfg, T, meta, S)
+    route = _attention_route(cfg, T, meta, S, combined=cache.combined)
+    # the ragged route's packing of this step, the same in every layer
+    plan = ragged_plan(meta, T, cache.page_size) if route == "ragged" else None
     bias_full = bias_win = None
     if route == "gather":
         # masks built once per step (only for the gather route), picked per layer
@@ -252,8 +285,9 @@ def decoder_forward(
                                         sliding_window=cfg.sliding_window) + pad[:, None, None, :]
     for i, lp in enumerate(params.layers):
         local = cfg.layer_uses_sliding_window(i)
-        h = _block(cfg, lp, h, cos, sin, rope.rot_dim, cache.k[i], cache.v[i], meta, route,
-                   bias_win if local else bias_full, cfg.sliding_window if local else None)
+        h = _block(cfg, lp, h, cos, sin, rope.rot_dim, cache.k[i],
+                   None if cache.combined else cache.v[i], meta, route,
+                   bias_win if local else bias_full, cfg.sliding_window if local else None, plan)
     return _norm(cfg, params.final_norm, h), cache
 
 

@@ -4,13 +4,16 @@ paged attention kernels K6' and K7.
 Counterpart of mistralrs_tpu/ops/paged_attention.py: `PagedKVCache`,
 `PagedAttnMeta`, `write_paged_kv`, `gather_paged_kv`,
 `paged_attention_reference`, `copy_pages`, `flash_prefill_continuation`
-(K6') and `paged_decode_attention` (K7). Int8, combined and split pools are
-later work.
+(K6') and `paged_decode_attention` (K7). Int8 and split pools are later
+work.
 
-Two pool layouts, as in the JAX package (`head_major`):
+Three pool layouts, as in the JAX package (`head_major`, `combined`):
 - token-major k/v [L, P, page, Hkv, D]: one page row is one token's heads;
 - head-major k/v [L, Hkv, P, page, D]: each kv head's page is one
-  contiguous [page, D] block, the layout the decode kernel streams.
+  contiguous [page, D] block, the layout the decode kernel streams;
+- combined k [L, P, page, 2*Hkv, D] with v None: token-major, K at the even
+  and V at the odd head indices, the layout of the ragged backend
+  (ops/ragged_attention.py).
 Each layer's pool `k[l]` is a view, so the decoder passes per-layer views
 without copies. Page 0 of every layer is the garbage page: padding tokens'
 slot_mapping points into it, so writes need no masking, and the block
@@ -48,22 +51,32 @@ _L = ctypes.c_longlong
 @dataclasses.dataclass
 class PagedKVCache:
     """k/v pages, token-major [L, P, page, Hkv, D] or head-major
-    [L, Hkv, P, page, D]. Page 0 is reserved."""
+    [L, Hkv, P, page, D]; or one combined pool k [L, P, page, 2*Hkv, D]
+    (K even, V odd) with v None. Page 0 is reserved."""
 
     k: torch.Tensor
-    v: torch.Tensor
+    v: torch.Tensor | None
     head_major: bool = False
 
     @classmethod
     def create(cls, num_layers: int, num_pages: int, page_size: int, kv_heads: int,
                head_dim: int, dtype=torch.bfloat16, device="cuda",
-               head_major: bool = False) -> "PagedKVCache":
+               head_major: bool = False, combined: bool = False) -> "PagedKVCache":
+        if combined:
+            if head_major:
+                raise ValueError("a combined pool is token-major")
+            shape = (num_layers, num_pages, page_size, 2 * kv_heads, head_dim)
+            return cls(k=torch.zeros(shape, dtype=dtype, device=device), v=None)
         if head_major:
             shape = (num_layers, kv_heads, num_pages, page_size, head_dim)
         else:
             shape = (num_layers, num_pages, page_size, kv_heads, head_dim)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device), head_major=head_major)
+
+    @property
+    def combined(self) -> bool:
+        return self.v is None
 
     @property
     def page_size(self) -> int:
@@ -187,7 +200,7 @@ def copy_pages(cache: PagedKVCache, src, dst) -> PagedKVCache:
     dev = cache.k.device
     src = torch.as_tensor(src, dtype=torch.int64, device=dev)
     dst = torch.as_tensor(dst, dtype=torch.int64, device=dev)
-    for arr in (cache.k, cache.v):
+    for arr in (cache.k,) if cache.combined else (cache.k, cache.v):
         if cache.page_axis == 2:
             arr[:, :, dst] = arr[:, :, src]
         else:

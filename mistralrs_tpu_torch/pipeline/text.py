@@ -5,7 +5,8 @@ arrays as the JAX pipeline does (decode padded to `max_seqs` rows, prefill
 chunks padded to a bucket, page 0 as the garbage page for padding slots,
 page-bucketed block-table widths), moves them to the device and runs
 `decoder_forward` eagerly; the KV pools are updated in place, head-major
-at `max_model_len >= 4096` unless `kv_head_major` says otherwise. A batched
+at `max_model_len >= 4096` unless `kv_head_major` says otherwise, or one
+combined K/V pool on the ragged backend (`attn_backend="ragged"`). A batched
 prefill has one row per sequence: eager PyTorch has no compiled shape to
 keep, so it does not pad the batch to `max_seqs` as the JAX package does.
 
@@ -68,6 +69,11 @@ class PipelineConfig:
     # KV pool layout: None = head-major at max_model_len >= 4096 (the
     # layout the block-table decode kernel streams), token-major below
     kv_head_major: bool | None = None
+    # paged attention backend: None/"default" = the per-step routes of
+    # models/decoder.py; "ragged" = one combined K/V pool, token-major, with
+    # the ragged paged attention kernel K12 for every continuation chunk and
+    # decode step (ops/ragged_attention.py)
+    attn_backend: str | None = None
     device: str = "cuda"
 
 
@@ -82,6 +88,14 @@ class TextPipeline:
     def __init__(self, cfg: ModelConfig, params: DecoderParams, rope: RopeTable,
                  pc: PipelineConfig):
         self.device = torch.device(pc.device)
+        # token ids go through f32 in the greedy packs (_run,
+        # run_decode_multi), exact only while every id fits its mantissa
+        assert cfg.vocab_size < (1 << 24), (
+            f"vocab_size {cfg.vocab_size} >= 2^24: the f32-packed greedy ids would lose "
+            "precision")
+        if pc.attn_backend not in (None, "default", "ragged"):
+            raise ValueError(f"attn_backend {pc.attn_backend!r}: expected None, 'default' or "
+                             "'ragged'")
         self.cfg = cfg
         self.rope = rope.to(self.device)
         if pc.num_pages is None:
@@ -103,11 +117,14 @@ class TextPipeline:
         if pc.rq8_group:
             params = requant_q6k_params(params, gs=pc.rq8_group)
         self.params = params
-        self.head_major = (pc.kv_head_major if pc.kv_head_major is not None
-                           else pc.max_model_len >= 4096)
+        self.kv_combined = pc.attn_backend == "ragged"
+        # the combined pool is token-major by construction
+        self.head_major = not self.kv_combined and (
+            pc.kv_head_major if pc.kv_head_major is not None else pc.max_model_len >= 4096)
         self.cache = PagedKVCache.create(cfg.num_layers, pc.num_pages, pc.page_size,
                                          cfg.num_kv_heads, cfg.head_dim, pc.dtype,
-                                         device=self.device, head_major=self.head_major)
+                                         device=self.device, head_major=self.head_major,
+                                         combined=self.kv_combined)
         self._last_greedy_pack: torch.Tensor | None = None
         self._last_logits: torch.Tensor | None = None
 

@@ -3,6 +3,7 @@
 on one NVIDIA card.
 
     python3 scripts/torch_decode_profile.py [--layers N] [--batch 16] [--mix q4km|q5km|q2k|gemma2]
+                                            [--backend default|ragged]
 
 Builds a random-weight model of chip_smoke.py at its full depth unless
 `--layers` says otherwise: Mistral-7B with `--mix q4km`
@@ -11,7 +12,10 @@ Builds a random-weight model of chip_smoke.py at its full depth unless
 q2k` in llama.cpp's Q2_K mix (Q2_K q, k, gate, up on the plane-affine
 GEMV; Q4_K v; Q3_K o, down and the Q6_K lm_head requantized to int8 per
 32); Gemma-2-9B with `--mix gemma2` (every projection in Q4_K, the tied
-bf16 embedding as the lm_head, 42 layers). After a
+bf16 embedding as the lm_head, 42 layers). `--backend ragged` serves it on
+the ragged attention backend (one combined K/V pool; the ragged paged
+attention kernel K12 for continuation chunks and decode) instead of the
+default routes (decode below span 4096 on the gather route). After a
 warm-up that runs each step once untraced (a first use of a kernel or a
 GEMM shape costs up to ~0.2 s of host time), traces one batched
 first-chunk prefill engine step each of FEW 40-token prompts (a 64-token
@@ -44,6 +48,7 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--mix", choices=("q4km", "q5km", "q2k", "gemma2"), default="q4km")
+    ap.add_argument("--backend", choices=("default", "ragged"), default="default")
     args = ap.parse_args()
 
     import torch
@@ -69,7 +74,7 @@ def main() -> int:
     params = build(sz, args.layers, dev, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
     pc = PipelineConfig(page_size=16, num_pages=1024, max_seqs=args.batch, max_model_len=2048,
                         prefill_buckets=(64, 256), decode_steps=8, device="cuda",
-                        rq8_group=None if args.mix == "q5km" else 32)
+                        rq8_group=None if args.mix == "q5km" else 32, attn_backend=args.backend)
     pipe = TextPipeline(cfg, params, make_rope(cfg, 2048, device=dev), pc)
     del params
     eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
@@ -133,10 +138,14 @@ def report(phase, name, args, prof, wall, extra) -> None:
                and getattr(e.device_type, "name", "") == "CUDA"]  # device-side events only
     dev_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
-    print(json.dumps({"phase": phase, "device": name, "mix": args.mix, "layers": args.layers,
-                      "batch": args.batch,
+    # fewer device kernel events than launches: the trace dropped some, and
+    # device_busy_ms covers only the forwards it kept
+    events = sum(e.count for e in kernels)
+    print(json.dumps({"phase": phase, "device": name, "mix": args.mix, "backend": args.backend,
+                      "layers": args.layers, "batch": args.batch,
                       **extra, "traced_wall_ms": wall * 1e3, "device_busy_ms": dev_us / 1e3,
-                      "device_busy_share": dev_us / 1e6 / wall, "launches": launches}))
+                      "device_busy_share": dev_us / 1e6 / wall, "launches": launches,
+                      "device_kernel_events": events}))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(json.dumps({"phase": phase, "kernel": e.key[:90], "count": e.count,
                           "device_ms": e.self_device_time_total / 1e3}))

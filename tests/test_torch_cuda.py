@@ -13,6 +13,7 @@ import torch
 from mistralrs_tpu_torch.ops import flash_attention as fa
 from mistralrs_tpu_torch.ops import paged_attention as pa
 from mistralrs_tpu_torch.ops import quant_matmul as qm
+from mistralrs_tpu_torch.ops import ragged_attention as ra
 from mistralrs_tpu_torch.ops import splash as sp
 
 pytestmark = pytest.mark.cuda
@@ -455,3 +456,109 @@ def test_splash_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):  # head dim 96 for the decode kernel
         pa.paged_decode_attention(*_paged_inputs(dev, 1, 1, (40,), 4, 2, True, seed=0, D=96),
                                   scale=1.0)
+
+
+def _ragged_inputs(dev, seqs, B, Hq, Hkv, D, seed, page=16, amp=1.0):
+    """K12's arguments: live sequences `seqs` ((q_len, kv_len) each) in B
+    slots (the rest padding), packed bf16 queries, a combined pool with
+    each sequence on its own shuffled pages, tables a power of two of pages
+    wide, int32 metadata."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    W = 4
+    while W * page < max(kv for _, kv in seqs):
+        W *= 2
+    P = 1 + B * W
+    pool = torch.randn(P, page, 2 * Hkv, D, generator=g).to(dev, torch.bfloat16)
+    tables = (1 + torch.randperm(P - 1, generator=g)).reshape(B, W).to(dev, torch.int32)
+    q_lens = [ql for ql, _ in seqs] + [0] * (B - len(seqs))
+    kv_lens = [kv for _, kv in seqs] + [1] * (B - len(seqs))
+    q = (torch.randn(sum(q_lens), Hq, D, generator=g) * amp).to(dev, torch.bfloat16)
+    cu = torch.cumsum(torch.tensor([0] + q_lens), 0).to(dev, torch.int32)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (q, pool, torch.tensor(kv_lens, **i32), tables, cu,
+            torch.tensor([len(seqs)], **i32))
+
+
+RAGGED_CASES = [
+    # decode (max_q_len 1): Mistral-7B and Gemma-2-9B widths, a window that
+    # clips, fewer live sequences than slots, kv_len 1
+    (((1, 4096),) * 16, 16, 32, 8, 128, None, None, 1),
+    (((1, 1024),) * 16, 16, 16, 8, 256, None, 50.0, 1),
+    (((1, 4664), (1, 3), (1, 4100), (1, 1)), 16, 16, 8, 256, 4096, 50.0, 1),
+    (((1, 300), (1, 77)), 3, 16, 1, 256, 48, None, 1),
+    # chunks: 4 x 512 continuations, the window clipping inside them,
+    # a ragged q_len, a window inside one tile, a first chunk
+    (((512, 4096),) * 4, 4, 32, 8, 128, None, None, 512),
+    (((512, 4608),) * 4, 4, 16, 8, 256, 4096, 50.0, 512),
+    (((176, 1200), (256, 256)), 3, 32, 8, 128, 48, 30.0, 256),
+    (((200, 200),), 1, 16, 8, 256, None, 50.0, 256),
+    # a mixed batch: decode, first chunk and continuation in 4 slots
+    (((1, 3000), (256, 256), (176, 1200)), 4, 16, 8, 256, 4096, 50.0, None),
+    (((1, 3000), (256, 256), (176, 1200)), 4, 32, 8, 128, None, None, None),
+]
+
+
+@pytest.mark.parametrize("seqs,B,Hq,Hkv,D,window,cap,max_q", RAGGED_CASES)
+def test_ragged_attention_matches_plain(dev, seqs, B, Hq, Hkv, D, window, cap, max_q):
+    """K12 on the rows of its live sequences; rows of sequences past
+    num_seqs are not its to write."""
+    args = _ragged_inputs(dev, seqs, B, Hq, Hkv, D, seed=len(seqs) + D, amp=4.0 if cap else 1.0)
+    kw = dict(scale=D ** -0.5, sliding_window=window, logits_softcap=cap)
+    before = ra.ragged_attention_launches
+    got = ra.ragged_attention(*args, **kw, max_q_len=max_q).float()
+    want = ra.ragged_attention_plain(*args, **kw).float()
+    torch.cuda.synchronize()
+    assert ra.ragged_attention_launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    # as K6'/K7: bf16 output on both sides, P rounded to bf16 before P.V in
+    # the kernel, f32 sums in another order; tanhf against torch.tanh
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def test_ragged_padded_on_the_card_zeroes_padding_rows(dev):
+    """ragged_attention_padded around K12: a continuation of 176 real rows
+    padded to 256 beside a padding slot; the real rows match the plain
+    path, the padding comes out zero."""
+    B, T, Hq, Hkv, D, page = 2, 256, 32, 8, 128, 16
+    g = torch.Generator(device="cpu").manual_seed(3)
+    W = 128
+    pool = torch.randn(1 + W, page, 2 * Hkv, D, generator=g).to(dev, torch.bfloat16)
+    tables = torch.zeros(B, W, dtype=torch.int64)
+    tables[0] = torch.arange(1, 1 + W)
+    start, n = 1024, 176
+    pos = torch.arange(start, start + n)
+    slots = torch.zeros(B, T, dtype=torch.int64)
+    slots[0, :n] = tables[0, pos // page] * page + pos % page
+    meta = pa.PagedAttnMeta(positions=torch.zeros(B, T, dtype=torch.int64, device=dev),
+                            slot_mapping=slots.to(dev), block_tables=tables.to(dev),
+                            kv_lens=torch.tensor([start + T, 1], device=dev),
+                            active=torch.tensor([1.0, 0.0], device=dev))
+    q = torch.randn(B, T, Hq, D, generator=g).to(dev, torch.bfloat16)
+    got = ra.ragged_attention_padded(q, pool, meta, scale=D ** -0.5).float()
+    cpu_meta = pa.PagedAttnMeta(**{f: getattr(meta, f).cpu() for f in (
+        "positions", "slot_mapping", "block_tables", "kv_lens", "active")})
+    want = ra.ragged_attention_padded(q.cpu().float(), pool.cpu().float(), cpu_meta,
+                                      scale=D ** -0.5).to(dev)
+    torch.cuda.synchronize()
+    assert not bool(got[0, n:].any()) and not bool(got[1].any())
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def test_ragged_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    args = list(_ragged_inputs(dev, ((4, 40),), 1, 4, 2, 128, seed=0))
+    with pytest.raises(ValueError):  # f32 queries
+        ra.ragged_attention(args[0].float(), *args[1:], scale=1.0)
+    with pytest.raises(ValueError):  # head dim 64
+        small = _ragged_inputs(dev, ((4, 40),), 1, 4, 2, 64, seed=0)
+        ra.ragged_attention(*small, scale=1.0)
+    with pytest.raises(ValueError):  # a page size of 12
+        odd = _ragged_inputs(dev, ((4, 40),), 1, 4, 2, 128, seed=0, page=12)
+        ra.ragged_attention(*odd, scale=1.0)
+    with pytest.raises(ValueError):  # a non-contiguous pool
+        ra.ragged_attention(args[0], args[1].transpose(1, 2).contiguous().transpose(1, 2),
+                            *args[2:], scale=1.0)
+    with pytest.raises(ValueError):  # 3 query heads per kv head
+        three = _ragged_inputs(dev, ((4, 40),), 1, 6, 2, 128, seed=0)
+        ra.ragged_attention(*three, scale=1.0)
+    with pytest.raises(ValueError):  # kv_lens on the CPU
+        ra.ragged_attention(args[0], args[1], args[2].cpu(), *args[3:], scale=1.0)

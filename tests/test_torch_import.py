@@ -55,8 +55,9 @@ def test_every_module_is_listed():
     assert "mistralrs_tpu_torch" in MODULES
     assert "mistralrs_tpu_torch.ops.quant_matmul" in MODULES
     assert {"mistralrs_tpu_torch.quant.gptq", "mistralrs_tpu_torch.quant.hqq",
-            "mistralrs_tpu_torch.ops.splash"} <= set(MODULES)
-    assert len(MODULES) >= 28
+            "mistralrs_tpu_torch.ops.splash",
+            "mistralrs_tpu_torch.ops.ragged_attention"} <= set(MODULES)
+    assert len(MODULES) >= 29
 
 
 @pytest.mark.parametrize("module", MODULES)

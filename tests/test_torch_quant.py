@@ -141,6 +141,12 @@ def test_dense_linear_matches():
      "rms_norm_eps": 1e-5},
     {"model_type": "llama", "vocab_size": 128, "hidden_size": 64, "intermediate_size": 96,
      "num_hidden_layers": 2, "num_attention_heads": 4, "tie_word_embeddings": True},
+    # the epsilon under its other names, which JAX's _base falls back to
+    {"architectures": ["MistralForCausalLM"], "vocab_size": 32000, "hidden_size": 4096,
+     "intermediate_size": 14336, "num_hidden_layers": 32, "num_attention_heads": 32,
+     "num_key_value_heads": 8, "layer_norm_eps": 1e-6},
+    {"model_type": "llama", "vocab_size": 128, "hidden_size": 64, "intermediate_size": 96,
+     "num_hidden_layers": 2, "num_attention_heads": 4, "norm_epsilon": 1e-6},
 ])
 def test_config_from_hf_matches(hf):
     from mistralrs_tpu.models.config import config_from_hf as jconfig
@@ -154,6 +160,19 @@ def test_config_from_hf_matches(hf):
         assert getattr(tc, field) == getattr(jc, field), field
     with pytest.raises(ValueError):  # an architecture the port does not translate
         tconfig({"model_type": "phi3"})
+
+
+def test_pipeline_refuses_a_vocabulary_of_2_24():
+    """Token ids go through f32 in the greedy packs, exact only below 2^24:
+    the pipeline refuses a larger vocabulary, as the JAX package does."""
+    from mistralrs_tpu_torch.models.config import ModelConfig
+    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
+
+    cfg = ModelConfig(arch="llama", vocab_size=2**24, hidden_size=64, intermediate_size=96,
+                      num_layers=1, num_heads=4, num_kv_heads=4, head_dim=16,
+                      max_position_embeddings=128)
+    with pytest.raises(AssertionError, match="2\\^24"):
+        TextPipeline(cfg, None, None, PipelineConfig(device="cpu"))
 
 
 @pytest.mark.parametrize("sizing", [

@@ -83,10 +83,29 @@ non-zero and never prints the final line):
    2-layer Mistral-7B Q4_K_M (rq8) and Gemma-2-9B: a ~1,200-token prompt in
    a 512-token first chunk (K6 / K11), continuation chunks of 512 and 176
    (padded to 256: a ragged q_len) on K12, then 4 decode steps on K12.
+13. mixtral: Mixtral-8x7B (config_from_hf on mistralai/Mixtral-8x7B-v0.1's
+   config.json) as ISQ Q4K loads the HF checkpoint: Q4_K attention, router
+   and lm_head, dense bf16 experts (2.82 GB a layer, so 24 of its 32 layers;
+   16 if the card's free memory is short), served in the slice phase's
+   pattern through the grouped dropless dispatch: the grouped GEMM K13 at
+   M = 2,048 (4 x 256-row first chunks, with K6), 512 (4 x 64 rows) and
+   <= 32 (decode; K1 for the router and the attention). It raises unless
+   K13, K6 and K1 launched.
+14. mixtral_q4km: the same model from a GGUF in the Q4_K_M rule at all 32
+   layers: Q4_K experts stacked [E, ...] (28 GB), Q4_K q, k, o, Q6_K attn_v
+   and lm_head (rq8), the dense router; the same pattern through the
+   every-expert branch, each expert on K1 up to 256 rows. It raises unless
+   K1 served the experts and K13 did not launch.
+15. card_vs_cpu_mixtral: phase 9's comparison for 2-layer Mixtral at full
+   width, with dense bf16 experts (K13 on the card) and with packed Q4_K
+   experts (K1).
 The kernel phase also holds K12 against its plain version (decode at
 Mistral-7B's and Gemma-2-9B's widths, 4 x 512 continuation chunks, a mixed
 batch of a decode row, a first chunk and a continuation with fewer live
-sequences than slots).
+sequences than slots), and K13 at Mixtral's gate and down for a decode
+step, 4 x 64-, 4 x 256- and 4 x 512-row chunks, and all rows in one group.
+Each phase before a Mixtral one frees its memory (its objects are deleted,
+then gc.collect and torch.cuda.empty_cache).
 Then the kernels line and, last, {"ok": true, "device": {...}}.
 """
 
@@ -140,6 +159,8 @@ KERNEL_INFO = {
                        "mistralrs_tpu/ops/splash.py:59"),
     "ragged_attention": ("mistralrs_tpu_torch/csrc/ragged_attention.cu",
                          "mistralrs_tpu/ops/ragged_attention.py:162"),
+    "grouped_gemm": ("mistralrs_tpu_torch/csrc/grouped_gemm.cu",
+                     "mistralrs_tpu/ops/grouped_gemm.py:60"),
 }
 # the shape whose numbers stand in the kernels line
 HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
@@ -149,12 +170,13 @@ HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
             "q6k_bf16_gemv": "down B=256", "q5k_q8_gemv": "gate|up B=16", "q6k_dequant": "down",
             "q5k_dequant": "gate|up", "affine_gemv": "gate|up q2k B=16",
             "affine_dequant": "gate|up q2k", "splash_prefill": "gemma2-9b B=4 T=512",
-            "ragged_attention": "mistral B=16 kv=4096 decode"}
+            "ragged_attention": "mistral B=16 kv=4096 decode", "grouped_gemm": "gate M=32 decode"}
 # the kernels each serving phase's path adds (long_context also runs the
 # slice path's, quant_mix also flash_prefill, q2k also the slice path's,
 # gemma2 also q4k_q8_gemv and q4k_dequant, and paged_decode in
-# card_vs_cpu_gemma2; gemma2_ragged also splash_prefill); the line's
-# launches of each kernel come from the phase of its path
+# card_vs_cpu_gemma2; gemma2_ragged also splash_prefill; mixtral also
+# flash_prefill and q4k_q8_gemv); the line's launches of each kernel come
+# from the phase of its path
 PATH_KERNELS = {
     "slice": ("q4k_q8_gemv", "q8_0_q8_gemv", "flash_prefill", "q4k_dequant", "q8_0_dequant"),
     "long_context": ("flash_prefill_paged", "paged_decode"),
@@ -162,6 +184,7 @@ PATH_KERNELS = {
     "q2k": ("affine_gemv", "affine_dequant"),
     "gemma2": ("splash_prefill",),
     "gemma2_ragged": ("ragged_attention",),
+    "mixtral": ("grouped_gemm",),
 }
 # each kernel's launch counter: (module under mistralrs_tpu_torch.ops, name)
 COUNTERS = {
@@ -181,6 +204,7 @@ COUNTERS = {
     "affine_dequant": ("quant_matmul", "affine_dequant_launches"),
     "splash_prefill": ("splash", "splash_prefill_launches"),
     "ragged_attention": ("ragged_attention", "ragged_attention_launches"),
+    "grouped_gemm": ("grouped_gemm", "grouped_gemm_launches"),
 }
 
 
@@ -311,11 +335,39 @@ def _rand_q4k(gen, device, fdt, i: int, o: int, kind: str = "gguf_q4k"):
     return Linear(kind, (i, o), data)
 
 
+def _rand_q6k(gen, device, fdt, i: int, o: int, q3k: bool = False):
+    """A random Q6_K Linear [i -> o] (codes uniform, so each weight's mean
+    is near zero; scales U[0.001, 0.005)), or with q3k Q3_K codes packed
+    into the Q6_K layout."""
+    import torch
+
+    from mistralrs_tpu_torch.quant.gguf_linear import q6k_chunk_size, q6k_perm
+    from mistralrs_tpu_torch.quant.qlinear import Linear
+
+    G = q6k_chunk_size(i)
+    perm = torch.from_numpy(q6k_perm(i, G)).to(device)
+    if q3k:
+        # codes q3 + 28 of the four spans of each packed position (the
+        # layout of _q6k_natural: ql rows of spans 0|2 then 1|3 per chunk,
+        # high bits of span j at bits 2j of qh)
+        c = 28 + torch.randint(0, 8, (4, i // (4 * G), G, o), dtype=torch.uint8,
+                               device=device, generator=gen)
+        lo, hi = c & 0xF, c >> 4
+        ql = torch.stack([lo[0] | (lo[2] << 4), lo[1] | (lo[3] << 4)], dim=1)
+        qh = hi[0] | (hi[1] << 2) | (hi[2] << 4) | (hi[3] << 6)
+        ql, qh = ql.reshape(i // 2, o), qh.reshape(i // 4, o)
+    else:
+        ql, qh = _rand_u8(gen, device, i // 2, o), _rand_u8(gen, device, i // 4, o)
+    return Linear("gguf_q6k", (i, o), {"ql": ql, "qh": qh,
+                                       "scale": _rand_unif(gen, device, fdt, 0.001, 0.005,
+                                                           i // 16, o),
+                                       "perm": perm, "inv_perm": torch.argsort(perm)}, meta=G)
+
+
 def _random_mix_params(sz: Sizes, n_layers: int, device, gen, fdt, base: str):
     import torch
 
     from mistralrs_tpu_torch.models.decoder import DecoderParams
-    from mistralrs_tpu_torch.quant.gguf_linear import q6k_chunk_size, q6k_perm
     from mistralrs_tpu_torch.quant.qlinear import Linear
 
     def u8(*shape):
@@ -328,23 +380,7 @@ def _random_mix_params(sz: Sizes, n_layers: int, device, gen, fdt, base: str):
         return _rand_q4k(gen, device, fdt, i, o, kind)
 
     def q6k(i, o, q3k=False):
-        G = q6k_chunk_size(i)
-        perm = torch.from_numpy(q6k_perm(i, G)).to(device)
-        if q3k:
-            # codes q3 + 28 of the four spans of each packed position (the
-            # layout of _q6k_natural: ql rows of spans 0|2 then 1|3 per chunk,
-            # high bits of span j at bits 2j of qh)
-            c = 28 + torch.randint(0, 8, (4, i // (4 * G), G, o), dtype=torch.uint8,
-                                   device=device, generator=gen)
-            lo, hi = c & 0xF, c >> 4
-            ql = torch.stack([lo[0] | (lo[2] << 4), lo[1] | (lo[3] << 4)], dim=1)
-            qh = hi[0] | (hi[1] << 2) | (hi[2] << 4) | (hi[3] << 6)
-            ql, qh = ql.reshape(i // 2, o), qh.reshape(i // 4, o)
-        else:
-            ql, qh = u8(i // 2, o), u8(i // 4, o)
-        return Linear("gguf_q6k", (i, o), {"ql": ql, "qh": qh,
-                                           "scale": unif(0.001, 0.005, i // 16, o),
-                                           "perm": perm, "inv_perm": torch.argsort(perm)}, meta=G)
+        return _rand_q6k(gen, device, fdt, i, o, q3k)
 
     def q2k(i, o):
         scale = unif(0.001, 0.005, i // 16, o)
@@ -392,6 +428,120 @@ def random_gemma2_params(sz: Sizes, n_layers: int, device, gen, fdt):
                **{n: {"w": zeros} for n in norms}} for _ in range(n_layers)]
     return DecoderParams(embed=_rand_unif(gen, device, fdt, 0.001, 0.005, sz.vocab, H),
                          layers=layers, final_norm={"w": zeros}, lm_head=None)
+
+
+# Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1 config.json): Mistral-7B's
+# attention widths and vocabulary, 8 experts of intermediate 14336, 2 a token
+MIXTRAL = Sizes()
+MIXTRAL_EXPERTS = 8
+# the bf16-expert model's depth: its experts hold 2.82 GB a layer (90 GB over
+# 32 layers), so 24 layers (68 GB) fit one 80 GB card; 16 if the card's free
+# memory is short of MIXTRAL_BF16_NEED_GB
+MIXTRAL_BF16_LAYERS = (24, 16)
+MIXTRAL_BF16_NEED_GB = 74.0
+
+
+def _rand_q4k_centered(gen, device, fdt, i: int, o: int, stack: tuple = ()):
+    """A random Q4_K Linear [i -> o], its tensors stacked on leading axes
+    `stack` (the experts' [E, ...]): codes uniform, scales U[0.001, 0.005),
+    minv = 7.5 * scale, so each weight's mean is zero."""
+    from mistralrs_tpu_torch.quant.qlinear import Linear
+
+    scale = _rand_unif(gen, device, fdt, 0.001, 0.005, *stack, i // 32, o)
+    return Linear("gguf_q4k", (i, o), {"qs": _rand_u8(gen, device, *stack, i // 2, o),
+                                       "scale": scale, "minv": (7.5 * scale.float()).to(fdt)})
+
+
+def _q4k_from_values(w, fdt):
+    """A float weight [i, o] (i % 32 == 0) in the port's Q4_K layout, by a
+    plain per-32 affine rounding (scale = (max - min) / 15, minv = -min):
+    the layout ISQ Q4K loads a weight into, without its scale search."""
+    import torch
+
+    from mistralrs_tpu_torch.quant.qlinear import Linear
+
+    i, o = w.shape
+    wb = w.float().reshape(i // 32, 32, o)
+    lo, hi = wb.amin(dim=1), wb.amax(dim=1)
+    scale = ((hi - lo) / 15).clamp_min(1e-12)
+    q = torch.round((wb - lo[:, None]) / scale[:, None]).clamp(0, 15).to(torch.uint8).reshape(i, o)
+    return Linear("gguf_q4k", (i, o), {"qs": q[: i // 2] | (q[i // 2:] << 4),
+                                       "scale": scale.to(fdt), "minv": (-lo).to(fdt)})
+
+
+def random_mixtral_params(sz: Sizes, n_layers: int, device, gen, fdt, packed: bool = False,
+                          experts: int = MIXTRAL_EXPERTS):
+    """Random weights of Mixtral at sz's widths. Every weight has mean zero:
+    a common mode in the hidden state would send every token to the same
+    two experts. Token v's embedding row is c u_a + (c / 2) u_b plus
+    N(0, 0.5^2) noise (c = 2 sqrt(H)), with u_e a random unit direction of
+    expert e and (a, b) a random pair of experts of v; the router's column e
+    is 2.3 u_e / sqrt(H). So each token's two experts lead its router logits
+    by ~1 and ~2 over the others' ~0.03 (in rms_norm(h) units), layer after
+    layer: every expert is routed tokens, with a margin far above bf16 and
+    int8 rounding, which the card-vs-CPU check needs (a token routed to
+    another expert on one side moves its logits by far more than rounding
+    does). Norm weights 1.
+    - packed=False: the HF checkpoint as ISQ Q4K loads it: Q4_K attention,
+      router and lm_head; dense experts gate/up [E, H, I], down [E, I, H]
+      drawn N(0, 1/in) in fdt.
+    - packed=True: a GGUF in the Q4_K_M rule: Q4_K q, k, o and the experts'
+      gate, up and down stacked [E, ...]; Q6_K attn_v and lm_head; the
+      router dense (GGUF keeps ffn_gate_inp in F32)."""
+    import torch
+
+    from mistralrs_tpu_torch.models.decoder import DecoderParams
+    from mistralrs_tpu_torch.quant.qlinear import Linear, make_dense
+
+    H, I, D, E = sz.hidden, sz.inter, sz.head_dim, experts
+    u = torch.randn(E, H, device=device, generator=gen)
+    u = u / u.norm(dim=1, keepdim=True)
+    a = torch.randint(0, E, (sz.vocab,), device=device, generator=gen)
+    b = (a + torch.randint(1, E, (sz.vocab,), device=device, generator=gen)) % E
+    c = 2 * H ** 0.5
+    embed = c * u[a] + (c / 2) * u[b] + 0.5 * torch.randn(sz.vocab, H, device=device, generator=gen)
+    router_w = (u.T * (2.3 / H ** 0.5)).contiguous()  # [H, E]
+
+    def q4k(i, o, stack=()):
+        return _rand_q4k_centered(gen, device, fdt, i, o, stack)
+
+    def normal(*shape):
+        w = torch.randn(shape, device=device, generator=gen, dtype=fdt)
+        return Linear("dense", (shape[1], shape[2]), {"w": w.mul_(shape[1] ** -0.5)})
+
+    ones = torch.ones(H, dtype=fdt, device=device)
+    layers = []
+    for _ in range(n_layers):
+        if packed:
+            v = _rand_q6k(gen, device, fdt, H, sz.kv_heads * D)
+            mlp = {"router": make_dense(router_w.to(fdt)),
+                   "experts": {"gate": q4k(H, I, (E,)), "up": q4k(H, I, (E,)),
+                               "down": q4k(I, H, (E,))}}
+        else:
+            v = q4k(H, sz.kv_heads * D)
+            mlp = {"router": _q4k_from_values(router_w, fdt),
+                   "experts": {"gate": normal(E, H, I), "up": normal(E, H, I),
+                               "down": normal(E, I, H)}}
+        layers.append({"attn": {"q": q4k(H, sz.heads * D), "k": q4k(H, sz.kv_heads * D), "v": v,
+                                "o": q4k(sz.heads * D, H)},
+                       "mlp": mlp, "input_norm": {"w": ones}, "post_attn_norm": {"w": ones}})
+    head = _rand_q6k(gen, device, fdt, H, sz.vocab) if packed else q4k(H, sz.vocab)
+    return DecoderParams(embed=embed.to(fdt), layers=layers, final_norm={"w": ones}, lm_head=head)
+
+
+def mixtral_config(sz: Sizes, n_layers: int, experts: int = MIXTRAL_EXPERTS):
+    """config_from_hf on mistralai/Mixtral-8x7B-v0.1's config.json, at the
+    widths of `sz`, `experts` experts and n_layers layers."""
+    from mistralrs_tpu_torch.models.config import config_from_hf
+
+    return config_from_hf({
+        "architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+        "vocab_size": sz.vocab, "hidden_size": sz.hidden, "intermediate_size": sz.inter,
+        "num_hidden_layers": n_layers, "num_attention_heads": sz.heads,
+        "num_key_value_heads": sz.kv_heads, "num_local_experts": experts,
+        "num_experts_per_tok": 2, "hidden_act": "silu", "rms_norm_eps": 1e-5,
+        "rope_theta": 1e6, "max_position_embeddings": 32768, "sliding_window": None,
+        "tie_word_embeddings": False})
 
 
 def model_config(sz: Sizes, n_layers: int):
@@ -588,6 +738,7 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
     paged_kernels(sz, device, clock, gen, record)
     gemma2_kernels(device, clock, gen, record)
     ragged_kernels(device, clock, gen, record)
+    grouped_kernels(device, clock, gen, record)
     return results
 
 
@@ -1049,6 +1200,99 @@ def ragged_kernels(device, clock: Clock, gen, record) -> None:
         del q, pool, got, want
 
 
+# K13 cases (shape, K, N, tokens, all in one group): Mixtral-8x7B's gate (K
+# 4096 -> N 14336; up has its shape) and down (K 14336 -> N 4096) at a decode
+# step of 16 tokens (32 pairs; the headline), the 4 x 64-row and 4 x 256-row
+# first chunks of the mixtral phase and 4 x 512 (M 512, 2,048 and 4,096),
+# each token routed to 2 distinct random experts of 8; and 256 tokens' 512
+# pairs all in one group
+GROUPED_CASES = tuple(
+    (f"{nm} M={2 * tokens} {tag}", K, N, tokens, False)
+    for tokens, tag in ((16, "decode"), (256, "4x64"), (1024, "4x256"), (2048, "4x512"))
+    for nm, K, N in (("gate", 4096, 14336), ("down", 14336, 4096))
+) + (("gate M=512 one group", 4096, 14336, 256, True),)
+
+
+def top2_group_sizes(gen, tokens: int, experts: int, device):
+    """int32 [experts] group sizes of `tokens` tokens each routed to two
+    distinct random experts."""
+    import torch
+
+    a = torch.randint(0, experts, (tokens,), device=device, generator=gen)
+    b = (a + torch.randint(1, experts, (tokens,), device=device, generator=gen)) % experts
+    return torch.bincount(torch.cat([a, b]), minlength=experts).to(torch.int32)
+
+
+def grouped_library(clock: Clock, lhs, rhs, sizes, want) -> tuple:
+    """(ms of torch._grouped_mm on the same operands, with the group ends as
+    offsets, or None where this torch lacks it for them or it disagrees
+    with the plain version `want`; ms of a torch.matmul per non-empty group
+    on sizes read on the host)."""
+    import torch
+
+    ends = torch.cumsum(sizes, 0, dtype=torch.int32)
+    bounds = [0] + ends.tolist()
+    lib = None
+    fn = getattr(torch, "_grouped_mm", None)
+    # rhs as it is ([G, K, N], N contiguous), then a column-major copy
+    for col_major in ((False, True) if fn else ()):
+        b = rhs.transpose(1, 2).contiguous().transpose(1, 2) if col_major else rhs
+        try:
+            out = fn(lhs, b, offs=ends, out_dtype=torch.bfloat16).float()
+        except (RuntimeError, TypeError, ValueError):  # not for this layout or card
+            continue
+        if float((out - want).abs().max()) <= 1e-2 * float(want.abs().max()):
+            lib = clock.ms(lambda: fn(lhs, b, offs=ends, out_dtype=torch.bfloat16))
+            break
+
+    def loop():
+        for g in range(len(bounds) - 1):
+            if bounds[g + 1] > bounds[g]:
+                torch.matmul(lhs[bounds[g]:bounds[g + 1]], rhs[g])
+
+    return lib, clock.ms(loop)
+
+
+def grouped_kernels(device, clock: Clock, gen, record) -> None:
+    """Parity and timing of K13 at GROUPED_CASES against its plain version
+    (a per-group f32 product, sizes read on the host), random bf16 lhs and
+    weights N(0, 1/K). bound: every non-empty group's weights, lhs and out
+    once; 2 M K N flops. library: torch._grouped_mm (grouped_library), and
+    the per-group torch.matmul loop beside it."""
+    import torch
+
+    from mistralrs_tpu_torch.ops import grouped_gemm as gg
+
+    E = MIXTRAL_EXPERTS
+    weights = {}
+    for shape, K, N, tokens, one_group in GROUPED_CASES:
+        if (K, N) not in weights:
+            weights[(K, N)] = torch.randn(E, K, N, device=device, generator=gen,
+                                          dtype=torch.bfloat16).mul_(K ** -0.5)
+        rhs = weights[(K, N)]
+        M = 2 * tokens
+        if one_group:
+            sizes = torch.zeros(E, dtype=torch.int32, device=device)
+            sizes[2] = M
+        else:
+            sizes = top2_group_sizes(gen, tokens, E, device)
+        lhs = torch.randn(M, K, device=device, generator=gen, dtype=torch.bfloat16)
+        got = gg.grouped_matmul(lhs, rhs, sizes).float()
+        want = gg.grouped_matmul_ref(lhs, rhs, sizes).float()
+        err = float((got - want).abs().max())
+        rel = err / max(float(want.abs().max()), 1e-30)
+        lib, loop_ms = grouped_library(clock, lhs, rhs, sizes, want)
+        nbytes = int((sizes > 0).sum()) * K * N * 2 + M * K * 2 + M * N * 2
+        # bf16 out on both sides, rounded once from f32 sums in another order
+        record("grouped_gemm", shape, err, rel, 1e-2,
+               clock.ms(lambda: gg.grouped_matmul(lhs, rhs, sizes)),
+               clock.ms(lambda: gg.grouped_matmul_ref(lhs, rhs, sizes)), lib,
+               bound(nbytes, 2 * M * K * N, PEAK_BF16), group_sizes=sizes.tolist(),
+               matmul_loop_ms=loop_ms)
+        del lhs, got, want
+    del weights
+
+
 # ------------------------------------------------------------- phases 4, 5
 
 
@@ -1105,22 +1349,33 @@ def ttft_ms(groups: list) -> float:
                                    for s in g.seqs)
 
 
+def _linears(part: dict, prefix: str = ""):
+    """(name, Linear) of every Linear in a layer's attn or mlp dict, an MoE
+    mlp's experts included ("experts.gate", ...)."""
+    for name, node in part.items():
+        if isinstance(node, dict):
+            yield from _linears(node, f"{prefix}{name}.")
+        else:
+            yield prefix + name, node
+
+
 def served_kinds(pipe) -> list[str]:
     """The Linear kinds of a pipeline's projections and lm_head (if it is
     not the tied embedding), sorted."""
     head = pipe.params.lm_head
     return sorted({lin.kind for lp in pipe.params.layers for part in ("attn", "mlp")
-                   for lin in lp[part].values()} | ({head.kind} if head is not None else set()))
+                   for _, lin in _linears(lp[part])}
+                  | ({head.kind} if head is not None else set()))
 
 
 def short_context_phase(sz: Sizes, device, phase: str, params_fn, rq8_group,
-                        config_fn=model_config) -> dict:
-    """The full-depth model at max_model_len 2048 (token-major pools,
+                        config_fn=model_config, **extra) -> dict:
+    """The model at sz's depth at max_model_len 2048 (token-major pools,
     buckets 64/256) serves 4 greedy requests of ~200-token prompts (one 4 x
     256 first chunk), then 4 of ~40 tokens (4 x 64 rows), max_len tokens
-    each, after a warm-up with the same pattern. Returns the phase's line;
-    the launch counts are set to 0 just before the measured run and read
-    just after it."""
+    each, after a warm-up with the same pattern. Returns the phase's line
+    (with `extra` in it); the launch counts are set to 0 just before the
+    measured run and read just after it."""
     import torch
 
     from mistralrs_tpu_torch.engine.engine import Engine
@@ -1140,7 +1395,7 @@ def short_context_phase(sz: Sizes, device, phase: str, params_fn, rq8_group,
     del params  # the pipeline holds the fused (and requantized) copy
     kinds = served_kinds(pipe)
     q6k_kinds = sorted({f"{part}.{name}" for lp in pipe.params.layers for part in ("attn", "mlp")
-                        for name, lin in lp[part].items() if lin.kind == "gguf_q6k"}
+                        for name, lin in _linears(lp[part]) if lin.kind == "gguf_q6k"}
                        | ({"lm_head"} if getattr(pipe.params.lm_head, "kind", None) == "gguf_q6k"
                           else set()))
     eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
@@ -1178,7 +1433,7 @@ def short_context_phase(sz: Sizes, device, phase: str, params_fn, rq8_group,
            "p50_ttft_ms": ttft_ms(groups), "p50_ttft_ms_long": ttft_ms(groups[:4]),
            "p50_ttft_ms_short": ttft_ms(groups[4:]), "run_s": run_s, "setup_s": setup_s,
            "launches": counts, "decode_steps_per_call": pc.decode_steps, "max_seqs": pc.max_seqs,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **extra}
     emit(out)
     del eng, pipe
     return out
@@ -1236,6 +1491,66 @@ def gemma2_phase(sz: Sizes, device) -> dict:
     check_launched(out["launches"], PATH_KERNELS["gemma2"] + ("q4k_q8_gemv", "q4k_dequant"))
     if out["launches"]["flash_prefill"]:
         raise AssertionError(f"the Gemma-2 path launched the flash kernel K6: {out['launches']}")
+    return out
+
+
+def free_card_memory() -> float:
+    """Drop what earlier phases left (cycles, the caching allocator's free
+    blocks); returns the card's free memory in GB."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0] / 1e9
+
+
+# what the bf16-expert Mixtral pipeline serves: Q4_K attention, router and
+# lm_head (ISQ Q4K), dense bf16 experts
+MIXTRAL_KINDS = ["dense", "gguf_q4k"]
+# and the GGUF Q4_K_M one: Q4_K q, k, o and experts, int8 per 32 for the Q6_K
+# attn_v and lm_head, the dense router
+MIXTRAL_Q4KM_KINDS = ["dense", "gguf_q4k", "gguf_q8_0"]
+
+
+def mixtral_phase(sz: Sizes, device) -> dict:
+    """Mixtral-8x7B with dense bf16 experts at 24 of its 32 layers (16 if
+    the card's free memory is short): the slice pattern through the grouped
+    dropless dispatch, K13 at M = 2,048 (the 4 x 256-row first chunk, with
+    K6), M = 512 (4 x 64 rows) and M <= 32 (decode; K1 for the router and
+    the attention)."""
+    free_gb = free_card_memory()
+    layers = MIXTRAL_BF16_LAYERS[0] if free_gb >= MIXTRAL_BF16_NEED_GB else MIXTRAL_BF16_LAYERS[1]
+    out = short_context_phase(
+        dataclasses.replace(MIXTRAL, layers=layers), device, "mixtral", random_mixtral_params, 32,
+        mixtral_config, layers_of=32, free_gb_before=free_gb,
+        depth_cut=f"{layers} of 32 layers: the bf16 experts hold 2.82 GB a layer")
+    if out["kinds"] != MIXTRAL_KINDS:
+        raise AssertionError(f"the Mixtral pipeline serves other kinds: {out['kinds']}")
+    check_launched(out["launches"], PATH_KERNELS["mixtral"] + ("flash_prefill", "q4k_q8_gemv"))
+    return out
+
+
+def mixtral_q4km_phase(sz: Sizes, device) -> dict:
+    """Mixtral-8x7B from a GGUF in the Q4_K_M rule at all 32 layers (28 GB
+    of packed experts): the slice pattern through the packed every-expert
+    branch, each expert's gate, up and down on K1 up to 256 rows and on
+    q4k_dequant + torch.matmul above. K1 serves 26 GEMVs a layer (q|k, o
+    and 8 x 3 experts) for K2's one (attn_v) in each forward at most 256
+    rows, so it must have launched at least 24 x layers for each K2 launch
+    a forward makes (layers + 1, the lm_head's); K13 never launches."""
+    free_card_memory()
+    out = short_context_phase(MIXTRAL, device, "mixtral_q4km",
+                              lambda *a: random_mixtral_params(*a, packed=True), 32,
+                              mixtral_config)
+    if out["kinds"] != MIXTRAL_Q4KM_KINDS:
+        raise AssertionError(f"the Mixtral Q4_K_M pipeline serves other kinds: {out['kinds']}")
+    n = out["launches"]
+    check_launched(n, ("q4k_q8_gemv", "q8_0_q8_gemv", "q4k_dequant", "flash_prefill"))
+    small_forwards = n["q8_0_q8_gemv"] // (MIXTRAL.layers + 1)
+    if n["q4k_q8_gemv"] < 24 * MIXTRAL.layers * small_forwards or n["grouped_gemm"]:
+        raise AssertionError(f"the packed experts did not run on K1 alone: {n}")
     return out
 
 
@@ -1654,6 +1969,35 @@ def card_vs_cpu_ragged_phase(sz: Sizes, device) -> list[dict]:
     return outs
 
 
+def card_vs_cpu_mixtral_phase(sz: Sizes, device) -> list[dict]:
+    """The card against the CPU for 2-layer Mixtral-8x7B at full width
+    (token-major pools, rq8): a 256-token prefill and 4 decode steps with
+    dense bf16 experts (the grouped dispatch: K13 for gate, up and down of
+    both layers in every step, K6 on the prefill) and with packed Q4_K
+    experts (K1 for every expert, K13 never). The weights are made on the
+    card and copied to the CPU (f32 there: 11 GB for the dense experts)."""
+    import torch
+
+    n_layers = 2
+    cfg = mixtral_config(MIXTRAL, n_layers)
+    prompt = [int(t) for t in np.random.default_rng(10).integers(1, MIXTRAL.vocab, 256)]
+    outs = []
+    for phase, packed in (("card_vs_cpu_mixtral", False), ("card_vs_cpu_mixtral_q4km", True)):
+        free_card_memory()
+        weights = random_mixtral_params(MIXTRAL, n_layers, device,
+                                        torch.Generator(device=device).manual_seed(11),
+                                        torch.bfloat16, packed=packed)
+        runs, card = _token_major_run(cfg, weights, device, prompt, 32)
+        del weights
+        k13 = 0 if packed else 3 * n_layers * 5
+        if card["grouped_gemm"] != k13 or card["flash_prefill"] != n_layers or \
+                card["q4k_q8_gemv"] < (24 * n_layers * 5 if packed else 1):
+            raise AssertionError(f"the Mixtral check took other routes on the card: {card}")
+        outs.append(_compare_sides(phase, runs, device, n_layers, launches={
+            n: card[n] for n in ("grouped_gemm", "flash_prefill", "q4k_q8_gemv")}))
+    return outs
+
+
 # ------------------------------------------------------------- main
 
 
@@ -1691,9 +2035,11 @@ def main() -> int:
     for name, fn in (("slice", slice_phase), ("long_context", long_context_phase),
                      ("quant_mix", quant_mix_phase), ("q2k", q2k_phase),
                      ("gemma2", gemma2_phase), ("gemma2_ragged", gemma2_ragged_phase),
+                     ("mixtral", mixtral_phase), ("mixtral_q4km", mixtral_q4km_phase),
                      ("card_vs_cpu", card_vs_cpu_phase),
                      ("card_vs_cpu_gemma2", card_vs_cpu_gemma2_phase),
-                     ("card_vs_cpu_ragged", card_vs_cpu_ragged_phase)):
+                     ("card_vs_cpu_ragged", card_vs_cpu_ragged_phase),
+                     ("card_vs_cpu_mixtral", card_vs_cpu_mixtral_phase)):
         t0 = time.perf_counter()
         results[name] = fn(sz, device)
         seconds[name] = time.perf_counter() - t0

@@ -151,7 +151,20 @@ __device__ __forceinline__ void mma_s8_k16(int d[4], uint32_t a0, uint32_t a1, u
       : "r"(a0), "r"(a1), "r"(b));
 }
 
-// d += A (16x16 bf16, row) * B (16x8 bf16, col), f32 accumulators (K4).
+// Four 8x8 b16 matrices from shared memory (lane i gives the address of a row
+// of matrix i / 8), and the same transposed (ldmatrix.trans).
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t r[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t r[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += A (16x16 bf16, row) * B (16x8 bf16, col), f32 accumulators (K4, K13).
 __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32_t b0,
                                          uint32_t b1) {
   asm volatile(

@@ -67,27 +67,9 @@ __device__ __forceinline__ void stage_kv(uint8_t* ktile, uint8_t* vtile, int n,
   }
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t r[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t r[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += A (16x16 bf16, row) * B (16x8 bf16, col), f32
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using mrt::ldsm_x4;
+using mrt::ldsm_x4_trans;
+using mrt::mma_bf16;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

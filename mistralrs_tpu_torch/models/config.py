@@ -1,4 +1,4 @@
-"""Decoder configuration + the llama/mistral/gemma2 HF config translators.
+"""Decoder configuration + the llama/mistral/mixtral/gemma2 HF config translators.
 
 Counterpart of mistralrs_tpu/models/config.py, holding the fields the
 ported serving path reads. Other architectures' translators are later work.
@@ -36,10 +36,20 @@ class ModelConfig:
     query_scale: float | None = None  # overrides 1/sqrt(head_dim) (gemma2 query_pre_attn_scalar)
     tie_word_embeddings: bool = False
     embed_scale: float = 1.0  # gemma: sqrt(hidden_size)
+    # MoE (mixtral)
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    # MoE dispatch: grouped dropless GEMMs (K13, set by the pipeline) vs the
+    # dense every-expert einsum
+    moe_grouped: bool = False
 
     def __post_init__(self):
         if self.num_heads % self.num_kv_heads:
             raise ValueError(f"{self.num_heads} heads over {self.num_kv_heads} kv heads")
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
 
     def layer_uses_sliding_window(self, layer_idx: int) -> bool:
         if self.sliding_window is None or self.sliding_window_pattern == "none":
@@ -84,6 +94,16 @@ def _mistral(hf):
     )
 
 
+def _mixtral(hf):
+    return _base(
+        hf, "mixtral",
+        sliding_window=hf.get("sliding_window"),
+        sliding_window_pattern="all" if hf.get("sliding_window") else "none",
+        num_experts=hf["num_local_experts"],
+        num_experts_per_tok=hf["num_experts_per_tok"],
+    )
+
+
 def _gemma2(hf):
     scalar = hf.get("query_pre_attn_scalar")
     return _base(
@@ -105,9 +125,11 @@ def _gemma2(hf):
 _TRANSLATORS = {
     "LlamaForCausalLM": _llama,
     "MistralForCausalLM": _mistral,
+    "MixtralForCausalLM": _mixtral,
     "Gemma2ForCausalLM": _gemma2,
     "llama": _llama,
     "mistral": _mistral,
+    "mixtral": _mixtral,
     "gemma2": _gemma2,
 }
 

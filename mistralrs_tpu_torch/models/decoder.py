@@ -1,12 +1,23 @@
-"""The decoder: llama/mistral (prenorm) and gemma2 (sandwich) blocks over
-the paged KV cache.
+"""The decoder: llama/mistral/mixtral (prenorm) and gemma2 (sandwich) blocks
+over the paged KV cache.
 
 Counterpart of mistralrs_tpu/models/decoder.py for the serving path of a
-dense llama/mistral/gemma2 model: `_norm` (with gemma's (1 + w) offset),
-`_mlp` (fused gate|up or separate), `_attention` (fused q|k + v, fused qkv,
-or separate projections; logit soft cap), `_block` in prenorm or sandwich
-form, `decoder_forward` as a plain loop over layers (embedding scale,
-per-layer sliding windows), and `compute_logits` (final logit soft cap).
+llama/mistral/mixtral/gemma2 model: `_norm` (with gemma's (1 + w) offset),
+`_mlp` (fused gate|up or separate), `_moe_mlp` (mixtral's sparse MoE block,
+see below), `_attention` (fused q|k + v, fused qkv, or separate
+projections; logit soft cap), `_block` in prenorm or sandwich form,
+`decoder_forward` as a plain loop over layers (embedding scale, per-layer
+sliding windows), and `compute_logits` (final logit soft cap).
+
+The MoE block routes each token to its top-k experts (softmax over the
+selected logits) and takes one of the JAX package's three formulations:
+- dense (bf16) experts with `cfg.moe_grouped` (the pipeline sets it):
+  the grouped dropless dispatch `_moe_mlp_grouped`, (token, expert) pairs
+  sorted by expert through three grouped GEMMs (K13,
+  ops/grouped_gemm.py) and added back, with nothing read on the host;
+- packed (GGUF) experts stacked [E, ...]: every expert's Linear on every
+  token, combined by the routing weights;
+- dense experts without `moe_grouped`: the every-expert einsum.
 
 Attention on the paged cache, routed once per step by the JAX package's
 shape rules (without its backend checks and environment gates), in its
@@ -47,6 +58,7 @@ from mistralrs_tpu_torch.models.config import ModelConfig
 from mistralrs_tpu_torch.ops import layers as L
 from mistralrs_tpu_torch.ops.attention import NEG_INF, causal_mask_bias, sdpa, sdpa_head_major
 from mistralrs_tpu_torch.ops.flash_attention import flash_prefill
+from mistralrs_tpu_torch.ops.grouped_gemm import grouped_matmul
 from mistralrs_tpu_torch.ops.paged_attention import (
     PagedAttnMeta,
     PagedKVCache,
@@ -70,7 +82,11 @@ from mistralrs_tpu_torch.quant.qlinear import Linear, linear
 class DecoderParams:
     """Model parameters: one dict per layer ({"attn": {...Linear},
     "mlp": {...Linear}, "input_norm": {"w"}, "post_attn_norm": {"w"}}, and
-    "pre_mlp_norm", "post_mlp_norm" in the sandwich form)."""
+    "pre_mlp_norm", "post_mlp_norm" in the sandwich form). An MoE layer's
+    "mlp" is {"router": Linear [H -> E], "experts": {"gate", "up", "down"}}
+    with each expert Linear stacked on a leading expert axis: dense "w"
+    [E, H, I] / [E, I, H], or packed tensors [E, ...] sharing one K-side
+    permutation table."""
 
     embed: torch.Tensor  # [V, E]
     layers: list[dict[str, Any]]
@@ -163,6 +179,86 @@ def _mlp(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     return linear(p["down"], act(linear(p["gate"], x)) * linear(p["up"], x))
 
 
+def _expert_slice(lin: Linear, e: int) -> Linear:
+    """Expert e's Linear out of stacked packed expert tensors [E, ...] (the
+    K-side permutation tables are shared by the experts)."""
+    data = {k: (v if k in ("perm", "inv_perm") else v[e]) for k, v in lin.data.items()}
+    return Linear(kind=lin.kind, shape=lin.shape, data=data, meta=lin.meta)
+
+
+def _route(cfg: ModelConfig, p: dict[str, Any], xt: torch.Tensor):
+    """Top-k routing of tokens xt [N, H]: (weights [N, k] f32, the softmax
+    over the selected logits; expert ids [N, k] int64). The router's out
+    axis may carry padding (quant/fuse.py), which comes off first. A tie
+    puts the lower expert index first, as jax.lax.top_k does: a stable
+    descending sort, since torch.topk promises no order among equals."""
+    logits = linear(p["router"], xt)[:, : cfg.num_experts].to(torch.float32)
+    vals, ids = torch.sort(logits, dim=-1, descending=True, stable=True)
+    k = cfg.num_experts_per_tok
+    return torch.softmax(vals[:, :k], dim=-1), ids[:, :k]
+
+
+def _moe_mlp(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """Mixtral's sparse MoE block (the three formulations of the module
+    docstring; all compute the same per-pair math)."""
+    ex = p["experts"]
+    if cfg.moe_grouped and ex["gate"].kind == "dense":
+        return _moe_mlp_grouped(cfg, p, x)
+    B, T, H = x.shape
+    xt = x.reshape(B * T, H)
+    topw, topi = _route(cfg, p, xt)
+    # the combine weights as a dense [N, E] matrix
+    combine = torch.zeros(B * T, cfg.num_experts, dtype=torch.float32, device=x.device)
+    combine.scatter_add_(1, topi, topw)
+    act = L.ACTIVATIONS[cfg.act]
+    if ex["gate"].kind != "dense":
+        # packed experts: each expert's GEMV (or dequant + matmul) on every
+        # token, weighted by its column of the combine matrix
+        out = torch.zeros_like(xt)
+        comb = combine.to(xt.dtype)
+        for e in range(cfg.num_experts):
+            g = linear(_expert_slice(ex["gate"], e), xt)
+            u = linear(_expert_slice(ex["up"], e), xt)
+            d = linear(_expert_slice(ex["down"], e), act(g) * u)
+            out = out + d * comb[:, e : e + 1]
+        return out.reshape(B, T, H)
+    g = torch.einsum("nh,ehi->eni", xt, ex["gate"].data["w"].to(xt.dtype))
+    u = torch.einsum("nh,ehi->eni", xt, ex["up"].data["w"].to(xt.dtype))
+    d = torch.einsum("eni,eih->enh", act(g) * u, ex["down"].data["w"].to(xt.dtype))
+    return torch.einsum("enh,ne->nh", d, combine.to(d.dtype)).reshape(B, T, H)
+
+
+def _moe_mlp_grouped(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """Grouped dropless dispatch: the N * k (token, expert) pairs sorted by
+    expert (stably, so each group keeps token order) feed three grouped
+    GEMMs, and each pair's output, times its routing weight, is added back
+    onto its token. Nothing waits for the device: the group sizes are a
+    scatter-add into [E] int32 (torch.bincount would read the max on the
+    host), and the grouped GEMM reads them on the device. Each output row
+    gets exactly k addends onto zero, so with k = 2 the sum does not depend
+    on the order index_add_ adds them in."""
+    B, T, H = x.shape
+    N = B * T
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    xt = x.reshape(N, H)
+    topw, topi = _route(cfg, p, xt)
+    eid = topi.reshape(-1)  # [N * K], pair i is token i // K
+    order = torch.argsort(eid, stable=True)
+    tok_sorted = torch.div(order, K, rounding_mode="floor")
+    gathered = torch.index_select(xt, 0, tok_sorted)  # [N * K, H]
+    group_sizes = torch.zeros(E, dtype=torch.int32, device=x.device)
+    group_sizes.scatter_add_(0, eid, torch.ones_like(eid, dtype=torch.int32))
+    act = L.ACTIVATIONS[cfg.act]
+    ex = p["experts"]
+    g = grouped_matmul(gathered, ex["gate"].data["w"].to(xt.dtype), group_sizes)
+    u = grouped_matmul(gathered, ex["up"].data["w"].to(xt.dtype), group_sizes)
+    d = grouped_matmul(act(g) * u, ex["down"].data["w"].to(xt.dtype), group_sizes)  # [N * K, H]
+    w_pair = torch.index_select(topw.reshape(-1), 0, order).to(d.dtype)
+    out = torch.zeros(N, H, dtype=d.dtype, device=x.device)
+    out.index_add_(0, tok_sorted, d * w_pair[:, None])
+    return out.reshape(B, T, H).to(x.dtype)
+
+
 def _attention(
     cfg: ModelConfig,
     p: dict[str, Any],
@@ -241,15 +337,16 @@ def _attention(
 
 
 def _block(cfg, p, h, cos, sin, rot_dim, ck, cv, meta, route, bias, window, plan):
+    mlp_fn = _moe_mlp if cfg.is_moe else _mlp
     x = _norm(cfg, p["input_norm"], h)
     attn = _attention(cfg, p["attn"], x, cos, sin, rot_dim, ck, cv, meta, route, bias, window,
                       plan)
     if cfg.block_style == "sandwich":  # gemma2
         h = h + _norm(cfg, p["post_attn_norm"], attn)
         x = _norm(cfg, p["pre_mlp_norm"], h)
-        return h + _norm(cfg, p["post_mlp_norm"], _mlp(cfg, p["mlp"], x))
+        return h + _norm(cfg, p["post_mlp_norm"], mlp_fn(cfg, p["mlp"], x))
     h = h + attn
-    return h + _mlp(cfg, p["mlp"], _norm(cfg, p["post_attn_norm"], h))
+    return h + mlp_fn(cfg, p["mlp"], _norm(cfg, p["post_attn_norm"], h))
 
 
 def decoder_forward(

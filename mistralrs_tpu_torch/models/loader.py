@@ -77,7 +77,10 @@ def params_from_reference(p, device="cuda", dtype=torch.bfloat16) -> DecoderPara
     Reads `.embed`, `.layer_groups`, `.group_sizes`, `.final_norm`,
     `.lm_head`, and for each Linear `.kind`, `.shape`, `.data`, `.meta`.
     Each stacked [L, ...] layer group is unstacked into per-layer dicts;
-    packed bytes are kept as they are."""
+    packed bytes are kept as they are. An MoE layer's expert stacks come
+    out as [E, ...] (dense [E, H, I] / [E, I, H], or packed tensors with
+    their shared [in] permutation tables), since the group stacks every
+    leaf of a layer, perms too, on one more leading axis."""
     layers = []
     for group, size in zip(p.layer_groups, p.group_sizes):
         if isinstance(group, (list, tuple)):

@@ -10,6 +10,9 @@ combined K/V pool on the ragged backend (`attn_backend="ragged"`). A batched
 prefill has one row per sequence: eager PyTorch has no compiled shape to
 keep, so it does not pad the batch to `max_seqs` as the JAX package does.
 
+An MoE model (mixtral) gets `moe_grouped` set, so dense experts take the
+grouped dropless dispatch (models/decoder.py).
+
 Not in this port yet: the device-sampled multistep loop and the top-K pack
 (sampled requests go through the engine's host sampler on full logits, so
 `supports_topk_pack` and `supports_sampled_multistep` are False),
@@ -96,6 +99,11 @@ class TextPipeline:
         if pc.attn_backend not in (None, "default", "ragged"):
             raise ValueError(f"attn_backend {pc.attn_backend!r}: expected None, 'default' or "
                              "'ragged'")
+        if cfg.is_moe and not cfg.moe_grouped:
+            # the grouped dropless dispatch (K13) for dense experts, as the JAX
+            # pipeline sets it for every unsharded MoE model (without its
+            # backend test and environment gate; the port has no meshes)
+            cfg = dataclasses.replace(cfg, moe_grouped=True)
         self.cfg = cfg
         self.rope = rope.to(self.device)
         if pc.num_pages is None:

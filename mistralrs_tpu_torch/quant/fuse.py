@@ -82,12 +82,13 @@ def split_linear(lin: Linear, sizes: list[int]) -> list[Linear] | None:
     return outs
 
 
-def pad_linear_out(lin: Linear, mult: int = 2048) -> Linear | None:
+def pad_linear_out(lin: Linear, mult: int = 2048, max_pad: int | None = None) -> Linear | None:
     """Zero-pad a packed Linear's out-features to a multiple of `mult` (the
-    Q4_K_M lm_head: 32000 -> 32768). Zero bytes and zero scales decode to
-    w == 0 in every format here; compute_logits slices the padding off.
-    Returns None for dense weights, a g_idx gather, or when padding would
-    add more than 1/8."""
+    Q4_K_M lm_head: 32000 -> 32768; an 8-expert router: 8 -> 16, the
+    GEMVs' column chunk). Zero bytes and zero scales decode to w == 0 in
+    every format here; the caller slices the padding off. Returns None for
+    dense weights, a g_idx gather, or when padding would add more than
+    `max_pad` columns (default out / 8)."""
     kind = lin.kind
     if kind not in _CAT_AXIS1 or kind == "dense" or "g_idx" in lin.data:
         return None
@@ -95,7 +96,7 @@ def pad_linear_out(lin: Linear, mult: int = 2048) -> Linear | None:
     pad = (-out) % mult
     if pad == 0:
         return lin
-    if pad > out // 8:
+    if pad > (out // 8 if max_pad is None else max_pad):
         return None
     data = {key: torch.nn.functional.pad(lin.data[key], (0, pad)) for key in _CAT_AXIS1[kind]}
     if lin.data.get("b") is not None:
@@ -109,8 +110,11 @@ def pad_linear_out(lin: Linear, mult: int = 2048) -> Linear | None:
 def fuse_decoder_params(params):
     """Fuse q/k/v -> qkv (or q/k -> qk when v's kind differs, as in the
     Q4_K_M and Q5_K_M mixes), gate/up -> gateup in every layer, and pad the lm_head's
-    vocab to the 2048 multiple. Returns new DecoderParams; the input is not
-    changed."""
+    vocab to the 2048 multiple. An MoE layer's experts stay as they are (the
+    JAX package fuses gate|up only at the top level of the mlp); a packed
+    router's out axis is padded to 16 columns, the GEMVs' column chunk
+    (models/decoder._route slices it off). Returns new DecoderParams; the
+    input is not changed."""
     layers = []
     for lp in params.layers:
         lp = dict(lp)
@@ -132,6 +136,8 @@ def fuse_decoder_params(params):
             if fused is not None:
                 mlp = {k: v for k, v in mlp.items() if k not in ("gate", "up")}
                 mlp["gateup"] = fused
+        if "router" in mlp:
+            mlp["router"] = pad_linear_out(mlp["router"], 16, max_pad=15) or mlp["router"]
         lp["mlp"] = mlp
         layers.append(lp)
     lm_head = params.lm_head
@@ -142,12 +148,23 @@ def fuse_decoder_params(params):
 
 def requant_q6k_params(params, gs: int = 64):
     """Requantize every Q6_K Linear (layers and lm_head) to the int8 per-gs
-    layout served by the K2 kernel (gguf_linear.requant_q6k_to_q8)."""
+    layout served by the K2 kernel (gguf_linear.requant_q6k_to_q8). A Q6_K
+    expert stack (ql [E, in/2, out]) raises: the JAX package's requant
+    fails on one too (its layer groups stack it to [L, E, ...], which
+    requant_q6k_to_q8 cannot unpack), so such a model is served with
+    rq8_group=None, on the Q6_K kernels."""
     from mistralrs_tpu_torch.quant.gguf_linear import requant_q6k_to_q8
 
     def conv(node):
         if isinstance(node, Linear):
-            return requant_q6k_to_q8(node, gs) if node.kind == "gguf_q6k" else node
+            if node.kind != "gguf_q6k":
+                return node
+            if node.data["ql"].dim() != 2:
+                raise NotImplementedError(
+                    f"rq8 of a stacked Q6_K Linear (ql {tuple(node.data['ql'].shape)}, MoE "
+                    "experts) is not supported, as in the JAX package; serve it with "
+                    "rq8_group=None")
+            return requant_q6k_to_q8(node, gs)
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         return node

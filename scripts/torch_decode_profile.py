@@ -2,7 +2,8 @@
 """Where a prefill and a decode step of the PyTorch port spend their time,
 on one NVIDIA card.
 
-    python3 scripts/torch_decode_profile.py [--layers N] [--batch 16] [--mix q4km|q5km|q2k|gemma2]
+    python3 scripts/torch_decode_profile.py [--layers N] [--batch 16]
+                                            [--mix q4km|q5km|q2k|gemma2|mixtral]
                                             [--backend default|ragged]
 
 Builds a random-weight model of chip_smoke.py at its full depth unless
@@ -12,7 +13,10 @@ Builds a random-weight model of chip_smoke.py at its full depth unless
 q2k` in llama.cpp's Q2_K mix (Q2_K q, k, gate, up on the plane-affine
 GEMV; Q4_K v; Q3_K o, down and the Q6_K lm_head requantized to int8 per
 32); Gemma-2-9B with `--mix gemma2` (every projection in Q4_K, the tied
-bf16 embedding as the lm_head, 42 layers). `--backend ragged` serves it on
+bf16 embedding as the lm_head, 42 layers); Mixtral-8x7B with `--mix
+mixtral` (dense bf16 experts through the grouped dispatch and its grouped
+GEMM K13, Q4_K attention, router and lm_head; 24 layers, the most whose
+experts fit the card). `--backend ragged` serves it on
 the ragged attention backend (one combined K/V pool; the ragged paged
 attention kernel K12 for continuation chunks and decode) instead of the
 default routes (decode below span 4096 on the gather route). After a
@@ -24,7 +28,8 @@ when a few requests arrive) and `--batch` 200-token prompts, then times greedy m
 forwards each, median of 5) with the host clock and traces one with
 torch.profiler. Prints JSON lines: a summary per phase (wall time, the
 device's busy share = sum of kernel times over the traced wall time,
-kernel launches), then the top device kernels and host ops by time.
+kernel launches, and the grouped GEMM's device time and share of it),
+then the top device kernels and host ops by time.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--batch", type=int, default=16)
-    ap.add_argument("--mix", choices=("q4km", "q5km", "q2k", "gemma2"), default="q4km")
+    ap.add_argument("--mix", choices=("q4km", "q5km", "q2k", "gemma2", "mixtral"), default="q4km")
     ap.add_argument("--backend", choices=("default", "ragged"), default="default")
     args = ap.parse_args()
 
@@ -57,8 +62,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
-    from chip_smoke import (GEMMA2, Sizes, gemma2_config, model_config, random_gemma2_params,
-                            random_q2k_params, random_q4km_params, random_q5km_params)
+    from chip_smoke import (GEMMA2, MIXTRAL, MIXTRAL_BF16_LAYERS, Sizes, gemma2_config,
+                            mixtral_config, model_config, random_gemma2_params,
+                            random_mixtral_params, random_q2k_params, random_q4km_params,
+                            random_q5km_params)
     from mistralrs_tpu_torch.engine.engine import Engine, GenerationRequest
     from mistralrs_tpu_torch.engine.sampler import SamplingParams
     from mistralrs_tpu_torch.models.loader import make_rope
@@ -66,11 +73,13 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    sz = GEMMA2 if args.mix == "gemma2" else Sizes()
-    args.layers = args.layers or sz.layers
-    cfg = (gemma2_config if args.mix == "gemma2" else model_config)(sz, args.layers)
+    sz = {"gemma2": GEMMA2, "mixtral": MIXTRAL}.get(args.mix, Sizes())
+    args.layers = args.layers or (MIXTRAL_BF16_LAYERS[0] if args.mix == "mixtral" else sz.layers)
+    cfg = {"gemma2": gemma2_config, "mixtral": mixtral_config}.get(args.mix, model_config)(
+        sz, args.layers)
     build = {"q4km": random_q4km_params, "q5km": random_q5km_params,
-             "q2k": random_q2k_params, "gemma2": random_gemma2_params}[args.mix]
+             "q2k": random_q2k_params, "gemma2": random_gemma2_params,
+             "mixtral": random_mixtral_params}[args.mix]
     params = build(sz, args.layers, dev, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
     pc = PipelineConfig(page_size=16, num_pages=1024, max_seqs=args.batch, max_model_len=2048,
                         prefill_buckets=(64, 256), decode_steps=8, device="cuda",
@@ -141,11 +150,13 @@ def report(phase, name, args, prof, wall, extra) -> None:
     # fewer device kernel events than launches: the trace dropped some, and
     # device_busy_ms covers only the forwards it kept
     events = sum(e.count for e in kernels)
+    k13_us = sum(e.self_device_time_total for e in kernels if "grouped_gemm" in e.key)
     print(json.dumps({"phase": phase, "device": name, "mix": args.mix, "backend": args.backend,
                       "layers": args.layers, "batch": args.batch,
                       **extra, "traced_wall_ms": wall * 1e3, "device_busy_ms": dev_us / 1e3,
                       "device_busy_share": dev_us / 1e6 / wall, "launches": launches,
-                      "device_kernel_events": events}))
+                      "device_kernel_events": events, "grouped_gemm_ms": k13_us / 1e3,
+                      "grouped_gemm_share": k13_us / max(dev_us, 1e-9)}))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(json.dumps({"phase": phase, "kernel": e.key[:90], "count": e.count,
                           "device_ms": e.self_device_time_total / 1e3}))

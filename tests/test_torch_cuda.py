@@ -562,3 +562,106 @@ def test_ragged_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         ra.ragged_attention(*three, scale=1.0)
     with pytest.raises(ValueError):  # kv_lens on the CPU
         ra.ragged_attention(args[0], args[1], args[2].cpu(), *args[3:], scale=1.0)
+
+
+def _grouped_inputs(dev, sizes, K, N, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    M = sum(sizes)
+    lhs = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+    rhs = (torch.randn(len(sizes), K, N, generator=g) * K ** -0.5).to(dev, torch.bfloat16)
+    return lhs, rhs, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+def _skewed_sizes(M, G, seed):
+    """M rows over G groups with a seeded skew (some groups empty)."""
+    import numpy as np
+
+    p = np.random.default_rng(seed).dirichlet(np.full(G, 0.5))
+    return np.bincount(np.random.default_rng(seed + 1).choice(G, M, p=p), minlength=G).tolist()
+
+
+GROUPED_CASES = [
+    # small shapes: empty groups, M not a multiple of any row tile, one group
+    ([10, 0, 25, 15], 96, 160),
+    ([32, 32, 32, 32], 96, 160),
+    ([0, 131, 0, 0], 96, 160),
+    ([3, 1, 0, 7, 2, 5, 0, 14], 256, 72),
+    ([300, 5, 0, 211], 128, 264),
+    # Mixtral widths: decode (M 32, 4 x 64 and 4 x 256 rows, top-2), gate and down
+    (_skewed_sizes(32, 8, 0), 4096, 14336),
+    (_skewed_sizes(32, 8, 1), 14336, 4096),
+    (_skewed_sizes(512, 8, 2), 4096, 14336),
+    (_skewed_sizes(2048, 8, 3), 14336, 4096),
+    ([0, 0, 512, 0, 0, 0, 0, 0], 4096, 14336),
+]
+
+
+@pytest.mark.parametrize("sizes,K,N", GROUPED_CASES)
+def test_grouped_gemm_matches_plain(dev, sizes, K, N):
+    from mistralrs_tpu_torch.ops import grouped_gemm as gg
+
+    lhs, rhs, gs = _grouped_inputs(dev, sizes, K, N, seed=len(sizes) + K)
+    before = gg.grouped_gemm_launches
+    got = gg.grouped_matmul(lhs, rhs, gs).float()
+    want = gg.grouped_matmul_ref(lhs, rhs, gs).float()
+    torch.cuda.synchronize()
+    assert gg.grouped_gemm_launches == before + 1
+    assert got.shape == (sum(sizes), N) and bool(torch.isfinite(got).all())
+    # bf16 out on both sides from f32 sums in another order: one bf16 ulp
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def test_grouped_gemm_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    from mistralrs_tpu_torch.ops import grouped_gemm as gg
+
+    lhs, rhs, gs = _grouped_inputs(dev, [8, 8], 64, 64, seed=0)
+    with pytest.raises(ValueError):  # f32 lhs
+        gg.grouped_matmul(lhs.float(), rhs, gs)
+    with pytest.raises(ValueError):  # int64 sizes
+        gg.grouped_matmul(lhs, rhs, gs.long())
+    with pytest.raises(ValueError):  # sizes on the CPU
+        gg.grouped_matmul(lhs, rhs, gs.cpu())
+    with pytest.raises(ValueError):  # K % 32
+        gg.grouped_matmul(lhs[:, :48].contiguous(), rhs[:, :48].contiguous(), gs)
+    with pytest.raises(ValueError):  # a non-contiguous weight
+        gg.grouped_matmul(lhs, rhs.transpose(1, 2), gs)
+
+
+def test_moe_decode_forward_never_waits_for_the_card(dev):
+    """One decode forward of a 2-layer Mixtral with dense bf16 experts (the
+    grouped dispatch: K13 for gate, up and down) run under sync debug mode
+    "error": no op of the step blocks the host on the card. The first
+    forward, outside that mode, builds and loads the kernels."""
+    import dataclasses
+
+    import chip_smoke
+    from mistralrs_tpu_torch.models import decoder as td
+    from mistralrs_tpu_torch.models.loader import make_rope
+    from mistralrs_tpu_torch.ops import grouped_gemm as gg
+    from mistralrs_tpu_torch.quant.fuse import fuse_decoder_params
+
+    sz = chip_smoke.Sizes(vocab=1920, hidden=512, inter=1024, heads=4, kv_heads=2, layers=2)
+    cfg = dataclasses.replace(chip_smoke.mixtral_config(sz, 2), moe_grouped=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = fuse_decoder_params(chip_smoke.random_mixtral_params(sz, 2, dev, gen,
+                                                                  torch.bfloat16))
+    rope = make_rope(cfg, 512, device=dev)
+    B, page = 8, 16
+    cache = pa.PagedKVCache.create(2, 1 + 4 * B, page, 2, 128, torch.bfloat16, device=dev)
+    kv_lens = 3 + 5 * torch.arange(B, device=dev)  # the new token included
+    tables = (1 + torch.arange(4 * B, device=dev)).reshape(B, 4)
+    pos = (kv_lens - 1)[:, None]
+    meta = pa.PagedAttnMeta(positions=pos, block_tables=tables, kv_lens=kv_lens,
+                            slot_mapping=torch.gather(tables, 1, pos // page) * page + pos % page,
+                            active=torch.ones(B, device=dev))
+    ids = torch.randint(1, sz.vocab, (B, 1), device=dev, generator=gen)
+    td.decoder_forward(params, cfg, rope, ids, cache, meta)
+    before = gg.grouped_gemm_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h, _ = td.decoder_forward(params, cfg, rope, ids, cache, meta)
+        logits = td.compute_logits(params, cfg, h[:, 0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert gg.grouped_gemm_launches == before + 3 * 2
+    assert logits.shape == (B, sz.vocab) and bool(torch.isfinite(logits).all())

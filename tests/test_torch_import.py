@@ -56,8 +56,9 @@ def test_every_module_is_listed():
     assert "mistralrs_tpu_torch.ops.quant_matmul" in MODULES
     assert {"mistralrs_tpu_torch.quant.gptq", "mistralrs_tpu_torch.quant.hqq",
             "mistralrs_tpu_torch.ops.splash",
-            "mistralrs_tpu_torch.ops.ragged_attention"} <= set(MODULES)
-    assert len(MODULES) >= 29
+            "mistralrs_tpu_torch.ops.ragged_attention",
+            "mistralrs_tpu_torch.ops.grouped_gemm"} <= set(MODULES)
+    assert len(MODULES) >= 30
 
 
 @pytest.mark.parametrize("module", MODULES)

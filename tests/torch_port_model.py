@@ -3,8 +3,9 @@
 A tiny model in the Q4_K_M, Q5_K_M or Q2_K type mix, built in the JAX package from seeded
 numpy weights through its own quantizer (kquants.quantize) and packers, and
 carried into the port with params_from_reference, so that both packages
-compute on the same packed bytes; and a tiny seeded Gemma-2 from
-transformers, loaded by the JAX package's HF loader (dense, or ISQ Q4K).
+compute on the same packed bytes; and a tiny seeded Gemma-2 and Mixtral
+from transformers, loaded by the JAX package's HF loader (dense, or ISQ
+Q4K).
 Everything is float32 on the CPU.
 """
 
@@ -161,3 +162,29 @@ def jax_gemma2_params(seed: int = 0, **over):
     src = TensorSource.from_dict(sd)
     return (cfg, params_from_source(cfg, src, dtype=jnp.float32, isq="Q4K"),
             params_from_source(cfg, src, dtype=jnp.float32))
+
+
+# hidden 256, 4 heads of 64 over 2 kv heads, intermediate 512, 3 layers, 4
+# experts with 2 a token (Mixtral-8x7B has 8), vocab 512
+TINY_MIXTRAL = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=3,
+                    num_attention_heads=4, num_key_value_heads=2, num_local_experts=4,
+                    num_experts_per_tok=2, max_position_embeddings=1024, rope_theta=1e6)
+
+
+def jax_mixtral_params(seed: int = 0):
+    """(JAX ModelConfig, JAX DecoderParams loaded dense, the same with ISQ
+    Q4K) of a tiny seeded transformers.MixtralForCausalLM, loaded as the
+    JAX package loads an HF checkpoint: under ISQ the router and the
+    attention are Q4_K, the experts stay dense (f32 here) [E, H, I] /
+    [E, I, H] a layer. Weights are drawn with std 0.06."""
+    import json
+
+    import transformers as tf
+
+    torch.manual_seed(seed)
+    hf_cfg = tf.MixtralConfig(**TINY_MIXTRAL, initializer_range=0.06)
+    model = tf.MixtralForCausalLM(hf_cfg).eval().float()
+    cfg = jconfig_from_hf(json.loads(hf_cfg.to_json_string()))
+    src = TensorSource.from_dict({k: v.detach().numpy() for k, v in model.state_dict().items()})
+    return (cfg, params_from_source(cfg, src, dtype=jnp.float32),
+            params_from_source(cfg, src, dtype=jnp.float32, isq="Q4K"))

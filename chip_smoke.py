@@ -99,8 +99,23 @@ non-zero and never prints the final line):
 15. card_vs_cpu_mixtral: phase 9's comparison for 2-layer Mixtral at full
    width, with dense bf16 experts (K13 on the card) and with packed Q4_K
    experts (K1).
-The kernel phase also holds K12 against its plain version (decode at
-Mistral-7B's and Gemma-2-9B's widths, 4 x 512 continuation chunks, a mixed
+16. gguf_bf16: Mistral-7B served from a GGUF file with bf16 activations:
+   a 32-layer file in llama.cpp's Q5_K_M rule (random wire blocks, ~5 GB)
+   written by the port's writer into a temporary directory, loaded by
+   load_gguf_model and served through Engine/TextPipeline with
+   PipelineConfig(int8_activations=False) in the slice phase's pattern: K5
+   and K9b for every Q5_K projection and K8 for the requantized Q6_K ones up
+   to 256 rows, the Q5_K and int8 dequant kernels above, K6. It raises
+   unless K5, K9b, K8 and K6 launched and no int8 GEMV (K1, K2, K3, K9) did;
+   its line gives the write, read, embedding-dequant and load times apart.
+17. card_vs_cpu_bf16: phase 9's comparison with int8_activations=False for
+   2-layer full-width GGUF files in the Q4_K_M rule (K5, K8) and the Q5_K_M
+   rule (K5, K9b, K8), each loaded by load_gguf_model on each side; and,
+   as a control, the same files with int8 activations (K1, K9, K2).
+The kernel phase also holds K5, K9b and K8 against their plain versions at
+the gguf_bf16 path's shapes (gate|up at 1, 16, 64 and 256 rows; q|k, down;
+K8 also at the lm_head on rq8 and wire Q8_0 scales), K12 against its plain
+version (decode at Mistral-7B's and Gemma-2-9B's widths, 4 x 512 continuation chunks, a mixed
 batch of a decode row, a first chunk and a continuation with fewer live
 sequences than slots), and K13 at Mixtral's gate and down for a decode
 step, 4 x 64-, 4 x 256- and 4 x 512-row chunks, and all rows in one group.
@@ -161,6 +176,12 @@ KERNEL_INFO = {
                          "mistralrs_tpu/ops/ragged_attention.py:162"),
     "grouped_gemm": ("mistralrs_tpu_torch/csrc/grouped_gemm.cu",
                      "mistralrs_tpu/ops/grouped_gemm.py:60"),
+    "q4k_bf16_gemv": ("mistralrs_tpu_torch/csrc/q4k_bf16_gemv.cu",
+                      "mistralrs_tpu/ops/quant_matmul.py:67"),
+    "q8_0_bf16_gemv": ("mistralrs_tpu_torch/csrc/q8_0_bf16_gemv.cu",
+                       "mistralrs_tpu/ops/quant_matmul.py:1197"),
+    "q5k_hbit_bf16_gemv": ("mistralrs_tpu_torch/csrc/q5k_hbit_bf16_gemv.cu",
+                           "mistralrs_tpu/ops/quant_matmul.py:658"),
 }
 # the shape whose numbers stand in the kernels line
 HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
@@ -170,12 +191,15 @@ HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
             "q6k_bf16_gemv": "down B=256", "q5k_q8_gemv": "gate|up B=16", "q6k_dequant": "down",
             "q5k_dequant": "gate|up", "affine_gemv": "gate|up q2k B=16",
             "affine_dequant": "gate|up q2k", "splash_prefill": "gemma2-9b B=4 T=512",
-            "ragged_attention": "mistral B=16 kv=4096 decode", "grouped_gemm": "gate M=32 decode"}
+            "ragged_attention": "mistral B=16 kv=4096 decode", "grouped_gemm": "gate M=32 decode",
+            "q4k_bf16_gemv": "gate|up B=16", "q8_0_bf16_gemv": "lm_head B=16",
+            "q5k_hbit_bf16_gemv": "gate|up B=16"}
 # the kernels each serving phase's path adds (long_context also runs the
 # slice path's, quant_mix also flash_prefill, q2k also the slice path's,
 # gemma2 also q4k_q8_gemv and q4k_dequant, and paged_decode in
 # card_vs_cpu_gemma2; gemma2_ragged also splash_prefill; mixtral also
-# flash_prefill and q4k_q8_gemv); the line's launches of each kernel come
+# flash_prefill and q4k_q8_gemv; gguf_bf16 also flash_prefill and the
+# Q5_K and int8 dequant kernels); the line's launches of each kernel come
 # from the phase of its path
 PATH_KERNELS = {
     "slice": ("q4k_q8_gemv", "q8_0_q8_gemv", "flash_prefill", "q4k_dequant", "q8_0_dequant"),
@@ -185,6 +209,7 @@ PATH_KERNELS = {
     "gemma2": ("splash_prefill",),
     "gemma2_ragged": ("ragged_attention",),
     "mixtral": ("grouped_gemm",),
+    "gguf_bf16": ("q4k_bf16_gemv", "q8_0_bf16_gemv", "q5k_hbit_bf16_gemv"),
 }
 # each kernel's launch counter: (module under mistralrs_tpu_torch.ops, name)
 COUNTERS = {
@@ -205,6 +230,9 @@ COUNTERS = {
     "splash_prefill": ("splash", "splash_prefill_launches"),
     "ragged_attention": ("ragged_attention", "ragged_attention_launches"),
     "grouped_gemm": ("grouped_gemm", "grouped_gemm_launches"),
+    "q4k_bf16_gemv": ("quant_matmul", "q4k_bf16_gemv_launches"),
+    "q8_0_bf16_gemv": ("quant_matmul", "q8_0_bf16_gemv_launches"),
+    "q5k_hbit_bf16_gemv": ("quant_matmul", "q5k_hbit_bf16_gemv_launches"),
 }
 
 
@@ -569,6 +597,79 @@ def gemma2_config(sz: Sizes, n_layers: int):
         "max_position_embeddings": 8192, "tie_word_embeddings": True})
 
 
+# ------------------------------------------------------------- GGUF files
+
+# each random wire block's f16 scale fields (Q4_K and Q5_K: d and dmin at
+# bytes 0:4, times 6-bit sc and mn up to 63; Q6_K: d at bytes 208:210, times
+# int8 sc down to -128): ranges that keep the effective per-sub-block scale
+# |d*sc| within bench.py's U[0.001, 0.005) and the min dmin*mn within its
+# U[0, 0.002)
+WIRE_SCALES = {"Q4_K": ((0, 0.001 / 63, 0.005 / 63), (2, 0.0, 0.002 / 63)),
+               "Q5_K": ((0, 0.001 / 63, 0.005 / 63), (2, 0.0, 0.002 / 63)),
+               "Q6_K": ((208, 0.001 / 128, 0.005 / 128),)}
+
+
+def random_wire(rng, gtype: str, n: int) -> np.ndarray:
+    """n weights of GGUF type gtype ("Q4_K", "Q5_K" or "Q6_K") as random
+    wire blocks: random bytes (codes, 6-bit or int8 sub-scales, high bits),
+    with each block's f16 d / dmin drawn from WIRE_SCALES, so every value is
+    finite. uint8 [n / 256 * block bytes]."""
+    from mistralrs_tpu_torch.gguf.reader import GGML_BLOCK_INFO, GGMLType
+
+    be, bb = GGML_BLOCK_INFO[GGMLType[gtype]]
+    b = rng.integers(0, 256, (n // be, bb), dtype=np.uint8)
+    for off, lo, hi in WIRE_SCALES[gtype]:
+        d = (rng.random(n // be, dtype=np.float32) * (hi - lo) + lo).astype(np.float16)
+        b[:, off:off + 2] = d.view(np.uint8).reshape(-1, 2)
+    return b.reshape(-1)
+
+
+def gguf_mix(base: str, i: int, n_layers: int) -> dict[str, str]:
+    """llama.cpp's Q4_K_M (base "Q4_K") or Q5_K_M (base "Q5_K") rule for
+    Mistral-7B's layer i (llama_tensor_get_type): the base type for attn_q,
+    attn_k, attn_output, ffn_gate, ffn_up and most ffn_down; Q6_K for
+    attn_v and the use_more_bits ffn_down."""
+    return {"attn_q": base, "attn_k": base, "attn_v": "Q6_K", "attn_output": base,
+            "ffn_gate": base, "ffn_up": base,
+            "ffn_down": "Q6_K" if use_more_bits(i, n_layers) else base}
+
+
+def write_random_gguf(path: str, sz: Sizes, n_layers: int, base: str, seed: int) -> int:
+    """A Mistral-7B GGUF at sz's widths and n_layers layers, as llama.cpp
+    lays one out ("llama" architecture; Mistral-7B-Instruct-v0.2's rope base
+    1e6 and context 32768), in gguf_mix(base): the token embedding in the
+    base type, the output in Q6_K, F32 norms of ones, every quantized tensor
+    random_wire blocks. Written by the port's writer; returns its bytes."""
+    from mistralrs_tpu_torch.gguf.reader import GGMLType
+    from mistralrs_tpu_torch.gguf.writer import write_gguf
+
+    rng = np.random.default_rng(seed)
+    H, I, D = sz.hidden, sz.inter, sz.head_dim
+
+    def q(gtype, out_f, in_f):
+        return (GGMLType[gtype], (out_f, in_f), random_wire(rng, gtype, out_f * in_f))
+
+    ones = (GGMLType.F32, (H,), np.ones(H, np.float32))
+    tensors = {"token_embd.weight": q(base, sz.vocab, H), "output_norm.weight": ones,
+               "output.weight": q("Q6_K", sz.vocab, H)}
+    shapes = {"attn_q": (sz.heads * D, H), "attn_k": (sz.kv_heads * D, H),
+              "attn_v": (sz.kv_heads * D, H), "attn_output": (H, sz.heads * D),
+              "ffn_gate": (I, H), "ffn_up": (I, H), "ffn_down": (H, I)}
+    for i in range(n_layers):
+        tensors[f"blk.{i}.attn_norm.weight"] = ones
+        tensors[f"blk.{i}.ffn_norm.weight"] = ones
+        for name, gtype in gguf_mix(base, i, n_layers).items():
+            tensors[f"blk.{i}.{name}.weight"] = q(gtype, *shapes[name])
+    md = {"general.architecture": "llama", "general.name": "random Mistral-7B",
+          "llama.block_count": n_layers, "llama.embedding_length": H,
+          "llama.feed_forward_length": I, "llama.attention.head_count": sz.heads,
+          "llama.attention.head_count_kv": sz.kv_heads, "llama.rope.dimension_count": D,
+          "llama.attention.layer_norm_rms_epsilon": 1e-5, "llama.rope.freq_base": 1e6,
+          "llama.context_length": 32768, "llama.vocab_size": sz.vocab}
+    write_gguf(path, md, tensors)
+    return sum(t[2].nbytes for t in tensors.values())
+
+
 # ------------------------------------------------------------- timing
 
 
@@ -709,6 +810,7 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
 
     q56k_kernels(sz, device, clock, gen, rand, record)
     affine_kernels(sz, device, clock, gen, rand, record)
+    bf16_kernels(sz, device, clock, gen, rand, record)
 
     # K6: first prefill chunks
     for B, T, Hq, Hkv in sz.flash_cases:
@@ -889,6 +991,90 @@ def affine_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
                    clock.ms(lambda: qm.affine_gemv_plain(x, q, scale, zs, bits, group, fdt)),
                    clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_BF16))
         del w, q, scale, zs
+
+
+def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
+    """Parity and timing of K5, K9b and K8, the GEMVs of int8_activations=
+    False, at the shapes of the gguf_bf16 path: gate|up at 1, 16, 64 and 256
+    rows, q|k and down at 16; K8 on rq8 weights (f32 scales per 32) at the
+    same shapes and at the lm_head (32768 columns), and once on wire Q8_0
+    (bf16 scales). Random codes, scale U[0.001, 0.005), minv U[0, 0.002)
+    (int8: U[1e-4, 4e-4)). library = torch.matmul on the dequantized bf16
+    weight; int8_ms = the int8 route's kernel (K1, K9, K2) on the same
+    weight and x; K9b's rows also time the whole Q5_K bf16 route (K5, K9b
+    and the add: route_ms)."""
+    import torch
+
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+    from mistralrs_tpu_torch.quant.qlinear import Linear
+
+    H, I, D = sz.hidden, sz.inter, sz.head_dim
+    fdt = torch.bfloat16
+    vocab_pad = -(-sz.vocab // 2048) * 2048
+
+    def compare(got, want):
+        err = float((got.float() - want.float()).abs().max())
+        return err, err / max(float(want.float().abs().max()), 1e-30)
+
+    shapes = [("gate|up", H, 2 * I, (1, 16, 64, 256)),
+              ("qk", H, (sz.heads + sz.kv_heads) * D, (16,)), ("down", I, H, (16,))]
+    for nm, K, O, rows in shapes:
+        qs = rand(K // 2, O, lo=0.0, hi=256.0).to(torch.uint8)
+        qh = rand(K // 8, O, lo=0.0, hi=256.0).to(torch.uint8)
+        scale = rand(K // 32, O, lo=0.001, hi=0.005, dtype=fdt)
+        minv = rand(K // 32, O, lo=0.0, hi=0.002, dtype=fdt)
+        w4 = qm.q4k_dequant(qs, scale, minv, fdt)
+        wh = qm.affine_dequant(qh, scale, torch.zeros_like(scale), 1, 32, fdt)
+        q5 = Linear("gguf_q5k", (K, O), {"qs": qs, "qh": qh, "scale": scale, "minv": minv},
+                    int8_act=False)
+        for B in rows:
+            x = torch.randn(B, K, device=device, generator=gen).to(fdt)
+            # the same bf16 x and exact nibbles on both sides; f32 sums of
+            # bf16 products in another order, the scale on each sub-block's sum
+            err, rel = compare(qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=torch.float32),
+                               qm.q4k_bf16_gemv_plain(x, qs, scale, minv, torch.float32))
+            record("q4k_bf16_gemv", f"{nm} B={B}", err, rel, 1e-4,
+                   clock.ms(lambda: qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=fdt)),
+                   clock.ms(lambda: qm.q4k_bf16_gemv_plain(x, qs, scale, minv, fdt)),
+                   clock.ms(lambda: torch.matmul(x, w4)),
+                   bound(B * K * 2 + K // 2 * O + 2 * (K // 32) * O * 2 + B * O * 2,
+                         2 * B * K * O, PEAK_BF16),
+                   int8_ms=clock.ms(lambda: qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=fdt)))
+            # the same bf16(scale) * bit weights on both sides (exact)
+            err, rel = compare(qm.q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=torch.float32),
+                               qm.q5k_hbit_bf16_gemv_plain(x, qh, scale, torch.float32))
+            record("q5k_hbit_bf16_gemv", f"{nm} B={B}", err, rel, 1e-4,
+                   clock.ms(lambda: qm.q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=fdt)),
+                   clock.ms(lambda: qm.q5k_hbit_bf16_gemv_plain(x, qh, scale, fdt)),
+                   clock.ms(lambda: torch.matmul(x, wh)),
+                   bound(B * K * 2 + K // 8 * O + (K // 32) * O * 2 + B * O * 2,
+                         2 * B * K * O, PEAK_BF16),
+                   route_ms=clock.ms(lambda: qm.q5k_matmul(q5, x)),
+                   int8_ms=clock.ms(lambda: qm.q5k_q8_gemv(x, qs, qh, scale, minv,
+                                                           out_dtype=fdt)))
+        del qs, qh, scale, minv, w4, wh, q5
+
+    # (shape, K, O, rows, scale dtype): rq8's f32 scales, wire Q8_0's bf16
+    q8_shapes = [(nm, K, O, rows, torch.float32) for nm, K, O, rows in shapes] + [
+        ("lm_head", H, vocab_pad, (1, 16, 64, 256), torch.float32),
+        ("lm_head wire", H, vocab_pad, (16,), fdt)]
+    for nm, K, O, rows, sdt in q8_shapes:
+        q = rand(K, O, lo=-127.0, hi=128.0).floor().to(torch.int8)
+        s = rand(K // 32, O, lo=1e-4, hi=4e-4, dtype=sdt)
+        w8 = qm.q8_0_dequant(q, s, 32, fdt)
+        for B in rows:
+            x = torch.randn(B, K, device=device, generator=gen).to(fdt)
+            # the same bf16(q * bf16(s)) weights on both sides
+            err, rel = compare(qm.q8_0_bf16_gemv(x, q, s, out_dtype=torch.float32),
+                               qm.q8_0_bf16_gemv_plain(x, q, s, torch.float32))
+            record("q8_0_bf16_gemv", f"{nm} B={B}", err, rel, 1e-4,
+                   clock.ms(lambda: qm.q8_0_bf16_gemv(x, q, s, out_dtype=fdt)),
+                   clock.ms(lambda: qm.q8_0_bf16_gemv_plain(x, q, s, fdt)),
+                   clock.ms(lambda: torch.matmul(x, w8)),
+                   bound(B * K * 2 + K * O + (K // 32) * O * s.element_size() + B * O * 2,
+                         2 * B * K * O, PEAK_BF16),
+                   int8_ms=clock.ms(lambda: qm.q8_0_q8_gemv(x, q, s, 32, out_dtype=fdt)))
+        del q, s, w8
 
 
 def paged_inputs(sz: Sizes, device, gen, B: int, T: int, kv_len: int, head_major: bool):
@@ -1370,17 +1556,11 @@ def served_kinds(pipe) -> list[str]:
 
 def short_context_phase(sz: Sizes, device, phase: str, params_fn, rq8_group,
                         config_fn=model_config, **extra) -> dict:
-    """The model at sz's depth at max_model_len 2048 (token-major pools,
-    buckets 64/256) serves 4 greedy requests of ~200-token prompts (one 4 x
-    256 first chunk), then 4 of ~40 tokens (4 x 64 rows), max_len tokens
-    each, after a warm-up with the same pattern. Returns the phase's line
-    (with `extra` in it); the launch counts are set to 0 just before the
-    measured run and read just after it."""
+    """The model at sz's depth with random weights from params_fn, served
+    by serve_short_context. Returns the phase's line (with `extra` in it)."""
     import torch
 
-    from mistralrs_tpu_torch.engine.engine import Engine
     from mistralrs_tpu_torch.models.loader import make_rope
-    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
 
     fdt = torch.bfloat16
     cfg = config_fn(sz, sz.layers)
@@ -1388,10 +1568,28 @@ def short_context_phase(sz: Sizes, device, phase: str, params_fn, rq8_group,
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     params = params_fn(sz, sz.layers, device, gen, fdt)
+    return serve_short_context(sz, device, phase, cfg, params, make_rope(cfg, 2048, device=device),
+                               t0, rq8_group=rq8_group, **extra)
+
+
+def serve_short_context(sz: Sizes, device, phase: str, cfg, params, rope, t0: float,
+                        rq8_group, int8_activations: bool = True, **extra) -> dict:
+    """The model served at max_model_len 2048 (token-major pools, buckets
+    64/256): 4 greedy requests of ~200-token prompts (one 4 x 256 first
+    chunk), then 4 of ~40 tokens (4 x 64 rows), max_len tokens each, after
+    a warm-up with the same pattern. Returns the phase's line (with `extra`
+    in it; setup_s counts from t0); the launch counts are set to 0 just
+    before the measured run and read just after it."""
+    import torch
+
+    from mistralrs_tpu_torch.engine.engine import Engine
+    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
+
     pc = PipelineConfig(page_size=16, num_pages=512, max_seqs=16, max_model_len=2048,
-                        prefill_buckets=(64, 256), decode_steps=8, dtype=fdt,
-                        device=str(device), rq8_group=rq8_group)
-    pipe = TextPipeline(cfg, params, make_rope(cfg, 2048, device=device), pc)
+                        prefill_buckets=(64, 256), decode_steps=8, dtype=torch.bfloat16,
+                        device=str(device), rq8_group=rq8_group,
+                        int8_activations=int8_activations)
+    pipe = TextPipeline(cfg, params, rope, pc)
     del params  # the pipeline holds the fused (and requantized) copy
     kinds = served_kinds(pipe)
     q6k_kinds = sorted({f"{part}.{name}" for lp in pipe.params.layers for part in ("attn", "mlp")
@@ -1427,7 +1625,7 @@ def short_context_phase(sz: Sizes, device, phase: str, params_fn, rq8_group,
     n_toks = check_served(groups, sz.vocab, sz.max_len, pipe)
 
     out = {"phase": phase, "layers": sz.layers, "kinds": kinds, "q6k_kinds": q6k_kinds,
-           "rq8_group": rq8_group, "requests": len(groups),
+           "rq8_group": rq8_group, "int8_activations": int8_activations, "requests": len(groups),
            "generated_tokens": n_toks, "decode_tok_s": decode["tokens"] / decode["seconds"],
            "decode_tokens": decode["tokens"], "decode_s": decode["seconds"],
            "p50_ttft_ms": ttft_ms(groups), "p50_ttft_ms_long": ttft_ms(groups[:4]),
@@ -1491,6 +1689,65 @@ def gemma2_phase(sz: Sizes, device) -> dict:
     check_launched(out["launches"], PATH_KERNELS["gemma2"] + ("q4k_q8_gemv", "q4k_dequant"))
     if out["launches"]["flash_prefill"]:
         raise AssertionError(f"the Gemma-2 path launched the flash kernel K6: {out['launches']}")
+    return out
+
+
+# the int8 route's GEMVs, which no layer of an int8_activations=False
+# pipeline may launch
+INT8_GEMVS = ("q4k_q8_gemv", "q8_0_q8_gemv", "q6k_q8_gemv", "q5k_q8_gemv")
+
+
+def gguf_bf16_phase(sz: Sizes, device) -> dict:
+    """Mistral-7B in the Q5_K_M rule from a GGUF file at full width:
+    written by the port's writer (random wire blocks) into a temporary
+    directory, loaded by load_gguf_model, served with int8_activations=False
+    at the default rq8_group=32 in the slice phase's pattern: K5 and K9b
+    for every Q5_K projection, K8 for the requantized Q6_K ones (attn_v, the
+    use_more_bits ffn_down, the lm_head) up to 256 rows, the Q5_K and int8
+    dequant kernels above, K6 for the first chunks. It raises unless K5,
+    K9b, K8 and K6 launched and no int8 GEMV did. The line gives the
+    write, read (the header), load (load_gguf_model) and pack (the load
+    but its header read: the layers packed and copied to the card in
+    load_gguf_model's threads, the embedding dequantized beside them) times,
+    and the embedding's dequantization timed alone."""
+    import os
+    import tempfile
+
+    import torch
+
+    from mistralrs_tpu_torch.gguf.reader import GGUFFile
+    from mistralrs_tpu_torch.pipeline.gguf import load_gguf_model
+
+    free_card_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mistral-7b-q5_k_m.gguf")
+        nbytes = write_random_gguf(path, sz, sz.layers, "Q5_K", seed=12)
+        write_s = time.perf_counter() - t0
+        t = time.perf_counter()
+        g = GGUFFile(path)
+        read_s = time.perf_counter() - t
+        t = time.perf_counter()
+        g.tensor_f32("token_embd.weight")
+        embed_s = time.perf_counter() - t
+        del g
+        t = time.perf_counter()
+        cfg, params, rope, tokenizer = load_gguf_model(path, dtype=torch.bfloat16, device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    if (cfg.num_layers, cfg.hidden_size, cfg.vocab_size) != (sz.layers, sz.hidden, sz.vocab):
+        raise AssertionError(f"the file's config is not the written one: {cfg}")
+    out = serve_short_context(
+        sz, device, "gguf_bf16", cfg, params, rope, t0, rq8_group=32, int8_activations=False,
+        file_gb=nbytes / 1e9, write_s=write_s, read_s=read_s,
+        embed_dequant_s=embed_s, load_s=load_s, pack_s=load_s - read_s,
+        tokenizer=tokenizer)
+    del params
+    n = out["launches"]
+    check_launched(n, PATH_KERNELS["gguf_bf16"] + ("flash_prefill", "q5k_dequant", "q8_0_dequant"))
+    if any(n[k] for k in INT8_GEMVS):
+        raise AssertionError(f"int8_activations=False launched an int8 GEMV: {n}")
     return out
 
 
@@ -1727,14 +1984,19 @@ def _moved(node, dev, dt):
 
 
 def _side_pipeline(cfg, weights, dev, dt, **kw):
-    """A one-sequence pipeline over a copy of `weights` on one side."""
+    """A one-sequence pipeline on one side over a copy of `weights`, or, when
+    `weights` is a loader (dev, dt) -> (config, params), over what it
+    loads there."""
     from mistralrs_tpu_torch.models.loader import make_rope
     from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
 
-    params = dataclasses.replace(weights, embed=_moved(weights.embed, dev, dt),
-                                 layers=_moved(weights.layers, dev, dt),
-                                 final_norm=_moved(weights.final_norm, dev, dt),
-                                 lm_head=_moved(weights.lm_head, dev, dt))
+    if callable(weights):
+        cfg, params = weights(dev, dt)
+    else:
+        params = dataclasses.replace(weights, embed=_moved(weights.embed, dev, dt),
+                                     layers=_moved(weights.layers, dev, dt),
+                                     final_norm=_moved(weights.final_norm, dev, dt),
+                                     lm_head=_moved(weights.lm_head, dev, dt))
     pc = PipelineConfig(max_seqs=1, dtype=dt, device=str(dev), **kw)
     return TextPipeline(cfg, params, make_rope(cfg, pc.max_model_len, device=dev), pc)
 
@@ -1765,9 +2027,10 @@ def _sides(device):
     return ((torch.device("cpu"), torch.float32), (device, torch.bfloat16))
 
 
-def _token_major_run(cfg, weights, device, prompt, rq8) -> tuple[dict, dict]:
+def _token_major_run(cfg, weights, device, prompt, rq8, **kw) -> tuple[dict, dict]:
     """Logits and launch counts of each side for a 256-token prefill and 4
-    decode steps (token-major pools), both fed the CPU run's argmax."""
+    decode steps (token-major pools), both fed the CPU run's argmax; kw
+    goes to the PipelineConfig of both sides."""
     from mistralrs_tpu_torch.engine.block_manager import BlockManager
     from mistralrs_tpu_torch.engine.sampler import SamplingParams
     from mistralrs_tpu_torch.engine.sequence import Sequence
@@ -1775,7 +2038,7 @@ def _token_major_run(cfg, weights, device, prompt, rq8) -> tuple[dict, dict]:
     runs, forced, counts = {}, None, {}
     for dev, dt in _sides(device):
         pipe = _side_pipeline(cfg, weights, dev, dt, page_size=16, num_pages=32,
-                              max_model_len=512, prefill_buckets=(256,), rq8_group=rq8)
+                              max_model_len=512, prefill_buckets=(256,), rq8_group=rq8, **kw)
         bm = BlockManager(pipe.pc.num_pages, pipe.pc.page_size)
         seq = Sequence(prompt, SamplingParams(max_len=8), max_model_len=512)
         bm.allocate(seq)
@@ -1866,6 +2129,48 @@ def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
         raise AssertionError(f"the long-context check took other routes on the card: {card}")
     outs.append(_compare_sides("card_vs_cpu_long", runs, device, n_layers,
                                launches={n: card[n] for n in want}))
+    return outs
+
+
+def card_vs_cpu_bf16_phase(sz: Sizes, device) -> list[dict]:
+    """The card against the CPU with int8_activations=False: a 2-layer
+    Mistral-7B GGUF at full width in the Q4_K_M rule (K5 alone, K8 for
+    the requantized Q6_K) and one in the Q5_K_M rule (K5 + K9b, K8),
+    written by the port's writer and loaded by load_gguf_model on each side
+    (bf16 on the card, f32 on the CPU): a 256-token prefill and 4 decode
+    steps on token-major pools, rq8_group=32. No int8 GEMV may launch. As a
+    control, the same files with int8_activations=True (K1, K9, K2): what
+    the int8 rounding adds on the same weights."""
+    import os
+    import tempfile
+
+    from mistralrs_tpu_torch.pipeline.gguf import load_gguf_model
+
+    n_layers = 2
+    prompt = [int(t) for t in np.random.default_rng(13).integers(1, sz.vocab, 256)]
+    bf16 = ("q4k_bf16_gemv", "q5k_hbit_bf16_gemv", "q8_0_bf16_gemv")
+    outs = []
+    for mix, base, names in (("q4km", "Q4_K", ("q4k_bf16_gemv", "q8_0_bf16_gemv")),
+                             ("q5km", "Q5_K", bf16)):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"mistral-2l-{base}.gguf")
+            write_random_gguf(path, sz, n_layers, base, seed=14)
+
+            def load(dev, dt):
+                cfg, params, _, _ = load_gguf_model(path, dtype=dt, device=dev)
+                return cfg, params
+
+            for int8 in (False, True):
+                runs, card = _token_major_run(None, load, device, prompt, 32,
+                                              int8_activations=int8)
+                want, never = ((("q4k_q8_gemv" if mix == "q4km" else "q5k_q8_gemv",
+                                 "q8_0_q8_gemv"), bf16) if int8 else (names, INT8_GEMVS))
+                check_launched(card, want)
+                if any(card[k] for k in never):
+                    raise AssertionError(f"int8_activations={int8} took the other route: {card}")
+                outs.append(_compare_sides(f"card_vs_cpu_{'int8' if int8 else 'bf16'}_{mix}",
+                                           runs, device, n_layers,
+                                           launches={k: card[k] for k in want}))
     return outs
 
 
@@ -2034,9 +2339,11 @@ def main() -> int:
     seconds["kernels"] = time.perf_counter() - t0
     for name, fn in (("slice", slice_phase), ("long_context", long_context_phase),
                      ("quant_mix", quant_mix_phase), ("q2k", q2k_phase),
+                     ("gguf_bf16", gguf_bf16_phase),
                      ("gemma2", gemma2_phase), ("gemma2_ragged", gemma2_ragged_phase),
                      ("mixtral", mixtral_phase), ("mixtral_q4km", mixtral_q4km_phase),
                      ("card_vs_cpu", card_vs_cpu_phase),
+                     ("card_vs_cpu_bf16", card_vs_cpu_bf16_phase),
                      ("card_vs_cpu_gemma2", card_vs_cpu_gemma2_phase),
                      ("card_vs_cpu_ragged", card_vs_cpu_ragged_phase),
                      ("card_vs_cpu_mixtral", card_vs_cpu_mixtral_phase)):

@@ -183,7 +183,7 @@ def _expert_slice(lin: Linear, e: int) -> Linear:
     """Expert e's Linear out of stacked packed expert tensors [E, ...] (the
     K-side permutation tables are shared by the experts)."""
     data = {k: (v if k in ("perm", "inv_perm") else v[e]) for k, v in lin.data.items()}
-    return Linear(kind=lin.kind, shape=lin.shape, data=data, meta=lin.meta)
+    return dataclasses.replace(lin, data=data)
 
 
 def _route(cfg: ModelConfig, p: dict[str, Any], xt: torch.Tensor):

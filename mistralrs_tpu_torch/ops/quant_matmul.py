@@ -12,7 +12,12 @@ serving paths run, all hand-written CUDA under csrc/:
 - K10 `affine_gemv` (`_affine_kernel`): w = q*scale - zs for plane-major
   packed codes of 1, 2, 4 or 8 bits, the GEMV of GGUF Q2_K (the Q2_K
   path), GPTQ and HQQ; bf16 activations, as the JAX kernel takes x's
-  dtype.
+  dtype;
+- K5 `q4k_bf16_gemv` (`_q4k_kernel`), K8 `q8_0_bf16_gemv`
+  (`_q8_0_kernel`) and K9b `q5k_hbit_bf16_gemv` (`_q5k_hbit_kernel`): the
+  routes of a Linear with `int8_act` off (PipelineConfig.int8_activations
+  = False), where x stays in its dtype, as in the JAX package with its
+  MISTRALRS_*_INT8 gates off.
 
 Activations are quantized per block to int8 (ggml's Q8 approach, as the JAX
 int8 path does): xs = max(max|x_block|, 1e-10)/127, xq = clip(round(x/xs),
@@ -23,20 +28,29 @@ of a dozen torch ops per projection). Their plain versions quantize with
 the same f32 operations in torch, so the int8 codes agree bit for bit; the
 scale is max|x|*(1/127) in both, where JAX divides by 127 (at most one f32
 ulp apart). The activation scales and block sums are [B, K/gs] here (JAX
-keeps them transposed for TPU sublane alignment). K4 keeps x in its dtype
-and only takes per-16 sums of it.
+keeps them transposed for TPU sublane alignment). K4, K5, K8, K9b and K10
+keep x in its dtype; K4, K5 and K10 only take per-16 or per-32 sums of it.
 
-Routing rules of this port (the dispatchers below):
+Routing rules of this port (the dispatchers below), by the Linear's
+`int8_act` (the port's one switch for the JAX package's four gates
+`_use_q4k_int8`, `_use_q5k_int8`, `_use_q6k_int8`, `_use_q8_0_int8`):
 - more than 256 rows (prefill chunks) -> dequantize + torch.matmul
   (gguf_linear._ref_forward, or affine_qmatmul's own), as the JAX package
   leaves prefill to XLA; on the card the dequantization is one kernel per
   format (`q4k_dequant`, `q5k_dequant`, `q6k_dequant`, `q8_0_dequant`,
   `affine_dequant`, the pass XLA fuses in the JAX package);
 - otherwise the kernel, when its shape rule holds (every kernel: out % 16
-  == 0, for 16-byte column chunks), else the dequant route. Q6_K keeps the
-  JAX package's choice between its two kernels (int8 activations at up to
-  16 rows with G >= 256, activations in x's dtype otherwise), since that
-  choice changes the numbers.
+  == 0, for 16-byte column chunks), else the dequant route:
+  - Q4_K: K1, or K5 with int8_act off;
+  - Q5_K: K9, or K5 on the nibbles then K9b on the high bits, y + 16*yh in
+    x's dtype, with int8_act off;
+  - int8 weights (wire Q8_0, rq8): K2 at group 32 or 64, or K8 at group 32
+    with int8_act off (another group takes the dequant route there, as the
+    JAX package's bf16 route does);
+  - Q6_K: the JAX package's choice between its two kernels, since it
+    changes the numbers: int8 activations (K3) at up to 16 rows with G >=
+    256, K4 otherwise; K4 at every row count with int8_act off;
+  - plane affine: K10 either way (it takes x in its dtype).
 The Mosaic-only rules of the JAX package (in % 512 or % 2048, block_k >=
 512, row padding to 8, x gathered by the Q6_K permutation at G = 128) do
 not apply to the CUDA kernels and are gone: every kernel reads x in
@@ -71,6 +85,9 @@ q6k_dequant_launches = 0
 q5k_dequant_launches = 0
 affine_gemv_launches = 0
 affine_dequant_launches = 0
+q4k_bf16_gemv_launches = 0
+q8_0_bf16_gemv_launches = 0
+q5k_hbit_bf16_gemv_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -145,6 +162,12 @@ def _ksplit(O: int, B: int, k_units: int, device, rows: int = 16) -> int:
     return max(1, min(-(-4 * sms // tiles), k_units // 4))
 
 
+def _plane_rows(B: int) -> int:
+    """Rows of x a block of K5, K8, K9b or K10 serves: one 16-row tile up
+    to 16 rows, four above (the kernels pick the same by B)."""
+    return 16 if B <= 16 else K4_ROWS
+
+
 def _align256(n: int) -> int:
     return (n + 255) & ~255
 
@@ -169,28 +192,37 @@ def _check_x(name: str, x: torch.Tensor, K: int) -> int:
 # ------------------------------------------------------- K1: Q4_K x int8
 
 
+def _sub_block_sums(xv, q, scale, xs=None):
+    """sum_sub [xs[b, sub] *] scale[sub, o] * (xv_sub . q_sub) in f32, over
+    32-element sub-blocks: xv [B, K] (int8 codes or x itself), codes q [K,
+    O] in element order, scale [K/32, O], xs [B, K/32] (the int8 route's
+    activation scales, or None)."""
+    B, K = xv.shape
+    O = q.shape[1]
+    nsub = K // 32
+    acc = torch.zeros(B, O, dtype=torch.float32, device=xv.device)
+    step = max(1, min(2**26 // (B * O), 2**24 // (32 * O)))  # bounded temporaries
+    for s0 in range(0, nsub, step):
+        s1 = min(nsub, s0 + step)
+        n = s1 - s0
+        xb = xv[:, 32 * s0 : 32 * s1].to(torch.float32).reshape(B, n, 32).transpose(0, 1)
+        wb = q[32 * s0 : 32 * s1].to(torch.float32).reshape(n, 32, O)
+        dots = torch.bmm(xb, wb)  # [n, B, O]
+        if xs is not None:
+            dots = dots * xs[:, s0:s1].T[:, :, None]
+        acc += (dots * scale[s0:s1].to(torch.float32)[:, None, :]).sum(dim=0)
+    return acc
+
+
 def _affine_q8_plain(x, q, scale, minv, out_dtype):
     """y = sum_sub xs*scale*(xq . q) - xsum32 @ minv for unsigned codes q
     [K, O] in element order with per-32 scale/minv: the plain versions of
     K1 (4-bit q) and K9 (5-bit q). The per-sub-block dots are integers below
     2^24 (|sum| <= 32*127*31), so the f32 batched products hold them
     exactly, as the kernels' int32 dots do."""
-    B, K = x.shape
-    O = q.shape[1]
-    nsub = K // 32
     xq, xs = _quantize_acts_q8(x)
-    xsum = _xsum(x, 32)
-    acc = torch.zeros(B, O, dtype=torch.float32, device=x.device)
-    step = max(1, min(2**26 // (B * O), 2**24 // (32 * O)))  # bounded temporaries
-    for s0 in range(0, nsub, step):
-        s1 = min(nsub, s0 + step)
-        n = s1 - s0
-        xb = xq[:, 32 * s0 : 32 * s1].to(torch.float32).reshape(B, n, 32).transpose(0, 1)
-        wb = q[32 * s0 : 32 * s1].to(torch.float32).reshape(n, 32, O)
-        dots = torch.bmm(xb, wb)  # [n, B, O]
-        acc += (dots * xs[:, s0:s1].T[:, :, None]
-                * scale[s0:s1].to(torch.float32)[:, None, :]).sum(dim=0)
-    acc -= xsum @ minv.to(torch.float32)
+    acc = _sub_block_sums(xq, q, scale, xs)
+    acc -= _xsum(x, 32) @ minv.to(torch.float32)
     return acc.to(out_dtype)
 
 
@@ -519,9 +551,7 @@ def affine_gemv(x, q, scale, zs, bits: int, group: int, out_dtype=torch.bfloat16
     _check_tensor("scale", scale, torch.bfloat16, (K // group, O))
     _check_tensor("zs", zs, torch.bfloat16, (K // group, O))
     dev = _check_cuda("affine_gemv", dict(x=x, q=q, scale=scale, zs=zs))
-    # rows a block serves: one 16-row tile up to 16 rows, four above (the
-    # kernel picks the same by B)
-    ksplit = _ksplit(O, B, Kp // 32, dev, rows=16 if B <= 16 else K4_ROWS)
+    ksplit = _ksplit(O, B, Kp // 32, dev, rows=_plane_rows(B))
     nbytes = _workspace_bytes(B, K, O, 0, 16, ksplit)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
@@ -532,6 +562,140 @@ def affine_gemv(x, q, scale, zs, bits: int, group: int, out_dtype=torch.bfloat16
              B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
     kernels.check(err, "affine_gemv")
     affine_gemv_launches += 1
+    return out
+
+
+# ------------------------------------------------------- K5: Q4_K x bf16
+
+
+def q4k_bf16_gemv_plain(x, qs, scale, minv, out_dtype=torch.float32):
+    """Plain PyTorch version of K5 on any device, the ops of JAX's
+    `_q4k_kernel`: per 32-element sub-block the f32 dot of x with the
+    nibbles (exact in x's dtype), times the sub-block's scale on the
+    accumulator, then minus the per-32 sums of x (f32) @ minv."""
+    q = torch.cat([qs & 0xF, qs >> 4], dim=0)  # [K, O] element order
+    acc = _sub_block_sums(x, q, scale)
+    acc -= _xsum(x, 32) @ minv.to(torch.float32)
+    return acc.to(out_dtype)
+
+
+def q4k_bf16_gemv(x, qs, scale, minv, out_dtype=torch.bfloat16):
+    """K5: y [B, O] = x @ W for Q4_K W with x kept in bf16 (see
+    csrc/q4k_bf16_gemv.cu). x [B, K] bf16 on cuda, qs uint8 [K/2, O] paired
+    nibbles, scale/minv [K/32, O] (bf16 on cuda)."""
+    global q4k_bf16_gemv_launches
+    O = qs.shape[1]
+    K = 2 * qs.shape[0]
+    B = _check_x("q4k_bf16_gemv", x, K)
+    _require(K % 64 == 0 and O % 16 == 0,
+             f"q4k_bf16_gemv: needs K % 64 == 0 and O % 16 == 0, got K={K} O={O}")
+    _check_tensor("qs", qs, torch.uint8, (K // 2, O))
+    _require(out_dtype in (torch.bfloat16, torch.float32), f"q4k_bf16_gemv: out {out_dtype}")
+    if x.device.type == "cpu":
+        return q4k_bf16_gemv_plain(x, qs, scale, minv, out_dtype)
+    _require(x.dtype == torch.bfloat16, f"q4k_bf16_gemv: the kernel takes bf16 x, got {x.dtype}")
+    _check_tensor("scale", scale, torch.bfloat16, (K // 32, O))
+    _check_tensor("minv", minv, torch.bfloat16, (K // 32, O))
+    dev = _check_cuda("q4k_bf16_gemv", dict(x=x, qs=qs, scale=scale, minv=minv))
+    ksplit = _ksplit(O, B, K // 64, dev, rows=_plane_rows(B))
+    nbytes = _workspace_bytes(B, K, O, 0, 32, ksplit)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    out = torch.empty(B, O, dtype=out_dtype, device=dev)
+    fn = kernels.function("q4k_bf16_gemv", "q4k_bf16_gemv",
+                          [_P] * 5 + [ctypes.c_longlong, _P] + [_I] * 5 + [_P])
+    err = fn(kernels.ptr(x), kernels.ptr(qs), kernels.ptr(scale), kernels.ptr(minv),
+             kernels.ptr(ws), nbytes, kernels.ptr(out), int(out_dtype == torch.bfloat16),
+             B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
+    kernels.check(err, "q4k_bf16_gemv")
+    q4k_bf16_gemv_launches += 1
+    return out
+
+
+# ------------------------------------------------------- K8: int8 x bf16
+
+
+def q8_0_bf16_gemv_plain(x, q, s, out_dtype=torch.float32):
+    """Plain PyTorch version of K8 on any device, the ops of JAX's
+    `_q8_0_kernel`: w = q * s (scale group 32) formed in x's dtype, then the
+    product with f32 accumulation (x.float() @ w.float())."""
+    w = q8_0_dequant_plain(q, s, 32, x.dtype)
+    return (x.to(torch.float32) @ w.to(torch.float32)).to(out_dtype)
+
+
+def q8_0_bf16_gemv(x, q, s, out_dtype=torch.bfloat16):
+    """K8: y [B, O] = x @ W for int8 W with a scale per 32 rows, the weight
+    rounded to bf16 inside the kernel (see csrc/q8_0_bf16_gemv.cu). x [B, K]
+    bf16 on cuda, q int8 [K, O], s [K/32, O] f32 or bf16."""
+    global q8_0_bf16_gemv_launches
+    K, O = q.shape
+    B = _check_x("q8_0_bf16_gemv", x, K)
+    _require(K % 32 == 0 and O % 16 == 0,
+             f"q8_0_bf16_gemv: needs K % 32 == 0 and O % 16 == 0, got K={K} O={O}")
+    _check_tensor("q", q, torch.int8, (K, O))
+    _require(tuple(s.shape) == (K // 32, O), f"s: shape {tuple(s.shape)}, expected {(K // 32, O)}")
+    _require(out_dtype in (torch.bfloat16, torch.float32), f"q8_0_bf16_gemv: out {out_dtype}")
+    if x.device.type == "cpu":
+        return q8_0_bf16_gemv_plain(x, q, s, out_dtype)
+    _require(x.dtype == torch.bfloat16, f"q8_0_bf16_gemv: the kernel takes bf16 x, got {x.dtype}")
+    _require(s.dtype in (torch.float32, torch.bfloat16), f"s: dtype {s.dtype}")
+    dev = _check_cuda("q8_0_bf16_gemv", dict(x=x, q=q, s=s))
+    ksplit = _ksplit(O, B, K // 32, dev, rows=_plane_rows(B))
+    nbytes = _workspace_bytes(B, K, O, 0, 0, ksplit)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    out = torch.empty(B, O, dtype=out_dtype, device=dev)
+    fn = kernels.function("q8_0_bf16_gemv", "q8_0_bf16_gemv",
+                          [_P, _P, _P, _I, _P, ctypes.c_longlong, _P] + [_I] * 5 + [_P])
+    err = fn(kernels.ptr(x), kernels.ptr(q), kernels.ptr(s), int(s.dtype == torch.bfloat16),
+             kernels.ptr(ws), nbytes, kernels.ptr(out), int(out_dtype == torch.bfloat16),
+             B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
+    kernels.check(err, "q8_0_bf16_gemv")
+    q8_0_bf16_gemv_launches += 1
+    return out
+
+
+# ------------------------------------------------------- K9b: Q5_K high bits x bf16
+
+
+def q5k_hbit_bf16_gemv_plain(x, qh, scale, out_dtype=torch.float32):
+    """Plain PyTorch version of K9b on any device, the ops of JAX's
+    `_q5k_hbit_kernel`: w = hbit * scale in x's dtype (exact: hbit is 0 or
+    1), then the product with f32 accumulation."""
+    w = _affine_values(qh, 1).to(x.dtype) * torch.repeat_interleave(scale.to(x.dtype), 32, dim=0)
+    return (x.to(torch.float32) @ w.to(torch.float32)).to(out_dtype)
+
+
+def q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=torch.bfloat16):
+    """K9b: yh [B, O] = sum_i x[:, i] * scale[i/32] * hbit[i] for the
+    plane-major Q5_K high bits (see csrc/q5k_hbit_bf16_gemv.cu), the Q5_K
+    product's term that q5k_matmul adds 16 times to K5's. x [B, K] bf16 on
+    cuda, qh uint8 [K/8, O], scale [K/32, O] (bf16 on cuda)."""
+    global q5k_hbit_bf16_gemv_launches
+    Kp, O = qh.shape
+    K = 8 * Kp
+    B = _check_x("q5k_hbit_bf16_gemv", x, K)
+    _require(K % 256 == 0 and O % 16 == 0,
+             f"q5k_hbit_bf16_gemv: needs K % 256 == 0 and O % 16 == 0, got K={K} O={O}")
+    _require(qh.dtype == torch.uint8, f"qh: dtype {qh.dtype}, expected torch.uint8")
+    _require(tuple(scale.shape) == (K // 32, O),
+             f"scale: shape {tuple(scale.shape)}, expected {(K // 32, O)}")
+    _require(out_dtype in (torch.bfloat16, torch.float32), f"q5k_hbit_bf16_gemv: out {out_dtype}")
+    if x.device.type == "cpu":
+        return q5k_hbit_bf16_gemv_plain(x, qh, scale, out_dtype)
+    _require(x.dtype == torch.bfloat16,
+             f"q5k_hbit_bf16_gemv: the kernel takes bf16 x, got {x.dtype}")
+    _check_tensor("scale", scale, torch.bfloat16, (K // 32, O))
+    dev = _check_cuda("q5k_hbit_bf16_gemv", dict(x=x, qh=qh, scale=scale))
+    ksplit = _ksplit(O, B, K // 256, dev, rows=_plane_rows(B))
+    nbytes = _workspace_bytes(B, K, O, 0, 0, ksplit)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    out = torch.empty(B, O, dtype=out_dtype, device=dev)
+    fn = kernels.function("q5k_hbit_bf16_gemv", "q5k_hbit_bf16_gemv",
+                          [_P] * 4 + [ctypes.c_longlong, _P] + [_I] * 5 + [_P])
+    err = fn(kernels.ptr(x), kernels.ptr(qh), kernels.ptr(scale), kernels.ptr(ws), nbytes,
+             kernels.ptr(out), int(out_dtype == torch.bfloat16), B, K, O, ksplit,
+             _P(kernels.stream_ptr(dev)))
+    kernels.check(err, "q5k_hbit_bf16_gemv")
+    q5k_hbit_bf16_gemv_launches += 1
     return out
 
 
@@ -711,32 +875,42 @@ def q4k_matmul(lin: Linear, x: torch.Tensor) -> torch.Tensor:
     n_rows = math.prod(lead)
     if n_rows > MAX_KERNEL_ROWS or in_f % 64 or out_f % 16 or n_rows == 0:
         return _ref_forward(lin, x)
-    y = q4k_q8_gemv(x.reshape(n_rows, in_f).contiguous(), lin.data["qs"], lin.data["scale"],
-                    lin.data["minv"], out_dtype=x.dtype)
+    gemv = q4k_q8_gemv if lin.int8_act else q4k_bf16_gemv
+    y = gemv(x.reshape(n_rows, in_f).contiguous(), lin.data["qs"], lin.data["scale"],
+             lin.data["minv"], out_dtype=x.dtype)
     return _add_bias(lin, y.reshape(*lead, out_f))
 
 
 def q8_0_matmul(lin: Linear, x: torch.Tensor) -> torch.Tensor:
     """Forward for kind 'gguf_q8_0' (wire Q8_0 or the rq8 requant layout;
-    meta = scale group size, None = 32)."""
+    meta = scale group size, None = 32): K2 at group 32 or 64, or with
+    int8_act off K8 at group 32; other groups, and more than 256 rows,
+    dequantize + matmul."""
     from mistralrs_tpu_torch.quant.gguf_linear import _ref_forward
 
     in_f, out_f = lin.shape
     gs = lin.meta or 32
     lead = x.shape[:-1]
     n_rows = math.prod(lead)
-    if n_rows > MAX_KERNEL_ROWS or gs not in (32, 64) or out_f % 16 or n_rows == 0:
+    groups = (32, 64) if lin.int8_act else (32,)
+    if n_rows > MAX_KERNEL_ROWS or gs not in groups or out_f % 16 or n_rows == 0:
         return _ref_forward(lin, x)
-    y = q8_0_q8_gemv(x.reshape(n_rows, in_f).contiguous(), lin.data["q"], lin.data["scale"], gs,
-                     out_dtype=x.dtype)
+    x2 = x.reshape(n_rows, in_f).contiguous()
+    if lin.int8_act:
+        y = q8_0_q8_gemv(x2, lin.data["q"], lin.data["scale"], gs, out_dtype=x.dtype)
+    else:
+        y = q8_0_bf16_gemv(x2, lin.data["q"], lin.data["scale"], out_dtype=x.dtype)
     return _add_bias(lin, y.reshape(*lead, out_f))
 
 
 def q5k_matmul(lin: Linear, x: torch.Tensor) -> torch.Tensor:
     """Forward for kind 'gguf_q5k' (Q5_K, and Q5_0/Q5_1 packed into its
-    layout). x [..., K] -> [..., O]. Up to 256 rows K9 (the whole product
-    in one kernel, where the JAX package runs K1 and its high-bit kernel)
-    when in % 256 == 0 and out % 16 == 0; else dequantize + matmul."""
+    layout). x [..., K] -> [..., O]. Up to 256 rows, when in % 256 == 0 and
+    out % 16 == 0: K9 (the whole product in one kernel, where the JAX
+    package runs K1 and its high-bit kernel), or with int8_act off K5 on
+    the nibbles and K9b on the high bits, added as y + 16 * yh in x's
+    dtype, as the JAX package's `_q5k_matmul_padded` does; else dequantize
+    + matmul."""
     from mistralrs_tpu_torch.quant.gguf_linear import _ref_forward
 
     in_f, out_f = lin.shape
@@ -744,8 +918,14 @@ def q5k_matmul(lin: Linear, x: torch.Tensor) -> torch.Tensor:
     n_rows = math.prod(lead)
     if n_rows > MAX_KERNEL_ROWS or in_f % 256 or out_f % 16 or n_rows == 0:
         return _ref_forward(lin, x)
-    y = q5k_q8_gemv(x.reshape(n_rows, in_f).contiguous(), lin.data["qs"], lin.data["qh"],
-                    lin.data["scale"], lin.data["minv"], out_dtype=x.dtype)
+    x2 = x.reshape(n_rows, in_f).contiguous()
+    if lin.int8_act:
+        y = q5k_q8_gemv(x2, lin.data["qs"], lin.data["qh"], lin.data["scale"], lin.data["minv"],
+                        out_dtype=x.dtype)
+    else:
+        y = q4k_bf16_gemv(x2, lin.data["qs"], lin.data["scale"], lin.data["minv"],
+                          out_dtype=x.dtype)
+        y = y + 16.0 * q5k_hbit_bf16_gemv(x2, lin.data["qh"], lin.data["scale"], out_dtype=x.dtype)
     return _add_bias(lin, y.reshape(*lead, out_f))
 
 
@@ -753,7 +933,7 @@ def q6k_matmul(lin: Linear, x: torch.Tensor) -> torch.Tensor:
     """Forward for kind 'gguf_q6k' (Q6_K, and Q3_K packed into its layout).
     x [..., K] -> [..., O]; meta = the layout's chunk span G. Routes, the
     JAX package's q6k_matmul rules where they change the numbers:
-    - at most 16 rows and G >= 256: K3 (int8 activations);
+    - at most 16 rows and G >= 256, with int8_act on: K3 (int8 activations);
     - otherwise, up to 256 rows and G >= 128: K4 (activations in x's dtype);
     - more than 256 rows, G < 128 or out % 16: dequantize + matmul.
     Both kernels read x in element order at every G."""
@@ -766,7 +946,7 @@ def q6k_matmul(lin: Linear, x: torch.Tensor) -> torch.Tensor:
     if n_rows > MAX_KERNEL_ROWS or G is None or G < 128 or out_f % 16 or n_rows == 0:
         return _ref_forward(lin, x)
     x2 = x.reshape(n_rows, in_f).contiguous()
-    gemv = q6k_q8_gemv if n_rows <= 16 and G >= 256 else q6k_bf16_gemv
+    gemv = q6k_q8_gemv if lin.int8_act and n_rows <= 16 and G >= 256 else q6k_bf16_gemv
     y = gemv(x2, lin.data["ql"], lin.data["qh"], lin.data["scale"], G, out_dtype=x.dtype)
     return _add_bias(lin, y.reshape(*lead, out_f))
 

@@ -35,10 +35,27 @@ from mistralrs_tpu_torch.models.decoder import DecoderParams, compute_logits, de
 from mistralrs_tpu_torch.ops.paged_attention import PagedAttnMeta, PagedKVCache, copy_pages
 from mistralrs_tpu_torch.ops.rope import RopeTable
 from mistralrs_tpu_torch.quant.fuse import fuse_decoder_params, requant_q6k_params
+from mistralrs_tpu_torch.quant.qlinear import Linear
 
 # size of the device top-K sampling pack in the JAX package (the engine reads
 # it when a pipeline supports that pack; this one does not)
 TOPK_PACK = 64
+
+
+def set_activation_route(params: DecoderParams, int8_act: bool) -> DecoderParams:
+    """The params with `int8_act` set on every packed Linear (layers, MoE
+    expert stacks and the lm_head), as new Linears: the caller's stay as
+    they were."""
+
+    def conv(node):
+        if isinstance(node, Linear):
+            return node if node.kind == "dense" else dataclasses.replace(node, int8_act=int8_act)
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return node
+
+    return dataclasses.replace(params, layers=[conv(lp) for lp in params.layers],
+                               lm_head=conv(params.lm_head))
 
 
 def _next_bucket(n: int, buckets: tuple[int, ...]) -> int:
@@ -77,6 +94,15 @@ class PipelineConfig:
     # the ragged paged attention kernel K12 for every continuation chunk and
     # decode step (ops/ragged_attention.py)
     attn_backend: str | None = None
+    # activation route of every packed GEMV (Linear.int8_act): True = x
+    # quantized to int8 per block (K1, K2, K3, K9), False = x kept in its
+    # dtype (K5, K8, K9b, and K4 for Q6_K at every row count), at the price
+    # of reading x at 2 bytes an element and running bf16 tensor cores. It
+    # stands for the JAX package's four environment gates
+    # (ops/quant_matmul.py:436 _use_q4k_int8, :832 _use_q5k_int8, :1060
+    # _use_q6k_int8, :1365 _use_q8_0_int8), which are on on the TPU; with
+    # them off, and off the TPU, no activation is rounded to int8.
+    int8_activations: bool = True
     device: str = "cuda"
 
 
@@ -124,7 +150,7 @@ class TextPipeline:
         params = fuse_decoder_params(params)
         if pc.rq8_group:
             params = requant_q6k_params(params, gs=pc.rq8_group)
-        self.params = params
+        self.params = set_activation_route(params, pc.int8_activations)
         self.kv_combined = pc.attn_backend == "ragged"
         # the combined pool is token-major by construction
         self.head_major = not self.kv_combined and (

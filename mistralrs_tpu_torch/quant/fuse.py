@@ -33,14 +33,15 @@ _SHARED_K = ("perm", "inv_perm", "in_perm")
 
 def fuse_linears(lins: list[Linear]) -> Linear | None:
     """Concatenate same-kind, same-in-features linears along out-features.
-    Returns None when they cannot fuse (mixed kinds, metas or biases, a
-    ragged act-order g_idx gather, or act-order input permutations that
-    differ: each GPTQ desc_act linear sorts its rows by its own g_idx, so
-    only identical permutations hoist past the fused product)."""
+    Returns None when they cannot fuse (mixed kinds, metas, activation
+    routes or biases, a ragged act-order g_idx gather, or act-order input
+    permutations that differ: each GPTQ desc_act linear sorts its rows by
+    its own g_idx, so only identical permutations hoist past the fused
+    product). The fused Linear carries the first one's fields."""
     kind = lins[0].kind
     if kind not in _CAT_AXIS1 or any(l.kind != kind for l in lins):
         return None
-    if len({l.shape[0] for l in lins}) != 1 or len({l.meta for l in lins}) != 1:
+    if len({(l.shape[0], l.meta, l.int8_act) for l in lins}) != 1:
         return None
     if any("g_idx" in l.data for l in lins):
         return None
@@ -58,7 +59,7 @@ def fuse_linears(lins: list[Linear]) -> Linear | None:
         if key in lins[0].data:
             data[key] = lins[0].data[key]
     out = sum(l.shape[1] for l in lins)
-    return Linear(kind=kind, shape=(lins[0].shape[0], out), data=data, meta=lins[0].meta)
+    return dataclasses.replace(lins[0], shape=(lins[0].shape[0], out), data=data)
 
 
 def split_linear(lin: Linear, sizes: list[int]) -> list[Linear] | None:
@@ -77,7 +78,7 @@ def split_linear(lin: Linear, sizes: list[int]) -> list[Linear] | None:
         for key in _SHARED_K:
             if key in lin.data:
                 data[key] = lin.data[key]
-        outs.append(Linear(kind=lin.kind, shape=(lin.shape[0], size), data=data, meta=lin.meta))
+        outs.append(dataclasses.replace(lin, shape=(lin.shape[0], size), data=data))
         off += size
     return outs
 
@@ -104,7 +105,7 @@ def pad_linear_out(lin: Linear, mult: int = 2048, max_pad: int | None = None) ->
     for key in _SHARED_K:
         if key in lin.data:
             data[key] = lin.data[key]
-    return Linear(kind=kind, shape=(lin.shape[0], out + pad), data=data, meta=lin.meta)
+    return dataclasses.replace(lin, shape=(lin.shape[0], out + pad), data=data)
 
 
 def fuse_decoder_params(params):

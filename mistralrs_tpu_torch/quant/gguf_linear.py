@@ -26,6 +26,8 @@ at up to 256 rows, dequantize + torch.matmul above.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -453,7 +455,7 @@ def requant_q6k_to_q8(lin: Linear, gs: int = 64) -> Linear:
     data = {"q": q.reshape(K, O), "scale": s.to(torch.float32)}
     if "b" in lin.data:
         data["b"] = lin.data["b"]
-    return Linear(kind="gguf_q8_0", shape=lin.shape, data=data, meta=gs)
+    return dataclasses.replace(lin, kind="gguf_q8_0", data=data, meta=gs)
 
 
 DEQUANT_WEIGHTS = {

@@ -25,6 +25,12 @@ class Linear:
     data: dict[str, Any] = dataclasses.field(default_factory=dict)
     # per-kind layout constant (q6k chunk span, rq8 group size)
     meta: Any = None
+    # activation route of the packed GEMVs (ops/quant_matmul.py): True =
+    # x quantized to int8 per block (K1, K2, K3, K9), False = x kept in its
+    # dtype (K5, K8, K9b, K4); set on every packed Linear by TextPipeline
+    # from PipelineConfig.int8_activations. A site that rebuilds a Linear
+    # carries it with dataclasses.replace.
+    int8_act: bool = True
 
     @property
     def in_features(self) -> int:

@@ -5,6 +5,7 @@ on one NVIDIA card.
     python3 scripts/torch_decode_profile.py [--layers N] [--batch 16]
                                             [--mix q4km|q5km|q2k|gemma2|mixtral]
                                             [--backend default|ragged]
+                                            [--int8-activations on|off]
 
 Builds a random-weight model of chip_smoke.py at its full depth unless
 `--layers` says otherwise: Mistral-7B with `--mix q4km`
@@ -19,7 +20,11 @@ GEMM K13, Q4_K attention, router and lm_head; 24 layers, the most whose
 experts fit the card). `--backend ragged` serves it on
 the ragged attention backend (one combined K/V pool; the ragged paged
 attention kernel K12 for continuation chunks and decode) instead of the
-default routes (decode below span 4096 on the gather route). After a
+default routes (decode below span 4096 on the gather route).
+`--int8-activations off` serves it with PipelineConfig(int8_activations=
+False): the packed GEMVs keep x in bf16 (K5 for Q4_K, K5 + K9b for Q5_K,
+K8 for int8 weights, K4 for Q6_K) where the default quantizes it to int8
+(K1, K9, K2, K3). After a
 warm-up that runs each step once untraced (a first use of a kernel or a
 GEMM shape costs up to ~0.2 s of host time), traces one batched
 first-chunk prefill engine step each of FEW 40-token prompts (a 64-token
@@ -28,8 +33,11 @@ when a few requests arrive) and `--batch` 200-token prompts, then times greedy m
 forwards each, median of 5) with the host clock and traces one with
 torch.profiler. Prints JSON lines: a summary per phase (wall time, the
 device's busy share = sum of kernel times over the traced wall time,
-kernel launches, and the grouped GEMM's device time and share of it),
-then the top device kernels and host ops by time.
+kernel launches, and the device time of K13, K5, K8 and K9b and their
+shares of it: kernels named grouped_gemm, q4k_bf16_mma,
+plane_bf16_mma_kernel<8 and plane_bf16_mma_kernel<1, the last also K10's
+at 1 bit, which no mix here runs), then the top device kernels and host
+ops by time.
 """
 
 from __future__ import annotations
@@ -46,6 +54,9 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 FEW = 4  # prompts in the traced prefill steps that fill a few of the slots
+# device time reported by kernel: a part of the kernel's name
+NAMED_KERNELS = {"grouped_gemm": "grouped_gemm", "k5": "q4k_bf16_mma",
+                 "k8": "plane_bf16_mma_kernel<8", "k9b": "plane_bf16_mma_kernel<1"}
 
 
 def main() -> int:
@@ -54,6 +65,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--mix", choices=("q4km", "q5km", "q2k", "gemma2", "mixtral"), default="q4km")
     ap.add_argument("--backend", choices=("default", "ragged"), default="default")
+    ap.add_argument("--int8-activations", choices=("on", "off"), default="on")
     args = ap.parse_args()
 
     import torch
@@ -83,7 +95,8 @@ def main() -> int:
     params = build(sz, args.layers, dev, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
     pc = PipelineConfig(page_size=16, num_pages=1024, max_seqs=args.batch, max_model_len=2048,
                         prefill_buckets=(64, 256), decode_steps=8, device="cuda",
-                        rq8_group=None if args.mix == "q5km" else 32, attn_backend=args.backend)
+                        rq8_group=None if args.mix == "q5km" else 32, attn_backend=args.backend,
+                        int8_activations=args.int8_activations == "on")
     pipe = TextPipeline(cfg, params, make_rope(cfg, 2048, device=dev), pc)
     del params
     eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
@@ -150,13 +163,16 @@ def report(phase, name, args, prof, wall, extra) -> None:
     # fewer device kernel events than launches: the trace dropped some, and
     # device_busy_ms covers only the forwards it kept
     events = sum(e.count for e in kernels)
-    k13_us = sum(e.self_device_time_total for e in kernels if "grouped_gemm" in e.key)
+    named = {}
+    for label, part in NAMED_KERNELS.items():
+        us = sum(e.self_device_time_total for e in kernels if part in e.key)
+        named[f"{label}_ms"] = us / 1e3
+        named[f"{label}_share"] = us / max(dev_us, 1e-9)
     print(json.dumps({"phase": phase, "device": name, "mix": args.mix, "backend": args.backend,
-                      "layers": args.layers, "batch": args.batch,
-                      **extra, "traced_wall_ms": wall * 1e3, "device_busy_ms": dev_us / 1e3,
-                      "device_busy_share": dev_us / 1e6 / wall, "launches": launches,
-                      "device_kernel_events": events, "grouped_gemm_ms": k13_us / 1e3,
-                      "grouped_gemm_share": k13_us / max(dev_us, 1e-9)}))
+                      "int8_activations": args.int8_activations, "layers": args.layers,
+                      "batch": args.batch, **extra, "traced_wall_ms": wall * 1e3,
+                      "device_busy_ms": dev_us / 1e3, "device_busy_share": dev_us / 1e6 / wall,
+                      "launches": launches, "device_kernel_events": events, **named}))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(json.dumps({"phase": phase, "kernel": e.key[:90], "count": e.count,
                           "device_ms": e.self_device_time_total / 1e3}))

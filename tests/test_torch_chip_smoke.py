@@ -11,6 +11,8 @@ Q2_K mix has Q2_K q, k, gate and up, Q4_K v, Q3_K o and down (in the Q6_K
 layout) and a Q6_K lm_head, the last three requantized to int8 per 32.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -515,3 +517,105 @@ def test_grouped_cases_route_two_distinct_experts_a_token():
         assert int(sizes.max()) <= tokens  # an expert takes a token once
     names = [c[0] for c in chip_smoke.GROUPED_CASES]
     assert chip_smoke.HEADLINE["grouped_gemm"] in names and len(set(names)) == len(names)
+
+
+# ------------------------------------------------------------- GGUF files
+
+
+@pytest.fixture(scope="module")
+def tiny_q5km_gguf(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("gguf") / "q5km.gguf")
+    nbytes = chip_smoke.write_random_gguf(path, TINY, 8, "Q5_K", seed=12)
+    return path, nbytes
+
+
+def test_random_gguf_has_the_q5km_mix_and_reads_back(tiny_q5km_gguf):
+    """The random-wire builder at a tiny size: the port's reader finds the
+    Q5_K_M rule's types (Q6_K attn_v, use_more_bits ffn_down and output,
+    Q5_K elsewhere, F32 norms), every tensor dequantizes to finite values,
+    and the packed scales and mins stay in bench.py's ranges."""
+    from mistralrs_tpu_torch.gguf.reader import GGMLType, GGUFFile
+    from mistralrs_tpu_torch.quant.gguf_linear import linear_from_gguf
+
+    path, nbytes = tiny_q5km_gguf
+    g = GGUFFile(path)
+    assert g.architecture == "llama" and g.metadata["llama.block_count"] == 8
+    assert sum(ti.byte_size for ti in g.tensors.values()) == nbytes
+    assert len(g.tensors) == 3 + 9 * 8
+    assert g.tensors["token_embd.weight"].ggml_type == GGMLType.Q5_K
+    assert g.tensors["output.weight"].ggml_type == GGMLType.Q6_K
+    for i in range(8):
+        types = {n: g.tensors[f"blk.{i}.{n}.weight"].ggml_type.name
+                 for n in chip_smoke.gguf_mix("Q5_K", i, 8)}
+        assert types == chip_smoke.gguf_mix("Q5_K", i, 8)
+        assert types["attn_v"] == "Q6_K" and types["attn_q"] == "Q5_K"
+        assert types["ffn_down"] == ("Q6_K" if chip_smoke.use_more_bits(i, 8) else "Q5_K")
+        assert g.tensors[f"blk.{i}.attn_norm.weight"].ggml_type == GGMLType.F32
+    assert g.tensors["blk.0.attn_k.weight"].shape == (TINY.kv_heads * TINY.head_dim, TINY.hidden)
+    for name in g.tensors:
+        assert np.isfinite(g.tensor_f32(name)).all(), name
+    ti, raw = g.raw_tensor("blk.0.ffn_gate.weight")
+    lin = linear_from_gguf(raw, ti.ggml_type, ti.shape, torch.float32, "cpu")
+    assert float(lin.data["scale"].max()) < 0.005 and float(lin.data["minv"].max()) < 0.002
+    ti, raw = g.raw_tensor("output.weight")
+    lin = linear_from_gguf(raw, ti.ggml_type, ti.shape, torch.float32, "cpu")
+    assert float(lin.data["scale"].abs().max()) < 0.005
+
+
+def test_random_gguf_serves_on_the_bf16_route(tiny_q5km_gguf, monkeypatch):
+    """The gguf_bf16 phase's pipeline at a tiny size on the CPU: the file
+    loaded by load_gguf_model and served with int8_activations=False at
+    rq8_group=32 takes the plain versions of K5, K9b and K8, never an int8
+    GEMV's."""
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+    from mistralrs_tpu_torch.pipeline.gguf import load_gguf_model
+
+    calls = {}
+    for name in ("q4k_bf16_gemv", "q5k_hbit_bf16_gemv", "q8_0_bf16_gemv") + chip_smoke.INT8_GEMVS:
+        fn = getattr(qm, f"{name}_plain")
+        monkeypatch.setattr(qm, f"{name}_plain",
+                            lambda *a, _n=name, _f=fn, **k: calls.update(
+                                {_n: calls.get(_n, 0) + 1}) or _f(*a, **k))
+    cfg, params, rope, _ = load_gguf_model(tiny_q5km_gguf[0], dtype=torch.float32, device="cpu")
+    pc = PipelineConfig(page_size=16, num_pages=64, max_seqs=4, max_model_len=512,
+                        prefill_buckets=(64, 256), decode_steps=4, dtype=torch.float32,
+                        device="cpu", int8_activations=False)
+    pipe = TextPipeline(dataclasses.replace(cfg, num_layers=2), dataclasses.replace(
+        params, layers=params.layers[:2]), rope, pc)
+    eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
+    rng = np.random.default_rng(1)
+    groups = [eng.add_request(GenerationRequest([int(t) for t in rng.integers(1, TINY.vocab, n)],
+                                                SamplingParams(max_len=6)))
+              for n in (150, 40)]
+    while not all(g.all_done() for g in groups):
+        eng.step()
+    assert all(g.seqs[0].num_generated == 6 for g in groups)
+    assert np.isfinite(pipe.last_greedy_pack).all()
+    assert set(calls) == {"q4k_bf16_gemv", "q5k_hbit_bf16_gemv", "q8_0_bf16_gemv"}, calls
+
+
+def test_bf16_card_vs_cpu_loads_each_side_from_the_file(tiny_q5km_gguf):
+    """card_vs_cpu_bf16's run with the CPU standing in for both sides:
+    load_gguf_model on each side, a 256-token prefill and 4 decode steps."""
+    from mistralrs_tpu_torch.pipeline.gguf import load_gguf_model
+
+    def load(dev, dt):
+        cfg, params, _, _ = load_gguf_model(tiny_q5km_gguf[0], dtype=dt, device=dev)
+        return dataclasses.replace(cfg, num_layers=2), dataclasses.replace(
+            params, layers=params.layers[:2])
+
+    prompt = [int(t) for t in np.random.default_rng(13).integers(1, TINY.vocab, 256)]
+    runs, counts = chip_smoke._token_major_run(None, load, torch.device("cpu"), prompt, 32,
+                                               int8_activations=False)
+    assert runs["cpu"].shape == (5, TINY.vocab) and np.isfinite(runs["cpu"]).all()
+    assert counts["q4k_bf16_gemv"] == 0  # no launch on the CPU
+
+
+def test_gguf_bf16_path_holds_the_three_kernels():
+    assert chip_smoke.PATH_KERNELS["gguf_bf16"] == ("q4k_bf16_gemv", "q8_0_bf16_gemv",
+                                                    "q5k_hbit_bf16_gemv")
+    assert len(chip_smoke.KERNEL_INFO) == 20
+    for name in chip_smoke.PATH_KERNELS["gguf_bf16"]:
+        source, replaces = chip_smoke.KERNEL_INFO[name]
+        assert source.startswith("mistralrs_tpu_torch/csrc/") and replaces.startswith(
+            "mistralrs_tpu/ops/quant_matmul.py:")

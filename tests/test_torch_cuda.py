@@ -665,3 +665,119 @@ def test_moe_decode_forward_never_waits_for_the_card(dev):
         torch.cuda.set_sync_debug_mode("default")
     assert gg.grouped_gemm_launches == before + 3 * 2
     assert logits.shape == (B, sz.vocab) and bool(torch.isfinite(logits).all())
+
+
+# ------------------------------------------------------------- bf16 activations
+
+# (in, out) of Mistral-7B's projections: gate|up, q|k, down, v, and the
+# lm_head padded to 32768
+MISTRAL_SHAPES = [(4096, 28672), (4096, 5120), (14336, 4096)]
+BF16_ROWS = [1, 5, 16, 17, 64, 256]
+
+
+@pytest.mark.parametrize("B", BF16_ROWS)
+@pytest.mark.parametrize("K,O", MISTRAL_SHAPES + [(512, 272)])
+def test_q4k_bf16_gemv_matches_plain(dev, B, K, O):
+    """K5: the same bf16 x and exact nibbles on both sides; f32 sums of bf16
+    products in another order, the scale on each sub-block's sum (1e-4 of
+    max |y|, as K4)."""
+    qs, _, scale, minv = _q5k_arrays(dev, K, O, B + K)
+    x = _acts(B, K, dev, B).to(torch.bfloat16)
+    before = qm.q4k_bf16_gemv_launches
+    got = qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=torch.float32)
+    want = qm.q4k_bf16_gemv_plain(x, qs, scale, minv, torch.float32)
+    torch.cuda.synchronize()
+    assert qm.q4k_bf16_gemv_launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) <= 1e-4
+    y16 = qm.q4k_bf16_gemv(x, qs, scale, minv)
+    assert y16.dtype == torch.bfloat16 and _rel_err(y16.float(), want) <= 1e-2
+
+
+@pytest.mark.parametrize("B", BF16_ROWS)
+@pytest.mark.parametrize("K,O", MISTRAL_SHAPES + [(512, 272)])
+def test_q5k_hbit_bf16_gemv_matches_plain(dev, B, K, O):
+    """K9b: the same bf16(scale) * bit weights (exact) on both sides."""
+    _, qh, scale, _ = _q5k_arrays(dev, K, O, B + K + 1)
+    x = _acts(B, K, dev, B + 1).to(torch.bfloat16)
+    before = qm.q5k_hbit_bf16_gemv_launches
+    got = qm.q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=torch.float32)
+    want = qm.q5k_hbit_bf16_gemv_plain(x, qh, scale, torch.float32)
+    torch.cuda.synchronize()
+    assert qm.q5k_hbit_bf16_gemv_launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("B", BF16_ROWS)
+@pytest.mark.parametrize("K,O,sdt", [(4096, 1024, torch.float32), (14336, 4096, torch.float32),
+                                     (4096, 32768, torch.float32), (4096, 32768, torch.bfloat16),
+                                     (1024, 272, torch.bfloat16)])
+def test_q8_0_bf16_gemv_matches_plain(dev, B, K, O, sdt):
+    """K8: the same bf16(q * bf16(s)) weights on both sides (rq8's f32
+    scales are rounded to bf16 first, as the JAX kernel casts them)."""
+    g = torch.Generator(device="cpu").manual_seed(B + K + O)
+    q = torch.randint(-128, 128, (K, O), generator=g, dtype=torch.int8).to(dev)
+    s = (torch.rand(K // 32, O, generator=g) * 3e-4 + 1e-4).to(dev, sdt)
+    x = _acts(B, K, dev, B + 2).to(torch.bfloat16)
+    before = qm.q8_0_bf16_gemv_launches
+    got = qm.q8_0_bf16_gemv(x, q, s, out_dtype=torch.float32)
+    want = qm.q8_0_bf16_gemv_plain(x, q, s, torch.float32)
+    torch.cuda.synchronize()
+    assert qm.q8_0_bf16_gemv_launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) <= 1e-4
+
+
+def test_bf16_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    qs, qh, scale, minv = _q5k_arrays(dev, 512, 256, 2)
+    x = _acts(4, 512, dev, 1)
+    q = torch.zeros(512, 256, dtype=torch.int8, device=dev)
+    s = torch.zeros(16, 256, dtype=torch.float32, device=dev)
+    for call in (lambda: qm.q4k_bf16_gemv(x, qs, scale, minv),  # f32 x
+                 lambda: qm.q5k_hbit_bf16_gemv(x, qh, scale),
+                 lambda: qm.q8_0_bf16_gemv(x, q, s),
+                 lambda: qm.q4k_bf16_gemv(x.to(torch.bfloat16), qs, scale.float(), minv),
+                 lambda: qm.q5k_hbit_bf16_gemv(x.to(torch.bfloat16)[:, :256], qh[:32], scale),
+                 lambda: qm.q8_0_bf16_gemv(x.to(torch.bfloat16), q, s.to(torch.float16))):
+        with pytest.raises(ValueError):
+            call()
+
+
+def test_gguf_pipeline_decodes_on_the_bf16_route(dev, tmp_path):
+    """A 2-layer Mistral GGUF at hidden 1024 in the Q5_K_M rule (random wire
+    blocks, chip_smoke.write_random_gguf), loaded by load_gguf_model and
+    served with int8_activations=False: a 40-token prefill and 8 greedy
+    decode steps take K5, K9b and K8 and no int8 GEMV; tokens are in the
+    vocabulary and logits finite."""
+    import numpy as np
+
+    import chip_smoke
+    from mistralrs_tpu_torch.engine.engine import Engine, GenerationRequest
+    from mistralrs_tpu_torch.engine.sampler import SamplingParams
+    from mistralrs_tpu_torch.pipeline.gguf import load_gguf_model
+    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
+
+    sz = chip_smoke.Sizes(vocab=2048, hidden=1024, inter=2048, heads=8, kv_heads=2, layers=2)
+    path = str(tmp_path / "tiny.gguf")
+    chip_smoke.write_random_gguf(path, sz, 2, "Q5_K", seed=3)
+    cfg, params, rope, _ = load_gguf_model(path)
+    assert params.embed.device.type == "cuda" and params.embed.dtype == torch.bfloat16
+    pipe = TextPipeline(cfg, params, rope, PipelineConfig(
+        num_pages=64, max_seqs=4, max_model_len=512, prefill_buckets=(64,), decode_steps=4,
+        int8_activations=False))
+    eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
+    names = ("q4k_bf16_gemv", "q5k_hbit_bf16_gemv", "q8_0_bf16_gemv", "q4k_q8_gemv",
+             "q8_0_q8_gemv", "q5k_q8_gemv", "q6k_q8_gemv")
+    before = {n: getattr(qm, f"{n}_launches") for n in names}
+    rng = np.random.default_rng(0)
+    group = eng.add_request(GenerationRequest([int(t) for t in rng.integers(1, 2048, 40)],
+                                              SamplingParams(max_len=8)))
+    while not group.all_done():
+        eng.step()
+    torch.cuda.synchronize()
+    ran = {n: getattr(qm, f"{n}_launches") - before[n] for n in names}
+    assert all(ran[n] > 0 for n in names[:3]) and not any(ran[n] for n in names[3:]), ran
+    (seq,) = group.seqs
+    assert seq.num_generated == 8 and all(0 <= t < 2048 for t in seq.generated_tokens)
+    assert np.isfinite(pipe.last_greedy_pack).all()

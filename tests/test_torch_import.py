@@ -57,7 +57,8 @@ def test_every_module_is_listed():
     assert {"mistralrs_tpu_torch.quant.gptq", "mistralrs_tpu_torch.quant.hqq",
             "mistralrs_tpu_torch.ops.splash",
             "mistralrs_tpu_torch.ops.ragged_attention",
-            "mistralrs_tpu_torch.ops.grouped_gemm"} <= set(MODULES)
+            "mistralrs_tpu_torch.ops.grouped_gemm", "mistralrs_tpu_torch.gguf.reader",
+            "mistralrs_tpu_torch.gguf.writer", "mistralrs_tpu_torch.pipeline.gguf"} <= set(MODULES)
     assert len(MODULES) >= 30
 
 

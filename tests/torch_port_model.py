@@ -188,3 +188,88 @@ def jax_mixtral_params(seed: int = 0):
     src = TensorSource.from_dict({k: v.detach().numpy() for k, v in model.state_dict().items()})
     return (cfg, params_from_source(cfg, src, dtype=jnp.float32),
             params_from_source(cfg, src, dtype=jnp.float32, isq="Q4K"))
+
+
+# ---------------------------------------------------------------- GGUF files
+
+# a tiny Mistral written as llama.cpp lays one out (general.architecture
+# "llama"): hidden 512 (so Q6_K's chunk span is 128 and K4 takes it), 4
+# heads of 128 over 2 kv heads, intermediate 1024, 2 layers, vocab 384
+TINY_GGUF = dict(hidden=512, inter=1024, heads=4, kv_heads=2, head_dim=128, vocab=384, ctx=512)
+# each layer's projection types: every packed type of the bf16-activation
+# route (Q4_K, Q5_K, Q6_K, Q8_0), fused (q|k, gate|up) and not
+GGUF_MIX = (
+    {"attn_q": GGMLType.Q4_K, "attn_k": GGMLType.Q4_K, "attn_v": GGMLType.Q6_K,
+     "attn_output": GGMLType.Q8_0, "ffn_gate": GGMLType.Q5_K, "ffn_up": GGMLType.Q5_K,
+     "ffn_down": GGMLType.Q6_K},
+    {"attn_q": GGMLType.Q5_K, "attn_k": GGMLType.Q5_K, "attn_v": GGMLType.Q8_0,
+     "attn_output": GGMLType.Q4_K, "ffn_gate": GGMLType.Q4_K, "ffn_up": GGMLType.Q4_K,
+     "ffn_down": GGMLType.Q8_0},
+)
+
+
+def write_tiny_gguf(path, seed: int = 0, mix=GGUF_MIX, experts: int = 0,
+                    expert_layout: str = "stacked", fused_qkv: bool = False) -> None:
+    """A tiny seeded GGUF model quantized by the JAX package's quantizers and
+    written by its writer: F32 norms, a Q8_0 token embedding, a Q6_K output
+    with a "bigram" structure (row (7i + 3) mod V carries 0.05 * embed[i], so
+    greedy tokens have wide margins), and per layer the projection types of
+    `mix`. With `experts`, a Mixtral (expert_count, 2 a token): an F32
+    router and the ffn experts stacked as ffn_*_exps [E, out, in]
+    ("stacked") or one ffn_*.{e} tensor each ("per_expert"). With
+    `fused_qkv`, each layer's q, k and v are one attn_qkv tensor in
+    attn_q's type."""
+    from mistralrs_tpu.gguf.writer import write_gguf
+
+    t = TINY_GGUF
+    H, I, D, V = t["hidden"], t["inter"], t["head_dim"], t["vocab"]
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, std=0.05):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    def q(a, gtype):
+        raw = (np.concatenate([kquants.quantize(x, gtype) for x in a]) if a.ndim == 3
+               else kquants.quantize(a, gtype))
+        return (gtype, a.shape, raw)
+
+    embed = w(V, H, std=1.0)
+    head = w(V, H, std=0.01)
+    head[(7 * np.arange(V) + 3) % V] += 0.05 * embed
+    tensors = {"token_embd.weight": q(embed, GGMLType.Q8_0),
+               "output_norm.weight": (GGMLType.F32, (H,), 1.0 + 0.1 * w(H, std=1.0)),
+               "output.weight": q(head, GGMLType.Q6_K)}
+    for i, types in enumerate(mix):
+        p = f"blk.{i}"
+        tensors.update({
+            f"{p}.attn_norm.weight": (GGMLType.F32, (H,), 1.0 + 0.1 * w(H, std=1.0)),
+            f"{p}.attn_output.weight": q(w(H, t["heads"] * D), types["attn_output"]),
+            f"{p}.ffn_norm.weight": (GGMLType.F32, (H,), 1.0 + 0.1 * w(H, std=1.0))})
+        qkv = {"attn_q": w(t["heads"] * D, H), "attn_k": w(t["kv_heads"] * D, H),
+               "attn_v": w(t["kv_heads"] * D, H)}
+        if fused_qkv:
+            tensors[f"{p}.attn_qkv.weight"] = q(np.concatenate(list(qkv.values())),
+                                                types["attn_q"])
+        else:
+            tensors.update({f"{p}.{n}.weight": q(a, types[n]) for n, a in qkv.items()})
+        shapes = {"ffn_gate": (I, H), "ffn_up": (I, H), "ffn_down": (H, I)}
+        if not experts:
+            tensors.update({f"{p}.{n}.weight": q(w(*s, std=0.03), types[n])
+                            for n, s in shapes.items()})
+            continue
+        tensors[f"{p}.ffn_gate_inp.weight"] = (GGMLType.F32, (experts, H), w(experts, H, std=0.2))
+        for n, s in shapes.items():
+            stack = w(experts, *s, std=0.03)
+            if expert_layout == "stacked":
+                tensors[f"{p}.{n}_exps.weight"] = q(stack, types[n])
+            else:
+                tensors.update({f"{p}.{n}.{e}.weight": q(stack[e], types[n])
+                                for e in range(experts)})
+    md = {"general.architecture": "llama", "llama.block_count": len(mix),
+          "llama.embedding_length": H, "llama.feed_forward_length": I,
+          "llama.attention.head_count": t["heads"], "llama.attention.head_count_kv": t["kv_heads"],
+          "llama.attention.layer_norm_rms_epsilon": 1e-5, "llama.rope.freq_base": 1e6,
+          "llama.context_length": t["ctx"], "llama.vocab_size": V}
+    if experts:
+        md.update({"llama.expert_count": experts, "llama.expert_used_count": 2})
+    write_gguf(str(path), md, tensors)

@@ -145,6 +145,11 @@ KERNEL_INFO = {
                     "mistralrs_tpu/ops/quant_matmul.py:348"),
     "q8_0_q8_gemv": ("mistralrs_tpu_torch/csrc/q8_0_q8_gemv.cu",
                      "mistralrs_tpu/ops/quant_matmul.py:1245"),
+    # the rows instantiations of the same two (17-256 rows), counted apart
+    "q4k_q8_gemv_rows": ("mistralrs_tpu_torch/csrc/q4k_q8_gemv.cu",
+                         "mistralrs_tpu/ops/quant_matmul.py:348"),
+    "q8_0_q8_gemv_rows": ("mistralrs_tpu_torch/csrc/q8_0_q8_gemv.cu",
+                          "mistralrs_tpu/ops/quant_matmul.py:1245"),
     "flash_prefill": ("mistralrs_tpu_torch/csrc/flash_prefill.cu",
                       "mistralrs_tpu/models/decoder.py:416"),
     "flash_prefill_paged": ("mistralrs_tpu_torch/csrc/flash_prefill_paged.cu",
@@ -185,6 +190,7 @@ KERNEL_INFO = {
 }
 # the shape whose numbers stand in the kernels line
 HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
+            "q4k_q8_gemv_rows": "gate|up B=256", "q8_0_q8_gemv_rows": "lm_head B=256",
             "flash_prefill": "B=4 T=512", "flash_prefill_paged": "B=4 T=512 kv=4096 head_major",
             "paged_decode": "B=16 kv=4096 head_major", "q4k_dequant": "gate|up",
             "q8_0_dequant": "down rq8", "q6k_q8_gemv": "lm_head B=16",
@@ -202,7 +208,8 @@ HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
 # Q5_K and int8 dequant kernels); the line's launches of each kernel come
 # from the phase of its path
 PATH_KERNELS = {
-    "slice": ("q4k_q8_gemv", "q8_0_q8_gemv", "flash_prefill", "q4k_dequant", "q8_0_dequant"),
+    "slice": ("q4k_q8_gemv", "q8_0_q8_gemv", "q4k_q8_gemv_rows", "q8_0_q8_gemv_rows",
+              "flash_prefill", "q4k_dequant", "q8_0_dequant"),
     "long_context": ("flash_prefill_paged", "paged_decode"),
     "quant_mix": ("q6k_q8_gemv", "q6k_bf16_gemv", "q5k_q8_gemv", "q6k_dequant", "q5k_dequant"),
     "q2k": ("affine_gemv", "affine_dequant"),
@@ -215,6 +222,8 @@ PATH_KERNELS = {
 COUNTERS = {
     "q4k_q8_gemv": ("quant_matmul", "q4k_q8_gemv_launches"),
     "q8_0_q8_gemv": ("quant_matmul", "q8_0_q8_gemv_launches"),
+    "q4k_q8_gemv_rows": ("quant_matmul", "q4k_q8_gemv_rows_launches"),
+    "q8_0_q8_gemv_rows": ("quant_matmul", "q8_0_q8_gemv_rows_launches"),
     "flash_prefill": ("flash_attention", "flash_prefill_launches"),
     "flash_prefill_paged": ("paged_attention", "flash_prefill_paged_launches"),
     "paged_decode": ("paged_attention", "paged_decode_launches"),
@@ -255,6 +264,12 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: getattr(*_counter(name)) for name in COUNTERS}
+
+
+def k1_k2_launches(counts: dict) -> tuple[int, int]:
+    """K1's and K2's launches, both instantiations of each."""
+    return (counts["q4k_q8_gemv"] + counts["q4k_q8_gemv_rows"],
+            counts["q8_0_q8_gemv"] + counts["q8_0_q8_gemv_rows"])
 
 
 @dataclasses.dataclass
@@ -702,6 +717,11 @@ class Clock:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+# the row counts K1 and K2 are timed at: the decode kernel at 16 and 1, the
+# rows instantiation at 64, 128 and 256
+GEMV_ROWS = (16, 1, 64, 128, 256)
+
+
 def bound(bytes_moved: float, ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -711,8 +731,9 @@ def bound(bytes_moved: float, ops: float, peak_ops: float) -> tuple[float, str]:
 
 
 def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
-    """Parity and timing of K1, K2, K3, K4, K9, K10, K6, the dequant
-    kernels, K6', K7 and K11 at the main paths' shapes."""
+    """Parity and timing of K1, K2 (both instantiations of each), K3, K4,
+    K9, K10, K6, the dequant kernels, K6', K7 and K11 at the main paths'
+    shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -741,7 +762,7 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
     # K1: every Q4_K projection of a decode step (fused q|k, o, gate|up, down)
     q4k_shapes = [("qk", H, (sz.heads + sz.kv_heads) * D), ("o", sz.heads * D, H),
                   ("gate|up", H, 2 * I), ("down", I, H)]
-    for B in (16, 1, 256):
+    for B in GEMV_ROWS:
         for nm, K, O in q4k_shapes:
             qs = torch.randint(0, 256, (K // 2, O), dtype=torch.uint8, device=device, generator=gen)
             scale = rand(K // 32, O, lo=0.001, hi=0.005, dtype=fdt)
@@ -759,8 +780,8 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
             nbytes = B * K * 2 + (K // 2) * O + 2 * (K // 32) * O * 2 + B * O * 2
             # the same int8 codes and exact int dots on both sides; only the
             # f32 order of the scaled sums differs
-            record("q4k_q8_gemv", f"{nm} B={B}", err, rel, 1e-5, ms, plain, lib,
-                   bound(nbytes, 2 * B * K * O, PEAK_INT8))
+            record("q4k_q8_gemv" if B <= 16 else "q4k_q8_gemv_rows", f"{nm} B={B}", err, rel,
+                   1e-5, ms, plain, lib, bound(nbytes, 2 * B * K * O, PEAK_INT8))
             if B == 16:
                 # the prefill route's dequantization of the same weight: the
                 # kernel rounds as the plain version's bf16 ops do (exact)
@@ -780,7 +801,7 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
     vocab_pad = -(-sz.vocab // 2048) * 2048
     q8_shapes = [("v", H, sz.kv_heads * D), ("down rq8", I, H), ("lm_head", H, vocab_pad)]
     gs = 32
-    for B in (16, 1, 256):
+    for B in GEMV_ROWS:
         for nm, K, O in q8_shapes:
             q = torch.randint(-127, 128, (K, O), dtype=torch.int8, device=device, generator=gen)
             s = rand(K // gs, O, lo=1e-4, hi=4e-4)
@@ -795,8 +816,8 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
             plain = clock.ms(lambda: qm.q8_0_q8_gemv_plain(x, q, s, gs, fdt))
             lib = clock.ms(lambda: torch.matmul(x, w))
             nbytes = B * K * 2 + K * O + (K // gs) * O * 4 + B * O * 2
-            record("q8_0_q8_gemv", f"{nm} B={B}", err, rel, 1e-5, ms, plain, lib,
-                   bound(nbytes, 2 * B * K * O, PEAK_INT8))
+            record("q8_0_q8_gemv" if B <= 16 else "q8_0_q8_gemv_rows", f"{nm} B={B}", err, rel,
+                   1e-5, ms, plain, lib, bound(nbytes, 2 * B * K * O, PEAK_INT8))
             if B == 16:
                 want_w = qm.q8_0_dequant_plain(q, s, gs, torch.bfloat16)
                 got_w = qm.q8_0_dequant(q, s, gs, torch.bfloat16)
@@ -1650,7 +1671,7 @@ def quant_mix_phase(sz: Sizes, device) -> dict:
     kernels, and neither K1 nor K2."""
     out = short_context_phase(sz, device, "quant_mix", random_q5km_params, None)
     check_launched(out["launches"], PATH_KERNELS["quant_mix"] + ("flash_prefill",))
-    if out["launches"]["q4k_q8_gemv"] or out["launches"]["q8_0_q8_gemv"]:
+    if any(k1_k2_launches(out["launches"])):
         raise AssertionError(f"the Q5_K_M path launched K1 or K2: {out['launches']}")
     return out
 
@@ -1695,6 +1716,8 @@ def gemma2_phase(sz: Sizes, device) -> dict:
 # the int8 route's GEMVs, which no layer of an int8_activations=False
 # pipeline may launch
 INT8_GEMVS = ("q4k_q8_gemv", "q8_0_q8_gemv", "q6k_q8_gemv", "q5k_q8_gemv")
+# their launch counters (K1 and K2 have a second instantiation each)
+INT8_COUNTERS = INT8_GEMVS + ("q4k_q8_gemv_rows", "q8_0_q8_gemv_rows")
 
 
 def gguf_bf16_phase(sz: Sizes, device) -> dict:
@@ -1746,7 +1769,7 @@ def gguf_bf16_phase(sz: Sizes, device) -> dict:
     del params
     n = out["launches"]
     check_launched(n, PATH_KERNELS["gguf_bf16"] + ("flash_prefill", "q5k_dequant", "q8_0_dequant"))
-    if any(n[k] for k in INT8_GEMVS):
+    if any(n[k] for k in INT8_COUNTERS):
         raise AssertionError(f"int8_activations=False launched an int8 GEMV: {n}")
     return out
 
@@ -1805,8 +1828,9 @@ def mixtral_q4km_phase(sz: Sizes, device) -> dict:
         raise AssertionError(f"the Mixtral Q4_K_M pipeline serves other kinds: {out['kinds']}")
     n = out["launches"]
     check_launched(n, ("q4k_q8_gemv", "q8_0_q8_gemv", "q4k_dequant", "flash_prefill"))
-    small_forwards = n["q8_0_q8_gemv"] // (MIXTRAL.layers + 1)
-    if n["q4k_q8_gemv"] < 24 * MIXTRAL.layers * small_forwards or n["grouped_gemm"]:
+    k1, k2 = k1_k2_launches(n)
+    small_forwards = k2 // (MIXTRAL.layers + 1)
+    if k1 < 24 * MIXTRAL.layers * small_forwards or n["grouped_gemm"]:
         raise AssertionError(f"the packed experts did not run on K1 alone: {n}")
     return out
 
@@ -1852,7 +1876,9 @@ def long_context_phase(sz: Sizes, device) -> dict:
     counts, counts_long = read_counts(), wave_counts[0]
     n_toks = check_served([g for groups, _ in served for g in groups], sz.vocab, sz.max_len_ctx,
                           pipe)
-    check_launched(counts, PATH_KERNELS["slice"] + PATH_KERNELS["long_context"])
+    # long prompts: no step of 17-256 rows, so no rows instantiation
+    check_launched(counts, tuple(n for n in PATH_KERNELS["slice"] if not n.endswith("_rows"))
+                   + PATH_KERNELS["long_context"])
     if counts["paged_decode"] != counts_long["paged_decode"]:
         raise AssertionError("decode at span 2048 launched the block-table decode kernel")
 
@@ -2112,7 +2138,8 @@ def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
     prompt = [int(t) for t in np.random.default_rng(3).integers(1, sz.vocab, 256)]
     outs = []
     for phase, weights, rq8, names in (
-            ("card_vs_cpu", base, 32, ("q4k_q8_gemv", "q8_0_q8_gemv")),
+            ("card_vs_cpu", base, 32, ("q4k_q8_gemv", "q8_0_q8_gemv", "q4k_q8_gemv_rows",
+                                       "q8_0_q8_gemv_rows")),
             ("card_vs_cpu_q5km", base_q5km, None, ("q6k_q8_gemv", "q6k_bf16_gemv", "q5k_q8_gemv")),
             ("card_vs_cpu_q2k", base_q2k, 32, ("affine_gemv", "q4k_q8_gemv", "q8_0_q8_gemv"))):
         runs, card = _token_major_run(cfg, weights, device, prompt, rq8)
@@ -2164,7 +2191,7 @@ def card_vs_cpu_bf16_phase(sz: Sizes, device) -> list[dict]:
                 runs, card = _token_major_run(None, load, device, prompt, 32,
                                               int8_activations=int8)
                 want, never = ((("q4k_q8_gemv" if mix == "q4km" else "q5k_q8_gemv",
-                                 "q8_0_q8_gemv"), bf16) if int8 else (names, INT8_GEMVS))
+                                 "q8_0_q8_gemv"), bf16) if int8 else (names, INT8_COUNTERS))
                 check_launched(card, want)
                 if any(card[k] for k in never):
                     raise AssertionError(f"int8_activations={int8} took the other route: {card}")
@@ -2296,7 +2323,7 @@ def card_vs_cpu_mixtral_phase(sz: Sizes, device) -> list[dict]:
         del weights
         k13 = 0 if packed else 3 * n_layers * 5
         if card["grouped_gemm"] != k13 or card["flash_prefill"] != n_layers or \
-                card["q4k_q8_gemv"] < (24 * n_layers * 5 if packed else 1):
+                k1_k2_launches(card)[0] < (24 * n_layers * 5 if packed else 1):
             raise AssertionError(f"the Mixtral check took other routes on the card: {card}")
         outs.append(_compare_sides(phase, runs, device, n_layers, launches={
             n: card[n] for n in ("grouped_gemm", "flash_prefill", "q4k_q8_gemv")}))

@@ -7,6 +7,7 @@
 // that use a piece of this header each compile their own copy.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums only; nothing of libcuda is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -16,6 +17,15 @@ namespace mrt {
 // bf16 -> f32 is exact: a bf16 is the high half of an f32.
 __device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
+// v split into three bf16 parts, hi first: v = p[0] + p[1] + p[2] to within
+// 2^-24 of |v| (each part takes the bits the one before left).
+__device__ __forceinline__ void split3(float v, __nv_bfloat16 p[3]) {
+  p[0] = __float2bfloat16_rn(v);
+  const float r = v - __bfloat162float(p[0]);
+  p[1] = __float2bfloat16_rn(r);
+  p[2] = __float2bfloat16_rn(r - __bfloat162float(p[1]));
+}
 
 // 4x4 byte transpose: on entry a_i holds row i of four consecutive columns
 // (byte j = column j); on exit a_j holds column j of the four rows (byte i =
@@ -190,6 +200,419 @@ __device__ __forceinline__ void store_part(float* part, const float (&acc)[4][4]
     }
 }
 
+// ---- Hopper pieces of the rows instantiations (K1, K2 at 17-256 rows) ----
+//
+// mbarriers, bulk copies (cp.async.bulk, completion counted in bytes on an
+// mbarrier), the proxy fence that orders the generic stores of a decoded
+// tile before the tensor cores read it, and int8 wgmma with operands in
+// shared memory.
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// `bytes` (a multiple of 16, 16-byte aligned ends) global -> shared; the
+// arrival is counted on `bar` in bytes.
+__device__ __forceinline__ void bulk_g2s(void* smem, const void* gmem, uint32_t bytes,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// TMA: a box of a tensor map (a __grid_constant__ kernel parameter) global ->
+// shared, counted on `bar` in bytes (the whole box; parts past the tensor's
+// edge are zero-filled).
+__device__ __forceinline__ void tma_load_2d(void* smem, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(smem)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* smem, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(smem)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A tiled tensor map of a row-major tensor: dims[0] elements of `dtype` in
+// the innermost dimension, byte strides of the outer ones, a box of `box`
+// elements, no swizzle. cuTensorMapEncodeTiled is looked up through the CUDA
+// runtime (cudaGetDriverEntryPoint), so the library links nothing of
+// libcuda. Returns a CUDA error.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline int tile_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank, const void* base,
+                    const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
+  static EncodeTiledFn encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  cuuint64_t d[3], st[2];
+  cuuint32_t b[3], es[3];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    es[i] = 1;
+    if (i) st[i - 1] = strides[i - 1];
+  }
+  const CUresult r = encode(map, dtype, (cuuint32_t)rank, const_cast<void*>(base), d, st, b, es,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major int8 operand without swizzle:
+// core matrices of 8 rows x 16 bytes (128 contiguous bytes); `lbo` bytes
+// from the first 16 K-bytes of a row to the next 16, `sbo` bytes from one
+// group of 8 rows to the next.
+__device__ __forceinline__ uint64_t kmajor_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+// The two int8 tile layouts of the rows instantiations, both K-major over one
+// 32-element K slice: A (x's codes, tiled_off) puts row r, byte k of a 64-row
+// block at (k/16)*1024 + r*16 + k%16; B (a decoded weight tile of 128
+// columns) puts column c, byte k at (k/16)*2048 + c*16 + k%16.
+constexpr uint32_t kALbo = 1024, kBLbo = 2048, kTileSbo = 128;
+
+// d[N/2] (+)= A (64x32 s8, K-major, smem) * B (32xN s8, K-major, smem),
+// exact int32, N = 128 or 64. scale_d 0 overwrites d, 1 adds to it.
+// Accumulator i of a thread holds row 16*(warp%4) + lane/4 + 8*((i/2)%2),
+// column 8*(i/4) + 2*(lane%4) + i%2.
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 128)
+    wgmma_s8_n128(d, da, db, scale_d);
+  else
+    wgmma_s8_n64(d, da, db, scale_d);
+}
+
+// d[N/2] = -A (64x16 bf16, K-major, smem) * B (16xN bf16, K-major, smem)
+// (+ d when scale_d is 1), f32 accumulators held in int registers as bits:
+// K1's min term on the tensor cores, in an int8 accumulator's registers
+// while they are free. The bf16 K-major tiles use the int8 tiles' layouts
+// (8 bf16 are 16 bytes).
+__device__ __forceinline__ void wgmma_bf16_neg_n128(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, -1, 1, 0, 0;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_bf16_neg_n64(int (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, -1, 1, 0, 0;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_neg(int (&d)[N / 2], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  if constexpr (N == 128)
+    wgmma_bf16_neg_n128(d, da, db, scale_d);
+  else
+    wgmma_bf16_neg_n64(d, da, db, scale_d);
+}
+
+// A compiler-level fence on accumulator registers (no instruction): reads
+// and writes of d are not moved across it, so the epilogue's reads stay
+// after the wgmma.wait that completes d, and before the next wgmma into d.
+template <int NA>
+__device__ __forceinline__ void fence_operand(int (&d)[NA]) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The warpgroup index, broadcast from lane 0 so that the compiler sees it is
+// the same in every thread of a warp (a branch on it is then not divergent,
+// which wgmma's register pipeline needs).
+__device__ __forceinline__ int warpgroup_idx() {
+  return __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+}
+
+// Decode 4 columns x 8 K rows of a staged [rows][128] byte tile (row r at
+// r*128) for a K-major B tile: w[i] = the 4 bytes of row r0+i. The bytes of
+// each word are rotated by `rot` columns first, so that after the two 4x4
+// transposes w[j] (rows r0..r0+3) and w[4+j] (rows r0+4..r0+7) hold column
+// (j + rot) & 3 of the quad: lanes that store at the same step then hit
+// other banks.
+__device__ __forceinline__ void load_quad8(const uint8_t* raw, int r0, int quad, uint32_t sel,
+                                           uint32_t w[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    w[i] = __byte_perm(*reinterpret_cast<const uint32_t*>(raw + (r0 + i) * kGemvCols + 4 * quad),
+                       0, sel);
+  transpose4(w[0], w[1], w[2], w[3]);
+  transpose4(w[4], w[5], w[6], w[7]);
+}
+// the byte_perm selector of a rotation by rot columns
+__device__ __forceinline__ uint32_t rot_sel(int rot) {
+  return (uint32_t)(rot & 3) | ((uint32_t)((rot + 1) & 3) << 4) |
+         ((uint32_t)((rot + 2) & 3) << 8) | ((uint32_t)((rot + 3) & 3) << 12);
+}
+// column c's 8 bytes of K rows k0..k0+7 (k0 % 8 == 0, < 32) in a B tile
+__device__ __forceinline__ void store_b8(uint8_t* tile, int c, int k0, uint32_t lo, uint32_t hi) {
+  *reinterpret_cast<uint2*>(tile + (k0 >> 4) * kBLbo + c * 16 + (k0 & 15)) = make_uint2(lo, hi);
+}
+// Where column c's f32 scale sits in a permuted row of kScaleRow floats:
+// thread t = lane%4 of a wgmma accumulator owns columns 8j + 2t + e, and
+// finds them at t*36 + 2j + e, so 4 of them come in one 16-byte load and
+// the four t read other banks (36, not 32).
+constexpr int kScaleRow = 4 * 36;
+__device__ __forceinline__ int scale_pos(int c) { return ((c & 7) >> 1) * 36 + (c >> 3) * 2 + (c & 1); }
+
+// Store a thread's [2 rows x NA/2 columns] of a 64-row wgmma tile (acc
+// index i: row rbase + 8*((i/2)%2), column cbase + 8*(i/4) + i%2) to
+// out[B, O] (f32 or bf16) or to f32 partials.
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+template <typename OutT, int NA>
+__device__ __forceinline__ void store_acc(OutT* out, const float (&acc)[NA], int B, int O,
+                                          int rbase, int cbase) {
+#pragma unroll
+  for (int i = 0; i < NA; i += 2) {
+    const int r = rbase + 8 * ((i >> 1) & 1), c = cbase + 8 * (i >> 2);
+    if (r < B && c < O) store_pair(out + (size_t)r * O + c, acc[i], acc[i + 1]);
+  }
+}
+// out_mode 0: f32 out [B, O]; 1: bf16 out; 2: f32 partials [ksplit, B, O],
+// this block's split at blockIdx.z
+template <int NA>
+__device__ __forceinline__ void store_rows(void* out, int out_mode, const float (&acc)[NA], int B,
+                                           int O, int rbase, int cbase) {
+  if (out_mode == 1)
+    store_acc(static_cast<__nv_bfloat16*>(out), acc, B, O, rbase, cbase);
+  else
+    store_acc(static_cast<float*>(out) + (out_mode == 2 ? (size_t)blockIdx.z * B * O : 0), acc,
+              B, O, rbase, cbase);
+}
+
+// ---- The ring of the rows instantiations ----
+//
+// A block of kRowThreads threads: consumer warpgroups 0 and 1, then a
+// producer warpgroup. Over the block's n K steps, step i uses stage i %
+// kStages of a ring in shared memory (the stages, then `extra` bytes of
+// other buffers, then three mbarriers a stage):
+// - thread 0 of producer warp 0 waits until the stage is free (`empty`,
+//   one arrival per consumer warp), announces the step's `tx` bytes on
+//   `full` and issues its copies, whose landing completes `full`;
+// - producer warps 1-3 take the steps round robin, a whole stage each
+//   (a stage's decode is a chain of dependent shared-memory steps, so
+//   three run at once): once `full`, they decode it, order their generic
+//   stores before the tensor cores' reads (fence.proxy.async), and arrive
+//   on `ready`;
+// - the consumers wait for `full` and `ready` (acquire), read the stage,
+//   and free it (release), every warp apart.
+// The producer warpgroup gives up registers (40 a thread) to the
+// consumers (232).
+constexpr int kRowThreads = 384;
+
+// Stages of a ring: as many as ~200 KB of shared memory hold beside kExtra
+// bytes of other buffers, at most kMax (12: the copies of a stage take ~1-2
+// us to land, and the consumers need one every few hundred ns), and a
+// multiple of the three decode warps: a decode warp then also decoded the
+// stage's previous use, so it never waits on a `full` barrier two phases
+// ahead (a parity wait would pass there at once).
+template <typename Stage, int kExtra = 0, int kMax = 12>
+__host__ __device__ constexpr int ring_stages() {
+  return ((int)((200 * 1024 - kExtra) / sizeof(Stage)) < kMax
+              ? (int)((200 * 1024 - kExtra) / sizeof(Stage))
+              : kMax) /
+         3 * 3;
+}
+
+template <typename Stage, int kStages>
+struct Ring {
+  // dynamic shared memory of the ring with `extra` bytes of other buffers
+  static constexpr int smem_bytes(int extra) {
+    return kStages * ((int)sizeof(Stage) + 3 * 8) + extra;
+  }
+  Stage* st;
+  uint64_t* bar;  // full[kStages], ready[kStages], empty[kStages]
+
+  __device__ Ring(uint8_t* smem, int extra)
+      : st(reinterpret_cast<Stage*>(smem)),
+        bar(reinterpret_cast<uint64_t*>(smem + kStages * sizeof(Stage) + extra)) {}
+  // the buffers after the stages
+  __device__ void* extra() const { return st + kStages; }
+  __device__ Stage& operator[](int i) const { return st[i % kStages]; }
+  __device__ static int parity(int i) { return (i / kStages) & 1; }
+  __device__ uint64_t* full(int i) const { return bar + i % kStages; }
+  __device__ uint64_t* ready(int i) const { return bar + kStages + i % kStages; }
+  __device__ uint64_t* empty(int i) const { return bar + 2 * kStages + i % kStages; }
+
+  // by every consumer thread before it reads step i's stage
+  __device__ void acquire(int i) const {
+    mbar_wait(full(i), parity(i));
+    mbar_wait(ready(i), parity(i));
+  }
+  // by every consumer thread once its warp's reads of step i are done
+  __device__ void release(int i) const {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty(i));
+  }
+
+  // The whole block: copy(stage, i, full barrier) issues step i's copies
+  // (`tx` bytes), decode(stage, i, lane) decodes it, consume(wg) is a
+  // consumer warpgroup's work.
+  template <typename Copy, typename Decode, typename Consume>
+  __device__ __forceinline__ void run(int n, uint32_t tx, Copy&& copy, Decode&& decode,
+                                      Consume&& consume) const {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kStages; ++i) {
+        mbar_init(full(i), 1);
+        mbar_init(ready(i), 1);
+        mbar_init(empty(i), 8);  // one arrival per consumer warp
+      }
+      mbar_init_fence();
+    }
+    __syncthreads();
+    const int wg = warpgroup_idx();
+    if (wg == 2) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+      const int pw = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+      if (pw == 0) {
+        if (lane == 0)
+          for (int i = 0; i < n; ++i) {
+            if (i >= kStages) mbar_wait(empty(i), parity(i) ^ 1);
+            mbar_expect_tx(full(i), tx);
+            copy((*this)[i], i, full(i));
+          }
+      } else {
+        for (int i = pw - 1; i < n; i += 3) {
+          mbar_wait(full(i), parity(i));
+          decode((*this)[i], i, lane);
+          fence_proxy_async();  // the decoded tiles, before the tensor cores read them
+          __syncwarp();
+          if (lane == 0) mbar_arrive(ready(i));
+        }
+      }
+    } else {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+      consume(wg);
+    }
+  }
+};
+
 // 4 consecutive f32 from shared memory holding bf16 or f32 values
 __device__ __forceinline__ void lds4(const __nv_bfloat16* p, float o[4]) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
@@ -219,21 +642,33 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 // xq is [B, K]; xs, xsum32 and xsum16 are written transposed, [K/GS][bpad],
 // [K/32][bpad] and [K/16][bpad] (bpad = B rounded up to 16), so a GEMV
 // block can stage the values of its 16 rows as 16-byte chunks.
+//
+// With `tiled` (the rows instantiations of K1 and K2) bpad is B rounded up to
+// the block's row tile (64 or 128), the rows B..bpad-1 are quantized as
+// zeros, and xq is written in the int8 wgmma A layout of tiled_off, so one
+// bulk copy brings a 32-element slice of a row tile into shared memory
+// ready for the tensor cores.
+__host__ __device__ __forceinline__ size_t tiled_off(int b, int k, int bpad) {
+  return (size_t)(k >> 5) * bpad * 32 + (size_t)(b >> 6) * 2048 + ((k >> 4) & 1) * 1024 +
+         (b & 63) * 16 + (k & 15);
+}
+
 template <typename XT, int GS>
 __global__ void quantize_acts_kernel(const XT* __restrict__ x, int8_t* __restrict__ xq,
                                      float* __restrict__ xs, float* __restrict__ xsum32,
                                      float* __restrict__ xsum16, long long nblocks,
-                                     int nblk_row, int bpad) {
+                                     int nblk_row, int bpad, int B, bool tiled) {
   constexpr int E = GS / 32;
   const long long g = (long long)blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   if (g >= nblocks) return;  // whole warps leave together
   const int lane = threadIdx.x & 31;
   const int b = (int)(g / nblk_row), kb = (int)(g % nblk_row);
+  const bool live = b < B;  // the padding rows of a tiled call quantize zeros
   float v[E];
   float amax = 0.f;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    v[e] = to_f32(x[g * GS + e * 32 + lane]);
+    v[e] = live ? to_f32(x[g * GS + e * 32 + lane]) : 0.f;
     amax = fmaxf(amax, fabsf(v[e]));
   }
 #pragma unroll
@@ -243,7 +678,8 @@ __global__ void quantize_acts_kernel(const XT* __restrict__ x, int8_t* __restric
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const float q = fminf(fmaxf(rintf(v[e] / s), -127.f), 127.f);
-      xq[g * GS + e * 32 + lane] = (int8_t)(int)q;
+      const int k = kb * GS + e * 32 + lane;
+      xq[tiled ? tiled_off(b, k, bpad) : (size_t)g * GS + e * 32 + lane] = (int8_t)(int)q;
     }
     if (lane == 0) xs[(size_t)kb * bpad + b] = s;
   }
@@ -267,50 +703,63 @@ __global__ void quantize_acts_kernel(const XT* __restrict__ x, int8_t* __restric
   }
 }
 
+// Quantize x [B, K]; with `tiled` over all bpad rows, as tiled_off lays xq out.
 template <int GS>
 inline void launch_quantize(const void* x, bool x_is_bf16, int8_t* xq, float* xs, float* xsum32,
-                            float* xsum16, int B, int K, int bpad, cudaStream_t st) {
+                            float* xsum16, int B, int K, int bpad, cudaStream_t st,
+                            bool tiled = false) {
   const int warps = 8;
-  const long long nblocks = (long long)B * (K / GS);
+  const long long nblocks = (long long)(tiled ? bpad : B) * (K / GS);
   const unsigned grid = (unsigned)((nblocks + warps - 1) / warps);
   if (x_is_bf16)
     quantize_acts_kernel<__nv_bfloat16, GS><<<grid, 32 * warps, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), xq, xs, xsum32, xsum16, nblocks, K / GS, bpad);
+        static_cast<const __nv_bfloat16*>(x), xq, xs, xsum32, xsum16, nblocks, K / GS, bpad, B,
+        tiled);
   else
     quantize_acts_kernel<float, GS><<<grid, 32 * warps, 0, st>>>(
-        static_cast<const float*>(x), xq, xs, xsum32, xsum16, nblocks, K / GS, bpad);
+        static_cast<const float*>(x), xq, xs, xsum32, xsum16, nblocks, K / GS, bpad, B, tiled);
 }
 
 // Scratch of one GEMV call, carved from one workspace buffer in this order,
 // each piece 256-byte aligned (ops/quant_matmul._workspace_bytes mirrors it).
 inline size_t align256(size_t n) { return (n + 255) & ~size_t(255); }
 
+// `rows` is the row tile of the GEMV's blocks. Above 16 (the rows
+// instantiations of K1 and K2, `tiled`): bpad is B rounded up to the row
+// tile, so a block's bulk copies of x's codes, scales and sums stay inside
+// their pieces; xq holds all bpad rows (tiled_off); the split-K partials are
+// there only when ksplit > 1 (with one split the GEMV writes out itself).
 struct Workspace {
-  int8_t* xq;   // [B, K], nullptr when gs is 0
+  int8_t* xq;   // [B, K] ([bpad, K] tiled), nullptr when gs is 0
   float* xs;    // [K/gs, bpad], nullptr when gs is 0
   float* xsum;  // [K/sum_gs, bpad], nullptr when sum_gs is 0
-  float* part;  // [ksplit, B, O]
-  int bpad;     // B rounded up to 16
+  float* part;  // [ksplit, B, O], nullptr when tiled with ksplit 1
+  int bpad;     // B rounded up to 16 (to the row tile when tiled)
   size_t bytes;
 };
 
-inline Workspace carve(void* ws, int B, int K, int O, int gs, int sum_gs, int ksplit) {
+inline Workspace carve(void* ws, int B, int K, int O, int gs, int sum_gs, int ksplit,
+                       int rows = 16) {
   char* p = static_cast<char*>(ws);
   Workspace w;
-  w.bpad = (B + 15) / 16 * 16;
+  const bool tiled = rows > 16;
+  w.bpad = (B + rows - 1) / rows * rows;
   size_t off = 0;
   w.xq = nullptr;
   w.xs = nullptr;
   if (gs) {
     w.xq = reinterpret_cast<int8_t*>(p + off);
-    off += align256((size_t)B * K);
+    off += align256((size_t)(tiled ? w.bpad : B) * K);
     w.xs = reinterpret_cast<float*>(p + off);
     off += align256((size_t)(K / gs) * w.bpad * 4);
   }
   w.xsum = sum_gs ? reinterpret_cast<float*>(p + off) : nullptr;
   if (sum_gs) off += align256((size_t)(K / sum_gs) * w.bpad * 4);
-  w.part = reinterpret_cast<float*>(p + off);
-  off += align256((size_t)ksplit * B * O * 4);
+  w.part = nullptr;
+  if (!tiled || ksplit > 1) {
+    w.part = reinterpret_cast<float*>(p + off);
+    off += align256((size_t)ksplit * B * O * 4);
+  }
   w.bytes = off;
   return w;
 }
@@ -353,6 +802,31 @@ inline int finish_gemv(const Workspace& w, void* out, int out_is_bf16, int kspli
 template <typename F>
 inline cudaError_t allow_smem(F* kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Whether the grid (gx, gy, gz) of a GEMV whose blocks own 128 columns x
+// `rows` rows covers the call with one block per tile: the decode kernels'
+// order is (column tiles, K splits, row tiles), the rows instantiations'
+// (row tiles, column tiles, K splits), whose row tiles must also lie inside
+// the workspace's bpad rows.
+inline bool grid_covers(const Workspace& w, int rows, int B, int O, int gx, int gy, int gz) {
+  const bool tiled = rows > 16;
+  const int rt = tiled ? gx : gz, ct = tiled ? gy : gx;
+  return ct == (O + kGemvCols - 1) / kGemvCols && rt == (B + rows - 1) / rows &&
+         (!tiled || rt * rows <= w.bpad);
+}
+
+// Launch a rows kernel (kRowThreads threads, `smem` bytes of dynamic shared
+// memory) through launch(out, out_mode): into out with one split, else into
+// the partials (out_mode 2), then the fixed-order split-K pass.
+template <typename Kern, typename Launch>
+inline int launch_ring(Kern* kern, int smem, const Workspace& w, void* out, int out_is_bf16,
+                       int ksplit, int n_out, cudaStream_t st, Launch&& launch) {
+  const cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  launch(ksplit > 1 ? static_cast<void*>(w.part) : out, ksplit > 1 ? 2 : out_is_bf16);
+  if (ksplit == 1) return (int)cudaGetLastError();
+  return finish_gemv(w, out, out_is_bf16, ksplit, n_out, st);
 }
 
 }  // namespace mrt

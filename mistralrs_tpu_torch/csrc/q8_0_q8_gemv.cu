@@ -16,14 +16,22 @@
 //
 // What bounds it on an H100: at decode the weight stream, 1 + 4/gs bytes per
 // weight for f32 scales (1 + 2/gs for bf16), against 3.35 TB/s.
-// Design for that: the structure of K1 (q4k_q8_gemv.cu) without the nibble
-// unpack. A block owns 128 output columns and a 16-row tile of x; one K step
-// is one scale group (gs rows x 128 columns of q, gs*128 bytes, plus its
-// scale row and x's codes and scales over the group) staged with 16-byte
-// cp.async loads in a 4-deep ring; each warp
+// Design for that (B <= 16): the structure of K1 (q4k_q8_gemv.cu) without
+// the nibble unpack. A block owns 128 output columns and a 16-row tile of x;
+// one K step is one scale group (gs rows x 128 columns of q, gs*128 bytes,
+// plus its scale row and x's codes and scales over the group) staged with
+// 16-byte cp.async loads in a 4-deep ring; each warp
 // runs gs/32 int8 mma.m16n8k32 per n-tile into exact int32 group dots and
 // scales them into f32 accumulators; K is split over blockIdx.y with a
 // fixed-order second pass.
+//
+// At 17-256 rows (the rows instantiation below) the scaling epilogue bounds
+// it: a conversion, an f32 scale product and an accumulate per (row,
+// column, group), bound by issue slots. Design for that: a block owns 128
+// columns and 64 or 128 rows, so each weight tile is read once per call
+// (twice at 129-256 rows, by blocks that are grid neighbours and meet in
+// L2); int8 wgmma does the dots, and the epilogue of one group runs while
+// the next group's wgmma does; see q8_0_q8_rows_kernel.
 #include "common.cuh"
 
 namespace {
@@ -117,11 +125,11 @@ __global__ void __launch_bounds__(mrt::kGemvThreads)
   mrt::store_part(part + (size_t)blockIdx.y * B * O, acc, B, O, row0, col0, warp, lane);
 }
 
+// grid (column tiles, ksplit, 16-row tiles)
 template <int GS, typename ST>
 void launch_gs(const void* xq, const void* xs, const void* q, const void* s, float* part, int B,
-               int bpad, int K, int O, int ksplit, cudaStream_t st) {
-  const int ngroups = K / GS;
-  const dim3 grid((O + mrt::kGemvCols - 1) / mrt::kGemvCols, ksplit, (B + 15) / 16);
+               int bpad, int K, int O, dim3 grid, cudaStream_t st) {
+  const int ngroups = K / GS, ksplit = (int)grid.y;
   q8_0_q8_mma_kernel<GS, ST><<<grid, mrt::kGemvThreads, 0, st>>>(
       static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
       static_cast<const int8_t*>(q), static_cast<const ST*>(s), part, B, bpad, K, O,
@@ -130,30 +138,238 @@ void launch_gs(const void* xq, const void* xs, const void* q, const void* s, flo
 
 }  // namespace
 
+// ---- rows instantiation: 17 <= B <= 256 ----
+//
+// A block owns 128 columns and BM = 64 or 128 rows, with two consumer
+// warpgroups (at BM 128 one per 64 rows, wgmma N = 128; at BM 64 one per 64
+// columns, N = 64) and one producer warpgroup. The grid is (row tiles,
+// column tiles, ksplit), row tiles fastest, so the two row tiles of a
+// column tile run side by side and the second finds the weight tile in L2.
+// One K step is one group, on the ring of common.cuh (mrt::Ring):
+// - the copies: TMA boxes of the group's gs rows x 128 columns of q and its
+//   scale row (tensor maps, zero-filled past O), and bulk copies
+//   (cp.async.bulk) of x's int8 codes of the BM rows (laid out by the
+//   quantize kernel as the wgmma A operand wants them, common.cuh
+//   tiled_off) and their scales;
+// - the decode: the byte transpose of q into K-major tiles (int8 wgmma
+//   reads B K-major only; the packed layout stays N-major), and the scale
+//   row into f32 at mrt::scale_pos;
+// - each consumer warpgroup runs gs/32 wgmma.m64nNk32.s32.s8.s8 per group
+//   into one of two int32 accumulators, alternating by group, so the f32
+//   epilogue of group i (the conversion, exact below 2^24, xs * s, one
+//   fma) runs while the tensor cores work on group i + 1. The two
+//   warpgroups share each SM sub-partition.
+// - With one split the block writes out; with more, f32 partials for the
+//   fixed-order second pass.
+namespace {
+
+template <int GS, int BM, typename ST>
+struct __align__(128) RowStage {
+  uint8_t q[GS * mrt::kGemvCols];  // the group's rows as stored, row r at r*128
+  uint8_t b[GS * mrt::kGemvCols];  // GS/32 decoded K-major B tiles of 4 KB
+  int8_t x[GS / 32][BM * 32];      // x's codes: GS/32 A slices
+  ST sc[mrt::kGemvCols];           // the scale row as stored
+  float scf[mrt::kScaleRow];       // the same in f32, at scale_pos
+  float xs[BM];                    // x's scales of the BM rows
+};
+
+template <int GS, int BM, typename ST>
+using RowRing = mrt::Ring<RowStage<GS, BM, ST>, mrt::ring_stages<RowStage<GS, BM, ST>>()>;
+
+template <int GS, int BM, typename ST>
+__global__ void __launch_bounds__(mrt::kRowThreads, 1)
+    q8_0_q8_rows_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap smap, const int8_t* __restrict__ xq,
+                        const float* __restrict__ xs, void* out, int out_mode, int B, int bpad,
+                        int K, int O, int groups_per_split) {
+  constexpr int N = BM == 128 ? 128 : 64;  // wgmma width of a consumer warpgroup
+  using Stage = RowStage<GS, BM, ST>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const RowRing<GS, BM, ST> ring(smem, 0);
+  const int row0 = blockIdx.x * BM;
+  const int col0 = blockIdx.y * mrt::kGemvCols;
+  const int g_begin = blockIdx.z * groups_per_split;
+  const int n = max(0, min(groups_per_split, K / GS - g_begin));
+
+  auto copy = [&](Stage& S, int i, uint64_t* full) {
+    const int grp = g_begin + i;
+    mrt::tma_load_2d(S.q, &qmap, col0, GS * grp, full);
+    mrt::tma_load_2d(S.sc, &smap, col0, grp, full);
+#pragma unroll
+    for (int sl = 0; sl < GS / 32; ++sl)
+      mrt::bulk_g2s(S.x[sl], xq + ((size_t)grp * (GS / 32) + sl) * bpad * 32 + (size_t)row0 * 32,
+                    BM * 32, full);
+    mrt::bulk_g2s(S.xs, xs + (size_t)grp * bpad + row0, BM * 4, full);
+  };
+  auto decode = [&](Stage& S, int, int lane) {
+    const uint32_t sel = mrt::rot_sel(lane >> 1);
+    // GS/8 row octets of the lane's column quad
+#pragma unroll
+    for (int o = 0; o < GS / 8; ++o) {
+      uint32_t w[8];
+      mrt::load_quad8(S.q, 8 * o, lane, sel, w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mrt::store_b8(S.b + (o >> 2) * 4096, 4 * lane + ((j + (lane >> 1)) & 3), (8 * o) & 31,
+                      w[j], w[4 + j]);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) S.scf[mrt::scale_pos(4 * lane + k)] = mrt::to_f32(S.sc[4 * lane + k]);
+  };
+  // consumer warpgroup wg: rows 64*wr.., columns 64*wc.. of the tile
+  auto consume = [&](int wg) {
+    const int wr = BM == 128 ? wg : 0, wc = BM == 128 ? 0 : wg;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int t = lane & 3;
+    const int rl = wr * 64 + warp * 16 + (lane >> 2);  // rows rl and rl + 8 of the tile
+    float acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    int d0[N / 2], d1[N / 2];
+    // wgmma of group i into d (its stage decoded first)
+    auto mma = [&](int (&d)[N / 2], int i) {
+      const Stage& S = ring[i];
+      ring.acquire(i);
+      mrt::fence_operand(d);
+      mrt::wgmma_fence();
+#pragma unroll
+      for (int sl = 0; sl < GS / 32; ++sl)
+        mrt::wgmma_s8<N>(d, mrt::kmajor_desc(S.x[sl] + wr * 2048, mrt::kALbo, mrt::kTileSbo),
+                         mrt::kmajor_desc(S.b + sl * 4096 + wc * 1024, mrt::kBLbo,
+                                          mrt::kTileSbo),
+                         sl);
+      mrt::wgmma_commit();
+    };
+    // scale the finished dots of group i into acc, then free its stage
+    auto epilogue = [&](int (&d)[N / 2], int i) {
+      mrt::fence_operand(d);
+      const Stage& S = ring[i];
+      const float x0 = S.xs[rl], x1 = S.xs[rl + 8];
+#pragma unroll
+      for (int jj = 0; jj < N / 8; jj += 2) {
+        const float4 c4 = *reinterpret_cast<const float4*>(&S.scf[t * 36 + wc * 16 + 2 * jj]);
+        const float cs[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {  // n-tiles jj, jj + 1; bit 0 column, bit 1 row
+          const int idx = 4 * jj + e;
+          acc[idx] = fmaf((float)d[idx], ((e & 2) ? x1 : x0) * cs[(e >> 2) * 2 + (e & 1)],
+                          acc[idx]);
+        }
+      }
+      ring.release(i);
+    };
+    // two groups in flight: the epilogue of one overlaps the wgmma of the
+    // next, in pairs of groups as K1's sub-block pairs. An odd last group is
+    // issued twice and scaled once, so the loop stays one shape (a group
+    // issued after it makes ptxas serialize every wgmma).
+    auto second = [&](int i) { return i + 1 < n ? i + 1 : i; };
+    if (n > 0) {
+      mma(d0, 0);
+      mma(d1, second(0));
+    }
+    for (int i = 0; i < n; i += 2) {
+      mrt::wgmma_wait<1>();  // group i is done
+      epilogue(d0, i);
+      if (i + 2 < n) {
+        mma(d0, i + 2);
+        mrt::wgmma_wait<1>();  // group i + 1 is done
+      } else {
+        mrt::wgmma_wait<0>();
+      }
+      if (i + 1 < n) epilogue(d1, i + 1);
+      if (i + 2 < n) mma(d1, second(i + 2));
+    }
+    mrt::store_rows(out, out_mode, acc, B, O, row0 + rl, col0 + wc * 64 + 2 * t);
+  };
+  ring.run(n, GS * mrt::kGemvCols + mrt::kGemvCols * (int)sizeof(ST) + GS * BM + BM * 4, copy,
+           decode, consume);
+}
+
+template <int GS, int BM, typename ST>
+int launch_rows(const mrt::Workspace& w, const void* q, const void* s, void* out, int out_is_bf16,
+                int B, int K, int O, dim3 grid, cudaStream_t st) {
+  // q [K, O] bytes in boxes of GS rows x 128 columns; s [K/GS, O] one row at a time
+  CUtensorMap qmap, smap;
+  const uint64_t qdims[2] = {(uint64_t)O, (uint64_t)K}, qstr[1] = {(uint64_t)O};
+  const uint32_t qbox[2] = {mrt::kGemvCols, GS};
+  const uint64_t sdims[2] = {(uint64_t)O, (uint64_t)(K / GS)}, sstr[1] = {O * sizeof(ST)};
+  const uint32_t sbox[2] = {mrt::kGemvCols, 1};
+  int err = mrt::tile_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, qdims, qstr, qbox);
+  if (err) return err;
+  err = mrt::tile_map(&smap, sizeof(ST) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      2, s, sdims, sstr, sbox);
+  if (err) return err;
+  auto* kern = q8_0_q8_rows_kernel<GS, BM, ST>;
+  const int smem = RowRing<GS, BM, ST>::smem_bytes(0);
+  const int ksplit = (int)grid.z, ngroups = K / GS;
+  return mrt::launch_ring(kern, smem, w, out, out_is_bf16, ksplit, B * O, st,
+                          [&](void* dst, int mode) {
+                            kern<<<grid, mrt::kRowThreads, smem, st>>>(
+                                qmap, smap, w.xq, w.xs, dst, mode, B, w.bpad, K, O,
+                                (ngroups + ksplit - 1) / ksplit);
+                          });
+}
+
+template <int GS, typename ST>
+int launch_rows_bm(int rows, const mrt::Workspace& w, const void* q, const void* s, void* out,
+                   int out_is_bf16, int B, int K, int O, dim3 grid, cudaStream_t st) {
+  if (rows == 64) return launch_rows<GS, 64, ST>(w, q, s, out, out_is_bf16, B, K, O, grid, st);
+  return launch_rows<GS, 128, ST>(w, q, s, out, out_is_bf16, B, K, O, grid, st);
+}
+
+}  // namespace
+
 // Shapes are checked by the Python wrapper (ops/quant_matmul.py): gs in
-// {32, 64}, K % gs == 0, O % 16 == 0, 16-byte aligned pointers,
-// ksplit <= K/gs, and a workspace of ws_bytes (see mrt::carve). Quantizes x
-// (bf16 or f32 [B,K]) per gs, then runs the GEMV and the split-K pass.
-// Returns the CUDA error code of the launches (0 = launched).
+// {32, 64}, K % gs == 0, O % 16 == 0, 16-byte aligned pointers, and a
+// workspace of ws_bytes (see mrt::carve). `rows` is the row tile of a block
+// (16: the decode kernel; 64 or 128: the rows instantiation) and (gx, gy,
+// gz) the grid of the launch plan (ops/quant_matmul.int8_gemv_plan), which
+// also gives the K split (gy for the decode kernel, gz for the rows
+// instantiation; at most K/gs). Quantizes x (bf16 or f32 [B,K]) per gs,
+// then runs the GEMV and, unless a rows call has one split, the split-K
+// pass. Returns the CUDA error code of the launches (0 = launched).
 extern "C" int q8_0_q8_gemv(const void* x, int x_is_bf16, const void* q, const void* s,
                             int scale_is_bf16, int gs, void* ws, long long ws_bytes, void* out,
-                            int out_is_bf16, int B, int K, int O, int ksplit, void* stream) {
+                            int out_is_bf16, int B, int K, int O, int rows, int gx, int gy, int gz,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (gs != 32 && gs != 64) return (int)cudaErrorInvalidValue;
-  const mrt::Workspace w = mrt::carve(ws, B, K, O, gs, 0, ksplit);
-  if (w.bytes > (size_t)ws_bytes) return (int)cudaErrorInvalidValue;
+  if ((gs != 32 && gs != 64) || (rows != 16 && rows != 64 && rows != 128))
+    return (int)cudaErrorInvalidValue;
+  const bool tiled = rows != 16;
+  const int ksplit = tiled ? gz : gy;
+  const mrt::Workspace w = mrt::carve(ws, B, K, O, gs, 0, ksplit, rows);
+  if (w.bytes > (size_t)ws_bytes || ksplit < 1 || ksplit > K / gs ||
+      !mrt::grid_covers(w, rows, B, O, gx, gy, gz))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(gx, gy, gz);
+  if (gs == 32)
+    mrt::launch_quantize<32>(x, x_is_bf16 != 0, w.xq, w.xs, nullptr, nullptr, B, K, w.bpad, st,
+                             tiled);
+  else
+    mrt::launch_quantize<64>(x, x_is_bf16 != 0, w.xq, w.xs, nullptr, nullptr, B, K, w.bpad, st,
+                             tiled);
+  if (tiled) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (gs == 32)
+      return scale_is_bf16
+                 ? launch_rows_bm<32, __nv_bfloat16>(rows, w, q, s, out, out_is_bf16, B, K, O, grid, st)
+                 : launch_rows_bm<32, float>(rows, w, q, s, out, out_is_bf16, B, K, O, grid, st);
+    return scale_is_bf16
+               ? launch_rows_bm<64, __nv_bfloat16>(rows, w, q, s, out, out_is_bf16, B, K, O, grid, st)
+               : launch_rows_bm<64, float>(rows, w, q, s, out, out_is_bf16, B, K, O, grid, st);
+  }
   if (gs == 32) {
-    mrt::launch_quantize<32>(x, x_is_bf16 != 0, w.xq, w.xs, nullptr, nullptr, B, K, w.bpad, st);
     if (scale_is_bf16)
-      launch_gs<32, __nv_bfloat16>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, ksplit, st);
+      launch_gs<32, __nv_bfloat16>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, grid, st);
     else
-      launch_gs<32, float>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, ksplit, st);
+      launch_gs<32, float>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, grid, st);
   } else {
-    mrt::launch_quantize<64>(x, x_is_bf16 != 0, w.xq, w.xs, nullptr, nullptr, B, K, w.bpad, st);
     if (scale_is_bf16)
-      launch_gs<64, __nv_bfloat16>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, ksplit, st);
+      launch_gs<64, __nv_bfloat16>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, grid, st);
     else
-      launch_gs<64, float>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, ksplit, st);
+      launch_gs<64, float>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, grid, st);
   }
   return mrt::finish_gemv(w, out, out_is_bf16, ksplit, B * O, st);
 }

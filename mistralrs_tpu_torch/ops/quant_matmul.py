@@ -4,7 +4,9 @@ and plane-major affine (Q2_K, GPTQ, HQQ) weights.
 Counterpart of mistralrs_tpu/ops/quant_matmul.py, for the kernels the
 serving paths run, all hand-written CUDA under csrc/:
 - K1 `q4k_q8_gemv` (replaces `_q4k_q8_kernel`), K2 `q8_0_q8_gemv`
-  (`_q8_0_q8_kernel`): the Q4_K_M path;
+  (`_q8_0_q8_kernel`): the Q4_K_M path; each has a decode instantiation
+  (up to 16 rows) and a rows instantiation (17-256 rows, int8 wgmma, one
+  weight read per call), chosen by `int8_gemv_plan` and counted apart;
 - K3 `q6k_q8_gemv` (`_q6k_q8_kernel`), K4 `q6k_bf16_gemv` (`_q6k_kernel`)
   and K9 `q5k_q8_gemv` (`_q5k_hbit_q8_kernel` together with the K1 call
   that `_q5k_q8_matmul_padded` makes before it): the Q5_K_M path with Q6_K
@@ -63,6 +65,7 @@ tensors lie on the CPU; on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import numpy as np
@@ -76,6 +79,9 @@ MAX_KERNEL_ROWS = 256
 # launches of each kernel (one per wrapper call that launched it)
 q4k_q8_gemv_launches = 0
 q8_0_q8_gemv_launches = 0
+# K1's and K2's rows instantiations (17-256 rows), counted apart
+q4k_q8_gemv_rows_launches = 0
+q8_0_q8_gemv_rows_launches = 0
 q4k_dequant_launches = 0
 q8_0_dequant_launches = 0
 q6k_q8_gemv_launches = 0
@@ -149,17 +155,63 @@ def _check_cuda(name: str, tensors: dict[str, torch.Tensor]) -> torch.device:
 _SMS: dict[int, int] = {}
 
 
-def _ksplit(O: int, B: int, k_units: int, device, rows: int = 16) -> int:
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    sms = _SMS.get(idx)
+    if sms is None:
+        sms = _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return sms
+
+
+def _ksplit_for(O: int, B: int, k_units: int, sms: int, rows: int = 16) -> int:
     """Split of the K axis over blocks (a block owns 128 columns x `rows`
     rows): about 4 blocks per SM, each split keeping at least 4 K steps (K1:
     pairs of sub-blocks, K2: scale groups, K3/K4: 128-element steps, K9:
     256-element steps) for its copy pipeline."""
     tiles = -(-O // 128) * -(-B // rows)
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    sms = _SMS.get(idx)
-    if sms is None:
-        sms = _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     return max(1, min(-(-4 * sms // tiles), k_units // 4))
+
+
+def _ksplit(O: int, B: int, k_units: int, device, rows: int = 16) -> int:
+    return _ksplit_for(O, B, k_units, _sm_count(device), rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class GemvPlan:
+    """The launch of K1 or K2 for one call: the row tile of a block (16: the
+    decode kernel; 64 or 128: the rows instantiation, two consumer
+    warpgroups), the GEMV's grid as the CUDA entry point launches it, the K
+    split and the workspace bytes (csrc/common.cuh::carve)."""
+
+    rows: int
+    grid: tuple[int, int, int]
+    ksplit: int
+    ws_bytes: int
+
+
+def int8_gemv_plan(B: int, K: int, O: int, k_units: int, gs: int, sum_gs: int,
+                   sms: int) -> GemvPlan:
+    """Launch plan of K1 (k_units = K/64 sub-block pairs, gs = sum_gs = 32)
+    or K2 (k_units = K/gs groups, sum_gs = 0) on a card with `sms` SMs.
+
+    Up to 16 rows: the decode kernel, grid (column tiles, ksplit, 16-row
+    tiles), about 4 blocks per SM. Above: the rows instantiation, one
+    block per SM (its accumulators fill the register file), grid (row
+    tiles, column tiles, ksplit) with the row tiles fastest, so each weight
+    tile is read by at most two blocks that run side by side; K is split
+    only when the tiles fall short of the SMs, into as many splits as one
+    wave holds, each split keeping at least 4 K steps."""
+    ctiles = -(-O // 128)
+    if B <= 16:
+        ks = _ksplit_for(O, B, k_units, sms)
+        return GemvPlan(16, (ctiles, ks, -(-B // 16)), ks,
+                        _workspace_bytes(B, K, O, gs, sum_gs, ks))
+    rows = 64 if B <= 64 else 128
+    rtiles = -(-B // rows)
+    tiles = ctiles * rtiles
+    ks = max(1, min(sms // tiles, k_units // 4))
+    return GemvPlan(rows, (rtiles, ctiles, ks), ks,
+                    _workspace_bytes(B, K, O, gs, sum_gs, ks, rows))
 
 
 def _plane_rows(B: int) -> int:
@@ -172,15 +224,21 @@ def _align256(n: int) -> int:
     return (n + 255) & ~255
 
 
-def _workspace_bytes(B: int, K: int, O: int, gs: int, sum_gs: int, ksplit: int) -> int:
+def _workspace_bytes(B: int, K: int, O: int, gs: int, sum_gs: int, ksplit: int,
+                     rows: int = 16) -> int:
     """Scratch of one GEMV call: (xq [B, K], xs [K/gs, Bpad] unless gs is
     0), (xsum [K/sum_gs, Bpad] unless sum_gs is 0), split-K partials
     [ksplit, B, O], each 256-byte aligned, in the order
-    csrc/common.cuh::carve lays them out (Bpad = B rounded up to 16)."""
-    bpad = -(-B // 16) * 16
-    return ((_align256(B * K) + _align256((K // gs) * bpad * 4) if gs else 0)
+    csrc/common.cuh::carve lays them out; Bpad is B rounded up to the
+    blocks' row tile `rows`. Above 16 rows (the rows instantiations of K1
+    and K2, tiled): xq holds Bpad rows, and there are no partials with one
+    split."""
+    tiled = rows > 16
+    bpad = -(-B // rows) * rows
+    xrows = bpad if tiled else B
+    return ((_align256(xrows * K) + _align256((K // gs) * bpad * 4) if gs else 0)
             + (_align256((K // sum_gs) * bpad * 4) if sum_gs else 0)
-            + _align256(ksplit * B * O * 4))
+            + (_align256(ksplit * B * O * 4) if not tiled or ksplit > 1 else 0))
 
 
 def _check_x(name: str, x: torch.Tensor, K: int) -> int:
@@ -236,8 +294,10 @@ def q4k_q8_gemv_plain(x, qs, scale, minv, out_dtype=torch.float32):
 def q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.bfloat16):
     """K1: y [B, O] = x @ W for Q4_K W with x quantized to int8 per 32
     (see csrc/q4k_q8_gemv.cu). x [B, K] (bf16 or f32 on cuda), qs uint8
-    [K/2, O] paired nibbles, scale/minv [K/32, O] (bf16 on cuda)."""
-    global q4k_q8_gemv_launches
+    [K/2, O] paired nibbles, scale/minv [K/32, O] (bf16 on cuda). Up to 16
+    rows the decode kernel runs, above it the rows instantiation, on the
+    grid of int8_gemv_plan."""
+    global q4k_q8_gemv_launches, q4k_q8_gemv_rows_launches
     O = qs.shape[1]
     K = 2 * qs.shape[0]
     B = _check_x("q4k_q8_gemv", x, K)
@@ -251,17 +311,20 @@ def q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.bfloat16):
     _check_tensor("scale", scale, torch.bfloat16, (K // 32, O))
     _check_tensor("minv", minv, torch.bfloat16, (K // 32, O))
     dev = _check_cuda("q4k_q8_gemv", dict(x=x, qs=qs, scale=scale, minv=minv))
-    ksplit = _ksplit(O, B, K // 64, dev)
-    nbytes = _workspace_bytes(B, K, O, 32, 32, ksplit)
-    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    plan = int8_gemv_plan(B, K, O, K // 64, 32, 32, _sm_count(dev))
+    ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
     fn = kernels.function("q4k_q8_gemv", "q4k_q8_gemv",
-                          [_P, _I, _P, _P, _P, _P, ctypes.c_longlong, _P] + [_I] * 5 + [_P])
+                          [_P, _I, _P, _P, _P, _P, ctypes.c_longlong, _P] + [_I] * 8 + [_P])
     err = fn(kernels.ptr(x), int(x.dtype == torch.bfloat16), kernels.ptr(qs), kernels.ptr(scale),
-             kernels.ptr(minv), kernels.ptr(ws), nbytes, kernels.ptr(out),
-             int(out_dtype == torch.bfloat16), B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
+             kernels.ptr(minv), kernels.ptr(ws), plan.ws_bytes, kernels.ptr(out),
+             int(out_dtype == torch.bfloat16), B, K, O, plan.rows, *plan.grid,
+             _P(kernels.stream_ptr(dev)))
     kernels.check(err, "q4k_q8_gemv")
-    q4k_q8_gemv_launches += 1
+    if plan.rows == 16:
+        q4k_q8_gemv_launches += 1
+    else:
+        q4k_q8_gemv_rows_launches += 1
     return out
 
 
@@ -292,8 +355,9 @@ def q8_0_q8_gemv_plain(x, q, s, gs: int, out_dtype=torch.float32):
 def q8_0_q8_gemv(x, q, s, gs: int, out_dtype=torch.bfloat16):
     """K2: y [B, O] = x @ W for int8 W with a scale per gs rows, x quantized
     to int8 per gs (see csrc/q8_0_q8_gemv.cu). x [B, K] (bf16 or f32 on
-    cuda), q int8 [K, O], s [K/gs, O] f32 or bf16."""
-    global q8_0_q8_gemv_launches
+    cuda), q int8 [K, O], s [K/gs, O] f32 or bf16. Kernels as in
+    q4k_q8_gemv."""
+    global q8_0_q8_gemv_launches, q8_0_q8_gemv_rows_launches
     K, O = q.shape
     B = _check_x("q8_0_q8_gemv", x, K)
     _require(gs in (32, 64) and K % gs == 0 and O % 16 == 0,
@@ -307,17 +371,20 @@ def q8_0_q8_gemv(x, q, s, gs: int, out_dtype=torch.bfloat16):
     _require(x.dtype in (torch.bfloat16, torch.float32), f"q8_0_q8_gemv: x {x.dtype}")
     _require(s.dtype in (torch.float32, torch.bfloat16), f"s: dtype {s.dtype}")
     dev = _check_cuda("q8_0_q8_gemv", dict(x=x, q=q, s=s))
-    ksplit = _ksplit(O, B, K // gs, dev)
-    nbytes = _workspace_bytes(B, K, O, gs, 0, ksplit)
-    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    plan = int8_gemv_plan(B, K, O, K // gs, gs, 0, _sm_count(dev))
+    ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
     fn = kernels.function("q8_0_q8_gemv", "q8_0_q8_gemv",
-                          [_P, _I, _P, _P, _I, _I, _P, ctypes.c_longlong, _P] + [_I] * 5 + [_P])
+                          [_P, _I, _P, _P, _I, _I, _P, ctypes.c_longlong, _P] + [_I] * 8 + [_P])
     err = fn(kernels.ptr(x), int(x.dtype == torch.bfloat16), kernels.ptr(q), kernels.ptr(s),
-             int(s.dtype == torch.bfloat16), gs, kernels.ptr(ws), nbytes, kernels.ptr(out),
-             int(out_dtype == torch.bfloat16), B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
+             int(s.dtype == torch.bfloat16), gs, kernels.ptr(ws), plan.ws_bytes,
+             kernels.ptr(out), int(out_dtype == torch.bfloat16), B, K, O, plan.rows, *plan.grid,
+             _P(kernels.stream_ptr(dev)))
     kernels.check(err, "q8_0_q8_gemv")
-    q8_0_q8_gemv_launches += 1
+    if plan.rows == 16:
+        q8_0_q8_gemv_launches += 1
+    else:
+        q8_0_q8_gemv_rows_launches += 1
     return out
 
 

@@ -36,8 +36,9 @@ device's busy share = sum of kernel times over the traced wall time,
 kernel launches, and the device time of K13, K5, K8 and K9b and their
 shares of it: kernels named grouped_gemm, q4k_bf16_mma,
 plane_bf16_mma_kernel<8 and plane_bf16_mma_kernel<1, the last also K10's
-at 1 bit, which no mix here runs), then the top device kernels and host
-ops by time.
+at 1 bit, which no mix here runs; and of K1's and K2's rows
+instantiations, q4k_q8_rows_kernel and q8_0_q8_rows_kernel), then the top
+device kernels and host ops by time.
 """
 
 from __future__ import annotations
@@ -56,7 +57,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 FEW = 4  # prompts in the traced prefill steps that fill a few of the slots
 # device time reported by kernel: a part of the kernel's name
 NAMED_KERNELS = {"grouped_gemm": "grouped_gemm", "k5": "q4k_bf16_mma",
-                 "k8": "plane_bf16_mma_kernel<8", "k9b": "plane_bf16_mma_kernel<1"}
+                 "k8": "plane_bf16_mma_kernel<8", "k9b": "plane_bf16_mma_kernel<1",
+                 "k1_rows": "q4k_q8_rows_kernel", "k2_rows": "q8_0_q8_rows_kernel"}
 
 
 def main() -> int:

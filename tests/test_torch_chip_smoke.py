@@ -614,7 +614,11 @@ def test_bf16_card_vs_cpu_loads_each_side_from_the_file(tiny_q5km_gguf):
 def test_gguf_bf16_path_holds_the_three_kernels():
     assert chip_smoke.PATH_KERNELS["gguf_bf16"] == ("q4k_bf16_gemv", "q8_0_bf16_gemv",
                                                     "q5k_hbit_bf16_gemv")
-    assert len(chip_smoke.KERNEL_INFO) == 20
+    # 20 kernels, K1 and K2 counted in two instantiations each
+    assert len(chip_smoke.KERNEL_INFO) == 22
+    for name in ("q4k_q8_gemv", "q8_0_q8_gemv"):
+        assert chip_smoke.KERNEL_INFO[f"{name}_rows"] == chip_smoke.KERNEL_INFO[name]
+        assert f"{name}_rows" in chip_smoke.PATH_KERNELS["slice"]
     for name in chip_smoke.PATH_KERNELS["gguf_bf16"]:
         source, replaces = chip_smoke.KERNEL_INFO[name]
         assert source.startswith("mistralrs_tpu_torch/csrc/") and replaces.startswith(

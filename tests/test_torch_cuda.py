@@ -68,6 +68,106 @@ def test_q8_0_q8_gemv_matches_plain(dev, gs, sdt, B, O):
     assert float((got - want).abs().max()) <= tol
 
 
+# the rows instantiations of K1 and K2 (17-256 rows): one and two row tiles
+# of 64 and 128, their edges (150 and 192: a second 128-row tile that B
+# rounded up to 64 does not cover), and column tails that are not multiples
+# of 128
+ROWS_B = [17, 63, 64, 65, 128, 150, 192, 200, 256]
+ROWS_K = [1024, 4096, 14336]
+ROWS_O = [256, 272, 144]
+
+
+def _q4k_arrays(dev, K, O, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qs = torch.randint(0, 256, (K // 2, O), generator=g, dtype=torch.uint8).to(dev)
+    scale = (torch.rand(K // 32, O, generator=g) * 0.004 + 0.001).to(dev, torch.bfloat16)
+    minv = (torch.rand(K // 32, O, generator=g) * 0.002).to(dev, torch.bfloat16)
+    return qs, scale, minv
+
+
+@pytest.mark.parametrize("B", ROWS_B)
+@pytest.mark.parametrize("K", ROWS_K)
+@pytest.mark.parametrize("O", ROWS_O)
+def test_q4k_q8_gemv_rows_matches_plain(dev, B, K, O):
+    qs, scale, minv = _q4k_arrays(dev, K, O, B + K + O)
+    for xdt in (torch.float32, torch.bfloat16):
+        x = _acts(B, K, dev, B).to(xdt)
+        got = qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.float32)
+        want = qm.q4k_q8_gemv_plain(x, qs, scale, minv, torch.float32)
+        torch.cuda.synchronize()
+        # exact int32 dots on both sides; only the f32 order of the scaled sums differs
+        tol = 1e-5 * float(want.abs().max()) + 1e-5
+        assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("gs,sdt", [(32, torch.float32), (64, torch.float32),
+                                    (32, torch.bfloat16), (64, torch.bfloat16)])
+@pytest.mark.parametrize("B", ROWS_B)
+@pytest.mark.parametrize("K", ROWS_K)
+@pytest.mark.parametrize("O", ROWS_O)
+def test_q8_0_q8_gemv_rows_matches_plain(dev, gs, sdt, B, K, O):
+    g = torch.Generator(device="cpu").manual_seed(gs + B + K + O)
+    q = torch.randint(-128, 128, (K, O), generator=g, dtype=torch.int8).to(dev)
+    s = (torch.rand(K // gs, O, generator=g) * 0.01).to(dev, sdt)
+    for xdt in (torch.float32, torch.bfloat16):
+        x = _acts(B, K, dev, 3).to(xdt)
+        got = qm.q8_0_q8_gemv(x, q, s, gs, out_dtype=torch.float32)
+        want = qm.q8_0_q8_gemv_plain(x, q, s, gs, torch.float32)
+        torch.cuda.synchronize()
+        tol = 1e-5 * float(want.abs().max()) + 1e-5
+        assert float((got - want).abs().max()) <= tol
+
+
+# shapes that the plan runs in one K split, where nothing follows x's pieces
+# in the workspace: K of 4 K steps, and the main path's gate|up and lm_head
+ONE_SPLIT = [("k1", 256, 272, 32), ("k1", 4096, 28672, 32), ("k2", 128, 272, 32),
+             ("k2", 256, 144, 64), ("k2", 4096, 32768, 32)]
+
+
+@pytest.mark.parametrize("kernel,K,O,gs", ONE_SPLIT)
+@pytest.mark.parametrize("B", [150, 192, 256])
+def test_rows_one_split_matches_plain(dev, kernel, K, O, gs, B):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k_units = K // 64 if kernel == "k1" else K // gs
+    assert qm.int8_gemv_plan(B, K, O, k_units, gs, 32 if kernel == "k1" else 0, sms).ksplit == 1
+    x = _acts(B, K, dev, B + K).to(torch.bfloat16)
+    if kernel == "k1":
+        qs, scale, minv = _q4k_arrays(dev, K, O, B + O)
+        got = qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.float32)
+        want = qm.q4k_q8_gemv_plain(x, qs, scale, minv, torch.float32)
+    else:
+        g = torch.Generator(device="cpu").manual_seed(B + O)
+        q = torch.randint(-128, 128, (K, O), generator=g, dtype=torch.int8).to(dev)
+        s = (torch.rand(K // gs, O, generator=g) * 0.01).to(dev)
+        got = qm.q8_0_q8_gemv(x, q, s, gs, out_dtype=torch.float32)
+        want = qm.q8_0_q8_gemv_plain(x, q, s, gs, torch.float32)
+    torch.cuda.synchronize()
+    tol = 1e-5 * float(want.abs().max()) + 1e-5
+    assert float((got - want).abs().max()) <= tol
+
+
+def test_rows_instantiations_count_apart(dev):
+    """At 64 rows K1 and K2 launch their rows instantiations (and bf16 out
+    matches the f32 one rounded); the 16-row counters stay."""
+    K, O, B = 1024, 256, 64
+    qs, scale, minv = _q4k_arrays(dev, K, O, 1)
+    q = torch.randint(-128, 128, (K, O), dtype=torch.int8, device=dev)
+    s = torch.rand(K // 32, O, device=dev) * 0.01
+    x = _acts(B, K, dev, 2).to(torch.bfloat16)
+    before = (qm.q4k_q8_gemv_launches, qm.q4k_q8_gemv_rows_launches,
+              qm.q8_0_q8_gemv_launches, qm.q8_0_q8_gemv_rows_launches)
+    y1 = qm.q4k_q8_gemv(x, qs, scale, minv)
+    y2 = qm.q8_0_q8_gemv(x, q, s, 32)
+    after = (qm.q4k_q8_gemv_launches, qm.q4k_q8_gemv_rows_launches,
+             qm.q8_0_q8_gemv_launches, qm.q8_0_q8_gemv_rows_launches)
+    assert [a - b for a, b in zip(after, before)] == [0, 1, 0, 1]
+    assert y1.dtype == y2.dtype == torch.bfloat16
+    f1 = qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.float32)
+    f2 = qm.q8_0_q8_gemv(x, q, s, 32, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, f1.to(torch.bfloat16)) and torch.equal(y2, f2.to(torch.bfloat16))
+
+
 @pytest.mark.parametrize("B,T,Hq,Hkv", [(1, 128, 4, 2), (2, 200, 8, 2), (1, 64, 4, 4),
                                         (1, 1, 2, 1), (4, 512, 32, 8)])
 def test_flash_prefill_matches_plain(dev, B, T, Hq, Hkv):

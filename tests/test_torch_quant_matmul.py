@@ -46,7 +46,8 @@ def _pad8(x):
     return np.pad(x, ((0, (-x.shape[0]) % 8), (0, 0)))
 
 
-@pytest.mark.parametrize("B", [1, 8])
+# 64 and 200 rows: counts the rows instantiations of K1 and K2 serve on the card
+@pytest.mark.parametrize("B", [1, 8, 64, 200])
 def test_k1_plain_matches_pallas_q4k_q8(B):
     K, O = 1024, 256
     jl, tl = _pair(GGMLType.Q4_K, O, K, B)
@@ -62,7 +63,7 @@ def test_k1_plain_matches_pallas_q4k_q8(B):
 
 
 @pytest.mark.parametrize("gs", [32, 64])
-@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("B", [1, 8, 64, 200])
 def test_k2_plain_matches_pallas_q8_0_q8(gs, B):
     """The rq8 layout (f32 scales) at both group sizes."""
     K, O = 1024, 256

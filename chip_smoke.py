@@ -287,12 +287,16 @@ class Sizes:
     short_prompt: int = 40
     max_len: int = 32
     # K6 parity/timing cases (B, T, Hq, Hkv): the kernel table's 4 x 512, a
-    # ragged 200, the slice's batched first chunk of 4 x 256, and 16 x 256
-    flash_cases: tuple = ((4, 512, 32, 8), (1, 200, 32, 8), (4, 256, 32, 8), (16, 256, 32, 8))
+    # ragged 200, the slice's batched first chunk of 4 x 256, 16 x 256, and
+    # one prompt's first 512-token chunk
+    flash_cases: tuple = ((4, 512, 32, 8), (1, 200, 32, 8), (4, 256, 32, 8), (16, 256, 32, 8),
+                          (1, 512, 32, 8))
     # K6' cases (B, T, kv_len, head_major): a prompt's last 512-token chunk
-    # at 4096 (the headline), a ragged 256-row chunk, the same token-major
+    # at 4096 (the headline) and the same token-major, a ragged 256-row
+    # chunk on both layouts, and 512-token chunks at a 2048-token context
     paged_prefill_cases: tuple = ((4, 512, 4096, True), (1, 256, 1000, True),
-                                  (1, 256, 1000, False))
+                                  (1, 256, 1000, False), (4, 512, 4096, False),
+                                  (4, 512, 2048, True))
     # K7 cases (B, kv_len): the headline, a ragged batch, one row, and batch
     # 16 at the spans the gather route serves (1k, 2k) beside it
     paged_decode_cases: tuple = ((16, 4096), (4, 3456), (1, 4096), (16, 1024), (16, 2048))

@@ -264,19 +264,47 @@ __device__ __forceinline__ void tma_load_3d(void* smem, const CUtensorMap* map, 
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
       : "memory");
 }
+__device__ __forceinline__ void tma_load_4d(void* smem, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(smem)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
 
-// A tiled tensor map of a row-major tensor: dims[0] elements of `dtype` in
-// the innermost dimension, byte strides of the outer ones, a box of `box`
-// elements, no swizzle. cuTensorMapEncodeTiled is looked up through the CUDA
-// runtime (cudaGetDriverEntryPoint), so the library links nothing of
-// libcuda. Returns a CUDA error.
+// TMA: shared -> a box of a tensor map, in the thread's bulk group (parts
+// past the tensor's edge are not written); wait until the bulk groups have
+// read their shared memory before it is reused or the block exits.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* smem, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(smem)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// A tiled tensor map of a tensor of rank <= 5: dims[0] elements of `dtype`
+// in the innermost dimension, byte strides of the outer ones, a box of `box`
+// elements, no swizzle unless asked. cuTensorMapEncodeTiled is looked up
+// through the CUDA runtime (cudaGetDriverEntryPoint), so the library links
+// nothing of libcuda. Returns a CUDA error.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 inline int tile_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank, const void* base,
-                    const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
+                    const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -287,8 +315,9 @@ inline int tile_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank, const
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
-  cuuint64_t d[3], st[2];
-  cuuint32_t b[3], es[3];
+  if (rank < 1 || rank > 5) return (int)cudaErrorInvalidValue;
+  cuuint64_t d[5], st[4];
+  cuuint32_t b[5], es[5];
   for (int i = 0; i < rank; ++i) {
     d[i] = dims[i];
     b[i] = box[i];
@@ -296,7 +325,7 @@ inline int tile_map(CUtensorMap* map, CUtensorMapDataType dtype, int rank, const
     if (i) st[i - 1] = strides[i - 1];
   }
   const CUresult r = encode(map, dtype, (cuuint32_t)rank, const_cast<void*>(base), d, st, b, es,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
@@ -523,7 +552,12 @@ __device__ __forceinline__ void store_rows(void* out, int out_mode, const float 
 // - the consumers wait for `full` and `ready` (acquire), read the stage,
 //   and free it (release), every warp apart.
 // The producer warpgroup gives up registers (40 a thread) to the
-// consumers (232).
+// consumers (232). A ring with kDecode false has no decode step (the
+// attention kernels K6 and K6', csrc/flash_sm90.cuh): all four producer
+// warps issue a step's copies, copy(stage, i, full, ready, warp, lane) on
+// every lane; warps 0-1 announce their bytes on `full`, warps 2-3 on
+// `ready`, a second barrier of the step (two arrivals each); the consumers
+// wait for either (acquire, acquire_ready).
 constexpr int kRowThreads = 384;
 
 // Stages of a ring: as many as ~200 KB of shared memory hold beside kExtra
@@ -540,7 +574,7 @@ __host__ __device__ constexpr int ring_stages() {
          3 * 3;
 }
 
-template <typename Stage, int kStages>
+template <typename Stage, int kStages, bool kDecode = true>
 struct Ring {
   // dynamic shared memory of the ring with `extra` bytes of other buffers
   static constexpr int smem_bytes(int extra) {
@@ -563,8 +597,11 @@ struct Ring {
   // by every consumer thread before it reads step i's stage
   __device__ void acquire(int i) const {
     mbar_wait(full(i), parity(i));
-    mbar_wait(ready(i), parity(i));
+    if constexpr (kDecode) mbar_wait(ready(i), parity(i));
   }
+  // without kDecode: by every consumer thread before it reads what step i
+  // announced on `ready`
+  __device__ void acquire_ready(int i) const { mbar_wait(ready(i), parity(i)); }
   // by every consumer thread once its warp's reads of step i are done
   __device__ void release(int i) const {
     __syncwarp();
@@ -572,15 +609,17 @@ struct Ring {
   }
 
   // The whole block: copy(stage, i, full barrier) issues step i's copies
-  // (`tx` bytes), decode(stage, i, lane) decodes it, consume(wg) is a
-  // consumer warpgroup's work.
+  // (`tx` bytes; without kDecode copy(stage, i, full, ready, warp, lane) by
+  // every producer thread, and `tx` unused), decode(stage, i, lane) decodes
+  // it (not called without kDecode), consume(wg) is a consumer warpgroup's
+  // work.
   template <typename Copy, typename Decode, typename Consume>
   __device__ __forceinline__ void run(int n, uint32_t tx, Copy&& copy, Decode&& decode,
                                       Consume&& consume) const {
     if (threadIdx.x == 0) {
       for (int i = 0; i < kStages; ++i) {
-        mbar_init(full(i), 1);
-        mbar_init(ready(i), 1);
+        mbar_init(full(i), kDecode ? 1 : 2);
+        mbar_init(ready(i), kDecode ? 1 : 2);
         mbar_init(empty(i), 8);  // one arrival per consumer warp
       }
       mbar_init_fence();
@@ -590,7 +629,12 @@ struct Ring {
     if (wg == 2) {
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
       const int pw = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-      if (pw == 0) {
+      if constexpr (!kDecode) {
+        for (int i = 0; i < n; ++i) {
+          if (i >= kStages) mbar_wait(empty(i), parity(i) ^ 1);
+          copy((*this)[i], i, full(i), ready(i), pw, lane);
+        }
+      } else if (pw == 0) {
         if (lane == 0)
           for (int i = 0; i < n; ++i) {
             if (i >= kStages) mbar_wait(empty(i), parity(i) ^ 1);

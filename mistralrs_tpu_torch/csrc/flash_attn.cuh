@@ -1,7 +1,7 @@
-// Pieces shared by the attention kernels K6 (flash_prefill.cu), K6'
-// (flash_prefill_paged.cu), K7 (paged_decode.cu) and K11
-// (splash_prefill.cu): FlashAttention-2 on bf16 mma.sync tensor cores, head
-// dim D = 128 or 256.
+// Pieces shared by the attention kernels K7 (paged_decode.cu), K11
+// (splash_prefill.cu) and K12 (ragged_attention.cu): FlashAttention-2 on
+// bf16 mma.sync tensor cores, head dim D = 128 or 256. (K6 and K6' run on
+// the Hopper core of flash_sm90.cuh.)
 //
 // Tiles of rows x D bf16 (2D-byte rows) are staged in shared memory by
 // 16-byte cp.async copies; the 16-byte chunk c of row r sits at r * 2D +
@@ -256,14 +256,14 @@ __device__ __forceinline__ void attend(uint32_t kbase, uint32_t vbase, int krow0
   }
 }
 
-// Shared memory of the prefill kernels K6, K6' and K11: a 64-row Q tile,
+// Shared memory of the prefill kernels K11 and K12: a 64-row Q tile,
 // then the K and V tiles (KT rows each) of two stages.
 template <int D, int KT>
 __host__ __device__ constexpr size_t prefill_smem_bytes() {
   return (size_t)kTileRows * row_bytes<D>() + 4 * (size_t)KT * row_bytes<D>();
 }
 
-// The block loop of K6, K6' and K11: the block's 64 query rows (staged by
+// The block loop of K11 and K12: the block's 64 query rows (staged by
 // the caller at offset 0 and not yet committed) against key tiles
 // t_lo..t_hi-1 of KT rows, staged by stage_kv(it, k_tile, v_tile) and
 // double-buffered. on_q() runs once the Q tile has arrived, before its

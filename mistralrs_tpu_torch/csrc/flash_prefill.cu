@@ -15,72 +15,67 @@
 // What bounds it on an H100: operations. At T >= 256 the causal work,
 // about 2 * D * T^2 flops per (batch, head), is far above the bytes moved
 // (q, k, v, out read and written once), so the kernel has to run on the
-// tensor cores.
-// Design (FlashAttention-2 on mma.sync, csrc/flash_attn.cuh, shared with
-// K6', K7 and K11): a block of 4 warps owns 64 query rows of one head, 16 per
-// warp, and walks the 64-key tiles up to the diagonal. Q, then K and V tiles
-// (double-buffered) are staged in shared memory by 16-byte cp.async copies,
-// XOR-swizzled so ldmatrix reads are conflict-free; each warp keeps its Q
-// fragments in registers and feeds the probabilities straight from the
-// score accumulators as the A operand of P.V. Only the last (diagonal) tile
-// is masked. Blocks with the most key tiles are launched first. wgmma, TMA
-// and warp specialisation are later work.
-#include "flash_attn.cuh"
+// tensor cores at the wgmma rate.
+// Design: the Hopper attention core of csrc/flash_sm90.cuh. A work item is
+// 128 query rows of one (row, head), two consumer warpgroups of 64 rows on
+// bf16 wgmma, over the 128-key tiles up to the diagonal; the producer loads
+// Q, K and V with TMA through 4-D maps (D, H, T, B) of the three tensors,
+// so rows past T land as zeros. Only the last (diagonal) tile is masked.
+// The persistent grid takes the last query tiles (the most key tiles)
+// first.
+#include "flash_sm90.cuh"
 
 namespace {
 
-constexpr int D = 128;
-// query rows per block, 16 per warp; equal to the key tile, so the diagonal
-// tile is the last
-constexpr int BQ = 64;
-constexpr size_t kSmemBytes = fa::prefill_smem_bytes<D, fa::kTileRows>();
-
-__global__ void __launch_bounds__(fa::kThreads)
-    flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                         int T, int Hq, int Hkv, fa::Logit<false> lg) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest rows first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (Hq / Hkv);
-  const int warp = threadIdx.x >> 5;
-  const int ntiles = q0 / fa::kTileRows + 1;  // key tiles up to the diagonal
-
-  // element offset of row t, head hh of a [B*T, H, D] tensor
-  auto row = [&](int H, int hh, int t) -> size_t { return ((size_t)(b * T + t) * H + hh) * D; };
-  fa::stage_rows<D, fa::kTileRows>(smem, T - q0, q, [&](int r) { return row(Hq, h, q0 + r); });
-  fa::RowState<D> st;
-  fa::prefill_rows<D, fa::kTileRows, fa::QFrags<D>>(
-      smem, 0, ntiles, lg,
-      [&](int it, uint8_t* kt, uint8_t* vt) {
-        const int t0 = it * fa::kTileRows;
-        fa::stage_kv<D, fa::kTileRows>(kt, vt, T - t0, k, v,
-                                       [&](int r) { return row(Hkv, kvh, t0 + r); });
+__global__ void __launch_bounds__(mrt::kRowThreads, 1)
+    flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const __grid_constant__ CUtensorMap omap, int B, int Hq, int Hkv,
+                         int qtiles, float mul) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const int G = Hq / Hkv;
+  fa3::run_items(
+      smem, Hq * B * qtiles, mul,
+      [&](int w) {
+        fa3::Item it = fa3::item_at(w, Hq, B, qtiles);
+        it.n = it.q0 / fa3::kKeys + 1;  // key tiles up to the diagonal
+        return it;
       },
-      [] {}, [&](int it) { return it == ntiles - 1; },
-      [&](int qr, int kj) { return kj <= q0 + qr && kj < T; }, st);
-  fa::store_rows(st, [&](int r) -> __nv_bfloat16* {
-    const int qi = q0 + warp * 16 + r;
-    return qi < T ? out + ((size_t)(b * T + qi) * Hq + h) * D : nullptr;
-  });
+      [&](const fa3::Item& it, int t, uint8_t* dst, uint64_t* bar, int piece, uint8_t* q,
+          int lane) {
+        if (lane != 0) return;
+        if (q) fa3::load_rows(q, &qmap, it.h, it.q0, it.b, bar);
+        mrt::tma_load_4d(dst, piece < 2 ? &kmap : &vmap, 64 * (piece & 1), it.h / G,
+                         t * fa3::kKeys, it.b, bar);
+      },
+      [](const fa3::Item& it, int t) { return t == it.n - 1; },
+      // keys past T sit past every real query's position
+      [](const fa3::Item& it, int r, int key) { return key <= it.q0 + r; },
+      [](const fa3::Item&, uint8_t*) { return false; },  // rows past T land as zeros
+      [](const fa3::Item&, int) {},  // every item has a key tile
+      &omap);
 }
 
 }  // namespace
 
-// Shapes are checked by the Python wrapper (ops/flash_attention.py):
-// head dim 128, Hq % Hkv == 0, contiguous 16-byte aligned bf16 tensors.
-// Returns the CUDA error code of the launch (0 = launched).
+// Shapes are checked by the Python wrapper (ops/flash_attention.py): head
+// dim 128, Hq % Hkv == 0, contiguous 16-byte aligned bf16 tensors, scale >
+// 0. The launch (rows, key tile, stages, threads, grid and shared memory)
+// comes from its plan (flash_plan) and is checked here. Returns the CUDA
+// error code of the launch (0 = launched).
 extern "C" int flash_prefill(const void* q, const void* k, const void* v, void* out, int B, int T,
-                             int Hq, int Hkv, float scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + BQ - 1) / BQ, Hq, B);
-  flash_prefill_kernel<<<grid, fa::kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), T, Hq, Hkv,
-      fa::Logit<false>::make(scale, 0.f));
-  return (int)cudaGetLastError();
+                             int Hq, int Hkv, float scale, int rows, int keys, int stages,
+                             int threads, int gx, int gy, int gz, int smem, void* stream) {
+  if (!fa3::plan_fits(rows, keys, stages, threads, gx, gy, gz, smem, B, T, Hq))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qmap, kmap, vmap, omap;
+  int err = fa3::rows_map(&qmap, q, B, T, Hq);
+  if (!err) err = fa3::rows_map(&kmap, k, B, T, Hkv);
+  if (!err) err = fa3::rows_map(&vmap, v, B, T, Hkv);
+  if (!err) err = fa3::rows_map(&omap, out, B, T, Hq, 64);
+  if (err) return err;
+  return fa3::launch(flash_prefill_kernel, dim3(gx, gy, gz), smem,
+                     static_cast<cudaStream_t>(stream), qmap, kmap, vmap, omap, B, Hq, Hkv,
+                     (T + fa3::kRows - 1) / fa3::kRows, scale * fa3::kLog2e);
 }

@@ -8,15 +8,17 @@ the [B, Hq, T, T] score matrix is never written to memory.
 
 Layouts are the decoder's: q [B, T, Hq, D], k/v [B, T, Hkv, D]; query head
 h reads kv head h // (Hq/Hkv) directly, without repeating K/V. The kernel
-(csrc/flash_prefill.cu) takes bf16 with D = 128 and any T; the softmax runs
-in f32. `flash_prefill` takes the plain version below when (and only when)
-its tensors lie on the CPU; on a CUDA tensor it launches the kernel or
-raises.
+(csrc/flash_prefill.cu, on the Hopper attention core of csrc/flash_sm90.cuh
+that K6' shares) takes bf16 with D = 128 and any T; the softmax runs in
+f32. Its launch, and K6''s, is `flash_plan`. `flash_prefill` takes the plain
+version below when (and only when) its tensors lie on the CPU; on a CUDA
+tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -28,6 +30,57 @@ flash_prefill_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """The launch of K6 or K6' (csrc/flash_sm90.cuh::plan_fits refuses one
+    that is not its core's): a work item is `rows` query rows of one (row,
+    head), `items` of them; a block of `threads` (two consumer warpgroups
+    and a producer) walks its items' `key_tile`-key tiles through a ring of
+    `stages` K/V stages; the grid (one block an SM, at most one an item) is
+    persistent: block x takes items x, x + grid[0], ...
+    (csrc/flash_sm90.cuh::item_at)."""
+
+    rows: int
+    key_tile: int
+    stages: int
+    threads: int
+    items: int
+    grid: tuple[int, int, int]
+    smem_bytes: int
+
+
+def flash_plan(B: int, T: int, Hq: int, Hkv: int, D: int, sms: int) -> FlashPlan:
+    """The launch plan of K6 and K6' for q [B, T, Hq, D] against Hkv kv
+    heads on a card with `sms` SMs. Shared memory: the ring's stages
+    (a K and a V tile of 128 x D bf16 each, and three 8-byte mbarriers),
+    the Q tile and its 8-byte barrier (16 bytes), and 1024 bytes to align
+    the start to the 128-byte swizzle's period."""
+    if D != 128:
+        raise ValueError(f"flash_plan: head dim {D}; the kernels take 128")
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"flash_plan: {Hq} query heads on {Hkv} kv heads")
+    if B < 1 or T < 1 or sms < 1:
+        raise ValueError(f"flash_plan: nothing to launch for B={B} T={T} on {sms} SMs")
+    rows = keys = 128
+    stages = 3
+    tile = keys * D * 2
+    items = Hq * B * -(-T // rows)
+    return FlashPlan(rows, keys, stages, 384, items, (min(sms, items), 1, 1),
+                     stages * (2 * tile + 3 * 8) + rows * D * 2 + 16 + 1024)
+
+
+def launch_args(plan: FlashPlan) -> tuple[int, ...]:
+    """The plan as the C entry points take and check it."""
+    return (plan.rows, plan.key_tile, plan.stages, plan.threads, *plan.grid, plan.smem_bytes)
+
+
+def check_scale(name: str, scale: float) -> None:
+    """The kernels take the running max over raw scores, which needs a
+    positive scale."""
+    if not scale > 0:
+        raise ValueError(f"{name}: scale {scale}; the kernel takes a positive scale")
 
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,13 +118,15 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_prefill: {name} must be contiguous and 16-byte aligned")
     if D != 128:
         raise ValueError(f"flash_prefill: head dim {D}; the kernel takes 128")
+    check_scale("flash_prefill", scale)
     out = torch.empty_like(q)
     if T == 0 or B == 0:
         return out
+    plan = flash_plan(B, T, Hq, Hkv, D, kernels.sm_count(q.device))
     fn = kernels.function("flash_prefill", "flash_prefill",
-                          [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P])
+                          [_P] * 4 + [_I] * 4 + [ctypes.c_float] + [_I] * 8 + [_P])
     err = fn(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(out), B, T, Hq, Hkv,
-             float(scale), _P(kernels.stream_ptr(q.device)))
+             float(scale), *launch_args(plan), _P(kernels.stream_ptr(q.device)))
     kernels.check(err, "flash_prefill")
     flash_prefill_launches += 1
     return out

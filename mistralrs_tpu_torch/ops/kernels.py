@@ -119,6 +119,20 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+_sms: dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (cached)."""
+    import torch
+
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
 def stream_ptr(device) -> int:
     import torch
 

@@ -24,7 +24,8 @@ Unlike the JAX functions, which return new arrays, `write_paged_kv` and
 a functional update would copy the whole pool every layer and step.
 
 The kernels (csrc/flash_prefill_paged.cu, csrc/paged_decode.cu) read the
-context through the block table, never a gathered copy. Their wrappers take
+context through the block table, never a gathered copy; K6' shares K6's
+Hopper attention core and launch plan (ops/flash_attention.py::flash_plan). Their wrappers take
 the plain versions below when (and only when) the tensors lie on the CPU;
 on a CUDA tensor they launch the kernel or raise.
 """
@@ -38,6 +39,7 @@ import torch
 
 from mistralrs_tpu_torch.ops import kernels
 from mistralrs_tpu_torch.ops.attention import NEG_INF, sdpa, sdpa_head_major
+from mistralrs_tpu_torch.ops.flash_attention import check_scale, flash_plan, launch_args
 
 # launches of each kernel (one per wrapper call that launched it)
 flash_prefill_paged_launches = 0
@@ -293,22 +295,26 @@ def flash_prefill_continuation(q: torch.Tensor, cache_k: torch.Tensor, cache_v: 
     """K6': causal attention of a prefill chunk q [B, T, Hq, D] over its paged
     context (the chunk's own K/V already written) -> [B, T, Hq, D] in q's
     dtype. Query i of row b sits at position kv_lens[b] - T + i; rows may
-    start at 0. Pools of either layout."""
+    start at 0. Pools of either layout. What a pool holds at or past a row's
+    kv_len (the rest of its last page included, even NaN) does not reach
+    the result."""
     global flash_prefill_paged_launches
     _check_shapes("flash_prefill_continuation", q, cache_k, cache_v, meta)
     if _on_cpu(q, cache_k, cache_v, meta.block_tables, meta.kv_lens):
         return flash_prefill_continuation_plain(q, cache_k, cache_v, meta, scale=scale)
     tables, kv_lens = _check_card("flash_prefill_continuation", q, cache_k, cache_v, meta)
-    B, T, Hq, _ = q.shape
-    H, _, page, s_page, s_slot, s_head = _pool_geometry(cache_k, meta.head_major)
+    check_scale("flash_prefill_continuation", scale)
+    B, T, Hq, D = q.shape
+    H, P, page = _pool_geometry(cache_k, meta.head_major)[:3]
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out
+    plan = flash_plan(B, T, Hq, H, D, kernels.sm_count(q.device))
     fn = kernels.function("flash_prefill_paged", "flash_prefill_paged",
-                          [_P] * 6 + [_I] * 7 + [_L] * 3 + [ctypes.c_float, _P])
+                          [_P] * 6 + [_I] * 9 + [ctypes.c_float] + [_I] * 8 + [_P])
     err = fn(kernels.ptr(q), kernels.ptr(cache_k), kernels.ptr(cache_v), kernels.ptr(tables),
-             kernels.ptr(kv_lens), kernels.ptr(out), B, T, Hq, H, tables.shape[1], page,
-             page.bit_length() - 1, s_page, s_slot, s_head, float(scale),
+             kernels.ptr(kv_lens), kernels.ptr(out), B, T, Hq, H, tables.shape[1], P, page,
+             page.bit_length() - 1, int(meta.head_major), float(scale), *launch_args(plan),
              _P(kernels.stream_ptr(q.device)))
     kernels.check(err, "flash_prefill_paged")
     flash_prefill_paged_launches += 1
@@ -320,7 +326,6 @@ def flash_prefill_continuation(q: torch.Tensor, cache_k: torch.Tensor, cache_v: 
 # 136 KB at D = 256)
 _DECODE_TILE = 64
 _DECODE_CTAS_PER_SM = {128: 2, 256: 1}
-_sm_counts: dict[int, int] = {}
 
 
 def _decode_splits(B: int, H: int, span: int, D: int, device) -> tuple[int, int]:
@@ -328,11 +333,8 @@ def _decode_splits(B: int, H: int, span: int, D: int, device) -> tuple[int, int]
     pair's span is cut into splits so that B * H * splits fills the card's
     SMs with as many CTAs as fit on each; the splits' partials are combined
     in a second pass."""
-    idx = torch.device(device).index or 0
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     tiles = max(1, -(-span // _DECODE_TILE))
-    want = max(1, _DECODE_CTAS_PER_SM[D] * _sm_counts[idx] // max(B * H, 1))
+    want = max(1, _DECODE_CTAS_PER_SM[D] * kernels.sm_count(device) // max(B * H, 1))
     per = -(-tiles // min(want, tiles))
     return -(-tiles // per), per
 

@@ -152,17 +152,6 @@ def _check_cuda(name: str, tensors: dict[str, torch.Tensor]) -> torch.device:
     return dev
 
 
-_SMS: dict[int, int] = {}
-
-
-def _sm_count(device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    sms = _SMS.get(idx)
-    if sms is None:
-        sms = _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return sms
-
-
 def _ksplit_for(O: int, B: int, k_units: int, sms: int, rows: int = 16) -> int:
     """Split of the K axis over blocks (a block owns 128 columns x `rows`
     rows): about 4 blocks per SM, each split keeping at least 4 K steps (K1:
@@ -173,7 +162,7 @@ def _ksplit_for(O: int, B: int, k_units: int, sms: int, rows: int = 16) -> int:
 
 
 def _ksplit(O: int, B: int, k_units: int, device, rows: int = 16) -> int:
-    return _ksplit_for(O, B, k_units, _sm_count(device), rows)
+    return _ksplit_for(O, B, k_units, kernels.sm_count(device), rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,7 +300,7 @@ def q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.bfloat16):
     _check_tensor("scale", scale, torch.bfloat16, (K // 32, O))
     _check_tensor("minv", minv, torch.bfloat16, (K // 32, O))
     dev = _check_cuda("q4k_q8_gemv", dict(x=x, qs=qs, scale=scale, minv=minv))
-    plan = int8_gemv_plan(B, K, O, K // 64, 32, 32, _sm_count(dev))
+    plan = int8_gemv_plan(B, K, O, K // 64, 32, 32, kernels.sm_count(dev))
     ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
     fn = kernels.function("q4k_q8_gemv", "q4k_q8_gemv",
@@ -371,7 +360,7 @@ def q8_0_q8_gemv(x, q, s, gs: int, out_dtype=torch.bfloat16):
     _require(x.dtype in (torch.bfloat16, torch.float32), f"q8_0_q8_gemv: x {x.dtype}")
     _require(s.dtype in (torch.float32, torch.bfloat16), f"s: dtype {s.dtype}")
     dev = _check_cuda("q8_0_q8_gemv", dict(x=x, q=q, s=s))
-    plan = int8_gemv_plan(B, K, O, K // gs, gs, 0, _sm_count(dev))
+    plan = int8_gemv_plan(B, K, O, K // gs, gs, 0, kernels.sm_count(dev))
     ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
     fn = kernels.function("q8_0_q8_gemv", "q8_0_q8_gemv",

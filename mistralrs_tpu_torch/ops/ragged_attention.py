@@ -207,7 +207,6 @@ def _on_cpu(*ts) -> bool:
 # the CTAs of each head dim that fit on an SM at once in the decode kernel
 # (68 KB of shared memory each at D = 128, 136 KB at D = 256)
 _DECODE_CTAS_PER_SM = {128: 2, 256: 1}
-_sm_counts: dict[int, int] = {}
 
 
 def _decode_grid(Hkv: int, span: int, D: int, device) -> tuple[int, int]:
@@ -216,10 +215,7 @@ def _decode_grid(Hkv: int, span: int, D: int, device) -> tuple[int, int]:
     CTAs // (num_seqs * Hkv)) ways, reading num_seqs on the device, so the
     wave is full however many of the slots are live; the most is what one
     live sequence would take, at least one 64-key tile a split."""
-    idx = torch.device(device).index or 0
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    ctas = _DECODE_CTAS_PER_SM[D] * _sm_counts[idx]
+    ctas = _DECODE_CTAS_PER_SM[D] * kernels.sm_count(device)
     return max(1, min(-(-span // 64), ctas // Hkv)), ctas
 
 

@@ -6,11 +6,13 @@ card, in turns.
 
 Runs each checkout in a process of its own, in the order parent, change,
 change, parent. Each builds its own kernels (under its own csrc/_build)
-and prints one JSON line: K6 (`flash_prefill`) at B=4 T=512, B=16 T=256
-and B=1 T=200, and, where the checkout has them, K6' and K7 at
-chip_smoke.py's headline shapes (B=4 T=512 at a 4096-token context; B=16
-at 4096). Each time is chip_smoke.Clock's median of 25 runs, taken three
-times.
+and prints one JSON line: K6 (`flash_prefill`) at chip_smoke.py's first
+chunks (B=4 T=512, B=16 T=256, B=1 T=200, B=4 T=256, B=1 T=512); where the
+checkout has them, K6' at B=4 T=512 over a 4096-token context on both pool
+layouts and over 2048 head-major, and at B=1 T=256 over 1000 on both
+layouts; K7 at B=16 over 4096; K11 at Gemma-2-9B's 4 x 512 first chunk
+(soft cap 50); K12 at Mistral's 16-row decode over 4096. Each time is
+chip_smoke.Clock's median of 25 runs, taken three times.
 """
 
 from __future__ import annotations
@@ -36,20 +38,42 @@ def measure(root: str) -> dict:
     clock = cs.Clock(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {"root": root}
-    for B, T in ((4, 512), (16, 256), (1, 200)):
+
+    def three(fn):
+        return [clock.ms(fn) for _ in range(3)]
+
+    for B, T in ((4, 512), (16, 256), (1, 200), (4, 256), (1, 512)):
         q, k, v = (torch.randn(B, T, H, 128, device=dev, generator=gen).bfloat16()
                    for H in (32, 8, 8))
-        out[f"flash_prefill B={B} T={T}"] = [
-            clock.ms(lambda: fa.flash_prefill(q, k, v, 0.088)) for _ in range(3)]
-    if hasattr(cs, "paged_inputs"):
-        from mistralrs_tpu_torch.ops import paged_attention as pa
+        out[f"flash_prefill B={B} T={T}"] = three(lambda: fa.flash_prefill(q, k, v, 0.088))
+    if not hasattr(cs, "paged_inputs"):
+        return out
+    from mistralrs_tpu_torch.ops import paged_attention as pa
 
-        sz = cs.Sizes()
-        for name, B, T in (("flash_prefill_paged", 4, 512), ("paged_decode", 16, 1)):
-            q, k, v, meta = cs.paged_inputs(sz, dev, gen, B, T, 4096, True)
-            fn = pa.flash_prefill_continuation if T > 1 else pa.paged_decode_attention
-            out[f"{name} B={B} kv=4096"] = [
-                clock.ms(lambda: fn(q, k, v, meta, scale=0.088)) for _ in range(3)]
+    sz = cs.Sizes()
+    for B, T, kv, hm in ((4, 512, 4096, True), (4, 512, 4096, False), (4, 512, 2048, True),
+                         (1, 256, 1000, True), (1, 256, 1000, False)):
+        q, k, v, meta = cs.paged_inputs(sz, dev, gen, B, T, kv, hm)
+        name = f"flash_prefill_paged B={B} T={T} kv={kv} {'head' if hm else 'token'}_major"
+        out[name] = three(lambda: pa.flash_prefill_continuation(q, k, v, meta, scale=0.088))
+    q, k, v, meta = cs.paged_inputs(sz, dev, gen, 16, 1, 4096, True)
+    out["paged_decode B=16 kv=4096"] = three(
+        lambda: pa.paged_decode_attention(q, k, v, meta, scale=0.088))
+    if hasattr(cs, "SPLASH_CASES"):
+        from mistralrs_tpu_torch.ops import splash as sp
+
+        shape, B, T, Hq, Hkv, D, window, cap = cs.SPLASH_CASES[0]
+        q = (torch.randn(B, T, Hq, D, device=dev, generator=gen) * 8).bfloat16()
+        k, v = (torch.randn(B, T, Hkv, D, device=dev, generator=gen).bfloat16() for _ in "kv")
+        kw = dict(scale=D ** -0.5, sliding_window=window, logits_softcap=cap)
+        out[f"splash_prefill {shape}"] = three(lambda: sp.splash_prefill(q, k, v, **kw))
+    if hasattr(cs, "RAGGED_CASES"):
+        from mistralrs_tpu_torch.ops import ragged_attention as ra
+
+        shape, seqs, B, Hq, Hkv, D, window, cap = cs.RAGGED_CASES[0]
+        args = cs.ragged_inputs(dev, gen, seqs, B, Hq, Hkv, D)
+        out[f"ragged_attention {shape}"] = three(
+            lambda: ra.ragged_attention(*args, scale=D ** -0.5, max_q_len=1))
     return out
 
 

@@ -58,7 +58,8 @@ FEW = 4  # prompts in the traced prefill steps that fill a few of the slots
 # device time reported by kernel: a part of the kernel's name
 NAMED_KERNELS = {"grouped_gemm": "grouped_gemm", "k5": "q4k_bf16_mma",
                  "k8": "plane_bf16_mma_kernel<8", "k9b": "plane_bf16_mma_kernel<1",
-                 "k1_rows": "q4k_q8_rows_kernel", "k2_rows": "q8_0_q8_rows_kernel"}
+                 "k1_rows": "q4k_q8_rows_kernel", "k2_rows": "q8_0_q8_rows_kernel",
+                 "k6": "flash_prefill_kernel", "k6p": "flash_prefill_paged_kernel"}
 
 
 def main() -> int:

@@ -10,6 +10,8 @@ and a context length directly, with no prompt prefilled first: their K/V
 pages hold zeros, and attention's time does not depend on the values.
 Traces, after an untraced warm-up call of each (a first use costs up to
 ~0.2 s of host time):
+- one batched first-chunk prefill step of FEW x 512 tokens at positions
+  0..511 (K6);
 - one batched continuation prefill step of FEW x 512 tokens at positions
   3072..3583 (the last full chunk of a ~3,600-token prompt: K6' over a
   4096 span);
@@ -41,6 +43,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--batch", type=int, default=16)
+    # the model and route report() names (torch_decode_profile.py's options)
+    ap.set_defaults(mix="q4km", backend="default", int8_activations="on")
     args = ap.parse_args()
 
     import torch
@@ -81,6 +85,26 @@ def main() -> int:
             s.kv_len = s.prefill_done_tokens = ctx
             out.append(s)
         return out
+
+    # first chunk: FEW rows, positions 0..511
+    firsts = seqs_at(FEW, 0, CHUNK)
+    first_items = [(s, s.tokens[:CHUNK]) for s in firsts]
+
+    def first():
+        pipe.run_prefill_chunks(first_items)
+        torch.cuda.synchronize()
+        for s in firsts:
+            s.kv_len = s.prefill_done_tokens = 0
+
+    first()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        first()
+        wall = time.perf_counter() - t0
+    report(f"prefill_first_{FEW}x{CHUNK}", name, args, prof, wall, {
+        "prefill_ms": wall * 1e3, "rows": FEW, "start": 0})
+    for s in firsts:
+        bm.free_sequence(s)
 
     # continuation prefill: FEW rows, chunk 3072..3583
     start = 3072

@@ -169,7 +169,11 @@ def test_rows_instantiations_count_apart(dev):
 
 
 @pytest.mark.parametrize("B,T,Hq,Hkv", [(1, 128, 4, 2), (2, 200, 8, 2), (1, 64, 4, 4),
-                                        (1, 1, 2, 1), (4, 512, 32, 8)])
+                                        (1, 1, 2, 1), (4, 512, 32, 8),
+                                        # around the 128-row query and key tiles,
+                                        # and 1, 4 and 16 query heads a kv head
+                                        (2, 1, 8, 8), (1, 127, 8, 2), (2, 129, 16, 4),
+                                        (1, 384, 32, 8), (1, 1024, 16, 1)])
 def test_flash_prefill_matches_plain(dev, B, T, Hq, Hkv):
     g = torch.Generator(device="cpu").manual_seed(T + Hq)
     q = torch.randn(B, T, Hq, 128, generator=g).to(dev, torch.bfloat16)
@@ -182,6 +186,34 @@ def test_flash_prefill_matches_plain(dev, B, T, Hq, Hkv):
     # rounds P to bf16 before P.V (2^-8 relative per weight, averaging out
     # over the keys), and its f32 sums run in another order
     assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def _launch_counts():
+    """Every launch counter of the kernels' wrappers (ops/*.py)."""
+    import importlib
+    import pkgutil
+
+    import mistralrs_tpu_torch.ops as ops
+
+    out = {}
+    for info in pkgutil.iter_modules(ops.__path__):
+        mod = importlib.import_module(f"mistralrs_tpu_torch.ops.{info.name}")
+        for name, val in vars(mod).items():
+            if name.endswith("_launches") and isinstance(val, int):
+                out[f"{info.name}.{name}"] = val
+    return out
+
+
+def test_flash_prefill_call_launches_one_kernel(dev):
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q = torch.randn(2, 300, 8, 128, generator=g).to(dev, torch.bfloat16)
+    k = torch.randn(2, 300, 2, 128, generator=g).to(dev, torch.bfloat16)
+    before = _launch_counts()
+    fa.flash_prefill(q, k, k, 128 ** -0.5)
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == \
+        {"flash_attention.flash_prefill_launches": 1}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -420,15 +452,21 @@ def _paged_inputs(dev, B, T, kv_lens, Hq, Hkv, head_major, seed, page=16, D=128)
     return q, k, v, meta
 
 
+@pytest.mark.parametrize("page", [16, 8, 256])
 @pytest.mark.parametrize("head_major", [True, False])
 @pytest.mark.parametrize("B,T,kv_lens,Hq,Hkv", [
     (2, 128, (200, 128), 4, 2),     # row 1 starts at 0 (a mixed batch)
-    (1, 256, (1000,), 32, 8),       # ends mid-page
+    (1, 256, (1000,), 32, 8),       # ends mid-page; the diagonal straddles two key tiles
     (3, 64, (70, 333, 64), 8, 2),   # T not a multiple of 128
     (4, 512, (4096, 3584, 1024, 517), 32, 8),
+    (1, 128, (300,), 8, 2),         # the diagonal straddles two key tiles
+    (3, 384, (500, 421, 384), 32, 8),  # three query tiles, row 2 starts at 0
+    (2, 200, (457, 200), 4, 4),     # one query head a kv head
+    (2, 128, (300, 129), 16, 1),    # 16 query heads on one kv head
 ])
-def test_flash_prefill_paged_matches_plain(dev, head_major, B, T, kv_lens, Hq, Hkv):
-    q, k, v, meta = _paged_inputs(dev, B, T, kv_lens, Hq, Hkv, head_major, seed=T + B)
+def test_flash_prefill_paged_matches_plain(dev, page, head_major, B, T, kv_lens, Hq, Hkv):
+    q, k, v, meta = _paged_inputs(dev, B, T, kv_lens, Hq, Hkv, head_major, seed=T + B,
+                                  page=page)
     before = pa.flash_prefill_paged_launches
     got = pa.flash_prefill_continuation(q, k, v, meta, scale=128 ** -0.5).float()
     want = pa.flash_prefill_continuation_plain(q, k, v, meta, scale=128 ** -0.5).float()
@@ -438,6 +476,58 @@ def test_flash_prefill_paged_matches_plain(dev, head_major, B, T, kv_lens, Hq, H
     # before P.V in the kernel, f32 sums in another order
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("head_major", [True, False])
+def test_flash_prefill_paged_padded_chunk(dev, head_major):
+    """Row 0's chunk holds 200 real tokens padded to 256 rows at positions
+    300..555: its table names page 0 (the garbage page padding tokens write
+    to) past the real prompt, as the engine's tables do."""
+    B, T, page = 2, 256, 16
+    q, k, v, meta = _paged_inputs(dev, B, T, (556, 256), 32, 8, head_major, seed=11, page=page)
+    meta.block_tables[0, -(-500 // page):] = 0
+    got = pa.flash_prefill_continuation(q, k, v, meta, scale=128 ** -0.5).float()
+    want = pa.flash_prefill_continuation_plain(q, k, v, meta, scale=128 ** -0.5).float()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("page", [16, 256])
+@pytest.mark.parametrize("head_major", [True, False])
+def test_flash_prefill_paged_ignores_slots_past_kv_len(dev, page, head_major):
+    """Every pool slot that no row reads below its kv_len holds NaN, the
+    rest of each row's last page included (a recycled page's stale data),
+    and rows 0 and 1 share their last page: the output is finite and the
+    one of pools that hold finite values there."""
+    B, T, kv_lens = 3, 128, (1000, 300, 129)
+    q, k, v, meta = _paged_inputs(dev, B, T, kv_lens, 8, 2, head_major, seed=21, page=page)
+    tables = meta.block_tables
+    tables[1, (kv_lens[1] - 1) // page] = tables[0, (kv_lens[0] - 1) // page]
+    live = torch.zeros(k.shape[:3] if head_major else k.shape[:2], dtype=torch.bool)
+    for b, n in enumerate(kv_lens):
+        pos = torch.arange(n)
+        pages = tables[b].cpu()[pos // page]
+        live[(slice(None), pages, pos % page) if head_major else (pages, pos % page)] = True
+    live = live.to(dev)[..., None] if head_major else live.to(dev)[..., None, None]
+    k_nan, v_nan = (torch.where(live, t, torch.full_like(t, float("nan"))) for t in (k, v))
+    got = pa.flash_prefill_continuation(q, k_nan, v_nan, meta, scale=128 ** -0.5)
+    clean = pa.flash_prefill_continuation(q, k, v, meta, scale=128 ** -0.5)
+    want = pa.flash_prefill_continuation_plain(q, k, v, meta, scale=128 ** -0.5).float()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, clean)
+    assert float((got.float() - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def test_flash_prefill_paged_call_launches_one_kernel(dev):
+    q, k, v, meta = _paged_inputs(dev, 2, 256, (1000, 256), 8, 2, True, seed=5)
+    before = _launch_counts()
+    pa.flash_prefill_continuation(q, k, v, meta, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == \
+        {"paged_attention.flash_prefill_paged_launches": 1}
 
 
 @pytest.mark.parametrize("head_major", [True, False])

@@ -58,8 +58,9 @@ def _case(head_major, T, kv_lens, Hq, Hkv, MP, seed):
 
 # kv_lens end mid-page; the last row's kv_len equals T, so it starts at 0 (a
 # batch that mixes a first chunk with a continuation chunk); the tables span
-# 256 and 512 positions
-CONT = [(128, (200, 140, 128), 16), (256, (450, 301, 256), 32)]
+# 256 and 512 positions (the last case's 384 rows are three of the kernel's
+# 128-row query tiles)
+CONT = [(128, (200, 140, 128), 16), (256, (450, 301, 256), 32), (384, (500, 421, 384), 32)]
 
 
 @pytest.mark.parametrize("head_major", LAYOUTS)

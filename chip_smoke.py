@@ -121,7 +121,11 @@ sequences than slots), and K13 at Mixtral's gate and down for a decode
 step, 4 x 64-, 4 x 256- and 4 x 512-row chunks, and all rows in one group.
 Each phase before a Mixtral one frees its memory (its objects are deleted,
 then gc.collect and torch.cuda.empty_cache).
-Then the kernels line and, last, {"ok": true, "device": {...}}.
+Then the gemv_decode line (K1's and K2's batch-16 times summed over the
+calls of one batch-16 Q4_K_M decode forward, beside the sum of their bounds,
+and the kernels the card runs a call, from a torch.profiler trace), the
+card's name and power limit again, the kernels line and, last, {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -724,11 +728,54 @@ class Clock:
 # the row counts K1 and K2 are timed at: the decode kernel at 16 and 1, the
 # rows instantiation at 64, 128 and 256
 GEMV_ROWS = (16, 1, 64, 128, 256)
+# the calls of K1 and K2 in one batch-16 decode forward of the 32-layer
+# Mistral-7B Q4_K_M (rq8): K1 at q|k, o and gate|up in every layer and at
+# down in the 16 layers use_more_bits leaves in Q4_K; K2 at v in every
+# layer, at the other 16 downs and at the lm_head
+DECODE_CALLS = {"q4k_q8_gemv": {"qk": 32, "o": 32, "gate|up": 32, "down": 16},
+                "q8_0_q8_gemv": {"v": 32, "down rq8": 16, "lm_head": 1}}
 
 
 def bound(bytes_moved: float, ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernels_a_call(fn, calls: int = 8) -> float:
+    """The kernels the card runs for one call of fn: kernel events of a
+    torch.profiler trace of `calls` calls, over `calls` (a trace that drops
+    events would count fewer)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if getattr(e.device_type, "name", "") == "CUDA"
+               and e.self_device_time_total > 0) / calls
+
+
+def gemv_decode_line(results: dict, per_call: dict) -> dict:
+    """K1's and K2's times at B=16 summed over the calls of one batch-16
+    decode forward (DECODE_CALLS), beside the sum of their bounds, and the
+    kernels a call (per_call: shape -> kernels the card ran a call)."""
+    out = {"phase": "gemv_decode", "forward_calls": 0, "forward_ms": 0.0,
+           "forward_bound_ms": 0.0, "shapes": {}}
+    for name, calls in DECODE_CALLS.items():
+        for shape, n in calls.items():
+            row = next(r for r in results[name] if r["shape"] == f"{shape} B=16")
+            out["shapes"][f"{name} {shape}"] = {
+                "calls": n, "ms": row["ms"], "bound_ms": row["bound_ms"],
+                "library_ms": row["library_ms"], "kernels_a_call": per_call[shape]}
+            out["forward_calls"] += n
+            out["forward_ms"] += n * row["ms"]
+            out["forward_bound_ms"] += n * row["bound_ms"]
+    out["kernels_a_call"] = max(per_call.values())
+    return out
 
 
 # ------------------------------------------------------------- phase 3
@@ -763,6 +810,7 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
             raise AssertionError(f"{name} {shape_name}: relative error {rel} > {tol}")
         results[name].append(row)
 
+    per_call: dict[str, float] = {}  # decode shape -> kernels the card runs a call
     # K1: every Q4_K projection of a decode step (fused q|k, o, gate|up, down)
     q4k_shapes = [("qk", H, (sz.heads + sz.kv_heads) * D), ("o", sz.heads * D, H),
                   ("gate|up", H, 2 * I), ("down", I, H)]
@@ -786,6 +834,8 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
             # f32 order of the scaled sums differs
             record("q4k_q8_gemv" if B <= 16 else "q4k_q8_gemv_rows", f"{nm} B={B}", err, rel,
                    1e-5, ms, plain, lib, bound(nbytes, 2 * B * K * O, PEAK_INT8))
+            if B == 16:
+                per_call[nm] = kernels_a_call(lambda: qm.q4k_q8_gemv(x, qs, scale, minv))
             if B == 16:
                 # the prefill route's dequantization of the same weight: the
                 # kernel rounds as the plain version's bf16 ops do (exact)
@@ -823,6 +873,8 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
             record("q8_0_q8_gemv" if B <= 16 else "q8_0_q8_gemv_rows", f"{nm} B={B}", err, rel,
                    1e-5, ms, plain, lib, bound(nbytes, 2 * B * K * O, PEAK_INT8))
             if B == 16:
+                per_call[nm] = kernels_a_call(lambda: qm.q8_0_q8_gemv(x, q, s, gs))
+            if B == 16:
                 want_w = qm.q8_0_dequant_plain(q, s, gs, torch.bfloat16)
                 got_w = qm.q8_0_dequant(q, s, gs, torch.bfloat16)
                 derr = float((got_w.float() - want_w.float()).abs().max())
@@ -833,6 +885,7 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
                 del want_w, got_w
             del w
 
+    results["gemv_decode"] = gemv_decode_line(results, per_call)
     q56k_kernels(sz, device, clock, gen, rand, record)
     affine_kernels(sz, device, clock, gen, rand, record)
     bf16_kernels(sz, device, clock, gen, rand, record)
@@ -2395,6 +2448,7 @@ def main() -> int:
                      "shape": head["shape"], "ms": head["ms"], "plain_ms": head["plain_ms"],
                      "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                      "library_ms": head["library_ms"]})
+    emit(results["gemv_decode"])
     print(smi, flush=True)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -149,6 +149,15 @@ __device__ __forceinline__ void mma_s8(int d[4], const uint32_t a[4], uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += A (16x32 u8, row) * B (32x8 s8, col), int32 (exact)
+__device__ __forceinline__ void mma_u8s8(int d[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // d += A (16x16 s8, row) * B (16x8 s8, col), int32 (exact): the per-16 dots
 // of K3. With a_frag's registers, {a[0], a[1]} is the A fragment of bytes
 // k0..k0+15 and {a[2], a[3]} that of k0+16..k0+31; b_frags' b0 and b1 are
@@ -687,27 +696,38 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 // [K/32][bpad] and [K/16][bpad] (bpad = B rounded up to 16), so a GEMV
 // block can stage the values of its 16 rows as 16-byte chunks.
 //
-// With `tiled` (the rows instantiations of K1 and K2) bpad is B rounded up to
-// the block's row tile (64 or 128), the rows B..bpad-1 are quantized as
-// zeros, and xq is written in the int8 wgmma A layout of tiled_off, so one
-// bulk copy brings a 32-element slice of a row tile into shared memory
-// ready for the tensor cores.
+// The layout of xq (XLayout): row-major [B, K] (K3, K9); `kTiled` (the rows
+// instantiations of K1 and K2): bpad is B rounded up to the block's row
+// tile (64 or 128), the rows B..bpad-1 are quantized as zeros, and xq is
+// written in the int8 wgmma A layout of tiled_off, so one bulk copy brings
+// a 32-element slice of a row tile into shared memory ready for the tensor
+// cores; `kDecode` (the decode instantiations of K1 and K2): bpad is 16,
+// rows B..15 are zeros, and each 32-element slice of the 16 rows is 512
+// contiguous bytes (decode_off), read as mma B fragments.
+enum XLayout { kRowMajor = 0, kTiled = 1, kDecode = 2 };
+
 __host__ __device__ __forceinline__ size_t tiled_off(int b, int k, int bpad) {
   return (size_t)(k >> 5) * bpad * 32 + (size_t)(b >> 6) * 2048 + ((k >> 4) & 1) * 1024 +
          (b & 63) * 16 + (k & 15);
+}
+// [K/32][16 rows][32 bytes], the two 16-byte halves of a row swapped in rows
+// 4-7 and 12-15, so that the B fragments of mma.m16n8k32 (row g, bytes 4t..
+// of a half) hit 32 different banks.
+__host__ __device__ __forceinline__ size_t decode_off(int b, int k) {
+  return (size_t)(k >> 5) * 512 + b * 32 + ((((k >> 4) & 1) ^ ((b >> 2) & 1)) << 4) + (k & 15);
 }
 
 template <typename XT, int GS>
 __global__ void quantize_acts_kernel(const XT* __restrict__ x, int8_t* __restrict__ xq,
                                      float* __restrict__ xs, float* __restrict__ xsum32,
                                      float* __restrict__ xsum16, long long nblocks,
-                                     int nblk_row, int bpad, int B, bool tiled) {
+                                     int nblk_row, int bpad, int B, int layout) {
   constexpr int E = GS / 32;
   const long long g = (long long)blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   if (g >= nblocks) return;  // whole warps leave together
   const int lane = threadIdx.x & 31;
   const int b = (int)(g / nblk_row), kb = (int)(g % nblk_row);
-  const bool live = b < B;  // the padding rows of a tiled call quantize zeros
+  const bool live = b < B;  // the padding rows of a tiled or decode call quantize zeros
   float v[E];
   float amax = 0.f;
 #pragma unroll
@@ -723,7 +743,9 @@ __global__ void quantize_acts_kernel(const XT* __restrict__ x, int8_t* __restric
     for (int e = 0; e < E; ++e) {
       const float q = fminf(fmaxf(rintf(v[e] / s), -127.f), 127.f);
       const int k = kb * GS + e * 32 + lane;
-      xq[tiled ? tiled_off(b, k, bpad) : (size_t)g * GS + e * 32 + lane] = (int8_t)(int)q;
+      xq[layout == kTiled    ? tiled_off(b, k, bpad)
+         : layout == kDecode ? decode_off(b, k)
+                             : (size_t)g * GS + e * 32 + lane] = (int8_t)(int)q;
     }
     if (lane == 0) xs[(size_t)kb * bpad + b] = s;
   }
@@ -747,60 +769,64 @@ __global__ void quantize_acts_kernel(const XT* __restrict__ x, int8_t* __restric
   }
 }
 
-// Quantize x [B, K]; with `tiled` over all bpad rows, as tiled_off lays xq out.
+// Quantize x [B, K]; tiled and decode layouts over all bpad rows.
 template <int GS>
 inline void launch_quantize(const void* x, bool x_is_bf16, int8_t* xq, float* xs, float* xsum32,
                             float* xsum16, int B, int K, int bpad, cudaStream_t st,
-                            bool tiled = false) {
+                            XLayout layout = kRowMajor) {
   const int warps = 8;
-  const long long nblocks = (long long)(tiled ? bpad : B) * (K / GS);
+  const long long nblocks = (long long)(layout == kRowMajor ? B : bpad) * (K / GS);
   const unsigned grid = (unsigned)((nblocks + warps - 1) / warps);
   if (x_is_bf16)
     quantize_acts_kernel<__nv_bfloat16, GS><<<grid, 32 * warps, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), xq, xs, xsum32, xsum16, nblocks, K / GS, bpad, B,
-        tiled);
+        layout);
   else
     quantize_acts_kernel<float, GS><<<grid, 32 * warps, 0, st>>>(
-        static_cast<const float*>(x), xq, xs, xsum32, xsum16, nblocks, K / GS, bpad, B, tiled);
+        static_cast<const float*>(x), xq, xs, xsum32, xsum16, nblocks, K / GS, bpad, B, layout);
 }
 
 // Scratch of one GEMV call, carved from one workspace buffer in this order,
 // each piece 256-byte aligned (ops/quant_matmul._workspace_bytes mirrors it).
 inline size_t align256(size_t n) { return (n + 255) & ~size_t(255); }
 
-// `rows` is the row tile of the GEMV's blocks. Above 16 (the rows
-// instantiations of K1 and K2, `tiled`): bpad is B rounded up to the row
-// tile, so a block's bulk copies of x's codes, scales and sums stay inside
-// their pieces; xq holds all bpad rows (tiled_off); the split-K partials are
-// there only when ksplit > 1 (with one split the GEMV writes out itself).
+// With the row-major layout (K3, K9 and the GEMVs without xq) bpad is B
+// rounded up to 16 and the split-K partials are always there. With kTiled
+// (the rows instantiations of K1 and K2; `rows` is their row tile): bpad is
+// B rounded up to the row tile, so a block's bulk copies of x's codes,
+// scales and sums stay inside their pieces; xq holds all bpad rows; the
+// partials are there only when ksplit > 1 (with one split the GEMV writes
+// out itself). With kDecode (the decode instantiations of K1 and K2): bpad
+// is 16, xq holds 16 rows, and there are no partials (the K splits of a
+// column tile add theirs in the cluster's shared memory).
 struct Workspace {
-  int8_t* xq;   // [B, K] ([bpad, K] tiled), nullptr when gs is 0
+  int8_t* xq;   // [B, K] ([bpad, K] tiled or decode), nullptr when gs is 0
   float* xs;    // [K/gs, bpad], nullptr when gs is 0
   float* xsum;  // [K/sum_gs, bpad], nullptr when sum_gs is 0
-  float* part;  // [ksplit, B, O], nullptr when tiled with ksplit 1
+  float* part;  // [ksplit, B, O], nullptr when tiled with ksplit 1 or decode
   int bpad;     // B rounded up to 16 (to the row tile when tiled)
   size_t bytes;
 };
 
 inline Workspace carve(void* ws, int B, int K, int O, int gs, int sum_gs, int ksplit,
-                       int rows = 16) {
+                       XLayout layout = kRowMajor, int rows = 16) {
   char* p = static_cast<char*>(ws);
   Workspace w;
-  const bool tiled = rows > 16;
+  if (layout != kTiled) rows = 16;
   w.bpad = (B + rows - 1) / rows * rows;
   size_t off = 0;
   w.xq = nullptr;
   w.xs = nullptr;
   if (gs) {
     w.xq = reinterpret_cast<int8_t*>(p + off);
-    off += align256((size_t)(tiled ? w.bpad : B) * K);
+    off += align256((size_t)(layout == kRowMajor ? B : w.bpad) * K);
     w.xs = reinterpret_cast<float*>(p + off);
     off += align256((size_t)(K / gs) * w.bpad * 4);
   }
   w.xsum = sum_gs ? reinterpret_cast<float*>(p + off) : nullptr;
   if (sum_gs) off += align256((size_t)(K / sum_gs) * w.bpad * 4);
   w.part = nullptr;
-  if (!tiled || ksplit > 1) {
+  if (layout == kRowMajor || (layout == kTiled && ksplit > 1)) {
     w.part = reinterpret_cast<float*>(p + off);
     off += align256((size_t)ksplit * B * O * 4);
   }
@@ -848,16 +874,16 @@ inline cudaError_t allow_smem(F* kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// Whether the grid (gx, gy, gz) of a GEMV whose blocks own 128 columns x
-// `rows` rows covers the call with one block per tile: the decode kernels'
-// order is (column tiles, K splits, row tiles), the rows instantiations'
-// (row tiles, column tiles, K splits), whose row tiles must also lie inside
-// the workspace's bpad rows.
-inline bool grid_covers(const Workspace& w, int rows, int B, int O, int gx, int gy, int gz) {
-  const bool tiled = rows > 16;
-  const int rt = tiled ? gx : gz, ct = tiled ? gy : gx;
-  return ct == (O + kGemvCols - 1) / kGemvCols && rt == (B + rows - 1) / rows &&
-         (!tiled || rt * rows <= w.bpad);
+// Whether the grid (gx, gy, gz) of a K1 or K2 call whose blocks own `cols`
+// columns x `rows` rows covers the call with one block per tile: the
+// decode instantiations' order is (K splits, column tiles, 1), B <= 16;
+// the rows instantiations' (row tiles, column tiles, K splits), 128
+// columns, row tiles inside the workspace's bpad rows.
+inline bool grid_covers(const Workspace& w, int rows, int cols, int B, int O, int gx, int gy,
+                        int gz) {
+  if (gy != (O + cols - 1) / cols) return false;
+  if (rows == 16) return B <= 16 && gz == 1 && gx >= 1;
+  return cols == kGemvCols && gx == (B + rows - 1) / rows && gx * rows <= w.bpad;
 }
 
 // Launch a rows kernel (kRowThreads threads, `smem` bytes of dynamic shared
@@ -871,6 +897,287 @@ inline int launch_ring(Kern* kern, int smem, const Workspace& w, void* out, int 
   launch(ksplit > 1 ? static_cast<void*>(w.part) : out, ksplit > 1 ? 2 : out_is_bf16);
   if (ksplit == 1) return (int)cudaGetLastError();
   return finish_gemv(w, out, out_is_bf16, ksplit, n_out, st);
+}
+
+// ---- The decode instantiations of K1 and K2 (1-16 rows) ----
+//
+// A block owns `C` = 128 or 64 columns of out and all 16 rows of the row
+// tile, and one K split of the call; the K splits of a column tile are one
+// thread-block cluster (grid (splits, column tiles), cluster (splits, 1, 1),
+// at most 8), which adds their f32 tiles in its distributed shared memory.
+// A ring stage holds kDecSub K steps (64 byte rows of codes: 2 sub-block
+// pairs of K1, 64/gs scale groups of K2). Two producer warps (the block's
+// last two) fill it, each on its own arrival at the stage's `full`
+// barrier: one with TMA boxes of the weights, at most half the ring
+// ahead of what has landed (so every block's first stages land first and
+// its consumers start while the rest streams), one with bulk copies of
+// x's codes and scales, once the quantize kernel launched just before has
+// finished (the GEMV is launched behind it by programmatic dependent
+// launch, so the launch and the first weight stages overlap its end).
+// C / 32 consumer warps run the stage's int8 mma.sync and its scaling into
+// f32 sums, then free it. No per-call state: the barriers are set up by
+// each block, nothing in global memory needs zeroing, and the launches
+// can be captured in a CUDA graph.
+//
+// Ring depth (Little's law): the card streams 3.35 TB/s from memory that
+// answers in ~1-2 us under load, so ~3.35-6.7 MB must be in flight, ~25-50
+// KB an SM over 132 SMs. A block's ring holds kDecInFlight = 32 KB of
+// weights (dec_stages stages: four of ~9-10 KB at C = 128, seven or eight
+// of ~5 KB at C = 64), at most half of it in flight, the other half
+// holding what has landed for the consumers; the plans put up to three
+// blocks on an SM (the kernels' launch bounds), so up to ~48 KB an SM is
+// in flight. (With every stage issued at once, the blocks' first stages
+// landed only when most of a weight had: ~5 us in, on the card, with
+// nothing to compute before.)
+constexpr int kDecRows = 16;
+constexpr int kDecSub = 2;
+// a block's threads: a consumer warp a 32-column group, two producer warps
+__host__ __device__ constexpr int dec_threads(int C) { return 32 * (C / 32 + 2); }
+constexpr int kDecInFlight = 32 * 1024;
+__host__ __device__ constexpr int dec_stages(int weight_bytes) {
+  return (kDecInFlight + weight_bytes - 1) / weight_bytes;
+}
+
+// K steps a split of `steps` over `splits` blocks takes: whole stages, the
+// last split fewer (ops/quant_matmul.int8_gemv_plan picks splits with none
+// empty)
+__host__ __device__ constexpr int dec_per_split(int steps, int splits) {
+  return ((steps + splits - 1) / splits + kDecSub - 1) / kDecSub * kDecSub;
+}
+
+// Wait until the grid this one was launched behind (programmatic dependent
+// launch) has finished and its writes are visible.
+__device__ __forceinline__ void grid_dep_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+// Make the compiler compute v before this point (no instruction): the
+// loads it depends on have then completed, so shared memory they read can
+// be handed back to the copy engines.
+template <int N>
+__device__ __forceinline__ void fence_values(float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(v[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every block of the cluster: writes to shared memory
+// before it are seen by the reads of other blocks after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the float4 at the shared-memory address of p in block `rank` of the cluster
+__device__ __forceinline__ float4 ld_cluster4(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// An int32 of magnitude below 2^22 to f32, exactly, on the integer and FMA
+// pipes: its bits added to those of 1.5 * 2^23 (whose ulp is 1), minus 1.5 *
+// 2^23. An I2F conversion runs at a quarter of their rate, and the decode
+// epilogue converts every int32 dot.
+__device__ __forceinline__ float exact_f32(int d) {
+  return __int_as_float(0x4B400000 + d) - 12582912.0f;
+}
+
+// A 32-bit word of a staged [rows][C] byte tile, as TMA lays it down: with
+// the 128-byte swizzle at C = 128 (16-byte chunk j of row r at j ^ (r % 8)),
+// plain at C = 64.
+template <int C>
+__device__ __forceinline__ uint32_t ld_tile_word(const uint8_t* tile, int r, int c) {
+  const int off = r * C + c;
+  return *reinterpret_cast<const uint32_t*>(tile + (C == 128 ? off ^ ((r & 7) << 4) : off));
+}
+// The mma.m16n8k32 A fragments of 32 K rows k0.. of a staged weight tile for
+// the 4 columns c..c+3 of a lane (g = lane/4, t = lane%4; the weight is the
+// A operand, an output column an A row): after the two 4x4 byte
+// transposes w0[j] holds rows k0+4t..+3 and w1[j] rows k0+16+4t..+3 of
+// column c+j, so {w0[2m], w0[2m+1], w1[2m], w1[2m+1]} is the fragment of
+// m-tile m, whose A rows g and g+8 are the columns c+2m and c+2m+1.
+template <int C>
+__device__ __forceinline__ void w_frags(const uint8_t* tile, int k0, int c, int t, uint32_t w0[4],
+                                        uint32_t w1[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    w0[j] = ld_tile_word<C>(tile, k0 + 4 * t + j, c);
+    w1[j] = ld_tile_word<C>(tile, k0 + 16 + 4 * t + j, c);
+  }
+  transpose4(w0[0], w0[1], w0[2], w0[3]);
+  transpose4(w1[0], w1[1], w1[2], w1[3]);
+}
+// The B fragment (x rows r = 8*nt + g, K bytes 4t.. and 16+4t..) of a
+// 512-byte slice of x's codes in the decode layout.
+__device__ __forceinline__ void x_frag(const int8_t* slice, int r, int t, uint32_t b[2]) {
+  const int8_t* row = slice + r * 32 + 4 * t;
+  const int sw = ((r >> 2) & 1) << 4;
+  b[0] = *reinterpret_cast<const uint32_t*>(row + sw);
+  b[1] = *reinterpret_cast<const uint32_t*>(row + (16 ^ sw));
+}
+
+// The ring of a decode kernel: kStages stages (each aligned for the 128-byte
+// swizzle), then a full and an empty mbarrier a stage, in dynamic shared
+// memory whose start is rounded up to 1024 bytes.
+template <typename Stage, int kStages, int kConsumerWarps>
+struct DecRing {
+  static constexpr int smem_bytes() { return 1024 + kStages * ((int)sizeof(Stage) + 16); }
+  Stage* st;
+  uint64_t* bar;  // full[kStages], empty[kStages]
+
+  __device__ explicit DecRing(uint8_t* smem)
+      : st(reinterpret_cast<Stage*>(smem + ((1024 - (smem_u32(smem) & 1023)) & 1023))),
+        bar(reinterpret_cast<uint64_t*>(st + kStages)) {}
+  __device__ Stage& operator[](int i) const { return st[i % kStages]; }
+  __device__ static int parity(int i) { return (i / kStages) & 1; }
+  __device__ uint64_t* full(int i) const { return bar + i % kStages; }
+  __device__ uint64_t* empty(int i) const { return bar + kStages + i % kStages; }
+  // the start of the ring's shared memory, free once every stage is consumed
+  __device__ void* base() const { return st; }
+
+  // by thread 0, before a __syncthreads: `full` takes the two producers'
+  // arrivals (each with its bytes), `empty` one a consumer warp
+  __device__ void init() const {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full(i), 2);
+      mbar_init(empty(i), kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  // by one thread of a producer warp, for stages 0..n-1: once stage i's
+  // slot is free (and, when `paced`, once stage i - kStages/2 has landed),
+  // arrive on its `full` barrier with bytes(i) and issue copy(stage, i,
+  // full barrier)
+  template <typename Bytes, typename Copy>
+  __device__ void produce(int n, bool paced, Bytes&& bytes, Copy&& copy) const {
+    constexpr int kAhead = kStages / 2 > 0 ? kStages / 2 : 1;
+    for (int i = 0; i < n; ++i) {
+      if (i >= kStages) mbar_wait(empty(i), parity(i) ^ 1);
+      if (paced && i >= kAhead) mbar_wait(full(i - kAhead), parity(i - kAhead));
+      mbar_expect_tx(full(i), bytes(i));  // this producer's arrival and its bytes
+      copy((*this)[i], i, full(i));
+    }
+  }
+  // by every consumer thread before it reads stage i, and once its warp's
+  // reads are consumed (fence_values on what they fed)
+  __device__ void acquire(int i) const { mbar_wait(full(i), parity(i)); }
+  __device__ void release(int i) const {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty(i));
+  }
+};
+
+// The end of a decode kernel, by every thread of every block of the
+// cluster, once the block's ring is drained: each consumer lane has put its
+// f32 sums y[nt][m][e] (x row 8nt + 2t + e%2, column c + 2m + e/2 of the
+// tile, c = 32 * warp + 4g) into the tile red [16][C + 4] (at the ring's
+// start); then block `rank` of `splits` adds the tiles of blocks 0, 1, ...
+// in that order for every `splits`-th float4 of the B x C outputs (splits
+// <= 8) and writes them to out (bf16 or f32 [B, O]) from column col0. The
+// order does not depend on timing, so a result is the same on every run.
+template <int C>
+__device__ __forceinline__ void dec_store_tile(float* red, const float (&y)[2][2][4], int nt_live,
+                                               int warp, int lane) {
+  constexpr int kStride = C + 4;  // +4: the rows 2t of a store land on other banks
+  const int g = lane >> 2, t = lane & 3, c = 32 * warp + 4 * g;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+    if (nt < nt_live)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float4*>(red + (8 * nt + 2 * t + e) * kStride + c) =
+            make_float4(y[nt][0][e], y[nt][0][e + 2], y[nt][1][e], y[nt][1][e + 2]);
+}
+// With one split (a cluster of one block) there is nothing to add: each
+// consumer lane writes its sums straight to out.
+__device__ __forceinline__ void dec_store_out(const float (&y)[2][2][4], int nt_live, void* out,
+                                              int out_is_bf16, int B, int O, int col0, int warp,
+                                              int lane) {
+  const int g = lane >> 2, t = lane & 3, c = col0 + 32 * warp + 4 * g;
+  if (c >= O) return;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 8 * nt + 2 * t + e;
+      if (nt >= nt_live || r >= B) continue;
+      const float4 v = make_float4(y[nt][0][e], y[nt][0][e + 2], y[nt][1][e], y[nt][1][e + 2]);
+      const size_t o = (size_t)r * O + c;
+      if (out_is_bf16) {
+        __nv_bfloat16* p = static_cast<__nv_bfloat16*>(out) + o;
+        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+        *reinterpret_cast<__nv_bfloat162*>(p + 2) = __floats2bfloat162_rn(v.z, v.w);
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + o) = v;
+      }
+    }
+}
+template <int C>
+__device__ __forceinline__ void dec_reduce(const float* red, void* out, int out_is_bf16, int B,
+                                           int O, int col0, int splits, int rank) {
+  constexpr int kStride = C + 4, kQuads = C / 4;
+  for (int q = rank + splits * (int)threadIdx.x; q < B * kQuads; q += splits * (int)blockDim.x) {
+    const int r = q / kQuads, c = 4 * (q % kQuads);
+    if (col0 + c >= O) continue;
+    float4 v[8];  // every rank's tile first, so their latencies overlap
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < splits) v[k] = ld_cluster4(red + r * kStride + c, k);
+    float4 s = v[0];
+#pragma unroll
+    for (int k = 1; k < 8; ++k)
+      if (k < splits) {
+        s.x += v[k].x;
+        s.y += v[k].y;
+        s.z += v[k].z;
+        s.w += v[k].w;
+      }
+    const size_t o = (size_t)r * O + col0 + c;
+    if (out_is_bf16) {
+      __nv_bfloat16* p = static_cast<__nv_bfloat16*>(out) + o;
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(s.x, s.y);
+      *reinterpret_cast<__nv_bfloat162*>(p + 2) = __floats2bfloat162_rn(s.z, s.w);
+    } else {
+      *reinterpret_cast<float4*>(static_cast<float*>(out) + o) = s;
+    }
+  }
+}
+
+// Launch a decode kernel: grid (splits, column tiles), clusters of the
+// splits, by programmatic dependent launch behind the quantize kernel just
+// enqueued: it is launched while that one finishes (its blocks exiting
+// are its trigger), streams its first weight stages, and reads x's codes
+// only after grid_dep_wait. Returns the CUDA error code.
+template <typename... KArgs, typename... Args>
+inline int launch_dec(void (*kern)(KArgs...), int splits, int ctiles, int threads, int smem,
+                      cudaStream_t st, Args... args) {
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)splits, (unsigned)ctiles, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, kern, args...);
+  return (int)err;
 }
 
 }  // namespace mrt

@@ -4,35 +4,54 @@
 // (launched by _q4k_q8_matmul_padded and _q4k_q8_matmul_stacked).
 //
 // Computes, for x quantized per 32-element block (xq int8, scale xs, and
-// xsum = the block sums of the ORIGINAL x; the first of the three kernels
-// of a call does that quantization, see common.cuh):
+// xsum = the block sums of the ORIGINAL x; the first of the two kernels of
+// a call does that quantization, see common.cuh):
 //   y[b,o] = sum_sub xs[b,sub] * scale[sub,o] * (sum_{k in sub} xq[b,k] q[k,o])
 //          - sum_sub xsum[b,sub] * minv[sub,o]
 // where q[k,o] is the low nibble of qs[k,o] for k < K/2 and the high nibble
 // of qs[k-K/2,o] otherwise (the paired layout of quant/gguf_linear.pack_q4k).
 //
 // Layouts (row-major): x [B,K] bf16 or f32, qs [K/2,O] u8, scale/minv
-// [K/32,O] bf16, out [B,O] bf16 or f32; in the workspace xq [B,K] int8,
-// xs/xsum [B,K/32] f32, part [ksplit,B,O] f32.
+// [K/32,O] bf16, out [B,O] bf16 or f32; in the workspace xq, xs, xsum as
+// common.cuh's carve lays them out for the instantiation.
 //
-// What bounds it on an H100: at decode (B <= 16) the weight stream, 0.625
-// bytes per weight (qs + two bf16 scale planes), against 3.35 TB/s.
-// Design for that:
-// - a block owns 128 output columns and a 16-row tile of x; one K step is
-//   one "sub-block pair": byte rows 32p..32p+31 of qs, whose low nibbles are
-//   sub-block p and high nibbles sub-block K/64+p, 4 KB for 128 columns,
-//   staged with 16-byte cp.async loads (coalesced) in a 4-deep ring together
-//   with the pair's four scale rows (1 KB) and x's int8 codes, scales and
-//   block sums for those two sub-blocks, so no step waits on a global load;
-// - each warp turns its 32 columns of the staged bytes into mma.m16n8k32
-//   B fragments (one 4x4 byte transpose per 4 rows, low and high nibbles
-//   masked out of the same word) and runs 8 int8 tensor-core MMAs per pair
-//   against x's int8 rows: exact int32 dots per (row, column, sub-block),
-//   scaled into f32 accumulators with xs*scale and the min term xsum*minv;
-// - the K axis is split over blockIdx.y so that enough loads are in flight
-//   to fill the card; partial sums go to part[] and a second small kernel
-//   adds them in a fixed order.
-// Not done yet (later work): TMA/wgmma at decode, fusing the split-K pass.
+// What bounds it on an H100 at decode (B <= 16): the weight stream, 0.625
+// bytes per weight (qs + two bf16 scale planes), against 3.35 TB/s; and,
+// close behind at 16 rows, the issue slots of the scaling epilogue.
+// Design for that (q4k_q8_dec_kernel; the shared pieces are common.cuh's
+// decode section):
+// - a call is two launches: the quantize kernel, then the GEMV by
+//   programmatic dependent launch (its launch and first weight stages
+//   overlap the quantize kernel's end);
+// - a block owns C = 128 (or, where the column tiles are too few to fill
+//   the card, 64) columns and one K split; the K splits of a column tile
+//   form a cluster (at most 8) and add their f32 tiles in distributed
+//   shared memory in the order of their ranks, so no partial sums go
+//   through global memory and a result does not depend on timing;
+// - a ring stage holds 2 sub-block pairs p, p + 1: one producer warp
+//   brings their 64 byte rows of qs (the 128-byte swizzle at C = 128) and
+//   their scale and minv rows (sub-blocks p.. and K/64 + p..) in three TMA
+//   boxes, at most half the ring ahead of what has landed, so every
+//   block's first stages land first and its consumers start while the
+//   rest streams; a second producer warp brings x's codes, scales and
+//   sums of the four sub-blocks (the decode layout of the quantize kernel)
+//   in six bulk copies; dec_stages(160 * C) stages, 4 at C = 128;
+// - the weight is the mma's A operand (an output column an A row), x its
+//   B operand, so up to 8 rows take one n-tile of mma.m16n8k32 and half
+//   the epilogue of 16; each consumer warp owns 32 columns: 8 shared
+//   loads and two 4x4 byte transposes give a pair's fragments, the low
+//   nibbles masked out (0..15) and the high ones masked in place (u8 x s8
+//   MMA: 16x their value, exactly undone by xs / 16), 4 MMAs a pair an
+//   n-tile give exact int32 dots per (row, column, sub-block);
+// - the epilogue per (row, column, pair), a thread's instructions: the
+//   earlier 16-row kernel converted both dots with I2F (a quarter of the
+//   FMA rate, so each held its unit 4x as long) and spent ~8 more FP ops;
+//   now 2 IADD + 2 FADD (exact_f32), 2 FMUL (xs * scale), 2 FFMA, and the
+//   min term xsum * minv as 2 FFMA into the same sums: 10 full-rate slots.
+//   A pair a thread: 16 such elements before at any B; now 8 up to 8 rows,
+//   16 at 9-16 (the min term as a tensor-core product, as the rows kernel
+//   does it, would save 32 of those 160 slots at the price of staging
+//   minv across 8 pairs; not done).
 //
 // At 17-256 rows (the rows instantiation below) the bound is the scaling
 // epilogue: per (row, column, sub-block) a conversion, the xs * scale
@@ -48,110 +67,192 @@
 
 namespace {
 
-constexpr int kStages = 4;
-
-constexpr int kXStride = 80;  // bytes per staged x row (64 used; 80 spreads the banks)
-
-struct Stage {
-  uint8_t q[32 * mrt::kGemvCols];       // one pair's byte rows, swizzled
-  __nv_bfloat16 sc[4][mrt::kGemvCols];  // scale lo, scale hi, minv lo, minv hi
-  int8_t x[16 * kXStride];              // x's 16 rows: 32 bytes of sub-block p, 32 of K/64+p
-  float xv[4][16];                      // xs lo, xs hi, xsum lo, xsum hi of the 16 rows
+// a ring stage of the decode kernel: kDecSub sub-block pairs p.. of C columns
+template <int C>
+struct alignas(C == 128 ? 1024 : 128) Q4DecStage {
+  uint8_t q[mrt::kDecSub * 32 * C];                   // the pairs' byte rows (swizzled at C = 128)
+  __nv_bfloat16 sc[2][mrt::kDecSub][C];               // scale of sub-blocks p.. and K/64 + p..
+  __nv_bfloat16 mn[2][mrt::kDecSub][C];               // minv of the same
+  int8_t x[2][mrt::kDecSub][mrt::kDecRows * 32];      // x's codes of the same
+  float xs[2][mrt::kDecSub][mrt::kDecRows];           // x's scales
+  float xsum[2][mrt::kDecSub][mrt::kDecRows];         // x's block sums
 };
+template <int C>
+constexpr int kQ4DecWeightBytes = mrt::kDecSub * (32 * C + 4 * C * 2);
+template <int C>
+constexpr int kQ4DecStages = mrt::dec_stages(kQ4DecWeightBytes<C>);
+template <int C>
+using Q4DecRing = mrt::DecRing<Q4DecStage<C>, kQ4DecStages<C>, C / 32>;
 
-__global__ void __launch_bounds__(mrt::kGemvThreads)
-    q4k_q8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                      const float* __restrict__ xsum, const uint8_t* __restrict__ qs,
-                      const __nv_bfloat16* __restrict__ scale,
-                      const __nv_bfloat16* __restrict__ minv, float* __restrict__ part, int B,
-                      int bpad, int K, int O, int pairs_per_split) {
-  __shared__ __align__(16) Stage st[kStages];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int col0 = blockIdx.x * mrt::kGemvCols;
-  const int row0 = blockIdx.z * 16;
+// A consumer warp's n pairs: y[nt][m][e] = the f32 sums of x row 8nt + 2t +
+// e%2 and column 32 * warp + 4g + 2m + e/2 (NT n-tiles: 1 up to 8 rows).
+// The low nibbles go to the tensor cores masked, the high ones masked in
+// place as unsigned bytes (16x their value; xs / 16 scales that back,
+// exactly), and the min term xsum * minv goes into the same sums.
+template <int C, int NT>
+__device__ __forceinline__ void q4_dec_consume(const Q4DecRing<C>& ring, int n, int warp, int lane,
+                                               float (&y)[2][2][4]) {
+  const int g = lane >> 2, t = lane & 3, c = 32 * warp + 4 * g;
+  float acc[NT * 8];  // index (nt * 2 + m) * 4 + e
+#pragma unroll
+  for (int i = 0; i < NT * 8; ++i) acc[i] = 0.f;
+  for (int i = 0; i * mrt::kDecSub < n; ++i) {
+    const Q4DecStage<C>& S = ring[i];
+    const int nv = min(mrt::kDecSub, n - i * mrt::kDecSub);
+    ring.acquire(i);
+    for (int j = 0; j < nv; ++j) {
+      uint32_t w0[4], w1[4];
+      mrt::w_frags<C>(S.q + j * 32 * C, 0, c, t, w0, w1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // the low nibbles are sub-block p + j, the high K/64 + p + j
+        const uint32_t mask = h ? 0xF0F0F0F0u : 0x0F0F0F0Fu;
+        float sc[4], mn[4];
+        mrt::lds4(&S.sc[h][j][c], sc);
+        mrt::lds4(&S.mn[h][j][c], mn);
+        uint32_t xb[NT][2];
+        float2 xs[NT], xm[NT];  // rows 8nt + 2t and + 1
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mrt::x_frag(S.x[h][j], 8 * nt + g, t, xb[nt]);
+          xs[nt] = *reinterpret_cast<const float2*>(&S.xs[h][j][8 * nt + 2 * t]);
+          xm[nt] = *reinterpret_cast<const float2*>(&S.xsum[h][j][8 * nt + 2 * t]);
+          if (h) xs[nt] = make_float2(xs[nt].x * 0.0625f, xs[nt].y * 0.0625f);
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const uint32_t a[4] = {w0[2 * m] & mask, w0[2 * m + 1] & mask, w1[2 * m] & mask,
+                                 w1[2 * m + 1] & mask};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            int d[4] = {0, 0, 0, 0};
+            mrt::mma_u8s8(d, a, xb[nt][0], xb[nt][1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int k = (nt * 2 + m) * 4 + e, col = 2 * m + (e >> 1);
+              acc[k] = fmaf(mrt::exact_f32(d[e]), ((e & 1) ? xs[nt].y : xs[nt].x) * sc[col],
+                            acc[k]);
+              acc[k] = fmaf(-((e & 1) ? xm[nt].y : xm[nt].x), mn[col], acc[k]);
+            }
+          }
+        }
+      }
+    }
+    mrt::fence_values(acc);  // every read of the stage has landed in a register
+    ring.release(i);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[nt][m][e] = acc[(nt * 2 + m) * 4 + e];
+}
+
+template <int C>
+__global__ void __launch_bounds__(mrt::dec_threads(C), 3)
+    q4k_q8_dec_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap smap,
+                      const __grid_constant__ CUtensorMap mmap, const int8_t* __restrict__ xq,
+                      const float* __restrict__ xs, const float* __restrict__ xsum, void* out,
+                      int out_is_bf16, int B, int K, int O, int pairs_per_split) {
+  constexpr int NW = C / 32;  // consumer warps; the producers are warps NW and NW + 1
+  using Stage = Q4DecStage<C>;
+  extern __shared__ uint8_t smem[];
+  const Q4DecRing<C> ring(smem);
+  const int splits = (int)gridDim.x, rank = (int)mrt::cluster_rank();
+  const int col0 = blockIdx.y * C;
   const int npairs = K / 64;
-  const int p_begin = blockIdx.y * pairs_per_split;
+  const int p_begin = rank * pairs_per_split;
   const int n = max(0, min(pairs_per_split, npairs - p_begin));
+  const int stages = (n + mrt::kDecSub - 1) / mrt::kDecSub;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
 
-  auto load = [&](int s, int p) {
-    mrt::stage_bytes(st[s].q, qs, 32 * p, 32, col0, O);
-    if (threadIdx.x < 64) {  // 4 rows of 128 bf16 = 64 chunks of 16 bytes
-      const int a = threadIdx.x >> 4, c = threadIdx.x & 15;
-      const __nv_bfloat16* base = a < 2 ? scale : minv;
-      const int row = (a & 1) ? npairs + p : p;
-      const bool ok = col0 + 8 * c < O;
-      mrt::cp_async16(&st[s].sc[a][8 * c], ok ? base + (size_t)row * O + col0 + 8 * c : base, ok);
+  float y[2][2][4] = {};
+  if (warp == NW) {  // the weights: TMA boxes of kDecSub pairs
+    if (lane == 0) {
+      mrt::prefetch_tensormap(&qmap);
+      mrt::prefetch_tensormap(&smap);
+      mrt::prefetch_tensormap(&mmap);
+      ring.produce(
+          stages, true, [](int) { return (uint32_t)kQ4DecWeightBytes<C>; },
+          [&](Stage& S, int i, uint64_t* full) {
+            const int pr = p_begin + i * mrt::kDecSub;
+            mrt::tma_load_2d(S.q, &qmap, col0, 32 * pr, full);
+            mrt::tma_load_3d(S.sc, &smap, col0, pr, 0, full);  // [2][kDecSub] rows
+            mrt::tma_load_3d(S.mn, &mmap, col0, pr, 0, full);
+          });
     }
-    // x: 2 chunks of sub-block p and 2 of sub-block K/64+p per row (threads 64..127)
-    mrt::stage_x(st[s].x, kXStride, xq, B, K, row0, 4, 64,
-                 [&](int c) { return (c < 2 ? 32 * p : K / 2 + 32 * p - 32) + 16 * c; });
-    mrt::stage_rows16(st[s].xv[0], xs + (size_t)p * bpad + row0, 0);
-    mrt::stage_rows16(st[s].xv[1], xs + (size_t)(npairs + p) * bpad + row0, 4);
-    mrt::stage_rows16(st[s].xv[2], xsum + (size_t)p * bpad + row0, 8);
-    mrt::stage_rows16(st[s].xv[3], xsum + (size_t)(npairs + p) * bpad + row0, 12);
-  };
-
-  float acc[4][4];
+    __syncwarp();
+  } else if (warp == NW + 1) {  // x's codes, scales and sums, from the quantize kernel
+    if (lane == 0) {
+      mrt::grid_dep_wait();  // the quantize kernel's codes are written
+      auto nv = [&](int i) { return min(mrt::kDecSub, n - i * mrt::kDecSub); };
+      ring.produce(
+          stages, false, [&](int i) { return (uint32_t)(2 * nv(i) * (512 + 2 * 64)); },
+          [&](Stage& S, int i, uint64_t* full) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n) load(s, p_begin + s);
-    mrt::cp_async_commit();
-  }
-  for (int i = 0; i < n; ++i) {
-    mrt::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const Stage& S = st[i % kStages];
-    uint32_t alo[4], ahi[4], b0[4], b1[4];
-    mrt::a_frag(S.x, kXStride, 0, lane, alo);
-    mrt::a_frag(S.x, kXStride, 32, lane, ahi);
-    mrt::b_frags(S.q, 0, warp, lane, b0, b1);
-    // x's scales and block sums for the rows g and g+8 of the tile (rows
-    // past B have zero codes, so whatever these hold never reaches part)
-    const float xsl0 = S.xv[0][g], xsl1 = S.xv[0][g + 8];
-    const float xsh0 = S.xv[1][g], xsh1 = S.xv[1][g + 8];
-    const float xml0 = S.xv[2][g], xml1 = S.xv[2][g + 8];
-    const float xmh0 = S.xv[3][g], xmh1 = S.xv[3][g + 8];
-    // column scales: C columns of n-tile j are cb + j and cb + 4 + j
-    const int cb = warp * 32 + 8 * t;
-    float sl0[4], sl1[4], sh0[4], sh1[4], ml0[4], ml1[4], mh0[4], mh1[4];
-    mrt::lds4(&S.sc[0][cb], sl0);
-    mrt::lds4(&S.sc[0][cb + 4], sl1);
-    mrt::lds4(&S.sc[1][cb], sh0);
-    mrt::lds4(&S.sc[1][cb + 4], sh1);
-    mrt::lds4(&S.sc[2][cb], ml0);
-    mrt::lds4(&S.sc[2][cb + 4], ml1);
-    mrt::lds4(&S.sc[3][cb], mh0);
-    mrt::lds4(&S.sc[3][cb + 4], mh1);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int dl[4] = {0, 0, 0, 0}, dh[4] = {0, 0, 0, 0};
-      mrt::mma_s8(dl, alo, b0[j] & 0x0F0F0F0Fu, b1[j] & 0x0F0F0F0Fu);
-      mrt::mma_s8(dh, ahi, (b0[j] >> 4) & 0x0F0F0F0Fu, (b1[j] >> 4) & 0x0F0F0F0Fu);
-      acc[j][0] += (float)dl[0] * xsl0 * sl0[j] + (float)dh[0] * xsh0 * sh0[j] - xml0 * ml0[j] -
-                   xmh0 * mh0[j];
-      acc[j][1] += (float)dl[1] * xsl0 * sl1[j] + (float)dh[1] * xsh0 * sh1[j] - xml0 * ml1[j] -
-                   xmh0 * mh1[j];
-      acc[j][2] += (float)dl[2] * xsl1 * sl0[j] + (float)dh[2] * xsh1 * sh0[j] - xml1 * ml0[j] -
-                   xmh1 * mh0[j];
-      acc[j][3] += (float)dl[3] * xsl1 * sl1[j] + (float)dh[3] * xsh1 * sh1[j] - xml1 * ml1[j] -
-                   xmh1 * mh1[j];
+            for (int h = 0; h < 2; ++h) {
+              const size_t sub = (size_t)(p_begin + i * mrt::kDecSub + h * npairs);
+              mrt::bulk_g2s(S.x[h], xq + sub * 512, nv(i) * 512, full);
+              mrt::bulk_g2s(S.xs[h], xs + sub * mrt::kDecRows, nv(i) * 64, full);
+              mrt::bulk_g2s(S.xsum[h], xsum + sub * mrt::kDecRows, nv(i) * 64, full);
+            }
+          });
     }
-    const int next = i + kStages - 1;  // refill the stage read in the previous step
-    if (next < n) load(next % kStages, p_begin + next);
-    mrt::cp_async_commit();
+    __syncwarp();
+  } else if (B > 8) {
+    q4_dec_consume<C, 2>(ring, n, warp, lane, y);
+  } else {
+    q4_dec_consume<C, 1>(ring, n, warp, lane, y);
   }
-  mrt::cp_async_wait<0>();
-  mrt::store_part(part + (size_t)blockIdx.y * B * O, acc, B, O, row0, col0, warp, lane);
+  if (splits == 1) {  // no cluster to add up
+    if (warp < NW) mrt::dec_store_out(y, B > 8 ? 2 : 1, out, out_is_bf16, B, O, col0, warp, lane);
+    return;
+  }
+  __syncthreads();  // every stage consumed: the ring's memory holds the tile now
+  float* red = static_cast<float*>(ring.base());
+  if (warp < NW) mrt::dec_store_tile<C>(red, y, B > 8 ? 2 : 1, warp, lane);
+  mrt::cluster_sync();
+  mrt::dec_reduce<C>(red, out, out_is_bf16, B, O, col0, splits, rank);
+  mrt::cluster_sync();  // no block leaves while another reads its tile
+}
+
+// The tensor maps of a Q4_K weight for C columns a box: qs [K/2, O] in boxes
+// of 32 * `pairs` byte rows (the 128-byte swizzle at C = 128); scale and
+// minv [K/32, O] seen as [2, K/64, O], so one box holds rows p.. and
+// K/64 + p.. of `pairs` pairs.
+int q4k_maps(CUtensorMap* qmap, CUtensorMap* smap, CUtensorMap* mmap, const void* qs,
+             const void* scale, const void* minv, int K, int O, int C, int pairs) {
+  const int npairs = K / 64;
+  const uint64_t qdims[2] = {(uint64_t)O, (uint64_t)(K / 2)}, qstr[1] = {(uint64_t)O};
+  const uint32_t qbox[2] = {(uint32_t)C, (uint32_t)(32 * pairs)};
+  const uint64_t sdims[3] = {(uint64_t)O, (uint64_t)npairs, 2};
+  const uint64_t sstr[2] = {(uint64_t)O * 2, (uint64_t)npairs * O * 2};
+  const uint32_t sbox[3] = {(uint32_t)C, (uint32_t)pairs, 2};
+  int err = mrt::tile_map(qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, qs, qdims, qstr, qbox,
+                          C == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!err) err = mrt::tile_map(smap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, scale, sdims, sstr, sbox);
+  if (!err) err = mrt::tile_map(mmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, minv, sdims, sstr, sbox);
+  return err;
+}
+
+template <int C>
+int launch_dec(const mrt::Workspace& w, const void* qs, const void* scale, const void* minv,
+               void* out, int out_is_bf16, int B, int K, int O, int splits, cudaStream_t st) {
+  CUtensorMap qmap, smap, mmap;
+  const int err = q4k_maps(&qmap, &smap, &mmap, qs, scale, minv, K, O, C, mrt::kDecSub);
+  if (err) return err;
+  return mrt::launch_dec(q4k_q8_dec_kernel<C>, splits, (O + C - 1) / C, mrt::dec_threads(C),
+                         Q4DecRing<C>::smem_bytes(), st, qmap, smap, mmap,
+                         static_cast<const int8_t*>(w.xq), static_cast<const float*>(w.xs),
+                         static_cast<const float*>(w.xsum), out, out_is_bf16, B, K, O,
+                         mrt::dec_per_split(K / 64, splits));
 }
 
 }  // namespace
+
 
 // ---- rows instantiation: 17 <= B <= 256 ----
 //
@@ -406,40 +507,46 @@ int launch_rows(const mrt::Workspace& w, const void* qs, const void* scale, cons
 
 // Shapes are checked by the Python wrapper (ops/quant_matmul.py): K % 64 == 0,
 // O % 16 == 0, 16-byte aligned pointers, and a workspace of ws_bytes (see
-// mrt::carve). `rows` is the row tile of a block (16: the decode kernel; 64
-// or 128: the rows instantiation) and (gx, gy, gz) the grid of the launch
-// plan (ops/quant_matmul.int8_gemv_plan), which also gives the K split (gy
-// for the decode kernel, gz for the rows instantiation; at most K/64).
-// Quantizes x (bf16 or f32 [B,K]) per 32, then runs the GEMV and, unless a
-// rows call has one split, the split-K pass. Returns the CUDA error code of
-// the launches (0 = launched).
+// mrt::carve). The launch is the plan of ops/quant_matmul.int8_gemv_plan,
+// every field of it checked here: `rows` (16: the decode instantiation; 64
+// or 128: the rows instantiation), the grid (gx, gy, gz), the blocks of a
+// cluster, the columns of a block and the ring's stages.
+// - rows 16 (B <= 16): grid (K splits, column tiles of `cols` = 128 or 64,
+//   1), a cluster of the gx splits (at most 8, at most K/64), stages =
+//   kQ4DecStages<cols>. Quantizes x into the decode layout, then launches
+//   the GEMV behind it (programmatic dependent launch): two launches.
+// - rows 64 or 128: grid (row tiles, column tiles, K splits), cluster 1,
+//   cols 128, stages 0 (the rows kernels size their ring from shared
+//   memory). Quantizes x (tiled), runs the GEMV and, with more than one
+//   split, the split-K pass.
+// Returns the CUDA error code of the launches (0 = launched).
 extern "C" int q4k_q8_gemv(const void* x, int x_is_bf16, const void* qs, const void* scale,
                            const void* minv, void* ws, long long ws_bytes, void* out,
                            int out_is_bf16, int B, int K, int O, int rows, int gx, int gy, int gz,
-                           void* stream) {
+                           int cluster, int cols, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows != 16 && rows != 64 && rows != 128) return (int)cudaErrorInvalidValue;
-  const bool tiled = rows != 16;
-  const int ksplit = tiled ? gz : gy;
-  const mrt::Workspace w = mrt::carve(ws, B, K, O, 32, 32, ksplit, rows);
-  if (w.bytes > (size_t)ws_bytes || ksplit < 1 || ksplit > K / 64 ||
-      !mrt::grid_covers(w, rows, B, O, gx, gy, gz))
+  const bool dec = rows == 16;
+  const int ksplit = dec ? gx : gz;
+  const mrt::Workspace w =
+      mrt::carve(ws, B, K, O, 32, 32, ksplit, dec ? mrt::kDecode : mrt::kTiled, rows);
+  const bool plan_ok =
+      dec ? (cols == 128 || cols == 64) && cluster == gx && gx <= 8 &&
+                stages == (cols == 128 ? kQ4DecStages<128> : kQ4DecStages<64>)
+          : cluster == 1 && cols == mrt::kGemvCols && stages == 0;
+  if (!plan_ok || w.bytes > (size_t)ws_bytes || ksplit < 1 || ksplit > K / 64 ||
+      !mrt::grid_covers(w, rows, cols, B, O, gx, gy, gz))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(gx, gy, gz);
   mrt::launch_quantize<32>(x, x_is_bf16 != 0, w.xq, w.xs, w.xsum, nullptr, B, K, w.bpad, st,
-                           tiled);
-  if (tiled) {
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    if (rows == 64) return launch_rows<64>(w, qs, scale, minv, out, out_is_bf16, B, K, O, grid, st);
-    return launch_rows<128>(w, qs, scale, minv, out, out_is_bf16, B, K, O, grid, st);
-  }
-  const int npairs = K / 64;
-  q4k_q8_mma_kernel<<<grid, mrt::kGemvThreads, 0, st>>>(
-      w.xq, w.xs, w.xsum, static_cast<const uint8_t*>(qs),
-      static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(minv), w.part,
-      B, w.bpad, K, O, (npairs + ksplit - 1) / ksplit);
-  return mrt::finish_gemv(w, out, out_is_bf16, ksplit, B * O, st);
+                           dec ? mrt::kDecode : mrt::kTiled);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (dec)
+    return cols == 128 ? launch_dec<128>(w, qs, scale, minv, out, out_is_bf16, B, K, O, gx, st)
+                       : launch_dec<64>(w, qs, scale, minv, out, out_is_bf16, B, K, O, gx, st);
+  const dim3 grid(gx, gy, gz);
+  if (rows == 64) return launch_rows<64>(w, qs, scale, minv, out, out_is_bf16, B, K, O, grid, st);
+  return launch_rows<128>(w, qs, scale, minv, out, out_is_bf16, B, K, O, grid, st);
 }
 
 // ---- dequantization for prefill-sized calls ----

@@ -6,24 +6,32 @@
 // (launched by _q8_0_q8_matmul_padded and _q8_0_q8_matmul_stacked).
 //
 // Computes, for x quantized per gs-element block (xq int8, scale xs; the
-// first of the three kernels of a call does that quantization, see
+// first of the two kernels of a call does that quantization, see
 // common.cuh):
 //   y[b,o] = sum_g xs[b,g] * s[g,o] * (sum_{k in g} xq[b,k] q[k,o])
 //
 // Layouts (row-major): x [B,K] bf16 or f32, q [K,O] int8, s [K/gs,O] f32 or
-// bf16, out [B,O] bf16 or f32; in the workspace xq [B,K] int8, xs [B,K/gs]
-// f32, part [ksplit,B,O] f32.
+// bf16, out [B,O] bf16 or f32; in the workspace xq and xs as common.cuh's
+// carve lays them out for the instantiation.
 //
 // What bounds it on an H100: at decode the weight stream, 1 + 4/gs bytes per
 // weight for f32 scales (1 + 2/gs for bf16), against 3.35 TB/s.
-// Design for that (B <= 16): the structure of K1 (q4k_q8_gemv.cu) without
-// the nibble unpack. A block owns 128 output columns and a 16-row tile of x;
-// one K step is one scale group (gs rows x 128 columns of q, gs*128 bytes,
-// plus its scale row and x's codes and scales over the group) staged with
-// 16-byte cp.async loads in a 4-deep ring; each warp
-// runs gs/32 int8 mma.m16n8k32 per n-tile into exact int32 group dots and
-// scales them into f32 accumulators; K is split over blockIdx.y with a
-// fixed-order second pass.
+// Design for that (B <= 16, q8_0_q8_dec_kernel): K1's decode design
+// (q4k_q8_gemv.cu; common.cuh's decode section) without the nibbles and
+// the min term. Two launches a call (quantize, then the GEMV by
+// programmatic dependent launch); a block owns C = 128 or 64 columns and
+// one K split, the splits of a column tile one cluster that adds its f32
+// tiles in distributed shared memory (no partials in global memory); a
+// ring stage holds 64 rows (64/gs groups): a producer warp brings their
+// rows of q (the 128-byte swizzle at C = 128) and their scale rows in two
+// TMA boxes, at most half the ring ahead of what has landed, another x's
+// codes and scales in two bulk copies; dec_stages(64 * C + (64/gs) * C *
+// sizeof(scale)) stages; each consumer warp owns 32 columns, the weight
+// the mma's A operand and x its B operand (one n-tile up to 8 rows), gs/32
+// mma.m16n8k32 an n-tile and m-tile into one exact int32 group dot,
+// scaled by exact_f32(dot) * (xs * s) into an f32 sum: per (row, column,
+// group) IADD, FADD, FMUL, FFMA, where the earlier 16-row kernel spent an
+// I2F conversion (a quarter of the FMA rate) and three FP ops.
 //
 // At 17-256 rows (the rows instantiation below) the scaling epilogue bounds
 // it: a conversion, an f32 scale product and an accumulate per (row,
@@ -36,104 +44,196 @@
 
 namespace {
 
-constexpr int kStages = 4;
-
-template <int GS, typename ST>
-struct Stage {
-  static constexpr int kXStride = GS + 16;  // bytes per staged x row (+16 spreads the banks)
-  uint8_t q[GS * mrt::kGemvCols];           // one group's rows, swizzled
-  ST sc[mrt::kGemvCols];
-  int8_t x[16 * kXStride];                  // x's 16 rows over the group
-  float xv[16];                             // xs of the 16 rows
+// a ring stage of the decode kernel: kDecSub * 32 rows of C columns, G =
+// kDecSub * 32 / GS scale groups
+template <int C, int GS, typename ST>
+struct alignas(C == 128 ? 1024 : 128) Q8DecStage {
+  static constexpr int G = mrt::kDecSub * 32 / GS;
+  uint8_t q[mrt::kDecSub * 32 * C];                // the rows (TMA, swizzled at C = 128)
+  ST sc[G][C];                                     // their scale rows
+  int8_t x[mrt::kDecSub][mrt::kDecRows * 32];      // x's codes, a slice per 32 rows
+  float xs[G][mrt::kDecRows];                      // x's scales of the groups
 };
+template <int C, int GS, typename ST>
+constexpr int kQ8DecWeightBytes = mrt::kDecSub * 32 * C + (mrt::kDecSub * 32 / GS) * C * (int)sizeof(ST);
+template <int C, int GS, typename ST>
+constexpr int kQ8DecStages = mrt::dec_stages(kQ8DecWeightBytes<C, GS, ST>);
+template <int C, int GS, typename ST>
+using Q8DecRing = mrt::DecRing<Q8DecStage<C, GS, ST>, kQ8DecStages<C, GS, ST>, C / 32>;
 
-template <int GS, typename ST>
-__global__ void __launch_bounds__(mrt::kGemvThreads)
-    q8_0_q8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                       const int8_t* __restrict__ q, const ST* __restrict__ s,
-                       float* __restrict__ part, int B, int bpad, int K, int O,
-                       int groups_per_split) {
-  __shared__ __align__(16) Stage<GS, ST> st[kStages];
-  constexpr int kScaleChunks = mrt::kGemvCols * (int)sizeof(ST) / 16;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int col0 = blockIdx.x * mrt::kGemvCols;
-  const int row0 = blockIdx.z * 16;
-  const int ngroups = K / GS;
-  const int g_begin = blockIdx.y * groups_per_split;
-  const int n = max(0, min(groups_per_split, ngroups - g_begin));
-
-  auto load = [&](int stage, int grp) {
-    mrt::stage_bytes(st[stage].q, reinterpret_cast<const uint8_t*>(q), GS * grp, GS, col0, O);
-    if (threadIdx.x < kScaleChunks) {
-      const int c = threadIdx.x, per = 16 / (int)sizeof(ST);
-      const bool ok = col0 + per * c < O;
-      mrt::cp_async16(&st[stage].sc[per * c], ok ? s + (size_t)grp * O + col0 + per * c : s, ok);
+// A consumer warp's n groups: y[nt][m][e] = the f32 sums of x row 8nt + 2t +
+// e%2 and column 32 * warp + 4g + 2m + e/2 (NT n-tiles: 1 up to 8 rows).
+template <int C, int GS, typename ST, int NT>
+__device__ __forceinline__ void q8_dec_consume(const Q8DecRing<C, GS, ST>& ring, int n, int warp,
+                                               int lane, float (&y)[2][2][4]) {
+  constexpr int G = Q8DecStage<C, GS, ST>::G;
+  const int g = lane >> 2, t = lane & 3, c = 32 * warp + 4 * g;
+  float acc[NT * 8];  // index (nt * 2 + m) * 4 + e
+#pragma unroll
+  for (int i = 0; i < NT * 8; ++i) acc[i] = 0.f;
+  for (int i = 0; i * G < n; ++i) {
+    const Q8DecStage<C, GS, ST>& S = ring[i];
+    const int nv = min(G, n - i * G);
+    ring.acquire(i);
+    for (int j = 0; j < nv; ++j) {
+      int d[NT * 2][4];
+#pragma unroll
+      for (int k = 0; k < NT * 2; ++k) d[k][0] = d[k][1] = d[k][2] = d[k][3] = 0;
+#pragma unroll
+      for (int sl = 0; sl < GS / 32; ++sl) {  // the group's 32-row slices: one int32 dot
+        const int r = j * GS + 32 * sl;
+        uint32_t w0[4], w1[4];
+        mrt::w_frags<C>(S.q + r * C, 0, c, t, w0, w1);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t xb[2];
+          mrt::x_frag(S.x[r / 32], 8 * nt + g, t, xb);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            const uint32_t a[4] = {w0[2 * m], w0[2 * m + 1], w1[2 * m], w1[2 * m + 1]};
+            mrt::mma_s8(d[nt * 2 + m], a, xb[0], xb[1]);
+          }
+        }
+      }
+      float sc[4];
+      mrt::lds4(&S.sc[j][c], sc);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 xs = *reinterpret_cast<const float2*>(&S.xs[j][8 * nt + 2 * t]);
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int k = (nt * 2 + m) * 4 + e;
+            acc[k] = fmaf(mrt::exact_f32(d[nt * 2 + m][e]),
+                          ((e & 1) ? xs.y : xs.x) * sc[2 * m + (e >> 1)], acc[k]);
+          }
+      }
     }
-    // x: GS/16 chunks per row with threads 32.., its scales with threads 0..3
-    mrt::stage_x(st[stage].x, Stage<GS, ST>::kXStride, xq, B, K, row0, GS / 16, 32,
-                 [&](int c) { return GS * grp + 16 * c; });
-    mrt::stage_rows16(st[stage].xv, xs + (size_t)grp * bpad + row0, 0);
-  };
-
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < n) load(i, g_begin + i);
-    mrt::cp_async_commit();
+    mrt::fence_values(acc);  // every read of the stage has landed in a register
+    ring.release(i);
   }
-  for (int i = 0; i < n; ++i) {
-    mrt::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const Stage<GS, ST>& S = st[i % kStages];
-    int d[4][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) d[j][e] = 0;
+    for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int ks = 0; ks < GS / 32; ++ks) {
-      uint32_t a[4], b0[4], b1[4];
-      mrt::a_frag(S.x, Stage<GS, ST>::kXStride, 32 * ks, lane, a);
-      mrt::b_frags(S.q, 32 * ks, warp, lane, b0, b1);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mrt::mma_s8(d[j], a, b0[j], b1[j]);
-    }
-    const float x0 = S.xv[g], x1 = S.xv[g + 8];  // rows past B: zero codes, never stored
-    const int cb = warp * 32 + 8 * t;
-    float s0[4], s1[4];
-    mrt::lds4(&S.sc[cb], s0);
-    mrt::lds4(&S.sc[cb + 4], s1);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[j][0] += (float)d[j][0] * x0 * s0[j];
-      acc[j][1] += (float)d[j][1] * x0 * s1[j];
-      acc[j][2] += (float)d[j][2] * x1 * s0[j];
-      acc[j][3] += (float)d[j][3] * x1 * s1[j];
-    }
-    const int next = i + kStages - 1;  // refill the stage read in the previous step
-    if (next < n) load(next % kStages, g_begin + next);
-    mrt::cp_async_commit();
-  }
-  mrt::cp_async_wait<0>();
-  mrt::store_part(part + (size_t)blockIdx.y * B * O, acc, B, O, row0, col0, warp, lane);
+      for (int e = 0; e < 4; ++e) y[nt][m][e] = acc[(nt * 2 + m) * 4 + e];
 }
 
-// grid (column tiles, ksplit, 16-row tiles)
+template <int C, int GS, typename ST>
+__global__ void __launch_bounds__(mrt::dec_threads(C), 3)
+    q8_0_q8_dec_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap smap, const int8_t* __restrict__ xq,
+                       const float* __restrict__ xs, void* out, int out_is_bf16, int B, int K,
+                       int O, int groups_per_split) {
+  constexpr int NW = C / 32;  // consumer warps; the producers are warps NW and NW + 1
+  using Stage = Q8DecStage<C, GS, ST>;
+  constexpr int G = Stage::G;
+  extern __shared__ uint8_t smem[];
+  const Q8DecRing<C, GS, ST> ring(smem);
+  const int splits = (int)gridDim.x, rank = (int)mrt::cluster_rank();
+  const int col0 = blockIdx.y * C;
+  const int g_begin = rank * groups_per_split;
+  const int n = max(0, min(groups_per_split, K / GS - g_begin));
+  const int stages = (n + G - 1) / G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  float y[2][2][4] = {};
+  if (warp == NW) {  // the weights: TMA boxes of G groups
+    if (lane == 0) {
+      mrt::prefetch_tensormap(&qmap);
+      mrt::prefetch_tensormap(&smap);
+      ring.produce(
+          stages, true, [](int) { return (uint32_t)kQ8DecWeightBytes<C, GS, ST>; },
+          [&](Stage& S, int i, uint64_t* full) {
+            const int grp = g_begin + i * G;
+            mrt::tma_load_2d(S.q, &qmap, col0, GS * grp, full);
+            mrt::tma_load_2d(S.sc, &smap, col0, grp, full);
+          });
+    }
+    __syncwarp();
+  } else if (warp == NW + 1) {  // x's codes and scales, from the quantize kernel
+    if (lane == 0) {
+      mrt::grid_dep_wait();  // the quantize kernel's codes are written
+      auto nv = [&](int i) { return min(G, n - i * G); };
+      ring.produce(
+          stages, false, [&](int i) { return (uint32_t)(nv(i) * (GS * mrt::kDecRows + 64)); },
+          [&](Stage& S, int i, uint64_t* full) {
+            const size_t grp = (size_t)(g_begin + i * G);
+            mrt::bulk_g2s(S.x[0], xq + grp * GS * mrt::kDecRows, nv(i) * GS * mrt::kDecRows,
+                          full);
+            mrt::bulk_g2s(S.xs[0], xs + grp * mrt::kDecRows, nv(i) * 64, full);
+          });
+    }
+    __syncwarp();
+  } else if (B > 8) {
+    q8_dec_consume<C, GS, ST, 2>(ring, n, warp, lane, y);
+  } else {
+    q8_dec_consume<C, GS, ST, 1>(ring, n, warp, lane, y);
+  }
+  if (splits == 1) {  // no cluster to add up
+    if (warp < NW) mrt::dec_store_out(y, B > 8 ? 2 : 1, out, out_is_bf16, B, O, col0, warp, lane);
+    return;
+  }
+  __syncthreads();  // every stage consumed: the ring's memory holds the tile now
+  float* red = static_cast<float*>(ring.base());
+  if (warp < NW) mrt::dec_store_tile<C>(red, y, B > 8 ? 2 : 1, warp, lane);
+  mrt::cluster_sync();
+  mrt::dec_reduce<C>(red, out, out_is_bf16, B, O, col0, splits, rank);
+  mrt::cluster_sync();  // no block leaves while another reads its tile
+}
+
+// q [K, O] bytes in boxes of `groups` * GS rows x C columns (the 128-byte
+// swizzle at C = 128, none for the rows instantiation); s [K/GS, O] in
+// boxes of `groups` rows
+template <typename ST>
+int q8_maps(CUtensorMap* qmap, CUtensorMap* smap, const void* q, const void* s, int K, int O,
+            int GS, int C, int groups, bool swizzle) {
+  const uint64_t qdims[2] = {(uint64_t)O, (uint64_t)K}, qstr[1] = {(uint64_t)O};
+  const uint32_t qbox[2] = {(uint32_t)C, (uint32_t)(GS * groups)};
+  const uint64_t sdims[2] = {(uint64_t)O, (uint64_t)(K / GS)}, sstr[1] = {O * sizeof(ST)};
+  const uint32_t sbox[2] = {(uint32_t)C, (uint32_t)groups};
+  const int err = mrt::tile_map(qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, qdims, qstr, qbox,
+                                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err) return err;
+  return mrt::tile_map(smap, sizeof(ST) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                       2, s, sdims, sstr, sbox);
+}
+
+template <int C, int GS, typename ST>
+int launch_dec(const mrt::Workspace& w, const void* q, const void* s, void* out, int out_is_bf16,
+               int B, int K, int O, int splits, cudaStream_t st) {
+  CUtensorMap qmap, smap;
+  const int G = Q8DecStage<C, GS, ST>::G;
+  const int err = q8_maps<ST>(&qmap, &smap, q, s, K, O, GS, C, G, C == 128);
+  if (err) return err;
+  // the groups a split takes: whole stages (dec_per_split counts 32-row
+  // slices, kDecSub a stage)
+  const int per = mrt::dec_per_split(K / 32, splits) / (GS / 32);
+  return mrt::launch_dec(q8_0_q8_dec_kernel<C, GS, ST>, splits, (O + C - 1) / C,
+                         mrt::dec_threads(C), Q8DecRing<C, GS, ST>::smem_bytes(), st, qmap, smap,
+                         static_cast<const int8_t*>(w.xq), static_cast<const float*>(w.xs), out,
+                         out_is_bf16, B, K, O, per);
+}
+
+// the stages of the decode instantiation for (cols, gs, scale type), 0 for another
+int q8_dec_stages(int cols, int gs, bool bf16) {
+  if (cols == 128 && gs == 32) return bf16 ? kQ8DecStages<128, 32, __nv_bfloat16> : kQ8DecStages<128, 32, float>;
+  if (cols == 128 && gs == 64) return bf16 ? kQ8DecStages<128, 64, __nv_bfloat16> : kQ8DecStages<128, 64, float>;
+  if (cols == 64 && gs == 32) return bf16 ? kQ8DecStages<64, 32, __nv_bfloat16> : kQ8DecStages<64, 32, float>;
+  if (cols == 64 && gs == 64) return bf16 ? kQ8DecStages<64, 64, __nv_bfloat16> : kQ8DecStages<64, 64, float>;
+  return 0;
+}
+
 template <int GS, typename ST>
-void launch_gs(const void* xq, const void* xs, const void* q, const void* s, float* part, int B,
-               int bpad, int K, int O, dim3 grid, cudaStream_t st) {
-  const int ngroups = K / GS, ksplit = (int)grid.y;
-  q8_0_q8_mma_kernel<GS, ST><<<grid, mrt::kGemvThreads, 0, st>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(xs),
-      static_cast<const int8_t*>(q), static_cast<const ST*>(s), part, B, bpad, K, O,
-      (ngroups + ksplit - 1) / ksplit);
+int launch_dec_cols(int cols, const mrt::Workspace& w, const void* q, const void* s, void* out,
+                    int out_is_bf16, int B, int K, int O, int splits, cudaStream_t st) {
+  if (cols == 128) return launch_dec<128, GS, ST>(w, q, s, out, out_is_bf16, B, K, O, splits, st);
+  return launch_dec<64, GS, ST>(w, q, s, out, out_is_bf16, B, K, O, splits, st);
 }
 
 }  // namespace
@@ -288,17 +388,8 @@ __global__ void __launch_bounds__(mrt::kRowThreads, 1)
 template <int GS, int BM, typename ST>
 int launch_rows(const mrt::Workspace& w, const void* q, const void* s, void* out, int out_is_bf16,
                 int B, int K, int O, dim3 grid, cudaStream_t st) {
-  // q [K, O] bytes in boxes of GS rows x 128 columns; s [K/GS, O] one row at a time
   CUtensorMap qmap, smap;
-  const uint64_t qdims[2] = {(uint64_t)O, (uint64_t)K}, qstr[1] = {(uint64_t)O};
-  const uint32_t qbox[2] = {mrt::kGemvCols, GS};
-  const uint64_t sdims[2] = {(uint64_t)O, (uint64_t)(K / GS)}, sstr[1] = {O * sizeof(ST)};
-  const uint32_t sbox[2] = {mrt::kGemvCols, 1};
-  int err = mrt::tile_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, qdims, qstr, qbox);
-  if (err) return err;
-  err = mrt::tile_map(&smap, sizeof(ST) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                      2, s, sdims, sstr, sbox);
+  const int err = q8_maps<ST>(&qmap, &smap, q, s, K, O, GS, mrt::kGemvCols, 1, false);
   if (err) return err;
   auto* kern = q8_0_q8_rows_kernel<GS, BM, ST>;
   const int smem = RowRing<GS, BM, ST>::smem_bytes(0);
@@ -322,56 +413,59 @@ int launch_rows_bm(int rows, const mrt::Workspace& w, const void* q, const void*
 
 // Shapes are checked by the Python wrapper (ops/quant_matmul.py): gs in
 // {32, 64}, K % gs == 0, O % 16 == 0, 16-byte aligned pointers, and a
-// workspace of ws_bytes (see mrt::carve). `rows` is the row tile of a block
-// (16: the decode kernel; 64 or 128: the rows instantiation) and (gx, gy,
-// gz) the grid of the launch plan (ops/quant_matmul.int8_gemv_plan), which
-// also gives the K split (gy for the decode kernel, gz for the rows
-// instantiation; at most K/gs). Quantizes x (bf16 or f32 [B,K]) per gs,
-// then runs the GEMV and, unless a rows call has one split, the split-K
-// pass. Returns the CUDA error code of the launches (0 = launched).
+// workspace of ws_bytes (see mrt::carve). The launch is the plan of
+// ops/quant_matmul.int8_gemv_plan, every field of it checked here, as in
+// q4k_q8_gemv: rows 16 (B <= 16) the decode instantiation, grid (K splits
+// <= K/gs, column tiles of `cols` = 128 or 64, 1), a cluster of the splits
+// (at most 8), its stages (kQ8DecStages), two launches; rows 64 or 128 the
+// rows instantiation, grid (row tiles, column tiles, K splits), cluster 1,
+// cols 128, stages 0, and the split-K pass after more than one split.
+// Quantizes x (bf16 or f32 [B,K]) per gs first. Returns the CUDA error
+// code of the launches (0 = launched).
 extern "C" int q8_0_q8_gemv(const void* x, int x_is_bf16, const void* q, const void* s,
                             int scale_is_bf16, int gs, void* ws, long long ws_bytes, void* out,
                             int out_is_bf16, int B, int K, int O, int rows, int gx, int gy, int gz,
-                            void* stream) {
+                            int cluster, int cols, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((gs != 32 && gs != 64) || (rows != 16 && rows != 64 && rows != 128))
     return (int)cudaErrorInvalidValue;
-  const bool tiled = rows != 16;
-  const int ksplit = tiled ? gz : gy;
-  const mrt::Workspace w = mrt::carve(ws, B, K, O, gs, 0, ksplit, rows);
-  if (w.bytes > (size_t)ws_bytes || ksplit < 1 || ksplit > K / gs ||
-      !mrt::grid_covers(w, rows, B, O, gx, gy, gz))
+  const bool dec = rows == 16;
+  const int ksplit = dec ? gx : gz;
+  const mrt::Workspace w =
+      mrt::carve(ws, B, K, O, gs, 0, ksplit, dec ? mrt::kDecode : mrt::kTiled, rows);
+  const bool plan_ok =
+      dec ? cluster == gx && gx <= 8 && stages != 0 &&
+                stages == q8_dec_stages(cols, gs, scale_is_bf16 != 0)
+          : cluster == 1 && cols == mrt::kGemvCols && stages == 0;
+  if (!plan_ok || w.bytes > (size_t)ws_bytes || ksplit < 1 || ksplit > K / gs ||
+      !mrt::grid_covers(w, rows, cols, B, O, gx, gy, gz))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(gx, gy, gz);
+  const mrt::XLayout layout = dec ? mrt::kDecode : mrt::kTiled;
   if (gs == 32)
     mrt::launch_quantize<32>(x, x_is_bf16 != 0, w.xq, w.xs, nullptr, nullptr, B, K, w.bpad, st,
-                             tiled);
+                             layout);
   else
     mrt::launch_quantize<64>(x, x_is_bf16 != 0, w.xq, w.xs, nullptr, nullptr, B, K, w.bpad, st,
-                             tiled);
-  if (tiled) {
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+                             layout);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (dec) {
     if (gs == 32)
       return scale_is_bf16
-                 ? launch_rows_bm<32, __nv_bfloat16>(rows, w, q, s, out, out_is_bf16, B, K, O, grid, st)
-                 : launch_rows_bm<32, float>(rows, w, q, s, out, out_is_bf16, B, K, O, grid, st);
+                 ? launch_dec_cols<32, __nv_bfloat16>(cols, w, q, s, out, out_is_bf16, B, K, O, gx, st)
+                 : launch_dec_cols<32, float>(cols, w, q, s, out, out_is_bf16, B, K, O, gx, st);
     return scale_is_bf16
-               ? launch_rows_bm<64, __nv_bfloat16>(rows, w, q, s, out, out_is_bf16, B, K, O, grid, st)
-               : launch_rows_bm<64, float>(rows, w, q, s, out, out_is_bf16, B, K, O, grid, st);
+               ? launch_dec_cols<64, __nv_bfloat16>(cols, w, q, s, out, out_is_bf16, B, K, O, gx, st)
+               : launch_dec_cols<64, float>(cols, w, q, s, out, out_is_bf16, B, K, O, gx, st);
   }
-  if (gs == 32) {
-    if (scale_is_bf16)
-      launch_gs<32, __nv_bfloat16>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, grid, st);
-    else
-      launch_gs<32, float>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, grid, st);
-  } else {
-    if (scale_is_bf16)
-      launch_gs<64, __nv_bfloat16>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, grid, st);
-    else
-      launch_gs<64, float>(w.xq, w.xs, q, s, w.part, B, w.bpad, K, O, grid, st);
-  }
-  return mrt::finish_gemv(w, out, out_is_bf16, ksplit, B * O, st);
+  const dim3 grid(gx, gy, gz);
+  if (gs == 32)
+    return scale_is_bf16
+               ? launch_rows_bm<32, __nv_bfloat16>(rows, w, q, s, out, out_is_bf16, B, K, O, grid, st)
+               : launch_rows_bm<32, float>(rows, w, q, s, out, out_is_bf16, B, K, O, grid, st);
+  return scale_is_bf16
+             ? launch_rows_bm<64, __nv_bfloat16>(rows, w, q, s, out, out_is_bf16, B, K, O, grid, st)
+             : launch_rows_bm<64, float>(rows, w, q, s, out, out_is_bf16, B, K, O, grid, st);
 }
 
 // ---- dequantization for prefill-sized calls ----

@@ -21,7 +21,8 @@ selected logits) and takes one of the JAX package's three formulations:
 
 Attention on the paged cache, routed once per step by the JAX package's
 shape rules (without its backend checks and environment gates), in its
-order:
+order; on the card a kernel is taken only where it takes the step (bf16,
+its head dims, page and GQA ratio: `_card_takes`), else the step gathers:
 - a first prompt chunk whose length is a multiple of 128, with no logit soft
   cap and no sliding window that clips it, runs the flash prefill kernel K6
   on the chunk's own K/V (ops/flash_attention.py);
@@ -43,8 +44,10 @@ On the ragged backend (a combined K/V pool, `cache.v` None) the same first
 chunks still take K6 or K11 on the chunk's own K/V; every other step, a
 continuation chunk or decode at any span, runs the ragged paged attention
 kernel K12 (ops/ragged_attention.py) with the layer's window, unless the
-span fits inside it, and the soft cap; K6', K7 and the gather route are
-never taken on a combined pool. The new K/V go in with `write_combined_kv`.
+span fits inside it, and the soft cap, or, where the card's K12 does not
+take the step, the gather route over the pool's split K/V views (the JAX
+package's off-TPU route); K6' and K7 are never taken on a combined pool.
+The new K/V go in with `write_combined_kv`.
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ from mistralrs_tpu_torch.ops.ragged_attention import (
     RaggedPlan,
     ragged_attention_padded,
     ragged_plan,
+    split_combined,
     write_combined_kv,
 )
 from mistralrs_tpu_torch.ops.rope import RopeTable, apply_rope
@@ -148,20 +152,61 @@ def _use_paged_decode_kernel(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span
     return span <= cfg.sliding_window
 
 
+# What each card kernel takes beyond the shape rules: its wrapper's checks
+# (ops/flash_attention.py, ops/splash.py, ops/paged_attention.py,
+# ops/ragged_attention.py). Every one takes bf16 only.
+_CARD_HEAD_DIMS = {"flash": (128,), "splash": (128, 256), "decode": (128, 256),
+                   "continuation": (128,), "ragged": (128, 256)}
+
+
+def _card_takes(route: str, cfg: ModelConfig, dtype, kv_dtype, page: int) -> bool:
+    """Whether the card kernel of `route` takes a step of this model: bf16
+    activations (and pool, for the kernels that read it), a head dim it
+    has, a power-of-two page (K6', K7, K12), at most 16 query heads a kv
+    head (K7), and a GQA ratio that is a power of two up to 16 (K12)."""
+    if dtype != torch.bfloat16 or cfg.head_dim not in _CARD_HEAD_DIMS[route]:
+        return False
+    if route in ("flash", "splash"):  # the chunk's own K/V, in the activations' dtype
+        return True
+    if kv_dtype != torch.bfloat16 or page & (page - 1):
+        return False
+    G = cfg.num_heads // cfg.num_kv_heads
+    if route == "decode":
+        return G <= 16
+    if route == "ragged":
+        return G & (G - 1) == 0 and G <= 16
+    return True
+
+
 def _attention_route(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span: int,
-                     combined: bool = False) -> str:
+                     combined: bool = False, device_type: str = "cpu",
+                     dtype=torch.bfloat16, kv_dtype=torch.bfloat16, page: int = 16) -> str:
     """The step's attention route, the same for every layer: "flash" (K6),
     "splash" (K11), "decode" (K7), "continuation" (K6') or "gather"; on a
-    combined pool "flash", "splash" or "ragged" (K12)."""
-    if _use_flash_prefill(cfg, T, meta):
+    combined pool "flash", "splash", "ragged" (K12) or "gather" (over the
+    pool's split K/V views).
+
+    The rule: the JAX package's shape rules pick a kernel, in the order
+    above. On "cuda" a kernel is picked only if its card kernel also takes
+    the step (`_card_takes`: the activations' and pool's dtype, head dim,
+    page, GQA ratio), so the wrappers never refuse it; a step that no
+    kernel takes goes to the gather route, as in the JAX package. On the
+    CPU the plain versions take any shape, so the shape rules alone
+    decide."""
+    card = device_type == "cuda"
+
+    def takes(route: str) -> bool:
+        return not card or _card_takes(route, cfg, dtype, kv_dtype, page)
+
+    if _use_flash_prefill(cfg, T, meta) and takes("flash"):
         return "flash"
-    if _use_splash_prefill(cfg, T, meta):
+    if _use_splash_prefill(cfg, T, meta) and takes("splash"):
         return "splash"
     if combined:
-        return "ragged"
-    if _use_paged_decode_kernel(cfg, T, meta, span):
+        return "ragged" if takes("ragged") else "gather"
+    if _use_paged_decode_kernel(cfg, T, meta, span) and takes("decode"):
         return "decode"
-    if _use_flash_continuation(cfg, T, meta, span):
+    if _use_flash_continuation(cfg, T, meta, span) and takes("continuation"):
         return "continuation"
     return "gather"
 
@@ -329,7 +374,10 @@ def _attention(
                                       sliding_window=win, logits_softcap=cap, plan=plan)
         out = out * meta.active[:, None, None, None].to(out.dtype)
     else:
-        ctx_k, ctx_v = gather_paged_kv(cache_k, cache_v, meta.block_tables, head_major=hm)
+        if cache_v is None:  # a combined pool: its split K/V views, token-major
+            ctx_k, ctx_v = gather_paged_kv(*split_combined(cache_k), meta.block_tables)
+        else:
+            ctx_k, ctx_v = gather_paged_kv(cache_k, cache_v, meta.block_tables, head_major=hm)
         attn = sdpa_head_major if hm else sdpa
         out = attn(q, ctx_k.to(q.dtype), ctx_v.to(q.dtype), scale=scale, mask=bias,
                    logits_softcap=cap)
@@ -366,7 +414,9 @@ def decoder_forward(
         h = h * torch.tensor(cfg.embed_scale, dtype=h.dtype)
     cos, sin = rope.gather(meta.positions.to(torch.int64))  # [B, T, rot/2]
     S = meta.block_tables.shape[1] * cache.page_size
-    route = _attention_route(cfg, T, meta, S, combined=cache.combined)
+    route = _attention_route(cfg, T, meta, S, combined=cache.combined,
+                             device_type=h.device.type, dtype=h.dtype, kv_dtype=cache.k.dtype,
+                             page=cache.page_size)
     # the ragged route's packing of this step, the same in every layer
     plan = ragged_plan(meta, T, cache.page_size) if route == "ragged" else None
     bias_full = bias_win = None

@@ -26,10 +26,11 @@ int8 path does): xs = max(max|x_block|, 1e-10)/127, xq = clip(round(x/xs),
 -127, 127), so |err| <= max|x_block|/254 per element; round is half to
 even, as jnp.round. The kernels take x itself: the C entry point of each
 runs a quantize kernel, the GEMV and a split-K pass (one host call instead
-of a dozen torch ops per projection). Their plain versions quantize with
-the same f32 operations in torch, so the int8 codes agree bit for bit; the
-scale is max|x|*(1/127) in both, where JAX divides by 127 (at most one f32
-ulp apart). The activation scales and block sums are [B, K/gs] here (JAX
+of a dozen torch ops per projection); K1's and K2's decode instantiations
+add their K splits on chip instead, two launches a call. Their plain
+versions quantize with the same f32 operations in torch, so the int8 codes
+agree bit for bit; the scale is max|x|*(1/127) in both, where JAX divides
+by 127 (at most one f32 ulp apart). The activation scales and block sums are [B, K/gs] here (JAX
 keeps them transposed for TPU sublane alignment). K4, K5, K8, K9b and K10
 keep x in its dtype; K4, K5 and K10 only take per-16 or per-32 sums of it.
 
@@ -167,40 +168,87 @@ def _ksplit(O: int, B: int, k_units: int, device, rows: int = 16) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class GemvPlan:
-    """The launch of K1 or K2 for one call: the row tile of a block (16: the
-    decode kernel; 64 or 128: the rows instantiation, two consumer
-    warpgroups), the GEMV's grid as the CUDA entry point launches it, the K
-    split and the workspace bytes (csrc/common.cuh::carve)."""
+    """The launch of K1 or K2 for one call, every field of which the CUDA
+    entry point checks: the row tile of a block (16: the decode
+    instantiation; 64 or 128: the rows instantiation, two consumer
+    warpgroups), the GEMV's grid as the entry point launches it, the K
+    split, the blocks of a thread-block cluster (the decode instantiation's
+    K splits of a column tile, which add their sums on chip; 1 for rows),
+    the columns a block owns, the decode ring's stages (0 for rows, whose
+    ring is sized from shared memory) and the workspace bytes
+    (csrc/common.cuh::carve)."""
 
     rows: int
     grid: tuple[int, int, int]
     ksplit: int
+    cluster: int
+    cols: int
+    stages: int
     ws_bytes: int
+
+    def launch_args(self) -> tuple[int, ...]:
+        """The plan as the C entry points take it, after (B, K, O)."""
+        return (self.rows, *self.grid, self.cluster, self.cols, self.stages)
+
+
+# the decode instantiations (csrc/common.cuh): weight bytes a block's ring
+# holds (half of them in flight), the K steps of a ring stage (64 byte rows
+# of codes: 2 sub-block pairs of K1, 64/gs groups of K2), and the most
+# blocks of a cluster (the portable limit)
+DEC_IN_FLIGHT = 32 * 1024
+DEC_SUB = 2
+DEC_MAX_CLUSTER = 8
+
+
+def dec_stages(stage_weight_bytes: int) -> int:
+    """Ring stages of a decode instantiation (common.cuh dec_stages)."""
+    return -(-DEC_IN_FLIGHT // stage_weight_bytes)
+
+
+def dec_per_split(slices: int, splits: int) -> int:
+    """The 32-row slices (K1: sub-block pairs) a K split takes: whole
+    stages, the last split fewer (common.cuh dec_per_split)."""
+    return -(-(-(-slices // splits)) // DEC_SUB) * DEC_SUB
 
 
 def int8_gemv_plan(B: int, K: int, O: int, k_units: int, gs: int, sum_gs: int,
-                   sms: int) -> GemvPlan:
-    """Launch plan of K1 (k_units = K/64 sub-block pairs, gs = sum_gs = 32)
-    or K2 (k_units = K/gs groups, sum_gs = 0) on a card with `sms` SMs.
+                   sms: int, scale_bytes: int = 2) -> GemvPlan:
+    """Launch plan of K1 (k_units = K/64 sub-block pairs, gs = sum_gs = 32,
+    bf16 scales) or K2 (k_units = K/gs groups, sum_gs = 0, scales of
+    `scale_bytes`) on a card with `sms` SMs.
 
-    Up to 16 rows: the decode kernel, grid (column tiles, ksplit, 16-row
-    tiles), about 4 blocks per SM. Above: the rows instantiation, one
-    block per SM (its accumulators fill the register file), grid (row
-    tiles, column tiles, ksplit) with the row tiles fastest, so each weight
-    tile is read by at most two blocks that run side by side; K is split
-    only when the tiles fall short of the SMs, into as many splits as one
-    wave holds, each split keeping at least 4 K steps."""
-    ctiles = -(-O // 128)
+    Up to 16 rows: the decode instantiation. A block owns 128 columns, or
+    64 where even clusters of the most splits would leave SMs idle (K2's
+    v: 8 column tiles of 128); the grid is (K splits, column tiles, 1) and
+    the splits of a column tile form one cluster: as many as put about
+    three blocks on an SM (a block's ring holds DEC_IN_FLIGHT bytes, half
+    of them in flight; 2 and 4 measured slower on the card), at most
+    DEC_MAX_CLUSTER, each split whole ring stages and none empty.
+    Above: the rows instantiation, one block per SM (its accumulators fill
+    the register file), grid (row tiles, column tiles, ksplit) with the
+    row tiles fastest, so each weight tile is read by at most two blocks
+    that run side by side; K is split only when the tiles fall short of
+    the SMs, into as many splits as one wave holds, each split keeping at
+    least 4 K steps."""
     if B <= 16:
-        ks = _ksplit_for(O, B, k_units, sms)
-        return GemvPlan(16, (ctiles, ks, -(-B // 16)), ks,
-                        _workspace_bytes(B, K, O, gs, sum_gs, ks))
+        slices = K // 64 if sum_gs else K // 32  # K1: pairs; K2: 32-row slices
+        stage_units = -(-slices // DEC_SUB)
+        most = max(1, min(DEC_MAX_CLUSTER, stage_units))
+        cols = 128 if -(-O // 128) * most >= sms else 64
+        ctiles = -(-O // cols)
+        want = max(1, min(most, 3 * sms // ctiles))
+        ks = -(-slices // dec_per_split(slices, want))
+        stage_bytes = (cols * DEC_SUB * (32 + 4 * 2) if sum_gs else
+                       cols * (DEC_SUB * 32 + DEC_SUB * 32 // gs * scale_bytes))
+        return GemvPlan(16, (ks, ctiles, 1), ks, ks, cols, dec_stages(stage_bytes),
+                        _workspace_bytes(B, K, O, gs, sum_gs, ks, layout="decode"))
+    ctiles = -(-O // 128)
     rows = 64 if B <= 64 else 128
     rtiles = -(-B // rows)
     tiles = ctiles * rtiles
     ks = max(1, min(sms // tiles, k_units // 4))
-    return GemvPlan(rows, (rtiles, ctiles, ks), ks,
-                    _workspace_bytes(B, K, O, gs, sum_gs, ks, rows))
+    return GemvPlan(rows, (rtiles, ctiles, ks), ks, 1, 128, 0,
+                    _workspace_bytes(B, K, O, gs, sum_gs, ks, rows, "tiled"))
 
 
 def _plane_rows(B: int) -> int:
@@ -214,20 +262,23 @@ def _align256(n: int) -> int:
 
 
 def _workspace_bytes(B: int, K: int, O: int, gs: int, sum_gs: int, ksplit: int,
-                     rows: int = 16) -> int:
-    """Scratch of one GEMV call: (xq [B, K], xs [K/gs, Bpad] unless gs is
-    0), (xsum [K/sum_gs, Bpad] unless sum_gs is 0), split-K partials
-    [ksplit, B, O], each 256-byte aligned, in the order
-    csrc/common.cuh::carve lays them out; Bpad is B rounded up to the
-    blocks' row tile `rows`. Above 16 rows (the rows instantiations of K1
-    and K2, tiled): xq holds Bpad rows, and there are no partials with one
-    split."""
-    tiled = rows > 16
+                     rows: int = 16, layout: str = "row") -> int:
+    """Scratch of one GEMV call: (xq, xs [K/gs, Bpad] unless gs is 0),
+    (xsum [K/sum_gs, Bpad] unless sum_gs is 0), split-K partials [ksplit,
+    B, O], each 256-byte aligned, in the order csrc/common.cuh::carve lays
+    them out for its x layout: "row" (xq [B, K], Bpad B rounded up to 16,
+    always the partials), "tiled" (the rows instantiations of K1 and K2:
+    Bpad B rounded up to the row tile `rows`, xq [Bpad, K], the partials
+    only with more than one split) or "decode" (their decode
+    instantiations: Bpad 16, xq [16, K], no partials)."""
+    if layout != "tiled":
+        rows = 16
     bpad = -(-B // rows) * rows
-    xrows = bpad if tiled else B
+    xrows = B if layout == "row" else bpad
+    part = layout == "row" or (layout == "tiled" and ksplit > 1)
     return ((_align256(xrows * K) + _align256((K // gs) * bpad * 4) if gs else 0)
             + (_align256((K // sum_gs) * bpad * 4) if sum_gs else 0)
-            + (_align256(ksplit * B * O * 4) if not tiled or ksplit > 1 else 0))
+            + (_align256(ksplit * B * O * 4) if part else 0))
 
 
 def _check_x(name: str, x: torch.Tensor, K: int) -> int:
@@ -284,8 +335,11 @@ def q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.bfloat16):
     """K1: y [B, O] = x @ W for Q4_K W with x quantized to int8 per 32
     (see csrc/q4k_q8_gemv.cu). x [B, K] (bf16 or f32 on cuda), qs uint8
     [K/2, O] paired nibbles, scale/minv [K/32, O] (bf16 on cuda). Up to 16
-    rows the decode kernel runs, above it the rows instantiation, on the
-    grid of int8_gemv_plan."""
+    rows the decode instantiation runs (two launches: the quantize kernel,
+    then the GEMV whose K splits add their sums in a cluster), above it
+    the rows instantiation, on the plan of int8_gemv_plan. Nothing of a
+    call waits for the card or keeps state between calls, so a call can
+    be captured in a CUDA graph."""
     global q4k_q8_gemv_launches, q4k_q8_gemv_rows_launches
     O = qs.shape[1]
     K = 2 * qs.shape[0]
@@ -304,10 +358,10 @@ def q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.bfloat16):
     ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
     fn = kernels.function("q4k_q8_gemv", "q4k_q8_gemv",
-                          [_P, _I, _P, _P, _P, _P, ctypes.c_longlong, _P] + [_I] * 8 + [_P])
+                          [_P, _I, _P, _P, _P, _P, ctypes.c_longlong, _P] + [_I] * 11 + [_P])
     err = fn(kernels.ptr(x), int(x.dtype == torch.bfloat16), kernels.ptr(qs), kernels.ptr(scale),
              kernels.ptr(minv), kernels.ptr(ws), plan.ws_bytes, kernels.ptr(out),
-             int(out_dtype == torch.bfloat16), B, K, O, plan.rows, *plan.grid,
+             int(out_dtype == torch.bfloat16), B, K, O, *plan.launch_args(),
              _P(kernels.stream_ptr(dev)))
     kernels.check(err, "q4k_q8_gemv")
     if plan.rows == 16:
@@ -360,14 +414,14 @@ def q8_0_q8_gemv(x, q, s, gs: int, out_dtype=torch.bfloat16):
     _require(x.dtype in (torch.bfloat16, torch.float32), f"q8_0_q8_gemv: x {x.dtype}")
     _require(s.dtype in (torch.float32, torch.bfloat16), f"s: dtype {s.dtype}")
     dev = _check_cuda("q8_0_q8_gemv", dict(x=x, q=q, s=s))
-    plan = int8_gemv_plan(B, K, O, K // gs, gs, 0, kernels.sm_count(dev))
+    plan = int8_gemv_plan(B, K, O, K // gs, gs, 0, kernels.sm_count(dev), s.element_size())
     ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
     fn = kernels.function("q8_0_q8_gemv", "q8_0_q8_gemv",
-                          [_P, _I, _P, _P, _I, _I, _P, ctypes.c_longlong, _P] + [_I] * 8 + [_P])
+                          [_P, _I, _P, _P, _I, _I, _P, ctypes.c_longlong, _P] + [_I] * 11 + [_P])
     err = fn(kernels.ptr(x), int(x.dtype == torch.bfloat16), kernels.ptr(q), kernels.ptr(s),
              int(s.dtype == torch.bfloat16), gs, kernels.ptr(ws), plan.ws_bytes,
-             kernels.ptr(out), int(out_dtype == torch.bfloat16), B, K, O, plan.rows, *plan.grid,
+             kernels.ptr(out), int(out_dtype == torch.bfloat16), B, K, O, *plan.launch_args(),
              _P(kernels.stream_ptr(dev)))
     kernels.check(err, "q8_0_q8_gemv")
     if plan.rows == 16:

@@ -162,7 +162,9 @@ def report(phase, name, args, prof, wall, extra) -> None:
     kernels = [e for e in ka if e.self_device_time_total > 0
                and getattr(e.device_type, "name", "") == "CUDA"]  # device-side events only
     dev_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+    # cudaLaunchKernel, and cudaLaunchKernelExC for the launches with attributes
+    # (the clusters of K1's and K2's decode instantiations)
+    launches = sum(e.count for e in ka if e.key.startswith("cudaLaunchKernel"))
     # fewer device kernel events than launches: the trace dropped some, and
     # device_busy_ms covers only the forwards it kept
     events = sum(e.count for e in kernels)

@@ -7,6 +7,8 @@ a machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -66,6 +68,137 @@ def test_q8_0_q8_gemv_matches_plain(dev, gs, sdt, B, O):
     torch.cuda.synchronize()
     tol = 1e-5 * float(want.abs().max()) + 1e-5
     assert float((got - want).abs().max()) <= tol
+
+
+# the decode instantiations of K1 and K2 (1-16 rows) at the main path's
+# shapes (Mistral-7B Q4_K_M: K1's fused q|k, o, gate|up, down; K2's v, the
+# rq8 down, the padded lm_head), one and two n-tiles of x rows
+DECODE_B = [1, 3, 16]
+K1_DECODE = [(4096, 5120), (4096, 4096), (4096, 28672), (14336, 4096)]
+K2_DECODE = [(4096, 1024), (14336, 4096), (4096, 32768)]
+K2_SCALES = [(32, torch.float32), (64, torch.float32), (32, torch.bfloat16), (64, torch.bfloat16)]
+
+
+def _q8_arrays(dev, K, O, gs, sdt, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randint(-128, 128, (K, O), generator=g, dtype=torch.int8).to(dev)
+    s = (torch.rand(K // gs, O, generator=g) * 0.01).to(dev, sdt)
+    return q, s
+
+
+def _within(got, want):
+    """The same int8 codes and exact int32 dots on both sides; only the f32
+    order of the scaled sums differs: 1e-5 of max |y|."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) <= 1e-5 * float(want.abs().max()) + 1e-5
+
+
+@pytest.mark.parametrize("out_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", DECODE_B)
+@pytest.mark.parametrize("K,O", K1_DECODE)
+def test_q4k_q8_gemv_decode_main_path_matches_plain(dev, K, O, B, out_dt):
+    qs, scale, minv = _q4k_arrays(dev, K, O, K + O + B)
+    for xdt in (torch.float32, torch.bfloat16):
+        x = _acts(B, K, dev, B).to(xdt)
+        got = qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=out_dt)
+        want = qm.q4k_q8_gemv_plain(x, qs, scale, minv, torch.float32)
+        torch.cuda.synchronize()
+        if out_dt == torch.float32:
+            assert _within(got, want)
+        else:  # the f32 sums rounded once
+            f32 = qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.float32)
+            assert torch.equal(got, f32.to(torch.bfloat16)) and _within(f32, want)
+
+
+@pytest.mark.parametrize("out_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", DECODE_B)
+@pytest.mark.parametrize("gs,sdt", K2_SCALES)
+@pytest.mark.parametrize("K,O", K2_DECODE)
+def test_q8_0_q8_gemv_decode_main_path_matches_plain(dev, K, O, gs, sdt, B, out_dt):
+    q, s = _q8_arrays(dev, K, O, gs, sdt, K + O + gs + B)
+    for xdt in (torch.float32, torch.bfloat16):
+        x = _acts(B, K, dev, B + 1).to(xdt)
+        got = qm.q8_0_q8_gemv(x, q, s, gs, out_dtype=out_dt)
+        want = qm.q8_0_q8_gemv_plain(x, q, s, gs, torch.float32)
+        torch.cuda.synchronize()
+        if out_dt == torch.float32:
+            assert _within(got, want)
+        else:
+            f32 = qm.q8_0_q8_gemv(x, q, s, gs, out_dtype=torch.float32)
+            assert torch.equal(got, f32.to(torch.bfloat16)) and _within(f32, want)
+
+
+@pytest.mark.parametrize("B", DECODE_B)
+@pytest.mark.parametrize("gs,sdt", K2_SCALES)
+@pytest.mark.parametrize("K,O", [(1024, 144), (256, 272), (128, 1024)])
+def test_q8_0_q8_gemv_decode_tails_match_plain(dev, K, O, gs, sdt, B):
+    """Column tails past the last 64- or 128-column tile (zero-filled boxes,
+    never written) and K of a few groups (one split, or splits of 4)."""
+    q, s = _q8_arrays(dev, K, O, gs, sdt, K + O + B)
+    x = _acts(B, K, dev, B).to(torch.bfloat16)
+    got = qm.q8_0_q8_gemv(x, q, s, gs, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert _within(got, qm.q8_0_q8_gemv_plain(x, q, s, gs, torch.float32))
+
+
+def _decode_calls(dev, B):
+    """One K1 and one K2 decode call at the main path's q|k and v shapes."""
+    qs, scale, minv = _q4k_arrays(dev, 4096, 5120, 1)
+    q, s = _q8_arrays(dev, 4096, 1024, 32, torch.float32, 2)
+    x = _acts(B, 4096, dev, 3).to(torch.bfloat16)
+    return (lambda: qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.float32),
+            lambda: qm.q8_0_q8_gemv(x, q, s, 32, out_dtype=torch.float32))
+
+
+@pytest.mark.parametrize("B", [1, 16])
+def test_decode_gemv_is_bit_equal_on_repeat(dev, B):
+    """The K splits of a column tile add their sums in the order of their
+    cluster ranks, so a result does not depend on which block ran first."""
+    for call in _decode_calls(dev, B):
+        first = call()
+        for _ in range(3):
+            assert torch.equal(call(), first)
+
+
+@pytest.mark.parametrize("B", [1, 16])
+def test_decode_gemv_replays_in_a_cuda_graph(dev, B):
+    """A decode call captured in a CUDA graph (the quantize kernel, then the
+    GEMV behind it by programmatic dependent launch) replays bit-equal to
+    eager, and nothing in it waits for the card (sync debug mode "error"
+    around the capture and the replay)."""
+    for call in _decode_calls(dev, B):
+        eager = call()
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()  # warm-up on a side stream, as torch.cuda.graphs asks
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.graph(graph):
+                out = call()
+            graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+def test_decode_gemv_counts_one_launch_a_call(dev):
+    """The decode counters count calls of the decode instantiations (the
+    rows counters stay)."""
+    k1, k2 = _decode_calls(dev, 16)
+    before = (qm.q4k_q8_gemv_launches, qm.q4k_q8_gemv_rows_launches,
+              qm.q8_0_q8_gemv_launches, qm.q8_0_q8_gemv_rows_launches)
+    k1()
+    k2()
+    k2()
+    after = (qm.q4k_q8_gemv_launches, qm.q4k_q8_gemv_rows_launches,
+             qm.q8_0_q8_gemv_launches, qm.q8_0_q8_gemv_rows_launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 2, 0]
 
 
 # the rows instantiations of K1 and K2 (17-256 rows): one and two row tiles
@@ -855,6 +988,88 @@ def test_moe_decode_forward_never_waits_for_the_card(dev):
         torch.cuda.set_sync_debug_mode("default")
     assert gg.grouped_gemm_launches == before + 3 * 2
     assert logits.shape == (B, sz.vocab) and bool(torch.isfinite(logits).all())
+
+
+# ------------------------------------------------------------- attention routes
+
+
+def _tiny_d64_llama(seed=0):
+    """A tiny seeded llama whose heads are 64 wide (2 layers, 4 query heads
+    over 2 kv heads), dense f32 weights on the CPU. Its lm_head makes row
+    (7i + 3) mod V 0.05 * embed[i] (plus noise), so the token after i wins
+    by a wide margin while the layers still move every logit."""
+    from mistralrs_tpu_torch.models.config import ModelConfig
+    from mistralrs_tpu_torch.models.decoder import DecoderParams
+    from mistralrs_tpu_torch.quant.qlinear import Linear
+
+    cfg = ModelConfig(arch="mistral", vocab_size=384, hidden_size=256, intermediate_size=512,
+                      num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                      max_position_embeddings=1024, rope_theta=1e4)
+    g = torch.Generator().manual_seed(seed)
+    H, I, V, D = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.head_dim
+
+    def dense(i, o):
+        return Linear("dense", (i, o), {"w": torch.randn(i, o, generator=g) * 0.02})
+
+    layers = [{"attn": {"q": dense(H, 4 * D), "k": dense(H, 2 * D), "v": dense(H, 2 * D),
+                        "o": dense(4 * D, H)},
+               "mlp": {"gate": dense(H, I), "up": dense(H, I), "down": dense(I, H)},
+               "input_norm": {"w": torch.ones(H)}, "post_attn_norm": {"w": torch.ones(H)}}
+              for _ in range(cfg.num_layers)]
+    embed = torch.randn(V, H, generator=g)
+    head = torch.randn(V, H, generator=g) * 0.01
+    head[(7 * torch.arange(V) + 3) % V] += 0.05 * embed
+    params = DecoderParams(embed=embed, layers=layers, final_norm={"w": torch.ones(H)},
+                           lm_head=Linear("dense", (H, V), {"w": head.T.contiguous()}))
+    return cfg, params
+
+
+def _serve_tokens(cfg, params, device, dtype, backend):
+    """Greedy tokens of two requests (a 130-token prompt: one first chunk
+    of 256 rows; a 20-token one) served through the engine."""
+    import chip_smoke
+    from mistralrs_tpu_torch.engine.engine import Engine, GenerationRequest
+    from mistralrs_tpu_torch.engine.sampler import SamplingParams
+    from mistralrs_tpu_torch.models.loader import make_rope
+    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
+
+    moved = dataclasses.replace(params, embed=params.embed.to(device, dtype),
+                                layers=chip_smoke._moved(params.layers, device, dtype),
+                                final_norm=chip_smoke._moved(params.final_norm, device, dtype),
+                                lm_head=chip_smoke._moved(params.lm_head, device, dtype))
+    pc = PipelineConfig(max_seqs=2, max_model_len=512, num_pages=64, dtype=dtype,
+                        device=str(device), attn_backend=backend)
+    pipe = TextPipeline(cfg, moved, make_rope(cfg, 512, device=device), pc)
+    eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
+    rng = torch.Generator().manual_seed(5)
+    groups = [eng.add_request(GenerationRequest(
+        torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist(), SamplingParams(max_len=8)))
+        for n in (130, 20)]
+    while not all(g.all_done() for g in groups):
+        eng.step()
+    return [list(s.generated_tokens) for g in groups for s in g.seqs]
+
+
+@pytest.mark.parametrize("backend", [None, "ragged"])
+def test_head_dim_64_llama_serves_on_the_card(dev, backend):
+    """No card attention kernel takes head dim 64, so every step of this
+    model takes the gather route on the card (over the split views of the
+    ragged backend's combined pool); its greedy tokens equal the CPU run's,
+    where the first chunk takes the flash route and the ragged backend K12
+    (their plain versions)."""
+    from mistralrs_tpu_torch.ops import paged_attention as pa_ops
+
+    cfg, params = _tiny_d64_llama()
+    want = _serve_tokens(cfg, params, torch.device("cpu"), torch.float32, backend)
+    before = (fa.flash_prefill_launches, pa_ops.paged_decode_launches,
+              pa_ops.flash_prefill_paged_launches, ra.ragged_attention_launches,
+              sp.splash_prefill_launches)
+    got = _serve_tokens(cfg, params, dev, torch.bfloat16, backend)
+    after = (fa.flash_prefill_launches, pa_ops.paged_decode_launches,
+             pa_ops.flash_prefill_paged_launches, ra.ragged_attention_launches,
+             sp.splash_prefill_launches)
+    assert after == before
+    assert got == want and all(len(t) == 8 for t in got)
 
 
 # ------------------------------------------------------------- bf16 activations

@@ -1,17 +1,19 @@
 """The launch plan of K1 (q4k_q8_gemv) and K2 (q8_0_q8_gemv): row tile,
-grid, K split and workspace bytes, at every row count up to 256 and the
-Mistral-7B Q4_K_M main path's projection shapes. Pure Python: the plan is
-what the wrappers hand the CUDA entry points."""
+grid, K split, cluster, column tile, ring stages and workspace bytes, at
+every row count up to 256 and the Mistral-7B Q4_K_M main path's projection
+shapes. Pure Python: the plan is what the wrappers hand the CUDA entry
+points, which check every field of it."""
 
 import pytest
 
 from mistralrs_tpu_torch.ops import quant_matmul as qm
 
-# (kernel, name, K, O): K1's fused q|k, o, gate|up and down; K2's v, the
-# rq8 down and the padded lm_head
+# (kernel, name, K, O): K1's fused q|k (6144: q|k|v's width; 5120: the main
+# path's, whose v is Q6_K), o, gate|up and down; K2's v, the rq8 down and the
+# padded lm_head
 SHAPES = [("k1", "qk", 4096, 6144), ("k1", "o", 4096, 4096), ("k1", "gate|up", 4096, 28672),
           ("k1", "down", 14336, 4096), ("k2", "v", 4096, 1024), ("k2", "down rq8", 14336, 4096),
-          ("k2", "lm_head", 4096, 32768)]
+          ("k2", "lm_head", 4096, 32768), ("k1", "q|k", 4096, 5120)]
 
 
 def _align256(n):
@@ -19,17 +21,18 @@ def _align256(n):
 
 
 def carve(B, K, O, gs, sum_gs, ksplit, rows):
-    """csrc/common.cuh::carve, written out again: bpad and the pieces xq, xs,
-    xsum, partials as {name: (offset, bytes)}, and the total."""
+    """csrc/common.cuh::carve, written out again for K1 and K2 (row tile 16:
+    the decode layout; 64 or 128: tiled): bpad and the pieces xq, xs, xsum,
+    partials as {name: (offset, bytes)}, and the total."""
     tiled = rows > 16
     bpad = (B + rows - 1) // rows * rows
     pieces, off = {}, 0
     sizes = []
     if gs:
-        sizes += [("xq", (bpad if tiled else B) * K), ("xs", (K // gs) * bpad * 4)]
+        sizes += [("xq", bpad * K), ("xs", (K // gs) * bpad * 4)]
     if sum_gs:
         sizes.append(("xsum", (K // sum_gs) * bpad * 4))
-    if not tiled or ksplit > 1:
+    if tiled and ksplit > 1:
         sizes.append(("part", ksplit * B * O * 4))
     for name, n in sizes:
         pieces[name] = (off, n)
@@ -58,6 +61,26 @@ def check_row_tile_reads(B, K, gs, sum_gs, plan):
         assert start + n <= size and off + size <= total, (name, B, plan)
 
 
+def check_decode_plan(B, K, O, k_units, gs, sum_gs, sms, plan, scale_bytes=2):
+    """Up to 16 rows: one cluster of the K splits a column tile (within the
+    portable limit of 8), each column tile once in the grid, the K splits
+    whole ring stages that cover K with none empty, the
+    ring's stages as csrc/common.cuh::dec_stages counts them, and no
+    partials in the workspace."""
+    assert plan.rows == 16 and plan.cols in (64, 128), (B, plan)
+    ks, ctiles, one = plan.grid
+    assert one == 1 and ctiles == -(-O // plan.cols) and (ctiles - 1) * plan.cols < O, (B, plan)
+    assert plan.cluster == plan.ksplit == ks and 1 <= ks <= 8, (B, plan)
+    slices = K // 64 if sum_gs else K // 32  # K1: pairs; K2: 32-row slices
+    sub = qm.DEC_SUB  # K steps (pairs, or 32-row slices) of a stage
+    per = -(-(-(-slices // ks)) // sub) * sub  # whole stages
+    assert per == qm.dec_per_split(slices, ks)
+    assert (ks - 1) * per < slices <= ks * per, (B, plan)  # no empty split
+    step = plan.cols * ((32 + 4 * 2) * sub if sum_gs else (32 * sub + 32 * sub // gs * scale_bytes))
+    assert plan.stages == -(-32768 // step), (B, plan)
+    assert "part" not in carve(B, K, O, gs, sum_gs, ks, 16)[1]
+
+
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("kernel,name,K,O", SHAPES)
 def test_int8_gemv_plan(kernel, name, K, O, sms):
@@ -67,9 +90,9 @@ def test_int8_gemv_plan(kernel, name, K, O, sms):
         plan = qm.int8_gemv_plan(B, K, O, k_units, gs, sum_gs, sms)
         assert 1 <= plan.ksplit <= max(1, k_units // 4), (B, plan)
         if B <= 16:
-            assert plan.rows == 16
-            assert plan.grid == (ctiles, plan.ksplit, 1)
+            check_decode_plan(B, K, O, k_units, gs, sum_gs, sms, plan)
         else:
+            assert plan.cluster == 1 and plan.cols == 128 and plan.stages == 0, (B, plan)
             assert plan.rows == (64 if B <= 64 else 128), (B, plan)
             rtiles, ct, ks = plan.grid
             # each weight tile is read by at most two blocks, row tiles fastest
@@ -81,23 +104,45 @@ def test_int8_gemv_plan(kernel, name, K, O, sms):
         assert plan.ws_bytes == carve_bytes(B, K, O, gs, sum_gs, plan.ksplit, plan.rows)
 
 
+def _check_k2_plans(gs, scale_bytes):
+    for K, O in [(14336, 4096), (4096, 1024), (4096, 32768), (1024, 144), (1024, 512)]:
+        for B in (1, 3, 8, 9, 16, 17, 64, 65, 200, 256):
+            plan = qm.int8_gemv_plan(B, K, O, K // gs, gs, 0, 132, scale_bytes)
+            assert plan.ws_bytes == carve_bytes(B, K, O, gs, 0, plan.ksplit, plan.rows)
+            if B <= 16:  # splits of whole ring stages
+                check_decode_plan(B, K, O, K // gs, gs, 0, 132, plan, scale_bytes)
+            else:
+                assert 1 <= plan.ksplit <= max(1, K // gs // 4)
+                check_row_tile_reads(B, K, gs, 0, plan)
+
+
 def test_int8_gemv_plan_k2_group_64():
-    K, O = 14336, 4096
-    for B in (1, 16, 17, 64, 65, 200, 256):
-        plan = qm.int8_gemv_plan(B, K, O, K // 64, 64, 0, 132)
-        assert 1 <= plan.ksplit <= K // 64 // 4
-        assert plan.ws_bytes == carve_bytes(B, K, O, 64, 0, plan.ksplit, plan.rows)
-        if B > 16:
-            check_row_tile_reads(B, K, 64, 0, plan)
+    """K2 at group 64 (rq8 64 with f32 scales, and bf16 scales) at the main
+    path's shapes and the tests' tails."""
+    for scale_bytes in (4, 2):
+        _check_k2_plans(64, scale_bytes)
 
 
-def test_decode_plan_is_the_earlier_split():
-    """Up to 16 rows the plan keeps the decode kernel's split of before."""
-    for B in (1, 5, 16):
-        for kernel, _, K, O in SHAPES:
-            k_units = K // 64 if kernel == "k1" else K // 32
-            plan = qm.int8_gemv_plan(B, K, O, k_units, 32, 32 if kernel == "k1" else 0, 132)
-            assert plan.ksplit == qm._ksplit_for(O, B, k_units, 132)
+def test_int8_gemv_plan_k2_group_32_scales():
+    """K2 at group 32: rq8's f32 scales and wire Q8_0's bf16 ones."""
+    for scale_bytes in (4, 2):
+        _check_k2_plans(32, scale_bytes)
+
+
+def test_decode_plan_fills_the_card_in_one_wave():
+    """Up to 16 rows the plan puts about three blocks on every SM, in one
+    wave: at the main path's shapes the grid holds between one and three
+    blocks an SM, 64-column tiles only where 128-column clusters of 8
+    would leave SMs idle (K2's v), and the plan does not depend on B."""
+    for sms in (132, 114):
+        for kernel, name, K, O in SHAPES:
+            sum_gs, k_units = (32, K // 64) if kernel == "k1" else (0, K // 32)
+            plans = {qm.int8_gemv_plan(B, K, O, k_units, 32, sum_gs, sms) for B in range(1, 17)}
+            assert len(plans) == 1, (name, plans)
+            plan = plans.pop()
+            blocks = plan.grid[0] * plan.grid[1]
+            assert sms * 0.9 <= blocks <= 3 * sms, (name, sms, plan)
+            assert plan.cols == (64 if name == "v" else 128), (name, plan)
 
 
 @pytest.mark.parametrize("B", [129, 150, 192])

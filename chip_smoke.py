@@ -23,6 +23,8 @@ non-zero and never prints the final line):
    events, median of 25 runs, L2 flushed before each) beside the least time
    the card could take (bound); for the Q6_K int8 GEMV (K3) also the time of
    the int8 GEMV (K2) on the same weight requantized to int8 per 32 (rq8).
+   K1, K2 and K9 also at 64, 128 and 256 rows (K9 at 17 too), K10 at 64 and
+   256 in every layout: the rows instantiations.
 4. slice: the 32-layer Mistral-7B Q4_K_M model with random packed weights
    (the value ranges of bench.py), fused and Q6_K->int8 requantized by the
    pipeline, serves 8 greedy requests through Engine/TextPipeline: ~200-token
@@ -42,15 +44,18 @@ non-zero and never prints the final line):
    has Q4_K) with Q6_K kept as Q6_K (rq8_group=None) serves the slice
    phase's pattern through Engine/TextPipeline: 4 x 256-row first chunks
    (q5k_dequant / q6k_dequant + torch.matmul, flash prefill), 4 x 64-row
-   chunks (K9 and K4), decode at batch 16 (K9 and K3). It raises unless
-   K3, K4, K9 and both dequant kernels launched and K1 and K2 did not.
+   chunks (K9's rows instantiation and K4), decode at batch 16 (K9's
+   16-row kernel and K3). It raises unless K3, K4, both instantiations of
+   K9 and both dequant kernels launched and K1 and K2 did not.
 7. q2k: the 32-layer Mistral-7B in llama.cpp's Q2_K mix (Q2_K q, k, gate,
    up; Q4_K v; Q3_K o and down packed into the Q6_K layout; Q6_K lm_head),
    Q3_K and Q6_K requantized to int8 per 32 by the pipeline, serves the
    slice phase's pattern: 4 x 256-row first chunks (affine_dequant /
    q4k_dequant / q8_0_dequant + torch.matmul, flash prefill), 4 x 64-row
-   chunks and decode at batch 16 (the plane-affine GEMV K10, K1 and K2). It
-   raises unless those kernels launched and no Q5_K or Q6_K kernel did.
+   chunks (the plane-affine GEMV K10's rows instantiation, K1 and K2's)
+   and decode at batch 16 (K10's 16-row kernel, K1 and K2). It raises
+   unless those kernels, both instantiations of K10 among them, launched
+   and no Q5_K or Q6_K kernel did.
 8. gemma2: Gemma-2-9B (config_from_hf on google/gemma-2-9b's config.json:
    42 layers, 16 heads / 8 kv heads of 256, logit soft caps 50 and 30,
    alternating windows of 4096, sandwich norms, gelu-tanh) with every
@@ -171,12 +176,17 @@ KERNEL_INFO = {
                       "mistralrs_tpu/ops/quant_matmul.py:896"),
     "q5k_q8_gemv": ("mistralrs_tpu_torch/csrc/q5k_q8_gemv.cu",
                     "mistralrs_tpu/ops/quant_matmul.py:757"),
+    # K9's and K10's rows instantiations (17-256 rows), counted apart
+    "q5k_q8_gemv_rows": ("mistralrs_tpu_torch/csrc/q5k_q8_gemv.cu",
+                         "mistralrs_tpu/ops/quant_matmul.py:757"),
     "q6k_dequant": ("mistralrs_tpu_torch/csrc/q6k_gemv.cu",
                     "mistralrs_tpu/quant/gguf_linear.py:469"),
     "q5k_dequant": ("mistralrs_tpu_torch/csrc/q5k_q8_gemv.cu",
                     "mistralrs_tpu/quant/gguf_linear.py:498"),
     "affine_gemv": ("mistralrs_tpu_torch/csrc/affine_gemv.cu",
                     "mistralrs_tpu/ops/quant_matmul.py:533"),
+    "affine_gemv_rows": ("mistralrs_tpu_torch/csrc/affine_gemv.cu",
+                         "mistralrs_tpu/ops/quant_matmul.py:533"),
     "affine_dequant": ("mistralrs_tpu_torch/csrc/affine_gemv.cu",
                        "mistralrs_tpu/quant/gguf_linear.py:515"),
     "splash_prefill": ("mistralrs_tpu_torch/csrc/splash_prefill.cu",
@@ -200,6 +210,7 @@ HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
             "q8_0_dequant": "down rq8", "q6k_q8_gemv": "lm_head B=16",
             "q6k_bf16_gemv": "down B=256", "q5k_q8_gemv": "gate|up B=16", "q6k_dequant": "down",
             "q5k_dequant": "gate|up", "affine_gemv": "gate|up q2k B=16",
+            "q5k_q8_gemv_rows": "gate|up B=256", "affine_gemv_rows": "gate|up q2k B=256",
             "affine_dequant": "gate|up q2k", "splash_prefill": "gemma2-9b B=4 T=512",
             "ragged_attention": "mistral B=16 kv=4096 decode", "grouped_gemm": "gate M=32 decode",
             "q4k_bf16_gemv": "gate|up B=16", "q8_0_bf16_gemv": "lm_head B=16",
@@ -215,8 +226,9 @@ PATH_KERNELS = {
     "slice": ("q4k_q8_gemv", "q8_0_q8_gemv", "q4k_q8_gemv_rows", "q8_0_q8_gemv_rows",
               "flash_prefill", "q4k_dequant", "q8_0_dequant"),
     "long_context": ("flash_prefill_paged", "paged_decode"),
-    "quant_mix": ("q6k_q8_gemv", "q6k_bf16_gemv", "q5k_q8_gemv", "q6k_dequant", "q5k_dequant"),
-    "q2k": ("affine_gemv", "affine_dequant"),
+    "quant_mix": ("q6k_q8_gemv", "q6k_bf16_gemv", "q5k_q8_gemv", "q5k_q8_gemv_rows",
+                  "q6k_dequant", "q5k_dequant"),
+    "q2k": ("affine_gemv", "affine_gemv_rows", "affine_dequant"),
     "gemma2": ("splash_prefill",),
     "gemma2_ragged": ("ragged_attention",),
     "mixtral": ("grouped_gemm",),
@@ -239,6 +251,8 @@ COUNTERS = {
     "q6k_dequant": ("quant_matmul", "q6k_dequant_launches"),
     "q5k_dequant": ("quant_matmul", "q5k_dequant_launches"),
     "affine_gemv": ("quant_matmul", "affine_gemv_launches"),
+    "q5k_q8_gemv_rows": ("quant_matmul", "q5k_q8_gemv_rows_launches"),
+    "affine_gemv_rows": ("quant_matmul", "affine_gemv_rows_launches"),
     "affine_dequant": ("quant_matmul", "affine_dequant_launches"),
     "splash_prefill": ("splash", "splash_prefill_launches"),
     "ragged_attention": ("ragged_attention", "ragged_attention_launches"),
@@ -922,6 +936,11 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
     return results
 
 
+# the row counts K9 is timed at: the 16-row kernel at 16 and 1, the rows
+# instantiation at 17, 64, 128 and 256
+K9_ROWS = (16, 1, 17, 64, 128, 256)
+
+
 def q56k_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
     """Parity and timing of K3, K4, K9 and the Q5_K / Q6_K dequant kernels
     at the shapes of the Q5_K_M path (random packed weights, bench.py's
@@ -1004,13 +1023,13 @@ def q56k_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
                clock.ms(lambda: qm.q5k_dequant(qs, qh, scale, minv, fdt)),
                clock.ms(lambda: qm.q5k_dequant_plain(qs, qh, scale, minv, fdt)), None,
                bound(w_bytes + K * O * 2, 2 * K * O, PEAK_BF16))
-        for B in (16, 1, 256):
+        for B in K9_ROWS:
             x = torch.randn(B, K, device=device, generator=gen).to(fdt)
             err, rel = compare(qm.q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=torch.float32),
                                qm.q5k_q8_gemv_plain(x, qs, qh, scale, minv, torch.float32))
             nbytes = B * K * 2 + w_bytes + B * O * 2
             # exact int dots over the 5-bit codes on both sides
-            record("q5k_q8_gemv", f"{nm} B={B}", err, rel, 1e-5,
+            record("q5k_q8_gemv" if B <= 16 else "q5k_q8_gemv_rows", f"{nm} B={B}", err, rel, 1e-5,
                    clock.ms(lambda: qm.q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=fdt)),
                    clock.ms(lambda: qm.q5k_q8_gemv_plain(x, qs, qh, scale, minv, fdt)),
                    clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_INT8))
@@ -1023,7 +1042,8 @@ def affine_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
     256 rows; GPTQ-8 (group 128, the rows of an act-order checkpoint sorted
     at load; x is gathered before the kernel) at down and gate|up; HQQ-1
     and HQQ-2 (group 64) and GPTQ-4 at group 16 (which does not map onto
-    Q4_K) at gate|up. Random codes, scale U[0.001, 0.005), zs = 1.5 * scale
+    Q4_K) at gate|up; those at 16, 64 and 256 rows (above 16 rows the rows
+    instantiation, counted as affine_gemv_rows). Random codes, scale U[0.001, 0.005), zs = 1.5 * scale
     (Q2_K's minv) or 2^(bits-1) * scale (a mid-range zero point). library =
     torch.matmul on the dequantized bf16 weight."""
     import torch
@@ -1037,11 +1057,12 @@ def affine_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
         err = float((got.float() - want.float()).abs().max())
         return err, err / max(float(want.float().abs().max()), 1e-30)
 
+    rows = (16, 64, 256)
     cases = [("q2k", 2, 16, "qk", H, (sz.heads + sz.kv_heads) * D, (1, 16, 64, 256)),
              ("q2k", 2, 16, "gate|up", H, 2 * I, (1, 16, 64, 256)),
-             ("gptq8", 8, 128, "down", I, H, (16,)), ("gptq8", 8, 128, "gate|up", H, 2 * I, (16,)),
-             ("hqq1", 1, 64, "gate|up", H, 2 * I, (16,)), ("hqq2", 2, 64, "gate|up", H, 2 * I, (16,)),
-             ("gptq4", 4, 16, "gate|up", H, 2 * I, (16,))]
+             ("gptq8", 8, 128, "down", I, H, rows), ("gptq8", 8, 128, "gate|up", H, 2 * I, rows),
+             ("hqq1", 1, 64, "gate|up", H, 2 * I, rows), ("hqq2", 2, 64, "gate|up", H, 2 * I, rows),
+             ("gptq4", 4, 16, "gate|up", H, 2 * I, rows)]
     for fmt, bits, group, nm, K, O, rows in cases:
         q = rand(K * bits // 8, O, lo=0.0, hi=256.0).to(torch.uint8)
         scale = rand(K // group, O, lo=0.001, hi=0.005, dtype=fdt)
@@ -1064,7 +1085,8 @@ def affine_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
             nbytes = w_bytes + B * K * 2 + B * O * 2
             # the same bf16(q * scale) weights on both sides; f32 sums of
             # bf16 products in another order, the zs term over per-16 sums
-            record("affine_gemv", f"{nm} {fmt} B={B}", err, rel, 1e-4,
+            record("affine_gemv" if B <= 16 else "affine_gemv_rows", f"{nm} {fmt} B={B}", err,
+                   rel, 1e-4,
                    clock.ms(lambda: qm.affine_gemv(x, q, scale, zs, bits, group, out_dtype=fdt)),
                    clock.ms(lambda: qm.affine_gemv_plain(x, q, scale, zs, bits, group, fdt)),
                    clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_BF16))
@@ -1724,8 +1746,8 @@ def slice_phase(sz: Sizes, device) -> dict:
 
 
 def quant_mix_phase(sz: Sizes, device) -> dict:
-    """Q5_K_M with Q6_K kept as Q6_K: K9, K3, K4 and the Q5_K / Q6_K dequant
-    kernels, and neither K1 nor K2."""
+    """Q5_K_M with Q6_K kept as Q6_K: K9 (both instantiations), K3, K4 and
+    the Q5_K / Q6_K dequant kernels, and neither K1 nor K2."""
     out = short_context_phase(sz, device, "quant_mix", random_q5km_params, None)
     check_launched(out["launches"], PATH_KERNELS["quant_mix"] + ("flash_prefill",))
     if any(k1_k2_launches(out["launches"])):
@@ -1739,9 +1761,9 @@ Q2K_KINDS = ["gguf_q2k", "gguf_q4k", "gguf_q8_0"]
 
 def q2k_phase(sz: Sizes, device) -> dict:
     """llama.cpp's Q2_K mix with Q3_K and Q6_K requantized to int8 per 32
-    (the default rq8): K10 for q|k and gate|up up to 256 rows and
-    affine_dequant above, K1 for v, K2 for o, down and the lm_head; no
-    Q5_K or Q6_K kernel."""
+    (the default rq8): K10 for q|k and gate|up up to 256 rows (its rows
+    instantiation above 16) and affine_dequant above, K1 for v, K2 for o,
+    down and the lm_head; no Q5_K or Q6_K kernel."""
     out = short_context_phase(sz, device, "q2k", random_q2k_params, 32)
     if out["kinds"] != Q2K_KINDS:
         raise AssertionError(f"the Q2_K pipeline serves other kinds: {out['kinds']}")
@@ -1773,8 +1795,8 @@ def gemma2_phase(sz: Sizes, device) -> dict:
 # the int8 route's GEMVs, which no layer of an int8_activations=False
 # pipeline may launch
 INT8_GEMVS = ("q4k_q8_gemv", "q8_0_q8_gemv", "q6k_q8_gemv", "q5k_q8_gemv")
-# their launch counters (K1 and K2 have a second instantiation each)
-INT8_COUNTERS = INT8_GEMVS + ("q4k_q8_gemv_rows", "q8_0_q8_gemv_rows")
+# their launch counters (K1, K2 and K9 have a second instantiation each)
+INT8_COUNTERS = INT8_GEMVS + ("q4k_q8_gemv_rows", "q8_0_q8_gemv_rows", "q5k_q8_gemv_rows")
 
 
 def gguf_bf16_phase(sz: Sizes, device) -> dict:

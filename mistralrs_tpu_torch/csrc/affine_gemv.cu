@@ -29,46 +29,101 @@
 // What bounds it on an H100: at decode the weight stream. Q2_K moves 0.25
 // bytes of codes and 0.25 bytes of bf16 scale and min a weight (group 16),
 // against 3.35 TB/s; at 256 rows, the bf16 tensor-core operations.
-// Design for that: csrc/plane_gemv.cuh, whose kernel this file launches with
-// unsigned codes, bf16 scale and zs, and the zs term on (the kernel K8 and
-// K9b share).
+// Design for that: csrc/plane_gemv.cuh, whose kernels this file launches
+// with unsigned codes, bf16 scale and zs, and the zs term on: up to 16 rows
+// plane_bf16_mma_kernel (the kernel K8 and K9b share), at 17-256 rows
+// plane_rows_kernel (TMA, bf16 wgmma, the zs term on the tensor cores).
 #include "plane_gemv.cuh"
+
+namespace {
+
+template <int BITS>
+int launch_rows_bits(const mrt::Workspace& w, const uint8_t* q,
+                     const __nv_bfloat16* scale, const __nv_bfloat16* zs, void* out,
+                     int out_is_bf16, int B, int K, int O, int group, int rows, dim3 grid,
+                     int stages, cudaStream_t st) {
+  using BF = __nv_bfloat16;
+  if (rows == 64) {
+    if (stages != mrt::kPlaneRowStages<BITS, 64, BF>) return (int)cudaErrorInvalidValue;
+    return mrt::launch_plane_rows<BITS, 64, false, BF, true>(w, q, scale, zs, out, out_is_bf16, B,
+                                                             K, O, group, grid, st);
+  }
+  if (stages != mrt::kPlaneRowStages<BITS, 128, BF>) return (int)cudaErrorInvalidValue;
+  return mrt::launch_plane_rows<BITS, 128, false, BF, true>(w, q, scale, zs, out, out_is_bf16, B,
+                                                            K, O, group, grid, st);
+}
+
+template <int BITS>
+int affine_bits(const __nv_bfloat16* x, const mrt::Workspace& w, const uint8_t* q,
+                const __nv_bfloat16* scale, const __nv_bfloat16* zs, void* out, int out_is_bf16,
+                int B, int K, int O, int group, int rows, dim3 grid, int stages,
+                cudaStream_t st) {
+  using G = mrt::PlaneRowGeom<BITS>;
+  if (rows == 16) {
+    mrt::launch_quantize<32>(x, true, nullptr, nullptr, nullptr, w.xsum, B, K, w.bpad, st);
+    const int err = mrt::launch_plane_rt<BITS, 1, false, __nv_bfloat16, true>(
+        x, w, q, scale, zs, B, K, O, group, (int)grid.y, st);
+    if (err != 0) return err;
+    return mrt::finish_gemv(w, out, out_is_bf16, (int)grid.y, B * O, st);
+  }
+  // the rows kernel: a group inside a plane and a power of two, and no
+  // empty K split
+  const int Kp = K / G::kPer;
+  const int Z = mrt::plane_slice_steps<BITS, true>(group);
+  const int nslices = (Kp / G::kR + Z - 1) / Z;
+  if (Kp % group != 0 || (group & (group - 1)) != 0 || (int)grid.z > nslices)
+    return (int)cudaErrorInvalidValue;
+  mrt::launch_plane_prep<BITS>(x, w, B, K, group, st);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_rows_bits<BITS>(w, q, scale, zs, out, out_is_bf16, B, K, O, group, rows, grid,
+                                stages, st);
+}
+
+}  // namespace
 
 // Shapes are checked by the Python wrapper (ops/quant_matmul.py): bits in
 // {1, 2, 4, 8}, group % 16 == 0, K % group == 0, (K / (8/bits)) % 32 == 0,
-// O % 16 == 0, 16-byte aligned pointers, ksplit <= K / (8/bits) / 32, and a
-// workspace of ws_bytes (see mrt::carve). Returns the CUDA error code of the
-// launches (0 = launched).
+// O % 16 == 0, 16-byte aligned pointers, and a workspace of ws_bytes (see
+// mrt::carve). The launch is the plan of ops/quant_matmul.plane_gemv_plan,
+// every field of it checked here:
+// - rows 16 (B <= 16): plane_bf16_mma_kernel, grid (column tiles, K splits,
+//   1), cluster 1, cols 128, stages 0, at most K/(8/bits)/32 splits. The
+//   quantize kernel's per-16 sums, the GEMV, the split-K pass.
+// - rows 64 or 128: plane_rows_kernel, grid (row tiles, column tiles, K
+//   splits), cluster 1, cols 128, its ring's stages, (K/(8/bits)) % group
+//   == 0, at most one split per zs slice. The per-group sums and x's
+//   step-ordered copy (plane_prep_kernel; the workspace tiled to the row
+//   tile), the GEMV and, with more than one split, the split-K pass.
+// Returns the CUDA error code of the launches (0 = launched).
 extern "C" int affine_gemv(const void* x, const void* q, const void* scale, const void* zs,
                            int bits, int group, void* ws, long long ws_bytes, void* out,
-                           int out_is_bf16, int B, int K, int O, int ksplit, void* stream) {
+                           int out_is_bf16, int B, int K, int O, int rows, int gx, int gy, int gz,
+                           int cluster, int cols, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const mrt::Workspace w = mrt::carve(ws, B, K, O, 0, 16, ksplit);
-  if (w.bytes > (size_t)ws_bytes) return (int)cudaErrorInvalidValue;
-  mrt::launch_quantize<32>(x, true, nullptr, nullptr, nullptr, w.xsum, B, K, w.bpad, st);
+  if (rows != 16 && rows != 64 && rows != 128) return (int)cudaErrorInvalidValue;
+  const bool dec = rows == 16;
+  const int ksplit = dec ? gy : gz;
+  const mrt::Workspace w = dec ? mrt::carve(ws, B, K, O, 0, 16, ksplit)
+                               : mrt::carve(ws, B, K, O, 0, group, ksplit, mrt::kTiled, rows, true);
+  const bool grid_ok = dec ? B <= 16 && gx == (O + mrt::kGemvCols - 1) / mrt::kGemvCols &&
+                                 gz == 1 && stages == 0 && ksplit <= K / (8 / bits) / 32
+                           : mrt::grid_covers(w, rows, cols, B, O, gx, gy, gz);
+  if (!grid_ok || cluster != 1 || cols != mrt::kGemvCols || w.bytes > (size_t)ws_bytes ||
+      ksplit < 1)
+    return (int)cudaErrorInvalidValue;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* qb = static_cast<const uint8_t*>(q);
   const auto* sb = static_cast<const __nv_bfloat16*>(scale);
   const auto* zb = static_cast<const __nv_bfloat16*>(zs);
-  using BF = __nv_bfloat16;
-  int err;
+  const dim3 grid(gx, gy, gz);
   switch (bits) {
-    case 1:
-      err = mrt::launch_plane<1, false, BF, true>(xb, w, qb, sb, zb, B, K, O, group, ksplit, st);
-      break;
-    case 2:
-      err = mrt::launch_plane<2, false, BF, true>(xb, w, qb, sb, zb, B, K, O, group, ksplit, st);
-      break;
-    case 4:
-      err = mrt::launch_plane<4, false, BF, true>(xb, w, qb, sb, zb, B, K, O, group, ksplit, st);
-      break;
-    case 8:
-      err = mrt::launch_plane<8, false, BF, true>(xb, w, qb, sb, zb, B, K, O, group, ksplit, st);
-      break;
+    case 1: return affine_bits<1>(xb, w, qb, sb, zb, out, out_is_bf16, B, K, O, group, rows, grid, stages, st);
+    case 2: return affine_bits<2>(xb, w, qb, sb, zb, out, out_is_bf16, B, K, O, group, rows, grid, stages, st);
+    case 4: return affine_bits<4>(xb, w, qb, sb, zb, out, out_is_bf16, B, K, O, group, rows, grid, stages, st);
+    case 8: return affine_bits<8>(xb, w, qb, sb, zb, out, out_is_bf16, B, K, O, group, rows, grid, stages, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  if (err != 0) return err;
-  return mrt::finish_gemv(w, out, out_is_bf16, ksplit, B * O, st);
 }
 
 // ---- dequantization for prefill-sized calls ----

@@ -12,6 +12,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace mrt {
 
 // bf16 -> f32 is exact: a bf16 is the high half of an f32.
@@ -25,6 +27,11 @@ __device__ __forceinline__ void split3(float v, __nv_bfloat16 p[3]) {
   const float r = v - __bfloat162float(p[0]);
   p[1] = __float2bfloat16_rn(r);
   p[2] = __float2bfloat16_rn(r - __bfloat162float(p[1]));
+}
+
+// two bf16 as one 32-bit word, lo in the low half
+__device__ __forceinline__ uint32_t bf16_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
 // 4x4 byte transpose: on entry a_i holds row i of four consecutive columns
@@ -467,6 +474,75 @@ __device__ __forceinline__ void wgmma_bf16_neg(int (&d)[N / 2], uint64_t da, uin
     wgmma_bf16_neg_n64(d, da, db, scale_d);
 }
 
+// The bf16 products of the plane rows kernel (K10 at 17-256 rows), f32
+// accumulators:
+// - wgmma_bf16: d[N/2] += A (64x16, smem, K-major) * B (16xN, smem,
+//   K-major);
+// - wgmma_bf16_rs_neg: d[N/2] += -A (64x16, registers: the A fragments of
+//   mma.m16n8k16 per warp) * B (16xN, smem, MN-major), the zs term.
+// N = 128 or 64; accumulator i of a thread holds row 16*(warp%4) + lane/4 +
+// 8*((i/2)%2), column 8*(i/4) + 2*(lane%4) + i%2.
+#define MRT_F8(i)                                                                               \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define MRT_ACC32_STR                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define MRT_ACC64_STR                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "    \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, " \
+  "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+  "%55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (N == 128)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " MRT_ACC64_STR
+                 ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+                 : MRT_F8(0), MRT_F8(8), MRT_F8(16), MRT_F8(24), MRT_F8(32), MRT_F8(40),
+                   MRT_F8(48), MRT_F8(56)
+                 : "l"(da), "l"(db), "r"(1));
+  else
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MRT_ACC32_STR
+                 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : MRT_F8(0), MRT_F8(8), MRT_F8(16), MRT_F8(24)
+                 : "l"(da), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_rs_neg(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  if constexpr (N == 128)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " MRT_ACC64_STR
+                 ", {%64, %65, %66, %67}, %68, p, -1, 1, 1;\n}\n"
+                 : MRT_F8(0), MRT_F8(8), MRT_F8(16), MRT_F8(24), MRT_F8(32), MRT_F8(40),
+                   MRT_F8(48), MRT_F8(56)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  else
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MRT_ACC32_STR
+                 ", {%32, %33, %34, %35}, %36, p, -1, 1, 1;\n}\n"
+                 : MRT_F8(0), MRT_F8(8), MRT_F8(16), MRT_F8(24)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef MRT_F8
+#undef MRT_ACC32_STR
+#undef MRT_ACC64_STR
+
+// Shared-memory matrix descriptors with a swizzle: `lbo` and `sbo` as for
+// kmajor_desc (for a K-major operand lbo is unused), layout 1 = the 128-byte
+// swizzle, 2 = 64-byte, 3 = 32-byte (the pattern TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_128B, _64B, _32B; the tile starts on the pattern's
+// period: 1024, 512, 256 bytes).
+__device__ __forceinline__ uint64_t swizzled_desc(const void* p, uint32_t lbo, uint32_t sbo,
+                                                  uint32_t layout) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
+}
+
 // A compiler-level fence on accumulator registers (no instruction): reads
 // and writes of d are not moved across it, so the epilogue's reads stay
 // after the wgmma.wait that completes d, and before the next wgmma into d.
@@ -474,6 +550,13 @@ template <int NA>
 __device__ __forceinline__ void fence_operand(int (&d)[NA]) {
 #pragma unroll
   for (int i = 0; i < NA; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+// the same for a wgmma's A fragments held in registers: placed after the
+// wait that completes it, their registers are not reused before
+template <int NA>
+__device__ __forceinline__ void fence_operand(uint32_t (&a)[NA]) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // The warpgroup index, broadcast from lane 0 so that the compiler sees it is
@@ -560,31 +643,37 @@ __device__ __forceinline__ void store_rows(void* out, int out_mode, const float 
 //   on `ready`;
 // - the consumers wait for `full` and `ready` (acquire), read the stage,
 //   and free it (release), every warp apart.
-// The producer warpgroup gives up registers (40 a thread) to the
-// consumers (232). A ring with kDecode false has no decode step (the
-// attention kernels K6 and K6', csrc/flash_sm90.cuh): all four producer
+// The producer warpgroup gives up registers (kProducerRegs a thread, 40
+// by default) to the consumers (the rest of the 64K: 232 at 40). A ring
+// with kDecode false has no decode step (the attention kernels K6 and
+// K6', csrc/flash_sm90.cuh): all four producer
 // warps issue a step's copies, copy(stage, i, full, ready, warp, lane) on
 // every lane; warps 0-1 announce their bytes on `full`, warps 2-3 on
 // `ready`, a second barrier of the step (two arrivals each); the consumers
 // wait for either (acquire, acquire_ready).
 constexpr int kRowThreads = 384;
 
-// Stages of a ring: as many as ~200 KB of shared memory hold beside kExtra
+// Stages of a ring: as many as kBudget bytes of shared memory (~200 KB;
+// 226 KB leaves room for the barriers in the card's 227) hold beside kExtra
 // bytes of other buffers, at most kMax (12: the copies of a stage take ~1-2
 // us to land, and the consumers need one every few hundred ns), and a
 // multiple of the three decode warps: a decode warp then also decoded the
 // stage's previous use, so it never waits on a `full` barrier two phases
 // ahead (a parity wait would pass there at once).
-template <typename Stage, int kExtra = 0, int kMax = 12>
+constexpr int kRingBudget = 200 * 1024;
+constexpr int kRingBudgetMax = 226 * 1024;
+template <typename Stage, int kExtra = 0, int kMax = 12, int kBudget = kRingBudget>
 __host__ __device__ constexpr int ring_stages() {
-  return ((int)((200 * 1024 - kExtra) / sizeof(Stage)) < kMax
-              ? (int)((200 * 1024 - kExtra) / sizeof(Stage))
+  return ((int)((kBudget - kExtra) / sizeof(Stage)) < kMax
+              ? (int)((kBudget - kExtra) / sizeof(Stage))
               : kMax) /
          3 * 3;
 }
 
-template <typename Stage, int kStages, bool kDecode = true>
+template <typename Stage, int kStages, bool kDecode = true, int kProducerRegs = 40>
 struct Ring {
+  // the consumers' registers: what the producers leave of the 64K, in 8s
+  static constexpr int kConsumerRegs = (65536 - 128 * kProducerRegs) / 256 / 8 * 8;
   // dynamic shared memory of the ring with `extra` bytes of other buffers
   static constexpr int smem_bytes(int extra) {
     return kStages * ((int)sizeof(Stage) + 3 * 8) + extra;
@@ -618,12 +707,12 @@ struct Ring {
   }
 
   // The whole block: copy(stage, i, full barrier) issues step i's copies
-  // (`tx` bytes; without kDecode copy(stage, i, full, ready, warp, lane) by
-  // every producer thread, and `tx` unused), decode(stage, i, lane) decodes
-  // it (not called without kDecode), consume(wg) is a consumer warpgroup's
-  // work.
-  template <typename Copy, typename Decode, typename Consume>
-  __device__ __forceinline__ void run(int n, uint32_t tx, Copy&& copy, Decode&& decode,
+  // (`tx` bytes, or tx(i) bytes when tx is a function of the step; without
+  // kDecode copy(stage, i, full, ready, warp, lane) by every producer
+  // thread, and `tx` unused), decode(stage, i, lane) decodes it (not called
+  // without kDecode), consume(wg) is a consumer warpgroup's work.
+  template <typename Tx, typename Copy, typename Decode, typename Consume>
+  __device__ __forceinline__ void run(int n, Tx tx, Copy&& copy, Decode&& decode,
                                       Consume&& consume) const {
     if (threadIdx.x == 0) {
       for (int i = 0; i < kStages; ++i) {
@@ -636,7 +725,7 @@ struct Ring {
     __syncthreads();
     const int wg = warpgroup_idx();
     if (wg == 2) {
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
       const int pw = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
       if constexpr (!kDecode) {
         for (int i = 0; i < n; ++i) {
@@ -647,7 +736,10 @@ struct Ring {
         if (lane == 0)
           for (int i = 0; i < n; ++i) {
             if (i >= kStages) mbar_wait(empty(i), parity(i) ^ 1);
-            mbar_expect_tx(full(i), tx);
+            if constexpr (std::is_invocable_v<Tx, int>)
+              mbar_expect_tx(full(i), tx(i));
+            else
+              mbar_expect_tx(full(i), (uint32_t)tx);
             copy((*this)[i], i, full(i));
           }
       } else {
@@ -660,7 +752,7 @@ struct Ring {
         }
       }
     } else {
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
       consume(wg);
     }
   }
@@ -799,17 +891,20 @@ inline size_t align256(size_t n) { return (n + 255) & ~size_t(255); }
 // out itself). With kDecode (the decode instantiations of K1 and K2): bpad
 // is 16, xq holds 16 rows, and there are no partials (the K splits of a
 // column tile add theirs in the cluster's shared memory).
+// With xcopy (K10's rows instantiation, tiled) a bf16 copy of x [bpad, K]
+// in the GEMV's step order follows xsum.
 struct Workspace {
   int8_t* xq;   // [B, K] ([bpad, K] tiled or decode), nullptr when gs is 0
   float* xs;    // [K/gs, bpad], nullptr when gs is 0
   float* xsum;  // [K/sum_gs, bpad], nullptr when sum_gs is 0
+  __nv_bfloat16* xc;  // [bpad, K], nullptr without xcopy
   float* part;  // [ksplit, B, O], nullptr when tiled with ksplit 1 or decode
   int bpad;     // B rounded up to 16 (to the row tile when tiled)
   size_t bytes;
 };
 
 inline Workspace carve(void* ws, int B, int K, int O, int gs, int sum_gs, int ksplit,
-                       XLayout layout = kRowMajor, int rows = 16) {
+                       XLayout layout = kRowMajor, int rows = 16, bool xcopy = false) {
   char* p = static_cast<char*>(ws);
   Workspace w;
   if (layout != kTiled) rows = 16;
@@ -825,6 +920,8 @@ inline Workspace carve(void* ws, int B, int K, int O, int gs, int sum_gs, int ks
   }
   w.xsum = sum_gs ? reinterpret_cast<float*>(p + off) : nullptr;
   if (sum_gs) off += align256((size_t)(K / sum_gs) * w.bpad * 4);
+  w.xc = xcopy ? reinterpret_cast<__nv_bfloat16*>(p + off) : nullptr;
+  if (xcopy) off += align256((size_t)w.bpad * K * 2);
   w.part = nullptr;
   if (layout == kRowMajor || (layout == kTiled && ksplit > 1)) {
     w.part = reinterpret_cast<float*>(p + off);

@@ -40,8 +40,14 @@
 //   four (64 rows); the zs term is two f32 FMAs a half on the accumulators;
 // - the K axis is split over blockIdx.y; the partials are added in a fixed
 //   order by common.cuh's split-K pass.
-// Not done yet (later work): TMA/wgmma, fusing the split-K pass, the zs term
-// on the tensor cores, reading a group-32 scale row once for both halves.
+// Not done yet in plane_bf16_mma_kernel (later work): TMA/wgmma, fusing the
+// split-K pass, the zs term on the tensor cores, reading a group-32 scale
+// row once for both halves. K8 and K9b run it at every row count, K10 up to
+// 16 rows.
+//
+// K10 at 17-256 rows runs plane_rows_kernel (below): TMA, a producer
+// warpgroup that decodes each stage once, bf16 wgmma, the zs term on the
+// tensor cores; its design is written beside it.
 #pragma once
 
 #include "common.cuh"
@@ -281,6 +287,396 @@ int launch_plane(const __nv_bfloat16* x, const Workspace& w, const uint8_t* q, c
                                                          ksplit, st)
              : launch_plane_rt<BITS, 4, SIGNED, ST, ZS>(x, w, q, scale, zs, B, K, O, group,
                                                          ksplit, st);
+}
+
+// ---- The rows instantiation (17-256 rows): plane_rows_kernel ----
+//
+// What bounds it on an H100: the bf16 tensor cores (2*B*K*O operations; at
+// K10's gate|up, B = 256, 0.061 ms), and close behind the decode of the
+// codes into bf16 tiles, which no unit but the CUDA cores can do. Design
+// (K1's rows kernel, csrc/q4k_rows.cuh, on common.cuh's mrt::Ring):
+// - a block owns 128 columns and BM = 64 or 128 rows (two consumer
+//   warpgroups: one per 64 rows at BM 128, wgmma N = 128; one per 64
+//   columns at BM 64, N = 64) and a producer warpgroup; the grid is (row
+//   tiles, column tiles, K splits), row tiles fastest, so each weight tile
+//   is read by at most two blocks, neighbours that meet in L2; K is split
+//   only to fill one wave (ops/quant_matmul.plane_gemv_plan);
+// - a main K step takes kR byte rows of q, which hold kPer = 8/BITS chunks
+//   of kR elements (plane j: elements j*Kp + r0..), kE = kPer * kR elements
+//   in all (64; 32 at 8 bits, to keep six stages): thread 0 of the producer
+//   warpgroup brings the rows (TMA), their scale rows (one TMA box over
+//   scale seen as [kPer][Kp/group][O]) and x's kE elements for the BM rows
+//   (one TMA box of 128- or 64-byte rows with the swizzle of that width,
+//   from a copy of x in step order that plane_prep_kernel writes before the
+//   GEMV with the per-group sums: with TMA boxes of x's own chunks, 16-64-
+//   byte pieces, HQQ-1's gate|up at B = 256 took 0.261 ms, not 0.177), and
+//   a producer warp decodes the rows once into a K-major bf16 B tile: a 4x4
+//   byte transpose per column quad (K1's load_quad8), then per code
+//   bf16(code * s), one rounding of the exact product as the JAX kernel's
+//   bf16 `vals * srep`: below 8 bits the pair (128 + c0, 128 + c1) is built
+//   as bf16 bits (0x43cc) and one fma.rn.bf16x2 with (s, s) and (-128 s,
+//   -128 s) gives c * s rounded once; at 8 bits 2^23 + c as f32 bits and
+//   an f32 fma with -2^23 s (exact), rounded to bf16 by the pack;
+// - the consumers run bf16 wgmma.m64nNk16 on the x tile (A) and the
+//   decoded tile (B) straight into the f32 accumulators: the scale is in
+//   the weight, so there is no epilogue per step;
+// - the zs term: every Z = kZU * group / kE main steps (a slice: kZU = 32
+//   groups at 64-element steps, 16 at 32; kZU/kPer in each plane) one zs
+//   step brings the slice's per-group sums of x (xsum, [kPer][Kp/group]
+//   [bpad] f32, from plane_prep_kernel) and its zs rows (bf16, two
+//   64-column boxes with the 128-byte swizzle, the MN-major B operand);
+//   each consumer thread splits its sums exactly into three bf16 parts held
+//   as wgmma A fragments, and three wgmma.m64nNk16 a 16 groups with A
+//   negated subtract xsum @ zs into the same accumulators (3/16 of the main
+//   product's tensor work at group 16, 3/128 at group 128, and no FMAs);
+// - a stage is freed as soon as the wgmmas that read it have completed; one
+//   split writes out directly, more splits go through the fixed-order
+//   split-K pass;
+// - group, Z and the scale rows a step are powers of two, so the per-step
+//   index arithmetic is shifts and a multiply-high (a runtime division in
+//   the single-thread producer, decode and consumer loops cost 13%).
+// What holds it above the tensor bound (PERF.md §6): a step's ring round
+// trip (TMA, decode, the products, the release), which the ~5 stages that
+// fit in shared memory do not hide.
+// SIGNED and an f32 scale type ST are K8's (int8 codes, rq8's f32 scales),
+// kept for it: only K10's unsigned codes with bf16 scales and the zs term
+// are instantiated (csrc/affine_gemv.cu).
+
+template <int BITS>
+struct PlaneRowGeom {
+  static constexpr int kPer = 8 / BITS;           // planes of a byte row
+  static constexpr int kE = BITS == 8 ? 32 : 64;  // elements a main step
+  static constexpr int kR = kE / kPer;            // byte rows a step: the elements of a chunk
+  static constexpr int kScRows = kPer > kE / 16 ? kPer : kE / 16;  // scale rows a step, at most
+  static constexpr int kXRow = 2 * kE;            // bytes of a row of the x tile
+  // groups of a zs slice: 32 where a stage's x tile holds their sums (64-
+  // element steps), else 16
+  static constexpr int kZU = kE == 64 ? 32 : 16;
+  // the wgmma layout type of the x tile (the swizzle TMA writes)
+  static constexpr uint32_t kXLayout = kXRow == 128 ? 1 : 2;
+  static constexpr CUtensorMapSwizzle kXSwizzle =
+      kXRow == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+};
+
+// A stage: at a main step the x tile, the decoded B tile, the byte rows and
+// the scale rows; at a zs step the slice's sums in x's place (kZU x BM f32)
+// and its zs tile in the B tile's (2 x kZU rows of 64 bf16).
+template <int BITS, int BM, typename ST>
+struct alignas(1024) PlaneRowStage {
+  using G = PlaneRowGeom<BITS>;
+  uint8_t x[BM * G::kE * 2];         // [BM][kE] bf16, the step's chunks in plane order
+  uint8_t w[G::kE * kGemvCols * 2];  // (c, k) at (k/8)*2048 + c*16 + (k%8)*2
+  uint8_t q[G::kR * kGemvCols];      // byte row r at r*128
+  ST sc[G::kScRows][kGemvCols];      // plane j's scale rows from j * nr
+};
+
+template <int BITS, int BM, typename ST>
+constexpr int kPlaneRowStages =
+    ring_stages<PlaneRowStage<BITS, BM, ST>, 1024, 12, kRingBudgetMax>();
+// the decode warps keep a stage's codes and their scales in registers: 88
+// a producer thread, 208 a consumer thread (its f32 tile needs ~110)
+constexpr int kPlaneProducerRegs = 88;
+template <int BITS, int BM, typename ST>
+using PlaneRowRing =
+    Ring<PlaneRowStage<BITS, BM, ST>, kPlaneRowStages<BITS, BM, ST>, true, kPlaneProducerRegs>;
+
+// main steps a slice (kZU groups and a zs step); without the zs term, the
+// K split's unit
+template <int BITS, bool ZS>
+__host__ __device__ constexpr int plane_slice_steps(int group) {
+  return ZS ? PlaneRowGeom<BITS>::kZU * group / PlaneRowGeom<BITS>::kE : 4;
+}
+
+// 8 codes of a column (K rows r..r+3 in the bytes of lo, r+4..r+7 in hi,
+// plane shifted down) as bf16(code * s), in K order; ss is the column's
+// scale s as a bf16 pair (s, s)
+template <int BITS, bool SIGNED>
+__device__ __forceinline__ uint4 decode8(uint32_t lo, uint32_t hi, uint32_t ss) {
+  if constexpr (BITS < 8) {
+    constexpr uint32_t kMask = ((1u << BITS) - 1u) * 0x01010101u;
+    const __nv_bfloat162 s2 = *reinterpret_cast<const __nv_bfloat162*>(&ss);
+    const __nv_bfloat162 nb = __hmul2(s2, __float2bfloat162_rn(-128.f));  // exact
+    auto pair = [&](uint32_t t, uint32_t sel) {  // bf16 bits 0x43cc = 128 + cc
+      const uint32_t v = __byte_perm(t, 0x43u, sel);
+      const __nv_bfloat162 r = __hfma2(*reinterpret_cast<const __nv_bfloat162*>(&v), s2, nb);
+      return *reinterpret_cast<const uint32_t*>(&r);
+    };
+    lo &= kMask;
+    hi &= kMask;
+    return make_uint4(pair(lo, 0x4140), pair(lo, 0x4342), pair(hi, 0x4140), pair(hi, 0x4342));
+  } else {
+    const float s = bf16_lo(ss);
+    const float nb = -8388608.f * s;  // -2^23 s, exact
+    if constexpr (SIGNED) {  // flipping the sign bit maps -128..127 onto 0..255
+      lo ^= 0x80808080u;
+      hi ^= 0x80808080u;
+    }
+    auto code_s = [&](uint32_t t, int i) {  // c * s exactly: (2^23 + c) * s - 2^23 s
+      const float v = fmaf(__uint_as_float(__byte_perm(t, 0x4Bu, 0x4550 + i)), s, nb);
+      return SIGNED ? fmaf(-128.f, s, v) : v;
+    };
+    return make_uint4(bf16x2(code_s(lo, 0), code_s(lo, 1)), bf16x2(code_s(lo, 2), code_s(lo, 3)),
+                      bf16x2(code_s(hi, 0), code_s(hi, 1)), bf16x2(code_s(hi, 2), code_s(hi, 3)));
+  }
+}
+
+// The scales of a lane's column quad (columns 4*lane..+3 of a scale row) as
+// bf16 bits, (cols 0, 1) and (2, 3); an f32 row is rounded to bf16 first
+__device__ __forceinline__ uint2 scale_quad(const __nv_bfloat16* row, int lane) {
+  return *reinterpret_cast<const uint2*>(row + 4 * lane);
+}
+__device__ __forceinline__ uint2 scale_quad(const float* row, int lane) {
+  const float4 v = *reinterpret_cast<const float4*>(row + 4 * lane);
+  return make_uint2(bf16x2(v.x, v.y), bf16x2(v.z, v.w));
+}
+
+// Before the rows kernel, for x [B, K] bf16: each group's f32 sum into xsum
+// [K/group][bpad], and x into xc [bpad, K] in the kernel's step order:
+// element j*Kp + r (plane j) of a row at (r / kR) * kE + j * kR + r % kR, so
+// a step's x is kE contiguous elements of each row (one TMA box of 64- or
+// 128-byte rows). Rows B..bpad-1 are zeros. A thread takes c = max(8,
+// group/32) consecutive elements of a row in 16-byte pieces (each lands in
+// 8 consecutive places of xc: kR is a multiple of 8), and the S = group/c
+// threads of a group (a power of two, at most 32, aligned in the warp) add
+// their sums with shuffles. A group lies in one plane (Kp % group == 0).
+__global__ void plane_prep_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ xsum,
+                                  __nv_bfloat16* __restrict__ xc, int B, int K, int group,
+                                  int bpad, int per, int kr, int ke, int c, long long n) {
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int per_row = K / c;
+  const int b = (int)(v / per_row), e0 = c * (int)(v % per_row);
+  const bool live = v < n;  // threads past the end still take part in the shuffles
+  const int kp = K / per, j = e0 / kp;
+  float s = 0.f;
+  if (live)
+    for (int e = e0; e < e0 + c; e += 8) {
+      const uint4 u = b < B ? *reinterpret_cast<const uint4*>(x + (size_t)b * K + e)
+                            : make_uint4(0u, 0u, 0u, 0u);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) s += bf16_lo(w[h]) + bf16_hi(w[h]);
+      const int r = e - j * kp;
+      *reinterpret_cast<uint4*>(xc + (size_t)b * K + (r / kr) * ke + j * kr + r % kr) = u;
+    }
+  const int S = group / c;  // threads of a group
+  for (int off = S / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (live && (threadIdx.x & (S - 1)) == 0) xsum[(size_t)(e0 / group) * bpad + b] = s;
+}
+
+template <int BITS>
+inline void launch_plane_prep(const __nv_bfloat16* x, const Workspace& w, int B, int K, int group,
+                              cudaStream_t st) {
+  using G = PlaneRowGeom<BITS>;
+  const int c = group / 32 > 8 ? group / 32 : 8;
+  const long long n = (long long)w.bpad * (K / c);
+  plane_prep_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      x, w.xsum, w.xc, B, K, group, w.bpad, G::kPer, G::kR, G::kE, c, n);
+}
+
+template <int BITS, int BM, bool SIGNED, typename ST, bool ZS>
+__global__ void __launch_bounds__(kRowThreads, 1)
+    plane_rows_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap smap,
+                      const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap zmap,
+                      const __grid_constant__ CUtensorMap summap, void* out, int out_mode, int B,
+                      int K, int O, int group, int slices_per_split) {
+  using G = PlaneRowGeom<BITS>;
+  using Stage = PlaneRowStage<BITS, BM, ST>;
+  constexpr int N = BM == 128 ? 128 : 64;  // wgmma width of a consumer warpgroup
+  constexpr int kPer = G::kPer, kR = G::kR, kE = G::kE, kXRow = G::kXRow;
+  static_assert(!SIGNED || BITS == 8, "signed codes are bytes");
+  static_assert(BITS == 8 || sizeof(ST) == 2, "below 8 bits the scales are bf16");
+  static_assert(!ZS || sizeof(ST) == 2, "the zs term comes with bf16 scales (K10)");
+  extern __shared__ uint8_t smem_prow[];
+  uint8_t* base = smem_prow + ((1024 - (smem_u32(smem_prow) & 1023)) & 1023);
+  const PlaneRowRing<BITS, BM, ST> ring(base, 0);
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * kGemvCols;
+  // group, Z and nr are powers of two (plane_rows_take): the per-step index
+  // arithmetic is shifts and one multiply-high, no divisions (each of which
+  // costs a single-thread chain of ~40 instructions in the hot loops)
+  const int gsh = __ffs(group) - 1;  // log2(group)
+  const int Kp = K / kPer;
+  const int Z = plane_slice_steps<BITS, ZS>(group);
+  const int s_begin = blockIdx.z * slices_per_split * Z;  // the split's first main step
+  const int n_main = max(0, min(slices_per_split * Z, Kp / kR - s_begin));
+  const int Zr = ZS ? Z + 1 : Z;  // ring steps a slice
+  const int n = ZS ? n_main + (n_main + Z - 1) / Z : n_main;
+  const int nsh = kR > group ? __ffs(kR) - 1 - gsh : 0;  // log2 of the scale rows a plane a step
+  const int nr = 1 << nsh;
+  // i / Zr for the ring's step indices: the high word of i * ceil(2^32 / Zr),
+  // exact for i < 2^32 / Zr
+  const uint32_t zr_magic = (uint32_t)(0xFFFFFFFFu / (uint32_t)Zr) + 1u;
+  auto slice_of = [&](int i) { return (int)__umulhi((uint32_t)i, zr_magic); };
+  // ring step i of slice k: its main steps, then (ZS) its zs step
+  auto is_main = [&](int i) {
+    const int k = slice_of(i);
+    return i - k * Zr < min(Z, n_main - k * Z);
+  };
+  auto main_step = [&](int i) { return s_begin + i - (ZS ? slice_of(i) : 0); };
+
+  constexpr int kZU = G::kZU;
+  auto zs_row = [&](int i) { return (blockIdx.z * slices_per_split + slice_of(i)) * (kZU / kPer); };
+  auto copy = [&](Stage& S, int i, uint64_t* full) {
+    if (is_main(i)) {
+      const int s = main_step(i), r0 = s * kR;
+      tma_load_2d(S.q, &qmap, col0, r0, full);
+      tma_load_3d(S.sc, &smap, col0, r0 >> gsh, 0, full);
+      tma_load_2d(S.x, &xmap, s * kE, row0, full);
+    } else {
+      tma_load_3d(S.x, &summap, row0, zs_row(i), 0, full);
+      tma_load_3d(S.w, &zmap, col0, zs_row(i), 0, full);
+      tma_load_3d(S.w + kZU * 128, &zmap, col0 + 64, zs_row(i), 0, full);
+    }
+  };
+  const uint32_t main_tx = kR * kGemvCols + nr * kPer * kGemvCols * (int)sizeof(ST) + kE * BM * 2;
+  const uint32_t zs_tx = kZU * BM * 4 + 2 * kZU * 64 * 2;
+  auto tx = [&](int i) { return is_main(i) ? main_tx : zs_tx; };
+
+  auto decode = [&](Stage& S, int i, int lane) {
+    if (!is_main(i)) return;
+    const uint8_t* __restrict__ qt = S.q;
+    const ST* __restrict__ sct = &S.sc[0][0];
+    uint8_t* __restrict__ wt = S.w;
+    // the lane's 4 columns in the rotated order of load_quad8: column
+    // 4*lane + q_j for word j, and the byte_perm selector that puts that
+    // column's bf16 scale in both halves of a word
+    const int rot = (lane >> 1) & 3;
+    uint32_t splat[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t b = 2 * ((j + rot) & 3);
+      splat[j] = (b | ((b + 1) << 4)) * 0x101u;
+    }
+    uint32_t w[kR / 8][8];  // every octet's codes first, so the loads overlap
+#pragma unroll
+    for (int o = 0; o < kR / 8; ++o) load_quad8(qt, 8 * o, lane, rot_sel(lane >> 1), w[o]);
+#pragma unroll
+    for (int p = 0; p < kPer; ++p)
+#pragma unroll
+      for (int o = 0; o < kR / 8; ++o) {
+        // the octet's scale row within its plane's rows (kR > group)
+        const uint2 sq = scale_quad(sct + ((p << nsh) + ((8 * o) >> gsh)) * kGemvCols, lane);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = 4 * lane + ((j + rot) & 3);
+          *reinterpret_cast<uint4*>(wt + (p * kR / 8 + o) * 2048 + c * 16) = decode8<BITS, SIGNED>(
+              w[o][j] >> (BITS * p), w[o][4 + j] >> (BITS * p), __byte_perm(sq.x, sq.y, splat[j]));
+        }
+      }
+  };
+
+  // the A descriptor of k16 slice kk of the x tile, rows 64*wr..
+  auto x_desc = [&](const uint8_t* x, int kk, int wr) {
+    return swizzled_desc(x + wr * 64 * kXRow + kk * 32, 16, 8 * kXRow, G::kXLayout);
+  };
+  // consumer warpgroup wg: rows 64*wr.., columns 64*wc.. of the tile
+  auto consume = [&](int wg) {
+    const int wr = BM == 128 ? wg : 0, wc = BM == 128 ? 0 : wg;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int t = lane & 3;
+    const int rl = wr * 64 + warp * 16 + (lane >> 2);  // rows rl and rl + 8 of the tile
+    float acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    uint32_t za[kZU / 16][3][4] = {};  // a zs step's A fragments: xsum's three bf16 parts
+    for (int i = 0; i < n; ++i) {
+      const Stage& S = ring[i];
+      ring.acquire(i);
+      if (is_main(i)) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kE / 16; ++kk)
+          wgmma_bf16<N>(acc, x_desc(S.x, kk, wr), kmajor_desc(S.w + kk * 4096 + wc * 1024, 2048, 128));
+        wgmma_commit();
+      } else if constexpr (ZS) {
+        // A fragment a of k16 half h: rows rl + 8 (a % 2), units 16h + 2t +
+        // 8 (a / 2) and + 1; the zs tile's two 64-column blocks kZU rows apart
+        const float* xs = reinterpret_cast<const float*>(S.x);
+#pragma unroll
+        for (int h = 0; h < kZU / 16; ++h)
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int r = rl + 8 * (a & 1), u = 16 * h + 2 * t + 8 * (a >> 1);
+            __nv_bfloat16 p0[3], p1[3];
+            split3(xs[u * BM + r], p0);
+            split3(xs[(u + 1) * BM + r], p1);
+#pragma unroll
+            for (int q = 0; q < 3; ++q) za[h][q][a] = bf16_pair(p0[q], p1[q]);
+          }
+        wgmma_fence();
+#pragma unroll
+        for (int h = 0; h < kZU / 16; ++h)
+#pragma unroll
+          for (int q = 0; q < 3; ++q)
+            wgmma_bf16_rs_neg<N>(acc, za[h][q],
+                                 swizzled_desc(S.w + wc * kZU * 128 + h * 2048, kZU * 128, 1024, 1));
+        wgmma_commit();
+      }
+      // the stage is freed as soon as its products are done (holding it
+      // until the next step's products were issued measured 7% slower)
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < kZU / 16; ++h)
+#pragma unroll
+        for (int q = 0; q < 3; ++q) fence_operand(za[h][q]);
+      ring.release(i);
+    }
+    fence_values(acc);
+    store_rows(out, out_mode, acc, B, O, row0 + rl, col0 + wc * 64 + 2 * t);
+  };
+  ring.run(n, tx, copy, decode, consume);
+}
+
+// Launch plane_rows_kernel (after launch_plane_prep): q [Kp, O] in boxes of
+// kR byte rows x 128 columns; scale (and zs) [K/group, O] seen as
+// [kPer][Kp/group][O]; x's step-ordered copy xc [bpad, K] in boxes of kE
+// elements x BM rows; xsum [K/group][bpad] seen as [kPer][Kp/group][bpad].
+// Returns the CUDA error.
+template <int BITS, int BM, bool SIGNED, typename ST, bool ZS>
+int launch_plane_rows(const Workspace& w, const uint8_t* q, const ST* scale, const __nv_bfloat16* zs, void* out, int out_is_bf16, int B,
+                      int K, int O, int group, dim3 grid, cudaStream_t st) {
+  using G = PlaneRowGeom<BITS>;
+  const int Kp = K / G::kPer, gpp = Kp / group;  // groups a plane
+  const uint64_t es = sizeof(ST);
+  const uint64_t qdims[2] = {(uint64_t)O, (uint64_t)Kp}, qstr[1] = {(uint64_t)O};
+  const uint32_t qbox[2] = {kGemvCols, G::kR};
+  const uint64_t sdims[3] = {(uint64_t)O, (uint64_t)gpp, (uint64_t)G::kPer};
+  const uint64_t sstr[2] = {(uint64_t)O * es, (uint64_t)gpp * O * es};
+  const uint32_t sbox[3] = {kGemvCols, (uint32_t)(G::kR > group ? G::kR / group : 1), G::kPer};
+  const uint64_t xdims[2] = {(uint64_t)K, (uint64_t)w.bpad}, xstr[1] = {(uint64_t)K * 2};
+  const uint32_t xbox[2] = {G::kE, BM};
+  CUtensorMap qmap, smap, xmap, zmap, summap;
+  int err = tile_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, qdims, qstr, qbox);
+  if (!err)
+    err = tile_map(&smap, es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                   3, scale, sdims, sstr, sbox);
+  if (!err)
+    err = tile_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w.xc, xdims, xstr, xbox, G::kXSwizzle);
+  if constexpr (ZS) {
+    const uint64_t zstr[2] = {(uint64_t)O * 2, (uint64_t)gpp * O * 2};
+    const uint32_t zbox[3] = {64, G::kZU / G::kPer, G::kPer};
+    const uint64_t mdims[3] = {(uint64_t)w.bpad, (uint64_t)gpp, (uint64_t)G::kPer};
+    const uint64_t mstr[2] = {(uint64_t)w.bpad * 4, (uint64_t)gpp * w.bpad * 4};
+    const uint32_t mbox[3] = {BM, G::kZU / G::kPer, G::kPer};
+    if (!err)
+      err = tile_map(&zmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, zs, sdims, zstr, zbox,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+    if (!err)
+      err = tile_map(&summap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, w.xsum, mdims, mstr, mbox);
+  } else {
+    zmap = summap = qmap;  // unused
+  }
+  if (err) return err;
+  const int Z = plane_slice_steps<BITS, ZS>(group);
+  const int nslices = (Kp / G::kR + Z - 1) / Z;
+  const int ksplit = (int)grid.z;
+  auto* kern = plane_rows_kernel<BITS, BM, SIGNED, ST, ZS>;
+  const int smem = PlaneRowRing<BITS, BM, ST>::smem_bytes(0) + 1024;  // + alignment to 1024
+  return launch_ring(kern, smem, w, out, out_is_bf16, ksplit, B * O, st, [&](void* dst, int mode) {
+    kern<<<grid, kRowThreads, smem, st>>>(qmap, smap, xmap, zmap, summap, dst, mode, B, K, O,
+                                          group, (nslices + ksplit - 1) / ksplit);
+  });
 }
 
 }  // namespace mrt

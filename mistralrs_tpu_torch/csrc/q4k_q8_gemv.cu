@@ -62,8 +62,9 @@
 // does the dots; the epilogue of one sub-block overlaps the tensor cores'
 // work on the next; the min term, a plain product of xsum and minv, goes
 // to the tensor cores in bf16 (xsum split exactly into three parts); see
-// q4k_q8_rows_kernel.
+// q4k_q8_rows_kernel (its body in csrc/q4k_rows.cuh, shared with K9).
 #include "common.cuh"
+#include "q4k_rows.cuh"
 
 namespace {
 
@@ -256,254 +257,8 @@ int launch_dec(const mrt::Workspace& w, const void* qs, const void* scale, const
 
 // ---- rows instantiation: 17 <= B <= 256 ----
 //
-// K2's design (q8_0_q8_gemv.cu) on the ring of common.cuh (mrt::Ring): a
-// block owns 128 columns and BM = 64 or 128 rows, with two consumer
-// warpgroups (at BM 128 one per 64 rows, wgmma N = 128; at BM 64 one per 64
-// columns, N = 64) and a producer warpgroup; the grid is (row tiles, column
-// tiles, ksplit), row tiles fastest. One K step is one sub-block pair p:
-// - the copies: TMA boxes of the pair's 32 byte rows of qs and of its four
-//   scale rows (scale and minv of sub-blocks p and K/64 + p), bulk copies
-//   of x's codes of the two sub-blocks for the BM rows (A slices,
-//   common.cuh tiled_off) and their xs and xsum;
-// - the decode: low and high nibbles into two K-major B tiles (0..15 are
-//   valid int8 codes), the scale rows into f32 at mrt::scale_pos, and the
-//   pair's xsum (three bf16 parts) and minv into the slice's min tiles
-//   (Q4MinTiles);
-// - each consumer warpgroup issues wgmma.m64nNk32.s32.s8.s8 for the low
-//   sub-block into one int32 accumulator and for the high one into
-//   another, scales the low one while the high one runs, issues the next
-//   pair's low sub-block, and scales the high one while that runs (the
-//   conversion, exact below 2^24, xs * scale, an fma). After every 8th
-//   pair, three bf16 wgmma.m64nNk16 put the slice's min term into the
-//   high accumulator's registers, and 64 adds move it into the f32 sums.
-//   The two warpgroups share each SM sub-partition.
-namespace {
-
-template <int BM>
-struct __align__(128) Q4RowStage {
-  uint8_t q[32 * mrt::kGemvCols];        // the pair's byte rows as stored, row r at r*128
-  uint8_t lo[32 * mrt::kGemvCols];       // decoded B tile of sub-block p (low nibbles)
-  uint8_t hi[32 * mrt::kGemvCols];       // and of sub-block K/64 + p (high nibbles)
-  int8_t x[2][BM * 32];                  // x's codes of the two sub-blocks: A slices
-  __nv_bfloat16 sc[4][mrt::kGemvCols];   // scale lo, scale hi, minv lo, minv hi as stored
-  float scf[2][mrt::kScaleRow];          // the scales in f32, at scale_pos
-  float xv[4][BM];                       // xs lo, xs hi, xsum lo, xsum hi of the BM rows
-};
-
-// The min term sum_sub xsum[b,sub] * minv[sub,o] on the tensor cores: every
-// 8 pairs (16 sub-blocks, slots 2j and 2j+1 for the j-th pair's two) one
-// bf16 wgmma.m64nNk16 per part subtracts it into the f32 accumulators. xsum
-// is split exactly into three bf16 parts (hi + mid + lo); minv is bf16.
-// Both are K-major tiles in the int8 tiles' layout, double-buffered by
-// slice, written by the decode warps from each stage.
-template <int BM>
-struct __align__(128) Q4MinTiles {
-  __nv_bfloat16 a[2][3][BM * 16];  // xsum parts: (r, k) at (r/64)*2048 + (k/8)*1024 + (r%64)*16 + (k%8)*2 bytes
-  __nv_bfloat16 b[2][128 * 16];    // minv: (c, k) at (k/8)*2048 + c*16 + (k%8)*2 bytes
-};
-
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-template <int BM>
-constexpr int kQ4Stages = mrt::ring_stages<Q4RowStage<BM>, sizeof(Q4MinTiles<BM>), 8>();
-template <int BM>
-using Q4Ring = mrt::Ring<Q4RowStage<BM>, kQ4Stages<BM>>;
-
-template <int BM>
-__global__ void __launch_bounds__(mrt::kRowThreads, 1)
-    q4k_q8_rows_kernel(const __grid_constant__ CUtensorMap qmap,
-                       const __grid_constant__ CUtensorMap smap,
-                       const __grid_constant__ CUtensorMap mmap, const int8_t* __restrict__ xq,
-                       const float* __restrict__ xs, const float* __restrict__ xsum, void* out,
-                       int out_mode, int B, int bpad, int K, int O, int pairs_per_split) {
-  constexpr int N = BM == 128 ? 128 : 64;  // wgmma width of a consumer warpgroup
-  using Stage = Q4RowStage<BM>;
-  static_assert(kQ4Stages<BM> <= 8, "a slice's min tiles are rewritten 16 pairs later");
-  extern __shared__ __align__(128) uint8_t smem[];
-  const Q4Ring<BM> ring(smem, sizeof(Q4MinTiles<BM>));
-  Q4MinTiles<BM>& mt = *static_cast<Q4MinTiles<BM>*>(ring.extra());
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * mrt::kGemvCols;
-  const int npairs = K / 64;
-  const int p_begin = blockIdx.z * pairs_per_split;
-  const int n = max(0, min(pairs_per_split, npairs - p_begin));
-
-  auto copy = [&](Stage& S, int i, uint64_t* full) {
-    const int pr = p_begin + i;
-    mrt::tma_load_2d(S.q, &qmap, col0, 32 * pr, full);
-    mrt::tma_load_3d(S.sc[0], &smap, col0, pr, 0, full);  // rows pr, npairs + pr
-    mrt::tma_load_3d(S.sc[2], &mmap, col0, pr, 0, full);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const size_t sub = (size_t)(h ? npairs + pr : pr);
-      mrt::bulk_g2s(S.x[h], xq + sub * bpad * 32 + (size_t)row0 * 32, BM * 32, full);
-      mrt::bulk_g2s(S.xv[h], xs + sub * bpad + row0, BM * 4, full);
-      mrt::bulk_g2s(S.xv[2 + h], xsum + sub * bpad + row0, BM * 4, full);
-    }
-  };
-  auto decode = [&](Stage& S, int i, int lane) {
-    const uint32_t sel = mrt::rot_sel(lane >> 1);
-    // the 4 byte-row octets of the lane's column quad
-#pragma unroll
-    for (int o = 0; o < 4; ++o) {
-      uint32_t w[8];
-      mrt::load_quad8(S.q, 8 * o, lane, sel, w);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = 4 * lane + ((j + (lane >> 1)) & 3);
-        mrt::store_b8(S.lo, c, 8 * o, w[j] & 0x0F0F0F0Fu, w[4 + j] & 0x0F0F0F0Fu);
-        mrt::store_b8(S.hi, c, 8 * o, (w[j] >> 4) & 0x0F0F0F0Fu, (w[4 + j] >> 4) & 0x0F0F0F0Fu);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const uint2 u = *reinterpret_cast<const uint2*>(&S.sc[a][4 * lane]);
-      S.scf[a][mrt::scale_pos(4 * lane)] = mrt::bf16_lo(u.x);
-      S.scf[a][mrt::scale_pos(4 * lane + 1)] = mrt::bf16_hi(u.x);
-      S.scf[a][mrt::scale_pos(4 * lane + 2)] = mrt::bf16_lo(u.y);
-      S.scf[a][mrt::scale_pos(4 * lane + 3)] = mrt::bf16_hi(u.y);
-    }
-    // this pair's slots 2j, 2j+1 of the slice's min tiles (and zeros in the
-    // slots past the last pair)
-    const int buf = (i >> 3) & 1, j = i & 7;
-    uint8_t* ma = reinterpret_cast<uint8_t*>(mt.a[buf][0]);
-    uint8_t* mb = reinterpret_cast<uint8_t*>(mt.b[buf]);
-    for (int r = lane; r < BM; r += 32) {
-      __nv_bfloat16 pl[3], ph[3];
-      mrt::split3(S.xv[2][r], pl);
-      mrt::split3(S.xv[3][r], ph);
-#pragma unroll
-      for (int t = 0; t < 3; ++t)
-        *reinterpret_cast<uint32_t*>(ma + t * BM * 32 + (r >> 6) * 2048 + (j >> 2) * 1024 +
-                                     (r & 63) * 16 + 4 * (j & 3)) = pack2(pl[t], ph[t]);
-    }
-#pragma unroll
-    for (int c = lane; c < mrt::kGemvCols; c += 32)
-      *reinterpret_cast<uint32_t*>(mb + (j >> 2) * 2048 + c * 16 + 4 * (j & 3)) =
-          pack2(S.sc[2][c], S.sc[3][c]);
-    if (i == n - 1)
-      for (int jz = j + 1; jz < 8; ++jz) {
-        for (int r = lane; r < BM; r += 32)
-#pragma unroll
-          for (int t = 0; t < 3; ++t)
-            *reinterpret_cast<uint32_t*>(ma + t * BM * 32 + (r >> 6) * 2048 + (jz >> 2) * 1024 +
-                                         (r & 63) * 16 + 4 * (jz & 3)) = 0u;
-        for (int c = lane; c < mrt::kGemvCols; c += 32)
-          *reinterpret_cast<uint32_t*>(mb + (jz >> 2) * 2048 + c * 16 + 4 * (jz & 3)) = 0u;
-      }
-  };
-  // consumer warpgroup wg: rows 64*wr.., columns 64*wc.. of the tile
-  auto consume = [&](int wg) {
-    const int wr = BM == 128 ? wg : 0, wc = BM == 128 ? 0 : wg;
-    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-    const int t = lane & 3;
-    const int rl = wr * 64 + warp * 16 + (lane >> 2);  // rows rl and rl + 8 of the tile
-    const int sp = t * 36 + wc * 16;                   // the thread's columns in scf rows
-    float acc[N / 2];
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-    int dl[N / 2], dh[N / 2];
-    // wgmma of the low (h = 0) or high (h = 1) sub-block of pair i into d
-    auto mma = [&](int (&d)[N / 2], int i, int h) {
-      const Stage& S = ring[i];
-      if (h == 0) ring.acquire(i);
-      mrt::fence_operand(d);
-      mrt::wgmma_fence();
-      mrt::wgmma_s8<N>(d, mrt::kmajor_desc(S.x[h] + wr * 2048, mrt::kALbo, mrt::kTileSbo),
-                       mrt::kmajor_desc((h ? S.hi : S.lo) + wc * 1024, mrt::kBLbo, mrt::kTileSbo),
-                       0);
-      mrt::wgmma_commit();
-    };
-    // acc += d * xs * scale of sub-block h of a stage
-    auto scale_into = [&](const int (&d)[N / 2], const Stage& S, int h) {
-      const float x0 = S.xv[h][rl], x1 = S.xv[h][rl + 8];
-#pragma unroll
-      for (int jj = 0; jj < N / 8; jj += 2) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&S.scf[h][sp + 2 * jj]);
-        const float sc[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {  // n-tiles jj, jj + 1; bit 0 column, bit 1 row
-          const int idx = 4 * jj + e;
-          acc[idx] = fmaf((float)d[idx], ((e & 2) ? x1 : x0) * sc[(e >> 2) * 2 + (e & 1)],
-                          acc[idx]);
-        }
-      }
-    };
-    if (n > 0) {
-      mma(dl, 0, 0);
-      mma(dh, 0, 1);
-    }
-    // the low sub-block's epilogue runs while the high one's wgmma does, the
-    // high one's while the next pair's low one's does
-    for (int i = 0; i < n; ++i) {
-      const Stage& S = ring[i];
-      mrt::wgmma_wait<1>();  // the low sub-block of pair i is done
-      mrt::fence_operand(dl);
-      scale_into(dl, S, 0);
-      if (i + 1 < n) {
-        mma(dl, i + 1, 0);
-        mrt::wgmma_wait<1>();  // the high sub-block of pair i is done
-      } else {
-        mrt::wgmma_wait<0>();
-      }
-      mrt::fence_operand(dh);
-      scale_into(dh, S, 1);
-      ring.release(i);
-      if ((i & 7) == 7 || i == n - 1) {
-        // the slice's last pair: its min term, in dh's registers (free until
-        // the next pair's high sub-block), added into acc
-        const int buf = (i >> 3) & 1;
-        mrt::fence_operand(dh);
-        mrt::wgmma_fence();
-#pragma unroll
-        for (int t = 0; t < 3; ++t)
-          mrt::wgmma_bf16_neg<N>(
-              dh, mrt::kmajor_desc(mt.a[buf][t] + wr * 64 * 16, mrt::kALbo, mrt::kTileSbo),
-              mrt::kmajor_desc(mt.b[buf] + wc * 64 * 8, mrt::kBLbo, mrt::kTileSbo), t);
-        mrt::wgmma_commit();
-        mrt::wgmma_wait<0>();
-        mrt::fence_operand(dh);
-#pragma unroll
-        for (int k = 0; k < N / 2; ++k) acc[k] += __int_as_float(dh[k]);
-      }
-      if (i + 1 < n) mma(dh, i + 1, 1);
-    }
-    mrt::store_rows(out, out_mode, acc, B, O, row0 + rl, col0 + wc * 64 + 2 * t);
-  };
-  ring.run(n, 32 * mrt::kGemvCols + 4 * 2 * mrt::kGemvCols + 64 * BM + 16 * BM, copy, decode,
-           consume);
-}
-
-template <int BM>
-int launch_rows(const mrt::Workspace& w, const void* qs, const void* scale, const void* minv,
-                void* out, int out_is_bf16, int B, int K, int O, dim3 grid, cudaStream_t st) {
-  const int npairs = K / 64;
-  // qs [K/2, O] in boxes of 32 byte rows x 128 columns; scale and minv
-  // [K/32, O] seen as [2, K/64, O], so one box holds rows p and K/64 + p
-  CUtensorMap qmap, smap, mmap;
-  const uint64_t qdims[2] = {(uint64_t)O, (uint64_t)(K / 2)}, qstr[1] = {(uint64_t)O};
-  const uint32_t qbox[2] = {mrt::kGemvCols, 32};
-  const uint64_t sdims[3] = {(uint64_t)O, (uint64_t)npairs, 2};
-  const uint64_t sstr[2] = {(uint64_t)O * 2, (uint64_t)npairs * O * 2};
-  const uint32_t sbox[3] = {mrt::kGemvCols, 1, 2};
-  int err = mrt::tile_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, qs, qdims, qstr, qbox);
-  if (!err) err = mrt::tile_map(&smap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, scale, sdims, sstr, sbox);
-  if (!err) err = mrt::tile_map(&mmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, minv, sdims, sstr, sbox);
-  if (err) return err;
-  auto* kern = q4k_q8_rows_kernel<BM>;
-  const int smem = Q4Ring<BM>::smem_bytes(sizeof(Q4MinTiles<BM>));
-  const int ksplit = (int)grid.z;
-  return mrt::launch_ring(kern, smem, w, out, out_is_bf16, ksplit, B * O, st,
-                          [&](void* dst, int mode) {
-                            kern<<<grid, mrt::kRowThreads, smem, st>>>(
-                                qmap, smap, mmap, w.xq, w.xs, w.xsum, dst, mode, B, w.bpad, K, O,
-                                (npairs + ksplit - 1) / ksplit);
-                          });
-}
-
-}  // namespace
+// csrc/q4k_rows.cuh (shared with K9, which adds Q5_K's high-bit plane).
+Q4ROWS_KERNEL(q4k_q8_rows_kernel, false)
 
 // Shapes are checked by the Python wrapper (ops/quant_matmul.py): K % 64 == 0,
 // O % 16 == 0, 16-byte aligned pointers, and a workspace of ws_bytes (see
@@ -545,8 +300,11 @@ extern "C" int q4k_q8_gemv(const void* x, int x_is_bf16, const void* qs, const v
     return cols == 128 ? launch_dec<128>(w, qs, scale, minv, out, out_is_bf16, B, K, O, gx, st)
                        : launch_dec<64>(w, qs, scale, minv, out, out_is_bf16, B, K, O, gx, st);
   const dim3 grid(gx, gy, gz);
-  if (rows == 64) return launch_rows<64>(w, qs, scale, minv, out, out_is_bf16, B, K, O, grid, st);
-  return launch_rows<128>(w, qs, scale, minv, out, out_is_bf16, B, K, O, grid, st);
+  if (rows == 64)
+    return q4rows::launch_rows<64, false>(q4k_q8_rows_kernel<64>, w, qs, nullptr, scale, minv, out,
+                                          out_is_bf16, B, K, O, grid, st);
+  return q4rows::launch_rows<128, false>(q4k_q8_rows_kernel<128>, w, qs, nullptr, scale, minv, out,
+                                         out_is_bf16, B, K, O, grid, st);
 }
 
 // ---- dequantization for prefill-sized calls ----

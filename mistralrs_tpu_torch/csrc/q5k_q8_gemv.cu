@@ -20,7 +20,7 @@
 //
 // What bounds it on an H100: at decode the weight stream, 0.75 bytes per
 // weight (qs 0.5, qh 0.125, two bf16 planes per 32), against 3.35 TB/s.
-// Design for that:
+// Design for that (q5k_q8_mma_kernel, up to 16 rows):
 // - the K loop runs over blocks of 32 qh rows: rows [32r, 32r+32) of qh hold
 //   the high bits of the 8 sub-blocks j*K/256 + r (j = 0..7), whose nibbles
 //   are the low (j < 4) and high (j >= 4) halves of the 4 qs row blocks
@@ -35,8 +35,19 @@
 //   min term xsum*minv;
 // - the K axis is split over blockIdx.y (a split keeps a step's four qs
 //   blocks together); common.cuh's pass adds the partials in a fixed order.
-// Not done yet (later work): TMA/wgmma, fusing the split-K pass.
+// Not done yet at 1-16 rows (later work): TMA/wgmma, fusing the split-K
+// pass.
+//
+// At 17-256 rows the bound is K1's rows instantiation's, the scaling
+// epilogue (issue slots: per row, column and sub-block a conversion, the
+// xs * scale product and an fma); Q5_K adds the qh stage and a shift, mask
+// and OR a decoded word. Design: K1's rows kernel with the high-bit plane
+// (q5k_q8_rows_kernel, csrc/q4k_rows.cuh): one weight read per call (a
+// weight tile read by at most two blocks, grid neighbours that meet in L2),
+// each stage decoded once by a producer warp into 5-bit codes that are
+// valid int8, int8 wgmma, K1's epilogue and min term unchanged.
 #include "common.cuh"
+#include "q4k_rows.cuh"
 
 namespace {
 
@@ -172,24 +183,53 @@ __global__ void __launch_bounds__(mrt::kGemvThreads)
 
 }  // namespace
 
+// ---- rows instantiation: 17 <= B <= 256 (csrc/q4k_rows.cuh) ----
+Q4ROWS_KERNEL(q5k_q8_rows_kernel, true)
+
 // Shapes are checked by the Python wrapper (ops/quant_matmul.py): K % 256 ==
-// 0, O % 16 == 0, 16-byte aligned pointers, ksplit <= K/256, and a
-// workspace of ws_bytes (see mrt::carve). Quantizes x (bf16 or f32 [B,K])
-// per 32, then runs the GEMV and the split-K pass. Returns the CUDA error
-// code of the launches (0 = launched).
+// 0, O % 16 == 0, 16-byte aligned pointers, and a workspace of ws_bytes (see
+// mrt::carve). The launch is the plan of ops/quant_matmul.q5k_q8_plan, every
+// field of it checked here:
+// - rows 16 (B <= 16): q5k_q8_mma_kernel, grid (column tiles, K splits, 1),
+//   cluster 1, cols 128, stages 0, at most K/256 splits. Quantizes x (row
+//   major) per 32, runs the GEMV and the split-K pass.
+// - rows 64 or 128: the rows instantiation on K1's plan (int8_gemv_plan):
+//   grid (row tiles, column tiles, K splits), cluster 1, cols 128, stages 0,
+//   at most K/256 splits (a split takes whole groups of 4 pairs).
+//   Quantizes x (tiled), runs the GEMV and, with more than one split, the
+//   split-K pass.
+// Returns the CUDA error code of the launches (0 = launched).
 extern "C" int q5k_q8_gemv(const void* x, int x_is_bf16, const void* qs, const void* qh,
                            const void* scale, const void* minv, void* ws, long long ws_bytes,
-                           void* out, int out_is_bf16, int B, int K, int O, int ksplit,
-                           void* stream) {
+                           void* out, int out_is_bf16, int B, int K, int O, int rows, int gx,
+                           int gy, int gz, int cluster, int cols, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const mrt::Workspace w = mrt::carve(ws, B, K, O, 32, 32, ksplit);
-  if (w.bytes > (size_t)ws_bytes) return (int)cudaErrorInvalidValue;
-  const int smem = kStages * (int)sizeof(Stage);
-  const cudaError_t err = mrt::allow_smem(q5k_q8_mma_kernel, smem);
+  if (rows != 16 && rows != 64 && rows != 128) return (int)cudaErrorInvalidValue;
+  const bool dec = rows == 16;
+  const int ksplit = dec ? gy : gz;
+  const mrt::Workspace w =
+      mrt::carve(ws, B, K, O, 32, 32, ksplit, dec ? mrt::kRowMajor : mrt::kTiled, rows);
+  const bool grid_ok = dec ? B <= 16 && gx == (O + mrt::kGemvCols - 1) / mrt::kGemvCols && gz == 1
+                           : mrt::grid_covers(w, rows, cols, B, O, gx, gy, gz);
+  if (!grid_ok || cluster != 1 || cols != mrt::kGemvCols || stages != 0 ||
+      w.bytes > (size_t)ws_bytes || ksplit < 1 || ksplit > K / 256)
+    return (int)cudaErrorInvalidValue;
+  mrt::launch_quantize<32>(x, x_is_bf16 != 0, w.xq, w.xs, w.xsum, nullptr, B, K, w.bpad, st,
+                           dec ? mrt::kRowMajor : mrt::kTiled);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mrt::launch_quantize<32>(x, x_is_bf16 != 0, w.xq, w.xs, w.xsum, nullptr, B, K, w.bpad, st);
-  const dim3 grid((O + mrt::kGemvCols - 1) / mrt::kGemvCols, ksplit, (B + 15) / 16);
-  q5k_q8_mma_kernel<<<grid, mrt::kGemvThreads, smem, st>>>(
+  if (!dec) {
+    const dim3 grid(gx, gy, gz);
+    if (rows == 64)
+      return q4rows::launch_rows<64, true>(q5k_q8_rows_kernel<64>, w, qs, qh, scale, minv, out,
+                                           out_is_bf16, B, K, O, grid, st);
+    return q4rows::launch_rows<128, true>(q5k_q8_rows_kernel<128>, w, qs, qh, scale, minv, out,
+                                          out_is_bf16, B, K, O, grid, st);
+  }
+  const int smem = kStages * (int)sizeof(Stage);
+  err = mrt::allow_smem(q5k_q8_mma_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  q5k_q8_mma_kernel<<<dim3(gx, gy, 1), mrt::kGemvThreads, smem, st>>>(
       w.xq, w.xs, w.xsum, static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(qh),
       static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(minv), w.part,
       B, w.bpad, K, O, (K / 256 + ksplit - 1) / ksplit);

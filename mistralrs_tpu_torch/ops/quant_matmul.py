@@ -10,11 +10,13 @@ serving paths run, all hand-written CUDA under csrc/:
 - K3 `q6k_q8_gemv` (`_q6k_q8_kernel`), K4 `q6k_bf16_gemv` (`_q6k_kernel`)
   and K9 `q5k_q8_gemv` (`_q5k_hbit_q8_kernel` together with the K1 call
   that `_q5k_q8_matmul_padded` makes before it): the Q5_K_M path with Q6_K
-  kept native;
+  kept native; K9 has a rows instantiation (17-256 rows, K1's, on
+  `q5k_q8_plan`), counted apart;
 - K10 `affine_gemv` (`_affine_kernel`): w = q*scale - zs for plane-major
   packed codes of 1, 2, 4 or 8 bits, the GEMV of GGUF Q2_K (the Q2_K
   path), GPTQ and HQQ; bf16 activations, as the JAX kernel takes x's
-  dtype;
+  dtype; a rows instantiation (17-256 rows, bf16 wgmma, on
+  `plane_gemv_plan`), counted apart;
 - K5 `q4k_bf16_gemv` (`_q4k_kernel`), K8 `q8_0_bf16_gemv`
   (`_q8_0_kernel`) and K9b `q5k_hbit_bf16_gemv` (`_q5k_hbit_kernel`): the
   routes of a Linear with `int8_act` off (PipelineConfig.int8_activations
@@ -91,6 +93,9 @@ q5k_q8_gemv_launches = 0
 q6k_dequant_launches = 0
 q5k_dequant_launches = 0
 affine_gemv_launches = 0
+# K9's and K10's rows instantiations (17-256 rows), counted apart
+q5k_q8_gemv_rows_launches = 0
+affine_gemv_rows_launches = 0
 affine_dequant_launches = 0
 q4k_bf16_gemv_launches = 0
 q8_0_bf16_gemv_launches = 0
@@ -252,8 +257,9 @@ def int8_gemv_plan(B: int, K: int, O: int, k_units: int, gs: int, sum_gs: int,
 
 
 def _plane_rows(B: int) -> int:
-    """Rows of x a block of K5, K8, K9b or K10 serves: one 16-row tile up
-    to 16 rows, four above (the kernels pick the same by B)."""
+    """Rows of x a block of K5, K8 or K9b (and K10 up to 16 rows) serves:
+    one 16-row tile up to 16 rows, four above (the kernels pick the same by
+    B)."""
     return 16 if B <= 16 else K4_ROWS
 
 
@@ -262,15 +268,16 @@ def _align256(n: int) -> int:
 
 
 def _workspace_bytes(B: int, K: int, O: int, gs: int, sum_gs: int, ksplit: int,
-                     rows: int = 16, layout: str = "row") -> int:
+                     rows: int = 16, layout: str = "row", xcopy: bool = False) -> int:
     """Scratch of one GEMV call: (xq, xs [K/gs, Bpad] unless gs is 0),
-    (xsum [K/sum_gs, Bpad] unless sum_gs is 0), split-K partials [ksplit,
-    B, O], each 256-byte aligned, in the order csrc/common.cuh::carve lays
-    them out for its x layout: "row" (xq [B, K], Bpad B rounded up to 16,
-    always the partials), "tiled" (the rows instantiations of K1 and K2:
-    Bpad B rounded up to the row tile `rows`, xq [Bpad, K], the partials
-    only with more than one split) or "decode" (their decode
-    instantiations: Bpad 16, xq [16, K], no partials)."""
+    (xsum [K/sum_gs, Bpad] unless sum_gs is 0), (a bf16 copy of x [Bpad, K]
+    with xcopy), split-K partials [ksplit, B, O], each 256-byte aligned, in
+    the order csrc/common.cuh::carve lays them out for its x layout: "row"
+    (xq [B, K], Bpad B rounded up to 16, always the partials), "tiled" (the
+    rows instantiations of K1, K2, K9 and K10: Bpad B rounded up to the row
+    tile `rows`, xq [Bpad, K], the partials only with more than one split)
+    or "decode" (K1's and K2's decode instantiations: Bpad 16, xq [16, K],
+    no partials)."""
     if layout != "tiled":
         rows = 16
     bpad = -(-B // rows) * rows
@@ -278,6 +285,7 @@ def _workspace_bytes(B: int, K: int, O: int, gs: int, sum_gs: int, ksplit: int,
     part = layout == "row" or (layout == "tiled" and ksplit > 1)
     return ((_align256(xrows * K) + _align256((K // gs) * bpad * 4) if gs else 0)
             + (_align256((K // sum_gs) * bpad * 4) if sum_gs else 0)
+            + (_align256(bpad * K * 2) if xcopy else 0)
             + (_align256(ksplit * B * O * 4) if part else 0))
 
 
@@ -576,12 +584,33 @@ def q5k_q8_gemv_plain(x, qs, qh, scale, minv, out_dtype=torch.float32):
     return _affine_q8_plain(x, _q5k_values(qs, qh), scale, minv, out_dtype)
 
 
+def q5k_q8_plan(B: int, K: int, O: int, sms: int) -> GemvPlan:
+    """Launch plan of K9 on a card with `sms` SMs. Up to 16 rows its
+    16-row kernel: grid (column tiles, K splits, 1), the split by
+    _ksplit_for over 256-element steps, the row-major workspace. Above:
+    K1's rows plan (int8_gemv_plan with K/64 pairs, gs = sum_gs = 32); the
+    kernel splits K at groups of 4 pairs, q5k_rows_pairs_per_split."""
+    if B <= 16:
+        ks = _ksplit_for(O, B, K // 256, sms)
+        return GemvPlan(16, (-(-O // 128), ks, 1), ks, 1, 128, 0,
+                        _workspace_bytes(B, K, O, 32, 32, ks))
+    return int8_gemv_plan(B, K, O, K // 64, 32, 32, sms)
+
+
+def q5k_rows_pairs_per_split(K: int, ksplit: int) -> int:
+    """The sub-block pairs a K split of K9's rows kernel takes: whole groups
+    of 4 pairs (the pairs p + m*K/256 that share 32 qh rows), every split
+    but the last the same (csrc/q4k_rows.cuh pairs_per_split)."""
+    return 4 * -(-(K // 256) // ksplit)
+
+
 def q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=torch.bfloat16):
     """K9: y [B, O] = x @ W for Q5_K W with x quantized to int8 per 32
     (see csrc/q5k_q8_gemv.cu). x [B, K] (bf16 or f32 on cuda), qs uint8
     [K/2, O] paired nibbles, qh uint8 [K/8, O] plane-major high bits,
-    scale/minv [K/32, O] (bf16 on cuda)."""
-    global q5k_q8_gemv_launches
+    scale/minv [K/32, O] (bf16 on cuda). Up to 16 rows the 16-row kernel,
+    above it the rows instantiation, on the plan of q5k_q8_plan."""
+    global q5k_q8_gemv_launches, q5k_q8_gemv_rows_launches
     O = qs.shape[1]
     K = 2 * qs.shape[0]
     B = _check_x("q5k_q8_gemv", x, K)
@@ -596,23 +625,90 @@ def q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=torch.bfloat16):
     _check_tensor("scale", scale, torch.bfloat16, (K // 32, O))
     _check_tensor("minv", minv, torch.bfloat16, (K // 32, O))
     dev = _check_cuda("q5k_q8_gemv", dict(x=x, qs=qs, qh=qh, scale=scale, minv=minv))
-    ksplit = _ksplit(O, B, K // 256, dev)
-    nbytes = _workspace_bytes(B, K, O, 32, 32, ksplit)
-    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    plan = q5k_q8_plan(B, K, O, kernels.sm_count(dev))
+    ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
     fn = kernels.function("q5k_q8_gemv", "q5k_q8_gemv",
-                          [_P, _I, _P, _P, _P, _P, _P, ctypes.c_longlong, _P] + [_I] * 5 + [_P])
+                          [_P, _I, _P, _P, _P, _P, _P, ctypes.c_longlong, _P] + [_I] * 11 + [_P])
     err = fn(kernels.ptr(x), int(x.dtype == torch.bfloat16), kernels.ptr(qs), kernels.ptr(qh),
-             kernels.ptr(scale), kernels.ptr(minv), kernels.ptr(ws), nbytes, kernels.ptr(out),
-             int(out_dtype == torch.bfloat16), B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
+             kernels.ptr(scale), kernels.ptr(minv), kernels.ptr(ws), plan.ws_bytes,
+             kernels.ptr(out), int(out_dtype == torch.bfloat16), B, K, O, *plan.launch_args(),
+             _P(kernels.stream_ptr(dev)))
     kernels.check(err, "q5k_q8_gemv")
-    q5k_q8_gemv_launches += 1
+    if plan.rows == 16:
+        q5k_q8_gemv_launches += 1
+    else:
+        q5k_q8_gemv_rows_launches += 1
     return out
 
 
 # ------------------------------------------------------- K10: plane affine
 
 AFFINE_BITS = (1, 2, 4, 8)
+
+# K10's rows kernel (csrc/plane_gemv.cuh plane_rows_kernel): shared memory
+# its ring may fill (common.cuh kRingBudgetMax, less 1 KB of alignment)
+PLANE_RING_BYTES = 226 * 1024 - 1024
+
+
+def plane_row_geom(bits: int) -> tuple[int, int, int]:
+    """(planes of a byte row, elements of a main K step, byte rows of a
+    step) of the rows kernel (csrc/plane_gemv.cuh PlaneRowGeom)."""
+    per = 8 // bits
+    e = 32 if bits == 8 else 64
+    return per, e, e // per
+
+
+def plane_row_stages(bits: int, rows: int, scale_bytes: int = 2) -> int:
+    """Ring stages of the rows kernel at a row tile (common.cuh
+    ring_stages of PlaneRowStage: the x tile, the decoded bf16 tile,
+    the byte rows, the scale rows; a multiple of 3, at most 12)."""
+    per, e, r = plane_row_geom(bits)
+    stage = rows * e * 2 + e * 128 * 2 + r * 128 + max(per, e // 16) * 128 * scale_bytes
+    stage = -(-stage // 1024) * 1024
+    return min(12, PLANE_RING_BYTES // stage) // 3 * 3
+
+
+def plane_slice_steps(bits: int, group: int) -> int:
+    """Main K steps of one zs slice of the rows kernel (32 groups at
+    64-element steps, 16 at 32, and one zs step; csrc/plane_gemv.cuh
+    plane_slice_steps)."""
+    e = plane_row_geom(bits)[1]
+    return (32 if e == 64 else 16) * group // e
+
+
+def plane_rows_take(K: int, bits: int, group: int) -> bool:
+    """Whether the rows kernel takes the shape: each group inside one plane
+    ((K/per) % group == 0) and a power of two (a step's rows are then whole
+    scale rows, or a scale row whole steps, and the kernel's index
+    arithmetic is shifts)."""
+    per = 8 // bits
+    return (K // per) % group == 0 and group & (group - 1) == 0
+
+
+def plane_gemv_plan(B: int, K: int, O: int, bits: int, group: int, sms: int) -> GemvPlan:
+    """Launch plan of K10 on a card with `sms` SMs, every field of which the
+    CUDA entry point checks. Up to 16 rows plane_bf16_mma_kernel: grid
+    (column tiles, K splits, 1), the split by _ksplit_for over 32-row
+    steps, the row-major workspace (per-16 sums, partials). Above: the rows
+    kernel, 64 or 128 rows a block, grid (row tiles, column tiles, K
+    splits), row tiles fastest, so each weight tile is read by at most two
+    blocks; K is split at zs slices and only to fill one wave, no split
+    empty; its ring's stages; the tiled workspace (per-group sums, x's
+    copy in the kernel's step order, partials with more than one split)."""
+    per = 8 // bits
+    kp = K // per
+    ctiles = -(-O // 128)
+    if B <= 16:
+        ks = _ksplit_for(O, B, kp // 32, sms)
+        return GemvPlan(16, (ctiles, ks, 1), ks, 1, 128, 0, _workspace_bytes(B, K, O, 0, 16, ks))
+    rows = 64 if B <= 64 else 128
+    rtiles = -(-B // rows)
+    slices = -(-(kp // plane_row_geom(bits)[2]) // plane_slice_steps(bits, group))
+    ks = max(1, min(sms // (rtiles * ctiles), slices))
+    ks = -(-slices // -(-slices // ks))  # the same slices a split, none empty
+    return GemvPlan(rows, (rtiles, ctiles, ks), ks, 1, 128, plane_row_stages(bits, rows),
+                    _workspace_bytes(B, K, O, 0, group, ks, rows, "tiled", xcopy=True))
 
 
 def _affine_values(q: torch.Tensor, bits: int) -> torch.Tensor:
@@ -641,9 +737,11 @@ def affine_gemv(x, q, scale, zs, bits: int, group: int, out_dtype=torch.bfloat16
     """K10: y [B, O] = x @ W for W = q * scale[g] - zs[g] with plane-major
     codes of `bits` bits, the weight rounded to bf16 inside the kernel (see
     csrc/affine_gemv.cu). x [B, K] bf16 on cuda, q uint8 [K*bits/8, O],
-    scale/zs [K/group, O] (bf16 on cuda). The kernel takes group % 16 == 0
-    and (K*bits/8) % 32 == 0 (its 32-row steps of 16-element halves)."""
-    global affine_gemv_launches
+    scale/zs [K/group, O] (bf16 on cuda). The kernels take group % 16 == 0
+    and (K*bits/8) % 32 == 0 (the 16-row kernel's 32-row steps of
+    16-element halves); above 16 rows the rows kernel, which also takes
+    plane_rows_take's rule, on the plan of plane_gemv_plan."""
+    global affine_gemv_launches, affine_gemv_rows_launches
     _require(bits in AFFINE_BITS, f"affine_gemv: bits {bits} not in {AFFINE_BITS}")
     Kp, O = q.shape
     K = Kp * (8 // bits)
@@ -661,17 +759,22 @@ def affine_gemv(x, q, scale, zs, bits: int, group: int, out_dtype=torch.bfloat16
     _check_tensor("scale", scale, torch.bfloat16, (K // group, O))
     _check_tensor("zs", zs, torch.bfloat16, (K // group, O))
     dev = _check_cuda("affine_gemv", dict(x=x, q=q, scale=scale, zs=zs))
-    ksplit = _ksplit(O, B, Kp // 32, dev, rows=_plane_rows(B))
-    nbytes = _workspace_bytes(B, K, O, 0, 16, ksplit)
-    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    _require(B <= 16 or plane_rows_take(K, bits, group),
+             f"affine_gemv: above 16 rows the kernel needs (K/(8/bits)) % group == 0 and a "
+             f"power-of-two group; got K={K} bits={bits} group={group}")
+    plan = plane_gemv_plan(B, K, O, bits, group, kernels.sm_count(dev))
+    ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
     fn = kernels.function("affine_gemv", "affine_gemv",
-                          [_P] * 4 + [_I, _I, _P, ctypes.c_longlong, _P] + [_I] * 5 + [_P])
+                          [_P] * 4 + [_I, _I, _P, ctypes.c_longlong, _P] + [_I] * 11 + [_P])
     err = fn(kernels.ptr(x), kernels.ptr(q), kernels.ptr(scale), kernels.ptr(zs), bits, group,
-             kernels.ptr(ws), nbytes, kernels.ptr(out), int(out_dtype == torch.bfloat16),
-             B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
+             kernels.ptr(ws), plan.ws_bytes, kernels.ptr(out), int(out_dtype == torch.bfloat16),
+             B, K, O, *plan.launch_args(), _P(kernels.stream_ptr(dev)))
     kernels.check(err, "affine_gemv")
-    affine_gemv_launches += 1
+    if plan.rows == 16:
+        affine_gemv_launches += 1
+    else:
+        affine_gemv_rows_launches += 1
     return out
 
 
@@ -1071,6 +1174,10 @@ def affine_qmatmul(lin: Linear, x: torch.Tensor, *, bits: int, group: int, q_key
       in % (per*group) == 0 (per = 8 // bits: no group straddles two
       planes), out % 16 == 0, and the kernel's own group % 16 == 0 and
       (in / per) % 32 == 0 (every shape of the supported models has both);
+      above 16 rows also when its rows instantiation takes the group
+      (plane_rows_take: a power of two, as every grouped GPTQ and HQQ
+      checkpoint and Q2_K have; a per-channel GPTQ-8 group of in rows
+      that is not one takes the dequant route there);
     - otherwise affine_dequant + torch.matmul.
     The Mosaic-only rules of the JAX dispatcher (block_o >= 128, block_k %
     (8*group), block_k % 128, row padding to 8) are gone. The two routes
@@ -1082,7 +1189,8 @@ def affine_qmatmul(lin: Linear, x: torch.Tensor, *, bits: int, group: int, q_key
     n_rows = math.prod(lead)
     q, scale, zs = lin.data[q_key], lin.data["scale"], lin.data[zs_key]
     if (0 < n_rows <= MAX_KERNEL_ROWS and in_f % (per * group) == 0 and out_f % 16 == 0
-            and group % 16 == 0 and (in_f // per) % 32 == 0):
+            and group % 16 == 0 and (in_f // per) % 32 == 0
+            and (n_rows <= 16 or plane_rows_take(in_f, bits, group))):
         y = affine_gemv(x.reshape(n_rows, in_f).contiguous(), q, scale, zs, bits, group,
                         out_dtype=x.dtype)
         return _add_bias(lin, y.reshape(*lead, out_f))

@@ -36,9 +36,11 @@ device's busy share = sum of kernel times over the traced wall time,
 kernel launches, and the device time of K13, K5, K8 and K9b and their
 shares of it: kernels named grouped_gemm, q4k_bf16_mma,
 plane_bf16_mma_kernel<8 and plane_bf16_mma_kernel<1, the last also K10's
-at 1 bit, which no mix here runs; and of K1's and K2's rows
-instantiations, q4k_q8_rows_kernel and q8_0_q8_rows_kernel), then the top
-device kernels and host ops by time.
+at 1 bit, which no mix here runs; of K1's, K2's and K9's rows
+instantiations, q4k_q8_rows_kernel, q8_0_q8_rows_kernel and
+q5k_q8_rows_kernel, K9's 16-row q5k_q8_mma_kernel, and K10's at Q2_K's 2
+bits, plane_bf16_mma_kernel<2 up to 16 rows and plane_rows_kernel above),
+then the top device kernels and host ops by time.
 """
 
 from __future__ import annotations
@@ -59,6 +61,8 @@ FEW = 4  # prompts in the traced prefill steps that fill a few of the slots
 NAMED_KERNELS = {"grouped_gemm": "grouped_gemm", "k5": "q4k_bf16_mma",
                  "k8": "plane_bf16_mma_kernel<8", "k9b": "plane_bf16_mma_kernel<1",
                  "k1_rows": "q4k_q8_rows_kernel", "k2_rows": "q8_0_q8_rows_kernel",
+                 "k9": "q5k_q8_mma_kernel", "k9_rows": "q5k_q8_rows_kernel",
+                 "k10": "plane_bf16_mma_kernel<2", "k10_rows": "plane_rows_kernel",
                  "k6": "flash_prefill_kernel", "k6p": "flash_prefill_paged_kernel"}
 
 

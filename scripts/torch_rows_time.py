@@ -1,0 +1,133 @@
+#!/usr/bin/env python3
+"""Time the rows instantiations of K9 (`q5k_q8_gemv`) and K10 (`affine_gemv`)
+in one or more checkouts of this repository on one card.
+
+    python3 scripts/torch_rows_time.py [--trace] ROOT [ROOT ...]
+
+Runs each root in a process of its own, in the order given (pass parent,
+change, change, parent to A/B two trees; to time a variant of a kernel, make
+it in a gitignored copy of the tree and pass that copy). Each builds its own
+kernels and prints one JSON line: K9 at Mistral-7B's gate|up (4096->28672)
+at 64 and 256 rows, and K10 at Q2_K's gate|up (64 and 256 rows) and q|k
+(4096->5120, 256), GPTQ-8 (group 128), HQQ-1 and HQQ-2 (group 64) and
+GPTQ-4 (group 16) at gate|up, 256 rows, each time chip_smoke.Clock's median
+of 25 runs (L2 flushed) beside K10's relative error against its plain
+version. With --trace, instead, the device time a call of each kernel a
+K10 rows call launches (the pre-pass and the GEMV), from a torch.profiler
+trace of 10 calls (L2 warm), at Q2_K's gate|up (64 and 256 rows) and
+GPTQ-8's (256).
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+# (format, bits, group, name, K, O, rows)
+K10_CASES = (("q2k", 2, 16, "gate|up", 4096, 28672, (64, 256)),
+             ("q2k", 2, 16, "qk", 4096, 5120, (256,)),
+             ("gptq8", 8, 128, "gate|up", 4096, 28672, (256,)),
+             ("hqq1", 1, 64, "gate|up", 4096, 28672, (256,)),
+             ("hqq2", 2, 64, "gate|up", 4096, 28672, (256,)),
+             ("gptq4", 4, 16, "gate|up", 4096, 28672, (256,)))
+TRACE_CASES = (("q2k", 2, 16, 4096, 28672, 256), ("q2k", 2, 16, 4096, 28672, 64),
+               ("gptq8", 8, 128, 4096, 28672, 256))
+
+
+def setup(root: str):
+    sys.path.insert(0, root)
+    import torch
+
+    from mistralrs_tpu_torch.ops import kernels
+
+    if not Path(kernels.__file__).resolve().is_relative_to(Path(root).resolve()):
+        raise RuntimeError(f"{kernels.__file__} is not under {root}")
+    kernels.build()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+
+    def scales(*shape, lo=0.001, hi=0.005):
+        return (torch.rand(shape, device=dev, generator=gen) * (hi - lo) + lo).to(torch.bfloat16)
+
+    def acts(B, K):
+        return torch.randn(B, K, device=dev, generator=gen).to(torch.bfloat16)
+
+    return torch, dev, u8, scales, acts
+
+
+def measure(root: str) -> dict:
+    torch, dev, u8, scales, acts = setup(root)
+    import chip_smoke as cs
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+
+    clock = cs.Clock(dev)
+    out = {}
+    K, O = 4096, 28672
+    qs, qh = u8(K // 2, O), u8(K // 8, O)
+    sc, mn = scales(K // 32, O), scales(K // 32, O, lo=0.0, hi=0.002)
+    for B in (64, 256):
+        x = acts(B, K)
+        out[f"k9 gate|up B={B}"] = clock.ms(lambda: qm.q5k_q8_gemv(x, qs, qh, sc, mn))
+    del qs, qh
+    for fmt, bits, group, name, K, O, rows in K10_CASES:
+        q, sc = u8(K * bits // 8, O), scales(K // group, O)
+        zs = (1.5 * sc.float()).to(torch.bfloat16)
+        for B in rows:
+            x = acts(B, K)
+            got = qm.affine_gemv(x, q, sc, zs, bits, group, out_dtype=torch.float32)
+            want = qm.affine_gemv_plain(x, q, sc, zs, bits, group, torch.float32)
+            rel = float((got - want).abs().max() / want.abs().max())
+            out[f"k10 {fmt} {name} B={B}"] = [
+                clock.ms(lambda: qm.affine_gemv(x, q, sc, zs, bits, group)), rel]
+        del q
+    return {"root": root, "device": torch.cuda.get_device_name(0), "rows": out}
+
+
+def trace(root: str) -> dict:
+    torch, dev, u8, scales, acts = setup(root)
+    from torch.profiler import ProfilerActivity, profile
+
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+
+    out = {}
+    for fmt, bits, group, K, O, B in TRACE_CASES:
+        q, sc = u8(K * bits // 8, O), scales(K // group, O)
+        zs = (1.5 * sc.float()).to(torch.bfloat16)
+        x = acts(B, K)
+        for _ in range(3):
+            qm.affine_gemv(x, q, sc, zs, bits, group)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                qm.affine_gemv(x, q, sc, zs, bits, group)
+            torch.cuda.synchronize()
+        out[f"{fmt} gate|up B={B}"] = {
+            e.key[:60]: e.self_device_time_total / 10 / 1e3 for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+    return {"root": root, "device": torch.cuda.get_device_name(0), "kernel_ms": out}
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    if args[0] == "--one":
+        fn = trace if args[1] == "trace" else measure
+        print(json.dumps(fn(args[2])), flush=True)
+        return 0
+    mode = "trace" if args[0] == "--trace" else "time"
+    for root in args[1:] if mode == "trace" else args:
+        r = subprocess.run([sys.executable, __file__, "--one", mode, root], capture_output=True,
+                           text=True)
+        if r.returncode:
+            print(r.stderr[-4000:], file=sys.stderr)
+            return r.returncode
+        print(r.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

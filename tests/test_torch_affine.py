@@ -115,9 +115,10 @@ def test_affine_dequant_plain_equals_jax_dequant(fmt, bits, in_f):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_affine_gemv_plain_matches_pallas_q2k():
+@pytest.mark.parametrize("B", [8, 40, 200])  # 40, 200: the rows instantiation's row counts
+def test_affine_gemv_plain_matches_pallas_q2k(B):
     _, jl, tl = _q2k_pair(256, 512, 5)
-    x = _x(8, 512, 6)
+    x = _x(B, 512, 6)
     with pltpu.force_tpu_interpret_mode():
         want = jqm.affine_qmatmul(jl, jnp.asarray(x), bits=2, group=16, zs_key="minv")
     assert want is not None
@@ -126,16 +127,17 @@ def test_affine_gemv_plain_matches_pallas_q2k():
     _close(got.numpy(), want)
 
 
+@pytest.mark.parametrize("B", [3, 40, 200])  # 40, 200: the rows instantiation's row counts
 @pytest.mark.parametrize("fmt,bits,in_f", [("gptq", 2, 2048), ("gptq", 8, 1024),
                                            ("hqq", 1, 4096), ("hqq", 2, 2048), ("hqq", 3, 512),
                                            ("hqq", 8, 512)])
-def test_affine_gemv_plain_matches_pallas(fmt, bits, in_f):
+def test_affine_gemv_plain_matches_pallas(fmt, bits, in_f, B):
     """The shapes of tests/test_quant_matmul_kernel.py (group 64), where the
     JAX dispatcher takes its kernel; 3-bit codes are a byte each (bits 8)."""
     jl, tl = (_gptq_pair if fmt == "gptq" else _hqq_pair)(bits, in_f, 256, 3 * bits + in_f)
     assert tl.kind == jl.kind
     dbits = 8 if bits in (3, 8) else bits
-    x = _x(3, in_f, bits)
+    x = _x(B, in_f, bits)
     with pltpu.force_tpu_interpret_mode():
         want = jqm.affine_qmatmul(jl, jnp.asarray(x), bits=dbits, group=64)
     assert want is not None

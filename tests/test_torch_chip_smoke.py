@@ -131,7 +131,7 @@ def test_q5km_builder_model_serves_with_q6k_kept():
     assert all(g.seqs[0].num_generated == 6 for g in groups)
     assert np.isfinite(pipe.last_greedy_pack).all()
     # the plain versions ran: no launch was counted on the CPU
-    assert qm.q5k_q8_gemv_launches == qm.q6k_q8_gemv_launches == 0
+    assert qm.q5k_q8_gemv_launches == qm.q5k_q8_gemv_rows_launches == qm.q6k_q8_gemv_launches == 0
 
 
 def _q2k_params(n_layers):
@@ -614,11 +614,12 @@ def test_bf16_card_vs_cpu_loads_each_side_from_the_file(tiny_q5km_gguf):
 def test_gguf_bf16_path_holds_the_three_kernels():
     assert chip_smoke.PATH_KERNELS["gguf_bf16"] == ("q4k_bf16_gemv", "q8_0_bf16_gemv",
                                                     "q5k_hbit_bf16_gemv")
-    # 20 kernels, K1 and K2 counted in two instantiations each
-    assert len(chip_smoke.KERNEL_INFO) == 22
-    for name in ("q4k_q8_gemv", "q8_0_q8_gemv"):
+    # 20 kernels, K1, K2, K9 and K10 counted in two instantiations each
+    assert len(chip_smoke.KERNEL_INFO) == 24
+    for name, path in (("q4k_q8_gemv", "slice"), ("q8_0_q8_gemv", "slice"),
+                       ("q5k_q8_gemv", "quant_mix"), ("affine_gemv", "q2k")):
         assert chip_smoke.KERNEL_INFO[f"{name}_rows"] == chip_smoke.KERNEL_INFO[name]
-        assert f"{name}_rows" in chip_smoke.PATH_KERNELS["slice"]
+        assert f"{name}_rows" in chip_smoke.PATH_KERNELS[path]
     for name in chip_smoke.PATH_KERNELS["gguf_bf16"]:
         source, replaces = chip_smoke.KERNEL_INFO[name]
         assert source.startswith("mistralrs_tpu_torch/csrc/") and replaces.startswith(

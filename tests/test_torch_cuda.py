@@ -252,53 +252,78 @@ def test_q8_0_q8_gemv_rows_matches_plain(dev, gs, sdt, B, K, O):
 
 
 # shapes that the plan runs in one K split, where nothing follows x's pieces
-# in the workspace: K of 4 K steps, and the main path's gate|up and lm_head
+# in the workspace: K of 4 K steps, and the main path's gate|up and lm_head;
+# K9 and K10 (Q2_K, group 16) at gate|up
 ONE_SPLIT = [("k1", 256, 272, 32), ("k1", 4096, 28672, 32), ("k2", 128, 272, 32),
-             ("k2", 256, 144, 64), ("k2", 4096, 32768, 32)]
+             ("k2", 256, 144, 64), ("k2", 4096, 32768, 32), ("k9", 4096, 28672, 32),
+             ("k10", 4096, 28672, 16)]
 
 
 @pytest.mark.parametrize("kernel,K,O,gs", ONE_SPLIT)
 @pytest.mark.parametrize("B", [150, 192, 256])
 def test_rows_one_split_matches_plain(dev, kernel, K, O, gs, B):
+    """One K split (the kernel writes out itself): within the tolerance of
+    the plain version (K10: 1e-4, bf16 products), and bit-equal on repeat."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    k_units = K // 64 if kernel == "k1" else K // gs
-    assert qm.int8_gemv_plan(B, K, O, k_units, gs, 32 if kernel == "k1" else 0, sms).ksplit == 1
     x = _acts(B, K, dev, B + K).to(torch.bfloat16)
-    if kernel == "k1":
-        qs, scale, minv = _q4k_arrays(dev, K, O, B + O)
-        got = qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.float32)
-        want = qm.q4k_q8_gemv_plain(x, qs, scale, minv, torch.float32)
-    else:
+    tol_rel = 1e-5
+    if kernel in ("k1", "k9"):
+        assert qm.int8_gemv_plan(B, K, O, K // 64, gs, 32, sms).ksplit == 1
+        if kernel == "k1":
+            qs, scale, minv = _q4k_arrays(dev, K, O, B + O)
+            run = lambda: qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.float32)
+            want = qm.q4k_q8_gemv_plain(x, qs, scale, minv, torch.float32)
+        else:
+            assert qm.q5k_q8_plan(B, K, O, sms).ksplit == 1
+            qs, qh, scale, minv = _q5k_arrays(dev, K, O, B + O)
+            run = lambda: qm.q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=torch.float32)
+            want = qm.q5k_q8_gemv_plain(x, qs, qh, scale, minv, torch.float32)
+    elif kernel == "k2":
+        assert qm.int8_gemv_plan(B, K, O, K // gs, gs, 0, sms).ksplit == 1
         g = torch.Generator(device="cpu").manual_seed(B + O)
         q = torch.randint(-128, 128, (K, O), generator=g, dtype=torch.int8).to(dev)
         s = (torch.rand(K // gs, O, generator=g) * 0.01).to(dev)
-        got = qm.q8_0_q8_gemv(x, q, s, gs, out_dtype=torch.float32)
+        run = lambda: qm.q8_0_q8_gemv(x, q, s, gs, out_dtype=torch.float32)
         want = qm.q8_0_q8_gemv_plain(x, q, s, gs, torch.float32)
+    else:
+        assert qm.plane_gemv_plan(B, K, O, 2, gs, sms).ksplit == 1
+        q, scale, zs = _affine_arrays(dev, 2, gs, K, O, B + O)
+        run = lambda: qm.affine_gemv(x, q, scale, zs, 2, gs, out_dtype=torch.float32)
+        want = qm.affine_gemv_plain(x, q, scale, zs, 2, gs, torch.float32)
+        tol_rel = 1e-4
+    got, again = run(), run()
     torch.cuda.synchronize()
-    tol = 1e-5 * float(want.abs().max()) + 1e-5
+    tol = tol_rel * float(want.abs().max()) + 1e-5
     assert float((got - want).abs().max()) <= tol
+    assert torch.equal(got, again)
 
 
 def test_rows_instantiations_count_apart(dev):
-    """At 64 rows K1 and K2 launch their rows instantiations (and bf16 out
-    matches the f32 one rounded); the 16-row counters stay."""
+    """At 64 rows K1, K2, K9 and K10 launch their rows instantiations (and
+    bf16 out matches the f32 one rounded); the 16-row counters stay."""
     K, O, B = 1024, 256, 64
     qs, scale, minv = _q4k_arrays(dev, K, O, 1)
     q = torch.randint(-128, 128, (K, O), dtype=torch.int8, device=dev)
     s = torch.rand(K // 32, O, device=dev) * 0.01
+    qs5, qh5, s5, m5 = _q5k_arrays(dev, K, O, 3)
+    q2, s2, z2 = _affine_arrays(dev, 2, 16, K, O, 4)
     x = _acts(B, K, dev, 2).to(torch.bfloat16)
-    before = (qm.q4k_q8_gemv_launches, qm.q4k_q8_gemv_rows_launches,
-              qm.q8_0_q8_gemv_launches, qm.q8_0_q8_gemv_rows_launches)
-    y1 = qm.q4k_q8_gemv(x, qs, scale, minv)
-    y2 = qm.q8_0_q8_gemv(x, q, s, 32)
-    after = (qm.q4k_q8_gemv_launches, qm.q4k_q8_gemv_rows_launches,
-             qm.q8_0_q8_gemv_launches, qm.q8_0_q8_gemv_rows_launches)
-    assert [a - b for a, b in zip(after, before)] == [0, 1, 0, 1]
-    assert y1.dtype == y2.dtype == torch.bfloat16
-    f1 = qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.float32)
-    f2 = qm.q8_0_q8_gemv(x, q, s, 32, out_dtype=torch.float32)
+    names = ("q4k_q8_gemv", "q8_0_q8_gemv", "q5k_q8_gemv", "affine_gemv")
+
+    def counts():
+        return [getattr(qm, f"{n}{r}_launches") for n in names for r in ("", "_rows")]
+
+    calls = (lambda dt: qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=dt),
+             lambda dt: qm.q8_0_q8_gemv(x, q, s, 32, out_dtype=dt),
+             lambda dt: qm.q5k_q8_gemv(x, qs5, qh5, s5, m5, out_dtype=dt),
+             lambda dt: qm.affine_gemv(x, q2, s2, z2, 2, 16, out_dtype=dt))
+    before = counts()
+    ys = [call(torch.bfloat16) for call in calls]
+    assert [a - b for a, b in zip(counts(), before)] == [0, 1] * 4
+    fs = [call(torch.float32) for call in calls]
     torch.cuda.synchronize()
-    assert torch.equal(y1, f1.to(torch.bfloat16)) and torch.equal(y2, f2.to(torch.bfloat16))
+    for y, f in zip(ys, fs):
+        assert y.dtype == torch.bfloat16 and torch.equal(y, f.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("B,T,Hq,Hkv", [(1, 128, 4, 2), (2, 200, 8, 2), (1, 64, 4, 4),
@@ -435,15 +460,25 @@ def test_q6k_bf16_gemv_matches_plain(dev, B, K, O):
     assert _rel_err(got, want) <= 1e-4
 
 
-@pytest.mark.parametrize("B", [1, 5, 16, 17, 256])
+# the 16-row kernels' row counts, then the rows instantiations' (one and two
+# row tiles of 64 and 128, and their edges)
+K9_K10_B = [1, 5, 16, 17, 64, 65, 128, 129, 200, 256]
+
+
+@pytest.mark.parametrize("B", K9_K10_B)
 @pytest.mark.parametrize("K,O", [(512, 256), (4096, 272), (14336, 128)])
 def test_q5k_q8_gemv_matches_plain(dev, B, K, O):
+    """K9 (the 16-row kernel up to 16 rows, the rows instantiation above):
+    exact int32 dots on both sides, f32 sums in another order."""
     qs, qh, scale, minv = _q5k_arrays(dev, K, O, B + K)
     for xdt in (torch.float32, torch.bfloat16):
         x = _acts(B, K, dev, B).to(xdt)
+        before = (qm.q5k_q8_gemv_launches, qm.q5k_q8_gemv_rows_launches)
         got = qm.q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=torch.float32)
         want = qm.q5k_q8_gemv_plain(x, qs, qh, scale, minv, torch.float32)
         torch.cuda.synchronize()
+        assert (qm.q5k_q8_gemv_launches - before[0], qm.q5k_q8_gemv_rows_launches - before[1]) == (
+            (1, 0) if B <= 16 else (0, 1))
         assert _rel_err(got, want) <= 1e-5
 
 
@@ -494,7 +529,7 @@ def _affine_arrays(dev, bits, group, K, O, seed):
     return q.to(dev), scale, zs
 
 
-@pytest.mark.parametrize("B", [1, 5, 16, 17, 64, 65, 256])
+@pytest.mark.parametrize("B", K9_K10_B)
 @pytest.mark.parametrize("bits,group,K,O", [
     (2, 16, 512, 256), (2, 16, 4096, 272),      # GGUF Q2_K
     (1, 64, 4096, 256), (1, 16, 512, 144),      # HQQ-1: 8 planes
@@ -504,15 +539,18 @@ def _affine_arrays(dev, bits, group, K, O, seed):
 ])
 def test_affine_gemv_matches_plain(dev, B, bits, group, K, O):
     """K10: the same bf16(q * scale) weights on both sides, the zs term in
-    f32 over per-16 sums on the card and per-group sums in the plain
-    version; f32 sums in another order (1e-4 of max |y|, as K4)."""
+    f32 over per-16 sums (the 16-row kernel), on the tensor cores over
+    per-group sums in three exact bf16 parts (the rows instantiation), and
+    per-group sums in the plain version; f32 sums in another order (1e-4 of
+    max |y|, as K4)."""
     q, scale, zs = _affine_arrays(dev, bits, group, K, O, B + K + bits)
     x = _acts(B, K, dev, B + bits).to(torch.bfloat16)
-    before = qm.affine_gemv_launches
+    before = (qm.affine_gemv_launches, qm.affine_gemv_rows_launches)
     got = qm.affine_gemv(x, q, scale, zs, bits, group, out_dtype=torch.float32)
     want = qm.affine_gemv_plain(x, q, scale, zs, bits, group, torch.float32)
     torch.cuda.synchronize()
-    assert qm.affine_gemv_launches == before + 1
+    assert (qm.affine_gemv_launches - before[0], qm.affine_gemv_rows_launches - before[1]) == (
+        (1, 0) if B <= 16 else (0, 1))
     assert bool(torch.isfinite(got).all())
     assert _rel_err(got, want) <= 1e-4
     y16 = qm.affine_gemv(x, q, scale, zs, bits, group)
@@ -540,12 +578,13 @@ def test_q2k_linear_routes_on_the_card(dev):
     K, O = 1024, 256
     q, scale, minv = _affine_arrays(dev, 2, 16, K, O, 3)
     lin = Linear("gguf_q2k", (K, O), {"q": q, "scale": scale, "minv": minv})
-    for rows, k10, deq in ((1, 1, 0), (256, 1, 0), (257, 0, 1)):
-        a, d = qm.affine_gemv_launches, qm.affine_dequant_launches
+    for rows, k10, k10_rows, deq in ((1, 1, 0, 0), (256, 0, 1, 0), (257, 0, 0, 1)):
+        a, r, d = qm.affine_gemv_launches, qm.affine_gemv_rows_launches, qm.affine_dequant_launches
         x = _acts(rows, K, dev, rows).to(torch.bfloat16)
         y = linear(lin, x)
         torch.cuda.synchronize()
-        assert (qm.affine_gemv_launches - a, qm.affine_dequant_launches - d) == (k10, deq)
+        assert (qm.affine_gemv_launches - a, qm.affine_gemv_rows_launches - r,
+                qm.affine_dequant_launches - d) == (k10, k10_rows, deq)
         want = qm.affine_gemv_plain(x, q, scale, minv, 2, 16, torch.float32)
         assert y.shape == (rows, O) and _rel_err(y.float(), want) <= 1e-2
     lin8 = Linear("gguf_q2k", (K, 8), {k: v[:, :8].contiguous() for k, v in lin.data.items()})
@@ -565,6 +604,12 @@ def test_affine_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         qm.affine_gemv(x.to(torch.bfloat16), q, scale.float(), zs, 2, 16)
     with pytest.raises(ValueError):  # f32 weights out of the dequant kernel
         qm.affine_dequant(q, scale, zs, 2, 16, torch.float32)
+    # above 16 rows a group that spans two planes (64 byte rows, group 128)
+    # is refused, not served by another kernel
+    q1, s1, z1 = _affine_arrays(dev, 1, 128, 512, 256, 2)
+    qm.affine_gemv(x.to(torch.bfloat16), q1, s1, z1, 1, 128)  # the 16-row kernel takes it
+    with pytest.raises(ValueError):
+        qm.affine_gemv(_acts(40, 512, dev, 1).to(torch.bfloat16), q1, s1, z1, 1, 128)
 
 
 def _paged_inputs(dev, B, T, kv_lens, Hq, Hkv, head_major, seed, page=16, D=128):
@@ -1173,7 +1218,7 @@ def test_gguf_pipeline_decodes_on_the_bf16_route(dev, tmp_path):
         int8_activations=False))
     eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
     names = ("q4k_bf16_gemv", "q5k_hbit_bf16_gemv", "q8_0_bf16_gemv", "q4k_q8_gemv",
-             "q8_0_q8_gemv", "q5k_q8_gemv", "q6k_q8_gemv")
+             "q8_0_q8_gemv", "q5k_q8_gemv", "q6k_q8_gemv", "q5k_q8_gemv_rows")
     before = {n: getattr(qm, f"{n}_launches") for n in names}
     rng = np.random.default_rng(0)
     group = eng.add_request(GenerationRequest([int(t) for t in rng.integers(1, 2048, 40)],

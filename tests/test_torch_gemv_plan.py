@@ -20,10 +20,11 @@ def _align256(n):
     return (n + 255) // 256 * 256
 
 
-def carve(B, K, O, gs, sum_gs, ksplit, rows):
-    """csrc/common.cuh::carve, written out again for K1 and K2 (row tile 16:
-    the decode layout; 64 or 128: tiled): bpad and the pieces xq, xs, xsum,
-    partials as {name: (offset, bytes)}, and the total."""
+def carve(B, K, O, gs, sum_gs, ksplit, rows, xcopy=False):
+    """csrc/common.cuh::carve, written out again for K1, K2, K9 and K10 (row
+    tile 16: the decode layout; 64 or 128: tiled): bpad and the pieces xq,
+    xs, xsum, xc (K10's bf16 copy of x), partials as {name: (offset,
+    bytes)}, and the total."""
     tiled = rows > 16
     bpad = (B + rows - 1) // rows * rows
     pieces, off = {}, 0
@@ -32,6 +33,8 @@ def carve(B, K, O, gs, sum_gs, ksplit, rows):
         sizes += [("xq", bpad * K), ("xs", (K // gs) * bpad * 4)]
     if sum_gs:
         sizes.append(("xsum", (K // sum_gs) * bpad * 4))
+    if xcopy:
+        sizes.append(("xc", bpad * K * 2))
     if tiled and ksplit > 1:
         sizes.append(("part", ksplit * B * O * 4))
     for name, n in sizes:
@@ -157,3 +160,130 @@ def test_row_tiles_of_128_pad_the_workspace(B):
         check_row_tile_reads(B, K, gs, sum_gs, plan)
         bpad = carve(B, K, O, gs, sum_gs, plan.ksplit, plan.rows)[0]
         assert bpad == 256
+
+
+# K9 (q5k_q8_gemv) at the Mistral-7B Q5_K_M main path's Q5_K projections
+Q5K_SHAPES = [("qk", 4096, 5120), ("o", 4096, 4096), ("gate|up", 4096, 28672),
+              ("down", 14336, 4096)]
+
+
+def carve_row_major(B, K, O, gs, sum_gs, ksplit):
+    """csrc/common.cuh::carve in the row-major layout of the 16-row kernels
+    (K9's, K10's): xq [B, K] and xs unless gs is 0, xsum unless sum_gs is
+    0, and always the partials [ksplit, B, O]; bpad is B rounded up to 16."""
+    bpad = (B + 15) // 16 * 16
+    sizes = ([B * K, (K // gs) * bpad * 4] if gs else []) + (
+        [(K // sum_gs) * bpad * 4] if sum_gs else []) + [ksplit * B * O * 4]
+    return sum(_align256(n) for n in sizes)
+
+
+def check_rows_grid(B, O, sms, plan):
+    """A rows plan's grid: row tiles fastest, each weight tile read by at
+    most two blocks, K split only to fill one wave."""
+    assert plan.cluster == 1 and plan.cols == 128, (B, plan)
+    assert plan.rows == (64 if B <= 64 else 128), (B, plan)
+    rtiles, ctiles, ks = plan.grid
+    assert ctiles == -(-O // 128) and ks == plan.ksplit, (B, plan)
+    assert rtiles <= 2 and (rtiles - 1) * plan.rows < B <= rtiles * plan.rows, (B, plan)
+    assert ks == 1 or rtiles * ctiles * ks <= sms, (B, plan)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("name,K,O", Q5K_SHAPES)
+def test_q5k_q8_plan(name, K, O, sms):
+    """K9: its 16-row kernel up to 16 rows (grid (column tiles, K splits,
+    1), the row-major workspace), K1's rows plan above, whose K splits
+    take whole groups of 4 pairs and none is empty at these shapes."""
+    groups = K // 256
+    for B in range(1, 257):
+        plan = qm.q5k_q8_plan(B, K, O, sms)
+        ks = plan.ksplit
+        assert 1 <= ks <= groups, (B, plan)
+        if B <= 16:
+            assert plan.rows == 16 and plan.grid == (-(-O // 128), ks, 1), (B, plan)
+            assert (plan.cluster, plan.cols, plan.stages) == (1, 128, 0), (B, plan)
+            assert plan.ws_bytes == carve_row_major(B, K, O, 32, 32, ks), (B, plan)
+            continue
+        assert plan == qm.int8_gemv_plan(B, K, O, K // 64, 32, 32, sms)
+        check_rows_grid(B, O, sms, plan)
+        assert plan.stages == 0
+        per = qm.q5k_rows_pairs_per_split(K, ks)
+        assert per % 4 == 0 and (ks - 1) * per < K // 64 <= ks * per, (B, plan, per)
+        check_row_tile_reads(B, K, 32, 32, plan)
+        assert plan.ws_bytes == carve_bytes(B, K, O, 32, 32, ks, plan.rows)
+
+
+def test_q5k_rows_split_covers_every_pair_once():
+    """The pairs of a K split (whole groups of 4, run group by group: step s
+    is pair (s % 4) * K/256 + s / 4) cover every sub-block pair once."""
+    for K in (256, 1024, 4096, 14336):
+        for ks in range(1, K // 256 + 1):
+            per = qm.q5k_rows_pairs_per_split(K, ks)
+            pairs = [(s % 4) * (K // 256) + s // 4 for z in range(ks)
+                     for s in range(z * per, min(K // 64, (z + 1) * per))]
+            assert sorted(pairs) == list(range(K // 64)), (K, ks)
+
+
+# K10 (affine_gemv): the Q2_K path's q|k and gate|up, a GPTQ down
+PLANE_SHAPES = [("qk", 4096, 5120), ("gate|up", 4096, 28672), ("down", 14336, 4096)]
+
+
+def plane_stage_bytes(bits, rows):
+    """sizeof(PlaneRowStage) of csrc/plane_gemv.cuh written out again: x's
+    chunk tiles (rows x the step's elements, bf16), the decoded bf16 tile
+    (the step's elements x 128 columns), the byte rows, the scale rows (the
+    planes, or a row a 16 elements), rounded up to the struct's 1 KB
+    alignment."""
+    per = 8 // bits
+    elems = 32 if bits == 8 else 64
+    size = rows * elems * 2 + elems * 128 * 2 + elems // per * 128 + max(per, elems // 16) * 256
+    return -(-size // 1024) * 1024
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("group", [16, 64, 128])
+def test_plane_gemv_plan(bits, group, sms):
+    """K10: the 16-row kernel up to 16 rows; above, the rows kernel on a
+    grid whose row tiles run fastest (each weight tile read by at most two
+    blocks), K split at zs slices (32 or 16 groups) only to fill one wave with
+    none empty, at least 3 ring stages (a multiple of 3) in 226 KB, and the
+    workspace of carve's tiled layout: the per-group sums, x's bf16 copy in
+    the kernel's step order, the partials with more than one split."""
+    per = 8 // bits
+    elems = 32 if bits == 8 else 64
+    for name, K, O in PLANE_SHAPES:
+        kp = K // per
+        assert qm.plane_rows_take(K, bits, group), (name, bits, group)
+        slices = -(-(kp * per // elems) // ((32 if elems == 64 else 16) * group // elems))
+        for B in range(1, 257):
+            plan = qm.plane_gemv_plan(B, K, O, bits, group, sms)
+            ks = plan.ksplit
+            if B <= 16:
+                assert plan.rows == 16 and plan.grid == (-(-O // 128), ks, 1), (B, plan)
+                assert 1 <= ks <= kp // 32 and plan.stages == 0, (B, plan)
+                assert plan.ws_bytes == carve_row_major(B, K, O, 0, 16, ks), (B, plan)
+                continue
+            check_rows_grid(B, O, sms, plan)
+            per_split = -(-slices // ks)
+            assert (ks - 1) * per_split < slices <= ks * per_split, (B, plan)
+            stage = plane_stage_bytes(bits, plan.rows)
+            assert plan.stages == min(12, (226 * 1024 - 1024) // stage) // 3 * 3 >= 3, (B, plan)
+            bpad, pieces, total = carve(B, K, O, 0, group, ks, plan.rows, xcopy=True)
+            assert plan.grid[0] * plan.rows <= bpad, (B, plan)
+            assert pieces["xsum"] == (0, (K // group) * bpad * 4)
+            assert pieces["xc"][1] == bpad * K * 2
+            assert ("part" in pieces) == (ks > 1) and plan.ws_bytes == total, (B, plan)
+
+
+def test_plane_rows_take_and_the_row_rule():
+    """The rows kernel takes a group that lies inside one plane and is a
+    power of two; at 16 rows the plan is the 16-row kernel's, at 17 the
+    rows kernel's."""
+    assert qm.plane_rows_take(4096, 2, 16) and qm.plane_rows_take(4096, 8, 128)
+    assert qm.plane_rows_take(4096, 8, 4096)  # per-channel GPTQ-8 at a power-of-two width
+    assert not qm.plane_rows_take(512, 1, 128)  # 64 byte rows: a group spans two planes
+    assert not qm.plane_rows_take(4608, 4, 48)  # not a power of two
+    assert not qm.plane_rows_take(14336, 8, 14336)  # per-channel at Mistral's down width
+    assert qm.plane_gemv_plan(16, 4096, 28672, 2, 16, 132).rows == 16
+    assert qm.plane_gemv_plan(17, 4096, 28672, 2, 16, 132).rows == 64

@@ -84,9 +84,10 @@ def test_k4_plain_matches_pallas_q6k(K, natural):
     _close(got.numpy(), want)
 
 
+@pytest.mark.parametrize("B", [8, 40, 200])  # 40, 200: the rows instantiation's row counts
 @pytest.mark.parametrize("K", [2048, 4096])
-def test_k9_plain_matches_pallas_q5k_q8(K):
-    O, B = 256, 8
+def test_k9_plain_matches_pallas_q5k_q8(K, B):
+    O = 256
     jl, tl = _pair(GGMLType.Q5_K, O, K, K + 1)
     x = _x(B, K, 7)
     with pltpu.force_tpu_interpret_mode():

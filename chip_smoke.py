@@ -24,7 +24,8 @@ non-zero and never prints the final line):
    the card could take (bound); for the Q6_K int8 GEMV (K3) also the time of
    the int8 GEMV (K2) on the same weight requantized to int8 per 32 (rq8).
    K1, K2 and K9 also at 64, 128 and 256 rows (K9 at 17 too), K10 at 64 and
-   256 in every layout: the rows instantiations.
+   256 in every layout, K4 (the Q6_K bf16 GEMV) at 17, 64, 128 and 256: the
+   rows instantiations.
 4. slice: the 32-layer Mistral-7B Q4_K_M model with random packed weights
    (the value ranges of bench.py), fused and Q6_K->int8 requantized by the
    pipeline, serves 8 greedy requests through Engine/TextPipeline: ~200-token
@@ -44,9 +45,10 @@ non-zero and never prints the final line):
    has Q4_K) with Q6_K kept as Q6_K (rq8_group=None) serves the slice
    phase's pattern through Engine/TextPipeline: 4 x 256-row first chunks
    (q5k_dequant / q6k_dequant + torch.matmul, flash prefill), 4 x 64-row
-   chunks (K9's rows instantiation and K4), decode at batch 16 (K9's
-   16-row kernel and K3). It raises unless K3, K4, both instantiations of
-   K9 and both dequant kernels launched and K1 and K2 did not.
+   chunks (the rows instantiations of K9 and K4), decode at batch 16 (K9's
+   16-row kernel and K3). It raises unless K3, K4's rows instantiation,
+   both instantiations of K9 and both dequant kernels launched and K1 and
+   K2 did not.
 7. q2k: the 32-layer Mistral-7B in llama.cpp's Q2_K mix (Q2_K q, k, gate,
    up; Q4_K v; Q3_K o and down packed into the Q6_K layout; Q6_K lm_head),
    Q3_K and Q6_K requantized to int8 per 32 by the pipeline, serves the
@@ -67,7 +69,9 @@ non-zero and never prints the final line):
 9. card_vs_cpu: a 2-layer full-width model with identical weights on the card
    (kernels, bf16) and on the CPU (plain versions, f32): one 256-token
    prefill and 4 decode steps, logits compared, in the Q4_K_M mix, in
-   the Q5_K_M mix with Q6_K kept and in the Q2_K mix; then on head-major
+   the Q5_K_M mix with Q6_K kept (with int8 activations, and without: K5,
+   K9b and K4 in both their instantiations, the only served path of K4's
+   16-row one) and in the Q2_K mix; then on head-major
    pools a 512-token first chunk, a 512-token continuation chunk and 4
    decode steps at a table width of 256 pages (K6, K6', K7 on the card).
 10. card_vs_cpu_gemma2: the same for a 2-layer Gemma-2-9B (one local and
@@ -111,14 +115,16 @@ non-zero and never prints the final line):
    PipelineConfig(int8_activations=False) in the slice phase's pattern: K5
    and K9b for every Q5_K projection and K8 for the requantized Q6_K ones up
    to 256 rows, the Q5_K and int8 dequant kernels above, K6. It raises
-   unless K5, K9b, K8 and K6 launched and no int8 GEMV (K1, K2, K3, K9) did;
+   unless K5, both instantiations of K9b, K8 and K6 launched and no int8
+   GEMV (K1, K2, K3, K9) did;
    its line gives the write, read, embedding-dequant and load times apart.
 17. card_vs_cpu_bf16: phase 9's comparison with int8_activations=False for
    2-layer full-width GGUF files in the Q4_K_M rule (K5, K8) and the Q5_K_M
    rule (K5, K9b, K8), each loaded by load_gguf_model on each side; and,
    as a control, the same files with int8 activations (K1, K9, K2).
 The kernel phase also holds K5, K9b and K8 against their plain versions at
-the gguf_bf16 path's shapes (gate|up at 1, 16, 64 and 256 rows; q|k, down;
+the gguf_bf16 path's shapes (gate|up at 1, 16, 17, 64, 128 and 256 rows;
+q|k, down;
 K8 also at the lm_head on rq8 and wire Q8_0 scales), K12 against its plain
 version (decode at Mistral-7B's and Gemma-2-9B's widths, 4 x 512 continuation chunks, a mixed
 batch of a decode row, a first chunk and a continuation with fewer live
@@ -141,6 +147,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 
@@ -174,6 +181,9 @@ KERNEL_INFO = {
                     "mistralrs_tpu/ops/quant_matmul.py:954"),
     "q6k_bf16_gemv": ("mistralrs_tpu_torch/csrc/q6k_gemv.cu",
                       "mistralrs_tpu/ops/quant_matmul.py:896"),
+    # K4's and K9b's rows instantiations (17-256 rows), counted apart
+    "q6k_bf16_gemv_rows": ("mistralrs_tpu_torch/csrc/q6k_gemv.cu",
+                           "mistralrs_tpu/ops/quant_matmul.py:896"),
     "q5k_q8_gemv": ("mistralrs_tpu_torch/csrc/q5k_q8_gemv.cu",
                     "mistralrs_tpu/ops/quant_matmul.py:757"),
     # K9's and K10's rows instantiations (17-256 rows), counted apart
@@ -201,6 +211,8 @@ KERNEL_INFO = {
                        "mistralrs_tpu/ops/quant_matmul.py:1197"),
     "q5k_hbit_bf16_gemv": ("mistralrs_tpu_torch/csrc/q5k_hbit_bf16_gemv.cu",
                            "mistralrs_tpu/ops/quant_matmul.py:658"),
+    "q5k_hbit_bf16_gemv_rows": ("mistralrs_tpu_torch/csrc/q5k_hbit_bf16_gemv.cu",
+                                "mistralrs_tpu/ops/quant_matmul.py:658"),
 }
 # the shape whose numbers stand in the kernels line
 HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
@@ -208,31 +220,36 @@ HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
             "flash_prefill": "B=4 T=512", "flash_prefill_paged": "B=4 T=512 kv=4096 head_major",
             "paged_decode": "B=16 kv=4096 head_major", "q4k_dequant": "gate|up",
             "q8_0_dequant": "down rq8", "q6k_q8_gemv": "lm_head B=16",
-            "q6k_bf16_gemv": "down B=256", "q5k_q8_gemv": "gate|up B=16", "q6k_dequant": "down",
+            "q6k_bf16_gemv": "down B=16", "q6k_bf16_gemv_rows": "down B=256",
+            "q5k_q8_gemv": "gate|up B=16", "q6k_dequant": "down",
             "q5k_dequant": "gate|up", "affine_gemv": "gate|up q2k B=16",
             "q5k_q8_gemv_rows": "gate|up B=256", "affine_gemv_rows": "gate|up q2k B=256",
             "affine_dequant": "gate|up q2k", "splash_prefill": "gemma2-9b B=4 T=512",
             "ragged_attention": "mistral B=16 kv=4096 decode", "grouped_gemm": "gate M=32 decode",
             "q4k_bf16_gemv": "gate|up B=16", "q8_0_bf16_gemv": "lm_head B=16",
-            "q5k_hbit_bf16_gemv": "gate|up B=16"}
+            "q5k_hbit_bf16_gemv": "gate|up B=16", "q5k_hbit_bf16_gemv_rows": "gate|up B=256"}
 # the kernels each serving phase's path adds (long_context also runs the
 # slice path's, quant_mix also flash_prefill, q2k also the slice path's,
 # gemma2 also q4k_q8_gemv and q4k_dequant, and paged_decode in
 # card_vs_cpu_gemma2; gemma2_ragged also splash_prefill; mixtral also
 # flash_prefill and q4k_q8_gemv; gguf_bf16 also flash_prefill and the
-# Q5_K and int8 dequant kernels); the line's launches of each kernel come
-# from the phase of its path
+# Q5_K and int8 dequant kernels); K4's 16-row instantiation is served only
+# where Q6_K is kept with bf16 activations, in card_vs_cpu's run of that
+# mix (with int8 activations K3 takes every Q6_K shape at up to 16 rows);
+# the line's launches of each kernel come from the phase of its path
 PATH_KERNELS = {
     "slice": ("q4k_q8_gemv", "q8_0_q8_gemv", "q4k_q8_gemv_rows", "q8_0_q8_gemv_rows",
               "flash_prefill", "q4k_dequant", "q8_0_dequant"),
     "long_context": ("flash_prefill_paged", "paged_decode"),
-    "quant_mix": ("q6k_q8_gemv", "q6k_bf16_gemv", "q5k_q8_gemv", "q5k_q8_gemv_rows",
+    "quant_mix": ("q6k_q8_gemv", "q6k_bf16_gemv_rows", "q5k_q8_gemv", "q5k_q8_gemv_rows",
                   "q6k_dequant", "q5k_dequant"),
     "q2k": ("affine_gemv", "affine_gemv_rows", "affine_dequant"),
     "gemma2": ("splash_prefill",),
     "gemma2_ragged": ("ragged_attention",),
     "mixtral": ("grouped_gemm",),
-    "gguf_bf16": ("q4k_bf16_gemv", "q8_0_bf16_gemv", "q5k_hbit_bf16_gemv"),
+    "gguf_bf16": ("q4k_bf16_gemv", "q8_0_bf16_gemv", "q5k_hbit_bf16_gemv",
+                  "q5k_hbit_bf16_gemv_rows"),
+    "card_vs_cpu_q5km_bf16": ("q6k_bf16_gemv",),
 }
 # each kernel's launch counter: (module under mistralrs_tpu_torch.ops, name)
 COUNTERS = {
@@ -247,6 +264,7 @@ COUNTERS = {
     "q8_0_dequant": ("quant_matmul", "q8_0_dequant_launches"),
     "q6k_q8_gemv": ("quant_matmul", "q6k_q8_gemv_launches"),
     "q6k_bf16_gemv": ("quant_matmul", "q6k_bf16_gemv_launches"),
+    "q6k_bf16_gemv_rows": ("quant_matmul", "q6k_bf16_gemv_rows_launches"),
     "q5k_q8_gemv": ("quant_matmul", "q5k_q8_gemv_launches"),
     "q6k_dequant": ("quant_matmul", "q6k_dequant_launches"),
     "q5k_dequant": ("quant_matmul", "q5k_dequant_launches"),
@@ -260,6 +278,7 @@ COUNTERS = {
     "q4k_bf16_gemv": ("quant_matmul", "q4k_bf16_gemv_launches"),
     "q8_0_bf16_gemv": ("quant_matmul", "q8_0_bf16_gemv_launches"),
     "q5k_hbit_bf16_gemv": ("quant_matmul", "q5k_hbit_bf16_gemv_launches"),
+    "q5k_hbit_bf16_gemv_rows": ("quant_matmul", "q5k_hbit_bf16_gemv_rows_launches"),
 }
 
 
@@ -807,13 +826,18 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
     from mistralrs_tpu_torch.quant.gguf_linear import dequant_q4k_weights, dequant_q8_0_gs_weights
     from mistralrs_tpu_torch.quant.qlinear import Linear
 
-    gen = torch.Generator(device=device).manual_seed(7)
     H, I, D = sz.hidden, sz.inter, sz.head_dim
     fdt = torch.bfloat16
     results: dict[str, list] = {k: [] for k in KERNEL_INFO}
 
-    def rand(*shape, lo=0.0, hi=1.0, dtype=torch.float32):
-        return (torch.rand(shape, device=device, generator=gen) * (hi - lo) + lo).to(dtype)
+    def inputs(group: str):
+        """A generator of the group's own, seeded from its name, and rand on
+        it: the rows timed for one group never move another group's inputs."""
+        g = torch.Generator(device=device).manual_seed(zlib.crc32(group.encode()))
+
+        def rand(*shape, lo=0.0, hi=1.0, dtype=torch.float32):
+            return (torch.rand(shape, device=device, generator=g) * (hi - lo) + lo).to(dtype)
+        return g, rand
 
     def record(name, shape_name, err, rel, tol, ms, plain_ms, lib_ms, bnd, **extra):
         row = {"phase": "kernel", "name": name, "shape": shape_name, "max_abs_err": err,
@@ -826,6 +850,7 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
 
     per_call: dict[str, float] = {}  # decode shape -> kernels the card runs a call
     # K1: every Q4_K projection of a decode step (fused q|k, o, gate|up, down)
+    gen, rand = inputs("q4k_q8")
     q4k_shapes = [("qk", H, (sz.heads + sz.kv_heads) * D), ("o", sz.heads * D, H),
                   ("gate|up", H, 2 * I), ("down", I, H)]
     for B in GEMV_ROWS:
@@ -869,6 +894,7 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
     vocab_pad = -(-sz.vocab // 2048) * 2048
     q8_shapes = [("v", H, sz.kv_heads * D), ("down rq8", I, H), ("lm_head", H, vocab_pad)]
     gs = 32
+    gen, rand = inputs("q8_0_q8")
     for B in GEMV_ROWS:
         for nm, K, O in q8_shapes:
             q = torch.randint(-127, 128, (K, O), dtype=torch.int8, device=device, generator=gen)
@@ -900,11 +926,12 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
             del w
 
     results["gemv_decode"] = gemv_decode_line(results, per_call)
-    q56k_kernels(sz, device, clock, gen, rand, record)
-    affine_kernels(sz, device, clock, gen, rand, record)
-    bf16_kernels(sz, device, clock, gen, rand, record)
+    q56k_kernels(sz, device, clock, *inputs("q56k"), record)
+    affine_kernels(sz, device, clock, *inputs("affine"), record)
+    bf16_kernels(sz, device, clock, *inputs("bf16"), record)
 
     # K6: first prefill chunks
+    gen, _ = inputs("flash")
     for B, T, Hq, Hkv in sz.flash_cases:
         qf = torch.randn(B, T, Hq, D, device=device, generator=gen).to(fdt)
         kf = torch.randn(B, T, Hkv, D, device=device, generator=gen).to(fdt)
@@ -929,22 +956,23 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
         record("flash_prefill", f"B={B} T={T}", err, rel, 1e-2, ms, plain, lib,
                bound(nbytes, flops, PEAK_BF16))
 
-    paged_kernels(sz, device, clock, gen, record)
-    gemma2_kernels(device, clock, gen, record)
-    ragged_kernels(device, clock, gen, record)
-    grouped_kernels(device, clock, gen, record)
+    paged_kernels(sz, device, clock, inputs("paged")[0], record)
+    gemma2_kernels(device, clock, inputs("gemma2")[0], record)
+    ragged_kernels(device, clock, inputs("ragged")[0], record)
+    grouped_kernels(device, clock, inputs("grouped")[0], record)
     return results
 
 
-# the row counts K9 is timed at: the 16-row kernel at 16 and 1, the rows
-# instantiation at 17, 64, 128 and 256
+# the row counts K9, K4 and K9b are timed at: the 16-row kernel at 16 and 1,
+# the rows instantiation at 17, 64, 128 and 256
 K9_ROWS = (16, 1, 17, 64, 128, 256)
 
 
 def q56k_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
-    """Parity and timing of K3, K4, K9 and the Q5_K / Q6_K dequant kernels
-    at the shapes of the Q5_K_M path (random packed weights, bench.py's
-    value ranges). library = torch.matmul on the dequantized bf16 weight.
+    """Parity and timing of K3, K4 (both instantiations), K9 and the Q5_K /
+    Q6_K dequant kernels at the shapes of the Q5_K_M path (random packed
+    weights, bench.py's value ranges). library = torch.matmul on the
+    dequantized bf16 weight.
     Each K3 row also times K2 on the same weight requantized to int8 per 32
     (rq8, the layout the Q4_K_M path serves Q6_K in)."""
     import torch
@@ -994,14 +1022,15 @@ def q56k_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
                    rq8_k2_ms=clock.ms(lambda: qm.q8_0_q8_gemv(x, rq8.data["q"], rq8.data["scale"],
                                                               32, out_dtype=fdt)))
         del rq8
-        for B in (64, 256):
+        for B in K9_ROWS:
             x = torch.randn(B, K, device=device, generator=gen).to(fdt)
             err, rel = compare(qm.q6k_bf16_gemv(x, ql, qh, scale, G, out_dtype=torch.float32),
                                qm.q6k_bf16_gemv_plain(x, ql, qh, scale, G, torch.float32))
             nbytes = B * K * 2 + w_bytes + B * O * 2
             # the same bf16(q * s16) weights on both sides; f32 sums of bf16
             # products in another order
-            record("q6k_bf16_gemv", f"{nm} B={B}", err, rel, 1e-4,
+            record("q6k_bf16_gemv" if B <= 16 else "q6k_bf16_gemv_rows", f"{nm} B={B}", err, rel,
+                   1e-4,
                    clock.ms(lambda: qm.q6k_bf16_gemv(x, ql, qh, scale, G, out_dtype=fdt)),
                    clock.ms(lambda: qm.q6k_bf16_gemv_plain(x, ql, qh, scale, G, fdt)),
                    clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_BF16))
@@ -1094,17 +1123,22 @@ def affine_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
 
 
 def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
-    """Parity and timing of K5, K9b and K8, the GEMVs of int8_activations=
-    False, at the shapes of the gguf_bf16 path: gate|up at 1, 16, 64 and 256
-    rows, q|k and down at 16; K8 on rq8 weights (f32 scales per 32) at the
-    same shapes and at the lm_head (32768 columns), and once on wire Q8_0
-    (bf16 scales). Random codes, scale U[0.001, 0.005), minv U[0, 0.002)
-    (int8: U[1e-4, 4e-4)). library = torch.matmul on the dequantized bf16
-    weight; int8_ms = the int8 route's kernel (K1, K9, K2) on the same
-    weight and x; K9b's rows also time the whole Q5_K bf16 route (K5, K9b
-    and the add: route_ms)."""
+    """Parity and timing of K5, K9b (both instantiations) and K8, the GEMVs
+    of int8_activations=False, at the shapes of the gguf_bf16 path: K5 at
+    gate|up at 1, 16, 64 and 256 rows, q|k and down at 16; K9b at gate|up
+    at 1, 16, 17, 64, 128 and 256 rows, at q|k and down at 16, 17, 64 and
+    256 and at o at 17, 64 and 256 (the rows instantiation's K splits:
+    one at gate|up, several at the others; `splits` on each row, and the
+    phase raises unless both were compared); K8 on rq8 weights (f32 scales
+    per 32) at K5's shapes and at the lm_head (32768 columns) at 1, 16, 64
+    and 256, and once on wire Q8_0 (bf16 scales). Random codes, scale
+    U[0.001, 0.005), minv U[0, 0.002) (int8: U[1e-4, 4e-4)). library =
+    torch.matmul on the dequantized bf16 weight; int8_ms = the int8
+    route's kernel (K1, K9, K2) on the same weight and x; K9b's rows also
+    time the whole Q5_K bf16 route (K5, K9b and the add: route_ms)."""
     import torch
 
+    from mistralrs_tpu_torch.ops import kernels
     from mistralrs_tpu_torch.ops import quant_matmul as qm
     from mistralrs_tpu_torch.quant.qlinear import Linear
 
@@ -1116,9 +1150,14 @@ def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
         err = float((got.float() - want.float()).abs().max())
         return err, err / max(float(want.float().abs().max()), 1e-30)
 
-    shapes = [("gate|up", H, 2 * I, (1, 16, 64, 256)),
-              ("qk", H, (sz.heads + sz.kv_heads) * D, (16,)), ("down", I, H, (16,))]
-    for nm, K, O, rows in shapes:
+    sms = kernels.sm_count(device)
+    # (shape, K, O, K5's rows, K9b's rows)
+    shapes = [("gate|up", H, 2 * I, (1, 16, 64, 256), K9_ROWS),
+              ("qk", H, (sz.heads + sz.kv_heads) * D, (16,), (16, 17, 64, 256)),
+              ("o", sz.heads * D, H, (), (17, 64, 256)),
+              ("down", I, H, (16,), (16, 17, 64, 256))]
+    splits = set()  # K splits of the rows instantiation compared
+    for nm, K, O, k5_rows, k9b_rows in shapes:
         qs = rand(K // 2, O, lo=0.0, hi=256.0).to(torch.uint8)
         qh = rand(K // 8, O, lo=0.0, hi=256.0).to(torch.uint8)
         scale = rand(K // 32, O, lo=0.001, hi=0.005, dtype=fdt)
@@ -1127,35 +1166,44 @@ def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
         wh = qm.affine_dequant(qh, scale, torch.zeros_like(scale), 1, 32, fdt)
         q5 = Linear("gguf_q5k", (K, O), {"qs": qs, "qh": qh, "scale": scale, "minv": minv},
                     int8_act=False)
-        for B in rows:
+        for B in k9b_rows:
             x = torch.randn(B, K, device=device, generator=gen).to(fdt)
-            # the same bf16 x and exact nibbles on both sides; f32 sums of
-            # bf16 products in another order, the scale on each sub-block's sum
-            err, rel = compare(qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=torch.float32),
-                               qm.q4k_bf16_gemv_plain(x, qs, scale, minv, torch.float32))
-            record("q4k_bf16_gemv", f"{nm} B={B}", err, rel, 1e-4,
-                   clock.ms(lambda: qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=fdt)),
-                   clock.ms(lambda: qm.q4k_bf16_gemv_plain(x, qs, scale, minv, fdt)),
-                   clock.ms(lambda: torch.matmul(x, w4)),
-                   bound(B * K * 2 + K // 2 * O + 2 * (K // 32) * O * 2 + B * O * 2,
-                         2 * B * K * O, PEAK_BF16),
-                   int8_ms=clock.ms(lambda: qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=fdt)))
+            if B in k5_rows:
+                # the same bf16 x and exact nibbles on both sides; f32 sums of
+                # bf16 products in another order, the scale on each sub-block's sum
+                err, rel = compare(qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=torch.float32),
+                                   qm.q4k_bf16_gemv_plain(x, qs, scale, minv, torch.float32))
+                record("q4k_bf16_gemv", f"{nm} B={B}", err, rel, 1e-4,
+                       clock.ms(lambda: qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=fdt)),
+                       clock.ms(lambda: qm.q4k_bf16_gemv_plain(x, qs, scale, minv, fdt)),
+                       clock.ms(lambda: torch.matmul(x, w4)),
+                       bound(B * K * 2 + K // 2 * O + 2 * (K // 32) * O * 2 + B * O * 2,
+                             2 * B * K * O, PEAK_BF16),
+                       int8_ms=clock.ms(lambda: qm.q4k_q8_gemv(x, qs, scale, minv,
+                                                               out_dtype=fdt)))
             # the same bf16(scale) * bit weights on both sides (exact)
             err, rel = compare(qm.q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=torch.float32),
                                qm.q5k_hbit_bf16_gemv_plain(x, qh, scale, torch.float32))
-            record("q5k_hbit_bf16_gemv", f"{nm} B={B}", err, rel, 1e-4,
+            ks = qm.q5k_hbit_bf16_plan(B, K, O, sms).ksplit
+            if B > 16:
+                splits.add(ks)
+            record("q5k_hbit_bf16_gemv" if B <= 16 else "q5k_hbit_bf16_gemv_rows", f"{nm} B={B}",
+                   err, rel, 1e-4,
                    clock.ms(lambda: qm.q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=fdt)),
                    clock.ms(lambda: qm.q5k_hbit_bf16_gemv_plain(x, qh, scale, fdt)),
                    clock.ms(lambda: torch.matmul(x, wh)),
                    bound(B * K * 2 + K // 8 * O + (K // 32) * O * 2 + B * O * 2,
                          2 * B * K * O, PEAK_BF16),
-                   route_ms=clock.ms(lambda: qm.q5k_matmul(q5, x)),
+                   splits=ks, route_ms=clock.ms(lambda: qm.q5k_matmul(q5, x)),
                    int8_ms=clock.ms(lambda: qm.q5k_q8_gemv(x, qs, qh, scale, minv,
                                                            out_dtype=fdt)))
         del qs, qh, scale, minv, w4, wh, q5
+    if not (1 in splits and max(splits) > 1):
+        raise AssertionError(f"q5k_hbit_bf16_gemv_rows: compared at K splits {sorted(splits)}, "
+                             "not at one and at several")
 
     # (shape, K, O, rows, scale dtype): rq8's f32 scales, wire Q8_0's bf16
-    q8_shapes = [(nm, K, O, rows, torch.float32) for nm, K, O, rows in shapes] + [
+    q8_shapes = [(nm, K, O, rows, torch.float32) for nm, K, O, rows, _ in shapes if rows] + [
         ("lm_head", H, vocab_pad, (1, 16, 64, 256), torch.float32),
         ("lm_head wire", H, vocab_pad, (16,), fdt)]
     for nm, K, O, rows, sdt in q8_shapes:
@@ -1746,8 +1794,9 @@ def slice_phase(sz: Sizes, device) -> dict:
 
 
 def quant_mix_phase(sz: Sizes, device) -> dict:
-    """Q5_K_M with Q6_K kept as Q6_K: K9 (both instantiations), K3, K4 and
-    the Q5_K / Q6_K dequant kernels, and neither K1 nor K2."""
+    """Q5_K_M with Q6_K kept as Q6_K: K9 (both instantiations), K3, K4's
+    rows instantiation and the Q5_K / Q6_K dequant kernels, and neither K1
+    nor K2."""
     out = short_context_phase(sz, device, "quant_mix", random_q5km_params, None)
     check_launched(out["launches"], PATH_KERNELS["quant_mix"] + ("flash_prefill",))
     if any(k1_k2_launches(out["launches"])):
@@ -1807,7 +1856,8 @@ def gguf_bf16_phase(sz: Sizes, device) -> dict:
     for every Q5_K projection, K8 for the requantized Q6_K ones (attn_v, the
     use_more_bits ffn_down, the lm_head) up to 256 rows, the Q5_K and int8
     dequant kernels above, K6 for the first chunks. It raises unless K5,
-    K9b, K8 and K6 launched and no int8 GEMV did. The line gives the
+    K9b (its rows instantiation on the 4 x 64-row step, its 16-row one at
+    decode), K8 and K6 launched and no int8 GEMV did. The line gives the
     write, read (the header), load (load_gguf_model) and pack (the load
     but its header read: the layers packed and copied to the card in
     load_gguf_model's threads, the embedding dequantized beside them) times,
@@ -2199,8 +2249,10 @@ def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
     """Same port code and identical weights on the card (kernels, bf16) and
     the CPU (plain versions, f32): a 256-token prefill and 4 decode steps on
     token-major pools, in the Q4_K_M mix (rq8), in the Q5_K_M mix with
-    Q6_K kept (on the card K9 and K4 at 256 rows, then K9 and K3) and in
-    the Q2_K mix (rq8; K10, K1 and K2 at every step); then, on
+    Q6_K kept (on the card K9 and K4 at 256 rows, then K9 and K3), in the
+    same with int8_activations=False (K5, K9b and K4 at 256 rows, then at
+    1: the rows and the 16-row instantiations of K4 and K9b; no int8 GEMV)
+    and in the Q2_K mix (rq8; K10, K1 and K2 at every step); then, on
     head-major pools, a 512-token first chunk (K6), a 512-token continuation
     chunk (K6') and 4 decode steps (K7) with tables 256 pages wide."""
     import torch
@@ -2216,13 +2268,19 @@ def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
 
     prompt = [int(t) for t in np.random.default_rng(3).integers(1, sz.vocab, 256)]
     outs = []
-    for phase, weights, rq8, names in (
-            ("card_vs_cpu", base, 32, ("q4k_q8_gemv", "q8_0_q8_gemv", "q4k_q8_gemv_rows",
-                                       "q8_0_q8_gemv_rows")),
-            ("card_vs_cpu_q5km", base_q5km, None, ("q6k_q8_gemv", "q6k_bf16_gemv", "q5k_q8_gemv")),
-            ("card_vs_cpu_q2k", base_q2k, 32, ("affine_gemv", "q4k_q8_gemv", "q8_0_q8_gemv"))):
-        runs, card = _token_major_run(cfg, weights, device, prompt, rq8)
+    q5km_bf16 = ("q6k_bf16_gemv", "q6k_bf16_gemv_rows", "q4k_bf16_gemv", "q5k_hbit_bf16_gemv",
+                 "q5k_hbit_bf16_gemv_rows")
+    for phase, weights, rq8, int8, names in (
+            ("card_vs_cpu", base, 32, True, ("q4k_q8_gemv", "q8_0_q8_gemv", "q4k_q8_gemv_rows",
+                                             "q8_0_q8_gemv_rows")),
+            ("card_vs_cpu_q5km", base_q5km, None, True,
+             ("q6k_q8_gemv", "q6k_bf16_gemv_rows", "q5k_q8_gemv")),
+            ("card_vs_cpu_q5km_bf16", base_q5km, None, False, q5km_bf16),
+            ("card_vs_cpu_q2k", base_q2k, 32, True, ("affine_gemv", "q4k_q8_gemv", "q8_0_q8_gemv"))):
+        runs, card = _token_major_run(cfg, weights, device, prompt, rq8, int8_activations=int8)
         check_launched(card, names)
+        if not int8 and any(card[k] for k in INT8_COUNTERS):
+            raise AssertionError(f"int8_activations=False launched an int8 GEMV: {card}")
         outs.append(_compare_sides(phase, runs, device, n_layers,
                                    launches={n: card[n] for n in names}))
 
@@ -2457,6 +2515,8 @@ def main() -> int:
         results[name] = fn(sz, device)
         seconds[name] = time.perf_counter() - t0
     emit({"phase": "seconds", **seconds})
+    # the paths inside a phase of several runs (card_vs_cpu's bf16 Q5_K_M run)
+    results.update({o["phase"]: o for o in results["card_vs_cpu"] if o["phase"] in PATH_KERNELS})
 
     line = []
     for name, (source, replaces) in KERNEL_INFO.items():

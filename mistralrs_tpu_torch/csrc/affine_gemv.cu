@@ -38,22 +38,6 @@
 namespace {
 
 template <int BITS>
-int launch_rows_bits(const mrt::Workspace& w, const uint8_t* q,
-                     const __nv_bfloat16* scale, const __nv_bfloat16* zs, void* out,
-                     int out_is_bf16, int B, int K, int O, int group, int rows, dim3 grid,
-                     int stages, cudaStream_t st) {
-  using BF = __nv_bfloat16;
-  if (rows == 64) {
-    if (stages != mrt::kPlaneRowStages<BITS, 64, BF>) return (int)cudaErrorInvalidValue;
-    return mrt::launch_plane_rows<BITS, 64, false, BF, true>(w, q, scale, zs, out, out_is_bf16, B,
-                                                             K, O, group, grid, st);
-  }
-  if (stages != mrt::kPlaneRowStages<BITS, 128, BF>) return (int)cudaErrorInvalidValue;
-  return mrt::launch_plane_rows<BITS, 128, false, BF, true>(w, q, scale, zs, out, out_is_bf16, B,
-                                                            K, O, group, grid, st);
-}
-
-template <int BITS>
 int affine_bits(const __nv_bfloat16* x, const mrt::Workspace& w, const uint8_t* q,
                 const __nv_bfloat16* scale, const __nv_bfloat16* zs, void* out, int out_is_bf16,
                 int B, int K, int O, int group, int rows, dim3 grid, int stages,
@@ -73,11 +57,8 @@ int affine_bits(const __nv_bfloat16* x, const mrt::Workspace& w, const uint8_t* 
   const int nslices = (Kp / G::kR + Z - 1) / Z;
   if (Kp % group != 0 || (group & (group - 1)) != 0 || (int)grid.z > nslices)
     return (int)cudaErrorInvalidValue;
-  mrt::launch_plane_prep<BITS>(x, w, B, K, group, st);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_rows_bits<BITS>(w, q, scale, zs, out, out_is_bf16, B, K, O, group, rows, grid,
-                                stages, st);
+  return mrt::plane_rows_call<mrt::PlaneFmt<BITS, false, __nv_bfloat16, true>>(
+      x, w, out, out_is_bf16, B, K, O, group, rows, grid, stages, st, q, scale, zs);
 }
 
 }  // namespace

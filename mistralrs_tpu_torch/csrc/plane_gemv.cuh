@@ -1,11 +1,12 @@
 // The plane-major GEMV with the weight rounded to bf16 before the product,
 //   y[b, o] = sum_k x[b, k] * bf16(code[k, o] * s[g(k), o])      (bf16 MMA, f32 sums)
 //           - sum_16 xsum16[b, .] * zs[g(.), o]                   (f32, when ZS)
-// shared by three kernels: K10 (csrc/affine_gemv.cu: unsigned codes of 1, 2,
+// shared by four kernels: K10 (csrc/affine_gemv.cu: unsigned codes of 1, 2,
 // 4 or 8 bits, bf16 scale and zs), K8 (csrc/q8_0_bf16_gemv.cu: signed 8-bit
-// codes, a bf16 or f32 scale per 32, no zs) and K9b
+// codes, a bf16 or f32 scale per 32, no zs), K9b
 // (csrc/q5k_hbit_bf16_gemv.cu: the 1-bit high-bit planes of Q5_K, a bf16
-// scale per 32, no zs).
+// scale per 32, no zs) and, at 17-256 rows, K4 (csrc/q6k_gemv.cu: Q6_K's
+// 6-bit codes from two byte arrays, a bf16 scale per 16, zs = 32 * scale).
 //
 // The layout, with PER = 8 / BITS codes a byte and Kp = K / PER byte rows:
 // bits BITS*j of q row r hold element j*Kp + r ("plane" j is the contiguous
@@ -24,7 +25,7 @@
 // What bounds it on an H100: at decode the weight stream (codes at BITS/8
 // bytes a weight, s and zs at 2 or 4 bytes a group), against 3.35 TB/s; at
 // 256 rows, the bf16 tensor-core operations.
-// Design for that (K4's structure, csrc/q6k_gemv.cu):
+// Design for that (K4's 16-row structure, csrc/q6k_gemv.cu):
 // - one K step is 32 byte rows of q for 128 columns (4 KB) and, for each of
 //   the PER planes, the two 16-element halves' s (and zs) rows, the
 //   32-element x slice of the plane at j*Kp + r0 (and its two xsum16
@@ -42,12 +43,12 @@
 //   order by common.cuh's split-K pass.
 // Not done yet in plane_bf16_mma_kernel (later work): TMA/wgmma, fusing the
 // split-K pass, the zs term on the tensor cores, reading a group-32 scale
-// row once for both halves. K8 and K9b run it at every row count, K10 up to
-// 16 rows.
+// row once for both halves. K8 runs it at every row count, K9b and K10 up
+// to 16 rows.
 //
-// K10 at 17-256 rows runs plane_rows_kernel (below): TMA, a producer
-// warpgroup that decodes each stage once, bf16 wgmma, the zs term on the
-// tensor cores; its design is written beside it.
+// K10, K9b and K4 at 17-256 rows run plane_rows_kernel (below): TMA, a
+// producer warpgroup that decodes each stage once, bf16 wgmma, the zs term
+// on the tensor cores; its design is written beside it.
 #pragma once
 
 #include "common.cuh"
@@ -329,6 +330,8 @@ int launch_plane(const __nv_bfloat16* x, const Workspace& w, const uint8_t* q, c
 //   as wgmma A fragments, and three wgmma.m64nNk16 a 16 groups with A
 //   negated subtract xsum @ zs into the same accumulators (3/16 of the main
 //   product's tensor work at group 16, 3/128 at group 128, and no FMAs);
+//   without the zs term (ZS false: K9b) there are no zs steps, no sums, and
+//   K is split at 4 main steps;
 // - a stage is freed as soon as the wgmmas that read it have completed; one
 //   split writes out directly, more splits go through the fixed-order
 //   split-K pass;
@@ -338,12 +341,49 @@ int launch_plane(const __nv_bfloat16* x, const Workspace& w, const uint8_t* q, c
 // What holds it above the tensor bound (PERF.md §6): a step's ring round
 // trip (TMA, decode, the products, the release), which the ~5 stages that
 // fit in shared memory do not hide.
-// SIGNED and an f32 scale type ST are K8's (int8 codes, rq8's f32 scales),
-// kept for it: only K10's unsigned codes with bf16 scales and the zs term
-// are instantiated (csrc/affine_gemv.cu).
+// The format F of an instantiation tells it what a main step brings and how
+// that is decoded; the ring, the zs step and the consumers know no format:
+// - F::G, the step geometry (PlaneRowGeom); F::kZs, whether there is a zs
+//   term, and F::kZsMul, the factor on its sums; F::Stage<BM>, a ring stage;
+// - F::Maps, the weight side's tensor maps (a grid-constant kernel
+//   parameter), and F::Shifts, the shifts its boxes and decode need (a
+//   kernel parameter passed by value, so they stay in registers: read
+//   through a reference beside the maps, K10 rows ran up to 4% slower on an
+//   H100); F::make_maps (host) builds both and the zs map from the format's
+//   own arrays;
+// - F::copy issues a main step's weight boxes and F::w_tx counts their
+//   bytes; F::zs_at places a slice's zs rows in the zs map; F::decode turns
+//   a stage's bytes into the bf16 tile.
+// PlaneFmt<BITS, SIGNED, ST, ZS> is the plane layout above: K10 instantiates
+// unsigned codes with bf16 scales and the zs term (csrc/affine_gemv.cu), K9b
+// one bit with bf16 scales and no zs term (csrc/q5k_hbit_bf16_gemv.cu);
+// SIGNED and an f32 ST are K8's (int8 codes, rq8's f32 scales), kept for it.
+//
+// Q6kFmt (K4, csrc/q6k_gemv.cu) is the 2-bit geometry with 6-bit codes.
+// Q6_K's chunked layout (chunk span G, Kq = K/4, C = K/(4G) chunks; element
+// j*Kq + c*G + t) is plane-major with 4 planes (span j is plane j, r = c*G +
+// t):
+// - qh [Kq, O] is the 2-bit plane layout itself (bits 2j of row r), the q
+//   of a main step's 16 rows (2 KB);
+// - the nibbles sit in ql row 2Gc + (j&1)*G + t (the low nibble for j < 2,
+//   the high one above): a step's 16 r lie in one chunk (G % 16 == 0), so
+//   its two halves are one TMA box over ql seen as [2C][G][O] (4 KB);
+// - the scale per 16 sits in row c*G/4 + j*G/16 + t/16 (chunk-major): the
+//   step's four rows are one box over scale seen as [4C][G/16][O];
+// - w = bf16(q * s16) - 32 * s16 per element: the -32 term is the zs term
+//   with zs = s16 and the sums times 32 (exact in f32); a slice (8 groups a
+//   plane, 128 r) lies in one chunk for G % 128 == 0, so its zs rows are one
+//   box over the same chunk-major view;
+// - code = nibble | ((qh >> 2j) & 3) << 4 (below 128, so decode8's pair
+//   trick is exact), bit-equal to the plain version's bf16(q * s16).
+// The stage keeps its ql and qh bytes in the last 6 KB of the decoded tile,
+// which the decode warp reads into registers before it writes the tile over
+// them: 33 KB a stage at BM 128, so six fit (39 KB with their own buffers:
+// three).
 
 template <int BITS>
 struct PlaneRowGeom {
+  static constexpr int kBits = BITS;
   static constexpr int kPer = 8 / BITS;           // planes of a byte row
   static constexpr int kE = BITS == 8 ? 32 : 64;  // elements a main step
   static constexpr int kR = kE / kPer;            // byte rows a step: the elements of a chunk
@@ -370,15 +410,17 @@ struct alignas(1024) PlaneRowStage {
   ST sc[G::kScRows][kGemvCols];      // plane j's scale rows from j * nr
 };
 
-template <int BITS, int BM, typename ST>
-constexpr int kPlaneRowStages =
-    ring_stages<PlaneRowStage<BITS, BM, ST>, 1024, 12, kRingBudgetMax>();
-// the decode warps keep a stage's codes and their scales in registers: 88
-// a producer thread, 208 a consumer thread (its f32 tile needs ~110)
-constexpr int kPlaneProducerRegs = 88;
-template <int BITS, int BM, typename ST>
-using PlaneRowRing =
-    Ring<PlaneRowStage<BITS, BM, ST>, kPlaneRowStages<BITS, BM, ST>, true, kPlaneProducerRegs>;
+// K4's stage (Q6kFmt): the x tile, the decoded tile, whose last 6 KB hold
+// the step's ql rows ([2][16][128]: both halves) and qh rows ([16][128])
+// until the decode warp has read them, and the four spans' scale rows.
+template <int BM>
+struct alignas(1024) Q6kRowStage {
+  using G = PlaneRowGeom<2>;
+  static constexpr int kQl = 10240, kQh = 14336;  // byte offsets in w
+  uint8_t x[BM * G::kE * 2];
+  uint8_t w[G::kE * kGemvCols * 2];
+  __nv_bfloat16 sc[G::kPer][kGemvCols];
+};
 
 // main steps a slice (kZU groups and a zs step); without the zs term, the
 // K split's unit
@@ -430,15 +472,240 @@ __device__ __forceinline__ uint2 scale_quad(const float* row, int lane) {
   return make_uint2(bf16x2(v.x, v.y), bf16x2(v.z, v.w));
 }
 
+// The 6-bit Q6_K codes of span j from the transposed ql words (spans 0|2: p,
+// 1|3: r) and qh word h, four K rows a register (one byte each); j is a
+// constant after the callers' loops unroll.
+__device__ __forceinline__ uint32_t q6_codes(int j, uint32_t p, uint32_t r, uint32_t h) {
+  switch (j) {
+    case 0: return (p & 0x0F0F0F0Fu) | ((h << 4) & 0x30303030u);
+    case 1: return (r & 0x0F0F0F0Fu) | ((h << 2) & 0x30303030u);
+    case 2: return ((p >> 4) & 0x0F0F0F0Fu) | (h & 0x30303030u);
+    default: return ((r >> 4) & 0x0F0F0F0Fu) | ((h >> 2) & 0x30303030u);
+  }
+}
+
+// The lane's 4 columns in the rotated order of load_quad8: for word j,
+// the byte_perm selector that puts column 4*lane + ((j + rot) & 3)'s bf16
+// scale in both halves of a word
+__device__ __forceinline__ void scale_splats(int rot, uint32_t splat[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t b = 2 * ((j + rot) & 3);
+    splat[j] = (b | ((b + 1) << 4)) * 0x101u;
+  }
+}
+
+// The zs map (K10: over zs; K4: over its scale): the scale view's dims and
+// strides with a box of the slice's kZU/kPer rows a plane, 64 columns, the
+// 128-byte swizzle of the MN-major B operand
+template <typename G>
+int zs_tile_map(CUtensorMap* zmap, const void* base, const uint64_t* dims, const uint64_t* str) {
+  const uint32_t box[3] = {64, G::kZU / G::kPer, G::kPer};
+  return tile_map(zmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, str, box,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int BITS, bool SIGNED, typename ST, bool ZS>
+struct PlaneFmt {
+  static_assert(!SIGNED || BITS == 8, "signed codes are bytes");
+  static_assert(BITS == 8 || sizeof(ST) == 2, "below 8 bits the scales are bf16");
+  static_assert(!ZS || sizeof(ST) == 2, "the zs term comes with bf16 scales (K10)");
+  using G = PlaneRowGeom<BITS>;
+  static constexpr bool kZs = ZS;
+  static constexpr float kZsMul = 1.f;
+  template <int BM>
+  using Stage = PlaneRowStage<BITS, BM, ST>;
+  // q [Kp, O] in boxes of kR byte rows x 128 columns, scale [K/group, O]
+  // seen as [kPer][Kp/group][O]
+  struct Maps {
+    CUtensorMap q, sc;
+  };
+  // gsh = log2(group), nsh = log2 of a plane's scale rows a step (group and
+  // kR are powers of two: shifts, no divisions)
+  struct Shifts {
+    int gsh, nsh;
+  };
+  // at 1 bit a step's kR = 8 rows of a plane lie in one group (group >=
+  // 16): one scale row a plane, known when the kernel is compiled (K9b and
+  // HQQ-1 ran 3% faster with it on an H100; the 2-bit instantiations, where
+  // it holds too, 1-2% slower, so they keep the shifts)
+  static constexpr bool kOneScaleRow = BITS == 1;
+
+  __device__ static uint32_t w_tx(Shifts h) {
+    return G::kR * kGemvCols + (G::kPer << h.nsh) * kGemvCols * (uint32_t)sizeof(ST);
+  }
+  template <typename S>
+  __device__ static void copy(S& st, const Maps& m, Shifts h, int r0, int col0, uint64_t* full) {
+    tma_load_2d(st.q, &m.q, col0, r0, full);
+    tma_load_3d(st.sc, &m.sc, col0, r0 >> h.gsh, 0, full);
+  }
+  // the zs map's box at the slice whose first group of a plane is z
+  __device__ static int2 zs_at(Shifts, int z) { return make_int2(z, 0); }
+  template <typename S>
+  __device__ static void decode(S& st, Shifts h, int lane) {
+    const uint8_t* __restrict__ qt = st.q;
+    const ST* __restrict__ sct = &st.sc[0][0];
+    uint8_t* __restrict__ wt = st.w;
+    // the lane's 4 columns in the rotated order of load_quad8: column
+    // 4*lane + q_j for word j
+    const int rot = (lane >> 1) & 3;
+    uint32_t splat[4];
+    scale_splats(rot, splat);
+    uint32_t w[G::kR / 8][8];  // every octet's codes first, so the loads overlap
+#pragma unroll
+    for (int o = 0; o < G::kR / 8; ++o) load_quad8(qt, 8 * o, lane, rot_sel(lane >> 1), w[o]);
+#pragma unroll
+    for (int p = 0; p < G::kPer; ++p)
+#pragma unroll
+      for (int o = 0; o < G::kR / 8; ++o) {
+        // the octet's scale row within its plane's rows (several when kR > group)
+        const int srow = kOneScaleRow ? p : (p << h.nsh) + ((8 * o) >> h.gsh);
+        const uint2 sq = scale_quad(sct + srow * kGemvCols, lane);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = 4 * lane + ((j + rot) & 3);
+          *reinterpret_cast<uint4*>(wt + (p * G::kR / 8 + o) * 2048 + c * 16) =
+              decode8<BITS, SIGNED>(w[o][j] >> (BITS * p), w[o][4 + j] >> (BITS * p),
+                                    __byte_perm(sq.x, sq.y, splat[j]));
+        }
+      }
+  }
+
+  // q [Kp, O], scale [K/group, O], zs [K/group, O] (ZS; else unused).
+  // Returns the CUDA error.
+  static int make_maps(Maps& m, Shifts& h, CUtensorMap& zmap, int K, int O, int group,
+                       const uint8_t* q, const ST* scale, const __nv_bfloat16* zs) {
+    const int Kp = K / G::kPer, gpp = Kp / group;  // groups a plane
+    const uint64_t es = sizeof(ST);
+    const uint64_t qdims[2] = {(uint64_t)O, (uint64_t)Kp}, qstr[1] = {(uint64_t)O};
+    const uint32_t qbox[2] = {kGemvCols, G::kR};
+    const uint64_t sdims[3] = {(uint64_t)O, (uint64_t)gpp, (uint64_t)G::kPer};
+    const uint64_t sstr[2] = {(uint64_t)O * es, (uint64_t)gpp * O * es};
+    const uint32_t sbox[3] = {kGemvCols, (uint32_t)(G::kR > group ? G::kR / group : 1), G::kPer};
+    h.gsh = __builtin_ctz((unsigned)group);
+    h.nsh = G::kR > group ? __builtin_ctz((unsigned)G::kR) - h.gsh : 0;
+    int err = tile_map(&m.q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, qdims, qstr, qbox);
+    if (!err)
+      err = tile_map(&m.sc, es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                     3, scale, sdims, sstr, sbox);
+    if constexpr (ZS) {
+      if (!err) err = zs_tile_map<G>(&zmap, zs, sdims, sstr);
+    } else {
+      zmap = m.q;  // unused
+    }
+    return err;
+  }
+};
+
+struct Q6kFmt {
+  using G = PlaneRowGeom<2>;
+  static constexpr bool kZs = true;
+  static constexpr float kZsMul = 32.f;  // the zs term is 32 * xsum16 @ s16 (exact in f32)
+  template <int BM>
+  using Stage = Q6kRowStage<BM>;
+  // qh [K/4, O] in boxes of 16 rows, ql [K/2, O] seen as [2C][G][O] in
+  // boxes of both halves' 16 rows, the scale [K/16, O] seen as
+  // [4C][G/16][O]
+  struct Maps {
+    CUtensorMap qh, ql, sc;
+  };
+  // span_sh = log2(G) (r = c*G + t: c = r >> span_sh)
+  struct Shifts {
+    int span_sh;
+  };
+
+  __device__ static uint32_t w_tx(Shifts) {
+    return 3 * G::kR * kGemvCols + G::kPer * kGemvCols * 2;
+  }
+  template <typename S>
+  __device__ static void copy(S& st, const Maps& m, Shifts h, int r0, int col0, uint64_t* full) {
+    const int c = r0 >> h.span_sh, t0 = r0 & ((1 << h.span_sh) - 1);
+    tma_load_2d(st.w + S::kQh, &m.qh, col0, r0, full);
+    tma_load_3d(st.w + S::kQl, &m.ql, col0, t0, 2 * c, full);
+    tma_load_3d(st.sc, &m.sc, col0, t0 >> 4, 4 * c, full);
+  }
+  // the scale's box at (group in chunk, 4 * chunk) of the slice's first r
+  __device__ static int2 zs_at(Shifts h, int z) {
+    const int r = z << 4;
+    return make_int2((r & ((1 << h.span_sh) - 1)) >> 4, 4 * (r >> h.span_sh));
+  }
+  // every lane's ql and qh bytes into registers first, then (the warp's
+  // reads done) the 4 spans x 16 rows of bf16(code * s16) over them
+  template <typename S>
+  __device__ static void decode(S& st, Shifts, int lane) {
+    // no __restrict__: the tile's stores below overwrite these bytes
+    const uint8_t* ql = st.w + S::kQl;
+    const uint8_t* qh = st.w + S::kQh;
+    const int rot = (lane >> 1) & 3;
+    const uint32_t sel = rot_sel(lane >> 1);
+    uint32_t l0[2][8], l1[2][8], h[2][8];  // the two octets of the step's 16 rows
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+      load_quad8(ql, 8 * o, lane, sel, l0[o]);
+      load_quad8(ql + 16 * kGemvCols, 8 * o, lane, sel, l1[o]);
+      load_quad8(qh, 8 * o, lane, sel, h[o]);
+    }
+    __syncwarp();
+    uint32_t splat[4];
+    scale_splats(rot, splat);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const uint2 sq = scale_quad(&st.sc[p][0], lane);
+#pragma unroll
+      for (int o = 0; o < 2; ++o)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = 4 * lane + ((j + rot) & 3);
+          *reinterpret_cast<uint4*>(st.w + (2 * p + o) * 2048 + c * 16) = decode8<6, false>(
+              q6_codes(p, l0[o][j], l1[o][j], h[o][j]),
+              q6_codes(p, l0[o][4 + j], l1[o][4 + j], h[o][4 + j]),
+              __byte_perm(sq.x, sq.y, splat[j]));
+        }
+    }
+  }
+
+  // qh [K/4, O], ql [K/2, O], scale [K/16, O], span G a power of two and a
+  // multiple of 128 (group is 16). Returns the CUDA error.
+  static int make_maps(Maps& m, Shifts& h, CUtensorMap& zmap, int K, int O, int /*group*/,
+                       const uint8_t* qh, const uint8_t* ql, const __nv_bfloat16* scale, int span) {
+    const uint64_t hdims[2] = {(uint64_t)O, (uint64_t)(K / 4)}, hstr[1] = {(uint64_t)O};
+    const uint32_t hbox[2] = {kGemvCols, G::kR};
+    const uint64_t ldims[3] = {(uint64_t)O, (uint64_t)span, (uint64_t)(2 * (K / (4 * span)))};
+    const uint64_t lstr[2] = {(uint64_t)O, (uint64_t)span * O};
+    const uint32_t lbox[3] = {kGemvCols, G::kR, 2};
+    const uint64_t sdims[3] = {(uint64_t)O, (uint64_t)(span / 16), (uint64_t)(K / span)};
+    const uint64_t sstr[2] = {(uint64_t)O * 2, sdims[1] * O * 2};
+    const uint32_t sbox[3] = {kGemvCols, 1, G::kPer};
+    h.span_sh = __builtin_ctz((unsigned)span);
+    int err = tile_map(&m.qh, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, qh, hdims, hstr, hbox);
+    if (!err) err = tile_map(&m.ql, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, ql, ldims, lstr, lbox);
+    if (!err)
+      err = tile_map(&m.sc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, scale, sdims, sstr, sbox);
+    if (!err) err = zs_tile_map<G>(&zmap, scale, sdims, sstr);
+    return err;
+  }
+};
+
+template <typename F, int BM>
+constexpr int kPlaneRowStages =
+    ring_stages<typename F::template Stage<BM>, 1024, 12, kRingBudgetMax>();
+// the decode warps keep a stage's codes and their scales in registers: 88
+// a producer thread, 208 a consumer thread (its f32 tile needs ~110)
+constexpr int kPlaneProducerRegs = 88;
+template <typename F, int BM>
+using PlaneRowRing =
+    Ring<typename F::template Stage<BM>, kPlaneRowStages<F, BM>, true, kPlaneProducerRegs>;
+
 // Before the rows kernel, for x [B, K] bf16: each group's f32 sum into xsum
-// [K/group][bpad], and x into xc [bpad, K] in the kernel's step order:
-// element j*Kp + r (plane j) of a row at (r / kR) * kE + j * kR + r % kR, so
-// a step's x is kE contiguous elements of each row (one TMA box of 64- or
-// 128-byte rows). Rows B..bpad-1 are zeros. A thread takes c = max(8,
-// group/32) consecutive elements of a row in 16-byte pieces (each lands in
-// 8 consecutive places of xc: kR is a multiple of 8), and the S = group/c
-// threads of a group (a power of two, at most 32, aligned in the warp) add
-// their sums with shuffles. A group lies in one plane (Kp % group == 0).
+// [K/group][bpad] (unless xsum is null: no zs term), and x into xc [bpad,
+// K] in the kernel's step order: element j*Kp + r (plane j) of a row at (r /
+// kR) * kE + j * kR + r % kR, so a step's x is kE contiguous elements of
+// each row (one TMA box of 64- or 128-byte rows). Rows B..bpad-1 are zeros.
+// A thread takes c = max(8, group/32) consecutive elements of a row in
+// 16-byte pieces (each lands in 8 consecutive places of xc: kR is a
+// multiple of 8), and the S = group/c threads of a group (a power of two,
+// at most 32, aligned in the warp) add their sums with shuffles. A group
+// lies in one plane (Kp % group == 0).
 __global__ void plane_prep_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ xsum,
                                   __nv_bfloat16* __restrict__ xc, int B, int K, int group,
                                   int bpad, int per, int kr, int ke, int c, long long n) {
@@ -458,112 +725,79 @@ __global__ void plane_prep_kernel(const __nv_bfloat16* __restrict__ x, float* __
       const int r = e - j * kp;
       *reinterpret_cast<uint4*>(xc + (size_t)b * K + (r / kr) * ke + j * kr + r % kr) = u;
     }
+  if (xsum == nullptr) return;
   const int S = group / c;  // threads of a group
   for (int off = S / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (live && (threadIdx.x & (S - 1)) == 0) xsum[(size_t)(e0 / group) * bpad + b] = s;
 }
 
-template <int BITS>
+template <typename G>
 inline void launch_plane_prep(const __nv_bfloat16* x, const Workspace& w, int B, int K, int group,
                               cudaStream_t st) {
-  using G = PlaneRowGeom<BITS>;
   const int c = group / 32 > 8 ? group / 32 : 8;
   const long long n = (long long)w.bpad * (K / c);
   plane_prep_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
       x, w.xsum, w.xc, B, K, group, w.bpad, G::kPer, G::kR, G::kE, c, n);
 }
 
-template <int BITS, int BM, bool SIGNED, typename ST, bool ZS>
+template <typename F, int BM>
 __global__ void __launch_bounds__(kRowThreads, 1)
-    plane_rows_kernel(const __grid_constant__ CUtensorMap qmap,
-                      const __grid_constant__ CUtensorMap smap,
+    plane_rows_kernel(const __grid_constant__ typename F::Maps fm, const typename F::Shifts sh,
                       const __grid_constant__ CUtensorMap xmap,
                       const __grid_constant__ CUtensorMap zmap,
                       const __grid_constant__ CUtensorMap summap, void* out, int out_mode, int B,
                       int K, int O, int group, int slices_per_split) {
-  using G = PlaneRowGeom<BITS>;
-  using Stage = PlaneRowStage<BITS, BM, ST>;
+  using G = typename F::G;
+  using Stage = typename F::template Stage<BM>;
+  constexpr bool ZS = F::kZs;
   constexpr int N = BM == 128 ? 128 : 64;  // wgmma width of a consumer warpgroup
   constexpr int kPer = G::kPer, kR = G::kR, kE = G::kE, kXRow = G::kXRow;
-  static_assert(!SIGNED || BITS == 8, "signed codes are bytes");
-  static_assert(BITS == 8 || sizeof(ST) == 2, "below 8 bits the scales are bf16");
-  static_assert(!ZS || sizeof(ST) == 2, "the zs term comes with bf16 scales (K10)");
   extern __shared__ uint8_t smem_prow[];
   uint8_t* base = smem_prow + ((1024 - (smem_u32(smem_prow) & 1023)) & 1023);
-  const PlaneRowRing<BITS, BM, ST> ring(base, 0);
+  const PlaneRowRing<F, BM> ring(base, 0);
   const int row0 = blockIdx.x * BM, col0 = blockIdx.y * kGemvCols;
-  // group, Z and nr are powers of two (plane_rows_take): the per-step index
-  // arithmetic is shifts and one multiply-high, no divisions (each of which
-  // costs a single-thread chain of ~40 instructions in the hot loops)
-  const int gsh = __ffs(group) - 1;  // log2(group)
+  // Z is a power of two (plane_rows_take): the ring's slice index is one
+  // multiply-high, no division (each of which costs a single-thread chain
+  // of ~40 instructions in the hot loops)
   const int Kp = K / kPer;
-  const int Z = plane_slice_steps<BITS, ZS>(group);
+  const int Z = plane_slice_steps<G::kBits, ZS>(group);
   const int s_begin = blockIdx.z * slices_per_split * Z;  // the split's first main step
   const int n_main = max(0, min(slices_per_split * Z, Kp / kR - s_begin));
   const int Zr = ZS ? Z + 1 : Z;  // ring steps a slice
   const int n = ZS ? n_main + (n_main + Z - 1) / Z : n_main;
-  const int nsh = kR > group ? __ffs(kR) - 1 - gsh : 0;  // log2 of the scale rows a plane a step
-  const int nr = 1 << nsh;
   // i / Zr for the ring's step indices: the high word of i * ceil(2^32 / Zr),
   // exact for i < 2^32 / Zr
   const uint32_t zr_magic = (uint32_t)(0xFFFFFFFFu / (uint32_t)Zr) + 1u;
   auto slice_of = [&](int i) { return (int)__umulhi((uint32_t)i, zr_magic); };
   // ring step i of slice k: its main steps, then (ZS) its zs step
   auto is_main = [&](int i) {
+    if constexpr (!ZS) return true;
     const int k = slice_of(i);
     return i - k * Zr < min(Z, n_main - k * Z);
   };
   auto main_step = [&](int i) { return s_begin + i - (ZS ? slice_of(i) : 0); };
 
   constexpr int kZU = G::kZU;
+  // a slice's first group of a plane
   auto zs_row = [&](int i) { return (blockIdx.z * slices_per_split + slice_of(i)) * (kZU / kPer); };
   auto copy = [&](Stage& S, int i, uint64_t* full) {
     if (is_main(i)) {
-      const int s = main_step(i), r0 = s * kR;
-      tma_load_2d(S.q, &qmap, col0, r0, full);
-      tma_load_3d(S.sc, &smap, col0, r0 >> gsh, 0, full);
+      const int s = main_step(i);
+      F::copy(S, fm, sh, s * kR, col0, full);
       tma_load_2d(S.x, &xmap, s * kE, row0, full);
-    } else {
+    } else if constexpr (ZS) {
+      // the slice's sums ([kPer][Kp/group][bpad]) and its zs rows
+      const int2 z = F::zs_at(sh, zs_row(i));
       tma_load_3d(S.x, &summap, row0, zs_row(i), 0, full);
-      tma_load_3d(S.w, &zmap, col0, zs_row(i), 0, full);
-      tma_load_3d(S.w + kZU * 128, &zmap, col0 + 64, zs_row(i), 0, full);
+      tma_load_3d(S.w, &zmap, col0, z.x, z.y, full);
+      tma_load_3d(S.w + kZU * 128, &zmap, col0 + 64, z.x, z.y, full);
     }
   };
-  const uint32_t main_tx = kR * kGemvCols + nr * kPer * kGemvCols * (int)sizeof(ST) + kE * BM * 2;
+  const uint32_t main_tx = F::w_tx(sh) + kE * BM * 2;
   const uint32_t zs_tx = kZU * BM * 4 + 2 * kZU * 64 * 2;
   auto tx = [&](int i) { return is_main(i) ? main_tx : zs_tx; };
-
   auto decode = [&](Stage& S, int i, int lane) {
-    if (!is_main(i)) return;
-    const uint8_t* __restrict__ qt = S.q;
-    const ST* __restrict__ sct = &S.sc[0][0];
-    uint8_t* __restrict__ wt = S.w;
-    // the lane's 4 columns in the rotated order of load_quad8: column
-    // 4*lane + q_j for word j, and the byte_perm selector that puts that
-    // column's bf16 scale in both halves of a word
-    const int rot = (lane >> 1) & 3;
-    uint32_t splat[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t b = 2 * ((j + rot) & 3);
-      splat[j] = (b | ((b + 1) << 4)) * 0x101u;
-    }
-    uint32_t w[kR / 8][8];  // every octet's codes first, so the loads overlap
-#pragma unroll
-    for (int o = 0; o < kR / 8; ++o) load_quad8(qt, 8 * o, lane, rot_sel(lane >> 1), w[o]);
-#pragma unroll
-    for (int p = 0; p < kPer; ++p)
-#pragma unroll
-      for (int o = 0; o < kR / 8; ++o) {
-        // the octet's scale row within its plane's rows (kR > group)
-        const uint2 sq = scale_quad(sct + ((p << nsh) + ((8 * o) >> gsh)) * kGemvCols, lane);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = 4 * lane + ((j + rot) & 3);
-          *reinterpret_cast<uint4*>(wt + (p * kR / 8 + o) * 2048 + c * 16) = decode8<BITS, SIGNED>(
-              w[o][j] >> (BITS * p), w[o][4 + j] >> (BITS * p), __byte_perm(sq.x, sq.y, splat[j]));
-        }
-      }
+    if (is_main(i)) F::decode(S, sh, lane);
   };
 
   // the A descriptor of k16 slice kk of the x tile, rows 64*wr..
@@ -599,8 +833,8 @@ __global__ void __launch_bounds__(kRowThreads, 1)
           for (int a = 0; a < 4; ++a) {
             const int r = rl + 8 * (a & 1), u = 16 * h + 2 * t + 8 * (a >> 1);
             __nv_bfloat16 p0[3], p1[3];
-            split3(xs[u * BM + r], p0);
-            split3(xs[(u + 1) * BM + r], p1);
+            split3(F::kZsMul * xs[u * BM + r], p0);
+            split3(F::kZsMul * xs[(u + 1) * BM + r], p1);
 #pragma unroll
             for (int q = 0; q < 3; ++q) za[h][q][a] = bf16_pair(p0[q], p1[q]);
           }
@@ -616,10 +850,12 @@ __global__ void __launch_bounds__(kRowThreads, 1)
       // the stage is freed as soon as its products are done (holding it
       // until the next step's products were issued measured 7% slower)
       wgmma_wait<0>();
+      if constexpr (ZS) {
 #pragma unroll
-      for (int h = 0; h < kZU / 16; ++h)
+        for (int h = 0; h < kZU / 16; ++h)
 #pragma unroll
-        for (int q = 0; q < 3; ++q) fence_operand(za[h][q]);
+          for (int q = 0; q < 3; ++q) fence_operand(za[h][q]);
+      }
       ring.release(i);
     }
     fence_values(acc);
@@ -628,55 +864,63 @@ __global__ void __launch_bounds__(kRowThreads, 1)
   ring.run(n, tx, copy, decode, consume);
 }
 
-// Launch plane_rows_kernel (after launch_plane_prep): q [Kp, O] in boxes of
-// kR byte rows x 128 columns; scale (and zs) [K/group, O] seen as
-// [kPer][Kp/group][O]; x's step-ordered copy xc [bpad, K] in boxes of kE
-// elements x BM rows; xsum [K/group][bpad] seen as [kPer][Kp/group][bpad].
-// Returns the CUDA error.
-template <int BITS, int BM, bool SIGNED, typename ST, bool ZS>
-int launch_plane_rows(const Workspace& w, const uint8_t* q, const ST* scale, const __nv_bfloat16* zs, void* out, int out_is_bf16, int B,
-                      int K, int O, int group, dim3 grid, cudaStream_t st) {
-  using G = PlaneRowGeom<BITS>;
+// Launch plane_rows_kernel (after launch_plane_prep) with the format's maps:
+// x's step-ordered copy xc [bpad, K] in boxes of kE elements x BM rows; with
+// the zs term, xsum [K/group][bpad] seen as [kPer][Kp/group][bpad] in boxes
+// of the slice's groups. Returns the CUDA error.
+template <typename F, int BM>
+int launch_plane_rows(const Workspace& w, const typename F::Maps& fm, typename F::Shifts sh,
+                      const CUtensorMap& zmap, void* out, int out_is_bf16, int B, int K, int O,
+                      int group, dim3 grid, cudaStream_t st) {
+  using G = typename F::G;
   const int Kp = K / G::kPer, gpp = Kp / group;  // groups a plane
-  const uint64_t es = sizeof(ST);
-  const uint64_t qdims[2] = {(uint64_t)O, (uint64_t)Kp}, qstr[1] = {(uint64_t)O};
-  const uint32_t qbox[2] = {kGemvCols, G::kR};
-  const uint64_t sdims[3] = {(uint64_t)O, (uint64_t)gpp, (uint64_t)G::kPer};
-  const uint64_t sstr[2] = {(uint64_t)O * es, (uint64_t)gpp * O * es};
-  const uint32_t sbox[3] = {kGemvCols, (uint32_t)(G::kR > group ? G::kR / group : 1), G::kPer};
   const uint64_t xdims[2] = {(uint64_t)K, (uint64_t)w.bpad}, xstr[1] = {(uint64_t)K * 2};
   const uint32_t xbox[2] = {G::kE, BM};
-  CUtensorMap qmap, smap, xmap, zmap, summap;
-  int err = tile_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, qdims, qstr, qbox);
-  if (!err)
-    err = tile_map(&smap, es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                   3, scale, sdims, sstr, sbox);
-  if (!err)
-    err = tile_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w.xc, xdims, xstr, xbox, G::kXSwizzle);
-  if constexpr (ZS) {
-    const uint64_t zstr[2] = {(uint64_t)O * 2, (uint64_t)gpp * O * 2};
-    const uint32_t zbox[3] = {64, G::kZU / G::kPer, G::kPer};
+  CUtensorMap xmap, summap;
+  int err = tile_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w.xc, xdims, xstr, xbox, G::kXSwizzle);
+  if constexpr (F::kZs) {
     const uint64_t mdims[3] = {(uint64_t)w.bpad, (uint64_t)gpp, (uint64_t)G::kPer};
     const uint64_t mstr[2] = {(uint64_t)w.bpad * 4, (uint64_t)gpp * w.bpad * 4};
     const uint32_t mbox[3] = {BM, G::kZU / G::kPer, G::kPer};
     if (!err)
-      err = tile_map(&zmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, zs, sdims, zstr, zbox,
-                     CU_TENSOR_MAP_SWIZZLE_128B);
-    if (!err)
       err = tile_map(&summap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, w.xsum, mdims, mstr, mbox);
   } else {
-    zmap = summap = qmap;  // unused
+    summap = xmap;  // unused
   }
   if (err) return err;
-  const int Z = plane_slice_steps<BITS, ZS>(group);
+  const int Z = plane_slice_steps<G::kBits, F::kZs>(group);
   const int nslices = (Kp / G::kR + Z - 1) / Z;
   const int ksplit = (int)grid.z;
-  auto* kern = plane_rows_kernel<BITS, BM, SIGNED, ST, ZS>;
-  const int smem = PlaneRowRing<BITS, BM, ST>::smem_bytes(0) + 1024;  // + alignment to 1024
+  auto* kern = plane_rows_kernel<F, BM>;
+  const int smem = PlaneRowRing<F, BM>::smem_bytes(0) + 1024;  // + alignment to 1024
   return launch_ring(kern, smem, w, out, out_is_bf16, ksplit, B * O, st, [&](void* dst, int mode) {
-    kern<<<grid, kRowThreads, smem, st>>>(qmap, smap, xmap, zmap, summap, dst, mode, B, K, O,
-                                          group, (nslices + ksplit - 1) / ksplit);
+    kern<<<grid, kRowThreads, smem, st>>>(fm, sh, xmap, zmap, summap, dst, mode, B, K, O, group,
+                                          (nslices + ksplit - 1) / ksplit);
   });
+}
+
+// The rows route of a call (after the caller's shape checks): the plan's
+// stage count checked, the format's maps built from its arrays (fa: see
+// its make_maps), the pre-pass (x in step order, and the per-group sums
+// with the zs term), then plane_rows_kernel at the plan's row tile (64 or
+// 128). Returns the CUDA error.
+template <typename F, typename... A>
+int plane_rows_call(const __nv_bfloat16* x, const Workspace& w, void* out, int out_is_bf16, int B,
+                    int K, int O, int group, int rows, dim3 grid, int stages, cudaStream_t st,
+                    A... fa) {
+  if (stages != (rows == 64 ? kPlaneRowStages<F, 64> : kPlaneRowStages<F, 128>))
+    return (int)cudaErrorInvalidValue;
+  typename F::Maps fm;
+  typename F::Shifts sh;
+  CUtensorMap zmap;
+  int err = F::make_maps(fm, sh, zmap, K, O, group, fa...);
+  if (err) return err;
+  launch_plane_prep<typename F::G>(x, w, B, K, group, st);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return rows == 64
+             ? launch_plane_rows<F, 64>(w, fm, sh, zmap, out, out_is_bf16, B, K, O, group, grid, st)
+             : launch_plane_rows<F, 128>(w, fm, sh, zmap, out, out_is_bf16, B, K, O, group, grid, st);
 }
 
 }  // namespace mrt

@@ -18,17 +18,23 @@
 //          - 32 * sum_16 xsum16[b,.] * s16[.,o]
 // (the -32 term over the unquantized x, as the JAX kernel computes it).
 // K4 computes y = x @ bf16(q * s16) with f32 accumulation, minus the same
-// -32 term in f32, as `_q6k_kernel` does for bf16 activations.
+// -32 term in f32, as `_q6k_kernel` does for bf16 activations; up to 16
+// rows in its 16-row instantiation (below), at 17-256 rows in its rows
+// instantiation, csrc/plane_gemv.cuh's plane_rows_kernel with Q6kFmt (TMA, a
+// producer warpgroup that decodes each stage once, bf16 wgmma, the -32 term
+// on the tensor cores; its design is written there).
 //
 // Layouts (row-major): x [B,K] in element order (K3: bf16 or f32; K4:
 // bf16), ql [K/2,O] u8, qh [K/4,O] u8, scale [K/16,O] bf16, out [B,O] bf16
 // or f32; in the workspace (common.cuh carve) xq [B,K] int8, xs
-// [K/32][bpad], xsum16 [K/16][bpad], part [ksplit,B,O] f32.
+// [K/32][bpad], xsum16 [K/16][bpad], part [ksplit,B,O] f32 (K4's rows
+// instantiation: xsum16 and x's step-ordered copy xc [bpad,K] bf16, tiled
+// to the row tile, and the partials only with more than one split).
 //
 // What bounds them on an H100: at decode the weight stream, 0.875 bytes per
 // weight (ql 0.5, qh 0.25, a bf16 scale per 16), against 3.35 TB/s; K4 at
 // 256 rows is bound by its bf16 tensor-core operations.
-// Design for that:
+// Design of K3 and K4's 16-row instantiation:
 // - one K step is 32 consecutive t of one chunk for all four spans: 32 rows
 //   of each ql half, 32 rows of qh, 8 scale rows and four 32-element slices
 //   of x at j*Kq + c*G + t0, so every weight byte is read once, in 16-byte
@@ -43,8 +49,8 @@
 //   of x (64 rows) that share each staged weight tile;
 // - the K axis is split over blockIdx.y; the partials are added in a fixed
 //   order by common.cuh's split-K pass.
-// Not done yet (later work): TMA/wgmma, fusing the split-K pass.
-#include "common.cuh"
+// Not done yet in them (later work): TMA/wgmma, fusing the split-K pass.
+#include "plane_gemv.cuh"
 
 namespace {
 
@@ -73,18 +79,6 @@ __device__ __forceinline__ void load_weights(WeightStage& W, const uint8_t* ql, 
   const int row = c * (G / 4) + (a >> 1) * (G / 16) + t0 / 16 + (a & 1);
   const bool ok = col0 + 8 * ch < O;
   mrt::cp_async16(&W.sc[a][8 * ch], ok ? scale + (size_t)row * O + col0 + 8 * ch : scale, ok);
-}
-
-// The 6-bit codes of span j from the transposed ql (spans 0|2: p, 1|3: r) and
-// qh words, four K rows a register (one byte each); j is a constant after
-// the callers' loops unroll.
-__device__ __forceinline__ uint32_t q6_codes(int j, uint32_t p, uint32_t r, uint32_t h) {
-  switch (j) {
-    case 0: return (p & 0x0F0F0F0Fu) | ((h << 4) & 0x30303030u);
-    case 1: return (r & 0x0F0F0F0Fu) | ((h << 2) & 0x30303030u);
-    case 2: return ((p >> 4) & 0x0F0F0F0Fu) | (h & 0x30303030u);
-    default: return ((r >> 4) & 0x0F0F0F0Fu) | ((h >> 2) & 0x30303030u);
-  }
 }
 
 // ------------------------------------------------------------------ K3
@@ -168,8 +162,8 @@ __global__ void __launch_bounds__(mrt::kGemvThreads)
       const float mb0 = S.xv[5 + 2 * j][g], mb1 = S.xv[5 + 2 * j][g + 8];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const uint32_t w0 = q6_codes(j, p0[jj], r0[jj], h0[jj]);  // K rows 4t.. of the step
-        const uint32_t w1 = q6_codes(j, p1[jj], r1[jj], h1[jj]);  // K rows 16+4t..
+        const uint32_t w0 = mrt::q6_codes(j, p0[jj], r0[jj], h0[jj]);  // K rows 4t.. of the step
+        const uint32_t w1 = mrt::q6_codes(j, p1[jj], r1[jj], h1[jj]);  // K rows 16+4t..
         int dl[4] = {0, 0, 0, 0}, dh[4] = {0, 0, 0, 0};
         mrt::mma_s8_k16(dl, a[0], a[1], w0);  // elements t0..t0+15 of span j
         mrt::mma_s8_k16(dh, a[2], a[3], w1);  // t0+16..t0+31
@@ -201,25 +195,6 @@ struct Stage4 {
   uint8_t x[16 * kRowTiles * kXStride4];  // 64 rows x 4 spans x 32 bf16
   float xm[8][16 * kRowTiles];            // xsum16 of (span, half) for the 64 rows
 };
-
-// bf16 pair (lo, hi) from two floats, round to nearest even
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// an unsigned byte as an exact f32 (0x4B000000 is 2^23)
-__device__ __forceinline__ float byte_f32(uint32_t w, int i) {
-  return __uint_as_float(0x4B000000u | __byte_perm(w, 0, 0x4440 + i)) - 8388608.f;
-}
-
-// B fragments of one bf16 m16n8k16 from 4 codes of a column (K rows 4t..4t+3
-// of the 16): the MMA's k = 2t, 2t+1 take rows 4t, 4t+1 and k = 2t+8, 2t+9
-// take 4t+2, 4t+3; the A fragments below follow the same order.
-__device__ __forceinline__ void bf16_b(uint32_t codes, float s, uint32_t& b0, uint32_t& b1) {
-  b0 = bf16x2(byte_f32(codes, 0) * s, byte_f32(codes, 1) * s);
-  b1 = bf16x2(byte_f32(codes, 2) * s, byte_f32(codes, 3) * s);
-}
 
 __global__ void __launch_bounds__(mrt::kGemvThreads)
     q6k_bf16_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ xsum16,
@@ -289,10 +264,10 @@ __global__ void __launch_bounds__(mrt::kGemvThreads)
       uint32_t b[4][2][2];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const uint32_t w0 = q6_codes(j, p0[jj], r0[jj], h0[jj]);  // K rows 4t.. of the step
-        const uint32_t w1 = q6_codes(j, p1[jj], r1[jj], h1[jj]);  // K rows 16+4t..
-        bf16_b(w0, bs0[jj], b[jj][0][0], b[jj][0][1]);
-        bf16_b(w1, bs1[jj], b[jj][1][0], b[jj][1][1]);
+        const uint32_t w0 = mrt::q6_codes(j, p0[jj], r0[jj], h0[jj]);  // K rows 4t.. of the step
+        const uint32_t w1 = mrt::q6_codes(j, p1[jj], r1[jj], h1[jj]);  // K rows 16+4t..
+        mrt::code_b<false>(w0, bs0[jj], b[jj][0][0], b[jj][0][1]);
+        mrt::code_b<false>(w1, bs1[jj], b[jj][1][0], b[jj][1][1]);
       }
       // the -32 term's scales at the C columns
       float sa0[4], sa1[4], sb0[4], sb1[4];
@@ -359,24 +334,49 @@ extern "C" int q6k_q8_gemv(const void* x, int x_is_bf16, const void* ql, const v
   return mrt::finish_gemv(w, out, out_is_bf16, ksplit, B * O, st);
 }
 
-// As q6k_q8_gemv, for bf16 x kept in bf16 (K4); the workspace holds xsum16
-// and the partials only.
+// As q6k_q8_gemv, for bf16 x kept in bf16 (K4). The launch is the plan of
+// ops/quant_matmul.q6k_bf16_plan, every field of it checked here:
+// - rows 16 (B <= 16): q6k_bf16_mma_kernel, grid (column tiles, K splits,
+//   1), cluster 1, cols 128, stages 0, at most K/128 splits; the quantize
+//   kernel's per-16 sums, the GEMV, the split-K pass (the workspace holds
+//   xsum16 and the partials);
+// - rows 64 or 128: plane_rows_kernel with Q6kFmt, grid (row tiles, column
+//   tiles, K splits), cluster 1, cols 128, its ring's stages, a span G that
+//   is a power of two and a multiple of 128, at most one split per slice
+//   of 128 r; plane_prep_kernel (per-16 sums and x in step order; the
+//   workspace tiled to the row tile), the GEMV and, with more than one
+//   split, the split-K pass.
 extern "C" int q6k_bf16_gemv(const void* x, const void* ql, const void* qh, const void* scale,
                              int G, void* ws, long long ws_bytes, void* out, int out_is_bf16,
-                             int B, int K, int O, int ksplit, void* stream) {
+                             int B, int K, int O, int rows, int gx, int gy, int gz, int cluster,
+                             int cols, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const mrt::Workspace w = mrt::carve(ws, B, K, O, 0, 16, ksplit);
-  if (w.bytes > (size_t)ws_bytes) return (int)cudaErrorInvalidValue;
+  if (rows != 16 && rows != 64 && rows != 128) return (int)cudaErrorInvalidValue;
+  const bool dec = rows == 16;
+  const int ksplit = dec ? gy : gz;
+  const mrt::Workspace w = dec ? mrt::carve(ws, B, K, O, 0, 16, ksplit)
+                               : mrt::carve(ws, B, K, O, 0, 16, ksplit, mrt::kTiled, rows, true);
+  const bool grid_ok =
+      dec ? B <= 16 && gx == (O + mrt::kGemvCols - 1) / mrt::kGemvCols && gz == 1 &&
+                stages == 0 && ksplit <= K / 128
+          : mrt::grid_covers(w, rows, cols, B, O, gx, gy, gz) && G >= 128 && G % 128 == 0 &&
+                (G & (G - 1)) == 0 && K % (4 * G) == 0 && gz <= K / 512;
+  if (!grid_ok || cluster != 1 || cols != mrt::kGemvCols || w.bytes > (size_t)ws_bytes ||
+      ksplit < 1)
+    return (int)cudaErrorInvalidValue;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* lb = static_cast<const uint8_t*>(ql);
+  const auto* hb = static_cast<const uint8_t*>(qh);
+  const auto* sb = static_cast<const __nv_bfloat16*>(scale);
+  if (!dec)  // qh as the 2-bit planes, group 16, zs = the scale itself
+    return mrt::plane_rows_call<mrt::Q6kFmt>(xb, w, out, out_is_bf16, B, K, O, 16, rows,
+                                             dim3(gx, gy, gz), stages, st, hb, lb, sb, G);
   const int smem = kStages * (int)sizeof(Stage4);
   const cudaError_t err = mrt::allow_smem(q6k_bf16_mma_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   mrt::launch_quantize<32>(x, true, nullptr, nullptr, nullptr, w.xsum, B, K, w.bpad, st);
-  const int rows = 16 * kRowTiles;
-  const dim3 grid((O + mrt::kGemvCols - 1) / mrt::kGemvCols, ksplit, (B + rows - 1) / rows);
-  q6k_bf16_mma_kernel<<<grid, mrt::kGemvThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x), w.xsum, static_cast<const uint8_t*>(ql),
-      static_cast<const uint8_t*>(qh), static_cast<const __nv_bfloat16*>(scale), w.part, B,
-      w.bpad, K, O, G, (K / 128 + ksplit - 1) / ksplit);
+  q6k_bf16_mma_kernel<<<dim3(gx, ksplit, 1), mrt::kGemvThreads, smem, st>>>(
+      xb, w.xsum, lb, hb, sb, w.part, B, w.bpad, K, O, G, (K / 128 + ksplit - 1) / ksplit);
   return mrt::finish_gemv(w, out, out_is_bf16, ksplit, B * O, st);
 }
 
@@ -417,7 +417,7 @@ __global__ void q6k_dequant_kernel(const uint8_t* __restrict__ ql, const uint8_t
   if constexpr (sizeof(OutT) == 2) {
     uint32_t o[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[e] = bf16x2(v[2 * e], v[2 * e + 1]);
+    for (int e = 0; e < 4; ++e) o[e] = mrt::bf16x2(v[2 * e], v[2 * e + 1]);
     *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
   } else {
     *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);

@@ -11,7 +11,8 @@ serving paths run, all hand-written CUDA under csrc/:
   and K9 `q5k_q8_gemv` (`_q5k_hbit_q8_kernel` together with the K1 call
   that `_q5k_q8_matmul_padded` makes before it): the Q5_K_M path with Q6_K
   kept native; K9 has a rows instantiation (17-256 rows, K1's, on
-  `q5k_q8_plan`), counted apart;
+  `q5k_q8_plan`), K4 one (17-256 rows, K10's with Q6_K's decode, on
+  `q6k_bf16_plan`), each counted apart;
 - K10 `affine_gemv` (`_affine_kernel`): w = q*scale - zs for plane-major
   packed codes of 1, 2, 4 or 8 bits, the GEMV of GGUF Q2_K (the Q2_K
   path), GPTQ and HQQ; bf16 activations, as the JAX kernel takes x's
@@ -21,7 +22,8 @@ serving paths run, all hand-written CUDA under csrc/:
   (`_q8_0_kernel`) and K9b `q5k_hbit_bf16_gemv` (`_q5k_hbit_kernel`): the
   routes of a Linear with `int8_act` off (PipelineConfig.int8_activations
   = False), where x stays in its dtype, as in the JAX package with its
-  MISTRALRS_*_INT8 gates off.
+  MISTRALRS_*_INT8 gates off; K9b has a rows instantiation (17-256 rows,
+  K10's without the zs term, on `q5k_hbit_bf16_plan`), counted apart.
 
 Activations are quantized per block to int8 (ggml's Q8 approach, as the JAX
 int8 path does): xs = max(max|x_block|, 1e-10)/127, xq = clip(round(x/xs),
@@ -93,9 +95,11 @@ q5k_q8_gemv_launches = 0
 q6k_dequant_launches = 0
 q5k_dequant_launches = 0
 affine_gemv_launches = 0
-# K9's and K10's rows instantiations (17-256 rows), counted apart
+# K9's, K10's, K4's and K9b's rows instantiations (17-256 rows), counted apart
 q5k_q8_gemv_rows_launches = 0
 affine_gemv_rows_launches = 0
+q6k_bf16_gemv_rows_launches = 0
+q5k_hbit_bf16_gemv_rows_launches = 0
 affine_dequant_launches = 0
 q4k_bf16_gemv_launches = 0
 q8_0_bf16_gemv_launches = 0
@@ -257,9 +261,9 @@ def int8_gemv_plan(B: int, K: int, O: int, k_units: int, gs: int, sum_gs: int,
 
 
 def _plane_rows(B: int) -> int:
-    """Rows of x a block of K5, K8 or K9b (and K10 up to 16 rows) serves:
-    one 16-row tile up to 16 rows, four above (the kernels pick the same by
-    B)."""
+    """Rows of x a block of K5 or K8 (and K9b and K10 up to 16 rows)
+    serves: one 16-row tile up to 16 rows, four above (the kernels pick the
+    same by B)."""
     return 16 if B <= 16 else K4_ROWS
 
 
@@ -526,7 +530,8 @@ def q6k_q8_gemv(x, ql, qh, scale, G: int, out_dtype=torch.bfloat16):
 
 # ------------------------------------------------------- K4: Q6_K x bf16
 
-# rows of x one K4 block serves (4 tiles of 16 share each staged weight tile)
+# rows of x one block of K4's 16-row instantiation serves (4 tiles of 16
+# share each staged weight tile; K5 and K8 the same above 16 rows)
 K4_ROWS = 64
 
 
@@ -542,11 +547,40 @@ def q6k_bf16_gemv_plain(x, ql, qh, scale, G: int, out_dtype=torch.float32):
     return y.to(out_dtype)
 
 
+def q6k_rows_take(K: int, G: int) -> bool:
+    """Whether K4's rows instantiation takes the layout: a chunk span G that
+    is a power of two and a multiple of 128 (a zs slice, 128 r of a span,
+    then lies in one chunk, and the kernel's index arithmetic is shifts),
+    K a multiple of 4G. q6k_matmul's G >= 128 (q6k_chunk_size's spans are
+    powers of two) always holds it."""
+    return G >= 128 and G & (G - 1) == 0 and K % (4 * G) == 0
+
+
+def q6k_bf16_plan(B: int, K: int, O: int, G: int, sms: int) -> GemvPlan:
+    """Launch plan of K4 on a card with `sms` SMs, every field of which the
+    CUDA entry point checks. Up to 16 rows the 16-row instantiation
+    (q6k_bf16_mma_kernel): grid (column tiles, K splits, 1), the split by
+    _ksplit_for over 128-element steps at its 64-row blocks, the row-major
+    workspace (per-16 sums, partials). Above: the rows instantiation, K10's
+    2-bit plan (Q6_K is its geometry: 4 planes, 16-element groups, a zs
+    slice of 128 r) with Q6_K's ring stages; the span G must pass
+    q6k_rows_take."""
+    if B <= 16:
+        ks = _ksplit_for(O, B, K // 128, sms, rows=K4_ROWS)
+        return GemvPlan(16, (-(-O // 128), ks, 1), ks, 1, 128, 0,
+                        _workspace_bytes(B, K, O, 0, 16, ks))
+    _require(q6k_rows_take(K, G), f"q6k_bf16_gemv: above 16 rows the kernel needs a power-of-two "
+                                  f"span G >= 128 with K % 4G == 0; got G={G} K={K}")
+    return plane_gemv_plan(B, K, O, 2, 16, sms, codes_in_tile=True)
+
+
 def q6k_bf16_gemv(x, ql, qh, scale, G: int, out_dtype=torch.bfloat16):
     """K4: y [B, O] = x @ W for Q6_K W with the weight dequantized to x's
     dtype inside the kernel (see csrc/q6k_gemv.cu). x [B, K] in element
-    order (bf16 on cuda), the weight arrays as for K3."""
-    global q6k_bf16_gemv_launches
+    order (bf16 on cuda), the weight arrays as for K3. Up to 16 rows the
+    16-row instantiation, above it the rows instantiation (plane_gemv.cuh's
+    rows kernel with Q6_K's decode), on the plan of q6k_bf16_plan."""
+    global q6k_bf16_gemv_launches, q6k_bf16_gemv_rows_launches
     B, K, O = _check_q6k("q6k_bf16_gemv", x, ql, qh, G)
     _require(out_dtype in (torch.bfloat16, torch.float32), f"q6k_bf16_gemv: out {out_dtype}")
     if x.device.type == "cpu":
@@ -554,17 +588,19 @@ def q6k_bf16_gemv(x, ql, qh, scale, G: int, out_dtype=torch.bfloat16):
     _require(x.dtype == torch.bfloat16, f"q6k_bf16_gemv: the kernel takes bf16 x, got {x.dtype}")
     _check_tensor("scale", scale, torch.bfloat16, (K // 16, O))
     dev = _check_cuda("q6k_bf16_gemv", dict(x=x, ql=ql, qh=qh, scale=scale))
-    ksplit = _ksplit(O, B, K // 128, dev, rows=K4_ROWS)
-    nbytes = _workspace_bytes(B, K, O, 0, 16, ksplit)
-    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    plan = q6k_bf16_plan(B, K, O, G, kernels.sm_count(dev))
+    ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
     fn = kernels.function("q6k_gemv", "q6k_bf16_gemv",
-                          [_P, _P, _P, _P, _I, _P, ctypes.c_longlong, _P] + [_I] * 5 + [_P])
+                          [_P, _P, _P, _P, _I, _P, ctypes.c_longlong, _P] + [_I] * 11 + [_P])
     err = fn(kernels.ptr(x), kernels.ptr(ql), kernels.ptr(qh), kernels.ptr(scale), G,
-             kernels.ptr(ws), nbytes, kernels.ptr(out), int(out_dtype == torch.bfloat16),
-             B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
+             kernels.ptr(ws), plan.ws_bytes, kernels.ptr(out), int(out_dtype == torch.bfloat16),
+             B, K, O, *plan.launch_args(), _P(kernels.stream_ptr(dev)))
     kernels.check(err, "q6k_bf16_gemv")
-    q6k_bf16_gemv_launches += 1
+    if plan.rows == 16:
+        q6k_bf16_gemv_launches += 1
+    else:
+        q6k_bf16_gemv_rows_launches += 1
     return out
 
 
@@ -659,20 +695,27 @@ def plane_row_geom(bits: int) -> tuple[int, int, int]:
     return per, e, e // per
 
 
-def plane_row_stages(bits: int, rows: int, scale_bytes: int = 2) -> int:
+def plane_row_stages(bits: int, rows: int, scale_bytes: int = 2,
+                     codes_in_tile: bool = False) -> int:
     """Ring stages of the rows kernel at a row tile (common.cuh
-    ring_stages of PlaneRowStage: the x tile, the decoded bf16 tile,
-    the byte rows, the scale rows; a multiple of 3, at most 12)."""
+    ring_stages of its format's stage: the x tile, the decoded bf16 tile,
+    the byte rows, the scale rows; a multiple of 3, at most 12). With
+    codes_in_tile (Q6kFmt's Q6kRowStage) the step's bytes wait in the
+    decoded tile and the stage has no byte rows of its own."""
     per, e, r = plane_row_geom(bits)
-    stage = rows * e * 2 + e * 128 * 2 + r * 128 + max(per, e // 16) * 128 * scale_bytes
+    stage = (rows * e * 2 + e * 128 * 2 + (0 if codes_in_tile else r * 128)
+             + max(per, e // 16) * 128 * scale_bytes)
     stage = -(-stage // 1024) * 1024
     return min(12, PLANE_RING_BYTES // stage) // 3 * 3
 
 
-def plane_slice_steps(bits: int, group: int) -> int:
+def plane_slice_steps(bits: int, group: int, zs: bool = True) -> int:
     """Main K steps of one zs slice of the rows kernel (32 groups at
-    64-element steps, 16 at 32, and one zs step; csrc/plane_gemv.cuh
+    64-element steps, 16 at 32, and one zs step); without the zs term (K9b)
+    the K split's unit, 4 main steps (csrc/plane_gemv.cuh
     plane_slice_steps)."""
+    if not zs:
+        return 4
     e = plane_row_geom(bits)[1]
     return (32 if e == 64 else 16) * group // e
 
@@ -686,16 +729,19 @@ def plane_rows_take(K: int, bits: int, group: int) -> bool:
     return (K // per) % group == 0 and group & (group - 1) == 0
 
 
-def plane_gemv_plan(B: int, K: int, O: int, bits: int, group: int, sms: int) -> GemvPlan:
-    """Launch plan of K10 on a card with `sms` SMs, every field of which the
-    CUDA entry point checks. Up to 16 rows plane_bf16_mma_kernel: grid
-    (column tiles, K splits, 1), the split by _ksplit_for over 32-row
-    steps, the row-major workspace (per-16 sums, partials). Above: the rows
-    kernel, 64 or 128 rows a block, grid (row tiles, column tiles, K
-    splits), row tiles fastest, so each weight tile is read by at most two
-    blocks; K is split at zs slices and only to fill one wave, no split
-    empty; its ring's stages; the tiled workspace (per-group sums, x's
-    copy in the kernel's step order, partials with more than one split)."""
+def plane_gemv_plan(B: int, K: int, O: int, bits: int, group: int, sms: int,
+                    zs: bool = True, codes_in_tile: bool = False) -> GemvPlan:
+    """Launch plan of K10 (and, with zs False, of K9b above 16 rows) on a
+    card with `sms` SMs, every field of which the CUDA entry point checks.
+    Up to 16 rows plane_bf16_mma_kernel: grid (column tiles, K splits, 1),
+    the split by _ksplit_for over 32-row steps, the row-major workspace
+    (per-16 sums, partials). Above: the rows kernel, 64 or 128 rows a
+    block, grid (row tiles, column tiles, K splits), row tiles fastest, so
+    each weight tile is read by at most two blocks; K is split at zs slices
+    (without zs: at 4 main steps) and only to fill one wave, no split
+    empty; its ring's stages (codes_in_tile: K4's stage, plane_row_stages);
+    the tiled workspace (per-group sums unless zs is False, x's copy in the
+    kernel's step order, partials with more than one split)."""
     per = 8 // bits
     kp = K // per
     ctiles = -(-O // 128)
@@ -704,11 +750,13 @@ def plane_gemv_plan(B: int, K: int, O: int, bits: int, group: int, sms: int) -> 
         return GemvPlan(16, (ctiles, ks, 1), ks, 1, 128, 0, _workspace_bytes(B, K, O, 0, 16, ks))
     rows = 64 if B <= 64 else 128
     rtiles = -(-B // rows)
-    slices = -(-(kp // plane_row_geom(bits)[2]) // plane_slice_steps(bits, group))
+    slices = -(-(kp // plane_row_geom(bits)[2]) // plane_slice_steps(bits, group, zs))
     ks = max(1, min(sms // (rtiles * ctiles), slices))
     ks = -(-slices // -(-slices // ks))  # the same slices a split, none empty
-    return GemvPlan(rows, (rtiles, ctiles, ks), ks, 1, 128, plane_row_stages(bits, rows),
-                    _workspace_bytes(B, K, O, 0, group, ks, rows, "tiled", xcopy=True))
+    return GemvPlan(rows, (rtiles, ctiles, ks), ks, 1, 128,
+                    plane_row_stages(bits, rows, codes_in_tile=codes_in_tile),
+                    _workspace_bytes(B, K, O, 0, group if zs else 0, ks, rows, "tiled",
+                                     xcopy=True))
 
 
 def _affine_values(q: torch.Tensor, bits: int) -> torch.Tensor:
@@ -877,12 +925,27 @@ def q5k_hbit_bf16_gemv_plain(x, qh, scale, out_dtype=torch.float32):
     return (x.to(torch.float32) @ w.to(torch.float32)).to(out_dtype)
 
 
+def q5k_hbit_bf16_plan(B: int, K: int, O: int, sms: int) -> GemvPlan:
+    """Launch plan of K9b on a card with `sms` SMs, every field of which the
+    CUDA entry point checks. Up to 16 rows plane_bf16_mma_kernel: grid
+    (column tiles, K splits, 1), the split by _ksplit_for over 256-element
+    steps, the row-major workspace (partials only). Above: the rows kernel
+    at one bit, group 32 and no zs term (plane_gemv_plan with zs False)."""
+    if B <= 16:
+        ks = _ksplit_for(O, B, K // 256, sms)
+        return GemvPlan(16, (-(-O // 128), ks, 1), ks, 1, 128, 0,
+                        _workspace_bytes(B, K, O, 0, 0, ks))
+    return plane_gemv_plan(B, K, O, 1, 32, sms, zs=False)
+
+
 def q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=torch.bfloat16):
     """K9b: yh [B, O] = sum_i x[:, i] * scale[i/32] * hbit[i] for the
     plane-major Q5_K high bits (see csrc/q5k_hbit_bf16_gemv.cu), the Q5_K
     product's term that q5k_matmul adds 16 times to K5's. x [B, K] bf16 on
-    cuda, qh uint8 [K/8, O], scale [K/32, O] (bf16 on cuda)."""
-    global q5k_hbit_bf16_gemv_launches
+    cuda, qh uint8 [K/8, O], scale [K/32, O] (bf16 on cuda). Up to 16 rows
+    the 16-row instantiation, above it the rows instantiation, on the plan
+    of q5k_hbit_bf16_plan."""
+    global q5k_hbit_bf16_gemv_launches, q5k_hbit_bf16_gemv_rows_launches
     Kp, O = qh.shape
     K = 8 * Kp
     B = _check_x("q5k_hbit_bf16_gemv", x, K)
@@ -898,17 +961,19 @@ def q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=torch.bfloat16):
              f"q5k_hbit_bf16_gemv: the kernel takes bf16 x, got {x.dtype}")
     _check_tensor("scale", scale, torch.bfloat16, (K // 32, O))
     dev = _check_cuda("q5k_hbit_bf16_gemv", dict(x=x, qh=qh, scale=scale))
-    ksplit = _ksplit(O, B, K // 256, dev, rows=_plane_rows(B))
-    nbytes = _workspace_bytes(B, K, O, 0, 0, ksplit)
-    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    plan = q5k_hbit_bf16_plan(B, K, O, kernels.sm_count(dev))
+    ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
     fn = kernels.function("q5k_hbit_bf16_gemv", "q5k_hbit_bf16_gemv",
-                          [_P] * 4 + [ctypes.c_longlong, _P] + [_I] * 5 + [_P])
-    err = fn(kernels.ptr(x), kernels.ptr(qh), kernels.ptr(scale), kernels.ptr(ws), nbytes,
-             kernels.ptr(out), int(out_dtype == torch.bfloat16), B, K, O, ksplit,
+                          [_P] * 4 + [ctypes.c_longlong, _P] + [_I] * 11 + [_P])
+    err = fn(kernels.ptr(x), kernels.ptr(qh), kernels.ptr(scale), kernels.ptr(ws), plan.ws_bytes,
+             kernels.ptr(out), int(out_dtype == torch.bfloat16), B, K, O, *plan.launch_args(),
              _P(kernels.stream_ptr(dev)))
     kernels.check(err, "q5k_hbit_bf16_gemv")
-    q5k_hbit_bf16_gemv_launches += 1
+    if plan.rows == 16:
+        q5k_hbit_bf16_gemv_launches += 1
+    else:
+        q5k_hbit_bf16_gemv_rows_launches += 1
     return out
 
 

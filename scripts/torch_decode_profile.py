@@ -38,9 +38,14 @@ shares of it: kernels named grouped_gemm, q4k_bf16_mma,
 plane_bf16_mma_kernel<8 and plane_bf16_mma_kernel<1, the last also K10's
 at 1 bit, which no mix here runs; of K1's, K2's and K9's rows
 instantiations, q4k_q8_rows_kernel, q8_0_q8_rows_kernel and
-q5k_q8_rows_kernel, K9's 16-row q5k_q8_mma_kernel, and K10's at Q2_K's 2
-bits, plane_bf16_mma_kernel<2 up to 16 rows and plane_rows_kernel above),
-then the top device kernels and host ops by time.
+q5k_q8_rows_kernel, K9's 16-row q5k_q8_mma_kernel, K10's at Q2_K's 2
+bits, plane_bf16_mma_kernel<2 up to 16 rows and plane_rows_kernel above;
+and of plane_rows_kernel's other instantiations, K4's (Q6_K, `k4_rows_ms`:
+the 4 x 40 step of `--mix q5km`, with int8 activations or without) and
+K9b's (without the zs term, `k9b_rows_ms`: `--int8-activations off`),
+beside K4's 16-row q6k_bf16_mma_kernel and the pre-pass plane_prep_kernel
+of every rows call of the three), then the top device kernels and host
+ops by time.
 """
 
 from __future__ import annotations
@@ -57,12 +62,29 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 FEW = 4  # prompts in the traced prefill steps that fill a few of the slots
-# device time reported by kernel: a part of the kernel's name
+
+
+def _plane_fmt(key: str):
+    """The template arguments BITS, SIGNED, ST, ZS of a
+    plane_rows_kernel<PlaneFmt<...>, BM> event's name, or None for another
+    kernel (K4's is plane_rows_kernel<Q6kFmt, BM>)."""
+    head = "PlaneFmt<"
+    if "plane_rows_kernel<" not in key or head not in key:
+        return None
+    return [a.strip() for a in key.split(head, 1)[1].split(">", 1)[0].split(",")]
+
+
+# device time reported by kernel: a part of the kernel's name, or a test of it
 NAMED_KERNELS = {"grouped_gemm": "grouped_gemm", "k5": "q4k_bf16_mma",
                  "k8": "plane_bf16_mma_kernel<8", "k9b": "plane_bf16_mma_kernel<1",
                  "k1_rows": "q4k_q8_rows_kernel", "k2_rows": "q8_0_q8_rows_kernel",
                  "k9": "q5k_q8_mma_kernel", "k9_rows": "q5k_q8_rows_kernel",
-                 "k10": "plane_bf16_mma_kernel<2", "k10_rows": "plane_rows_kernel",
+                 "k10": "plane_bf16_mma_kernel<2",
+                 "k10_rows": lambda k: (_plane_fmt(k) or [""] * 4)[3] == "true",
+                 "k4": "q6k_bf16_mma_kernel",
+                 "k4_rows": lambda k: "plane_rows_kernel<" in k and "Q6kFmt" in k,
+                 "k9b_rows": lambda k: (_plane_fmt(k) or [""] * 4)[3] == "false",
+                 "plane_prep": "plane_prep_kernel",
                  "k6": "flash_prefill_kernel", "k6p": "flash_prefill_paged_kernel"}
 
 
@@ -174,7 +196,8 @@ def report(phase, name, args, prof, wall, extra) -> None:
     events = sum(e.count for e in kernels)
     named = {}
     for label, part in NAMED_KERNELS.items():
-        us = sum(e.self_device_time_total for e in kernels if part in e.key)
+        hit = part if callable(part) else lambda k, _p=part: _p in k
+        us = sum(e.self_device_time_total for e in kernels if hit(e.key))
         named[f"{label}_ms"] = us / 1e3
         named[f"{label}_share"] = us / max(dev_us, 1e-9)
     print(json.dumps({"phase": phase, "device": name, "mix": args.mix, "backend": args.backend,

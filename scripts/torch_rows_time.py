@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the rows instantiations of K9 (`q5k_q8_gemv`) and K10 (`affine_gemv`)
-in one or more checkouts of this repository on one card.
+"""Time the rows instantiations of K9 (`q5k_q8_gemv`), K10 (`affine_gemv`),
+K4 (`q6k_bf16_gemv`) and K9b (`q5k_hbit_bf16_gemv`) in one or more
+checkouts of this repository on one card.
 
     python3 scripts/torch_rows_time.py [--trace] ROOT [ROOT ...]
 
@@ -8,14 +9,17 @@ Runs each root in a process of its own, in the order given (pass parent,
 change, change, parent to A/B two trees; to time a variant of a kernel, make
 it in a gitignored copy of the tree and pass that copy). Each builds its own
 kernels and prints one JSON line: K9 at Mistral-7B's gate|up (4096->28672)
-at 64 and 256 rows, and K10 at Q2_K's gate|up (64 and 256 rows) and q|k
+at 64 and 256 rows, K10 at Q2_K's gate|up (64 and 256 rows) and q|k
 (4096->5120, 256), GPTQ-8 (group 128), HQQ-1 and HQQ-2 (group 64) and
-GPTQ-4 (group 16) at gate|up, 256 rows, each time chip_smoke.Clock's median
-of 25 runs (L2 flushed) beside K10's relative error against its plain
-version. With --trace, instead, the device time a call of each kernel a
-K10 rows call launches (the pre-pass and the GEMV), from a torch.profiler
-trace of 10 calls (L2 warm), at Q2_K's gate|up (64 and 256 rows) and
-GPTQ-8's (256).
+GPTQ-4 (group 16) at gate|up, 256 rows, K4 at the Q6_K down (14336->4096)
+and v (4096->1024), and K9b at gate|up, both at 64 and 256 rows, each time
+chip_smoke.Clock's median of 25 runs (L2 flushed) beside the relative
+error against the plain version (but K9's). A tree whose K4 or K9b has no
+rows instantiation times its older kernel at the same call. With --trace,
+instead, the device time a call of each kernel a rows call launches (the
+pre-pass and the GEMV), from a torch.profiler trace of 10 calls (L2 warm),
+of K10 at Q2_K's gate|up (64 and 256 rows) and GPTQ-8's (256), K4 at down
+(256) and K9b at gate|up (64 and 256).
 """
 
 from __future__ import annotations
@@ -34,6 +38,9 @@ K10_CASES = (("q2k", 2, 16, "gate|up", 4096, 28672, (64, 256)),
              ("gptq4", 4, 16, "gate|up", 4096, 28672, (256,)))
 TRACE_CASES = (("q2k", 2, 16, 4096, 28672, 256), ("q2k", 2, 16, 4096, 28672, 64),
                ("gptq8", 8, 128, 4096, 28672, 256))
+# (name, K, O, rows): K4 at the Q6_K projections, K9b at gate|up
+K4_CASES = (("down", 14336, 4096, (64, 256)), ("v", 4096, 1024, (64, 256)))
+K9B_CASES = (("gate|up", 4096, 28672, (64, 256)),)
 
 
 def setup(root: str):
@@ -74,17 +81,35 @@ def measure(root: str) -> dict:
         x = acts(B, K)
         out[f"k9 gate|up B={B}"] = clock.ms(lambda: qm.q5k_q8_gemv(x, qs, qh, sc, mn))
     del qs, qh
+    def timed(call, plain):
+        got, want = call(torch.float32), plain()
+        return [clock.ms(lambda: call(torch.bfloat16)),
+                float((got - want).abs().max() / want.abs().max())]
+
     for fmt, bits, group, name, K, O, rows in K10_CASES:
         q, sc = u8(K * bits // 8, O), scales(K // group, O)
         zs = (1.5 * sc.float()).to(torch.bfloat16)
         for B in rows:
             x = acts(B, K)
-            got = qm.affine_gemv(x, q, sc, zs, bits, group, out_dtype=torch.float32)
-            want = qm.affine_gemv_plain(x, q, sc, zs, bits, group, torch.float32)
-            rel = float((got - want).abs().max() / want.abs().max())
-            out[f"k10 {fmt} {name} B={B}"] = [
-                clock.ms(lambda: qm.affine_gemv(x, q, sc, zs, bits, group)), rel]
+            out[f"k10 {fmt} {name} B={B}"] = timed(
+                lambda dt: qm.affine_gemv(x, q, sc, zs, bits, group, out_dtype=dt),
+                lambda: qm.affine_gemv_plain(x, q, sc, zs, bits, group, torch.float32))
         del q
+    for name, K, O, rows in K4_CASES:
+        ql, qh, sc = u8(K // 2, O), u8(K // 4, O), scales(K // 16, O)
+        G = 512
+        for B in rows:
+            x = acts(B, K)
+            out[f"k4 {name} B={B}"] = timed(
+                lambda dt: qm.q6k_bf16_gemv(x, ql, qh, sc, G, out_dtype=dt),
+                lambda: qm.q6k_bf16_gemv_plain(x, ql, qh, sc, G, torch.float32))
+    for name, K, O, rows in K9B_CASES:
+        qh, sc = u8(K // 8, O), scales(K // 32, O)
+        for B in rows:
+            x = acts(B, K)
+            out[f"k9b {name} B={B}"] = timed(
+                lambda dt: qm.q5k_hbit_bf16_gemv(x, qh, sc, out_dtype=dt),
+                lambda: qm.q5k_hbit_bf16_gemv_plain(x, qh, sc, torch.float32))
     return {"root": root, "device": torch.cuda.get_device_name(0), "rows": out}
 
 
@@ -94,21 +119,31 @@ def trace(root: str) -> dict:
 
     from mistralrs_tpu_torch.ops import quant_matmul as qm
 
+    def kernel_ms(call):
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        return {e.key[:60]: e.self_device_time_total / 10 / 1e3 for e in prof.key_averages()
+                if e.self_device_time_total > 0}
+
     out = {}
     for fmt, bits, group, K, O, B in TRACE_CASES:
         q, sc = u8(K * bits // 8, O), scales(K // group, O)
         zs = (1.5 * sc.float()).to(torch.bfloat16)
         x = acts(B, K)
-        for _ in range(3):
-            qm.affine_gemv(x, q, sc, zs, bits, group)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                qm.affine_gemv(x, q, sc, zs, bits, group)
-            torch.cuda.synchronize()
-        out[f"{fmt} gate|up B={B}"] = {
-            e.key[:60]: e.self_device_time_total / 10 / 1e3 for e in prof.key_averages()
-            if e.self_device_time_total > 0}
+        out[f"{fmt} gate|up B={B}"] = kernel_ms(lambda: qm.affine_gemv(x, q, sc, zs, bits, group))
+    K, O = 14336, 4096
+    ql, qh, sc, x = u8(K // 2, O), u8(K // 4, O), scales(K // 16, O), acts(256, K)
+    out["k4 down B=256"] = kernel_ms(lambda: qm.q6k_bf16_gemv(x, ql, qh, sc, 512))
+    K, O = 4096, 28672
+    qh, sc = u8(K // 8, O), scales(K // 32, O)
+    for B in (64, 256):
+        x = acts(B, K)
+        out[f"k9b gate|up B={B}"] = kernel_ms(lambda: qm.q5k_hbit_bf16_gemv(x, qh, sc))
     return {"root": root, "device": torch.cuda.get_device_name(0), "kernel_ms": out}
 
 

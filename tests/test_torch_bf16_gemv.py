@@ -151,7 +151,7 @@ def _jax_hbit(x, qh, scale):
     )(x, qh, scale)
 
 
-@pytest.mark.parametrize("B", (1, 8, 24))
+@pytest.mark.parametrize("B", (1, 8, 24, 40, 200))  # 40, 200: the rows instantiation's
 def test_k9b_plain_matches_pallas_q5k_hbit(B):
     K = 2048
     jl, tl = _pair(GGMLType.Q5_K, O, K, 31 + B)
@@ -213,6 +213,13 @@ ROUTE_CASES = [  # (type, in, rq8 group, rows, int8_act) -> routes taken
     (GGMLType.Q6_K, 1024, 32, 16, False, {"k8": 1}),  # rq8 at group 32
     (GGMLType.Q6_K, 1024, 64, 16, True, {"k2": 1}),
     (GGMLType.Q6_K, 1024, 64, 16, False, {"dequant": 1}),  # no bf16 kernel at group 64
+    # 17-256 rows with int8_act off: the rows instantiations of K9b and K4
+    (GGMLType.Q5_K, 2048, None, 17, False, {"k5": 1, "k9b": 1}),
+    (GGMLType.Q5_K, 2048, None, 64, False, {"k5": 1, "k9b": 1}),
+    (GGMLType.Q5_K, 2048, None, 256, False, {"k5": 1, "k9b": 1}),
+    (GGMLType.Q6_K, 1024, None, 17, False, {"k4": 1}),
+    (GGMLType.Q6_K, 1024, None, 64, False, {"k4": 1}),
+    (GGMLType.Q6_K, 1024, None, 256, False, {"k4": 1}),
 ]
 
 

@@ -208,6 +208,30 @@ def test_q2k_builder_model_serves_through_k10(monkeypatch):
     assert seen == {"k10": {4}, "dequant": 2 * 2}  # q|k and gate|up of 2 layers
 
 
+def test_q5km_bf16_card_vs_cpu_run_takes_k4_and_k9b(monkeypatch):
+    """card_vs_cpu's Q5_K_M run with Q6_K kept and int8_activations=False at
+    a tiny size, the CPU standing in for both sides: the 256-token prefill
+    and the 4 decode steps take K4 and K9b (their plain versions here) at
+    256 rows and at 1, the rows and the 16-row instantiations on the card,
+    and no int8 GEMV."""
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+
+    rows = {}
+    for name in ("q6k_bf16_gemv", "q5k_hbit_bf16_gemv") + chip_smoke.INT8_GEMVS:
+        fn = getattr(qm, f"{name}_plain")
+        monkeypatch.setattr(qm, f"{name}_plain",
+                            lambda x, *a, _n=name, _f=fn, **k: rows.setdefault(_n, set()).add(
+                                x.shape[0]) or _f(x, *a, **k))
+    gen = torch.Generator().manual_seed(5)
+    weights = chip_smoke.random_q5km_params(TINY, 2, torch.device("cpu"), gen, torch.bfloat16)
+    prompt = [int(t) for t in np.random.default_rng(3).integers(1, TINY.vocab, 256)]
+    runs, _ = chip_smoke._token_major_run(chip_smoke.model_config(TINY, 2), weights,
+                                          torch.device("cpu"), prompt, None,
+                                          int8_activations=False)
+    assert runs["cpu"].shape == (5, TINY.vocab) and np.isfinite(runs["cpu"]).all()
+    assert rows == {"q6k_bf16_gemv": {256, 1}, "q5k_hbit_bf16_gemv": {256, 1}}, rows
+
+
 def test_every_kernel_belongs_to_one_path():
     names = [n for path in chip_smoke.PATH_KERNELS.values() for n in path]
     assert sorted(names) == sorted(chip_smoke.KERNEL_INFO) == sorted(chip_smoke.COUNTERS)
@@ -611,13 +635,59 @@ def test_bf16_card_vs_cpu_loads_each_side_from_the_file(tiny_q5km_gguf):
     assert counts["q4k_bf16_gemv"] == 0  # no launch on the CPU
 
 
+class _CallOnce:
+    """A stand-in for chip_smoke.Clock on the CPU: runs fn once, times nothing."""
+
+    def ms(self, fn) -> float:
+        fn()
+        return 0.0
+
+
+@pytest.mark.parametrize("sms,want_splits", [(32, {1, 2, 4}), (132, {2, 4})])
+def test_bf16_kernels_hold_k9b_rows_at_every_gguf_bf16_shape(monkeypatch, sms, want_splits):
+    """bf16_kernels at a tiny size on the CPU (the plain versions on both
+    sides): K9b's rows instantiation is compared at gate|up, q|k, o and
+    down, each row carries the plan's K split, and the phase raises unless
+    one split and several were both compared."""
+    from mistralrs_tpu_torch.ops import kernels
+
+    monkeypatch.setattr(kernels, "sm_count", lambda device: sms)
+    rows = []
+    gen = torch.Generator().manual_seed(0)
+
+    def rand(*shape, lo=0.0, hi=1.0, dtype=torch.float32):
+        return (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dtype)
+
+    def record(name, shape_name, err, rel, tol, *_, **extra):
+        assert rel <= tol, (name, shape_name, rel)
+        rows.append((name, shape_name, extra.get("splits")))
+
+    run = lambda: chip_smoke.bf16_kernels(TINY, torch.device("cpu"), _CallOnce(), gen, rand, record)
+    if 1 not in want_splits:  # every shape split: the phase must refuse
+        with pytest.raises(AssertionError, match="not at one and at several"):
+            run()
+        return
+    run()
+    k9b = {(shape, ks) for name, shape, ks in rows if name == "q5k_hbit_bf16_gemv_rows"}
+    assert {shape.split(" B=")[0] for shape, _ in k9b} == {"gate|up", "qk", "o", "down"}
+    assert {shape for shape, _ in k9b} >= {f"{nm} B={B}" for nm in ("qk", "o", "down")
+                                           for B in (17, 64, 256)}
+    assert {ks for _, ks in k9b} == want_splits
+    # K5 and K8 keep their rows: none at o, none at 17
+    assert not [r for r in rows if r[0] in ("q4k_bf16_gemv", "q8_0_bf16_gemv")
+                and (r[1].startswith("o ") or r[1].endswith("B=17"))]
+
+
 def test_gguf_bf16_path_holds_the_three_kernels():
     assert chip_smoke.PATH_KERNELS["gguf_bf16"] == ("q4k_bf16_gemv", "q8_0_bf16_gemv",
-                                                    "q5k_hbit_bf16_gemv")
-    # 20 kernels, K1, K2, K9 and K10 counted in two instantiations each
-    assert len(chip_smoke.KERNEL_INFO) == 24
+                                                    "q5k_hbit_bf16_gemv", "q5k_hbit_bf16_gemv_rows")
+    # 20 kernels, K1, K2, K9, K10, K4 and K9b counted in two instantiations each
+    assert len(chip_smoke.KERNEL_INFO) == 26
+    # K4's 16-row instantiation: only where Q6_K is kept with bf16 activations
+    assert chip_smoke.PATH_KERNELS["card_vs_cpu_q5km_bf16"] == ("q6k_bf16_gemv",)
     for name, path in (("q4k_q8_gemv", "slice"), ("q8_0_q8_gemv", "slice"),
-                       ("q5k_q8_gemv", "quant_mix"), ("affine_gemv", "q2k")):
+                       ("q5k_q8_gemv", "quant_mix"), ("affine_gemv", "q2k"),
+                       ("q6k_bf16_gemv", "quant_mix"), ("q5k_hbit_bf16_gemv", "gguf_bf16")):
         assert chip_smoke.KERNEL_INFO[f"{name}_rows"] == chip_smoke.KERNEL_INFO[name]
         assert f"{name}_rows" in chip_smoke.PATH_KERNELS[path]
     for name in chip_smoke.PATH_KERNELS["gguf_bf16"]:

@@ -449,14 +449,16 @@ def test_q6k_q8_gemv_matches_plain(dev, B, K, O):
 @pytest.mark.parametrize("K,O", [(512, 256), (4096, 272)])
 def test_q6k_bf16_gemv_matches_plain(dev, B, K, O):
     """K4: the same bf16(q * s16) weights on both sides; f32 sums of bf16
-    products in another order (1e-4 of max |y|)."""
+    products in another order (1e-4 of max |y|). Up to 16 rows its 16-row
+    instantiation, above its rows instantiation."""
     ql, qh, scale, G = _q6k_arrays(dev, K, O, B + K + 1)
     x = _acts(B, K, dev, B + 1).to(torch.bfloat16)
-    before = qm.q6k_bf16_gemv_launches
+    before = (qm.q6k_bf16_gemv_launches, qm.q6k_bf16_gemv_rows_launches)
     got = qm.q6k_bf16_gemv(x, ql, qh, scale, G, out_dtype=torch.float32)
     want = qm.q6k_bf16_gemv_plain(x, ql, qh, scale, G, torch.float32)
     torch.cuda.synchronize()
-    assert qm.q6k_bf16_gemv_launches == before + 1
+    assert (qm.q6k_bf16_gemv_launches - before[0],
+            qm.q6k_bf16_gemv_rows_launches - before[1]) == ((1, 0) if B <= 16 else (0, 1))
     assert _rel_err(got, want) <= 1e-4
 
 
@@ -495,9 +497,9 @@ def test_q56k_dequant_kernels_match_plain_exactly(dev, K, O):
 
 
 def test_q6k_linear_at_prefill_rows_runs_k4(dev):
-    """A gguf_q6k Linear on 2 x 128 rows (G = 128) goes through K4 on the
-    card: no NotImplementedError, no torch.matmul; above 256 rows the
-    dequant route."""
+    """A gguf_q6k Linear on 2 x 128 rows (G = 128) goes through K4's rows
+    instantiation on the card: no NotImplementedError, no torch.matmul;
+    above 256 rows the dequant route."""
     from mistralrs_tpu_torch.quant.gguf_linear import q6k_perm
     from mistralrs_tpu_torch.quant.qlinear import Linear, linear
 
@@ -507,15 +509,133 @@ def test_q6k_linear_at_prefill_rows_runs_k4(dev):
     lin = Linear("gguf_q6k", (K, O), {"ql": ql, "qh": qh, "scale": scale, "perm": perm.to(dev),
                                       "inv_perm": torch.argsort(perm).to(dev)}, meta=G)
     x = _acts(256, K, dev, 4).to(torch.bfloat16).reshape(2, 128, K)
-    k4, deq = qm.q6k_bf16_gemv_launches, qm.q6k_dequant_launches
+    k4, deq = qm.q6k_bf16_gemv_rows_launches, qm.q6k_dequant_launches
     y = linear(lin, x)
     torch.cuda.synchronize()
-    assert qm.q6k_bf16_gemv_launches == k4 + 1 and qm.q6k_dequant_launches == deq
+    assert qm.q6k_bf16_gemv_rows_launches == k4 + 1 and qm.q6k_dequant_launches == deq
     want = qm.q6k_bf16_gemv_plain(x.reshape(256, K), ql, qh, scale, G, torch.float32)
     assert y.shape == (2, 128, O) and _rel_err(y.reshape(256, O).float(), want) <= 1e-2
     y = linear(lin, _acts(257, K, dev, 5).to(torch.bfloat16))
     assert qm.q6k_dequant_launches == deq + 1
     assert y.shape == (257, O) and bool(torch.isfinite(y).all())
+
+
+# K4's rows instantiation (17-256 rows) at the Q5_K_M path's Q6_K shapes
+# (G = 512: v with 8 K splits at 256 rows, down with 2, the lm_head with 1)
+# and at the spans 128 and 256 (two chunks, a column tail)
+K4_ROWS_SHAPES = [(4096, 1024), (14336, 4096), (4096, 32768), (1024, 272), (2048, 256)]
+ROWS_ONLY_B = [17, 65, 129, 200, 256]
+# K9b's rows instantiation at the Q5_K projections (gate|up with one K split
+# at 256 rows, q|k, o and down with more) and a column tail
+K9B_ROWS_SHAPES = [(4096, 28672), (4096, 5120), (4096, 4096), (14336, 4096), (512, 272)]
+
+
+def _q3k_arrays(dev, K, O, seed):
+    """Q3_K's codes (28..35) packed in Q6_K's layout, as pack_q3k does."""
+    from mistralrs_tpu_torch.quant.gguf_linear import q6k_chunk_size
+
+    G = q6k_chunk_size(K)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randint(28, 36, (K, O), generator=g, dtype=torch.uint8)
+    C = K // (4 * G)
+    ln, hb = (q & 0xF).reshape(4, C, G, O), (q >> 4).reshape(4, C, G, O)
+    ql = torch.cat([ln[0] | ln[2] << 4, ln[1] | ln[3] << 4], dim=1).reshape(K // 2, O)
+    qh = (hb[0] | hb[1] << 2 | hb[2] << 4 | hb[3] << 6).reshape(K // 4, O)
+    scale = (torch.rand(K // 16, O, generator=g) * 0.004 + 0.001).to(torch.bfloat16)
+    return ql.to(dev), qh.to(dev), scale.to(dev), G
+
+
+@pytest.mark.parametrize("q3k", [False, True])
+@pytest.mark.parametrize("B", ROWS_ONLY_B)
+@pytest.mark.parametrize("K,O", K4_ROWS_SHAPES)
+def test_q6k_bf16_gemv_rows_matches_plain(dev, K, O, B, q3k):
+    """K4's rows instantiation with one K split and with many, on random
+    Q6_K codes and on Q3_K's (28..35): within 1e-4 of max |y| of the plain
+    version, bit-equal on repeat, bf16 out the f32 out rounded once."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ql, qh, scale, G = (_q3k_arrays if q3k else _q6k_arrays)(dev, K, O, B + K + O)
+    plan = qm.q6k_bf16_plan(B, K, O, G, sms)
+    assert plan.rows in (64, 128)
+    x = _acts(B, K, dev, B + 3).to(torch.bfloat16)
+    before = (qm.q6k_bf16_gemv_launches, qm.q6k_bf16_gemv_rows_launches)
+    got = qm.q6k_bf16_gemv(x, ql, qh, scale, G, out_dtype=torch.float32)
+    again = qm.q6k_bf16_gemv(x, ql, qh, scale, G, out_dtype=torch.float32)
+    y16 = qm.q6k_bf16_gemv(x, ql, qh, scale, G)
+    want = qm.q6k_bf16_gemv_plain(x, ql, qh, scale, G, torch.float32)
+    torch.cuda.synchronize()
+    assert (qm.q6k_bf16_gemv_launches - before[0],
+            qm.q6k_bf16_gemv_rows_launches - before[1]) == (0, 3)
+    assert bool(torch.isfinite(got).all()) and _rel_err(got, want) <= 1e-4, plan
+    assert torch.equal(got, again)
+    assert torch.equal(y16, got.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("K,O", [(1024, 272), (4096, 1024)])
+def test_q6k_rows_decode_is_bit_equal_to_the_plain_weight(dev, K, O):
+    """One-hot rows of x read single weights: with x = e_k the rows kernel's
+    f32 out is bf16(q * s16) - 32 * s16 exactly (both terms exact in f32),
+    the plain version's bit for bit, for every element k of every span and
+    chunk."""
+    ql, qh, scale, G = _q6k_arrays(dev, K, O, K + 1)
+    for k0 in range(0, K, 256):
+        x = torch.zeros(256, K, dtype=torch.bfloat16, device=dev)
+        x[torch.arange(256), k0 + torch.arange(256)] = 1.0
+        got = qm.q6k_bf16_gemv(x, ql, qh, scale, G, out_dtype=torch.float32)
+        want = qm.q6k_bf16_gemv_plain(x, ql, qh, scale, G, torch.float32)
+        assert torch.equal(got, want), k0
+
+
+@pytest.mark.parametrize("B", ROWS_ONLY_B)
+@pytest.mark.parametrize("K,O", K9B_ROWS_SHAPES)
+def test_q5k_hbit_bf16_gemv_rows_matches_plain(dev, K, O, B):
+    """K9b's rows instantiation (no zs term) with one K split and with
+    many: within 1e-4 of max |y| of the plain version (the weights s or 0
+    are exact), bit-equal on repeat, bf16 out the f32 out rounded once."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, qh, scale, _ = _q5k_arrays(dev, K, O, B + K + O)
+    plan = qm.q5k_hbit_bf16_plan(B, K, O, sms)
+    assert plan.rows in (64, 128)
+    x = _acts(B, K, dev, B + 4).to(torch.bfloat16)
+    before = (qm.q5k_hbit_bf16_gemv_launches, qm.q5k_hbit_bf16_gemv_rows_launches)
+    got = qm.q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=torch.float32)
+    again = qm.q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=torch.float32)
+    y16 = qm.q5k_hbit_bf16_gemv(x, qh, scale)
+    want = qm.q5k_hbit_bf16_gemv_plain(x, qh, scale, torch.float32)
+    torch.cuda.synchronize()
+    assert (qm.q5k_hbit_bf16_gemv_launches - before[0],
+            qm.q5k_hbit_bf16_gemv_rows_launches - before[1]) == (0, 3)
+    assert bool(torch.isfinite(got).all()) and _rel_err(got, want) <= 1e-4, plan
+    assert torch.equal(got, again)
+    assert torch.equal(y16, got.to(torch.bfloat16))
+
+
+def test_k4_k9b_rows_count_apart(dev):
+    """At 16 rows K4 and K9b launch their 16-row instantiations, at 17 their
+    rows instantiations, each counted apart; the Q5_K bf16 route at 64 rows
+    launches K5 and K9b's rows instantiation."""
+    from mistralrs_tpu_torch.quant.qlinear import Linear
+
+    K, O = 1024, 256
+    ql, qh6, s6, G = _q6k_arrays(dev, K, O, 1)
+    qs, qh5, s5, m5 = _q5k_arrays(dev, K, O, 2)
+
+    def counts():
+        return [getattr(qm, f"{n}{r}_launches") for n in ("q6k_bf16_gemv", "q5k_hbit_bf16_gemv")
+                for r in ("", "_rows")]
+
+    for B, want in ((16, [1, 0, 1, 0]), (17, [0, 1, 0, 1])):
+        x = _acts(B, K, dev, B).to(torch.bfloat16)
+        before = counts()
+        qm.q6k_bf16_gemv(x, ql, qh6, s6, G)
+        qm.q5k_hbit_bf16_gemv(x, qh5, s5)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(counts(), before)] == want, B
+    lin = Linear("gguf_q5k", (K, O), {"qs": qs, "qh": qh5, "scale": s5, "minv": m5},
+                 int8_act=False)
+    before = counts() + [qm.q4k_bf16_gemv_launches, qm.q5k_q8_gemv_rows_launches]
+    qm.q5k_matmul(lin, _acts(64, K, dev, 3).to(torch.bfloat16))
+    after = counts() + [qm.q4k_bf16_gemv_launches, qm.q5k_q8_gemv_rows_launches]
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 1, 1, 0]
 
 
 def _affine_arrays(dev, bits, group, K, O, seed):
@@ -1147,14 +1267,16 @@ def test_q4k_bf16_gemv_matches_plain(dev, B, K, O):
 @pytest.mark.parametrize("B", BF16_ROWS)
 @pytest.mark.parametrize("K,O", MISTRAL_SHAPES + [(512, 272)])
 def test_q5k_hbit_bf16_gemv_matches_plain(dev, B, K, O):
-    """K9b: the same bf16(scale) * bit weights (exact) on both sides."""
+    """K9b: the same bf16(scale) * bit weights (exact) on both sides. Up to
+    16 rows its 16-row instantiation, above its rows instantiation."""
     _, qh, scale, _ = _q5k_arrays(dev, K, O, B + K + 1)
     x = _acts(B, K, dev, B + 1).to(torch.bfloat16)
-    before = qm.q5k_hbit_bf16_gemv_launches
+    before = (qm.q5k_hbit_bf16_gemv_launches, qm.q5k_hbit_bf16_gemv_rows_launches)
     got = qm.q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=torch.float32)
     want = qm.q5k_hbit_bf16_gemv_plain(x, qh, scale, torch.float32)
     torch.cuda.synchronize()
-    assert qm.q5k_hbit_bf16_gemv_launches == before + 1
+    assert (qm.q5k_hbit_bf16_gemv_launches - before[0],
+            qm.q5k_hbit_bf16_gemv_rows_launches - before[1]) == ((1, 0) if B <= 16 else (0, 1))
     assert bool(torch.isfinite(got).all())
     assert _rel_err(got, want) <= 1e-4
 
@@ -1198,8 +1320,8 @@ def test_gguf_pipeline_decodes_on_the_bf16_route(dev, tmp_path):
     """A 2-layer Mistral GGUF at hidden 1024 in the Q5_K_M rule (random wire
     blocks, chip_smoke.write_random_gguf), loaded by load_gguf_model and
     served with int8_activations=False: a 40-token prefill and 8 greedy
-    decode steps take K5, K9b and K8 and no int8 GEMV; tokens are in the
-    vocabulary and logits finite."""
+    decode steps take K5, K9b (both instantiations) and K8 and no int8
+    GEMV; tokens are in the vocabulary and logits finite."""
     import numpy as np
 
     import chip_smoke
@@ -1217,8 +1339,8 @@ def test_gguf_pipeline_decodes_on_the_bf16_route(dev, tmp_path):
         num_pages=64, max_seqs=4, max_model_len=512, prefill_buckets=(64,), decode_steps=4,
         int8_activations=False))
     eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
-    names = ("q4k_bf16_gemv", "q5k_hbit_bf16_gemv", "q8_0_bf16_gemv", "q4k_q8_gemv",
-             "q8_0_q8_gemv", "q5k_q8_gemv", "q6k_q8_gemv", "q5k_q8_gemv_rows")
+    names = ("q4k_bf16_gemv", "q5k_hbit_bf16_gemv", "q8_0_bf16_gemv", "q5k_hbit_bf16_gemv_rows",
+             "q4k_q8_gemv", "q8_0_q8_gemv", "q5k_q8_gemv", "q6k_q8_gemv", "q5k_q8_gemv_rows")
     before = {n: getattr(qm, f"{n}_launches") for n in names}
     rng = np.random.default_rng(0)
     group = eng.add_request(GenerationRequest([int(t) for t in rng.integers(1, 2048, 40)],
@@ -1227,7 +1349,7 @@ def test_gguf_pipeline_decodes_on_the_bf16_route(dev, tmp_path):
         eng.step()
     torch.cuda.synchronize()
     ran = {n: getattr(qm, f"{n}_launches") - before[n] for n in names}
-    assert all(ran[n] > 0 for n in names[:3]) and not any(ran[n] for n in names[3:]), ran
+    assert all(ran[n] > 0 for n in names[:4]) and not any(ran[n] for n in names[4:]), ran
     (seq,) = group.seqs
     assert seq.num_generated == 8 and all(0 <= t < 2048 for t in seq.generated_tokens)
     assert np.isfinite(pipe.last_greedy_pack).all()

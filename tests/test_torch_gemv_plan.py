@@ -228,15 +228,17 @@ def test_q5k_rows_split_covers_every_pair_once():
 PLANE_SHAPES = [("qk", 4096, 5120), ("gate|up", 4096, 28672), ("down", 14336, 4096)]
 
 
-def plane_stage_bytes(bits, rows):
+def plane_stage_bytes(bits, rows, codes_in_tile=False):
     """sizeof(PlaneRowStage) of csrc/plane_gemv.cuh written out again: x's
     chunk tiles (rows x the step's elements, bf16), the decoded bf16 tile
     (the step's elements x 128 columns), the byte rows, the scale rows (the
     planes, or a row a 16 elements), rounded up to the struct's 1 KB
-    alignment."""
+    alignment. codes_in_tile: sizeof(Q6kRowStage), whose ql and qh bytes
+    wait in the last 6 KB of the decoded tile (no byte rows of its own)."""
     per = 8 // bits
     elems = 32 if bits == 8 else 64
-    size = rows * elems * 2 + elems * 128 * 2 + elems // per * 128 + max(per, elems // 16) * 256
+    size = (rows * elems * 2 + elems * 128 * 2 + (0 if codes_in_tile else elems // per * 128)
+            + max(per, elems // 16) * 256)
     return -(-size // 1024) * 1024
 
 
@@ -287,3 +289,93 @@ def test_plane_rows_take_and_the_row_rule():
     assert not qm.plane_rows_take(14336, 8, 14336)  # per-channel at Mistral's down width
     assert qm.plane_gemv_plan(16, 4096, 28672, 2, 16, 132).rows == 16
     assert qm.plane_gemv_plan(17, 4096, 28672, 2, 16, 132).rows == 64
+
+
+# K4 (q6k_bf16_gemv) at the Q5_K_M path's Q6_K projections: v, the
+# use_more_bits down, the padded lm_head
+Q6K_SHAPES = [("v", 4096, 1024), ("down", 14336, 4096), ("lm_head", 4096, 32768)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("G", [128, 512])
+def test_q6k_bf16_plan(G, sms):
+    """K4: its 16-row instantiation up to 16 rows (grid (column tiles, K
+    splits, 1), the split over 128-element steps at 64-row blocks, the
+    row-major workspace with the per-16 sums); above, the rows kernel on
+    K10's 2-bit grid (K split at slices of 128 r, only to fill one wave,
+    none empty), Q6_K's ring stages (9 at 64 rows, 6 at 128) and carve's
+    tiled workspace: the per-16 sums, x's copy in step order, the partials
+    with more than one split."""
+    for name, K, O in Q6K_SHAPES:
+        assert qm.q6k_rows_take(K, G), (name, G)
+        slices = K // 4 // 128
+        for B in range(1, 257):
+            plan = qm.q6k_bf16_plan(B, K, O, G, sms)
+            ks = plan.ksplit
+            if B <= 16:
+                assert plan.rows == 16 and plan.grid == (-(-O // 128), ks, 1), (B, plan)
+                assert ks == qm._ksplit_for(O, B, K // 128, sms, rows=64), (B, plan)
+                assert (plan.cluster, plan.cols, plan.stages) == (1, 128, 0), (B, plan)
+                assert plan.ws_bytes == carve_row_major(B, K, O, 0, 16, ks), (B, plan)
+                continue
+            check_rows_grid(B, O, sms, plan)
+            per_split = -(-slices // ks)
+            assert (ks - 1) * per_split < slices <= ks * per_split, (B, plan)
+            stage = plane_stage_bytes(2, plan.rows, codes_in_tile=True)
+            assert plan.stages == min(12, (226 * 1024 - 1024) // stage) // 3 * 3, (B, plan)
+            assert plan.stages == (9 if plan.rows == 64 else 6), (B, plan)
+            bpad, pieces, total = carve(B, K, O, 0, 16, ks, plan.rows, xcopy=True)
+            assert plan.grid[0] * plan.rows <= bpad, (B, plan)
+            assert pieces["xsum"] == (0, (K // 16) * bpad * 4)
+            assert pieces["xc"][1] == bpad * K * 2
+            assert ("part" in pieces) == (ks > 1) and plan.ws_bytes == total, (B, plan)
+
+
+def test_q6k_bf16_plan_splits_k_to_fill_a_wave():
+    """attn_v's 8 column tiles and down's 32 leave SMs idle without a K
+    split; the lm_head's 256 fill the card without one."""
+    assert qm.q6k_bf16_plan(256, 4096, 1024, 512, 132).grid == (2, 8, 8)
+    assert qm.q6k_bf16_plan(64, 4096, 1024, 512, 132).grid == (1, 8, 8)
+    assert qm.q6k_bf16_plan(256, 14336, 4096, 512, 132).grid == (2, 32, 2)
+    assert qm.q6k_bf16_plan(64, 14336, 4096, 512, 132).grid == (1, 32, 4)
+    assert qm.q6k_bf16_plan(256, 4096, 32768, 512, 132).grid == (2, 256, 1)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_q5k_hbit_bf16_plan(sms):
+    """K9b: its 16-row kernel up to 16 rows (grid (column tiles, K splits,
+    1), the split over 256-element steps, the row-major workspace with
+    only the partials); above, the rows kernel at one bit without the zs
+    term: K split at 4 main steps (K/256 units), only to fill one wave and
+    none empty, the ring stages of the 1-bit stage, and a tiled workspace
+    with x's copy in step order but no sums."""
+    for name, K, O in Q5K_SHAPES:
+        units = K // 256
+        for B in range(1, 257):
+            plan = qm.q5k_hbit_bf16_plan(B, K, O, sms)
+            ks = plan.ksplit
+            assert 1 <= ks <= units, (B, plan)
+            if B <= 16:
+                assert plan.rows == 16 and plan.grid == (-(-O // 128), ks, 1), (B, plan)
+                assert ks == qm._ksplit_for(O, B, units, sms), (B, plan)
+                assert (plan.cluster, plan.cols, plan.stages) == (1, 128, 0), (B, plan)
+                assert plan.ws_bytes == carve_row_major(B, K, O, 0, 0, ks), (B, plan)
+                continue
+            assert plan == qm.plane_gemv_plan(B, K, O, 1, 32, sms, zs=False)
+            check_rows_grid(B, O, sms, plan)
+            per_split = -(-units // ks)
+            assert (ks - 1) * per_split < units <= ks * per_split, (B, plan)
+            stage = plane_stage_bytes(1, plan.rows)
+            assert plan.stages == min(12, (226 * 1024 - 1024) // stage) // 3 * 3 == 6, (B, plan)
+            bpad, pieces, total = carve(B, K, O, 0, 0, ks, plan.rows, xcopy=True)
+            assert "xsum" not in pieces and pieces["xc"] == (0, bpad * K * 2)
+            assert ("part" in pieces) == (ks > 1) and plan.ws_bytes == total, (B, plan)
+
+
+def test_plane_slice_steps_without_the_zs_term():
+    """Without the zs term (K9b) a K split's unit is 4 main steps at every
+    width and group."""
+    for bits in (1, 2, 4, 8):
+        for group in (16, 32, 64, 128):
+            assert qm.plane_slice_steps(bits, group, zs=False) == 4
+    assert qm.plane_slice_steps(1, 32) == 16 and qm.plane_slice_steps(2, 16) == 8

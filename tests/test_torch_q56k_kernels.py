@@ -64,12 +64,8 @@ def test_k3_plain_matches_pallas_q6k_q8(B, K):
     _close(got.numpy(), want)
 
 
-@pytest.mark.parametrize("K,natural", [(2048, True), (512, False)])
-def test_k4_plain_matches_pallas_q6k(K, natural):
-    """Natural element order at G = 512; at G = 128 the JAX kernel's legacy
-    contract takes x gathered by perm (on the JAX side only: the port reads
-    x in element order at every G)."""
-    O, B = 256, 24
+def _k4_against_pallas(K, natural, B):
+    O = 256
     jl, tl = _pair(GGMLType.Q6_K, O, K, K)
     G = tl.meta
     assert G == (512 if natural else 128)
@@ -82,6 +78,22 @@ def test_k4_plain_matches_pallas_q6k(K, natural):
     got = tqm.q6k_bf16_gemv(torch.from_numpy(x), tl.data["ql"], tl.data["qh"], tl.data["scale"],
                             G, out_dtype=torch.float32)
     _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("K,natural", [(2048, True), (512, False)])
+def test_k4_plain_matches_pallas_q6k(K, natural):
+    """Natural element order at G = 512; at G = 128 the JAX kernel's legacy
+    contract takes x gathered by perm (on the JAX side only: the port reads
+    x in element order at every G)."""
+    _k4_against_pallas(K, natural, 24)
+
+
+@pytest.mark.parametrize("B", [40, 200])  # the rows instantiation's row counts
+@pytest.mark.parametrize("K,natural", [(2048, True), (512, False)])
+def test_k4_plain_matches_pallas_q6k_at_prefill_rows(K, natural, B):
+    """The same at the row counts of K4's rows instantiation (one row tile
+    of 64, two of 128)."""
+    _k4_against_pallas(K, natural, B)
 
 
 @pytest.mark.parametrize("B", [8, 40, 200])  # 40, 200: the rows instantiation's row counts
@@ -134,6 +146,18 @@ def test_q5k_routes_by_rows(routes, rows, want):
     _, tl = _pair(GGMLType.Q5_K, 64, 512, 1)
     tqm.q5k_matmul(tl, torch.from_numpy(_x(rows, 512, 2)))
     assert routes == {"k3": 0, "k4": 0, "k9": 0, "dequant": 0, want: 1}
+
+
+@pytest.mark.parametrize("rows", [17, 64, 256])
+@pytest.mark.parametrize("gtype", [GGMLType.Q6_K, GGMLType.Q3_K], ids=lambda t: t.name)
+def test_q6k_layout_takes_k4_at_prefill_rows(routes, gtype, rows):
+    """Q6_K and Q3_K (packed in Q6_K's layout, G = 256 at K = 1024) take
+    K4 at 17-256 rows, where its rows instantiation runs on the card."""
+    _, tl = _pair(gtype, 64, 1024, rows)
+    assert tl.kind == "gguf_q6k" and tl.meta == 256 and tl.int8_act
+    y = tqm.q6k_matmul(tl, torch.from_numpy(_x(rows, 1024, 3)))
+    assert tuple(y.shape) == (rows, 64) and bool(torch.isfinite(y).all())
+    assert routes == {"k3": 0, "k4": 1, "k9": 0, "dequant": 0}
 
 
 def test_q6k_below_chunk_span_128_dequantizes(routes):

@@ -115,8 +115,8 @@ non-zero and never prints the final line):
    PipelineConfig(int8_activations=False) in the slice phase's pattern: K5
    and K9b for every Q5_K projection and K8 for the requantized Q6_K ones up
    to 256 rows, the Q5_K and int8 dequant kernels above, K6. It raises
-   unless K5, both instantiations of K9b, K8 and K6 launched and no int8
-   GEMV (K1, K2, K3, K9) did;
+   unless both instantiations of K5, K9b and K8, and K6 launched and no
+   int8 GEMV (K1, K2, K3, K9) did;
    its line gives the write, read, embedding-dequant and load times apart.
 17. card_vs_cpu_bf16: phase 9's comparison with int8_activations=False for
    2-layer full-width GGUF files in the Q4_K_M rule (K5, K8) and the Q5_K_M
@@ -124,8 +124,8 @@ non-zero and never prints the final line):
    as a control, the same files with int8 activations (K1, K9, K2).
 The kernel phase also holds K5, K9b and K8 against their plain versions at
 the gguf_bf16 path's shapes (gate|up at 1, 16, 17, 64, 128 and 256 rows;
-q|k, down;
-K8 also at the lm_head on rq8 and wire Q8_0 scales), K12 against its plain
+q|k, o, down; K5's and K8's rows instantiations at 17, 64 and 256 rows;
+K8 also at v and the lm_head on rq8 and wire Q8_0 scales), K12 against its plain
 version (decode at Mistral-7B's and Gemma-2-9B's widths, 4 x 512 continuation chunks, a mixed
 batch of a decode row, a first chunk and a continuation with fewer live
 sequences than slots), and K13 at Mixtral's gate and down for a decode
@@ -213,6 +213,11 @@ KERNEL_INFO = {
                            "mistralrs_tpu/ops/quant_matmul.py:658"),
     "q5k_hbit_bf16_gemv_rows": ("mistralrs_tpu_torch/csrc/q5k_hbit_bf16_gemv.cu",
                                 "mistralrs_tpu/ops/quant_matmul.py:658"),
+    # K5's and K8's rows instantiations (17-256 rows), counted apart
+    "q4k_bf16_gemv_rows": ("mistralrs_tpu_torch/csrc/q4k_bf16_gemv.cu",
+                           "mistralrs_tpu/ops/quant_matmul.py:67"),
+    "q8_0_bf16_gemv_rows": ("mistralrs_tpu_torch/csrc/q8_0_bf16_gemv.cu",
+                            "mistralrs_tpu/ops/quant_matmul.py:1197"),
 }
 # the shape whose numbers stand in the kernels line
 HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
@@ -227,7 +232,8 @@ HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
             "affine_dequant": "gate|up q2k", "splash_prefill": "gemma2-9b B=4 T=512",
             "ragged_attention": "mistral B=16 kv=4096 decode", "grouped_gemm": "gate M=32 decode",
             "q4k_bf16_gemv": "gate|up B=16", "q8_0_bf16_gemv": "lm_head B=16",
-            "q5k_hbit_bf16_gemv": "gate|up B=16", "q5k_hbit_bf16_gemv_rows": "gate|up B=256"}
+            "q5k_hbit_bf16_gemv": "gate|up B=16", "q5k_hbit_bf16_gemv_rows": "gate|up B=256",
+            "q4k_bf16_gemv_rows": "gate|up B=256", "q8_0_bf16_gemv_rows": "lm_head B=256"}
 # the kernels each serving phase's path adds (long_context also runs the
 # slice path's, quant_mix also flash_prefill, q2k also the slice path's,
 # gemma2 also q4k_q8_gemv and q4k_dequant, and paged_decode in
@@ -248,7 +254,7 @@ PATH_KERNELS = {
     "gemma2_ragged": ("ragged_attention",),
     "mixtral": ("grouped_gemm",),
     "gguf_bf16": ("q4k_bf16_gemv", "q8_0_bf16_gemv", "q5k_hbit_bf16_gemv",
-                  "q5k_hbit_bf16_gemv_rows"),
+                  "q5k_hbit_bf16_gemv_rows", "q4k_bf16_gemv_rows", "q8_0_bf16_gemv_rows"),
     "card_vs_cpu_q5km_bf16": ("q6k_bf16_gemv",),
 }
 # each kernel's launch counter: (module under mistralrs_tpu_torch.ops, name)
@@ -279,6 +285,8 @@ COUNTERS = {
     "q8_0_bf16_gemv": ("quant_matmul", "q8_0_bf16_gemv_launches"),
     "q5k_hbit_bf16_gemv": ("quant_matmul", "q5k_hbit_bf16_gemv_launches"),
     "q5k_hbit_bf16_gemv_rows": ("quant_matmul", "q5k_hbit_bf16_gemv_rows_launches"),
+    "q4k_bf16_gemv_rows": ("quant_matmul", "q4k_bf16_gemv_rows_launches"),
+    "q8_0_bf16_gemv_rows": ("quant_matmul", "q8_0_bf16_gemv_rows_launches"),
 }
 
 
@@ -815,9 +823,9 @@ def gemv_decode_line(results: dict, per_call: dict) -> dict:
 
 
 def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
-    """Parity and timing of K1, K2 (both instantiations of each), K3, K4,
-    K9, K10, K6, the dequant kernels, K6', K7 and K11 at the main paths'
-    shapes."""
+    """Parity and timing of K1, K2, K4, K9, K10, K5, K8 and K9b (both
+    instantiations of each), K3, K6, the dequant kernels, K6', K7, K11, K12
+    and K13 at the main paths' shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -929,6 +937,7 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
     q56k_kernels(sz, device, clock, *inputs("q56k"), record)
     affine_kernels(sz, device, clock, *inputs("affine"), record)
     bf16_kernels(sz, device, clock, *inputs("bf16"), record)
+    bf16_rows_kernels(sz, device, clock, inputs("k5_rows"), inputs("k8_rows"), record)
 
     # K6: first prefill chunks
     gen, _ = inputs("flash")
@@ -1123,19 +1132,22 @@ def affine_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
 
 
 def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
-    """Parity and timing of K5, K9b (both instantiations) and K8, the GEMVs
-    of int8_activations=False, at the shapes of the gguf_bf16 path: K5 at
-    gate|up at 1, 16, 64 and 256 rows, q|k and down at 16; K9b at gate|up
-    at 1, 16, 17, 64, 128 and 256 rows, at q|k and down at 16, 17, 64 and
-    256 and at o at 17, 64 and 256 (the rows instantiation's K splits:
-    one at gate|up, several at the others; `splits` on each row, and the
-    phase raises unless both were compared); K8 on rq8 weights (f32 scales
-    per 32) at K5's shapes and at the lm_head (32768 columns) at 1, 16, 64
-    and 256, and once on wire Q8_0 (bf16 scales). Random codes, scale
-    U[0.001, 0.005), minv U[0, 0.002) (int8: U[1e-4, 4e-4)). library =
-    torch.matmul on the dequantized bf16 weight; int8_ms = the int8
-    route's kernel (K1, K9, K2) on the same weight and x; K9b's rows also
-    time the whole Q5_K bf16 route (K5, K9b and the add: route_ms)."""
+    """Parity and timing of K5's and K8's 16-row instantiations and of K9b
+    (both instantiations), the GEMVs of int8_activations=False, at the
+    shapes of the gguf_bf16 path: K5 at gate|up at 1 and 16 rows, q|k and
+    down at 16; K9b at gate|up at 1, 16, 17, 64, 128 and 256 rows, at q|k
+    and down at 16, 17, 64 and 256 and at o at 17, 64 and 256 (the rows
+    instantiation's K splits: one at gate|up, several at the others;
+    `splits` on each row, and the phase raises unless both were compared);
+    K8 on rq8 weights (f32 scales per 32) at K5's shapes and at the lm_head
+    (32768 columns) at 1 and 16, and once on wire Q8_0 (bf16 scales). (The
+    row counts above 16 that K5 and K8 were timed at here before their rows
+    instantiations, bf16_rows_kernels', still draw their x, so the other
+    rows' inputs stay as they were.) Random codes, scale U[0.001, 0.005),
+    minv U[0, 0.002) (int8: U[1e-4, 4e-4)). library = torch.matmul on the
+    dequantized bf16 weight; int8_ms = the int8 route's kernel (K1, K9, K2)
+    on the same weight and x; K9b's rows also time the whole Q5_K bf16
+    route (K5, K9b and the add: route_ms)."""
     import torch
 
     from mistralrs_tpu_torch.ops import kernels
@@ -1152,7 +1164,7 @@ def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
 
     sms = kernels.sm_count(device)
     # (shape, K, O, K5's rows, K9b's rows)
-    shapes = [("gate|up", H, 2 * I, (1, 16, 64, 256), K9_ROWS),
+    shapes = [("gate|up", H, 2 * I, (1, 16), K9_ROWS),
               ("qk", H, (sz.heads + sz.kv_heads) * D, (16,), (16, 17, 64, 256)),
               ("o", sz.heads * D, H, (), (17, 64, 256)),
               ("down", I, H, (16,), (16, 17, 64, 256))]
@@ -1203,15 +1215,19 @@ def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
                              "not at one and at several")
 
     # (shape, K, O, rows, scale dtype): rq8's f32 scales, wire Q8_0's bf16
-    q8_shapes = [(nm, K, O, rows, torch.float32) for nm, K, O, rows, _ in shapes if rows] + [
-        ("lm_head", H, vocab_pad, (1, 16, 64, 256), torch.float32),
-        ("lm_head wire", H, vocab_pad, (16,), fdt)]
+    q8_shapes = [("gate|up", H, 2 * I, (1, 16, 64, 256), torch.float32),
+                 ("qk", H, (sz.heads + sz.kv_heads) * D, (16,), torch.float32),
+                 ("down", I, H, (16,), torch.float32),
+                 ("lm_head", H, vocab_pad, (1, 16, 64, 256), torch.float32),
+                 ("lm_head wire", H, vocab_pad, (16,), fdt)]
     for nm, K, O, rows, sdt in q8_shapes:
         q = rand(K, O, lo=-127.0, hi=128.0).floor().to(torch.int8)
         s = rand(K // 32, O, lo=1e-4, hi=4e-4, dtype=sdt)
         w8 = qm.q8_0_dequant(q, s, 32, fdt)
         for B in rows:
             x = torch.randn(B, K, device=device, generator=gen).to(fdt)
+            if B > 16:  # the rows instantiation: bf16_rows_kernels
+                continue
             # the same bf16(q * bf16(s)) weights on both sides
             err, rel = compare(qm.q8_0_bf16_gemv(x, q, s, out_dtype=torch.float32),
                                qm.q8_0_bf16_gemv_plain(x, q, s, torch.float32))
@@ -1223,6 +1239,95 @@ def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
                          2 * B * K * O, PEAK_BF16),
                    int8_ms=clock.ms(lambda: qm.q8_0_q8_gemv(x, q, s, 32, out_dtype=fdt)))
         del q, s, w8
+
+
+# the row counts K5's and K8's rows instantiations are compared and timed at
+BF16_ROWS_B = (17, 64, 256)
+
+
+def bf16_rows_kernels(sz: Sizes, device, clock: Clock, k5_inputs, k8_inputs, record) -> None:
+    """Parity and timing of K5's and K8's rows instantiations, each on a
+    generator of its own (k5_inputs, k8_inputs: (gen, rand)): K5 at the
+    Q4_K / Q5_K projections (gate|up, q|k, o, down) at 17, 64 and 256
+    rows; K8 on rq8 weights (f32 scales) at v, the use_more_bits down and
+    the lm_head at 17, 64 and 256 rows, and on wire Q8_0 (bf16 scales) at
+    the lm_head at 64. `splits` on each row; the phase raises unless each
+    kernel was compared at one K split and at several. Value ranges, library
+    and int8_ms as bf16_kernels'; bound = 2*B*K*O bf16 operations (the
+    function's: K5's rows kernel does twice that on the tensor cores, its
+    weight's hi and lo parts)."""
+    import torch
+
+    from mistralrs_tpu_torch.ops import kernels
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+
+    H, I, D = sz.hidden, sz.inter, sz.head_dim
+    fdt = torch.bfloat16
+    vocab_pad = -(-sz.vocab // 2048) * 2048
+    sms = kernels.sm_count(device)
+
+    def compare(got, want):
+        err = float((got.float() - want.float()).abs().max())
+        return err, err / max(float(want.float().abs().max()), 1e-30)
+
+    def check_splits(name, splits):
+        if not (1 in splits and max(splits) > 1):
+            raise AssertionError(f"{name}: compared at K splits {sorted(splits)}, "
+                                 "not at one and at several")
+
+    gen, rand = k5_inputs
+    splits = set()
+    for nm, K, O in [("gate|up", H, 2 * I), ("qk", H, (sz.heads + sz.kv_heads) * D),
+                     ("o", sz.heads * D, H), ("down", I, H)]:
+        qs = rand(K // 2, O, lo=0.0, hi=256.0).to(torch.uint8)
+        scale = rand(K // 32, O, lo=0.001, hi=0.005, dtype=fdt)
+        minv = rand(K // 32, O, lo=0.0, hi=0.002, dtype=fdt)
+        w4 = qm.q4k_dequant(qs, scale, minv, fdt)
+        for B in BF16_ROWS_B:
+            x = torch.randn(B, K, device=device, generator=gen).to(fdt)
+            ks = qm.q4k_bf16_plan(B, K, O, sms).ksplit
+            splits.add(ks)
+            # the same bf16 x, exact nibbles and exact q * s on both sides;
+            # f32 sums of exact products in another order
+            err, rel = compare(qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=torch.float32),
+                               qm.q4k_bf16_gemv_plain(x, qs, scale, minv, torch.float32))
+            record("q4k_bf16_gemv_rows", f"{nm} B={B}", err, rel, 1e-4,
+                   clock.ms(lambda: qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=fdt)),
+                   clock.ms(lambda: qm.q4k_bf16_gemv_plain(x, qs, scale, minv, fdt)),
+                   clock.ms(lambda: torch.matmul(x, w4)),
+                   bound(B * K * 2 + K // 2 * O + 2 * (K // 32) * O * 2 + B * O * 2,
+                         2 * B * K * O, PEAK_BF16),
+                   splits=ks,
+                   int8_ms=clock.ms(lambda: qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=fdt)))
+        del qs, scale, minv, w4
+    check_splits("q4k_bf16_gemv_rows", splits)
+
+    gen, rand = k8_inputs
+    splits = set()
+    for nm, K, O, rows, sdt in [("v", H, sz.kv_heads * D, BF16_ROWS_B, torch.float32),
+                                ("down", I, H, BF16_ROWS_B, torch.float32),
+                                ("lm_head", H, vocab_pad, BF16_ROWS_B, torch.float32),
+                                ("lm_head wire", H, vocab_pad, (64,), fdt)]:
+        q = rand(K, O, lo=-127.0, hi=128.0).floor().to(torch.int8)
+        s = rand(K // 32, O, lo=1e-4, hi=4e-4, dtype=sdt)
+        w8 = qm.q8_0_dequant(q, s, 32, fdt)
+        for B in rows:
+            x = torch.randn(B, K, device=device, generator=gen).to(fdt)
+            ks = qm.q8_0_bf16_plan(B, K, O, sdt == torch.float32, sms).ksplit
+            splits.add(ks)
+            # the same bf16(q * bf16(s)) weights on both sides
+            err, rel = compare(qm.q8_0_bf16_gemv(x, q, s, out_dtype=torch.float32),
+                               qm.q8_0_bf16_gemv_plain(x, q, s, torch.float32))
+            record("q8_0_bf16_gemv_rows", f"{nm} B={B}", err, rel, 1e-4,
+                   clock.ms(lambda: qm.q8_0_bf16_gemv(x, q, s, out_dtype=fdt)),
+                   clock.ms(lambda: qm.q8_0_bf16_gemv_plain(x, q, s, fdt)),
+                   clock.ms(lambda: torch.matmul(x, w8)),
+                   bound(B * K * 2 + K * O + (K // 32) * O * s.element_size() + B * O * 2,
+                         2 * B * K * O, PEAK_BF16),
+                   splits=ks,
+                   int8_ms=clock.ms(lambda: qm.q8_0_q8_gemv(x, q, s, 32, out_dtype=fdt)))
+        del q, s, w8
+    check_splits("q8_0_bf16_gemv_rows", splits)
 
 
 def paged_inputs(sz: Sizes, device, gen, B: int, T: int, kv_len: int, head_major: bool):
@@ -1856,8 +1961,8 @@ def gguf_bf16_phase(sz: Sizes, device) -> dict:
     for every Q5_K projection, K8 for the requantized Q6_K ones (attn_v, the
     use_more_bits ffn_down, the lm_head) up to 256 rows, the Q5_K and int8
     dequant kernels above, K6 for the first chunks. It raises unless K5,
-    K9b (its rows instantiation on the 4 x 64-row step, its 16-row one at
-    decode), K8 and K6 launched and no int8 GEMV did. The line gives the
+    K9b and K8 (their rows instantiations on the 4 x 64-row step, their
+    16-row ones at decode) and K6 launched and no int8 GEMV did. The line gives the
     write, read (the header), load (load_gguf_model) and pack (the load
     but its header read: the layers packed and copied to the card in
     load_gguf_model's threads, the embedding dequantized beside them) times,

@@ -53,7 +53,7 @@ int affine_bits(const __nv_bfloat16* x, const mrt::Workspace& w, const uint8_t* 
   // the rows kernel: a group inside a plane and a power of two, and no
   // empty K split
   const int Kp = K / G::kPer;
-  const int Z = mrt::plane_slice_steps<BITS, true>(group);
+  const int Z = mrt::plane_slice_steps<G, true>(group);
   const int nslices = (Kp / G::kR + Z - 1) / Z;
   if (Kp % group != 0 || (group & (group - 1)) != 0 || (int)grid.z > nslices)
     return (int)cudaErrorInvalidValue;

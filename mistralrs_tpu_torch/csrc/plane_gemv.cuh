@@ -1,12 +1,14 @@
 // The plane-major GEMV with the weight rounded to bf16 before the product,
 //   y[b, o] = sum_k x[b, k] * bf16(code[k, o] * s[g(k), o])      (bf16 MMA, f32 sums)
 //           - sum_16 xsum16[b, .] * zs[g(.), o]                   (f32, when ZS)
-// shared by four kernels: K10 (csrc/affine_gemv.cu: unsigned codes of 1, 2,
+// shared by five kernels: K10 (csrc/affine_gemv.cu: unsigned codes of 1, 2,
 // 4 or 8 bits, bf16 scale and zs), K8 (csrc/q8_0_bf16_gemv.cu: signed 8-bit
 // codes, a bf16 or f32 scale per 32, no zs), K9b
 // (csrc/q5k_hbit_bf16_gemv.cu: the 1-bit high-bit planes of Q5_K, a bf16
 // scale per 32, no zs) and, at 17-256 rows, K4 (csrc/q6k_gemv.cu: Q6_K's
-// 6-bit codes from two byte arrays, a bf16 scale per 16, zs = 32 * scale).
+// 6-bit codes from two byte arrays, a bf16 scale per 16, zs = 32 * scale)
+// and K5 (csrc/q4k_bf16_gemv.cu: Q4_K's nibbles, whose weight q * s is kept
+// exact as two bf16 parts, zs = minv).
 //
 // The layout, with PER = 8 / BITS codes a byte and Kp = K / PER byte rows:
 // bits BITS*j of q row r hold element j*Kp + r ("plane" j is the contiguous
@@ -25,7 +27,7 @@
 // What bounds it on an H100: at decode the weight stream (codes at BITS/8
 // bytes a weight, s and zs at 2 or 4 bytes a group), against 3.35 TB/s; at
 // 256 rows, the bf16 tensor-core operations.
-// Design for that (K4's 16-row structure, csrc/q6k_gemv.cu):
+// Design for that at 1-16 rows (K4's 16-row structure, csrc/q6k_gemv.cu):
 // - one K step is 32 byte rows of q for 128 columns (4 KB) and, for each of
 //   the PER planes, the two 16-element halves' s (and zs) rows, the
 //   32-element x slice of the plane at j*Kp + r0 (and its two xsum16
@@ -35,20 +37,19 @@
 //   with K1's 4x4 byte transposes; plane j's codes are a shift and a mask of
 //   the same registers, four codes a register, then bf16(code * s) per
 //   element;
-// - bf16 mma.m16n8k16 with f32 accumulators for the row tiles of x that
-//   share each staged weight tile: one (16 rows) up to B = 16, so that a
-//   decode step's blocks keep little shared memory and many fit an SM, else
-//   four (64 rows); the zs term is two f32 FMAs a half on the accumulators;
+// - bf16 mma.m16n8k16 with f32 accumulators for the RT 16-row tiles of x
+//   that share each staged weight tile (every caller takes RT = 1: above 16
+//   rows the rows kernel below serves); the zs term is two f32 FMAs a half
+//   on the accumulators;
 // - the K axis is split over blockIdx.y; the partials are added in a fixed
 //   order by common.cuh's split-K pass.
 // Not done yet in plane_bf16_mma_kernel (later work): TMA/wgmma, fusing the
 // split-K pass, the zs term on the tensor cores, reading a group-32 scale
-// row once for both halves. K8 runs it at every row count, K9b and K10 up
-// to 16 rows.
+// row once for both halves. K8, K9b and K10 run it up to 16 rows.
 //
-// K10, K9b and K4 at 17-256 rows run plane_rows_kernel (below): TMA, a
-// producer warpgroup that decodes each stage once, bf16 wgmma, the zs term
-// on the tensor cores; its design is written beside it.
+// K10, K9b, K4, K8 and K5 at 17-256 rows run plane_rows_kernel (below):
+// TMA, a producer warpgroup that decodes each stage once, bf16 wgmma, the
+// zs term on the tensor cores; its design is written beside it.
 #pragma once
 
 #include "common.cuh"
@@ -277,19 +278,6 @@ int launch_plane_rt(const __nv_bfloat16* x, const Workspace& w, const uint8_t* q
   return 0;
 }
 
-// one 16-row tile a block up to B = 16, four above (ops/quant_matmul.py sizes
-// ksplit by the same rule)
-template <int BITS, bool SIGNED, typename ST, bool ZS>
-int launch_plane(const __nv_bfloat16* x, const Workspace& w, const uint8_t* q, const ST* scale,
-                 const __nv_bfloat16* zs, int B, int K, int O, int group, int ksplit,
-                 cudaStream_t st) {
-  return B <= 16
-             ? launch_plane_rt<BITS, 1, SIGNED, ST, ZS>(x, w, q, scale, zs, B, K, O, group,
-                                                         ksplit, st)
-             : launch_plane_rt<BITS, 4, SIGNED, ST, ZS>(x, w, q, scale, zs, B, K, O, group,
-                                                         ksplit, st);
-}
-
 // ---- The rows instantiation (17-256 rows): plane_rows_kernel ----
 //
 // What bounds it on an H100: the bf16 tensor cores (2*B*K*O operations; at
@@ -304,13 +292,16 @@ int launch_plane(const __nv_bfloat16* x, const Workspace& w, const uint8_t* q, c
 //   only to fill one wave (ops/quant_matmul.plane_gemv_plan);
 // - a main K step takes kR byte rows of q, which hold kPer = 8/BITS chunks
 //   of kR elements (plane j: elements j*Kp + r0..), kE = kPer * kR elements
-//   in all (64; 32 at 8 bits, to keep six stages): thread 0 of the producer
-//   warpgroup brings the rows (TMA), their scale rows (one TMA box over
-//   scale seen as [kPer][Kp/group][O]) and x's kE elements for the BM rows
-//   (one TMA box of 128- or 64-byte rows with the swizzle of that width,
-//   from a copy of x in step order that plane_prep_kernel writes before the
-//   GEMV with the per-group sums: with TMA boxes of x's own chunks, 16-64-
-//   byte pieces, HQQ-1's gate|up at B = 256 took 0.261 ms, not 0.177), and
+//   in all (64; 32 at 8 bits, to keep six stages; a format may take other
+//   step sizes, PlaneRowGeom's KE): thread 0 of the producer warpgroup
+//   brings the rows (TMA), their scale rows (one TMA box over scale seen as
+//   [kPer][Kp/group][O]) and x's kE elements for the BM rows (one TMA box
+//   of 128- or 64-byte rows with the swizzle of that width, from a copy of
+//   x in step order that plane_prep_kernel writes before the GEMV with the
+//   per-group sums: with TMA boxes of x's own chunks, 16-64-byte pieces,
+//   HQQ-1's gate|up at B = 256 took 0.261 ms, not 0.177; at 8 bits the
+//   step order is x's own, so without the zs term (K8) the box reads x in
+//   place, rows past B zero-filled by TMA, and there is no pre-pass), and
 //   a producer warp decodes the rows once into a K-major bf16 B tile: a 4x4
 //   byte transpose per column quad (K1's load_quad8), then per code
 //   bf16(code * s), one rounding of the exact product as the JAX kernel's
@@ -330,8 +321,8 @@ int launch_plane(const __nv_bfloat16* x, const Workspace& w, const uint8_t* q, c
 //   as wgmma A fragments, and three wgmma.m64nNk16 a 16 groups with A
 //   negated subtract xsum @ zs into the same accumulators (3/16 of the main
 //   product's tensor work at group 16, 3/128 at group 128, and no FMAs);
-//   without the zs term (ZS false: K9b) there are no zs steps, no sums, and
-//   K is split at 4 main steps;
+//   without the zs term (ZS false: K9b, K8) there are no zs steps, no sums,
+//   and K is split at 4 main steps;
 // - a stage is freed as soon as the wgmmas that read it have completed; one
 //   split writes out directly, more splits go through the fixed-order
 //   split-K pass;
@@ -353,11 +344,36 @@ int launch_plane(const __nv_bfloat16* x, const Workspace& w, const uint8_t* q, c
 //   own arrays;
 // - F::copy issues a main step's weight boxes and F::w_tx counts their
 //   bytes; F::zs_at places a slice's zs rows in the zs map; F::decode turns
-//   a stage's bytes into the bf16 tile.
-// PlaneFmt<BITS, SIGNED, ST, ZS> is the plane layout above: K10 instantiates
-// unsigned codes with bf16 scales and the zs term (csrc/affine_gemv.cu), K9b
-// one bit with bf16 scales and no zs term (csrc/q5k_hbit_bf16_gemv.cu);
-// SIGNED and an f32 ST are K8's (int8 codes, rq8's f32 scales), kept for it.
+//   a stage's bytes into the bf16 tile;
+// - F::kParts, the bf16 tiles a main step's decode writes (1; Q4kFmt's 2):
+//   the consumers run the step's wgmmas over each part with the same x tile
+//   as A, the one thing a consumer learns of a format.
+// PlaneFmt<BITS, SIGNED, ST, ZS, KE> is the plane layout above: K10
+// instantiates unsigned codes with bf16 scales and the zs term
+// (csrc/affine_gemv.cu), K9b one bit with bf16 scales and no zs term
+// (csrc/q5k_hbit_bf16_gemv.cu), K8 signed 8-bit codes with bf16 (wire
+// Q8_0) or f32 (rq8) scales and no zs term (csrc/q8_0_bf16_gemv.cu): each
+// code is bf16(code * bf16(s)), bit-equal to the plain version's weight.
+//
+// Q4kFmt (K5, csrc/q4k_bf16_gemv.cu) is the 4-bit plane layout with an
+// exact weight. Q4_K's paired layout (qs row r holds element r in its low
+// nibble and K/2 + r in its high one) is the 4-bit planes; scale and minv
+// [K/32, O] are seen as [2][Kp/32][O]; the min term is the zs term (zs =
+// minv, the sums of x per 32). The JAX kernel multiplies each sub-block's
+// f32 dot by its scale, so the weight q * s must not be rounded to bf16
+// (on random Q4_K codes that moves y by 1-2e-3 of max |y|, ten times the
+// kernel's tolerance of 1e-4): q * s has at most 12 significant
+// bits (a 4-bit code, a bf16 scale), so hi = bf16(q * s) and lo = q * s -
+// hi (at most 5 bits) are exact, and hi + lo = q * s. The decode writes
+// both as two bf16 tiles of the step (per pair: (128 + c) as bf16 bits,
+// hi = fma.rn.bf16x2 with (s, s) and (-128 s, -128 s), c = (128 + c) -
+// 128, lo = fma.rn.bf16x2 of c, s and -hi, each rounded once from an exact
+// value), and the consumers run the step's wgmmas twice, over the hi tile
+// and over the lo tile with the same x tile as A: every product x * hi and
+// x * lo is exact in f32, and only the f32 sums' order differs from the
+// plain version's (twice the tensor work of a rounded weight). K5 takes
+// 32-element steps: the two tiles make a stage at 64 twice K10's, three in
+// the ring.
 //
 // Q6kFmt (K4, csrc/q6k_gemv.cu) is the 2-bit geometry with 6-bit codes.
 // Q6_K's chunked layout (chunk span G, Kq = K/4, C = K/(4G) chunks; element
@@ -381,11 +397,12 @@ int launch_plane(const __nv_bfloat16* x, const Workspace& w, const uint8_t* q, c
 // them: 33 KB a stage at BM 128, so six fit (39 KB with their own buffers:
 // three).
 
-template <int BITS>
+template <int BITS, int KE = (BITS == 8 ? 32 : 64)>
 struct PlaneRowGeom {
+  static_assert(KE == 32 || KE == 64, "a main step is 32 or 64 elements");
   static constexpr int kBits = BITS;
   static constexpr int kPer = 8 / BITS;           // planes of a byte row
-  static constexpr int kE = BITS == 8 ? 32 : 64;  // elements a main step
+  static constexpr int kE = KE;                   // elements a main step
   static constexpr int kR = kE / kPer;            // byte rows a step: the elements of a chunk
   static constexpr int kScRows = kPer > kE / 16 ? kPer : kE / 16;  // scale rows a step, at most
   static constexpr int kXRow = 2 * kE;            // bytes of a row of the x tile
@@ -398,16 +415,16 @@ struct PlaneRowGeom {
       kXRow == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
 };
 
-// A stage: at a main step the x tile, the decoded B tile, the byte rows and
-// the scale rows; at a zs step the slice's sums in x's place (kZU x BM f32)
-// and its zs tile in the B tile's (2 x kZU rows of 64 bf16).
-template <int BITS, int BM, typename ST>
+// A stage: at a main step the x tile, the decoded B tiles (PARTS of them,
+// one after the other), the byte rows and the scale rows; at a zs step the
+// slice's sums in x's place (kZU x BM f32) and its zs tile in the B tile's
+// (2 x kZU rows of 64 bf16).
+template <typename G, int BM, typename ST, int PARTS = 1>
 struct alignas(1024) PlaneRowStage {
-  using G = PlaneRowGeom<BITS>;
-  uint8_t x[BM * G::kE * 2];         // [BM][kE] bf16, the step's chunks in plane order
-  uint8_t w[G::kE * kGemvCols * 2];  // (c, k) at (k/8)*2048 + c*16 + (k%8)*2
-  uint8_t q[G::kR * kGemvCols];      // byte row r at r*128
-  ST sc[G::kScRows][kGemvCols];      // plane j's scale rows from j * nr
+  uint8_t x[BM * G::kE * 2];                 // [BM][kE] bf16, the step's chunks in plane order
+  uint8_t w[PARTS * G::kE * kGemvCols * 2];  // (c, k) at (k/8)*2048 + c*16 + (k%8)*2
+  uint8_t q[G::kR * kGemvCols];              // byte row r at r*128
+  ST sc[G::kScRows][kGemvCols];              // plane j's scale rows from j * nr
 };
 
 // K4's stage (Q6kFmt): the x tile, the decoded tile, whose last 6 KB hold
@@ -424,9 +441,9 @@ struct alignas(1024) Q6kRowStage {
 
 // main steps a slice (kZU groups and a zs step); without the zs term, the
 // K split's unit
-template <int BITS, bool ZS>
+template <typename G, bool ZS>
 __host__ __device__ constexpr int plane_slice_steps(int group) {
-  return ZS ? PlaneRowGeom<BITS>::kZU * group / PlaneRowGeom<BITS>::kE : 4;
+  return ZS ? G::kZU * group / G::kE : 4;
 }
 
 // 8 codes of a column (K rows r..r+3 in the bytes of lo, r+4..r+7 in hi,
@@ -460,6 +477,32 @@ __device__ __forceinline__ uint4 decode8(uint32_t lo, uint32_t hi, uint32_t ss) 
     return make_uint4(bf16x2(code_s(lo, 0), code_s(lo, 1)), bf16x2(code_s(lo, 2), code_s(lo, 3)),
                       bf16x2(code_s(hi, 0), code_s(hi, 1)), bf16x2(code_s(hi, 2), code_s(hi, 3)));
   }
+}
+
+// 8 nibble codes of a column (K rows r..r+3 in the bytes of lo, r+4..r+7 in
+// hi, plane shifted down) as the two exact bf16 parts of c * s, in K order:
+// hp = bf16(c * s) and lp = c * s - hp (Q4kFmt); ss is (s, s) as bf16 bits
+__device__ __forceinline__ void decode8_split(uint32_t lo, uint32_t hi, uint32_t ss, uint4& hp,
+                                              uint4& lp) {
+  const __nv_bfloat162 s2 = *reinterpret_cast<const __nv_bfloat162*>(&ss);
+  const __nv_bfloat162 nb = __hmul2(s2, __float2bfloat162_rn(-128.f));  // exact
+  const __nv_bfloat162 k128 = __float2bfloat162_rn(128.f);
+  auto pair = [&](uint32_t t, uint32_t sel, uint32_t& h, uint32_t& l) {
+    const uint32_t v = __byte_perm(t, 0x43u, sel);  // bf16 bits 0x43cc = 128 + cc
+    const __nv_bfloat162 vb = *reinterpret_cast<const __nv_bfloat162*>(&v);
+    const __nv_bfloat162 hb = __hfma2(vb, s2, nb);  // c * s rounded once
+    // c exactly, then c * s - hb: exact in f32 and in bf16, so the fma's one
+    // rounding leaves it as it is
+    const __nv_bfloat162 lb = __hfma2(__hsub2(vb, k128), s2, __hneg2(hb));
+    h = *reinterpret_cast<const uint32_t*>(&hb);
+    l = *reinterpret_cast<const uint32_t*>(&lb);
+  };
+  lo &= 0x0F0F0F0Fu;
+  hi &= 0x0F0F0F0Fu;
+  pair(lo, 0x4140, hp.x, lp.x);
+  pair(lo, 0x4342, hp.y, lp.y);
+  pair(hi, 0x4140, hp.z, lp.z);
+  pair(hi, 0x4342, hp.w, lp.w);
 }
 
 // The scales of a lane's column quad (columns 4*lane..+3 of a scale row) as
@@ -505,16 +548,17 @@ int zs_tile_map(CUtensorMap* zmap, const void* base, const uint64_t* dims, const
                   CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int BITS, bool SIGNED, typename ST, bool ZS>
+template <int BITS, bool SIGNED, typename ST, bool ZS, int KE = (BITS == 8 ? 32 : 64)>
 struct PlaneFmt {
   static_assert(!SIGNED || BITS == 8, "signed codes are bytes");
   static_assert(BITS == 8 || sizeof(ST) == 2, "below 8 bits the scales are bf16");
   static_assert(!ZS || sizeof(ST) == 2, "the zs term comes with bf16 scales (K10)");
-  using G = PlaneRowGeom<BITS>;
+  using G = PlaneRowGeom<BITS, KE>;
   static constexpr bool kZs = ZS;
   static constexpr float kZsMul = 1.f;
+  static constexpr int kParts = 1;
   template <int BM>
-  using Stage = PlaneRowStage<BITS, BM, ST>;
+  using Stage = PlaneRowStage<G, BM, ST>;
   // q [Kp, O] in boxes of kR byte rows x 128 columns, scale [K/group, O]
   // seen as [kPer][Kp/group][O]
   struct Maps {
@@ -601,6 +645,7 @@ struct Q6kFmt {
   using G = PlaneRowGeom<2>;
   static constexpr bool kZs = true;
   static constexpr float kZsMul = 32.f;  // the zs term is 32 * xsum16 @ s16 (exact in f32)
+  static constexpr int kParts = 1;
   template <int BM>
   using Stage = Q6kRowStage<BM>;
   // qh [K/4, O] in boxes of 16 rows, ql [K/2, O] seen as [2C][G][O] in
@@ -686,6 +731,48 @@ struct Q6kFmt {
   }
 };
 
+// Q4_K (K5): the 4-bit planes with bf16 scale and minv per 32 (the zs
+// term), PlaneFmt's maps and boxes, and a decode into the two exact parts
+// of q * s (the hi tile, then the lo tile kE * 256 bytes on)
+template <int KE>
+struct Q4kFmt : PlaneFmt<4, false, __nv_bfloat16, true, KE> {
+  using Base = PlaneFmt<4, false, __nv_bfloat16, true, KE>;
+  using G = typename Base::G;
+  using Shifts = typename Base::Shifts;
+  static_assert(G::kR <= 32, "a step's rows lie in one 32-element group of each plane");
+  static constexpr int kParts = 2;
+  template <int BM>
+  using Stage = PlaneRowStage<G, BM, __nv_bfloat16, 2>;
+
+  template <typename S>
+  __device__ static void decode(S& st, Shifts, int lane) {
+    const uint8_t* __restrict__ qt = st.q;
+    uint8_t* __restrict__ wt = st.w;
+    constexpr int kLo = G::kE * kGemvCols * 2;  // the lo tile
+    const int rot = (lane >> 1) & 3;
+    uint32_t splat[4];
+    scale_splats(rot, splat);
+    uint32_t w[G::kR / 8][8];  // every octet's codes first, so the loads overlap
+#pragma unroll
+    for (int o = 0; o < G::kR / 8; ++o) load_quad8(qt, 8 * o, lane, rot_sel(lane >> 1), w[o]);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const uint2 sq = scale_quad(&st.sc[p][0], lane);  // the plane's one scale row
+#pragma unroll
+      for (int o = 0; o < G::kR / 8; ++o)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int at = (p * G::kR / 8 + o) * 2048 + (4 * lane + ((j + rot) & 3)) * 16;
+          uint4 hp, lp;
+          decode8_split(w[o][j] >> (4 * p), w[o][4 + j] >> (4 * p),
+                        __byte_perm(sq.x, sq.y, splat[j]), hp, lp);
+          *reinterpret_cast<uint4*>(wt + at) = hp;
+          *reinterpret_cast<uint4*>(wt + kLo + at) = lp;
+        }
+    }
+  }
+};
+
 template <typename F, int BM>
 constexpr int kPlaneRowStages =
     ring_stages<typename F::template Stage<BM>, 1024, 12, kRingBudgetMax>();
@@ -749,6 +836,7 @@ __global__ void __launch_bounds__(kRowThreads, 1)
                       int K, int O, int group, int slices_per_split) {
   using G = typename F::G;
   using Stage = typename F::template Stage<BM>;
+  static_assert(kPlaneRowStages<F, BM> >= 3, "the ring holds a stage for each decode warp");
   constexpr bool ZS = F::kZs;
   constexpr int N = BM == 128 ? 128 : 64;  // wgmma width of a consumer warpgroup
   constexpr int kPer = G::kPer, kR = G::kR, kE = G::kE, kXRow = G::kXRow;
@@ -760,7 +848,7 @@ __global__ void __launch_bounds__(kRowThreads, 1)
   // multiply-high, no division (each of which costs a single-thread chain
   // of ~40 instructions in the hot loops)
   const int Kp = K / kPer;
-  const int Z = plane_slice_steps<G::kBits, ZS>(group);
+  const int Z = plane_slice_steps<G, ZS>(group);
   const int s_begin = blockIdx.z * slices_per_split * Z;  // the split's first main step
   const int n_main = max(0, min(slices_per_split * Z, Kp / kR - s_begin));
   const int Zr = ZS ? Z + 1 : Z;  // ring steps a slice
@@ -818,10 +906,12 @@ __global__ void __launch_bounds__(kRowThreads, 1)
       const Stage& S = ring[i];
       ring.acquire(i);
       if (is_main(i)) {
+        // each decoded part (Q4kFmt: hi, then lo) against the same x tile
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kE / 16; ++kk)
-          wgmma_bf16<N>(acc, x_desc(S.x, kk, wr), kmajor_desc(S.w + kk * 4096 + wc * 1024, 2048, 128));
+        for (int kk = 0; kk < F::kParts * kE / 16; ++kk)
+          wgmma_bf16<N>(acc, x_desc(S.x, kk % (kE / 16), wr),
+                        kmajor_desc(S.w + kk * 4096 + wc * 1024, 2048, 128));
         wgmma_commit();
       } else if constexpr (ZS) {
         // A fragment a of k16 half h: rows rl + 8 (a % 2), units 16h + 2t +
@@ -864,20 +954,29 @@ __global__ void __launch_bounds__(kRowThreads, 1)
   ring.run(n, tx, copy, decode, consume);
 }
 
+// Whether the rows kernel reads x in place: at 8 bits its step order is x's
+// own, and without the zs term there are no sums to take before it.
+template <typename F>
+constexpr bool kPlaneXInPlace = F::G::kPer == 1 && !F::kZs;
+
 // Launch plane_rows_kernel (after launch_plane_prep) with the format's maps:
-// x's step-ordered copy xc [bpad, K] in boxes of kE elements x BM rows; with
+// x's step-ordered copy xc [bpad, K] (kPlaneXInPlace: x [B, K] itself, the
+// rows past B zero-filled by TMA) in boxes of kE elements x BM rows; with
 // the zs term, xsum [K/group][bpad] seen as [kPer][Kp/group][bpad] in boxes
 // of the slice's groups. Returns the CUDA error.
 template <typename F, int BM>
-int launch_plane_rows(const Workspace& w, const typename F::Maps& fm, typename F::Shifts sh,
-                      const CUtensorMap& zmap, void* out, int out_is_bf16, int B, int K, int O,
-                      int group, dim3 grid, cudaStream_t st) {
+int launch_plane_rows(const __nv_bfloat16* x, const Workspace& w, const typename F::Maps& fm,
+                      typename F::Shifts sh, const CUtensorMap& zmap, void* out, int out_is_bf16,
+                      int B, int K, int O, int group, dim3 grid, cudaStream_t st) {
   using G = typename F::G;
+  constexpr bool kInPlace = kPlaneXInPlace<F>;
   const int Kp = K / G::kPer, gpp = Kp / group;  // groups a plane
-  const uint64_t xdims[2] = {(uint64_t)K, (uint64_t)w.bpad}, xstr[1] = {(uint64_t)K * 2};
+  const uint64_t xdims[2] = {(uint64_t)K, (uint64_t)(kInPlace ? B : w.bpad)};
+  const uint64_t xstr[1] = {(uint64_t)K * 2};
   const uint32_t xbox[2] = {G::kE, BM};
   CUtensorMap xmap, summap;
-  int err = tile_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w.xc, xdims, xstr, xbox, G::kXSwizzle);
+  int err = tile_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, kInPlace ? x : w.xc, xdims, xstr,
+                     xbox, G::kXSwizzle);
   if constexpr (F::kZs) {
     const uint64_t mdims[3] = {(uint64_t)w.bpad, (uint64_t)gpp, (uint64_t)G::kPer};
     const uint64_t mstr[2] = {(uint64_t)w.bpad * 4, (uint64_t)gpp * w.bpad * 4};
@@ -888,7 +987,7 @@ int launch_plane_rows(const Workspace& w, const typename F::Maps& fm, typename F
     summap = xmap;  // unused
   }
   if (err) return err;
-  const int Z = plane_slice_steps<G::kBits, F::kZs>(group);
+  const int Z = plane_slice_steps<G, F::kZs>(group);
   const int nslices = (Kp / G::kR + Z - 1) / Z;
   const int ksplit = (int)grid.z;
   auto* kern = plane_rows_kernel<F, BM>;
@@ -902,8 +1001,8 @@ int launch_plane_rows(const Workspace& w, const typename F::Maps& fm, typename F
 // The rows route of a call (after the caller's shape checks): the plan's
 // stage count checked, the format's maps built from its arrays (fa: see
 // its make_maps), the pre-pass (x in step order, and the per-group sums
-// with the zs term), then plane_rows_kernel at the plan's row tile (64 or
-// 128). Returns the CUDA error.
+// with the zs term; none when x is read in place), then plane_rows_kernel
+// at the plan's row tile (64 or 128). Returns the CUDA error.
 template <typename F, typename... A>
 int plane_rows_call(const __nv_bfloat16* x, const Workspace& w, void* out, int out_is_bf16, int B,
                     int K, int O, int group, int rows, dim3 grid, int stages, cudaStream_t st,
@@ -915,12 +1014,15 @@ int plane_rows_call(const __nv_bfloat16* x, const Workspace& w, void* out, int o
   CUtensorMap zmap;
   int err = F::make_maps(fm, sh, zmap, K, O, group, fa...);
   if (err) return err;
-  launch_plane_prep<typename F::G>(x, w, B, K, group, st);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  return rows == 64
-             ? launch_plane_rows<F, 64>(w, fm, sh, zmap, out, out_is_bf16, B, K, O, group, grid, st)
-             : launch_plane_rows<F, 128>(w, fm, sh, zmap, out, out_is_bf16, B, K, O, group, grid, st);
+  if constexpr (!kPlaneXInPlace<F>) {
+    launch_plane_prep<typename F::G>(x, w, B, K, group, st);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return rows == 64 ? launch_plane_rows<F, 64>(x, w, fm, sh, zmap, out, out_is_bf16, B, K, O,
+                                               group, grid, st)
+                    : launch_plane_rows<F, 128>(x, w, fm, sh, zmap, out, out_is_bf16, B, K, O,
+                                                group, grid, st);
 }
 
 }  // namespace mrt

@@ -16,34 +16,76 @@
 //
 // Layouts (row-major): x [B,K] bf16, q [K,O] int8, s [K/32,O] bf16 or f32,
 // out [B,O] bf16 or f32; in the workspace (common.cuh carve) part
-// [ksplit,B,O] f32.
+// [ksplit,B,O] f32 (at 17-256 rows only with more than one K split).
 //
 // What bounds it on an H100: at decode the weight stream, 1 + 2/32 bytes a
 // weight with bf16 scales (1 + 4/32 with f32), against 3.35 TB/s; at 256
-// rows, the bf16 tensor-core operations. Design for that: the kernel of
-// csrc/plane_gemv.cuh (K10's), at 8 bits a code with signed codes, the scale
-// rounded to bf16 as it is read, and no zero term, so no activation sums
-// are taken: one GEMV launch and the split-K pass.
+// rows, the bf16 tensor-core operations. Design for that: the kernels of
+// csrc/plane_gemv.cuh (K10's), at 8 bits a code with signed codes, the
+// scale rounded to bf16 as it is read, and no zero term, so no activation
+// sums are taken: up to 16 rows plane_bf16_mma_kernel and the split-K pass;
+// at 17-256 rows plane_rows_kernel (TMA, a producer warpgroup that decodes
+// each stage once, bf16 wgmma), whose 32-element steps are x's own order,
+// so it reads x in place with no pre-pass.
 #include "plane_gemv.cuh"
 
+namespace {
+
+// 32-element main steps (PlaneRowGeom's at 8 bits): nine 21 KB stages at 128
+// rows; 64-element steps (42 KB: three) measured 25% slower at the lm_head,
+// 256 rows, on an H100 (PERF.md §6)
+template <typename ST>
+using Q8Fmt = mrt::PlaneFmt<8, true, ST, false>;
+
+template <typename ST>
+int q8_bf16(const __nv_bfloat16* x, const mrt::Workspace& w, const uint8_t* q, const ST* s,
+            void* out, int out_is_bf16, int B, int K, int O, int rows, dim3 grid, int stages,
+            cudaStream_t st) {
+  if (rows != 16)
+    return mrt::plane_rows_call<Q8Fmt<ST>>(x, w, out, out_is_bf16, B, K, O, 32, rows, grid,
+                                           stages, st, q, s, nullptr);
+  const int err = mrt::launch_plane_rt<8, 1, true, ST, false>(x, w, q, s, nullptr, B, K, O, 32,
+                                                               (int)grid.y, st);
+  if (err != 0) return err;
+  return mrt::finish_gemv(w, out, out_is_bf16, (int)grid.y, B * O, st);
+}
+
+}  // namespace
+
 // Shapes are checked by the Python wrapper (ops/quant_matmul.py): K % 32 ==
-// 0, O % 16 == 0, 16-byte aligned pointers, ksplit <= K / 32, and a
-// workspace of ws_bytes (see mrt::carve). Returns the CUDA error code of the
-// launches (0 = launched).
+// 0, O % 16 == 0, 16-byte aligned pointers. The launch is the plan of
+// ops/quant_matmul.q8_0_bf16_plan, every field of it checked here:
+// - rows 16 (B <= 16): plane_bf16_mma_kernel, grid (column tiles, K splits,
+//   1), cluster 1, cols 128, stages 0, at most K/32 splits; the GEMV and
+//   the split-K pass (the workspace holds the partials);
+// - rows 64 or 128: plane_rows_kernel at 8 bits without the zs term, grid
+//   (row tiles, column tiles, K splits), cluster 1, cols 128, its ring's
+//   stages (of the scale's width), at most one split per 4 main steps; no
+//   pre-pass (x read in place), the GEMV and, with more than one split,
+//   the split-K pass (the tiled workspace holds only the partials).
+// Returns the CUDA error code of the launches (0 = launched).
 extern "C" int q8_0_bf16_gemv(const void* x, const void* q, const void* s, int s_is_bf16,
                               void* ws, long long ws_bytes, void* out, int out_is_bf16, int B,
-                              int K, int O, int ksplit, void* stream) {
+                              int K, int O, int rows, int gx, int gy, int gz, int cluster,
+                              int cols, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const mrt::Workspace w = mrt::carve(ws, B, K, O, 0, 0, ksplit);
-  if (w.bytes > (size_t)ws_bytes) return (int)cudaErrorInvalidValue;
+  if (rows != 16 && rows != 64 && rows != 128) return (int)cudaErrorInvalidValue;
+  const bool dec = rows == 16;
+  const int ksplit = dec ? gy : gz;
+  const mrt::Workspace w = dec ? mrt::carve(ws, B, K, O, 0, 0, ksplit)
+                               : mrt::carve(ws, B, K, O, 0, 0, ksplit, mrt::kTiled, rows);
+  const int units = dec ? K / 32 : (K / 32 + 3) / 4;  // the K split's units
+  const bool grid_ok = dec ? B <= 16 && gx == (O + mrt::kGemvCols - 1) / mrt::kGemvCols &&
+                                 gz == 1 && stages == 0
+                           : mrt::grid_covers(w, rows, cols, B, O, gx, gy, gz);
+  if (!grid_ok || cluster != 1 || cols != mrt::kGemvCols || w.bytes > (size_t)ws_bytes ||
+      ksplit < 1 || ksplit > units)
+    return (int)cudaErrorInvalidValue;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* qb = static_cast<const uint8_t*>(q);
-  const int err =
-      s_is_bf16
-          ? mrt::launch_plane<8, true, __nv_bfloat16, false>(
-                xb, w, qb, static_cast<const __nv_bfloat16*>(s), nullptr, B, K, O, 32, ksplit, st)
-          : mrt::launch_plane<8, true, float, false>(xb, w, qb, static_cast<const float*>(s),
-                                                     nullptr, B, K, O, 32, ksplit, st);
-  if (err != 0) return err;
-  return mrt::finish_gemv(w, out, out_is_bf16, ksplit, B * O, st);
+  const dim3 grid(gx, gy, gz);
+  return s_is_bf16 ? q8_bf16(xb, w, qb, static_cast<const __nv_bfloat16*>(s), out, out_is_bf16,
+                             B, K, O, rows, grid, stages, st)
+                   : q8_bf16(xb, w, qb, static_cast<const float*>(s), out, out_is_bf16, B, K, O,
+                             rows, grid, stages, st);
 }

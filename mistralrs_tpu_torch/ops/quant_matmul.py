@@ -22,8 +22,10 @@ serving paths run, all hand-written CUDA under csrc/:
   (`_q8_0_kernel`) and K9b `q5k_hbit_bf16_gemv` (`_q5k_hbit_kernel`): the
   routes of a Linear with `int8_act` off (PipelineConfig.int8_activations
   = False), where x stays in its dtype, as in the JAX package with its
-  MISTRALRS_*_INT8 gates off; K9b has a rows instantiation (17-256 rows,
-  K10's without the zs term, on `q5k_hbit_bf16_plan`), counted apart.
+  MISTRALRS_*_INT8 gates off; each has a rows instantiation (17-256 rows,
+  K10's rows kernel: K5's with Q4_K's exact two-part weight on
+  `q4k_bf16_plan`, K8's at 8 bits on `q8_0_bf16_plan`, K9b's at one bit on
+  `q5k_hbit_bf16_plan`), counted apart.
 
 Activations are quantized per block to int8 (ggml's Q8 approach, as the JAX
 int8 path does): xs = max(max|x_block|, 1e-10)/127, xq = clip(round(x/xs),
@@ -95,11 +97,14 @@ q5k_q8_gemv_launches = 0
 q6k_dequant_launches = 0
 q5k_dequant_launches = 0
 affine_gemv_launches = 0
-# K9's, K10's, K4's and K9b's rows instantiations (17-256 rows), counted apart
+# K9's, K10's, K4's, K9b's, K5's and K8's rows instantiations (17-256 rows),
+# counted apart
 q5k_q8_gemv_rows_launches = 0
 affine_gemv_rows_launches = 0
 q6k_bf16_gemv_rows_launches = 0
 q5k_hbit_bf16_gemv_rows_launches = 0
+q4k_bf16_gemv_rows_launches = 0
+q8_0_bf16_gemv_rows_launches = 0
 affine_dequant_launches = 0
 q4k_bf16_gemv_launches = 0
 q8_0_bf16_gemv_launches = 0
@@ -171,8 +176,8 @@ def _ksplit_for(O: int, B: int, k_units: int, sms: int, rows: int = 16) -> int:
     return max(1, min(-(-4 * sms // tiles), k_units // 4))
 
 
-def _ksplit(O: int, B: int, k_units: int, device, rows: int = 16) -> int:
-    return _ksplit_for(O, B, k_units, kernels.sm_count(device), rows)
+def _ksplit(O: int, B: int, k_units: int, device) -> int:
+    return _ksplit_for(O, B, k_units, kernels.sm_count(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -258,13 +263,6 @@ def int8_gemv_plan(B: int, K: int, O: int, k_units: int, gs: int, sum_gs: int,
     ks = max(1, min(sms // tiles, k_units // 4))
     return GemvPlan(rows, (rtiles, ctiles, ks), ks, 1, 128, 0,
                     _workspace_bytes(B, K, O, gs, sum_gs, ks, rows, "tiled"))
-
-
-def _plane_rows(B: int) -> int:
-    """Rows of x a block of K5 or K8 (and K9b and K10 up to 16 rows)
-    serves: one 16-row tile up to 16 rows, four above (the kernels pick the
-    same by B)."""
-    return 16 if B <= 16 else K4_ROWS
 
 
 def _align256(n: int) -> int:
@@ -531,7 +529,7 @@ def q6k_q8_gemv(x, ql, qh, scale, G: int, out_dtype=torch.bfloat16):
 # ------------------------------------------------------- K4: Q6_K x bf16
 
 # rows of x one block of K4's 16-row instantiation serves (4 tiles of 16
-# share each staged weight tile; K5 and K8 the same above 16 rows)
+# share each staged weight tile)
 K4_ROWS = 64
 
 
@@ -687,36 +685,48 @@ AFFINE_BITS = (1, 2, 4, 8)
 PLANE_RING_BYTES = 226 * 1024 - 1024
 
 
-def plane_row_geom(bits: int) -> tuple[int, int, int]:
+def plane_row_geom(bits: int, elems: int | None = None) -> tuple[int, int, int]:
     """(planes of a byte row, elements of a main K step, byte rows of a
-    step) of the rows kernel (csrc/plane_gemv.cuh PlaneRowGeom)."""
+    step) of the rows kernel (csrc/plane_gemv.cuh PlaneRowGeom): `elems`
+    elements a step, by default 64 (32 at 8 bits)."""
     per = 8 // bits
-    e = 32 if bits == 8 else 64
+    e = elems or (32 if bits == 8 else 64)
     return per, e, e // per
 
 
-def plane_row_stages(bits: int, rows: int, scale_bytes: int = 2,
-                     codes_in_tile: bool = False) -> int:
-    """Ring stages of the rows kernel at a row tile (common.cuh
-    ring_stages of its format's stage: the x tile, the decoded bf16 tile,
-    the byte rows, the scale rows; a multiple of 3, at most 12). With
-    codes_in_tile (Q6kFmt's Q6kRowStage) the step's bytes wait in the
+def plane_row_stage_bytes(bits: int, rows: int, scale_bytes: int = 2,
+                          codes_in_tile: bool = False, parts: int = 1,
+                          elems: int | None = None) -> int:
+    """Bytes of a stage of the rows kernel (sizeof of its format's stage,
+    1 KB aligned): the x tile, the decoded bf16 tiles (`parts` of them:
+    Q4kFmt's hi and lo), the byte rows, the scale rows of `scale_bytes`
+    each (the most a step takes: a row a plane, or a row a 16 elements).
+    With codes_in_tile (Q6kFmt's Q6kRowStage) the step's bytes wait in the
     decoded tile and the stage has no byte rows of its own."""
-    per, e, r = plane_row_geom(bits)
-    stage = (rows * e * 2 + e * 128 * 2 + (0 if codes_in_tile else r * 128)
+    per, e, r = plane_row_geom(bits, elems)
+    stage = (rows * e * 2 + parts * e * 128 * 2 + (0 if codes_in_tile else r * 128)
              + max(per, e // 16) * 128 * scale_bytes)
-    stage = -(-stage // 1024) * 1024
+    return -(-stage // 1024) * 1024
+
+
+def plane_row_stages(bits: int, rows: int, scale_bytes: int = 2,
+                     codes_in_tile: bool = False, parts: int = 1,
+                     elems: int | None = None) -> int:
+    """Ring stages of the rows kernel at a row tile (common.cuh
+    ring_stages of plane_row_stage_bytes: a multiple of 3, at most 12; the
+    kernel refuses fewer than 3)."""
+    stage = plane_row_stage_bytes(bits, rows, scale_bytes, codes_in_tile, parts, elems)
     return min(12, PLANE_RING_BYTES // stage) // 3 * 3
 
 
-def plane_slice_steps(bits: int, group: int, zs: bool = True) -> int:
+def plane_slice_steps(bits: int, group: int, zs: bool = True, elems: int | None = None) -> int:
     """Main K steps of one zs slice of the rows kernel (32 groups at
-    64-element steps, 16 at 32, and one zs step); without the zs term (K9b)
-    the K split's unit, 4 main steps (csrc/plane_gemv.cuh
+    64-element steps, 16 at 32, and one zs step); without the zs term (K9b,
+    K8) the K split's unit, 4 main steps (csrc/plane_gemv.cuh
     plane_slice_steps)."""
     if not zs:
         return 4
-    e = plane_row_geom(bits)[1]
+    e = plane_row_geom(bits, elems)[1]
     return (32 if e == 64 else 16) * group // e
 
 
@@ -730,18 +740,22 @@ def plane_rows_take(K: int, bits: int, group: int) -> bool:
 
 
 def plane_gemv_plan(B: int, K: int, O: int, bits: int, group: int, sms: int,
-                    zs: bool = True, codes_in_tile: bool = False) -> GemvPlan:
-    """Launch plan of K10 (and, with zs False, of K9b above 16 rows) on a
-    card with `sms` SMs, every field of which the CUDA entry point checks.
+                    zs: bool = True, codes_in_tile: bool = False, scale_bytes: int = 2,
+                    parts: int = 1, elems: int | None = None) -> GemvPlan:
+    """Launch plan of K10 (and, above 16 rows, of K9b and K8 with zs False,
+    of K4 with codes_in_tile, of K5 with parts 2) on a card with `sms` SMs,
+    every field of which the CUDA entry point checks.
     Up to 16 rows plane_bf16_mma_kernel: grid (column tiles, K splits, 1),
     the split by _ksplit_for over 32-row steps, the row-major workspace
     (per-16 sums, partials). Above: the rows kernel, 64 or 128 rows a
     block, grid (row tiles, column tiles, K splits), row tiles fastest, so
     each weight tile is read by at most two blocks; K is split at zs slices
     (without zs: at 4 main steps) and only to fill one wave, no split
-    empty; its ring's stages (codes_in_tile: K4's stage, plane_row_stages);
+    empty; its ring's stages (plane_row_stages of the format's stage: the
+    scale's width, K4's codes in the tile, K5's two parts, `elems` a step);
     the tiled workspace (per-group sums unless zs is False, x's copy in the
-    kernel's step order, partials with more than one split)."""
+    kernel's step order unless x is read in place, at 8 bits without zs,
+    partials with more than one split)."""
     per = 8 // bits
     kp = K // per
     ctiles = -(-O // 128)
@@ -750,13 +764,14 @@ def plane_gemv_plan(B: int, K: int, O: int, bits: int, group: int, sms: int,
         return GemvPlan(16, (ctiles, ks, 1), ks, 1, 128, 0, _workspace_bytes(B, K, O, 0, 16, ks))
     rows = 64 if B <= 64 else 128
     rtiles = -(-B // rows)
-    slices = -(-(kp // plane_row_geom(bits)[2]) // plane_slice_steps(bits, group, zs))
+    steps = kp // plane_row_geom(bits, elems)[2]
+    slices = -(-steps // plane_slice_steps(bits, group, zs, elems))
     ks = max(1, min(sms // (rtiles * ctiles), slices))
     ks = -(-slices // -(-slices // ks))  # the same slices a split, none empty
     return GemvPlan(rows, (rtiles, ctiles, ks), ks, 1, 128,
-                    plane_row_stages(bits, rows, codes_in_tile=codes_in_tile),
+                    plane_row_stages(bits, rows, scale_bytes, codes_in_tile, parts, elems),
                     _workspace_bytes(B, K, O, 0, group if zs else 0, ks, rows, "tiled",
-                                     xcopy=True))
+                                     xcopy=per > 1 or zs))
 
 
 def _affine_values(q: torch.Tensor, bits: int) -> torch.Tensor:
@@ -840,11 +855,36 @@ def q4k_bf16_gemv_plain(x, qs, scale, minv, out_dtype=torch.float32):
     return acc.to(out_dtype)
 
 
+# elements of a main step of K5's rows instantiation (csrc/q4k_bf16_gemv.cu
+# kQ4kRowElems), where the 4-bit default is 64
+Q4K_ROW_ELEMS = 32
+
+
+def q4k_bf16_plan(B: int, K: int, O: int, sms: int) -> GemvPlan:
+    """Launch plan of K5 on a card with `sms` SMs, every field of which the
+    CUDA entry point checks. Up to 16 rows its 16-row kernel
+    (q4k_bf16_mma_kernel): grid (column tiles, K splits, 1), the split by
+    _ksplit_for over sub-block pairs, the row-major workspace (per-32 sums,
+    partials). Above: the rows kernel with Q4_K's format (csrc/plane_gemv.cuh
+    Q4kFmt): K10's 4-bit plan at group 32 (the paired nibbles are the
+    4-bit planes; the min term is the zs term) with a stage of two decoded
+    tiles, the weight's exact hi and lo parts. plane_rows_take(K, 4, 32)
+    holds for every K % 64 == 0, which the wrapper requires."""
+    if B <= 16:
+        ks = _ksplit_for(O, B, K // 64, sms)
+        return GemvPlan(16, (-(-O // 128), ks, 1), ks, 1, 128, 0,
+                        _workspace_bytes(B, K, O, 0, 32, ks))
+    return plane_gemv_plan(B, K, O, 4, 32, sms, parts=2, elems=Q4K_ROW_ELEMS)
+
+
 def q4k_bf16_gemv(x, qs, scale, minv, out_dtype=torch.bfloat16):
     """K5: y [B, O] = x @ W for Q4_K W with x kept in bf16 (see
     csrc/q4k_bf16_gemv.cu). x [B, K] bf16 on cuda, qs uint8 [K/2, O] paired
-    nibbles, scale/minv [K/32, O] (bf16 on cuda)."""
-    global q4k_bf16_gemv_launches
+    nibbles, scale/minv [K/32, O] (bf16 on cuda). Up to 16 rows the 16-row
+    instantiation (q4k_bf16_mma_kernel), above it the rows instantiation
+    (plane_rows_kernel with Q4kFmt: the weight q * s as two exact bf16
+    parts), on the plan of q4k_bf16_plan, each counted apart."""
+    global q4k_bf16_gemv_launches, q4k_bf16_gemv_rows_launches
     O = qs.shape[1]
     K = 2 * qs.shape[0]
     B = _check_x("q4k_bf16_gemv", x, K)
@@ -858,17 +898,19 @@ def q4k_bf16_gemv(x, qs, scale, minv, out_dtype=torch.bfloat16):
     _check_tensor("scale", scale, torch.bfloat16, (K // 32, O))
     _check_tensor("minv", minv, torch.bfloat16, (K // 32, O))
     dev = _check_cuda("q4k_bf16_gemv", dict(x=x, qs=qs, scale=scale, minv=minv))
-    ksplit = _ksplit(O, B, K // 64, dev, rows=_plane_rows(B))
-    nbytes = _workspace_bytes(B, K, O, 0, 32, ksplit)
-    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    plan = q4k_bf16_plan(B, K, O, kernels.sm_count(dev))
+    ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
     fn = kernels.function("q4k_bf16_gemv", "q4k_bf16_gemv",
-                          [_P] * 5 + [ctypes.c_longlong, _P] + [_I] * 5 + [_P])
+                          [_P] * 5 + [ctypes.c_longlong, _P] + [_I] * 11 + [_P])
     err = fn(kernels.ptr(x), kernels.ptr(qs), kernels.ptr(scale), kernels.ptr(minv),
-             kernels.ptr(ws), nbytes, kernels.ptr(out), int(out_dtype == torch.bfloat16),
-             B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
+             kernels.ptr(ws), plan.ws_bytes, kernels.ptr(out), int(out_dtype == torch.bfloat16),
+             B, K, O, *plan.launch_args(), _P(kernels.stream_ptr(dev)))
     kernels.check(err, "q4k_bf16_gemv")
-    q4k_bf16_gemv_launches += 1
+    if plan.rows == 16:
+        q4k_bf16_gemv_launches += 1
+    else:
+        q4k_bf16_gemv_rows_launches += 1
     return out
 
 
@@ -883,11 +925,30 @@ def q8_0_bf16_gemv_plain(x, q, s, out_dtype=torch.float32):
     return (x.to(torch.float32) @ w.to(torch.float32)).to(out_dtype)
 
 
+def q8_0_bf16_plan(B: int, K: int, O: int, f32_scales: bool, sms: int) -> GemvPlan:
+    """Launch plan of K8 on a card with `sms` SMs, every field of which the
+    CUDA entry point checks. Up to 16 rows plane_bf16_mma_kernel: grid
+    (column tiles, K splits, 1), the split by _ksplit_for over 32-row
+    steps, the row-major workspace (partials only). Above: the rows kernel
+    at 8 bits, group 32, no zs term (K split at 4 main steps), its ring's
+    stages at the scale's width (4 bytes for rq8's f32 scales, 2 for wire
+    Q8_0's bf16), and a tiled workspace of the partials alone (at 8 bits
+    the kernel reads x in place)."""
+    if B <= 16:
+        ks = _ksplit_for(O, B, K // 32, sms)
+        return GemvPlan(16, (-(-O // 128), ks, 1), ks, 1, 128, 0,
+                        _workspace_bytes(B, K, O, 0, 0, ks))
+    return plane_gemv_plan(B, K, O, 8, 32, sms, zs=False, scale_bytes=4 if f32_scales else 2)
+
+
 def q8_0_bf16_gemv(x, q, s, out_dtype=torch.bfloat16):
     """K8: y [B, O] = x @ W for int8 W with a scale per 32 rows, the weight
     rounded to bf16 inside the kernel (see csrc/q8_0_bf16_gemv.cu). x [B, K]
-    bf16 on cuda, q int8 [K, O], s [K/32, O] f32 or bf16."""
-    global q8_0_bf16_gemv_launches
+    bf16 on cuda, q int8 [K, O], s [K/32, O] f32 or bf16. Up to 16 rows the
+    16-row instantiation (plane_bf16_mma_kernel), above it the rows
+    instantiation (plane_rows_kernel with PlaneFmt at 8 signed bits), on
+    the plan of q8_0_bf16_plan, each counted apart."""
+    global q8_0_bf16_gemv_launches, q8_0_bf16_gemv_rows_launches
     K, O = q.shape
     B = _check_x("q8_0_bf16_gemv", x, K)
     _require(K % 32 == 0 and O % 16 == 0,
@@ -900,17 +961,19 @@ def q8_0_bf16_gemv(x, q, s, out_dtype=torch.bfloat16):
     _require(x.dtype == torch.bfloat16, f"q8_0_bf16_gemv: the kernel takes bf16 x, got {x.dtype}")
     _require(s.dtype in (torch.float32, torch.bfloat16), f"s: dtype {s.dtype}")
     dev = _check_cuda("q8_0_bf16_gemv", dict(x=x, q=q, s=s))
-    ksplit = _ksplit(O, B, K // 32, dev, rows=_plane_rows(B))
-    nbytes = _workspace_bytes(B, K, O, 0, 0, ksplit)
-    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    plan = q8_0_bf16_plan(B, K, O, s.dtype == torch.float32, kernels.sm_count(dev))
+    ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
     fn = kernels.function("q8_0_bf16_gemv", "q8_0_bf16_gemv",
-                          [_P, _P, _P, _I, _P, ctypes.c_longlong, _P] + [_I] * 5 + [_P])
+                          [_P, _P, _P, _I, _P, ctypes.c_longlong, _P] + [_I] * 11 + [_P])
     err = fn(kernels.ptr(x), kernels.ptr(q), kernels.ptr(s), int(s.dtype == torch.bfloat16),
-             kernels.ptr(ws), nbytes, kernels.ptr(out), int(out_dtype == torch.bfloat16),
-             B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
+             kernels.ptr(ws), plan.ws_bytes, kernels.ptr(out), int(out_dtype == torch.bfloat16),
+             B, K, O, *plan.launch_args(), _P(kernels.stream_ptr(dev)))
     kernels.check(err, "q8_0_bf16_gemv")
-    q8_0_bf16_gemv_launches += 1
+    if plan.rows == 16:
+        q8_0_bf16_gemv_launches += 1
+    else:
+        q8_0_bf16_gemv_rows_launches += 1
     return out
 
 

@@ -41,11 +41,13 @@ instantiations, q4k_q8_rows_kernel, q8_0_q8_rows_kernel and
 q5k_q8_rows_kernel, K9's 16-row q5k_q8_mma_kernel, K10's at Q2_K's 2
 bits, plane_bf16_mma_kernel<2 up to 16 rows and plane_rows_kernel above;
 and of plane_rows_kernel's other instantiations, K4's (Q6_K, `k4_rows_ms`:
-the 4 x 40 step of `--mix q5km`, with int8 activations or without) and
-K9b's (without the zs term, `k9b_rows_ms`: `--int8-activations off`),
-beside K4's 16-row q6k_bf16_mma_kernel and the pre-pass plane_prep_kernel
-of every rows call of the three), then the top device kernels and host
-ops by time.
+the 4 x 40 step of `--mix q5km`, with int8 activations or without), K9b's
+(one bit without the zs term, `k9b_rows_ms`), K5's (Q4_K's exact
+two-part weight, `k5_rows_ms`) and K8's (signed 8-bit codes, `k8_rows_ms`),
+the last three with `--int8-activations off`, beside K4's 16-row
+q6k_bf16_mma_kernel and the pre-pass plane_prep_kernel of every rows call
+that has one (all but K8's)), then the top device kernels and host ops by
+time.
 """
 
 from __future__ import annotations
@@ -65,9 +67,10 @@ FEW = 4  # prompts in the traced prefill steps that fill a few of the slots
 
 
 def _plane_fmt(key: str):
-    """The template arguments BITS, SIGNED, ST, ZS of a
+    """The template arguments BITS, SIGNED, ST, ZS (, KE) of a
     plane_rows_kernel<PlaneFmt<...>, BM> event's name, or None for another
-    kernel (K4's is plane_rows_kernel<Q6kFmt, BM>)."""
+    kernel (K4's is plane_rows_kernel<Q6kFmt, BM>, K5's
+    plane_rows_kernel<Q4kFmt<KE>, BM>)."""
     head = "PlaneFmt<"
     if "plane_rows_kernel<" not in key or head not in key:
         return None
@@ -83,7 +86,9 @@ NAMED_KERNELS = {"grouped_gemm": "grouped_gemm", "k5": "q4k_bf16_mma",
                  "k10_rows": lambda k: (_plane_fmt(k) or [""] * 4)[3] == "true",
                  "k4": "q6k_bf16_mma_kernel",
                  "k4_rows": lambda k: "plane_rows_kernel<" in k and "Q6kFmt" in k,
-                 "k9b_rows": lambda k: (_plane_fmt(k) or [""] * 4)[3] == "false",
+                 "k9b_rows": lambda k: (_plane_fmt(k) or [""] * 4)[:4:3] == ["1", "false"],
+                 "k5_rows": lambda k: "plane_rows_kernel<" in k and "Q4kFmt" in k,
+                 "k8_rows": lambda k: (_plane_fmt(k) or [""] * 4)[:2] == ["8", "true"],
                  "plane_prep": "plane_prep_kernel",
                  "k6": "flash_prefill_kernel", "k6p": "flash_prefill_paged_kernel"}
 

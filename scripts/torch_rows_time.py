@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the rows instantiations of K9 (`q5k_q8_gemv`), K10 (`affine_gemv`),
-K4 (`q6k_bf16_gemv`) and K9b (`q5k_hbit_bf16_gemv`) in one or more
-checkouts of this repository on one card.
+K4 (`q6k_bf16_gemv`), K9b (`q5k_hbit_bf16_gemv`), K5 (`q4k_bf16_gemv`) and
+K8 (`q8_0_bf16_gemv`) in one or more checkouts of this repository on one
+card.
 
     python3 scripts/torch_rows_time.py [--trace] ROOT [ROOT ...]
 
@@ -12,14 +13,18 @@ kernels and prints one JSON line: K9 at Mistral-7B's gate|up (4096->28672)
 at 64 and 256 rows, K10 at Q2_K's gate|up (64 and 256 rows) and q|k
 (4096->5120, 256), GPTQ-8 (group 128), HQQ-1 and HQQ-2 (group 64) and
 GPTQ-4 (group 16) at gate|up, 256 rows, K4 at the Q6_K down (14336->4096)
-and v (4096->1024), and K9b at gate|up, both at 64 and 256 rows, each time
-chip_smoke.Clock's median of 25 runs (L2 flushed) beside the relative
-error against the plain version (but K9's). A tree whose K4 or K9b has no
-rows instantiation times its older kernel at the same call. With --trace,
-instead, the device time a call of each kernel a rows call launches (the
-pre-pass and the GEMV), from a torch.profiler trace of 10 calls (L2 warm),
-of K10 at Q2_K's gate|up (64 and 256 rows) and GPTQ-8's (256), K4 at down
-(256) and K9b at gate|up (64 and 256).
+and v (4096->1024), K9b and K5 at gate|up, all at 64 and 256 rows, K5 at
+down (256), K8 on rq8's f32 scales at the lm_head (4096->32768, 64 and
+256 rows), down and v (256) and on wire Q8_0's bf16 scales at the lm_head
+(64), each time chip_smoke.Clock's median of 25 runs (L2 flushed) beside
+the relative error against the plain version (but K9's). A tree whose
+kernel has no rows instantiation times its older kernel at the same call.
+With --trace, instead, the device time a call of each kernel a rows call
+launches (the pre-pass, the GEMV and, with K splits, the split-K pass),
+from a torch.profiler trace of 10 calls (L2 warm), of K10 at Q2_K's
+gate|up (64 and 256 rows) and GPTQ-8's (256), K4 at down (256), K9b and
+K5 at gate|up (64 and 256), K5 at down (256) and K8 at the lm_head (64
+and 256) and v (256).
 """
 
 from __future__ import annotations
@@ -41,6 +46,12 @@ TRACE_CASES = (("q2k", 2, 16, 4096, 28672, 256), ("q2k", 2, 16, 4096, 28672, 64)
 # (name, K, O, rows): K4 at the Q6_K projections, K9b at gate|up
 K4_CASES = (("down", 14336, 4096, (64, 256)), ("v", 4096, 1024, (64, 256)))
 K9B_CASES = (("gate|up", 4096, 28672, (64, 256)),)
+# (name, K, O, rows): K5 at gate|up and down; (name, K, O, f32 scales, rows): K8
+K5_CASES = (("gate|up", 4096, 28672, (64, 256)), ("down", 14336, 4096, (256,)))
+K8_CASES = (("lm_head", 4096, 32768, True, (64, 256)), ("down", 14336, 4096, True, (256,)),
+            ("v", 4096, 1024, True, (256,)), ("lm_head wire", 4096, 32768, False, (64,)))
+K5_TRACE = (("gate|up", 4096, 28672, 64), ("gate|up", 4096, 28672, 256), ("down", 14336, 4096, 256))
+K8_TRACE = (("lm_head", 4096, 32768, 64), ("lm_head", 4096, 32768, 256), ("v", 4096, 1024, 256))
 
 
 def setup(root: str):
@@ -58,8 +69,8 @@ def setup(root: str):
     def u8(*shape):
         return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
 
-    def scales(*shape, lo=0.001, hi=0.005):
-        return (torch.rand(shape, device=dev, generator=gen) * (hi - lo) + lo).to(torch.bfloat16)
+    def scales(*shape, lo=0.001, hi=0.005, dtype=torch.bfloat16):
+        return (torch.rand(shape, device=dev, generator=gen) * (hi - lo) + lo).to(dtype)
 
     def acts(B, K):
         return torch.randn(B, K, device=dev, generator=gen).to(torch.bfloat16)
@@ -110,6 +121,23 @@ def measure(root: str) -> dict:
             out[f"k9b {name} B={B}"] = timed(
                 lambda dt: qm.q5k_hbit_bf16_gemv(x, qh, sc, out_dtype=dt),
                 lambda: qm.q5k_hbit_bf16_gemv_plain(x, qh, sc, torch.float32))
+    for name, K, O, rows in K5_CASES:
+        qs, sc, mn = u8(K // 2, O), scales(K // 32, O), scales(K // 32, O, lo=0.0, hi=0.002)
+        for B in rows:
+            x = acts(B, K)
+            out[f"k5 {name} B={B}"] = timed(
+                lambda dt: qm.q4k_bf16_gemv(x, qs, sc, mn, out_dtype=dt),
+                lambda: qm.q4k_bf16_gemv_plain(x, qs, sc, mn, torch.float32))
+        del qs
+    for name, K, O, f32, rows in K8_CASES:
+        q = u8(K, O).view(torch.int8)
+        s = scales(K // 32, O, lo=1e-4, hi=4e-4, dtype=torch.float32 if f32 else torch.bfloat16)
+        for B in rows:
+            x = acts(B, K)
+            out[f"k8 {name} B={B}"] = timed(
+                lambda dt: qm.q8_0_bf16_gemv(x, q, s, out_dtype=dt),
+                lambda: qm.q8_0_bf16_gemv_plain(x, q, s, torch.float32))
+        del q
     return {"root": root, "device": torch.cuda.get_device_name(0), "rows": out}
 
 
@@ -144,6 +172,14 @@ def trace(root: str) -> dict:
     for B in (64, 256):
         x = acts(B, K)
         out[f"k9b gate|up B={B}"] = kernel_ms(lambda: qm.q5k_hbit_bf16_gemv(x, qh, sc))
+    for name, K, O, B in K5_TRACE:
+        qs, sc, mn = u8(K // 2, O), scales(K // 32, O), scales(K // 32, O, lo=0.0, hi=0.002)
+        x = acts(B, K)
+        out[f"k5 {name} B={B}"] = kernel_ms(lambda: qm.q4k_bf16_gemv(x, qs, sc, mn))
+    for name, K, O, B in K8_TRACE:
+        q, s = u8(K, O).view(torch.int8), scales(K // 32, O, lo=1e-4, hi=4e-4, dtype=torch.float32)
+        x = acts(B, K)
+        out[f"k8 {name} B={B}"] = kernel_ms(lambda: qm.q8_0_bf16_gemv(x, q, s))
     return {"root": root, "device": torch.cuda.get_device_name(0), "kernel_ms": out}
 
 

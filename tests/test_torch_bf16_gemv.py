@@ -104,7 +104,7 @@ def test_dispatcher_bf16_matches_jax_interpret(gtype, B):
     _close(got.float().numpy(), want, BF16_RTOL)
 
 
-@pytest.mark.parametrize("B", (1, 16))
+@pytest.mark.parametrize("B", (1, 16, 64))  # 64: the rows instantiation's
 def test_k5_plain_matches_pallas_q4k(B):
     K = 1024
     jl, tl = _pair(GGMLType.Q4_K, O, K, 11 + B)
@@ -118,7 +118,7 @@ def test_k5_plain_matches_pallas_q4k(B):
     _close(got.numpy(), want, F32_RTOL)
 
 
-@pytest.mark.parametrize("B", (1, 16))
+@pytest.mark.parametrize("B", (1, 16, 64))  # 64: the rows instantiation's
 def test_k8_plain_matches_pallas_q8_0(B):
     K = 1024
     jl, tl = _pair(GGMLType.Q8_0, O, K, 21 + B)
@@ -213,7 +213,15 @@ ROUTE_CASES = [  # (type, in, rq8 group, rows, int8_act) -> routes taken
     (GGMLType.Q6_K, 1024, 32, 16, False, {"k8": 1}),  # rq8 at group 32
     (GGMLType.Q6_K, 1024, 64, 16, True, {"k2": 1}),
     (GGMLType.Q6_K, 1024, 64, 16, False, {"dequant": 1}),  # no bf16 kernel at group 64
-    # 17-256 rows with int8_act off: the rows instantiations of K9b and K4
+    # 17-256 rows with int8_act off: the rows instantiations of K5, K9b, K4
+    # and K8, never the dequant route
+    (GGMLType.Q4_K, 512, None, 17, False, {"k5": 1}),
+    (GGMLType.Q4_K, 512, None, 64, False, {"k5": 1}),
+    (GGMLType.Q4_K, 512, None, 256, False, {"k5": 1}),
+    (GGMLType.Q8_0, 512, None, 64, False, {"k8": 1}),
+    (GGMLType.Q8_0, 512, None, 256, False, {"k8": 1}),
+    (GGMLType.Q6_K, 1024, 32, 17, False, {"k8": 1}),  # rq8 at group 32
+    (GGMLType.Q6_K, 1024, 32, 256, False, {"k8": 1}),
     (GGMLType.Q5_K, 2048, None, 17, False, {"k5": 1, "k9b": 1}),
     (GGMLType.Q5_K, 2048, None, 64, False, {"k5": 1, "k9b": 1}),
     (GGMLType.Q5_K, 2048, None, 256, False, {"k5": 1, "k9b": 1}),

@@ -673,21 +673,74 @@ def test_bf16_kernels_hold_k9b_rows_at_every_gguf_bf16_shape(monkeypatch, sms, w
     assert {shape for shape, _ in k9b} >= {f"{nm} B={B}" for nm in ("qk", "o", "down")
                                            for B in (17, 64, 256)}
     assert {ks for _, ks in k9b} == want_splits
-    # K5 and K8 keep their rows: none at o, none at 17
+    # K5's and K8's 16-row instantiations only up to 16 rows, none at o
     assert not [r for r in rows if r[0] in ("q4k_bf16_gemv", "q8_0_bf16_gemv")
-                and (r[1].startswith("o ") or r[1].endswith("B=17"))]
+                and (r[1].startswith("o ") or not r[1].endswith(("B=1", "B=16")))]
+    assert {r[1] for r in rows if r[0] == "q8_0_bf16_gemv"} == {
+        "gate|up B=1", "gate|up B=16", "qk B=16", "down B=16", "lm_head B=1", "lm_head B=16",
+        "lm_head wire B=16"}
+
+
+# hidden 2048: K5's rows instantiation splits K at zs slices of 512
+# elements, so o and down (K 512) take one split; 32 column tiles of the
+# lm_head fill 32 SMs
+WIDE = chip_smoke.Sizes(vocab=3968, hidden=2048, inter=512, heads=4, kv_heads=2, layers=2)
+
+
+@pytest.mark.parametrize("sms", [32, 4])
+def test_bf16_rows_kernels_hold_k5_and_k8_rows(monkeypatch, sms):
+    """bf16_rows_kernels at a small size on the CPU (the plain versions on
+    both sides, 17 and 64 rows): K5's rows instantiation at gate|up, q|k, o
+    and down, K8's at v, down and the lm_head on f32 scales and at the
+    lm_head on bf16 ones, each row with the plan's K split; with few SMs
+    no K5 shape splits K, and the phase refuses."""
+    from mistralrs_tpu_torch.ops import kernels
+
+    monkeypatch.setattr(kernels, "sm_count", lambda device: sms)
+    monkeypatch.setattr(chip_smoke, "BF16_ROWS_B", (17, 64))
+    rows = []
+
+    def inputs(seed):
+        gen = torch.Generator().manual_seed(seed)
+
+        def rand(*shape, lo=0.0, hi=1.0, dtype=torch.float32):
+            return (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dtype)
+        return gen, rand
+
+    def record(name, shape_name, err, rel, tol, *_, **extra):
+        assert rel <= tol, (name, shape_name, rel)
+        rows.append((name, shape_name, extra["splits"]))
+
+    run = lambda: chip_smoke.bf16_rows_kernels(WIDE, torch.device("cpu"), _CallOnce(),
+                                               inputs(1), inputs(2), record)
+    if sms == 4:
+        with pytest.raises(AssertionError, match="q4k_bf16_gemv_rows: compared at K splits"):
+            run()
+        return
+    run()
+    k5 = {(shape, ks) for name, shape, ks in rows if name == "q4k_bf16_gemv_rows"}
+    k8 = {(shape, ks) for name, shape, ks in rows if name == "q8_0_bf16_gemv_rows"}
+    assert {shape for shape, _ in k5} == {f"{nm} B={B}" for nm in ("gate|up", "qk", "o", "down")
+                                          for B in (17, 64)}
+    assert {shape for shape, _ in k8} == {f"{nm} B={B}" for nm in ("v", "down", "lm_head")
+                                          for B in (17, 64)} | {"lm_head wire B=64"}
+    k5_splits, k8_splits = {ks for _, ks in k5}, {ks for _, ks in k8}
+    assert 1 in k5_splits and max(k5_splits) > 1 and 1 in k8_splits and max(k8_splits) > 1
 
 
 def test_gguf_bf16_path_holds_the_three_kernels():
-    assert chip_smoke.PATH_KERNELS["gguf_bf16"] == ("q4k_bf16_gemv", "q8_0_bf16_gemv",
-                                                    "q5k_hbit_bf16_gemv", "q5k_hbit_bf16_gemv_rows")
-    # 20 kernels, K1, K2, K9, K10, K4 and K9b counted in two instantiations each
-    assert len(chip_smoke.KERNEL_INFO) == 26
+    assert chip_smoke.PATH_KERNELS["gguf_bf16"] == (
+        "q4k_bf16_gemv", "q8_0_bf16_gemv", "q5k_hbit_bf16_gemv", "q5k_hbit_bf16_gemv_rows",
+        "q4k_bf16_gemv_rows", "q8_0_bf16_gemv_rows")
+    # 20 kernels, K1, K2, K9, K10, K4, K9b, K5 and K8 counted in two
+    # instantiations each
+    assert len(chip_smoke.KERNEL_INFO) == 28
     # K4's 16-row instantiation: only where Q6_K is kept with bf16 activations
     assert chip_smoke.PATH_KERNELS["card_vs_cpu_q5km_bf16"] == ("q6k_bf16_gemv",)
     for name, path in (("q4k_q8_gemv", "slice"), ("q8_0_q8_gemv", "slice"),
                        ("q5k_q8_gemv", "quant_mix"), ("affine_gemv", "q2k"),
-                       ("q6k_bf16_gemv", "quant_mix"), ("q5k_hbit_bf16_gemv", "gguf_bf16")):
+                       ("q6k_bf16_gemv", "quant_mix"), ("q5k_hbit_bf16_gemv", "gguf_bf16"),
+                       ("q4k_bf16_gemv", "gguf_bf16"), ("q8_0_bf16_gemv", "gguf_bf16")):
         assert chip_smoke.KERNEL_INFO[f"{name}_rows"] == chip_smoke.KERNEL_INFO[name]
         assert f"{name}_rows" in chip_smoke.PATH_KERNELS[path]
     for name in chip_smoke.PATH_KERNELS["gguf_bf16"]:

@@ -612,7 +612,7 @@ def test_q5k_hbit_bf16_gemv_rows_matches_plain(dev, K, O, B):
 def test_k4_k9b_rows_count_apart(dev):
     """At 16 rows K4 and K9b launch their 16-row instantiations, at 17 their
     rows instantiations, each counted apart; the Q5_K bf16 route at 64 rows
-    launches K5 and K9b's rows instantiation."""
+    launches K5's and K9b's rows instantiations."""
     from mistralrs_tpu_torch.quant.qlinear import Linear
 
     K, O = 1024, 256
@@ -632,10 +632,14 @@ def test_k4_k9b_rows_count_apart(dev):
         assert [a - b for a, b in zip(counts(), before)] == want, B
     lin = Linear("gguf_q5k", (K, O), {"qs": qs, "qh": qh5, "scale": s5, "minv": m5},
                  int8_act=False)
-    before = counts() + [qm.q4k_bf16_gemv_launches, qm.q5k_q8_gemv_rows_launches]
+    def k5_k9():
+        return [qm.q4k_bf16_gemv_launches, qm.q4k_bf16_gemv_rows_launches,
+                qm.q5k_q8_gemv_rows_launches]
+
+    before = counts() + k5_k9()
     qm.q5k_matmul(lin, _acts(64, K, dev, 3).to(torch.bfloat16))
-    after = counts() + [qm.q4k_bf16_gemv_launches, qm.q5k_q8_gemv_rows_launches]
-    assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 1, 1, 0]
+    after = counts() + k5_k9()
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 1, 0, 1, 0]
 
 
 def _affine_arrays(dev, bits, group, K, O, seed):
@@ -1250,14 +1254,16 @@ BF16_ROWS = [1, 5, 16, 17, 64, 256]
 def test_q4k_bf16_gemv_matches_plain(dev, B, K, O):
     """K5: the same bf16 x and exact nibbles on both sides; f32 sums of bf16
     products in another order, the scale on each sub-block's sum (1e-4 of
-    max |y|, as K4)."""
+    max |y|, as K4). Up to 16 rows its 16-row instantiation, above its rows
+    instantiation (the weight as two exact bf16 parts)."""
     qs, _, scale, minv = _q5k_arrays(dev, K, O, B + K)
     x = _acts(B, K, dev, B).to(torch.bfloat16)
-    before = qm.q4k_bf16_gemv_launches
+    before = (qm.q4k_bf16_gemv_launches, qm.q4k_bf16_gemv_rows_launches)
     got = qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=torch.float32)
     want = qm.q4k_bf16_gemv_plain(x, qs, scale, minv, torch.float32)
     torch.cuda.synchronize()
-    assert qm.q4k_bf16_gemv_launches == before + 1
+    assert (qm.q4k_bf16_gemv_launches - before[0],
+            qm.q4k_bf16_gemv_rows_launches - before[1]) == ((1, 0) if B <= 16 else (0, 1))
     assert bool(torch.isfinite(got).all())
     assert _rel_err(got, want) <= 1e-4
     y16 = qm.q4k_bf16_gemv(x, qs, scale, minv)
@@ -1287,18 +1293,183 @@ def test_q5k_hbit_bf16_gemv_matches_plain(dev, B, K, O):
                                      (1024, 272, torch.bfloat16)])
 def test_q8_0_bf16_gemv_matches_plain(dev, B, K, O, sdt):
     """K8: the same bf16(q * bf16(s)) weights on both sides (rq8's f32
-    scales are rounded to bf16 first, as the JAX kernel casts them)."""
+    scales are rounded to bf16 first, as the JAX kernel casts them). Up to
+    16 rows its 16-row instantiation, above its rows instantiation."""
     g = torch.Generator(device="cpu").manual_seed(B + K + O)
     q = torch.randint(-128, 128, (K, O), generator=g, dtype=torch.int8).to(dev)
     s = (torch.rand(K // 32, O, generator=g) * 3e-4 + 1e-4).to(dev, sdt)
     x = _acts(B, K, dev, B + 2).to(torch.bfloat16)
-    before = qm.q8_0_bf16_gemv_launches
+    before = (qm.q8_0_bf16_gemv_launches, qm.q8_0_bf16_gemv_rows_launches)
     got = qm.q8_0_bf16_gemv(x, q, s, out_dtype=torch.float32)
     want = qm.q8_0_bf16_gemv_plain(x, q, s, torch.float32)
     torch.cuda.synchronize()
-    assert qm.q8_0_bf16_gemv_launches == before + 1
+    assert (qm.q8_0_bf16_gemv_launches - before[0],
+            qm.q8_0_bf16_gemv_rows_launches - before[1]) == ((1, 0) if B <= 16 else (0, 1))
     assert bool(torch.isfinite(got).all())
     assert _rel_err(got, want) <= 1e-4
+
+
+# K5's rows instantiation at the Q4_K / Q5_K projections (gate|up with one K
+# split at 256 rows, q|k, o and down with more) and a column tail; K8's at
+# the rq8 v (8 splits), down (2) and lm_head (1), wire Q8_0's lm_head, and a
+# column tail with bf16 scales
+K5_ROWS_SHAPES = [(4096, 28672), (4096, 5120), (4096, 4096), (14336, 4096), (512, 272)]
+K8_ROWS_SHAPES = [(4096, 1024, torch.float32), (14336, 4096, torch.float32),
+                  (4096, 32768, torch.float32), (4096, 32768, torch.bfloat16),
+                  (1024, 272, torch.bfloat16)]
+K5_K8_ROWS_B = [17, 64, 129, 256]
+
+
+def _q8_bf16_arrays(dev, K, O, sdt, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randint(-128, 128, (K, O), generator=g, dtype=torch.int8).to(dev)
+    s = (torch.rand(K // 32, O, generator=g) * 3e-4 + 1e-4).to(dev, sdt)
+    return q, s
+
+
+def _rows_case(dev, plan, call, plain, counters):
+    """One rows-instantiation call against its plain version: f32 out within
+    1e-4 of max |y|, bit-equal on repeat, bf16 out the f32 out rounded
+    once, three launches counted as rows and none as 16-row."""
+    assert plan.rows in (64, 128)
+    before = [getattr(qm, c) for c in counters]
+    got, again, y16 = call(torch.float32), call(torch.float32), call(torch.bfloat16)
+    want = plain()
+    torch.cuda.synchronize()
+    assert [getattr(qm, c) - b for c, b in zip(counters, before)] == [0, 3]
+    assert bool(torch.isfinite(got).all()) and _rel_err(got, want) <= 1e-4, plan
+    assert torch.equal(got, again)
+    assert torch.equal(y16, got.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("B", K5_K8_ROWS_B)
+@pytest.mark.parametrize("K,O", K5_ROWS_SHAPES)
+def test_q4k_bf16_gemv_rows_matches_plain(dev, K, O, B):
+    """K5's rows instantiation with one K split and with many: within 1e-4
+    of max |y| of the plain version (the weight q * s exact, only the f32
+    sums' order differs), bit-equal on repeat."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    qs, _, scale, minv = _q5k_arrays(dev, K, O, B + K + O + 5)
+    x = _acts(B, K, dev, B + 5).to(torch.bfloat16)
+    _rows_case(dev, qm.q4k_bf16_plan(B, K, O, sms),
+               lambda dt: qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=dt),
+               lambda: qm.q4k_bf16_gemv_plain(x, qs, scale, minv, torch.float32),
+               ("q4k_bf16_gemv_launches", "q4k_bf16_gemv_rows_launches"))
+
+
+@pytest.mark.parametrize("B", K5_K8_ROWS_B)
+@pytest.mark.parametrize("K,O,sdt", K8_ROWS_SHAPES)
+def test_q8_0_bf16_gemv_rows_matches_plain(dev, K, O, sdt, B):
+    """K8's rows instantiation (x read in place) with one K split and with
+    many, f32 and bf16 scales: within 1e-4 of max |y| of the plain version
+    (the same bf16(q * bf16(s)) weights), bit-equal on repeat."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    q, s = _q8_bf16_arrays(dev, K, O, sdt, B + K + O + 6)
+    x = _acts(B, K, dev, B + 6).to(torch.bfloat16)
+    _rows_case(dev, qm.q8_0_bf16_plan(B, K, O, sdt == torch.float32, sms),
+               lambda dt: qm.q8_0_bf16_gemv(x, q, s, out_dtype=dt),
+               lambda: qm.q8_0_bf16_gemv_plain(x, q, s, torch.float32),
+               ("q8_0_bf16_gemv_launches", "q8_0_bf16_gemv_rows_launches"))
+
+
+def test_k5_k8_rows_split_at_one_and_several(dev):
+    """The shapes above reach the rows instantiations at one K split and at
+    several, for each of the two kernels."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k5 = {qm.q4k_bf16_plan(B, K, O, sms).ksplit for K, O in K5_ROWS_SHAPES for B in K5_K8_ROWS_B}
+    k8 = {qm.q8_0_bf16_plan(B, K, O, sdt == torch.float32, sms).ksplit
+          for K, O, sdt in K8_ROWS_SHAPES for B in K5_K8_ROWS_B}
+    assert 1 in k5 and max(k5) > 1 and 1 in k8 and max(k8) > 1, (k5, k8)
+
+
+@pytest.mark.parametrize("K,O", [(512, 272), (4096, 1024)])
+def test_q4k_rows_weight_is_exact(dev, K, O):
+    """One-hot rows of x read single weights: with x = e_k and minv = 0 the
+    rows kernel's f32 out is q * s exactly (its two bf16 parts add up to
+    the exact product), the plain version's bit for bit, for every element
+    k of both nibble planes; a weight rounded to bf16 would not be."""
+    qs, _, scale, minv = _q5k_arrays(dev, K, O, K + 7)
+    minv = torch.zeros_like(minv)
+    q = torch.cat([qs & 0xF, qs >> 4], dim=0).float()
+    exact = q * torch.repeat_interleave(scale.float(), 32, dim=0)
+    assert not torch.equal(exact.to(torch.bfloat16).float(), exact)
+    for k0 in range(0, K, 256):
+        x = torch.zeros(256, K, dtype=torch.bfloat16, device=dev)
+        x[torch.arange(256), k0 + torch.arange(256)] = 1.0
+        got = qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=torch.float32)
+        assert torch.equal(got, exact[k0:k0 + 256]), k0
+        assert torch.equal(got, qm.q4k_bf16_gemv_plain(x, qs, scale, minv, torch.float32)), k0
+
+
+@pytest.mark.parametrize("sdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,O", [(1024, 272), (4096, 1024)])
+def test_q8_0_rows_decode_is_bit_equal_to_the_plain_weight(dev, K, O, sdt):
+    """With x = e_k the rows kernel's f32 out is bf16(q * bf16(s)), the
+    plain version's weight, bit for bit, for every element k."""
+    q, s = _q8_bf16_arrays(dev, K, O, sdt, K + 8)
+    w = qm.q8_0_dequant_plain(q, s, 32, torch.bfloat16).float()
+    for k0 in range(0, K, 256):
+        x = torch.zeros(256, K, dtype=torch.bfloat16, device=dev)
+        x[torch.arange(256), k0 + torch.arange(256)] = 1.0
+        got = qm.q8_0_bf16_gemv(x, q, s, out_dtype=torch.float32)
+        assert torch.equal(got, w[k0:k0 + 256]), k0
+
+
+def test_k5_k8_rows_count_apart(dev):
+    """At 16 rows K5 and K8 launch their 16-row instantiations, at 17 their
+    rows instantiations, each counted apart."""
+    K, O = 1024, 256
+    qs, _, scale, minv = _q5k_arrays(dev, K, O, 9)
+    q, s = _q8_bf16_arrays(dev, K, O, torch.float32, 10)
+
+    def counts():
+        return [getattr(qm, f"{n}{r}_launches") for n in ("q4k_bf16_gemv", "q8_0_bf16_gemv")
+                for r in ("", "_rows")]
+
+    for B, want in ((16, [1, 0, 1, 0]), (17, [0, 1, 0, 1])):
+        x = _acts(B, K, dev, B).to(torch.bfloat16)
+        before = counts()
+        qm.q4k_bf16_gemv(x, qs, scale, minv)
+        qm.q8_0_bf16_gemv(x, q, s)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(counts(), before)] == want, B
+
+
+@pytest.mark.parametrize("mix", ["Q4_K", "Q5_K"])
+def test_gguf_bf16_prefill_of_256_rows_matches_the_cpu(dev, tmp_path, mix):
+    """A 2-layer GGUF at hidden 1024 in the Q4_K_M or Q5_K_M rule (random
+    wire blocks, rq8 at group 32), served with int8_activations=False on
+    the card (bf16) and on the CPU (plain versions, f32): the 256-token
+    prefill step runs K5's and K8's rows instantiations on the card, no int8
+    GEMV; every step's logits are finite and its greedy token is the CPU's
+    wherever the CPU's top two logits are further apart than twice the
+    step's largest card-CPU difference (bf16 activations against f32 ones:
+    a closer pair is not decided by the kernels). The logits' distance is
+    chip_smoke's card_vs_cpu_bf16 check, at full width: this model's
+    logits span ~4, so a few bf16 roundings weigh more against them."""
+    import numpy as np
+
+    import chip_smoke
+
+    from mistralrs_tpu_torch.pipeline.gguf import load_gguf_model
+
+    sz = chip_smoke.Sizes(vocab=2048, hidden=1024, inter=2048, heads=8, kv_heads=2, layers=2)
+    path = str(tmp_path / f"tiny-{mix}.gguf")
+    chip_smoke.write_random_gguf(path, sz, 2, mix, seed=15)
+
+    def load(device, dt):
+        cfg, params, _, _ = load_gguf_model(path, dtype=dt, device=device)
+        return cfg, params
+
+    prompt = [int(t) for t in np.random.default_rng(16).integers(1, sz.vocab, 256)]
+    runs, card = chip_smoke._token_major_run(None, load, dev, prompt, 32, int8_activations=False)
+    assert card["q4k_bf16_gemv_rows"] > 0 and card["q8_0_bf16_gemv_rows"] > 0, card
+    assert not any(card[k] for k in chip_smoke.INT8_COUNTERS), card
+    ref, got = runs["cpu"], runs["cuda"]
+    assert np.isfinite(got).all()
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > 2 * np.abs(got - ref).max(axis=1)
+    assert (ref.argmax(1) == got.argmax(1))[decided].all(), decided
 
 
 def test_bf16_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -1320,8 +1491,8 @@ def test_gguf_pipeline_decodes_on_the_bf16_route(dev, tmp_path):
     """A 2-layer Mistral GGUF at hidden 1024 in the Q5_K_M rule (random wire
     blocks, chip_smoke.write_random_gguf), loaded by load_gguf_model and
     served with int8_activations=False: a 40-token prefill and 8 greedy
-    decode steps take K5, K9b (both instantiations) and K8 and no int8
-    GEMV; tokens are in the vocabulary and logits finite."""
+    decode steps take K5, K9b and K8 (both instantiations of each) and no
+    int8 GEMV; tokens are in the vocabulary and logits finite."""
     import numpy as np
 
     import chip_smoke
@@ -1340,6 +1511,7 @@ def test_gguf_pipeline_decodes_on_the_bf16_route(dev, tmp_path):
         int8_activations=False))
     eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
     names = ("q4k_bf16_gemv", "q5k_hbit_bf16_gemv", "q8_0_bf16_gemv", "q5k_hbit_bf16_gemv_rows",
+             "q4k_bf16_gemv_rows", "q8_0_bf16_gemv_rows",
              "q4k_q8_gemv", "q8_0_q8_gemv", "q5k_q8_gemv", "q6k_q8_gemv", "q5k_q8_gemv_rows")
     before = {n: getattr(qm, f"{n}_launches") for n in names}
     rng = np.random.default_rng(0)
@@ -1349,7 +1521,7 @@ def test_gguf_pipeline_decodes_on_the_bf16_route(dev, tmp_path):
         eng.step()
     torch.cuda.synchronize()
     ran = {n: getattr(qm, f"{n}_launches") - before[n] for n in names}
-    assert all(ran[n] > 0 for n in names[:4]) and not any(ran[n] for n in names[4:]), ran
+    assert all(ran[n] > 0 for n in names[:6]) and not any(ran[n] for n in names[6:]), ran
     (seq,) = group.seqs
     assert seq.num_generated == 8 and all(0 <= t < 2048 for t in seq.generated_tokens)
     assert np.isfinite(pipe.last_greedy_pack).all()

@@ -228,17 +228,19 @@ def test_q5k_rows_split_covers_every_pair_once():
 PLANE_SHAPES = [("qk", 4096, 5120), ("gate|up", 4096, 28672), ("down", 14336, 4096)]
 
 
-def plane_stage_bytes(bits, rows, codes_in_tile=False):
+def plane_stage_bytes(bits, rows, codes_in_tile=False, scale_bytes=2, parts=1, elems=None):
     """sizeof(PlaneRowStage) of csrc/plane_gemv.cuh written out again: x's
-    chunk tiles (rows x the step's elements, bf16), the decoded bf16 tile
-    (the step's elements x 128 columns), the byte rows, the scale rows (the
-    planes, or a row a 16 elements), rounded up to the struct's 1 KB
-    alignment. codes_in_tile: sizeof(Q6kRowStage), whose ql and qh bytes
-    wait in the last 6 KB of the decoded tile (no byte rows of its own)."""
+    chunk tiles (rows x the step's elements, bf16), the decoded bf16 tiles
+    (the step's elements x 128 columns; two for Q4kFmt's hi and lo parts),
+    the byte rows, the scale rows (the planes, or a row a 16 elements, of
+    scale_bytes each), rounded up to the struct's 1 KB alignment.
+    codes_in_tile: sizeof(Q6kRowStage), whose ql and qh bytes wait in the
+    last 6 KB of the decoded tile (no byte rows of its own)."""
     per = 8 // bits
-    elems = 32 if bits == 8 else 64
-    size = (rows * elems * 2 + elems * 128 * 2 + (0 if codes_in_tile else elems // per * 128)
-            + max(per, elems // 16) * 256)
+    elems = elems or (32 if bits == 8 else 64)
+    size = (rows * elems * 2 + parts * elems * 128 * 2
+            + (0 if codes_in_tile else elems // per * 128)
+            + max(per, elems // 16) * 128 * scale_bytes)
     return -(-size // 1024) * 1024
 
 
@@ -379,3 +381,129 @@ def test_plane_slice_steps_without_the_zs_term():
         for group in (16, 32, 64, 128):
             assert qm.plane_slice_steps(bits, group, zs=False) == 4
     assert qm.plane_slice_steps(1, 32) == 16 and qm.plane_slice_steps(2, 16) == 8
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_q4k_bf16_plan(sms):
+    """K5: its 16-row kernel up to 16 rows (today's launch: grid (column
+    tiles, K splits, 1), the split by _ksplit_for over sub-block pairs, the
+    row-major workspace with the per-32 sums); above, the rows kernel on
+    K10's 4-bit grid at group 32 (K split at zs slices of 16 main steps,
+    only to fill one wave, none empty), the ring stages of a stage with two
+    decoded tiles (32-element steps: 6 at 128 rows, 9 at 64) and carve's
+    tiled workspace: the
+    per-32 sums, x's copy in step order, the partials with more than one
+    split."""
+    E = qm.Q4K_ROW_ELEMS
+    for name, K, O in Q5K_SHAPES:
+        assert qm.plane_rows_take(K, 4, 32), name
+        slices = -(-(K // E) // (32 * 32 // E if E == 64 else 16))
+        for B in range(1, 257):
+            plan = qm.q4k_bf16_plan(B, K, O, sms)
+            ks = plan.ksplit
+            if B <= 16:
+                assert plan.rows == 16 and plan.grid == (-(-O // 128), ks, 1), (B, plan)
+                assert ks == qm._ksplit_for(O, B, K // 64, sms), (B, plan)
+                assert (plan.cluster, plan.cols, plan.stages) == (1, 128, 0), (B, plan)
+                assert plan.ws_bytes == carve_row_major(B, K, O, 0, 32, ks), (B, plan)
+                continue
+            assert plan == qm.plane_gemv_plan(B, K, O, 4, 32, sms, parts=2, elems=E)
+            check_rows_grid(B, O, sms, plan)
+            per_split = -(-slices // ks)
+            assert 1 <= ks and (ks - 1) * per_split < slices <= ks * per_split, (B, plan)
+            stage = plane_stage_bytes(4, plan.rows, parts=2, elems=E)
+            assert plan.stages == min(12, (226 * 1024 - 1024) // stage) // 3 * 3, (B, plan)
+            assert plan.stages == (9 if plan.rows == 64 else 6), (B, plan)
+            bpad, pieces, total = carve(B, K, O, 0, 32, ks, plan.rows, xcopy=True)
+            assert plan.grid[0] * plan.rows <= bpad, (B, plan)
+            assert pieces["xsum"] == (0, (K // 32) * bpad * 4)
+            assert pieces["xc"][1] == bpad * K * 2
+            assert ("part" in pieces) == (ks > 1) and plan.ws_bytes == total, (B, plan)
+
+
+# K8 at the Q4_K_M path's rq8 projections (v, the use_more_bits down, the
+# padded lm_head) and wire Q8_0's lm_head
+Q8_SHAPES = [("v", 4096, 1024, True), ("down", 14336, 4096, True),
+             ("lm_head", 4096, 32768, True), ("lm_head wire", 4096, 32768, False)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_q8_0_bf16_plan(sms):
+    """K8: its 16-row kernel up to 16 rows (today's launch: grid (column
+    tiles, K splits, 1), the split by _ksplit_for over 32-row steps, the
+    row-major workspace with the partials alone); above, the rows kernel at
+    8 bits without the zs term (K split at 4 main steps, only to fill one
+    wave, none empty), the ring stages of its stage at the scale's width,
+    and a tiled workspace with neither sums nor a copy of x (read in
+    place): the partials with more than one split, else nothing."""
+    E = qm.plane_row_geom(8)[1]
+    for name, K, O, f32 in Q8_SHAPES:
+        units = -(-(K // E) // 4)
+        for B in range(1, 257):
+            plan = qm.q8_0_bf16_plan(B, K, O, f32, sms)
+            ks = plan.ksplit
+            if B <= 16:
+                assert plan.rows == 16 and plan.grid == (-(-O // 128), ks, 1), (B, plan)
+                assert ks == qm._ksplit_for(O, B, K // 32, sms), (B, plan)
+                assert (plan.cluster, plan.cols, plan.stages) == (1, 128, 0), (B, plan)
+                assert plan.ws_bytes == carve_row_major(B, K, O, 0, 0, ks), (B, plan)
+                continue
+            check_rows_grid(B, O, sms, plan)
+            per_split = -(-units // ks)
+            assert 1 <= ks and (ks - 1) * per_split < units <= ks * per_split, (B, plan)
+            stage = plane_stage_bytes(8, plan.rows, scale_bytes=4 if f32 else 2, elems=E)
+            assert plan.stages == min(12, (226 * 1024 - 1024) // stage) // 3 * 3 >= 3, (B, plan)
+            bpad, pieces, total = carve(B, K, O, 0, 0, ks, plan.rows)
+            assert set(pieces) == ({"part"} if ks > 1 else set()), (B, plan)
+            assert plan.ws_bytes == total, (B, plan)
+
+
+def test_k5_k8_rows_plans_at_the_main_path_shapes():
+    """At 17, 64, 128 and 256 rows on 132 SMs: the grids, splits and ring
+    stages the card runs (K5's gate|up and q|k fill the card unsplit at 256
+    rows, o and down split; K8's lm_head unsplit, v in 8 or 16)."""
+    want = {  # (B, K, O) -> grid, stages
+        (17, 4096, 28672): ((1, 224, 1), 9), (256, 4096, 28672): ((2, 224, 1), 6),
+        (256, 4096, 5120): ((2, 40, 1), 6), (64, 4096, 5120): ((1, 40, 3), 9),
+        (256, 4096, 4096): ((2, 32, 2), 6), (128, 14336, 4096): ((1, 32, 4), 6)}
+    for (B, K, O), (grid, stages) in want.items():
+        plan = qm.q4k_bf16_plan(B, K, O, 132)
+        assert (plan.grid, plan.stages) == (grid, stages), (B, K, O, plan)
+    want = {(256, 4096, 32768): ((2, 256, 1), 9), (64, 4096, 32768): ((1, 256, 1), 12),
+            (256, 4096, 1024): ((2, 8, 8), 9), (17, 4096, 1024): ((1, 8, 16), 12),
+            (256, 14336, 4096): ((2, 32, 2), 9)}
+    for (B, K, O), (grid, stages) in want.items():
+        plan = qm.q8_0_bf16_plan(B, K, O, True, 132)
+        assert (plan.grid, plan.stages) == (grid, stages), (B, K, O, plan)
+
+
+def test_plane_stage_counts_the_scale_width():
+    """The stage holds its scale rows at their own width: rq8's f32 scales
+    take twice the bytes of bf16 ones (the rows kernel's sizeof, which the
+    plan's stage count must match, or the C entry point refuses the
+    plan)."""
+    for rows in (64, 128):
+        for elems in (32, 64):
+            f32 = qm.plane_row_stage_bytes(8, rows, 4, elems=elems)
+            bf16 = qm.plane_row_stage_bytes(8, rows, 2, elems=elems)
+            assert f32 == plane_stage_bytes(8, rows, scale_bytes=4, elems=elems)
+            assert bf16 == plane_stage_bytes(8, rows, scale_bytes=2, elems=elems)
+            assert f32 - bf16 == (1024 if elems == 64 else 0), (rows, elems)
+    assert qm.plane_row_stage_bytes(8, 128, 4, elems=64) == 43008  # 42 KB: 3 stages
+    assert qm.plane_row_stages(8, 64, 4, elems=64) == 6
+    assert qm.plane_row_stages(4, 128, parts=2) == 3 and qm.plane_row_stages(4, 128) == 6
+    assert qm.plane_row_stages(4, 128, parts=2, elems=32) == 6
+
+
+def test_k5_k8_take_their_plans_and_the_64_row_tiles_are_gone():
+    """Nothing sizes the 16-row design's 64-row tiles any more, and each
+    wrapper names both of its instantiations."""
+    assert not hasattr(qm, "_plane_rows")
+    for fn in (qm.q4k_bf16_gemv, qm.q8_0_bf16_gemv):
+        doc = " ".join(fn.__doc__.split())
+        assert "16-row instantiation" in doc and "rows instantiation" in doc, fn
+        assert "plane_rows_kernel" in doc, fn
+    assert qm.q4k_bf16_plan(16, 4096, 28672, 132).rows == 16
+    assert qm.q4k_bf16_plan(17, 4096, 28672, 132).rows == 64
+    assert qm.q8_0_bf16_plan(16, 4096, 32768, True, 132).rows == 16
+    assert qm.q8_0_bf16_plan(17, 4096, 32768, True, 132).rows == 64

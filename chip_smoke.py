@@ -97,9 +97,10 @@ non-zero and never prints the final line):
    and lm_head, dense bf16 experts (2.82 GB a layer, so 24 of its 32 layers;
    16 if the card's free memory is short), served in the slice phase's
    pattern through the grouped dropless dispatch: the grouped GEMM K13 at
-   M = 2,048 (4 x 256-row first chunks, with K6), 512 (4 x 64 rows) and
-   <= 32 (decode; K1 for the router and the attention). It raises unless
-   K13, K6 and K1 launched.
+   M = 2,048 (4 x 256-row first chunks, with K6) and 512 (4 x 64 rows) on
+   its tiles instantiation, and <= 32 (decode; K1 for the router and the
+   attention) on its decode one. It raises unless K13 (both
+   instantiations), K6 and K1 launched.
 14. mixtral_q4km: the same model from a GGUF in the Q4_K_M rule at all 32
    layers: Q4_K experts stacked [E, ...] (28 GB), Q4_K q, k, o, Q6_K attn_v
    and lm_head (rq8), the dense router; the same pattern through the
@@ -290,6 +291,12 @@ COUNTERS = {
 }
 
 
+# counters of one instantiation of a kernel among the kernel's launches
+# (K13's tiles instantiation; the rest of its launches are the decode one),
+# reset and read with COUNTERS
+INSTANCE_COUNTERS = {"grouped_gemm_tiles": ("grouped_gemm", "grouped_gemm_tiles_launches")}
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -297,18 +304,18 @@ def emit(obj) -> None:
 def _counter(name):
     import importlib
 
-    mod, attr = COUNTERS[name]
+    mod, attr = {**COUNTERS, **INSTANCE_COUNTERS}[name]
     return importlib.import_module(f"mistralrs_tpu_torch.ops.{mod}"), attr
 
 
 def reset_counts() -> None:
-    for name in COUNTERS:
+    for name in (*COUNTERS, *INSTANCE_COUNTERS):
         mod, attr = _counter(name)
         setattr(mod, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: getattr(*_counter(name)) for name in COUNTERS}
+    return {name: getattr(*_counter(name)) for name in (*COUNTERS, *INSTANCE_COUNTERS)}
 
 
 def k1_k2_launches(counts: dict) -> tuple[int, int]:
@@ -1697,10 +1704,12 @@ def grouped_kernels(device, clock: Clock, gen, record) -> None:
     (a per-group f32 product, sizes read on the host), random bf16 lhs and
     weights N(0, 1/K). bound: every non-empty group's weights, lhs and out
     once; 2 M K N flops. library: torch._grouped_mm (grouped_library), and
-    the per-group torch.matmul loop beside it."""
+    the per-group torch.matmul loop beside it. Each row names the plan's
+    instantiation, column tile and stages."""
     import torch
 
     from mistralrs_tpu_torch.ops import grouped_gemm as gg
+    from mistralrs_tpu_torch.ops import kernels
 
     E = MIXTRAL_EXPERTS
     weights = {}
@@ -1722,12 +1731,14 @@ def grouped_kernels(device, clock: Clock, gen, record) -> None:
         rel = err / max(float(want.abs().max()), 1e-30)
         lib, loop_ms = grouped_library(clock, lhs, rhs, sizes, want)
         nbytes = int((sizes > 0).sum()) * K * N * 2 + M * K * 2 + M * N * 2
+        plan = gg.grouped_gemm_plan(M, K, N, E, kernels.sm_count(device))
         # bf16 out on both sides, rounded once from f32 sums in another order
         record("grouped_gemm", shape, err, rel, 1e-2,
                clock.ms(lambda: gg.grouped_matmul(lhs, rhs, sizes)),
                clock.ms(lambda: gg.grouped_matmul_ref(lhs, rhs, sizes)), lib,
                bound(nbytes, 2 * M * K * N, PEAK_BF16), group_sizes=sizes.tolist(),
-               matmul_loop_ms=loop_ms)
+               matmul_loop_ms=loop_ms, plan={"kind": plan.kind, "bn": plan.bn,
+                                             "stages": plan.stages, "grid": plan.grid[0]})
         del lhs, got, want
     del weights
 
@@ -2043,6 +2054,10 @@ def mixtral_phase(sz: Sizes, device) -> dict:
     if out["kinds"] != MIXTRAL_KINDS:
         raise AssertionError(f"the Mixtral pipeline serves other kinds: {out['kinds']}")
     check_launched(out["launches"], PATH_KERNELS["mixtral"] + ("flash_prefill", "q4k_q8_gemv"))
+    n = out["launches"]
+    # K13's both instantiations: tiles on the first chunks, decode on the rest
+    if not 0 < n["grouped_gemm_tiles"] < n["grouped_gemm"]:
+        raise AssertionError(f"K13 did not run both its instantiations: {n}")
     return out
 
 

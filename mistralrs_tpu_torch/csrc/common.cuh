@@ -528,9 +528,32 @@ __device__ __forceinline__ void wgmma_bf16_rs_neg(float (&d)[N / 2], const uint3
                  : MRT_F8(0), MRT_F8(8), MRT_F8(16), MRT_F8(24)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+// K13's product (the grouped GEMM above 32 rows a group): d[128] += A
+// (64x16, smem, K-major) * B (16x256, smem, MN-major: the row-major [K, N]
+// weight read in place), the accumulators as wgmma_bf16's.
+#define MRT_ACC128_STR                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "       \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "    \
+  "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "    \
+  "%55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, "    \
+  "%73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, "    \
+  "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, " \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "    \
+  "%123, %124, %125, %126, %127}"
+__device__ __forceinline__ void wgmma_bf16_ss_t(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " MRT_ACC128_STR
+               ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+               : MRT_F8(0), MRT_F8(8), MRT_F8(16), MRT_F8(24), MRT_F8(32), MRT_F8(40),
+                 MRT_F8(48), MRT_F8(56), MRT_F8(64), MRT_F8(72), MRT_F8(80), MRT_F8(88),
+                 MRT_F8(96), MRT_F8(104), MRT_F8(112), MRT_F8(120)
+               : "l"(da), "l"(db), "r"(1));
+}
 #undef MRT_F8
 #undef MRT_ACC32_STR
 #undef MRT_ACC64_STR
+#undef MRT_ACC128_STR
 
 // Shared-memory matrix descriptors with a swizzle: `lbo` and `sbo` as for
 // kmajor_desc (for a K-major operand lbo is unused), layout 1 = the 128-byte
@@ -550,6 +573,11 @@ template <int NA>
 __device__ __forceinline__ void fence_operand(int (&d)[NA]) {
 #pragma unroll
   for (int i = 0; i < NA; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int NA>
+__device__ __forceinline__ void fence_operand(float (&d)[NA]) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 // the same for a wgmma's A fragments held in registers: placed after the
 // wait that completes it, their registers are not reused before

@@ -34,7 +34,9 @@ forwards each, median of 5) with the host clock and traces one with
 torch.profiler. Prints JSON lines: a summary per phase (wall time, the
 device's busy share = sum of kernel times over the traced wall time,
 kernel launches, and the device time of K13, K5, K8 and K9b and their
-shares of it: kernels named grouped_gemm, q4k_bf16_mma,
+shares of it: kernels named grouped_gemm (and K13's two instantiations
+apart, `k13_tiles_ms` above 32 rows a group and `k13_decode_ms` up to it:
+grouped_gemm_tiles_kernel and grouped_gemm_decode_kernel), q4k_bf16_mma,
 plane_bf16_mma_kernel<8 and plane_bf16_mma_kernel<1, the last also K10's
 at 1 bit, which no mix here runs; of K1's, K2's and K9's rows
 instantiations, q4k_q8_rows_kernel, q8_0_q8_rows_kernel and
@@ -78,7 +80,8 @@ def _plane_fmt(key: str):
 
 
 # device time reported by kernel: a part of the kernel's name, or a test of it
-NAMED_KERNELS = {"grouped_gemm": "grouped_gemm", "k5": "q4k_bf16_mma",
+NAMED_KERNELS = {"grouped_gemm": "grouped_gemm", "k13_tiles": "grouped_gemm_tiles_kernel",
+                 "k13_decode": "grouped_gemm_decode_kernel", "k5": "q4k_bf16_mma",
                  "k8": "plane_bf16_mma_kernel<8", "k9b": "plane_bf16_mma_kernel<1",
                  "k1_rows": "q4k_q8_rows_kernel", "k2_rows": "q8_0_q8_rows_kernel",
                  "k9": "q5k_q8_mma_kernel", "k9_rows": "q5k_q8_rows_kernel",

@@ -1072,6 +1072,13 @@ def _skewed_sizes(M, G, seed):
     return np.bincount(np.random.default_rng(seed + 1).choice(G, M, p=p), minlength=G).tolist()
 
 
+def _forty_rows(G, seed):
+    """G groups of 30-50 rows each (seeded)."""
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(30, 51, G).tolist()
+
+
 GROUPED_CASES = [
     # small shapes: empty groups, M not a multiple of any row tile, one group
     ([10, 0, 25, 15], 96, 160),
@@ -1085,6 +1092,16 @@ GROUPED_CASES = [
     (_skewed_sizes(512, 8, 2), 4096, 14336),
     (_skewed_sizes(2048, 8, 3), 14336, 4096),
     ([0, 0, 512, 0, 0, 0, 0, 0], 4096, 14336),
+    # above 32 rows a group (the tiles instantiation): a group of 129 rows,
+    # one row into its second 128-row tile; the K tail (96 = 64 + 32) and the
+    # N edge inside a 64-column box; 256 groups of ~40 rows on narrow K and
+    # N; groups that end inside tiles at Mixtral widths and M = 4,096 (4 x
+    # 512 rows, top-2), gate and down
+    ([129], 128, 192),
+    ([100, 0, 70], 96, 264),
+    (_forty_rows(256, 0), 96, 72),
+    (_skewed_sizes(4096, 8, 4), 4096, 14336),
+    (_skewed_sizes(4096, 8, 5), 14336, 4096),
 ]
 
 
@@ -1101,6 +1118,91 @@ def test_grouped_gemm_matches_plain(dev, sizes, K, N):
     assert got.shape == (sum(sizes), N) and bool(torch.isfinite(got).all())
     # bf16 out on both sides from f32 sums in another order: one bf16 ulp
     assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("sizes,K,N", [([200, 170, 0, 165], 160, 264),
+                                       ([300, 0, 260], 256, 4096),
+                                       ([5, 0, 9, 3], 96, 136)])
+def test_grouped_gemm_one_hot_rows_select_weight_rows_exactly(dev, sizes, K, N):
+    """Row m of lhs one-hot at K index k_m: out[m] is the group's weight row
+    k_m rounded to bf16, exactly (one product, f32 sum, one rounding), for
+    every group; k_m walks the group's K indices, so where a group has K
+    rows (the first two cases, the tiles instantiation) every element of
+    its weight is read where the kernel's staged layout puts it (the
+    MN-major B operand of the tiles kernel, the ldmatrix.trans fragments of
+    the decode one; the last case)."""
+    from mistralrs_tpu_torch.ops import grouped_gemm as gg
+
+    _, rhs, gs = _grouped_inputs(dev, sizes, K, N, seed=K + N)
+    M = sum(sizes)
+    ks, want = [], []
+    for g, n in enumerate(sizes):
+        k = torch.arange(n) % K
+        ks.append(k)
+        want.append(rhs[g].cpu()[k])
+    lhs = torch.nn.functional.one_hot(torch.cat(ks), K).to(dev, torch.bfloat16)
+    got = gg.grouped_matmul(lhs, rhs, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), torch.cat(want)) and got.shape == (M, N)
+
+
+@pytest.mark.parametrize("sizes,K,N", [(_skewed_sizes(2048, 8, 6), 4096, 14336),
+                                       ([100, 0, 70], 96, 264),
+                                       (_skewed_sizes(32, 8, 7), 4096, 14336)])
+def test_grouped_gemm_is_bit_equal_on_repeat(dev, sizes, K, N):
+    """No split-K and no atomics in either instantiation: calls on the same
+    inputs agree bit for bit."""
+    from mistralrs_tpu_torch.ops import grouped_gemm as gg
+
+    lhs, rhs, gs = _grouped_inputs(dev, sizes, K, N, seed=7)
+    first = gg.grouped_matmul(lhs, rhs, gs)
+    for _ in range(2):
+        assert torch.equal(gg.grouped_matmul(lhs, rhs, gs), first)
+
+
+@pytest.mark.parametrize("sizes,M,K,N", [([100, -5, 80, 60], 200, 96, 136),
+                                         ([700, 300], 800, 128, 192),
+                                         ([10, -3, 30], 30, 64, 72)])
+def test_grouped_gemm_drops_rows_past_m(dev, sizes, M, K, N):
+    """Sizes that sum above M (rows past M dropped) and negative sizes
+    (counted as 0), on the tiles instantiation (the first two) and the
+    decode one, against the plain version."""
+    from mistralrs_tpu_torch.ops import grouped_gemm as gg
+
+    g = torch.Generator(device="cpu").manual_seed(M)
+    lhs = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+    rhs = (torch.randn(len(sizes), K, N, generator=g) * K ** -0.5).to(dev, torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    got = gg.grouped_matmul(lhs, rhs, gs).float()
+    want = gg.grouped_matmul_ref(lhs, rhs, gs).float()
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("M,G", [(32, 1), (33, 1), (256, 8), (264, 8), (8192, 256),
+                                 (8193, 256)])
+def test_grouped_gemm_route_takes_tiles_above_32_rows_a_group(dev, M, G):
+    """Up to 32 rows a group on average the decode instantiation launches,
+    above it the tiles one: by the per-instantiation counter and by the
+    kernel's name in a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mistralrs_tpu_torch.ops import grouped_gemm as gg
+
+    sizes = [M // G + (g < M % G) for g in range(G)]
+    lhs, rhs, gs = _grouped_inputs(dev, sizes, 64, 128, seed=M)
+    gg.grouped_matmul(lhs, rhs, gs)  # built and loaded before the trace
+    tiles = M > 32 * G
+    before, before_tiles = gg.grouped_gemm_launches, gg.grouped_gemm_tiles_launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gg.grouped_matmul(lhs, rhs, gs)
+        torch.cuda.synchronize()
+    assert gg.grouped_gemm_launches == before + 1
+    assert gg.grouped_gemm_tiles_launches == before_tiles + tiles
+    names = [e.key for e in prof.key_averages() if "grouped_gemm" in e.key]
+    want = "grouped_gemm_tiles_kernel" if tiles else "grouped_gemm_decode_kernel"
+    assert names and all(want in n for n in names), names
 
 
 def test_grouped_gemm_wrapper_raises_on_what_the_kernel_does_not_take(dev):

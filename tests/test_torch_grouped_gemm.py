@@ -15,6 +15,9 @@ in f32 on the CPU, on the same seeded numpy inputs.
   by the port's fusion, routes as JAX's unpadded one does.
 - Router logits with deliberate ties pick the same experts in both
   packages (the lower index first, as jax.lax.top_k does).
+- K13's launch plan (`grouped_gemm_plan`, pure Python) at Mixtral's and
+  the card tests' shapes: the instantiation threshold, the grid, shared
+  memory, the tile multiples and the C entry point's argument order.
 """
 
 import jax
@@ -72,6 +75,59 @@ def test_grouped_matmul_refuses_mismatched_shapes():
         tgg.grouped_matmul(lhs, rhs, torch.tensor([4], dtype=torch.int32))
     with pytest.raises(ValueError):
         tgg.grouped_matmul(lhs, torch.zeros(2, 9, 16), torch.tensor([2, 2], dtype=torch.int32))
+
+
+# (M, K, N, G): Mixtral-8x7B's gate and down at a decode step (32 pairs),
+# the 4 x 64-, 4 x 256-, 4 x 512- and 16 x 256-row first chunks (M 512,
+# 2,048, 4,096, 8,192), and the card tests' small shapes
+PLAN_SHAPES = [(32, 4096, 14336, 8), (32, 14336, 4096, 8), (512, 4096, 14336, 8),
+               (512, 14336, 4096, 8), (2048, 4096, 14336, 8), (2048, 14336, 4096, 8),
+               (4096, 4096, 14336, 8), (8192, 4096, 14336, 8), (8192, 14336, 4096, 8),
+               (50, 96, 160, 4), (131, 96, 160, 4), (129, 128, 192, 1), (170, 96, 264, 3),
+               (10240, 96, 72, 256), (1, 32, 8, 1), (33, 32, 8, 1)]
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("M,K,N,G", PLAN_SHAPES)
+def test_grouped_gemm_plan_fits_the_card(M, K, N, G, sms):
+    """K13's plan: the decode instantiation up to 32 rows a group on
+    average, the tiles one above; a grid no larger than the SM count or the
+    tiles group boundaries can make; at most 227 KB of shared memory; the
+    tiles kernel's column tile and K step multiples of 64 (its 128-byte
+    swizzled boxes)."""
+    plan = tgg.grouped_gemm_plan(M, K, N, G, sms)
+    assert plan.smem_bytes <= 227 * 1024
+    if M <= 32 * G:
+        assert plan.kind == "decode" and (plan.bm, plan.bn, plan.bk) == (16, 128, 32)
+        assert plan.grid == (-(-N // 128), -(-M // 16) + G - 1, 1) and plan.threads == 128
+        return
+    tiles = min(-(-M // 128) + G - 1, M) * -(-N // plan.bn)
+    assert plan.kind == "tiles" and plan.bm == 128 and plan.threads == 384
+    assert plan.bn % 64 == 0 and plan.bk % 64 == 0
+    assert 1 <= plan.grid[0] <= min(sms, tiles) and plan.grid[1:] == (1, 1)
+    assert plan.grid[0] == min(sms, tiles)  # persistent: every SM, or every tile
+    stage = (plan.bm + plan.bn) * plan.bk * 2
+    assert plan.stages >= 4 and plan.stages * stage <= 200 * 1024 < (plan.stages + 1) * stage
+
+
+@pytest.mark.parametrize("G", [1, 8, 256])
+def test_grouped_gemm_plan_threshold_is_32_rows_a_group(G):
+    assert tgg.grouped_gemm_plan(32 * G, 4096, 14336, G, 132).kind == "decode"
+    assert tgg.grouped_gemm_plan(32 * G + 1, 4096, 14336, G, 132).kind == "tiles"
+
+
+def test_grouped_gemm_plan_is_what_the_c_entry_point_checks():
+    """The launch arguments in the C entry point's order: kind (0 decode, 1
+    tiles), bm, bn, bk, stages, threads, the grid, shared memory."""
+    plan = tgg.grouped_gemm_plan(2048, 4096, 14336, 8, 132)
+    assert tgg.launch_args(plan) == (1, 128, tgg.TILES_BN, 64, plan.stages, 384, 132, 1, 1,
+                                     plan.smem_bytes)
+    dec = tgg.grouped_gemm_plan(32, 4096, 14336, 8, 132)
+    assert tgg.launch_args(dec) == (0, 16, 128, 32, 4, 128, 112, 9, 1, 36864)
+    for bad in ((0, 4096, 14336, 8), (32, 4096, 14336, 0), (32, 4096, 14336, 257),
+                (32, 4096, 14336, 8)):
+        with pytest.raises(ValueError):
+            tgg.grouped_gemm_plan(*bad, 0 if bad == (32, 4096, 14336, 8) else 132)
 
 
 def _dense(w: np.ndarray) -> JLinear:

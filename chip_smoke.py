@@ -87,11 +87,13 @@ non-zero and never prints the final line):
    the rest, the window clipping on the local layers past position 4096; 64
    tokens each, decoded at span 8192 on K12), then 16 of ~200 tokens (K11,
    then decode at batch 16 on K12), 32 tokens each. It raises unless K12
-   and K11 launched and K6, K6' and K7 did not.
+   (both its chunk and its decode instantiation) and K11 launched and K6,
+   K6' and K7 did not.
 12. card_vs_cpu_ragged: the phase-9 comparison on the ragged backend, for
    2-layer Mistral-7B Q4_K_M (rq8) and Gemma-2-9B: a ~1,200-token prompt in
    a 512-token first chunk (K6 / K11), continuation chunks of 512 and 176
-   (padded to 256: a ragged q_len) on K12, then 4 decode steps on K12.
+   (padded to 256: a ragged q_len) on K12's chunk instantiation, then 4
+   decode steps on its decode one.
 13. mixtral: Mixtral-8x7B (config_from_hf on mistralai/Mixtral-8x7B-v0.1's
    config.json) as ISQ Q4K loads the HF checkpoint: Q4_K attention, router
    and lm_head, dense bf16 experts (2.82 GB a layer, so 24 of its 32 layers;
@@ -292,9 +294,11 @@ COUNTERS = {
 
 
 # counters of one instantiation of a kernel among the kernel's launches
-# (K13's tiles instantiation; the rest of its launches are the decode one),
-# reset and read with COUNTERS
-INSTANCE_COUNTERS = {"grouped_gemm_tiles": ("grouped_gemm", "grouped_gemm_tiles_launches")}
+# (K13's tiles instantiation, the rest of its launches the decode one; K12's
+# chunk instantiation, the rest its decode one), reset and read with
+# COUNTERS
+INSTANCE_COUNTERS = {"grouped_gemm_tiles": ("grouped_gemm", "grouped_gemm_tiles_launches"),
+                     "ragged_chunk": ("ragged_attention", "ragged_chunk_launches")}
 
 
 def emit(obj) -> None:
@@ -2229,6 +2233,10 @@ def gemma2_ragged_phase(sz: Sizes, device) -> dict:
     for name in ("flash_prefill", "flash_prefill_paged", "paged_decode"):
         if counts[name]:
             raise AssertionError(f"the ragged backend launched {name}: {counts}")
+    # K12's both instantiations: chunks on the continuation chunks, decode
+    # on the decode steps
+    if not 0 < counts["ragged_chunk"] < counts["ragged_attention"]:
+        raise AssertionError(f"K12 did not run both its instantiations: {counts}")
     out = {"phase": "gemma2_ragged", "layers": sz.layers,
            "requests": sum(n for n, _, _ in RAGGED_WAVES), "generated_tokens": n_toks,
            **wave_metrics(waves), "run_s": run_s, "setup_s": setup_s, "launches": counts,
@@ -2548,8 +2556,9 @@ def card_vs_cpu_ragged_phase(sz: Sizes, device) -> list[dict]:
                         torch.bfloat16)
         prompt = [int(t) for t in np.random.default_rng(9).integers(1, size.vocab, RAGGED_PROMPT)]
         runs, card = _ragged_run(cfg, weights, device, prompt, rq8)
-        want = {first: n_layers, "ragged_attention": 6 * n_layers, "flash_prefill_paged": 0,
-                "paged_decode": 0}
+        # K12: chunks on the two continuation chunks, decode on the 4 steps
+        want = {first: n_layers, "ragged_attention": 6 * n_layers, "ragged_chunk": 2 * n_layers,
+                "flash_prefill_paged": 0, "paged_decode": 0}
         if any(card[n] != k for n, k in want.items()):
             raise AssertionError(f"the ragged check took other routes on the card: {card}")
         outs.append(_compare_sides(phase, runs, device, n_layers, vocab=size.vocab,

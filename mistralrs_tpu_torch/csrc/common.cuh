@@ -678,7 +678,12 @@ __device__ __forceinline__ void store_rows(void* out, int out_mode, const float 
 // warps issue a step's copies, copy(stage, i, full, ready, warp, lane) on
 // every lane; warps 0-1 announce their bytes on `full`, warps 2-3 on
 // `ready`, a second barrier of the step (two arrivals each); the consumers
-// wait for either (acquire, acquire_ready).
+// wait for either (acquire, acquire_ready). With kSplitEmpty as well, a
+// stage's K and V are freed apart: warps 0-1 wait on `empty`, which the
+// consumers arrive on once their Q.K^T of the stage is done (release_k),
+// and warps 2-3 on a fourth barrier of the step, `vempty` (release), so a
+// ring of two stages still loads a tile's K while the tile before it is in
+// P.V (K12's chunks, csrc/flash_sm90.cuh).
 constexpr int kRowThreads = 384;
 
 // Stages of a ring: as many as kBudget bytes of shared memory (~200 KB;
@@ -698,16 +703,19 @@ __host__ __device__ constexpr int ring_stages() {
          3 * 3;
 }
 
-template <typename Stage, int kStages, bool kDecode = true, int kProducerRegs = 40>
+template <typename Stage, int kStages, bool kDecode = true, int kProducerRegs = 40,
+          bool kSplitEmpty = false>
 struct Ring {
+  static_assert(!(kDecode && kSplitEmpty), "a decode ring frees whole stages");
   // the consumers' registers: what the producers leave of the 64K, in 8s
   static constexpr int kConsumerRegs = (65536 - 128 * kProducerRegs) / 256 / 8 * 8;
+  static constexpr int kBars = kSplitEmpty ? 4 : 3;  // mbarriers a stage
   // dynamic shared memory of the ring with `extra` bytes of other buffers
   static constexpr int smem_bytes(int extra) {
-    return kStages * ((int)sizeof(Stage) + 3 * 8) + extra;
+    return kStages * ((int)sizeof(Stage) + kBars * 8) + extra;
   }
   Stage* st;
-  uint64_t* bar;  // full[kStages], ready[kStages], empty[kStages]
+  uint64_t* bar;  // full[kStages], ready[kStages], empty[kStages](, vempty[kStages])
 
   __device__ Ring(uint8_t* smem, int extra)
       : st(reinterpret_cast<Stage*>(smem)),
@@ -719,6 +727,7 @@ struct Ring {
   __device__ uint64_t* full(int i) const { return bar + i % kStages; }
   __device__ uint64_t* ready(int i) const { return bar + kStages + i % kStages; }
   __device__ uint64_t* empty(int i) const { return bar + 2 * kStages + i % kStages; }
+  __device__ uint64_t* vempty(int i) const { return bar + 3 * kStages + i % kStages; }
 
   // by every consumer thread before it reads step i's stage
   __device__ void acquire(int i) const {
@@ -728,10 +737,19 @@ struct Ring {
   // without kDecode: by every consumer thread before it reads what step i
   // announced on `ready`
   __device__ void acquire_ready(int i) const { mbar_wait(ready(i), parity(i)); }
-  // by every consumer thread once its warp's reads of step i are done
+  // by every consumer thread once its warp's reads of step i are done (with
+  // kSplitEmpty: its reads of step i's V)
   __device__ void release(int i) const {
     __syncwarp();
-    if ((threadIdx.x & 31) == 0) mbar_arrive(empty(i));
+    if ((threadIdx.x & 31) == 0) mbar_arrive(kSplitEmpty ? vempty(i) : empty(i));
+  }
+  // with kSplitEmpty, by every consumer thread once its warp's reads of step
+  // i's K are done; nothing without
+  __device__ void release_k(int i) const {
+    if constexpr (kSplitEmpty) {
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(empty(i));
+    }
   }
 
   // The whole block: copy(stage, i, full barrier) issues step i's copies
@@ -747,6 +765,7 @@ struct Ring {
         mbar_init(full(i), kDecode ? 1 : 2);
         mbar_init(ready(i), kDecode ? 1 : 2);
         mbar_init(empty(i), 8);  // one arrival per consumer warp
+        if constexpr (kSplitEmpty) mbar_init(vempty(i), 8);
       }
       mbar_init_fence();
     }
@@ -757,7 +776,8 @@ struct Ring {
       const int pw = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
       if constexpr (!kDecode) {
         for (int i = 0; i < n; ++i) {
-          if (i >= kStages) mbar_wait(empty(i), parity(i) ^ 1);
+          if (i >= kStages)
+            mbar_wait(kSplitEmpty && pw >= 2 ? vempty(i) : empty(i), parity(i) ^ 1);
           copy((*this)[i], i, full(i), ready(i), pw, lane);
         }
       } else if (pw == 0) {

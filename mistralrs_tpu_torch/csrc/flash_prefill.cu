@@ -35,7 +35,7 @@ __global__ void __launch_bounds__(mrt::kRowThreads, 1)
                          int qtiles, float mul) {
   extern __shared__ __align__(1024) uint8_t smem[];
   const int G = Hq / Hkv;
-  fa3::run_items(
+  fa3::run_items<fa3::K6Core>(
       smem, Hq * B * qtiles, mul,
       [&](int w) {
         fa3::Item it = fa3::item_at(w, Hq, B, qtiles);
@@ -54,7 +54,9 @@ __global__ void __launch_bounds__(mrt::kRowThreads, 1)
       [](const fa3::Item& it, int r, int key) { return key <= it.q0 + r; },
       [](const fa3::Item&, uint8_t*) { return false; },  // rows past T land as zeros
       [](const fa3::Item&, int) {},  // every item has a key tile
-      &omap);
+      fa3::RawLogit{},
+      [&](const fa3::Item& it, int wg, const float(&o)[fa3::kD / 2], float(&l)[2],
+          uint8_t* rows) { fa3::store(o, l, wg, rows, &omap, it.h, it.q0, it.b); });
 }
 
 }  // namespace

@@ -54,7 +54,7 @@ __global__ void __launch_bounds__(mrt::kRowThreads, 1)
   const int G = Hq / Hkv;
   const int box = min(page, fa3::kKeys);  // rows of one TMA box
   const int nbox = fa3::kKeys / box;
-  fa3::run_items(
+  fa3::run_items<fa3::K6Core>(
       smem, Hq * B * qtiles, mul,
       [&](int w) {
         fa3::Item it = fa3::item_at(w, Hq, B, qtiles);
@@ -116,7 +116,9 @@ __global__ void __launch_bounds__(mrt::kRowThreads, 1)
             *reinterpret_cast<uint32_t*>(op + 8 * j + 2 * (lane & 3)) = 0u;
         }
       },
-      &omap);
+      fa3::RawLogit{},
+      [&](const fa3::Item& it, int wg, const float(&o)[fa3::kD / 2], float(&l)[2],
+          uint8_t* rows) { fa3::store(o, l, wg, rows, &omap, it.h, it.q0, it.b); });
 }
 
 // The map of one layer's pool in boxes of 64 columns x `box` slots of one

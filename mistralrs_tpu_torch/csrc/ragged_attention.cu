@@ -26,40 +26,60 @@
 // of K and V against 4 * D * Hq/Hkv flops, ~4 flops a byte), operations on
 // chunks of hundreds of rows (4 * D flops per kept (query, key) pair of
 // every query head against the K/V read once).
-// Design: two instantiations of the FlashAttention-2 pieces of
-// csrc/flash_attn.cuh, chosen by the host from the most queries a sequence
-// has in the step.
-// - Chunks (ragged_chunk): a block of 4 warps owns 64 rows of one sequence
-//   and one kv head, each row a (query, head) pair of the kv head's
-//   Hq/Hkv query heads (64 / (Hq/Hkv) consecutive queries), so every K/V
-//   tile staged serves all the query heads that read it. It walks the
-//   64-key tiles (32 at D = 256, where a warp reads its Q fragments from
-//   shared memory) from its first query's window start to its last query's
-//   position, looked up page by page in the table, double-buffered with
-//   cp.async, masking only tiles that cross the diagonal or the window
-//   start. As K6' and K11.
+// Design: two instantiations, chosen by the host from the most queries a
+// sequence has in the step.
+// - Chunks (ragged_chunk): the Hopper attention core of csrc/flash_sm90.cuh
+//   (K6's: a persistent grid, a TMA-fed ring of K/V tiles, two consumer
+//   warpgroups on bf16 wgmma with P from registers, ping-pong). A work item
+//   is 128 (query, head) rows of one sequence and one kv head: 128/G
+//   consecutive queries times the kv head's G = Hq/Hkv query heads, row
+//   r = t * G + g, so every K/V tile staged serves all the query heads that
+//   read it. Q comes by TMA through a 4-D map of q_flat seen as (D, G, Hkv,
+//   N), one box (64 columns, G heads, 128/G queries) a 64-column block: a
+//   box that runs past the sequence reads the next one's queries (past N,
+//   zeros), rows that are never stored. K and V come by TMA through one 4-D
+//   map of the combined pool, (D, 2*Hkv, page, P), at head 2*kvh and
+//   2*kvh + 1, a box of min(page, key tile) slots a page, its page id read
+//   from the table on the device (pages past the context are asked for at
+//   page P, outside the map, and land as zeros; the V rows of the rest of
+//   the last page are zeroed in shared memory, so a stale slot, even a NaN,
+//   never reaches the output). An item walks the key tiles from its first
+//   query's window start to its last query's position, and masks only the
+//   tiles that cross a row's diagonal, its window start or the context's
+//   end. The soft cap turns the scaled f32 scores into base-2 logits before
+//   the running max (the core folds the scale into the exponent only
+//   without a cap). A stage's K and V are freed apart (K once every warp's
+//   Q.K^T of it is done, V once its P.V is), so a tile's K loads while the
+//   tile before it is in P.V: D = 128 runs K6's tiles, 128 keys in three
+//   stages; D = 256 64-key tiles in two (a stage of K and V is 64 KB beside
+//   the 64 KB Q tile; freeing whole stages there was 1.38x slower, PERF.md
+//   §6), its O accumulators (128 f32 a thread) in the 232 registers
+//   setmaxnreg gives the consumers, its output rows staged in the last
+//   stage's K and V tiles. The rows of a sequence go out by 16-byte stores
+//   from the staged tile, only those that are its queries: a TMA box would
+//   also write the next sequence's first rows, which another block owns
+//   (TMA for the whole boxes measured no faster). Items run the last query
+//   tiles (the most keys) first; an item with no queries does nothing. The
+//   grid and tiles come from the Python plan
+//   (ops/ragged_attention.py::ragged_chunk_plan), checked here.
 // - Decode (ragged_decode, one query a sequence): as K7, a block works on
 //   one (sequence, kv head, split of the sequence's keys inside its window)
 //   at a time, with the query heads of the kv head as the rows of a 16-row
-//   mma tile and each warp taking 16 keys of every 64-key tile; each warp
-//   writes (max, exp-sum, unnormalized output) and a second kernel combines
-//   the partials in a fixed order. The grid is one wave of CTAs, which take
-//   the work items in turn; the number of splits follows the live
-//   sequences, read on the device (as many as give every CTA an item), so
-//   padding slots cost nothing, and each sequence's keys inside its window
-//   are shared evenly among its splits.
-// wgmma and TMA are later work.
+//   mma tile and each warp taking 16 keys of every 64-key tile (the
+//   FlashAttention-2 pieces of csrc/flash_attn.cuh, mma.sync and cp.async);
+//   each warp writes (max, exp-sum, unnormalized output) and a second
+//   kernel combines the partials in a fixed order. The grid is one wave of
+//   CTAs, which take the work items in turn; the number of splits follows
+//   the live sequences, read on the device (as many as give every CTA an
+//   item), so padding slots cost nothing, and each sequence's keys inside
+//   its window are shared evenly among its splits.
 #include "flash_attn.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
 constexpr int kNoWindow = 1 << 30;
 constexpr int kQRows = 16;  // rows of the decode kernel's mma tile
-
-template <int D>
-__host__ __device__ constexpr int chunk_key_tile() {
-  return D == 256 ? 32 : 64;
-}
 
 // element offset of a key position's slot in the combined pool, through
 // one sequence's table (the K of kv head 0; add 2 * kvh * D for kv head kvh,
@@ -76,63 +96,156 @@ __device__ __forceinline__ int live_splits(int live, int Hkv, int ctas, int max_
   return min(max_splits, max(1, ctas / max(1, live * Hkv)));
 }
 
-template <int D, bool CAP>
-__global__ void __launch_bounds__(fa::kThreads)
-    ragged_chunk_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ pool, const int* __restrict__ kv_lens,
-                        const int* __restrict__ tables, const int* __restrict__ cu,
-                        const int* __restrict__ num_seqs, __nv_bfloat16* __restrict__ out, int Hq,
-                        int Hkv, int W, int page, int page_shift, long long s_page,
-                        long long s_slot, int win, fa::Logit<CAP> lg) {
-  constexpr int KT = chunk_key_tile<D>();
-  constexpr int BQ = fa::kTileRows;  // (query, head) rows per block, 16 per warp
-  extern __shared__ __align__(128) uint8_t smem[];
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  if (b >= num_seqs[0]) return;
-  const int G = Hq / Hkv;
-  const int per_block = BQ / G;  // queries per block
-  const int q_start = cu[b], q_len = cu[b + 1] - q_start, kv_len = kv_lens[b];
-  const int t0 = (gridDim.x - 1 - blockIdx.x) * per_block;  // the longest rows first
-  if (t0 >= q_len) return;
-  const int warp = threadIdx.x >> 5;
-  const int pos_first = kv_len - q_len + t0;
-  const int pos_last = kv_len - q_len + min(t0 + per_block, q_len) - 1;
-  const int len = min(kv_len, W * page);
-  // keys of the block: from its first query's window start to its last
-  // query's position
-  const int lo = max(0, pos_first - win + 1);
-  const int hi = min(pos_last, len - 1);
-  const int t_lo = lo / KT;
-  const int t_hi = hi >= lo ? hi / KT + 1 : t_lo;
-  // every row keeps every key of a tile that ends at or before the first
-  // query's position and starts inside the last query's window
-  const int lo_full = pos_last - win + 1;
-  const int* table = tables + (size_t)b * W;
-  const __nv_bfloat16* kpool = pool + (size_t)2 * kvh * D;
+// K12's chunk configurations of the core, a stage's K and V freed apart:
+// 128-key tiles in three stages at D = 128 (K6's tiles), 64-key tiles in two
+// at D = 256
+template <int D>
+using ChunkCore = fa3::Core<D, D == 128 ? 128 : 64, D == 128 ? 3 : 2, true>;
 
-  const size_t q_row0 = ((size_t)(q_start + t0) * Hq + kvh * G) * D;
-  fa::stage_rows<D, BQ>(smem, (q_len - t0) * G, q, [&](int r) -> size_t {
-    return q_row0 + ((size_t)(r / G) * Hq + r % G) * D;
-  });
-  fa::RowState<D> st;
-  fa::prefill_rows<D, KT, fa::QFrags<D>>(
-      smem, t_lo, t_hi, lg,
-      [&](int it, uint8_t* kt, uint8_t* vt) {
-        const int p0 = it * KT;
-        fa::stage_kv<D, KT>(kt, vt, len - p0, kpool, kpool + D, [&](int r) {
-          return pool_slot(table, p0 + r, page, page_shift, s_page, s_slot);
-        });
+// A work item of the chunk instantiation: 128 (query, head) rows of
+// sequence b and kv head kvh (the kv head's G query heads of 128/G
+// consecutive queries t0..), over n key tiles from tile t_lo.
+struct ChunkItem {
+  int n;       // key tiles (0: nothing to attend)
+  int b, kvh;  // sequence, kv head
+  int t0;      // the item's first query
+  int q_len;   // the sequence's queries when the item holds some, else 0
+  int q_row0;  // the sequence's first row of q_flat and out
+  int pos0;    // the position of query t0
+  int len;     // keys the sequence's table holds: min(kv_len, W * page)
+  int t_lo;    // the first key tile
+  int lo_full; // every row's window holds the keys from here on
+};
+
+// Item w of B * Hkv * qtiles: query tile qtiles - 1 - w / (B * Hkv) (the
+// last tiles, the most keys, first) of sequence (w % (B * Hkv)) / Hkv, kv
+// head w % Hkv.
+template <int KT>
+__device__ __forceinline__ ChunkItem chunk_item(int w, const int* cu, const int* kv_lens,
+                                                int live, int B, int Hkv, int qtiles,
+                                                int gshift, int W, int page, int win) {
+  ChunkItem it{};
+  const int per = B * Hkv, r = w % per, qt = fa3::kRows >> gshift;
+  it.b = r / Hkv;
+  it.kvh = r % Hkv;
+  it.t0 = (qtiles - 1 - w / per) * qt;
+  if (it.b >= live) return it;
+  it.q_row0 = cu[it.b];
+  const int q_len = cu[it.b + 1] - it.q_row0;
+  if (it.t0 >= q_len) return it;
+  it.q_len = q_len;
+  const int kv = kv_lens[it.b];
+  it.pos0 = kv - q_len + it.t0;
+  const int pos_last = kv - q_len + min(it.t0 + qt, q_len) - 1;
+  it.len = min(kv, W * page);
+  // keys of the item: from its first query's window start to its last
+  // query's position
+  const int lo = max(0, it.pos0 - win + 1), hi = min(pos_last, it.len - 1);
+  it.t_lo = lo / KT;
+  it.n = hi >= lo ? hi / KT + 1 - it.t_lo : 0;
+  it.lo_full = pos_last - win + 1;
+  return it;
+}
+
+template <int D, bool CAP>
+__global__ void __launch_bounds__(mrt::kRowThreads, 1)
+    ragged_chunk_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kvmap,
+                             const int* __restrict__ kv_lens, const int* __restrict__ tables,
+                             const int* __restrict__ cu, const int* __restrict__ num_seqs,
+                             __nv_bfloat16* __restrict__ out, int B, int Hq, int Hkv, int qtiles,
+                             int gshift, int W, int P, int page, int page_shift, int win,
+                             float mul, fa3::CapLogit cap) {
+  using C = ChunkCore<D>;
+  constexpr int KT = C::kKeys;
+  constexpr int kPer = C::kBlocks / 2;  // 64-column blocks a producer warp loads
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const int live = num_seqs[0];
+  const int box = min(page, KT);  // slots of one TMA box
+  const int nbox = KT / box;
+  std::conditional_t<CAP, fa3::CapLogit, fa3::RawLogit> lg{};
+  if constexpr (CAP) lg = cap;
+  // out's rows of warpgroup wg's queries tw.. that are the sequence's
+  // (the first nr of its 64)
+  auto wg_rows = [&](const ChunkItem& it, int wg, int& tw) {
+    tw = it.t0 + wg * (64 >> gshift);
+    return min(64, max(0, it.q_len - tw) << gshift);
+  };
+  auto out_row = [&](const ChunkItem& it, int tw, int r) {
+    return out + ((size_t)(it.q_row0 + tw + (r >> gshift)) * Hq + (it.kvh << gshift) +
+                  (r & ((1 << gshift) - 1))) *
+                     D;
+  };
+  fa3::run_items<C>(
+      smem, B * Hkv * qtiles, mul,
+      [&](int w) {
+        return chunk_item<KT>(w, cu, kv_lens, live, B, Hkv, qtiles, gshift, W, page, win);
       },
-      [] {}, [&](int it) { return it * KT + KT - 1 > pos_first || it * KT < lo_full; },
-      [&](int row, int p) {
-        const int pos = pos_first + row / G;
-        return p <= pos && p > pos - win;
+      [&](const ChunkItem& it, int t, uint8_t* dst, uint64_t* bar, int piece, uint8_t* q,
+          int lane) {
+        if (q && lane < C::kBlocks)
+          mrt::tma_load_4d(q + lane * C::kQBlock, &qmap, 64 * lane, 0, it.kvh,
+                           it.q_row0 + it.t0, bar);
+        const int p0 = (it.t_lo + t) * KT, head = 2 * it.kvh + (piece >> 1);
+        // lane j issues box j's copy (and j + 32, ...), after reading its
+        // page id from the table itself
+        for (int j = lane; j < kPer * nbox; j += 32) {
+          const int blk = j / nbox, p = p0 + (j - blk * nbox) * box;
+          const int pg = p < it.len ? tables[(size_t)it.b * W + (p >> page_shift)] : P;
+          mrt::tma_load_4d(dst + blk * C::kKVBlock + (p - p0) * 128, &kvmap,
+                           64 * ((piece & 1) * kPer + blk), head, p & (page - 1), pg, bar);
+        }
       },
-      st);
-  fa::store_rows(st, [&](int r) -> __nv_bfloat16* {
-    const int row = warp * 16 + r, t = t0 + row / G;
-    return t < q_len ? out + ((size_t)(q_start + t) * Hq + kvh * G + row % G) * D : nullptr;
-  });
+      // a tile is unmasked when its last key is at or before the first
+      // query's position, its first key inside the last query's window, and
+      // its keys inside the table
+      [&](const ChunkItem& it, int tt) {
+        const int k0 = (it.t_lo + tt) * KT;
+        return k0 + KT - 1 > it.pos0 || k0 < it.lo_full || k0 + KT > it.len;
+      },
+      [&](const ChunkItem& it, int r, int key) {
+        const int p = it.t_lo * KT + key, pos = it.pos0 + (r >> gshift);
+        return p <= pos && p > pos - win && p < it.len;
+      },
+      // the rest of the context's last page, loaded with the tile: P = 0
+      // there does not cancel a NaN or Inf that a recycled page's stale
+      // slots may hold, so its V rows are zeroed
+      [&](const ChunkItem& it, uint8_t* v) {
+        const int k0 = (it.t_lo + it.n - 1) * KT;
+        const int lo = it.len - k0, hi = min(((it.len + page - 1) & -page) - k0, KT);
+        if (lo >= hi) return false;
+        for (int i = threadIdx.x & 127; i < (hi - lo) * (D / 8); i += 128) {
+          const int c = i % (D / 8);
+          *reinterpret_cast<uint4*>(v + (c >> 3) * C::kKVBlock + (lo + i / (D / 8)) * 128 +
+                                    (c & 7) * 16) = make_uint4(0u, 0u, 0u, 0u);
+        }
+        return true;
+      },
+      // queries that see no key (a table shorter than the context): zeros
+      [&](const ChunkItem& it, int wg) {
+        int tw;
+        const int nr = wg_rows(it, wg, tw);
+        for (int i = threadIdx.x & 127; i < nr * (D / 8); i += 128)
+          *reinterpret_cast<uint4*>(out_row(it, tw, i / (D / 8)) + 8 * (i % (D / 8))) =
+              make_uint4(0u, 0u, 0u, 0u);
+      },
+      lg,
+      // 16-byte stores of the rows that are the sequence's, from the staged
+      // tile (16-byte chunk c of row r at chunk (c & 7) ^ (r & 7) of its
+      // 64-column block): a TMA box would also write the next sequence's
+      // rows, another item's
+      [&](const ChunkItem& it, int wg, const float(&o)[D / 2], float(&l)[2], uint8_t* rows) {
+        fa3::stage_out<C>(o, l, wg, rows);
+        int tw;
+        const int nr = wg_rows(it, wg, tw);
+        for (int i = threadIdx.x & 127; i < nr * (D / 8); i += 128) {
+          const int r = i / (D / 8), c = i % (D / 8);
+          *reinterpret_cast<uint4*>(out_row(it, tw, r) + 8 * c) =
+              *reinterpret_cast<const uint4*>(rows + (c >> 3) * C::kKVBlock + r * 128 +
+                                              (((c & 7) ^ (r & 7)) << 4));
+        }
+        fa3::bar_sync(3 + wg, 128);
+      });
 }
 
 template <int D>
@@ -290,18 +403,56 @@ struct Args {
   }
 };
 
-template <int D, bool CAP>
-int launch_chunk(const Args& a, __nv_bfloat16* out, int max_q_len) {
-  constexpr size_t smem = fa::prefill_smem_bytes<D, chunk_key_tile<D>()>();
-  cudaError_t err = mrt::allow_smem(ragged_chunk_kernel<D, CAP>, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int per_block = fa::kTileRows / (a.Hq / a.Hkv);
-  const dim3 grid((max_q_len + per_block - 1) / per_block, a.Hkv, a.B);
-  ragged_chunk_kernel<D, CAP><<<grid, fa::kThreads, smem, a.st>>>(
-      a.q, a.pool, a.kv_lens, a.tables, a.cu, a.num_seqs, out, a.Hq, a.Hkv, a.W, a.page,
-      a.page_shift, a.s_page<D>(), a.s_slot<D>(), a.win,
-      fa::Logit<CAP>::make(a.scale, a.softcap));
-  return (int)cudaGetLastError();
+// The maps of a chunk call, both with the 128-byte swizzle: q_flat [N, Hq,
+// D] as (D, G, Hkv, N) in boxes of 64 columns x G heads x 128/G queries (a
+// Q tile's 64-column block, row t * G + g); the combined pool [P, page,
+// 2*Hkv, D] as (D, 2*Hkv, page, P) in boxes of 64 columns x one head x
+// `box` slots.
+int q_map(CUtensorMap* map, const void* q, int N, int G, int Hkv, int D) {
+  const uint64_t row = (uint64_t)D * 2;
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)G, (uint64_t)Hkv, (uint64_t)N};
+  const uint64_t str[3] = {row, row * G, row * G * Hkv};
+  const uint32_t bx[4] = {64, (uint32_t)G, 1, (uint32_t)(fa3::kRows / G)};
+  return mrt::tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, q, dims, str, bx,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+}
+int pool_map(CUtensorMap* map, const void* pool, int P, int page, int Hkv, int D, int box) {
+  const uint64_t row = (uint64_t)D * 2;
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)(2 * Hkv), (uint64_t)page, (uint64_t)P};
+  const uint64_t str[3] = {row, row * 2 * Hkv, row * 2 * Hkv * page};
+  const uint32_t bx[4] = {64, 1, (uint32_t)box, 1};
+  return mrt::tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, pool, dims, str, bx,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A chunk call at head dim D on the plan's launch, which must be this
+// configuration's (rows, key tile, stages, threads, enough shared memory)
+// with 1 to B * Hkv * query tiles blocks in x.
+template <int D>
+int launch_chunk(const Args& a, void* out, int N, int max_q_len, int P, int rows, int keys,
+                 int stages, int threads, int gx, int gy, int gz, int smem) {
+  using C = ChunkCore<D>;
+  const int G = a.Hq / a.Hkv, gshift = __builtin_ctz((unsigned)G);
+  if (G < 1 || G > 16 || (1 << gshift) != G || max_q_len < 1)
+    return (int)cudaErrorInvalidValue;
+  const int qt = fa3::kRows >> gshift, qtiles = (max_q_len + qt - 1) / qt;
+  if (rows != fa3::kRows || keys != C::kKeys || stages != C::kStages ||
+      threads != mrt::kRowThreads || gx < 1 || gx > a.B * a.Hkv * qtiles || gy != 1 || gz != 1 ||
+      smem < C::kSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qmap, kvmap;
+  int err = q_map(&qmap, a.q, N, G, a.Hkv, D);
+  if (!err) err = pool_map(&kvmap, a.pool, P, a.page, a.Hkv, D, min(a.page, C::kKeys));
+  if (err) return err;
+  const bool cap = a.softcap > 0.f;
+  const fa3::CapLogit lg{cap ? a.scale / a.softcap : 0.f, a.softcap * fa3::kLog2e};
+  const float mul = cap ? 1.f : a.scale * fa3::kLog2e;
+  auto go = [&](auto kern) {
+    return fa3::launch(kern, dim3(gx, gy, gz), smem, a.st, qmap, kvmap, a.kv_lens,
+                       a.tables, a.cu, a.num_seqs, static_cast<__nv_bfloat16*>(out), a.B, a.Hq,
+                       a.Hkv, qtiles, gshift, a.W, P, a.page, a.page_shift, a.win, mul, lg);
+  };
+  return cap ? go(ragged_chunk_sm90_kernel<D, true>) : go(ragged_chunk_sm90_kernel<D, false>);
 }
 
 template <int D, bool CAP>
@@ -345,20 +496,24 @@ Args make_args(const void* q, const void* pool, const void* kv_lens, const void*
 // Each returns the CUDA error code of its launches (0 = launched;
 // cudaErrorInvalidValue for another D).
 
-// Any number of queries a sequence, at most max_q_len.
+// Any number of queries a sequence, at most max_q_len: N rows of q_flat
+// and out, P pages in the pool; scale > 0 without a soft cap. The launch
+// (rows, key tile, stages, threads, grid and shared memory) comes from the
+// plan (ops/ragged_attention.py::ragged_chunk_plan) and is checked here.
 extern "C" int ragged_chunk(const void* q, const void* pool, const void* kv_lens,
                             const void* tables, const void* cu, const void* num_seqs, void* out,
-                            int B, int max_q_len, int Hq, int Hkv, int W, int page,
+                            int N, int B, int max_q_len, int Hq, int Hkv, int W, int P, int page,
                             int page_shift, int D, float scale, float softcap, int window,
-                            void* stream) {
+                            int rows, int keys, int stages, int threads, int gx, int gy, int gz,
+                            int smem, void* stream) {
   const Args a = make_args(q, pool, kv_lens, tables, cu, num_seqs, B, Hq, Hkv, W, page,
                            page_shift, scale, softcap, window, stream);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  const bool cap = softcap > 0.f;
-  if (D == 128) return cap ? launch_chunk<128, true>(a, o, max_q_len)
-                           : launch_chunk<128, false>(a, o, max_q_len);
-  if (D == 256) return cap ? launch_chunk<256, true>(a, o, max_q_len)
-                           : launch_chunk<256, false>(a, o, max_q_len);
+  if (D == 128)
+    return launch_chunk<128>(a, out, N, max_q_len, P, rows, keys, stages, threads, gx, gy, gz,
+                             smem);
+  if (D == 256)
+    return launch_chunk<256>(a, out, N, max_q_len, P, rows, keys, stages, threads, gx, gy, gz,
+                             smem);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -31,9 +31,12 @@ import dataclasses
 import torch
 
 from mistralrs_tpu_torch.ops import kernels
+from mistralrs_tpu_torch.ops.flash_attention import FlashPlan, check_scale, launch_args
 
-# launches of K12 (one per wrapper call that launched it)
+# launches of K12 (one per wrapper call that launched it), and of its chunk
+# instantiation among them
 ragged_attention_launches = 0
+ragged_chunk_launches = 0
 
 # the TPU reference's mask value: a large finite negative, so that a masked
 # score never makes a NaN
@@ -219,6 +222,37 @@ def _decode_grid(Hkv: int, span: int, D: int, device) -> tuple[int, int]:
     return max(1, min(-(-span // 64), ctas // Hkv)), ctas
 
 
+def ragged_chunk_plan(B: int, max_q_len: int, Hq: int, Hkv: int, D: int, page: int,
+                      sms: int) -> FlashPlan:
+    """The launch of K12's chunk instantiation (csrc/ragged_attention.cu
+    ::launch_chunk refuses any other) for B sequences of at most max_q_len
+    queries, Hq query heads on Hkv kv heads of dim D, a pool of `page`-slot
+    pages, on a card with `sms` SMs. A work item is 128 (query, head) rows
+    of one sequence and one kv head (128/G queries of its G = Hq/Hkv query
+    heads), B * Hkv * ceil(max_q_len / (128/G)) of them; the persistent
+    grid (one block an SM, at most one an item) walks them through a ring
+    whose stages' K and V are freed apart: D 128 128-key tiles in 3 stages,
+    D 256 64-key tiles in 2. Shared memory: the stages (a K and a V tile of
+    key_tile x D bf16 and four 8-byte mbarriers each), the Q tile of 128 x
+    D bf16 and its 8-byte barrier (16 bytes), and 1024 bytes to align the
+    start to the 128-byte swizzle's period."""
+    if D not in (128, 256):
+        raise ValueError(f"ragged_chunk_plan: head dim {D}; the kernel takes 128 or 256")
+    if Hkv < 1 or Hq % Hkv or (Hq // Hkv) & (Hq // Hkv - 1) or Hq // Hkv > 16:
+        raise ValueError(f"ragged_chunk_plan: {Hq} query heads on {Hkv} kv heads; the kernel "
+                         "takes a power of two up to 16 a kv head")
+    if page < 1 or page & (page - 1):
+        raise ValueError(f"ragged_chunk_plan: page size {page}; the kernel takes a power of two")
+    if B < 1 or max_q_len < 1 or sms < 1:
+        raise ValueError(f"ragged_chunk_plan: nothing to launch for B={B} "
+                         f"max_q_len={max_q_len} on {sms} SMs")
+    rows = 128
+    keys, stages = (128, 3) if D == 128 else (64, 2)
+    items = B * Hkv * -(-max_q_len // (rows // (Hq // Hkv)))
+    smem = stages * (2 * keys * D * 2 + 4 * 8) + rows * D * 2 + 16 + 1024
+    return FlashPlan(rows, keys, stages, 384, items, (min(sms, items), 1, 1), smem)
+
+
 def _check_card(q_flat, kv_pages, ints) -> None:
     """Raise on what K12 does not take."""
     for nm, t in (("q_flat", q_flat), ("kv_pages", kv_pages), *ints):
@@ -257,9 +291,11 @@ def ragged_attention(q_flat: torch.Tensor, kv_pages: torch.Tensor, kv_lens: torc
     left unspecified (zeros on the CPU). `max_q_len`, when the caller knows
     it, bounds every sequence's query count: 1 selects the decode
     instantiation (the keys of each sequence split across CTAs), anything
-    else the chunk instantiation. On the card: D 128 or 256, a power-of-two
-    page size, Hq/Hkv a power of two up to 16, bf16 contiguous q and pool."""
-    global ragged_attention_launches
+    else the chunk instantiation (launched by `ragged_chunk_plan`). On the
+    card: D 128 or 256, a power-of-two page size, Hq/Hkv a power of two up
+    to 16, bf16 contiguous q and pool; the chunk instantiation takes a
+    positive scale where there is no soft cap."""
+    global ragged_attention_launches, ragged_chunk_launches
     if q_flat.dim() != 3 or kv_pages.dim() != 4 or kv_pages.shape[-1] != q_flat.shape[-1] \
             or kv_pages.shape[2] % 2 or q_flat.shape[1] % (kv_pages.shape[2] // 2):
         raise ValueError(f"ragged_attention: q {tuple(q_flat.shape)} against a combined pool "
@@ -306,10 +342,15 @@ def ragged_attention(q_flat: torch.Tensor, kv_pages: torch.Tensor, kv_lens: torc
                  W, page, page.bit_length() - 1, max_splits, ctas, D, float(scale), cap, window,
                  stream)
     else:
+        if not cap:
+            check_scale("ragged_attention", scale)
+        plan = ragged_chunk_plan(B, max_q_len, Hq, Hkv, D, page, kernels.sm_count(q_flat.device))
         fn = kernels.function("ragged_attention", "ragged_chunk",
-                              [_P] * 7 + [_I] * 8 + [ctypes.c_float, ctypes.c_float, _I, _P])
-        err = fn(*head, kernels.ptr(out), B, max_q_len, Hq, Hkv, W, page, page.bit_length() - 1,
-                 D, float(scale), cap, window, stream)
+                              [_P] * 7 + [_I] * 10 + [ctypes.c_float, ctypes.c_float]
+                              + [_I] * 9 + [_P])
+        err = fn(*head, kernels.ptr(out), N, B, max_q_len, Hq, Hkv, W, P, page,
+                 page.bit_length() - 1, D, float(scale), cap, window, *launch_args(plan), stream)
     kernels.check(err, "ragged_attention")
     ragged_attention_launches += 1
+    ragged_chunk_launches += max_q_len != 1
     return out

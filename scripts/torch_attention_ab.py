@@ -11,7 +11,10 @@ chunks (B=4 T=512, B=16 T=256, B=1 T=200, B=4 T=256, B=1 T=512); where the
 checkout has them, K6' at B=4 T=512 over a 4096-token context on both pool
 layouts and over 2048 head-major, and at B=1 T=256 over 1000 on both
 layouts; K7 at B=16 over 4096; K11 at Gemma-2-9B's 4 x 512 first chunk
-(soft cap 50); K12 at Mistral's 16-row decode over 4096. Each time is
+(soft cap 50); K12 at Mistral's 16-row decode over 4096 and at the chunk
+cases of chip_smoke.RAGGED_CASES (Mistral's 4 x 512 over 4096, Gemma-2-9B's
+4 x 512 over 4608 with the window and the cap, the mixed 3/4 step), with
+chip_smoke's inputs (q 4x wider under a cap). Each time is
 chip_smoke.Clock's median of 25 runs, taken three times.
 """
 
@@ -70,10 +73,16 @@ def measure(root: str) -> dict:
     if hasattr(cs, "RAGGED_CASES"):
         from mistralrs_tpu_torch.ops import ragged_attention as ra
 
-        shape, seqs, B, Hq, Hkv, D, window, cap = cs.RAGGED_CASES[0]
-        args = cs.ragged_inputs(dev, gen, seqs, B, Hq, Hkv, D)
-        out[f"ragged_attention {shape}"] = three(
-            lambda: ra.ragged_attention(*args, scale=D ** -0.5, max_q_len=1))
+        for shape, seqs, B, Hq, Hkv, D, window, cap in cs.RAGGED_CASES:
+            if shape != cs.RAGGED_CASES[0][0] and max(ql for ql, _ in seqs) == 1:
+                continue  # the decode cases but the headline
+            q, *rest = cs.ragged_inputs(dev, gen, seqs, B, Hq, Hkv, D)
+            if cap:
+                q = (q.float() * 4).to(torch.bfloat16)
+            max_q = max(ql for ql, _ in seqs) if len({ql for ql, _ in seqs}) == 1 else None
+            kw = dict(scale=D ** -0.5, sliding_window=window, logits_softcap=cap, max_q_len=max_q)
+            out[f"ragged_attention {shape}"] = three(
+                lambda: ra.ragged_attention(q, *rest, **kw))
     return out
 
 

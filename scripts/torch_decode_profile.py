@@ -93,7 +93,8 @@ NAMED_KERNELS = {"grouped_gemm": "grouped_gemm", "k13_tiles": "grouped_gemm_tile
                  "k5_rows": lambda k: "plane_rows_kernel<" in k and "Q4kFmt" in k,
                  "k8_rows": lambda k: (_plane_fmt(k) or [""] * 4)[:2] == ["8", "true"],
                  "plane_prep": "plane_prep_kernel",
-                 "k6": "flash_prefill_kernel", "k6p": "flash_prefill_paged_kernel"}
+                 "k6": "flash_prefill_kernel", "k6p": "flash_prefill_paged_kernel",
+                 "k12_chunk": "ragged_chunk", "k12_decode": "ragged_decode"}
 
 
 def main() -> int:

@@ -3,9 +3,13 @@
 the PyTorch port spend their time, on one NVIDIA card.
 
     python3 scripts/torch_long_context_profile.py [--layers 32] [--batch 16]
+                                                  [--backend default|ragged]
 
 Builds chip_smoke.py's Mistral-7B Q4_K_M random-weight model on head-major
-pools (max_model_len 4096, 512-token chunks). Sequences get block tables
+pools (max_model_len 4096, 512-token chunks), or with `--backend ragged` on
+the ragged backend's combined token-major pool, where the continuation
+chunk and both decode contexts take K12 (its chunk and decode
+instantiations) in place of K6', K7 and the gather. Sequences get block tables
 and a context length directly, with no prompt prefilled first: their K/V
 pages hold zeros, and attention's time does not depend on the values.
 Traces, after an untraced warm-up call of each (a first use costs up to
@@ -43,8 +47,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--batch", type=int, default=16)
-    # the model and route report() names (torch_decode_profile.py's options)
-    ap.set_defaults(mix="q4km", backend="default", int8_activations="on")
+    ap.add_argument("--backend", choices=("default", "ragged"), default="default")
+    # the model report() names (torch_decode_profile.py's options)
+    ap.set_defaults(mix="q4km", int8_activations="on")
     args = ap.parse_args()
 
     import torch
@@ -69,7 +74,8 @@ def main() -> int:
                                 torch.bfloat16)
     pc = PipelineConfig(page_size=16, num_pages=(args.batch + FEW) * 256 + 1,
                         max_seqs=args.batch, max_model_len=4096,
-                        prefill_buckets=(16, 64, 256, CHUNK), decode_steps=8, device="cuda")
+                        prefill_buckets=(16, 64, 256, CHUNK), decode_steps=8, device="cuda",
+                        attn_backend=args.backend)
     pipe = TextPipeline(cfg, params, make_rope(cfg, 4096, device=dev), pc)
     del params
     bm = BlockManager(pc.num_pages, pc.page_size)

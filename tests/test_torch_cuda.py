@@ -1036,6 +1036,89 @@ def test_ragged_padded_on_the_card_zeroes_padding_rows(dev):
     assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
 
 
+# K12's chunk instantiation (the Hopper core, csrc/flash_sm90.cuh): live
+# sequences ((q_len, kv_len) each), slots B, Hq, Hkv, D, page, window, soft
+# cap; ids say what each case holds
+CHUNK_CASES = [
+    pytest.param(((512, 4096),) * 2, 2, 32, 8, 128, 16, None, None, id="mistral-g4"),
+    pytest.param(((512, 4608),) * 2, 2, 16, 8, 256, 16, 4096, 50.0, id="gemma2-g2-window-cap"),
+    pytest.param(((300, 1000),), 1, 8, 8, 128, 64, None, None, id="g1-page64"),
+    pytest.param(((300, 1000),), 1, 8, 8, 256, 256, None, 50.0, id="d256-g1-page256-cap"),
+    pytest.param(((200, 777),), 1, 16, 8, 128, 256, None, None, id="g2-page256"),
+    pytest.param(((130, 900),), 2, 32, 4, 128, 16, 300, None, id="g8-window-across-pages"),
+    pytest.param(((129, 900),), 1, 32, 2, 256, 64, 40, 50.0, id="d256-g16-window-in-a-tile"),
+    pytest.param(((257, 1100),), 1, 32, 2, 128, 16, 40, None, id="g16-window-in-a-tile"),
+    pytest.param(((100, 700), (150, 900)), 2, 32, 8, 128, 16, None, None,
+                 id="first-ends-mid-tile"),
+    pytest.param(((37, 500), (64, 64), (90, 1000)), 3, 16, 4, 256, 16, 100, 50.0,
+                 id="d256-g4-three-end-mid-tile"),
+    pytest.param(((1, 3000), (256, 256), (176, 1200)), 4, 32, 8, 128, 64, None, None,
+                 id="mixed-decode-and-chunks"),
+    pytest.param(((1, 3000), (256, 256), (176, 1200)), 4, 16, 8, 256, 16, 4096, 50.0,
+                 id="gemma2-mixed"),
+    pytest.param(((48, 999),), 1, 16, 2, 128, 4, None, None, id="page4"),
+]
+
+
+def _nan_past_kv(pool, tables, kv_lens, num_seqs):
+    """The pool with every slot that no live sequence's context holds set to
+    NaN: the rest of each last page, and every page past it."""
+    pool = pool.clone()
+    page = pool.shape[1]
+    keep = torch.zeros(pool.shape[0], page, dtype=torch.bool, device=pool.device)
+    for i in range(int(num_seqs[0])):
+        kv = int(kv_lens[i])
+        pages = tables[i, :-(-kv // page)].long()
+        keep[pages] = True
+        keep[pages[-1], kv - (len(pages) - 1) * page:] = False
+    pool[~keep] = float("nan")
+    return pool
+
+
+@pytest.mark.parametrize("nan", [False, True], ids=["pool", "nan-past-kv"])
+@pytest.mark.parametrize("seqs,B,Hq,Hkv,D,page,window,cap", CHUNK_CASES)
+def test_ragged_chunk_matches_plain(dev, seqs, B, Hq, Hkv, D, page, window, cap, nan):
+    """K12's chunk instantiation against its plain version at 1e-2 of max
+    |out| on the rows of the live sequences (q drawn 4x wider under a cap,
+    so the logits reach its bend): every query-head grouping, both head
+    dims, pages of 4-256 slots, windows inside one key tile and across
+    pages, sequences that end mid-tile (the next one's rows are another
+    item's: the epilogue must not write them), kv_lens off the page, a mixed
+    step, and slots past each context holding NaN. Bit-equal on repeat;
+    counted as one chunk launch."""
+    q, pool, kv_lens, tables, cu, num_seqs = _ragged_inputs(
+        dev, seqs, B, Hq, Hkv, D, seed=sum(ql for ql, _ in seqs) + D + page,
+        page=page, amp=4.0 if cap else 1.0)
+    if nan:
+        pool = _nan_past_kv(pool, tables, kv_lens, num_seqs)
+    args = (q, pool, kv_lens, tables, cu, num_seqs)
+    kw = dict(scale=D ** -0.5, sliding_window=window, logits_softcap=cap)
+    max_q = max(ql for ql, _ in seqs)
+    before = ra.ragged_chunk_launches, ra.ragged_attention_launches
+    got = ra.ragged_attention(*args, **kw, max_q_len=max_q)
+    again = ra.ragged_attention(*args, **kw, max_q_len=max_q)
+    want = ra.ragged_attention_plain(*args, **kw).float()
+    torch.cuda.synchronize()
+    assert (ra.ragged_chunk_launches, ra.ragged_attention_launches) == (before[0] + 2,
+                                                                        before[1] + 2)
+    assert torch.equal(got, again)
+    got = got.float()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def test_ragged_chunk_raises_for_a_scale_it_cannot_fold(dev):
+    """Without a cap the chunk instantiation takes the running max over raw
+    scores, which needs a positive scale; with one any scale works."""
+    args = _ragged_inputs(dev, ((40, 100),), 1, 8, 2, 128, seed=0)
+    with pytest.raises(ValueError):
+        ra.ragged_attention(*args, scale=-0.1, max_q_len=40)
+    got = ra.ragged_attention(*args, scale=-0.1, logits_softcap=30.0, max_q_len=40).float()
+    want = ra.ragged_attention_plain(*args, scale=-0.1, logits_softcap=30.0).float()
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
 def test_ragged_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     args = list(_ragged_inputs(dev, ((4, 40),), 1, 4, 2, 128, seed=0))
     with pytest.raises(ValueError):  # f32 queries
@@ -1548,24 +1631,33 @@ def test_gguf_bf16_prefill_of_256_rows_matches_the_cpu(dev, tmp_path, mix):
     step's largest card-CPU difference (bf16 activations against f32 ones:
     a closer pair is not decided by the kernels). The logits' distance is
     chip_smoke's card_vs_cpu_bf16 check, at full width: this model's
-    logits span ~4, so a few bf16 roundings weigh more against them."""
+    logits span ~4, so a few bf16 roundings weigh more against them.
+
+    What sets that distance is not the rows kernels
+    (scripts/torch_gguf_bf16_gap.py, which this test runs): every K5, K8 and
+    K9b rows call of the prefill agrees with its plain version on its own
+    bf16 input as the kernel phase's do (bound 1e-5 of max |y|), and the
+    card's logits on the rows kernels stay within 2e-2 of its logits on the
+    dequant route (dequant kernels + torch.matmul, the same bf16
+    activations; they differ by K5's exact weight against its bf16
+    rounding), whose own distance to the CPU is the rows route's."""
+    import importlib.util
+    from pathlib import Path
+
     import numpy as np
 
     import chip_smoke
 
-    from mistralrs_tpu_torch.pipeline.gguf import load_gguf_model
-
-    sz = chip_smoke.Sizes(vocab=2048, hidden=1024, inter=2048, heads=8, kv_heads=2, layers=2)
-    path = str(tmp_path / f"tiny-{mix}.gguf")
-    chip_smoke.write_random_gguf(path, sz, 2, mix, seed=15)
-
-    def load(device, dt):
-        cfg, params, _, _ = load_gguf_model(path, dtype=dt, device=device)
-        return cfg, params
-
-    prompt = [int(t) for t in np.random.default_rng(16).integers(1, sz.vocab, 256)]
-    runs, card = chip_smoke._token_major_run(None, load, dev, prompt, 32, int8_activations=False)
+    script = Path(chip_smoke.__file__).resolve().parent / "scripts" / "torch_gguf_bf16_gap.py"
+    spec = importlib.util.spec_from_file_location("torch_gguf_bf16_gap", script)
+    gap = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gap)
+    numbers, runs, card = gap.run(mix, dev, str(tmp_path))
     assert card["q4k_bf16_gemv_rows"] > 0 and card["q8_0_bf16_gemv_rows"] > 0, card
+    for name in ("k5_rows", "k8_rows") + (("k9b_rows",) if mix == "Q5_K" else ()):
+        worst, calls = numbers[name]
+        assert calls > 0 and worst <= 1e-5, numbers
+    assert numbers["rows_vs_dequant_all"] <= 2e-2, numbers
     assert not any(card[k] for k in chip_smoke.INT8_COUNTERS), card
     ref, got = runs["cpu"], runs["cuda"]
     assert np.isfinite(got).all()

@@ -21,8 +21,10 @@ non-zero and never prints the final line):
    Gemma-2-9B's head dim 256 with the soft cap; with the tolerance stated;
    then kernel, plain-version and library-call times (CUDA
    events, median of 25 runs, L2 flushed before each) beside the least time
-   the card could take (bound); for the Q6_K int8 GEMV (K3) also the time of
-   the int8 GEMV (K2) on the same weight requantized to int8 per 32 (rq8).
+   the card could take (bound); the Q6_K GEMVs K3 and K4 at 1, 4 and 16
+   rows, with the kernels the card runs a call at 16 (K3 two, K4 one), and
+   for K3 also the time of the int8 GEMV (K2) on the same weight
+   requantized to int8 per 32 (rq8).
    K1, K2 and K9 also at 64, 128 and 256 rows (K9 at 17 too), K10 at 64 and
    256 in every layout, K4 (the Q6_K bf16 GEMV) at 17, 64, 128 and 256: the
    rows instantiations.
@@ -180,6 +182,9 @@ KERNEL_INFO = {
                     "mistralrs_tpu/quant/gguf_linear.py:454"),
     "q8_0_dequant": ("mistralrs_tpu_torch/csrc/q8_0_q8_gemv.cu",
                      "mistralrs_tpu/quant/gguf_linear.py:525"),
+    # K3 (1-16 rows only) and K4's decode instantiation (1-16 rows): one
+    # source, the cluster decode kernels q6k_q8_dec_kernel (two launches a
+    # call: the quantize kernel, then the GEMV) and q6k_bf16_dec_kernel (one)
     "q6k_q8_gemv": ("mistralrs_tpu_torch/csrc/q6k_gemv.cu",
                     "mistralrs_tpu/ops/quant_matmul.py:954"),
     "q6k_bf16_gemv": ("mistralrs_tpu_torch/csrc/q6k_gemv.cu",
@@ -984,8 +989,24 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
 
 
 # the row counts K9, K4 and K9b are timed at: the 16-row kernel at 16 and 1,
-# the rows instantiation at 17, 64, 128 and 256
+# the rows instantiation at 17, 64, 128 and 256; K3 at its decode row
+# counts, K4 at those and its rows ones
 K9_ROWS = (16, 1, 17, 64, 128, 256)
+K3_ROWS = (16, 4, 1)
+K4_ROWS = (16, 4, 1, 17, 64, 128, 256)
+
+
+def q6k_kernels_a_call(name: str, most: int, B: int, fn) -> dict:
+    """At 16 rows, the kernels the card runs for one call of K3's or K4's
+    decode instantiation ({"kernels_a_call": n}; {} at other row counts);
+    raises past `most` (K3: the quantize kernel and the GEMV; K4: the GEMV
+    alone), which a split-K pass would break."""
+    if B != 16:
+        return {}
+    n = kernels_a_call(fn)
+    if n > most:
+        raise AssertionError(f"{name} B=16: {n} kernels a call, at most {most}")
+    return {"kernels_a_call": n}
 
 
 def q56k_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
@@ -994,7 +1015,9 @@ def q56k_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
     weights, bench.py's value ranges). library = torch.matmul on the
     dequantized bf16 weight.
     Each K3 row also times K2 on the same weight requantized to int8 per 32
-    (rq8, the layout the Q4_K_M path serves Q6_K in)."""
+    (rq8, the layout the Q4_K_M path serves Q6_K in). At 16 rows K3's and
+    K4's rows carry the kernels the card runs a call (a torch.profiler
+    trace): more than two for K3 or one for K4 (a split-K pass) raises."""
     import torch
 
     from mistralrs_tpu_torch.ops import quant_matmul as qm
@@ -1028,11 +1051,13 @@ def q56k_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
                bound(w_bytes + K * O * 2, K * O, PEAK_BF16))
         rq8 = requant_q6k_to_q8(Linear("gguf_q6k", (K, O), {"ql": ql, "qh": qh, "scale": scale},
                                        meta=G), gs=32)
-        for B in (16, 1):
+        for B in K3_ROWS:
             x = torch.randn(B, K, device=device, generator=gen).to(fdt)
             err, rel = compare(qm.q6k_q8_gemv(x, ql, qh, scale, G, out_dtype=torch.float32),
                                qm.q6k_q8_gemv_plain(x, ql, qh, scale, G, torch.float32))
             nbytes = B * K * 2 + w_bytes + B * O * 2
+            per_call = q6k_kernels_a_call(
+                "q6k_q8_gemv", 2, B, lambda: qm.q6k_q8_gemv(x, ql, qh, scale, G, out_dtype=fdt))
             # the same int8 codes and exact per-16 int dots on both sides;
             # only the f32 order of the scaled sums differs
             record("q6k_q8_gemv", f"{nm} B={B}", err, rel, 1e-5,
@@ -1040,20 +1065,24 @@ def q56k_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
                    clock.ms(lambda: qm.q6k_q8_gemv_plain(x, ql, qh, scale, G, fdt)),
                    clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_INT8),
                    rq8_k2_ms=clock.ms(lambda: qm.q8_0_q8_gemv(x, rq8.data["q"], rq8.data["scale"],
-                                                              32, out_dtype=fdt)))
+                                                              32, out_dtype=fdt)),
+                   **per_call)
         del rq8
-        for B in K9_ROWS:
+        for B in K4_ROWS:
             x = torch.randn(B, K, device=device, generator=gen).to(fdt)
             err, rel = compare(qm.q6k_bf16_gemv(x, ql, qh, scale, G, out_dtype=torch.float32),
                                qm.q6k_bf16_gemv_plain(x, ql, qh, scale, G, torch.float32))
             nbytes = B * K * 2 + w_bytes + B * O * 2
+            per_call = q6k_kernels_a_call(
+                "q6k_bf16_gemv", 1, B, lambda: qm.q6k_bf16_gemv(x, ql, qh, scale, G, out_dtype=fdt))
             # the same bf16(q * s16) weights on both sides; f32 sums of bf16
             # products in another order
             record("q6k_bf16_gemv" if B <= 16 else "q6k_bf16_gemv_rows", f"{nm} B={B}", err, rel,
                    1e-4,
                    clock.ms(lambda: qm.q6k_bf16_gemv(x, ql, qh, scale, G, out_dtype=fdt)),
                    clock.ms(lambda: qm.q6k_bf16_gemv_plain(x, ql, qh, scale, G, fdt)),
-                   clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_BF16))
+                   clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_BF16),
+                   **per_call)
         del w, ql, qh, scale
 
     # Q5_K: fused q|k, o, fused gate|up, the other ffn_down

@@ -49,7 +49,8 @@ __device__ __forceinline__ void transpose4(uint32_t& a0, uint32_t& a1, uint32_t&
   a3 = __byte_perm(t2, t3, 0x7632);
 }
 
-// ---- tensor-core GEMV building blocks (K1, K2, K3, K4, K9) ----
+// ---- tensor-core GEMV building blocks (the 16-row kernels of K5, K8, K9,
+// K9b and K10; the mma wrappers also K1-K4 and K13) ----
 //
 // A block owns 128 output columns (4 warps x 32) and a 16-row tile of x. The
 // weight bytes of one K step (32 rows x 128 columns) are staged in shared
@@ -166,9 +167,8 @@ __device__ __forceinline__ void mma_u8s8(int d[4], const uint32_t a[4], uint32_t
 }
 
 // d += A (16x16 s8, row) * B (16x8 s8, col), int32 (exact): the per-16 dots
-// of K3. With a_frag's registers, {a[0], a[1]} is the A fragment of bytes
-// k0..k0+15 and {a[2], a[3]} that of k0+16..k0+31; b_frags' b0 and b1 are
-// the matching B fragments.
+// of K3 (csrc/q6k_gemv.cu), A the weight's codes of two columns (a0: A row
+// g, a1: row g + 8; 4 K bytes each) and B x's 16 bytes of one row.
 __device__ __forceinline__ void mma_s8_k16(int d[4], uint32_t a0, uint32_t a1, uint32_t b) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
@@ -828,7 +828,7 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 // Activation quantization per GS-element block, one warp per block:
 //   xs = max(max|x_block|, 1e-10) * (1/127)   (f32 multiply, not a divide)
 //   xq = clip(rint(x / xs), -127, 127)        (IEEE divide, round half to even)
-// (skipped when xq is null: K4 only takes sums), and, when xsum32 / xsum16
+// (skipped when xq is null: K5 and K10 only take sums), and, when xsum32 / xsum16
 // are given, the f32 sums of every 32 / 16 original values. The plain
 // PyTorch version (ops/quant_matmul._quantize_acts_q8_gs) does the same f32
 // operations, so xq and xs agree bit for bit; only the sums' order differs.
@@ -836,12 +836,12 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 // [K/32][bpad] and [K/16][bpad] (bpad = B rounded up to 16), so a GEMV
 // block can stage the values of its 16 rows as 16-byte chunks.
 //
-// The layout of xq (XLayout): row-major [B, K] (K3, K9); `kTiled` (the rows
+// The layout of xq (XLayout): row-major [B, K] (K9); `kTiled` (the rows
 // instantiations of K1 and K2): bpad is B rounded up to the block's row
 // tile (64 or 128), the rows B..bpad-1 are quantized as zeros, and xq is
 // written in the int8 wgmma A layout of tiled_off, so one bulk copy brings
 // a 32-element slice of a row tile into shared memory ready for the tensor
-// cores; `kDecode` (the decode instantiations of K1 and K2): bpad is 16,
+// cores; `kDecode` (the decode instantiations of K1, K2 and K3): bpad is 16,
 // rows B..15 are zeros, and each 32-element slice of the 16 rows is 512
 // contiguous bytes (decode_off), read as mma B fragments.
 enum XLayout { kRowMajor = 0, kTiled = 1, kDecode = 2 };
@@ -930,13 +930,13 @@ inline void launch_quantize(const void* x, bool x_is_bf16, int8_t* xq, float* xs
 // each piece 256-byte aligned (ops/quant_matmul._workspace_bytes mirrors it).
 inline size_t align256(size_t n) { return (n + 255) & ~size_t(255); }
 
-// With the row-major layout (K3, K9 and the GEMVs without xq) bpad is B
+// With the row-major layout (K9 and the 16-row GEMVs without xq) bpad is B
 // rounded up to 16 and the split-K partials are always there. With kTiled
 // (the rows instantiations of K1 and K2; `rows` is their row tile): bpad is
 // B rounded up to the row tile, so a block's bulk copies of x's codes,
 // scales and sums stay inside their pieces; xq holds all bpad rows; the
 // partials are there only when ksplit > 1 (with one split the GEMV writes
-// out itself). With kDecode (the decode instantiations of K1 and K2): bpad
+// out itself). With kDecode (the decode instantiations of K1, K2, K3): bpad
 // is 16, xq holds 16 rows, and there are no partials (the K splits of a
 // column tile add theirs in the cluster's shared memory).
 // With xcopy (K10's rows instantiation, tiled) a bf16 copy of x [bpad, K]
@@ -1044,14 +1044,15 @@ inline int launch_ring(Kern* kern, int smem, const Workspace& w, void* out, int 
   return finish_gemv(w, out, out_is_bf16, ksplit, n_out, st);
 }
 
-// ---- The decode instantiations of K1 and K2 (1-16 rows) ----
+// ---- The decode instantiations of K1, K2, K3 and K4 (1-16 rows) ----
 //
 // A block owns `C` = 128 or 64 columns of out and all 16 rows of the row
 // tile, and one K split of the call; the K splits of a column tile are one
 // thread-block cluster (grid (splits, column tiles), cluster (splits, 1, 1),
 // at most 8), which adds their f32 tiles in its distributed shared memory.
 // A ring stage holds kDecSub K steps (64 byte rows of codes: 2 sub-block
-// pairs of K1, 64/gs scale groups of K2). Two producer warps (the block's
+// pairs of K1, 64/gs scale groups of K2; K3's and K4's, csrc/q6k_gemv.cu,
+// one 14 KB step of Q6_K). Two producer warps (the block's
 // last two) fill it, each on its own arrival at the stage's `full`
 // barrier: one with TMA boxes of the weights, at most half the ring
 // ahead of what has landed (so every block's first stages land first and
@@ -1083,11 +1084,11 @@ __host__ __device__ constexpr int dec_stages(int weight_bytes) {
   return (kDecInFlight + weight_bytes - 1) / weight_bytes;
 }
 
-// K steps a split of `steps` over `splits` blocks takes: whole stages, the
-// last split fewer (ops/quant_matmul.int8_gemv_plan picks splits with none
-// empty)
-__host__ __device__ constexpr int dec_per_split(int steps, int splits) {
-  return ((steps + splits - 1) / splits + kDecSub - 1) / kDecSub * kDecSub;
+// K steps a split of `steps` over `splits` blocks takes: whole stages of
+// `sub` steps, the last split fewer (ops/quant_matmul.int8_gemv_plan picks
+// splits with none empty)
+__host__ __device__ constexpr int dec_per_split(int steps, int splits, int sub = kDecSub) {
+  return ((steps + splits - 1) / splits + sub - 1) / sub * sub;
 }
 
 // Wait until the grid this one was launched behind (programmatic dependent
@@ -1213,9 +1214,14 @@ struct DecRing {
     }
   }
   // by every consumer thread before it reads stage i, and once its warp's
-  // reads are consumed (fence_values on what they fed)
+  // reads are consumed (fence_values on what they fed); the proxy fence
+  // orders the thread's reads (generic proxy) before the copies that refill
+  // the stage (async proxy): without it K4 at down, 16 rows, gave another
+  // result in about one call of 400 on an H100 (one of 40 with a 4-stage
+  // ring), as if a refill overtook a read of the stage's previous step
   __device__ void acquire(int i) const { mbar_wait(full(i), parity(i)); }
   __device__ void release(int i) const {
+    fence_proxy_async();
     __syncwarp();
     if ((threadIdx.x & 31) == 0) mbar_arrive(empty(i));
   }

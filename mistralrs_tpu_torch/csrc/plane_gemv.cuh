@@ -27,7 +27,8 @@
 // What bounds it on an H100: at decode the weight stream (codes at BITS/8
 // bytes a weight, s and zs at 2 or 4 bytes a group), against 3.35 TB/s; at
 // 256 rows, the bf16 tensor-core operations.
-// Design for that at 1-16 rows (K4's 16-row structure, csrc/q6k_gemv.cu):
+// Design for that at 1-16 rows (the cp.async 16-row structure K4 had before
+// its decode design):
 // - one K step is 32 byte rows of q for 128 columns (4 KB) and, for each of
 //   the PER planes, the two 16-element halves' s (and zs) rows, the
 //   32-element x slice of the plane at j*Kp + r0 (and its two xsum16
@@ -95,7 +96,7 @@ __device__ __forceinline__ float code_f32(uint32_t w, int i) {
 
 // B fragments of one bf16 m16n8k16 from 4 codes of a column (K rows 4t..4t+3
 // of the 16): the MMA's k = 2t, 2t+1 take rows 4t, 4t+1 and k = 2t+8, 2t+9
-// take 4t+2, 4t+3; the A fragments below follow the same order (as K4).
+// take 4t+2, 4t+3; the A fragments below follow the same order.
 template <bool SIGNED>
 __device__ __forceinline__ void code_b(uint32_t codes, float s, uint32_t& b0, uint32_t& b1) {
   b0 = bf16x2(code_f32<SIGNED>(codes, 0) * s, code_f32<SIGNED>(codes, 1) * s);

@@ -27,8 +27,8 @@
 // weight (qs + two bf16 planes per 32), against 3.35 TB/s; at 256 rows, the
 // bf16 tensor-core operations (twice the product's at 17-256 rows, whose
 // weight goes in as two exact bf16 parts).
-// Design for that at 1-16 rows (K1's staging, csrc/q4k_q8_gemv.cu, with K4's
-// bf16 MMA):
+// Design for that at 1-16 rows (K1's earlier cp.async staging with bf16
+// mma.sync):
 // - a block owns 128 output columns and one 16-row tile of x; one K step is
 //   one "sub-block pair": byte rows 32p..32p+31 of qs, whose low nibbles are
 //   sub-block p and high nibbles sub-block K/64+p, 4 KB for 128 columns,

@@ -32,8 +32,9 @@ int8 path does): xs = max(max|x_block|, 1e-10)/127, xq = clip(round(x/xs),
 -127, 127), so |err| <= max|x_block|/254 per element; round is half to
 even, as jnp.round. The kernels take x itself: the C entry point of each
 runs a quantize kernel, the GEMV and a split-K pass (one host call instead
-of a dozen torch ops per projection); K1's and K2's decode instantiations
-add their K splits on chip instead, two launches a call. Their plain
+of a dozen torch ops per projection); the decode instantiations (up to 16
+rows) of K1, K2 and K3 add their K splits on chip instead, two launches a
+call, and K4's, which takes x as it is, one. Their plain
 versions quantize with the same f32 operations in torch, so the int8 codes
 agree bit for bit; the scale is max|x|*(1/127) in both, where JAX divides
 by 127 (at most one f32 ulp apart). The activation scales and block sums are [B, K/gs] here (JAX
@@ -176,14 +177,11 @@ def _ksplit_for(O: int, B: int, k_units: int, sms: int, rows: int = 16) -> int:
     return max(1, min(-(-4 * sms // tiles), k_units // 4))
 
 
-def _ksplit(O: int, B: int, k_units: int, device) -> int:
-    return _ksplit_for(O, B, k_units, kernels.sm_count(device))
-
-
 @dataclasses.dataclass(frozen=True)
 class GemvPlan:
-    """The launch of K1 or K2 for one call, every field of which the CUDA
-    entry point checks: the row tile of a block (16: the decode
+    """The launch of a GEMV for one call (K1, K2, K3, K4, and the 16-row
+    kernels' (column tiles, K splits, 1) grids), every field of which the
+    CUDA entry point checks: the row tile of a block (16: the decode
     instantiation; 64 or 128: the rows instantiation, two consumer
     warpgroups), the GEMV's grid as the entry point launches it, the K
     split, the blocks of a thread-block cluster (the decode instantiation's
@@ -212,6 +210,11 @@ class GemvPlan:
 DEC_IN_FLIGHT = 32 * 1024
 DEC_SUB = 2
 DEC_MAX_CLUSTER = 8
+# K3's and K4's (csrc/q6k_gemv.cu): a K step is 32 t of one chunk for all
+# four spans (128 elements), 112 weight bytes a column (ql 64 rows, qh 32,
+# 8 bf16 scale rows), 14 KB at 128 columns, so a stage holds one step
+Q6K_DEC_SUB = 1
+Q6K_STEP_COL_BYTES = 112
 
 
 def dec_stages(stage_weight_bytes: int) -> int:
@@ -219,10 +222,24 @@ def dec_stages(stage_weight_bytes: int) -> int:
     return -(-DEC_IN_FLIGHT // stage_weight_bytes)
 
 
-def dec_per_split(slices: int, splits: int) -> int:
-    """The 32-row slices (K1: sub-block pairs) a K split takes: whole
-    stages, the last split fewer (common.cuh dec_per_split)."""
-    return -(-(-(-slices // splits)) // DEC_SUB) * DEC_SUB
+def dec_per_split(slices: int, splits: int, sub: int = DEC_SUB) -> int:
+    """The K steps (K2: 32-row slices; K1: sub-block pairs; K3, K4: 128-element
+    steps) a K split takes: whole stages of `sub` steps, the last split fewer
+    (common.cuh dec_per_split)."""
+    return -(-(-(-slices // splits)) // sub) * sub
+
+
+def _dec_grid(O: int, steps: int, sub: int, sms: int) -> tuple[int, int, int]:
+    """(K splits, columns a block, column tiles) of a decode instantiation
+    over `steps` K steps, `sub` a ring stage: 128 columns a block, or 64
+    where even clusters of the most splits would leave SMs idle; as many
+    splits as put about three blocks on an SM, at most DEC_MAX_CLUSTER,
+    each whole stages and none empty."""
+    most = max(1, min(DEC_MAX_CLUSTER, -(-steps // sub)))
+    cols = 128 if -(-O // 128) * most >= sms else 64
+    ctiles = -(-O // cols)
+    want = max(1, min(most, 3 * sms // ctiles))
+    return -(-steps // dec_per_split(steps, want, sub)), cols, ctiles
 
 
 def int8_gemv_plan(B: int, K: int, O: int, k_units: int, gs: int, sum_gs: int,
@@ -246,12 +263,7 @@ def int8_gemv_plan(B: int, K: int, O: int, k_units: int, gs: int, sum_gs: int,
     least 4 K steps."""
     if B <= 16:
         slices = K // 64 if sum_gs else K // 32  # K1: pairs; K2: 32-row slices
-        stage_units = -(-slices // DEC_SUB)
-        most = max(1, min(DEC_MAX_CLUSTER, stage_units))
-        cols = 128 if -(-O // 128) * most >= sms else 64
-        ctiles = -(-O // cols)
-        want = max(1, min(most, 3 * sms // ctiles))
-        ks = -(-slices // dec_per_split(slices, want))
+        ks, cols, ctiles = _dec_grid(O, slices, DEC_SUB, sms)
         stage_bytes = (cols * DEC_SUB * (32 + 4 * 2) if sum_gs else
                        cols * (DEC_SUB * 32 + DEC_SUB * 32 // gs * scale_bytes))
         return GemvPlan(16, (ks, ctiles, 1), ks, ks, cols, dec_stages(stage_bytes),
@@ -278,8 +290,8 @@ def _workspace_bytes(B: int, K: int, O: int, gs: int, sum_gs: int, ksplit: int,
     (xq [B, K], Bpad B rounded up to 16, always the partials), "tiled" (the
     rows instantiations of K1, K2, K9 and K10: Bpad B rounded up to the row
     tile `rows`, xq [Bpad, K], the partials only with more than one split)
-    or "decode" (K1's and K2's decode instantiations: Bpad 16, xq [16, K],
-    no partials)."""
+    or "decode" (the decode instantiations of K1, K2 and K3: Bpad 16, xq
+    [16, K], no partials; K4's has no workspace)."""
     if layout != "tiled":
         rows = 16
     bpad = -(-B // rows) * rows
@@ -499,11 +511,39 @@ def q6k_q8_gemv_plain(x, ql, qh, scale, G: int, out_dtype=torch.float32):
     return acc.to(out_dtype)
 
 
+def _q6k_dec_plan(B: int, K: int, O: int, G: int, sms: int, ws_bytes: int) -> GemvPlan:
+    """The decode plan of K3 and K4 (csrc/q6k_gemv.cu) up to 16 rows: K1's
+    and K2's decode rules (_dec_grid) over K/128 steps of 128 elements, a
+    ring stage a step; the span G whole 32-t steps."""
+    _require(1 <= B <= 16, f"Q6_K decode plan: 1-16 rows, got {B}")
+    _require(G >= 32 and G % 32 == 0 and K % (4 * G) == 0,
+             f"Q6_K decode plan: needs G % 32 == 0 and K % 4G == 0; got G={G} K={K}")
+    ks, cols, ctiles = _dec_grid(O, K // 128, Q6K_DEC_SUB, sms)
+    return GemvPlan(16, (ks, ctiles, 1), ks, ks, cols,
+                    dec_stages(cols * Q6K_STEP_COL_BYTES * Q6K_DEC_SUB), ws_bytes)
+
+
+def q6k_q8_plan(B: int, K: int, O: int, G: int, sms: int) -> GemvPlan:
+    """Launch plan of K3 on a card with `sms` SMs, every field of which the
+    CUDA entry point checks: the decode plan (grid (K splits, column tiles,
+    1), a cluster of the splits), and the workspace of the decode layout
+    (x's codes of 16 rows, the scales per 32 and the sums per 16; no
+    partials). K3 runs at 1-16 rows only, as the JAX package routes it
+    (its q6k_matmul takes the int8 kernel at n_rows <= 16 only): above, it
+    raises."""
+    _require(B <= 16, f"q6k_q8_gemv: K3 runs at up to 16 rows, got {B}")
+    return _q6k_dec_plan(B, K, O, G, sms, _workspace_bytes(B, K, O, 32, 16, 1, layout="decode"))
+
+
 def q6k_q8_gemv(x, ql, qh, scale, G: int, out_dtype=torch.bfloat16):
     """K3: y [B, O] = x @ W for Q6_K W (chunk span G) with x quantized to
     int8 per 32 (see csrc/q6k_gemv.cu). x [B, K] in element order (bf16 or
-    f32 on cuda), ql uint8 [K/2, O], qh uint8 [K/4, O], scale [K/16, O]
-    (bf16 on cuda), all in the chunked layout of gguf_linear.pack_q6k."""
+    f32 on cuda; at most 16 rows there), ql uint8 [K/2, O], qh uint8 [K/4,
+    O], scale [K/16, O] (bf16 on cuda), all in the chunked layout of
+    gguf_linear.pack_q6k. Two launches a call (the quantize kernel, then the
+    GEMV whose K splits add their sums in a cluster), on the plan of
+    q6k_q8_plan; nothing of a call waits for the card or keeps state
+    between calls, so it can be captured in a CUDA graph."""
     global q6k_q8_gemv_launches
     B, K, O = _check_q6k("q6k_q8_gemv", x, ql, qh, G)
     _require(out_dtype in (torch.bfloat16, torch.float32), f"q6k_q8_gemv: out {out_dtype}")
@@ -512,25 +552,21 @@ def q6k_q8_gemv(x, ql, qh, scale, G: int, out_dtype=torch.bfloat16):
     _require(x.dtype in (torch.bfloat16, torch.float32), f"q6k_q8_gemv: x {x.dtype}")
     _check_tensor("scale", scale, torch.bfloat16, (K // 16, O))
     dev = _check_cuda("q6k_q8_gemv", dict(x=x, ql=ql, qh=qh, scale=scale))
-    ksplit = _ksplit(O, B, K // 128, dev)
-    nbytes = _workspace_bytes(B, K, O, 32, 16, ksplit)
-    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    plan = q6k_q8_plan(B, K, O, G, kernels.sm_count(dev))
+    ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
     fn = kernels.function("q6k_gemv", "q6k_q8_gemv",
-                          [_P, _I, _P, _P, _P, _I, _P, ctypes.c_longlong, _P] + [_I] * 5 + [_P])
+                          [_P, _I, _P, _P, _P, _I, _P, ctypes.c_longlong, _P] + [_I] * 11 + [_P])
     err = fn(kernels.ptr(x), int(x.dtype == torch.bfloat16), kernels.ptr(ql), kernels.ptr(qh),
-             kernels.ptr(scale), G, kernels.ptr(ws), nbytes, kernels.ptr(out),
-             int(out_dtype == torch.bfloat16), B, K, O, ksplit, _P(kernels.stream_ptr(dev)))
+             kernels.ptr(scale), G, kernels.ptr(ws), plan.ws_bytes, kernels.ptr(out),
+             int(out_dtype == torch.bfloat16), B, K, O, *plan.launch_args(),
+             _P(kernels.stream_ptr(dev)))
     kernels.check(err, "q6k_q8_gemv")
     q6k_q8_gemv_launches += 1
     return out
 
 
 # ------------------------------------------------------- K4: Q6_K x bf16
-
-# rows of x one block of K4's 16-row instantiation serves (4 tiles of 16
-# share each staged weight tile)
-K4_ROWS = 64
 
 
 def q6k_bf16_gemv_plain(x, ql, qh, scale, G: int, out_dtype=torch.float32):
@@ -556,17 +592,14 @@ def q6k_rows_take(K: int, G: int) -> bool:
 
 def q6k_bf16_plan(B: int, K: int, O: int, G: int, sms: int) -> GemvPlan:
     """Launch plan of K4 on a card with `sms` SMs, every field of which the
-    CUDA entry point checks. Up to 16 rows the 16-row instantiation
-    (q6k_bf16_mma_kernel): grid (column tiles, K splits, 1), the split by
-    _ksplit_for over 128-element steps at its 64-row blocks, the row-major
-    workspace (per-16 sums, partials). Above: the rows instantiation, K10's
-    2-bit plan (Q6_K is its geometry: 4 planes, 16-element groups, a zs
-    slice of 128 r) with Q6_K's ring stages; the span G must pass
-    q6k_rows_take."""
+    CUDA entry point checks. Up to 16 rows the decode instantiation
+    (q6k_bf16_dec_kernel): K3's decode plan (grid (K splits, column tiles,
+    1), a cluster of the splits) and no workspace (x goes in by TMA as it
+    is). Above: the rows instantiation, K10's 2-bit plan (Q6_K is its
+    geometry: 4 planes, 16-element groups, a zs slice of 128 r) with Q6_K's
+    ring stages; the span G must pass q6k_rows_take."""
     if B <= 16:
-        ks = _ksplit_for(O, B, K // 128, sms, rows=K4_ROWS)
-        return GemvPlan(16, (-(-O // 128), ks, 1), ks, 1, 128, 0,
-                        _workspace_bytes(B, K, O, 0, 16, ks))
+        return _q6k_dec_plan(B, K, O, G, sms, 0)
     _require(q6k_rows_take(K, G), f"q6k_bf16_gemv: above 16 rows the kernel needs a power-of-two "
                                   f"span G >= 128 with K % 4G == 0; got G={G} K={K}")
     return plane_gemv_plan(B, K, O, 2, 16, sms, codes_in_tile=True)
@@ -576,8 +609,9 @@ def q6k_bf16_gemv(x, ql, qh, scale, G: int, out_dtype=torch.bfloat16):
     """K4: y [B, O] = x @ W for Q6_K W with the weight dequantized to x's
     dtype inside the kernel (see csrc/q6k_gemv.cu). x [B, K] in element
     order (bf16 on cuda), the weight arrays as for K3. Up to 16 rows the
-    16-row instantiation, above it the rows instantiation (plane_gemv.cuh's
-    rows kernel with Q6_K's decode), on the plan of q6k_bf16_plan."""
+    decode instantiation (one launch, the K splits added in a cluster),
+    above it the rows instantiation (plane_gemv.cuh's rows kernel with
+    Q6_K's decode), on the plan of q6k_bf16_plan."""
     global q6k_bf16_gemv_launches, q6k_bf16_gemv_rows_launches
     B, K, O = _check_q6k("q6k_bf16_gemv", x, ql, qh, G)
     _require(out_dtype in (torch.bfloat16, torch.float32), f"q6k_bf16_gemv: out {out_dtype}")

@@ -46,10 +46,13 @@ and of plane_rows_kernel's other instantiations, K4's (Q6_K, `k4_rows_ms`:
 the 4 x 40 step of `--mix q5km`, with int8 activations or without), K9b's
 (one bit without the zs term, `k9b_rows_ms`), K5's (Q4_K's exact
 two-part weight, `k5_rows_ms`) and K8's (signed 8-bit codes, `k8_rows_ms`),
-the last three with `--int8-activations off`, beside K4's 16-row
-q6k_bf16_mma_kernel and the pre-pass plane_prep_kernel of every rows call
-that has one (all but K8's)), then the top device kernels and host ops by
-time.
+the last three with `--int8-activations off`, beside the pre-pass
+plane_prep_kernel of every rows call that has one (all but K8's); and of
+K3's and K4's GEMVs up to 16 rows, `k3_ms` and `k4_ms`: kernels named
+q6k_q8_* and q6k_bf16_* (q6k_q8_dec_kernel and q6k_bf16_dec_kernel; in a
+tree before their decode design q6k_q8_mma_kernel and q6k_bf16_mma_kernel,
+whose call also ran the quantize kernel and a split-K pass, not counted
+here)), then the top device kernels and host ops by time.
 """
 
 from __future__ import annotations
@@ -87,7 +90,7 @@ NAMED_KERNELS = {"grouped_gemm": "grouped_gemm", "k13_tiles": "grouped_gemm_tile
                  "k9": "q5k_q8_mma_kernel", "k9_rows": "q5k_q8_rows_kernel",
                  "k10": "plane_bf16_mma_kernel<2",
                  "k10_rows": lambda k: (_plane_fmt(k) or [""] * 4)[3] == "true",
-                 "k4": "q6k_bf16_mma_kernel",
+                 "k3": "q6k_q8_", "k4": "q6k_bf16_",
                  "k4_rows": lambda k: "plane_rows_kernel<" in k and "Q6kFmt" in k,
                  "k9b_rows": lambda k: (_plane_fmt(k) or [""] * 4)[:4:3] == ["1", "false"],
                  "k5_rows": lambda k: "plane_rows_kernel<" in k and "Q4kFmt" in k,

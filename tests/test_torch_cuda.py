@@ -142,12 +142,16 @@ def test_q8_0_q8_gemv_decode_tails_match_plain(dev, K, O, gs, sdt, B):
 
 
 def _decode_calls(dev, B):
-    """One K1 and one K2 decode call at the main path's q|k and v shapes."""
+    """One K1, K2, K3 and K4 decode call at the main path's q|k and v
+    shapes (K3 and K4 at the Q6_K v, in clusters of 8 splits)."""
     qs, scale, minv = _q4k_arrays(dev, 4096, 5120, 1)
     q, s = _q8_arrays(dev, 4096, 1024, 32, torch.float32, 2)
+    ql, qh, s6 = _q6k_span_arrays(dev, 4096, 1024, 512, 4)
     x = _acts(B, 4096, dev, 3).to(torch.bfloat16)
     return (lambda: qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.float32),
-            lambda: qm.q8_0_q8_gemv(x, q, s, 32, out_dtype=torch.float32))
+            lambda: qm.q8_0_q8_gemv(x, q, s, 32, out_dtype=torch.float32),
+            lambda: qm.q6k_q8_gemv(x, ql, qh, s6, 512, out_dtype=torch.float32),
+            lambda: qm.q6k_bf16_gemv(x, ql, qh, s6, 512, out_dtype=torch.float32))
 
 
 @pytest.mark.parametrize("B", [1, 16])
@@ -158,6 +162,36 @@ def test_decode_gemv_is_bit_equal_on_repeat(dev, B):
         first = call()
         for _ in range(3):
             assert torch.equal(call(), first)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4"])
+def test_decode_gemv_is_bit_equal_over_many_calls(dev, kernel):
+    """1,000 calls at the down projection (14336 -> 4096, clusters of 8
+    splits), 16 rows, the L2 flushed before every other call, each bit-equal
+    to the first: a consumer's reads of a ring stage are ordered before the
+    copies that refill it (without the decode ring's proxy fence K4 gave
+    another result in about one call of 400)."""
+    K, O = 14336, 4096
+    x = _acts(16, K, dev, 5).to(torch.bfloat16)
+    if kernel == "k1":
+        qs, scale, minv = _q4k_arrays(dev, K, O, 6)
+        call = lambda: qm.q4k_q8_gemv(x, qs, scale, minv)  # noqa: E731
+    elif kernel == "k2":
+        q, s = _q8_arrays(dev, K, O, 32, torch.float32, 6)
+        call = lambda: qm.q8_0_q8_gemv(x, q, s, 32)  # noqa: E731
+    else:
+        ql, qh, s6 = _q6k_span_arrays(dev, K, O, 512, 6)
+        fn = qm.q6k_q8_gemv if kernel == "k3" else qm.q6k_bf16_gemv
+        call = lambda: fn(x, ql, qh, s6, 512)  # noqa: E731
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    first = call()
+    outs = []
+    for i in range(1000):
+        if i % 2:
+            flush.zero_()
+        outs.append(call())
+    torch.cuda.synchronize()
+    assert sum(not torch.equal(o, first) for o in outs) == 0
 
 
 @pytest.mark.parametrize("B", [1, 16])
@@ -190,15 +224,23 @@ def test_decode_gemv_replays_in_a_cuda_graph(dev, B):
 def test_decode_gemv_counts_one_launch_a_call(dev):
     """The decode counters count calls of the decode instantiations (the
     rows counters stay)."""
-    k1, k2 = _decode_calls(dev, 16)
-    before = (qm.q4k_q8_gemv_launches, qm.q4k_q8_gemv_rows_launches,
-              qm.q8_0_q8_gemv_launches, qm.q8_0_q8_gemv_rows_launches)
+    k1, k2, k3, k4 = _decode_calls(dev, 16)
+
+    def counts():
+        return (qm.q4k_q8_gemv_launches, qm.q4k_q8_gemv_rows_launches,
+                qm.q8_0_q8_gemv_launches, qm.q8_0_q8_gemv_rows_launches,
+                qm.q6k_q8_gemv_launches, qm.q6k_bf16_gemv_launches,
+                qm.q6k_bf16_gemv_rows_launches)
+
+    before = counts()
     k1()
     k2()
     k2()
-    after = (qm.q4k_q8_gemv_launches, qm.q4k_q8_gemv_rows_launches,
-             qm.q8_0_q8_gemv_launches, qm.q8_0_q8_gemv_rows_launches)
-    assert [a - b for a, b in zip(after, before)] == [1, 0, 2, 0]
+    k3()
+    k4()
+    k4()
+    k4()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 0, 2, 0, 1, 3, 0]
 
 
 # the rows instantiations of K1 and K2 (17-256 rows): one and two row tiles
@@ -428,38 +470,67 @@ def _rel_err(got, want):
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
-@pytest.mark.parametrize("B", [1, 5, 16, 17, 256])
-@pytest.mark.parametrize("K,O", [(512, 256), (4096, 272)])
-def test_q6k_q8_gemv_matches_plain(dev, B, K, O):
-    """K3 at chunk spans 128 and 512 (two chunks): the same int8 codes and
-    exact per-16 dots on both sides, f32 sums in another order."""
-    ql, qh, scale, G = _q6k_arrays(dev, K, O, B + K)
-    assert G == (128 if K == 512 else 512)
+# K3's and K4's decode instantiations (1-16 rows): spans G of 128, 256 and
+# 512, 272 columns (a partial column tile) in clusters of 4 and of 8 (the
+# full cluster), and a one-split shape whose 199 column tiles of 128 (the
+# last partial) fill the card; one and two n-tiles of x rows and their edges
+Q6K_DEC_B = [1, 2, 5, 8, 9, 16]
+Q6K_DEC_SHAPES = [(512, 272, 128), (2048, 272, 256), (4096, 272, 512), (1024, 25360, 256)]
+
+
+def _q6k_span_arrays(dev, K, O, G, seed):
+    ql, qh, scale, _ = _q6k_arrays(dev, K, O, seed)
+    assert K % (4 * G) == 0
+    return ql, qh, scale
+
+
+@pytest.mark.parametrize("B", Q6K_DEC_B + [17, 256])
+@pytest.mark.parametrize("K,O,G", Q6K_DEC_SHAPES)
+def test_q6k_q8_gemv_matches_plain(dev, B, K, O, G):
+    """K3: the same int8 codes and exact per-16 dots on both sides, f32 sums
+    in another order (1e-5 of max |y|); bit-equal on a repeat (the K splits
+    add in rank order), one count a call, the bf16 output the f32 one
+    rounded. Above 16 rows it raises, as the JAX package routes K3 only up
+    to 16."""
+    ql, qh, scale = _q6k_span_arrays(dev, K, O, G, B + K)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = qm.q6k_q8_plan(min(B, 16), K, O, G, sms)
+    assert plan.ksplit in ((1,) if O > 20000 else (4, 8)), plan
     for xdt in (torch.float32, torch.bfloat16):
         x = _acts(B, K, dev, B).to(xdt)
+        if B > 16:
+            with pytest.raises(ValueError):
+                qm.q6k_q8_gemv(x, ql, qh, scale, G, out_dtype=torch.float32)
+            continue
         before = qm.q6k_q8_gemv_launches
         got = qm.q6k_q8_gemv(x, ql, qh, scale, G, out_dtype=torch.float32)
+        again = qm.q6k_q8_gemv(x, ql, qh, scale, G, out_dtype=torch.float32)
+        y16 = qm.q6k_q8_gemv(x, ql, qh, scale, G)
         want = qm.q6k_q8_gemv_plain(x, ql, qh, scale, G, torch.float32)
         torch.cuda.synchronize()
-        assert qm.q6k_q8_gemv_launches == before + 1
-        assert _rel_err(got, want) <= 1e-5
+        assert qm.q6k_q8_gemv_launches == before + 3
+        assert bool(torch.isfinite(got).all()) and _rel_err(got, want) <= 1e-5, plan
+        assert torch.equal(got, again) and torch.equal(y16, got.to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("B", [1, 5, 16, 17, 256])
-@pytest.mark.parametrize("K,O", [(512, 256), (4096, 272)])
-def test_q6k_bf16_gemv_matches_plain(dev, B, K, O):
+@pytest.mark.parametrize("B", Q6K_DEC_B + [17, 256])
+@pytest.mark.parametrize("K,O,G", Q6K_DEC_SHAPES)
+def test_q6k_bf16_gemv_matches_plain(dev, B, K, O, G):
     """K4: the same bf16(q * s16) weights on both sides; f32 sums of bf16
-    products in another order (1e-4 of max |y|). Up to 16 rows its 16-row
-    instantiation, above its rows instantiation."""
-    ql, qh, scale, G = _q6k_arrays(dev, K, O, B + K + 1)
+    products in another order (1e-4 of max |y|); bit-equal on a repeat, one
+    count a call. Up to 16 rows its decode instantiation, above its rows
+    instantiation."""
+    ql, qh, scale = _q6k_span_arrays(dev, K, O, G, B + K + 1)
     x = _acts(B, K, dev, B + 1).to(torch.bfloat16)
     before = (qm.q6k_bf16_gemv_launches, qm.q6k_bf16_gemv_rows_launches)
     got = qm.q6k_bf16_gemv(x, ql, qh, scale, G, out_dtype=torch.float32)
+    again = qm.q6k_bf16_gemv(x, ql, qh, scale, G, out_dtype=torch.float32)
     want = qm.q6k_bf16_gemv_plain(x, ql, qh, scale, G, torch.float32)
     torch.cuda.synchronize()
     assert (qm.q6k_bf16_gemv_launches - before[0],
-            qm.q6k_bf16_gemv_rows_launches - before[1]) == ((1, 0) if B <= 16 else (0, 1))
-    assert _rel_err(got, want) <= 1e-4
+            qm.q6k_bf16_gemv_rows_launches - before[1]) == ((2, 0) if B <= 16 else (0, 2))
+    assert bool(torch.isfinite(got).all()) and _rel_err(got, want) <= 1e-4
+    assert torch.equal(got, again)
 
 
 # the 16-row kernels' row counts, then the rows instantiations' (one and two

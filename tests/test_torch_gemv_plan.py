@@ -4,6 +4,8 @@ every row count up to 256 and the Mistral-7B Q4_K_M main path's projection
 shapes. Pure Python: the plan is what the wrappers hand the CUDA entry
 points, which check every field of it."""
 
+import dataclasses
+
 import pytest
 
 from mistralrs_tpu_torch.ops import quant_matmul as qm
@@ -293,21 +295,95 @@ def test_plane_rows_take_and_the_row_rule():
     assert qm.plane_gemv_plan(17, 4096, 28672, 2, 16, 132).rows == 64
 
 
-# K4 (q6k_bf16_gemv) at the Q5_K_M path's Q6_K projections: v, the
-# use_more_bits down, the padded lm_head
+# K3 (q6k_q8_gemv) and K4 (q6k_bf16_gemv) at the Q5_K_M path's Q6_K
+# projections: v, the use_more_bits down, the padded lm_head
 Q6K_SHAPES = [("v", 4096, 1024), ("down", 14336, 4096), ("lm_head", 4096, 32768)]
+
+
+def check_q6k_decode_plan(B, K, O, G, sms, plan, ws_bytes):
+    """K3's and K4's decode plan (csrc/q6k_gemv.cu) up to 16 rows: one
+    cluster of the K splits a column tile (at most 8), each column tile
+    once in the grid, 128 columns a block or 64 where clusters of the most
+    splits at 128 would leave SMs idle, the splits over K/128 steps of 128
+    elements whole ring stages (a stage a step) that cover K with none
+    empty, about three blocks an SM, dec_stages(112 bytes a column) ring
+    stages, and the workspace given (K3: the decode carve; K4: none)."""
+    assert plan.rows == 16 and plan.cols in (64, 128), (B, plan)
+    ks, ctiles, one = plan.grid
+    assert one == 1 and ctiles == -(-O // plan.cols) and (ctiles - 1) * plan.cols < O, (B, plan)
+    assert plan.cluster == plan.ksplit == ks and 1 <= ks <= 8, (B, plan)
+    steps = K // 128
+    most = min(8, steps)
+    assert plan.cols == (128 if -(-O // 128) * most >= sms else 64), (B, plan)
+    # as many splits as put about three blocks on an SM, at most `most`
+    assert ks <= most and (ks == 1 or ks * ctiles <= 3 * sms), (B, plan)
+    assert ks == most or (ks + 1) * ctiles > 3 * sms or -(-steps // (ks + 1)) == -(-steps // ks)
+    per = -(-steps // ks)  # a stage a step: whole stages
+    assert per == qm.dec_per_split(steps, ks, qm.Q6K_DEC_SUB) and qm.Q6K_DEC_SUB == 1
+    assert (ks - 1) * per < steps <= ks * per, (B, plan)  # no empty split
+    assert plan.stages == -(-32768 // (112 * plan.cols)) == (3 if plan.cols == 128 else 5)
+    assert plan.ws_bytes == ws_bytes, (B, plan)
+    assert K % (4 * G) == 0 and G % 32 == 0  # every step lies in one chunk
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("G", [128, 512])
+def test_q6k_q8_plan(G, sms):
+    """K3: the decode plan at 1-16 rows, the workspace of carve's decode
+    layout with the per-16 sums (x's codes of 16 rows, xs per 32, xsum16;
+    no partials), the same plan at every B."""
+    for name, K, O in Q6K_SHAPES:
+        plans = set()
+        for B in range(1, 17):
+            plan = qm.q6k_q8_plan(B, K, O, G, sms)
+            bpad, pieces, total = carve(B, K, O, 32, 16, plan.ksplit, 16)
+            assert bpad == 16 and pieces["xq"] == (0, 16 * K), (name, B)
+            assert pieces["xsum"][1] == (K // 16) * 16 * 4 and "part" not in pieces
+            check_q6k_decode_plan(B, K, O, G, sms, plan, total)
+            plans.add(plan)
+        assert len(plans) == 1, (name, plans)
+
+
+@pytest.mark.parametrize("B", [17, 64, 256])
+def test_q6k_q8_plan_raises_above_16_rows(B):
+    """K3 runs at up to 16 rows only, as the JAX package routes it."""
+    with pytest.raises(ValueError):
+        qm.q6k_q8_plan(B, 4096, 1024, 512, 132)
+
+
+@pytest.mark.parametrize("G", [32, 96, 384])
+def test_q6k_decode_plan_takes_any_span_of_whole_steps(G):
+    """A step is 32 t of one chunk, so the decode kernels take any span G
+    that is a multiple of 32; another span is refused."""
+    K = 4 * G * 4
+    for plan_fn in (qm.q6k_q8_plan, qm.q6k_bf16_plan):
+        assert plan_fn(16, K, 272, G, 132).rows == 16
+        with pytest.raises(ValueError):
+            plan_fn(16, 4 * 48 * 4, 272, 48, 132)
+
+
+def test_q6k_decode_plan_fills_the_card_in_one_wave():
+    """At the main path's shapes: v in 16 column tiles of 64 with clusters
+    of 8 (128 blocks), down in 32 tiles of 128 with 8 (256), the lm_head in
+    256 tiles of 128 with one split (256): between 0.9 and 3 blocks an SM,
+    in one wave of three a SM."""
+    want = {"v": ((8, 16, 1), 64), "down": ((8, 32, 1), 128), "lm_head": ((1, 256, 1), 128)}
+    for name, K, O in Q6K_SHAPES:
+        for plan in (qm.q6k_q8_plan(16, K, O, 512, 132), qm.q6k_bf16_plan(16, K, O, 512, 132)):
+            assert (plan.grid, plan.cols) == want[name], (name, plan)
+            blocks = plan.grid[0] * plan.grid[1]
+            assert 132 * 0.9 <= blocks <= 3 * 132, (name, plan)
 
 
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("G", [128, 512])
 def test_q6k_bf16_plan(G, sms):
-    """K4: its 16-row instantiation up to 16 rows (grid (column tiles, K
-    splits, 1), the split over 128-element steps at 64-row blocks, the
-    row-major workspace with the per-16 sums); above, the rows kernel on
-    K10's 2-bit grid (K split at slices of 128 r, only to fill one wave,
-    none empty), Q6_K's ring stages (9 at 64 rows, 6 at 128) and carve's
-    tiled workspace: the per-16 sums, x's copy in step order, the partials
-    with more than one split."""
+    """K4: its decode instantiation up to 16 rows (K3's decode plan, no
+    workspace: x goes in by TMA as it is); above, the rows kernel on K10's
+    2-bit grid (K split at slices of 128 r, only to fill one wave, none
+    empty), Q6_K's ring stages (9 at 64 rows, 6 at 128) and carve's tiled
+    workspace: the per-16 sums, x's copy in step order, the partials with
+    more than one split."""
     for name, K, O in Q6K_SHAPES:
         assert qm.q6k_rows_take(K, G), (name, G)
         slices = K // 4 // 128
@@ -315,10 +391,8 @@ def test_q6k_bf16_plan(G, sms):
             plan = qm.q6k_bf16_plan(B, K, O, G, sms)
             ks = plan.ksplit
             if B <= 16:
-                assert plan.rows == 16 and plan.grid == (-(-O // 128), ks, 1), (B, plan)
-                assert ks == qm._ksplit_for(O, B, K // 128, sms, rows=64), (B, plan)
-                assert (plan.cluster, plan.cols, plan.stages) == (1, 128, 0), (B, plan)
-                assert plan.ws_bytes == carve_row_major(B, K, O, 0, 16, ks), (B, plan)
+                check_q6k_decode_plan(B, K, O, G, sms, plan, 0)
+                assert plan == dataclasses.replace(qm.q6k_q8_plan(B, K, O, G, sms), ws_bytes=0)
                 continue
             check_rows_grid(B, O, sms, plan)
             per_split = -(-slices // ks)

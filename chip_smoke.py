@@ -24,7 +24,9 @@ non-zero and never prints the final line):
    the card could take (bound); the Q6_K GEMVs K3 and K4 at 1, 4 and 16
    rows, with the kernels the card runs a call at 16 (K3 two, K4 one), and
    for K3 also the time of the int8 GEMV (K2) on the same weight
-   requantized to int8 per 32 (rq8).
+   requantized to int8 per 32 (rq8); the plane-affine GEMV K10 at 1, 4 and
+   16 rows in every layout, and K8 at 1, 4 and 16 at v, q|k, gate|up, down
+   and the lm_head, with the kernels the card runs a call at 16 (one each).
    K1, K2 and K9 also at 64, 128 and 256 rows (K9 at 17 too), K10 at 64 and
    256 in every layout, K4 (the Q6_K bf16 GEMV) at 17, 64, 128 and 256: the
    rows instantiations.
@@ -57,7 +59,7 @@ non-zero and never prints the final line):
    slice phase's pattern: 4 x 256-row first chunks (affine_dequant /
    q4k_dequant / q8_0_dequant + torch.matmul, flash prefill), 4 x 64-row
    chunks (the plane-affine GEMV K10's rows instantiation, K1 and K2's)
-   and decode at batch 16 (K10's 16-row kernel, K1 and K2). It raises
+   and decode at batch 16 (K10's decode instantiation, K1 and K2). It raises
    unless those kernels, both instantiations of K10 among them, launched
    and no Q5_K or Q6_K kernel did.
 8. gemma2: Gemma-2-9B (config_from_hf on google/gemma-2-9b's config.json:
@@ -130,7 +132,8 @@ non-zero and never prints the final line):
 The kernel phase also holds K5, K9b and K8 against their plain versions at
 the gguf_bf16 path's shapes (gate|up at 1, 16, 17, 64, 128 and 256 rows;
 q|k, o, down; K5's and K8's rows instantiations at 17, 64 and 256 rows;
-K8 also at v and the lm_head on rq8 and wire Q8_0 scales), K12 against its plain
+K8 also at v and the lm_head on rq8 and wire Q8_0 scales, its decode
+instantiation at 1, 4 and 16 rows), K12 against its plain
 version (decode at Mistral-7B's and Gemma-2-9B's widths, 4 x 512 continuation chunks, a mixed
 batch of a decode row, a first chunk and a continuation with fewer live
 sequences than slots), and K13 at Mixtral's gate and down for a decode
@@ -201,6 +204,8 @@ KERNEL_INFO = {
                     "mistralrs_tpu/quant/gguf_linear.py:469"),
     "q5k_dequant": ("mistralrs_tpu_torch/csrc/q5k_q8_gemv.cu",
                     "mistralrs_tpu/quant/gguf_linear.py:498"),
+    # K10's and K8's decode instantiations (1-16 rows): one template,
+    # plane_dec_kernel (csrc/plane_gemv.cuh), one launch a call
     "affine_gemv": ("mistralrs_tpu_torch/csrc/affine_gemv.cu",
                     "mistralrs_tpu/ops/quant_matmul.py:533"),
     "affine_gemv_rows": ("mistralrs_tpu_torch/csrc/affine_gemv.cu",
@@ -997,10 +1002,10 @@ K4_ROWS = (16, 4, 1, 17, 64, 128, 256)
 
 
 def q6k_kernels_a_call(name: str, most: int, B: int, fn) -> dict:
-    """At 16 rows, the kernels the card runs for one call of K3's or K4's
-    decode instantiation ({"kernels_a_call": n}; {} at other row counts);
-    raises past `most` (K3: the quantize kernel and the GEMV; K4: the GEMV
-    alone), which a split-K pass would break."""
+    """At 16 rows, the kernels the card runs for one call of a decode
+    instantiation ({"kernels_a_call": n}; {} at other row counts); raises
+    past `most` (K3: the quantize kernel and the GEMV; K4, K8, K10: the
+    GEMV alone), which a split-K pass or a pre-pass would break."""
     if B != 16:
         return {}
     n = kernels_a_call(fn)
@@ -1116,14 +1121,16 @@ def q56k_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
 
 def affine_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
     """Parity and timing of K10 and its dequant kernel: GGUF Q2_K (bits 2,
-    group 16) at the Q2_K path's fused q|k and gate|up, at 1, 16, 64 and
-    256 rows; GPTQ-8 (group 128, the rows of an act-order checkpoint sorted
-    at load; x is gathered before the kernel) at down and gate|up; HQQ-1
-    and HQQ-2 (group 64) and GPTQ-4 at group 16 (which does not map onto
-    Q4_K) at gate|up; those at 16, 64 and 256 rows (above 16 rows the rows
-    instantiation, counted as affine_gemv_rows). Random codes, scale U[0.001, 0.005), zs = 1.5 * scale
-    (Q2_K's minv) or 2^(bits-1) * scale (a mid-range zero point). library =
-    torch.matmul on the dequantized bf16 weight."""
+    group 16) at the Q2_K path's fused q|k and gate|up; GPTQ-8 (group 128,
+    the rows of an act-order checkpoint sorted at load; x is gathered
+    before the kernel) at down and gate|up; HQQ-1 and HQQ-2 (group 64) and
+    GPTQ-4 at group 16 (which does not map onto Q4_K) at gate|up; each at
+    1, 4 and 16 rows (the decode instantiation; at 16 rows with the kernels
+    the card runs a call, which raises past one) and 64 and 256 (the rows
+    instantiation, counted as affine_gemv_rows). Random codes, scale
+    U[0.001, 0.005), zs = 1.5 * scale (Q2_K's minv) or 2^(bits-1) * scale
+    (a mid-range zero point). library = torch.matmul on the dequantized
+    bf16 weight."""
     import torch
 
     from mistralrs_tpu_torch.ops import quant_matmul as qm
@@ -1135,13 +1142,13 @@ def affine_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
         err = float((got.float() - want.float()).abs().max())
         return err, err / max(float(want.float().abs().max()), 1e-30)
 
-    rows = (16, 64, 256)
-    cases = [("q2k", 2, 16, "qk", H, (sz.heads + sz.kv_heads) * D, (1, 16, 64, 256)),
-             ("q2k", 2, 16, "gate|up", H, 2 * I, (1, 16, 64, 256)),
-             ("gptq8", 8, 128, "down", I, H, rows), ("gptq8", 8, 128, "gate|up", H, 2 * I, rows),
-             ("hqq1", 1, 64, "gate|up", H, 2 * I, rows), ("hqq2", 2, 64, "gate|up", H, 2 * I, rows),
-             ("gptq4", 4, 16, "gate|up", H, 2 * I, rows)]
-    for fmt, bits, group, nm, K, O, rows in cases:
+    rows = (1, 4, 16, 64, 256)
+    cases = [("q2k", 2, 16, "qk", H, (sz.heads + sz.kv_heads) * D),
+             ("q2k", 2, 16, "gate|up", H, 2 * I),
+             ("gptq8", 8, 128, "down", I, H), ("gptq8", 8, 128, "gate|up", H, 2 * I),
+             ("hqq1", 1, 64, "gate|up", H, 2 * I), ("hqq2", 2, 64, "gate|up", H, 2 * I),
+             ("gptq4", 4, 16, "gate|up", H, 2 * I)]
+    for fmt, bits, group, nm, K, O in cases:
         q = rand(K * bits // 8, O, lo=0.0, hi=256.0).to(torch.uint8)
         scale = rand(K // group, O, lo=0.001, hi=0.005, dtype=fdt)
         zs = ((1.5 if fmt == "q2k" else 2 ** (bits - 1)) * scale.float()).to(fdt)
@@ -1161,33 +1168,36 @@ def affine_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
             err, rel = compare(qm.affine_gemv(x, q, scale, zs, bits, group, out_dtype=torch.float32),
                                qm.affine_gemv_plain(x, q, scale, zs, bits, group, torch.float32))
             nbytes = w_bytes + B * K * 2 + B * O * 2
+            per_call = q6k_kernels_a_call(
+                "affine_gemv", 1, B,
+                lambda: qm.affine_gemv(x, q, scale, zs, bits, group, out_dtype=fdt))
             # the same bf16(q * scale) weights on both sides; f32 sums of
-            # bf16 products in another order, the zs term over per-16 sums
+            # bf16 products in another order, the zs term over x in f32
             record("affine_gemv" if B <= 16 else "affine_gemv_rows", f"{nm} {fmt} B={B}", err,
                    rel, 1e-4,
                    clock.ms(lambda: qm.affine_gemv(x, q, scale, zs, bits, group, out_dtype=fdt)),
                    clock.ms(lambda: qm.affine_gemv_plain(x, q, scale, zs, bits, group, fdt)),
-                   clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_BF16))
+                   clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_BF16),
+                   **per_call)
         del w, q, scale, zs
 
 
 def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
-    """Parity and timing of K5's and K8's 16-row instantiations and of K9b
-    (both instantiations), the GEMVs of int8_activations=False, at the
-    shapes of the gguf_bf16 path: K5 at gate|up at 1 and 16 rows, q|k and
-    down at 16; K9b at gate|up at 1, 16, 17, 64, 128 and 256 rows, at q|k
-    and down at 16, 17, 64 and 256 and at o at 17, 64 and 256 (the rows
-    instantiation's K splits: one at gate|up, several at the others;
-    `splits` on each row, and the phase raises unless both were compared);
-    K8 on rq8 weights (f32 scales per 32) at K5's shapes and at the lm_head
-    (32768 columns) at 1 and 16, and once on wire Q8_0 (bf16 scales). (The
-    row counts above 16 that K5 and K8 were timed at here before their rows
-    instantiations, bf16_rows_kernels', still draw their x, so the other
-    rows' inputs stay as they were.) Random codes, scale U[0.001, 0.005),
-    minv U[0, 0.002) (int8: U[1e-4, 4e-4)). library = torch.matmul on the
-    dequantized bf16 weight; int8_ms = the int8 route's kernel (K1, K9, K2)
-    on the same weight and x; K9b's rows also time the whole Q5_K bf16
-    route (K5, K9b and the add: route_ms)."""
+    """Parity and timing of K5's 16-row instantiation, K8's decode
+    instantiation and K9b (both instantiations), the GEMVs of
+    int8_activations=False, at the shapes of the gguf_bf16 path: K5 at
+    gate|up at 1 and 16 rows, q|k and down at 16; K9b at gate|up at 1, 16,
+    17, 64, 128 and 256 rows, at q|k and down at 16, 17, 64 and 256 and at o
+    at 17, 64 and 256 (the rows instantiation's K splits: one at gate|up,
+    several at the others; `splits` on each row, and the phase raises unless
+    both were compared); K8 on rq8 weights (f32 scales per 32) at v, q|k,
+    gate|up, down and the lm_head (32768 columns), and on wire Q8_0 (bf16
+    scales) at the lm_head, each at 1, 4 and 16 rows (at 16 with the
+    kernels the card runs a call, which raises past one). Random codes,
+    scale U[0.001, 0.005), minv U[0, 0.002) (int8: U[1e-4, 4e-4)). library
+    = torch.matmul on the dequantized bf16 weight; int8_ms = the int8
+    route's kernel (K1, K9, K2) on the same weight and x; K9b's rows also
+    time the whole Q5_K bf16 route (K5, K9b and the add: route_ms)."""
     import torch
 
     from mistralrs_tpu_torch.ops import kernels
@@ -1254,30 +1264,32 @@ def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
         raise AssertionError(f"q5k_hbit_bf16_gemv_rows: compared at K splits {sorted(splits)}, "
                              "not at one and at several")
 
-    # (shape, K, O, rows, scale dtype): rq8's f32 scales, wire Q8_0's bf16
-    q8_shapes = [("gate|up", H, 2 * I, (1, 16, 64, 256), torch.float32),
-                 ("qk", H, (sz.heads + sz.kv_heads) * D, (16,), torch.float32),
-                 ("down", I, H, (16,), torch.float32),
-                 ("lm_head", H, vocab_pad, (1, 16, 64, 256), torch.float32),
-                 ("lm_head wire", H, vocab_pad, (16,), fdt)]
-    for nm, K, O, rows, sdt in q8_shapes:
+    # (shape, K, O, scale dtype): rq8's f32 scales, wire Q8_0's bf16
+    q8_shapes = [("v", H, sz.kv_heads * D, torch.float32),
+                 ("qk", H, (sz.heads + sz.kv_heads) * D, torch.float32),
+                 ("gate|up", H, 2 * I, torch.float32),
+                 ("down", I, H, torch.float32),
+                 ("lm_head", H, vocab_pad, torch.float32),
+                 ("lm_head wire", H, vocab_pad, fdt)]
+    for nm, K, O, sdt in q8_shapes:
         q = rand(K, O, lo=-127.0, hi=128.0).floor().to(torch.int8)
         s = rand(K // 32, O, lo=1e-4, hi=4e-4, dtype=sdt)
         w8 = qm.q8_0_dequant(q, s, 32, fdt)
-        for B in rows:
+        for B in (1, 4, 16):
             x = torch.randn(B, K, device=device, generator=gen).to(fdt)
-            if B > 16:  # the rows instantiation: bf16_rows_kernels
-                continue
             # the same bf16(q * bf16(s)) weights on both sides
             err, rel = compare(qm.q8_0_bf16_gemv(x, q, s, out_dtype=torch.float32),
                                qm.q8_0_bf16_gemv_plain(x, q, s, torch.float32))
+            per_call = q6k_kernels_a_call("q8_0_bf16_gemv", 1, B,
+                                          lambda: qm.q8_0_bf16_gemv(x, q, s, out_dtype=fdt))
             record("q8_0_bf16_gemv", f"{nm} B={B}", err, rel, 1e-4,
                    clock.ms(lambda: qm.q8_0_bf16_gemv(x, q, s, out_dtype=fdt)),
                    clock.ms(lambda: qm.q8_0_bf16_gemv_plain(x, q, s, fdt)),
                    clock.ms(lambda: torch.matmul(x, w8)),
                    bound(B * K * 2 + K * O + (K // 32) * O * s.element_size() + B * O * 2,
                          2 * B * K * O, PEAK_BF16),
-                   int8_ms=clock.ms(lambda: qm.q8_0_q8_gemv(x, q, s, 32, out_dtype=fdt)))
+                   int8_ms=clock.ms(lambda: qm.q8_0_q8_gemv(x, q, s, 32, out_dtype=fdt)),
+                   **per_call)
         del q, s, w8
 
 

@@ -14,51 +14,57 @@
 //
 // K10 computes, for bf16 x [B, K] in element order,
 //   y[b, o] = sum_k x[b, k] * bf16(q[k, o] * scale[g(k), o])     (bf16 MMA, f32 sums)
-//           - sum_16 xsum16[b, .] * zs[g(.), o]                    (f32)
-// where xsum16 holds the f32 sums of every 16 consecutive x (the quantize
-// kernel of common.cuh makes them). zs is constant over a group, so the sum
-// over 16-element halves equals the JAX kernel's sum over whole groups
-// (xsum_g @ zs) up to the f32 order. bf16(q * s) is one rounding of the
-// exact product (q < 256 and a bf16 s make an exact f32), as the JAX kernel
-// forms `vals * srep` in x's dtype.
+//           - sum_g xsum_g[b] * zs[g, o]                         (f32)
+// where xsum_g sums x over group g: zs is constant over a group, so the
+// kernels sum it over 16-element halves (1-16 rows: a second bf16 mma
+// with A = -zs; 17-256 rows: per-group sums of x on the tensor cores), the
+// JAX kernel's xsum_g @ zs up to the f32 order. bf16(q * s) is one
+// rounding of the exact product (q < 256 and a bf16 s make an exact f32),
+// as the JAX kernel forms `vals * srep` in x's dtype.
 //
 // Layouts (row-major): x [B,K] bf16, q [Kp,O] u8, scale/zs [K/group,O] bf16,
-// out [B,O] bf16 or f32; in the workspace (common.cuh carve) xsum16
-// [K/16][bpad], part [ksplit,B,O] f32.
+// out [B,O] bf16 or f32; at 17-256 rows in the workspace (common.cuh
+// carve, tiled to the row tile) xsum [K/group][bpad], x's step-ordered copy
+// xc and, with more than one split, part [ksplit,B,O] f32; none at 1-16
+// rows.
 //
 // What bounds it on an H100: at decode the weight stream. Q2_K moves 0.25
 // bytes of codes and 0.25 bytes of bf16 scale and min a weight (group 16),
 // against 3.35 TB/s; at 256 rows, the bf16 tensor-core operations.
 // Design for that: csrc/plane_gemv.cuh, whose kernels this file launches
 // with unsigned codes, bf16 scale and zs, and the zs term on: up to 16 rows
-// plane_bf16_mma_kernel (the kernel K8 and K9b share), at 17-256 rows
-// plane_rows_kernel (TMA, bf16 wgmma, the zs term on the tensor cores).
+// plane_dec_kernel (K8's too; one launch a call, the K splits summed in a
+// cluster, the zs term a second bf16 mma), at 17-256 rows plane_rows_kernel
+// (TMA, bf16 wgmma, the zs term on the tensor cores).
 #include "plane_gemv.cuh"
 
 namespace {
 
 template <int BITS>
-int affine_bits(const __nv_bfloat16* x, const mrt::Workspace& w, const uint8_t* q,
+using AffineFmt = mrt::PlaneFmt<BITS, false, __nv_bfloat16, true>;
+
+template <int BITS>
+int affine_bits(const void* x, void* ws, long long ws_bytes, const uint8_t* q,
                 const __nv_bfloat16* scale, const __nv_bfloat16* zs, void* out, int out_is_bf16,
-                int B, int K, int O, int group, int rows, dim3 grid, int stages,
-                cudaStream_t st) {
-  using G = mrt::PlaneRowGeom<BITS>;
-  if (rows == 16) {
-    mrt::launch_quantize<32>(x, true, nullptr, nullptr, nullptr, w.xsum, B, K, w.bpad, st);
-    const int err = mrt::launch_plane_rt<BITS, 1, false, __nv_bfloat16, true>(
-        x, w, q, scale, zs, B, K, O, group, (int)grid.y, st);
-    if (err != 0) return err;
-    return mrt::finish_gemv(w, out, out_is_bf16, (int)grid.y, B * O, st);
-  }
+                int B, int K, int O, int group, int rows, int gx, int gy, int gz, int cluster,
+                int cols, int stages, cudaStream_t st) {
+  using F = AffineFmt<BITS>;
+  if (rows == 16)
+    return mrt::plane_dec_call<F>(x, q, scale, zs, out, out_is_bf16, B, K, O, group, rows, gx, gy,
+                                  gz, cluster, cols, stages, st);
   // the rows kernel: a group inside a plane and a power of two, and no
   // empty K split
+  using G = typename F::G;
+  const mrt::Workspace w = mrt::carve(ws, B, K, O, 0, group, gz, mrt::kTiled, rows, true);
   const int Kp = K / G::kPer;
   const int Z = mrt::plane_slice_steps<G, true>(group);
   const int nslices = (Kp / G::kR + Z - 1) / Z;
-  if (Kp % group != 0 || (group & (group - 1)) != 0 || (int)grid.z > nslices)
+  if ((rows != 64 && rows != 128) || !mrt::grid_covers(w, rows, cols, B, O, gx, gy, gz) ||
+      cluster != 1 || cols != mrt::kGemvCols || w.bytes > (size_t)ws_bytes || gz < 1 ||
+      Kp % group != 0 || (group & (group - 1)) != 0 || gz > nslices)
     return (int)cudaErrorInvalidValue;
-  return mrt::plane_rows_call<mrt::PlaneFmt<BITS, false, __nv_bfloat16, true>>(
-      x, w, out, out_is_bf16, B, K, O, group, rows, grid, stages, st, q, scale, zs);
+  return mrt::plane_rows_call<F>(static_cast<const __nv_bfloat16*>(x), w, out, out_is_bf16, B, K,
+                                 O, group, rows, dim3(gx, gy, gz), stages, st, q, scale, zs);
 }
 
 }  // namespace
@@ -67,42 +73,32 @@ int affine_bits(const __nv_bfloat16* x, const mrt::Workspace& w, const uint8_t* 
 // {1, 2, 4, 8}, group % 16 == 0, K % group == 0, (K / (8/bits)) % 32 == 0,
 // O % 16 == 0, 16-byte aligned pointers, and a workspace of ws_bytes (see
 // mrt::carve). The launch is the plan of ops/quant_matmul.plane_gemv_plan,
-// every field of it checked here:
-// - rows 16 (B <= 16): plane_bf16_mma_kernel, grid (column tiles, K splits,
-//   1), cluster 1, cols 128, stages 0, at most K/(8/bits)/32 splits. The
-//   quantize kernel's per-16 sums, the GEMV, the split-K pass.
+// every field of it checked here (any other plan is refused):
+// - rows 16 (B <= 16): plane_dec_kernel on the decode plan
+//   (quant_matmul.plane_dec_plan: grid (K splits, column tiles of `cols` =
+//   128 or 64, 1), a cluster of the splits, at most 8, none empty, the
+//   ring's stages), a group inside one plane ((K/(8/bits)) % group == 0: a
+//   group that straddles two planes is refused), no workspace: one launch;
 // - rows 64 or 128: plane_rows_kernel, grid (row tiles, column tiles, K
 //   splits), cluster 1, cols 128, its ring's stages, (K/(8/bits)) % group
-//   == 0, at most one split per zs slice. The per-group sums and x's
-//   step-ordered copy (plane_prep_kernel; the workspace tiled to the row
-//   tile), the GEMV and, with more than one split, the split-K pass.
+//   == 0 and a power-of-two group, at most one split per zs slice. The
+//   per-group sums and x's step-ordered copy (plane_prep_kernel; the
+//   workspace tiled to the row tile), the GEMV and, with more than one
+//   split, the split-K pass.
 // Returns the CUDA error code of the launches (0 = launched).
 extern "C" int affine_gemv(const void* x, const void* q, const void* scale, const void* zs,
                            int bits, int group, void* ws, long long ws_bytes, void* out,
                            int out_is_bf16, int B, int K, int O, int rows, int gx, int gy, int gz,
                            int cluster, int cols, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows != 16 && rows != 64 && rows != 128) return (int)cudaErrorInvalidValue;
-  const bool dec = rows == 16;
-  const int ksplit = dec ? gy : gz;
-  const mrt::Workspace w = dec ? mrt::carve(ws, B, K, O, 0, 16, ksplit)
-                               : mrt::carve(ws, B, K, O, 0, group, ksplit, mrt::kTiled, rows, true);
-  const bool grid_ok = dec ? B <= 16 && gx == (O + mrt::kGemvCols - 1) / mrt::kGemvCols &&
-                                 gz == 1 && stages == 0 && ksplit <= K / (8 / bits) / 32
-                           : mrt::grid_covers(w, rows, cols, B, O, gx, gy, gz);
-  if (!grid_ok || cluster != 1 || cols != mrt::kGemvCols || w.bytes > (size_t)ws_bytes ||
-      ksplit < 1)
-    return (int)cudaErrorInvalidValue;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* qb = static_cast<const uint8_t*>(q);
   const auto* sb = static_cast<const __nv_bfloat16*>(scale);
   const auto* zb = static_cast<const __nv_bfloat16*>(zs);
-  const dim3 grid(gx, gy, gz);
   switch (bits) {
-    case 1: return affine_bits<1>(xb, w, qb, sb, zb, out, out_is_bf16, B, K, O, group, rows, grid, stages, st);
-    case 2: return affine_bits<2>(xb, w, qb, sb, zb, out, out_is_bf16, B, K, O, group, rows, grid, stages, st);
-    case 4: return affine_bits<4>(xb, w, qb, sb, zb, out, out_is_bf16, B, K, O, group, rows, grid, stages, st);
-    case 8: return affine_bits<8>(xb, w, qb, sb, zb, out, out_is_bf16, B, K, O, group, rows, grid, stages, st);
+    case 1: return affine_bits<1>(x, ws, ws_bytes, qb, sb, zb, out, out_is_bf16, B, K, O, group, rows, gx, gy, gz, cluster, cols, stages, st);
+    case 2: return affine_bits<2>(x, ws, ws_bytes, qb, sb, zb, out, out_is_bf16, B, K, O, group, rows, gx, gy, gz, cluster, cols, stages, st);
+    case 4: return affine_bits<4>(x, ws, ws_bytes, qb, sb, zb, out, out_is_bf16, B, K, O, group, rows, gx, gy, gz, cluster, cols, stages, st);
+    case 8: return affine_bits<8>(x, ws, ws_bytes, qb, sb, zb, out, out_is_bf16, B, K, O, group, rows, gx, gy, gz, cluster, cols, stages, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

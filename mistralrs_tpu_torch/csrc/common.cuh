@@ -49,8 +49,8 @@ __device__ __forceinline__ void transpose4(uint32_t& a0, uint32_t& a1, uint32_t&
   a3 = __byte_perm(t2, t3, 0x7632);
 }
 
-// ---- tensor-core GEMV building blocks (the 16-row kernels of K5, K8, K9,
-// K9b and K10; the mma wrappers also K1-K4 and K13) ----
+// ---- tensor-core GEMV building blocks (the 16-row kernels of K5, K9 and
+// K9b; the mma wrappers also K1-K4, K8, K10 and K13) ----
 //
 // A block owns 128 output columns (4 warps x 32) and a 16-row tile of x. The
 // weight bytes of one K step (32 rows x 128 columns) are staged in shared
@@ -828,7 +828,7 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 // Activation quantization per GS-element block, one warp per block:
 //   xs = max(max|x_block|, 1e-10) * (1/127)   (f32 multiply, not a divide)
 //   xq = clip(rint(x / xs), -127, 127)        (IEEE divide, round half to even)
-// (skipped when xq is null: K5 and K10 only take sums), and, when xsum32 / xsum16
+// (skipped when xq is null: K5 only takes sums), and, when xsum32 / xsum16
 // are given, the f32 sums of every 32 / 16 original values. The plain
 // PyTorch version (ops/quant_matmul._quantize_acts_q8_gs) does the same f32
 // operations, so xq and xs agree bit for bit; only the sums' order differs.
@@ -1044,7 +1044,7 @@ inline int launch_ring(Kern* kern, int smem, const Workspace& w, void* out, int 
   return finish_gemv(w, out, out_is_bf16, ksplit, n_out, st);
 }
 
-// ---- The decode instantiations of K1, K2, K3 and K4 (1-16 rows) ----
+// ---- The decode instantiations of K1, K2, K3, K4, K8 and K10 (1-16 rows) ----
 //
 // A block owns `C` = 128 or 64 columns of out and all 16 rows of the row
 // tile, and one K split of the call; the K splits of a column tile are one
@@ -1052,7 +1052,8 @@ inline int launch_ring(Kern* kern, int smem, const Workspace& w, void* out, int 
 // at most 8), which adds their f32 tiles in its distributed shared memory.
 // A ring stage holds kDecSub K steps (64 byte rows of codes: 2 sub-block
 // pairs of K1, 64/gs scale groups of K2; K3's and K4's, csrc/q6k_gemv.cu,
-// one 14 KB step of Q6_K). Two producer warps (the block's
+// one 14 KB step of Q6_K; K8's and K10's, csrc/plane_gemv.cuh, one step of
+// 64 or 32 byte rows and their scale rows). Two producer warps (the block's
 // last two) fill it, each on its own arrival at the stage's `full`
 // barrier: one with TMA boxes of the weights, at most half the ring
 // ahead of what has landed (so every block's first stages land first and

@@ -1,6 +1,6 @@
 // The plane-major GEMV with the weight rounded to bf16 before the product,
 //   y[b, o] = sum_k x[b, k] * bf16(code[k, o] * s[g(k), o])      (bf16 MMA, f32 sums)
-//           - sum_16 xsum16[b, .] * zs[g(.), o]                   (f32, when ZS)
+//           - sum_g xsum_g[b] * zs[g, o]                           (f32, when there is a zs term)
 // shared by five kernels: K10 (csrc/affine_gemv.cu: unsigned codes of 1, 2,
 // 4 or 8 bits, bf16 scale and zs), K8 (csrc/q8_0_bf16_gemv.cu: signed 8-bit
 // codes, a bf16 or f32 scale per 32, no zs), K9b
@@ -16,41 +16,33 @@
 // element order. s and zs are [K/group, O], group a multiple of 16. An f32 s
 // is rounded to bf16 first (as the JAX kernels cast the scale to x's dtype);
 // bf16(code * s) is then one rounding of the exact product (|code| < 256 and
-// a bf16 s make an exact f32). xsum16 holds the f32 sums of every 16
-// consecutive x (the quantize kernel of common.cuh makes them).
+// a bf16 s make an exact f32).
 //
-// Layouts (row-major): x [B,K] bf16, q [Kp,O] u8 (int8 when SIGNED), s
-// [K/group,O] bf16 or f32, zs [K/group,O] bf16, out [B,O] bf16 or f32; in the
-// workspace (common.cuh carve) xsum16 [K/16][bpad] (when ZS), part
-// [ksplit,B,O] f32.
+// Layouts (row-major): x [B,K] bf16, q [Kp,O] u8 (int8 when signed), s
+// [K/group,O] bf16 or f32, zs [K/group,O] bf16, out [B,O] bf16 or f32.
 //
 // What bounds it on an H100: at decode the weight stream (codes at BITS/8
 // bytes a weight, s and zs at 2 or 4 bytes a group), against 3.35 TB/s; at
 // 256 rows, the bf16 tensor-core operations.
-// Design for that at 1-16 rows (the cp.async 16-row structure K4 had before
-// its decode design):
-// - one K step is 32 byte rows of q for 128 columns (4 KB) and, for each of
-//   the PER planes, the two 16-element halves' s (and zs) rows, the
-//   32-element x slice of the plane at j*Kp + r0 (and its two xsum16
-//   values): every code byte is read once; a 3-deep cp.async ring in
-//   dynamic shared memory;
-// - a warp turns its 32 columns of the staged bytes into mma B fragments
-//   with K1's 4x4 byte transposes; plane j's codes are a shift and a mask of
-//   the same registers, four codes a register, then bf16(code * s) per
-//   element;
-// - bf16 mma.m16n8k16 with f32 accumulators for the RT 16-row tiles of x
-//   that share each staged weight tile (every caller takes RT = 1: above 16
-//   rows the rows kernel below serves); the zs term is two f32 FMAs a half
-//   on the accumulators;
-// - the K axis is split over blockIdx.y; the partials are added in a fixed
-//   order by common.cuh's split-K pass.
-// Not done yet in plane_bf16_mma_kernel (later work): TMA/wgmma, fusing the
-// split-K pass, the zs term on the tensor cores, reading a group-32 scale
-// row once for both halves. K8, K9b and K10 run it up to 16 rows.
 //
-// K10, K9b, K4, K8 and K5 at 17-256 rows run plane_rows_kernel (below):
-// TMA, a producer warpgroup that decodes each stage once, bf16 wgmma, the
-// zs term on the tensor cores; its design is written beside it.
+// Three kernels, each with its design written beside it:
+// - plane_dec_kernel (at the end of this file): K10 and K8 at 1-16 rows,
+//   K4's decode design on common.cuh's decode section: one launch a call,
+//   weights and x by TMA, the K splits of a column tile summed in a
+//   cluster, the zs term as a second bf16 mma;
+// - plane_rows_kernel: K10, K9b, K4, K8 and K5 at 17-256 rows (TMA, a
+//   producer warpgroup that decodes each stage once, bf16 wgmma, the zs
+//   term on the tensor cores);
+// - plane_bf16_mma_kernel (below): K9b alone at 1-16 rows, the cp.async
+//   16-row structure that K4, K8 and K10 had before their decode designs,
+//   left until K9b moves onto plane_dec_kernel: 32 byte rows of q for 128
+//   columns a K step (4 KB) with each plane's two 16-element halves' scale
+//   rows and x slices, a 3-deep cp.async ring every thread fills; a warp's
+//   32 columns turned into mma B fragments by K1's 4x4 byte transposes,
+//   plane j's codes a shift and a mask of them, bf16(code * s) per
+//   element; bf16 mma.m16n8k16 with f32 accumulators over x's 16-row
+//   tile; the K axis split over blockIdx.y, the partials added in a fixed
+//   order by common.cuh's split-K pass.
 #pragma once
 
 #include "common.cuh"
@@ -59,17 +51,14 @@ namespace mrt {
 
 constexpr int kPlaneStages = 3;
 
-// one K step of RT 16-row tiles of x
-template <int BITS, int RT, typename ST, bool ZS>
+// one K step of plane_bf16_mma_kernel (16 rows of x, no zs term)
+template <int BITS>
 struct PlaneStage {
   static constexpr int kPer = 8 / BITS;
   static constexpr int kXStride = 64 * kPer + 32;  // bytes per staged x row (64 * kPer used)
-  static constexpr int kZ = ZS ? 2 * kPer : 1;      // zs and xsum16 rows (one unused without zs)
   uint8_t q[32 * kGemvCols];                        // swizzled as common.cuh's tiles
-  ST sc[2 * kPer][kGemvCols];                       // (plane j, half h) at row 2j + h
-  __nv_bfloat16 zs[kZ][kGemvCols];
-  float xm[kZ][16 * RT];                            // xsum16 of (plane, half) for the rows
-  uint8_t x[16 * RT * kXStride];                    // 16 RT rows x kPer planes x 32 bf16
+  __nv_bfloat16 sc[2 * kPer][kGemvCols];            // (plane j, half h) at row 2j + h
+  uint8_t x[16 * kXStride];                         // 16 rows x kPer planes x 32 bf16
 };
 
 // bf16 pair (lo, hi) from two floats, round to nearest even
@@ -83,55 +72,36 @@ __device__ __forceinline__ float byte_f32(uint32_t w, int i) {
   return __uint_as_float(0x4B000000u | __byte_perm(w, 0, 0x4440 + i)) - 8388608.f;
 }
 
-// byte i of w as a code: unsigned, or a two's complement int8 (flipping the
-// sign bit maps -128..127 onto 0..255, then 2^23 + 128 comes off)
-template <bool SIGNED>
-__device__ __forceinline__ float code_f32(uint32_t w, int i) {
-  if constexpr (SIGNED)
-    return __uint_as_float(0x4B000000u | __byte_perm(w ^ 0x80808080u, 0, 0x4440 + i)) -
-           8388736.f;
-  else
-    return byte_f32(w, i);
+// d = a * b + c on bf16 pairs, rounded once
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
 }
 
 // B fragments of one bf16 m16n8k16 from 4 codes of a column (K rows 4t..4t+3
 // of the 16): the MMA's k = 2t, 2t+1 take rows 4t, 4t+1 and k = 2t+8, 2t+9
 // take 4t+2, 4t+3; the A fragments below follow the same order.
-template <bool SIGNED>
 __device__ __forceinline__ void code_b(uint32_t codes, float s, uint32_t& b0, uint32_t& b1) {
-  b0 = bf16x2(code_f32<SIGNED>(codes, 0) * s, code_f32<SIGNED>(codes, 1) * s);
-  b1 = bf16x2(code_f32<SIGNED>(codes, 2) * s, code_f32<SIGNED>(codes, 3) * s);
+  b0 = bf16x2(byte_f32(codes, 0) * s, byte_f32(codes, 1) * s);
+  b1 = bf16x2(byte_f32(codes, 2) * s, byte_f32(codes, 3) * s);
 }
 
-// 4 scales from shared memory as the bf16 values the product uses
-template <typename ST>
-__device__ __forceinline__ void scales4(const ST* p, float o[4]) {
-  lds4(p, o);
-  if constexpr (sizeof(ST) == 4) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[i] = __bfloat162float(__float2bfloat16_rn(o[i]));
-  }
-}
-
-template <int BITS, int RT, bool SIGNED, typename ST, bool ZS>
+template <int BITS>
 __global__ void __launch_bounds__(kGemvThreads)
-    plane_bf16_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ xsum16,
-                          const uint8_t* __restrict__ q, const ST* __restrict__ scale,
-                          const __nv_bfloat16* __restrict__ zs, float* __restrict__ part, int B,
-                          int bpad, int K, int O, int group, int steps_per_split) {
-  static_assert(!ZS || sizeof(ST) == 2, "the zs term comes with bf16 scales (K10)");
-  using Stage = PlaneStage<BITS, RT, ST, ZS>;
+    plane_bf16_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ scale, float* __restrict__ part,
+                          int B, int K, int O, int group, int steps_per_split) {
+  using Stage = PlaneStage<BITS>;
   constexpr int kPer = Stage::kPer;
   constexpr int kXS = Stage::kXStride;
-  constexpr int kScaleChunks = kGemvCols * (int)sizeof(ST) / 16;  // 16-byte chunks of a row
-  constexpr uint32_t kMask = ((1u << BITS) - 1u) * 0x01010101u;   // BITS low bits of each byte
+  constexpr uint32_t kMask = ((1u << BITS) - 1u) * 0x01010101u;  // BITS low bits of each byte
   extern __shared__ __align__(16) uint8_t smem_plane[];
   Stage* st = reinterpret_cast<Stage*>(smem_plane);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int col0 = blockIdx.x * kGemvCols;
-  const int row0 = blockIdx.z * 16 * RT;
   const int Kp = K / kPer;
   const int nsteps = Kp / 32;
   const int i_begin = blockIdx.y * steps_per_split;
@@ -141,65 +111,33 @@ __global__ void __launch_bounds__(kGemvThreads)
     Stage& S = st[s];
     const int r0 = 32 * i;  // byte row of q; plane j's elements j*Kp + r0 ..
     stage_bytes(S.q, q, r0, 32, col0, O);
-    if constexpr (ZS) {
-      // scale, then zs: 2*kPer rows of 128 bf16 each, 16 chunks a row, in
-      // one loop (two loops measured 6-10% slower at K10's shapes on an
-      // H100, scripts/torch_affine_ab.py)
-      for (int c = threadIdx.x; c < 2 * 2 * kPer * 16; c += kGemvThreads) {
-        const int arr = c / (2 * kPer * 16), rem = c % (2 * kPer * 16);
-        const int a = rem >> 4, ch = rem & 15;  // a = 2j + h
-        const int row = ((a >> 1) * Kp + r0 + 16 * (a & 1)) / group;
-        const bool ok = col0 + 8 * ch < O;
-        const __nv_bfloat16* src = arr ? zs : scale;
-        __nv_bfloat16* dst = arr ? &S.zs[a][8 * ch] : &S.sc[a][8 * ch];
-        cp_async16(dst, ok ? src + (size_t)row * O + col0 + 8 * ch : src, ok);
-      }
-    } else {
-      // s: 2*kPer rows of 128 values, kScaleChunks chunks a row
-      for (int c = threadIdx.x; c < 2 * kPer * kScaleChunks; c += kGemvThreads) {
-        const int a = c / kScaleChunks, ch = c % kScaleChunks;  // a = 2j + h
-        const int row = ((a >> 1) * Kp + r0 + 16 * (a & 1)) / group;
-        constexpr int kPerChunk = 16 / (int)sizeof(ST);
-        const bool ok = col0 + kPerChunk * ch < O;
-        cp_async16(&S.sc[a][kPerChunk * ch],
-                   ok ? scale + (size_t)row * O + col0 + kPerChunk * ch : scale, ok);
-      }
+    // s: 2*kPer rows of 128 bf16, 16 chunks a row
+    for (int c = threadIdx.x; c < 2 * kPer * 16; c += kGemvThreads) {
+      const int a = c >> 4, ch = c & 15;  // a = 2j + h
+      const int row = ((a >> 1) * Kp + r0 + 16 * (a & 1)) / group;
+      const bool ok = col0 + 8 * ch < O;
+      cp_async16(&S.sc[a][8 * ch], ok ? scale + (size_t)row * O + col0 + 8 * ch : scale, ok);
     }
-    // x: 16 RT rows x kPer planes x 4 chunks of 8 bf16, zero past B
-    for (int c = threadIdx.x; c < 16 * RT * 4 * kPer; c += kGemvThreads) {
+    // x: 16 rows x kPer planes x 4 chunks of 8 bf16, zero past B
+    for (int c = threadIdx.x; c < 16 * 4 * kPer; c += kGemvThreads) {
       const int r = c / (4 * kPer), ch = c % (4 * kPer);
-      const bool ok = row0 + r < B;
-      const __nv_bfloat16* src = x + (size_t)(row0 + r) * K + (ch >> 2) * Kp + r0 + 8 * (ch & 3);
+      const bool ok = r < B;
+      const __nv_bfloat16* src = x + (size_t)r * K + (ch >> 2) * Kp + r0 + 8 * (ch & 3);
       cp_async16(S.x + r * kXS + 16 * ch, ok ? src : x, ok);
-    }
-    if constexpr (ZS) {
-      // xsum16: 2*kPer (plane, half) x RT row tiles x 4 chunks; row tiles
-      // past bpad are zero-filled
-      for (int c = threadIdx.x; c < 2 * kPer * RT * 4; c += kGemvThreads) {
-        const int a = c / (4 * RT), rt = (c >> 2) % RT, ch = c & 3;
-        const int r = row0 + 16 * rt;
-        const bool ok = r < bpad;
-        const float* src =
-            xsum16 + (size_t)(((a >> 1) * Kp + r0) / 16 + (a & 1)) * bpad + r + 4 * ch;
-        cp_async16(&S.xm[a][16 * rt + 4 * ch], ok ? src : xsum16, ok);
-      }
     }
   };
 
-  float acc[RT][4][4];
+  float acc[4][4];
 #pragma unroll
-  for (int rt = 0; rt < RT; ++rt)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[rt][j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
 #pragma unroll
   for (int s = 0; s < kPlaneStages - 1; ++s) {
     if (s < n) load(s, i_begin + s);
     cp_async_commit();
   }
-  const int cb = warp * 32 + 8 * t;  // C columns of n-tile jj: cb + jj and cb + 4 + jj
   const int bc = warp * 32 + 4 * g;  // B columns of n-tile jj: bc + jj
   for (int i = 0; i < n; ++i) {
     cp_async_wait<kPlaneStages - 2>();
@@ -211,46 +149,23 @@ __global__ void __launch_bounds__(kGemvThreads)
     for (int j = 0; j < kPer; ++j) {
       // the weight fragments of plane j: bf16(code * s) for 4 n-tiles x 2 halves
       float bs0[4], bs1[4];
-      scales4(&S.sc[2 * j][bc], bs0);
-      scales4(&S.sc[2 * j + 1][bc], bs1);
+      lds4(&S.sc[2 * j][bc], bs0);
+      lds4(&S.sc[2 * j + 1][bc], bs1);
       uint32_t b[4][2][2];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        code_b<SIGNED>((p0[jj] >> (BITS * j)) & kMask, bs0[jj], b[jj][0][0], b[jj][0][1]);
-        code_b<SIGNED>((p1[jj] >> (BITS * j)) & kMask, bs1[jj], b[jj][1][0], b[jj][1][1]);
-      }
-      // zs at the C columns
-      float za0[4], za1[4], zb0[4], zb1[4];
-      if constexpr (ZS) {
-        lds4(&S.zs[2 * j][cb], za0);
-        lds4(&S.zs[2 * j][cb + 4], za1);
-        lds4(&S.zs[2 * j + 1][cb], zb0);
-        lds4(&S.zs[2 * j + 1][cb + 4], zb1);
+        code_b((p0[jj] >> (BITS * j)) & kMask, bs0[jj], b[jj][0][0], b[jj][0][1]);
+        code_b((p1[jj] >> (BITS * j)) & kMask, bs1[jj], b[jj][1][0], b[jj][1][1]);
       }
 #pragma unroll
-      for (int rt = 0; rt < RT; ++rt) {
-        if (row0 + 16 * rt >= B) break;  // the same for the whole block
+      for (int hf = 0; hf < 2; ++hf) {
+        // A: rows g and g+8 of the tile, x elements 4t..4t+3 of the half
+        const uint8_t* xr = S.x + g * kXS + 64 * j + 32 * hf + 8 * t;
+        const uint2 u0 = *reinterpret_cast<const uint2*>(xr);
+        const uint2 u1 = *reinterpret_cast<const uint2*>(xr + 8 * kXS);
+        const uint32_t a[4] = {u0.x, u1.x, u0.y, u1.y};
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          // A: rows g and g+8 of the tile, x elements 4t..4t+3 of the half
-          const uint8_t* xr = S.x + (16 * rt + g) * kXS + 64 * j + 32 * hf + 8 * t;
-          const uint2 u0 = *reinterpret_cast<const uint2*>(xr);
-          const uint2 u1 = *reinterpret_cast<const uint2*>(xr + 8 * kXS);
-          const uint32_t a[4] = {u0.x, u1.x, u0.y, u1.y};
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) mma_bf16(acc[rt][jj], a, b[jj][hf][0], b[jj][hf][1]);
-        }
-        if constexpr (ZS) {
-          const float ma0 = S.xm[2 * j][16 * rt + g], ma1 = S.xm[2 * j][16 * rt + g + 8];
-          const float mb0 = S.xm[2 * j + 1][16 * rt + g], mb1 = S.xm[2 * j + 1][16 * rt + g + 8];
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            acc[rt][jj][0] -= ma0 * za0[jj] + mb0 * zb0[jj];
-            acc[rt][jj][1] -= ma0 * za1[jj] + mb0 * zb1[jj];
-            acc[rt][jj][2] -= ma1 * za0[jj] + mb1 * zb0[jj];
-            acc[rt][jj][3] -= ma1 * za1[jj] + mb1 * zb1[jj];
-          }
-        }
+        for (int jj = 0; jj < 4; ++jj) mma_bf16(acc[jj], a, b[jj][hf][0], b[jj][hf][1]);
       }
     }
     const int next = i + kPlaneStages - 1;  // refill the stage read in the previous step
@@ -258,24 +173,23 @@ __global__ void __launch_bounds__(kGemvThreads)
     cp_async_commit();
   }
   cp_async_wait<0>();
-  float* p = part + (size_t)blockIdx.y * B * O;
-#pragma unroll
-  for (int rt = 0; rt < RT; ++rt) store_part(p, acc[rt], B, O, row0 + 16 * rt, col0, warp, lane);
+  store_part(part + (size_t)blockIdx.y * B * O, acc, B, O, 0, col0, warp, lane);
 }
 
-template <int BITS, int RT, bool SIGNED, typename ST, bool ZS>
-int launch_plane_rt(const __nv_bfloat16* x, const Workspace& w, const uint8_t* q,
-                    const ST* scale, const __nv_bfloat16* zs, int B, int K, int O, int group,
-                    int ksplit, cudaStream_t st) {
-  auto* kernel = plane_bf16_mma_kernel<BITS, RT, SIGNED, ST, ZS>;
-  const int smem = kPlaneStages * (int)sizeof(PlaneStage<BITS, RT, ST, ZS>);
+// Launch plane_bf16_mma_kernel into the workspace's partials: grid (column
+// tiles, K splits). Returns the CUDA error of the attribute call (0 = set).
+template <int BITS>
+int launch_plane_16(const __nv_bfloat16* x, const Workspace& w, const uint8_t* q,
+                    const __nv_bfloat16* scale, int B, int K, int O, int group, int ksplit,
+                    cudaStream_t st) {
+  auto* kernel = plane_bf16_mma_kernel<BITS>;
+  const int smem = kPlaneStages * (int)sizeof(PlaneStage<BITS>);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const int rows = 16 * RT;
   const int nsteps = K / (8 / BITS) / 32;
-  const dim3 grid((O + kGemvCols - 1) / kGemvCols, ksplit, (B + rows - 1) / rows);
-  kernel<<<grid, kGemvThreads, smem, st>>>(x, w.xsum, q, scale, zs, w.part, B, w.bpad, K, O,
-                                           group, (nsteps + ksplit - 1) / ksplit);
+  const dim3 grid((O + kGemvCols - 1) / kGemvCols, ksplit, 1);
+  kernel<<<grid, kGemvThreads, smem, st>>>(x, q, scale, w.part, B, K, O, group,
+                                           (nsteps + ksplit - 1) / ksplit);
   return 0;
 }
 
@@ -555,6 +469,8 @@ struct PlaneFmt {
   static_assert(BITS == 8 || sizeof(ST) == 2, "below 8 bits the scales are bf16");
   static_assert(!ZS || sizeof(ST) == 2, "the zs term comes with bf16 scales (K10)");
   using G = PlaneRowGeom<BITS, KE>;
+  using Scale = ST;
+  static constexpr bool kSigned = SIGNED;
   static constexpr bool kZs = ZS;
   static constexpr float kZsMul = 1.f;
   static constexpr int kParts = 1;
@@ -1024,6 +940,401 @@ int plane_rows_call(const __nv_bfloat16* x, const Workspace& w, void* out, int o
                                                group, grid, st)
                     : launch_plane_rows<F, 128>(x, w, fm, sh, zmap, out, out_is_bf16, B, K, O,
                                                 group, grid, st);
+}
+
+
+// ---- The decode instantiation (1-16 rows): plane_dec_kernel ----
+//
+// K10 and K8 at 1-16 rows, one template over PlaneFmt<BITS, SIGNED, ST,
+// ZS> (K10: unsigned codes of 1, 2, 4 or 8 bits, bf16 scale and zs; K8:
+// signed bytes, a bf16 or f32 scale per 32, no zs), on K4's decode design
+// (csrc/q6k_gemv.cu) and common.cuh's decode section, whose pieces it uses
+// (DecRing, dec_store_tile / dec_reduce / dec_store_out, w_frags,
+// launch_dec, dec_stages, dec_per_split). What bounds it: the weight
+// stream. Design:
+// - a K step is kR byte rows of q (64 at 8 bits, 32 below), which hold
+//   kPer = 8/BITS planes of kR elements each (plane j's elements j*Kp +
+//   r0..); sized from the bytes: at C = 128 columns 8 KB of codes at 8
+//   bits (K8 with 0.5 or 1 KB of scale rows, GPTQ-8 0.25 + 0.25 KB of
+//   scale and zs at group 128), 4 KB below (Q2_K with 2 + 2 KB of scale and
+//   zs rows, a row a 16 elements); a ring stage is one step, and the ring
+//   holds dec_stages of the stage's most weight bytes (four stages at 128
+//   columns at 2 and 8 bits, six at 4, three at 1);
+// - a block owns C = 128 or 64 columns and one K split; the splits of a
+//   column tile are one cluster (at most 8) that adds its f32 tiles in
+//   distributed shared memory in rank order (no partials in global memory,
+//   no split-K pass); one split writes out itself;
+// - one producer warp brings a step's weights in one TMA box an array, at
+//   most half the ring ahead of what has landed: q as [Kp][O] (the 128-byte
+//   swizzle at C = 128); scale and zs each seen as [kPer][Kp/group][O], so
+//   every plane's rows of the step arrive in one box of nr rows a plane
+//   (plane_dec_rows: kR/group when a group divides the step, 1 when the
+//   step divides a group, else the most a step can touch, 2); the step's
+//   first group g and its first row's place in it are walked from step to
+//   step (PlaneGroupWalk), so a group of any multiple of 16 rows that lies
+//   in one plane, a per-channel group of all K (14336) or one that spans
+//   several steps (GPTQ-8's 128 at 64-row steps) included, finds its row;
+// - the other producer warp brings x after griddepcontrol.wait by one TMA
+//   box of x seen as [B][kPer][Kp] (kR elements of every plane for 16 rows,
+//   rows past B zero-filled): no quantize kernel, no workspace, one launch
+//   a call;
+// - C/32 consumer warps, each 32 columns: the weight is the A operand of
+//   bf16 mma.m16n8k16 (an output column an A row, w_frags) and x the B
+//   operand (one n-tile up to 8 rows, two up to 16), f32 accumulators;
+//   plane j's codes a shift and a mask of the transposed words;
+// - bf16(code * s) rounded once, with the plain version's bits: below 8
+//   bits K4's pair (bytes under 0x43 are bf16 128 + c; one fma.rn.bf16x2
+//   (128 + c) * s - 128 * s); at 8 bits 128 + c needs 9 bits, so the pair
+//   is built from the code's low 7 bits, 128 + (c & 127), and the fma's
+//   exact addend picks the top bit's share by a select on the sign-extended
+//   byte: -128 s or 0 for an unsigned code (K10), -128 s or -256 s for a
+//   signed one (K8): 4.5 instructions a pair against 2 below 8 bits; by
+//   count a consumer warp's step (~290 instructions at 8 bits) fills under
+//   half the issue slots that the step's 9 KB take to stream at two blocks
+//   an SM (the f32 route of the rows kernel, 2^23 + c and an f32 fma, then
+//   the bf16 pack, costs 5 unsigned and 7 signed, and the pack runs on the
+//   conversion pipe); K8's f32 rq8 scale is rounded to bf16 once, as it
+//   is read;
+// - the zs term: a second bf16 mma into the same accumulators with A = -zs
+//   (exact in bf16, constant over a 16-element half) and x's B fragments
+//   already in registers, in f32 over the original bf16 x as the plain
+//   version's (x sums @ zs), never folded into the rounded weight (kept
+//   over per-16 sums of the staged x and FMAs a row, column and group: one
+//   mma a 16 x 8 x 16 product against the adds over 16 rows x kE elements
+//   a step and 16 FMAs a half for every consumer warp);
+// - no per-call state: each block sets up its own barriers and nothing in
+//   global memory needs zeroing, so a call replays in a CUDA graph.
+
+// the decode step of BITS-bit planes: kR byte rows (kPer planes of kR
+// elements), at most kNR scale rows a plane (a row a 16 elements)
+template <int BITS>
+struct PlaneDecGeom {
+  static constexpr int kPer = 8 / BITS;
+  static constexpr int kR = BITS == 8 ? 64 : 32;
+  static constexpr int kNR = kR / 16;
+};
+
+// scale rows a plane of a step's box: the most groups kR rows can touch
+// (rows start at multiples of 16 in a group)
+__host__ __device__ constexpr int plane_dec_rows(int R, int group) {
+  return R % group == 0 ? R / group : group % R == 0 ? 1 : (group - 16 + R - 1) / group + 1;
+}
+
+template <typename F, int C>
+struct alignas(C == 128 ? 1024 : 128) PlaneDecStage {
+  using G = PlaneDecGeom<F::G::kBits>;
+  using ST = typename F::Scale;
+  static constexpr int kScRows = G::kPer * G::kNR;
+  // the weight bytes a stage holds at most: codes, scale and zs rows
+  static constexpr int kWeightBytes =
+      G::kR * C + kScRows * C * ((int)sizeof(ST) + (F::kZs ? 2 : 0));
+  uint8_t q[G::kR * C];                         // the byte rows (TMA, swizzled at C = 128)
+  ST sc[kScRows][C];                            // plane j's rows from j * nr
+  __nv_bfloat16 zs[F::kZs ? kScRows : 1][C];    // the same rows of zs
+  __nv_bfloat16 x[kDecRows][G::kPer][G::kR];    // x's kR elements of every plane, 16 rows
+};
+template <typename F, int C>
+constexpr int kPlaneDecStages = dec_stages(PlaneDecStage<F, C>::kWeightBytes);
+template <typename F, int C>
+using PlaneDecRing = DecRing<PlaneDecStage<F, C>, kPlaneDecStages<F, C>, C / 32>;
+
+// A step's place among the groups of a plane (a group lies in one plane,
+// so every plane's is the same): its first group g and its first row's
+// offset rem in it, walked from step to step without a division.
+struct PlaneGroupWalk {
+  int g, rem;
+  __device__ PlaneGroupWalk(int r0, int group) : g(r0 / group), rem(r0 % group) {}
+  // row[h]: the box row (the group past g) of the step's rows 16h..16h+15
+  template <int NH>
+  __device__ void rows(int group, int (&row)[NH]) const {
+    int next = group - rem, r = 0;  // the step's row where the next group starts
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      if (16 * h >= next) {  // a group holds at least 16 rows: one start a half at most
+        ++r;
+        next += group;
+      }
+      row[h] = r;
+    }
+  }
+  __device__ void step(int R, int group) {
+    rem += R;
+    while (rem >= group) {
+      rem -= group;
+      ++g;
+    }
+  }
+};
+
+// the bf16 pairs (s, s) of columns c..c+3 of a staged scale row; an f32
+// row is rounded to bf16 first
+__device__ __forceinline__ void scale_pairs(const __nv_bfloat16* p, uint32_t sp[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  sp[0] = __byte_perm(u.x, 0, 0x1010);
+  sp[1] = __byte_perm(u.x, 0, 0x3232);
+  sp[2] = __byte_perm(u.y, 0, 0x1010);
+  sp[3] = __byte_perm(u.y, 0, 0x3232);
+}
+__device__ __forceinline__ void scale_pairs(const float* p, uint32_t sp[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  sp[0] = bf16x2(v.x, v.x);
+  sp[1] = bf16x2(v.y, v.y);
+  sp[2] = bf16x2(v.z, v.z);
+  sp[3] = bf16x2(v.w, v.w);
+}
+
+// prmt with the selector's sign-extend bits (which __byte_perm masks off):
+// byte i of the result is byte (sel_i & 7) of w, or its sign bit replicated
+// when sel_i & 8
+__device__ __forceinline__ uint32_t prmt_sext(uint32_t w, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(w), "r"(0u), "r"(sel));
+  return d;
+}
+
+// The A words of 4 codes of a column (K rows 4t..4t+3, bytes 0..3 of cw,
+// below 8 bits already shifted down and masked): lo = rows 4t, 4t+1 (mma k
+// 2t, 2t+1), hi = rows 4t+2, 4t+3 (k 2t+8, 2t+9), each bf16(code * s)
+// rounded once; sp = (s, s), n128 = -128 s and n256 = -256 s (exact; only
+// signed 8-bit codes read it). K4's decode kernel (csrc/q6k_gemv.cu) takes
+// its 6-bit pairs from here too.
+template <int BITS, bool SIGNED>
+__device__ __forceinline__ void dec_code_pairs(uint32_t cw, uint32_t sp, uint32_t n128,
+                                               uint32_t n256, uint32_t& lo, uint32_t& hi) {
+  if constexpr (BITS < 8) {  // 0x43cc = 128 + c: (128 + c) s - 128 s
+    lo = fma_bf16x2(__byte_perm(cw, 0x43u, 0x4140), sp, n128);
+    hi = fma_bf16x2(__byte_perm(cw, 0x43u, 0x4342), sp, n128);
+  } else {
+    // 0x43cc of the low 7 bits = 128 + (c & 127); the top bit's share in
+    // the addend: c = (c & 127) + 128 (unsigned) or (c & 127) - 128 (signed)
+    // when it is set, (c & 127) when not
+    const uint32_t low7 = cw & 0x7F7F7F7Fu;
+    const uint32_t tl = prmt_sext(cw, 0x9988), th = prmt_sext(cw, 0xBBAA);  // 0xFFFF: bit 7 set
+    const uint32_t al = SIGNED ? (tl & n256) | (~tl & n128) : ~tl & n128;
+    const uint32_t ah = SIGNED ? (th & n256) | (~th & n128) : ~th & n128;
+    lo = fma_bf16x2(__byte_perm(low7, 0x43u, 0x4140), sp, al);
+    hi = fma_bf16x2(__byte_perm(low7, 0x43u, 0x4342), sp, ah);
+  }
+}
+
+// A consumer warp over its n steps: y[nt][m][e] = the f32 sums of x row 8nt
+// + 2t + e%2 and column 32 * warp + 4g + 2m + e/2 (NT n-tiles: 1 up to 8
+// rows); r0 = the split's first byte row, nr = scale rows a plane a step.
+template <typename F, int C, int NT>
+__device__ __forceinline__ void plane_dec_consume(const PlaneDecRing<F, C>& ring, int n, int r0,
+                                                  int group, int nr, int warp, int lane,
+                                                  float (&y)[2][2][4]) {
+  using Stage = PlaneDecStage<F, C>;
+  using G = typename Stage::G;
+  constexpr int BITS = F::G::kBits, kPer = G::kPer, kR = G::kR;
+  constexpr uint32_t kMask = ((1u << BITS) - 1u) * 0x01010101u;  // BITS low bits of each byte
+  constexpr uint32_t kNeg128 = 0xC300C300u, kNeg256 = 0xC380C380u, kNegZero = 0x80008000u;
+  const int g = lane >> 2, t = lane & 3, c = 32 * warp + 4 * g;
+  float acc[NT * 2][4];  // index nt * 2 + m
+#pragma unroll
+  for (int i = 0; i < NT * 2; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  PlaneGroupWalk walk(r0, group);
+  for (int i = 0; i < n; ++i) {
+    const Stage& S = ring[i];
+    int srow[kR / 16];  // the scale row of each 16 rows of the step, in a plane's box rows
+    walk.rows(group, srow);
+    walk.step(kR, group);
+    ring.acquire(i);
+#pragma unroll
+    for (int cc = 0; cc < kR / 32; ++cc) {
+      uint32_t w[2][4];  // rows 32cc + 4t.. ([0]) and 32cc + 16 + 4t.. ([1]) of columns c..c+3
+      w_frags<C>(S.q, 32 * cc, c, t, w[0], w[1]);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = j * nr + srow[2 * cc + hf];
+          uint32_t sp[4], n128[4], n256[4], wl[4], wh[4];
+          scale_pairs(&S.sc[row][c], sp);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            n128[k] = fma_bf16x2(sp[k], kNeg128, kNegZero);
+            n256[k] = F::kSigned ? fma_bf16x2(sp[k], kNeg256, kNegZero) : 0u;
+            dec_code_pairs<BITS, F::kSigned>((w[hf][k] >> (BITS * j)) & kMask, sp[k], n128[k],
+                                            n256[k], wl[k], wh[k]);
+          }
+          uint32_t nz[4];  // -zs of columns c..c+3 in both halves of a word
+          if constexpr (F::kZs) {
+            uint2 zu = *reinterpret_cast<const uint2*>(&S.zs[row][c]);
+            zu.x ^= 0x80008000u;
+            zu.y ^= 0x80008000u;
+            nz[0] = __byte_perm(zu.x, 0, 0x1010);
+            nz[1] = __byte_perm(zu.x, 0, 0x3232);
+            nz[2] = __byte_perm(zu.y, 0, 0x1010);
+            nz[3] = __byte_perm(zu.y, 0, 0x3232);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            // B: x row 8nt + g, elements 32cc + 16hf + 4t.. of plane j
+            const uint2 xv =
+                *reinterpret_cast<const uint2*>(&S.x[8 * nt + g][j][32 * cc + 16 * hf + 4 * t]);
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              const uint32_t a[4] = {wl[2 * m], wl[2 * m + 1], wh[2 * m], wh[2 * m + 1]};
+              mma_bf16(acc[nt * 2 + m], a, xv.x, xv.y);
+              if constexpr (F::kZs) {
+                const uint32_t z[4] = {nz[2 * m], nz[2 * m + 1], nz[2 * m], nz[2 * m + 1]};
+                mma_bf16(acc[nt * 2 + m], z, xv.x, xv.y);
+              }
+            }
+          }
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < NT * 2; ++k) fence_values(acc[k]);  // the stage's reads have landed
+    ring.release(i);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[nt][m][e] = acc[nt * 2 + m][e];
+}
+
+// A block of dec_threads(C) threads: the consumer warps 0..C/32-1, the
+// producers the last two. steps = the call's K steps (the last one past
+// Kp is zero-filled), steps_per_split = dec_per_split(steps, splits, 1).
+template <typename F, int C>
+__global__ void __launch_bounds__(dec_threads(C), 3)
+    plane_dec_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap smap,
+                     const __grid_constant__ CUtensorMap zmap,
+                     const __grid_constant__ CUtensorMap xmap, void* out, int out_is_bf16, int B,
+                     int O, int steps, int group, int nr, int steps_per_split) {
+  constexpr int NW = C / 32;  // consumer warps; the producers are warps NW and NW + 1
+  using Stage = PlaneDecStage<F, C>;
+  using G = typename Stage::G;
+  extern __shared__ uint8_t smem_pdec[];
+  const PlaneDecRing<F, C> ring(smem_pdec);
+  const int splits = (int)gridDim.x, rank = (int)cluster_rank();
+  const int col0 = blockIdx.y * C;
+  const int s_begin = rank * steps_per_split;
+  const int n = max(0, min(steps_per_split, steps - s_begin));  // a stage a step
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  float y[2][2][4] = {};
+  if (warp == NW) {  // the weights: a TMA box an array a step
+    if (lane == 0) {
+      prefetch_tensormap(&qmap);
+      prefetch_tensormap(&smap);
+      if constexpr (F::kZs) prefetch_tensormap(&zmap);
+      const uint32_t tx = G::kR * C +
+                          nr * G::kPer * C * ((uint32_t)sizeof(typename Stage::ST) + (F::kZs ? 2 : 0));
+      PlaneGroupWalk walk(s_begin * G::kR, group);
+      ring.produce(
+          n, true, [&](int) { return tx; },
+          [&](Stage& S, int i, uint64_t* full) {
+            tma_load_2d(S.q, &qmap, col0, (s_begin + i) * G::kR, full);
+            tma_load_3d(S.sc, &smap, col0, walk.g, 0, full);
+            if constexpr (F::kZs) tma_load_3d(S.zs, &zmap, col0, walk.g, 0, full);
+            walk.step(G::kR, group);
+          });
+    }
+    __syncwarp();
+  } else if (warp == NW + 1) {  // x, once the kernel launched before has finished
+    if (lane == 0) {
+      grid_dep_wait();
+      prefetch_tensormap(&xmap);
+      ring.produce(
+          n, false, [](int) { return (uint32_t)sizeof(Stage::x); },
+          [&](Stage& S, int i, uint64_t* full) {
+            tma_load_3d(S.x, &xmap, (s_begin + i) * G::kR, 0, 0, full);
+          });
+    }
+    __syncwarp();
+  } else if (B > 8) {
+    plane_dec_consume<F, C, 2>(ring, n, s_begin * G::kR, group, nr, warp, lane, y);
+  } else {
+    plane_dec_consume<F, C, 1>(ring, n, s_begin * G::kR, group, nr, warp, lane, y);
+  }
+  if (splits == 1) {  // no cluster to add up
+    if (warp < NW) dec_store_out(y, B > 8 ? 2 : 1, out, out_is_bf16, B, O, col0, warp, lane);
+    return;
+  }
+  __syncthreads();  // every stage consumed: the ring's memory holds the tile now
+  float* red = static_cast<float*>(ring.base());
+  if (warp < NW) dec_store_tile<C>(red, y, B > 8 ? 2 : 1, warp, lane);
+  cluster_sync();
+  dec_reduce<C>(red, out, out_is_bf16, B, O, col0, splits, rank);
+  cluster_sync();  // no block leaves while another reads its tile
+}
+
+// Whether (rows, grid, cluster, cols, stages) is the decode plan of
+// ops/quant_matmul.plane_dec_plan for this call: B <= 16, a group of
+// whole 16-element halves inside one plane ((K/kPer) % group == 0), grid
+// (K splits, column tiles of `cols` = 128 or 64, 1), a cluster of the
+// splits (at most 8), every split whole steps and none empty, the ring's
+// stages.
+template <typename F>
+bool plane_dec_plan_ok(int B, int K, int O, int group, int rows, int gx, int gy, int gz,
+                       int cluster, int cols, int stages) {
+  using G = PlaneDecGeom<F::G::kBits>;
+  const int Kp = K / G::kPer, steps = (Kp + G::kR - 1) / G::kR;
+  if (rows != 16 || B < 1 || B > 16 || gz != 1 || (cols != 128 && cols != 64)) return false;
+  if (group < 16 || group % 16 || Kp % group || Kp % 32) return false;
+  if (cluster != gx || gx < 1 || gx > 8 || gx > steps || gy != (O + cols - 1) / cols) return false;
+  const int per = dec_per_split(steps, gx, 1);
+  return (gx - 1) * per < steps &&
+         stages == (cols == 128 ? kPlaneDecStages<F, 128> : kPlaneDecStages<F, 64>);
+}
+
+// Launch plane_dec_kernel with C columns a block and `splits` K splits (a
+// cluster each column tile): q [Kp, O] in boxes of kR rows (the 128-byte
+// swizzle at C = 128), scale and zs [K/group, O] seen as [kPer][Kp/group][O]
+// in boxes of nr rows a plane, x [B, K] bf16 seen as [B][kPer][Kp] in boxes
+// of kR elements of every plane for 16 rows. Returns the CUDA error.
+template <typename F, int C>
+int launch_plane_dec(const void* x, const void* q, const void* scale, const void* zs, void* out,
+                     int out_is_bf16, int B, int K, int O, int group, int splits,
+                     cudaStream_t st) {
+  using Stage = PlaneDecStage<F, C>;
+  using G = typename Stage::G;
+  const int Kp = K / G::kPer, steps = (Kp + G::kR - 1) / G::kR, nr = plane_dec_rows(G::kR, group);
+  const uint64_t es = sizeof(typename Stage::ST);
+  const uint64_t qdims[2] = {(uint64_t)O, (uint64_t)Kp}, qstr[1] = {(uint64_t)O};
+  const uint32_t qbox[2] = {(uint32_t)C, (uint32_t)G::kR};
+  const uint64_t sdims[3] = {(uint64_t)O, (uint64_t)(Kp / group), (uint64_t)G::kPer};
+  const uint64_t sstr[2] = {(uint64_t)O * es, (uint64_t)(Kp / group) * O * es};
+  const uint32_t sbox[3] = {(uint32_t)C, (uint32_t)nr, (uint32_t)G::kPer};
+  const uint64_t zstr[2] = {(uint64_t)O * 2, (uint64_t)(Kp / group) * O * 2};
+  const uint64_t xdims[3] = {(uint64_t)Kp, (uint64_t)G::kPer, (uint64_t)B};
+  const uint64_t xstr[2] = {(uint64_t)Kp * 2, (uint64_t)K * 2};
+  const uint32_t xbox[3] = {(uint32_t)G::kR, (uint32_t)G::kPer, (uint32_t)kDecRows};
+  CUtensorMap qmap, smap, zmap, xmap;
+  int err = tile_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, qdims, qstr, qbox,
+                     C == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!err)
+    err = tile_map(&smap, es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                   3, scale, sdims, sstr, sbox);
+  if (!err && F::kZs)
+    err = tile_map(&zmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, zs, sdims, zstr, sbox);
+  if (!F::kZs) zmap = smap;  // unused
+  if (!err) err = tile_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, xdims, xstr, xbox);
+  if (err) return err;
+  return launch_dec(plane_dec_kernel<F, C>, splits, (O + C - 1) / C, dec_threads(C),
+                    PlaneDecRing<F, C>::smem_bytes(), st, qmap, smap, zmap, xmap, out, out_is_bf16,
+                    B, O, steps, group, nr, dec_per_split(steps, splits, 1));
+}
+
+// The decode route of a call: the plan checked (any other is refused),
+// then plane_dec_kernel at its column width. Returns the CUDA error.
+template <typename F>
+int plane_dec_call(const void* x, const void* q, const void* scale, const void* zs, void* out,
+                   int out_is_bf16, int B, int K, int O, int group, int rows, int gx, int gy,
+                   int gz, int cluster, int cols, int stages, cudaStream_t st) {
+  if (!plane_dec_plan_ok<F>(B, K, O, group, rows, gx, gy, gz, cluster, cols, stages))
+    return (int)cudaErrorInvalidValue;
+  return cols == 128
+             ? launch_plane_dec<F, 128>(x, q, scale, zs, out, out_is_bf16, B, K, O, group, gx, st)
+             : launch_plane_dec<F, 64>(x, q, scale, zs, out, out_is_bf16, B, K, O, group, gx, st);
 }
 
 }  // namespace mrt

@@ -135,8 +135,8 @@ __global__ void __launch_bounds__(mrt::kGemvThreads)
       uint32_t b[4][2][2];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        mrt::code_b<false>((p0[jj] >> (4 * sb)) & 0x0F0F0F0Fu, 1.f, b[jj][0][0], b[jj][0][1]);
-        mrt::code_b<false>((p1[jj] >> (4 * sb)) & 0x0F0F0F0Fu, 1.f, b[jj][1][0], b[jj][1][1]);
+        mrt::code_b((p0[jj] >> (4 * sb)) & 0x0F0F0F0Fu, 1.f, b[jj][0][0], b[jj][0][1]);
+        mrt::code_b((p1[jj] >> (4 * sb)) & 0x0F0F0F0Fu, 1.f, b[jj][1][0], b[jj][1][1]);
       }
       float s0[4], s1[4];  // the sub-block's scale at the C columns
       mrt::lds4(&S.sc[sb][cb], s0);

@@ -24,8 +24,10 @@
 // tensor-core operations (as many as the full product's: every bit is a
 // multiply). Design for that: the kernels of csrc/plane_gemv.cuh (K10's) at
 // one bit a code, with no zero term, so no activation sums are taken: up to
-// 16 rows plane_bf16_mma_kernel, at 17-256 rows plane_rows_kernel (TMA, a
-// producer warpgroup that decodes each stage once, bf16 wgmma).
+// 16 rows plane_bf16_mma_kernel (cp.async, the split-K pass; K9b is its
+// last user, next in line for plane_dec_kernel), at 17-256 rows
+// plane_rows_kernel (TMA, a producer warpgroup that decodes each stage
+// once, bf16 wgmma).
 // Not done yet (later work): fusing it into K5, one Q5_K kernel over qs and
 // qh that reads x once (K9 does so on the int8 route).
 #include "plane_gemv.cuh"
@@ -64,8 +66,7 @@ extern "C" int q5k_hbit_bf16_gemv(const void* x, const void* qh, const void* sca
   if (!dec)  // no zs term: the pre-pass takes no sums (w.xsum is null)
     return mrt::plane_rows_call<mrt::PlaneFmt<1, false, __nv_bfloat16, false>>(
         xb, w, out, out_is_bf16, B, K, O, 32, rows, dim3(gx, gy, gz), stages, st, qb, sb, nullptr);
-  const int err = mrt::launch_plane_rt<1, 1, false, __nv_bfloat16, false>(
-      xb, w, qb, sb, nullptr, B, K, O, 32, ksplit, st);
+  const int err = mrt::launch_plane_16<1>(xb, w, qb, sb, B, K, O, 32, ksplit, st);
   if (err != 0) return err;
   return mrt::finish_gemv(w, out, out_is_bf16, ksplit, B * O, st);
 }

@@ -127,12 +127,6 @@ struct Q6Step {
   __device__ int e0(int G) const { return c * G + t0; }
 };
 
-__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
-
 // The weight fragments of one step in registers: p, r, h are the ql (spans
 // 0|2), ql (1|3) and qh words of columns c..c+3, rows 4t.. ([0]) and 16+4t..
 // ([1]) of the step.
@@ -232,26 +226,19 @@ __device__ __forceinline__ void q6_bf16_consume(const Q6DecRing<C, true>& ring, 
       for (int hf = 0; hf < 2; ++hf) {
         // column c+k's s16 in both halves of a word, -128 s16 and -32 s16
         // (exact in bf16)
-        const uint2 su = *reinterpret_cast<const uint2*>(&S.sc[j][hf][c]);
         uint32_t sp[4], n128[4], n32[4];
-        sp[0] = __byte_perm(su.x, 0, 0x1010);
-        sp[1] = __byte_perm(su.x, 0, 0x3232);
-        sp[2] = __byte_perm(su.y, 0, 0x1010);
-        sp[3] = __byte_perm(su.y, 0, 0x3232);
+        mrt::scale_pairs(&S.sc[j][hf][c], sp);
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          n128[k] = fma_bf16x2(sp[k], kNeg128, kNegZero);
-          n32[k] = fma_bf16x2(sp[k], kNeg32, kNegZero);
+          n128[k] = mrt::fma_bf16x2(sp[k], kNeg128, kNegZero);
+          n32[k] = mrt::fma_bf16x2(sp[k], kNeg32, kNegZero);
         }
         // A of column c+k: elements 4t, 4t+1 (mma k 2t, 2t+1) and 4t+2, 4t+3
-        // (k 2t+8, 2t+9) as bf16(q * s16)
+        // (k 2t+8, 2t+9) as bf16(q * s16), the 6-bit codes under 0x43
         uint32_t wl[4], wh[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const uint32_t q = w.codes(j, hf, k);
-          wl[k] = fma_bf16x2(__byte_perm(q, 0x43, 0x4140), sp[k], n128[k]);
-          wh[k] = fma_bf16x2(__byte_perm(q, 0x43, 0x4342), sp[k], n128[k]);
-        }
+        for (int k = 0; k < 4; ++k)
+          mrt::dec_code_pairs<6, false>(w.codes(j, hf, k), sp[k], n128[k], 0u, wl[k], wh[k]);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           // B: x row 8nt + g, elements 16hf + 4t.. of span j

@@ -16,7 +16,8 @@ serving paths run, all hand-written CUDA under csrc/:
 - K10 `affine_gemv` (`_affine_kernel`): w = q*scale - zs for plane-major
   packed codes of 1, 2, 4 or 8 bits, the GEMV of GGUF Q2_K (the Q2_K
   path), GPTQ and HQQ; bf16 activations, as the JAX kernel takes x's
-  dtype; a rows instantiation (17-256 rows, bf16 wgmma, on
+  dtype; a decode instantiation (up to 16 rows, `plane_dec_plan`, shared
+  with K8) and a rows instantiation (17-256 rows, bf16 wgmma, on
   `plane_gemv_plan`), counted apart;
 - K5 `q4k_bf16_gemv` (`_q4k_kernel`), K8 `q8_0_bf16_gemv`
   (`_q8_0_kernel`) and K9b `q5k_hbit_bf16_gemv` (`_q5k_hbit_kernel`): the
@@ -25,7 +26,8 @@ serving paths run, all hand-written CUDA under csrc/:
   MISTRALRS_*_INT8 gates off; each has a rows instantiation (17-256 rows,
   K10's rows kernel: K5's with Q4_K's exact two-part weight on
   `q4k_bf16_plan`, K8's at 8 bits on `q8_0_bf16_plan`, K9b's at one bit on
-  `q5k_hbit_bf16_plan`), counted apart.
+  `q5k_hbit_bf16_plan`), counted apart; K8's decode instantiation is
+  K10's (`plane_dec_plan` at 8 signed bits).
 
 Activations are quantized per block to int8 (ggml's Q8 approach, as the JAX
 int8 path does): xs = max(max|x_block|, 1e-10)/127, xq = clip(round(x/xs),
@@ -34,12 +36,13 @@ even, as jnp.round. The kernels take x itself: the C entry point of each
 runs a quantize kernel, the GEMV and a split-K pass (one host call instead
 of a dozen torch ops per projection); the decode instantiations (up to 16
 rows) of K1, K2 and K3 add their K splits on chip instead, two launches a
-call, and K4's, which takes x as it is, one. Their plain
+call, and K4's, K8's and K10's, which take x as it is, one. Their plain
 versions quantize with the same f32 operations in torch, so the int8 codes
 agree bit for bit; the scale is max|x|*(1/127) in both, where JAX divides
 by 127 (at most one f32 ulp apart). The activation scales and block sums are [B, K/gs] here (JAX
 keeps them transposed for TPU sublane alignment). K4, K5, K8, K9b and K10
-keep x in its dtype; K4, K5 and K10 only take per-16 or per-32 sums of it.
+keep x in its dtype; K5 and the rows instantiations of K4 and K10 only
+take per-16, per-32 or per-group sums of it.
 
 Routing rules of this port (the dispatchers below), by the Linear's
 `int8_act` (the port's one switch for the JAX package's four gates
@@ -179,8 +182,8 @@ def _ksplit_for(O: int, B: int, k_units: int, sms: int, rows: int = 16) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class GemvPlan:
-    """The launch of a GEMV for one call (K1, K2, K3, K4, and the 16-row
-    kernels' (column tiles, K splits, 1) grids), every field of which the
+    """The launch of a GEMV for one call (K1, K2, K3, K4, K8, K10, and the
+    16-row kernels' (column tiles, K splits, 1) grids), every field of which the
     CUDA entry point checks: the row tile of a block (16: the decode
     instantiation; 64 or 128: the rows instantiation, two consumer
     warpgroups), the GEMV's grid as the entry point launches it, the K
@@ -773,16 +776,66 @@ def plane_rows_take(K: int, bits: int, group: int) -> bool:
     return (K // per) % group == 0 and group & (group - 1) == 0
 
 
+def plane_dec_geom(bits: int) -> tuple[int, int, int]:
+    """(planes of a byte row, byte rows of a K step, most scale rows a
+    plane a step) of the decode kernel (csrc/plane_gemv.cuh PlaneDecGeom):
+    64-row steps at 8 bits, 32 below, a scale row at most every 16 rows."""
+    per = 8 // bits
+    r = 64 if bits == 8 else 32
+    return per, r, r // 16
+
+
+def plane_dec_rows(bits: int, group: int) -> int:
+    """Scale rows a plane of a decode step's box (csrc/plane_gemv.cuh
+    plane_dec_rows): the most groups a step's rows can touch, rows starting
+    at multiples of 16 in a group."""
+    r = plane_dec_geom(bits)[1]
+    if r % group == 0:
+        return r // group
+    if group % r == 0:
+        return 1
+    return (group - 16 + r - 1) // group + 1
+
+
+def plane_dec_stage_weight_bytes(bits: int, cols: int, scale_bytes: int = 2,
+                                 zs: bool = True) -> int:
+    """The most weight bytes a decode stage holds (PlaneDecStage's
+    kWeightBytes): a step's codes for `cols` columns, and its scale (and zs)
+    rows at their most."""
+    per, r, nr = plane_dec_geom(bits)
+    return cols * r + per * nr * cols * (scale_bytes + (2 if zs else 0))
+
+
+def plane_dec_plan(B: int, K: int, O: int, bits: int, group: int, sms: int, zs: bool = True,
+                   scale_bytes: int = 2) -> GemvPlan:
+    """The decode plan of K10 and K8 (csrc/plane_gemv.cuh plane_dec_kernel)
+    up to 16 rows: K4's decode rules (_dec_grid) over ceil(Kp / R) steps of
+    R byte rows (64 at 8 bits, 32 below), a ring stage a step; the ring's
+    stages from the stage's most weight bytes (the scale at
+    `scale_bytes`, zs with the zs term); no workspace. The scale and zs
+    boxes see [K/group, O] as [planes][Kp/group][O], so a group must lie
+    inside one plane (Kp % group == 0): a group that straddles two planes
+    raises."""
+    per, r, _ = plane_dec_geom(bits)
+    kp = K // per
+    _require(1 <= B <= 16, f"plane decode plan: 1-16 rows, got {B}")
+    _require(group % 16 == 0 and kp % 32 == 0 and kp % group == 0,
+             f"plane decode plan: needs group % 16 == 0, (K/(8/bits)) % 32 == 0 and a group "
+             f"inside one plane ((K/(8/bits)) % group == 0); got K={K} bits={bits} group={group}")
+    ks, cols, ctiles = _dec_grid(O, -(-kp // r), 1, sms)
+    return GemvPlan(16, (ks, ctiles, 1), ks, ks, cols,
+                    dec_stages(plane_dec_stage_weight_bytes(bits, cols, scale_bytes, zs)), 0)
+
+
 def plane_gemv_plan(B: int, K: int, O: int, bits: int, group: int, sms: int,
                     zs: bool = True, codes_in_tile: bool = False, scale_bytes: int = 2,
                     parts: int = 1, elems: int | None = None) -> GemvPlan:
     """Launch plan of K10 (and, above 16 rows, of K9b and K8 with zs False,
     of K4 with codes_in_tile, of K5 with parts 2) on a card with `sms` SMs,
     every field of which the CUDA entry point checks.
-    Up to 16 rows plane_bf16_mma_kernel: grid (column tiles, K splits, 1),
-    the split by _ksplit_for over 32-row steps, the row-major workspace
-    (per-16 sums, partials). Above: the rows kernel, 64 or 128 rows a
-    block, grid (row tiles, column tiles, K splits), row tiles fastest, so
+    Up to 16 rows the decode plan (plane_dec_plan). Above: the rows kernel,
+    64 or 128 rows a block, grid (row tiles, column tiles, K splits), row
+    tiles fastest, so
     each weight tile is read by at most two blocks; K is split at zs slices
     (without zs: at 4 main steps) and only to fill one wave, no split
     empty; its ring's stages (plane_row_stages of the format's stage: the
@@ -794,8 +847,7 @@ def plane_gemv_plan(B: int, K: int, O: int, bits: int, group: int, sms: int,
     kp = K // per
     ctiles = -(-O // 128)
     if B <= 16:
-        ks = _ksplit_for(O, B, kp // 32, sms)
-        return GemvPlan(16, (ctiles, ks, 1), ks, 1, 128, 0, _workspace_bytes(B, K, O, 0, 16, ks))
+        return plane_dec_plan(B, K, O, bits, group, sms, zs, scale_bytes)
     rows = 64 if B <= 64 else 128
     rtiles = -(-B // rows)
     steps = kp // plane_row_geom(bits, elems)[2]
@@ -835,9 +887,12 @@ def affine_gemv(x, q, scale, zs, bits: int, group: int, out_dtype=torch.bfloat16
     codes of `bits` bits, the weight rounded to bf16 inside the kernel (see
     csrc/affine_gemv.cu). x [B, K] bf16 on cuda, q uint8 [K*bits/8, O],
     scale/zs [K/group, O] (bf16 on cuda). The kernels take group % 16 == 0
-    and (K*bits/8) % 32 == 0 (the 16-row kernel's 32-row steps of
-    16-element halves); above 16 rows the rows kernel, which also takes
-    plane_rows_take's rule, on the plan of plane_gemv_plan."""
+    and (K*bits/8) % 32 == 0. Up to 16 rows the decode instantiation
+    (plane_dec_kernel: one launch, the K splits summed in a cluster), which
+    also needs a group inside one plane ((K*bits/8) % group == 0); above 16
+    rows the rows instantiation, which also takes plane_rows_take's rule;
+    on the plan of plane_gemv_plan. Nothing of a call waits for the card
+    or keeps state between calls, so it can be captured in a CUDA graph."""
     global affine_gemv_launches, affine_gemv_rows_launches
     _require(bits in AFFINE_BITS, f"affine_gemv: bits {bits} not in {AFFINE_BITS}")
     Kp, O = q.shape
@@ -856,9 +911,9 @@ def affine_gemv(x, q, scale, zs, bits: int, group: int, out_dtype=torch.bfloat16
     _check_tensor("scale", scale, torch.bfloat16, (K // group, O))
     _check_tensor("zs", zs, torch.bfloat16, (K // group, O))
     dev = _check_cuda("affine_gemv", dict(x=x, q=q, scale=scale, zs=zs))
-    _require(B <= 16 or plane_rows_take(K, bits, group),
-             f"affine_gemv: above 16 rows the kernel needs (K/(8/bits)) % group == 0 and a "
-             f"power-of-two group; got K={K} bits={bits} group={group}")
+    _require(Kp % group == 0 and (B <= 16 or plane_rows_take(K, bits, group)),
+             f"affine_gemv: the kernels need a group inside one plane ((K/(8/bits)) % group == 0) "
+             f"and, above 16 rows, a power-of-two group; got K={K} bits={bits} group={group}")
     plan = plane_gemv_plan(B, K, O, bits, group, kernels.sm_count(dev))
     ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=dev)
     out = torch.empty(B, O, dtype=out_dtype, device=dev)
@@ -961,17 +1016,13 @@ def q8_0_bf16_gemv_plain(x, q, s, out_dtype=torch.float32):
 
 def q8_0_bf16_plan(B: int, K: int, O: int, f32_scales: bool, sms: int) -> GemvPlan:
     """Launch plan of K8 on a card with `sms` SMs, every field of which the
-    CUDA entry point checks. Up to 16 rows plane_bf16_mma_kernel: grid
-    (column tiles, K splits, 1), the split by _ksplit_for over 32-row
-    steps, the row-major workspace (partials only). Above: the rows kernel
-    at 8 bits, group 32, no zs term (K split at 4 main steps), its ring's
-    stages at the scale's width (4 bytes for rq8's f32 scales, 2 for wire
-    Q8_0's bf16), and a tiled workspace of the partials alone (at 8 bits
-    the kernel reads x in place)."""
-    if B <= 16:
-        ks = _ksplit_for(O, B, K // 32, sms)
-        return GemvPlan(16, (-(-O // 128), ks, 1), ks, 1, 128, 0,
-                        _workspace_bytes(B, K, O, 0, 0, ks))
+    CUDA entry point checks: K10's plan at 8 bits, group 32 and no zs term,
+    the scale at its width (4 bytes for rq8's f32 scales, 2 for wire Q8_0's
+    bf16). Up to 16 rows the decode plan (plane_dec_plan: grid (K splits,
+    column tiles, 1), a cluster of the splits, no workspace). Above: the
+    rows kernel (K split at 4 main steps), its ring's stages at the scale's
+    width, and a tiled workspace of the partials alone (at 8 bits the
+    kernel reads x in place)."""
     return plane_gemv_plan(B, K, O, 8, 32, sms, zs=False, scale_bytes=4 if f32_scales else 2)
 
 
@@ -979,9 +1030,12 @@ def q8_0_bf16_gemv(x, q, s, out_dtype=torch.bfloat16):
     """K8: y [B, O] = x @ W for int8 W with a scale per 32 rows, the weight
     rounded to bf16 inside the kernel (see csrc/q8_0_bf16_gemv.cu). x [B, K]
     bf16 on cuda, q int8 [K, O], s [K/32, O] f32 or bf16. Up to 16 rows the
-    16-row instantiation (plane_bf16_mma_kernel), above it the rows
-    instantiation (plane_rows_kernel with PlaneFmt at 8 signed bits), on
-    the plan of q8_0_bf16_plan, each counted apart."""
+    decode instantiation (plane_dec_kernel with PlaneFmt at 8 signed bits,
+    K10's: one launch, the K splits summed in a cluster), above it the rows
+    instantiation (plane_rows_kernel with the same format), on the plan of
+    q8_0_bf16_plan, each counted apart. Nothing of a call waits for the
+    card or keeps state between calls, so it can be captured in a CUDA
+    graph."""
     global q8_0_bf16_gemv_launches, q8_0_bf16_gemv_rows_launches
     K, O = q.shape
     B = _check_x("q8_0_bf16_gemv", x, K)

@@ -37,11 +37,14 @@ kernel launches, and the device time of K13, K5, K8 and K9b and their
 shares of it: kernels named grouped_gemm (and K13's two instantiations
 apart, `k13_tiles_ms` above 32 rows a group and `k13_decode_ms` up to it:
 grouped_gemm_tiles_kernel and grouped_gemm_decode_kernel), q4k_bf16_mma,
-plane_bf16_mma_kernel<8 and plane_bf16_mma_kernel<1, the last also K10's
-at 1 bit, which no mix here runs; of K1's, K2's and K9's rows
+K8's decode instantiation (`k8_ms`: plane_dec_kernel at 8 signed bits) and
+plane_bf16_mma_kernel<1 (K9b); of K1's, K2's and K9's rows
 instantiations, q4k_q8_rows_kernel, q8_0_q8_rows_kernel and
-q5k_q8_rows_kernel, K9's 16-row q5k_q8_mma_kernel, K10's at Q2_K's 2
-bits, plane_bf16_mma_kernel<2 up to 16 rows and plane_rows_kernel above;
+q5k_q8_rows_kernel, K9's 16-row q5k_q8_mma_kernel, K10's (`k10_ms`:
+plane_dec_kernel with the zs term, up to 16 rows, one launch a call; in a
+tree before it plane_bf16_mma_kernel<2, whose call also ran the quantize
+kernel and a split-K pass, named by that tree's copy of this script) and
+plane_rows_kernel above;
 and of plane_rows_kernel's other instantiations, K4's (Q6_K, `k4_rows_ms`:
 the 4 x 40 step of `--mix q5km`, with int8 activations or without), K9b's
 (one bit without the zs term, `k9b_rows_ms`), K5's (Q4_K's exact
@@ -71,13 +74,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 FEW = 4  # prompts in the traced prefill steps that fill a few of the slots
 
 
-def _plane_fmt(key: str):
+def _plane_fmt(key: str, kernel: str = "plane_rows_kernel"):
     """The template arguments BITS, SIGNED, ST, ZS (, KE) of a
-    plane_rows_kernel<PlaneFmt<...>, BM> event's name, or None for another
-    kernel (K4's is plane_rows_kernel<Q6kFmt, BM>, K5's
-    plane_rows_kernel<Q4kFmt<KE>, BM>)."""
+    `kernel`<PlaneFmt<...>, ...> event's name (plane_rows_kernel or
+    plane_dec_kernel), or None for another kernel (K4's rows kernel is
+    plane_rows_kernel<Q6kFmt, BM>, K5's plane_rows_kernel<Q4kFmt<KE>, BM>)."""
     head = "PlaneFmt<"
-    if "plane_rows_kernel<" not in key or head not in key:
+    if f"{kernel}<" not in key or head not in key:
         return None
     return [a.strip() for a in key.split(head, 1)[1].split(">", 1)[0].split(",")]
 
@@ -85,10 +88,12 @@ def _plane_fmt(key: str):
 # device time reported by kernel: a part of the kernel's name, or a test of it
 NAMED_KERNELS = {"grouped_gemm": "grouped_gemm", "k13_tiles": "grouped_gemm_tiles_kernel",
                  "k13_decode": "grouped_gemm_decode_kernel", "k5": "q4k_bf16_mma",
-                 "k8": "plane_bf16_mma_kernel<8", "k9b": "plane_bf16_mma_kernel<1",
+                 "k8": lambda k: (_plane_fmt(k, "plane_dec_kernel") or [""] * 4)[:2] == [
+                     "8", "true"],
+                 "k9b": "plane_bf16_mma_kernel<1",
                  "k1_rows": "q4k_q8_rows_kernel", "k2_rows": "q8_0_q8_rows_kernel",
                  "k9": "q5k_q8_mma_kernel", "k9_rows": "q5k_q8_rows_kernel",
-                 "k10": "plane_bf16_mma_kernel<2",
+                 "k10": lambda k: (_plane_fmt(k, "plane_dec_kernel") or [""] * 4)[3] == "true",
                  "k10_rows": lambda k: (_plane_fmt(k) or [""] * 4)[3] == "true",
                  "k3": "q6k_q8_", "k4": "q6k_bf16_",
                  "k4_rows": lambda k: "plane_rows_kernel<" in k and "Q6kFmt" in k,

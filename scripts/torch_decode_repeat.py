@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Bit-equality of the decode GEMVs (K1, K2, K3, K4 at 1-16 rows) over
-many calls, in one or more checkouts of this repository on one card.
+"""Bit-equality of the decode GEMVs (K1, K2, K3, K4, K8, K10 at 1-16 rows)
+or of the rows GEMVs (K1, K8, K10 at 256 rows) over many calls, in one or
+more checkouts of this repository on one card.
 
-    python3 scripts/torch_decode_repeat.py N ROOT [ROOT ...]
+    python3 scripts/torch_decode_repeat.py [--rows] N ROOT [ROOT ...]
 
 Runs each root in a process of its own, in the order given (to probe a
 variant of a kernel, make it in a gitignored copy of the tree and pass
-that copy). Each builds q6k_gemv, q4k_q8_gemv and q8_0_q8_gemv and prints
-one JSON line: for K4 at down (14336 -> 4096, clusters of 8 K splits) at 16
-rows, N calls, and at 9 rows, K4 at the lm_head (4096 -> 32768, one
-split), K3 at down and K1 and K2 at down, at 16 rows, N/3 calls each (the
-L2 flushed and the card kept busy before every other call, as
-chip_smoke.Clock does), the count of calls whose bf16 output differs in any
-bit from the first call's, beside the first f32 call's relative error
-against the plain version and the indices of the first five that differ.
+that copy). Each builds the sources it calls and prints one JSON line: for
+K4 at down (14336 -> 4096, clusters of 8 K splits) at 16 rows, N calls,
+and at 9 rows, K4 at the lm_head (4096 -> 32768, one split), K3, K1, K2,
+K8 (rq8) and K10 (GPTQ-8, group 128) at down, at 16 rows, N/3 calls each;
+with --rows, instead, the rows instantiations (their ring, common.cuh's
+mrt::Ring) of K1 and K8 at down and of K10 at Q2_K's gate|up (4096 ->
+28672, a zs step a slice), at 256 rows, N calls each. The L2 is flushed
+and the card kept busy before every other call, as chip_smoke.Clock does;
+each case gives the count of calls whose bf16 output differs in any bit
+from the first call's, beside the first f32 call's relative error against
+the plain version and the indices of the first five that differ.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import sys
 from pathlib import Path
 
 
-def measure(root: str, reps: int) -> dict:
+def measure(root: str, reps: int, rows: bool = False) -> dict:
     sys.path.insert(0, root)
     import torch
 
@@ -34,7 +38,8 @@ def measure(root: str, reps: int) -> dict:
 
     if not Path(kernels.__file__).resolve().is_relative_to(Path(root).resolve()):
         raise RuntimeError(f"{kernels.__file__} is not under {root}")
-    kernels.SOURCES = ("q6k_gemv", "q4k_q8_gemv", "q8_0_q8_gemv")
+    kernels.SOURCES = ("q4k_q8_gemv", "q8_0_bf16_gemv", "affine_gemv") + (
+        () if rows else ("q6k_gemv", "q8_0_q8_gemv"))
     kernels.build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -63,6 +68,24 @@ def measure(root: str, reps: int) -> dict:
         bad = [i for i, o in enumerate(outs) if not torch.equal(o, first)]
         out[name] = [len(bad), rel, bad[:5]]
 
+    if rows:
+        K, O = 14336, 4096
+        x = torch.randn(256, K, device=dev, generator=gen).to(torch.bfloat16)
+        qs, s4, m4 = u8(K // 2, O), scales(K // 32, O), scales(K // 32, O)
+        run("k1 rows down B=256", lambda dt: qm.q4k_q8_gemv(x, qs, s4, m4, out_dtype=dt),
+            lambda: qm.q4k_q8_gemv_plain(x, qs, s4, m4, torch.float32), reps)
+        q = torch.randint(-127, 128, (K, O), dtype=torch.int8, device=dev, generator=gen)
+        s8 = torch.rand(K // 32, O, device=dev, generator=gen) * 3e-4 + 1e-4
+        run("k8 rows down B=256", lambda dt: qm.q8_0_bf16_gemv(x, q, s8, out_dtype=dt),
+            lambda: qm.q8_0_bf16_gemv_plain(x, q, s8, torch.float32), reps)
+        K, O = 4096, 28672
+        x = torch.randn(256, K, device=dev, generator=gen).to(torch.bfloat16)
+        q2, s2 = u8(K // 4, O), scales(K // 16, O)
+        z2 = (1.5 * s2.float()).to(torch.bfloat16)
+        run("k10 rows gate|up q2k B=256",
+            lambda dt: qm.affine_gemv(x, q2, s2, z2, 2, 16, out_dtype=dt),
+            lambda: qm.affine_gemv_plain(x, q2, s2, z2, 2, 16, torch.float32), reps)
+        return {"root": root, "device": torch.cuda.get_device_name(0), "rows": out}
     for nm, K, O in (("down", 14336, 4096), ("lm_head", 4096, 32768)):
         ql, qh, s6 = u8(K // 2, O), u8(K // 4, O), scales(K // 16, O)
         for B in ((16, 9) if nm == "down" else (16,)):
@@ -84,17 +107,26 @@ def measure(root: str, reps: int) -> dict:
     s8 = torch.rand(K // 32, O, device=dev, generator=gen) * 3e-4 + 1e-4
     run("k2 down B=16", lambda dt: qm.q8_0_q8_gemv(x, q, s8, 32, out_dtype=dt),
         lambda: qm.q8_0_q8_gemv_plain(x, q, s8, 32, torch.float32), reps // 3)
+    run("k8 down B=16", lambda dt: qm.q8_0_bf16_gemv(x, q, s8, out_dtype=dt),
+        lambda: qm.q8_0_bf16_gemv_plain(x, q, s8, torch.float32), reps // 3)
+    q8, s10 = u8(K, O), scales(K // 128, O)
+    z10 = (128 * s10.float()).to(torch.bfloat16)
+    run("k10 down gptq8 B=16", lambda dt: qm.affine_gemv(x, q8, s10, z10, 8, 128, out_dtype=dt),
+        lambda: qm.affine_gemv_plain(x, q8, s10, z10, 8, 128, torch.float32), reps // 3)
     return {"root": root, "device": torch.cuda.get_device_name(0), "rows": out}
 
 
 def main() -> int:
-    if sys.argv[1] == "--one":
-        print(json.dumps(measure(sys.argv[2], int(sys.argv[3]))), flush=True)
+    args = sys.argv[1:]
+    rows = "--rows" in args
+    args = [a for a in args if a != "--rows"]
+    if args[0] == "--one":
+        print(json.dumps(measure(args[1], int(args[2]), rows)), flush=True)
         return 0
-    reps = int(sys.argv[1])
-    for root in sys.argv[2:]:
-        r = subprocess.run([sys.executable, __file__, "--one", root, str(reps)],
-                           capture_output=True, text=True)
+    reps = int(args[0])
+    for root in args[1:]:
+        r = subprocess.run([sys.executable, __file__, "--one", root, str(reps)]
+                           + (["--rows"] if rows else []), capture_output=True, text=True)
         if r.returncode:
             print(r.stderr[-4000:], file=sys.stderr)
             return r.returncode

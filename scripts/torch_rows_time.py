@@ -15,7 +15,7 @@ at 64 and 256 rows, K10 at Q2_K's gate|up (64 and 256 rows) and q|k
 GPTQ-4 (group 16) at gate|up, 256 rows, K4 at the Q6_K down (14336->4096)
 and v (4096->1024), K9b and K5 at gate|up, all at 64 and 256 rows, K5 at
 down (256), K8 on rq8's f32 scales at the lm_head (4096->32768, 64 and
-256 rows), down and v (256) and on wire Q8_0's bf16 scales at the lm_head
+256 rows), down (256) and v (17, 64 and 256) and on wire Q8_0's bf16 scales at the lm_head
 (64), each time chip_smoke.Clock's median of 25 runs (L2 flushed) beside
 the relative error against the plain version (but K9's). A tree whose
 kernel has no rows instantiation times its older kernel at the same call.
@@ -49,7 +49,7 @@ K9B_CASES = (("gate|up", 4096, 28672, (64, 256)),)
 # (name, K, O, rows): K5 at gate|up and down; (name, K, O, f32 scales, rows): K8
 K5_CASES = (("gate|up", 4096, 28672, (64, 256)), ("down", 14336, 4096, (256,)))
 K8_CASES = (("lm_head", 4096, 32768, True, (64, 256)), ("down", 14336, 4096, True, (256,)),
-            ("v", 4096, 1024, True, (256,)), ("lm_head wire", 4096, 32768, False, (64,)))
+            ("v", 4096, 1024, True, (17, 64, 256)), ("lm_head wire", 4096, 32768, False, (64,)))
 K5_TRACE = (("gate|up", 4096, 28672, 64), ("gate|up", 4096, 28672, 256), ("down", 14336, 4096, 256))
 K8_TRACE = (("lm_head", 4096, 32768, 64), ("lm_head", 4096, 32768, 256), ("v", 4096, 1024, 256))
 

@@ -142,16 +142,20 @@ def test_q8_0_q8_gemv_decode_tails_match_plain(dev, K, O, gs, sdt, B):
 
 
 def _decode_calls(dev, B):
-    """One K1, K2, K3 and K4 decode call at the main path's q|k and v
-    shapes (K3 and K4 at the Q6_K v, in clusters of 8 splits)."""
+    """One K1, K2, K3, K4, K8 and K10 decode call at the main path's q|k and
+    v shapes (K3 and K4 at the Q6_K v, in clusters of 8 splits; K8 at the
+    rq8 v; K10 at the Q2_K q|k)."""
     qs, scale, minv = _q4k_arrays(dev, 4096, 5120, 1)
     q, s = _q8_arrays(dev, 4096, 1024, 32, torch.float32, 2)
     ql, qh, s6 = _q6k_span_arrays(dev, 4096, 1024, 512, 4)
+    q2, s2, z2 = _affine_arrays(dev, 2, 16, 4096, 5120, 6)
     x = _acts(B, 4096, dev, 3).to(torch.bfloat16)
     return (lambda: qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.float32),
             lambda: qm.q8_0_q8_gemv(x, q, s, 32, out_dtype=torch.float32),
             lambda: qm.q6k_q8_gemv(x, ql, qh, s6, 512, out_dtype=torch.float32),
-            lambda: qm.q6k_bf16_gemv(x, ql, qh, s6, 512, out_dtype=torch.float32))
+            lambda: qm.q6k_bf16_gemv(x, ql, qh, s6, 512, out_dtype=torch.float32),
+            lambda: qm.q8_0_bf16_gemv(x, q, s, out_dtype=torch.float32),
+            lambda: qm.affine_gemv(x, q2, s2, z2, 2, 16, out_dtype=torch.float32))
 
 
 @pytest.mark.parametrize("B", [1, 16])
@@ -164,13 +168,14 @@ def test_decode_gemv_is_bit_equal_on_repeat(dev, B):
             assert torch.equal(call(), first)
 
 
-@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4"])
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4", "k8", "k10"])
 def test_decode_gemv_is_bit_equal_over_many_calls(dev, kernel):
     """1,000 calls at the down projection (14336 -> 4096, clusters of 8
-    splits), 16 rows, the L2 flushed before every other call, each bit-equal
-    to the first: a consumer's reads of a ring stage are ordered before the
-    copies that refill it (without the decode ring's proxy fence K4 gave
-    another result in about one call of 400)."""
+    splits; K8 on rq8 weights, K10 on GPTQ-8 at group 128), 16 rows, the L2
+    flushed before every other call, each bit-equal to the first: a
+    consumer's reads of a ring stage are ordered before the copies that
+    refill it (without the decode ring's proxy fence K4 gave another result
+    in about one call of 400)."""
     K, O = 14336, 4096
     x = _acts(16, K, dev, 5).to(torch.bfloat16)
     if kernel == "k1":
@@ -179,6 +184,12 @@ def test_decode_gemv_is_bit_equal_over_many_calls(dev, kernel):
     elif kernel == "k2":
         q, s = _q8_arrays(dev, K, O, 32, torch.float32, 6)
         call = lambda: qm.q8_0_q8_gemv(x, q, s, 32)  # noqa: E731
+    elif kernel == "k8":
+        q, s = _q8_arrays(dev, K, O, 32, torch.float32, 6)
+        call = lambda: qm.q8_0_bf16_gemv(x, q, s)  # noqa: E731
+    elif kernel == "k10":
+        q, scale, zs = _affine_arrays(dev, 8, 128, K, O, 6)
+        call = lambda: qm.affine_gemv(x, q, scale, zs, 8, 128)  # noqa: E731
     else:
         ql, qh, s6 = _q6k_span_arrays(dev, K, O, 512, 6)
         fn = qm.q6k_q8_gemv if kernel == "k3" else qm.q6k_bf16_gemv
@@ -224,13 +235,15 @@ def test_decode_gemv_replays_in_a_cuda_graph(dev, B):
 def test_decode_gemv_counts_one_launch_a_call(dev):
     """The decode counters count calls of the decode instantiations (the
     rows counters stay)."""
-    k1, k2, k3, k4 = _decode_calls(dev, 16)
+    k1, k2, k3, k4, k8, k10 = _decode_calls(dev, 16)
 
     def counts():
         return (qm.q4k_q8_gemv_launches, qm.q4k_q8_gemv_rows_launches,
                 qm.q8_0_q8_gemv_launches, qm.q8_0_q8_gemv_rows_launches,
                 qm.q6k_q8_gemv_launches, qm.q6k_bf16_gemv_launches,
-                qm.q6k_bf16_gemv_rows_launches)
+                qm.q6k_bf16_gemv_rows_launches, qm.q8_0_bf16_gemv_launches,
+                qm.q8_0_bf16_gemv_rows_launches, qm.affine_gemv_launches,
+                qm.affine_gemv_rows_launches)
 
     before = counts()
     k1()
@@ -240,7 +253,10 @@ def test_decode_gemv_counts_one_launch_a_call(dev):
     k4()
     k4()
     k4()
-    assert [a - b for a, b in zip(counts(), before)] == [1, 0, 2, 0, 1, 3, 0]
+    k8()
+    k8()
+    k10()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 0, 2, 0, 1, 3, 0, 2, 0, 1, 0]
 
 
 # the rows instantiations of K1 and K2 (17-256 rows): one and two row tiles
@@ -724,7 +740,12 @@ def _affine_arrays(dev, bits, group, K, O, seed):
     return q.to(dev), scale, zs
 
 
-@pytest.mark.parametrize("B", K9_K10_B)
+# K10: the decode instantiation's row counts (one n-tile up to 8 rows, two
+# above) and the rows instantiation's
+K10_B = [1, 2, 5, 8, 9, 16, 17, 64, 65, 128, 129, 200, 256]
+
+
+@pytest.mark.parametrize("B", K10_B)
 @pytest.mark.parametrize("bits,group,K,O", [
     (2, 16, 512, 256), (2, 16, 4096, 272),      # GGUF Q2_K
     (1, 64, 4096, 256), (1, 16, 512, 144),      # HQQ-1: 8 planes
@@ -733,11 +754,11 @@ def _affine_arrays(dev, bits, group, K, O, seed):
     (8, 128, 14336, 128), (8, 64, 1024, 256),   # GPTQ-8 / GPTQ-3 bytes / HQQ-3, HQQ-8
 ])
 def test_affine_gemv_matches_plain(dev, B, bits, group, K, O):
-    """K10: the same bf16(q * scale) weights on both sides, the zs term in
-    f32 over per-16 sums (the 16-row kernel), on the tensor cores over
-    per-group sums in three exact bf16 parts (the rows instantiation), and
-    per-group sums in the plain version; f32 sums in another order (1e-4 of
-    max |y|, as K4)."""
+    """K10: the same bf16(q * scale) weights on both sides, the zs term as a
+    second bf16 mma with A = -zs over x (the decode instantiation), on the
+    tensor cores over per-group sums in three exact bf16 parts (the rows
+    instantiation), and per-group sums in the plain version; f32 sums in
+    another order (1e-4 of max |y|, as K4)."""
     q, scale, zs = _affine_arrays(dev, bits, group, K, O, B + K + bits)
     x = _acts(B, K, dev, B + bits).to(torch.bfloat16)
     before = (qm.affine_gemv_launches, qm.affine_gemv_rows_launches)
@@ -751,6 +772,54 @@ def test_affine_gemv_matches_plain(dev, B, bits, group, K, O):
     y16 = qm.affine_gemv(x, q, scale, zs, bits, group)
     assert y16.dtype == torch.bfloat16
     assert _rel_err(y16.float(), want) <= 1e-2
+
+
+@pytest.mark.parametrize("B", [1, 2, 5, 8, 9, 16])
+@pytest.mark.parametrize("bits,group,K,O", [
+    (8, 14336, 14336, 256),   # GPTQ-8 per channel: one group of all K, 224 steps of 64 rows
+    (8, 1056, 1056, 272),     # per channel at K % 64 == 32: a last step of 32 rows
+    (8, 48, 4608, 144),       # a group that is not a power of two, across steps
+    (4, 48, 3072, 272),       # the same below 8 bits (32-row steps)
+    (2, 16, 4096, 28672),     # Q2_K gate|up: one K split, 224 column tiles
+    (1, 16, 512, 144),        # HQQ-1 at group 16: two scale rows a plane a step
+])
+def test_affine_gemv_decode_cases_match_plain(dev, B, bits, group, K, O):
+    """K10's decode instantiation where its step walk is tested hardest: a
+    group of all K that is not a power of two, a partial last step, groups
+    that start inside a step, one K split, a partial column tile; within
+    1e-4 of max |y| of the plain version, bit-equal on a repeat, one count
+    a call."""
+    q, scale, zs = _affine_arrays(dev, bits, group, K, O, B + K + bits + 7)
+    x = _acts(B, K, dev, B + 3).to(torch.bfloat16)
+    before = (qm.affine_gemv_launches, qm.affine_gemv_rows_launches, qm.affine_dequant_launches)
+    got = qm.affine_gemv(x, q, scale, zs, bits, group, out_dtype=torch.float32)
+    again = qm.affine_gemv(x, q, scale, zs, bits, group, out_dtype=torch.float32)
+    want = qm.affine_gemv_plain(x, q, scale, zs, bits, group, torch.float32)
+    torch.cuda.synchronize()
+    assert (qm.affine_gemv_launches - before[0], qm.affine_gemv_rows_launches - before[1],
+            qm.affine_dequant_launches - before[2]) == (2, 0, 0)
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+    assert _rel_err(got, want) <= 1e-4
+
+
+def test_affine_qmatmul_keeps_per_channel_gptq8_on_k10(dev):
+    """A GPTQ-8 Linear whose group is all of K (14336, not a power of two)
+    reaches K10's decode instantiation at up to 16 rows, as before; above
+    16 rows it takes the dequant route (the rows kernel needs a power-of-two
+    group)."""
+    from mistralrs_tpu_torch.quant.qlinear import Linear
+
+    K, O = 14336, 256
+    q, scale, zs = _affine_arrays(dev, 8, K, K, O, 11)
+    lin = Linear("gptq_8", (K, O), {"q": q, "scale": scale, "zs": zs})
+    for rows, k10, deq in ((1, 1, 0), (16, 1, 0), (17, 0, 1)):
+        a, d = qm.affine_gemv_launches, qm.affine_dequant_launches
+        x = _acts(rows, K, dev, rows).to(torch.bfloat16)
+        y = qm.affine_qmatmul(lin, x, bits=8, group=K)
+        torch.cuda.synchronize()
+        assert (qm.affine_gemv_launches - a, qm.affine_dequant_launches - d) == (k10, deq)
+        want = qm.affine_gemv_plain(x, q, scale, zs, 8, K, torch.float32)
+        assert _rel_err(y.float(), want) <= 1e-2
 
 
 @pytest.mark.parametrize("bits,group,K,O", [(2, 16, 512, 256), (2, 16, 4096, 272),
@@ -799,12 +868,14 @@ def test_affine_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         qm.affine_gemv(x.to(torch.bfloat16), q, scale.float(), zs, 2, 16)
     with pytest.raises(ValueError):  # f32 weights out of the dequant kernel
         qm.affine_dequant(q, scale, zs, 2, 16, torch.float32)
-    # above 16 rows a group that spans two planes (64 byte rows, group 128)
-    # is refused, not served by another kernel
+    # a group that spans two planes (64 byte rows, group 128) is refused at
+    # every row count, not served by another kernel: the decode
+    # instantiation's boxes see scale and zs as [planes][Kp/group][O]
+    # (affine_qmatmul sends no such shape to K10)
     q1, s1, z1 = _affine_arrays(dev, 1, 128, 512, 256, 2)
-    qm.affine_gemv(x.to(torch.bfloat16), q1, s1, z1, 1, 128)  # the 16-row kernel takes it
-    with pytest.raises(ValueError):
-        qm.affine_gemv(_acts(40, 512, dev, 1).to(torch.bfloat16), q1, s1, z1, 1, 128)
+    for rows in (4, 16, 40):
+        with pytest.raises(ValueError, match="inside one plane"):
+            qm.affine_gemv(_acts(rows, 512, dev, 1).to(torch.bfloat16), q1, s1, z1, 1, 128)
 
 
 def _paged_inputs(dev, B, T, kv_lens, Hq, Hkv, head_major, seed, page=16, D=128):
@@ -1543,14 +1614,18 @@ def test_q5k_hbit_bf16_gemv_matches_plain(dev, B, K, O):
     assert _rel_err(got, want) <= 1e-4
 
 
-@pytest.mark.parametrize("B", BF16_ROWS)
+@pytest.mark.parametrize("B", [1, 2, 5, 8, 9, 16, 17, 64, 256])
 @pytest.mark.parametrize("K,O,sdt", [(4096, 1024, torch.float32), (14336, 4096, torch.float32),
                                      (4096, 32768, torch.float32), (4096, 32768, torch.bfloat16),
-                                     (1024, 272, torch.bfloat16)])
+                                     (1024, 272, torch.bfloat16), (1056, 144, torch.float32),
+                                     (4096, 28672, torch.float32)])
 def test_q8_0_bf16_gemv_matches_plain(dev, B, K, O, sdt):
     """K8: the same bf16(q * bf16(s)) weights on both sides (rq8's f32
     scales are rounded to bf16 first, as the JAX kernel casts them). Up to
-    16 rows its 16-row instantiation, above its rows instantiation."""
+    16 rows its decode instantiation (clusters of 8 splits at v and down,
+    one split at gate|up and the lm_head, a partial column tile, a last
+    step of 32 rows at K 1056), above its rows instantiation; bit-equal on
+    a repeat."""
     g = torch.Generator(device="cpu").manual_seed(B + K + O)
     q = torch.randint(-128, 128, (K, O), generator=g, dtype=torch.int8).to(dev)
     s = (torch.rand(K // 32, O, generator=g) * 3e-4 + 1e-4).to(dev, sdt)
@@ -1563,6 +1638,7 @@ def test_q8_0_bf16_gemv_matches_plain(dev, B, K, O, sdt):
             qm.q8_0_bf16_gemv_rows_launches - before[1]) == ((1, 0) if B <= 16 else (0, 1))
     assert bool(torch.isfinite(got).all())
     assert _rel_err(got, want) <= 1e-4
+    assert torch.equal(qm.q8_0_bf16_gemv(x, q, s, out_dtype=torch.float32), got)
 
 
 # K5's rows instantiation at the Q4_K / Q5_K projections (gate|up with one K

@@ -246,29 +246,65 @@ def plane_stage_bytes(bits, rows, codes_in_tile=False, scale_bytes=2, parts=1, e
     return -(-size // 1024) * 1024
 
 
+def plane_dec_step(bits):
+    """csrc/plane_gemv.cuh PlaneDecGeom written out again: (planes of a
+    byte row, byte rows of a K step: 64 at 8 bits, 32 below)."""
+    return 8 // bits, 64 if bits == 8 else 32
+
+
+def check_plane_dec_plan(B, K, O, bits, group, sms, plan, scale_bytes=2, zs=True):
+    """K8's and K10's decode plan (csrc/plane_gemv.cuh plane_dec_kernel) up
+    to 16 rows, as K3's and K4's: one cluster of the K splits a column tile
+    (at most 8), each column tile once in the grid, 128 columns a block or
+    64 where clusters of the most splits at 128 would leave SMs idle, the
+    splits over ceil(Kp / R) steps of R byte rows whole ring stages (a
+    stage a step) that cover K with none empty, about three blocks an SM,
+    the ring's stages from a stage's most weight bytes (the codes, a scale
+    and zs row a 16 elements of every plane), no workspace."""
+    per, R = plane_dec_step(bits)
+    assert plan.rows == 16 and plan.cols in (64, 128), (B, plan)
+    ks, ctiles, one = plan.grid
+    assert one == 1 and ctiles == -(-O // plan.cols) and (ctiles - 1) * plan.cols < O, (B, plan)
+    assert plan.cluster == plan.ksplit == ks and 1 <= ks <= 8, (B, plan)
+    steps = -(-(K // per) // R)
+    most = min(8, steps)
+    assert plan.cols == (128 if -(-O // 128) * most >= sms else 64), (B, plan)
+    assert ks <= most and (ks == 1 or ks * ctiles <= 3 * sms), (B, plan)
+    assert ks == most or (ks + 1) * ctiles > 3 * sms or -(-steps // (ks + 1)) == -(-steps // ks)
+    per_split = -(-steps // ks)  # a stage a step: whole stages
+    assert per_split == qm.dec_per_split(steps, ks, 1)
+    assert (ks - 1) * per_split < steps <= ks * per_split, (B, plan)  # no empty split
+    weight = plan.cols * R + per * (R // 16) * plan.cols * (scale_bytes + (2 if zs else 0))
+    assert plan.stages == -(-32768 // weight) >= 3, (B, plan)
+    assert plan.ws_bytes == 0, (B, plan)
+    assert (K // per) % group == 0  # every group inside one plane
+
+
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("group", [16, 64, 128])
 def test_plane_gemv_plan(bits, group, sms):
-    """K10: the 16-row kernel up to 16 rows; above, the rows kernel on a
-    grid whose row tiles run fastest (each weight tile read by at most two
-    blocks), K split at zs slices (32 or 16 groups) only to fill one wave with
-    none empty, at least 3 ring stages (a multiple of 3) in 226 KB, and the
-    workspace of carve's tiled layout: the per-group sums, x's bf16 copy in
-    the kernel's step order, the partials with more than one split."""
+    """K10: the decode plan up to 16 rows (plane_dec_plan, the same plan at
+    every B); above, the rows kernel on a grid whose row tiles run fastest
+    (each weight tile read by at most two blocks), K split at zs slices (32
+    or 16 groups) only to fill one wave with none empty, at least 3 ring
+    stages (a multiple of 3) in 226 KB, and the workspace of carve's tiled
+    layout: the per-group sums, x's bf16 copy in the kernel's step order,
+    the partials with more than one split."""
     per = 8 // bits
     elems = 32 if bits == 8 else 64
     for name, K, O in PLANE_SHAPES:
         kp = K // per
         assert qm.plane_rows_take(K, bits, group), (name, bits, group)
         slices = -(-(kp * per // elems) // ((32 if elems == 64 else 16) * group // elems))
+        dec_plans = set()
         for B in range(1, 257):
             plan = qm.plane_gemv_plan(B, K, O, bits, group, sms)
             ks = plan.ksplit
             if B <= 16:
-                assert plan.rows == 16 and plan.grid == (-(-O // 128), ks, 1), (B, plan)
-                assert 1 <= ks <= kp // 32 and plan.stages == 0, (B, plan)
-                assert plan.ws_bytes == carve_row_major(B, K, O, 0, 16, ks), (B, plan)
+                check_plane_dec_plan(B, K, O, bits, group, sms, plan)
+                assert plan == qm.plane_dec_plan(B, K, O, bits, group, sms)
+                dec_plans.add(plan)
                 continue
             check_rows_grid(B, O, sms, plan)
             per_split = -(-slices // ks)
@@ -280,6 +316,56 @@ def test_plane_gemv_plan(bits, group, sms):
             assert pieces["xsum"] == (0, (K // group) * bpad * 4)
             assert pieces["xc"][1] == bpad * K * 2
             assert ("part" in pieces) == (ks > 1) and plan.ws_bytes == total, (B, plan)
+        assert len(dec_plans) == 1, (name, dec_plans)
+
+
+# K10's decode plan at the shapes affine_qmatmul sends it: Q2_K q|k and
+# gate|up (group 16), GPTQ-8 down and gate|up (group 128), GPTQ-8 per
+# channel at Mistral's down (group = K = 14336, not a power of two), HQQ-1
+# (group 64), and groups that start inside a step (48)
+K10_DEC_SHAPES = [(2, 16, 4096, 5120), (2, 16, 4096, 28672), (8, 128, 14336, 4096),
+                  (8, 128, 4096, 28672), (8, 14336, 14336, 4096), (1, 64, 4096, 28672),
+                  (8, 48, 4608, 4096), (4, 48, 3072, 272), (8, 1056, 1056, 272)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("bits,group,K,O", K10_DEC_SHAPES)
+def test_plane_dec_plan(bits, group, K, O, sms):
+    """K10's decode plan at 1-16 rows: the same plan at every B, checked
+    field by field; a per-channel GPTQ-8 group (14336) and a group of 48
+    take it as a power-of-two group does."""
+    plans = set()
+    for B in range(1, 17):
+        plan = qm.plane_gemv_plan(B, K, O, bits, group, sms)
+        check_plane_dec_plan(B, K, O, bits, group, sms, plan)
+        plans.add(plan)
+    assert len(plans) == 1, plans
+
+
+@pytest.mark.parametrize("bits,group,K", [(1, 128, 512), (2, 48, 4096), (4, 96, 1024),
+                                          (8, 48, 4096)])
+def test_plane_dec_plan_raises_for_a_group_across_two_planes(bits, group, K):
+    """A group that straddles two planes ((K/(8/bits)) % group != 0) has no
+    box of [planes][Kp/group][O]: the decode plan raises (affine_qmatmul
+    sends no such shape to K10); it also takes 1-16 rows only."""
+    with pytest.raises(ValueError, match="inside one plane"):
+        qm.plane_gemv_plan(4, K, 256, bits, group, 132)
+    with pytest.raises(ValueError):
+        qm.plane_dec_plan(17, 4096, 256, 2, 16, 132)
+
+
+def test_plane_dec_rows_counts_the_groups_a_step_touches():
+    """The scale rows a plane of a decode step's box (csrc/plane_gemv.cuh
+    plane_dec_rows): the most groups R rows starting at a multiple of 16
+    inside a group can touch, found by walking every start."""
+    for bits in (1, 2, 4, 8):
+        _, R = plane_dec_step(bits)
+        for group in range(16, 400, 16):
+            most = max((rem + R - 1) // group + 1 for rem in range(0, group, 16)
+                       if R % group or rem == 0)
+            if group % R == 0:
+                most = 1
+            assert qm.plane_dec_rows(bits, group) == most <= R // 16, (bits, group)
 
 
 def test_plane_rows_take_and_the_row_rule():
@@ -496,31 +582,32 @@ def test_q4k_bf16_plan(sms):
 
 
 # K8 at the Q4_K_M path's rq8 projections (v, the use_more_bits down, the
-# padded lm_head) and wire Q8_0's lm_head
+# padded lm_head), wire Q8_0's lm_head, and an int8 weight at q|k and
+# gate|up (the kernel phase's)
 Q8_SHAPES = [("v", 4096, 1024, True), ("down", 14336, 4096, True),
-             ("lm_head", 4096, 32768, True), ("lm_head wire", 4096, 32768, False)]
+             ("lm_head", 4096, 32768, True), ("lm_head wire", 4096, 32768, False),
+             ("qk", 4096, 5120, True), ("gate|up wire", 4096, 28672, False)]
 
 
 @pytest.mark.parametrize("sms", [132, 114])
 def test_q8_0_bf16_plan(sms):
-    """K8: its 16-row kernel up to 16 rows (today's launch: grid (column
-    tiles, K splits, 1), the split by _ksplit_for over 32-row steps, the
-    row-major workspace with the partials alone); above, the rows kernel at
-    8 bits without the zs term (K split at 4 main steps, only to fill one
-    wave, none empty), the ring stages of its stage at the scale's width,
-    and a tiled workspace with neither sums nor a copy of x (read in
-    place): the partials with more than one split, else nothing."""
+    """K8: the decode plan up to 16 rows (K10's at 8 bits, group 32, no zs
+    term, the ring's stages at the scale's width; the same plan at every
+    B); above, the rows kernel at 8 bits without the zs term (K split at 4
+    main steps, only to fill one wave, none empty), the ring stages of its
+    stage at the scale's width, and a tiled workspace with neither sums nor
+    a copy of x (read in place): the partials with more than one split,
+    else nothing."""
     E = qm.plane_row_geom(8)[1]
     for name, K, O, f32 in Q8_SHAPES:
         units = -(-(K // E) // 4)
+        dec_plans = set()
         for B in range(1, 257):
             plan = qm.q8_0_bf16_plan(B, K, O, f32, sms)
             ks = plan.ksplit
             if B <= 16:
-                assert plan.rows == 16 and plan.grid == (-(-O // 128), ks, 1), (B, plan)
-                assert ks == qm._ksplit_for(O, B, K // 32, sms), (B, plan)
-                assert (plan.cluster, plan.cols, plan.stages) == (1, 128, 0), (B, plan)
-                assert plan.ws_bytes == carve_row_major(B, K, O, 0, 0, ks), (B, plan)
+                check_plane_dec_plan(B, K, O, 8, 32, sms, plan, 4 if f32 else 2, zs=False)
+                dec_plans.add(plan)
                 continue
             check_rows_grid(B, O, sms, plan)
             per_split = -(-units // ks)
@@ -530,6 +617,29 @@ def test_q8_0_bf16_plan(sms):
             bpad, pieces, total = carve(B, K, O, 0, 0, ks, plan.rows)
             assert set(pieces) == ({"part"} if ks > 1 else set()), (B, plan)
             assert plan.ws_bytes == total, (B, plan)
+        assert len(dec_plans) == 1, (name, dec_plans)
+
+
+def test_k8_k10_decode_plans_at_the_main_path_shapes():
+    """At 16 rows on 132 SMs: the grids, column widths and ring stages the
+    card runs (K8's v in 16 column tiles of 64 with clusters of 8, down and
+    q|k in clusters of 8 of 128 columns, gate|up and the lm_head unsplit;
+    K10's Q2_K as K8's 8-bit shapes of the same width; 7 stages at 64
+    columns, 4 at 128 but for 4 bits (6) and 1 bit (3))."""
+    want = {("v", True): ((8, 16, 1), 64, 7), ("down", True): ((8, 32, 1), 128, 4),
+            ("qk", True): ((8, 40, 1), 128, 4), ("gate|up", True): ((1, 224, 1), 128, 4),
+            ("lm_head", True): ((1, 256, 1), 128, 4), ("lm_head", False): ((1, 256, 1), 128, 4)}
+    shapes = {"v": (4096, 1024), "down": (14336, 4096), "qk": (4096, 5120),
+              "gate|up": (4096, 28672), "lm_head": (4096, 32768)}
+    for (name, f32), (grid, cols, stages) in want.items():
+        plan = qm.q8_0_bf16_plan(16, *shapes[name], f32, 132)
+        assert (plan.grid, plan.cols, plan.stages) == (grid, cols, stages), (name, plan)
+    want = {(2, 16, 4096, 5120): ((8, 40, 1), 4), (2, 16, 4096, 28672): ((1, 224, 1), 4),
+            (8, 128, 14336, 4096): ((8, 32, 1), 4), (8, 14336, 14336, 4096): ((8, 32, 1), 4),
+            (4, 16, 4096, 28672): ((1, 224, 1), 6), (1, 64, 4096, 28672): ((1, 224, 1), 3)}
+    for (bits, group, K, O), (grid, stages) in want.items():
+        plan = qm.plane_gemv_plan(16, K, O, bits, group, 132)
+        assert (plan.grid, plan.cols, plan.stages) == (grid, 128, stages), (bits, group, plan)
 
 
 def test_k5_k8_rows_plans_at_the_main_path_shapes():
@@ -571,11 +681,13 @@ def test_plane_stage_counts_the_scale_width():
 
 def test_k5_k8_take_their_plans_and_the_64_row_tiles_are_gone():
     """Nothing sizes the 16-row design's 64-row tiles any more, and each
-    wrapper names both of its instantiations."""
+    wrapper names both of its instantiations (K5: the 16-row one; K8: the
+    decode one, plane_dec_kernel)."""
     assert not hasattr(qm, "_plane_rows")
-    for fn in (qm.q4k_bf16_gemv, qm.q8_0_bf16_gemv):
+    for fn, small in ((qm.q4k_bf16_gemv, "16-row instantiation"),
+                      (qm.q8_0_bf16_gemv, "decode instantiation (plane_dec_kernel")):
         doc = " ".join(fn.__doc__.split())
-        assert "16-row instantiation" in doc and "rows instantiation" in doc, fn
+        assert small in doc and "rows instantiation" in doc, fn
         assert "plane_rows_kernel" in doc, fn
     assert qm.q4k_bf16_plan(16, 4096, 28672, 132).rows == 16
     assert qm.q4k_bf16_plan(17, 4096, 28672, 132).rows == 64

@@ -26,7 +26,9 @@ non-zero and never prints the final line):
    for K3 also the time of the int8 GEMV (K2) on the same weight
    requantized to int8 per 32 (rq8); the plane-affine GEMV K10 at 1, 4 and
    16 rows in every layout, and K8 at 1, 4 and 16 at v, q|k, gate|up, down
-   and the lm_head, with the kernels the card runs a call at 16 (one each).
+   and the lm_head, with the kernels the card runs a call at 16 (one each);
+   K9 at 1, 4 and 16 rows (two a call at 16) and K5 at q|k, o, gate|up and
+   down at 1, 4 and 16 (one a call at 16).
    K1, K2 and K9 also at 64, 128 and 256 rows (K9 at 17 too), K10 at 64 and
    256 in every layout, K4 (the Q6_K bf16 GEMV) at 17, 64, 128 and 256: the
    rows instantiations.
@@ -50,7 +52,7 @@ non-zero and never prints the final line):
    phase's pattern through Engine/TextPipeline: 4 x 256-row first chunks
    (q5k_dequant / q6k_dequant + torch.matmul, flash prefill), 4 x 64-row
    chunks (the rows instantiations of K9 and K4), decode at batch 16 (K9's
-   16-row kernel and K3). It raises unless K3, K4's rows instantiation,
+   decode instantiation and K3). It raises unless K3, K4's rows instantiation,
    both instantiations of K9 and both dequant kernels launched and K1 and
    K2 did not.
 7. q2k: the 32-layer Mistral-7B in llama.cpp's Q2_K mix (Q2_K q, k, gate,
@@ -130,8 +132,9 @@ non-zero and never prints the final line):
    rule (K5, K9b, K8), each loaded by load_gguf_model on each side; and,
    as a control, the same files with int8 activations (K1, K9, K2).
 The kernel phase also holds K5, K9b and K8 against their plain versions at
-the gguf_bf16 path's shapes (gate|up at 1, 16, 17, 64, 128 and 256 rows;
-q|k, o, down; K5's and K8's rows instantiations at 17, 64 and 256 rows;
+the gguf_bf16 path's shapes (K9b at gate|up at 1, 16, 17, 64, 128 and 256
+rows; q|k, o, down; K5 at all four at 1, 4 and 16 rows; K5's and K8's rows
+instantiations at 17, 64 and 256 rows;
 K8 also at v and the lm_head on rq8 and wire Q8_0 scales, its decode
 instantiation at 1, 4 and 16 rows), K12 against its plain
 version (decode at Mistral-7B's and Gemma-2-9B's widths, 4 x 512 continuation chunks, a mixed
@@ -195,6 +198,8 @@ KERNEL_INFO = {
     # K4's and K9b's rows instantiations (17-256 rows), counted apart
     "q6k_bf16_gemv_rows": ("mistralrs_tpu_torch/csrc/q6k_gemv.cu",
                            "mistralrs_tpu/ops/quant_matmul.py:896"),
+    # K9's decode instantiation (1-16 rows): q5k_q8_dec_kernel, two launches
+    # a call (the quantize kernel, then the GEMV)
     "q5k_q8_gemv": ("mistralrs_tpu_torch/csrc/q5k_q8_gemv.cu",
                     "mistralrs_tpu/ops/quant_matmul.py:757"),
     # K9's and K10's rows instantiations (17-256 rows), counted apart
@@ -204,7 +209,7 @@ KERNEL_INFO = {
                     "mistralrs_tpu/quant/gguf_linear.py:469"),
     "q5k_dequant": ("mistralrs_tpu_torch/csrc/q5k_q8_gemv.cu",
                     "mistralrs_tpu/quant/gguf_linear.py:498"),
-    # K10's and K8's decode instantiations (1-16 rows): one template,
+    # K10's, K8's and K5's decode instantiations (1-16 rows): one template,
     # plane_dec_kernel (csrc/plane_gemv.cuh), one launch a call
     "affine_gemv": ("mistralrs_tpu_torch/csrc/affine_gemv.cu",
                     "mistralrs_tpu/ops/quant_matmul.py:533"),
@@ -958,6 +963,7 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
     q56k_kernels(sz, device, clock, *inputs("q56k"), record)
     affine_kernels(sz, device, clock, *inputs("affine"), record)
     bf16_kernels(sz, device, clock, *inputs("bf16"), record)
+    k5_kernels(sz, device, clock, *inputs("k5"), record)
     bf16_rows_kernels(sz, device, clock, inputs("k5_rows"), inputs("k8_rows"), record)
 
     # K6: first prefill chunks
@@ -993,10 +999,12 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
     return results
 
 
-# the row counts K9, K4 and K9b are timed at: the 16-row kernel at 16 and 1,
-# the rows instantiation at 17, 64, 128 and 256; K3 at its decode row
-# counts, K4 at those and its rows ones
-K9_ROWS = (16, 1, 17, 64, 128, 256)
+# the row counts K9, K4 and K9b are timed at: K9's decode instantiation at
+# 16, 4 and 1 (K9b's 16-row kernel at 16 and 1), the rows instantiation at
+# 17, 64, 128 and 256; K3 at its decode row counts, K4 at those and its rows
+# ones
+K9_ROWS = (16, 4, 1, 17, 64, 128, 256)
+K9B_ROWS = (16, 1, 17, 64, 128, 256)
 K3_ROWS = (16, 4, 1)
 K4_ROWS = (16, 4, 1, 17, 64, 128, 256)
 
@@ -1020,9 +1028,10 @@ def q56k_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
     weights, bench.py's value ranges). library = torch.matmul on the
     dequantized bf16 weight.
     Each K3 row also times K2 on the same weight requantized to int8 per 32
-    (rq8, the layout the Q4_K_M path serves Q6_K in). At 16 rows K3's and
-    K4's rows carry the kernels the card runs a call (a torch.profiler
-    trace): more than two for K3 or one for K4 (a split-K pass) raises."""
+    (rq8, the layout the Q4_K_M path serves Q6_K in). At 16 rows K3's, K4's
+    and K9's rows carry the kernels the card runs a call (a torch.profiler
+    trace): more than two for K3 and K9 or one for K4 (a split-K pass)
+    raises."""
     import torch
 
     from mistralrs_tpu_torch.ops import quant_matmul as qm
@@ -1111,11 +1120,14 @@ def q56k_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
             err, rel = compare(qm.q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=torch.float32),
                                qm.q5k_q8_gemv_plain(x, qs, qh, scale, minv, torch.float32))
             nbytes = B * K * 2 + w_bytes + B * O * 2
+            per_call = q6k_kernels_a_call(
+                "q5k_q8_gemv", 2, B, lambda: qm.q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=fdt))
             # exact int dots over the 5-bit codes on both sides
             record("q5k_q8_gemv" if B <= 16 else "q5k_q8_gemv_rows", f"{nm} B={B}", err, rel, 1e-5,
                    clock.ms(lambda: qm.q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=fdt)),
                    clock.ms(lambda: qm.q5k_q8_gemv_plain(x, qs, qh, scale, minv, fdt)),
-                   clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_INT8))
+                   clock.ms(lambda: torch.matmul(x, w)), bound(nbytes, 2 * B * K * O, PEAK_INT8),
+                   **per_call)
         del w, qs, qh, scale, minv
 
 
@@ -1183,12 +1195,11 @@ def affine_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
 
 
 def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
-    """Parity and timing of K5's 16-row instantiation, K8's decode
-    instantiation and K9b (both instantiations), the GEMVs of
-    int8_activations=False, at the shapes of the gguf_bf16 path: K5 at
-    gate|up at 1 and 16 rows, q|k and down at 16; K9b at gate|up at 1, 16,
-    17, 64, 128 and 256 rows, at q|k and down at 16, 17, 64 and 256 and at o
-    at 17, 64 and 256 (the rows instantiation's K splits: one at gate|up,
+    """Parity and timing of K8's decode instantiation and K9b (both
+    instantiations), GEMVs of int8_activations=False, at the shapes of the
+    gguf_bf16 path (K5's decode instantiation: k5_kernels): K9b at gate|up
+    at 1, 16, 17, 64, 128 and 256 rows, at q|k and down at 16, 17, 64 and
+    256 and at o at 17, 64 and 256 (the rows instantiation's K splits: one at gate|up,
     several at the others; `splits` on each row, and the phase raises unless
     both were compared); K8 on rq8 weights (f32 scales per 32) at v, q|k,
     gate|up, down and the lm_head (32768 columns), and on wire Q8_0 (bf16
@@ -1213,36 +1224,22 @@ def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
         return err, err / max(float(want.float().abs().max()), 1e-30)
 
     sms = kernels.sm_count(device)
-    # (shape, K, O, K5's rows, K9b's rows)
-    shapes = [("gate|up", H, 2 * I, (1, 16), K9_ROWS),
-              ("qk", H, (sz.heads + sz.kv_heads) * D, (16,), (16, 17, 64, 256)),
-              ("o", sz.heads * D, H, (), (17, 64, 256)),
-              ("down", I, H, (16,), (16, 17, 64, 256))]
+    # (shape, K, O, K9b's rows)
+    shapes = [("gate|up", H, 2 * I, K9B_ROWS),
+              ("qk", H, (sz.heads + sz.kv_heads) * D, (16, 17, 64, 256)),
+              ("o", sz.heads * D, H, (17, 64, 256)),
+              ("down", I, H, (16, 17, 64, 256))]
     splits = set()  # K splits of the rows instantiation compared
-    for nm, K, O, k5_rows, k9b_rows in shapes:
+    for nm, K, O, k9b_rows in shapes:
         qs = rand(K // 2, O, lo=0.0, hi=256.0).to(torch.uint8)
         qh = rand(K // 8, O, lo=0.0, hi=256.0).to(torch.uint8)
         scale = rand(K // 32, O, lo=0.001, hi=0.005, dtype=fdt)
         minv = rand(K // 32, O, lo=0.0, hi=0.002, dtype=fdt)
-        w4 = qm.q4k_dequant(qs, scale, minv, fdt)
         wh = qm.affine_dequant(qh, scale, torch.zeros_like(scale), 1, 32, fdt)
         q5 = Linear("gguf_q5k", (K, O), {"qs": qs, "qh": qh, "scale": scale, "minv": minv},
                     int8_act=False)
         for B in k9b_rows:
             x = torch.randn(B, K, device=device, generator=gen).to(fdt)
-            if B in k5_rows:
-                # the same bf16 x and exact nibbles on both sides; f32 sums of
-                # bf16 products in another order, the scale on each sub-block's sum
-                err, rel = compare(qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=torch.float32),
-                                   qm.q4k_bf16_gemv_plain(x, qs, scale, minv, torch.float32))
-                record("q4k_bf16_gemv", f"{nm} B={B}", err, rel, 1e-4,
-                       clock.ms(lambda: qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=fdt)),
-                       clock.ms(lambda: qm.q4k_bf16_gemv_plain(x, qs, scale, minv, fdt)),
-                       clock.ms(lambda: torch.matmul(x, w4)),
-                       bound(B * K * 2 + K // 2 * O + 2 * (K // 32) * O * 2 + B * O * 2,
-                             2 * B * K * O, PEAK_BF16),
-                       int8_ms=clock.ms(lambda: qm.q4k_q8_gemv(x, qs, scale, minv,
-                                                               out_dtype=fdt)))
             # the same bf16(scale) * bit weights on both sides (exact)
             err, rel = compare(qm.q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=torch.float32),
                                qm.q5k_hbit_bf16_gemv_plain(x, qh, scale, torch.float32))
@@ -1259,7 +1256,7 @@ def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
                    splits=ks, route_ms=clock.ms(lambda: qm.q5k_matmul(q5, x)),
                    int8_ms=clock.ms(lambda: qm.q5k_q8_gemv(x, qs, qh, scale, minv,
                                                            out_dtype=fdt)))
-        del qs, qh, scale, minv, w4, wh, q5
+        del qs, qh, scale, minv, wh, q5
     if not (1 in splits and max(splits) > 1):
         raise AssertionError(f"q5k_hbit_bf16_gemv_rows: compared at K splits {sorted(splits)}, "
                              "not at one and at several")
@@ -1291,6 +1288,46 @@ def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
                    int8_ms=clock.ms(lambda: qm.q8_0_q8_gemv(x, q, s, 32, out_dtype=fdt)),
                    **per_call)
         del q, s, w8
+
+
+def k5_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
+    """Parity and timing of K5's decode instantiation (q4k_bf16_gemv at 1-16
+    rows: plane_dec_kernel with Q4kFmt, one launch a call) at every Q5_K /
+    Q4_K projection of the gguf_bf16 path (q|k, o, gate|up, down), at 1, 4
+    and 16 rows, at 16 with the kernels the card runs a call (more than
+    one, a sums kernel or a split-K pass, raises). Random codes, scale
+    U[0.001, 0.005), minv U[0, 0.002). library = torch.matmul on the
+    dequantized bf16 weight; int8_ms = K1 on the same weight and x."""
+    import torch
+
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+
+    H, I, D = sz.hidden, sz.inter, sz.head_dim
+    fdt = torch.bfloat16
+    for nm, K, O in [("qk", H, (sz.heads + sz.kv_heads) * D), ("o", sz.heads * D, H),
+                     ("gate|up", H, 2 * I), ("down", I, H)]:
+        qs = rand(K // 2, O, lo=0.0, hi=256.0).to(torch.uint8)
+        scale = rand(K // 32, O, lo=0.001, hi=0.005, dtype=fdt)
+        minv = rand(K // 32, O, lo=0.0, hi=0.002, dtype=fdt)
+        w4 = qm.q4k_dequant(qs, scale, minv, fdt)
+        for B in (1, 4, 16):
+            x = torch.randn(B, K, device=device, generator=gen).to(fdt)
+            got = qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=torch.float32)
+            want = qm.q4k_bf16_gemv_plain(x, qs, scale, minv, torch.float32)
+            err = float((got - want).abs().max())
+            per_call = q6k_kernels_a_call("q4k_bf16_gemv", 1, B,
+                                          lambda: qm.q4k_bf16_gemv(x, qs, scale, minv))
+            # the same bf16 x and exact nibbles on both sides; f32 sums of
+            # bf16 products in another order, the scale on each sub-block's sum
+            record("q4k_bf16_gemv", f"{nm} B={B}", err, err / max(float(want.abs().max()), 1e-30),
+                   1e-4, clock.ms(lambda: qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=fdt)),
+                   clock.ms(lambda: qm.q4k_bf16_gemv_plain(x, qs, scale, minv, fdt)),
+                   clock.ms(lambda: torch.matmul(x, w4)),
+                   bound(B * K * 2 + K // 2 * O + 2 * (K // 32) * O * 2 + B * O * 2,
+                         2 * B * K * O, PEAK_BF16),
+                   int8_ms=clock.ms(lambda: qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=fdt)),
+                   **per_call)
+        del qs, scale, minv, w4
 
 
 # the row counts K5's and K8's rows instantiations are compared and timed at
@@ -2018,7 +2055,7 @@ def gguf_bf16_phase(sz: Sizes, device) -> dict:
     use_more_bits ffn_down, the lm_head) up to 256 rows, the Q5_K and int8
     dequant kernels above, K6 for the first chunks. It raises unless K5,
     K9b and K8 (their rows instantiations on the 4 x 64-row step, their
-    16-row ones at decode) and K6 launched and no int8 GEMV did. The line gives the
+    decode and 16-row ones at decode) and K6 launched and no int8 GEMV did. The line gives the
     write, read (the header), load (load_gguf_model) and pack (the load
     but its header read: the layers packed and copied to the card in
     load_gguf_model's threads, the embedding dequantized beside them) times,

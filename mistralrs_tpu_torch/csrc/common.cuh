@@ -49,8 +49,8 @@ __device__ __forceinline__ void transpose4(uint32_t& a0, uint32_t& a1, uint32_t&
   a3 = __byte_perm(t2, t3, 0x7632);
 }
 
-// ---- tensor-core GEMV building blocks (the 16-row kernels of K5, K9 and
-// K9b; the mma wrappers also K1-K4, K8, K10 and K13) ----
+// ---- tensor-core GEMV building blocks (K9b's 16-row kernel; the mma
+// wrappers also K1-K5, K8-K10 and K13) ----
 //
 // A block owns 128 output columns (4 warps x 32) and a 16-row tile of x. The
 // weight bytes of one K step (32 rows x 128 columns) are staged in shared
@@ -111,41 +111,6 @@ __device__ __forceinline__ void b_frags(const uint8_t* tile, int k0, int warp, i
   }
   transpose4(b0[0], b0[1], b0[2], b0[3]);
   transpose4(b1[0], b1[1], b1[2], b1[3]);
-}
-
-// A fragment of mma.m16n8k32 (16 x 32 int8, row-major) from a staged x tile
-// (16 rows of `stride` bytes): rows lane/4 and lane/4 + 8, bytes k0 + 4t..
-// and k0 + 16 + 4t.. (t = lane%4).
-__device__ __forceinline__ void a_frag(const int8_t* xt, int stride, int k0, int lane,
-                                       uint32_t a[4]) {
-  const int g = lane >> 2, t = lane & 3;
-  const int8_t* p0 = xt + g * stride + k0 + 4 * t;
-  const int8_t* p1 = p0 + 8 * stride;
-  a[0] = *reinterpret_cast<const uint32_t*>(p0);
-  a[1] = *reinterpret_cast<const uint32_t*>(p1);
-  a[2] = *reinterpret_cast<const uint32_t*>(p0 + 16);
-  a[3] = *reinterpret_cast<const uint32_t*>(p1 + 16);
-}
-
-// Stage `chunks` 16-byte chunks of each of x's rows row0..row0+15 into a
-// tile of `stride`-byte rows: chunk c of row r comes from
-// xq + (row0 + r) * K + col(c); rows past B are zero-filled. Uses threads
-// [first, first + 16 * chunks) of the block.
-template <typename ColFn>
-__device__ __forceinline__ void stage_x(int8_t* xt, int stride, const int8_t* xq, int B, int K,
-                                        int row0, int chunks, int first, ColFn col) {
-  const int i = (int)threadIdx.x - first;
-  if (i < 0 || i >= 16 * chunks) return;
-  const int r = i / chunks, c = i % chunks;
-  const bool ok = row0 + r < B;
-  cp_async16(xt + r * stride + 16 * c, ok ? xq + (size_t)(row0 + r) * K + col(c) : xq, ok);
-}
-
-// Stage 16 floats v[row0 .. row0+15] of a transposed [*, Bpad] activation
-// scale array (4 chunks) with threads [first, first + 4).
-__device__ __forceinline__ void stage_rows16(float* dst, const float* v, int first) {
-  const int c = (int)threadIdx.x - first;
-  if (c >= 0 && c < 4) cp_async16(dst + 4 * c, v + 4 * c, true);
 }
 
 // d += A (16x32 s8, row) * B (32x8 s8, col), int32 (exact)
@@ -828,22 +793,24 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 // Activation quantization per GS-element block, one warp per block:
 //   xs = max(max|x_block|, 1e-10) * (1/127)   (f32 multiply, not a divide)
 //   xq = clip(rint(x / xs), -127, 127)        (IEEE divide, round half to even)
-// (skipped when xq is null: K5 only takes sums), and, when xsum32 / xsum16
-// are given, the f32 sums of every 32 / 16 original values. The plain
-// PyTorch version (ops/quant_matmul._quantize_acts_q8_gs) does the same f32
-// operations, so xq and xs agree bit for bit; only the sums' order differs.
-// xq is [B, K]; xs, xsum32 and xsum16 are written transposed, [K/GS][bpad],
-// [K/32][bpad] and [K/16][bpad] (bpad = B rounded up to 16), so a GEMV
-// block can stage the values of its 16 rows as 16-byte chunks.
+// and, when xsum32 / xsum16 are given, the f32 sums of every 32 / 16
+// original values. The plain PyTorch version
+// (ops/quant_matmul._quantize_acts_q8_gs) does the same f32 operations, so
+// xq and xs agree bit for bit; only the sums' order differs.
+// xs, xsum32 and xsum16 are written transposed, [K/GS][bpad], [K/32][bpad]
+// and [K/16][bpad], so a GEMV block can copy the values of its rows as one
+// piece.
 //
-// The layout of xq (XLayout): row-major [B, K] (K9); `kTiled` (the rows
-// instantiations of K1 and K2): bpad is B rounded up to the block's row
-// tile (64 or 128), the rows B..bpad-1 are quantized as zeros, and xq is
+// The layout of xq (XLayout): `kTiled` (the rows instantiations of K1, K2
+// and K9): bpad is B rounded up to the block's row tile (64 or 128), the
+// rows B..bpad-1 are quantized as zeros, and xq is
 // written in the int8 wgmma A layout of tiled_off, so one bulk copy brings
 // a 32-element slice of a row tile into shared memory ready for the tensor
-// cores; `kDecode` (the decode instantiations of K1, K2 and K3): bpad is 16,
-// rows B..15 are zeros, and each 32-element slice of the 16 rows is 512
-// contiguous bytes (decode_off), read as mma B fragments.
+// cores; `kDecode` (the decode instantiations of K1, K2, K3 and K9): bpad is
+// 16, rows B..15 are zeros, and each 32-element slice of the 16 rows is 512
+// contiguous bytes (decode_off), read as mma B fragments. (`kRowMajor` is no
+// layout of xq: it names carve's workspace of K9b's 16-row kernel, the
+// split-K partials alone.)
 enum XLayout { kRowMajor = 0, kTiled = 1, kDecode = 2 };
 
 __host__ __device__ __forceinline__ size_t tiled_off(int b, int k, int bpad) {
@@ -877,18 +844,14 @@ __global__ void quantize_acts_kernel(const XT* __restrict__ x, int8_t* __restric
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  if (xq != nullptr) {
-    const float s = fmaxf(amax, 1e-10f) * (1.0f / 127.0f);
+  const float s = fmaxf(amax, 1e-10f) * (1.0f / 127.0f);
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const float q = fminf(fmaxf(rintf(v[e] / s), -127.f), 127.f);
-      const int k = kb * GS + e * 32 + lane;
-      xq[layout == kTiled    ? tiled_off(b, k, bpad)
-         : layout == kDecode ? decode_off(b, k)
-                             : (size_t)g * GS + e * 32 + lane] = (int8_t)(int)q;
-    }
-    if (lane == 0) xs[(size_t)kb * bpad + b] = s;
+  for (int e = 0; e < E; ++e) {
+    const float q = fminf(fmaxf(rintf(v[e] / s), -127.f), 127.f);
+    const int k = kb * GS + e * 32 + lane;
+    xq[layout == kTiled ? tiled_off(b, k, bpad) : decode_off(b, k)] = (int8_t)(int)q;
   }
+  if (lane == 0) xs[(size_t)kb * bpad + b] = s;
   if (xsum32 != nullptr) {
 #pragma unroll
     for (int e = 0; e < E; ++e) {
@@ -909,13 +872,13 @@ __global__ void quantize_acts_kernel(const XT* __restrict__ x, int8_t* __restric
   }
 }
 
-// Quantize x [B, K]; tiled and decode layouts over all bpad rows.
+// Quantize x [B, K] into the tiled or decode layout, over all bpad rows.
 template <int GS>
 inline void launch_quantize(const void* x, bool x_is_bf16, int8_t* xq, float* xs, float* xsum32,
                             float* xsum16, int B, int K, int bpad, cudaStream_t st,
-                            XLayout layout = kRowMajor) {
+                            XLayout layout) {
   const int warps = 8;
-  const long long nblocks = (long long)(layout == kRowMajor ? B : bpad) * (K / GS);
+  const long long nblocks = (long long)bpad * (K / GS);
   const unsigned grid = (unsigned)((nblocks + warps - 1) / warps);
   if (x_is_bf16)
     quantize_acts_kernel<__nv_bfloat16, GS><<<grid, 32 * warps, 0, st>>>(
@@ -930,19 +893,19 @@ inline void launch_quantize(const void* x, bool x_is_bf16, int8_t* xq, float* xs
 // each piece 256-byte aligned (ops/quant_matmul._workspace_bytes mirrors it).
 inline size_t align256(size_t n) { return (n + 255) & ~size_t(255); }
 
-// With the row-major layout (K9 and the 16-row GEMVs without xq) bpad is B
+// With the row-major layout (K9b's 16-row GEMV, without xq) bpad is B
 // rounded up to 16 and the split-K partials are always there. With kTiled
-// (the rows instantiations of K1 and K2; `rows` is their row tile): bpad is
-// B rounded up to the row tile, so a block's bulk copies of x's codes,
+// (the rows instantiations of K1, K2 and K9; `rows` is their row tile):
+// bpad is B rounded up to the row tile, so a block's bulk copies of x's codes,
 // scales and sums stay inside their pieces; xq holds all bpad rows; the
 // partials are there only when ksplit > 1 (with one split the GEMV writes
-// out itself). With kDecode (the decode instantiations of K1, K2, K3): bpad
-// is 16, xq holds 16 rows, and there are no partials (the K splits of a
+// out itself). With kDecode (the decode instantiations of K1, K2, K3, K9):
+// bpad is 16, xq holds 16 rows, and there are no partials (the K splits of a
 // column tile add theirs in the cluster's shared memory).
 // With xcopy (K10's rows instantiation, tiled) a bf16 copy of x [bpad, K]
 // in the GEMV's step order follows xsum.
 struct Workspace {
-  int8_t* xq;   // [B, K] ([bpad, K] tiled or decode), nullptr when gs is 0
+  int8_t* xq;   // [bpad, K] (tiled or decode), nullptr when gs is 0
   float* xs;    // [K/gs, bpad], nullptr when gs is 0
   float* xsum;  // [K/sum_gs, bpad], nullptr when sum_gs is 0
   __nv_bfloat16* xc;  // [bpad, K], nullptr without xcopy
@@ -962,7 +925,7 @@ inline Workspace carve(void* ws, int B, int K, int O, int gs, int sum_gs, int ks
   w.xs = nullptr;
   if (gs) {
     w.xq = reinterpret_cast<int8_t*>(p + off);
-    off += align256((size_t)(layout == kRowMajor ? B : w.bpad) * K);
+    off += align256((size_t)w.bpad * K);
     w.xs = reinterpret_cast<float*>(p + off);
     off += align256((size_t)(K / gs) * w.bpad * 4);
   }
@@ -1044,7 +1007,7 @@ inline int launch_ring(Kern* kern, int smem, const Workspace& w, void* out, int 
   return finish_gemv(w, out, out_is_bf16, ksplit, n_out, st);
 }
 
-// ---- The decode instantiations of K1, K2, K3, K4, K8 and K10 (1-16 rows) ----
+// ---- The decode instantiations of K1-K5 and K8-K10 (1-16 rows) ----
 //
 // A block owns `C` = 128 or 64 columns of out and all 16 rows of the row
 // tile, and one K split of the call; the K splits of a column tile are one
@@ -1052,13 +1015,15 @@ inline int launch_ring(Kern* kern, int smem, const Workspace& w, void* out, int 
 // at most 8), which adds their f32 tiles in its distributed shared memory.
 // A ring stage holds kDecSub K steps (64 byte rows of codes: 2 sub-block
 // pairs of K1, 64/gs scale groups of K2; K3's and K4's, csrc/q6k_gemv.cu,
-// one 14 KB step of Q6_K; K8's and K10's, csrc/plane_gemv.cuh, one step of
-// 64 or 32 byte rows and their scale rows). Two producer warps (the block's
-// last two) fill it, each on its own arrival at the stage's `full`
-// barrier: one with TMA boxes of the weights, at most half the ring
-// ahead of what has landed (so every block's first stages land first and
-// its consumers start while the rest streams), one with bulk copies of
-// x's codes and scales, once the quantize kernel launched just before has
+// one 14 KB step of Q6_K; K5's, K8's and K10's, csrc/plane_gemv.cuh, one
+// step of 64 or 32 byte rows and their scale rows; K9's, csrc/q5k_q8_gemv.cu,
+// one 24 KB step of 32 qh rows and the 4 qs blocks whose high bits they
+// hold). Two producer warps (the block's last two) fill it, each on its
+// own arrival at the stage's `full` barrier: one with TMA boxes of the
+// weights, at most half the ring ahead of what has landed (so every
+// block's first stages land first and its consumers start while the rest
+// streams), one with bulk copies (K9: TMA boxes) of x's codes and scales,
+// once the quantize kernel launched just before has
 // finished (the GEMV is launched behind it by programmatic dependent
 // launch, so the launch and the first weight stages overlap its end).
 // C / 32 consumer warps run the stage's int8 mma.sync and its scaling into

@@ -15,28 +15,36 @@
 // is JAX's K1 dot plus 16 x its high-bit dot, exactly (|sum| <= 32*127*31).
 //
 // Layouts (row-major): x [B,K] bf16 or f32, qs [K/2,O] u8, qh [K/8,O] u8,
-// scale/minv [K/32,O] bf16, out [B,O] bf16 or f32; in the workspace xq
-// [B,K] int8, xs/xsum [K/32][bpad] f32, part [ksplit,B,O] f32.
+// scale/minv [K/32,O] bf16, out [B,O] bf16 or f32; in the workspace x's
+// codes, scales and sums as common.cuh's carve lays them out for the
+// instantiation.
 //
 // What bounds it on an H100: at decode the weight stream, 0.75 bytes per
 // weight (qs 0.5, qh 0.125, two bf16 planes per 32), against 3.35 TB/s.
-// Design for that (q5k_q8_mma_kernel, up to 16 rows):
-// - the K loop runs over blocks of 32 qh rows: rows [32r, 32r+32) of qh hold
-//   the high bits of the 8 sub-blocks j*K/256 + r (j = 0..7), whose nibbles
-//   are the low (j < 4) and high (j >= 4) halves of the 4 qs row blocks
-//   m*K/8 + 32r (m = j mod 4). One step stages those 4 + 1 row blocks (20
-//   KB for 128 columns), the 8 sub-blocks' scale and minv rows and x's codes,
-//   scales and sums for them, so every weight byte is read once; a 3-deep
-//   ring of steps in dynamic shared memory, filled by 16-byte cp.async;
-// - a warp transposes its 32 columns into mma B fragments as K1 does, ORs
-//   each plane's bit into bit 4 of the nibble bytes (a shift and a mask a
-//   register), and runs one int8 mma.m16n8k32 per sub-block and n-tile:
-//   exact int32 dots, scaled into f32 accumulators with xs*scale and the
-//   min term xsum*minv;
-// - the K axis is split over blockIdx.y (a split keeps a step's four qs
-//   blocks together); common.cuh's pass adds the partials in a fixed order.
-// Not done yet at 1-16 rows (later work): TMA/wgmma, fusing the split-K
-// pass.
+// Design for that (q5k_q8_dec_kernel, 1-16 rows): K1's decode kernel
+// (csrc/q4k_q8_gemv.cu) with a fifth bit, on common.cuh's decode section:
+// - a call is two launches: the quantize kernel (the decode layout), then
+//   the GEMV by programmatic dependent launch;
+// - a block owns C = 128 (or 64) columns and one K split; the K splits of
+//   a column tile form a cluster and add their f32 tiles in distributed
+//   shared memory in rank order (no partials in global memory);
+// - a K step must read qh once: qh rows [32r, 32r+32) hold the high bits
+//   of the 8 sub-blocks j*K/256 + r (j = 0..7), whose nibbles are the low
+//   (j < 4) and high (j >= 4) halves of the 4 qs row blocks m*K/8 + 32r
+//   (m = j mod 4). So a step (a ring stage) is those 32 rows: qs seen as
+//   [4][K/8][O] in one 3-D box of 4 x 32 rows, qh's 32 rows, scale and
+//   minv seen as [8][K/256][O] in one box each (24 KB of weights at C =
+//   128), brought by one producer warp at most half the ring ahead of what
+//   has landed; x's codes, scales and sums of the 8 sub-blocks, strided in
+//   the decode layout, come by three boxes of those arrays seen as
+//   [8][K/256][...] from the other producer warp;
+// - the weight is the mma's A operand and x the B operand (one n-tile up
+//   to 8 rows, two up to 16): a consumer warp's 32 columns of each staged
+//   32-row block are transposed into A fragments (w_frags), each plane's
+//   bit ORed into bit 4 of the nibble bytes (the 5-bit codes, 0..31), and
+//   u8 x s8 mma.m16n8k32 gives exact int32 dots per (row, column,
+//   sub-block); K1's epilogue: exact_f32, xs * scale and the min term
+//   xsum * minv as FFMAs, no I2F.
 //
 // At 17-256 rows the bound is K1's rows instantiation's, the scaling
 // epilogue (issue slots: per row, column and sub-block a conversion, the
@@ -51,17 +59,24 @@
 
 namespace {
 
-constexpr int kStages = 3;
-constexpr int kXStride = 272;  // bytes per staged x row (256 used; 272 spreads the banks)
-
-struct Stage {
-  uint8_t qh[32 * mrt::kGemvCols];     // qh rows 32r.., swizzled
-  uint8_t qs[4][32 * mrt::kGemvCols];  // qs rows m*K/8 + 32r.., swizzled
-  __nv_bfloat16 sc[8][mrt::kGemvCols];  // scale of sub-block j*K/256 + r
-  __nv_bfloat16 mn[8][mrt::kGemvCols];  // minv of the same
-  int8_t x[16 * kXStride];              // x's 16 rows: 32 codes of each sub-block
-  float xv[16][16];                     // xs of sub-blocks 0..7, then their xsum
+// a ring stage of the decode kernel: the K step of qh rows 32r.. for C columns
+template <int C>
+struct alignas(C == 128 ? 1024 : 128) Q5DecStage {
+  uint8_t qs[4][32 * C];                       // qs rows m*K/8 + 32r.. (swizzled at C = 128)
+  uint8_t qh[32 * C];                          // qh rows 32r..
+  __nv_bfloat16 sc[8][C];                      // scale of sub-block j*K/256 + r
+  __nv_bfloat16 mn[8][C];                      // minv of the same
+  int8_t x[8][mrt::kDecRows * 32];             // x's codes of the same (decode layout)
+  float xs[8][mrt::kDecRows];                  // x's scales
+  float xsum[8][mrt::kDecRows];                // x's block sums
 };
+template <int C>
+constexpr int kQ5DecWeightBytes = 32 * C * 5 + 16 * C * 2;
+template <int C>
+constexpr int kQ5DecStages = mrt::dec_stages(kQ5DecWeightBytes<C>);
+template <int C>
+using Q5DecRing = mrt::DecRing<Q5DecStage<C>, kQ5DecStages<C>, C / 32>;
+constexpr uint32_t kQ5DecXBytes = 8 * (512 + 2 * 64);
 
 // the high bit of plane J moved to bit 4 of each byte
 template <int J>
@@ -72,113 +87,194 @@ __device__ __forceinline__ uint32_t hbit4(uint32_t h) {
     return (h >> (J - 4)) & 0x10101010u;
 }
 
-template <int J>
-__device__ __forceinline__ void sub_block(const Stage& S, int warp, int lane, const uint32_t (&q0)[4],
-                                          const uint32_t (&q1)[4], const uint32_t (&h0)[4],
-                                          const uint32_t (&h1)[4], float (&acc)[4][4]) {
-  const int g = lane >> 2, t = lane & 3;
-  uint32_t a[4];
-  mrt::a_frag(S.x, kXStride, 32 * J, lane, a);
-  const int cb = warp * 32 + 8 * t;  // C columns of n-tile jj: cb + jj and cb + 4 + jj
-  float s0[4], s1[4], m0[4], m1[4];
-  mrt::lds4(&S.sc[J][cb], s0);
-  mrt::lds4(&S.sc[J][cb + 4], s1);
-  mrt::lds4(&S.mn[J][cb], m0);
-  mrt::lds4(&S.mn[J][cb + 4], m1);
-  // rows past B have zero codes and are never stored
-  const float x0 = S.xv[J][g], x1 = S.xv[J][g + 8];
-  const float xm0 = S.xv[8 + J][g], xm1 = S.xv[8 + J][g + 8];
+// Sub-block J of a step for a consumer warp: its 5-bit codes from the
+// transposed qs words w0/w1 (low nibbles for J < 4, high ones above) and qh
+// words h0/h1, u8 x s8 mma per n-tile, K1's epilogue into acc.
+template <int C, int NT, int J>
+__device__ __forceinline__ void q5_dec_sub(const Q5DecStage<C>& S, int c, int g, int t,
+                                           const uint32_t (&w0)[4], const uint32_t (&w1)[4],
+                                           const uint32_t (&h0)[4], const uint32_t (&h1)[4],
+                                           float (&acc)[NT * 8]) {
+  auto code = [](uint32_t w, uint32_t h) {
+    return (J < 4 ? w & 0x0F0F0F0Fu : (w >> 4) & 0x0F0F0F0Fu) | hbit4<J>(h);
+  };
+  float sc[4], mn[4];
+  mrt::lds4(&S.sc[J][c], sc);
+  mrt::lds4(&S.mn[J][c], mn);
+  uint32_t xb[NT][2];
+  float2 xs[NT], xm[NT];  // rows 8nt + 2t and + 1
 #pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
-    const uint32_t n0 = J < 4 ? q0[jj] & 0x0F0F0F0Fu : (q0[jj] >> 4) & 0x0F0F0F0Fu;
-    const uint32_t n1 = J < 4 ? q1[jj] & 0x0F0F0F0Fu : (q1[jj] >> 4) & 0x0F0F0F0Fu;
-    int d[4] = {0, 0, 0, 0};
-    mrt::mma_s8(d, a, n0 | hbit4<J>(h0[jj]), n1 | hbit4<J>(h1[jj]));
-    acc[jj][0] += (float)d[0] * x0 * s0[jj] - xm0 * m0[jj];
-    acc[jj][1] += (float)d[1] * x0 * s1[jj] - xm0 * m1[jj];
-    acc[jj][2] += (float)d[2] * x1 * s0[jj] - xm1 * m0[jj];
-    acc[jj][3] += (float)d[3] * x1 * s1[jj] - xm1 * m1[jj];
+  for (int nt = 0; nt < NT; ++nt) {
+    mrt::x_frag(S.x[J], 8 * nt + g, t, xb[nt]);
+    xs[nt] = *reinterpret_cast<const float2*>(&S.xs[J][8 * nt + 2 * t]);
+    xm[nt] = *reinterpret_cast<const float2*>(&S.xsum[J][8 * nt + 2 * t]);
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const uint32_t a[4] = {code(w0[2 * m], h0[2 * m]), code(w0[2 * m + 1], h0[2 * m + 1]),
+                           code(w1[2 * m], h1[2 * m]), code(w1[2 * m + 1], h1[2 * m + 1])};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      int d[4] = {0, 0, 0, 0};
+      mrt::mma_u8s8(d, a, xb[nt][0], xb[nt][1]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = (nt * 2 + m) * 4 + e, col = 2 * m + (e >> 1);
+        acc[k] = fmaf(mrt::exact_f32(d[e]), ((e & 1) ? xs[nt].y : xs[nt].x) * sc[col], acc[k]);
+        acc[k] = fmaf(-((e & 1) ? xm[nt].y : xm[nt].x), mn[col], acc[k]);
+      }
+    }
   }
 }
 
-__global__ void __launch_bounds__(mrt::kGemvThreads)
-    q5k_q8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                      const float* __restrict__ xsum, const uint8_t* __restrict__ qs,
-                      const uint8_t* __restrict__ qh, const __nv_bfloat16* __restrict__ scale,
-                      const __nv_bfloat16* __restrict__ minv, float* __restrict__ part, int B,
-                      int bpad, int K, int O, int steps_per_split) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  Stage* st = reinterpret_cast<Stage*>(smem);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int col0 = blockIdx.x * mrt::kGemvCols;
-  const int row0 = blockIdx.z * 16;
-  const int K8 = K / 8, nsub8 = K / 256;  // sub-blocks per plane
-  const int nsteps = K / 256;
-  const int r_begin = blockIdx.y * steps_per_split;
-  const int n = max(0, min(steps_per_split, nsteps - r_begin));
-
-  auto load = [&](int s, int r) {
-    mrt::stage_bytes(st[s].qh, qh, 32 * r, 32, col0, O);
+// A consumer warp over its n steps: y[nt][m][e] = the f32 sums of x row 8nt
+// + 2t + e%2 and column 32 * warp + 4g + 2m + e/2 (NT n-tiles: 1 up to 8 rows).
+template <int C, int NT>
+__device__ __forceinline__ void q5_dec_consume(const Q5DecRing<C>& ring, int n, int warp, int lane,
+                                               float (&y)[2][2][4]) {
+  const int g = lane >> 2, t = lane & 3, c = 32 * warp + 4 * g;
+  float acc[NT * 8];  // index (nt * 2 + m) * 4 + e
 #pragma unroll
-    for (int m = 0; m < 4; ++m) mrt::stage_bytes(st[s].qs[m], qs, m * K8 + 32 * r, 32, col0, O);
-    // 16 rows (scale, minv of 8 sub-blocks) of 128 bf16 = 256 chunks, two a thread
-    for (int q = threadIdx.x; q < 256; q += mrt::kGemvThreads) {
-      const int a = q >> 4, ch = q & 15, j = a & 7;
-      const __nv_bfloat16* base = a < 8 ? scale : minv;
-      __nv_bfloat16* dst = a < 8 ? &st[s].sc[j][8 * ch] : &st[s].mn[j][8 * ch];
-      const bool ok = col0 + 8 * ch < O;
-      mrt::cp_async16(dst, ok ? base + (size_t)(j * nsub8 + r) * O + col0 + 8 * ch : base, ok);
-    }
-    // x: 2 chunks of 16 codes per sub-block and row, 256 copies, two a thread
-    mrt::stage_x(st[s].x, kXStride, xq, B, K, row0, 8, 0,
-                 [&](int ch) { return (ch >> 1) * K8 + 32 * r + 16 * (ch & 1); });
-    mrt::stage_x(st[s].x + 128, kXStride, xq, B, K, row0, 8, 0,
-                 [&](int ch) { return (4 + (ch >> 1)) * K8 + 32 * r + 16 * (ch & 1); });
-    // xs and xsum of the 8 sub-blocks: 16 x 4 chunks (threads 0..63)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mrt::stage_rows16(st[s].xv[j], xs + (size_t)(j * nsub8 + r) * bpad + row0, 4 * j);
-      mrt::stage_rows16(st[s].xv[8 + j], xsum + (size_t)(j * nsub8 + r) * bpad + row0,
-                        32 + 4 * j);
-    }
-  };
-
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n) load(s, r_begin + s);
-    mrt::cp_async_commit();
-  }
+  for (int i = 0; i < NT * 8; ++i) acc[i] = 0.f;
   for (int i = 0; i < n; ++i) {
-    mrt::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const Stage& S = st[i % kStages];
-    uint32_t h0[4], h1[4], q0[4], q1[4];
-    mrt::b_frags(S.qh, 0, warp, lane, h0, h1);
-    mrt::b_frags(S.qs[0], 0, warp, lane, q0, q1);
-    sub_block<0>(S, warp, lane, q0, q1, h0, h1, acc);
-    sub_block<4>(S, warp, lane, q0, q1, h0, h1, acc);
-    mrt::b_frags(S.qs[1], 0, warp, lane, q0, q1);
-    sub_block<1>(S, warp, lane, q0, q1, h0, h1, acc);
-    sub_block<5>(S, warp, lane, q0, q1, h0, h1, acc);
-    mrt::b_frags(S.qs[2], 0, warp, lane, q0, q1);
-    sub_block<2>(S, warp, lane, q0, q1, h0, h1, acc);
-    sub_block<6>(S, warp, lane, q0, q1, h0, h1, acc);
-    mrt::b_frags(S.qs[3], 0, warp, lane, q0, q1);
-    sub_block<3>(S, warp, lane, q0, q1, h0, h1, acc);
-    sub_block<7>(S, warp, lane, q0, q1, h0, h1, acc);
-    const int next = i + kStages - 1;  // refill the stage read in the previous step
-    if (next < n) load(next % kStages, r_begin + next);
-    mrt::cp_async_commit();
+    const Q5DecStage<C>& S = ring[i];
+    ring.acquire(i);
+    uint32_t h0[4], h1[4], w0[4], w1[4];
+    mrt::w_frags<C>(S.qh, 0, c, t, h0, h1);
+    mrt::w_frags<C>(S.qs[0], 0, c, t, w0, w1);
+    q5_dec_sub<C, NT, 0>(S, c, g, t, w0, w1, h0, h1, acc);
+    q5_dec_sub<C, NT, 4>(S, c, g, t, w0, w1, h0, h1, acc);
+    mrt::w_frags<C>(S.qs[1], 0, c, t, w0, w1);
+    q5_dec_sub<C, NT, 1>(S, c, g, t, w0, w1, h0, h1, acc);
+    q5_dec_sub<C, NT, 5>(S, c, g, t, w0, w1, h0, h1, acc);
+    mrt::w_frags<C>(S.qs[2], 0, c, t, w0, w1);
+    q5_dec_sub<C, NT, 2>(S, c, g, t, w0, w1, h0, h1, acc);
+    q5_dec_sub<C, NT, 6>(S, c, g, t, w0, w1, h0, h1, acc);
+    mrt::w_frags<C>(S.qs[3], 0, c, t, w0, w1);
+    q5_dec_sub<C, NT, 3>(S, c, g, t, w0, w1, h0, h1, acc);
+    q5_dec_sub<C, NT, 7>(S, c, g, t, w0, w1, h0, h1, acc);
+    mrt::fence_values(acc);  // every read of the stage has landed in a register
+    ring.release(i);
   }
-  mrt::cp_async_wait<0>();
-  mrt::store_part(part + (size_t)blockIdx.y * B * O, acc, B, O, row0, col0, warp, lane);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[nt][m][e] = acc[(nt * 2 + m) * 4 + e];
+}
+
+// A block of dec_threads(C) threads: the consumer warps 0..C/32-1, the
+// producers the last two; steps_per_split = dec_per_split(K/256, splits, 1).
+template <int C>
+__global__ void __launch_bounds__(mrt::dec_threads(C), 3)
+    q5k_q8_dec_kernel(const __grid_constant__ CUtensorMap qsmap,
+                      const __grid_constant__ CUtensorMap qhmap,
+                      const __grid_constant__ CUtensorMap smap,
+                      const __grid_constant__ CUtensorMap mmap,
+                      const __grid_constant__ CUtensorMap xqmap,
+                      const __grid_constant__ CUtensorMap xsmap,
+                      const __grid_constant__ CUtensorMap xmmap, void* out, int out_is_bf16,
+                      int B, int K, int O, int steps_per_split) {
+  constexpr int NW = C / 32;  // consumer warps; the producers are warps NW and NW + 1
+  using Stage = Q5DecStage<C>;
+  extern __shared__ uint8_t smem[];
+  const Q5DecRing<C> ring(smem);
+  const int splits = (int)gridDim.x, rank = (int)mrt::cluster_rank();
+  const int col0 = blockIdx.y * C;
+  const int s_begin = rank * steps_per_split;
+  const int n = max(0, min(steps_per_split, K / 256 - s_begin));  // a stage a step
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  float y[2][2][4] = {};
+  if (warp == NW) {  // the weights: a TMA box an array a step
+    if (lane == 0) {
+      mrt::prefetch_tensormap(&qsmap);
+      mrt::prefetch_tensormap(&qhmap);
+      mrt::prefetch_tensormap(&smap);
+      mrt::prefetch_tensormap(&mmap);
+      ring.produce(
+          n, true, [](int) { return (uint32_t)kQ5DecWeightBytes<C>; },
+          [&](Stage& S, int i, uint64_t* full) {
+            const int r = s_begin + i;
+            mrt::tma_load_3d(S.qs, &qsmap, col0, 32 * r, 0, full);  // [4] blocks of 32 rows
+            mrt::tma_load_2d(S.qh, &qhmap, col0, 32 * r, full);
+            mrt::tma_load_3d(S.sc, &smap, col0, r, 0, full);  // [8] sub-blocks' rows
+            mrt::tma_load_3d(S.mn, &mmap, col0, r, 0, full);
+          });
+    }
+    __syncwarp();
+  } else if (warp == NW + 1) {  // x's codes, scales and sums, from the quantize kernel
+    if (lane == 0) {
+      mrt::grid_dep_wait();  // the quantize kernel's codes are written
+      mrt::prefetch_tensormap(&xqmap);
+      mrt::prefetch_tensormap(&xsmap);
+      mrt::prefetch_tensormap(&xmmap);
+      ring.produce(
+          n, false, [](int) { return kQ5DecXBytes; },
+          [&](Stage& S, int i, uint64_t* full) {
+            const int r = s_begin + i;
+            mrt::tma_load_3d(S.x, &xqmap, 0, r, 0, full);
+            mrt::tma_load_3d(S.xs, &xsmap, 0, r, 0, full);
+            mrt::tma_load_3d(S.xsum, &xmmap, 0, r, 0, full);
+          });
+    }
+    __syncwarp();
+  } else if (B > 8) {
+    q5_dec_consume<C, 2>(ring, n, warp, lane, y);
+  } else {
+    q5_dec_consume<C, 1>(ring, n, warp, lane, y);
+  }
+  if (splits == 1) {  // no cluster to add up
+    if (warp < NW) mrt::dec_store_out(y, B > 8 ? 2 : 1, out, out_is_bf16, B, O, col0, warp, lane);
+    return;
+  }
+  __syncthreads();  // every stage consumed: the ring's memory holds the tile now
+  float* red = static_cast<float*>(ring.base());
+  if (warp < NW) mrt::dec_store_tile<C>(red, y, B > 8 ? 2 : 1, warp, lane);
+  mrt::cluster_sync();
+  mrt::dec_reduce<C>(red, out, out_is_bf16, B, O, col0, splits, rank);
+  mrt::cluster_sync();  // no block leaves while another reads its tile
+}
+
+// The tensor maps of a decode call at C columns a box: qs [K/2, O] seen as
+// [4][K/8][O] in boxes of 4 x 32 rows and qh [K/8, O] in boxes of 32 rows
+// (both with the 128-byte swizzle at C = 128); scale and minv [K/32, O]
+// seen as [8][K/256][O] in boxes of 8 rows; x's codes (the decode layout,
+// 512 bytes a sub-block) seen as [8][K/256][128] u32, its scales and sums
+// [K/32][16] seen as [8][K/256][16], each in boxes of the step's 8
+// sub-blocks. Returns the CUDA error.
+template <int C>
+int launch_dec(const mrt::Workspace& w, const void* qs, const void* qh, const void* scale,
+               const void* minv, void* out, int out_is_bf16, int B, int K, int O, int splits,
+               cudaStream_t st) {
+  const uint64_t n8 = (uint64_t)(K / 256), k8 = (uint64_t)(K / 8);
+  const CUtensorMapSwizzle sw = C == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const uint64_t qdims[3] = {(uint64_t)O, k8, 4}, qstr[2] = {(uint64_t)O, k8 * O};
+  const uint32_t qbox[3] = {(uint32_t)C, 32, 4};
+  const uint64_t hdims[2] = {(uint64_t)O, k8}, hstr[1] = {(uint64_t)O};
+  const uint32_t hbox[2] = {(uint32_t)C, 32};
+  const uint64_t sdims[3] = {(uint64_t)O, n8, 8}, sstr[2] = {(uint64_t)O * 2, n8 * O * 2};
+  const uint32_t sbox[3] = {(uint32_t)C, 1, 8};
+  const uint64_t xdims[3] = {128, n8, 8}, xstr[2] = {512, n8 * 512};
+  const uint32_t xbox[3] = {128, 1, 8};
+  const uint64_t vdims[3] = {16, n8, 8}, vstr[2] = {64, n8 * 64};
+  const uint32_t vbox[3] = {16, 1, 8};
+  CUtensorMap qsmap, qhmap, smap, mmap, xqmap, xsmap, xmmap;
+  int err = mrt::tile_map(&qsmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, qs, qdims, qstr, qbox, sw);
+  if (!err) err = mrt::tile_map(&qhmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, qh, hdims, hstr, hbox, sw);
+  if (!err) err = mrt::tile_map(&smap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, scale, sdims, sstr, sbox);
+  if (!err) err = mrt::tile_map(&mmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, minv, sdims, sstr, sbox);
+  if (!err) err = mrt::tile_map(&xqmap, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, w.xq, xdims, xstr, xbox);
+  if (!err) err = mrt::tile_map(&xsmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, w.xs, vdims, vstr, vbox);
+  if (!err)
+    err = mrt::tile_map(&xmmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, w.xsum, vdims, vstr, vbox);
+  if (err) return err;
+  return mrt::launch_dec(q5k_q8_dec_kernel<C>, splits, (O + C - 1) / C, mrt::dec_threads(C),
+                         Q5DecRing<C>::smem_bytes(), st, qsmap, qhmap, smap, mmap, xqmap, xsmap,
+                         xmmap, out, out_is_bf16, B, K, O, mrt::dec_per_split(K / 256, splits, 1));
 }
 
 }  // namespace
@@ -190,9 +286,11 @@ Q4ROWS_KERNEL(q5k_q8_rows_kernel, true)
 // 0, O % 16 == 0, 16-byte aligned pointers, and a workspace of ws_bytes (see
 // mrt::carve). The launch is the plan of ops/quant_matmul.q5k_q8_plan, every
 // field of it checked here:
-// - rows 16 (B <= 16): q5k_q8_mma_kernel, grid (column tiles, K splits, 1),
-//   cluster 1, cols 128, stages 0, at most K/256 splits. Quantizes x (row
-//   major) per 32, runs the GEMV and the split-K pass.
+// - rows 16 (B <= 16): q5k_q8_dec_kernel, grid (K splits, column tiles of
+//   `cols` = 128 or 64, 1), a cluster of the gx splits (at most 8, at most
+//   K/256, none empty), stages = kQ5DecStages<cols>. Quantizes x into the
+//   decode layout, then launches the GEMV behind it (programmatic
+//   dependent launch): two launches.
 // - rows 64 or 128: the rows instantiation on K1's plan (int8_gemv_plan):
 //   grid (row tiles, column tiles, K splits), cluster 1, cols 128, stages 0,
 //   at most K/256 splits (a split takes whole groups of 4 pairs).
@@ -206,34 +304,30 @@ extern "C" int q5k_q8_gemv(const void* x, int x_is_bf16, const void* qs, const v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows != 16 && rows != 64 && rows != 128) return (int)cudaErrorInvalidValue;
   const bool dec = rows == 16;
-  const int ksplit = dec ? gy : gz;
+  const int ksplit = dec ? gx : gz, steps = K / 256;
   const mrt::Workspace w =
-      mrt::carve(ws, B, K, O, 32, 32, ksplit, dec ? mrt::kRowMajor : mrt::kTiled, rows);
-  const bool grid_ok = dec ? B <= 16 && gx == (O + mrt::kGemvCols - 1) / mrt::kGemvCols && gz == 1
-                           : mrt::grid_covers(w, rows, cols, B, O, gx, gy, gz);
-  if (!grid_ok || cluster != 1 || cols != mrt::kGemvCols || stages != 0 ||
-      w.bytes > (size_t)ws_bytes || ksplit < 1 || ksplit > K / 256)
+      mrt::carve(ws, B, K, O, 32, 32, ksplit, dec ? mrt::kDecode : mrt::kTiled, rows);
+  const bool plan_ok =
+      dec ? (cols == 128 || cols == 64) && cluster == gx && gx <= 8 &&
+                (gx - 1) * mrt::dec_per_split(steps, gx, 1) < steps &&
+                stages == (cols == 128 ? kQ5DecStages<128> : kQ5DecStages<64>)
+          : cluster == 1 && cols == mrt::kGemvCols && stages == 0;
+  if (!plan_ok || w.bytes > (size_t)ws_bytes || ksplit < 1 || ksplit > steps ||
+      !mrt::grid_covers(w, rows, cols, B, O, gx, gy, gz))
     return (int)cudaErrorInvalidValue;
   mrt::launch_quantize<32>(x, x_is_bf16 != 0, w.xq, w.xs, w.xsum, nullptr, B, K, w.bpad, st,
-                           dec ? mrt::kRowMajor : mrt::kTiled);
-  cudaError_t err = cudaGetLastError();
+                           dec ? mrt::kDecode : mrt::kTiled);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (!dec) {
-    const dim3 grid(gx, gy, gz);
-    if (rows == 64)
-      return q4rows::launch_rows<64, true>(q5k_q8_rows_kernel<64>, w, qs, qh, scale, minv, out,
-                                           out_is_bf16, B, K, O, grid, st);
-    return q4rows::launch_rows<128, true>(q5k_q8_rows_kernel<128>, w, qs, qh, scale, minv, out,
-                                          out_is_bf16, B, K, O, grid, st);
-  }
-  const int smem = kStages * (int)sizeof(Stage);
-  err = mrt::allow_smem(q5k_q8_mma_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  q5k_q8_mma_kernel<<<dim3(gx, gy, 1), mrt::kGemvThreads, smem, st>>>(
-      w.xq, w.xs, w.xsum, static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(qh),
-      static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(minv), w.part,
-      B, w.bpad, K, O, (K / 256 + ksplit - 1) / ksplit);
-  return mrt::finish_gemv(w, out, out_is_bf16, ksplit, B * O, st);
+  if (dec)
+    return cols == 128 ? launch_dec<128>(w, qs, qh, scale, minv, out, out_is_bf16, B, K, O, gx, st)
+                       : launch_dec<64>(w, qs, qh, scale, minv, out, out_is_bf16, B, K, O, gx, st);
+  const dim3 grid(gx, gy, gz);
+  if (rows == 64)
+    return q4rows::launch_rows<64, true>(q5k_q8_rows_kernel<64>, w, qs, qh, scale, minv, out,
+                                         out_is_bf16, B, K, O, grid, st);
+  return q4rows::launch_rows<128, true>(q5k_q8_rows_kernel<128>, w, qs, qh, scale, minv, out,
+                                        out_is_bf16, B, K, O, grid, st);
 }
 
 // ---- dequantization for prefill-sized calls ----

@@ -171,19 +171,18 @@ def _check_cuda(name: str, tensors: dict[str, torch.Tensor]) -> torch.device:
     return dev
 
 
-def _ksplit_for(O: int, B: int, k_units: int, sms: int, rows: int = 16) -> int:
-    """Split of the K axis over blocks (a block owns 128 columns x `rows`
-    rows): about 4 blocks per SM, each split keeping at least 4 K steps (K1:
-    pairs of sub-blocks, K2: scale groups, K3/K4: 128-element steps, K9:
-    256-element steps) for its copy pipeline."""
-    tiles = -(-O // 128) * -(-B // rows)
+def _ksplit_for(O: int, B: int, k_units: int, sms: int) -> int:
+    """Split of the K axis of K9b's 16-row kernel over blocks (a block owns
+    128 columns x 16 rows): about 4 blocks per SM, each split keeping at
+    least 4 K steps (256-element steps) for its copy pipeline."""
+    tiles = -(-O // 128) * -(-B // 16)
     return max(1, min(-(-4 * sms // tiles), k_units // 4))
 
 
 @dataclasses.dataclass(frozen=True)
 class GemvPlan:
-    """The launch of a GEMV for one call (K1, K2, K3, K4, K8, K10, and the
-    16-row kernels' (column tiles, K splits, 1) grids), every field of which the
+    """The launch of a GEMV for one call (every GEMV's, K9b's 16-row
+    kernel's (column tiles, K splits, 1) grid included), every field of which the
     CUDA entry point checks: the row tile of a block (16: the decode
     instantiation; 64 or 128: the rows instantiation, two consumer
     warpgroups), the GEMV's grid as the entry point launches it, the K
@@ -218,6 +217,11 @@ DEC_MAX_CLUSTER = 8
 # 8 bf16 scale rows), 14 KB at 128 columns, so a stage holds one step
 Q6K_DEC_SUB = 1
 Q6K_STEP_COL_BYTES = 112
+# K9's (csrc/q5k_q8_gemv.cu): a K step is the 32 qh rows 32r.. and the 4 qs
+# blocks of 32 rows whose high bits they hold (256 elements), 192 weight
+# bytes a column (qs 128 rows, qh 32, the 8 sub-blocks' bf16 scale and
+# minv rows), 24 KB at 128 columns: a stage a step
+Q5K_STEP_COL_BYTES = 192
 
 
 def dec_stages(stage_weight_bytes: int) -> int:
@@ -286,21 +290,20 @@ def _align256(n: int) -> int:
 
 def _workspace_bytes(B: int, K: int, O: int, gs: int, sum_gs: int, ksplit: int,
                      rows: int = 16, layout: str = "row", xcopy: bool = False) -> int:
-    """Scratch of one GEMV call: (xq, xs [K/gs, Bpad] unless gs is 0),
-    (xsum [K/sum_gs, Bpad] unless sum_gs is 0), (a bf16 copy of x [Bpad, K]
-    with xcopy), split-K partials [ksplit, B, O], each 256-byte aligned, in
-    the order csrc/common.cuh::carve lays them out for its x layout: "row"
-    (xq [B, K], Bpad B rounded up to 16, always the partials), "tiled" (the
-    rows instantiations of K1, K2, K9 and K10: Bpad B rounded up to the row
-    tile `rows`, xq [Bpad, K], the partials only with more than one split)
-    or "decode" (the decode instantiations of K1, K2 and K3: Bpad 16, xq
-    [16, K], no partials; K4's has no workspace)."""
+    """Scratch of one GEMV call: (xq [Bpad, K], xs [K/gs, Bpad] unless gs is
+    0), (xsum [K/sum_gs, Bpad] unless sum_gs is 0), (a bf16 copy of x [Bpad,
+    K] with xcopy), split-K partials [ksplit, B, O], each 256-byte aligned,
+    in the order csrc/common.cuh::carve lays them out for its x layout:
+    "row" (K9b's 16-row kernel, no xq: Bpad B rounded up to 16, always the
+    partials), "tiled" (the rows instantiations of K1, K2, K9 and K10: Bpad
+    B rounded up to the row tile `rows`, the partials only with more than
+    one split) or "decode" (the decode instantiations of K1, K2, K3 and K9:
+    Bpad 16, no partials; K4's, K5's, K8's and K10's have no workspace)."""
     if layout != "tiled":
         rows = 16
     bpad = -(-B // rows) * rows
-    xrows = B if layout == "row" else bpad
     part = layout == "row" or (layout == "tiled" and ksplit > 1)
-    return ((_align256(xrows * K) + _align256((K // gs) * bpad * 4) if gs else 0)
+    return ((_align256(bpad * K) + _align256((K // gs) * bpad * 4) if gs else 0)
             + (_align256((K // sum_gs) * bpad * 4) if sum_gs else 0)
             + (_align256(bpad * K * 2) if xcopy else 0)
             + (_align256(ksplit * B * O * 4) if part else 0))
@@ -656,15 +659,20 @@ def q5k_q8_gemv_plain(x, qs, qh, scale, minv, out_dtype=torch.float32):
 
 
 def q5k_q8_plan(B: int, K: int, O: int, sms: int) -> GemvPlan:
-    """Launch plan of K9 on a card with `sms` SMs. Up to 16 rows its
-    16-row kernel: grid (column tiles, K splits, 1), the split by
-    _ksplit_for over 256-element steps, the row-major workspace. Above:
-    K1's rows plan (int8_gemv_plan with K/64 pairs, gs = sum_gs = 32); the
-    kernel splits K at groups of 4 pairs, q5k_rows_pairs_per_split."""
+    """Launch plan of K9 on a card with `sms` SMs, every field of which the
+    CUDA entry point checks. Up to 16 rows the decode instantiation
+    (q5k_q8_dec_kernel): K1's decode rules (_dec_grid) over K/256 steps of
+    256 elements (the 32 qh rows a step reads once), a ring stage a step,
+    the ring's stages from the step's Q5K_STEP_COL_BYTES a column, and the
+    decode workspace (x's codes of 16 rows, the scales and sums per 32; no
+    partials). Above: K1's rows plan (int8_gemv_plan with K/64 pairs, gs =
+    sum_gs = 32); the kernel splits K at groups of 4 pairs,
+    q5k_rows_pairs_per_split."""
     if B <= 16:
-        ks = _ksplit_for(O, B, K // 256, sms)
-        return GemvPlan(16, (-(-O // 128), ks, 1), ks, 1, 128, 0,
-                        _workspace_bytes(B, K, O, 32, 32, ks))
+        ks, cols, ctiles = _dec_grid(O, K // 256, 1, sms)
+        return GemvPlan(16, (ks, ctiles, 1), ks, ks, cols,
+                        dec_stages(cols * Q5K_STEP_COL_BYTES),
+                        _workspace_bytes(B, K, O, 32, 32, ks, layout="decode"))
     return int8_gemv_plan(B, K, O, K // 64, 32, 32, sms)
 
 
@@ -679,8 +687,12 @@ def q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=torch.bfloat16):
     """K9: y [B, O] = x @ W for Q5_K W with x quantized to int8 per 32
     (see csrc/q5k_q8_gemv.cu). x [B, K] (bf16 or f32 on cuda), qs uint8
     [K/2, O] paired nibbles, qh uint8 [K/8, O] plane-major high bits,
-    scale/minv [K/32, O] (bf16 on cuda). Up to 16 rows the 16-row kernel,
-    above it the rows instantiation, on the plan of q5k_q8_plan."""
+    scale/minv [K/32, O] (bf16 on cuda). Up to 16 rows the decode
+    instantiation (two launches: the quantize kernel, then the GEMV whose K
+    splits add their sums in a cluster), above it the rows instantiation,
+    on the plan of q5k_q8_plan. Nothing of a call waits for the card or
+    keeps state between calls, so a call can be captured in a CUDA
+    graph."""
     global q5k_q8_gemv_launches, q5k_q8_gemv_rows_launches
     O = qs.shape[1]
     K = 2 * qs.shape[0]
@@ -951,28 +963,29 @@ Q4K_ROW_ELEMS = 32
 
 def q4k_bf16_plan(B: int, K: int, O: int, sms: int) -> GemvPlan:
     """Launch plan of K5 on a card with `sms` SMs, every field of which the
-    CUDA entry point checks. Up to 16 rows its 16-row kernel
-    (q4k_bf16_mma_kernel): grid (column tiles, K splits, 1), the split by
-    _ksplit_for over sub-block pairs, the row-major workspace (per-32 sums,
-    partials). Above: the rows kernel with Q4_K's format (csrc/plane_gemv.cuh
-    Q4kFmt): K10's 4-bit plan at group 32 (the paired nibbles are the
-    4-bit planes; the min term is the zs term) with a stage of two decoded
-    tiles, the weight's exact hi and lo parts. plane_rows_take(K, 4, 32)
-    holds for every K % 64 == 0, which the wrapper requires."""
+    CUDA entry point checks: K10's 4-bit plan at group 32 with Q4_K's
+    format (csrc/plane_gemv.cuh Q4kFmt: the paired nibbles are the 4-bit
+    planes; the min term is the zs term). Up to 16 rows the decode plan
+    (plane_dec_plan: grid (K splits, column tiles, 1), a cluster of the
+    splits, no workspace; the kernel keeps the scale on the accumulator).
+    Above: the rows plan with a stage of two decoded tiles, the weight's
+    exact hi and lo parts. plane_rows_take(K, 4, 32) holds for every K %
+    64 == 0, which the wrapper requires."""
     if B <= 16:
-        ks = _ksplit_for(O, B, K // 64, sms)
-        return GemvPlan(16, (-(-O // 128), ks, 1), ks, 1, 128, 0,
-                        _workspace_bytes(B, K, O, 0, 32, ks))
+        return plane_dec_plan(B, K, O, 4, 32, sms)
     return plane_gemv_plan(B, K, O, 4, 32, sms, parts=2, elems=Q4K_ROW_ELEMS)
 
 
 def q4k_bf16_gemv(x, qs, scale, minv, out_dtype=torch.bfloat16):
     """K5: y [B, O] = x @ W for Q4_K W with x kept in bf16 (see
     csrc/q4k_bf16_gemv.cu). x [B, K] bf16 on cuda, qs uint8 [K/2, O] paired
-    nibbles, scale/minv [K/32, O] (bf16 on cuda). Up to 16 rows the 16-row
-    instantiation (q4k_bf16_mma_kernel), above it the rows instantiation
-    (plane_rows_kernel with Q4kFmt: the weight q * s as two exact bf16
-    parts), on the plan of q4k_bf16_plan, each counted apart."""
+    nibbles, scale/minv [K/32, O] (bf16 on cuda). Up to 16 rows the decode
+    instantiation (plane_dec_kernel with Q4kFmt: one launch, the nibble as
+    the A operand and the scale on each sub-block's f32 dot, the K splits
+    summed in a cluster), above it the rows instantiation (plane_rows_kernel
+    with Q4kFmt: the weight q * s as two exact bf16 parts), on the plan of
+    q4k_bf16_plan, each counted apart. Nothing of a call waits for the card
+    or keeps state between calls, so it can be captured in a CUDA graph."""
     global q4k_bf16_gemv_launches, q4k_bf16_gemv_rows_launches
     O = qs.shape[1]
     K = 2 * qs.shape[0]

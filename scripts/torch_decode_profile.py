@@ -36,11 +36,15 @@ device's busy share = sum of kernel times over the traced wall time,
 kernel launches, and the device time of K13, K5, K8 and K9b and their
 shares of it: kernels named grouped_gemm (and K13's two instantiations
 apart, `k13_tiles_ms` above 32 rows a group and `k13_decode_ms` up to it:
-grouped_gemm_tiles_kernel and grouped_gemm_decode_kernel), q4k_bf16_mma,
-K8's decode instantiation (`k8_ms`: plane_dec_kernel at 8 signed bits) and
+grouped_gemm_tiles_kernel and grouped_gemm_decode_kernel), K5's decode
+instantiation (`k5_ms`: plane_dec_kernel with Q4kFmt, one launch a call; in
+a tree before it q4k_bf16_mma_kernel, whose call also ran the sums kernel
+and a split-K pass, not counted here), K8's decode instantiation (`k8_ms`: plane_dec_kernel at 8 signed bits) and
 plane_bf16_mma_kernel<1 (K9b); of K1's, K2's and K9's rows
 instantiations, q4k_q8_rows_kernel, q8_0_q8_rows_kernel and
-q5k_q8_rows_kernel, K9's 16-row q5k_q8_mma_kernel, K10's (`k10_ms`:
+q5k_q8_rows_kernel, K9's decode q5k_q8_dec_kernel (`k9_ms`; in a tree
+before it the 16-row q5k_q8_mma_kernel; the quantize kernel, and there the
+split-K pass, not counted here), K10's (`k10_ms`:
 plane_dec_kernel with the zs term, up to 16 rows, one launch a call; in a
 tree before it plane_bf16_mma_kernel<2, whose call also ran the quantize
 kernel and a split-K pass, named by that tree's copy of this script) and
@@ -87,12 +91,15 @@ def _plane_fmt(key: str, kernel: str = "plane_rows_kernel"):
 
 # device time reported by kernel: a part of the kernel's name, or a test of it
 NAMED_KERNELS = {"grouped_gemm": "grouped_gemm", "k13_tiles": "grouped_gemm_tiles_kernel",
-                 "k13_decode": "grouped_gemm_decode_kernel", "k5": "q4k_bf16_mma",
+                 "k13_decode": "grouped_gemm_decode_kernel",
+                 "k5": lambda k: "q4k_bf16_mma" in k or ("plane_dec_kernel<" in k
+                                                         and "Q4kFmt" in k),
                  "k8": lambda k: (_plane_fmt(k, "plane_dec_kernel") or [""] * 4)[:2] == [
                      "8", "true"],
                  "k9b": "plane_bf16_mma_kernel<1",
                  "k1_rows": "q4k_q8_rows_kernel", "k2_rows": "q8_0_q8_rows_kernel",
-                 "k9": "q5k_q8_mma_kernel", "k9_rows": "q5k_q8_rows_kernel",
+                 "k9": lambda k: "q5k_q8_mma_kernel" in k or "q5k_q8_dec_kernel" in k,
+                 "k9_rows": "q5k_q8_rows_kernel",
                  "k10": lambda k: (_plane_fmt(k, "plane_dec_kernel") or [""] * 4)[3] == "true",
                  "k10_rows": lambda k: (_plane_fmt(k) or [""] * 4)[3] == "true",
                  "k3": "q6k_q8_", "k4": "q6k_bf16_",

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Bit-equality of the decode GEMVs (K1, K2, K3, K4, K8, K10 at 1-16 rows)
+"""Bit-equality of the decode GEMVs (K1-K5, K8-K10 at 1-16 rows)
 or of the rows GEMVs (K1, K8, K10 at 256 rows) over many calls, in one or
 more checkouts of this repository on one card.
 
@@ -10,7 +10,8 @@ variant of a kernel, make it in a gitignored copy of the tree and pass
 that copy). Each builds the sources it calls and prints one JSON line: for
 K4 at down (14336 -> 4096, clusters of 8 K splits) at 16 rows, N calls,
 and at 9 rows, K4 at the lm_head (4096 -> 32768, one split), K3, K1, K2,
-K8 (rq8) and K10 (GPTQ-8, group 128) at down, at 16 rows, N/3 calls each;
+K8 (rq8), K10 (GPTQ-8, group 128), K5 and K9 (Q5_K arrays) at down, at 16
+rows, N/3 calls each;
 with --rows, instead, the rows instantiations (their ring, common.cuh's
 mrt::Ring) of K1 and K8 at down and of K10 at Q2_K's gate|up (4096 ->
 28672, a zs step a slice), at 256 rows, N calls each. The L2 is flushed
@@ -39,7 +40,7 @@ def measure(root: str, reps: int, rows: bool = False) -> dict:
     if not Path(kernels.__file__).resolve().is_relative_to(Path(root).resolve()):
         raise RuntimeError(f"{kernels.__file__} is not under {root}")
     kernels.SOURCES = ("q4k_q8_gemv", "q8_0_bf16_gemv", "affine_gemv") + (
-        () if rows else ("q6k_gemv", "q8_0_q8_gemv"))
+        () if rows else ("q6k_gemv", "q8_0_q8_gemv", "q4k_bf16_gemv", "q5k_q8_gemv"))
     kernels.build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -113,6 +114,11 @@ def measure(root: str, reps: int, rows: bool = False) -> dict:
     z10 = (128 * s10.float()).to(torch.bfloat16)
     run("k10 down gptq8 B=16", lambda dt: qm.affine_gemv(x, q8, s10, z10, 8, 128, out_dtype=dt),
         lambda: qm.affine_gemv_plain(x, q8, s10, z10, 8, 128, torch.float32), reps // 3)
+    qh = u8(K // 8, O)
+    run("k5 down B=16", lambda dt: qm.q4k_bf16_gemv(x, qs, s4, m4, out_dtype=dt),
+        lambda: qm.q4k_bf16_gemv_plain(x, qs, s4, m4, torch.float32), reps // 3)
+    run("k9 down B=16", lambda dt: qm.q5k_q8_gemv(x, qs, qh, s4, m4, out_dtype=dt),
+        lambda: qm.q5k_q8_gemv_plain(x, qs, qh, s4, m4, torch.float32), reps // 3)
     return {"root": root, "device": torch.cuda.get_device_name(0), "rows": out}
 
 

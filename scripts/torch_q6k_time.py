@@ -1,27 +1,30 @@
 #!/usr/bin/env python3
 """Time the decode instantiations (1-16 rows) of K3 (`q6k_q8_gemv`), K4
-(`q6k_bf16_gemv`), K8 (`q8_0_bf16_gemv`) and K10 (`affine_gemv`) in one or
-more checkouts of this repository on one card.
+(`q6k_bf16_gemv`), K8 (`q8_0_bf16_gemv`), K10 (`affine_gemv`), K5
+(`q4k_bf16_gemv`) and K9 (`q5k_q8_gemv`) in one or more checkouts of this
+repository on one card.
 
-    python3 scripts/torch_q6k_time.py [--trace | --repeat N] [--kernels k3,k4,k8,k10] ROOT [ROOT ...]
+    python3 scripts/torch_q6k_time.py [--trace | --repeat N] [--kernels k3,k4,k8,k10,k5,k9] ROOT [ROOT ...]
 
 Runs each root in a process of its own, in the order given (pass parent,
 change, change, parent to A/B two trees; to time a variant of a kernel, make
 it in a gitignored copy of the tree and pass that copy). Each builds only
-the sources of the kernels asked for (default: all four) and prints one
+the sources of the kernels asked for (default: all six) and prints one
 JSON line: K3 and K4 at the Q5_K_M path's Q6_K projections (v
 4096->1024, down 14336->4096, lm_head 4096->32768; chunk span 512); K8 on
 rq8's f32 scales at v, q|k (4096->5120), gate|up (4096->28672), down and
 the lm_head, and on wire Q8_0's bf16 scales at the lm_head; K10 at Q2_K's
 q|k and gate|up (group 16), GPTQ-8's down and gate|up (group 128), HQQ-1's
-and HQQ-2's gate|up (group 64) and GPTQ-4's (group 16): each at 1, 4 and
-16 rows, chip_smoke.Clock's median of 25 runs (L2 flushed) beside the
+and HQQ-2's gate|up (group 64) and GPTQ-4's (group 16); K5 and K9 at the
+Q5_K_M path's Q5_K projections (q|k 4096->5120, o 4096->4096, gate|up
+4096->28672, down 14336->4096; K5 on the same qs, scale and minv): each at
+1, 4 and 16 rows, chip_smoke.Clock's median of 25 runs (L2 flushed) beside the
 relative error against the plain version. The same calls and inputs run
 in every tree, so a parent without a kernel's decode instantiation times
 its older one. With --trace, instead, the device time a call of each
-kernel a call launches (K3's quantize kernel and GEMV; K4's GEMV; K8's and
-K10's GEMV, and before their decode instantiations the quantize kernel and
-the split-K pass), from a torch.profiler trace of 10 calls (L2 warm), at
+kernel a call launches (K3's and K9's quantize kernel and GEMV; K4's,
+K5's, K8's and K10's GEMV, and before their decode instantiations the
+quantize or sums kernel and the split-K pass), from a torch.profiler trace of 10 calls (L2 warm), at
 16 rows. With --repeat N, instead, each case is called N times (the L2
 flushed and the card kept busy before every other call, as
 chip_smoke.Clock does) and the line gives the calls whose output differs
@@ -47,8 +50,12 @@ K10_SHAPES = (("q2k", 2, 16, "qk", 4096, 5120), ("q2k", 2, 16, "gate|up", 4096, 
               ("gptq8", 8, 128, "down", 14336, 4096), ("gptq8", 8, 128, "gate|up", 4096, 28672),
               ("hqq1", 1, 64, "gate|up", 4096, 28672), ("hqq2", 2, 64, "gate|up", 4096, 28672),
               ("gptq4", 4, 16, "gate|up", 4096, 28672))
-KERNELS = ("k3", "k4", "k8", "k10")
-SOURCES = {"k3": "q6k_gemv", "k4": "q6k_gemv", "k8": "q8_0_bf16_gemv", "k10": "affine_gemv"}
+# K5 and K9: (name, K, O)
+Q5K_SHAPES = (("qk", 4096, 5120), ("o", 4096, 4096), ("gate|up", 4096, 28672),
+              ("down", 14336, 4096))
+KERNELS = ("k3", "k4", "k8", "k10", "k5", "k9")
+SOURCES = {"k3": "q6k_gemv", "k4": "q6k_gemv", "k8": "q8_0_bf16_gemv", "k10": "affine_gemv",
+           "k5": "q4k_bf16_gemv", "k9": "q5k_q8_gemv"}
 
 
 def cases(torch, qm, dev, gen, kernels):
@@ -96,6 +103,23 @@ def cases(torch, qm, dev, gen, kernels):
                 out.append((f"k10 {name} {fmt} B={B}",
                             lambda dt, a=a: qm.affine_gemv(*a, out_dtype=dt),
                             lambda a=a: qm.affine_gemv_plain(*a, torch.float32)))
+    if {"k5", "k9"} & set(kernels):
+        for name, K, O in Q5K_SHAPES:
+            qs, qh = u8(K // 2, O), u8(K // 8, O)
+            scale = unif(K // 32, O, lo=0.001, hi=0.005, dtype=bf16)
+            minv = unif(K // 32, O, lo=0.0, hi=0.002, dtype=bf16)
+            for B in ROWS:
+                x = torch.randn(B, K, device=dev, generator=gen).to(bf16)
+                if "k5" in kernels:
+                    a = (x, qs, scale, minv)
+                    out.append((f"k5 {name} B={B}",
+                                lambda dt, a=a: qm.q4k_bf16_gemv(*a, out_dtype=dt),
+                                lambda a=a: qm.q4k_bf16_gemv_plain(*a, torch.float32)))
+                if "k9" in kernels:
+                    a = (x, qs, qh, scale, minv)
+                    out.append((f"k9 {name} B={B}",
+                                lambda dt, a=a: qm.q5k_q8_gemv(*a, out_dtype=dt),
+                                lambda a=a: qm.q5k_q8_gemv_plain(*a, torch.float32)))
     return out
 
 

@@ -675,12 +675,40 @@ def test_bf16_kernels_hold_k9b_rows_at_every_gguf_bf16_shape(monkeypatch, sms, w
     assert {shape for shape, _ in k9b} >= {f"{nm} B={B}" for nm in ("qk", "o", "down")
                                            for B in (17, 64, 256)}
     assert {ks for _, ks in k9b} == want_splits
-    # K5's 16-row and K8's decode instantiations only up to 16 rows, none at o
-    assert not [r for r in rows if r[0] in ("q4k_bf16_gemv", "q8_0_bf16_gemv")
-                and (r[1].startswith("o ") or not r[1].endswith(("B=1", "B=4", "B=16")))]
+    # K8's decode instantiation only up to 16 rows; K5's in k5_kernels
+    assert not [r for r in rows if r[0] == "q4k_bf16_gemv"]
+    assert not [r for r in rows if r[0] == "q8_0_bf16_gemv" and not r[1].endswith(
+        ("B=1", "B=4", "B=16"))]
     assert {r[1] for r in rows if r[0] == "q8_0_bf16_gemv"} == {
         f"{nm} B={B}" for nm in ("v", "qk", "gate|up", "down", "lm_head", "lm_head wire")
         for B in (1, 4, 16)}
+
+
+def test_k5_kernels_hold_the_decode_instantiation_at_every_projection(monkeypatch):
+    """k5_kernels at a tiny size on the CPU (the plain versions on both
+    sides): K5 at q|k, o, gate|up and down at 1, 4 and 16 rows, at 16 with
+    the kernels the card runs a call (a stub here: the trace needs the
+    card), which raise past one."""
+    calls = []
+    monkeypatch.setattr(chip_smoke, "kernels_a_call", lambda fn, calls_=8: calls.append(fn) or 1.0)
+    rows = []
+    gen = torch.Generator().manual_seed(0)
+
+    def rand(*shape, lo=0.0, hi=1.0, dtype=torch.float32):
+        return (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(dtype)
+
+    def record(name, shape_name, err, rel, tol, *_, **extra):
+        assert name == "q4k_bf16_gemv" and rel <= tol == 1e-4, (name, shape_name, rel)
+        rows.append((shape_name, extra.get("kernels_a_call"), "int8_ms" in extra))
+
+    chip_smoke.k5_kernels(TINY, torch.device("cpu"), _CallOnce(), gen, rand, record)
+    assert [r[0] for r in rows] == [f"{nm} B={B}" for nm in ("qk", "o", "gate|up", "down")
+                                    for B in (1, 4, 16)]
+    assert [r[1] for r in rows if r[1] is not None] == [1.0] * 4 and len(calls) == 4
+    assert all(r[2] for r in rows)
+    monkeypatch.setattr(chip_smoke, "kernels_a_call", lambda fn, calls_=8: 3.0)
+    with pytest.raises(AssertionError, match="q4k_bf16_gemv B=16: 3.0 kernels a call"):
+        chip_smoke.k5_kernels(TINY, torch.device("cpu"), _CallOnce(), gen, rand, record)
 
 
 # hidden 2048: K5's rows instantiation splits K at zs slices of 512

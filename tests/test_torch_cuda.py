@@ -142,20 +142,24 @@ def test_q8_0_q8_gemv_decode_tails_match_plain(dev, K, O, gs, sdt, B):
 
 
 def _decode_calls(dev, B):
-    """One K1, K2, K3, K4, K8 and K10 decode call at the main path's q|k and
-    v shapes (K3 and K4 at the Q6_K v, in clusters of 8 splits; K8 at the
-    rq8 v; K10 at the Q2_K q|k)."""
+    """One K1, K2, K3, K4, K8, K10, K5 and K9 decode call at the main path's
+    q|k and v shapes (K3 and K4 at the Q6_K v, in clusters of 8 splits; K8
+    at the rq8 v; K10 at the Q2_K q|k; K5 and K9 at the Q5_K q|k, in
+    clusters of 8 splits)."""
     qs, scale, minv = _q4k_arrays(dev, 4096, 5120, 1)
     q, s = _q8_arrays(dev, 4096, 1024, 32, torch.float32, 2)
     ql, qh, s6 = _q6k_span_arrays(dev, 4096, 1024, 512, 4)
     q2, s2, z2 = _affine_arrays(dev, 2, 16, 4096, 5120, 6)
+    q5s, q5h, s5, m5 = _q5k_arrays(dev, 4096, 5120, 7)
     x = _acts(B, 4096, dev, 3).to(torch.bfloat16)
     return (lambda: qm.q4k_q8_gemv(x, qs, scale, minv, out_dtype=torch.float32),
             lambda: qm.q8_0_q8_gemv(x, q, s, 32, out_dtype=torch.float32),
             lambda: qm.q6k_q8_gemv(x, ql, qh, s6, 512, out_dtype=torch.float32),
             lambda: qm.q6k_bf16_gemv(x, ql, qh, s6, 512, out_dtype=torch.float32),
             lambda: qm.q8_0_bf16_gemv(x, q, s, out_dtype=torch.float32),
-            lambda: qm.affine_gemv(x, q2, s2, z2, 2, 16, out_dtype=torch.float32))
+            lambda: qm.affine_gemv(x, q2, s2, z2, 2, 16, out_dtype=torch.float32),
+            lambda: qm.q4k_bf16_gemv(x, q5s, s5, m5, out_dtype=torch.float32),
+            lambda: qm.q5k_q8_gemv(x, q5s, q5h, s5, m5, out_dtype=torch.float32))
 
 
 @pytest.mark.parametrize("B", [1, 16])
@@ -168,10 +172,11 @@ def test_decode_gemv_is_bit_equal_on_repeat(dev, B):
             assert torch.equal(call(), first)
 
 
-@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4", "k8", "k10"])
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4", "k8", "k10", "k5", "k9"])
 def test_decode_gemv_is_bit_equal_over_many_calls(dev, kernel):
     """1,000 calls at the down projection (14336 -> 4096, clusters of 8
-    splits; K8 on rq8 weights, K10 on GPTQ-8 at group 128), 16 rows, the L2
+    splits; K8 on rq8 weights, K10 on GPTQ-8 at group 128, K5 and K9 on
+    Q5_K arrays), 16 rows, the L2
     flushed before every other call, each bit-equal to the first: a
     consumer's reads of a ring stage are ordered before the copies that
     refill it (without the decode ring's proxy fence K4 gave another result
@@ -190,6 +195,10 @@ def test_decode_gemv_is_bit_equal_over_many_calls(dev, kernel):
     elif kernel == "k10":
         q, scale, zs = _affine_arrays(dev, 8, 128, K, O, 6)
         call = lambda: qm.affine_gemv(x, q, scale, zs, 8, 128)  # noqa: E731
+    elif kernel in ("k5", "k9"):
+        qs, qh, scale, minv = _q5k_arrays(dev, K, O, 6)
+        call = ((lambda: qm.q4k_bf16_gemv(x, qs, scale, minv)) if kernel == "k5"  # noqa: E731
+                else (lambda: qm.q5k_q8_gemv(x, qs, qh, scale, minv)))
     else:
         ql, qh, s6 = _q6k_span_arrays(dev, K, O, 512, 6)
         fn = qm.q6k_q8_gemv if kernel == "k3" else qm.q6k_bf16_gemv
@@ -207,8 +216,9 @@ def test_decode_gemv_is_bit_equal_over_many_calls(dev, kernel):
 
 @pytest.mark.parametrize("B", [1, 16])
 def test_decode_gemv_replays_in_a_cuda_graph(dev, B):
-    """A decode call captured in a CUDA graph (the quantize kernel, then the
-    GEMV behind it by programmatic dependent launch) replays bit-equal to
+    """A decode call captured in a CUDA graph (K1, K2, K3, K9: the quantize
+    kernel, then the GEMV behind it by programmatic dependent launch; K4,
+    K5, K8, K10: the GEMV alone) replays bit-equal to
     eager, and nothing in it waits for the card (sync debug mode "error"
     around the capture and the replay)."""
     for call in _decode_calls(dev, B):
@@ -235,7 +245,7 @@ def test_decode_gemv_replays_in_a_cuda_graph(dev, B):
 def test_decode_gemv_counts_one_launch_a_call(dev):
     """The decode counters count calls of the decode instantiations (the
     rows counters stay)."""
-    k1, k2, k3, k4, k8, k10 = _decode_calls(dev, 16)
+    k1, k2, k3, k4, k8, k10, k5, k9 = _decode_calls(dev, 16)
 
     def counts():
         return (qm.q4k_q8_gemv_launches, qm.q4k_q8_gemv_rows_launches,
@@ -243,7 +253,9 @@ def test_decode_gemv_counts_one_launch_a_call(dev):
                 qm.q6k_q8_gemv_launches, qm.q6k_bf16_gemv_launches,
                 qm.q6k_bf16_gemv_rows_launches, qm.q8_0_bf16_gemv_launches,
                 qm.q8_0_bf16_gemv_rows_launches, qm.affine_gemv_launches,
-                qm.affine_gemv_rows_launches)
+                qm.affine_gemv_rows_launches, qm.q4k_bf16_gemv_launches,
+                qm.q4k_bf16_gemv_rows_launches, qm.q5k_q8_gemv_launches,
+                qm.q5k_q8_gemv_rows_launches)
 
     before = counts()
     k1()
@@ -256,7 +268,56 @@ def test_decode_gemv_counts_one_launch_a_call(dev):
     k8()
     k8()
     k10()
-    assert [a - b for a, b in zip(counts(), before)] == [1, 0, 2, 0, 1, 3, 0, 2, 0, 1, 0]
+    k5()
+    k5()
+    k9()
+    assert [a - b for a, b in zip(counts(), before)] == [1, 0, 2, 0, 1, 3, 0, 2, 0, 1, 0, 2, 0,
+                                                         1, 0]
+
+
+# the kernels the card runs for one call of K5 and of K9 at 1-16 rows, from
+# a torch.profiler trace in a process of its own (a second profiler session
+# in one process can come back empty): K5 the GEMV alone, K9 the quantize
+# kernel and the GEMV
+_KERNELS_A_CALL = r"""
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from mistralrs_tpu_torch.ops import quant_matmul as qm
+dev = torch.device("cuda")
+g = torch.Generator(device="cpu").manual_seed(0)
+out = {}
+for name, K, O in (("qk", 4096, 5120), ("gate|up", 4096, 28672), ("down", 14336, 4096)):
+    qs = torch.randint(0, 256, (K // 2, O), generator=g, dtype=torch.uint8).to(dev)
+    qh = torch.randint(0, 256, (K // 8, O), generator=g, dtype=torch.uint8).to(dev)
+    sc = (torch.rand(K // 32, O, generator=g) * 0.004 + 0.001).to(dev, torch.bfloat16)
+    mn = (torch.rand(K // 32, O, generator=g) * 0.002).to(dev, torch.bfloat16)
+    for B in (1, 16):
+        x = torch.randn(B, K, generator=g).to(dev, torch.bfloat16)
+        out[f"k5 {name} B={B}"] = cs.kernels_a_call(lambda: qm.q4k_bf16_gemv(x, qs, sc, mn))
+        out[f"k9 {name} B={B}"] = cs.kernels_a_call(lambda: qm.q5k_q8_gemv(x, qs, qh, sc, mn))
+print(json.dumps(out))
+"""
+
+
+def test_k5_and_k9_decode_calls_launch_one_and_two_kernels(dev):
+    """At 1 and 16 rows and the Q5_K q|k, gate|up (one split) and down
+    (clusters of 8) shapes, a K5 call runs one kernel on the card (no sums
+    kernel, no split-K pass) and a K9 call two (the quantize kernel and the
+    GEMV; no split-K pass): kernel events of a torch.profiler trace."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    r = subprocess.run([sys.executable, "-c", _KERNELS_A_CALL, root], capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    per_call = json.loads(r.stdout.strip().splitlines()[-1])
+    assert len(per_call) == 12
+    for key, n in per_call.items():
+        assert n == (1 if key.startswith("k5") else 2), (key, n)
 
 
 # the rows instantiations of K1 and K2 (17-256 rows): one and two row tiles
@@ -557,8 +618,8 @@ K9_K10_B = [1, 5, 16, 17, 64, 65, 128, 129, 200, 256]
 @pytest.mark.parametrize("B", K9_K10_B)
 @pytest.mark.parametrize("K,O", [(512, 256), (4096, 272), (14336, 128)])
 def test_q5k_q8_gemv_matches_plain(dev, B, K, O):
-    """K9 (the 16-row kernel up to 16 rows, the rows instantiation above):
-    exact int32 dots on both sides, f32 sums in another order."""
+    """K9 (the decode instantiation up to 16 rows, the rows instantiation
+    above): exact int32 dots on both sides, f32 sums in another order."""
     qs, qh, scale, minv = _q5k_arrays(dev, K, O, B + K)
     for xdt in (torch.float32, torch.bfloat16):
         x = _acts(B, K, dev, B).to(xdt)
@@ -569,6 +630,39 @@ def test_q5k_q8_gemv_matches_plain(dev, B, K, O):
         assert (qm.q5k_q8_gemv_launches - before[0], qm.q5k_q8_gemv_rows_launches - before[1]) == (
             (1, 0) if B <= 16 else (0, 1))
         assert _rel_err(got, want) <= 1e-5
+
+
+# K5's and K9's decode instantiations at the main path's Q5_K shapes (q|k,
+# o and down in clusters of 8 splits, gate|up in one) and one and two
+# n-tiles of x rows
+K5_K9_DECODE_SHAPES = [(4096, 5120), (4096, 4096), (4096, 28672), (14336, 4096)]
+
+
+@pytest.mark.parametrize("B", [1, 4, 9, 16])
+@pytest.mark.parametrize("K,O", K5_K9_DECODE_SHAPES)
+def test_k5_k9_decode_main_path_matches_plain(dev, K, O, B):
+    """K5 (within 1e-4 of max |y|: bf16 products summed in another order,
+    the scale on each sub-block's f32 dot) and K9 (within 1e-5: exact int32
+    dots, f32 sums in another order) against their plain versions, f32
+    and bf16 out, one decode count a call each."""
+    qs, qh, scale, minv = _q5k_arrays(dev, K, O, K + O + B)
+    x = _acts(B, K, dev, B).to(torch.bfloat16)
+    for out_dt in (torch.float32, torch.bfloat16):
+        before = (qm.q4k_bf16_gemv_launches, qm.q5k_q8_gemv_launches)
+        y5 = qm.q4k_bf16_gemv(x, qs, scale, minv, out_dtype=out_dt)
+        y9 = qm.q5k_q8_gemv(x, qs, qh, scale, minv, out_dtype=out_dt)
+        torch.cuda.synchronize()
+        assert (qm.q4k_bf16_gemv_launches - before[0], qm.q5k_q8_gemv_launches - before[1]) == (
+            1, 1)
+        want5 = qm.q4k_bf16_gemv_plain(x, qs, scale, minv, torch.float32)
+        want9 = qm.q5k_q8_gemv_plain(x, qs, qh, scale, minv, torch.float32)
+        assert y5.dtype == y9.dtype == out_dt
+        assert bool(torch.isfinite(y5).all()) and bool(torch.isfinite(y9).all())
+        if out_dt == torch.float32:
+            assert _rel_err(y5, want5) <= 1e-4
+            assert _within(y9, want9)
+        else:  # one bf16 rounding of the f32 result
+            assert _rel_err(y5.float(), want5) <= 1e-2 and _rel_err(y9.float(), want9) <= 1e-2
 
 
 @pytest.mark.parametrize("K,O", [(512, 256), (1024, 272), (4096, 128)])
@@ -1581,7 +1675,7 @@ BF16_ROWS = [1, 5, 16, 17, 64, 256]
 def test_q4k_bf16_gemv_matches_plain(dev, B, K, O):
     """K5: the same bf16 x and exact nibbles on both sides; f32 sums of bf16
     products in another order, the scale on each sub-block's sum (1e-4 of
-    max |y|, as K4). Up to 16 rows its 16-row instantiation, above its rows
+    max |y|, as K4). Up to 16 rows its decode instantiation, above its rows
     instantiation (the weight as two exact bf16 parts)."""
     qs, _, scale, minv = _q5k_arrays(dev, K, O, B + K)
     x = _acts(B, K, dev, B).to(torch.bfloat16)
@@ -1748,7 +1842,7 @@ def test_q8_0_rows_decode_is_bit_equal_to_the_plain_weight(dev, K, O, sdt):
 
 
 def test_k5_k8_rows_count_apart(dev):
-    """At 16 rows K5 and K8 launch their 16-row instantiations, at 17 their
+    """At 16 rows K5 and K8 launch their decode instantiations, at 17 their
     rows instantiations, each counted apart."""
     K, O = 1024, 256
     qs, _, scale, minv = _q5k_arrays(dev, K, O, 9)

@@ -169,14 +169,10 @@ Q5K_SHAPES = [("qk", 4096, 5120), ("o", 4096, 4096), ("gate|up", 4096, 28672),
               ("down", 14336, 4096)]
 
 
-def carve_row_major(B, K, O, gs, sum_gs, ksplit):
-    """csrc/common.cuh::carve in the row-major layout of the 16-row kernels
-    (K9's, K10's): xq [B, K] and xs unless gs is 0, xsum unless sum_gs is
-    0, and always the partials [ksplit, B, O]; bpad is B rounded up to 16."""
-    bpad = (B + 15) // 16 * 16
-    sizes = ([B * K, (K // gs) * bpad * 4] if gs else []) + (
-        [(K // sum_gs) * bpad * 4] if sum_gs else []) + [ksplit * B * O * 4]
-    return sum(_align256(n) for n in sizes)
+def carve_row_major(B, O, ksplit):
+    """csrc/common.cuh::carve in the row-major layout of K9b's 16-row
+    kernel (no x pieces): the partials [ksplit, B, O] alone."""
+    return _align256(ksplit * B * O * 4)
 
 
 def check_rows_grid(B, O, sms, plan):
@@ -193,18 +189,27 @@ def check_rows_grid(B, O, sms, plan):
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("name,K,O", Q5K_SHAPES)
 def test_q5k_q8_plan(name, K, O, sms):
-    """K9: its 16-row kernel up to 16 rows (grid (column tiles, K splits,
-    1), the row-major workspace), K1's rows plan above, whose K splits
-    take whole groups of 4 pairs and none is empty at these shapes."""
+    """K9: its decode instantiation up to 16 rows (grid (K splits, column
+    tiles, 1), a cluster of the splits, each split whole 256-element steps
+    and none empty, the ring's stages of the 24 KB step at 128 columns,
+    the decode workspace: x's codes of 16 rows, scales and sums per 32, no
+    partials), K1's rows plan above, whose K splits take whole groups of 4
+    pairs and none is empty at these shapes."""
     groups = K // 256
     for B in range(1, 257):
         plan = qm.q5k_q8_plan(B, K, O, sms)
         ks = plan.ksplit
         assert 1 <= ks <= groups, (B, plan)
         if B <= 16:
-            assert plan.rows == 16 and plan.grid == (-(-O // 128), ks, 1), (B, plan)
-            assert (plan.cluster, plan.cols, plan.stages) == (1, 128, 0), (B, plan)
-            assert plan.ws_bytes == carve_row_major(B, K, O, 32, 32, ks), (B, plan)
+            assert plan.rows == 16 and plan.cols in (64, 128), (B, plan)
+            assert plan.grid == (ks, -(-O // plan.cols), 1) and plan.cluster == ks <= 8, (B, plan)
+            per = qm.dec_per_split(groups, ks, 1)
+            assert (ks - 1) * per < groups <= ks * per, (B, plan)
+            assert qm.Q5K_STEP_COL_BYTES == 128 + 32 + 2 * 8 * 2
+            assert plan.stages == -(-32768 // (plan.cols * 192)), (B, plan)
+            bpad, pieces, total = carve(B, K, O, 32, 32, ks, 16)
+            assert bpad == 16 and "part" not in pieces and plan.ws_bytes == total, (B, plan)
+            assert pieces["xq"][1] == 16 * K and pieces["xsum"][1] == (K // 32) * 16 * 4
             continue
         assert plan == qm.int8_gemv_plan(B, K, O, K // 64, 32, 32, sms)
         check_rows_grid(B, O, sms, plan)
@@ -521,7 +526,7 @@ def test_q5k_hbit_bf16_plan(sms):
                 assert plan.rows == 16 and plan.grid == (-(-O // 128), ks, 1), (B, plan)
                 assert ks == qm._ksplit_for(O, B, units, sms), (B, plan)
                 assert (plan.cluster, plan.cols, plan.stages) == (1, 128, 0), (B, plan)
-                assert plan.ws_bytes == carve_row_major(B, K, O, 0, 0, ks), (B, plan)
+                assert plan.ws_bytes == carve_row_major(B, O, ks), (B, plan)
                 continue
             assert plan == qm.plane_gemv_plan(B, K, O, 1, 32, sms, zs=False)
             check_rows_grid(B, O, sms, plan)
@@ -545,9 +550,10 @@ def test_plane_slice_steps_without_the_zs_term():
 
 @pytest.mark.parametrize("sms", [132, 114])
 def test_q4k_bf16_plan(sms):
-    """K5: its 16-row kernel up to 16 rows (today's launch: grid (column
-    tiles, K splits, 1), the split by _ksplit_for over sub-block pairs, the
-    row-major workspace with the per-32 sums); above, the rows kernel on
+    """K5: K10's 4-bit decode plan at group 32 up to 16 rows (grid (K
+    splits, column tiles, 1), a cluster of the splits over K/64 steps of 32
+    byte rows, the ring stages of a 4-bit stage, no workspace); above, the
+    rows kernel on
     K10's 4-bit grid at group 32 (K split at zs slices of 16 main steps,
     only to fill one wave, none empty), the ring stages of a stage with two
     decoded tiles (32-element steps: 6 at 128 rows, 9 at 64) and carve's
@@ -562,10 +568,12 @@ def test_q4k_bf16_plan(sms):
             plan = qm.q4k_bf16_plan(B, K, O, sms)
             ks = plan.ksplit
             if B <= 16:
-                assert plan.rows == 16 and plan.grid == (-(-O // 128), ks, 1), (B, plan)
-                assert ks == qm._ksplit_for(O, B, K // 64, sms), (B, plan)
-                assert (plan.cluster, plan.cols, plan.stages) == (1, 128, 0), (B, plan)
-                assert plan.ws_bytes == carve_row_major(B, K, O, 0, 32, ks), (B, plan)
+                assert plan == qm.plane_dec_plan(B, K, O, 4, 32, sms), (B, plan)
+                assert plan.rows == 16 and plan.grid == (ks, -(-O // plan.cols), 1), (B, plan)
+                assert plan.cluster == ks <= 8 and plan.ws_bytes == 0, (B, plan)
+                per = qm.dec_per_split(K // 64, ks, 1)
+                assert (ks - 1) * per < K // 64 <= ks * per, (B, plan)
+                assert plan.stages == -(-32768 // (plan.cols * (32 + 2 * 2 * 2 * 2))), (B, plan)
                 continue
             assert plan == qm.plane_gemv_plan(B, K, O, 4, 32, sms, parts=2, elems=E)
             check_rows_grid(B, O, sms, plan)
@@ -681,10 +689,10 @@ def test_plane_stage_counts_the_scale_width():
 
 def test_k5_k8_take_their_plans_and_the_64_row_tiles_are_gone():
     """Nothing sizes the 16-row design's 64-row tiles any more, and each
-    wrapper names both of its instantiations (K5: the 16-row one; K8: the
-    decode one, plane_dec_kernel)."""
+    wrapper names both of its instantiations (K5's and K8's decode one:
+    plane_dec_kernel)."""
     assert not hasattr(qm, "_plane_rows")
-    for fn, small in ((qm.q4k_bf16_gemv, "16-row instantiation"),
+    for fn, small in ((qm.q4k_bf16_gemv, "decode instantiation (plane_dec_kernel"),
                       (qm.q8_0_bf16_gemv, "decode instantiation (plane_dec_kernel")):
         doc = " ".join(fn.__doc__.split())
         assert small in doc and "rows instantiation" in doc, fn
@@ -693,3 +701,26 @@ def test_k5_k8_take_their_plans_and_the_64_row_tiles_are_gone():
     assert qm.q4k_bf16_plan(17, 4096, 28672, 132).rows == 64
     assert qm.q8_0_bf16_plan(16, 4096, 32768, True, 132).rows == 16
     assert qm.q8_0_bf16_plan(17, 4096, 32768, True, 132).rows == 64
+
+
+def test_k5_k9_decode_plans_at_the_main_path_shapes():
+    """At 1-16 rows on 132 SMs, the Q5_K projections' decode plans the card
+    runs: q|k, o and down in clusters of 8 K splits, gate|up unsplit (224
+    column tiles of 128 fill the card), 128 columns a block everywhere; K5
+    on 4-bit 32-byte-row steps (K/64 of them, 6 stages), K9 on 256-element
+    steps (K/256, 2 stages of 24 KB at 128 columns); no workspace for K5,
+    K9's decode layout (no partials) for K9; neither plan depends on B."""
+    want = {  # (K, O) -> K5's grid, K9's grid
+        (4096, 5120): ((8, 40, 1), (8, 40, 1)), (4096, 4096): ((8, 32, 1), (8, 32, 1)),
+        (4096, 28672): ((1, 224, 1), (1, 224, 1)), (14336, 4096): ((8, 32, 1), (8, 32, 1))}
+    for (K, O), (g5, g9) in want.items():
+        k5 = {qm.q4k_bf16_plan(B, K, O, 132) for B in range(1, 17)}
+        k9 = {dataclasses.replace(qm.q5k_q8_plan(B, K, O, 132), ws_bytes=0) for B in range(1, 17)}
+        assert len(k5) == len(k9) == 1, (K, O)
+        p5, p9 = k5.pop(), k9.pop()
+        assert (p5.grid, p5.cluster, p5.cols, p5.stages, p5.ws_bytes) == (g5, g5[0], 128, 6, 0)
+        assert (p9.grid, p9.cluster, p9.cols, p9.stages) == (g9, g9[0], 128, 2)
+        for B in (1, 16):
+            ws = qm.q5k_q8_plan(B, K, O, 132).ws_bytes
+            assert ws == carve(B, K, O, 32, 32, g9[0], 16)[2] == _align256(16 * K) + 2 * _align256(
+                (K // 32) * 16 * 4)

@@ -1,12 +1,16 @@
-"""The decode instantiation of K8 (q8_0_bf16_gemv) and K10 (affine_gemv) at
-1-16 rows, csrc/plane_gemv.cuh plane_dec_kernel, walked on the CPU: the
+"""The decode instantiation of K8 (q8_0_bf16_gemv), K10 (affine_gemv) and K5
+(q4k_bf16_gemv) at 1-16 rows, csrc/plane_gemv.cuh plane_dec_kernel, walked
+on the CPU: the
 plan's clusters of K splits, each split's steps of R byte rows (64 at 8
 bits, 32 below), the boxes of a step (q as [Kp][O]; scale and zs seen as
 [planes][Kp/group][O], nr rows a plane from the step's first group; x seen
 as [B][planes][Kp]), the walk that finds each 16 rows' scale row, the
 weight pairs' bit tricks (prmt, the sign-extended select, one bf16 fma)
 and the zs term as a second product with -zs, added over the cluster in
-rank order, against the plain versions. The kernel itself runs only on the
+rank order, against the plain versions; for K5 (Q4kFmt, kScaleOnAcc) the
+raw nibbles as the A operand, each 32-row group's fresh dots times the
+column's scale on the sums, and the min term as x's group sums (an
+all-ones product) times -minv. The kernel itself runs only on the
 card (tests/test_torch_cuda.py)."""
 
 import numpy as np
@@ -148,10 +152,12 @@ def _rows(t, r0, n):
     return out
 
 
-def walk(x, q, scale, zs, bits, group, plan, signed):
+def walk(x, q, scale, zs, bits, group, plan, signed, scale_on_acc=False):
     """What plane_dec_kernel computes under `plan`: y [B, O] f32. x [B, K]
     bf16, q [Kp, O] (int8 for K8), scale [K/group, O] bf16 or f32, zs
-    [K/group, O] bf16 or None."""
+    [K/group, O] bf16 or None; scale_on_acc: K5's format (the codes
+    themselves in the products, a group's dots times its scale, its x sums
+    times -zs)."""
     B, K = x.shape
     Kp, O = q.shape
     per = 8 // bits
@@ -189,13 +195,21 @@ def walk(x, q, scale, zs, bits, group, plan, signed):
                     codes = ((qbox >> (bits * j)) & mask)
                     if signed:
                         codes = codes - 256 * (codes >= 128)
+                    d = torch.zeros(ROWS, C)  # scale_on_acc: the group's fresh fragment
+                    xs = torch.zeros(ROWS, 1)  # scale_on_acc: x's sums over the group
                     for h in range(R // 16):
-                        sc = sbox[srow[h], j].to(torch.bfloat16)
-                        w = (codes[16 * h:16 * h + 16].to(torch.bfloat16) * sc).float()
                         xh = xbox[:, j, 16 * h:16 * h + 16]
-                        acc += xh @ w
+                        if scale_on_acc:  # the exact codes; one group a step
+                            assert srow[h] == 0
+                            d += xh @ codes[16 * h:16 * h + 16].float()
+                            xs += xh @ torch.ones(16, 1)  # A all ones
+                            continue
+                        sc = sbox[srow[h], j].to(torch.bfloat16)
+                        acc += xh @ (codes[16 * h:16 * h + 16].to(torch.bfloat16) * sc).float()
                         if zv is not None:  # the second product: A = -zs
                             acc += xh @ (-zbox[srow[h], j]).expand(16, C)
+                    if scale_on_acc:  # two FFMAs a (row, column, group)
+                        acc += d * sbox[0, j] - xs * zbox[0, j]
                 rem += R  # PlaneGroupWalk.step
                 while rem >= group:
                     rem -= group
@@ -290,3 +304,80 @@ def test_decode_steps_read_every_weight_byte_and_scale_row(bits, group, K):
             rem -= group
             g += 1
     assert seen == list(range(Kp))
+
+
+# ---- K5: the Q4_K format (kScaleOnAcc) ----
+
+
+def test_k5_nibble_pairs_are_the_exact_codes():
+    """K5's A words: the 0x43cc pair of a nibble (bf16 128 + c) times 1 plus
+    -128 in one fma.rn.bf16x2 is bf16(c) exactly, for every code of every
+    byte (low and high nibbles, shifted down and masked as the consumer
+    does), in K order."""
+    cw_all = np.arange(256, dtype=np.uint32)
+    for shift in (0, 4):
+        codes = (cw_all >> shift) & 0xF
+        # word k: the codes of bytes k, k+1, k+2, k+3 (mod 256) in bytes 0..3
+        words = np.stack([codes[(np.arange(256) + i) % 256] for i in range(4)], axis=-1)
+        cw = words[:, 0] | (words[:, 1] << 8) | (words[:, 2] << 16) | (words[:, 3] << 24)
+        lo = fma_bf16x2(prmt(cw, 0x43, 0x4140), 0x3F803F80, 0xC300C300)
+        hi = fma_bf16x2(prmt(cw, 0x43, 0x4342), 0x3F803F80, 0xC300C300)
+        got = pair_values((lo, hi))
+        want = round_bf16(words.astype(np.float64))
+        assert np.array_equal(got, want), shift
+
+
+def _q4k(K, O, seed):
+    rng = np.random.default_rng(seed)
+    qs = torch.from_numpy(rng.integers(0, 256, (K // 2, O), dtype=np.uint8))
+    scale = torch.from_numpy(rng.uniform(0.001, 0.005, (K // 32, O)).astype(np.float32))
+    minv = torch.from_numpy(rng.uniform(0.0, 0.002, (K // 32, O)).astype(np.float32))
+    return qs, scale.to(torch.bfloat16), minv.to(torch.bfloat16)
+
+
+# K5 at the tests' shapes: one step a split and several, a partial column
+# tile, 64- and 128-column blocks
+K5_CASES = [(512, 272), (2048, 144), (1024, 64), (4096, 272)]
+
+
+@pytest.mark.parametrize("B", [1, 4, 9, 16])
+@pytest.mark.parametrize("K,O", K5_CASES)
+def test_k5_decode_walk_matches_plain(K, O, B):
+    """K5 on plane_dec_kernel: the paired nibbles as the 4-bit planes (qs
+    row r: element r low, K/2 + r high), scale and minv seen as
+    [2][K/64][O] (one row a plane a step), x as [B][2][K/2]; per plane and
+    step the two halves' products of x with the raw nibbles into a fresh
+    fragment, times the column's scale onto the sums, and the min term as
+    x's sums over the group (an all-ones product) times -minv, added over
+    the cluster in rank order:
+    the plain version (each sub-block's f32 dot times its scale, minus the
+    per-32 sums of x @ minv) to 1e-5 of max |y|, with one split and with
+    clusters."""
+    qs, scale, minv = _q4k(K, O, K + O + B)
+    x = _x(B, K, B + 4)
+    want = qm.q4k_bf16_gemv_plain(x, qs, scale, minv, torch.float32)
+    splits = set()
+    for sms in (132, 4):
+        plan = qm.q4k_bf16_plan(B, K, O, sms)
+        assert plan == qm.plane_dec_plan(B, K, O, 4, 32, sms) and qm.plane_dec_rows(4, 32) == 1
+        splits.add(plan.ksplit)
+        got = walk(x, qs, scale, minv, 4, 32, plan, signed=False, scale_on_acc=True)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()), plan
+    assert max(splits) > 1 or K == 512
+
+
+def test_k5_rounded_weight_would_miss_the_tolerance():
+    """Why K5 keeps the scale on the accumulator: K10's walk of the same
+    arrays (the weight rounded to bf16(q * s)) moves y by more than K5's
+    1e-4 of max |y| on random Q4_K codes, the walk with the scale on the
+    accumulator by under 1e-5."""
+    K, O, B = 4096, 272, 16
+    qs, scale, minv = _q4k(K, O, 7)
+    x = _x(B, K, 8)
+    want = qm.q4k_bf16_gemv_plain(x, qs, scale, minv, torch.float32)
+    plan = qm.q4k_bf16_plan(B, K, O, 132)
+    top = float(want.abs().max())
+    rounded = walk(x, qs, scale, minv, 4, 32, plan, signed=False)
+    exact = walk(x, qs, scale, minv, 4, 32, plan, signed=False, scale_on_acc=True)
+    assert float((rounded - want).abs().max()) > 1e-4 * top
+    assert float((exact - want).abs().max()) <= 1e-5 * top

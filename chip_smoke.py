@@ -27,8 +27,10 @@ non-zero and never prints the final line):
    requantized to int8 per 32 (rq8); the plane-affine GEMV K10 at 1, 4 and
    16 rows in every layout, and K8 at 1, 4 and 16 at v, q|k, gate|up, down
    and the lm_head, with the kernels the card runs a call at 16 (one each);
-   K9 at 1, 4 and 16 rows (two a call at 16) and K5 at q|k, o, gate|up and
-   down at 1, 4 and 16 (one a call at 16).
+   K9 at 1, 4 and 16 rows (two a call at 16), K5 at q|k, o, gate|up and
+   down at 1, 4 and 16 (one a call at 16) and K9b's decode instantiation
+   (the whole Q5_K x bf16 product) at the same (one a call of the
+   dispatcher at each).
    K1, K2 and K9 also at 64, 128 and 256 rows (K9 at 17 too), K10 at 64 and
    256 in every layout, K4 (the Q6_K bf16 GEMV) at 17, 64, 128 and 256: the
    rows instantiations.
@@ -75,9 +77,9 @@ non-zero and never prints the final line):
 9. card_vs_cpu: a 2-layer full-width model with identical weights on the card
    (kernels, bf16) and on the CPU (plain versions, f32): one 256-token
    prefill and 4 decode steps, logits compared, in the Q4_K_M mix, in
-   the Q5_K_M mix with Q6_K kept (with int8 activations, and without: K5,
-   K9b and K4 in both their instantiations, the only served path of K4's
-   16-row one) and in the Q2_K mix; then on head-major
+   the Q5_K_M mix with Q6_K kept (with int8 activations, and without: K9b
+   and K4 in both their instantiations and K5's rows one, the only served
+   path of K4's 16-row one) and in the Q2_K mix; then on head-major
    pools a 512-token first chunk, a 512-token continuation chunk and 4
    decode steps at a table width of 256 pages (K6, K6', K7 on the card).
 10. card_vs_cpu_gemma2: the same for a 2-layer Gemma-2-9B (one local and
@@ -121,19 +123,23 @@ non-zero and never prints the final line):
    a 32-layer file in llama.cpp's Q5_K_M rule (random wire blocks, ~5 GB)
    written by the port's writer into a temporary directory, loaded by
    load_gguf_model and served through Engine/TextPipeline with
-   PipelineConfig(int8_activations=False) in the slice phase's pattern: K5
-   and K9b for every Q5_K projection and K8 for the requantized Q6_K ones up
-   to 256 rows, the Q5_K and int8 dequant kernels above, K6. It raises
-   unless both instantiations of K5, K9b and K8, and K6 launched and no
-   int8 GEMV (K1, K2, K3, K9) did;
+   PipelineConfig(int8_activations=False) in the slice phase's pattern:
+   K9b's decode instantiation (the whole Q5_K product, one launch) for
+   every Q5_K projection at decode, K5's and K9b's rows instantiations at
+   17-256 rows, K8 for the requantized Q6_K ones up to 256 rows, the Q5_K
+   and int8 dequant kernels above, K6. It raises unless both
+   instantiations of K9b and K8, K5's rows one and K6 launched, and if K5's
+   decode instantiation or an int8 GEMV (K1, K2, K3, K9) did;
    its line gives the write, read, embedding-dequant and load times apart.
 17. card_vs_cpu_bf16: phase 9's comparison with int8_activations=False for
-   2-layer full-width GGUF files in the Q4_K_M rule (K5, K8) and the Q5_K_M
-   rule (K5, K9b, K8), each loaded by load_gguf_model on each side; and,
+   2-layer full-width GGUF files in the Q4_K_M rule (K5, K8: K5's decode
+   instantiation's served path) and the Q5_K_M rule (K5's rows, K9b, K8),
+   each loaded by load_gguf_model on each side; and,
    as a control, the same files with int8 activations (K1, K9, K2).
 The kernel phase also holds K5, K9b and K8 against their plain versions at
-the gguf_bf16 path's shapes (K9b at gate|up at 1, 16, 17, 64, 128 and 256
-rows; q|k, o, down; K5 at all four at 1, 4 and 16 rows; K5's and K8's rows
+the gguf_bf16 path's shapes (K9b's rows instantiation at gate|up at 17, 64,
+128 and 256 rows; q|k, o, down; K5 and K9b's decode instantiation at all
+four at 1, 4 and 16 rows; K5's and K8's rows
 instantiations at 17, 64 and 256 rows;
 K8 also at v and the lm_head on rq8 and wire Q8_0 scales, its decode
 instantiation at 1, 4 and 16 rows), K12 against its plain
@@ -227,8 +233,10 @@ KERNEL_INFO = {
                       "mistralrs_tpu/ops/quant_matmul.py:67"),
     "q8_0_bf16_gemv": ("mistralrs_tpu_torch/csrc/q8_0_bf16_gemv.cu",
                        "mistralrs_tpu/ops/quant_matmul.py:1197"),
-    "q5k_hbit_bf16_gemv": ("mistralrs_tpu_torch/csrc/q5k_hbit_bf16_gemv.cu",
-                           "mistralrs_tpu/ops/quant_matmul.py:658"),
+    # K9b's decode instantiation (1-16 rows): the whole Q5_K x bf16 product
+    # (_q4k_kernel's and _q5k_hbit_kernel's sums and JAX's add), one launch
+    "q5k_bf16_gemv": ("mistralrs_tpu_torch/csrc/q5k_bf16_gemv.cu",
+                      "mistralrs_tpu/ops/quant_matmul.py:658"),
     "q5k_hbit_bf16_gemv_rows": ("mistralrs_tpu_torch/csrc/q5k_hbit_bf16_gemv.cu",
                                 "mistralrs_tpu/ops/quant_matmul.py:658"),
     # K5's and K8's rows instantiations (17-256 rows), counted apart
@@ -250,7 +258,7 @@ HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
             "affine_dequant": "gate|up q2k", "splash_prefill": "gemma2-9b B=4 T=512",
             "ragged_attention": "mistral B=16 kv=4096 decode", "grouped_gemm": "gate M=32 decode",
             "q4k_bf16_gemv": "gate|up B=16", "q8_0_bf16_gemv": "lm_head B=16",
-            "q5k_hbit_bf16_gemv": "gate|up B=16", "q5k_hbit_bf16_gemv_rows": "gate|up B=256",
+            "q5k_bf16_gemv": "gate|up B=16", "q5k_hbit_bf16_gemv_rows": "gate|up B=256",
             "q4k_bf16_gemv_rows": "gate|up B=256", "q8_0_bf16_gemv_rows": "lm_head B=256"}
 # the kernels each serving phase's path adds (long_context also runs the
 # slice path's, quant_mix also flash_prefill, q2k also the slice path's,
@@ -260,7 +268,10 @@ HEADLINE = {"q4k_q8_gemv": "gate|up B=16", "q8_0_q8_gemv": "lm_head B=16",
 # Q5_K and int8 dequant kernels); K4's 16-row instantiation is served only
 # where Q6_K is kept with bf16 activations, in card_vs_cpu's run of that
 # mix (with int8 activations K3 takes every Q6_K shape at up to 16 rows);
-# the line's launches of each kernel come from the phase of its path
+# K5's decode instantiation only by a Q4_K_M model with bf16 activations,
+# card_vs_cpu_bf16's Q4_K_M run (the Q5_K_M rule has no Q4_K tensor, and
+# K9b's decode instantiation takes its Q5_K ones at 1-16 rows); the line's
+# launches of each kernel come from the phase of its path
 PATH_KERNELS = {
     "slice": ("q4k_q8_gemv", "q8_0_q8_gemv", "q4k_q8_gemv_rows", "q8_0_q8_gemv_rows",
               "flash_prefill", "q4k_dequant", "q8_0_dequant"),
@@ -271,9 +282,10 @@ PATH_KERNELS = {
     "gemma2": ("splash_prefill",),
     "gemma2_ragged": ("ragged_attention",),
     "mixtral": ("grouped_gemm",),
-    "gguf_bf16": ("q4k_bf16_gemv", "q8_0_bf16_gemv", "q5k_hbit_bf16_gemv",
-                  "q5k_hbit_bf16_gemv_rows", "q4k_bf16_gemv_rows", "q8_0_bf16_gemv_rows"),
+    "gguf_bf16": ("q5k_bf16_gemv", "q8_0_bf16_gemv", "q5k_hbit_bf16_gemv_rows",
+                  "q4k_bf16_gemv_rows", "q8_0_bf16_gemv_rows"),
     "card_vs_cpu_q5km_bf16": ("q6k_bf16_gemv",),
+    "card_vs_cpu_bf16_q4km": ("q4k_bf16_gemv",),
 }
 # each kernel's launch counter: (module under mistralrs_tpu_torch.ops, name)
 COUNTERS = {
@@ -301,7 +313,7 @@ COUNTERS = {
     "grouped_gemm": ("grouped_gemm", "grouped_gemm_launches"),
     "q4k_bf16_gemv": ("quant_matmul", "q4k_bf16_gemv_launches"),
     "q8_0_bf16_gemv": ("quant_matmul", "q8_0_bf16_gemv_launches"),
-    "q5k_hbit_bf16_gemv": ("quant_matmul", "q5k_hbit_bf16_gemv_launches"),
+    "q5k_bf16_gemv": ("quant_matmul", "q5k_bf16_gemv_launches"),
     "q5k_hbit_bf16_gemv_rows": ("quant_matmul", "q5k_hbit_bf16_gemv_rows_launches"),
     "q4k_bf16_gemv_rows": ("quant_matmul", "q4k_bf16_gemv_rows_launches"),
     "q8_0_bf16_gemv_rows": ("quant_matmul", "q8_0_bf16_gemv_rows_launches"),
@@ -808,22 +820,28 @@ def bound(bytes_moved: float, ops: float, peak_ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernels_a_call(fn, calls: int = 8) -> float:
+def kernels_a_call(fn, calls: int = 8, tries: int = 3) -> float:
     """The kernels the card runs for one call of fn: kernel events of a
     torch.profiler trace of `calls` calls, over `calls` (a trace that drops
-    events would count fewer)."""
+    events would count fewer). A trace with no kernel event at all, which
+    a profiler session in a long process can come back as, is taken again,
+    up to `tries` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if getattr(e.device_type, "name", "") == "CUDA"
-               and e.self_device_time_total > 0) / calls
+    n = 0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if getattr(e.device_type, "name", "") == "CUDA" and e.self_device_time_total > 0)
+        if n:
+            break
+    return n / calls
 
 
 def gemv_decode_line(results: dict, per_call: dict) -> dict:
@@ -850,8 +868,9 @@ def gemv_decode_line(results: dict, per_call: dict) -> dict:
 
 def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
     """Parity and timing of K1, K2, K4, K9, K10, K5, K8 and K9b (both
-    instantiations of each), K3, K6, the dequant kernels, K6', K7, K11, K12
-    and K13 at the main paths' shapes."""
+    instantiations of each; K9b's decode one the whole Q5_K product), K3,
+    K6, the dequant kernels, K6', K7, K11, K12 and K13 at the main paths'
+    shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -964,6 +983,7 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
     affine_kernels(sz, device, clock, *inputs("affine"), record)
     bf16_kernels(sz, device, clock, *inputs("bf16"), record)
     k5_kernels(sz, device, clock, *inputs("k5"), record)
+    q5k_bf16_kernels(sz, device, clock, *inputs("q5k_bf16"), record)
     bf16_rows_kernels(sz, device, clock, inputs("k5_rows"), inputs("k8_rows"), record)
 
     # K6: first prefill chunks
@@ -1000,11 +1020,12 @@ def kernel_phase(sz: Sizes, device, clock: Clock) -> dict:
 
 
 # the row counts K9, K4 and K9b are timed at: K9's decode instantiation at
-# 16, 4 and 1 (K9b's 16-row kernel at 16 and 1), the rows instantiation at
-# 17, 64, 128 and 256; K3 at its decode row counts, K4 at those and its rows
-# ones
+# 16, 4 and 1, the rows instantiation at 17, 64, 128 and 256 (K9b's high-bit
+# kernel runs at those only: its decode instantiation, the whole Q5_K
+# product, in q5k_bf16_kernels); K3 at its decode row counts, K4 at those
+# and its rows ones
 K9_ROWS = (16, 4, 1, 17, 64, 128, 256)
-K9B_ROWS = (16, 1, 17, 64, 128, 256)
+K9B_ROWS = (17, 64, 128, 256)
 K3_ROWS = (16, 4, 1)
 K4_ROWS = (16, 4, 1, 17, 64, 128, 256)
 
@@ -1195,13 +1216,13 @@ def affine_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
 
 
 def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
-    """Parity and timing of K8's decode instantiation and K9b (both
-    instantiations), GEMVs of int8_activations=False, at the shapes of the
-    gguf_bf16 path (K5's decode instantiation: k5_kernels): K9b at gate|up
-    at 1, 16, 17, 64, 128 and 256 rows, at q|k and down at 16, 17, 64 and
-    256 and at o at 17, 64 and 256 (the rows instantiation's K splits: one at gate|up,
-    several at the others; `splits` on each row, and the phase raises unless
-    both were compared); K8 on rq8 weights (f32 scales per 32) at v, q|k,
+    """Parity and timing of K8's decode instantiation and K9b's rows
+    instantiation, GEMVs of int8_activations=False, at the shapes of the
+    gguf_bf16 path (K5's and K9b's decode instantiations: k5_kernels,
+    q5k_bf16_kernels): K9b's high-bit kernel at gate|up at 17, 64, 128 and
+    256 rows, at q|k, o and down at 17, 64 and 256 (its K splits: one at
+    gate|up, several at the others; `splits` on each row, and the phase
+    raises unless both were compared); K8 on rq8 weights (f32 scales per 32) at v, q|k,
     gate|up, down and the lm_head (32768 columns), and on wire Q8_0 (bf16
     scales) at the lm_head, each at 1, 4 and 16 rows (at 16 with the
     kernels the card runs a call, which raises past one). Random codes,
@@ -1226,9 +1247,9 @@ def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
     sms = kernels.sm_count(device)
     # (shape, K, O, K9b's rows)
     shapes = [("gate|up", H, 2 * I, K9B_ROWS),
-              ("qk", H, (sz.heads + sz.kv_heads) * D, (16, 17, 64, 256)),
+              ("qk", H, (sz.heads + sz.kv_heads) * D, (17, 64, 256)),
               ("o", sz.heads * D, H, (17, 64, 256)),
-              ("down", I, H, (16, 17, 64, 256))]
+              ("down", I, H, (17, 64, 256))]
     splits = set()  # K splits of the rows instantiation compared
     for nm, K, O, k9b_rows in shapes:
         qs = rand(K // 2, O, lo=0.0, hi=256.0).to(torch.uint8)
@@ -1244,10 +1265,8 @@ def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
             err, rel = compare(qm.q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=torch.float32),
                                qm.q5k_hbit_bf16_gemv_plain(x, qh, scale, torch.float32))
             ks = qm.q5k_hbit_bf16_plan(B, K, O, sms).ksplit
-            if B > 16:
-                splits.add(ks)
-            record("q5k_hbit_bf16_gemv" if B <= 16 else "q5k_hbit_bf16_gemv_rows", f"{nm} B={B}",
-                   err, rel, 1e-4,
+            splits.add(ks)
+            record("q5k_hbit_bf16_gemv_rows", f"{nm} B={B}", err, rel, 1e-4,
                    clock.ms(lambda: qm.q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=fdt)),
                    clock.ms(lambda: qm.q5k_hbit_bf16_gemv_plain(x, qh, scale, fdt)),
                    clock.ms(lambda: torch.matmul(x, wh)),
@@ -1288,6 +1307,67 @@ def bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
                    int8_ms=clock.ms(lambda: qm.q8_0_q8_gemv(x, q, s, 32, out_dtype=fdt)),
                    **per_call)
         del q, s, w8
+
+
+def bf16_ulp(v: float) -> float:
+    """One bf16 ulp at |v| (2^(floor(log2 |v|) - 7))."""
+    return 2.0 ** (np.floor(np.log2(abs(v))) - 7)
+
+
+def q5k_bf16_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
+    """Parity and timing of K9b's decode instantiation (q5k_bf16_gemv: the
+    whole Q5_K x bf16 product at 1-16 rows, one launch a call) at every
+    Q5_K projection of the gguf_bf16 path (q|k, o, gate|up, down) at 1, 4
+    and 16 rows: the f32 out within 1e-5 of max |y| of the plain version's
+    (the same bf16 x, exact nibbles and bits; f32 sums in another order)
+    and the bf16 out (JAX's roundings, bf16(bf16(y4) + 16 * bf16(yh))) within
+    one bf16 ulp of max |y| (`bf16_err` in ulps); at every row count the
+    kernels the card runs for one call of the dispatcher (q5k_matmul with
+    int8_act off), which raises unless it is one. Random codes, scale
+    U[0.001, 0.005), minv U[0, 0.002). library = torch.matmul on the
+    dequantized bf16 Q5_K weight; int8_ms = K9 on the same weight and x;
+    route_ms = the dispatcher's call."""
+    import torch
+
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+    from mistralrs_tpu_torch.quant.qlinear import Linear
+
+    H, I, D = sz.hidden, sz.inter, sz.head_dim
+    fdt = torch.bfloat16
+    for nm, K, O in [("qk", H, (sz.heads + sz.kv_heads) * D), ("o", sz.heads * D, H),
+                     ("gate|up", H, 2 * I), ("down", I, H)]:
+        qs = rand(K // 2, O, lo=0.0, hi=256.0).to(torch.uint8)
+        qh = rand(K // 8, O, lo=0.0, hi=256.0).to(torch.uint8)
+        scale = rand(K // 32, O, lo=0.001, hi=0.005, dtype=fdt)
+        minv = rand(K // 32, O, lo=0.0, hi=0.002, dtype=fdt)
+        w5 = qm.q5k_dequant(qs, qh, scale, minv, fdt)
+        q5 = Linear("gguf_q5k", (K, O), {"qs": qs, "qh": qh, "scale": scale, "minv": minv},
+                    int8_act=False)
+        w_bytes = K // 2 * O + K // 8 * O + 2 * (K // 32) * O * 2
+        for B in (1, 4, 16):
+            x = torch.randn(B, K, device=device, generator=gen).to(fdt)
+            got = qm.q5k_bf16_gemv(x, qs, qh, scale, minv, out_dtype=torch.float32)
+            want = qm.q5k_bf16_gemv_plain(x, qs, qh, scale, minv, torch.float32)
+            err = float((got - want).abs().max())
+            top = max(float(want.abs().max()), 1e-30)
+            got16 = qm.q5k_bf16_gemv(x, qs, qh, scale, minv, out_dtype=fdt).float()
+            want16 = qm.q5k_bf16_gemv_plain(x, qs, qh, scale, minv, fdt).float()
+            ulps = float((got16 - want16).abs().max()) / bf16_ulp(top)
+            if ulps > 1.0:
+                raise AssertionError(f"q5k_bf16_gemv {nm} B={B}: bf16 out {ulps} ulps of max |y|")
+            n = kernels_a_call(lambda: qm.q5k_matmul(q5, x))
+            if n != 1:
+                raise AssertionError(f"q5k_matmul {nm} B={B}: {n} kernels a call, not one")
+            record("q5k_bf16_gemv", f"{nm} B={B}", err, err / top, 1e-5,
+                   clock.ms(lambda: qm.q5k_bf16_gemv(x, qs, qh, scale, minv, out_dtype=fdt)),
+                   clock.ms(lambda: qm.q5k_bf16_gemv_plain(x, qs, qh, scale, minv, fdt)),
+                   clock.ms(lambda: torch.matmul(x, w5)),
+                   bound(B * K * 2 + w_bytes + B * O * 2, 2 * B * K * O, PEAK_BF16),
+                   bf16_err=ulps, kernels_a_call=n,
+                   route_ms=clock.ms(lambda: qm.q5k_matmul(q5, x)),
+                   int8_ms=clock.ms(lambda: qm.q5k_q8_gemv(x, qs, qh, scale, minv,
+                                                           out_dtype=fdt)))
+        del qs, qh, scale, minv, w5, q5
 
 
 def k5_kernels(sz: Sizes, device, clock: Clock, gen, rand, record) -> None:
@@ -2050,12 +2130,15 @@ def gguf_bf16_phase(sz: Sizes, device) -> dict:
     """Mistral-7B in the Q5_K_M rule from a GGUF file at full width:
     written by the port's writer (random wire blocks) into a temporary
     directory, loaded by load_gguf_model, served with int8_activations=False
-    at the default rq8_group=32 in the slice phase's pattern: K5 and K9b
-    for every Q5_K projection, K8 for the requantized Q6_K ones (attn_v, the
+    at the default rq8_group=32 in the slice phase's pattern: K9b's decode
+    instantiation (the whole Q5_K product in one kernel) for every Q5_K
+    projection at decode, K5's and K9b's rows instantiations on the 4 x
+    64-row step, K8 for the requantized Q6_K ones (attn_v, the
     use_more_bits ffn_down, the lm_head) up to 256 rows, the Q5_K and int8
-    dequant kernels above, K6 for the first chunks. It raises unless K5,
-    K9b and K8 (their rows instantiations on the 4 x 64-row step, their
-    decode and 16-row ones at decode) and K6 launched and no int8 GEMV did. The line gives the
+    dequant kernels above, K6 for the first chunks. It raises unless those
+    launched, and if an int8 GEMV or K5's decode instantiation did (the
+    Q5_K_M rule has no Q4_K tensor; K9b has no high-bit kernel at 1-16
+    rows, its wrapper raises there). The line gives the
     write, read (the header), load (load_gguf_model) and pack (the load
     but its header read: the layers packed and copied to the card in
     load_gguf_model's threads, the embedding dequantized beside them) times,
@@ -2098,6 +2181,8 @@ def gguf_bf16_phase(sz: Sizes, device) -> dict:
     check_launched(n, PATH_KERNELS["gguf_bf16"] + ("flash_prefill", "q5k_dequant", "q8_0_dequant"))
     if any(n[k] for k in INT8_COUNTERS):
         raise AssertionError(f"int8_activations=False launched an int8 GEMV: {n}")
+    if n["q4k_bf16_gemv"]:
+        raise AssertionError(f"a Q5_K_M decode step launched K5's decode instantiation: {n}")
     return out
 
 
@@ -2457,7 +2542,8 @@ def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
     token-major pools, in the Q4_K_M mix (rq8), in the Q5_K_M mix with
     Q6_K kept (on the card K9 and K4 at 256 rows, then K9 and K3), in the
     same with int8_activations=False (K5, K9b and K4 at 256 rows, then at
-    1: the rows and the 16-row instantiations of K4 and K9b; no int8 GEMV)
+    1: the rows and the decode instantiations of K4 and K9b, the latter the
+    whole Q5_K product; no int8 GEMV)
     and in the Q2_K mix (rq8; K10, K1 and K2 at every step); then, on
     head-major pools, a 512-token first chunk (K6), a 512-token continuation
     chunk (K6') and 4 decode steps (K7) with tables 256 pages wide."""
@@ -2474,7 +2560,7 @@ def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
 
     prompt = [int(t) for t in np.random.default_rng(3).integers(1, sz.vocab, 256)]
     outs = []
-    q5km_bf16 = ("q6k_bf16_gemv", "q6k_bf16_gemv_rows", "q4k_bf16_gemv", "q5k_hbit_bf16_gemv",
+    q5km_bf16 = ("q6k_bf16_gemv", "q6k_bf16_gemv_rows", "q5k_bf16_gemv", "q4k_bf16_gemv_rows",
                  "q5k_hbit_bf16_gemv_rows")
     for phase, weights, rq8, int8, names in (
             ("card_vs_cpu", base, 32, True, ("q4k_q8_gemv", "q8_0_q8_gemv", "q4k_q8_gemv_rows",
@@ -2505,12 +2591,15 @@ def card_vs_cpu_phase(sz: Sizes, device) -> list[dict]:
 def card_vs_cpu_bf16_phase(sz: Sizes, device) -> list[dict]:
     """The card against the CPU with int8_activations=False: a 2-layer
     Mistral-7B GGUF at full width in the Q4_K_M rule (K5 alone, K8 for
-    the requantized Q6_K) and one in the Q5_K_M rule (K5 + K9b, K8),
-    written by the port's writer and loaded by load_gguf_model on each side
-    (bf16 on the card, f32 on the CPU): a 256-token prefill and 4 decode
-    steps on token-major pools, rq8_group=32. No int8 GEMV may launch. As a
-    control, the same files with int8_activations=True (K1, K9, K2): what
-    the int8 rounding adds on the same weights."""
+    the requantized Q6_K: K5's decode instantiation's served path) and one
+    in the Q5_K_M rule (K5 + K9b's rows instantiations at 256 rows, K9b's
+    decode one, the whole Q5_K product, at decode; K8), written by the
+    port's writer and loaded by load_gguf_model on each side (bf16 on the
+    card, f32 on the CPU): a 256-token prefill and 4 decode steps on
+    token-major pools, rq8_group=32. No int8 GEMV may launch, nor K5's
+    decode instantiation in the Q5_K_M run. As a control, the same files
+    with int8_activations=True (K1, K9, K2): what the int8 rounding adds on
+    the same weights."""
     import os
     import tempfile
 
@@ -2518,10 +2607,11 @@ def card_vs_cpu_bf16_phase(sz: Sizes, device) -> list[dict]:
 
     n_layers = 2
     prompt = [int(t) for t in np.random.default_rng(13).integers(1, sz.vocab, 256)]
-    bf16 = ("q4k_bf16_gemv", "q5k_hbit_bf16_gemv", "q8_0_bf16_gemv")
+    bf16 = ("q4k_bf16_gemv", "q5k_bf16_gemv", "q8_0_bf16_gemv")
     outs = []
-    for mix, base, names in (("q4km", "Q4_K", ("q4k_bf16_gemv", "q8_0_bf16_gemv")),
-                             ("q5km", "Q5_K", bf16)):
+    for mix, base, names, absent in (
+            ("q4km", "Q4_K", ("q4k_bf16_gemv", "q8_0_bf16_gemv"), ("q5k_bf16_gemv",)),
+            ("q5km", "Q5_K", ("q5k_bf16_gemv", "q8_0_bf16_gemv"), ("q4k_bf16_gemv",))):
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, f"mistral-2l-{base}.gguf")
             write_random_gguf(path, sz, n_layers, base, seed=14)
@@ -2534,7 +2624,8 @@ def card_vs_cpu_bf16_phase(sz: Sizes, device) -> list[dict]:
                 runs, card = _token_major_run(None, load, device, prompt, 32,
                                               int8_activations=int8)
                 want, never = ((("q4k_q8_gemv" if mix == "q4km" else "q5k_q8_gemv",
-                                 "q8_0_q8_gemv"), bf16) if int8 else (names, INT8_COUNTERS))
+                                 "q8_0_q8_gemv"), bf16) if int8 else
+                               (names, INT8_COUNTERS + absent))
                 check_launched(card, want)
                 if any(card[k] for k in never):
                     raise AssertionError(f"int8_activations={int8} took the other route: {card}")
@@ -2722,8 +2813,10 @@ def main() -> int:
         results[name] = fn(sz, device)
         seconds[name] = time.perf_counter() - t0
     emit({"phase": "seconds", **seconds})
-    # the paths inside a phase of several runs (card_vs_cpu's bf16 Q5_K_M run)
-    results.update({o["phase"]: o for o in results["card_vs_cpu"] if o["phase"] in PATH_KERNELS})
+    # the paths inside a phase of several runs (card_vs_cpu's bf16 Q5_K_M run,
+    # card_vs_cpu_bf16's Q4_K_M run)
+    results.update({o["phase"]: o for phase in ("card_vs_cpu", "card_vs_cpu_bf16")
+                    for o in results[phase] if o["phase"] in PATH_KERNELS})
 
     line = []
     for name, (source, replaces) in KERNEL_INFO.items():

@@ -49,22 +49,18 @@ __device__ __forceinline__ void transpose4(uint32_t& a0, uint32_t& a1, uint32_t&
   a3 = __byte_perm(t2, t3, 0x7632);
 }
 
-// ---- tensor-core GEMV building blocks (K9b's 16-row kernel; the mma
-// wrappers also K1-K5, K8-K10 and K13) ----
+// ---- tensor-core GEMV building blocks (the mma wrappers of K1-K5, K8-K10,
+// the Q5_K x bf16 decode kernel and K13) ----
 //
-// A block owns 128 output columns (4 warps x 32) and a 16-row tile of x. The
-// weight bytes of one K step (32 rows x 128 columns) are staged in shared
-// memory with cp.async; in each 16-byte chunk index the row's
-// swz(r) = ((r >> 2) & 3) << 1 is XORed, so the 32-bit reads below hit 32
-// different banks.
+// A block of the rows instantiations owns 128 output columns.
 constexpr int kGemvCols = 128;
-constexpr int kGemvThreads = 128;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// 16-byte async copy global -> shared; zero-fills when !valid (src unread).
+// 16-byte async copy global -> shared; zero-fills when !valid (src unread)
+// (the mma.sync attention kernels of flash_attn.cuh: K7, K12's decode).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)), "l"(gmem),
                "r"(valid ? 16 : 0));
@@ -73,44 +69,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ int swz(int r) { return ((r >> 2) & 3) << 1; }
-
-// byte offset of (row r, column c) in a staged 128-column tile
-__device__ __forceinline__ int tile_off(int r, int c) {
-  return r * kGemvCols + ((((c >> 4) ^ swz(r)) << 4) | (c & 15));
-}
-
-// Stage `rows` rows x 128 columns of a row-major [*, O] byte matrix starting
-// at row r0 and column c0 (O % 16 == 0; chunks past O are zero-filled).
-__device__ __forceinline__ void stage_bytes(uint8_t* tile, const uint8_t* src, int r0, int rows,
-                                            int c0, int O) {
-  for (int i = threadIdx.x; i < rows * 8; i += kGemvThreads) {
-    const int r = i >> 3, c = i & 7;
-    const bool ok = c0 + 16 * c < O;
-    const uint8_t* g = ok ? src + (size_t)(r0 + r) * O + c0 + 16 * c : src;
-    cp_async16(tile + r * kGemvCols + ((c ^ swz(r)) << 4), g, ok);
-  }
-}
-
-// B fragments of mma.m16n8k32 for the 4 n-tiles of a warp, from K rows
-// k0..k0+31 of a staged tile. n-tile j of warp w holds the columns
-// w*32 + 4n + j (n = 0..7), so lane (g = lane/4, t = lane%4) reads the 4
-// columns w*32 + 4g .. +3 of rows k0+4t.. (b0) and k0+16+4t.. (b1), and one
-// 4x4 byte transpose yields b0/b1 of all 4 n-tiles: b0[j] = rows k0+4t..+3
-// of column w*32 + 4g + j.
-__device__ __forceinline__ void b_frags(const uint8_t* tile, int k0, int warp, int lane,
-                                        uint32_t b0[4], uint32_t b1[4]) {
-  const int g = lane >> 2, t = lane & 3;
-  const int c = warp * 32 + 4 * g;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    b0[i] = *reinterpret_cast<const uint32_t*>(tile + tile_off(k0 + 4 * t + i, c));
-    b1[i] = *reinterpret_cast<const uint32_t*>(tile + tile_off(k0 + 16 + 4 * t + i, c));
-  }
-  transpose4(b0[0], b0[1], b0[2], b0[3]);
-  transpose4(b1[0], b1[1], b1[2], b1[3]);
 }
 
 // d += A (16x32 s8, row) * B (32x8 s8, col), int32 (exact)
@@ -163,22 +121,6 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Write a warp's [16 rows x 32 columns] f32 accumulators to part[B, O]: C
-// element e of n-tile j sits at row row0 + lane/4 + 8*(e/2), column
-// col0 + warp*32 + 8*(lane%4) + 4*(e%2) + j.
-__device__ __forceinline__ void store_part(float* part, const float (&acc)[4][4], int B, int O,
-                                           int row0, int col0, int warp, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = row0 + g + 8 * (e >> 1);
-      const int c = col0 + warp * 32 + 8 * t + 4 * (e & 1) + j;
-      if (r < B && c < O) part[(size_t)r * O + c] = acc[j][e];
-    }
 }
 
 // ---- Hopper pieces of the rows instantiations (K1, K2 at 17-256 rows) ----
@@ -808,10 +750,8 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 // a 32-element slice of a row tile into shared memory ready for the tensor
 // cores; `kDecode` (the decode instantiations of K1, K2, K3 and K9): bpad is
 // 16, rows B..15 are zeros, and each 32-element slice of the 16 rows is 512
-// contiguous bytes (decode_off), read as mma B fragments. (`kRowMajor` is no
-// layout of xq: it names carve's workspace of K9b's 16-row kernel, the
-// split-K partials alone.)
-enum XLayout { kRowMajor = 0, kTiled = 1, kDecode = 2 };
+// contiguous bytes (decode_off), read as mma B fragments.
+enum XLayout { kTiled = 1, kDecode = 2 };
 
 __host__ __device__ __forceinline__ size_t tiled_off(int b, int k, int bpad) {
   return (size_t)(k >> 5) * bpad * 32 + (size_t)(b >> 6) * 2048 + ((k >> 4) & 1) * 1024 +
@@ -893,9 +833,7 @@ inline void launch_quantize(const void* x, bool x_is_bf16, int8_t* xq, float* xs
 // each piece 256-byte aligned (ops/quant_matmul._workspace_bytes mirrors it).
 inline size_t align256(size_t n) { return (n + 255) & ~size_t(255); }
 
-// With the row-major layout (K9b's 16-row GEMV, without xq) bpad is B
-// rounded up to 16 and the split-K partials are always there. With kTiled
-// (the rows instantiations of K1, K2 and K9; `rows` is their row tile):
+// With kTiled (the rows instantiations of K1, K2 and K9; `rows` is their row tile):
 // bpad is B rounded up to the row tile, so a block's bulk copies of x's codes,
 // scales and sums stay inside their pieces; xq holds all bpad rows; the
 // partials are there only when ksplit > 1 (with one split the GEMV writes
@@ -915,7 +853,7 @@ struct Workspace {
 };
 
 inline Workspace carve(void* ws, int B, int K, int O, int gs, int sum_gs, int ksplit,
-                       XLayout layout = kRowMajor, int rows = 16, bool xcopy = false) {
+                       XLayout layout, int rows = 16, bool xcopy = false) {
   char* p = static_cast<char*>(ws);
   Workspace w;
   if (layout != kTiled) rows = 16;
@@ -934,7 +872,7 @@ inline Workspace carve(void* ws, int B, int K, int O, int gs, int sum_gs, int ks
   w.xc = xcopy ? reinterpret_cast<__nv_bfloat16*>(p + off) : nullptr;
   if (xcopy) off += align256((size_t)w.bpad * K * 2);
   w.part = nullptr;
-  if (layout == kRowMajor || (layout == kTiled && ksplit > 1)) {
+  if (layout == kTiled && ksplit > 1) {
     w.part = reinterpret_cast<float*>(p + off);
     off += align256((size_t)ksplit * B * O * 4);
   }
@@ -1007,7 +945,8 @@ inline int launch_ring(Kern* kern, int smem, const Workspace& w, void* out, int 
   return finish_gemv(w, out, out_is_bf16, ksplit, n_out, st);
 }
 
-// ---- The decode instantiations of K1-K5 and K8-K10 (1-16 rows) ----
+// ---- The decode instantiations of K1-K5, K8-K10 and the Q5_K x bf16
+// kernel (1-16 rows) ----
 //
 // A block owns `C` = 128 or 64 columns of out and all 16 rows of the row
 // tile, and one K split of the call; the K splits of a column tile are one
@@ -1017,8 +956,8 @@ inline int launch_ring(Kern* kern, int smem, const Workspace& w, void* out, int 
 // pairs of K1, 64/gs scale groups of K2; K3's and K4's, csrc/q6k_gemv.cu,
 // one 14 KB step of Q6_K; K5's, K8's and K10's, csrc/plane_gemv.cuh, one
 // step of 64 or 32 byte rows and their scale rows; K9's, csrc/q5k_q8_gemv.cu,
-// one 24 KB step of 32 qh rows and the 4 qs blocks whose high bits they
-// hold). Two producer warps (the block's last two) fill it, each on its
+// and the Q5_K x bf16 kernel's, csrc/q5k_bf16_gemv.cu, one 24 KB step of
+// 32 qh rows and the 4 qs blocks whose high bits they hold). Two producer warps (the block's last two) fill it, each on its
 // own arrival at the stage's `full` barrier: one with TMA boxes of the
 // weights, at most half the ring ahead of what has landed (so every
 // block's first stages land first and its consumers start while the rest

@@ -1,10 +1,11 @@
 // The Hopper attention core of K6 (flash_prefill.cu), K6'
-// (flash_prefill_paged.cu) and K12's chunks (ragged_attention.cu): 128
-// query rows a work item against tiles of keys, bf16 in and out. A
-// configuration (Core) gives the head dim D (128 or 256), the keys of a K/V
-// tile (128, or 64 at D = 256), the ring's stages, and whether a stage's K
-// and V are freed apart; K6 and K6' run Core<128, 128, 3>, K12's chunks
-// Core<128, 128, 3, true> and Core<256, 64, 2, true>.
+// (flash_prefill_paged.cu), K11 (splash_prefill.cu) and K12's chunks
+// (ragged_attention.cu): 128 query rows a work item against tiles of keys,
+// bf16 in and out. A configuration (Core) gives the head dim D (128 or
+// 256), the keys of a K/V tile (128, or 64 at D = 256), the ring's stages,
+// and whether a stage's K and V are freed apart; K6 and K6' run Core<128,
+// 128, 3>, K11 and K12's chunks ChunkCore: Core<128, 128, 3, true> and
+// Core<256, 64, 2, true>.
 //
 // The grid is persistent: one block an SM walks work items in the order
 // the instantiation gives (the items with the most key tiles first), so
@@ -21,8 +22,9 @@
 //   tile comes from (the chunk's own K/V, or pages through a block table);
 // - two consumer warpgroups own 64 query rows each. Per key tile:
 //   S = Q K^T as D/16 bf16 wgmma m64nKk16 (Q and K from shared memory,
-//   K-major), an optional logit transform (K12's soft cap) in f32, a base-2
-//   online softmax in f32, P rounded to bf16 in registers, and O += P V as
+//   K-major), an optional logit transform (K11's and K12's soft cap) in
+//   f32, a base-2 online softmax in f32, P rounded to bf16 in registers,
+//   and O += P V as
 //   K/16 wgmma m64nDk16 with P the A operand from registers and V the B
 //   operand, MN-major (transposed). A warp frees a stage once its reads of
 //   it are done (with split stages, K once its Q.K^T is done and V once its
@@ -105,6 +107,12 @@ constexpr int kKeys = 128;   // keys of a K/V tile
 constexpr int kStages = 3;   // a stage is held from its Q.K^T to its P.V one tile later
 using K6Core = Core<kD, kKeys, kStages>;
 constexpr int kHalfBytes = K6Core::kKVBlock;  // a 64-column half of a 128-row tile
+
+// K11's and K12's chunk configurations, a stage's K and V freed apart:
+// 128-key tiles in three stages at D = 128 (K6's tiles), 64-key tiles in
+// two at D = 256 (a stage of K and V is 64 KB beside the 64 KB Q tile)
+template <int D>
+using ChunkCore = Core<D, D == 128 ? 128 : 64, D == 128 ? 3 : 2, true>;
 
 // ---- PTX pieces ----
 
@@ -230,9 +238,10 @@ __device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map, 
 // The map of a contiguous [B, T, H, D] bf16 tensor, dims (D, H, T, B), in
 // boxes of 64 columns x `rows` rows (a Q, K or V tile; 64 for an output
 // warpgroup's rows) with the 128-byte swizzle.
-inline int rows_map(CUtensorMap* map, const void* base, int B, int T, int H, int rows = kRows) {
-  const uint64_t dims[4] = {(uint64_t)kD, (uint64_t)H, (uint64_t)T, (uint64_t)B};
-  const uint64_t str[3] = {(uint64_t)kD * 2, (uint64_t)H * kD * 2, (uint64_t)T * H * kD * 2};
+inline int rows_map(CUtensorMap* map, const void* base, int B, int T, int H, int rows = kRows,
+                    int D = kD) {
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)T, (uint64_t)B};
+  const uint64_t str[3] = {(uint64_t)D * 2, (uint64_t)H * D * 2, (uint64_t)T * H * D * 2};
   const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
   return mrt::tile_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, str, box,
                        CU_TENSOR_MAP_SWIZZLE_128B);
@@ -347,8 +356,11 @@ __device__ __forceinline__ void to_bf16(const float (&s)[N], uint32_t (&p)[N / 2
 
 // Consumer warpgroup wg's 64 rows against an item's n >= 1 key tiles, ring
 // steps s0..s0+n-1: the unnormalised output o and this thread's parts of
-// the exp-sums l. masked(it) says whether tile it needs keep(row, key of
-// the tile); lg turns a raw score into a logit. clear(v), called by every
+// the exp-sums l. prep(), called by every thread of the warpgroup once the
+// item's Q tile has landed and before its first Q.K^T, may rewrite the
+// warpgroup's 64 rows of it (K11's scale fold). masked(it) says whether
+// tile it needs keep(row, key of the tile); lg turns a raw score into a
+// logit. clear(v), called by every
 // thread once the last tile's V tile v has landed, may zero rows of it
 // that lie past the context (and says whether it wrote): only the last
 // tile can hold such rows. Each warp arrives on q_empty once its last
@@ -357,10 +369,10 @@ __device__ __forceinline__ void to_bf16(const float (&s)[N], uint32_t (&p)[N / 2
 // products in turns: a warpgroup waits on barrier 1 + wg, which the
 // other's arrival completes (the second warpgroup arrives once before the
 // first item, run_items).
-template <class C, class Masked, class Keep, class Clear, class Lg>
+template <class C, class Prep, class Masked, class Keep, class Clear, class Lg>
 __device__ __forceinline__ void attend(const typename C::KVRing& ring, const uint8_t* qtile,
-                                       int wg, int s0, int n, float mul, Masked masked, Keep keep,
-                                       Clear clear, Lg lg, uint64_t* q_empty,
+                                       int wg, int s0, int n, float mul, Prep prep, Masked masked,
+                                       Keep keep, Clear clear, Lg lg, uint64_t* q_empty,
                                        float (&o)[C::kD / 2], float (&l)[2]) {
   const int row0 = 64 * wg + 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
   const uint8_t* q = qtile + wg * 64 * 128;
@@ -394,6 +406,7 @@ __device__ __forceinline__ void attend(const typename C::KVRing& ring, const uin
   auto pass = [&] { bar_arrive(2 - wg); };
 
   ring.acquire(s0);
+  prep();
   turn();
   issue_qk<C>(s, q, ring[s0].k);
   pass();
@@ -464,17 +477,19 @@ __device__ __forceinline__ void stage_out(const float (&o)[C::kD / 2], float (&l
   bar_sync(3 + wg, 128);
 }
 
-// K6's and K6''s epilogue: warpgroup wg's 64 rows, staged in `rows`
+// The epilogue of K6, K6' and K11: warpgroup wg's 64 rows, staged in `rows`
 // (stage_out), through omap (the [B, T, Hq, D] output in boxes of 64 rows)
-// at rows q0 + 64 wg.. of head h, batch row b, one TMA store per half,
-// which drops rows past T. `rows` is free again on return.
-__device__ __forceinline__ void store(const float (&o)[kD / 2], float (&l)[2], int wg,
+// at rows q0 + 64 wg.. of head h, batch row b, one TMA store per 64-column
+// block, which drops rows past T. `rows` is free again on return.
+template <class C = K6Core>
+__device__ __forceinline__ void store(const float (&o)[C::kD / 2], float (&l)[2], int wg,
                                       uint8_t* rows, const CUtensorMap* omap, int h, int q0,
                                       int b) {
-  stage_out<K6Core>(o, l, wg, rows);
+  stage_out<C>(o, l, wg, rows);
   if ((threadIdx.x & 127) == 0) {
-    mrt::tma_store_4d(omap, rows, 0, h, q0 + 64 * wg, b);
-    mrt::tma_store_4d(omap, rows + kHalfBytes, 64, h, q0 + 64 * wg, b);
+#pragma unroll
+    for (int j = 0; j < C::kBlocks; ++j)
+      mrt::tma_store_4d(omap, rows + j * C::kKVBlock, 64 * j, h, q0 + 64 * wg, b);
     mrt::bulk_commit();
     mrt::bulk_wait_read();
   }
@@ -501,16 +516,17 @@ __device__ __forceinline__ Item item_at(int w, int Hq, int B, int qtiles) {
 // 64-column blocks of the piece's half, piece & 1, dst their first) into
 // dst counted on bar, and at t == 0 warp 0 also the item's Q tile into q
 // (q is null otherwise), once its lane 0 has announced the bytes;
+// prep(item, wg, q) as attend's prep for warpgroup wg (q: the Q tile);
 // masked(item, t) and keep(item, row, key) as attend's, clear(item, v) as
 // attend's clear(v) for the item's last tile, lg as attend's; zero(item,
 // wg) does warpgroup wg's part of an item with no key tile; out(item, wg,
 // o, l, rows) writes warpgroup wg's result from its accumulators through
 // its staging rows (C::out_rows) and leaves them free.
-template <class C, class ItemFn, class Copy, class Masked, class Keep, class Clear, class Zero,
-          class Lg, class Out>
+template <class C, class ItemFn, class Copy, class Prep, class Masked, class Keep, class Clear,
+          class Zero, class Lg, class Out>
 __device__ __forceinline__ void run_items(uint8_t* smem_raw, int items, float mul, ItemFn item,
-                                          Copy copy, Masked masked, Keep keep, Clear clear,
-                                          Zero zero, Lg lg, Out out) {
+                                          Copy copy, Prep prep, Masked masked, Keep keep,
+                                          Clear clear, Zero zero, Lg lg, Out out) {
   using ItemT = decltype(item(0));
   uint8_t* smem = smem_raw + ((1024 - (mrt::smem_u32(smem_raw) & 1023)) & 1023);
   const typename C::KVRing ring(smem, C::kExtraBytes);
@@ -554,7 +570,8 @@ __device__ __forceinline__ void run_items(uint8_t* smem_raw, int items, float mu
           }
           float o[C::kD / 2], l[2];
           attend<C>(
-              ring, qtile, wg, s0, it.n, mul, [&](int tt) { return masked(it, tt); },
+              ring, qtile, wg, s0, it.n, mul, [&] { prep(it, wg, qtile); },
+              [&](int tt) { return masked(it, tt); },
               [&](int r, int key) { return keep(it, r, key); },
               [&](uint8_t* v) { return clear(it, v); }, lg, q_empty, o, l);
           // both warpgroups past their last P.V before either writes into
@@ -566,6 +583,17 @@ __device__ __forceinline__ void run_items(uint8_t* smem_raw, int items, float mu
           s0 += it.n;
         }
       });
+}
+
+// run_items without a prep step (K6, K6', K12's chunks): Q as it landed
+template <class C, class ItemFn, class Copy, class Masked, class Keep, class Clear, class Zero,
+          class Lg, class Out>
+__device__ __forceinline__ void run_items(uint8_t* smem_raw, int items, float mul, ItemFn item,
+                                          Copy copy, Masked masked, Keep keep, Clear clear,
+                                          Zero zero, Lg lg, Out out) {
+  run_items<C>(
+      smem_raw, items, mul, item, copy, [](const auto&, int, uint8_t*) {}, masked, keep, clear,
+      zero, lg, out);
 }
 
 // The launch of a K6 or K6' call, checked against the Python plan

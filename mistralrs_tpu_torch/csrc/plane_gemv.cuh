@@ -1,15 +1,15 @@
 // The plane-major GEMV with the weight rounded to bf16 before the product,
 //   y[b, o] = sum_k x[b, k] * bf16(code[k, o] * s[g(k), o])      (bf16 MMA, f32 sums)
 //           - sum_g xsum_g[b] * zs[g, o]                           (f32, when there is a zs term)
-// shared by five kernels: K10 (csrc/affine_gemv.cu: unsigned codes of 1, 2,
+// shared by five GEMVs: K10 (csrc/affine_gemv.cu: unsigned codes of 1, 2,
 // 4 or 8 bits, bf16 scale and zs), K8 (csrc/q8_0_bf16_gemv.cu: signed 8-bit
-// codes, a bf16 or f32 scale per 32, no zs), K9b
+// codes, a bf16 or f32 scale per 32, no zs), K5 (csrc/q4k_bf16_gemv.cu:
+// Q4_K's nibbles, zs = minv, whose weight q * s is never rounded: at 17-256
+// rows two exact bf16 parts, at 1-16 rows the raw nibble with the scale on
+// each 32-element group's f32 dot) and, at 17-256 rows only, K9b
 // (csrc/q5k_hbit_bf16_gemv.cu: the 1-bit high-bit planes of Q5_K, a bf16
-// scale per 32, no zs), at 17-256 rows K4 (csrc/q6k_gemv.cu: Q6_K's 6-bit
-// codes from two byte arrays, a bf16 scale per 16, zs = 32 * scale) and K5
-// (csrc/q4k_bf16_gemv.cu: Q4_K's nibbles, zs = minv, whose weight q * s is
-// never rounded: at 17-256 rows two exact bf16 parts, at 1-16 rows the raw
-// nibble with the scale on each 32-element group's f32 dot).
+// scale per 32, no zs) and K4 (csrc/q6k_gemv.cu: Q6_K's 6-bit codes from two
+// byte arrays, a bf16 scale per 16, zs = 32 * scale).
 //
 // The layout, with PER = 8 / BITS codes a byte and Kp = K / PER byte rows:
 // bits BITS*j of q row r hold element j*Kp + r ("plane" j is the contiguous
@@ -26,41 +26,19 @@
 // bytes a weight, s and zs at 2 or 4 bytes a group), against 3.35 TB/s; at
 // 256 rows, the bf16 tensor-core operations.
 //
-// Three kernels, each with its design written beside it:
+// Two kernels, each with its design written beside it:
 // - plane_dec_kernel (at the end of this file): K10, K8 and K5 at 1-16
 //   rows, K4's decode design on common.cuh's decode section: one launch a
 //   call, weights and x by TMA, the K splits of a column tile summed in a
 //   cluster, the zs term as a second bf16 mma;
 // - plane_rows_kernel: K10, K9b, K4, K8 and K5 at 17-256 rows (TMA, a
 //   producer warpgroup that decodes each stage once, bf16 wgmma, the zs
-//   term on the tensor cores);
-// - plane_bf16_mma_kernel (below): K9b alone at 1-16 rows, the cp.async
-//   16-row structure that K4, K8 and K10 had before their decode designs,
-//   left until K9b moves onto plane_dec_kernel: 32 byte rows of q for 128
-//   columns a K step (4 KB) with each plane's two 16-element halves' scale
-//   rows and x slices, a 3-deep cp.async ring every thread fills; a warp's
-//   32 columns turned into mma B fragments by K1's 4x4 byte transposes,
-//   plane j's codes a shift and a mask of them, bf16(code * s) per
-//   element; bf16 mma.m16n8k16 with f32 accumulators over x's 16-row
-//   tile; the K axis split over blockIdx.y, the partials added in a fixed
-//   order by common.cuh's split-K pass.
+//   term on the tensor cores).
 #pragma once
 
 #include "common.cuh"
 
 namespace mrt {
-
-constexpr int kPlaneStages = 3;
-
-// one K step of plane_bf16_mma_kernel (16 rows of x, no zs term)
-template <int BITS>
-struct PlaneStage {
-  static constexpr int kPer = 8 / BITS;
-  static constexpr int kXStride = 64 * kPer + 32;  // bytes per staged x row (64 * kPer used)
-  uint8_t q[32 * kGemvCols];                        // swizzled as common.cuh's tiles
-  __nv_bfloat16 sc[2 * kPer][kGemvCols];            // (plane j, half h) at row 2j + h
-  uint8_t x[16 * kXStride];                         // 16 rows x kPer planes x 32 bf16
-};
 
 // bf16 pair (lo, hi) from two floats, round to nearest even
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
@@ -68,130 +46,11 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// an unsigned byte as an exact f32 (0x4B000000 is 2^23)
-__device__ __forceinline__ float byte_f32(uint32_t w, int i) {
-  return __uint_as_float(0x4B000000u | __byte_perm(w, 0, 0x4440 + i)) - 8388608.f;
-}
-
 // d = a * b + c on bf16 pairs, rounded once
 __device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
   uint32_t d;
   asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
   return d;
-}
-
-// B fragments of one bf16 m16n8k16 from 4 codes of a column (K rows 4t..4t+3
-// of the 16): the MMA's k = 2t, 2t+1 take rows 4t, 4t+1 and k = 2t+8, 2t+9
-// take 4t+2, 4t+3; the A fragments below follow the same order.
-__device__ __forceinline__ void code_b(uint32_t codes, float s, uint32_t& b0, uint32_t& b1) {
-  b0 = bf16x2(byte_f32(codes, 0) * s, byte_f32(codes, 1) * s);
-  b1 = bf16x2(byte_f32(codes, 2) * s, byte_f32(codes, 3) * s);
-}
-
-template <int BITS>
-__global__ void __launch_bounds__(kGemvThreads)
-    plane_bf16_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ scale, float* __restrict__ part,
-                          int B, int K, int O, int group, int steps_per_split) {
-  using Stage = PlaneStage<BITS>;
-  constexpr int kPer = Stage::kPer;
-  constexpr int kXS = Stage::kXStride;
-  constexpr uint32_t kMask = ((1u << BITS) - 1u) * 0x01010101u;  // BITS low bits of each byte
-  extern __shared__ __align__(16) uint8_t smem_plane[];
-  Stage* st = reinterpret_cast<Stage*>(smem_plane);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int col0 = blockIdx.x * kGemvCols;
-  const int Kp = K / kPer;
-  const int nsteps = Kp / 32;
-  const int i_begin = blockIdx.y * steps_per_split;
-  const int n = max(0, min(steps_per_split, nsteps - i_begin));
-
-  auto load = [&](int s, int i) {
-    Stage& S = st[s];
-    const int r0 = 32 * i;  // byte row of q; plane j's elements j*Kp + r0 ..
-    stage_bytes(S.q, q, r0, 32, col0, O);
-    // s: 2*kPer rows of 128 bf16, 16 chunks a row
-    for (int c = threadIdx.x; c < 2 * kPer * 16; c += kGemvThreads) {
-      const int a = c >> 4, ch = c & 15;  // a = 2j + h
-      const int row = ((a >> 1) * Kp + r0 + 16 * (a & 1)) / group;
-      const bool ok = col0 + 8 * ch < O;
-      cp_async16(&S.sc[a][8 * ch], ok ? scale + (size_t)row * O + col0 + 8 * ch : scale, ok);
-    }
-    // x: 16 rows x kPer planes x 4 chunks of 8 bf16, zero past B
-    for (int c = threadIdx.x; c < 16 * 4 * kPer; c += kGemvThreads) {
-      const int r = c / (4 * kPer), ch = c % (4 * kPer);
-      const bool ok = r < B;
-      const __nv_bfloat16* src = x + (size_t)r * K + (ch >> 2) * Kp + r0 + 8 * (ch & 3);
-      cp_async16(S.x + r * kXS + 16 * ch, ok ? src : x, ok);
-    }
-  };
-
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kPlaneStages - 1; ++s) {
-    if (s < n) load(s, i_begin + s);
-    cp_async_commit();
-  }
-  const int bc = warp * 32 + 4 * g;  // B columns of n-tile jj: bc + jj
-  for (int i = 0; i < n; ++i) {
-    cp_async_wait<kPlaneStages - 2>();
-    __syncthreads();
-    const Stage& S = st[i % kPlaneStages];
-    uint32_t p0[4], p1[4];  // K rows 4t.. and 16+4t.. of the step, 4 n-tiles
-    b_frags(S.q, 0, warp, lane, p0, p1);
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      // the weight fragments of plane j: bf16(code * s) for 4 n-tiles x 2 halves
-      float bs0[4], bs1[4];
-      lds4(&S.sc[2 * j][bc], bs0);
-      lds4(&S.sc[2 * j + 1][bc], bs1);
-      uint32_t b[4][2][2];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        code_b((p0[jj] >> (BITS * j)) & kMask, bs0[jj], b[jj][0][0], b[jj][0][1]);
-        code_b((p1[jj] >> (BITS * j)) & kMask, bs1[jj], b[jj][1][0], b[jj][1][1]);
-      }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        // A: rows g and g+8 of the tile, x elements 4t..4t+3 of the half
-        const uint8_t* xr = S.x + g * kXS + 64 * j + 32 * hf + 8 * t;
-        const uint2 u0 = *reinterpret_cast<const uint2*>(xr);
-        const uint2 u1 = *reinterpret_cast<const uint2*>(xr + 8 * kXS);
-        const uint32_t a[4] = {u0.x, u1.x, u0.y, u1.y};
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) mma_bf16(acc[jj], a, b[jj][hf][0], b[jj][hf][1]);
-      }
-    }
-    const int next = i + kPlaneStages - 1;  // refill the stage read in the previous step
-    if (next < n) load(next % kPlaneStages, i_begin + next);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-  store_part(part + (size_t)blockIdx.y * B * O, acc, B, O, 0, col0, warp, lane);
-}
-
-// Launch plane_bf16_mma_kernel into the workspace's partials: grid (column
-// tiles, K splits). Returns the CUDA error of the attribute call (0 = set).
-template <int BITS>
-int launch_plane_16(const __nv_bfloat16* x, const Workspace& w, const uint8_t* q,
-                    const __nv_bfloat16* scale, int B, int K, int O, int group, int ksplit,
-                    cudaStream_t st) {
-  auto* kernel = plane_bf16_mma_kernel<BITS>;
-  const int smem = kPlaneStages * (int)sizeof(PlaneStage<BITS>);
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nsteps = K / (8 / BITS) / 32;
-  const dim3 grid((O + kGemvCols - 1) / kGemvCols, ksplit, 1);
-  kernel<<<grid, kGemvThreads, smem, st>>>(x, q, scale, w.part, B, K, O, group,
-                                           (nsteps + ksplit - 1) / ksplit);
-  return 0;
 }
 
 // ---- The rows instantiation (17-256 rows): plane_rows_kernel ----

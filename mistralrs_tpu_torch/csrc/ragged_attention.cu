@@ -96,12 +96,6 @@ __device__ __forceinline__ int live_splits(int live, int Hkv, int ctas, int max_
   return min(max_splits, max(1, ctas / max(1, live * Hkv)));
 }
 
-// K12's chunk configurations of the core, a stage's K and V freed apart:
-// 128-key tiles in three stages at D = 128 (K6's tiles), 64-key tiles in two
-// at D = 256
-template <int D>
-using ChunkCore = fa3::Core<D, D == 128 ? 128 : 64, D == 128 ? 3 : 2, true>;
-
 // A work item of the chunk instantiation: 128 (query, head) rows of
 // sequence b and kv head kvh (the kv head's G query heads of 128/G
 // consecutive queries t0..), over n key tiles from tile t_lo.
@@ -156,7 +150,7 @@ __global__ void __launch_bounds__(mrt::kRowThreads, 1)
                              __nv_bfloat16* __restrict__ out, int B, int Hq, int Hkv, int qtiles,
                              int gshift, int W, int P, int page, int page_shift, int win,
                              float mul, fa3::CapLogit cap) {
-  using C = ChunkCore<D>;
+  using C = fa3::ChunkCore<D>;
   constexpr int KT = C::kKeys;
   constexpr int kPer = C::kBlocks / 2;  // 64-column blocks a producer warp loads
   extern __shared__ __align__(1024) uint8_t smem[];
@@ -431,7 +425,7 @@ int pool_map(CUtensorMap* map, const void* pool, int P, int page, int Hkv, int D
 template <int D>
 int launch_chunk(const Args& a, void* out, int N, int max_q_len, int P, int rows, int keys,
                  int stages, int threads, int gx, int gy, int gz, int smem) {
-  using C = ChunkCore<D>;
+  using C = fa3::ChunkCore<D>;
   const int G = a.Hq / a.Hkv, gshift = __builtin_ctz((unsigned)G);
   if (G < 1 || G > 16 || (1 << gshift) != G || max_q_len < 1)
     return (int)cudaErrorInvalidValue;

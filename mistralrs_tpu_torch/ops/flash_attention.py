@@ -71,6 +71,18 @@ def flash_plan(B: int, T: int, Hq: int, Hkv: int, D: int, sms: int) -> FlashPlan
                      stages * (2 * tile + 3 * 8) + rows * D * 2 + 16 + 1024)
 
 
+def chunk_core(D: int) -> tuple[int, int, int]:
+    """(key tile, stages, shared memory bytes) of K11's and K12's chunk
+    configuration of the core (csrc/flash_sm90.cuh ChunkCore, a stage's K
+    and V freed apart): D 128 128-key tiles in 3 stages, D 256 64-key tiles
+    in 2. Shared memory: the stages (a K and a V tile of key_tile x D bf16
+    and four 8-byte mbarriers each), the Q tile of 128 x D bf16 and its
+    8-byte barrier (16 bytes), and 1024 bytes to align the start to the
+    128-byte swizzle's period."""
+    keys, stages = (128, 3) if D == 128 else (64, 2)
+    return keys, stages, stages * (2 * keys * D * 2 + 4 * 8) + 128 * D * 2 + 16 + 1024
+
+
 def launch_args(plan: FlashPlan) -> tuple[int, ...]:
     """The plan as the C entry points take and check it."""
     return (plan.rows, plan.key_tile, plan.stages, plan.threads, *plan.grid, plan.smem_bytes)

@@ -25,7 +25,7 @@ BUILD_ROOT = CSRC / "_build"
 SOURCES = ("q4k_q8_gemv", "q8_0_q8_gemv", "q6k_gemv", "q5k_q8_gemv", "affine_gemv",
            "flash_prefill", "flash_prefill_paged", "paged_decode", "splash_prefill",
            "ragged_attention", "grouped_gemm", "q4k_bf16_gemv", "q8_0_bf16_gemv",
-           "q5k_hbit_bf16_gemv")
+           "q5k_hbit_bf16_gemv", "q5k_bf16_gemv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -20,14 +20,19 @@ serving paths run, all hand-written CUDA under csrc/:
   with K8) and a rows instantiation (17-256 rows, bf16 wgmma, on
   `plane_gemv_plan`), counted apart;
 - K5 `q4k_bf16_gemv` (`_q4k_kernel`), K8 `q8_0_bf16_gemv`
-  (`_q8_0_kernel`) and K9b `q5k_hbit_bf16_gemv` (`_q5k_hbit_kernel`): the
-  routes of a Linear with `int8_act` off (PipelineConfig.int8_activations
-  = False), where x stays in its dtype, as in the JAX package with its
-  MISTRALRS_*_INT8 gates off; each has a rows instantiation (17-256 rows,
-  K10's rows kernel: K5's with Q4_K's exact two-part weight on
-  `q4k_bf16_plan`, K8's at 8 bits on `q8_0_bf16_plan`, K9b's at one bit on
-  `q5k_hbit_bf16_plan`), counted apart; K8's decode instantiation is
-  K10's (`plane_dec_plan` at 8 signed bits).
+  (`_q8_0_kernel`) and K9b (`_q5k_hbit_kernel`): the routes of a Linear
+  with `int8_act` off (PipelineConfig.int8_activations = False), where x
+  stays in its dtype, as in the JAX package with its MISTRALRS_*_INT8
+  gates off; K5 and K8 have a decode instantiation (up to 16 rows, K10's
+  `plane_dec_plan`: K5's with Q4_K's format, K8's at 8 signed bits) and a
+  rows instantiation (17-256 rows, K10's rows kernel: K5's with Q4_K's
+  exact two-part weight on `q4k_bf16_plan`, K8's at 8 bits on
+  `q8_0_bf16_plan`), counted apart; K9b's decode instantiation is the
+  whole Q5_K product in one kernel, `q5k_bf16_gemv` (`_q4k_kernel` and
+  `_q5k_hbit_kernel` as `_q5k_matmul_padded` adds them, on
+  `q5k_bf16_plan`), its rows instantiation the high-bit term alone,
+  `q5k_hbit_bf16_gemv` (K10's rows kernel at one bit, on
+  `q5k_hbit_bf16_plan`).
 
 Activations are quantized per block to int8 (ggml's Q8 approach, as the JAX
 int8 path does): xs = max(max|x_block|, 1e-10)/127, xq = clip(round(x/xs),
@@ -36,13 +41,14 @@ even, as jnp.round. The kernels take x itself: the C entry point of each
 runs a quantize kernel, the GEMV and a split-K pass (one host call instead
 of a dozen torch ops per projection); the decode instantiations (up to 16
 rows) of K1, K2 and K3 add their K splits on chip instead, two launches a
-call, and K4's, K8's and K10's, which take x as it is, one. Their plain
+call, and K4's, K5's, K8's, K10's and the Q5_K bf16 kernel's, which take
+x as it is, one. Their plain
 versions quantize with the same f32 operations in torch, so the int8 codes
 agree bit for bit; the scale is max|x|*(1/127) in both, where JAX divides
 by 127 (at most one f32 ulp apart). The activation scales and block sums are [B, K/gs] here (JAX
 keeps them transposed for TPU sublane alignment). K4, K5, K8, K9b and K10
-keep x in its dtype; K5 and the rows instantiations of K4 and K10 only
-take per-16, per-32 or per-group sums of it.
+keep x in its dtype; K5, K9b's decode kernel and the rows instantiations of
+K4 and K10 only take per-16, per-32 or per-group sums of it.
 
 Routing rules of this port (the dispatchers below), by the Linear's
 `int8_act` (the port's one switch for the JAX package's four gates
@@ -55,8 +61,9 @@ Routing rules of this port (the dispatchers below), by the Linear's
 - otherwise the kernel, when its shape rule holds (every kernel: out % 16
   == 0, for 16-byte column chunks), else the dequant route:
   - Q4_K: K1, or K5 with int8_act off;
-  - Q5_K: K9, or K5 on the nibbles then K9b on the high bits, y + 16*yh in
-    x's dtype, with int8_act off;
+  - Q5_K: K9, or with int8_act off the whole product in one kernel up to
+    16 rows (`q5k_bf16_gemv`) and above K5 on the nibbles then K9b on the
+    high bits, y + 16*yh in x's dtype, JAX's roundings either way;
   - int8 weights (wire Q8_0, rq8): K2 at group 32 or 64, or K8 at group 32
     with int8_act off (another group takes the dequant route there, as the
     JAX package's bf16 route does);
@@ -112,7 +119,8 @@ q8_0_bf16_gemv_rows_launches = 0
 affine_dequant_launches = 0
 q4k_bf16_gemv_launches = 0
 q8_0_bf16_gemv_launches = 0
-q5k_hbit_bf16_gemv_launches = 0
+# K9b's decode instantiation: the whole Q5_K x bf16 product at 1-16 rows
+q5k_bf16_gemv_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -171,19 +179,10 @@ def _check_cuda(name: str, tensors: dict[str, torch.Tensor]) -> torch.device:
     return dev
 
 
-def _ksplit_for(O: int, B: int, k_units: int, sms: int) -> int:
-    """Split of the K axis of K9b's 16-row kernel over blocks (a block owns
-    128 columns x 16 rows): about 4 blocks per SM, each split keeping at
-    least 4 K steps (256-element steps) for its copy pipeline."""
-    tiles = -(-O // 128) * -(-B // 16)
-    return max(1, min(-(-4 * sms // tiles), k_units // 4))
-
-
 @dataclasses.dataclass(frozen=True)
 class GemvPlan:
-    """The launch of a GEMV for one call (every GEMV's, K9b's 16-row
-    kernel's (column tiles, K splits, 1) grid included), every field of which the
-    CUDA entry point checks: the row tile of a block (16: the decode
+    """The launch of a GEMV for one call, every field of which the CUDA
+    entry point checks: the row tile of a block (16: the decode
     instantiation; 64 or 128: the rows instantiation, two consumer
     warpgroups), the GEMV's grid as the entry point launches it, the K
     split, the blocks of a thread-block cluster (the decode instantiation's
@@ -217,10 +216,11 @@ DEC_MAX_CLUSTER = 8
 # 8 bf16 scale rows), 14 KB at 128 columns, so a stage holds one step
 Q6K_DEC_SUB = 1
 Q6K_STEP_COL_BYTES = 112
-# K9's (csrc/q5k_q8_gemv.cu): a K step is the 32 qh rows 32r.. and the 4 qs
-# blocks of 32 rows whose high bits they hold (256 elements), 192 weight
-# bytes a column (qs 128 rows, qh 32, the 8 sub-blocks' bf16 scale and
-# minv rows), 24 KB at 128 columns: a stage a step
+# K9's (csrc/q5k_q8_gemv.cu) and K9b's (csrc/q5k_bf16_gemv.cu): a K step is
+# the 32 qh rows 32r.. and the 4 qs blocks of 32 rows whose high bits they
+# hold (256 elements), 192 weight bytes a column (qs 128 rows, qh 32, the 8
+# sub-blocks' bf16 scale and minv rows), 24 KB at 128 columns: a stage a
+# step
 Q5K_STEP_COL_BYTES = 192
 
 
@@ -289,20 +289,20 @@ def _align256(n: int) -> int:
 
 
 def _workspace_bytes(B: int, K: int, O: int, gs: int, sum_gs: int, ksplit: int,
-                     rows: int = 16, layout: str = "row", xcopy: bool = False) -> int:
+                     rows: int = 16, layout: str = "tiled", xcopy: bool = False) -> int:
     """Scratch of one GEMV call: (xq [Bpad, K], xs [K/gs, Bpad] unless gs is
     0), (xsum [K/sum_gs, Bpad] unless sum_gs is 0), (a bf16 copy of x [Bpad,
     K] with xcopy), split-K partials [ksplit, B, O], each 256-byte aligned,
     in the order csrc/common.cuh::carve lays them out for its x layout:
-    "row" (K9b's 16-row kernel, no xq: Bpad B rounded up to 16, always the
-    partials), "tiled" (the rows instantiations of K1, K2, K9 and K10: Bpad
+    "tiled" (the rows instantiations of K1, K2, K9 and K10: Bpad
     B rounded up to the row tile `rows`, the partials only with more than
     one split) or "decode" (the decode instantiations of K1, K2, K3 and K9:
-    Bpad 16, no partials; K4's, K5's, K8's and K10's have no workspace)."""
+    Bpad 16, no partials; K4's, K5's, K8's, K9b's and K10's have no
+    workspace)."""
     if layout != "tiled":
         rows = 16
     bpad = -(-B // rows) * rows
-    part = layout == "row" or (layout == "tiled" and ksplit > 1)
+    part = layout == "tiled" and ksplit > 1
     return ((_align256(bpad * K) + _align256((K // gs) * bpad * 4) if gs else 0)
             + (_align256((K // sum_gs) * bpad * 4) if sum_gs else 0)
             + (_align256(bpad * K * 2) if xcopy else 0)
@@ -1090,26 +1090,25 @@ def q5k_hbit_bf16_gemv_plain(x, qh, scale, out_dtype=torch.float32):
 
 
 def q5k_hbit_bf16_plan(B: int, K: int, O: int, sms: int) -> GemvPlan:
-    """Launch plan of K9b on a card with `sms` SMs, every field of which the
-    CUDA entry point checks. Up to 16 rows plane_bf16_mma_kernel: grid
-    (column tiles, K splits, 1), the split by _ksplit_for over 256-element
-    steps, the row-major workspace (partials only). Above: the rows kernel
-    at one bit, group 32 and no zs term (plane_gemv_plan with zs False)."""
-    if B <= 16:
-        ks = _ksplit_for(O, B, K // 256, sms)
-        return GemvPlan(16, (-(-O // 128), ks, 1), ks, 1, 128, 0,
-                        _workspace_bytes(B, K, O, 0, 0, ks))
+    """Launch plan of K9b's rows instantiation on a card with `sms` SMs,
+    every field of which the CUDA entry point checks: the rows kernel at
+    one bit, group 32 and no zs term (plane_gemv_plan with zs False), 17 to
+    256 rows. Up to 16 rows there is no high-bit kernel: the whole Q5_K
+    product is one kernel there (q5k_bf16_plan), and this plan raises."""
+    _require(16 < B <= MAX_KERNEL_ROWS,
+             f"q5k_hbit_bf16_plan: 17-{MAX_KERNEL_ROWS} rows, got {B} (up to 16 rows the "
+             "Q5_K product is q5k_bf16_gemv)")
     return plane_gemv_plan(B, K, O, 1, 32, sms, zs=False)
 
 
 def q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=torch.bfloat16):
-    """K9b: yh [B, O] = sum_i x[:, i] * scale[i/32] * hbit[i] for the
-    plane-major Q5_K high bits (see csrc/q5k_hbit_bf16_gemv.cu), the Q5_K
-    product's term that q5k_matmul adds 16 times to K5's. x [B, K] bf16 on
-    cuda, qh uint8 [K/8, O], scale [K/32, O] (bf16 on cuda). Up to 16 rows
-    the 16-row instantiation, above it the rows instantiation, on the plan
-    of q5k_hbit_bf16_plan."""
-    global q5k_hbit_bf16_gemv_launches, q5k_hbit_bf16_gemv_rows_launches
+    """K9b's rows instantiation: yh [B, O] = sum_i x[:, i] * scale[i/32] *
+    hbit[i] for the plane-major Q5_K high bits (see
+    csrc/q5k_hbit_bf16_gemv.cu), the Q5_K product's term that q5k_matmul
+    adds 16 times to K5's above 16 rows. x [B, K] bf16 on cuda, 17-256
+    rows, qh uint8 [K/8, O], scale [K/32, O] (bf16 on cuda); on the plan of
+    q5k_hbit_bf16_plan (a call of 1-16 rows raises on cuda)."""
+    global q5k_hbit_bf16_gemv_rows_launches
     Kp, O = qh.shape
     K = 8 * Kp
     B = _check_x("q5k_hbit_bf16_gemv", x, K)
@@ -1134,10 +1133,68 @@ def q5k_hbit_bf16_gemv(x, qh, scale, out_dtype=torch.bfloat16):
              kernels.ptr(out), int(out_dtype == torch.bfloat16), B, K, O, *plan.launch_args(),
              _P(kernels.stream_ptr(dev)))
     kernels.check(err, "q5k_hbit_bf16_gemv")
-    if plan.rows == 16:
-        q5k_hbit_bf16_gemv_launches += 1
-    else:
-        q5k_hbit_bf16_gemv_rows_launches += 1
+    q5k_hbit_bf16_gemv_rows_launches += 1
+    return out
+
+
+# ------------------------------------------------------- K9b decode: Q5_K x bf16
+
+
+def q5k_bf16_gemv_plain(x, qs, qh, scale, minv, out_dtype=torch.float32):
+    """Plain PyTorch version of K9b's decode instantiation on any device,
+    the ops of JAX's `_q5k_matmul_padded` with its gates off: K5's plain
+    version on the nibbles (the nibble and min terms) and K9b's on the high
+    bits, each rounded to out_dtype, added as y + 16 * yh in out_dtype."""
+    y = q4k_bf16_gemv_plain(x, qs, scale, minv, out_dtype)
+    return y + 16.0 * q5k_hbit_bf16_gemv_plain(x, qh, scale, out_dtype)
+
+
+def q5k_bf16_plan(B: int, K: int, O: int, sms: int) -> GemvPlan:
+    """Launch plan of K9b's decode instantiation (csrc/q5k_bf16_gemv.cu
+    q5k_bf16_dec_kernel) on a card with `sms` SMs, every field of which the
+    CUDA entry point checks: 1-16 rows; K9's decode geometry, K1's decode
+    rules (_dec_grid) over K/256 steps of 256 elements (the 32 qh rows a
+    step reads once), a ring stage a step, the ring's stages from the
+    step's Q5K_STEP_COL_BYTES a column; no workspace (x is read in bf16 by
+    TMA). Above 16 rows the route is K5's and K9b's rows instantiations."""
+    _require(1 <= B <= 16, f"q5k_bf16_plan: 1-16 rows, got {B}")
+    _require(K % 256 == 0, f"q5k_bf16_plan: needs K % 256 == 0, got K={K}")
+    ks, cols, ctiles = _dec_grid(O, K // 256, 1, sms)
+    return GemvPlan(16, (ks, ctiles, 1), ks, ks, cols, dec_stages(cols * Q5K_STEP_COL_BYTES), 0)
+
+
+def q5k_bf16_gemv(x, qs, qh, scale, minv, out_dtype=torch.bfloat16):
+    """K9b's decode instantiation: y [B, O] = x @ W for Q5_K W with x kept in
+    bf16, 1-16 rows, in one launch (see csrc/q5k_bf16_gemv.cu): JAX's
+    nibble-and-min sum and high-bit sum in f32, each rounded to out_dtype
+    and added as y + 16 * yh, as `_q5k_matmul_padded` returns them. x [B,
+    K] bf16 on cuda, qs uint8 [K/2, O] paired nibbles, qh uint8 [K/8, O]
+    plane-major high bits, scale/minv [K/32, O] (bf16 on cuda); on the
+    plan of q5k_bf16_plan. Nothing of a call waits for the card or keeps
+    state between calls, so it can be captured in a CUDA graph."""
+    global q5k_bf16_gemv_launches
+    O = qs.shape[1]
+    K = 2 * qs.shape[0]
+    B = _check_x("q5k_bf16_gemv", x, K)
+    _require(K % 256 == 0 and O % 16 == 0,
+             f"q5k_bf16_gemv: needs K % 256 == 0 and O % 16 == 0, got K={K} O={O}")
+    _check_tensor("qs", qs, torch.uint8, (K // 2, O))
+    _check_tensor("qh", qh, torch.uint8, (K // 8, O))
+    _require(out_dtype in (torch.bfloat16, torch.float32), f"q5k_bf16_gemv: out {out_dtype}")
+    if x.device.type == "cpu":
+        return q5k_bf16_gemv_plain(x, qs, qh, scale, minv, out_dtype)
+    _require(x.dtype == torch.bfloat16, f"q5k_bf16_gemv: the kernel takes bf16 x, got {x.dtype}")
+    _check_tensor("scale", scale, torch.bfloat16, (K // 32, O))
+    _check_tensor("minv", minv, torch.bfloat16, (K // 32, O))
+    dev = _check_cuda("q5k_bf16_gemv", dict(x=x, qs=qs, qh=qh, scale=scale, minv=minv))
+    plan = q5k_bf16_plan(B, K, O, kernels.sm_count(dev))
+    out = torch.empty(B, O, dtype=out_dtype, device=dev)
+    fn = kernels.function("q5k_bf16_gemv", "q5k_bf16_gemv", [_P] * 6 + [_I] * 11 + [_P])
+    err = fn(kernels.ptr(x), kernels.ptr(qs), kernels.ptr(qh), kernels.ptr(scale),
+             kernels.ptr(minv), kernels.ptr(out), int(out_dtype == torch.bfloat16), B, K, O,
+             *plan.launch_args(), _P(kernels.stream_ptr(dev)))
+    kernels.check(err, "q5k_bf16_gemv")
+    q5k_bf16_gemv_launches += 1
     return out
 
 
@@ -1349,10 +1406,12 @@ def q5k_matmul(lin: Linear, x: torch.Tensor) -> torch.Tensor:
     """Forward for kind 'gguf_q5k' (Q5_K, and Q5_0/Q5_1 packed into its
     layout). x [..., K] -> [..., O]. Up to 256 rows, when in % 256 == 0 and
     out % 16 == 0: K9 (the whole product in one kernel, where the JAX
-    package runs K1 and its high-bit kernel), or with int8_act off K5 on
-    the nibbles and K9b on the high bits, added as y + 16 * yh in x's
-    dtype, as the JAX package's `_q5k_matmul_padded` does; else dequantize
-    + matmul."""
+    package runs K1 and its high-bit kernel), or with int8_act off the
+    JAX package's `_q5k_matmul_padded` (the nibble-and-min sum and the
+    high-bit sum, each rounded to x's dtype, added as y + 16 * yh in it):
+    up to 16 rows in one kernel (`q5k_bf16_gemv`), above it K5 on the
+    nibbles and K9b on the high bits and the add; else dequantize +
+    matmul."""
     from mistralrs_tpu_torch.quant.gguf_linear import _ref_forward
 
     in_f, out_f = lin.shape
@@ -1364,6 +1423,9 @@ def q5k_matmul(lin: Linear, x: torch.Tensor) -> torch.Tensor:
     if lin.int8_act:
         y = q5k_q8_gemv(x2, lin.data["qs"], lin.data["qh"], lin.data["scale"], lin.data["minv"],
                         out_dtype=x.dtype)
+    elif n_rows <= 16:
+        y = q5k_bf16_gemv(x2, lin.data["qs"], lin.data["qh"], lin.data["scale"],
+                          lin.data["minv"], out_dtype=x.dtype)
     else:
         y = q4k_bf16_gemv(x2, lin.data["qs"], lin.data["scale"], lin.data["minv"],
                           out_dtype=x.dtype)

@@ -31,7 +31,7 @@ import dataclasses
 import torch
 
 from mistralrs_tpu_torch.ops import kernels
-from mistralrs_tpu_torch.ops.flash_attention import FlashPlan, check_scale, launch_args
+from mistralrs_tpu_torch.ops.flash_attention import FlashPlan, check_scale, chunk_core, launch_args
 
 # launches of K12 (one per wrapper call that launched it), and of its chunk
 # instantiation among them
@@ -230,12 +230,8 @@ def ragged_chunk_plan(B: int, max_q_len: int, Hq: int, Hkv: int, D: int, page: i
     pages, on a card with `sms` SMs. A work item is 128 (query, head) rows
     of one sequence and one kv head (128/G queries of its G = Hq/Hkv query
     heads), B * Hkv * ceil(max_q_len / (128/G)) of them; the persistent
-    grid (one block an SM, at most one an item) walks them through a ring
-    whose stages' K and V are freed apart: D 128 128-key tiles in 3 stages,
-    D 256 64-key tiles in 2. Shared memory: the stages (a K and a V tile of
-    key_tile x D bf16 and four 8-byte mbarriers each), the Q tile of 128 x
-    D bf16 and its 8-byte barrier (16 bytes), and 1024 bytes to align the
-    start to the 128-byte swizzle's period."""
+    grid (one block an SM, at most one an item) walks them through the
+    ring of the core's chunk configuration (flash_attention.chunk_core)."""
     if D not in (128, 256):
         raise ValueError(f"ragged_chunk_plan: head dim {D}; the kernel takes 128 or 256")
     if Hkv < 1 or Hq % Hkv or (Hq // Hkv) & (Hq // Hkv - 1) or Hq // Hkv > 16:
@@ -246,11 +242,9 @@ def ragged_chunk_plan(B: int, max_q_len: int, Hq: int, Hkv: int, D: int, page: i
     if B < 1 or max_q_len < 1 or sms < 1:
         raise ValueError(f"ragged_chunk_plan: nothing to launch for B={B} "
                          f"max_q_len={max_q_len} on {sms} SMs")
-    rows = 128
-    keys, stages = (128, 3) if D == 128 else (64, 2)
-    items = B * Hkv * -(-max_q_len // (rows // (Hq // Hkv)))
-    smem = stages * (2 * keys * D * 2 + 4 * 8) + rows * D * 2 + 16 + 1024
-    return FlashPlan(rows, keys, stages, 384, items, (min(sms, items), 1, 1), smem)
+    keys, stages, smem = chunk_core(D)
+    items = B * Hkv * -(-max_q_len // (128 // (Hq // Hkv)))
+    return FlashPlan(128, keys, stages, 384, items, (min(sms, items), 1, 1), smem)
 
 
 def _check_card(q_flat, kv_pages, ints) -> None:

@@ -12,10 +12,12 @@ Layouts are the decoder's: q [B, T, Hq, D], k/v [B, T, Hkv, D]; query head
 h reads kv head h // (Hq/Hkv) directly, without repeating K/V. The caller
 picks the window per layer (None on global layers). As the JAX function
 does, the scale is folded into q in q's dtype and the soft cap applies to
-the scaled logits before the mask. The kernel (csrc/splash_prefill.cu)
-takes bf16 with D = 128 or 256 and any T; the softmax runs in f32.
-`splash_prefill` takes the plain version below when (and only when) its
-tensors lie on the CPU; on a CUDA tensor it launches the kernel or raises.
+the scaled logits before the mask. The kernel (csrc/splash_prefill.cu, on
+the Hopper attention core of csrc/flash_sm90.cuh in K12's chunk
+configuration) takes bf16 with D = 128 or 256 and any T; the softmax runs
+in f32. Its launch is `splash_plan`. `splash_prefill` takes the plain
+version below when (and only when) its tensors lie on the CPU; on a CUDA
+tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from mistralrs_tpu_torch.ops import kernels
 from mistralrs_tpu_torch.ops.attention import NEG_INF
+from mistralrs_tpu_torch.ops.flash_attention import FlashPlan, chunk_core, launch_args
 
 # launches of the kernel (one per wrapper call that launched it)
 splash_prefill_launches = 0
@@ -33,6 +36,23 @@ splash_prefill_launches = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+def splash_plan(B: int, T: int, Hq: int, Hkv: int, D: int, sms: int) -> FlashPlan:
+    """The launch of K11 (csrc/splash_prefill.cu refuses any other) for q
+    [B, T, Hq, D] against Hkv kv heads on a card with `sms` SMs: K6's work
+    items, 128 query rows of one (row, head), B * Hq * ceil(T / 128) of
+    them, walked by a persistent grid (one block an SM, at most one an
+    item) through the ring of K12's chunk configuration (chunk_core)."""
+    if D not in (128, 256):
+        raise ValueError(f"splash_plan: head dim {D}; the kernel takes 128 or 256")
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"splash_plan: {Hq} query heads on {Hkv} kv heads")
+    if B < 1 or T < 1 or sms < 1:
+        raise ValueError(f"splash_plan: nothing to launch for B={B} T={T} on {sms} SMs")
+    keys, stages, smem = chunk_core(D)
+    items = B * Hq * -(-T // 128)
+    return FlashPlan(128, keys, stages, 384, items, (min(sms, items), 1, 1), smem)
 
 
 def splash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
@@ -88,10 +108,12 @@ def splash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: 
     out = torch.empty_like(q)
     if T == 0 or B == 0:
         return out
-    fn = kernels.function("splash_prefill", "splash_prefill", [_P] * 4 + [_I] * 6 + [_F, _F, _P])
+    plan = splash_plan(B, T, Hq, Hkv, D, kernels.sm_count(q.device))
+    fn = kernels.function("splash_prefill", "splash_prefill",
+                          [_P] * 4 + [_I] * 6 + [_F, _F] + [_I] * 8 + [_P])
     err = fn(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(out), B, T, Hq, Hkv, D,
              min(sliding_window or 0, T), float(scale), float(logits_softcap or 0.0),
-             _P(kernels.stream_ptr(q.device)))
+             *launch_args(plan), _P(kernels.stream_ptr(q.device)))
     kernels.check(err, "splash_prefill")
     splash_prefill_launches += 1
     return out

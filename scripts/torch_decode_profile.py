@@ -23,7 +23,8 @@ attention kernel K12 for continuation chunks and decode) instead of the
 default routes (decode below span 4096 on the gather route).
 `--int8-activations off` serves it with PipelineConfig(int8_activations=
 False): the packed GEMVs keep x in bf16 (K5 for Q4_K, K5 + K9b for Q5_K,
-K8 for int8 weights, K4 for Q6_K) where the default quantizes it to int8
+K8 for int8 weights, K4 for Q6_K; for Q5_K up to 16 rows one kernel, K9b's
+decode instantiation) where the default quantizes it to int8
 (K1, K9, K2, K3). After a
 warm-up that runs each step once untraced (a first use of a kernel or a
 GEMM shape costs up to ~0.2 s of host time), traces one batched
@@ -39,8 +40,13 @@ apart, `k13_tiles_ms` above 32 rows a group and `k13_decode_ms` up to it:
 grouped_gemm_tiles_kernel and grouped_gemm_decode_kernel), K5's decode
 instantiation (`k5_ms`: plane_dec_kernel with Q4kFmt, one launch a call; in
 a tree before it q4k_bf16_mma_kernel, whose call also ran the sums kernel
-and a split-K pass, not counted here), K8's decode instantiation (`k8_ms`: plane_dec_kernel at 8 signed bits) and
-plane_bf16_mma_kernel<1 (K9b); of K1's, K2's and K9's rows
+and a split-K pass, not counted here), K8's decode instantiation (`k8_ms`: plane_dec_kernel at 8 signed bits),
+K9b's decode instantiation (`q5k_ms`: q5k_bf16_dec_kernel, the whole Q5_K
+x bf16 product at 1-16 rows, one launch a call; in a tree before it K5's
+decode instantiation, `k5_ms`, ran beside plane_bf16_mma_kernel<1,
+`k9b_ms`, whose call also ran a split-K pass, then a multiply and an add,
+none of them counted in `q5k_ms`), K11 (`k11_ms`: splash_prefill_kernel,
+the first chunks of `--mix gemma2`); of K1's, K2's and K9's rows
 instantiations, q4k_q8_rows_kernel, q8_0_q8_rows_kernel and
 q5k_q8_rows_kernel, K9's decode q5k_q8_dec_kernel (`k9_ms`; in a tree
 before it the 16-row q5k_q8_mma_kernel; the quantize kernel, and there the
@@ -97,6 +103,7 @@ NAMED_KERNELS = {"grouped_gemm": "grouped_gemm", "k13_tiles": "grouped_gemm_tile
                  "k8": lambda k: (_plane_fmt(k, "plane_dec_kernel") or [""] * 4)[:2] == [
                      "8", "true"],
                  "k9b": "plane_bf16_mma_kernel<1",
+                 "q5k": "q5k_bf16_dec_kernel",
                  "k1_rows": "q4k_q8_rows_kernel", "k2_rows": "q8_0_q8_rows_kernel",
                  "k9": lambda k: "q5k_q8_mma_kernel" in k or "q5k_q8_dec_kernel" in k,
                  "k9_rows": "q5k_q8_rows_kernel",
@@ -109,6 +116,7 @@ NAMED_KERNELS = {"grouped_gemm": "grouped_gemm", "k13_tiles": "grouped_gemm_tile
                  "k8_rows": lambda k: (_plane_fmt(k) or [""] * 4)[:2] == ["8", "true"],
                  "plane_prep": "plane_prep_kernel",
                  "k6": "flash_prefill_kernel", "k6p": "flash_prefill_paged_kernel",
+                 "k11": "splash_prefill_kernel",
                  "k12_chunk": "ragged_chunk", "k12_decode": "ragged_decode"}
 
 

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time the decode instantiations (1-16 rows) of K3 (`q6k_q8_gemv`), K4
 (`q6k_bf16_gemv`), K8 (`q8_0_bf16_gemv`), K10 (`affine_gemv`), K5
-(`q4k_bf16_gemv`) and K9 (`q5k_q8_gemv`) in one or more checkouts of this
-repository on one card.
+(`q4k_bf16_gemv`) and K9 (`q5k_q8_gemv`), and the Q5_K x bf16 product at
+1-16 rows (`q5k`: K9b's decode instantiation, through the dispatcher), in
+one or more checkouts of this repository on one card.
 
-    python3 scripts/torch_q6k_time.py [--trace | --repeat N] [--kernels k3,k4,k8,k10,k5,k9] ROOT [ROOT ...]
+    python3 scripts/torch_q6k_time.py [--trace | --repeat N] [--kernels k3,k4,k8,k10,k5,k9,q5k] ROOT [ROOT ...]
 
 Runs each root in a process of its own, in the order given (pass parent,
 change, change, parent to A/B two trees; to time a variant of a kernel, make
@@ -17,8 +18,12 @@ the lm_head, and on wire Q8_0's bf16 scales at the lm_head; K10 at Q2_K's
 q|k and gate|up (group 16), GPTQ-8's down and gate|up (group 128), HQQ-1's
 and HQQ-2's gate|up (group 64) and GPTQ-4's (group 16); K5 and K9 at the
 Q5_K_M path's Q5_K projections (q|k 4096->5120, o 4096->4096, gate|up
-4096->28672, down 14336->4096; K5 on the same qs, scale and minv): each at
-1, 4 and 16 rows, chip_smoke.Clock's median of 25 runs (L2 flushed) beside the
+4096->28672, down 14336->4096; K5 on the same qs, scale and minv), and
+`q5k` there: quant_matmul.q5k_matmul with int8_act off, the whole Q5_K
+product as the bf16 route serves it (one kernel since K9b's decode
+instantiation; K5, K9b's 16-row kernel and the add before, so parent and
+change time the same call), against the composite of K5's and K9b's plain
+versions: each at 1, 4 and 16 rows, chip_smoke.Clock's median of 25 runs (L2 flushed) beside the
 relative error against the plain version. The same calls and inputs run
 in every tree, so a parent without a kernel's decode instantiation times
 its older one. With --trace, instead, the device time a call of each
@@ -53,9 +58,12 @@ K10_SHAPES = (("q2k", 2, 16, "qk", 4096, 5120), ("q2k", 2, 16, "gate|up", 4096, 
 # K5 and K9: (name, K, O)
 Q5K_SHAPES = (("qk", 4096, 5120), ("o", 4096, 4096), ("gate|up", 4096, 28672),
               ("down", 14336, 4096))
-KERNELS = ("k3", "k4", "k8", "k10", "k5", "k9")
-SOURCES = {"k3": "q6k_gemv", "k4": "q6k_gemv", "k8": "q8_0_bf16_gemv", "k10": "affine_gemv",
-           "k5": "q4k_bf16_gemv", "k9": "q5k_q8_gemv"}
+KERNELS = ("k3", "k4", "k8", "k10", "k5", "k9", "q5k")
+# the sources each builds (those a tree has: a parent without the Q5_K bf16
+# kernel's source builds K5's and K9b's)
+SOURCES = {"k3": ("q6k_gemv",), "k4": ("q6k_gemv",), "k8": ("q8_0_bf16_gemv",),
+           "k10": ("affine_gemv",), "k5": ("q4k_bf16_gemv",), "k9": ("q5k_q8_gemv",),
+           "q5k": ("q4k_bf16_gemv", "q5k_hbit_bf16_gemv", "q5k_bf16_gemv")}
 
 
 def cases(torch, qm, dev, gen, kernels):
@@ -103,7 +111,9 @@ def cases(torch, qm, dev, gen, kernels):
                 out.append((f"k10 {name} {fmt} B={B}",
                             lambda dt, a=a: qm.affine_gemv(*a, out_dtype=dt),
                             lambda a=a: qm.affine_gemv_plain(*a, torch.float32)))
-    if {"k5", "k9"} & set(kernels):
+    if {"k5", "k9", "q5k"} & set(kernels):
+        from mistralrs_tpu_torch.quant.qlinear import Linear
+
         for name, K, O in Q5K_SHAPES:
             qs, qh = u8(K // 2, O), u8(K // 8, O)
             scale = unif(K // 32, O, lo=0.001, hi=0.005, dtype=bf16)
@@ -120,6 +130,16 @@ def cases(torch, qm, dev, gen, kernels):
                     out.append((f"k9 {name} B={B}",
                                 lambda dt, a=a: qm.q5k_q8_gemv(*a, out_dtype=dt),
                                 lambda a=a: qm.q5k_q8_gemv_plain(*a, torch.float32)))
+                if "q5k" in kernels:
+                    lin = Linear("gguf_q5k", (K, O), {"qs": qs, "qh": qh, "scale": scale,
+                                                      "minv": minv}, int8_act=False)
+                    out.append((f"q5k {name} B={B}",
+                                # the route's out is x's dtype (bf16); its
+                                # error against the f32 composite is bf16's
+                                lambda dt, lin=lin, x=x: qm.q5k_matmul(lin, x).to(dt),
+                                lambda x=x, qs=qs, qh=qh, s=scale, m=minv:
+                                qm.q4k_bf16_gemv_plain(x, qs, s, m, torch.float32)
+                                + 16.0 * qm.q5k_hbit_bf16_gemv_plain(x, qh, s, torch.float32)))
     return out
 
 
@@ -133,7 +153,9 @@ def measure(root: str, trace: bool, repeat: int = 0, kernels_asked=KERNELS) -> d
 
     if not Path(kernels.__file__).resolve().is_relative_to(Path(root).resolve()):
         raise RuntimeError(f"{kernels.__file__} is not under {root}")
-    kernels.SOURCES = tuple(sorted({SOURCES[k] for k in kernels_asked}))
+    csrc = Path(kernels.CSRC)
+    kernels.SOURCES = tuple(sorted({n for k in kernels_asked for n in SOURCES[k]
+                                    if (csrc / f"{n}.cu").exists()}))
     kernels.build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)

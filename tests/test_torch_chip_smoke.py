@@ -211,15 +211,18 @@ def test_q2k_builder_model_serves_through_k10(monkeypatch):
 def test_q5km_bf16_card_vs_cpu_run_takes_k4_and_k9b(monkeypatch):
     """card_vs_cpu's Q5_K_M run with Q6_K kept and int8_activations=False at
     a tiny size, the CPU standing in for both sides: the 256-token prefill
-    and the 4 decode steps take K4 and K9b (their plain versions here) at
-    256 rows and at 1, the rows and the 16-row instantiations on the card,
-    and no int8 GEMV."""
+    and the 4 decode steps take K4 at 256 rows and at 1 (the rows and the
+    16-row instantiations on the card), K9b's rows instantiation (the
+    high-bit term, beside K5's) at 256 and its decode instantiation (the
+    whole Q5_K product, q5k_bf16_gemv) at 1, and no int8 GEMV (the
+    wrappers counted, each taking its plain version here)."""
     from mistralrs_tpu_torch.ops import quant_matmul as qm
 
     rows = {}
-    for name in ("q6k_bf16_gemv", "q5k_hbit_bf16_gemv") + chip_smoke.INT8_GEMVS:
-        fn = getattr(qm, f"{name}_plain")
-        monkeypatch.setattr(qm, f"{name}_plain",
+    for name in ("q6k_bf16_gemv", "q5k_bf16_gemv", "q5k_hbit_bf16_gemv",
+                 "q4k_bf16_gemv") + chip_smoke.INT8_GEMVS:
+        fn = getattr(qm, name)
+        monkeypatch.setattr(qm, name,
                             lambda x, *a, _n=name, _f=fn, **k: rows.setdefault(_n, set()).add(
                                 x.shape[0]) or _f(x, *a, **k))
     gen = torch.Generator().manual_seed(5)
@@ -229,7 +232,8 @@ def test_q5km_bf16_card_vs_cpu_run_takes_k4_and_k9b(monkeypatch):
                                           torch.device("cpu"), prompt, None,
                                           int8_activations=False)
     assert runs["cpu"].shape == (5, TINY.vocab) and np.isfinite(runs["cpu"]).all()
-    assert rows == {"q6k_bf16_gemv": {256, 1}, "q5k_hbit_bf16_gemv": {256, 1}}, rows
+    assert rows == {"q6k_bf16_gemv": {256, 1}, "q5k_bf16_gemv": {1}, "q5k_hbit_bf16_gemv": {256},
+                    "q4k_bf16_gemv": {256}}, rows
 
 
 def test_every_kernel_belongs_to_one_path():
@@ -589,17 +593,20 @@ def test_random_gguf_has_the_q5km_mix_and_reads_back(tiny_q5km_gguf):
 def test_random_gguf_serves_on_the_bf16_route(tiny_q5km_gguf, monkeypatch):
     """The gguf_bf16 phase's pipeline at a tiny size on the CPU: the file
     loaded by load_gguf_model and served with int8_activations=False at
-    rq8_group=32 takes the plain versions of K5, K9b and K8, never an int8
-    GEMV's."""
+    rq8_group=32 takes K9b's decode instantiation (the whole Q5_K product)
+    at 1-16 rows, K5 and K9b's high-bit kernel only above 16 (here the
+    prefill takes the dequant route), and K8, never an int8 GEMV (the
+    wrappers counted by their rows, each taking its plain version here)."""
     from mistralrs_tpu_torch.ops import quant_matmul as qm
     from mistralrs_tpu_torch.pipeline.gguf import load_gguf_model
 
     calls = {}
-    for name in ("q4k_bf16_gemv", "q5k_hbit_bf16_gemv", "q8_0_bf16_gemv") + chip_smoke.INT8_GEMVS:
-        fn = getattr(qm, f"{name}_plain")
-        monkeypatch.setattr(qm, f"{name}_plain",
-                            lambda *a, _n=name, _f=fn, **k: calls.update(
-                                {_n: calls.get(_n, 0) + 1}) or _f(*a, **k))
+    for name in ("q5k_bf16_gemv", "q4k_bf16_gemv", "q5k_hbit_bf16_gemv",
+                 "q8_0_bf16_gemv") + chip_smoke.INT8_GEMVS:
+        fn = getattr(qm, name)
+        monkeypatch.setattr(qm, name,
+                            lambda x, *a, _n=name, _f=fn, **k: calls.setdefault(_n, set()).add(
+                                x.shape[0]) or _f(x, *a, **k))
     cfg, params, rope, _ = load_gguf_model(tiny_q5km_gguf[0], dtype=torch.float32, device="cpu")
     pc = PipelineConfig(page_size=16, num_pages=64, max_seqs=4, max_model_len=512,
                         prefill_buckets=(64, 256), decode_steps=4, dtype=torch.float32,
@@ -615,7 +622,11 @@ def test_random_gguf_serves_on_the_bf16_route(tiny_q5km_gguf, monkeypatch):
         eng.step()
     assert all(g.seqs[0].num_generated == 6 for g in groups)
     assert np.isfinite(pipe.last_greedy_pack).all()
-    assert set(calls) == {"q4k_bf16_gemv", "q5k_hbit_bf16_gemv", "q8_0_bf16_gemv"}, calls
+    assert {"q5k_bf16_gemv", "q8_0_bf16_gemv"} <= set(calls) <= {
+        "q5k_bf16_gemv", "q4k_bf16_gemv", "q5k_hbit_bf16_gemv", "q8_0_bf16_gemv"}, calls
+    assert max(calls["q5k_bf16_gemv"]) <= 16, calls
+    assert calls.get("q4k_bf16_gemv") == calls.get("q5k_hbit_bf16_gemv"), calls
+    assert min(calls.get("q4k_bf16_gemv", {17})) > 16, calls
 
 
 def test_bf16_card_vs_cpu_loads_each_side_from_the_file(tiny_q5km_gguf):
@@ -760,19 +771,25 @@ def test_bf16_rows_kernels_hold_k5_and_k8_rows(monkeypatch, sms):
 
 def test_gguf_bf16_path_holds_the_three_kernels():
     assert chip_smoke.PATH_KERNELS["gguf_bf16"] == (
-        "q4k_bf16_gemv", "q8_0_bf16_gemv", "q5k_hbit_bf16_gemv", "q5k_hbit_bf16_gemv_rows",
-        "q4k_bf16_gemv_rows", "q8_0_bf16_gemv_rows")
+        "q5k_bf16_gemv", "q8_0_bf16_gemv", "q5k_hbit_bf16_gemv_rows", "q4k_bf16_gemv_rows",
+        "q8_0_bf16_gemv_rows")
     # 20 kernels, K1, K2, K9, K10, K4, K9b, K5 and K8 counted in two
     # instantiations each
     assert len(chip_smoke.KERNEL_INFO) == 28
     # K4's 16-row instantiation: only where Q6_K is kept with bf16 activations
     assert chip_smoke.PATH_KERNELS["card_vs_cpu_q5km_bf16"] == ("q6k_bf16_gemv",)
+    # K5's decode instantiation: only a Q4_K_M model with bf16 activations
+    assert chip_smoke.PATH_KERNELS["card_vs_cpu_bf16_q4km"] == ("q4k_bf16_gemv",)
     for name, path in (("q4k_q8_gemv", "slice"), ("q8_0_q8_gemv", "slice"),
                        ("q5k_q8_gemv", "quant_mix"), ("affine_gemv", "q2k"),
-                       ("q6k_bf16_gemv", "quant_mix"), ("q5k_hbit_bf16_gemv", "gguf_bf16"),
-                       ("q4k_bf16_gemv", "gguf_bf16"), ("q8_0_bf16_gemv", "gguf_bf16")):
+                       ("q6k_bf16_gemv", "quant_mix"), ("q4k_bf16_gemv", "gguf_bf16"),
+                       ("q8_0_bf16_gemv", "gguf_bf16")):
         assert chip_smoke.KERNEL_INFO[f"{name}_rows"] == chip_smoke.KERNEL_INFO[name]
         assert f"{name}_rows" in chip_smoke.PATH_KERNELS[path]
+    # K9b: the decode instantiation (the whole Q5_K product) and the rows one
+    # (the high-bit term) in two sources, for the same TPU kernel
+    assert chip_smoke.KERNEL_INFO["q5k_bf16_gemv"][1] == \
+        chip_smoke.KERNEL_INFO["q5k_hbit_bf16_gemv_rows"][1]
     for name in chip_smoke.PATH_KERNELS["gguf_bf16"]:
         source, replaces = chip_smoke.KERNEL_INFO[name]
         assert source.startswith("mistralrs_tpu_torch/csrc/") and replaces.startswith(

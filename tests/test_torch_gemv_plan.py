@@ -169,12 +169,6 @@ Q5K_SHAPES = [("qk", 4096, 5120), ("o", 4096, 4096), ("gate|up", 4096, 28672),
               ("down", 14336, 4096)]
 
 
-def carve_row_major(B, O, ksplit):
-    """csrc/common.cuh::carve in the row-major layout of K9b's 16-row
-    kernel (no x pieces): the partials [ksplit, B, O] alone."""
-    return _align256(ksplit * B * O * 4)
-
-
 def check_rows_grid(B, O, sms, plan):
     """A rows plan's grid: row tiles fastest, each weight tile read by at
     most two blocks, K split only to fill one wave."""
@@ -510,24 +504,22 @@ def test_q6k_bf16_plan_splits_k_to_fill_a_wave():
 
 @pytest.mark.parametrize("sms", [132, 114])
 def test_q5k_hbit_bf16_plan(sms):
-    """K9b: its 16-row kernel up to 16 rows (grid (column tiles, K splits,
-    1), the split over 256-element steps, the row-major workspace with
-    only the partials); above, the rows kernel at one bit without the zs
-    term: K split at 4 main steps (K/256 units), only to fill one wave and
-    none empty, the ring stages of the 1-bit stage, and a tiled workspace
-    with x's copy in step order but no sums."""
+    """K9b's high-bit kernel: up to 16 rows none (the whole Q5_K product is
+    one kernel there, q5k_bf16_plan), so the plan raises; above, the rows
+    kernel at one bit without the zs term: K split at 4 main steps (K/256
+    units), only to fill one wave and none empty, the ring stages of the
+    1-bit stage, and a tiled workspace with x's copy in step order but no
+    sums."""
     for name, K, O in Q5K_SHAPES:
         units = K // 256
         for B in range(1, 257):
+            if B <= 16:
+                with pytest.raises(ValueError):
+                    qm.q5k_hbit_bf16_plan(B, K, O, sms)
+                continue
             plan = qm.q5k_hbit_bf16_plan(B, K, O, sms)
             ks = plan.ksplit
             assert 1 <= ks <= units, (B, plan)
-            if B <= 16:
-                assert plan.rows == 16 and plan.grid == (-(-O // 128), ks, 1), (B, plan)
-                assert ks == qm._ksplit_for(O, B, units, sms), (B, plan)
-                assert (plan.cluster, plan.cols, plan.stages) == (1, 128, 0), (B, plan)
-                assert plan.ws_bytes == carve_row_major(B, O, ks), (B, plan)
-                continue
             assert plan == qm.plane_gemv_plan(B, K, O, 1, 32, sms, zs=False)
             check_rows_grid(B, O, sms, plan)
             per_split = -(-units // ks)

@@ -86,8 +86,10 @@ def test_plan_is_the_kernels_launch():
     at D 256; K and V freed apart at both) and the plan in launch_args order
     after the scalars."""
     text = (CSRC / "ragged_attention.cu").read_text()
-    assert "fa3::Core<D, D == 128 ? 128 : 64, D == 128 ? 3 : 2, true>" in text
     sm90 = (CSRC / "flash_sm90.cuh").read_text()
+    # the configuration, shared with K11, lives beside the core
+    assert "using C = fa3::ChunkCore<D>;" in text
+    assert "using ChunkCore = Core<D, D == 128 ? 128 : 64, D == 128 ? 3 : 2, true>;" in sm90
     k6 = [int(re.search(rf"constexpr int {n} = (\d+);", sm90).group(1))
           for n in ("kRows", "kKeys", "kStages")]
     plan = ra.ragged_chunk_plan(4, 512, 32, 8, 128, 16, SMS)

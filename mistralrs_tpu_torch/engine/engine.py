@@ -8,10 +8,11 @@ Reference parity: mistralrs-core/src/engine/mod.rs `Engine::run` (:97-421) +
 What this port does not have yet, and how it says so:
 - grammar-constrained requests: `add_request` raises NotImplementedError;
 - KV swap preemption: reaching `_swap_out_seq` / `_swap_in_seq` raises
-  NotImplementedError (the default preempt-by-recompute is unchanged);
-- the device-sampled multistep loop: taken only when the pipeline sets
-  `supports_sampled_multistep` (the port's TextPipeline does not), so
-  sampled requests go through the host sampler on full logits.
+  NotImplementedError (the default preempt-by-recompute is unchanged).
+
+Sampled requests take the pipeline's device-sampled multistep loop where
+`_multi_sampled_ok` allows it, else the device top-K pack, else the host
+sampler on full logits, as in the JAX engine.
 """
 
 from __future__ import annotations

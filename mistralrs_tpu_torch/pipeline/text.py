@@ -10,14 +10,20 @@ combined K/V pool on the ragged backend (`attn_backend="ragged"`). A batched
 prefill has one row per sequence: eager PyTorch has no compiled shape to
 keep, so it does not pad the batch to `max_seqs` as the JAX package does.
 
+The multistep decode loop (`run_decode_multi`, JAX `_build_multistep_fn`)
+runs `decode_steps` forwards over static device buffers, greedy or with
+the device sampler (`sample_step`: temperature, top-k inside TOPK_PACK,
+top-p, min-p, a Gumbel draw); on the card each call is one replay of a
+CUDA graph captured per (block-table width, greedy or sampled) key
+(pipeline/graphs.py), where JAX jits the loop into one dispatch. One-step
+decode can return the device top-K pack (`run_decode(mode="topk")`).
+
 An MoE model (mixtral) gets `moe_grouped` set, so dense experts take the
 grouped dropless dispatch (models/decoder.py).
 
-Not in this port yet: the device-sampled multistep loop and the top-K pack
-(sampled requests go through the engine's host sampler on full logits, so
-`supports_topk_pack` and `supports_sampled_multistep` are False),
-speculative verification, runtime re-quantization, meshes, CUDA-graph
-capture of the decode loop.
+Not in this port yet: speculative verification, runtime re-quantization,
+meshes, and graphs of the one-step decode and the prefill steps (they run
+eagerly).
 """
 
 from __future__ import annotations
@@ -34,12 +40,113 @@ from mistralrs_tpu_torch.models.config import ModelConfig
 from mistralrs_tpu_torch.models.decoder import DecoderParams, compute_logits, decoder_forward
 from mistralrs_tpu_torch.ops.paged_attention import PagedAttnMeta, PagedKVCache, copy_pages
 from mistralrs_tpu_torch.ops.rope import RopeTable
+from mistralrs_tpu_torch.pipeline.graphs import DecodeGraphs
 from mistralrs_tpu_torch.quant.fuse import fuse_decoder_params, requant_q6k_params
 from mistralrs_tpu_torch.quant.qlinear import Linear
 
-# size of the device top-K sampling pack in the JAX package (the engine reads
-# it when a pipeline supports that pack; this one does not)
+# candidates of the device top-K sampling pack and of the sampled decode loop
 TOPK_PACK = 64
+
+# multistep calls that ran as an eager loop, not a graph replay:
+# run_decode_multi_eager's, and run_decode_multi's on the CPU
+decode_eager_loops = 0
+
+
+def _top_k(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The TOPK_PACK largest of y [B, V] along V, descending, a tie with the
+    lower index first as jax.lax.top_k puts it: a stable descending sort,
+    since torch.topk promises no order among equals."""
+    vals, ids = torch.sort(y, dim=-1, descending=True, stable=True)
+    return vals[:, :TOPK_PACK], ids[:, :TOPK_PACK]
+
+
+def topk_pack(logits: torch.Tensor, temps: torch.Tensor) -> torch.Tensor:
+    """The step's top-K sampling pack [B, 2K+2] f32 (JAX step fn :309-317):
+    the K largest tempered logits y = logits / temps, their ids (exact in
+    f32 below 2^24), y's max m and z = sum(exp(y - m)) over the vocab."""
+    y = logits / temps[:, None]
+    m = torch.amax(y, dim=-1)
+    z = torch.sum(torch.exp(y - m[:, None]), dim=-1)
+    tv, ti = _top_k(y)
+    return torch.cat([tv, ti.to(torch.float32), m[:, None], z[:, None]], dim=1)
+
+
+def sample_keep(logits: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tensor,
+                top_ps: torch.Tensor, min_ps: torch.Tensor):
+    """The sampled branch's truncation (JAX :371-390): (ti [B, K] the
+    candidates' ids, kept [B, K] their probabilities under the full-vocab
+    softmax of logits / temps, zero where cut, keep [B, K]). Top-k keeps
+    the first top_ks; top-p (on for 0 < p < 1) keeps a candidate while the
+    kept mass before it is below p; min-p (on inside top-p) keeps what
+    exceeds min_p times the first candidate's probability."""
+    y = logits / temps[:, None]
+    tv, ti = _top_k(y)
+    m = torch.amax(y, dim=-1, keepdim=True)
+    z = torch.sum(torch.exp(y - m), dim=-1, keepdim=True)
+    probs = torch.exp(tv - m) / z
+    zero = torch.zeros((), dtype=probs.dtype, device=probs.device)
+    keep = torch.arange(TOPK_PACK, device=y.device)[None] < top_ks[:, None]
+    kept = torch.where(keep, probs, zero)
+    cums = torch.cumsum(kept, dim=-1)
+    p = top_ps[:, None]
+    topp_on = (p > 0.0) & (p < 1.0)
+    keep = keep & (~topp_on | ((cums - kept) < p))
+    kept = torch.where(keep, probs, zero)
+    mp = min_ps[:, None]
+    minp_on = topp_on & (mp > 0.0) & (mp < 1.0)
+    keep = keep & (~minp_on | (kept > kept[:, :1] * mp))
+    return ti, torch.where(keep, probs, zero), keep
+
+
+def sample_step(logits: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tensor,
+                top_ps: torch.Tensor, min_ps: torch.Tensor, uniforms: torch.Tensor):
+    """One sampled token a row (JAX :371-400): a Gumbel draw over
+    sample_keep's kept probabilities with uniforms [B, K] in (0, 1), which
+    picks candidate j with probability kept_j / sum(kept). Returns (token
+    int64 [B], its raw logit, lp10 = log10 of its kept probability, 0 when
+    nothing is kept). A greedy row is (temps 1, top_ks 1): its argmax."""
+    ti, kept, keep = sample_keep(logits, temps, top_ks, top_ps, min_ps)
+    g = -torch.log(-torch.log(uniforms + 1e-20) + 1e-20)
+    zz = torch.where(keep, torch.log(torch.clamp(kept, min=1e-45)) + g, float("-inf"))
+    idx = torch.argmax(zz, dim=-1, keepdim=True)
+    tok = torch.gather(ti, 1, idx)
+    chosen = torch.gather(kept, 1, idx)[:, 0]
+    lp10 = torch.where(kept.sum(dim=-1) > 0.0, torch.log10(torch.clamp(chosen, min=1e-45)),
+                       torch.zeros((), dtype=chosen.dtype, device=chosen.device))
+    return tok[:, 0], torch.gather(logits, 1, tok)[:, 0], lp10
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32), without int64 overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (lowbias32) of int64 x in [0, 2^32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def decode_uniforms(seed: torch.Tensor, step: int, B: int) -> torch.Tensor:
+    """Uniforms [B, TOPK_PACK] f32 in (0, 1) for decode step `step` of a call
+    with seed `seed` (an int64 tensor, any shape holding one value): a
+    counter hash in integer tensor ops, so the same seed gives the same
+    bits on every device, and a graph that reads the seed from a buffer
+    draws anew at each replay. (The JAX package splits a PRNG key per step;
+    the streams differ, as its docstring allows.)"""
+    s = _mix32(seed.reshape(()) & _M32)
+    c = torch.arange(B * TOPK_PACK, dtype=torch.int64, device=seed.device) + step * B * TOPK_PACK
+    h = _mix32(_mix32(c ^ s) ^ _mix32(s ^ 0x9E3779B9))
+    # 23 random bits as an odd multiple of 2^-24: exact in f32, never 0 or 1
+    return ((((h >> 9) << 1) | 1).to(torch.float32) * 2.0 ** -24).reshape(B, TOPK_PACK)
 
 
 def set_activation_route(params: DecoderParams, int8_act: bool) -> DecoderParams:
@@ -109,9 +216,9 @@ class PipelineConfig:
 class TextPipeline:
     """Owns model params + paged cache + the step functions."""
 
-    supports_multistep = True  # greedy multi-token decode per call
-    supports_topk_pack = False  # no device top-K sampling pack
-    supports_sampled_multistep = False  # no device-sampled multistep loop
+    supports_multistep = True  # multi-token decode per call
+    supports_topk_pack = True  # run_decode(mode="topk")
+    supports_sampled_multistep = True  # run_decode_multi(seqs, sampling)
     supports_batched_prefill = True
 
     def __init__(self, cfg: ModelConfig, params: DecoderParams, rope: RopeTable,
@@ -160,7 +267,13 @@ class TextPipeline:
                                          device=self.device, head_major=self.head_major,
                                          combined=self.kv_combined)
         self._last_greedy_pack: torch.Tensor | None = None
+        self._last_topk_pack: torch.Tensor | None = None
         self._last_logits: torch.Tensor | None = None
+        # the decode loop's static inputs, by block-table width: int64
+        # [B, 5 + width] (ids, kv_lens, pos_off, top_ks, seed, the tables)
+        # and f32 [B, 4] (active, temps, top_ps, min_ps)
+        self._loop_bufs: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self.graphs = DecodeGraphs(self.device) if self.device.type == "cuda" else None
 
     # ------------------------------------------------------------- steps
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -168,10 +281,10 @@ class TextPipeline:
 
     @torch.no_grad()
     def _run(self, ids, positions, slot_mapping, block_tables, kv_lens, active,
-             last_idx, first_chunk: bool = False) -> torch.Tensor:
+             last_idx, first_chunk: bool = False, temps=None) -> torch.Tensor:
         """One forward over a padded [B, T] batch; keeps the full logits at
         each row's `last_idx` and the greedy pack [2, B] (argmax id, its
-        logit) on the device."""
+        logit) on the device, and with `temps` [B] the top-K pack."""
         meta = PagedAttnMeta(
             positions=self._dev(positions),
             slot_mapping=self._dev(slot_mapping),
@@ -188,6 +301,7 @@ class TextPipeline:
         top = torch.argmax(logits, dim=-1)
         chosen = torch.gather(logits, 1, top[:, None])[:, 0]
         self._last_greedy_pack = torch.stack([top.to(torch.float32), chosen])
+        self._last_topk_pack = None if temps is None else topk_pack(logits, self._dev(temps))
         self._last_logits = logits
         return logits
 
@@ -200,36 +314,94 @@ class TextPipeline:
         """Full-vocab logits of row i from the last step."""
         return self._last_logits[i].cpu().numpy()
 
-    @torch.no_grad()
     def run_decode_multi(self, seqs: list[Sequence], sampling=None) -> np.ndarray:
-        """Greedy multi-token decode: `decode_steps` forwards, each feeding its
-        argmax back. Returns pack [3, T, n] = (token ids, raw logit of the
-        token, the same logit). Advances each seq's kv_len by decode_steps;
-        the caller rewinds via kv_len when it consumes fewer."""
-        if sampling is not None:
-            raise NotImplementedError("device-sampled multistep decode is not ported yet")
+        """Multi-token decode: `decode_steps` forwards, each feeding back its
+        argmax, or with `sampling` = (temps [n], top_ks [n], top_ps [n],
+        min_ps [n], seed) sample_step's draw. Returns pack [3, T, n] =
+        (token ids, raw logit of the token, log10 of its kept probability;
+        the raw logit again when greedy). Advances each seq's kv_len by
+        decode_steps; the caller rewinds via kv_len when it consumes fewer.
+        On the card the call is one replay of the key's CUDA graph (captured
+        on its first use; a failed capture or replay raises); on the CPU the
+        loop runs eagerly."""
+        global decode_eager_loops
+        key = self._fill_loop(seqs, sampling)
+        if self.graphs is not None:
+            pack = self.graphs.replay(key, self._decode_loop)
+        else:
+            decode_eager_loops += 1
+            pack = self._decode_loop(key)
+        return self._loop_result(seqs, pack)
+
+    def run_decode_multi_eager(self, seqs: list[Sequence], sampling=None) -> np.ndarray:
+        """run_decode_multi's call as T eager forwards on any device, over
+        the same buffers (for tests and for timing against the graphs)."""
+        global decode_eager_loops
+        key = self._fill_loop(seqs, sampling)
+        decode_eager_loops += 1
+        return self._loop_result(seqs, self._decode_loop(key))
+
+    def _loop_result(self, seqs: list[Sequence], pack: torch.Tensor) -> np.ndarray:
+        out = pack.cpu().numpy()[:, :, :len(seqs)]
+        for seq in seqs:
+            seq.kv_len += self.pc.decode_steps
+        return out
+
+    def _fill_loop(self, seqs: list[Sequence], sampling) -> tuple[int, bool]:
+        """Write a call's inputs into the static buffers of its block-table
+        width (padding rows: page-0 tables, inactive, greedy as (1.0, 1,
+        1.0, 0.0), JAX :450-458); returns the loop's key (width, sampled)."""
         B = self.pc.max_seqs
         T = self.pc.decode_steps
-        ps = self.pc.page_size
         n = len(seqs)
+        if n > B:
+            raise ValueError(f"{n} sequences > max_seqs {B}")
+        ps = self.pc.page_size
         bases = [self._window_base_pages(s.kv_len) for s in seqs]
         width = self._table_width(seqs, T, bases)
-        ids = np.zeros((B,), np.int64)
-        kv_lens = np.zeros((B,), np.int64)
-        pos_off = np.zeros((B,), np.int64)
-        block_tables = np.zeros((B, width), np.int64)
-        active = np.zeros((B,), np.float32)
+        ints = np.zeros((B, 5 + width), np.int64)
+        floats = np.zeros((B, 4), np.float32)
+        ints[:, 3] = 1
+        floats[:, 1:3] = 1.0
         for i, (seq, base) in enumerate(zip(seqs, bases)):
-            ids[i] = seq.tokens[-1]
+            ints[i, 0] = seq.tokens[-1]
             # masks/tables run window-relative; rope gets absolute positions
-            kv_lens[i] = seq.kv_len - base * ps
-            pos_off[i] = base * ps
-            block_tables[i] = self._tables_row(seq, width, base)
-            active[i] = 1.0
-        tok, kvl, off = self._dev(ids), self._dev(kv_lens), self._dev(pos_off)
-        tables, act = self._dev(block_tables), self._dev(active)
-        toks, chosen = [], []
-        for _ in range(T):
+            ints[i, 1] = seq.kv_len - base * ps
+            ints[i, 2] = base * ps
+            ints[i, 5:] = self._tables_row(seq, width, base)
+            floats[i, 0] = 1.0
+        if sampling is not None:
+            temps, top_ks, top_ps, min_ps, seed = sampling
+            ints[:n, 3] = top_ks
+            ints[:, 4] = seed
+            floats[:n, 1] = temps
+            floats[:n, 2] = top_ps
+            floats[:n, 3] = min_ps
+        bufs = self._loop_bufs.get(width)
+        if bufs is None:
+            bufs = self._loop_bufs[width] = (
+                torch.zeros(ints.shape, dtype=torch.int64, device=self.device),
+                torch.zeros(floats.shape, dtype=torch.float32, device=self.device))
+        bufs[0].copy_(torch.from_numpy(ints))
+        bufs[1].copy_(torch.from_numpy(floats))
+        return width, sampling is not None
+
+    @torch.no_grad()
+    def _decode_loop(self, key: tuple[int, bool]) -> torch.Tensor:
+        """The T forwards of a multistep call of key (block-table width,
+        sampled), reading only the static buffers of that width (so a graph
+        of it serves every call of its key): pack [3, T, B] f32 on the
+        device."""
+        width, sampled = key
+        ints, floats = self._loop_bufs[width]
+        ps = self.pc.page_size
+        B = ints.shape[0]
+        tok, kvl, off = ints[:, 0], ints[:, 1], ints[:, 2]
+        tables = ints[:, 5:].contiguous()
+        act = floats[:, 0].contiguous()
+        samp = (floats[:, 1], ints[:, 3], floats[:, 2], floats[:, 3])
+        toks, raws, lps = [], [], []
+        for t in range(self.pc.decode_steps):
             pos = kvl[:, None]
             page = torch.gather(tables, 1, pos // ps)
             meta = PagedAttnMeta(positions=pos + off[:, None], slot_mapping=page * ps + pos % ps,
@@ -237,15 +409,17 @@ class TextPipeline:
                                  head_major=self.head_major)
             h, _ = decoder_forward(self.params, self.cfg, self.rope, tok[:, None], self.cache, meta)
             logits = compute_logits(self.params, self.cfg, h[:, 0])
-            tok = torch.argmax(logits, dim=-1)
+            if sampled:
+                tok, raw, lp = sample_step(logits, *samp, decode_uniforms(ints[0, 4], t, B))
+            else:
+                tok = torch.argmax(logits, dim=-1)
+                raw = lp = torch.gather(logits, 1, tok[:, None])[:, 0]
             toks.append(tok)
-            chosen.append(torch.gather(logits, 1, tok[:, None])[:, 0])
+            raws.append(raw)
+            lps.append(lp)
             kvl = kvl + 1
-        vals = torch.stack(chosen)
-        pack = torch.stack([torch.stack(toks).to(torch.float32), vals, vals])
-        for seq in seqs:
-            seq.kv_len += T
-        return pack.cpu().numpy()[:, :, :n]
+        return torch.stack([torch.stack(toks).to(torch.float32), torch.stack(raws),
+                            torch.stack(lps)])
 
     def apply_copies(self, ops: list[tuple[int, int]]) -> None:
         """COW page copies."""
@@ -300,10 +474,12 @@ class TextPipeline:
     def run_decode(self, seqs: list[Sequence], greedy: bool = False,
                    mode: str | None = None) -> np.ndarray:
         """One decode token for each seq. mode "full" (default) returns
-        logits [n, V]; "greedy" the argmax pack [2, n]."""
+        logits [n, V]; "greedy" the argmax pack [2, n]; "topk" the device
+        top-K sampling pack (tv [n, K], ti [n, K], m [n], z [n]) of each
+        seq's tempered logits (temperature 1 where it has none)."""
         mode = mode or ("greedy" if greedy else "full")
-        if mode not in ("full", "greedy"):
-            raise NotImplementedError(f"decode mode {mode!r} is not ported yet")
+        if mode not in ("full", "greedy", "topk"):
+            raise ValueError(f"decode mode {mode!r}: expected 'full', 'greedy' or 'topk'")
         B = self.pc.max_seqs
         if len(seqs) > B:
             raise ValueError(f"{len(seqs)} sequences > max_seqs {B}")
@@ -316,6 +492,7 @@ class TextPipeline:
         block_tables = np.zeros((B, width), np.int64)
         kv_lens = np.ones((B,), np.int64)  # 1 for padding rows: no empty softmax rows
         active = np.zeros((B,), np.float32)
+        temps = np.ones((B,), np.float32)
         for i, (seq, base) in enumerate(zip(seqs, bases)):
             pos = seq.kv_len
             ids[i, 0] = seq.tokens[-1]
@@ -324,13 +501,19 @@ class TextPipeline:
             block_tables[i] = self._tables_row(seq, width, base)
             kv_lens[i] = pos + 1 - base * ps
             active[i] = 1.0
+            if seq.sampling.temperature is not None:
+                temps[i] = seq.sampling.temperature
         logits = self._run(ids, positions, slot_mapping, block_tables, kv_lens, active,
-                           np.zeros((B,), np.int64))
+                           np.zeros((B,), np.int64), temps=temps if mode == "topk" else None)
         for seq in seqs:
             seq.kv_len += 1
         n = len(seqs)
         if mode == "greedy":
             return self.last_greedy_pack[:, :n]
+        if mode == "topk":
+            p = self._last_topk_pack.cpu().numpy()[:n]  # one fetch of [n, 2K+2]
+            K = TOPK_PACK
+            return p[:, :K], p[:, K:2 * K].astype(np.int32), p[:, 2 * K], p[:, 2 * K + 1]
         return logits[:n].cpu().numpy()
 
     # ------------------------------------------------------------- prefill

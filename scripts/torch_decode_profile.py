@@ -32,7 +32,9 @@ first-chunk prefill engine step each of FEW 40-token prompts (a 64-token
 bucket), FEW 200-token prompts (fewer than the `--batch` decode slots, as
 when a few requests arrive) and `--batch` 200-token prompts, then times greedy multistep decode calls (8
 forwards each, median of 5) with the host clock and traces one with
-torch.profiler. Prints JSON lines: a summary per phase (wall time, the
+torch.profiler. A decode call is one replay of the decode loop's CUDA
+graph (pipeline/graphs.py): its trace holds one `cudaGraphLaunch`
+(`graph_launches`) where an eager loop made `launches`. Prints JSON lines: a summary per phase (wall time, the
 device's busy share = sum of kernel times over the traced wall time,
 kernel launches, and the device time of K13, K5, K8 and K9b and their
 shares of it: kernels named grouped_gemm (and K13's two instantiations
@@ -223,6 +225,7 @@ def report(phase, name, args, prof, wall, extra) -> None:
     # cudaLaunchKernel, and cudaLaunchKernelExC for the launches with attributes
     # (the clusters of K1's and K2's decode instantiations)
     launches = sum(e.count for e in ka if e.key.startswith("cudaLaunchKernel"))
+    graph_launches = sum(e.count for e in ka if e.key.startswith("cudaGraphLaunch"))
     # fewer device kernel events than launches: the trace dropped some, and
     # device_busy_ms covers only the forwards it kept
     events = sum(e.count for e in kernels)
@@ -236,7 +239,8 @@ def report(phase, name, args, prof, wall, extra) -> None:
                       "int8_activations": args.int8_activations, "layers": args.layers,
                       "batch": args.batch, **extra, "traced_wall_ms": wall * 1e3,
                       "device_busy_ms": dev_us / 1e3, "device_busy_share": dev_us / 1e6 / wall,
-                      "launches": launches, "device_kernel_events": events, **named}))
+                      "launches": launches, "graph_launches": graph_launches,
+                      "device_kernel_events": events, **named}))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(json.dumps({"phase": phase, "kernel": e.key[:90], "count": e.count,
                           "device_ms": e.self_device_time_total / 1e3}))

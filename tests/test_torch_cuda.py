@@ -2050,3 +2050,107 @@ def test_gguf_pipeline_decodes_on_the_bf16_route(dev, tmp_path):
     (seq,) = group.seqs
     assert seq.num_generated == 8 and all(0 <= t < 2048 for t in seq.generated_tokens)
     assert np.isfinite(pipe.last_greedy_pack).all()
+
+
+# ------------------------------------------------------------- the decode loop's graphs
+
+# each route the decode graphs carry: (builder, config, the counters of the
+# kernels a decode call must launch, PipelineConfig fields, prompt tokens)
+GRAPH_ROUTES = {
+    "k1_k2": ("random_q4km_params", "model_config", ("q4k_q8_gemv", "q8_0_q8_gemv"), {}, 200),
+    "k7_head_major": ("random_q4km_params", "model_config", ("paged_decode",),
+                      {"max_model_len": 4096, "num_pages": 352}, 2100),
+    "k12_ragged": ("random_q4km_params", "model_config", ("ragged_attention",),
+                   {"attn_backend": "ragged"}, 200),
+    "k13_mixtral": ("random_mixtral_params", "mixtral_config", ("grouped_gemm",), {}, 200),
+    "bf16_k5_k8": ("random_q4km_params", "model_config", ("q4k_bf16_gemv", "q8_0_bf16_gemv"),
+                   {"int8_activations": False}, 200),
+    "bf16_k9b_k8": ("random_q5km_params", "model_config", ("q5k_bf16_gemv", "q8_0_bf16_gemv"),
+                    {"int8_activations": False}, 200),
+}
+
+
+def _launch_deltas(fn):
+    from mistralrs_tpu_torch.pipeline import graphs
+
+    before = graphs.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = graphs.launch_counts()
+    return out, {name: after[(m, name)] - n for (m, name), n in before.items()
+                 if after[(m, name)] != n}
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("route", list(GRAPH_ROUTES))
+def test_decode_loop_replays_bit_equal_to_the_eager_loop(dev, route, sampled):
+    """A 2-layer full-width pipeline (chip_smoke's builders, 4 slots, 3
+    prefilled sequences, 4 steps a call) on each route the decode graphs
+    carry: run_decode_multi (captured on its first call under sync debug
+    mode "error", then replayed under it) against run_decode_multi_eager on
+    the same inputs, greedy and sampled at one seed: tokens equal, packs
+    bit-equal, and a replay's launch counts equal the eager loop's (the
+    route's kernels among them)."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from mistralrs_tpu_torch.engine.block_manager import BlockManager
+    from mistralrs_tpu_torch.engine.sampler import SamplingParams
+    from mistralrs_tpu_torch.engine.sequence import Sequence
+    from mistralrs_tpu_torch.models.loader import make_rope
+    from mistralrs_tpu_torch.pipeline import graphs
+    from mistralrs_tpu_torch.pipeline import text
+    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
+
+    build, config, want, over, plen = GRAPH_ROUTES[route]
+    sz = cs.MIXTRAL if route == "k13_mixtral" else cs.Sizes()
+    cfg = getattr(cs, config)(sz, 2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = getattr(cs, build)(sz, 2, dev, gen, torch.bfloat16)
+    pc = PipelineConfig(**{"page_size": 16, "num_pages": 96, "max_seqs": 4, "max_model_len": 2048,
+                           "prefill_buckets": (64, 512), "decode_steps": 4,
+                           "dtype": torch.bfloat16, "device": "cuda", **over})
+    pipe = TextPipeline(cfg, params, make_rope(cfg, pc.max_model_len, device=dev), pc)
+    del params
+    bm = BlockManager(pc.num_pages, pc.page_size)
+    rng = np.random.default_rng(1)
+    seqs = []
+    for n in (plen, plen - 17, plen // 2):
+        seq = Sequence([int(t) for t in rng.integers(1, sz.vocab, n)], SamplingParams(max_len=8),
+                       max_model_len=pc.max_model_len)
+        bm.allocate(seq)
+        for start in range(0, n, 512):
+            pipe.run_prefill_chunk(seq, seq.tokens[start:start + 512])
+        seq.tokens.append(int(rng.integers(1, sz.vocab)))
+        bm.append_slot(seq, pc.decode_steps)
+        seqs.append(seq)
+    sampling = ([1.5, 0.8, 1.0], [40, 64, 1], [1.0, 0.9, 1.0], [0.0, 0.05, 0.0], 99) \
+        if sampled else None
+
+    def rewind():
+        for seq in seqs:
+            seq.kv_len -= pc.decode_steps
+
+    eager, d_eager = _launch_deltas(lambda: pipe.run_decode_multi_eager(seqs, sampling))
+    rewind()
+    captures, replays = graphs.decode_graph_captures, graphs.decode_graph_replays
+    first = pipe.run_decode_multi(seqs, sampling)
+    rewind()
+    assert (graphs.decode_graph_captures, graphs.decode_graph_replays) == (captures + 1,
+                                                                          replays + 1)
+    key = pipe._fill_loop(seqs, sampling)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, d_replay = _launch_deltas(lambda: pipe.graphs.replay(key, pipe._decode_loop))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    again = out.cpu().numpy()[:, :, :len(seqs)]
+    assert graphs.decode_graph_captures == captures + 1
+    for pack in (first, again):
+        np.testing.assert_array_equal(pack[0], eager[0])
+        assert np.array_equal(pack, eager)  # bit-equal, NaNs none
+    assert np.isfinite(eager).all() and ((eager[0] >= 0) & (eager[0] < sz.vocab)).all()
+    assert d_replay == d_eager and all(d_replay.get(f"{n}_launches", 0) > 0 for n in want), (
+        d_replay, d_eager)
+    assert text.decode_eager_loops >= 1 and len(pipe.graphs.graphs) == 1
+    assert pipe.graphs.pool_bytes() > 0

@@ -1,7 +1,8 @@
 """The port's Engine against the JAX Engine on the tiny Q4_K_M-mix model of
 tests/torch_port_model.py: greedy tokens and their logits for 3 requests
 served together (batched first-chunk prefill, a continuation chunk, greedy
-multistep decode), plus what the port's engine refuses.
+multistep decode), the device sampling paths it serves (the top-K pack,
+the sampled multistep loop) and what it refuses.
 
 Tolerance: SLICE_RTOL of tests/torch_port_model.py (int8 activation
 rounding; measured at most 1.03% of a step's largest |logit|, allowed 3%).
@@ -26,8 +27,10 @@ from mistralrs_tpu.quant import fuse as jfuse
 from mistralrs_tpu_torch.engine.engine import Engine, GenerationRequest
 from mistralrs_tpu_torch.engine.sampler import SamplingParams
 from mistralrs_tpu_torch.models.loader import make_rope
+from mistralrs_tpu_torch.ops import quant_matmul as tqm
 from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
-from torch_port_model import PAGE, SLICE_RTOL, jax_q4km_params, port_config, port_params
+from torch_port_model import (  # noqa: F401 (one_thread is a fixture)
+    PAGE, SLICE_RTOL, jax_q4km_params, one_thread, port_config, port_params)
 
 
 @pytest.fixture(scope="module")
@@ -98,10 +101,26 @@ def test_engine_greedy_tokens_match_jax(model, monkeypatch):
         assert (np.abs(tv - jv) <= SLICE_RTOL * scale).all()
 
 
-def test_port_engine_serves_sampled_requests_on_the_host(model):
-    """No device sampling in the port: a sampled request takes the host
-    sampler on full logits, batched with a greedy one."""
+def _spied(eng, name):
+    """Record the keyword / sampling argument of every call of a pipeline
+    method."""
+    calls = []
+    orig = getattr(eng.pipeline, name)
+
+    def spy(seqs, *args, **kw):
+        calls.append((args, kw))
+        return orig(seqs, *args, **kw)
+
+    setattr(eng.pipeline, name, spy)
+    return calls
+
+
+def test_port_engine_serves_sampled_requests_on_the_host(model, one_thread):
+    """A sampled request with its own seed (which the device loop's shared
+    seed cannot serve), batched with a greedy one: the host draws from the
+    device top-K pack of each step (run_decode mode "topk")."""
     eng = _port_engine(model)
+    topk = _spied(eng, "run_decode")
     prompts = _prompts(model[0].vocab_size)
     sampled = eng.add_request(GenerationRequest(prompts[1], SamplingParams(
         max_len=5, temperature=0.8, top_k=20, seed=3)))
@@ -112,6 +131,38 @@ def test_port_engine_serves_sampled_requests_on_the_host(model):
         seq = g.seqs[0]
         assert len(seq.generated_tokens) == 5 and seq.stop_reason.value == "length"
         assert all(0 <= t < model[0].vocab_size for t in seq.generated_tokens)
+    assert topk and all(kw.get("mode") == "topk" for _, kw in topk)
+
+
+def test_port_engine_serves_sampled_multistep(model, monkeypatch, one_thread):
+    """Sampled requests the device loop can serve (temperature, an explicit
+    top-k <= TOPK_PACK, top-p, min-p; no own seed), batched with a greedy
+    one: every decode call is run_decode_multi with the sampling arguments,
+    the greedy row as (1.0, 1, 1.0, 0.0). (The GEMVs dequantize: the
+    route, not the int8 rounding, is under test.)"""
+    monkeypatch.setattr(tqm, "MAX_KERNEL_ROWS", -1)
+    eng = _port_engine(model)
+    multi = _spied(eng, "run_decode_multi")
+    prompts = _prompts(model[0].vocab_size)
+    # two prompts of one first prefill batch, so they decode together
+    groups = [eng.add_request(GenerationRequest(prompts[1], SamplingParams(
+                  max_len=9, temperature=0.8, top_k=40, top_p=0.95, min_p=0.05))),
+              eng.add_request(GenerationRequest(prompts[2], SamplingParams(max_len=9)))]
+    while not all(g.all_done() for g in groups):
+        eng.step()
+    for g in groups:
+        seq = g.seqs[0]
+        assert len(seq.generated_tokens) == 9 and seq.stop_reason.value == "length"
+        assert all(0 <= t < model[0].vocab_size for t in seq.generated_tokens)
+    assert multi and all(args and args[0] is not None for args, _ in multi)
+    temps, top_ks, top_ps, min_ps, seed = multi[0][0][0]
+    assert (temps, top_ks, top_ps, min_ps) == ([0.8, 1.0], [40, 1], [0.95, 1.0], [0.05, 0.0])
+    assert isinstance(seed, int)
+
+
+def test_port_engine_serves_the_topk_pack_and_sampled_multistep(model):
+    pipe = _port_engine(model).pipeline
+    assert pipe.supports_topk_pack and pipe.supports_sampled_multistep
 
 
 def test_port_engine_refuses_what_is_not_ported(model):
@@ -124,7 +175,3 @@ def test_port_engine_refuses_what_is_not_ported(model):
         eng.add_request(GenerationRequest([1, 2, 3], constraint=Constraint()))
     with pytest.raises(NotImplementedError):
         eng._swap_out_seq(None)
-    with pytest.raises(NotImplementedError):
-        eng.pipeline.run_decode([], mode="topk")
-    assert not eng.pipeline.supports_topk_pack
-    assert not eng.pipeline.supports_sampled_multistep

@@ -14,6 +14,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from mistralrs_tpu.gguf.reader import GGMLType
@@ -116,6 +117,16 @@ def _jax_mix_params(base, seed: int, **over):
         group_sizes=sizes,
     )
     return cfg, params
+
+
+@pytest.fixture
+def one_thread():
+    """One torch thread for a test of many tiny ops: on a loaded machine an
+    oversubscribed thread pool slows such a test by up to 100x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def port_params(jparams):

@@ -150,6 +150,24 @@ non-zero and never prints the final line):
    instantiation's served path) and the Q5_K_M rule (K5's rows, K9b, K8),
    each loaded by load_gguf_model on each side; and,
    as a control, the same files with int8 activations (K1, K9, K2).
+19. hf_isq (run after gemma2): Gemma-2-9B from an HF checkpoint: an
+   8-layer checkpoint at full width (random bf16 weights, HF's init std, in
+   two safetensors shards written by write_safetensors, no package) in a
+   temporary directory (its free space printed first), loaded by
+   load_hf_model(path, isq="Q4K") (the Q4_K scale search on the host, the
+   layers in the loader's threads), served in the slice phase's pattern
+   (K11, q4k_dequant, K1 on graph replays); then pipe.re_isq("Q8_0") and
+   two more waves (the first captures the decode graphs anew; K2 and
+   q8_0_dequant). It raises unless every projection loaded as Q4_K with a
+   bf16 embedding, K1, K11 and q4k_dequant launched, and after re_isq the
+   kinds are Q8_0, the graphs were dropped and captured anew and K2
+   launched; its line gives the write, header-read, load and ISQ seconds
+   (a layer too), the checkpoint's GB and GB/s, and re_isq's seconds.
+20. card_vs_cpu_isq: that checkpoint at 2 layers (the same seed, so the
+   same first layers), loaded with ISQ Q4K on the card and on the CPU
+   (every packed byte equal), phase 10's
+   token-major comparison (K11, K1 on the card), and the ISQ model's logit
+   error against the same checkpoint loaded dense.
 The kernel phase also holds K5, K9b and K8 against their plain versions at
 the gguf_bf16 path's shapes (K9b's rows instantiation at gate|up at 17, 64,
 128 and 256 rows; q|k, o, down; K5 and K9b's decode instantiation at all
@@ -174,6 +192,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -705,12 +725,10 @@ def model_config(sz: Sizes, n_layers: int):
                        max_position_embeddings=4096, rope_theta=1e6)
 
 
-def gemma2_config(sz: Sizes, n_layers: int):
-    """config_from_hf on google/gemma-2-9b's config.json, at the widths of
-    `sz` and n_layers layers."""
-    from mistralrs_tpu_torch.models.config import config_from_hf
-
-    return config_from_hf({
+def gemma2_hf_config(sz: Sizes, n_layers: int) -> dict:
+    """google/gemma-2-9b's config.json at the widths of `sz` and n_layers
+    layers (HF's keys; initializer_range is HF's default)."""
+    return {
         "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2",
         "vocab_size": sz.vocab, "hidden_size": sz.hidden, "intermediate_size": sz.inter,
         "num_hidden_layers": n_layers, "num_attention_heads": sz.heads,
@@ -718,7 +736,16 @@ def gemma2_config(sz: Sizes, n_layers: int):
         "query_pre_attn_scalar": 256, "sliding_window": 4096,
         "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
         "hidden_activation": "gelu_pytorch_tanh", "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
-        "max_position_embeddings": 8192, "tie_word_embeddings": True})
+        "max_position_embeddings": 8192, "tie_word_embeddings": True,
+        "initializer_range": 0.02, "torch_dtype": "bfloat16"}
+
+
+def gemma2_config(sz: Sizes, n_layers: int):
+    """config_from_hf on google/gemma-2-9b's config.json, at the widths of
+    `sz` and n_layers layers."""
+    from mistralrs_tpu_torch.models.config import config_from_hf
+
+    return config_from_hf(gemma2_hf_config(sz, n_layers))
 
 
 # ------------------------------------------------------------- GGUF files
@@ -792,6 +819,76 @@ def write_random_gguf(path: str, sz: Sizes, n_layers: int, base: str, seed: int)
           "llama.context_length": 32768, "llama.vocab_size": sz.vocab}
     write_gguf(path, md, tensors)
     return sum(t[2].nbytes for t in tensors.values())
+
+
+# ------------------------------------------------------------- HF checkpoints
+
+# safetensors dtype names of the arrays write_safetensors takes (BF16 as
+# its uint16 bits)
+ST_DTYPES = {"BF16": np.uint16, "F16": np.float16, "F32": np.float32, "I32": np.int32}
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """A safetensors file (the format's own layout, no package): name ->
+    (dtype name, shape, array or a function that returns it), each array of
+    ST_DTYPES[dtype name] (BF16 as uint16 bits) and the given shape, written
+    one after another in the order given. Returns the data's bytes."""
+    header, off = {}, 0
+    for name, (dt, shape, _) in tensors.items():
+        n = int(np.prod(shape, dtype=np.int64)) * np.dtype(ST_DTYPES[dt]).itemsize
+        header[name] = {"dtype": dt, "shape": list(shape), "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for name, (dt, shape, arr) in tensors.items():
+            a = np.ascontiguousarray(arr() if callable(arr) else arr)
+            if a.dtype != ST_DTYPES[dt] or a.shape != tuple(shape):
+                raise ValueError(f"{name}: {a.dtype} {a.shape}, not {dt} {tuple(shape)}")
+            f.write(a.data)
+    return off
+
+
+def write_gemma2_hf(path: str, sz: Sizes, n_layers: int, seed: int, device) -> int:
+    """A Gemma-2 HF checkpoint at sz's widths and n_layers layers in `path`:
+    config.json (gemma2_hf_config) and two safetensors shards (the
+    embedding and the first half of the layers; the rest and the final
+    norm). Weights are bf16 draws of N(0, 0.02^2) (HF's init std) from a
+    torch generator seeded with `seed` on `device`; norm weights are HF's
+    zeros. The tied embedding is the lm_head. Returns the shards' data
+    bytes."""
+    import torch
+
+    H, I, D = sz.hidden, sz.inter, sz.head_dim
+    cfg = gemma2_hf_config(sz, n_layers)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*shape):
+        def draw():
+            w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * 0.02
+            return w.to(torch.bfloat16).view(torch.int16).cpu().numpy().view(np.uint16)
+        return ("BF16", shape, draw)
+
+    zeros = ("BF16", (H,), np.zeros(H, np.uint16))
+    shapes = {"self_attn.q_proj": (sz.heads * D, H), "self_attn.k_proj": (sz.kv_heads * D, H),
+              "self_attn.v_proj": (sz.kv_heads * D, H), "self_attn.o_proj": (H, sz.heads * D),
+              "mlp.gate_proj": (I, H), "mlp.up_proj": (I, H), "mlp.down_proj": (H, I)}
+    norms = ("input_layernorm", "post_attention_layernorm", "pre_feedforward_layernorm",
+             "post_feedforward_layernorm")
+    shards = ({"model.embed_tokens.weight": normal(sz.vocab, H)}, {})
+    for i in range(n_layers):
+        shard = shards[0 if i < n_layers // 2 else 1]
+        for name, shape in shapes.items():
+            shard[f"model.layers.{i}.{name}.weight"] = normal(*shape)
+        for name in norms:
+            shard[f"model.layers.{i}.{name}.weight"] = zeros
+    shards[1]["model.norm.weight"] = zeros
+    return sum(write_safetensors(os.path.join(path, f"model-{k + 1:05d}-of-00002.safetensors"),
+                                 shard) for k, shard in enumerate(shards))
 
 
 # ------------------------------------------------------------- timing
@@ -2063,13 +2160,17 @@ def _linears(part: dict, prefix: str = ""):
             yield prefix + name, node
 
 
-def served_kinds(pipe) -> list[str]:
-    """The Linear kinds of a pipeline's projections and lm_head (if it is
-    not the tied embedding), sorted."""
-    head = pipe.params.lm_head
-    return sorted({lin.kind for lp in pipe.params.layers for part in ("attn", "mlp")
+def params_kinds(params) -> list[str]:
+    """The Linear kinds of the projections and the lm_head (if it is not the
+    tied embedding), sorted."""
+    head = params.lm_head
+    return sorted({lin.kind for lp in params.layers for part in ("attn", "mlp")
                    for _, lin in _linears(lp[part])}
                   | ({head.kind} if head is not None else set()))
+
+
+def served_kinds(pipe) -> list[str]:
+    return params_kinds(pipe.params)
 
 
 def short_context_phase(sz: Sizes, device, phase: str, params_fn, rq8_group,
@@ -2091,13 +2192,15 @@ def short_context_phase(sz: Sizes, device, phase: str, params_fn, rq8_group,
 
 
 def serve_short_context(sz: Sizes, device, phase: str, cfg, params, rope, t0: float,
-                        rq8_group, int8_activations: bool = True, **extra) -> dict:
+                        rq8_group, int8_activations: bool = True, after=None, **extra) -> dict:
     """The model served at max_model_len 2048 (token-major pools, buckets
     64/256): 4 greedy requests of ~200-token prompts (one 4 x 256 first
     chunk), then 4 of ~40 tokens (4 x 64 rows), max_len tokens each, after
     a warm-up with the same pattern. Returns the phase's line (with `extra`
     in it; setup_s counts from t0); the launch counts are set to 0 just
-    before the measured run and read just after it."""
+    before the measured run and read just after it. `after(pipe, serve)`,
+    if given, runs after the measured run (serve(max_len, decode) serves
+    the pattern once more) and returns more entries for the line."""
     import torch
 
     from mistralrs_tpu_torch.engine.engine import Engine
@@ -2152,6 +2255,8 @@ def serve_short_context(sz: Sizes, device, phase: str, cfg, params, rope, t0: fl
            "p50_ttft_ms_short": ttft_ms(groups[4:]), "run_s": run_s, "setup_s": setup_s,
            "launches": counts, "decode_steps_per_call": pc.decode_steps, "max_seqs": pc.max_seqs,
            **graphs, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **extra}
+    if after is not None:
+        out.update(after(pipe, serve))
     emit(out)
     del eng, pipe
     return out
@@ -2380,6 +2485,165 @@ def gemma2_phase(sz: Sizes, device) -> dict:
     if out["launches"]["flash_prefill"]:
         raise AssertionError(f"the Gemma-2 path launched the flash kernel K6: {out['launches']}")
     return out
+
+
+# the hf_isq phase's depth (of Gemma-2-9B's 42 layers): ~3.2 GB of bf16
+# layers beside the 1.8 GB tied embedding, about gguf_bf16's 5.1 GB file
+HF_ISQ_LAYERS = 8
+# the seed of the phases' checkpoints: the first layers of every depth are
+# the same draws, so card_vs_cpu_isq's 2 layers are hf_isq's first 2
+HF_ISQ_SEED = 21
+
+
+def hf_isq_phase(sz: Sizes, device) -> dict:
+    """Gemma-2-9B from an HF checkpoint with in-situ quantization: a
+    HF_ISQ_LAYERS-layer checkpoint at full width (write_gemma2_hf, random
+    bf16 weights, two safetensors shards) written into a temporary
+    directory, loaded by load_hf_model(path, isq="Q4K") (the projections
+    quantized on the host by the Q4_K scale search, in the loader's
+    threads), served in the slice phase's pattern (K11 for the 4 x 256-row
+    first chunks, q4k_dequant + torch.matmul for their projections, K1 for
+    the 4 x 64 rows and decode, on graph replays); then pipe.re_isq("Q8_0")
+    and two more waves of the pattern: one that captures the decode graphs
+    anew (K2 and q8_0_dequant in place of K1 and q4k_dequant), one timed.
+    It raises unless every projection loaded as gguf_q4k with the embedding
+    bf16, K1, K11 and q4k_dequant launched, and after re_isq the kinds are
+    gguf_q8_0, the graphs were dropped and captured anew, and K2 launched.
+    The line gives the write, header-read (TensorSource alone), load
+    (load_hf_model) and ISQ (the load but its header read: the layers
+    quantized, packed and copied to the card in LOAD_THREADS threads, the
+    embedding beside them) seconds, ISQ seconds a layer, the checkpoint's
+    GB and GB/s, and re_isq's seconds and its waves' figures."""
+    import tempfile
+
+    import torch
+
+    from mistralrs_tpu_torch.models.loader import LOAD_THREADS, TensorSource, load_hf_model
+
+    g = dataclasses.replace(GEMMA2, layers=HF_ISQ_LAYERS)
+    free_card_memory()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="gemma2-9b-hf-") as tmp:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        emit({"phase": "hf_isq_tmp", "tmp_free_gb": free_gb})
+        t0 = time.perf_counter()
+        nbytes = write_gemma2_hf(tmp, g, g.layers, seed=HF_ISQ_SEED, device=device)
+        write_s = time.perf_counter() - t0
+        t = time.perf_counter()
+        TensorSource.from_safetensors_dir(tmp)
+        header_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cfg, params, rope = load_hf_model(tmp, isq="Q4K", device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    kinds = params_kinds(params)
+    if kinds != GEMMA2_KINDS or params.embed.dtype != torch.bfloat16 or params.lm_head is not None:
+        raise AssertionError(f"ISQ Q4K loaded {kinds}, an embedding in {params.embed.dtype}, "
+                             f"an lm_head {params.lm_head is not None}")
+    if (cfg.num_layers, cfg.hidden_size, cfg.vocab_size) != (g.layers, g.hidden, g.vocab):
+        raise AssertionError(f"the checkpoint's config is not the written one: {cfg}")
+
+    def re_isq_waves(pipe, serve) -> dict:
+        t = time.perf_counter()
+        pipe.re_isq("Q8_0")
+        torch.cuda.synchronize()
+        re_isq_s = time.perf_counter() - t
+        kinds = served_kinds(pipe)
+        if kinds != ["gguf_q8_0"] or pipe.graphs.graphs:
+            raise AssertionError(f"re_isq left kinds {kinds} and {len(pipe.graphs.graphs)} graphs")
+        reset_counts()
+        serve(g.max_len, {"tokens": 0, "seconds": 0.0})
+        first = read_counts()
+        if first["decode_graph_captures"] < 1:
+            raise AssertionError(f"no decode graph was captured after re_isq: {first}")
+        check_graphed(first, pipe)
+        reset_counts()
+        decode = {"tokens": 0, "seconds": 0.0}
+        groups = serve(g.max_len, decode)
+        n = read_counts()
+        check_served(groups, g.vocab, g.max_len, pipe)
+        check_launched(n, ("q8_0_q8_gemv", "q8_0_q8_gemv_rows", "q8_0_dequant", "splash_prefill"))
+        if any(n[k] for k in ("q4k_q8_gemv", "q4k_q8_gemv_rows", "q4k_dequant")):
+            raise AssertionError(f"a Q4_K kernel launched after re_isq: {n}")
+        return {"re_isq_s": re_isq_s, "re_isq_kinds": kinds,
+                "re_isq_captures": first["decode_graph_captures"], **check_graphed(n, pipe),
+                "re_isq_decode_tok_s": decode["tokens"] / decode["seconds"],
+                "re_isq_p50_ttft_ms": ttft_ms(groups), "re_isq_launches": n}
+
+    out = serve_short_context(
+        g, device, "hf_isq", cfg, params, rope, t0, rq8_group=32, after=re_isq_waves,
+        tmp_free_gb=free_gb, checkpoint_gb=nbytes / 1e9, write_s=write_s, header_s=header_s,
+        load_s=load_s, load_gb_s=nbytes / 1e9 / load_s, isq_s=load_s - header_s,
+        isq_s_per_layer=(load_s - header_s) / g.layers, load_threads=LOAD_THREADS,
+        loaded_kinds=kinds)
+    del params
+    check_launched(out["launches"], ("q4k_q8_gemv", "q4k_q8_gemv_rows", "splash_prefill",
+                                     "q4k_dequant"))
+    if out["launches"]["flash_prefill"]:
+        raise AssertionError(f"the Gemma-2 path launched the flash kernel K6: {out['launches']}")
+    return out
+
+
+def card_vs_cpu_isq_phase(sz: Sizes, device) -> list[dict]:
+    """hf_isq's checkpoint at 2 layers (write_gemma2_hf with its seed: the
+    same embedding and first 2 layers), loaded with ISQ Q4K on the card and
+    on the CPU (bf16 both: every packed byte, scale and min must be equal;
+    the CPU side then computes in f32): a 256-token first chunk (K11 on the
+    card) and 4 decode steps (K1), logits within 5% of each step's largest
+    |logit|; and the ISQ model's error against the same checkpoint loaded
+    dense (on the card, fed the same tokens)."""
+    import tempfile
+
+    import torch
+
+    from mistralrs_tpu_torch.models.loader import load_hf_model
+
+    n_layers = 2
+    with tempfile.TemporaryDirectory(prefix="gemma2-9b-hf-2l-") as tmp:
+        write_gemma2_hf(tmp, GEMMA2, n_layers, seed=HF_ISQ_SEED, device=device)
+        t = time.perf_counter()
+        cfg, card, _ = load_hf_model(tmp, isq="Q4K", device=device)
+        torch.cuda.synchronize()
+        card_load_s = time.perf_counter() - t
+        t = time.perf_counter()
+        _, cpu, _ = load_hf_model(tmp, isq="Q4K", device="cpu")
+        cpu_load_s = time.perf_counter() - t
+        dense = load_hf_model(tmp, device=device)[1]
+    compared = 0
+    for lc, lg in zip(card.layers, cpu.layers):
+        for part in ("attn", "mlp"):
+            for (name, a), (_, b) in zip(_linears(lc[part]), _linears(lg[part])):
+                if not a.kind == b.kind == "gguf_q4k" or a.data.keys() != b.data.keys():
+                    raise AssertionError(f"{part}.{name}: {a.kind} on the card, {b.kind} on the CPU")
+                for k in a.data:
+                    if not torch.equal(a.data[k].cpu(), b.data[k]):
+                        raise AssertionError(f"{part}.{name}.{k} differs between card and CPU")
+                    compared += b.data[k].numel() * b.data[k].element_size()
+    if not torch.equal(card.embed.cpu(), cpu.embed):
+        raise AssertionError("the embedding differs between card and CPU")
+
+    def weights(dev, dt):
+        return cfg, (card if dev.type == "cuda" else _moved_params(cpu, dev, dt))
+
+    prompt = [int(x) for x in np.random.default_rng(23).integers(1, cfg.vocab_size, 256)]
+    runs, n = _token_major_run(None, weights, device, prompt, 32)
+    want = {"splash_prefill": n_layers, "flash_prefill": 0}
+    if any(n[k] != v for k, v in want.items()) or not n["q4k_q8_gemv"]:
+        raise AssertionError(f"the ISQ check took other routes on the card: {n}")
+    del cpu
+    forced = [int(np.argmax(x)) for x in runs["cpu"][:4]]
+    ref = _token_major_run(None, lambda dev, dt: (cfg, dense), device, prompt, 32,
+                           sides=((device, torch.bfloat16),), forced=forced)[0][device.type]
+    got = runs[device.type]
+    scale = np.abs(ref).max(axis=1, keepdims=True)
+    return [_compare_sides(
+        "card_vs_cpu_isq", runs, device, n_layers, vocab=cfg.vocab_size,
+        packed_bytes_equal=compared, card_load_s=card_load_s, cpu_load_s=cpu_load_s,
+        isq_vs_dense_max_rel_err=float((np.abs(got - ref) / scale).max()),
+        isq_vs_dense_rel_rms_err=float(np.sqrt(((got - ref) ** 2).mean())
+                                       / np.sqrt((ref ** 2).mean())),
+        isq_vs_dense_argmax_agree=int((got.argmax(1) == ref.argmax(1)).sum()),
+        launches={k: n[k] for k in ("splash_prefill", "q4k_q8_gemv")})]
 
 
 # the int8 route's GEMVs, which no layer of an int8_activations=False
@@ -2696,6 +2960,13 @@ def _moved(node, dev, dt):
     return node.to(dev, dt) if node.is_floating_point() else node.to(dev)
 
 
+def _moved_params(p, dev, dt):
+    """DecoderParams on `dev`, their float tensors in `dt`."""
+    return dataclasses.replace(p, embed=_moved(p.embed, dev, dt), layers=_moved(p.layers, dev, dt),
+                               final_norm=_moved(p.final_norm, dev, dt),
+                               lm_head=_moved(p.lm_head, dev, dt))
+
+
 def _side_pipeline(cfg, weights, dev, dt, **kw):
     """A one-sequence pipeline on one side over a copy of `weights`, or, when
     `weights` is a loader (dev, dt) -> (config, params), over what it
@@ -2706,10 +2977,7 @@ def _side_pipeline(cfg, weights, dev, dt, **kw):
     if callable(weights):
         cfg, params = weights(dev, dt)
     else:
-        params = dataclasses.replace(weights, embed=_moved(weights.embed, dev, dt),
-                                     layers=_moved(weights.layers, dev, dt),
-                                     final_norm=_moved(weights.final_norm, dev, dt),
-                                     lm_head=_moved(weights.lm_head, dev, dt))
+        params = _moved_params(weights, dev, dt)
     pc = PipelineConfig(max_seqs=1, dtype=dt, device=str(dev), **kw)
     return TextPipeline(cfg, params, make_rope(cfg, pc.max_model_len, device=dev), pc)
 
@@ -2740,16 +3008,18 @@ def _sides(device):
     return ((torch.device("cpu"), torch.float32), (device, torch.bfloat16))
 
 
-def _token_major_run(cfg, weights, device, prompt, rq8, **kw) -> tuple[dict, dict]:
-    """Logits and launch counts of each side for a 256-token prefill and 4
-    decode steps (token-major pools), both fed the CPU run's argmax; kw
-    goes to the PipelineConfig of both sides."""
+def _token_major_run(cfg, weights, device, prompt, rq8, sides=None, forced=None,
+                     **kw) -> tuple[dict, dict]:
+    """Logits and launch counts of each side (`sides`, default CPU then card)
+    for a 256-token prefill and 4 decode steps (token-major pools), all fed
+    the first side's argmax or the tokens `forced`; kw goes to the
+    PipelineConfig of every side."""
     from mistralrs_tpu_torch.engine.block_manager import BlockManager
     from mistralrs_tpu_torch.engine.sampler import SamplingParams
     from mistralrs_tpu_torch.engine.sequence import Sequence
 
-    runs, forced, counts = {}, None, {}
-    for dev, dt in _sides(device):
+    runs, counts = {}, {}
+    for dev, dt in sides or _sides(device):
         pipe = _side_pipeline(cfg, weights, dev, dt, page_size=16, num_pages=32,
                               max_model_len=512, prefill_buckets=(256,), rq8_group=rq8, **kw)
         bm = BlockManager(pipe.pc.num_pages, pipe.pc.page_size)
@@ -2762,7 +3032,7 @@ def _token_major_run(cfg, weights, device, prompt, rq8, **kw) -> tuple[dict, dic
             seq.tokens.append(tok)
             bm.append_slot(seq, 1)
             logits.append(pipe.run_decode([seq])[0])
-        if forced is None:  # the CPU run picks the tokens both runs feed
+        if forced is None:  # the first (CPU) run picks the tokens every run feeds
             forced = [int(np.argmax(x)) for x in logits[:4]]
         counts[dev.type] = read_counts()
         runs[dev.type] = np.stack(logits).astype(np.float64)
@@ -3070,7 +3340,9 @@ def main() -> int:
                      ("long_context", long_context_phase),
                      ("quant_mix", quant_mix_phase), ("q2k", q2k_phase),
                      ("gguf_bf16", gguf_bf16_phase),
-                     ("gemma2", gemma2_phase), ("gemma2_ragged", gemma2_ragged_phase),
+                     ("gemma2", gemma2_phase), ("hf_isq", hf_isq_phase),
+                     ("card_vs_cpu_isq", card_vs_cpu_isq_phase),
+                     ("gemma2_ragged", gemma2_ragged_phase),
                      ("mixtral", mixtral_phase), ("mixtral_q4km", mixtral_q4km_phase),
                      ("card_vs_cpu", card_vs_cpu_phase),
                      ("card_vs_cpu_bf16", card_vs_cpu_bf16_phase),

@@ -17,7 +17,6 @@ GGUF tokenizer and chat template (gguf/tokenizer.py, with the front end).
 
 from __future__ import annotations
 
-import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
@@ -26,7 +25,7 @@ import torch
 from mistralrs_tpu_torch.gguf.reader import GGUFFile
 from mistralrs_tpu_torch.models.config import ModelConfig
 from mistralrs_tpu_torch.models.decoder import DecoderParams
-from mistralrs_tpu_torch.models.loader import make_rope
+from mistralrs_tpu_torch.models.loader import LOAD_THREADS, make_rope
 from mistralrs_tpu_torch.ops.rope import RopeTable
 from mistralrs_tpu_torch.quant import kquants
 from mistralrs_tpu_torch.quant.fuse import split_linear
@@ -36,8 +35,6 @@ from mistralrs_tpu_torch.quant.qlinear import Linear, make_dense
 SUPPORTED_ARCHS = ("llama",)
 # architectures the JAX package loads whose decoder pieces the port lacks
 NOT_PORTED_ARCHS = ("phi2", "phi3", "starcoder2")
-# threads that pack a file's tensors (params_from_gguf)
-LOAD_THREADS = min(8, os.cpu_count() or 1)
 
 
 def config_from_gguf(g: GGUFFile) -> ModelConfig:

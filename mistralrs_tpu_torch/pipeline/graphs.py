@@ -6,9 +6,11 @@ T forwards run on the card without a host round trip between kernels.
 `DecodeGraphs.replay(key, run)` captures `run(key)` on first use of a
 key, after one warm-up run on a side stream (which also builds the
 kernels), under `torch.cuda.set_sync_debug_mode("error")`, so a host
-sync inside the loop raises at capture. Every graph of one DecodeGraphs draws from one
-memory pool; the wrappers' per-call buffers come from it. A failed capture
-or replay raises: there is no eager fallback.
+sync inside the loop raises at capture, and with Python's garbage
+collector run first and held off during the capture. Every graph of one
+DecodeGraphs draws from one memory pool; the wrappers' per-call buffers
+come from it. A failed capture or replay raises: there is no eager
+fallback.
 
 The kernel wrappers count a launch when they enqueue it (ops/*.py,
 `*_launches`), which at capture time launches nothing. So a capture
@@ -18,6 +20,7 @@ again: the counters go on counting the kernels the card ran.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Hashable
 
@@ -91,10 +94,18 @@ class DecodeGraphs:
         before = launch_counts()
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
+        # garbage that holds a CUDA graph (another pipeline's) must not be
+        # collected while this one captures: destroying a graph is a CUDA
+        # call the capture forbids, and it invalidates the capture
+        gc.collect()
+        gc_was_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool):
                 out = run(key)
         finally:
+            if gc_was_on:
+                gc.enable()
             torch.cuda.set_sync_debug_mode(mode)
         after = launch_counts()
         delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}

@@ -21,15 +21,18 @@ decode can return the device top-K pack (`run_decode(mode="topk")`).
 An MoE model (mixtral) gets `moe_grouped` set, so dense experts take the
 grouped dropless dispatch (models/decoder.py).
 
-Not in this port yet: speculative verification, runtime re-quantization,
-meshes, and graphs of the one-step decode and the prefill steps (they run
-eagerly).
+`re_isq` requantizes every Linear at run time (JAX :563-643) and drops the
+decode graphs, which captured the old weights' addresses.
+
+Not in this port yet: speculative verification, meshes, and graphs of the
+one-step decode and the prefill steps (they run eagerly).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
@@ -38,11 +41,14 @@ import torch
 from mistralrs_tpu_torch.engine.sequence import Sequence
 from mistralrs_tpu_torch.models.config import ModelConfig
 from mistralrs_tpu_torch.models.decoder import DecoderParams, compute_logits, decoder_forward
+from mistralrs_tpu_torch.models.loader import LOAD_THREADS, _maybe_quantize
+from mistralrs_tpu_torch.ops import quant_matmul as qm
 from mistralrs_tpu_torch.ops.paged_attention import PagedAttnMeta, PagedKVCache, copy_pages
 from mistralrs_tpu_torch.ops.rope import RopeTable
 from mistralrs_tpu_torch.pipeline.graphs import DecodeGraphs
-from mistralrs_tpu_torch.quant.fuse import fuse_decoder_params, requant_q6k_params
-from mistralrs_tpu_torch.quant.qlinear import Linear
+from mistralrs_tpu_torch.quant.fuse import fuse_decoder_params, pad_linear_out, requant_q6k_params
+from mistralrs_tpu_torch.quant.isq import parse_isq
+from mistralrs_tpu_torch.quant.qlinear import Linear, make_dense
 
 # candidates of the device top-K sampling pack and of the sampled decode loop
 TOPK_PACK = 64
@@ -163,6 +169,80 @@ def set_activation_route(params: DecoderParams, int8_act: bool) -> DecoderParams
 
     return dataclasses.replace(params, layers=[conv(lp) for lp in params.layers],
                                lm_head=conv(params.lm_head))
+
+
+def weight_f32(lin: Linear) -> torch.Tensor:
+    """A Linear's weight [in, out] in f32, from the plain dequantizers of
+    ops/quant_matmul.py on any device (the ops of the JAX package's
+    DEQUANT_WEIGHTS in f32, which its re_isq reaches through an identity
+    forward, without the [in, in] identity), in x's element order (an
+    act-order `in_perm` undone)."""
+    f32, d, kind = torch.float32, lin.data, lin.kind
+    if kind == "dense":
+        w = d["w"].to(f32)
+    elif kind == "gguf_q4k":
+        w = qm.q4k_dequant_plain(d["qs"], d["scale"], d["minv"], f32)
+    elif kind == "gguf_q5k":
+        w = qm.q5k_dequant_plain(d["qs"], d["qh"], d["scale"], d["minv"], f32)
+    elif kind == "gguf_q6k":
+        w = qm.q6k_dequant_plain(d["ql"], d["qh"], d["scale"], lin.meta, f32)
+    elif kind == "gguf_q8_0":
+        w = qm.q8_0_dequant_plain(d["q"], d["scale"], lin.meta or 32, f32)
+    elif kind == "gguf_q2k":
+        w = qm.affine_dequant_plain(d["q"], d["scale"], d["minv"], 2, 16, f32)
+    elif kind.startswith(("gptq_", "hqq_")):
+        # device code widths: the byte-per-value kinds (gptq_b8, hqq_3) hold 8
+        bits = int(kind.split("_")[1]) if kind not in ("gptq_b8", "hqq_3") else 8
+        if "g_idx" in d:
+            w = (qm._affine_values(d["q"], bits).to(f32) * d["scale"].to(f32)[d["g_idx"]]
+                 - d["zs"].to(f32)[d["g_idx"]])
+        else:
+            w = qm.affine_dequant_plain(d["q"], d["scale"], d["zs"], bits,
+                                        lin.shape[0] // d["scale"].shape[0], f32)
+    else:
+        raise NotImplementedError(f"no f32 weight of Linear kind {kind!r}")
+    if "in_perm" in d:  # row j of w is input element in_perm[j]
+        w = torch.empty_like(w).index_copy_(0, d["in_perm"], w)
+    return w
+
+
+def _requant(lin: Linear, gtype, dtype, device, cols: int | None = None) -> Linear:
+    """re_isq of one Linear (its first `cols` outputs): the f32 weight as
+    JAX's identity forward gives it, eye @ w + b (a sum, so a -0.0 comes
+    out +0.0) with the bias taken off again, quantized by the loader's
+    _maybe_quantize, or dense where that returns None."""
+    w = weight_f32(lin)[:, :cols]
+    b = lin.data.get("b")
+    b = None if b is None else b[..., :cols].to(torch.float32)
+    w = w + (0.0 if b is None else b)
+    if b is not None:
+        w = w - b
+    b = None if b is None else b.cpu().numpy()
+    q = _maybe_quantize(w.T.contiguous().cpu().numpy(), b, gtype, dtype, device)
+    if q is not None:
+        return q
+    return make_dense(w.to(dtype), None if b is None else torch.from_numpy(b).to(device, dtype))
+
+
+def _requant_tree(node, gtype, dtype, device, num_experts: int, key=None):
+    """re_isq of every Linear in a layer dict (or the lm_head): a router on
+    its num_experts real columns, padded to 16 again; dense expert stacks
+    kept; a packed expert stack raises."""
+    if isinstance(node, Linear):
+        if key == "router":
+            lin = _requant(node, gtype, dtype, device, num_experts)
+            return pad_linear_out(lin, 16, max_pad=15) or lin
+        return _requant(node, gtype, dtype, device)
+    if key == "experts":
+        packed = [lin.kind for lin in node.values() if lin.kind != "dense"]
+        if packed:
+            raise NotImplementedError(
+                f"re_isq of a packed expert stack ({packed[0]}) is not supported, as in the "
+                "JAX package, whose identity forward cannot unpack one")
+        return node
+    if isinstance(node, dict):
+        return {k: _requant_tree(v, gtype, dtype, device, num_experts, k) for k, v in node.items()}
+    return node
 
 
 def _next_bucket(n: int, buckets: tuple[int, ...]) -> int:
@@ -424,6 +504,34 @@ class TextPipeline:
     def apply_copies(self, ops: list[tuple[int, int]]) -> None:
         """COW page copies."""
         copy_pages(self.cache, [s for s, _ in ops], [d for _, d in ops])
+
+    def re_isq(self, ggml_type: str) -> None:
+        """Runtime re-quantization of every Linear to `ggml_type` (JAX
+        :563-643, the reference's /re_isq; _requant_tree): each weight's
+        f32 values (weight_f32; the bias added and taken off again, as JAX's
+        identity forward does) are quantized on the host by the loader's
+        _maybe_quantize, or kept dense where it returns None. Differences
+        from JAX, where the port's params differ: a Mixtral router padded
+        to 16 outputs by the fusion is requantized on its real columns and
+        padded again; dense expert stacks stay dense (as ISQ leaves them at
+        load; JAX's identity forward cannot take an [E, in, out] weight),
+        and a packed one raises, as in JAX. The activation route is set
+        again (rq8 is not applied again, as in JAX). Layers are requantized
+        by a pool of the loader's LOAD_THREADS threads. The decode loop's
+        CUDA graphs captured the old weights' addresses: they and their
+        memory pool are dropped first, for an empty DecodeGraphs, so the
+        next multistep call captures anew. Runs between engine steps."""
+        gtype = parse_isq(ggml_type)
+        dt, dev, E = self.pc.dtype, self.device, self.cfg.num_experts
+        if self.graphs is not None:
+            torch.cuda.synchronize(dev)
+            self.graphs = DecodeGraphs(dev)
+        with ThreadPoolExecutor(max_workers=LOAD_THREADS) as pool:
+            layers = list(pool.map(lambda lp: _requant_tree(lp, gtype, dt, dev, E),
+                                   self.params.layers))
+        params = dataclasses.replace(self.params, layers=layers,
+                                     lm_head=_requant_tree(self.params.lm_head, gtype, dt, dev, E))
+        self.params = set_activation_route(params, self.pc.int8_activations)
 
     # ------------------------------------------------------------- helpers
     def _tables_row(self, seq: Sequence, width: int | None = None, base: int = 0) -> np.ndarray:

@@ -2154,3 +2154,76 @@ def test_decode_loop_replays_bit_equal_to_the_eager_loop(dev, route, sampled):
         d_replay, d_eager)
     assert text.decode_eager_loops >= 1 and len(pipe.graphs.graphs) == 1
     assert pipe.graphs.pool_bytes() > 0
+
+
+# ------------------------------------------------------------- runtime re-quantization
+
+# (builder, config, the kernels a decode call launches before and after
+# re_isq("Q8_0")): Mistral-7B Q4_K_M (rq8) and Gemma-2-9B as ISQ Q4K loads it
+RE_ISQ_MODELS = {
+    "q4km": ("random_q4km_params", "model_config", ("q4k_q8_gemv",), "Sizes"),
+    "gemma2": ("random_gemma2_params", "gemma2_config", ("q4k_q8_gemv",), "GEMMA2"),
+}
+
+
+@pytest.mark.parametrize("model", list(RE_ISQ_MODELS))
+def test_re_isq_drops_the_decode_graphs(dev, model):
+    """A 2-layer full-width pipeline (4 slots, 3 prefilled sequences, 4 steps
+    a call) whose decode graph was captured and replayed; then
+    re_isq("Q8_0") and run_decode_multi again: a new graph is captured
+    (the old one, which read the freed Q4_K weights, is gone), K2 serves
+    the call, and its pack is bit-equal to a fresh pipeline's over the
+    requantized params and the same KV pool, replayed and eager alike."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from mistralrs_tpu_torch.engine.block_manager import BlockManager
+    from mistralrs_tpu_torch.engine.sampler import SamplingParams
+    from mistralrs_tpu_torch.engine.sequence import Sequence
+    from mistralrs_tpu_torch.models.loader import make_rope
+    from mistralrs_tpu_torch.pipeline import graphs
+    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
+
+    build, config, before_kernels, sizes = RE_ISQ_MODELS[model]
+    sz = cs.Sizes() if sizes == "Sizes" else getattr(cs, sizes)
+    cfg = getattr(cs, config)(sz, 2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pc = PipelineConfig(page_size=16, num_pages=64, max_seqs=4, max_model_len=2048,
+                        prefill_buckets=(64, 256), decode_steps=4, dtype=torch.bfloat16,
+                        device="cuda")
+    rope = make_rope(cfg, pc.max_model_len, device=dev)
+    pipe = TextPipeline(cfg, getattr(cs, build)(sz, 2, dev, gen, torch.bfloat16), rope, pc)
+    bm = BlockManager(pc.num_pages, pc.page_size)
+    rng = np.random.default_rng(1)
+    seqs = []
+    for n in (200, 183, 100):
+        seq = Sequence([int(t) for t in rng.integers(1, sz.vocab, n)], SamplingParams(max_len=8),
+                       max_model_len=pc.max_model_len)
+        bm.allocate(seq)
+        pipe.run_prefill_chunk(seq, seq.tokens)
+        seq.tokens.append(int(rng.integers(1, sz.vocab)))
+        bm.append_slot(seq, pc.decode_steps)
+        seqs.append(seq)
+
+    def call(p, eager=False):
+        out, d = _launch_deltas(lambda: (p.run_decode_multi_eager if eager
+                                         else p.run_decode_multi)(seqs, None))
+        for seq in seqs:
+            seq.kv_len -= pc.decode_steps
+        return out, d
+
+    _, d_old = call(pipe)
+    assert all(d_old.get(f"{n}_launches", 0) > 0 for n in before_kernels), d_old
+    captures = graphs.decode_graph_captures
+    pipe.re_isq("Q8_0")
+    assert pipe.graphs is not None and not pipe.graphs.graphs
+    assert cs.served_kinds(pipe) == ["gguf_q8_0"]
+    new, d_new = call(pipe)
+    assert graphs.decode_graph_captures == captures + 1
+    assert d_new.get("q8_0_q8_gemv_launches", 0) > 0 and not d_new.get("q4k_q8_gemv_launches")
+    fresh = TextPipeline(cfg, pipe.params, rope, pc)
+    fresh.cache.k.copy_(pipe.cache.k)
+    fresh.cache.v.copy_(pipe.cache.v)
+    for got in (call(fresh)[0], call(fresh, eager=True)[0]):
+        assert np.array_equal(got, new)
+    assert np.isfinite(new).all() and ((new[0] >= 0) & (new[0] < sz.vocab)).all()

@@ -1,8 +1,10 @@
-"""The PyTorch port imports neither jax nor the JAX package.
+"""The PyTorch port imports neither jax nor the JAX package, nor, at import
+time, the packages the card's machine lacks (safetensors, ml_dtypes, yaml).
 
 One subprocess imports mistralrs_tpu_torch and then each of its submodules in
-turn, recording after each import whether `jax` or `mistralrs_tpu` has entered
-sys.modules; every module is one case.
+turn, recording after each import whether `jax`, `mistralrs_tpu`,
+`safetensors`, `ml_dtypes` or `yaml` has entered sys.modules; every module is
+one case.
 """
 
 import json
@@ -36,8 +38,8 @@ out = {}
 for name in sys.argv[1:]:
     importlib.import_module(name)
     out[name] = sorted(m for m in sys.modules
-                       if m == "jax" or m.startswith("jax.")
-                       or m == "mistralrs_tpu" or m.startswith("mistralrs_tpu."))
+                       if m.split(".")[0] in ("jax", "mistralrs_tpu", "safetensors",
+                                              "ml_dtypes", "yaml"))
 print(json.dumps(out))
 """
 
@@ -58,7 +60,8 @@ def test_every_module_is_listed():
             "mistralrs_tpu_torch.ops.splash",
             "mistralrs_tpu_torch.ops.ragged_attention",
             "mistralrs_tpu_torch.ops.grouped_gemm", "mistralrs_tpu_torch.gguf.reader",
-            "mistralrs_tpu_torch.gguf.writer", "mistralrs_tpu_torch.pipeline.gguf"} <= set(MODULES)
+            "mistralrs_tpu_torch.gguf.writer", "mistralrs_tpu_torch.pipeline.gguf",
+            "mistralrs_tpu_torch.quant.isq", "mistralrs_tpu_torch.models.loader"} <= set(MODULES)
     assert len(MODULES) >= 30
 
 

@@ -3,9 +3,9 @@
 A tiny model in the Q4_K_M, Q5_K_M or Q2_K type mix, built in the JAX package from seeded
 numpy weights through its own quantizer (kquants.quantize) and packers, and
 carried into the port with params_from_reference, so that both packages
-compute on the same packed bytes; and a tiny seeded Gemma-2 and Mixtral
-from transformers, loaded by the JAX package's HF loader (dense, or ISQ
-Q4K).
+compute on the same packed bytes; and a tiny seeded Llama, Gemma-2 and
+Mixtral from transformers (hf_state_dict), loaded by the JAX package's HF
+loader (dense, or ISQ Q4K).
 Everything is float32 on the CPU.
 """
 
@@ -150,26 +150,48 @@ TINY_GEMMA2 = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_h
                    query_pre_attn_scalar=64, max_position_embeddings=4096)
 
 
-def jax_gemma2_params(seed: int = 0, **over):
-    """(JAX ModelConfig, JAX DecoderParams with every projection ISQ'd to
-    Q4_K, the same params dense in f32) of a tiny seeded
-    transformers.Gemma2ForCausalLM, loaded as the JAX package loads an HF
-    checkpoint (config_from_hf, params_from_source). Weights are drawn with
-    std 0.1 (norm weights too, which HF starts at zero), so that attention
-    scores and logits reach the soft caps' bend."""
+# hidden 256, 4 heads of 64 over 2 kv heads, intermediate 512, 2 layers,
+# vocab 512, an lm_head of its own
+TINY_LLAMA = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                  num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=1024,
+                  tie_word_embeddings=False)
+
+# arch -> (transformers config and model classes, tiny sizes, init std)
+_HF_MODELS = {"llama": ("LlamaConfig", "LlamaForCausalLM", "TINY_LLAMA", 0.06),
+              "gemma2": ("Gemma2Config", "Gemma2ForCausalLM", "TINY_GEMMA2", 0.1)}
+
+
+def hf_state_dict(arch: str, seed: int = 0, **over) -> tuple[dict, dict[str, np.ndarray]]:
+    """(config.json dict, f32 numpy state dict) of a tiny seeded
+    transformers model: "llama" (TINY_LLAMA), "gemma2" (TINY_GEMMA2, norm
+    weights drawn too, which HF starts at zero) or "mixtral"
+    (TINY_MIXTRAL), with the sizes in `over` changed."""
     import json
 
     import transformers as tf
 
+    cfg_cls, model_cls, tiny, std = _HF_MODELS[arch]
     torch.manual_seed(seed)
-    hf_cfg = tf.Gemma2Config(**dict(TINY_GEMMA2, **over), initializer_range=0.1)
-    model = tf.Gemma2ForCausalLM(hf_cfg).eval().float()
-    with torch.no_grad():
-        for name, w in model.named_parameters():
-            if name.endswith("norm.weight"):
-                w.normal_(0.0, 0.1)
-    cfg = jconfig_from_hf(json.loads(hf_cfg.to_json_string()))
-    sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    hf_cfg = getattr(tf, cfg_cls)(**dict(globals()[tiny], **over), initializer_range=std)
+    model = getattr(tf, model_cls)(hf_cfg).eval().float()
+    if arch == "gemma2":
+        with torch.no_grad():
+            for name, w in model.named_parameters():
+                if name.endswith("norm.weight"):
+                    w.normal_(0.0, std)
+    return (json.loads(hf_cfg.to_json_string()),
+            {k: v.detach().numpy() for k, v in model.state_dict().items()})
+
+
+def jax_gemma2_params(seed: int = 0, **over):
+    """(JAX ModelConfig, JAX DecoderParams with every projection ISQ'd to
+    Q4_K, the same params dense in f32) of a tiny seeded
+    transformers.Gemma2ForCausalLM (hf_state_dict), loaded as the JAX
+    package loads an HF checkpoint (config_from_hf, params_from_source).
+    Weights are drawn with std 0.1 (norm weights too, which HF starts at
+    zero), so that attention scores and logits reach the soft caps' bend."""
+    hf, sd = hf_state_dict("gemma2", seed, **over)
+    cfg = jconfig_from_hf(hf)
     src = TensorSource.from_dict(sd)
     return (cfg, params_from_source(cfg, src, dtype=jnp.float32, isq="Q4K"),
             params_from_source(cfg, src, dtype=jnp.float32))
@@ -182,23 +204,53 @@ TINY_MIXTRAL = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_
                     num_experts_per_tok=2, max_position_embeddings=1024, rope_theta=1e6)
 
 
+_HF_MODELS["mixtral"] = ("MixtralConfig", "MixtralForCausalLM", "TINY_MIXTRAL", 0.06)
+
+
 def jax_mixtral_params(seed: int = 0):
     """(JAX ModelConfig, JAX DecoderParams loaded dense, the same with ISQ
-    Q4K) of a tiny seeded transformers.MixtralForCausalLM, loaded as the
-    JAX package loads an HF checkpoint: under ISQ the router and the
-    attention are Q4_K, the experts stay dense (f32 here) [E, H, I] /
-    [E, I, H] a layer. Weights are drawn with std 0.06."""
-    import json
-
-    import transformers as tf
-
-    torch.manual_seed(seed)
-    hf_cfg = tf.MixtralConfig(**TINY_MIXTRAL, initializer_range=0.06)
-    model = tf.MixtralForCausalLM(hf_cfg).eval().float()
-    cfg = jconfig_from_hf(json.loads(hf_cfg.to_json_string()))
-    src = TensorSource.from_dict({k: v.detach().numpy() for k, v in model.state_dict().items()})
+    Q4K) of a tiny seeded transformers.MixtralForCausalLM (hf_state_dict),
+    loaded as the JAX package loads an HF checkpoint: under ISQ the router
+    and the attention are Q4_K, the experts stay dense (f32 here) [E, H, I]
+    / [E, I, H] a layer. Weights are drawn with std 0.06."""
+    hf, sd = hf_state_dict("mixtral", seed)
+    cfg = jconfig_from_hf(hf)
+    src = TensorSource.from_dict(sd)
     return (cfg, params_from_source(cfg, src, dtype=jnp.float32),
             params_from_source(cfg, src, dtype=jnp.float32, isq="Q4K"))
+
+
+def flat_params(p) -> dict:
+    """Every leaf of DecoderParams by path: each Linear's kind, shape, meta
+    and data tensors, every norm and the embedding."""
+    out = {}
+
+    def walk(node, pre):
+        if hasattr(node, "kind"):
+            out[pre + ":kind"], out[pre + ":shape"], out[pre + ":meta"] = (
+                node.kind, tuple(node.shape), node.meta)
+            for k, v in node.data.items():
+                out[f"{pre}.{k}"] = v
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{pre}.{k}")
+        elif node is not None:
+            out[pre] = node
+
+    walk({"embed": p.embed, "final_norm": p.final_norm, "lm_head": p.lm_head,
+          **{str(i): lp for i, lp in enumerate(p.layers)}}, "")
+    return out
+
+
+def assert_params_equal(got, want):
+    """Two port DecoderParams hold the same leaves, bit for bit."""
+    g, w = flat_params(got), flat_params(want)
+    assert g.keys() == w.keys(), sorted(set(g) ^ set(w))
+    for k in w:
+        if isinstance(w[k], torch.Tensor):
+            assert g[k].dtype == w[k].dtype and torch.equal(g[k], w[k]), k
+        else:
+            assert g[k] == w[k], (k, g[k], w[k])
 
 
 # ---------------------------------------------------------------- GGUF files

@@ -130,7 +130,7 @@ non-zero and never prints the final line):
    and lm_head (rq8), the dense router; the same pattern through the
    every-expert branch, each expert on K1 up to 256 rows. It raises unless
    K1 served the experts and K13 did not launch.
-16. card_vs_cpu_mixtral: phase 10's comparison for 2-layer Mixtral at full
+16. card_vs_cpu_mixtral: phase 10's comparison for 1-layer Mixtral at full
    width, with dense bf16 experts (K13 on the card) and with packed Q4_K
    experts (K1).
 17. gguf_bf16: Mistral-7B served from a GGUF file with bf16 activations:
@@ -168,6 +168,27 @@ non-zero and never prints the final line):
    (every packed byte equal), phase 10's
    token-major comparison (K11, K1 on the card), and the ISQ model's logit
    error against the same checkpoint loaded dense.
+21. speculative (run after decode_graph): the slice's 32-layer Mistral-7B
+   Q4_K_M (rq8) at 16 slots serves waves of 16 requests (~256-token prompts,
+   128 new tokens) through Engine: plain greedy on the decode graphs (the
+   reference streams), SpeculativePipeline with draft A (the target's first
+   8 layers, its weights shared, a KV pool of its own; gamma 4, 13 rounds a
+   call) and with draft B (the target's own weights, the perfect draft),
+   PromptLookupPipeline (gamma 3, 16 rounds; prompts a random 32-token
+   segment repeated, with a plain wave on them as their reference), greedy on
+   the speculative device loops (one graph replay a call), then a sampled
+   wave (temperature 0.7, top-p 0.9; 32 new tokens) on draft A's pipeline,
+   the host step with rejection sampling. Each engine first serves a short
+   warm-up wave (the graphs of every width captured). It raises if a greedy
+   stream differs from plain decoding other than at a near-tie (at the first
+   differing token the shared prefix is rescored by the plain pipeline and
+   the two tokens' logits must lie within 1% of that row's largest |logit|),
+   if draft B accepts under 95% of its proposals, if a greedy wave ran an
+   eager loop or a host step or no replay, or if a sampled token is outside
+   the vocabulary or a request did not finish; its lines give each wave's
+   decode tok/s, p50 TTFT, proposed and accepted tokens, replays, captures,
+   capture seconds, K1's and K2's launches at both instantiations, and the
+   launches one replay of each speculative graph adds.
 The kernel phase also holds K5, K9b and K8 against their plain versions at
 the gguf_bf16 path's shapes (K9b's rows instantiation at gate|up at 17, 64,
 128 and 256 rows; q|k, o, down; K5 and K9b's decode instantiation at all
@@ -360,12 +381,17 @@ COUNTERS = {
 # COUNTERS
 INSTANCE_COUNTERS = {"grouped_gemm_tiles": ("grouped_gemm", "grouped_gemm_tiles_launches"),
                      "ragged_chunk": ("ragged_attention", "ragged_chunk_launches")}
-# the decode loop's graph counters (pipeline/graphs.py, pipeline/text.py),
-# reset and read with COUNTERS: graphs captured and replayed, and multistep
-# calls that ran as an eager loop instead
+# the device loops' graph counters (pipeline/graphs.py, pipeline/text.py,
+# pipeline/speculative.py), reset and read with COUNTERS: decode and
+# speculative graphs captured and replayed, calls that ran as an eager loop
+# instead, and host-driven speculative steps
 GRAPH_COUNTERS = {"decode_graph_captures": ("pipeline.graphs", "decode_graph_captures"),
                   "decode_graph_replays": ("pipeline.graphs", "decode_graph_replays"),
-                  "decode_eager_loops": ("pipeline.text", "decode_eager_loops")}
+                  "decode_eager_loops": ("pipeline.text", "decode_eager_loops"),
+                  "spec_graph_captures": ("pipeline.graphs", "spec_graph_captures"),
+                  "spec_graph_replays": ("pipeline.graphs", "spec_graph_replays"),
+                  "spec_eager_loops": ("pipeline.speculative", "spec_eager_loops"),
+                  "spec_host_steps": ("pipeline.speculative", "spec_host_steps")}
 ALL_COUNTERS = {**COUNTERS, **INSTANCE_COUNTERS, **GRAPH_COUNTERS}
 
 
@@ -2439,6 +2465,288 @@ def decode_graph_phase(sz: Sizes, device) -> dict:
     return out
 
 
+# the speculative phase: draft A's depth, each pipeline's gamma and rounds
+# a call (the root bench.py's model-draft and prompt-lookup arms), the
+# waves' prompt and new tokens, the prompt-lookup segment, the sampled
+# wave's new tokens and SamplingParams, and the near-tie rule's share of
+# a row's largest |logit|
+SPEC_DRAFT_LAYERS = 8
+SPEC_GAMMA, SPEC_ROUNDS = 4, 13
+PLD_GAMMA, PLD_ROUNDS = 3, 16
+SPEC_PROMPT, SPEC_NEW = 256, 128
+PLD_SEGMENT = 32
+SPEC_SAMPLED_NEW = 32
+SPEC_SAMPLING = {"temperature": 0.7, "top_p": 0.9}
+NEAR_TIE = 0.01
+
+
+def draft_prefix(target, n_layers: int):
+    """A draft pipeline made of the target pipeline's first n_layers: its
+    fused, requantized params shared (no new weight memory; the pipeline's
+    fusion and requant leave them as they are), a KV pool of its own of the
+    same page geometry."""
+    from mistralrs_tpu_torch.pipeline.text import TextPipeline
+
+    cfg = dataclasses.replace(target.cfg, num_layers=n_layers)
+    params = dataclasses.replace(target.params, layers=target.params.layers[:n_layers])
+    return TextPipeline(cfg, params, target.rope, target.pc)
+
+
+def spec_prompts(rng, vocab: int, n: int, plen: int, segment: int | None = None) -> list:
+    """n prompts of plen +- 8 tokens: random, or a random `segment`-token
+    segment repeated (so n-gram matches exist)."""
+    out = []
+    for _ in range(n):
+        m = int(plen + rng.integers(-8, 9))
+        if segment is None:
+            out.append([int(t) for t in rng.integers(1, vocab, m)])
+        else:
+            seg = [int(t) for t in rng.integers(1, vocab, segment)]
+            out.append((seg * (m // segment + 1))[:m])
+    return out
+
+
+def serve_prompts(eng, prompts, max_len: int, sampling: dict | None = None):
+    """Every prompt as one request served to its end: (groups, decode
+    tokens and seconds, wall seconds). A decode step is one that prefilled
+    nothing: the scheduler alternates decode steps with prefill steps, and a
+    model-draft pipeline prefills one sequence a step, so its requests start
+    decoding while later ones still wait."""
+    from mistralrs_tpu_torch.engine.engine import GenerationRequest
+    from mistralrs_tpu_torch.engine.sampler import SamplingParams
+
+    groups = [eng.add_request(GenerationRequest(list(p), SamplingParams(max_len=max_len,
+                                                                         **(sampling or {}))))
+              for p in prompts]
+    seqs = [g.seqs[0] for g in groups]
+    decode = {"tokens": 0, "seconds": 0.0, "steps": 0}
+    t0 = time.perf_counter()
+    while not all(g.all_done() for g in groups):
+        done, made = (sum(s.prefill_done_tokens for s in seqs),
+                      sum(s.num_generated for s in seqs))
+        t = time.perf_counter()
+        eng.step()
+        dt = time.perf_counter() - t
+        if sum(s.prefill_done_tokens for s in seqs) == done:
+            decode["tokens"] += sum(s.num_generated for s in seqs) - made
+            decode["seconds"] += dt
+            decode["steps"] += 1
+    decode["wall_s"] = time.perf_counter() - t0
+    return groups, decode
+
+
+def near_ties(pipe, prompts, ref: list, got: list) -> list:
+    """Where a greedy stream differs from the plain one: at the first
+    differing token, the shared prefix rescored by the plain pipeline (one
+    sequence prefilled in 256-token chunks; the full logits of its last
+    row); raises unless the two tokens' logits lie within NEAR_TIE of that
+    row's largest |logit|. Returns one entry per differing stream."""
+    from mistralrs_tpu_torch.engine.block_manager import BlockManager
+    from mistralrs_tpu_torch.engine.sampler import SamplingParams
+    from mistralrs_tpu_torch.engine.sequence import Sequence
+
+    out = []
+    for i, (p, a, b) in enumerate(zip(prompts, ref, got)):
+        if a == b:
+            continue
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            raise AssertionError(f"request {i}: streams of {len(a)} and {len(b)} tokens")
+        seq = Sequence(list(p) + a[:j], SamplingParams(max_len=1),
+                       max_model_len=pipe.pc.max_model_len)
+        bm = BlockManager(pipe.pc.num_pages, pipe.pc.page_size)
+        bm.allocate(seq)
+        chunk = pipe.pc.prefill_buckets[-1]
+        for start in range(0, len(seq.tokens), chunk):
+            logits = pipe.run_prefill_chunk(seq, seq.tokens[start:start + chunk])
+        gap = abs(float(logits[a[j]]) - float(logits[b[j]])) / float(np.abs(logits).max())
+        entry = {"request": i, "position": j, "plain": a[j], "spec": b[j], "rel_gap": gap}
+        if gap > NEAR_TIE:
+            raise AssertionError(f"a greedy stream differs from plain decoding where it is not a "
+                                 f"near-tie: {entry}")
+        out.append(entry)
+    return out
+
+
+def spec_wave_line(groups, dec, counts: dict, pipe) -> dict:
+    """A wave's figures: decode tok/s, p50 TTFT, proposed / accepted, the
+    loop's counters and K1's and K2's launches at both instantiations."""
+    seqs = [s for g in groups for s in g.seqs]
+    proposed = sum(s.spec_proposed for s in seqs)
+    accepted = sum(s.spec_accepted for s in seqs)
+    line = {"decode_tok_s": dec["tokens"] / dec["seconds"], "decode_tokens": dec["tokens"],
+            "decode_s": dec["seconds"], "decode_steps": dec["steps"], "wall_s": dec["wall_s"],
+            "p50_ttft_ms": ttft_ms(groups),
+            "proposed": proposed, "accepted": accepted,
+            "accept_rate": accepted / proposed if proposed else None,
+            **{k: counts[k] for k in GRAPH_COUNTERS},
+            **{k: counts[k] for k in ("q4k_q8_gemv", "q4k_q8_gemv_rows", "q8_0_q8_gemv",
+                                      "q8_0_q8_gemv_rows")}}
+    graphs = getattr(pipe, "graphs", None)
+    if graphs is not None and getattr(pipe, "is_speculative", False):
+        line["capture_s"] = graphs.capture_s
+        # the launches one replay of each graph adds (the loop's kernels)
+        line["replay_launches"] = {f"{k[0]} {k[1]}": {n: d for (_, n), d in delta.items()}
+                                   for k, (_, _, delta) in graphs.graphs.items()}
+    return line
+
+
+# calls of each pipeline the phase times at a full batch (after one more)
+SPEC_TIMED_CALLS = 3
+
+
+def full_batch_calls(pipe, prompts) -> dict:
+    """The loop's own speed at a full batch: one sequence a prompt, each
+    prefilled alone in chunks of the largest bucket through `pipe` (the target, or a speculative
+    pipeline, which prefills its draft too) with its first token appended,
+    then SPEC_TIMED_CALLS + 1 decode calls on the same inputs (the target's
+    run_decode_multi, kv_len rewound after each; or run_spec_multi, which
+    advances nothing), the first untimed: median wall and device ms a call
+    (CUDA events around it), the tokens a call emits (decode_steps a row;
+    the rounds' emitted counts summed) and their rate over the wall time."""
+    import torch
+
+    from mistralrs_tpu_torch.engine.block_manager import BlockManager
+    from mistralrs_tpu_torch.engine.sampler import SamplingParams
+    from mistralrs_tpu_torch.engine.sequence import Sequence
+
+    spec = getattr(pipe, "is_speculative", False)
+    pc = pipe.pc
+    bm = BlockManager(pc.num_pages, pc.page_size)
+    seqs = []
+    for p in prompts:
+        seq = Sequence(list(p), SamplingParams(max_len=SPEC_NEW), max_model_len=pc.max_model_len)
+        bm.allocate(seq)
+        for start in range(0, len(p), pc.prefill_buckets[-1]):
+            pack = pipe.run_prefill_chunk(seq, list(p[start:start + pc.prefill_buckets[-1]]),
+                                          greedy=True)
+        seq.tokens.append(int(pack[0]))
+        bm.append_slot(seq, pipe.spec_rounds * (pipe.gamma + 1) if spec else pc.decode_steps)
+        seqs.append(seq)
+    walls, devs = [], []
+    for i in range(SPEC_TIMED_CALLS + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t = time.perf_counter()
+        ev[0].record()
+        pack = pipe.run_spec_multi(seqs) if spec else pipe.run_decode_multi(seqs)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if i:
+            walls.append(1e3 * (time.perf_counter() - t))
+            devs.append(ev[0].elapsed_time(ev[1]))
+        if not spec:
+            for seq in seqs:
+                seq.kv_len -= pc.decode_steps
+    tokens = (int(pack[:, :, 2 * (pipe.gamma + 1)].sum()) if spec
+              else pc.decode_steps * len(seqs))
+    wall = statistics.median(walls)
+    return {"rows": len(seqs), "call_wall_ms": wall, "call_device_ms": statistics.median(devs),
+            "tokens_a_call": tokens, "tok_s": tokens / wall * 1e3}
+
+
+def speculative_phase(sz: Sizes, device) -> dict:
+    """Speculative decoding at full width (module docstring, phase 21):
+    plain greedy, draft A, draft B and prompt lookup greedy on the device
+    loops, then a sampled wave on draft A's host step."""
+    import torch
+
+    from mistralrs_tpu_torch.engine.engine import Engine
+    from mistralrs_tpu_torch.models.loader import make_rope
+    from mistralrs_tpu_torch.pipeline.speculative import PromptLookupPipeline, SpeculativePipeline
+    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
+
+    fdt = torch.bfloat16
+    cfg = model_config(sz, sz.layers)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = random_q4km_params(sz, sz.layers, device, gen, fdt)
+    pc = PipelineConfig(page_size=16, num_pages=1024, max_seqs=16, max_model_len=2048,
+                        prefill_buckets=(64, 256), decode_steps=8, dtype=fdt, device=str(device))
+    target = TextPipeline(cfg, params, make_rope(cfg, pc.max_model_len, device=device), pc)
+    del params
+    draft_a = draft_prefix(target, SPEC_DRAFT_LAYERS)
+    draft_b = draft_prefix(target, sz.layers)
+    pipes = {"plain": target,
+             "draft_a": SpeculativePipeline(target, draft_a, SPEC_GAMMA, SPEC_ROUNDS),
+             "draft_b": SpeculativePipeline(target, draft_b, SPEC_GAMMA, SPEC_ROUNDS),
+             "pld": PromptLookupPipeline(target, PLD_GAMMA, spec_rounds=PLD_ROUNDS)}
+    rng = np.random.default_rng(23)
+    B = pc.max_seqs
+    prompts = spec_prompts(rng, sz.vocab, B, SPEC_PROMPT)
+    pld_prompts = spec_prompts(rng, sz.vocab, B, SPEC_PROMPT, PLD_SEGMENT)
+    out = {"phase": "speculative", "layers": sz.layers, "draft_a_layers": SPEC_DRAFT_LAYERS,
+           "gamma": SPEC_GAMMA, "rounds": SPEC_ROUNDS, "pld_gamma": PLD_GAMMA,
+           "pld_rounds": PLD_ROUNDS, "requests": B, "new_tokens": SPEC_NEW,
+           "sampled_new_tokens": SPEC_SAMPLED_NEW, "sampling": SPEC_SAMPLING,
+           "setup_s": time.perf_counter() - t0}
+    engines = {name: Engine(p, eos_token_ids=set(), prefix_cache=False)
+               for name, p in pipes.items()}
+    # (wave, engine, prompts, new tokens, sampling)
+    waves = (("plain", "plain", prompts, SPEC_NEW, None),
+             ("plain_pld", "plain", pld_prompts, SPEC_NEW, None),
+             ("draft_a", "draft_a", prompts, SPEC_NEW, None),
+             ("draft_b", "draft_b", prompts, SPEC_NEW, None),
+             ("pld", "pld", pld_prompts, SPEC_NEW, None),
+             ("sampled", "draft_a", prompts, SPEC_SAMPLED_NEW, SPEC_SAMPLING))
+    streams = {}
+    warm = set()
+    for wave, name, wave_prompts, new, sampling in waves:
+        eng = engines[name]
+        if (name, sampling is None) not in warm:
+            # warm-up requests of the wave's shortest and longest prompts
+            # capture the graphs of every block-table width the wave reaches
+            t = time.perf_counter()
+            serve_prompts(eng, [min(wave_prompts, key=len), max(wave_prompts, key=len)],
+                          24 if sampling is None else 2, sampling)
+            torch.cuda.synchronize()
+            out[f"warmup_s_{wave}"] = time.perf_counter() - t
+            warm.add((name, sampling is None))
+        reset_counts()
+        groups, dec = serve_prompts(eng, wave_prompts, new, sampling)
+        counts = read_counts()
+        seqs = [s for g in groups for s in g.seqs]
+        if any(s.num_generated != new or s.stop_reason.value != "length" for s in seqs):
+            raise AssertionError(f"{wave}: a request did not finish with {new} tokens")
+        if not all(0 <= t < sz.vocab for s in seqs for t in s.generated_tokens):
+            raise AssertionError(f"{wave}: a generated token is outside the vocabulary")
+        line = spec_wave_line(groups, dec, counts, pipes[name])
+        streams[wave] = [s.generated_tokens for s in seqs]
+        if name == "plain":
+            if counts["decode_graph_replays"] < 1 or counts["decode_eager_loops"]:
+                raise AssertionError(f"{wave}: the decode loop did not run as graph replays")
+        elif sampling is None:
+            if (counts["spec_graph_replays"] < 1 or counts["spec_eager_loops"]
+                    or counts["spec_host_steps"]):
+                raise AssertionError(f"{wave}: the speculative loop did not run as graph replays "
+                                     f"only: {counts}")
+            # K1 and K2 inside the loop's graphs: the verify's rows
+            # instantiations, and a model draft's 16-row feeds the decode ones
+            need = ["q4k_q8_gemv_rows", "q8_0_q8_gemv_rows"]
+            if name != "pld":
+                need += ["q4k_q8_gemv", "q8_0_q8_gemv"]
+            if not all(any(d.get(f"{n}_launches") for d in line["replay_launches"].values())
+                       for n in need):
+                raise AssertionError(f"{wave}: K1 or K2 missing from the loop's graphs: "
+                                     f"{line['replay_launches']}")
+            ref = "plain_pld" if name == "pld" else "plain"
+            line["near_ties"] = near_ties(target, wave_prompts, streams[ref], streams[wave])
+            line["streams_equal"] = sum(a == b for a, b in zip(streams[ref], streams[wave]))
+        elif counts["spec_host_steps"] < 1:
+            raise AssertionError(f"{wave}: the sampled wave took no host step")
+        out[wave] = line
+    # the loops' own speed at 16 rows, away from the engine's scheduling
+    out["full_batch"] = {name: full_batch_calls(p, pld_prompts if name == "pld" else prompts)
+                         for name, p in pipes.items()}
+    if out["draft_b"]["accept_rate"] < 0.95:
+        raise AssertionError(f"draft B (the target itself) accepted {out['draft_b']['accept_rate']}"
+                             " of its proposals, under 0.95")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(out)
+    del engines, pipes, target, draft_a, draft_b
+    free_card_memory()
+    return out
+
+
 def quant_mix_phase(sz: Sizes, device) -> dict:
     """Q5_K_M with Q6_K kept as Q6_K: K9 (both instantiations), K3, K4's
     rows instantiation and the Q5_K / Q6_K dequant kernels, and neither K1
@@ -3274,15 +3582,16 @@ def card_vs_cpu_ragged_phase(sz: Sizes, device) -> list[dict]:
 
 
 def card_vs_cpu_mixtral_phase(sz: Sizes, device) -> list[dict]:
-    """The card against the CPU for 2-layer Mixtral-8x7B at full width
+    """The card against the CPU for 1-layer Mixtral-8x7B at full width
     (token-major pools, rq8): a 256-token prefill and 4 decode steps with
-    dense bf16 experts (the grouped dispatch: K13 for gate, up and down of
-    both layers in every step, K6 on the prefill) and with packed Q4_K
-    experts (K1 for every expert, K13 never). The weights are made on the
-    card and copied to the CPU (f32 there: 11 GB for the dense experts)."""
+    dense bf16 experts (the grouped dispatch: K13 for gate, up and down in
+    every step, K6 on the prefill) and with packed Q4_K experts (K1 for
+    every expert, K13 never). The weights are made on the card and copied
+    to the CPU (f32 there: 5.6 GB for the dense experts). One layer, not
+    two: the CPU side's f32 experts take most of the run's time."""
     import torch
 
-    n_layers = 2
+    n_layers = 1
     cfg = mixtral_config(MIXTRAL, n_layers)
     prompt = [int(t) for t in np.random.default_rng(10).integers(1, MIXTRAL.vocab, 256)]
     outs = []
@@ -3337,6 +3646,7 @@ def main() -> int:
     results = kernel_phase(sz, device, Clock(device))
     seconds["kernels"] = time.perf_counter() - t0
     for name, fn in (("slice", slice_phase), ("decode_graph", decode_graph_phase),
+                     ("speculative", speculative_phase),
                      ("long_context", long_context_phase),
                      ("quant_mix", quant_mix_phase), ("q2k", q2k_phase),
                      ("gguf_bf16", gguf_bf16_phase),

@@ -1,8 +1,12 @@
-"""CUDA graphs of the decode loop: one capture per key, one replay a call.
+"""CUDA graphs of the device loops: one capture per key, one replay a call.
 
 A graph is PyTorch's counterpart of the JAX package's jitted `lax.scan`
-(mistralrs_tpu/pipeline/text.py `_build_multistep_fn`): the decode loop's
-T forwards run on the card without a host round trip between kernels.
+(mistralrs_tpu/pipeline/text.py `_build_multistep_fn`, and the speculative
+loops of mistralrs_tpu/pipeline/speculative.py): a loop's forwards run on
+the card without a host round trip between kernels. A TextPipeline's store
+holds its decode loop's graphs (kind "decode"), a speculative pipeline's
+its round loop's (kind "spec"); each kind has its own replay and capture
+counters.
 `DecodeGraphs.replay(key, run)` captures `run(key)` on first use of a
 key, after one warm-up run on a side stream (which also builds the
 kernels), under `torch.cuda.set_sync_debug_mode("error")`, so a host
@@ -35,9 +39,12 @@ from mistralrs_tpu_torch.ops import (
     splash,
 )
 
-# replays and captures of decode graphs, over all pipelines
+# replays and captures of decode graphs and of speculative-loop graphs, over
+# all pipelines
 decode_graph_replays = 0
 decode_graph_captures = 0
+spec_graph_replays = 0
+spec_graph_captures = 0
 
 # the modules whose `*_launches` counters a graph replays
 _COUNTED = (flash_attention, grouped_gemm, paged_attention, quant_matmul, ragged_attention,
@@ -55,12 +62,21 @@ def _add_counts(delta: dict[tuple[object, str], int], sign: int = 1) -> None:
         setattr(mod, name, getattr(mod, name) + sign * n)
 
 
+def _bump(counter: str) -> None:
+    globals()[counter] += 1
+
+
 class DecodeGraphs:
     """Graphs captured on `device`, one per key, of a function of the key
-    alone (key -> output tensor, over static buffers)."""
+    alone (key -> output tensor, over static buffers). `kind` ("decode" or
+    "spec") names the module counters that its replays and captures add
+    to."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, kind: str = "decode"):
+        if kind not in ("decode", "spec"):
+            raise ValueError(f"graph kind {kind!r}: expected 'decode' or 'spec'")
         self.device = device
+        self.kind = kind
         self.pool = None
         # key -> (graph, its output tensor, the launch counts one replay adds)
         self.graphs: dict[Hashable, tuple[torch.cuda.CUDAGraph, torch.Tensor, dict]] = {}
@@ -69,18 +85,16 @@ class DecodeGraphs:
     def replay(self, key: Hashable, run: Callable[[Hashable], torch.Tensor]) -> torch.Tensor:
         """Replay key's graph, capturing run(key) first if the key is new.
         Returns the graph's output, which the next replay overwrites."""
-        global decode_graph_replays
         entry = self.graphs.get(key)
         if entry is None:
             entry = self.graphs[key] = self._capture(key, run)
         graph, out, delta = entry
         graph.replay()
         _add_counts(delta)
-        decode_graph_replays += 1
+        _bump(f"{self.kind}_graph_replays")
         return out
 
     def _capture(self, key: Hashable, run: Callable[[Hashable], torch.Tensor]):
-        global decode_graph_captures
         t0 = time.perf_counter()
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
@@ -110,7 +124,7 @@ class DecodeGraphs:
         after = launch_counts()
         delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         _add_counts(delta, -1)  # the capture itself ran nothing
-        decode_graph_captures += 1
+        _bump(f"{self.kind}_graph_captures")
         self.capture_s += time.perf_counter() - t0
         return graph, out, delta
 

@@ -24,8 +24,15 @@ grouped dropless dispatch (models/decoder.py).
 `re_isq` requantizes every Linear at run time (JAX :563-643) and drops the
 decode graphs, which captured the old weights' addresses.
 
-Not in this port yet: speculative verification, meshes, and graphs of the
-one-step decode and the prefill steps (they run eagerly).
+The verify path of speculative decoding (pipeline/speculative.py): `run_span`
+(JAX :509-560) feeds each row a span of tokens at its own start position,
+padded to `max_seqs` rows and a common width, and returns the logits at
+every fed position (`_verify`, the target's verify) or at each row's last
+one (the draft's steps). `supports_spec_device_loop` lets the speculative
+pipelines run their device loops over this pipeline's forward.
+
+Not in this port yet: meshes, and graphs of the one-step decode, the
+prefill steps and `run_span` (they run eagerly).
 """
 
 from __future__ import annotations
@@ -64,6 +71,14 @@ def _top_k(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     since torch.topk promises no order among equals."""
     vals, ids = torch.sort(y, dim=-1, descending=True, stable=True)
     return vals[:, :TOPK_PACK], ids[:, :TOPK_PACK]
+
+
+def greedy_pack(logits: torch.Tensor) -> torch.Tensor:
+    """[2, ...] f32 of logits [..., V]: the argmax id (the first of equal
+    maxima, as jnp.argmax takes it) and its logit."""
+    top = torch.argmax(logits, dim=-1)
+    chosen = torch.gather(logits, -1, top[..., None])[..., 0]
+    return torch.stack([top.to(torch.float32), chosen])
 
 
 def topk_pack(logits: torch.Tensor, temps: torch.Tensor) -> torch.Tensor:
@@ -300,6 +315,9 @@ class TextPipeline:
     supports_topk_pack = True  # run_decode(mode="topk")
     supports_sampled_multistep = True  # run_decode_multi(seqs, sampling)
     supports_batched_prefill = True
+    # the speculative device loops (pipeline/speculative.py) call
+    # decoder_forward on this pipeline's params and cache directly
+    supports_spec_device_loop = True
 
     def __init__(self, cfg: ModelConfig, params: DecoderParams, rope: RopeTable,
                  pc: PipelineConfig):
@@ -359,12 +377,10 @@ class TextPipeline:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    @torch.no_grad()
-    def _run(self, ids, positions, slot_mapping, block_tables, kv_lens, active,
-             last_idx, first_chunk: bool = False, temps=None) -> torch.Tensor:
-        """One forward over a padded [B, T] batch; keeps the full logits at
-        each row's `last_idx` and the greedy pack [2, B] (argmax id, its
-        logit) on the device, and with `temps` [B] the top-K pack."""
+    def _hidden(self, ids, positions, slot_mapping, block_tables, kv_lens, active,
+                first_chunk: bool = False) -> torch.Tensor:
+        """The decoder's final hidden states [B, T, E] of a padded [B, T]
+        batch given as host arrays; the new K/V go into the pools."""
         meta = PagedAttnMeta(
             positions=self._dev(positions),
             slot_mapping=self._dev(slot_mapping),
@@ -374,16 +390,34 @@ class TextPipeline:
             first_chunk=first_chunk,
             head_major=self.head_major,
         )
-        h, _ = decoder_forward(self.params, self.cfg, self.rope, self._dev(ids), self.cache, meta)
+        return decoder_forward(self.params, self.cfg, self.rope, self._dev(ids), self.cache,
+                               meta)[0]
+
+    @torch.no_grad()
+    def _run(self, ids, positions, slot_mapping, block_tables, kv_lens, active,
+             last_idx, first_chunk: bool = False, temps=None) -> torch.Tensor:
+        """One forward over a padded [B, T] batch; keeps the full logits at
+        each row's `last_idx` and the greedy pack [2, B] (argmax id, its
+        logit) on the device, and with `temps` [B] the top-K pack."""
+        h = self._hidden(ids, positions, slot_mapping, block_tables, kv_lens, active, first_chunk)
         B = ids.shape[0]
         h_last = h[torch.arange(B, device=self.device), self._dev(last_idx).to(torch.int64)]
         logits = compute_logits(self.params, self.cfg, h_last)  # [B, V] f32
-        top = torch.argmax(logits, dim=-1)
-        chosen = torch.gather(logits, 1, top[:, None])[:, 0]
-        self._last_greedy_pack = torch.stack([top.to(torch.float32), chosen])
+        self._last_greedy_pack = greedy_pack(logits)
         self._last_topk_pack = None if temps is None else topk_pack(logits, self._dev(temps))
         self._last_logits = logits
         return logits
+
+    @torch.no_grad()
+    def _verify(self, ids, positions, slot_mapping, block_tables, kv_lens,
+                active) -> tuple[torch.Tensor, torch.Tensor]:
+        """The all-positions forward of run_span (JAX _build_verify_fn
+        :469-494, _verify :496-507), the target's verify of speculative
+        decoding: f32 logits at every fed position [B, W, V] and the greedy
+        pack [2, B, W] (argmax id as f32, its logit), on the device."""
+        h = self._hidden(ids, positions, slot_mapping, block_tables, kv_lens, active)
+        logits = compute_logits(self.params, self.cfg, h)
+        return logits, greedy_pack(logits)
 
     @property
     def last_greedy_pack(self) -> np.ndarray:
@@ -622,6 +656,55 @@ class TextPipeline:
             p = self._last_topk_pack.cpu().numpy()[:n]  # one fetch of [n, 2K+2]
             K = TOPK_PACK
             return p[:, :K], p[:, K:2 * K].astype(np.int32), p[:, 2 * K], p[:, 2 * K + 1]
+        return logits[:n].cpu().numpy()
+
+    def run_span(self, rows: list[tuple[list[int], int, np.ndarray]], width: int, *,
+                 all_positions: bool = False, greedy: bool = False) -> np.ndarray:
+        """Batched multi-token feed (JAX :509-560): row = (tokens, start
+        position, block-table row); each row's tokens are written to the KV
+        cache at positions start.. and attended causally, its padding past
+        them into page 0, and padding rows up to `max_seqs` are inactive. With
+        all_positions=True returns the logits at every fed position [n,
+        width, V] (the target's verify), or with greedy the pack [2, n,
+        width]; otherwise the logits at each row's last token [n, V] (the
+        draft's steps), or with greedy the pack [2, n]. No Sequence state
+        is mutated."""
+        B = self.pc.max_seqs
+        n = len(rows)
+        if not 0 < n <= B:
+            raise ValueError(f"{n} span rows for max_seqs {B}")
+        W = width
+        ps = self.pc.page_size
+        bases = [self._window_base_pages(start) for _, start, _ in rows]
+        tw = self._width_for_tokens(max(start + W - b * ps for (_, start, _), b in zip(rows, bases)))
+        ids = np.zeros((B, W), np.int64)
+        positions = np.zeros((B, W), np.int64)
+        slot_mapping = np.zeros((B, W), np.int64)  # page-0 garbage for padding
+        block_tables = np.zeros((B, tw), np.int64)
+        kv_lens = np.ones((B,), np.int64)
+        active = np.zeros((B,), np.float32)
+        last_idx = np.zeros((B,), np.int64)
+        for i, ((toks, start, table_row), base) in enumerate(zip(rows, bases)):
+            m = len(toks)
+            if not 0 < m <= W:
+                raise ValueError(f"span row of {m} tokens for width {W}")
+            ids[i, :m] = toks
+            positions[i, :m] = np.arange(start, start + m)
+            slot_mapping[i, :m] = self._slots(table_row, start, m)
+            sl = table_row[base : base + tw]
+            block_tables[i, : len(sl)] = sl
+            # the padded-width trick of run_prefill_chunk (q_offset = kv_lens
+            # - W), window-relative for window models
+            kv_lens[i] = start + W - base * ps
+            active[i] = 1.0
+            last_idx[i] = m - 1
+        if all_positions:
+            logits, pack = self._verify(ids, positions, slot_mapping, block_tables, kv_lens,
+                                        active)
+            return (pack[:, :n] if greedy else logits[:n]).cpu().numpy()
+        logits = self._run(ids, positions, slot_mapping, block_tables, kv_lens, active, last_idx)
+        if greedy:
+            return self.last_greedy_pack[:, :n]
         return logits[:n].cpu().numpy()
 
     # ------------------------------------------------------------- prefill

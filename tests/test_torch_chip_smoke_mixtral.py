@@ -144,3 +144,58 @@ def test_grouped_cases_route_two_distinct_experts_a_token():
         assert int(sizes.max()) <= tokens  # an expert takes a token once
     names = [c[0] for c in chip_smoke.GROUPED_CASES]
     assert chip_smoke.HEADLINE["grouped_gemm"] in names and len(set(names)) == len(names)
+
+
+def test_speculative_phase_builders_at_a_tiny_size(monkeypatch):
+    """The speculative phase's draft A (draft_prefix: the target pipeline's
+    first layers, its weight tensors shared, a pool of its own of the same
+    geometry) and its prompts at a tiny size, 2 layers and a 1-layer
+    draft: a greedy request through SpeculativePipeline on the device loop
+    equals plain decoding, and near_ties finds no difference then and
+    raises at a token that is far from a tie. One torch thread and the
+    dequant route (tiny ops slow by up to 100x on a loaded machine)."""
+    from chip_smoke_tiny import TINY
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+    from mistralrs_tpu_torch.pipeline.speculative import SpeculativePipeline
+
+    monkeypatch.setattr(qm, "MAX_KERNEL_ROWS", -1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _speculative_builders(TINY, SpeculativePipeline)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _speculative_builders(TINY, SpeculativePipeline):
+    cfg = chip_smoke.model_config(TINY, 2)
+    gen = torch.Generator().manual_seed(0)
+    params = chip_smoke.random_q4km_params(TINY, 2, torch.device("cpu"), gen, torch.float32)
+    pc = PipelineConfig(page_size=16, num_pages=48, max_seqs=2, max_model_len=512,
+                        prefill_buckets=(64, 256), decode_steps=4, dtype=torch.float32,
+                        device="cpu")
+    target = TextPipeline(cfg, params, make_rope(cfg, 512, device="cpu"), pc)
+    draft = chip_smoke.draft_prefix(target, 1)
+    assert draft.cfg.num_layers == 1 and draft.cache.k.shape[0] == 1
+    assert draft.cache.k.shape[1:] == target.cache.k.shape[1:] and draft.pc is target.pc
+    for got, want in zip(draft.params.layers, target.params.layers[:1]):
+        assert got["attn"]["qk"].data["qs"].data_ptr() == want["attn"]["qk"].data["qs"].data_ptr()
+        assert got["mlp"]["gateup"].data["qs"].data_ptr() == \
+            want["mlp"]["gateup"].data["qs"].data_ptr()
+    assert draft.params.lm_head.data["q"].data_ptr() == target.params.lm_head.data["q"].data_ptr()
+    rng = np.random.default_rng(2)
+    (prompt,) = chip_smoke.spec_prompts(rng, TINY.vocab, 1, 40)
+    (rep,) = chip_smoke.spec_prompts(rng, TINY.vocab, 1, 40, segment=8)
+    assert 32 <= len(rep) <= 48 and all(t == rep[i % 8] for i, t in enumerate(rep))
+    plain, _ = chip_smoke.serve_prompts(Engine(target, eos_token_ids=set(), prefix_cache=False),
+                                        [prompt], 9)
+    spec = Engine(SpeculativePipeline(target, draft, gamma=2, spec_rounds=2),
+                  eos_token_ids=set(), prefix_cache=False)
+    groups, dec = chip_smoke.serve_prompts(spec, [prompt], 9)
+    a, b = plain[0].seqs[0].generated_tokens, groups[0].seqs[0].generated_tokens
+    assert a == b and dec["tokens"] > 0 and groups[0].seqs[0].spec_proposed > 0
+    assert chip_smoke.near_ties(target, [prompt], [a], [b]) == []
+    far = list(a)
+    far[3] = (a[3] + 1) % TINY.vocab
+    with pytest.raises(AssertionError, match="not a near-tie"):
+        chip_smoke.near_ties(target, [prompt], [a], [far])

@@ -2227,3 +2227,117 @@ def test_re_isq_drops_the_decode_graphs(dev, model):
     for got in (call(fresh)[0], call(fresh, eager=True)[0]):
         assert np.array_equal(got, new)
     assert np.isfinite(new).all() and ((new[0] >= 0) & (new[0] < sz.vocab)).all()
+
+
+# ------------------------------------------------------------- the speculative loops' graphs
+
+SPEC_GAMMA, SPEC_ROUNDS = 4, 3
+
+
+def _spec_setup(dev, kind: str):
+    """A 2-layer full-width Mistral-7B Q4_K_M pipeline (chip_smoke's
+    builders; 16 slots, so the verify's 80 rows and the draft's 32-row
+    catch-up take K1's and K2's rows instantiations and its 16-row feeds
+    the decode ones), its speculative pipeline (kind "draft": the target's
+    first layer as the draft, chip_smoke.draft_prefix; "pld": prompt
+    lookup) at gamma 4 and 3 rounds a call, and 3 prefilled sequences (for
+    "draft" the second's draft two tokens behind)."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from mistralrs_tpu_torch.engine.block_manager import BlockManager
+    from mistralrs_tpu_torch.engine.sampler import SamplingParams
+    from mistralrs_tpu_torch.engine.sequence import Sequence
+    from mistralrs_tpu_torch.models.loader import make_rope
+    from mistralrs_tpu_torch.pipeline.speculative import PromptLookupPipeline, SpeculativePipeline
+    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
+
+    sz = cs.Sizes()
+    cfg = cs.model_config(sz, 2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pc = PipelineConfig(page_size=16, num_pages=96, max_seqs=16, max_model_len=2048,
+                        prefill_buckets=(64, 256), decode_steps=4, dtype=torch.bfloat16,
+                        device="cuda")
+    target = TextPipeline(cfg, cs.random_q4km_params(sz, 2, dev, gen, torch.bfloat16),
+                          make_rope(cfg, pc.max_model_len, device=dev), pc)
+    if kind == "draft":
+        pipe = SpeculativePipeline(target, cs.draft_prefix(target, 1), SPEC_GAMMA, SPEC_ROUNDS)
+    else:
+        pipe = PromptLookupPipeline(target, SPEC_GAMMA, spec_rounds=SPEC_ROUNDS, hist_cap=256)
+    bm = BlockManager(pc.num_pages, pc.page_size)
+    rng = np.random.default_rng(1)
+    seqs = []
+    for n in (200, 183, 100):
+        seg = [int(t) for t in rng.integers(1, sz.vocab, 32 if kind == "pld" else n)]
+        seq = Sequence((seg * (n // len(seg) + 1))[:n], SamplingParams(max_len=64),
+                       max_model_len=pc.max_model_len)
+        bm.allocate(seq)
+        pipe.run_prefill_chunk(seq, seq.tokens)
+        seq.tokens.append(int(rng.integers(1, sz.vocab)))
+        bm.append_slot(seq, SPEC_ROUNDS * (SPEC_GAMMA + 1))
+        seqs.append(seq)
+    if kind == "draft":
+        seqs[1].draft_kv_len = len(seqs[1].tokens) - 2
+    return pipe, seqs
+
+
+@pytest.mark.parametrize("kind", ["draft", "pld"])
+def test_spec_loop_replays_bit_equal_to_the_eager_loop(dev, kind):
+    """run_spec_multi (captured on its first call under sync debug mode
+    "error", then replayed under it) against run_spec_multi_eager on the
+    same inputs: packs bit-equal, a replay's launch counts equal to the
+    eager loop's, K1 and K2 at their rows instantiations among them (and
+    at their decode ones for the model draft)."""
+    import numpy as np
+
+    from mistralrs_tpu_torch.pipeline import graphs
+    from mistralrs_tpu_torch.pipeline import speculative as spec
+
+    pipe, seqs = _spec_setup(dev, kind)
+    loops = spec.spec_eager_loops
+    eager, d_eager = _launch_deltas(lambda: pipe.run_spec_multi_eager(seqs))
+    captures, replays = graphs.spec_graph_captures, graphs.spec_graph_replays
+    first = pipe.run_spec_multi(seqs)
+    assert (graphs.spec_graph_captures, graphs.spec_graph_replays) == (captures + 1, replays + 1)
+    key, offs = pipe._fill_spec(seqs)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, d_replay = _launch_deltas(lambda: pipe.graphs.replay(key, pipe._spec_loop))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    again = pipe._spec_result(seqs, out, offs)
+    assert graphs.spec_graph_captures == captures + 1 and spec.spec_eager_loops == loops + 1
+    W = SPEC_GAMMA + 1
+    for pack in (first, again):
+        assert np.array_equal(pack, eager)  # bit-equal, NaNs none
+    assert np.isfinite(eager).all() and ((eager[:, :, :W] >= 0) & (eager[:, :, :W] < 32000)).all()
+    counts = eager[:, :, 2 * W]
+    assert counts.min() >= 1 and counts.max() <= W
+    want = ["q4k_q8_gemv_rows", "q8_0_q8_gemv_rows"]
+    if kind == "draft":
+        want += ["q4k_q8_gemv", "q8_0_q8_gemv"]
+    assert d_replay == d_eager and all(d_replay.get(f"{n}_launches", 0) > 0 for n in want), (
+        d_replay, d_eager)
+    assert len(pipe.graphs.graphs) == 1 and pipe.graphs.pool_bytes() > 0
+
+
+def test_re_isq_of_the_target_drops_the_spec_graphs(dev):
+    """The model-draft loop's graph captured and replayed; then the target's
+    re_isq("Q8_0"): the next run_spec_multi captures a new graph in a new
+    store (the old one read the freed Q4_K weights), K2 serves the target's
+    projections in it, and its pack is bit-equal to the eager loop's."""
+    import numpy as np
+
+    from mistralrs_tpu_torch.pipeline import graphs
+
+    pipe, seqs = _spec_setup(dev, "draft")
+    pipe.run_spec_multi(seqs)
+    old = pipe.graphs
+    pipe.target.re_isq("Q8_0")
+    captures = graphs.spec_graph_captures
+    new, d_new = _launch_deltas(lambda: pipe.run_spec_multi(seqs))
+    assert graphs.spec_graph_captures == captures + 1 and pipe.graphs is not old
+    assert d_new.get("q8_0_q8_gemv_rows_launches", 0) > 0
+    assert np.array_equal(new, pipe.run_spec_multi_eager(seqs))
+    assert np.array_equal(pipe.run_spec_multi(seqs), new)
+    assert graphs.spec_graph_captures == captures + 1

@@ -61,7 +61,8 @@ def test_every_module_is_listed():
             "mistralrs_tpu_torch.ops.ragged_attention",
             "mistralrs_tpu_torch.ops.grouped_gemm", "mistralrs_tpu_torch.gguf.reader",
             "mistralrs_tpu_torch.gguf.writer", "mistralrs_tpu_torch.pipeline.gguf",
-            "mistralrs_tpu_torch.quant.isq", "mistralrs_tpu_torch.models.loader"} <= set(MODULES)
+            "mistralrs_tpu_torch.quant.isq", "mistralrs_tpu_torch.models.loader",
+            "mistralrs_tpu_torch.pipeline.speculative"} <= set(MODULES)
     assert len(MODULES) >= 30
 
 

@@ -189,6 +189,32 @@ non-zero and never prints the final line):
    decode tok/s, p50 TTFT, proposed and accepted tokens, replays, captures,
    capture seconds, K1's and K2's launches at both instantiations, and the
    launches one replay of each speculative graph adds.
+22. long_kv (run after long_context): the 32-layer Mistral-7B Q4_K_M (rq8)
+   at max_model_len 32768 on head-major pools, 512-token chunks, the pool
+   sized to each run: (a) bf16 pools, 2 greedy requests of ~9,000-token
+   prompts, 16 new tokens: K6 on the first chunk, K6' on chunks 2-8, the
+   blockwise route (models/decoder.py, ops/paged_attention.py
+   `blockwise_prefill_continuation`) on chunks 9-18 (spans 8192-16384),
+   decode at span 16384 on K7 in the graphs; (b) kv_quant=True (int8
+   pools), 2 of ~16,600 tokens, 24 new: chunks 2-8 gather and dequantize,
+   chunks 9-33 blockwise, decode at span 32768 blockwise inside the decode
+   graphs, K6' and K7 never; (c) Engine(preempt_mode="swap") with pages for
+   ~5 of 8 greedy requests of ~600 tokens and 64 new: at least one swap
+   out and in, no swapped sequence prefilled again, every stream equal to
+   an uncontended engine's (or, as in the speculative phase, a near-tie
+   at its first difference); (d) 1 layer at full width, a 4,600-token
+   prompt (a first chunk of 4096 on K6, then a chunk of 504 at span 8192 on
+   the blockwise route) on the card and on the CPU, bf16 and int8 pools:
+   the last position's logits within 5% of the largest
+   |logit|, and on the card the blockwise step against the gather route
+   on the same step within the same rule. Its lines give each run's
+   decode tok/s (decode steps that captured no graph), p50 TTFT, route
+   counts (`blockwise_steps`, a graph replay adding its capture's), the
+   pool's GB and tokens of capacity for bf16 and int8 pools at the card's
+   free memory, the device ms of one layer's blockwise attention at each
+   run's longest span (a CUDA graph of the call, replayed between CUDA
+   events) and the wall ms of the run's last prefill step, the swap
+   counts, and the phase's seconds.
 The kernel phase also holds K5, K9b and K8 against their plain versions at
 the gguf_bf16 path's shapes (K9b's rows instantiation at gate|up at 17, 64,
 128 and 256 rows; q|k, o, down; K5 and K9b's decode instantiation at all
@@ -392,7 +418,9 @@ GRAPH_COUNTERS = {"decode_graph_captures": ("pipeline.graphs", "decode_graph_cap
                   "spec_graph_replays": ("pipeline.graphs", "spec_graph_replays"),
                   "spec_eager_loops": ("pipeline.speculative", "spec_eager_loops"),
                   "spec_host_steps": ("pipeline.speculative", "spec_host_steps")}
-ALL_COUNTERS = {**COUNTERS, **INSTANCE_COUNTERS, **GRAPH_COUNTERS}
+# forwards that took the decoder's blockwise route (models/decoder.py)
+ROUTE_COUNTERS = {"blockwise_steps": ("models.decoder", "blockwise_steps")}
+ALL_COUNTERS = {**COUNTERS, **INSTANCE_COUNTERS, **GRAPH_COUNTERS, **ROUTE_COUNTERS}
 
 
 def emit(obj) -> None:
@@ -3144,6 +3172,439 @@ def long_context_phase(sz: Sizes, device) -> dict:
     return out
 
 
+# the long_kv phase: the context length, each serving run's (requests,
+# prompt tokens, new tokens), the prompts' worth of pages the swap run's
+# pool holds, and the card-vs-CPU prompt (a first chunk of 4096, then a
+# blockwise one)
+LONG_KV_LEN = 32768
+LONG_KV_BF16 = (2, 9000, 16)
+LONG_KV_INT8 = (2, 16600, 24)
+LONG_KV_SWAP = (8, 600, 64)
+SWAP_ROOM = 5
+LONG_KV_CHECK = 4600
+
+
+def pages_for(n_req: int, plen: int, new: int, page: int = 16, lookahead: int = 8) -> int:
+    """KV pages for n_req requests of at most plen + 8 prompt tokens and
+    `new` generated ones with the decode loop's lookahead, plus the garbage
+    page and the block manager's 1% watermark."""
+    n = n_req * -(-(plen + 8 + new + lookahead) // page) + 1
+    return n + n // 50 + 2
+
+
+def long_kv_pipeline(cfg, params, rope, device, num_pages: int, max_seqs: int,
+                     kv_quant: bool = False, max_model_len: int = LONG_KV_LEN):
+    """A TextPipeline at max_model_len (head-major pools from 4096 on),
+    512-token chunks, 8 decode steps a call, bf16 on the card and f32 on
+    the CPU; int8 pools with kv_quant."""
+    import torch
+
+    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
+
+    pc = PipelineConfig(page_size=16, num_pages=num_pages, max_seqs=max_seqs,
+                        max_model_len=max_model_len, prefill_buckets=(16, 64, 256, 512),
+                        decode_steps=8, kv_quant=kv_quant, device=str(device),
+                        dtype=torch.bfloat16 if device.type == "cuda" else torch.float32)
+    return TextPipeline(cfg, params, rope, pc)
+
+
+def pool_bytes(cache) -> int:
+    """Bytes of every page-indexed tensor of a KV cache (an int8 pool's
+    scales included)."""
+    from mistralrs_tpu_torch.ops.paged_attention import _pool_leaves
+
+    return sum(t.numel() * t.element_size() for t in _pool_leaves(cache).values())
+
+
+def serve_timed(eng, prompts, max_len: int):
+    """Greedy-serve every prompt to its end, synchronizing after each step:
+    (groups, figures) with the decode tokens and seconds of the steps that
+    prefilled nothing and captured no decode graph, the steps that captured
+    one, and the prefill steps with the wall ms of the last."""
+    import torch
+
+    from mistralrs_tpu_torch.engine.engine import GenerationRequest
+    from mistralrs_tpu_torch.engine.sampler import SamplingParams
+    from mistralrs_tpu_torch.pipeline import graphs
+
+    card = eng.pipeline.device.type == "cuda"
+    groups = [eng.add_request(GenerationRequest(list(p), SamplingParams(max_len=max_len)))
+              for p in prompts]
+    seqs = [g.seqs[0] for g in groups]
+    fig = {"tokens": 0, "seconds": 0.0, "capture_steps": 0, "prefill_steps": 0,
+           "last_prefill_ms": None}
+    while not all(g.all_done() for g in groups):
+        done, made = sum(s.prefill_done_tokens for s in seqs), sum(s.num_generated for s in seqs)
+        caps = graphs.decode_graph_captures
+        t = time.perf_counter()
+        eng.step()
+        if card:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if sum(s.prefill_done_tokens for s in seqs) != done:
+            fig["prefill_steps"] += 1
+            fig["last_prefill_ms"] = 1e3 * dt
+        elif graphs.decode_graph_captures != caps:
+            fig["capture_steps"] += 1
+        else:
+            fig["tokens"] += sum(s.num_generated for s in seqs) - made
+            fig["seconds"] += dt
+    return groups, fig
+
+
+def blockwise_layer(clock, pipe, B: int, span: int) -> dict:
+    """One layer's blockwise attention for a B x 512 chunk at `span` (every
+    key live) over layer 0 of the pipeline's pools (random pages): its
+    device ms (a CUDA graph of the call, replayed between the clock's
+    events, so host launch time does not count) and its largest error
+    against the gather route's f32 sdpa on the same pages, relative to the
+    largest |out|; raises past 1e-2 (the output's bf16 rounding)."""
+    import torch
+
+    from mistralrs_tpu_torch.ops.attention import NEG_INF, sdpa_head_major
+    from mistralrs_tpu_torch.ops.paged_attention import (
+        PagedAttnMeta,
+        blockwise_prefill_continuation,
+        gather_paged_kv,
+        gather_paged_kv_q,
+    )
+
+    cfg, cache, dev = pipe.cfg, pipe.cache, pipe.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tables = torch.randint(1, cache.num_pages, (B, span // 16), generator=gen, device=dev)
+    meta = PagedAttnMeta(positions=None, slot_mapping=None, block_tables=tables,
+                         kv_lens=torch.full((B,), span, device=dev), active=None,
+                         head_major=True)
+    q = torch.randn(B, 512, cfg.num_heads, cfg.head_dim, generator=gen, device=dev,
+                    dtype=pipe.pc.dtype)
+    if cache.quantized:
+        ck, cv = (cache.k[0], cache.k_scale[0]), (cache.v[0], cache.v_scale[0])
+        k, v = gather_paged_kv_q(ck, cv, tables, head_major=True, dtype=q.dtype)
+    else:
+        ck, cv = cache.k[0], cache.v[0]
+        k, v = gather_paged_kv(ck, cv, tables, head_major=True)
+    scale = cfg.head_dim ** -0.5
+    out = blockwise_prefill_continuation(q, ck, cv, meta, scale=scale).float()
+    q_pos = torch.arange(span - 512, span, device=dev)[:, None]
+    bias = torch.where(torch.arange(span, device=dev)[None] <= q_pos, 0.0, NEG_INF)[None, None]
+    want = sdpa_head_major(q.float(), k, v, scale=scale, mask=bias)
+    err = float((out - want).abs().max() / want.abs().max())
+    del k, v, want, bias
+    if not err <= 1e-2:
+        raise AssertionError(f"blockwise attention differs from the gather route: {err}")
+
+    def call():
+        return blockwise_prefill_continuation(q, ck, cv, meta, scale=scale)
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    ms = clock.ms(graph.replay)
+    del graph
+    return {"span": span, "rows": B, "ms": ms, "max_rel_err_vs_gather": err}
+
+
+def long_kv_serve(eng, rng, vocab: int, run: tuple, tag: str) -> dict:
+    """One serving run of the long_kv phase, (requests, prompt tokens, new
+    tokens): its counts set to 0 just before and read just after; returns
+    its line's figures."""
+    n, plen, new = run
+    prompts = spec_prompts(rng, vocab, n, plen)
+    reset_counts()
+    t0 = time.perf_counter()
+    groups, fig = serve_timed(eng, prompts, new)
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    pipe = eng.pipeline
+    n_toks = check_served(groups, vocab, new, pipe)
+    return {"run": tag, "requests": n, "prompt_tokens": [len(p) for p in prompts],
+            "generated_tokens": n_toks,
+            "decode_tok_s": fig["tokens"] / fig["seconds"] if fig["seconds"] else None,
+            "decode_tokens": fig["tokens"], "decode_s": fig["seconds"],
+            "capture_steps": fig["capture_steps"], "prefill_steps": fig["prefill_steps"],
+            "last_prefill_ms": fig["last_prefill_ms"], "p50_ttft_ms": ttft_ms(groups),
+            "run_s": run_s, "launches": counts, "kv_quant": pipe.pc.kv_quant,
+            "head_major": pipe.head_major,
+            "decode_span": 16 * pipe._width_for_tokens(max(len(p) for p in prompts) + 8),
+            "kv_pages": pipe.pc.num_pages, "kv_gb": pool_bytes(pipe.cache) / 1e9,
+            "graphs": len(pipe.graphs.graphs) if pipe.graphs is not None else 0,
+            "capture_s": pipe.graphs.capture_s if pipe.graphs is not None else 0.0,
+            "chunks": -(-max(len(p) for p in prompts) // 512)}
+
+
+def blockwise_expected(line: dict) -> int:
+    """The forwards a long_kv serving run should take on the blockwise route:
+    its prefill chunks past span 4096 (all but the first 8), and the 8
+    forwards of every decode call at a span past _BLOCKWISE_DECODE_SPAN on a
+    pool K7 does not take (int8, or token-major)."""
+    from mistralrs_tpu_torch.models import decoder
+
+    c = line["launches"]
+    calls = c["decode_graph_replays"] + c["decode_graph_captures"] + c["decode_eager_loops"]
+    decode = (line["decode_span"] > decoder._BLOCKWISE_DECODE_SPAN
+              and (line["kv_quant"] or not line["head_major"]))
+    return max(line["chunks"] - 8, 0) + (8 * calls if decode else 0)
+
+
+def check_long_routes(line: dict, n_layers: int) -> None:
+    """The card's routes in a long_kv serving run: K6 on the first chunk; on
+    bf16 pools K6' on chunks 2-8 and K7 at decode; on int8 pools neither;
+    blockwise_expected's forwards on the blockwise route; every decode call
+    a graph replay."""
+    c = line["launches"]
+    if line["kv_quant"]:
+        if c["flash_prefill_paged"] or c["paged_decode"]:
+            raise AssertionError(f"an int8 pool took K6' or K7: {c}")
+    elif c["flash_prefill_paged"] != 7 * n_layers or not c["paged_decode"]:
+        raise AssertionError(f"bf16 chunks 2-8 did not take K6', or decode not K7: {c}")
+    if not c["flash_prefill"] or c["blockwise_steps"] != blockwise_expected(line):
+        raise AssertionError(f"the run took other routes than K6 and {blockwise_expected(line)} "
+                             f"blockwise forwards: {c}")
+    if c["decode_graph_replays"] < 1 or c["decode_eager_loops"]:
+        raise AssertionError(f"the decode loop did not run as graph replays: {c}")
+
+
+def swap_run(cfg, params, rope, device, rng, vocab: int, run: tuple = LONG_KV_SWAP,
+             room: int = SWAP_ROOM, max_model_len: int = LONG_KV_LEN) -> dict:
+    """The swap run: `run`'s greedy requests through an uncontended engine,
+    then through Engine(preempt_mode="swap") whose pool holds the prompts of
+    `room` of them; raises unless a sequence was swapped out and in, its
+    live pages read back bit-equal through its new block table after each
+    swap-in, no swapped sequence was prefilled again, and every stream
+    equals the uncontended one's or differs first at a near-tie. (On random
+    weights the streams depend little on the context, so the page check is
+    what shows the context came back.)"""
+    import torch
+
+    from mistralrs_tpu_torch.engine.engine import Engine
+    from mistralrs_tpu_torch.ops.paged_attention import _pool_leaves
+
+    n, plen, new = run
+    prompts = spec_prompts(rng, vocab, n, plen)
+    roomy = long_kv_pipeline(cfg, params, rope, device, pages_for(n, plen, new), n,
+                             max_model_len=max_model_len)
+    ref_groups, _ = serve_timed(Engine(roomy, eos_token_ids=set(), prefix_cache=False),
+                                prompts, new)
+    ref = [g.seqs[0].generated_tokens for g in ref_groups]
+
+    pages = room * -(-(plen + 8) // 16) + 4
+    pipe = long_kv_pipeline(cfg, params, rope, device, pages, n, max_model_len=max_model_len)
+    eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False, preempt_mode="swap")
+    swapped, prefilled_again, count = set(), [], {"out": 0, "in": 0}
+    swapper, swap_in = eng.scheduler.swapper, eng._swap_in_seq
+    saved = {}  # id(seq) -> its live pages' contents at swap-out, every leaf
+
+    def live(seq):
+        pages = seq.block_table[:-(-seq.kv_len // 16)]
+        return [leaf.index_select(pipe.cache.page_axis, torch.tensor(pages, device=leaf.device))
+                for leaf in _pool_leaves(pipe.cache).values()]
+
+    def swap_out(seq):
+        count["out"] += 1
+        swapped.add(id(seq))
+        saved[id(seq)] = live(seq)
+        swapper(seq)
+
+    def restore(seq):
+        count["in"] += 1
+        swap_in(seq)
+        # the restored context, read through the sequence's new pages
+        if not all(torch.equal(a, b) for a, b in zip(live(seq), saved.pop(id(seq)))):
+            raise AssertionError("a swapped-in sequence's pages differ from those swapped out")
+
+    eng.scheduler.swapper, eng._swap_in_seq = swap_out, restore
+    one, batch = pipe.run_prefill_chunk, pipe.run_prefill_chunks
+
+    def seen(seqs):
+        prefilled_again.extend(id(s) for s in seqs if id(s) in swapped)
+
+    pipe.run_prefill_chunk = lambda seq, *a, **k: (seen([seq]), one(seq, *a, **k))[1]
+    pipe.run_prefill_chunks = lambda items: (seen([s for s, _ in items]), batch(items))[1]
+    reset_counts()
+    t0 = time.perf_counter()
+    groups, fig = serve_timed(eng, prompts, new)
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    n_toks = check_served(groups, vocab, new, pipe)
+    got = [g.seqs[0].generated_tokens for g in groups]
+    if not count["out"] or not count["in"]:
+        raise AssertionError(f"no sequence was swapped out and in: {count}")
+    if prefilled_again:
+        raise AssertionError(f"{len(prefilled_again)} prefills of swapped sequences")
+    ties = near_ties(roomy, prompts, ref, got)
+    line = {"run": "swap", "requests": n, "prompt_tokens": [len(p) for p in prompts],
+            "generated_tokens": n_toks, "kv_pages": pages,
+            "kv_pages_uncontended": roomy.pc.num_pages,
+            "swap_outs": count["out"], "swap_ins": count["in"],
+            "streams_equal": sum(a == b for a, b in zip(ref, got)), "near_ties": ties,
+            "decode_tok_s": fig["tokens"] / fig["seconds"] if fig["seconds"] else None,
+            "decode_tokens": fig["tokens"], "decode_s": fig["seconds"],
+            "capture_steps": fig["capture_steps"], "p50_ttft_ms": ttft_ms(groups), "run_s": run_s,
+            "launches": counts, "free_pages_after": eng.block_manager.num_free}
+    if eng.block_manager.num_free != pages - 1:
+        raise AssertionError(f"pages were lost: {line}")
+    return line
+
+
+def long_kv_check_runs(cfg, weights, device, prompt, kv_quant: bool):
+    """The card-vs-CPU run of the long_kv phase: a one-sequence pipeline on
+    each side (max_model_len 8192) prefills the prompt's first 4096 tokens
+    as one first chunk, then the rest as a chunk at span 8192, past 4096,
+    so on the blockwise route; returns ({side: last position's logits [1,
+    V]}, the card's logits of the same last step on the gather route, the
+    card's counts over the two chunks)."""
+    from mistralrs_tpu_torch.engine.block_manager import BlockManager
+    from mistralrs_tpu_torch.engine.sampler import SamplingParams
+    from mistralrs_tpu_torch.engine.sequence import Sequence
+    from mistralrs_tpu_torch.models import decoder
+
+    runs, counts, gather = {}, None, None
+    for dev, dt in _sides(device):
+        pipe = _side_pipeline(cfg, weights, dev, dt, page_size=16,
+                              num_pages=pages_for(1, len(prompt), 0), max_model_len=8192,
+                              prefill_buckets=(512, 4096), kv_quant=kv_quant)
+        bm = BlockManager(pipe.pc.num_pages, pipe.pc.page_size)
+        seq = Sequence(list(prompt), SamplingParams(max_len=1), max_model_len=8192)
+        bm.allocate(seq)
+        reset_counts()
+        pipe.run_prefill_chunk(seq, seq.tokens[:4096])
+        last = pipe.run_prefill_chunk(seq, seq.tokens[4096:], advance_state=False)
+        runs[dev.type] = last[None].astype(np.float64)
+        if dev.type == device.type:
+            counts = read_counts()
+            # the same last step again on the gather route (the JAX test's switch)
+            blockwise = decoder._use_blockwise_continuation
+            decoder._use_blockwise_continuation = lambda *a: False
+            try:
+                gather = pipe.run_prefill_chunk(seq, seq.tokens[4096:], advance_state=False)
+            finally:
+                decoder._use_blockwise_continuation = blockwise
+            gather = gather[None].astype(np.float64)
+        del pipe
+    return runs, gather, counts
+
+
+def long_kv_check(sz: Sizes, device, prompt=None) -> list[dict]:
+    """Run (d) of the long_kv phase: 1 layer at sz's widths, the card against
+    the CPU on bf16 and int8 pools (_compare_sides), and the card's blockwise
+    step against its gather route by the same rule."""
+    import torch
+
+    cfg = model_config(sz, 1)
+    gen = torch.Generator().manual_seed(7)
+    weights = random_q4km_params(sz, 1, torch.device("cpu"), gen, torch.bfloat16)
+    if prompt is None:
+        prompt = [int(t) for t in np.random.default_rng(8).integers(1, sz.vocab, LONG_KV_CHECK)]
+    outs = []
+    for kv_quant in (False, True):
+        runs, gather, c = long_kv_check_runs(cfg, weights, device, prompt, kv_quant)
+        if c["blockwise_steps"] != 1 or c["flash_prefill_paged"] or c["paged_decode"]:
+            raise AssertionError(f"the check's chunks took other routes: {c}")
+        tag = "int8" if kv_quant else "bf16"
+        outs.append(_compare_sides(f"long_kv_card_vs_cpu_{tag}", runs, device, 1,
+                                   launches={k: c[k] for k in ("flash_prefill",
+                                                               "blockwise_steps")}))
+        got = runs[device.type]
+        rel = float((np.abs(got - gather) / np.abs(gather).max(axis=1, keepdims=True)).max())
+        line = {"phase": f"long_kv_blockwise_vs_gather_{tag}", "max_rel_err": rel,
+                "tol_rel": 5e-2, "finite": bool(np.isfinite(got).all())}
+        emit(line)
+        if not line["finite"] or rel > line["tol_rel"]:
+            raise AssertionError(f"the blockwise route and the gather route differ: {line}")
+        outs.append(line)
+    return outs
+
+
+def long_kv_phase(sz: Sizes, device) -> dict:
+    """Long contexts and KV capacity on the 32-layer Mistral-7B Q4_K_M: the
+    bf16 and int8 serving runs, the swap run and the card-vs-CPU check (the
+    module docstring, phase 22)."""
+    import torch
+
+    from mistralrs_tpu_torch.engine.engine import Engine
+    from mistralrs_tpu_torch.models.loader import make_rope
+    from mistralrs_tpu_torch.utils.memory import PagedCacheConfig, calculate_num_pages
+
+    t_phase = time.perf_counter()
+    free_card_memory()
+    cfg = model_config(sz, sz.layers)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = random_q4km_params(sz, sz.layers, device, gen, torch.bfloat16)
+    rope = make_rope(cfg, LONG_KV_LEN, device=device)
+    rng = np.random.default_rng(11)
+    clock = Clock(device)
+    lines = {}
+
+    # (a) bf16 pools
+    n, plen, new = LONG_KV_BF16
+    pipe = long_kv_pipeline(cfg, params, rope, device, pages_for(n, plen, new), n)
+    params = pipe.params  # fused and requantized; the later pipelines share them
+    # the pool's capacity in 90% of the card's free memory with the weights
+    # resident (as num_pages=None sizes it), for bf16 and int8 pools
+    free = free_card_memory() * 1e9 + pool_bytes(pipe.cache)
+    capacity = {"free_gb": free / 1e9, "budget_gb": 0.9 * free / 1e9}
+    for tag, nbytes in (("bf16", 2), ("int8", 1 + 4 / cfg.head_dim)):
+        pages = calculate_num_pages(PagedCacheConfig(mem_bytes=int(0.9 * free), page_size=16),
+                                    cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
+                                    dtype_bytes=nbytes, device=device)
+        capacity[tag] = {"pages": pages, "tokens": 16 * pages,
+                         "gb": pages * 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim
+                         * 16 * nbytes / 1e9}
+    if capacity["int8"]["tokens"] < 1.9 * capacity["bf16"]["tokens"]:
+        raise AssertionError(f"int8 pools do not hold ~2x the tokens: {capacity}")
+    emit({"phase": "long_kv_capacity", **capacity})
+    eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
+    line = long_kv_serve(eng, rng, sz.vocab, LONG_KV_BF16, "bf16")
+    check_long_routes(line, sz.layers)
+    line["blockwise_layer"] = blockwise_layer(clock, pipe, n, 16384)
+    lines["bf16"] = line
+    emit({"phase": "long_kv_run", **line})
+    del eng, pipe
+    free_card_memory()
+
+    # (b) int8 pools
+    n, plen, new = LONG_KV_INT8
+    pipe = long_kv_pipeline(cfg, params, rope, device, pages_for(n, plen, new), n, kv_quant=True)
+    if not pipe.cache.quantized or pipe.cache.k.dtype != torch.int8:
+        raise AssertionError("kv_quant=True did not build int8 pools")
+    eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
+    line = long_kv_serve(eng, rng, sz.vocab, LONG_KV_INT8, "int8")
+    check_long_routes(line, sz.layers)
+    line["blockwise_layer"] = blockwise_layer(clock, pipe, n, LONG_KV_LEN)
+    lines["int8"] = line
+    emit({"phase": "long_kv_run", **line})
+    del eng, pipe
+    free_card_memory()
+
+    # (c) swap preemption
+    lines["swap"] = swap_run(cfg, params, rope, device, rng, sz.vocab)
+    emit({"phase": "long_kv_run", **lines["swap"]})
+    del params
+    free_card_memory()
+
+    # (d) the card against the CPU
+    checks = long_kv_check(sz, device)
+    out = {"phase": "long_kv", "layers": sz.layers, "max_model_len": LONG_KV_LEN,
+           "capacity": capacity,
+           **{f"{k}_{tag}": v[k] for tag, v in lines.items()
+              for k in ("decode_tok_s", "p50_ttft_ms", "run_s")},
+           "blockwise_layer_bf16": lines["bf16"]["blockwise_layer"],
+           "blockwise_layer_int8": lines["int8"]["blockwise_layer"],
+           "last_prefill_ms_int8": lines["int8"]["last_prefill_ms"],
+           "blockwise_steps": {t: lines[t]["launches"]["blockwise_steps"]
+                               for t in ("bf16", "int8")},
+           "swap_outs": lines["swap"]["swap_outs"], "swap_ins": lines["swap"]["swap_ins"],
+           "check_max_rel_err": {c["phase"]: c["max_rel_err"] for c in checks},
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 # the gemma2_ragged phase: prompt sizes and tokens of its two waves, and the
 # pool (1,536 pages of 16 tokens at 344 KB a token: 8.5 GB)
 RAGGED_WAVES = ((4, 4600, 64), (16, 200, 32))
@@ -3647,7 +4108,7 @@ def main() -> int:
     seconds["kernels"] = time.perf_counter() - t0
     for name, fn in (("slice", slice_phase), ("decode_graph", decode_graph_phase),
                      ("speculative", speculative_phase),
-                     ("long_context", long_context_phase),
+                     ("long_context", long_context_phase), ("long_kv", long_kv_phase),
                      ("quant_mix", quant_mix_phase), ("q2k", q2k_phase),
                      ("gguf_bf16", gguf_bf16_phase),
                      ("gemma2", gemma2_phase), ("hf_isq", hf_isq_phase),

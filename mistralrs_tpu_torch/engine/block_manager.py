@@ -6,9 +6,9 @@ Counterpart of mistralrs_tpu/engine/block_manager.py (the Python
 Reference parity: mistralrs-core/src/paged_attention/block_engine.rs —
 `BlockEngine` (:11-378): refcounted `PhysicalTokenBlock`s, allocation gate
 (`AllocStatus`), `free_sequence`, `append_token_slot_to_seq` with COW on a
-shared last block (:300-330). The CPU-swap allocator exists in the reference
-but swapping is disabled (scheduler.rs:284-290, preempt-by-recompute only);
-we likewise implement preempt-by-recompute and skip host swap.
+shared last block (:300-330). The reference's CPU-swap allocator is not
+needed: swap preemption (the engine's `_swap_out_seq`) keeps a swapped
+sequence's pages in host tensors of its own and frees its device pages here.
 
 Page 0 is reserved as the garbage page for padding writes
 (see ops/paged_attention.py), so the allocatable pool is pages 1..P-1.

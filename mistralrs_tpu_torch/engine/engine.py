@@ -5,10 +5,14 @@ Reference parity: mistralrs-core/src/engine/mod.rs `Engine::run` (:97-421) +
 `add_request` (:451-734) and pipeline/sampling.rs (`sample_and_add_toks`
 :231, `finish_or_add_toks_to_seq` :15-229).
 
-What this port does not have yet, and how it says so:
-- grammar-constrained requests: `add_request` raises NotImplementedError;
-- KV swap preemption: reaching `_swap_out_seq` / `_swap_in_seq` raises
-  NotImplementedError (the default preempt-by-recompute is unchanged).
+What this port does not have yet, and how it says so: grammar-constrained
+requests (`add_request` raises NotImplementedError).
+
+KV swap preemption (`preempt_mode="swap"`) copies a preempted sequence's
+live pages to host tensors and writes them back in place on re-admission
+(`_swap_out_seq`, `_swap_in_seq`), so the decode graphs' pool addresses
+stay valid; the default is preempt-by-recompute, and a speculative
+pipeline always recomputes, as in the JAX engine.
 
 Sampled requests take the pipeline's device-sampled multistep loop where
 `_multi_sampled_ok` allows it, else the device top-K pack, else the host
@@ -309,12 +313,30 @@ class Engine:
             }
 
     def _swap_out_seq(self, seq: Sequence) -> None:
-        """Swap preemption (ref cache_engine.rs swap_out): not ported yet."""
-        raise NotImplementedError("KV swap is not ported yet; use preempt_mode='recompute'")
+        """Swap preemption: copy the seq's live pages (every leaf, an int8
+        pool's scales too) to host tensors, synchronously, before the
+        scheduler frees them (ref cache_engine.rs swap_out)."""
+        from mistralrs_tpu_torch.ops.paged_attention import swap_out_pages
+
+        # save only pages holding data (up to kv_len); lookahead-reserved
+        # pages past it are garbage and may exceed the re-admission table
+        ps = self.pipeline.pc.page_size
+        n_live = -(-seq.kv_len // ps)
+        pages = seq.block_table[seq.released_pages : n_live]
+        seq.swap_host = (seq.released_pages, swap_out_pages(self.pipeline.cache, pages))
 
     def _swap_in_seq(self, seq: Sequence) -> None:
-        """Swap re-admission (ref cache_engine.rs swap_in): not ported yet."""
-        raise NotImplementedError("KV swap is not ported yet; use preempt_mode='recompute'")
+        """Restore a re-admitted swapped seq's KV into its fresh pages, in
+        place (ref cache_engine.rs swap_in); runs before this step's batch."""
+        from mistralrs_tpu_torch.ops.paged_attention import swap_in_pages
+
+        released, host = seq.swap_host
+        # the fresh allocation may be larger than the saved span (the
+        # next-token slot had not been appended when the seq was preempted)
+        n_saved = host[0].shape[self.pipeline.cache.page_axis]
+        dest = seq.block_table[released : released + n_saved]
+        swap_in_pages(self.pipeline.cache, host, dest)
+        seq.swap_host = None
 
     def _release_window_pages(self, seqs: list[Sequence]) -> None:
         """For all-layers-sliding-window models, hand whole pages strictly

@@ -35,10 +35,22 @@ its head dims, page and GQA ratio: `_card_takes`), else the step gathers:
 - a continuation chunk of 128-row blocks at a span of at most 4096, without
   a soft cap, runs the paged continuation kernel K6' over either pool
   layout;
+- any other continuation chunk at a span past 4096, and decode at a span
+  past `_BLOCKWISE_DECODE_SPAN` (16,384), takes the blockwise route
+  `blockwise_prefill_continuation` (ops/paged_attention.py), an
+  online-softmax walk over 1024-token key blocks whose memory does not grow
+  with the span (the JAX package's route for these steps, plain PyTorch as
+  JAX's is plain XLA), with the layer's window and the soft cap;
 - everything else gathers its pages and runs the f32 einsum `sdpa`, or
   `sdpa_head_major` on a head-major pool (ops/attention.py), soft cap
   included.
 The new K/V are written into the pool in place before any of them.
+
+An int8 pool (`PagedKVCache.quantized`) reaches each layer as (payload,
+scale) pairs: the new K/V go in through `write_paged_kv_q`, K7 and K6'
+never take it (they stream bf16), first chunks keep K6 and K11 (their
+context is the chunk's own K/V), and the gather route dequantizes with
+`gather_paged_kv_q`; the blockwise route dequantizes block by block.
 
 On the ragged backend (a combined K/V pool, `cache.v` None) the same first
 chunks still take K6 or K11 on the chunk's own K/V; every other step, a
@@ -65,10 +77,13 @@ from mistralrs_tpu_torch.ops.grouped_gemm import grouped_matmul
 from mistralrs_tpu_torch.ops.paged_attention import (
     PagedAttnMeta,
     PagedKVCache,
+    blockwise_prefill_continuation,
     flash_prefill_continuation,
     gather_paged_kv,
+    gather_paged_kv_q,
     paged_decode_attention,
     write_paged_kv,
+    write_paged_kv_q,
 )
 from mistralrs_tpu_torch.ops.ragged_attention import (
     RaggedPlan,
@@ -80,6 +95,11 @@ from mistralrs_tpu_torch.ops.ragged_attention import (
 from mistralrs_tpu_torch.ops.rope import RopeTable, apply_rope
 from mistralrs_tpu_torch.ops.splash import splash_prefill
 from mistralrs_tpu_torch.quant.qlinear import Linear, linear
+
+
+# forwards that took the "blockwise" route (a graph replay adds its
+# capture's count, as for the kernels' launch counters)
+blockwise_steps = 0
 
 
 @dataclasses.dataclass
@@ -140,6 +160,23 @@ def _use_flash_continuation(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span:
     return not (cfg.sliding_window is not None and cfg.sliding_window < span)
 
 
+# decode (T = 1) leaves the one-shot gather for the blockwise route past
+# this span (JAX decoder.py:128-133); a module constant, so a test can
+# lower it
+_BLOCKWISE_DECODE_SPAN = 16384
+
+
+def _use_blockwise_continuation(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span: int) -> bool:
+    """Blockwise route eligibility, the JAX package's rule: a step that is
+    not a first chunk, with more than one query row at a span past 4096, or
+    one (decode) at a span past _BLOCKWISE_DECODE_SPAN."""
+    if meta.first_chunk:
+        return False
+    if T > 1:
+        return span > 4096
+    return span > _BLOCKWISE_DECODE_SPAN
+
+
 def _use_paged_decode_kernel(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span: int) -> bool:
     """Block-table decode kernel (K7) eligibility, the JAX package's shape
     rule: one query token, a head-major pool, a span of at least 4096, and
@@ -182,18 +219,20 @@ def _attention_route(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span: int,
                      combined: bool = False, device_type: str = "cpu",
                      dtype=torch.bfloat16, kv_dtype=torch.bfloat16, page: int = 16) -> str:
     """The step's attention route, the same for every layer: "flash" (K6),
-    "splash" (K11), "decode" (K7), "continuation" (K6') or "gather"; on a
-    combined pool "flash", "splash", "ragged" (K12) or "gather" (over the
-    pool's split K/V views).
+    "splash" (K11), "decode" (K7), "continuation" (K6'), "blockwise" or
+    "gather"; on a combined pool "flash", "splash", "ragged" (K12) or
+    "gather" (over the pool's split K/V views). `kv_dtype` is the pool's
+    payload dtype: int8 for a quantized pool, which K7 and K6' never take.
 
-    The rule: the JAX package's shape rules pick a kernel, in the order
+    The rule: the JAX package's shape rules pick a route, in the order
     above. On "cuda" a kernel is picked only if its card kernel also takes
     the step (`_card_takes`: the activations' and pool's dtype, head dim,
     page, GQA ratio), so the wrappers never refuse it; a step that no
-    kernel takes goes to the gather route, as in the JAX package. On the
-    CPU the plain versions take any shape, so the shape rules alone
-    decide."""
+    kernel takes goes to the blockwise or the gather route, as in the JAX
+    package. On the CPU the plain versions take any shape, so the shape
+    rules alone decide."""
     card = device_type == "cuda"
+    quant = kv_dtype == torch.int8
 
     def takes(route: str) -> bool:
         return not card or _card_takes(route, cfg, dtype, kv_dtype, page)
@@ -204,10 +243,12 @@ def _attention_route(cfg: ModelConfig, T: int, meta: PagedAttnMeta, span: int,
         return "splash"
     if combined:
         return "ragged" if takes("ragged") else "gather"
-    if _use_paged_decode_kernel(cfg, T, meta, span) and takes("decode"):
+    if not quant and _use_paged_decode_kernel(cfg, T, meta, span) and takes("decode"):
         return "decode"
-    if _use_flash_continuation(cfg, T, meta, span) and takes("continuation"):
+    if not quant and _use_flash_continuation(cfg, T, meta, span) and takes("continuation"):
         return "continuation"
+    if _use_blockwise_continuation(cfg, T, meta, span):
+        return "blockwise"
     return "gather"
 
 
@@ -311,8 +352,8 @@ def _attention(
     cos: torch.Tensor,
     sin: torch.Tensor,
     rot_dim: int,
-    cache_k: torch.Tensor,
-    cache_v: torch.Tensor | None,
+    cache_k,
+    cache_v,
     meta: PagedAttnMeta,
     route: str,
     bias: torch.Tensor | None,
@@ -320,9 +361,10 @@ def _attention(
     plan: RaggedPlan | None,
 ) -> torch.Tensor:
     """One layer's attention; `window` is the layer's sliding window (None
-    on a global layer), read by the splash and ragged routes (the gather
-    route's `bias` already holds it). cache_v is None on a combined pool,
-    whose step packing `plan` the ragged route reads."""
+    on a global layer), read by the splash, ragged and blockwise routes (the
+    gather route's `bias` already holds it). cache_v is None on a combined
+    pool, whose step packing `plan` the ragged route reads; an int8 pool's
+    cache_k and cache_v are (payload, scale) pairs."""
     B, T, _ = x.shape
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if "qkv" in p:  # fused projection (quant/fuse.py)
@@ -344,7 +386,10 @@ def _attention(
     scale = cfg.query_scale if cfg.query_scale is not None else D**-0.5
     cap = cfg.attn_logit_softcap
     hm = meta.head_major
-    if cache_v is None:
+    kv_quant = isinstance(cache_k, tuple)
+    if kv_quant:
+        write_paged_kv_q(cache_k, cache_v, k, v, meta.slot_mapping, head_major=hm)
+    elif cache_v is None:
         write_combined_kv(cache_k, k, v, meta.slot_mapping)
     else:
         write_paged_kv(cache_k, cache_v, k, v, meta.slot_mapping, head_major=hm)
@@ -373,8 +418,19 @@ def _attention(
         out = ragged_attention_padded(q.contiguous(), cache_k, meta, scale=scale,
                                       sliding_window=win, logits_softcap=cap, plan=plan)
         out = out * meta.active[:, None, None, None].to(out.dtype)
+    elif route == "blockwise":
+        # a span that fits inside the window needs no window mask (JAX's window_ok)
+        pool = cache_k[0] if kv_quant else cache_k
+        span = meta.block_tables.shape[1] * (pool.shape[2] if hm else pool.shape[1])
+        win = window if window is not None and span > window else None
+        out = blockwise_prefill_continuation(q, cache_k, cache_v, meta, scale=scale,
+                                             sliding_window=win, logits_softcap=cap)
+        out = out * meta.active[:, None, None, None].to(out.dtype)
     else:
-        if cache_v is None:  # a combined pool: its split K/V views, token-major
+        if kv_quant:
+            ctx_k, ctx_v = gather_paged_kv_q(cache_k, cache_v, meta.block_tables, head_major=hm,
+                                             dtype=q.dtype)
+        elif cache_v is None:  # a combined pool: its split K/V views, token-major
             ctx_k, ctx_v = gather_paged_kv(*split_combined(cache_k), meta.block_tables)
         else:
             ctx_k, ctx_v = gather_paged_kv(cache_k, cache_v, meta.block_tables, head_major=hm)
@@ -406,7 +462,10 @@ def decoder_forward(
     meta: PagedAttnMeta,
 ) -> tuple[torch.Tensor, PagedKVCache]:
     """Run the decoder stack. Returns (hidden [B, T, E], cache); the cache's
-    pools are updated in place (the returned cache is the same object)."""
+    pools are updated in place (the returned cache is the same object).
+    Each layer gets its views of the pools: of an int8 pool, (payload,
+    scale) pairs."""
+    global blockwise_steps
     B, T = input_ids.shape
     h = params.embed[input_ids.to(torch.int64)]
     if cfg.embed_scale != 1.0:
@@ -417,6 +476,8 @@ def decoder_forward(
     route = _attention_route(cfg, T, meta, S, combined=cache.combined,
                              device_type=h.device.type, dtype=h.dtype, kv_dtype=cache.k.dtype,
                              page=cache.page_size)
+    if route == "blockwise":
+        blockwise_steps += 1
     # the ragged route's packing of this step, the same in every layer
     plan = ragged_plan(meta, T, cache.page_size) if route == "ragged" else None
     bias_full = bias_win = None
@@ -432,8 +493,11 @@ def decoder_forward(
                                         sliding_window=cfg.sliding_window) + pad[:, None, None, :]
     for i, lp in enumerate(params.layers):
         local = cfg.layer_uses_sliding_window(i)
-        h = _block(cfg, lp, h, cos, sin, rope.rot_dim, cache.k[i],
-                   None if cache.combined else cache.v[i], meta, route,
+        if cache.quantized:
+            ck, cv = (cache.k[i], cache.k_scale[i]), (cache.v[i], cache.v_scale[i])
+        else:
+            ck, cv = cache.k[i], None if cache.combined else cache.v[i]
+        h = _block(cfg, lp, h, cos, sin, rope.rot_dim, ck, cv, meta, route,
                    bias_win if local else bias_full, cfg.sliding_window if local else None, plan)
     return _norm(cfg, params.final_norm, h), cache
 

@@ -1,9 +1,10 @@
 """Scaled-dot-product attention, written as plain torch einsum/softmax in f32.
 
 Counterpart of mistralrs_tpu/ops/attention.py (`NEG_INF`,
-`causal_mask_bias`, `sdpa`, `sdpa_head_major`). GQA folds the query-head group axis into the
+`block_attend`, `flash_combine`, `finalize_flash`, `causal_mask_bias`,
+`sdpa`, `sdpa_head_major`). GQA folds the query-head group axis into the
 einsum instead of repeating K/V. Masks are additive f32 biases (0 = keep,
-NEG_INF = drop).
+NEG_INF = drop), or boolean keep masks in the online-softmax pieces.
 """
 
 from __future__ import annotations
@@ -11,6 +12,53 @@ from __future__ import annotations
 import torch
 
 NEG_INF = float(torch.finfo(torch.float32).min)
+
+
+def block_attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, keep: torch.Tensor, *,
+                 logits_softcap: float | None = None):
+    """Partial attention of queries against one key/value block, in
+    running-softmax form (the blockwise building block), in f32.
+
+    qg: [B, T, Hkv, G, D] pre-scaled queries; k/v: [B, S, Hkv, D]; keep:
+    boolean mask broadcastable to [B, T, S]. Returns (bm, bl, bo): the
+    block's max and exp-sum [B, Hkv, G, T] and its unnormalized output
+    [B, T, Hkv, G, D]. A fully masked row gives bm = NEG_INF (finite), bl =
+    0, bo = 0, which combine as nothing."""
+    s = torch.einsum("bthgd,bshd->bhgts", qg, k.to(torch.float32))
+    if logits_softcap is not None:
+        s = torch.tanh(s / logits_softcap) * logits_softcap
+    keep = torch.broadcast_to(keep, (s.shape[0],) + tuple(s.shape[3:]))  # [B, T, S]
+    s = torch.where(keep[:, None, None], s, NEG_INF)
+    bm = torch.amax(s, dim=-1)  # [B, Hkv, G, T]
+    # a fully masked row has exp(NEG_INF - NEG_INF) = 1: zero it explicitly
+    p = torch.where(s > NEG_INF / 2, torch.exp(s - bm[..., None]), 0.0)
+    bl = torch.sum(p, dim=-1)
+    bo = torch.einsum("bhgts,bshd->bthgd", p, v.to(torch.float32))
+    return bm, bl, bo
+
+
+def flash_combine(m, l, acc, bm, bl, bo):
+    """Merge one block's (bm, bl, bo) into the running (m, l, acc) (the
+    online-softmax rescale). m/l/bm/bl: [B, Hkv, G, T]; acc/bo: [B, T, Hkv,
+    G, D]. NEG_INF is finite, so a row never attended combines as the
+    identity."""
+    new_m = torch.maximum(m, bm)
+    alpha = torch.exp(m - new_m)
+    beta = torch.exp(bm - new_m)
+    l = l * alpha + bl * beta
+
+    def expand(x):  # [B, Hkv, G, T] -> [B, T, Hkv, G, 1]
+        return x.permute(0, 3, 1, 2)[..., None]
+
+    acc = acc * expand(alpha).to(acc.dtype) + bo * expand(beta).to(acc.dtype)
+    return new_m, l, acc
+
+
+def finalize_flash(l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """acc [B, T, Hkv, G, D] / l [B, Hkv, G, T] -> [B, T, Hkv * G, D]."""
+    B, T, Hkv, G, D = acc.shape
+    norm = l.permute(0, 3, 1, 2).reshape(B, T, Hkv * G)[..., None]
+    return acc.reshape(B, T, Hkv * G, D) / torch.clamp(norm, min=1e-20).to(acc.dtype)
 
 
 def causal_mask_bias(

@@ -1,11 +1,15 @@
-"""Paged (block-table) KV cache: pools, scatter, gather, copies, and the
-paged attention kernels K6' and K7.
+"""Paged (block-table) KV cache: pools, scatter, gather, copies, swaps, the
+int8 pools, the blockwise long-span route, and the paged attention kernels
+K6' and K7.
 
 Counterpart of mistralrs_tpu/ops/paged_attention.py: `PagedKVCache`,
-`PagedAttnMeta`, `write_paged_kv`, `gather_paged_kv`,
-`paged_attention_reference`, `copy_pages`, `flash_prefill_continuation`
-(K6') and `paged_decode_attention` (K7). Int8 and split pools are later
-work.
+`PagedAttnMeta`, `write_paged_kv`, `write_paged_kv_q` (with
+`_quantize_rows`, `_write_scale`), `gather_paged_kv`, `gather_paged_kv_q`,
+`paged_attention_reference`, `blockwise_prefill_continuation`,
+`_pool_leaves`, `copy_pages`, `swap_out_pages`, `swap_in_pages`,
+`flash_prefill_continuation` (K6') and `paged_decode_attention` (K7).
+Split pools (a tuple of per-group arrays) are not ported: the port keeps
+one [L, ...] pool a leaf.
 
 Three pool layouts, as in the JAX package (`head_major`, `combined`):
 - token-major k/v [L, P, page, Hkv, D]: one page row is one token's heads;
@@ -14,20 +18,30 @@ Three pool layouts, as in the JAX package (`head_major`, `combined`):
 - combined k [L, P, page, 2*Hkv, D] with v None: token-major, K at the even
   and V at the odd head indices, the layout of the ragged backend
   (ops/ragged_attention.py).
+An int8 pool (`quant=True`, either of the first two layouts) holds int8
+payloads in k/v and one f32 absmax scale per (slot, head) in
+k_scale/v_scale, shaped like the payload without D; a value is payload *
+scale. The decoder hands a layer of such a pool to the ops below as
+(payload, scale) pairs.
 Each layer's pool `k[l]` is a view, so the decoder passes per-layer views
 without copies. Page 0 of every layer is the garbage page: padding tokens'
 slot_mapping points into it, so writes need no masking, and the block
 manager never hands it out.
 
-Unlike the JAX functions, which return new arrays, `write_paged_kv` and
-`copy_pages` update the pools IN PLACE (index_copy_ / indexed assignment):
-a functional update would copy the whole pool every layer and step.
+Unlike the JAX functions, which return new arrays, `write_paged_kv`,
+`write_paged_kv_q`, `copy_pages` and `swap_in_pages` update the pools IN
+PLACE (index_copy_ / indexed assignment): a functional update would copy
+the whole pool every layer and step, and the decode loop's CUDA graphs
+hold the pools' addresses (pipeline/graphs.py).
 
 The kernels (csrc/flash_prefill_paged.cu, csrc/paged_decode.cu) read the
 context through the block table, never a gathered copy; K6' shares K6's
 Hopper attention core and launch plan (ops/flash_attention.py::flash_plan). Their wrappers take
 the plain versions below when (and only when) the tensors lie on the CPU;
-on a CUDA tensor they launch the kernel or raise.
+on a CUDA tensor they launch the kernel or raise. They take bf16 pools
+only; the decoder never gives them an int8 one. The blockwise route is
+the JAX package's own plain computation (XLA einsums there), not a
+kernel's stand-in.
 """
 
 from __future__ import annotations
@@ -38,7 +52,14 @@ import dataclasses
 import torch
 
 from mistralrs_tpu_torch.ops import kernels
-from mistralrs_tpu_torch.ops.attention import NEG_INF, sdpa, sdpa_head_major
+from mistralrs_tpu_torch.ops.attention import (
+    NEG_INF,
+    block_attend,
+    finalize_flash,
+    flash_combine,
+    sdpa,
+    sdpa_head_major,
+)
 from mistralrs_tpu_torch.ops.flash_attention import check_scale, flash_plan, launch_args
 
 # launches of each kernel (one per wrapper call that launched it)
@@ -54,27 +75,42 @@ _L = ctypes.c_longlong
 class PagedKVCache:
     """k/v pages, token-major [L, P, page, Hkv, D] or head-major
     [L, Hkv, P, page, D]; or one combined pool k [L, P, page, 2*Hkv, D]
-    (K even, V odd) with v None. Page 0 is reserved."""
+    (K even, V odd) with v None. Int8 pools (quant=True) hold int8 k/v and
+    f32 k_scale/v_scale of the payload's shape without D. Page 0 is
+    reserved."""
 
     k: torch.Tensor
     v: torch.Tensor | None
     head_major: bool = False
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
     @classmethod
     def create(cls, num_layers: int, num_pages: int, page_size: int, kv_heads: int,
                head_dim: int, dtype=torch.bfloat16, device="cuda",
-               head_major: bool = False, combined: bool = False) -> "PagedKVCache":
+               head_major: bool = False, combined: bool = False,
+               quant: bool = False) -> "PagedKVCache":
         if combined:
-            if head_major:
-                raise ValueError("a combined pool is token-major")
+            if head_major or quant:
+                raise ValueError("a combined pool is token-major and not quantized")
             shape = (num_layers, num_pages, page_size, 2 * kv_heads, head_dim)
             return cls(k=torch.zeros(shape, dtype=dtype, device=device), v=None)
         if head_major:
             shape = (num_layers, kv_heads, num_pages, page_size, head_dim)
         else:
             shape = (num_layers, num_pages, page_size, kv_heads, head_dim)
+        if quant:
+            return cls(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                       v=torch.zeros(shape, dtype=torch.int8, device=device),
+                       head_major=head_major,
+                       k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                       v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device))
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device), head_major=head_major)
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def combined(self) -> bool:
@@ -141,6 +177,48 @@ def write_paged_kv(
     cache_v.view(P * page, H, D).index_copy_(0, idx, new_v.reshape(-1, H, D).to(cache_v.dtype))
 
 
+def _quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, T, H, D] -> (int8 payload, f32 per-(token, head) scale): s =
+    max|x| / 127 (a division, as JAX computes it) floored at 1e-8, the
+    payload round-half-to-even(x / s) clipped to +-127."""
+    xf = x.to(torch.float32)
+    s = torch.amax(torch.abs(xf), dim=-1) / 127.0
+    s = torch.clamp(s, min=1e-8)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def _write_scale(scale_pool: torch.Tensor, new_s: torch.Tensor, idx: torch.Tensor,
+                 head_major: bool) -> None:
+    """Scatter per-(token, head) scales [B, T, H] into one layer's scale pool
+    ([H, P, page] or [P, page, H]) as write_paged_kv does payloads, in place."""
+    if head_major:
+        H, P, page = scale_pool.shape
+        scale_pool.view(H, P * page).index_copy_(1, idx, new_s.reshape(-1, H).transpose(0, 1))
+        return
+    P, page, H = scale_pool.shape
+    scale_pool.view(P * page, H).index_copy_(0, idx, new_s.reshape(-1, H))
+
+
+def write_paged_kv_q(
+    ck: tuple[torch.Tensor, torch.Tensor],  # (int8 payload, f32 scale) of one layer
+    cv: tuple[torch.Tensor, torch.Tensor],
+    new_k: torch.Tensor,  # [B, T, Hkv, D]
+    new_v: torch.Tensor,
+    slot_mapping: torch.Tensor,  # [B, T]
+    head_major: bool = False,
+) -> None:
+    """reshape_and_cache for int8 pools, in place: each new (token, head) row
+    quantized with its own absmax scale (_quantize_rows), payloads and
+    scales scattered into their slots."""
+    idx = slot_mapping.reshape(-1).to(torch.int64)
+    qk, sk = _quantize_rows(new_k)
+    qv, sv = _quantize_rows(new_v)
+    write_paged_kv(ck[0], cv[0], qk, qv, slot_mapping, head_major)
+    _write_scale(ck[1], sk, idx, head_major)
+    _write_scale(cv[1], sv, idx, head_major)
+
+
 def gather_paged_kv(
     cache_k: torch.Tensor,  # one layer; layout per `head_major`
     cache_v: torch.Tensor,
@@ -161,6 +239,30 @@ def gather_paged_kv(
     k = torch.index_select(cache_k, 0, flat)
     v = torch.index_select(cache_v, 0, flat)
     return k.reshape(B, MP * page, H, D), v.reshape(B, MP * page, H, D)
+
+
+def gather_paged_kv_q(
+    ck: tuple[torch.Tensor, torch.Tensor],
+    cv: tuple[torch.Tensor, torch.Tensor],
+    block_tables: torch.Tensor,
+    head_major: bool = False,
+    dtype=torch.bfloat16,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gather and dequantize int8 pools to `dtype` (layouts as
+    gather_paged_kv): payload.to(dtype) * scale.to(dtype), the scale rounded
+    to `dtype` before the product, as the JAX function does."""
+    B, MP = block_tables.shape
+    k, v = gather_paged_kv(ck[0], cv[0], block_tables, head_major=head_major)
+    flat = block_tables.reshape(-1).to(torch.int64)
+    if head_major:
+        H, P, page = ck[1].shape
+        sk = torch.index_select(ck[1], 1, flat).reshape(H, B, MP * page)
+        sv = torch.index_select(cv[1], 1, flat).reshape(H, B, MP * page)
+    else:
+        P, page, H = ck[1].shape
+        sk = torch.index_select(ck[1], 0, flat).reshape(B, MP * page, H)
+        sv = torch.index_select(cv[1], 0, flat).reshape(B, MP * page, H)
+    return (k.to(dtype) * sk[..., None].to(dtype), v.to(dtype) * sv[..., None].to(dtype))
 
 
 def paged_attention_reference(
@@ -195,18 +297,116 @@ def paged_attention_reference(
                 logits_softcap=logits_softcap)
 
 
+def blockwise_prefill_continuation(
+    q: torch.Tensor,  # [B, T, Hq, D] chunk queries
+    cache_k,  # one layer, layout per meta.head_major; an int8 pool as (payload, scale)
+    cache_v,
+    meta: PagedAttnMeta,
+    *,
+    scale: float,
+    sliding_window: int | None = None,
+    logits_softcap: float | None = None,
+    kv_block: int = 1024,
+) -> torch.Tensor:
+    """Blockwise (online-softmax) attention of a continuation chunk, or a
+    decode step, over a long paged context (the chunk's own K/V already
+    written) -> [B, T, Hq, D] in q's dtype.
+
+    The gather route holds [B, Hq, T, span] f32 scores; this walks the span
+    in `kv_block`-token key blocks (JAX's lax.scan as a Python loop), each
+    block's pages gathered (and, for an int8 pool, dequantized to q's dtype)
+    on their own, so peak memory is O(T * kv_block). The block tables are
+    padded with page 0 to whole blocks; keys are masked by position (causal,
+    and < kv_len) and, with `sliding_window`, by the window. The decoder
+    passes `sliding_window` None on a global layer, where JAX passes its
+    window with a traced per-layer gate."""
+    B, T, Hq, D = q.shape
+    hm = meta.head_major
+    kv_quant = isinstance(cache_k, tuple)
+    pool_k = cache_k[0] if kv_quant else cache_k
+    page = pool_k.shape[2] if hm else pool_k.shape[1]
+    Hkv = pool_k.shape[0] if hm else pool_k.shape[2]
+    G = Hq // Hkv
+    MP = meta.block_tables.shape[1]
+    ppb = max(kv_block // page, 1)
+    nb = -(-MP // ppb)
+    tables = meta.block_tables.to(torch.int64)
+    if nb * ppb != MP:
+        tables = torch.nn.functional.pad(tables, (0, nb * ppb - MP))
+    blk = ppb * page
+    dev = q.device
+    kv_lens = meta.kv_lens.to(torch.int64)
+    q_ids = (kv_lens - T)[:, None] + torch.arange(T, device=dev)[None]  # [B, T]
+    qg = (q.to(torch.float32) * scale).reshape(B, T, Hkv, G, D)
+    m = torch.full((B, Hkv, G, T), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, G, T), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, T, Hkv, G, D), dtype=torch.float32, device=dev)
+    offs = torch.arange(blk, device=dev)
+    for b in range(nb):
+        tb = tables[:, b * ppb:(b + 1) * ppb]
+        if kv_quant:
+            k, v = gather_paged_kv_q(cache_k, cache_v, tb, head_major=hm, dtype=q.dtype)
+        else:
+            k, v = gather_paged_kv(cache_k, cache_v, tb, head_major=hm)
+        if hm:  # [Hkv, B, blk, D] -> [B, blk, Hkv, D]
+            k = k.permute(1, 2, 0, 3)
+            v = v.permute(1, 2, 0, 3)
+        kv_ids = (b * blk + offs)[None, None, :]  # [1, 1, blk]
+        keep = (kv_ids <= q_ids[:, :, None]) & (kv_ids < kv_lens[:, None, None])
+        if sliding_window is not None:
+            keep = keep & (kv_ids > q_ids[:, :, None] - sliding_window)
+        m, l, acc = flash_combine(m, l, acc, *block_attend(qg, k, v, keep,
+                                                           logits_softcap=logits_softcap))
+    return finalize_flash(l, acc).to(q.dtype)
+
+
+def _pool_leaves(cache: PagedKVCache) -> dict[str, torch.Tensor]:
+    """The cache's page-indexed tensors (payloads, and an int8 pool's
+    scales), all on the same page axis (cache.page_axis). A combined pool
+    has one leaf."""
+    leaves = {"k": cache.k}
+    if not cache.combined:
+        leaves["v"] = cache.v
+    if cache.quantized:
+        leaves["k_scale"] = cache.k_scale
+        leaves["v_scale"] = cache.v_scale
+    return leaves
+
+
 def copy_pages(cache: PagedKVCache, src, dst) -> PagedKVCache:
-    """COW page copies in every layer, on the page axis of either layout, in
-    place (the right-hand side is gathered before the write, so overlapping
-    src/dst copy the old pages)."""
+    """COW page copies in every layer of every leaf (an int8 pool's scales
+    too), on the page axis of either layout, in place (the right-hand side
+    is gathered before the write, so overlapping src/dst copy the old
+    pages)."""
     dev = cache.k.device
     src = torch.as_tensor(src, dtype=torch.int64, device=dev)
     dst = torch.as_tensor(dst, dtype=torch.int64, device=dev)
-    for arr in (cache.k,) if cache.combined else (cache.k, cache.v):
+    for arr in _pool_leaves(cache).values():
         if cache.page_axis == 2:
             arr[:, :, dst] = arr[:, :, src]
         else:
             arr[:, dst] = arr[:, src]
+    return cache
+
+
+def swap_out_pages(cache: PagedKVCache, pages) -> tuple[torch.Tensor, ...]:
+    """Copy the named pages of every leaf to host memory, synchronously (ref
+    cache_engine.rs swap_out / swap_blocks D2H): CPU tensors (k, v[,
+    k_scale, v_scale]) with the pages on the pool's page axis, in the
+    pool's layout order."""
+    idx = torch.as_tensor(pages, dtype=torch.int64, device=cache.k.device)
+    return tuple(arr.index_select(cache.page_axis, idx).cpu()
+                 for arr in _pool_leaves(cache).values())
+
+
+def swap_in_pages(cache: PagedKVCache, host_kv: tuple, pages) -> PagedKVCache:
+    """Write host K/V (from swap_out_pages) into the named destination pages
+    of every leaf, in place (ref cache_engine.rs swap_in / swap_blocks
+    H2D): the pools keep their addresses, which captured decode graphs
+    read. Returns the same cache."""
+    idx = torch.as_tensor(pages, dtype=torch.int64, device=cache.k.device)
+    for arr, host in zip(_pool_leaves(cache).values(), host_kv):
+        arr.index_copy_(cache.page_axis, idx, host.to(arr.device, arr.dtype))
     return cache
 
 

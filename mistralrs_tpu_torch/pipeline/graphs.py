@@ -17,9 +17,10 @@ come from it. A failed capture or replay raises: there is no eager
 fallback.
 
 The kernel wrappers count a launch when they enqueue it (ops/*.py,
-`*_launches`), which at capture time launches nothing. So a capture
-records each counter's increase, takes it back, and every replay adds it
-again: the counters go on counting the kernels the card ran.
+`*_launches`), and the decoder a forward on the blockwise route
+(models/decoder.py, `blockwise_steps`), which at capture time runs
+nothing. So a capture records each counter's increase, takes it back, and
+every replay adds it again: the counters go on counting what the card ran.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Callable, Hashable
 
 import torch
 
+from mistralrs_tpu_torch.models import decoder
 from mistralrs_tpu_torch.ops import (
     flash_attention,
     grouped_gemm,
@@ -52,9 +54,12 @@ _COUNTED = (flash_attention, grouped_gemm, paged_attention, quant_matmul, ragged
 
 
 def launch_counts() -> dict[tuple[object, str], int]:
-    """Every kernel launch counter of the ops modules, by (module, name)."""
-    return {(mod, name): value for mod in _COUNTED for name, value in vars(mod).items()
-            if name.endswith("_launches") and isinstance(value, int)}
+    """Every kernel launch counter of the ops modules and the decoder's
+    blockwise route counter, by (module, name)."""
+    out = {(mod, name): value for mod in _COUNTED for name, value in vars(mod).items()
+           if name.endswith("_launches") and isinstance(value, int)}
+    out[(decoder, "blockwise_steps")] = decoder.blockwise_steps
+    return out
 
 
 def _add_counts(delta: dict[tuple[object, str], int], sign: int = 1) -> None:

@@ -6,7 +6,10 @@ chunks padded to a bucket, page 0 as the garbage page for padding slots,
 page-bucketed block-table widths), moves them to the device and runs
 `decoder_forward` eagerly; the KV pools are updated in place, head-major
 at `max_model_len >= 4096` unless `kv_head_major` says otherwise, or one
-combined K/V pool on the ragged backend (`attn_backend="ragged"`). A batched
+combined K/V pool on the ragged backend (`attn_backend="ragged"`), int8
+with per-(slot, head) scales under `kv_quant` (which the ragged backend
+does not take: it then serves the int8 pools on the default routes, as
+the JAX package does). A batched
 prefill has one row per sequence: eager PyTorch has no compiled shape to
 keep, so it does not pad the batch to `max_seqs` as the JAX package does.
 
@@ -38,6 +41,7 @@ prefill steps and `run_span` (they run eagerly).
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any
@@ -291,6 +295,12 @@ class PipelineConfig:
     # KV pool layout: None = head-major at max_model_len >= 4096 (the
     # layout the block-table decode kernel streams), token-major below
     kv_head_major: bool | None = None
+    # int8 KV pools with one f32 absmax scale per (slot, head): ~2x the
+    # pages in the same memory, for ~1/255 of each row's range of error a
+    # value (JAX text.py:67-71); attention over them gathers and dequantizes
+    # (the blockwise route past span 4096 block by block), as K6' and K7
+    # stream bf16
+    kv_quant: bool = False
     # paged attention backend: None/"default" = the per-step routes of
     # models/decoder.py; "ragged" = one combined K/V pool, token-major, with
     # the ragged paged attention kernel K12 for every continuation chunk and
@@ -344,7 +354,9 @@ class TextPipeline:
                 PagedCacheConfig(mem_fraction=pc.kv_mem_fraction, mem_bytes=pc.kv_mem_bytes,
                                  context_len=pc.kv_ctxt_len, page_size=pc.page_size),
                 cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
-                dtype_bytes=torch.empty((), dtype=pc.dtype).element_size(),
+                # an int8 payload and its f32 scale's share: ~1 + 4 / head_dim bytes
+                dtype_bytes=((1 + 4 / cfg.head_dim) if pc.kv_quant
+                             else torch.empty((), dtype=pc.dtype).element_size()),
                 max_seqs=pc.max_seqs, device=self.device,
             )
             pc = dataclasses.replace(pc, num_pages=n)
@@ -356,14 +368,18 @@ class TextPipeline:
         if pc.rq8_group:
             params = requant_q6k_params(params, gs=pc.rq8_group)
         self.params = set_activation_route(params, pc.int8_activations)
-        self.kv_combined = pc.attn_backend == "ragged"
+        self.kv_combined = pc.attn_backend == "ragged" and not pc.kv_quant
+        if pc.attn_backend == "ragged" and pc.kv_quant:
+            logging.getLogger(__name__).warning(
+                "attn_backend=ragged is incompatible with kv_quant; serving the int8 cache over "
+                "the default attention paths")
         # the combined pool is token-major by construction
         self.head_major = not self.kv_combined and (
             pc.kv_head_major if pc.kv_head_major is not None else pc.max_model_len >= 4096)
         self.cache = PagedKVCache.create(cfg.num_layers, pc.num_pages, pc.page_size,
                                          cfg.num_kv_heads, cfg.head_dim, pc.dtype,
                                          device=self.device, head_major=self.head_major,
-                                         combined=self.kv_combined)
+                                         combined=self.kv_combined, quant=pc.kv_quant)
         self._last_greedy_pack: torch.Tensor | None = None
         self._last_topk_pack: torch.Tensor | None = None
         self._last_logits: torch.Tensor | None = None

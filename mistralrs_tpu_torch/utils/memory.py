@@ -24,14 +24,16 @@ def calculate_num_pages(
     num_layers: int,
     num_kv_heads: int,
     head_dim: int,
-    dtype_bytes: int = 2,
+    dtype_bytes: float = 2,
     max_seqs: int = 16,
     device="cuda",
 ) -> int:
     """Number of KV pages the pool should hold.
 
-    Priority: context_len > mem_bytes > mem_fraction of free memory.
-    512 pages when the device reports no memory (the CPU)."""
+    dtype_bytes is a K or V element's bytes, fractional for an int8 pool
+    (1 + 4 / head_dim: the payload and its share of the f32 scale a slot
+    and head). Priority: context_len > mem_bytes > mem_fraction of free
+    memory. 512 pages when the device reports no memory (the CPU)."""
     page_bytes = 2 * num_layers * num_kv_heads * head_dim * cfg.page_size * dtype_bytes
     if cfg.context_len is not None:
         per_seq = -(-cfg.context_len // cfg.page_size)

@@ -276,3 +276,79 @@ def test_waves_serve_greedy_then_sampled_requests_on_the_device_loop(monkeypatch
     sampled = calls[at[0]:]
     assert sampled and all(c[:4] == ([0.8] * 3, [40] * 3, [0.95] * 3, [0.05] * 3)
                            for c in sampled)
+
+
+# ------------------------------------------------------------- long_kv
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_long_kv_serving_run_counts_its_blockwise_forwards(kv_quant, monkeypatch, one_thread):
+    """long_kv_serve at a tiny width (1 layer) on head-major pools
+    (max_model_len 8192): a request of ~4,700 tokens (10 chunks, the last 2
+    past span 4096) and 9 new tokens; with the decode threshold at 4096 the
+    int8 pools decode (span 8192) on the blockwise route too, and the bf16
+    ones on K7's. The decoder's blockwise counter matches blockwise_expected."""
+    from mistralrs_tpu_torch.models import decoder
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+
+    monkeypatch.setattr(qm, "MAX_KERNEL_ROWS", -1)
+    monkeypatch.setattr(decoder, "_BLOCKWISE_DECODE_SPAN", 4096)
+    cfg = chip_smoke.model_config(TINY, 1)
+    run = (1, 4700, 9)
+    pipe = chip_smoke.long_kv_pipeline(cfg, _params(1), make_rope(cfg, 8192, device="cpu"),
+                                       torch.device("cpu"), chip_smoke.pages_for(*run), 1,
+                                       kv_quant=kv_quant, max_model_len=8192)
+    assert pipe.cache.quantized == kv_quant and pipe.head_major
+    eng = Engine(pipe, eos_token_ids=set(), prefix_cache=False)
+    line = chip_smoke.long_kv_serve(eng, np.random.default_rng(1), TINY.vocab, run, "tiny")
+    assert (line["chunks"], line["decode_span"], line["generated_tokens"]) == (10, 8192, 9)
+    calls = line["launches"]["decode_eager_loops"]
+    assert calls >= 1
+    assert line["launches"]["blockwise_steps"] == chip_smoke.blockwise_expected(line) == (
+        2 + 8 * calls if kv_quant else 2)
+    assert line["kv_gb"] == chip_smoke.pool_bytes(pipe.cache) / 1e9 > 0
+
+
+def test_swap_run_swaps_and_keeps_every_stream(monkeypatch, one_thread):
+    """swap_run at a tiny width (1 layer): 8 requests of ~60 tokens, 24 new, a pool for
+    the prompts of 5: sequences swap out and back in, none is prefilled
+    again, the streams equal the uncontended engine's, every page comes
+    back (swap_run raises otherwise)."""
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+
+    monkeypatch.setattr(qm, "MAX_KERNEL_ROWS", -1)
+    cfg = chip_smoke.model_config(TINY, 1)
+    line = chip_smoke.swap_run(cfg, _params(1), make_rope(cfg, 512, device="cpu"),
+                               torch.device("cpu"), np.random.default_rng(2), TINY.vocab,
+                               run=(8, 60, 24), max_model_len=512)
+    assert line["swap_outs"] >= 1 and line["swap_ins"] >= 1
+    assert line["streams_equal"] == 8 and not line["near_ties"]
+
+
+def test_long_kv_check_runs_at_a_tiny_size(monkeypatch, one_thread):
+    """long_kv_check_runs on int8 pools with the CPU standing in for both
+    sides (f32, then bf16): a 4,600-token prompt, a first chunk of 4096,
+    then one blockwise chunk; the blockwise step's logits equal the gather
+    route's on the same step within 1e-2 of the largest |logit|."""
+    from mistralrs_tpu_torch.ops import quant_matmul as qm
+
+    monkeypatch.setattr(qm, "MAX_KERNEL_ROWS", -1)
+    cfg = chip_smoke.model_config(TINY, 1)
+    weights = chip_smoke.random_q4km_params(TINY, 1, torch.device("cpu"),
+                                            torch.Generator().manual_seed(7), torch.bfloat16)
+    prompt = [int(t) for t in np.random.default_rng(8).integers(1, TINY.vocab,
+                                                                chip_smoke.LONG_KV_CHECK)]
+    runs, gather, counts = chip_smoke.long_kv_check_runs(cfg, weights, torch.device("cpu"),
+                                                         prompt, kv_quant=True)
+    got = runs["cpu"]
+    assert got.shape == gather.shape == (1, TINY.vocab) and np.isfinite(got).all()
+    assert counts["blockwise_steps"] == 1
+    assert np.abs(got - gather).max() <= 1e-2 * np.abs(gather).max()
+
+
+def test_pages_for_holds_the_run():
+    assert chip_smoke.pages_for(1, 100, 0) == 1 + -(-(100 + 16) // 16) + 0 + 2
+    n, plen, new = chip_smoke.LONG_KV_INT8
+    pages = chip_smoke.pages_for(n, plen, new)
+    assert pages > n * (plen + 8 + new + 8) / 16 + 1
+    assert 16 * chip_smoke.LONG_KV_LEN // 16 >= plen + new + 8

@@ -2067,6 +2067,11 @@ GRAPH_ROUTES = {
                    {"int8_activations": False}, 200),
     "bf16_k9b_k8": ("random_q5km_params", "model_config", ("q5k_bf16_gemv", "q8_0_bf16_gemv"),
                     {"int8_activations": False}, 200),
+    # int8 KV pools: decode on the gather route over dequantized pages
+    "int8_kv": ("random_q4km_params", "model_config", ("q4k_q8_gemv",), {"kv_quant": True}, 200),
+    # int8 pools at span 32768 (past 16,384): decode on the blockwise route
+    "int8_kv_blockwise": ("random_q4km_params", "model_config", ("q4k_q8_gemv", "blockwise_steps"),
+                          {"kv_quant": True, "max_model_len": 32768, "num_pages": 2720}, 16500),
 }
 
 
@@ -2150,10 +2155,114 @@ def test_decode_loop_replays_bit_equal_to_the_eager_loop(dev, route, sampled):
         np.testing.assert_array_equal(pack[0], eager[0])
         assert np.array_equal(pack, eager)  # bit-equal, NaNs none
     assert np.isfinite(eager).all() and ((eager[0] >= 0) & (eager[0] < sz.vocab)).all()
-    assert d_replay == d_eager and all(d_replay.get(f"{n}_launches", 0) > 0 for n in want), (
+    assert d_replay == d_eager and all(
+        d_replay.get(n if n.endswith("_steps") else f"{n}_launches", 0) > 0 for n in want), (
         d_replay, d_eager)
     assert text.decode_eager_loops >= 1 and len(pipe.graphs.graphs) == 1
     assert pipe.graphs.pool_bytes() > 0
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_swap_between_replays_leaves_the_next_replay_unchanged(dev, kv_quant):
+    """Two 2-layer full-width pipelines (chip_smoke's builders) over the same
+    weights and the same prefilled pools, 3 sequences, a decode call each
+    (captured, replayed). Then on one of them the second sequence is swapped
+    out by the engine's _swap_out_seq, its pages freed, taken by another
+    sequence and overwritten, and the sequence swapped back in
+    (_swap_in_seq) into fresh pages: its context reads back bit-equal
+    through the new pages, and the next call (a replay of the same graph)
+    gives a pack, and writes K/V, bit-equal to the unswapped pipeline's, on
+    bf16 and on int8 pools; the pools keep their addresses. (On random
+    weights a pack depends little on the context: the page checks carry
+    the test.)"""
+    import numpy as np
+
+    import chip_smoke as cs
+    from mistralrs_tpu_torch.engine.block_manager import BlockManager
+    from mistralrs_tpu_torch.engine.engine import Engine
+    from mistralrs_tpu_torch.engine.sampler import SamplingParams
+    from mistralrs_tpu_torch.engine.sequence import Sequence
+    from mistralrs_tpu_torch.models.loader import make_rope
+    from mistralrs_tpu_torch.ops.paged_attention import _pool_leaves
+    from mistralrs_tpu_torch.pipeline import graphs
+    from mistralrs_tpu_torch.pipeline.text import PipelineConfig, TextPipeline
+
+    sz = cs.Sizes()
+    cfg = cs.model_config(sz, 2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pc = PipelineConfig(page_size=16, num_pages=96, max_seqs=4, max_model_len=2048,
+                        prefill_buckets=(64, 256), decode_steps=4, dtype=torch.bfloat16,
+                        device="cuda", kv_quant=kv_quant)
+    rope = make_rope(cfg, pc.max_model_len, device=dev)
+    a = TextPipeline(cfg, cs.random_q4km_params(sz, 2, dev, gen, torch.bfloat16), rope, pc)
+    b = TextPipeline(cfg, a.params, rope, pc)
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(1, sz.vocab, n)] for n in (200, 183, 100)]
+    sides = []
+    for pipe in (a, b):
+        bm = BlockManager(pc.num_pages, pc.page_size)
+        seqs = []
+        for p in prompts:
+            seq = Sequence(list(p), SamplingParams(max_len=16), max_model_len=pc.max_model_len)
+            bm.allocate(seq)
+            seqs.append(seq)
+        sides.append((pipe, bm, seqs))
+    a.run_prefill_chunks([(s, list(s.tokens)) for s in sides[0][2]])
+    for dst, src in zip(_pool_leaves(b.cache).values(), _pool_leaves(a.cache).values()):
+        dst.copy_(src)
+    for _, _, seqs in sides:
+        for seq in seqs:
+            seq.prefill_done_tokens = seq.kv_len = len(seq.tokens)
+            seq.tokens.append(7)  # the token the first call feeds
+
+    def call(side):
+        """One decode call; its tokens join each sequence, the last one fed next."""
+        pipe, bm, seqs = side
+        for seq in seqs:
+            bm.append_slot(seq, pc.decode_steps)
+        pack = pipe.run_decode_multi(seqs)
+        for i, seq in enumerate(seqs):
+            seq.tokens.extend(int(t) for t in pack[0][:, i])
+        return pack
+
+    first = [call(side) for side in sides]
+    assert np.array_equal(first[0], first[1])
+    ptrs = [t.data_ptr() for t in _pool_leaves(a.cache).values()]
+    _, bm, seqs = sides[0]
+    seq = seqs[1]
+    old = list(seq.block_table)
+    eng = Engine(a, eos_token_ids=set(), prefix_cache=False, preempt_mode="swap")
+    eng._swap_out_seq(seq)
+    bm.free_sequence(seq)
+    other = Sequence([1] * (16 * len(old)), SamplingParams(max_len=1),
+                     max_model_len=pc.max_model_len)
+    bm.allocate(other)  # takes the freed pages first
+    assert set(old) <= set(other.block_table)
+    at = (slice(None),) * a.cache.page_axis + (old,)
+    for leaf in _pool_leaves(a.cache).values():
+        leaf[at] = 3 if leaf.dtype == torch.int8 else 1e3
+    bm.allocate(seq)
+    assert not set(seq.block_table) & set(old)
+    eng._swap_in_seq(seq)
+    assert seq.swap_host is None
+    twin = sides[1][2][1]
+
+    def context(pipe, s, n):
+        """Every leaf's first n pages of s, in table order."""
+        idx = torch.tensor(s.block_table[:n], device=dev)
+        return [leaf.index_select(pipe.cache.page_axis, idx)
+                for leaf in _pool_leaves(pipe.cache).values()]
+
+    live = -(-seq.kv_len // pc.page_size)
+    assert all(torch.equal(x, y) for x, y in zip(context(a, seq, live), context(b, twin, live)))
+    replays = graphs.decode_graph_replays
+    got, want = call(sides[0]), call(sides[1])
+    assert graphs.decode_graph_replays == replays + 2 and len(a.graphs.graphs) == 1
+    assert np.array_equal(got, want) and np.isfinite(got).all()
+    # the replay wrote the new tokens' K/V through the new table, as b did
+    live = -(-seq.kv_len // pc.page_size)
+    assert all(torch.equal(x, y) for x, y in zip(context(a, seq, live), context(b, twin, live)))
+    assert [t.data_ptr() for t in _pool_leaves(a.cache).values()] == ptrs
 
 
 # ------------------------------------------------------------- runtime re-quantization
@@ -2240,8 +2349,9 @@ def _spec_setup(dev, kind: str):
     catch-up take K1's and K2's rows instantiations and its 16-row feeds
     the decode ones), its speculative pipeline (kind "draft": the target's
     first layer as the draft, chip_smoke.draft_prefix; "pld": prompt
-    lookup) at gamma 4 and 3 rounds a call, and 3 prefilled sequences (for
-    "draft" the second's draft two tokens behind)."""
+    lookup; with "_int8", kv_quant pools) at gamma 4 and 3 rounds a call,
+    and 3 prefilled sequences (for "draft" the second's draft two tokens
+    behind)."""
     import numpy as np
 
     import chip_smoke as cs
@@ -2255,9 +2365,11 @@ def _spec_setup(dev, kind: str):
     sz = cs.Sizes()
     cfg = cs.model_config(sz, 2)
     gen = torch.Generator(device=dev).manual_seed(0)
+    kv_quant = kind.endswith("_int8")
+    kind = kind.removesuffix("_int8")
     pc = PipelineConfig(page_size=16, num_pages=96, max_seqs=16, max_model_len=2048,
                         prefill_buckets=(64, 256), decode_steps=4, dtype=torch.bfloat16,
-                        device="cuda")
+                        device="cuda", kv_quant=kv_quant)
     target = TextPipeline(cfg, cs.random_q4km_params(sz, 2, dev, gen, torch.bfloat16),
                           make_rope(cfg, pc.max_model_len, device=dev), pc)
     if kind == "draft":
@@ -2281,13 +2393,14 @@ def _spec_setup(dev, kind: str):
     return pipe, seqs
 
 
-@pytest.mark.parametrize("kind", ["draft", "pld"])
+@pytest.mark.parametrize("kind", ["draft", "pld", "draft_int8", "pld_int8"])
 def test_spec_loop_replays_bit_equal_to_the_eager_loop(dev, kind):
     """run_spec_multi (captured on its first call under sync debug mode
     "error", then replayed under it) against run_spec_multi_eager on the
     same inputs: packs bit-equal, a replay's launch counts equal to the
     eager loop's, K1 and K2 at their rows instantiations among them (and
-    at their decode ones for the model draft)."""
+    at their decode ones for the model draft); "_int8": the target's and
+    the draft's KV pools int8 (kv_quant)."""
     import numpy as np
 
     from mistralrs_tpu_torch.pipeline import graphs
@@ -2314,7 +2427,7 @@ def test_spec_loop_replays_bit_equal_to_the_eager_loop(dev, kind):
     counts = eager[:, :, 2 * W]
     assert counts.min() >= 1 and counts.max() <= W
     want = ["q4k_q8_gemv_rows", "q8_0_q8_gemv_rows"]
-    if kind == "draft":
+    if kind.startswith("draft"):
         want += ["q4k_q8_gemv", "q8_0_q8_gemv"]
     assert d_replay == d_eager and all(d_replay.get(f"{n}_launches", 0) > 0 for n in want), (
         d_replay, d_eager)

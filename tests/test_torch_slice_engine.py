@@ -173,5 +173,6 @@ def test_port_engine_refuses_what_is_not_ported(model):
 
     with pytest.raises(NotImplementedError):
         eng.add_request(GenerationRequest([1, 2, 3], constraint=Constraint()))
-    with pytest.raises(NotImplementedError):
-        eng._swap_out_seq(None)
+    # KV swap is ported: swap mode hands the scheduler the engine's swapper
+    swap = Engine(eng.pipeline, eos_token_ids=set(), prefix_cache=False, preempt_mode="swap")
+    assert swap.scheduler.preempt_mode == "swap" and swap.scheduler.swapper == swap._swap_out_seq
